@@ -7,8 +7,6 @@ whose NumPy/CuPy class split becomes the tensor's device).  ``val`` and
 tracking).  The trailing axis is the channel axis.  All arithmetic
 propagates uncertainty to first order with the reference's formulas (see
 ops/uncertainty.py for per-op citations).
-
-The statistics methods of the JAX class (``ops/stats``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +19,7 @@ import torch
 
 from .ops import filters as filt_ops
 from .ops import linearize as lin_ops
+from .ops import stats as stats_ops
 from .ops import uncertainty as u
 from .utils.device import canonical_float
 
@@ -135,7 +134,74 @@ class Measurand:
     def log_10(self) -> "Measurand":
         return Measurand(*u.log_10(self.val, self.std))
 
-    # --- extraction ----------------------------------------------------
+    # --- statistics ----------------------------------------------------
+    def compute_dimension_statistics(self, axis=None) -> dict:
+        """NaN-aware (inverse-uncertainty-weighted) mean/std/error
+        (measurand.py:318-350)."""
+        return stats_ops.dimension_statistics(self.val, self.std, axis=axis)
+
+    def _channel_std(self, c: int, use_std: bool) -> Optional[Tensor]:
+        return self.std[..., c] if (use_std and self.std is not None) \
+            else None
+
+    def compute_channel_histogram(self, bins: int,
+                                  included_range: Optional[Tuple[float, float]]
+                                  = None,
+                                  channels: Optional[List[int]] = None,
+                                  use_std: bool = False) -> dict:
+        """Per-channel weighted histograms (measurand.py:430-469)."""
+        if channels is None:
+            channels = list(range(self.channels))
+        return {c: stats_ops.weighted_histogram(
+                    self.val[..., c], bins, included_range,
+                    self._channel_std(c, use_std))
+                for c in channels}
+
+    def compute_kernel_density_estimate(self, data_points: int,
+                                        included_range: Optional[
+                                            Tuple[float, float]] = None,
+                                        channels: Optional[List[int]] = None,
+                                        use_std: bool = False) -> dict:
+        """Per-channel Gaussian KDE, Silverman bandwidth
+        (measurand.py:716-761): {channel: (kde, x_range)}."""
+        if channels is None:
+            channels = list(range(self.channels))
+        out = {}
+        for c in channels:
+            vals = self.val[..., c]
+            if included_range is None:
+                finite = vals[torch.isfinite(vals)]
+                lo, hi = finite.min().item(), finite.max().item()
+            else:
+                lo, hi = included_range
+            x_range = torch.linspace(lo, hi, data_points, dtype=vals.dtype,
+                                     device=vals.device)
+            out[c] = (stats_ops.gaussian_kde(vals, x_range,
+                                             self._channel_std(c, use_std)),
+                      x_range)
+        return out
+
+    # --- masking / extraction ------------------------------------------
+    def apply_thresholds(self, lower=None, upper=None) -> "Measurand":
+        """NaN-mask values outside per-channel thresholds
+        (measurand.py:375-428), returning a new Measurand.  ``lower`` and
+        ``upper`` hold one entry per channel; None entries (or None for the
+        whole argument) skip that bound."""
+        c = self.channels
+
+        def norm(bounds, fill):
+            if bounds is None:
+                return None
+            if isinstance(bounds, (list, tuple)):
+                if len(bounds) != c:
+                    raise ValueError(
+                        "Threshold length must match the independent axis.")
+                bounds = [fill if b is None else float(b) for b in bounds]
+            return torch.as_tensor(bounds, dtype=self.val.dtype,
+                                   device=self.val.device)
+        return Measurand(*stats_ops.apply_thresholds(
+            self.val, self.std, norm(lower, -np.inf), norm(upper, np.inf)))
+
     def extract(self, dims: Optional[Union[int, List[int]]] = None,
                 axis: int = -1) -> "Measurand":
         """Take slices along ``axis`` (measurand.py:352-373)."""

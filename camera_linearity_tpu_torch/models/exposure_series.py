@@ -1,16 +1,17 @@
-"""ExposureSeries: exposure stacks and their HDR merge.
+"""ExposureSeries: exposure stacks, their linearity analysis and their
+HDR merge.
 
 Port of ``camera_linearity_tpu/models/exposure_series.py`` (reference:
 modules/exposure_series.py:18-476).  The series materializes its images as
-one ``(N, H, W, C)`` tensor plus an ``(N,)`` exposure vector, and the merge
-is one call over that stack (ops/hdr.py): on CUDA, the fused
-repair-and-merge kernel.  The linearity analysis (``process_linearity``,
-pair statistics) is not ported yet.
+one ``(N, H, W, C)`` tensor plus an ``(N,)`` exposure vector.  The merge is
+one call over that stack (ops/hdr.py): on CUDA, the fused repair-and-merge
+kernel.  The pair statistics of the linearity analysis are batched calls
+over the same stack, a few pairs at a time.
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -18,7 +19,10 @@ import torch
 from ..config import CameraConfig, DEFAULT_CONFIG
 from ..measurand import Measurand
 from ..ops import hdr as hdr_ops
+from ..ops import stats as stats_ops
 from ..ops.linearize import icrf_derivative
+from ..ops.uncertainty import scale_difference
+from ..utils import general as gf
 from ..utils import io
 from .image_set import ImageSet
 
@@ -28,14 +32,88 @@ __all__ = ["ExposurePair", "ExposureSeries"]
 
 
 class ExposurePair:
-    """A (short, long) exposure pairing (exposure_series.py:18-47); its
-    statistics wait for the port of ops/stats."""
+    """A (short, long) exposure pairing with its computed statistics
+    (exposure_series.py:18-76)."""
 
     def __init__(self, short_exposure: ImageSet, long_exposure: ImageSet):
         self.short_exposure = short_exposure
         self.long_exposure = long_exposure
         self.exposure_ratio = (short_exposure.features["exposure"]
                                / long_exposure.features["exposure"])
+        self.absolute_difference: Optional[ImageSet] = None
+        self.relative_difference: Optional[ImageSet] = None
+        self.absolute_stats: Optional[Dict] = None
+        self.relative_stats: Optional[Dict] = None
+
+    def compute_difference(self) -> None:
+        self.absolute_difference, self.relative_difference = \
+            ImageSet.compute_difference(self.short_exposure,
+                                        self.long_exposure)
+
+    def compute_stats(self, axis=None, release_memory_after: bool = True
+                      ) -> None:
+        self.absolute_stats = (self.absolute_difference.measurand
+                               .compute_dimension_statistics(axis=axis))
+        self.relative_stats = (self.relative_difference.measurand
+                               .compute_dimension_statistics(axis=axis))
+        if release_memory_after:
+            self.absolute_difference = None
+            self.relative_difference = None
+
+    def process_linearity_distribution(self, bins: int,
+                                       included_range=None, channels=None,
+                                       use_std: bool = False):
+        """Histograms of the difference images (exposure_series.py:56-76)."""
+        abs_h = self.absolute_difference.measurand.compute_channel_histogram(
+            bins, included_range, channels, use_std)
+        rel_h = self.relative_difference.measurand.compute_channel_histogram(
+            bins, included_range, channels, use_std)
+        return abs_h, rel_h
+
+
+# ---------------------------------------------------------------------------
+# pair statistics: (short, long) comparisons over space
+# ---------------------------------------------------------------------------
+
+def _pair_stats(short_val: Tensor, long_val: Tensor,
+                short_std: Optional[Tensor], long_std: Optional[Tensor],
+                ratio: Tensor, use_std: bool):
+    """Absolute and relative difference statistics of one pair of (H, W, C)
+    frames, over space."""
+    (av, astd), (rv, rstd) = scale_difference(
+        short_val, short_std if use_std else None, long_val,
+        long_std if use_std else None, ratio)
+    return (stats_ops.dimension_statistics(av, astd, axis=(0, 1)),
+            stats_ops.dimension_statistics(rv, rstd, axis=(0, 1)))
+
+
+def _pair_stats_all(stack_val: Tensor, stack_std: Optional[Tensor],
+                    short_idx: Tensor, long_idx: Tensor, ratios: Tensor,
+                    use_std: bool, batch_size: int = 8):
+    """All K exposure-pair statistics over the (N, H, W, C) stack.
+
+    The pairs are gathered from the stack ``batch_size`` at a time, as the
+    JAX package's ``lax.map(batch_size=8)`` does, so live memory stays at a
+    few pair-planes instead of all K difference images.  Returns the
+    absolute and relative statistics as dicts of (K, C) tensors.
+    """
+    parts = []
+    for start in range(0, short_idx.shape[0], batch_size):
+        si = short_idx[start:start + batch_size]
+        li = long_idx[start:start + batch_size]
+        r = ratios[start:start + batch_size].to(stack_val.dtype)
+        (av, astd), (rv, rstd) = scale_difference(
+            stack_val[si], stack_std[si] if use_std else None,
+            stack_val[li], stack_std[li] if use_std else None,
+            r[:, None, None, None])
+        parts.append((stats_ops.dimension_statistics(av, astd, axis=(1, 2)),
+                      stats_ops.dimension_statistics(rv, rstd, axis=(1, 2))))
+
+    def cat(kind):
+        return {key: None if parts[0][kind][key] is None
+                else torch.cat([p[kind][key] for p in parts])
+                for key in parts[0][kind]}
+    return cat(0), cat(1)
 
 
 class ExposureSeries:
@@ -283,3 +361,84 @@ class ExposureSeries:
 
         self.merged_image_set = hdr_set
         return hdr_set
+
+    # --- linearity analysis ----------------------------------------------
+    def process_linearity(self, ICRF: Optional[Tensor] = None,
+                          linearity_limit: Optional[int] = None,
+                          use_std: bool = False) -> None:
+        """Per-pair linearity statistics (exposure_series.py:421-446).
+
+        Thresholds each image via ICRF-mapped limits, then computes the
+        absolute/relative difference statistics of every exposure pair over
+        the materialized (N, H, W, C) stack (``_pair_stats_all``).  Pairs
+        built by hand from sets outside this series take one call each.
+        """
+        cfg = self.config
+        lower, upper = gf.map_linearity_limits(linearity_limit,
+                                               linearity_limit, ICRF, cfg)
+        for s in self.input_image_sets:
+            if s.measurand is None or s.measurand.val is None:
+                s.load_value_image()
+            if use_std and s.measurand.std is None:
+                s.load_std_image()
+            s.measurand = s.measurand.apply_thresholds(lower, upper)
+
+        if self.exposure_pairs is None:
+            self.initialize_exposure_pairs()
+        if not self.exposure_pairs:
+            return
+
+        sets = self.input_image_sets
+        index_of = {id(s): i for i, s in enumerate(sets)}
+        if any(id(p.short_exposure) not in index_of
+               or id(p.long_exposure) not in index_of
+               for p in self.exposure_pairs):
+            for pair in self.exposure_pairs:
+                sm = pair.short_exposure.measurand
+                lm = pair.long_exposure.measurand
+                pair.absolute_stats, pair.relative_stats = _pair_stats(
+                    sm.val, lm.val, sm.std, lm.std,
+                    torch.tensor(pair.exposure_ratio, dtype=sm.val.dtype,
+                                 device=sm.val.device),
+                    use_std and sm.std is not None)
+            return
+        short_idx = [index_of[id(p.short_exposure)]
+                     for p in self.exposure_pairs]
+        long_idx = [index_of[id(p.long_exposure)]
+                    for p in self.exposure_pairs]
+        ratios = [p.exposure_ratio for p in self.exposure_pairs]
+
+        effective_std = use_std and all(s.measurand.std is not None
+                                        for s in sets)
+        stack_val, stack_std, _ = self.stack(with_std=effective_std)
+        dev = stack_val.device
+        abs_all, rel_all = _pair_stats_all(
+            stack_val, stack_std, torch.tensor(short_idx, device=dev),
+            torch.tensor(long_idx, device=dev),
+            torch.tensor(ratios, dtype=torch.float64, device=dev),
+            effective_std)
+
+        for k, pair in enumerate(self.exposure_pairs):
+            pair.absolute_stats = {key: (None if v is None else v[k])
+                                   for key, v in abs_all.items()}
+            pair.relative_stats = {key: (None if v is None else v[k])
+                                   for key, v in rel_all.items()}
+
+    def collect_exposure_pair_stats(self) -> Tuple[Dict, Dict]:
+        """Per-pair stats stacked into (pairs, channels) numpy arrays
+        (exposure_series.py:448-476)."""
+        def host(t):
+            return None if t is None else t.detach().cpu().numpy()
+
+        def collect(kind):
+            out = {"ratios": [], "means": [], "stds": [], "errors": []}
+            for pair in self.exposure_pairs:
+                stats = (pair.absolute_stats if kind == "abs"
+                         else pair.relative_stats)
+                out["ratios"].append(pair.exposure_ratio)
+                out["means"].append(host(stats["mean"]))
+                out["stds"].append(host(stats["std"]))
+                out["errors"].append(host(stats["error"]))
+            return {key: None if all(e is None for e in v) else np.asarray(v)
+                    for key, v in out.items()}
+        return collect("abs"), collect("rel")

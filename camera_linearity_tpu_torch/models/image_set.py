@@ -2,10 +2,12 @@
 
 Port of ``camera_linearity_tpu/models/image_set.py`` (reference:
 modules/image_set.py:25-501): filename-grammar features, dark/flat-frame
-matching, exposure scaling and tif loading.  The payload is a
+matching, exposure scaling, differences and interpolation between frames,
+and tif loading.  The payload is a
 :class:`~camera_linearity_tpu_torch.measurand.Measurand`; images loaded
-from files land on the set's ``device``.  Saving and display are not
-ported yet.
+from files land on the set's ``device``.  Saving, display and the
+dark/flat calibration helpers (``calibrate_flats``,
+``calibrate_dark_frames``) need the image codec and are not ported yet.
 """
 from __future__ import annotations
 
@@ -220,6 +222,34 @@ class ImageSet:
         lut = self.measurand.linearize(self._to_device(std_data),
                                        max_dn=self.config.max_dn)
         return lut.val
+
+    # --- static combinators --------------------------------------------
+    @staticmethod
+    def compute_difference(short_set: "ImageSet", long_set: "ImageSet"):
+        """(absolute, relative) exposure-ratio-scaled difference
+        (image_set.py:437-451)."""
+        ratio = short_set.features["exposure"] / long_set.features["exposure"]
+        abs_m, rel_m = Measurand.compute_difference(short_set.measurand,
+                                                    long_set.measurand, ratio)
+        return short_set._derived(abs_m), short_set._derived(rel_m)
+
+    @staticmethod
+    def exposure_interpolation(short_set: "ImageSet", long_set: "ImageSet",
+                               exp: float) -> "ImageSet":
+        """Linear interpolation between frames by exposure
+        (image_set.py:453-480); the result keeps the short frame's
+        features and has no path."""
+        if not isinstance(exp, float):
+            raise TypeError("Interpolation point has unsupported type.")
+        exp0 = short_set.features["exposure"]
+        exp1 = long_set.features["exposure"]
+        if exp > exp1 or exp < exp0:
+            raise ValueError(
+                "Interpolation point is not between the reference values.")
+        m = Measurand.interpolate(short_set.measurand, long_set.measurand,
+                                  exp0, exp1, exp)
+        return ImageSet(features=short_set.features, measurand=m,
+                        config=short_set.config, device=short_set.device)
 
     @classmethod
     def multiple_from_path(cls, path: Union[str, Path],

@@ -118,6 +118,11 @@ def read_txt_to_array(file_name: str | Path,
     return np.loadtxt(load_path, dtype=float)
 
 
+def save_txt(file_path: str | Path, arr: np.ndarray) -> None:
+    Path(file_path).parent.mkdir(parents=True, exist_ok=True)
+    np.savetxt(file_path, np.asarray(arr))
+
+
 def read_icrf_file(file_path: str | Path, bits: int,
                    return_derivative: bool = True
                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:

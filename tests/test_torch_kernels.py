@@ -286,11 +286,19 @@ _PORT_MODULES = [
     "camera_linearity_tpu_torch.ops.filters",
     "camera_linearity_tpu_torch.ops.hdr",
     "camera_linearity_tpu_torch.ops.hdr_cuda",
+    "camera_linearity_tpu_torch.ops.stats",
+    "camera_linearity_tpu_torch.ops.linearity",
     "camera_linearity_tpu_torch.models.image_set",
     "camera_linearity_tpu_torch.models.exposure_series",
+    "camera_linearity_tpu_torch.models.icrf",
+    "camera_linearity_tpu_torch.models.calibration",
+    "camera_linearity_tpu_torch.models.scipy_strict",
+    "camera_linearity_tpu_torch.models.dorf",
     "camera_linearity_tpu_torch.utils.device",
     "camera_linearity_tpu_torch.utils.io",
     "camera_linearity_tpu_torch.utils.state",
+    "camera_linearity_tpu_torch.utils.general",
+    "camera_linearity_tpu_torch.utils.checkpoint",
 ]
 
 
