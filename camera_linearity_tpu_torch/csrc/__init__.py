@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of this directory.
 
-``hdr_merge.cu`` has a plain C interface: ``nvcc`` compiles it for Hopper
+Each ``.cu`` here has a plain C interface: ``nvcc`` compiles it for Hopper
 (sm_90a) into a shared library that ``ctypes`` loads, without PyTorch's
-headers (which would make the build take minutes instead of seconds).  The
-build runs on first use, never at import, into
-``build/torch_kernels/<hash of source and flags>/`` beside the package;
-a changed source builds anew.
+headers (which would make the build take minutes instead of seconds).
+``hdr_merge.cu`` holds K1, ``hdr_merge_lerp.cu`` K2 and K3.  The build runs
+on first use, never at import, every source at once in its own ``nvcc``,
+into ``build/torch_kernels/<source>-<hash of source and flags>/`` beside
+the package; a changed source builds anew.
 """
 from __future__ import annotations
 
@@ -15,20 +16,22 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
-__all__ = ["build", "library", "NVCC_FLAGS"]
+__all__ = ["build", "library", "SOURCES", "NVCC_FLAGS"]
 
 _HERE = Path(__file__).resolve().parent
-_SOURCE = _HERE / "hdr_merge.cu"
+SOURCES = ("hdr_merge", "hdr_merge_lerp")
 _BUILD_ROOT = _HERE.parent.parent / "build" / "torch_kernels"
 
 # no -use_fast_math: the kernels round with rintf and weight with expf, and
-# are held to the plain PyTorch versions at f32 tolerance
+# are held to the plain PyTorch versions at f32 tolerance; -ldl for the
+# tensor-map encoder that hdr_merge_lerp.cu looks up in libcuda
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-ldl")
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -43,45 +46,63 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile ``hdr_merge.cu`` unless this source is built already; return
-    the library's path.  ``ptxas.log`` beside it holds each kernel's
-    registers and shared memory."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = _BUILD_ROOT / digest
-    lib_path = out_dir / "libhdr_merge.so"
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libhdr_merge.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(_SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    (out_dir / "ptxas.log").write_text(proc.stderr)
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
-    return lib_path
+def _lib_path(name: str) -> Path:
+    source = (_HERE / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    return _BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on the first call."""
-    global _lib
-    if _lib is None:
-        _lib = _declare(ctypes.CDLL(str(build())))
-    return _lib
+def build() -> Dict[str, Path]:
+    """Compile every source not built already, all at once; return each
+    library's path by source name.  ``ptxas.log`` beside a library holds
+    its kernels' registers, shared memory and spills."""
+    paths = {name: _lib_path(name) for name in SOURCES}
+    running = []
+    for name, lib in paths.items():
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_HERE / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((name, lib, tmp, proc))
+    failed = []
+    for name, lib, tmp, proc in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu: nvcc failed with code "
+                          f"{proc.returncode}:\n{out}{err}")
+            continue
+        (lib.parent / "ptxas.log").write_text(err)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``<name>.cu``, built on the first call."""
+    if name not in _libs:
+        _libs[name] = _declare(ctypes.CDLL(str(build()[name])))
+    return _libs[name]
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
-    lib.cl_merge_fused.argtypes = [p, i, p, p, p, i, p, ll, i, i, i, i, i, f,
-                                   p, p, p]
-    lib.cl_merge_lerp.argtypes = [p, i, p, p, p, i, p, ll, i, i, i, i, i, f,
-                                  f, p, p, p]
-    lib.cl_merge_lerp_bp.argtypes = [p, p, p, i, f, p, p, i, p, i, i, i, i,
-                                     i, f, p, p, p]
-    for fn in (lib.cl_merge_fused, lib.cl_merge_lerp, lib.cl_merge_lerp_bp):
-        fn.restype = ctypes.c_int
+    signatures = {
+        "cl_merge_fused": [p, i, p, p, p, i, p, ll, i, i, i, i, i, f, p, p,
+                           p],
+        "cl_merge_lerp": [p, i, p, p, p, i, p, ll, i, i, i, i, i, f, f, p, p,
+                          p, p],
+        "cl_merge_lerp_bp": [p, p, p, i, f, p, p, i, p, i, i, i, i, i, f, p,
+                             p, p, p],
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib

@@ -1,20 +1,13 @@
-// HDR-merge kernels K1-K3 for NVIDIA Hopper (sm_90a), with a plain C
-// interface loaded through ctypes (camera_linearity_tpu_torch/csrc/__init__.py).
+// HDR-merge kernel K1 for NVIDIA Hopper (sm_90a), with a plain C interface
+// loaded through ctypes (camera_linearity_tpu_torch/csrc/__init__.py).
 //
-// They replace the three Pallas TPU kernels of
-// camera_linearity_tpu/ops/hdr_pallas2.py:
+// It replaces the Pallas TPU kernel of camera_linearity_tpu/ops/hdr_pallas2.py:
 //
 //   K1 cl_merge_fused    <- merge_planar_fused (:473), body _make_kernel
 //                           (:142): exact ICRF lookup, 256- or 4096-entry
 //                           tables, float [0,1] or integer-DN stacks.
-//   K2 cl_merge_lerp     <- merge_planar_lerp (:532), body
-//                           _make_kernel_lerp(bad_pixel=False) (:284): the
-//                           ICRF is the interpolant of 256-point base curves.
-//   K3 cl_merge_lerp_bp  <- merge_planar_lerp_bp (:595), body
-//                           _make_kernel_lerp(bad_pixel=True) with
-//                           _median9_block (:265): per exposure, the value
-//                           and std of a pixel that the dark frame flags hot
-//                           are replaced by their 3x3 median, then K2 runs.
+//
+// K2 and K3, the merges through base curves, are in hdr_merge_lerp.cu.
 //
 // Per output element (b, h, w, c), over the N exposures: x is the [0,1]
 // value (or DN / max_dn), idx = clamp(rint(x * max_dn)), w = exp(-30 (x -
@@ -22,7 +15,7 @@
 // with std, std = sqrt(sum((bracket * scale / t)^2)) where bracket =
 // (dw g + w dg) / sum(w) - dw w g / sum(w)^2, dg = f' s, and scale is dg
 // under compat "reference", s otherwise.  ops/hdr_cuda.py holds the plain
-// PyTorch version of each kernel, which the tests compare against.
+// PyTorch version of the kernel, which the tests compare against.
 //
 // What bounds them on the card: bytes.  A config-2 merge (6 exposures of
 // 1200 x 1920 x 3, f32 value and std) reads 332 MB and writes 55 MB for
@@ -39,11 +32,7 @@
 //     (the TPU had no vector gather and used one-hot matrix products);
 //   * the exposure axis, a sequential grid axis on the TPU, is a loop in
 //     the thread: pass 1 sums the weights, pass 2 accumulates (its re-read
-//     of the value hits L1);
-//   * K3's repair is a branch: only where a pixel is hot are its 3x3
-//     neighbours read, with clamped indices (scipy mode='reflect' repeats
-//     the edge pixel), and sorted by the same 19-exchange network, so the
-//     TPU's halo blocks and its H % 16 rule are gone.
+//     of the value hits L1).
 // Rounding is rintf (half to even, as jnp.round and torch.round) and the
 // weight uses expf; build without -use_fast_math.
 
@@ -57,19 +46,16 @@ constexpr int kThreads = 256;
 struct MergeArgs {
   const void* val;        // (B, N, H, W, C): f32 in [0,1], or u8 / i32 DNs
   const float* std;       // (B, N, H, W, C) f32, or null (value-only merge)
-  const void* dark;       // K3: (N, H, W, C) f32 dark frames or u8 mask
-  const float* tab;       // (rows, C) ICRF, or base curve for K2/K3
+  const float* tab;       // (rows, C) ICRF
   const float* tab_diff;  // (rows, C) derivative; read only with std
   const float* inv_t;     // (N,) 1 / exposure time, f32
   float* out_val;         // (B, H, W, C)
   float* out_std;         // (B, H, W, C), or null
   long long B;
   int N, H, W, C;
-  int rows;               // table rows: bits for K1, 256 for K2/K3
+  int rows;               // table rows (bits)
   int max_dn;             // bits - 1
   float inv_max_dn;       // f32(1 / max_dn): x of an integer DN
-  float pos_scale;        // f32(255 / max_dn): position on the base curve
-  float threshold;        // K3: a dark value above it flags the pixel hot
   int reference;          // compat "reference" (1) or "corrected" (0)
 };
 
@@ -96,64 +82,14 @@ __device__ __forceinline__ void quantize(int32_t v, const MergeArgs& a,
   quantize_dn(v, a, x, idx);
 }
 
-// table[idx] exactly (K1), or the interpolant of a 256-point base curve at
-// position idx * 255 / max_dn (K2, K3: hdr_pallas2.py:374-378, 416).
-template <bool LERP>
+// table[idx], the exact lookup
 __device__ __forceinline__ float lookup(const float* t, int idx, int c,
                                         const MergeArgs& a) {
-  if constexpr (!LERP) return t[idx * a.C + c];
-  const float pos = (float)idx * a.pos_scale;
-  const int j = min((int)pos, 254);
-  const float frac = pos - (float)j;
-  const float b0 = t[j * a.C + c];
-  const float b1 = t[(j + 1) * a.C + c];
-  return b0 + frac * (b1 - b0);
+  return t[idx * a.C + c];
 }
 
-__device__ __forceinline__ void exchange(float& lo, float& hi) {
-  const float a = fminf(lo, hi);
-  hi = fmaxf(lo, hi);
-  lo = a;
-}
-
-// 3x3 median of plane p (H, W, C) at (h, w, c), edge pixels repeated; the
-// 19-exchange network of hdr_pallas2.py:260-262 and ops/filters.py.
-__device__ float median9(const float* p, int h, int w, int c,
-                         const MergeArgs& a) {
-  float v[9];
-#pragma unroll
-  for (int di = 0; di < 3; ++di) {
-    const int hh = min(max(h + di - 1, 0), a.H - 1);
-#pragma unroll
-    for (int dj = 0; dj < 3; ++dj) {
-      const int ww = min(max(w + dj - 1, 0), a.W - 1);
-      v[di * 3 + dj] = p[((long long)hh * a.W + ww) * a.C + c];
-    }
-  }
-  exchange(v[1], v[2]); exchange(v[4], v[5]); exchange(v[7], v[8]);
-  exchange(v[0], v[1]); exchange(v[3], v[4]); exchange(v[6], v[7]);
-  exchange(v[1], v[2]); exchange(v[4], v[5]); exchange(v[7], v[8]);
-  exchange(v[0], v[3]); exchange(v[5], v[8]); exchange(v[4], v[7]);
-  exchange(v[3], v[6]); exchange(v[1], v[4]); exchange(v[2], v[5]);
-  exchange(v[4], v[7]); exchange(v[4], v[2]); exchange(v[6], v[4]);
-  exchange(v[4], v[2]);
-  return v[4];
-}
-
-__device__ __forceinline__ bool is_hot(const float* dark, long long off,
-                                       float threshold) {
-  return dark[off] > threshold;
-}
-
-__device__ __forceinline__ bool is_hot(const uint8_t* dark, long long off,
-                                       float) {
-  return dark[off] != 0;
-}
-
-// TV: stack element type.  LERP: base-curve interpolant (K2/K3) instead of
-// the exact table (K1).  BAD_PIXEL: K3's hot-pixel repair, with TD the dark
-// element type (f32 frames or u8 mask); K3 takes f32 stacks and B == 1.
-template <typename TV, bool LERP, bool BAD_PIXEL, typename TD>
+// TV: stack element type.
+template <typename TV>
 __global__ void __launch_bounds__(kThreads) merge_kernel(MergeArgs a) {
   extern __shared__ float smem[];
   const bool use_std = a.std != nullptr;
@@ -169,7 +105,6 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(MergeArgs a) {
   __syncthreads();
 
   const TV* val = static_cast<const TV*>(a.val);
-  const TD* dark = static_cast<const TD*>(a.dark);
   const long long plane = (long long)a.H * a.W * a.C;
   const long long total = a.B * plane;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -178,12 +113,6 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(MergeArgs a) {
     const long long b = i / plane;
     const long long r = i - b * plane;          // (h, w, c) within a plane
     const int c = (int)(r % a.C);
-    int h = 0, w = 0;
-    if constexpr (BAD_PIXEL) {
-      const long long pix = r / a.C;
-      h = (int)(pix / a.W);
-      w = (int)(pix - (long long)h * a.W);
-    }
     const long long first = b * a.N * plane;    // plane (b, 0)
 
     // pass 1: sum of weights
@@ -192,14 +121,7 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(MergeArgs a) {
       const long long eplane = first + e * plane;
       float x;
       int idx;
-      if constexpr (BAD_PIXEL) {
-        const float* vp = reinterpret_cast<const float*>(val) + eplane;
-        const float v = is_hot(dark, eplane + r, a.threshold)
-            ? median9(vp, h, w, c, a) : vp[r];
-        quantize(v, a, x, idx);
-      } else {
-        quantize(val[eplane + r], a, x, idx);
-      }
+      quantize(val[eplane + r], a, x, idx);
       const float d = x - 0.5f;
       sw += expf(-30.0f * (d * d));
     }
@@ -212,24 +134,16 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(MergeArgs a) {
       const long long eplane = first + e * plane;
       float x, s = 0.0f;
       int idx;
-      if constexpr (BAD_PIXEL) {
-        const float* vp = reinterpret_cast<const float*>(val) + eplane;
-        const bool hot = is_hot(dark, eplane + r, a.threshold);
-        quantize(hot ? median9(vp, h, w, c, a) : vp[r], a, x, idx);
-        if (use_std) s = hot ? median9(a.std + eplane, h, w, c, a)
-                             : a.std[eplane + r];
-      } else {
-        quantize(val[eplane + r], a, x, idx);
-        if (use_std) s = a.std[eplane + r];
-      }
+      quantize(val[eplane + r], a, x, idx);
+      if (use_std) s = a.std[eplane + r];
       const float d = x - 0.5f;
       const float wt = expf(-30.0f * (d * d));
-      const float g = lookup<LERP>(s_tab, idx, c, a);
+      const float g = lookup(s_tab, idx, c, a);
       const float invt = s_invt[e];
       acc_v += wt * g * invt;
       if (use_std) {
         const float dw = -60.0f * d * wt;
-        const float dg = lookup<LERP>(s_diff, idx, c, a) * s;
+        const float dg = lookup(s_diff, idx, c, a) * s;
         const float bracket = (dw * g + wt * dg) * inv_sw
             - (dw * wt * g) * inv_sw2;
         const float term = bracket * (a.reference ? dg : s) * invt;
@@ -241,9 +155,9 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(MergeArgs a) {
   }
 }
 
-template <typename TV, bool LERP, bool BAD_PIXEL, typename TD>
+template <typename TV>
 int launch(const MergeArgs& a, void* stream) {
-  auto kernel = merge_kernel<TV, LERP, BAD_PIXEL, TD>;
+  auto kernel = merge_kernel<TV>;
   const int n_tab = a.std != nullptr ? 2 : 1;
   const size_t smem = (size_t)(n_tab * a.rows * a.C + a.N) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -266,13 +180,12 @@ int launch(const MergeArgs& a, void* stream) {
 }
 
 MergeArgs make_args(const void* val, const float* std, const float* tab,
-                    const float* tab_diff, int rows, int bits,
-                    const float* inv_t, long long B, int N, int H, int W,
-                    int C, int reference, float* out_val, float* out_std) {
+                    const float* tab_diff, int bits, const float* inv_t,
+                    long long B, int N, int H, int W, int C, int reference,
+                    float inv_max_dn, float* out_val, float* out_std) {
   MergeArgs a;
   a.val = val;
   a.std = std;
-  a.dark = nullptr;
   a.tab = tab;
   a.tab_diff = tab_diff;
   a.inv_t = inv_t;
@@ -283,11 +196,9 @@ MergeArgs make_args(const void* val, const float* std, const float* tab,
   a.H = H;
   a.W = W;
   a.C = C;
-  a.rows = rows;
+  a.rows = bits;
   a.max_dn = bits - 1;
-  a.inv_max_dn = 0.0f;
-  a.pos_scale = 0.0f;
-  a.threshold = 0.0f;
+  a.inv_max_dn = inv_max_dn;
   a.reference = reference;
   return a;
 }
@@ -301,50 +212,13 @@ extern "C" int cl_merge_fused(const void* val, int val_kind, const float* std,
                               int N, int H, int W, int C, int reference,
                               float inv_max_dn, float* out_val,
                               float* out_std, void* stream) {
-  MergeArgs a = make_args(val, std, icrf, icrf_diff, bits, bits, inv_t, B, N,
-                          H, W, C, reference, out_val, out_std);
-  a.inv_max_dn = inv_max_dn;
+  const MergeArgs a = make_args(val, std, icrf, icrf_diff, bits, inv_t, B, N,
+                                H, W, C, reference, inv_max_dn, out_val,
+                                out_std);
   switch (val_kind) {
-    case 0: return launch<float, false, false, float>(a, stream);
-    case 1: return launch<uint8_t, false, false, float>(a, stream);
-    case 2: return launch<int32_t, false, false, float>(a, stream);
+    case 0: return launch<float>(a, stream);
+    case 1: return launch<uint8_t>(a, stream);
+    case 2: return launch<int32_t>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int cl_merge_lerp(const void* val, int val_kind, const float* std,
-                             const float* base, const float* diff_base,
-                             int bits, const float* inv_t, long long B,
-                             int N, int H, int W, int C, int reference,
-                             float inv_max_dn, float pos_scale,
-                             float* out_val, float* out_std, void* stream) {
-  MergeArgs a = make_args(val, std, base, diff_base, 256, bits, inv_t, B, N,
-                          H, W, C, reference, out_val, out_std);
-  a.inv_max_dn = inv_max_dn;
-  a.pos_scale = pos_scale;
-  switch (val_kind) {
-    case 0: return launch<float, true, false, float>(a, stream);
-    case 1: return launch<uint8_t, true, false, float>(a, stream);
-    case 2: return launch<int32_t, true, false, float>(a, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// dark_is_mask: 0 f32 dark frames (hot where dark > threshold), 1 u8 mask
-// (hot where nonzero).
-extern "C" int cl_merge_lerp_bp(const float* val, const float* std,
-                                const void* dark, int dark_is_mask,
-                                float threshold, const float* base,
-                                const float* diff_base, int bits,
-                                const float* inv_t, int N, int H, int W,
-                                int C, int reference, float pos_scale,
-                                float* out_val, float* out_std,
-                                void* stream) {
-  MergeArgs a = make_args(val, std, base, diff_base, 256, bits, inv_t, 1, N,
-                          H, W, C, reference, out_val, out_std);
-  a.dark = dark;
-  a.threshold = threshold;
-  a.pos_scale = pos_scale;
-  if (dark_is_mask) return launch<float, true, true, uint8_t>(a, stream);
-  return launch<float, true, true, float>(a, stream);
 }

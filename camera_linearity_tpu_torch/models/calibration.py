@@ -44,7 +44,7 @@ from ..ops.linearize import interpolate_curve
 from ..utils import general as gf
 from ..utils import io
 from ..utils.checkpoint import DECheckpoint
-from ..utils.device import canonical_float
+from ..utils.device import canonical_float, resolve_device
 from .icrf import icrf_from_params
 from .image_set import ImageSet
 
@@ -242,7 +242,7 @@ def differential_evolution_batched(energy_fn: Callable,
     ``bounds_lower``/``bounds_upper``/``x0`` may be (D,) shared or (C, D)
     per channel (the refinement stages of :func:`calibration` re-solve each
     channel in a box around its own best).  ``device`` defaults to the
-    device of the first tensor in ``channel_data`` (the CPU without one);
+    device of the first tensor in ``channel_data`` (the card without one);
     the float type is that device's canonical one.  Converged channels
     freeze in place until every channel is done (the reference solves
     channels in separate joblib processes,
@@ -263,8 +263,8 @@ def differential_evolution_batched(energy_fn: Callable,
             "(ROADMAP queue 1, item 4), which has not landed")
     if device is None:
         device = next((x.device for x in channel_data
-                       if isinstance(x, Tensor)), torch.device("cpu"))
-    device = torch.device(device)
+                       if isinstance(x, Tensor)), None)
+    device = resolve_device(device)
     dtype = canonical_float(device)
     c, d = num_channels, num_params
     s = max(5, popsize * d)
@@ -340,10 +340,11 @@ def differential_evolution(energy_fn: Callable[[Tensor], Tensor],
                            tol: float = 0.01,
                            maxiter: int = 1000,
                            energy_limit: float = 0.0,
-                           seed: int = 7, device="cpu") -> DEResult:
+                           seed: int = 7, device=None) -> DEResult:
     """One DE solve; ``energy_fn`` maps (D,) params -> scalar and is mapped
     over the population with ``torch.func.vmap``.  The batched solver with
-    one channel, its generator seeded ``seed``."""
+    one channel, its generator seeded ``seed``, on ``device`` (by default
+    the card)."""
     res, _ = differential_evolution_batched(
         energy_fn, (), 1, num_params, bounds_lower, bounds_upper, x0=x0,
         popsize=popsize, mutation=mutation, recombination=recombination,
@@ -362,13 +363,15 @@ def differential_evolution(energy_fn: Callable[[Tensor], Tensor],
 def initialize_channel_image_stacks(image_path: Path, use_std: bool,
                                     data_spacing,
                                     config: CameraConfig = DEFAULT_CONFIG,
-                                    device="cpu"):
+                                    device=None):
     """Load, stride-subsample and stack calibration images per channel
     (ICRF_calibration_exposure.py:219-285).
 
     Returns (value_stacks (C, P, N) integer DNs, std_stacks (C, P, N) or
-    None, exposures (N,), pixel_ratio), as tensors on ``device``.
+    None, exposures (N,), pixel_ratio), as tensors on ``device`` (by
+    default the card).
     """
+    device = resolve_device(device)
     sets = ImageSet.multiple_from_path(image_path, config=config,
                                        device=device)
     sets.sort(key=lambda s: s.features["exposure"])
@@ -445,16 +448,21 @@ def _make_population_energy_chunked(use_mean: bool, penalty: str,
     return fn
 
 
-def _polish(params: Tensor, use_mean: bool, penalty: str, lower_dn: int,
-            upper_dn: int, datapoints: int, steps: int, lr: float,
-            pca: Tensor, mean: Tensor, hists: Tensor, exposures: Tensor,
-            ii, jj) -> Tuple[Tensor, Tensor]:
+def _polish(params: Tensor, lower: Tensor, upper: Tensor, use_mean: bool,
+            penalty: str, lower_dn: int, upper_dn: int, datapoints: int,
+            steps: int, lr: float, pca: Tensor, mean: Tensor, hists: Tensor,
+            exposures: Tensor, ii, jj) -> Tuple[Tensor, Tensor]:
     """Post-DE gradient polish of (C, D) parameters: Adam on the grad-safe
     histogram energy, per channel, keeping the result only where the exact
     DE objective strictly improves.  Returns (params, exact energies).
 
     Adam is optax's ``adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 added outside
-    the square root.  The reference's stepped SciPy solver never polishes
+    the square root.  Each step is projected onto the (D,) bounds
+    ``[lower, upper]``, and a channel whose gradient is not finite keeps
+    its parameters and moments for that step: the JAX package's polish is
+    unconstrained, so it can leave the bounds, and a NaN gradient (a curve
+    reaching 0 inside its limits) makes its parameters NaN.  The
+    reference's stepped SciPy solver never polishes
     (ICRF_calibration_exposure.py:357-370).
     """
     b1, b2, eps = 0.9, 0.999, 1e-8
@@ -473,11 +481,17 @@ def _polish(params: Tensor, use_mean: bool, penalty: str, lower_dn: int,
         leaf = p.requires_grad_(True)
         grad, = torch.autograd.grad(smooth(leaf).sum(), leaf)
         p = leaf.detach()
-        mu = (1 - b1) * grad + b1 * mu
-        nu = (1 - b2) * grad ** 2 + b2 * nu
-        mu_hat = mu / (1 - b1 ** t)
-        nu_hat = nu / (1 - b2 ** t)
-        p = p - lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
+        finite = torch.isfinite(grad).all(dim=-1, keepdim=True)
+        grad = torch.where(finite, grad, 0.0)
+        mu_t = (1 - b1) * grad + b1 * mu
+        nu_t = (1 - b2) * grad ** 2 + b2 * nu
+        mu_hat = mu_t / (1 - b1 ** t)
+        nu_hat = nu_t / (1 - b2 ** t)
+        stepped = torch.clamp(p - lr * (mu_hat / (torch.sqrt(nu_hat) + eps)),
+                              lower, upper)
+        p = torch.where(finite, stepped, p)
+        mu = torch.where(finite, mu_t, mu)
+        nu = torch.where(finite, nu_t, nu)
 
     data = (pca, mean, hists, exposures, ii, jj)
     e_old = exact(params[:, None], *data)[:, 0]
@@ -521,8 +535,8 @@ def calibration(lower_PCA_limit: float, upper_PCA_limit: float,
     (``utils/state.py::channel_stacks_from_numpy`` makes them).  The PCA
     basis and mean curves load from the config's files unless given as
     arrays (C, datapoints, K) / (C, datapoints).  The solve runs on
-    ``device``, by default the value stacks' device (the CPU for numpy
-    input).
+    ``device``, by default the value stacks' device, or the card for numpy
+    input and for images loaded from ``image_path``.
 
     ``energy_form`` picks the population objective: "auto" (by memory
     footprint, the JAX package's rule), "onehot" (the whole stack at once;
@@ -532,8 +546,10 @@ def calibration(lower_PCA_limit: float, upper_PCA_limit: float,
     After the global stage, ``refine_rounds`` re-solve each channel with
     tol 0 in a box around its best, each round 4x narrower; the box is
     clipped to the declared bounds, so a refined solution never leaves
-    them (the JAX package does not clip).  A channel takes a refined or
-    polished answer only on strict improvement.
+    them (the JAX package does not clip).  The polish projects each Adam
+    step onto the same bounds (the JAX package's polish is unconstrained).
+    A channel takes a refined or polished answer only on strict
+    improvement.
 
     Returns (ICRF (bits, C), initial_energies (C,), final_energies (C,),
     pixel_ratio) as numpy arrays; with ``return_base`` the solved
@@ -555,11 +571,10 @@ def calibration(lower_PCA_limit: float, upper_PCA_limit: float,
         value_stacks, std_stacks, exposures, pixel_ratio = \
             initialize_channel_image_stacks(image_path, use_std,
                                             data_spacing, config=cfg,
-                                            device=device or "cpu")
-    if device is None:
-        device = value_stacks.device if isinstance(value_stacks, Tensor) \
-            else "cpu"
-    device = torch.device(device)
+                                            device=device)
+    if device is None and isinstance(value_stacks, Tensor):
+        device = value_stacks.device
+    device = resolve_device(device)
     dtype = canonical_float(device)
 
     if pca_arrays is None:
@@ -667,14 +682,16 @@ def calibration(lower_PCA_limit: float, upper_PCA_limit: float,
                              result_r.x, best_x)
         final_energies = np.where(improved, energy_r, final_energies)
 
-    # Gradient polish (unweighted objective only), accepted per channel
-    # only on strict improvement of the exact DE objective.
+    # Gradient polish (unweighted objective only) within the declared
+    # bounds, accepted per channel only on strict improvement of the exact
+    # DE objective.
     if polish_steps and not use_std_stacks:
         if hists is None:
             hists = lin_ops.pair_dn_histograms(value_stacks, ii, jj,
                                                cfg.datapoints)
         best_x, polished_e = _polish(
-            best_x, use_mean_icrf, penalty, lower_dn, upper_dn,
+            best_x, on_device(lower_b, dtype), on_device(upper_b, dtype),
+            use_mean_icrf, penalty, lower_dn, upper_dn,
             cfg.datapoints, int(polish_steps), float(polish_lr), pca, mean,
             hists, exposures, ii, jj)
         final_energies = polished_e.cpu().numpy().astype(float)

@@ -154,10 +154,11 @@ class ExposureSeries:
     @classmethod
     def from_dir_path(cls, directory_path: Path,
                       config: CameraConfig = DEFAULT_CONFIG,
-                      device: Union[str, torch.device] = "cpu"
+                      device: Optional[Union[str, torch.device]] = None
                       ) -> List["ExposureSeries"]:
         """One ExposureSeries per distinct feature group in a directory
-        (exposure_series.py:147-161)."""
+        (exposure_series.py:147-161), on ``device`` (by default the
+        card)."""
         sets = ImageSet.multiple_from_path(directory_path, config=config,
                                            device=device)
         return cls.from_multiple_image_sets(sets, config=config)

@@ -19,7 +19,7 @@ import torch
 from ..config import CameraConfig, DEFAULT_CONFIG
 from ..measurand import Measurand
 from ..utils import io
-from ..utils.device import canonical_float
+from ..utils.device import canonical_float, resolve_device
 
 Tensor = torch.Tensor
 
@@ -27,24 +27,30 @@ __all__ = ["ImageSet"]
 
 
 class ImageSet:
-    """An image + features + Measurand payload (image_set.py:25-53)."""
+    """An image + features + Measurand payload (image_set.py:25-53).
+
+    ``device`` is where images loaded from files land: by default the
+    payload's device, or the card for a set without a payload."""
 
     def __init__(self, file_path: Optional[Union[str, Path]] = None,
                  value: Optional[Tensor] = None, std: Optional[Tensor] = None,
                  features: Optional[Dict] = None,
                  measurand: Optional[Measurand] = None,
                  config: CameraConfig = DEFAULT_CONFIG,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Optional[Union[str, torch.device]] = None):
         self.path = Path(file_path) if isinstance(file_path, str) \
             else file_path
         self.config = config
-        self.device = torch.device(device)
         if measurand is not None:
             self.measurand = measurand
         elif value is not None or std is not None:
             self.measurand = Measurand(value, std)
         else:
             self.measurand = None
+        # a payload decides the device; without one, the default (the card)
+        if device is None and self.measurand is not None:
+            device = self.measurand.device
+        self.device = resolve_device(device)
 
         if features is not None:
             self.features = features
@@ -254,9 +260,10 @@ class ImageSet:
     @classmethod
     def multiple_from_path(cls, path: Union[str, Path],
                            config: CameraConfig = DEFAULT_CONFIG,
-                           device: Union[str, torch.device] = "cpu"
+                           device: Optional[Union[str, torch.device]] = None
                            ) -> List["ImageSet"]:
         """ImageSets for every non-STD tif in a directory, unloaded
-        (image_set.py:482-501)."""
+        (image_set.py:482-501), on ``device`` (by default the card)."""
+        device = resolve_device(device)
         return [cls(file_path=p, config=config, device=device)
                 for p in io.list_image_paths(path)]

@@ -1,7 +1,8 @@
 """The HDR-merge kernels K1-K3: CUDA wrappers, launch counts, plain versions.
 
 Port of ``camera_linearity_tpu/ops/hdr_pallas2.py``.  Each Pallas kernel
-there becomes a hand-written CUDA kernel in ``csrc/hdr_merge.cu``:
+there becomes a hand-written CUDA kernel, K1 in ``csrc/hdr_merge.cu``, K2
+and K3 in ``csrc/hdr_merge_lerp.cu``:
 
 ========================  ==========================================
 wrapper                   replaces (camera_linearity_tpu/ops/...)
@@ -18,12 +19,17 @@ adds one to its ``launches`` count, or raises; on a CPU tensor it runs its
 plain PyTorch version (``merge_fused_plain``, ``merge_lerp_plain``,
 ``merge_lerp_bp_plain``), which the tests hold against the JAX kernels and
 the kernels are held against on the card.  Importing this module builds
-nothing: the library is compiled on the first launch (``csrc.library``).
+nothing: the libraries are compiled on the first launch (``csrc.library``).
+
+K2 and K3 stage tiles of every exposure in shared memory.
+:func:`plan_lerp_tiles` picks the tile and lays out the shared memory of a
+launch, and :func:`tma_route` picks how the tiles are loaded: by TMA where
+the stack's base and row pitch allow it, else by the block's threads.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +43,16 @@ ValStd = Tuple[Tensor, Optional[Tensor]]
 
 __all__ = ["merge_nhwc_fused", "merge_nhwc_lerp", "merge_nhwc_lerp_bp",
            "merge_fused_plain", "merge_lerp_plain", "merge_lerp_bp_plain",
-           "is_piecewise_linear_256", "KERNELS"]
+           "is_piecewise_linear_256", "KERNELS", "TilePlan",
+           "plan_lerp_tiles", "tma_route"]
 
-# shared memory a block may take on Hopper (227 KB)
+# shared memory a block may take on Hopper (227 KB), and what each of two
+# blocks on one SM may take (228 KB an SM, 1 KB of it reserved per block)
 _MAX_SMEM = 232448
+_SMEM_TWO_BLOCKS = (233472 - 2 * 1024) // 2
+# exposures a K2/K3 block holds at once: K3 keeps its hot tests as the bits
+# of a 32-bit word
+MAX_SLOTS = 32
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +183,109 @@ def is_piecewise_linear_256(icrf, tol: float = 1e-3) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# K2 / K3 tile plan
+# ---------------------------------------------------------------------------
+
+class TilePlan(NamedTuple):
+    """One K2/K3 launch's tiling, in the field order of the C struct
+    ``TilePlan`` of ``csrc/hdr_merge_lerp.cu``; offsets and sizes in bytes.
+    A block owns ``th`` rows x ``twe`` elements of the (H, W*C) output, one
+    thread for each 4 of them, and holds ``slots`` exposures' tiles at once
+    (every exposure when ``slots`` is N)."""
+    th: int          # output tile rows
+    twe: int         # output tile elements per row (a multiple of 16)
+    pad: int         # K3: halo columns on each side, C rounded up to 4
+    slots: int       # exposures held at once
+    tma: int         # 1: the TMA route, 0: the copy route
+    rows: int        # value / std tile rows: th + 2 halo rows for K3
+    stride: int      # value / std tile row pitch, elements: twe + 2 pad
+    off_std: int     # std tile within a slot
+    off_dark: int    # K3's dark tile (th x twe) within a slot
+    slot_bytes: int
+    off_bar: int     # the slots' mbarriers, after the tables
+    off_slots: int   # slot 0
+    smem: int        # the launch's dynamic shared memory
+    tx_bytes: int    # bytes TMA writes into a slot
+
+    @property
+    def threads(self) -> int:
+        return self.th * self.twe // 4
+
+
+def _align(n: int, to: int = 128) -> int:
+    return -(-n // to) * to
+
+
+def _layout(th: int, twe: int, pad: int, halo: int, slots: int, c: int,
+            val_size: int, use_std: bool, dark_size: int) -> TilePlan:
+    rows, stride = th + 2 * halo, twe + 2 * pad
+    val_b = rows * stride * val_size
+    std_b = rows * stride * 4 if use_std else 0
+    dark_b = th * twe * dark_size
+    off_std = _align(val_b)
+    off_dark = off_std + _align(std_b)
+    slot_bytes = off_dark + _align(dark_b)
+    off_bar = _align(256 * c * 8)  # the (f, f') table pairs come first
+    off_slots = off_bar + _align(8 * slots)
+    # 128 more: the kernel aligns its base to 128 bytes for TMA
+    smem = off_slots + slots * slot_bytes + 128
+    return TilePlan(th, twe, pad, slots, 0, rows, stride, off_std, off_dark,
+                    slot_bytes, off_bar, off_slots, smem,
+                    val_b + std_b + dark_b)
+
+
+def plan_lerp_tiles(n: int, c: int, val_size: int, use_std: bool,
+                    dark_size: int = 0) -> TilePlan:
+    """The tile and shared-memory layout of a K2 (``dark_size`` 0) or K3
+    (``dark_size`` 4 for f32 darks, 1 for a u8 mask) launch over ``n``
+    exposures of ``c`` channels whose values take ``val_size`` bytes.
+
+    The largest tile whose ``n`` exposures fit two blocks on an SM: K2
+    rows of 256 elements (1 KB of f32, 4 to 1 rows), K3 rows of 64 elements
+    with a one-pixel halo around them (16 to 2 rows).  Beyond that, the
+    largest tile with as many exposures as one block holds (at most
+    ``MAX_SLOTS``): the exposures then stream through the slots, and pass 2
+    loads them again.  Raises ValueError when not even one exposure fits."""
+    k3 = dark_size > 0
+    twe, heights = (64, (16, 8, 4, 2)) if k3 else (256, (4, 2, 1))
+    pad, halo = (-(-c // 4) * 4, 1) if k3 else (0, 0)
+
+    def layout(th, slots):
+        return _layout(th, twe, pad, halo, slots, c, val_size, use_std,
+                       dark_size)
+    if n <= MAX_SLOTS:
+        for th in heights:
+            plan = layout(th, n)
+            if plan.smem <= _SMEM_TWO_BLOCKS:
+                return plan
+    for slots in range(min(n, MAX_SLOTS), 0, -1):
+        plan = layout(heights[0], slots)
+        if plan.smem <= _MAX_SMEM:
+            return plan
+    raise ValueError(f"no K{3 if k3 else 2} tile of {c} channels fits the "
+                     f"{_MAX_SMEM} bytes of shared memory a block has")
+
+
+def tma_route(plan: TilePlan, wc: int, val: Tuple[int, int],
+              std: Optional[Tuple[int, int]] = None,
+              dark: Optional[Tuple[int, int]] = None) -> bool:
+    """Whether TMA can load the tiles of ``plan`` from stacks whose rows
+    hold ``wc`` elements; ``val``, ``std`` and ``dark`` give each staged
+    stack's (base address, element size).  TMA needs 16-byte aligned bases
+    and row pitches, and boxes at most 256 elements wide and tall whose
+    rows are a multiple of 16 bytes: ``stride`` elements for the value and
+    std tiles, ``twe`` for the dark tile.  The 16-byte output stores of
+    that route follow from the value stack's alignment."""
+    if max(plan.stride, plan.rows) > 256:
+        return False
+    staged = [(val, plan.stride), (std, plan.stride), (dark, plan.twe)]
+    return all(ptr % 16 == 0 and (wc * size) % 16 == 0
+               and (box * size) % 16 == 0
+               for arr, box in staged if arr is not None
+               for ptr, size in [arr])
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
@@ -221,8 +336,10 @@ def _tables(device: torch.device, channels: int, rows: int,
 
 
 def _launch_args(stack_val: Tensor, stack_std: Optional[Tensor],
-                 exposures: Tensor, smem: int):
-    """Checked batch geometry, reciprocal exposure times and outputs."""
+                 exposures: Tensor, smem: Optional[int] = None):
+    """Checked batch geometry, reciprocal exposure times and outputs;
+    ``smem``, K1's table bytes, is checked against a block's shared
+    memory."""
     if stack_val.ndim not in (4, 5):
         raise ValueError("stack must be (N, H, W, C) or (B, N, H, W, C), "
                          f"got {tuple(stack_val.shape)}")
@@ -235,7 +352,7 @@ def _launch_args(stack_val: Tensor, stack_std: Optional[Tensor],
     if exposures.shape != (n,):
         raise ValueError(f"exposures has shape {tuple(exposures.shape)}, "
                          f"expected ({n},)")
-    if smem + 4 * n > _MAX_SMEM:
+    if smem is not None and smem + 4 * n > _MAX_SMEM:
         raise ValueError(f"tables need {smem + 4 * n} bytes of shared "
                          f"memory, a block has {_MAX_SMEM}")
     if stack_std is not None:
@@ -248,6 +365,28 @@ def _launch_args(stack_val: Tensor, stack_std: Optional[Tensor],
     out_v = torch.empty(out_shape, dtype=torch.float32, device=device)
     out_s = None if stack_std is None else torch.empty_like(out_v)
     return b, n, h, w, c, inv_t, out_v, out_s
+
+
+def _addr(t: Optional[Tensor]) -> Optional[Tuple[int, int]]:
+    return None if t is None else (t.data_ptr(), t.element_size())
+
+
+def _lerp_plan(stack_val: Tensor, stack_std: Optional[Tensor],
+               dark: Optional[Tensor], b: int, n: int, h: int, w: int,
+               c: int):
+    """The checked K2/K3 tile plan with its load route, as the int array
+    the C launch functions take."""
+    plan = plan_lerp_tiles(n, c, stack_val.element_size(),
+                           stack_std is not None,
+                           0 if dark is None else dark.element_size())
+    # the kernels index rows and planes in 32 bits; grid y and z are 16-bit
+    if b * n * h >= 2 ** 31 or h * w * c >= 2 ** 31 or b > 65535 or \
+            -(-h // plan.th) > 65535:
+        raise ValueError(f"stack {tuple(stack_val.shape)} exceeds the "
+                         "merge kernels' 32-bit indexing or grid")
+    plan = plan._replace(tma=int(tma_route(plan, w * c, _addr(stack_val),
+                                           _addr(stack_std), _addr(dark))))
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -274,7 +413,7 @@ def merge_nhwc_fused(stack_val: Tensor, stack_std: Optional[Tensor],
                                  None if stack_std is None else icrf_diff)
     b, n, h, w, c, inv_t, out_v, out_s = _launch_args(
         stack_val, stack_std, exposures, smem)
-    err = csrc.library().cl_merge_fused(
+    err = csrc.library("hdr_merge").cl_merge_fused(
         stack_val.data_ptr(), _VAL_KIND[stack_val.dtype], _ptr(stack_std),
         tab.data_ptr(), _ptr(tab_d), bits, inv_t.data_ptr(), b, n, h, w, c,
         int(compat == "reference"), ctypes.c_float(1.0 / (bits - 1)),
@@ -296,17 +435,18 @@ def merge_nhwc_lerp(stack_val: Tensor, stack_std: Optional[Tensor],
     from .. import csrc
     _check_base(icrf_base, icrf_diff_base, stack_std)
     _check_stack("stack_val", stack_val, stack_val.device, tuple(_VAL_KIND))
-    (tab, tab_d), smem = _tables(stack_val.device, stack_val.shape[-1], 256,
-                                 icrf_base, None if stack_std is None
-                                 else icrf_diff_base)
+    (tab, tab_d), _ = _tables(stack_val.device, stack_val.shape[-1], 256,
+                              icrf_base, None if stack_std is None
+                              else icrf_diff_base)
     b, n, h, w, c, inv_t, out_v, out_s = _launch_args(
-        stack_val, stack_std, exposures, smem)
-    err = csrc.library().cl_merge_lerp(
+        stack_val, stack_std, exposures)
+    plan = _lerp_plan(stack_val, stack_std, None, b, n, h, w, c)
+    err = csrc.library("hdr_merge_lerp").cl_merge_lerp(
         stack_val.data_ptr(), _VAL_KIND[stack_val.dtype], _ptr(stack_std),
         tab.data_ptr(), _ptr(tab_d), bits, inv_t.data_ptr(), b, n, h, w, c,
         int(compat == "reference"), ctypes.c_float(1.0 / (bits - 1)),
         ctypes.c_float(255.0 / (bits - 1)), out_v.data_ptr(), _ptr(out_s),
-        _stream())
+        _stream(), plan)
     _raise_on(err, "merge_nhwc_lerp")
     merge_nhwc_lerp.launches += 1
     return out_v, out_s
@@ -333,17 +473,17 @@ def merge_nhwc_lerp_bp(stack_val: Tensor, stack_std: Optional[Tensor],
     _check_stack("stack_val", stack_val, device, (torch.float32,))
     _check_stack("dark", dark, device, (torch.float32, torch.uint8),
                  stack_val.shape)
-    (tab, tab_d), smem = _tables(device, stack_val.shape[-1], 256,
-                                 icrf_base, None if stack_std is None
-                                 else icrf_diff_base)
+    (tab, tab_d), _ = _tables(device, stack_val.shape[-1], 256, icrf_base,
+                              None if stack_std is None else icrf_diff_base)
     _, n, h, w, c, inv_t, out_v, out_s = _launch_args(
-        stack_val, stack_std, exposures, smem)
-    err = csrc.library().cl_merge_lerp_bp(
+        stack_val, stack_std, exposures)
+    plan = _lerp_plan(stack_val, stack_std, dark, 1, n, h, w, c)
+    err = csrc.library("hdr_merge_lerp").cl_merge_lerp_bp(
         stack_val.data_ptr(), _ptr(stack_std), dark.data_ptr(),
         int(dark.dtype == torch.uint8), ctypes.c_float(float(threshold)),
         tab.data_ptr(), _ptr(tab_d), bits, inv_t.data_ptr(), n, h, w, c,
         int(compat == "reference"), ctypes.c_float(255.0 / (bits - 1)),
-        out_v.data_ptr(), _ptr(out_s), _stream())
+        out_v.data_ptr(), _ptr(out_s), _stream(), plan)
     _raise_on(err, "merge_nhwc_lerp_bp")
     merge_nhwc_lerp_bp.launches += 1
     return out_v, out_s

@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 Phases 1-7, the HDR merge: builds the merge kernels K1-K3 from
-``camera_linearity_tpu_torch/csrc``, holds each against its plain PyTorch
-version on the card at the shapes of BASELINE config 2 (6 exposures of
-1200 x 1920 x 3, f32 value and std) and config 3 (the same geometry with
-dark frames, a flat field and 12-bit tables), drives the port's entry
-points once (``merge_hdr`` and ``ExposureSeries.process_HDR_image``) with
-the launch counts reset, checks the end-to-end result against the same
-call on the CPU, times each kernel against its plain version with CUDA
-events, and times ``process_HDR_image`` end to end on the host clock.
+``camera_linearity_tpu_torch/csrc`` (one ``nvcc`` per source, all at once)
+and prints their registers and spills, holds each against its plain
+PyTorch version on the card at the shapes of BASELINE config 2 (6 exposures
+of 1200 x 1920 x 3, f32 value and std) and config 3 (the same geometry with
+dark frames, a flat field and 12-bit tables), and on a 37 x 53 crop that
+K2 and K3 load by their copy route, drives the port's entry points once
+(``merge_hdr`` and ``ExposureSeries.process_HDR_image``) with the launch
+counts reset, checks the end-to-end result against the same call on the
+CPU, times each kernel against its plain version and against a
+device-to-device ``copy_`` of the same bytes with CUDA events, and times
+``process_HDR_image`` end to end on the host clock and under the
+profiler.
 
 Phases 8-11, the linearity analysis and the calibration (plain PyTorch; no
 kernel of its own): ``process_linearity`` and
@@ -61,12 +65,23 @@ ORACLE_RTOL = 1e-5
 # tests/unit/test_calibration.py:131
 CURVE_ATOL = 0.065
 CAL_GAMMAS = (2.0, 2.2, 2.4)
-SOURCE = "camera_linearity_tpu_torch/csrc/hdr_merge.cu"
+SOURCES = {
+    "merge_nhwc_fused": "camera_linearity_tpu_torch/csrc/hdr_merge.cu",
+    "merge_nhwc_lerp": "camera_linearity_tpu_torch/csrc/hdr_merge_lerp.cu",
+    "merge_nhwc_lerp_bp": "camera_linearity_tpu_torch/csrc/hdr_merge_lerp.cu",
+}
 REPLACES = {
     "merge_nhwc_fused": "camera_linearity_tpu/ops/hdr_pallas2.py:474",
     "merge_nhwc_lerp": "camera_linearity_tpu/ops/hdr_pallas2.py:533",
     "merge_nhwc_lerp_bp": "camera_linearity_tpu/ops/hdr_pallas2.py:596",
 }
+# NVIDIA H100 SXM published peaks (NVIDIA's data sheet): HBM bytes per
+# second, and f32 operations per second outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# f32 operations per element and exposure of the merge with std, counted
+# from the kernels' source (quantize, weight, lookups, bracket; expf as 1)
+OPS_PER_ELEMENT = 48
 
 
 def log(msg: str) -> None:
@@ -206,11 +221,14 @@ def config4_problem(seed=7, n_exp=6, pixels=2000, datapoints=256):
     return np.stack(stacks), exposures, mean_icrf, pca
 
 
-def profile_breakdown(label: str, fn, top: int = 8) -> None:
+def profile_breakdown(label: str, fn, top: int = 8,
+                      by_kernel: bool = False) -> None:
     """One call of ``fn`` under ``torch.profiler`` after one warm-up call:
     the call's host-clock time, the union of its kernels' device
     intervals (busy), the idle share, and its top ops by the device time
-    of the kernels each launched."""
+    of the kernels each launched; with ``by_kernel``, also its top kernels
+    by name (the merge kernels, launched through ctypes, belong to no
+    op)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -239,6 +257,17 @@ def profile_breakdown(label: str, fn, top: int = 8) -> None:
     log(f"  profile {label}: {wall_ms:.3f} ms with the profiler on, "
         f"{len(spans)} kernels, device busy {busy_ms:.3f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms) * 100:.1f} %")
+    if by_kernel:
+        kernel_us = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and \
+                    e.name != "Command Buffer Full":
+                kernel_us[e.name] = kernel_us.get(e.name, 0.0) + \
+                    e.time_range.end - e.time_range.start
+        for name, us in sorted(kernel_us.items(), key=lambda kv: -kv[1]
+                               )[:top]:
+            log(f"    kernel {us / 1e3:9.3f} ms {us / 1e3 / busy_ms * 100:5.1f}"
+                f" % of busy  {name[:70]}")
 
     def dev_us(evt):
         return getattr(evt, "self_device_time_total",
@@ -587,12 +616,12 @@ def main() -> int:
 
     # --- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = csrc.build()
-    csrc.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path}")
-    for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
-        if "Used" in line or "Function properties" in line:
-            log(f"  {line.strip()}")
+    lib_paths = csrc.build()
+    for name in lib_paths:
+        csrc.library(name)
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for name, path in lib_paths.items():
+        log(f"  {name}: {path}")
 
     rng = np.random.default_rng(SEED)
     t_np, vals_np, stds_np, darks_np, flat_np, flat_std_np = make_inputs(rng)
@@ -642,6 +671,12 @@ def main() -> int:
                                     icrf_diff_base=diff_base),
                       hdr_cuda.merge_lerp_plain(val, s, exposures, base,
                                                 diff_base, 4096, compat))
+    sv, ss = (x[:, :37, :53].contiguous() for x in (val, std))
+    res.check("merge_nhwc_lerp", "37 x 53 crop (copy route)",
+              hdr_cuda.merge_nhwc_lerp(sv, ss, exposures, base, diff_base,
+                                       4096),
+              hdr_cuda.merge_lerp_plain(sv, ss, exposures, base, diff_base,
+                                        4096))
 
     # --- phase 5: K3 against its plain version, through merge_corrected --
     log("K3 merge_nhwc_lerp_bp vs merge_lerp_bp_plain (config 3)")
@@ -660,7 +695,7 @@ def main() -> int:
                   hdr_cuda.merge_lerp_bp_plain(val, std, d, exposures, base,
                                                diff_base, thr, 4096))
     sv, ss, sd = (x[:, :37, :53].contiguous() for x in (val, std, dark))
-    res.check("merge_nhwc_lerp_bp", "37 x 53 crop (H not a multiple of 16)",
+    res.check("merge_nhwc_lerp_bp", "37 x 53 crop (copy route)",
               hdr.merge_corrected(sv, ss, sd, exposures, icrf12, diff12, thr,
                                   icrf_base=base, icrf_diff_base=diff_base),
               hdr_cuda.merge_lerp_bp_plain(sv, ss, sd, exposures, base,
@@ -743,7 +778,14 @@ def main() -> int:
 
     # --- phase 7: kernel and plain times ----------------------------------
     log("times (median of CUDA-event samples, plain and kernel in turns; "
-        "MP/s = H*W per second; GB/s = bytes the merge must move)")
+        "MP/s = H*W per second; GB/s = bytes the merge must move; bound = "
+        "those bytes at 3.35 TB/s or its f32 operations at 67 TFLOP/s, the "
+        "larger; copy = a device-to-device copy_ moving the same bytes)")
+    for name, path in lib_paths.items():
+        log(f"  registers and spills, {name}.cu (ptxas):")
+        for line in (path.parent / "ptxas.log").read_text().splitlines():
+            if any(k in line for k in ("Compiling entry", "Used", "spill")):
+                log(f"    {line.strip()}")
     plane = H * W * C * 4
     cases = {  # name: (kernel, plain, bytes read and written)
         "merge_nhwc_fused": (
@@ -768,16 +810,33 @@ def main() -> int:
     }
     times = {}
     for name, (kernel, plain, nbytes) in cases.items():
-        k_s, p_s = [], []
-        for fn, out in ((plain, p_s), (kernel, k_s), (kernel, k_s),
-                        (plain, p_s)):
-            out += time_samples(fn, runs=10, reps=10 if fn is kernel else 2)
-        k_ms, p_ms = float(np.median(k_s)), float(np.median(p_s))
-        times[name] = (k_ms, p_ms)
+        # a copy reads and writes its bytes: half the merge's, each way
+        src = torch.empty(nbytes // 8, dtype=torch.float32, device=dev)
+        dst = torch.empty_like(src)
+
+        def copy():
+            dst.copy_(src)
+        k_s, p_s, c_s = [], [], []
+        for fn, out in ((plain, p_s), (copy, c_s), (kernel, k_s),
+                        (kernel, k_s), (copy, c_s), (plain, p_s)):
+            out += time_samples(fn, runs=10, reps=2 if fn is plain else 10)
+        del src, dst
+        k_ms, p_ms, c_ms = (float(np.median(x)) for x in (k_s, p_s, c_s))
+        bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+        ops_ms = OPS_PER_ELEMENT * N * H * W * C / PEAK_F32_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        times[name] = dict(
+            ms=k_ms, plain_ms=p_ms, copy_ms=c_ms, bytes=nbytes,
+            bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            share=bound_ms / k_ms)
         log(f"  {name}: kernel {k_ms:.4f} ms ({H * W / k_ms / 1e3:.1f} "
             f"MP/s, {nbytes / k_ms / 1e6:.1f} GB/s of {nbytes / 1e6:.0f} "
-            f"MB), plain {p_ms:.4f} ms ({H * W / p_ms / 1e3:.1f} MP/s); "
-            f"kernel samples {min(k_s):.4f}-{max(k_s):.4f} ms")
+            f"MB), bound {bound_ms:.4f} ms ({times[name]['bound_by']}; "
+            f"{times[name]['share'] * 100:.1f} % of it), copy {c_ms:.4f} ms "
+            f"({c_ms / k_ms * 100:.1f} % of the kernel's time), plain "
+            f"{p_ms:.4f} ms ({H * W / p_ms / 1e3:.1f} MP/s); kernel samples "
+            f"{min(k_s):.4f}-{max(k_s):.4f} ms")
 
     # end to end: the host clock around process_HDR_image on the card
     def merge_e2e():
@@ -788,15 +847,18 @@ def main() -> int:
     e2e_ms = host_ms(merge_e2e)
     log(f"  process_HDR_image (config 3, end to end): {e2e_ms:.4f} ms "
         f"({H * W / e2e_ms / 1e3:.1f} MP/s)")
+    profile_breakdown("process_HDR_image (config 3)", merge_e2e,
+                      by_kernel=True)
     del gpu_series, gpu_darks, gpu_flat, val, std, dark
     torch.cuda.empty_cache()
 
     linearity_phases(dev, t_np, vals_np, stds_np)
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+    # no single PyTorch call computes the merge: no library yardstick
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": res.err[name], "ms": times[name][0],
-                "plain_ms": times[name][1]} for name in REPLACES]
+                "max_abs_err": res.err[name], **times[name],
+                "library_ms": None} for name in REPLACES]
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

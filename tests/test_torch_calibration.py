@@ -31,6 +31,7 @@ from camera_linearity_tpu_torch.models import dorf as tdorf  # noqa: E402
 from camera_linearity_tpu_torch.models import icrf as ticrf  # noqa: E402
 from camera_linearity_tpu_torch.models import \
     scipy_strict as tstrict  # noqa: E402
+from camera_linearity_tpu_torch.ops import linearity as tlin  # noqa: E402
 from camera_linearity_tpu_torch.utils.checkpoint import \
     DECheckpoint  # noqa: E402
 from camera_linearity_tpu_torch.utils.state import (  # noqa: E402
@@ -304,20 +305,20 @@ def test_de_solves_sphere_and_respects_bounds():
     res = tcal.differential_evolution(
         lambda x: torch.sum((x - 0.3) ** 2), 4, np.full(4, -2.0),
         np.full(4, 2.0), popsize=10, maxiter=150, tol=1e-4,
-        mutation=(0.3, 1.0), recombination=0.7, seed=3)
+        mutation=(0.3, 1.0), recombination=0.7, seed=3, device="cpu")
     np.testing.assert_allclose(res.x.numpy(), 0.3, atol=1e-2)
     assert float(res.energy) < 1e-4 and res.energy < res.initial_energy
     res = tcal.differential_evolution(
         lambda x: torch.sum(x ** 2), 3, np.array([1.0, 1.0, 1.0]),
         np.array([2.0, 3.0, 4.0]), x0=np.array([1.5, 1.5, 1.5]), popsize=8,
-        maxiter=50, seed=1)
+        maxiter=50, seed=1, device="cpu")
     pop = res.population.numpy()
     assert (pop >= 1 - 1e-9).all() and (pop <= np.array([2, 3, 4]) + 1e-9
                                         ).all()
     np.testing.assert_allclose(res.x.numpy(), 1.0, atol=0.05)
     res = tcal.differential_evolution(
         lambda x: torch.sum(x ** 2), 2, np.full(2, -1.0), np.full(2, 1.0),
-        popsize=10, maxiter=150, energy_limit=0.5, seed=0)
+        popsize=10, maxiter=150, energy_limit=0.5, seed=0, device="cpu")
     assert res.n_iter < 150
 
 
@@ -392,7 +393,8 @@ def test_calibration_energy_forms_agree():
     with pytest.raises(ValueError, match="unknown energy_form"):
         tcal.calibration(-1.0, 1.0, **kw, energy_form="bogus")
     std_kw = dict(kw, channel_stacks=(stacks, np.full(stacks.shape, 0.01),
-                                      exposures))  # numpy input works too
+                                      exposures),  # numpy input works too
+                  device="cpu")
     with pytest.raises(ValueError, match="hist"):
         tcal.calibration(-1.0, 1.0, **std_kw, energy_form="hist")
     _, _, e1c, _ = tcal.calibration(-1.0, 1.0, **std_kw,
@@ -410,7 +412,7 @@ def test_calibration_without_mean_icrf():
         -1.0, 1.0, initial_function=np.zeros(256),
         channel_stacks=(stacks, None, exposures), pca_arrays=pca[None],
         config=tpkg.CameraConfig(num_of_chs=1, datapoints=256), popsize=10,
-        maxiter=120, tol=1e-3, rng_seed=2)
+        maxiter=120, tol=1e-3, rng_seed=2, device="cpu")
     assert e1[0] < e0[0]
     assert np.all(np.diff(icrf[:, 0]) >= -1e-9)
 
@@ -485,6 +487,65 @@ def test_refinement_box_stays_within_bounds(capsys):
           f"[{lo}, {hi}])")
 
 
+def test_polish_stays_within_bounds():
+    """An optimum outside narrow bounds: the JAX package's polish walks out
+    of [lower, upper], the port's projects every Adam step back and ends
+    inside, with a lower energy than without the polish."""
+    stacks, exposures, mean_icrf, pca = _problem((3.0,), pixels=120)
+    lo, hi = -0.1, 0.1
+    kw = dict(popsize=6, maxiter=30, tol=1e-3, rng_seed=3, refine_rounds=0,
+              return_params=True)
+    *_, e1, _, params = tcal.calibration(
+        lo, hi, **_kw(stacks, exposures, mean_icrf, pca), **kw)
+    *_, e0, _, _ = tcal.calibration(
+        lo, hi, **_kw(stacks, exposures, mean_icrf, pca), **kw,
+        polish_steps=0)
+    *_, j_params = jcal.calibration(
+        lo, hi, channel_stacks=(_j(stacks), None, _j(exposures)),
+        pca_arrays=pca[None], mean_icrf_arrays=mean_icrf[None],
+        config=jpkg.CameraConfig(num_of_chs=1, datapoints=256), **kw)
+    assert np.any((j_params < lo) | (j_params > hi)), j_params
+    assert np.all((params >= lo) & (params <= hi)), params
+    assert e1[0] < e0[0]
+
+
+def test_polish_skips_a_step_whose_gradient_is_not_finite(monkeypatch):
+    """A channel whose first gradient is NaN keeps its parameters for that
+    step and is polished by the later ones; the other channel is not held
+    back.  (Without the skip its parameters turn NaN and the polish is
+    lost.)"""
+    stacks, exposures, mean_icrf, pca = _problem((3.0, 1.7), pixels=120)
+    kw = _kw(stacks, exposures, mean_icrf, pca)
+    *_, params = tcal.calibration(-1.0, 1.0, **kw, popsize=6, maxiter=30,
+                                  rng_seed=3, refine_rounds=0, polish_steps=0,
+                                  return_params=True)
+    pca_t, mean_t = kw["pca_arrays"], kw["mean_icrf_arrays"]
+    ii, jj = (torch.as_tensor(a) for a in tlin.upper_triangle_pairs(5))
+    hists = tlin.pair_dn_histograms(torch.as_tensor(stacks).long(), ii, jj,
+                                    256)
+    smooth = tlin.linearity_energy_hist_smooth
+    calls = []
+
+    def first_call_nan_on_channel_1(*args):
+        e = smooth(*args)
+        calls.append(1)
+        if len(calls) == 1:
+            e = e * torch.tensor([1.0, float("nan")], dtype=e.dtype)
+        return e
+    monkeypatch.setattr(tcal.lin_ops, "linearity_energy_hist_smooth",
+                        first_call_nan_on_channel_1)
+    params = torch.as_tensor(params)
+    bound = torch.ones(5, dtype=torch.float64)
+    data = (pca_t, mean_t, hists, torch.as_tensor(exposures), ii, jj)
+    polished, energies = tcal._polish(params, -bound, bound, True, "soft", 5,
+                                      250, 256, 20, 1e-3, *data)
+    exact = tcal._make_population_energy_hist(True, "soft", 5, 250, 256)
+    before = exact(params[:, None], *data)[:, 0]
+    assert torch.isfinite(polished).all()
+    assert torch.all(energies < before), (energies, before)
+    assert not torch.equal(polished[1], params[1])
+
+
 # ---------------------------------------------------------------------------
 # scipy_strict (copied) and dorf
 # ---------------------------------------------------------------------------
@@ -503,7 +564,7 @@ def test_scipy_strict_matches_jax_package_and_hybrid_runs():
     icrf, dev_e, s_init, s_final, n_it = tstrict.calibration_hybrid(
         -1.0, 1.0, **{k: v for k, v in kw.items() if k != "maxiter"},
         strict_maxiter=2, device_kwargs=dict(maxiter=20, refine_rounds=0,
-                                             polish_steps=0))
+                                             polish_steps=0, device="cpu"))
     assert icrf.shape == (256, 2) and np.all(np.isfinite(dev_e))
     assert np.all(s_final <= s_init)
 
@@ -560,7 +621,7 @@ def test_initialize_channel_image_stacks(tmp_path, rng):
                     rng.integers(0, 256, (12, 10, 3)).astype(np.uint8))
     cfg = tpkg.CameraConfig(im_size_x=10, im_size_y=12)
     got = tcal.initialize_channel_image_stacks(tmp_path, False, (3, 4),
-                                               config=cfg)
+                                               config=cfg, device="cpu")
     want = jcal.initialize_channel_image_stacks(
         tmp_path, False, (3, 4), config=jpkg.CameraConfig(im_size_x=10,
                                                           im_size_y=12))

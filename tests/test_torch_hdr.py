@@ -22,6 +22,7 @@ from camera_linearity_tpu.ops import filters as jfilt  # noqa: E402
 from camera_linearity_tpu.ops import hdr as jhdr  # noqa: E402
 from camera_linearity_tpu.ops import hdr_pallas2 as jpallas  # noqa: E402
 from camera_linearity_tpu_torch.ops import hdr as thdr  # noqa: E402
+from camera_linearity_tpu_torch.ops import filters as tfilt  # noqa: E402
 from camera_linearity_tpu_torch.ops import hdr_cuda  # noqa: E402
 from tests.unit.test_hdr_merge import numpy_reference_merge  # noqa: E402
 
@@ -151,11 +152,13 @@ def test_sum_of_weights(rng):
 
 
 def _darks(rng, shape, as_mask, threshold=0.5):
-    """Per-exposure darks, ~5 % hot including the four corners; the last
-    exposure's plane is all zero (no matched dark)."""
+    """Per-exposure darks, ~5 % hot including the four corners and two
+    pairs of adjacent pixels; the last exposure's plane is all zero (no
+    matched dark)."""
     dark = rng.uniform(0.0, 0.1, shape)
     hot = rng.uniform(0, 1, shape) < 0.05
     hot[:, 0, 0] = hot[:, 0, -1] = hot[:, -1, 0] = hot[:, -1, -1] = True
+    hot[:, 3, 4:6] = hot[:, 4:6, 1] = True
     dark[hot] = rng.uniform(0.6, 1.0, int(hot.sum()))
     dark[-1] = 0.0
     return (dark > threshold).astype(np.uint8) if as_mask else dark
@@ -269,6 +272,42 @@ def test_lerp_bp_plain_matches_pallas_k3(rng, bits, as_mask, with_std):
                                       _j(exposures), _j(base), _j(diff_base),
                                       jnp.asarray(thr), bits=bits)
     _close(got, want, K_VAL_TOL, K_STD_TOL)
+
+
+@pytest.mark.parametrize("as_mask", [False, True])
+def test_lerp_bp_plain_repairs_adjacent_hot_pixels_like_pallas_k3(rng,
+                                                                  as_mask):
+    """Hot pixels side by side and one above the other, their raw values at
+    1: each one's median sees its partner's unrepaired value, in the plain
+    version as in the Pallas kernel (H = 32, a multiple of its 16-row
+    blocks), and a repair that saw the partner repaired would differ."""
+    val = _f32_stack(rng)
+    val[:, 3, 4:6] = val[:, 4:6, 1] = 1.0
+    base, diff_base, _, _ = _interp_tables(rng, 4096)
+    dark = _darks(rng, val.shape, as_mask)
+    std, exposures, base, diff_base = _f32(
+        rng.uniform(0.001, 0.02, val.shape), EXPOSURES, base, diff_base)
+    dark = dark if as_mask else dark.astype(np.float32)
+    thr = np.float32(0.5)
+    got = hdr_cuda.merge_lerp_bp_plain(_t(val), _t(std), _t(dark),
+                                       _t(exposures), _t(base),
+                                       _t(diff_base), thr, 4096)
+    want = jpallas.merge_nhwc_lerp_bp(_j(val), _j(std), _j(dark),
+                                      _j(exposures), _j(base), _j(diff_base),
+                                      jnp.asarray(thr), bits=4096)
+    _close(got, want, K_VAL_TOL, K_STD_TOL)
+    # repairing in place, one pixel after the other, changes the pairs
+    seq = val.copy()
+    hot = dark != 0 if as_mask else dark > thr
+    for e in range(N - 1):
+        for (r, c0) in ((3, 4), (3, 5), (4, 1), (5, 1)):
+            win = np.pad(seq[e], ((1, 1), (1, 1), (0, 0)), mode="symmetric")
+            seq[e, r, c0] = np.where(hot[e, r, c0],
+                                     np.median(win[r:r + 3, c0:c0 + 3],
+                                               axis=(0, 1)), seq[e, r, c0])
+    fixed, _ = tfilt.bad_pixel_filter_stack(_t(val), None, _t(dark), thr)
+    assert not np.allclose(fixed.numpy()[:-1, [3, 3, 4, 5], [4, 5, 1, 1]],
+                           seq[:-1, [3, 3, 4, 5], [4, 5, 1, 1]])
 
 
 def test_lerp_bp_plain_is_repair_then_lerp(rng):

@@ -152,7 +152,7 @@ def test_image_loading_through_the_lazy_codec(rng, tmp_path):
             jio.load_image(tmp_path / "5ms BF a 50x.tif", bit64=bit64))
     assert tio.load_image(tmp_path / "missing.tif") is None
 
-    t_sets = tis.ImageSet.multiple_from_path(tmp_path)
+    t_sets = tis.ImageSet.multiple_from_path(tmp_path, device="cpu")
     j_sets = jis.ImageSet.multiple_from_path(tmp_path)
     assert [s.features for s in t_sets] == [s.features for s in j_sets]
     t, j = t_sets[1], j_sets[1]
