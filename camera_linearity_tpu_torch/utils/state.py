@@ -16,12 +16,14 @@ import numpy as np
 import torch
 
 from ..measurand import Measurand
+from ..ops.welford import WelfordState
 from .device import canonical_float
 
 Tensor = torch.Tensor
 
 __all__ = ["icrf_tables_from_numpy", "measurand_from_numpy",
-           "channel_stacks_from_numpy", "pca_from_numpy"]
+           "channel_stacks_from_numpy", "pca_from_numpy",
+           "welford_state_from_numpy"]
 
 
 def _tensor(arr, device, dtype) -> Tensor:
@@ -109,3 +111,23 @@ def pca_from_numpy(pca, mean=None, *, device,
         raise ValueError(f"mean {np.shape(mean)} must be {pca.shape[:2]}")
     return (_tensor(pca, device, dtype),
             None if mean is None else _tensor(mean, device, dtype))
+
+
+def welford_state_from_numpy(count, mean, m2, *, device,
+                             dtype: Optional[torch.dtype] = None
+                             ) -> WelfordState:
+    """A :class:`~..ops.welford.WelfordState` from a frame count and numpy
+    mean / M2 arrays of one shape (a JAX ``WelfordState``'s fields), so a
+    scan begun elsewhere resumes here; ``dtype`` defaults to the device's
+    canonical float."""
+    dtype = canonical_float(device) if dtype is None else dtype
+    mean, m2 = np.array(mean), np.array(m2)  # copies: JAX's are read-only
+    if mean.shape != m2.shape:
+        raise ValueError(f"mean {mean.shape} and m2 {m2.shape} must be one "
+                         "shape")
+    count = int(np.asarray(count))
+    if count < 0:
+        raise ValueError(f"count {count} must be >= 0")
+    return WelfordState(
+        count=torch.tensor(count, dtype=torch.int64, device=device),
+        mean=_tensor(mean, device, dtype), m2=_tensor(m2, device, dtype))

@@ -28,12 +28,25 @@ and std-weighted (the chunked form), with a profile of one generation of
 each.  Inputs come from fixed numpy seeds; tables are gamma-like response
 curves.
 
+Phases 12-14, BASELINE config 5 (video -> HDR): build the native host
+library (and, where libjpeg is there, the MJPEG decoder, held to committed
+frames), write three raw RGBA exposure videos of 12 frames at 2160 x 3840
+into a temporary directory; run ``welford_algorithm`` on the card against
+the host backend and the CPU in float64, and ``compute_noise_profiles``
+against the CPU; run ``batch_video_to_hdr`` on 8 scenes with the
+calibration leg, once with the u16/f16 wire and once with f32/f32, holding
+scenes 0 and 7 against the plain merge, the stacks against a NumPy
+moments oracle and the leg's energy against the reference's; then
+``video_to_hdr`` through K3.  It times the device Welford and K1 at B = 8
+beside their bounds, and K3's share of ``video_to_hdr``.
+
 It prints the card's name and power limit early, one JSON line with the
 kernels' results before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: a nonzero exit and
 no last line.  Without a CUDA device it exits with code 2.
 """
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -65,6 +78,11 @@ ORACLE_RTOL = 1e-5
 # tests/unit/test_calibration.py:131
 CURVE_ATOL = 0.065
 CAL_GAMMAS = (2.0, 2.2, 2.4)
+# phases 12-14, BASELINE config 5 (benchmarks/bench_video.py:144-202): 8
+# scenes of 3 exposure videos at 4K; frames cut from 1000 to 12 a video
+H5, W5, SCENES5, FRAMES5 = 2160, 3840, 8, 12
+EXPOSURES5_MS = (5, 10, 20)
+CROP_ROWS = 64   # rows held against the CPU in float64 and the oracle
 SOURCES = {
     "merge_nhwc_fused": "camera_linearity_tpu_torch/csrc/hdr_merge.cu",
     "merge_nhwc_lerp": "camera_linearity_tpu_torch/csrc/hdr_merge_lerp.cu",
@@ -594,6 +612,424 @@ def linearity_phases(dev, t_np, vals_np, stds_np) -> None:
     del stacks_u, stacks_w, hists
 
 
+def write_rgba_avi(path, frames_rgba, height: int, width: int) -> None:
+    """An AVI of ``RGBA`` frames as ``cv2.VideoWriter_fourcc(*"RGBA")``
+    writes one: one video stream, one movi LIST of ``00dc`` chunks of
+    H * W * 4 top-down bytes (R, G, B, A); no index (the port's reader
+    walks the chunks)."""
+    n, frame_bytes = len(frames_rgba), height * width * 4
+
+    def chunk(fourcc, payload):
+        return struct.pack("<4sI", fourcc, len(payload)) + payload
+    avih = struct.pack("<14I", 33333, frame_bytes * 30, 0, 0x10, n, 0, 1,
+                       frame_bytes, width, height, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids", b"RGBA", 0, 0, 0, 0, 1,
+                       30, 0, n, frame_bytes, 0xFFFFFFFF, 0, 0, 0, width,
+                       height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 32, b"RGBA",
+                       frame_bytes, 0, 0, 0, 0)
+    hdrl = chunk(b"LIST", b"hdrl" + chunk(b"avih", avih) + chunk(
+        b"LIST", b"strl" + chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi_size = 4 + n * (8 + frame_bytes)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sI4s", b"RIFF", 4 + len(hdrl) + 8 + movi_size,
+                            b"AVI "))
+        f.write(hdrl)
+        f.write(struct.pack("<4sI4s", b"LIST", movi_size, b"movi"))
+        for frame in frames_rgba:
+            f.write(struct.pack("<4sI", b"00dc", frame_bytes))
+            f.write(memoryview(frame).cast("B"))
+
+
+def make_videos(directory, dev):
+    """BASELINE config 5's exposure videos, as benchmarks/bench_video.py
+    makes them (a uniform base x exposure x 230 plus N(0, 6) noise, clipped
+    to uint8), generated on the card from seed 42 and written as raw RGBA
+    AVIs: ``scene <ms>ms.avi`` at full size and ``crop <ms>ms.avi`` of
+    their first CROP_ROWS rows.  Returns both path lists and each
+    exposure's (frames, CROP_ROWS, W, 3) BGR crop for the NumPy oracle."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    base = torch.rand((H5, W5, 3), generator=gen, device=dev)
+    rgba = torch.full((H5, W5, 4), 255, dtype=torch.uint8, device=dev)
+    paths, crop_paths, crops = [], [], []
+    for ms in EXPOSURES5_MS:
+        level = (base * (ms / max(EXPOSURES5_MS)) * 230).clamp(0, 255)
+        full, crop = [], []
+        for _ in range(FRAMES5):
+            bgr = (level + 6 * torch.randn((H5, W5, 3), generator=gen,
+                                           device=dev)).clamp(0, 255).to(
+                torch.uint8)
+            rgba[..., :3] = bgr.flip(-1)
+            host = rgba.to("cpu", copy=True).numpy()
+            full.append(host)
+            crop.append(host[:CROP_ROWS].copy())
+        for name, frames, rows, out in (("scene", full, H5, paths),
+                                        ("crop", crop, CROP_ROWS,
+                                         crop_paths)):
+            out.append(directory / f"{name} {ms}ms.avi")
+            write_rgba_avi(out[-1], frames, rows, W5)
+        crops.append(np.stack(crop)[..., 2::-1])
+        del full
+    return paths, crop_paths, crops
+
+
+def moments_oracle(frames_u8):
+    """(mean, std of the mean) of uint8 frames in float64, by the
+    operations of the fused native finalize (HostMoments)."""
+    n = float(len(frames_u8))
+    s = frames_u8.astype(np.float64).sum(0)
+    q = (frames_u8.astype(np.float64) ** 2).sum(0)
+    scale = 1.0 / 255
+    m2 = np.maximum((q - s * s / n) * (scale * scale), 0.0)
+    return s / n * scale, np.sqrt(m2 / (n - 1.0)) / np.sqrt(n)
+
+
+def max_gap(got, want) -> float:
+    return float(np.max(np.abs(np.asarray(got, np.float64)
+                               - np.asarray(want, np.float64))))
+
+
+def check_gap(label, got, want, atol, failures, rtol=0.0):
+    """|got - want| <= atol + rtol |want| everywhere; prints the largest
+    difference."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    gap = np.abs(got - want)
+    ok = bool(np.all(gap <= atol + rtol * np.abs(want)))
+    log(f"  {'ok ' if ok else 'BAD'} {label}: max abs diff {gap.max():.3e}"
+        f" (atol {atol:.3e}{f', rtol {rtol:.3e}' if rtol else ''})")
+    if not ok:
+        failures.append(label)
+
+
+def video_phases(dev, res) -> dict:
+    """Phases 12-14: config 5, the video -> HDR pipeline.  Returns each
+    kernel's launches on these paths and its config-5 times."""
+    import ctypes.util
+    import tempfile
+    from pathlib import Path
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.models import calibration as cal
+    from camera_linearity_tpu_torch.models import pipeline, video
+    from camera_linearity_tpu_torch.models.scipy_strict import \
+        reference_energy
+    from camera_linearity_tpu_torch.ops import hdr as hdr_ops
+    from camera_linearity_tpu_torch.ops import hdr_cuda
+    from camera_linearity_tpu_torch.ops import welford as wf
+    from camera_linearity_tpu_torch.utils import avi
+    from camera_linearity_tpu_torch.utils import observability as obs
+
+    # --- phase 12: native builds, the MJPEG check, the videos -------------
+    log("phase 12: native host library, MJPEG decoder, config-5 videos")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native stager did not build: "
+                             f"{native.build_error()}")
+    log(f"  stager built and loaded in {time.perf_counter() - t0:.2f} s: "
+        f"{native._lib_path()}")
+    has_header = Path("/usr/include/jpeglib.h").exists()
+    log(f"  jpeglib.h present: {has_header}; libjpeg: "
+        f"{ctypes.util.find_library('jpeg')}")
+    mjpeg = native.mjpeg_available()
+    log(f"mjpeg_available: {mjpeg}")
+    if mjpeg:
+        data = Path(__file__).resolve().parent / "tests" / "data"
+        got = []
+        for payload in avi.mjpg_chunks(data / "mjpg 5ms.avi"):
+            dst = np.empty((32, 48, 3), np.uint8)
+            native.jpeg_decode_bgr(payload, dst)
+            got.append(dst)
+        got = np.stack(got)
+        want = np.load(data / "mjpg 5ms.libjpeg.npy")
+        cv = np.load(data / "mjpg 5ms.cv2.npy")
+        if not np.array_equal(got, want):
+            raise AssertionError("MJPEG decode differs from the committed "
+                                 "libjpeg frames")
+        log(f"  ok  MJPEG decode of {len(got)} frames equals the committed "
+            f"libjpeg frames; max |libjpeg - cv2| {max_gap(got, cv):.0f} DN")
+    else:
+        log(f"  MJPEG check left out: {native.build_error('_mjpeg')}")
+    tmp = tempfile.TemporaryDirectory(prefix="clt_config5_")
+    directory = Path(tmp.name)
+    t0 = time.perf_counter()
+    paths, crop_paths, crops = make_videos(directory, dev)
+    log(f"  wrote {len(paths)} videos of {FRAMES5} x {H5} x {W5} x 3 "
+        f"(RGBA, {paths[0].stat().st_size / 1e6:.1f} MB each) and their "
+        f"{CROP_ROWS}-row crops in {time.perf_counter() - t0:.1f} s")
+    info = avi.probe_avi(paths[0])
+    if info != ("RGBA", H5, W5, 4):
+        raise AssertionError(f"probe_avi: {info}")
+    icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
+            ** np.array([2.0, 2.2, 2.4]))
+
+    # --- phase 13: the Welford statistics on the card ---------------------
+    log(f"phase 13: welford_algorithm on the card, batch_size 8 "
+        f"({FRAMES5} frames: a batch of 8 and one of {FRAMES5 - 8})")
+    failures = []
+    host = video.welford_algorithm(paths[0], use_std=True, backend="host")
+    obs.reset_stage_times()
+    t0 = time.perf_counter()
+    on_card = video.welford_algorithm(paths[0], use_std=True,
+                                      backend="device", batch_size=8)
+    t_dev = time.perf_counter() - t0
+    decoded = obs.decoded_frames.snapshot()
+    log(f"  device backend: {t_dev:.3f} s host clock, decoders {decoded}")
+    if decoded != {"raw": FRAMES5}:
+        failures.append(f"decoders {decoded}")
+    lut_card = video.welford_algorithm(paths[0], ICRF=icrf, use_std=True,
+                                       batch_size=8)
+    cpu = video.welford_algorithm(crop_paths[0], use_std=True,
+                                  backend="device", batch_size=8,
+                                  device="cpu")
+    lut_cpu = video.welford_algorithm(crop_paths[0], ICRF=icrf,
+                                      use_std=True, batch_size=8,
+                                      device="cpu")
+    for label, got, want in (
+            ("device vs host backend", on_card, host),
+            ("device vs CPU f64 (crop)", {k: v[:CROP_ROWS] for k, v in
+                                          on_card.items()}, cpu),
+            ("device with ICRF vs CPU f64 (crop)",
+             {k: v[:CROP_ROWS] for k, v in lut_card.items()}, lut_cpu)):
+        check_gap(f"{label}, mean", got["mean"], want["mean"], 2e-6,
+                  failures)
+        check_gap(f"{label}, std", got["std"], want["std"], 2e-5, failures)
+    om, ostd = moments_oracle(crops[0])
+    check_gap("host backend vs NumPy oracle (crop), mean",
+              host["mean"][:CROP_ROWS], om, 0.0, failures)
+    prof_card, mean_card = video.compute_noise_profiles([paths[0]],
+                                                        batch_size=4)
+    prof_cpu, mean_cpu = video.compute_noise_profiles([paths[0]],
+                                                      batch_size=4,
+                                                      device="cpu")
+    same = np.array_equal(prof_card, prof_cpu) and \
+        np.array_equal(mean_card, mean_cpu)
+    log(f"  {'ok ' if same else 'BAD'} compute_noise_profiles card == CPU: "
+        f"{int(prof_card.sum())} counts")
+    if not same:
+        failures.append("compute_noise_profiles")
+    raise_failures("phase 13", failures)
+
+    batch = next(video._staged_batches([paths[0]], 8, dev, ["raw"],
+                                       (H5, W5, 3))).clone()
+    state0 = wf.welford_init((H5, W5, 3), torch.float32, dev)
+    icrf_t = torch.as_tensor(icrf, dtype=torch.float32, device=dev)
+    frame_bytes = H5 * W5 * 3
+    wf_bytes = frame_bytes + 4 * 4 * frame_bytes / 8   # u8 in; mean, m2 rw
+    wf_bound = wf_bytes / PEAK_BYTES_S * 1e3
+    welford = {}
+    for name, fn in (
+            ("welford_update_batch", lambda: wf.welford_update_batch(
+                state0, batch.to(torch.float32) / 255)),
+            ("welford_update_batch_lut", lambda: wf.welford_update_batch_lut(
+                state0, batch, icrf_t, 255))):
+        ms = float(np.median(time_samples(fn, runs=5, reps=2, warmup=1))) / 8
+        welford[name] = ms
+        log(f"  {name}: {ms:.4f} ms per frame (CUDA events, B = 8), bound "
+            f"{wf_bound:.4f} ms ({wf_bytes / 1e6:.1f} MB per frame at 3.35 "
+            f"TB/s; {wf_bound / ms * 100:.1f} % of it)")
+    del batch, state0
+
+    # --- phase 14: batch_video_to_hdr and video_to_hdr --------------------
+    mean_icrf, pca = gamma_basis()
+    spec = dict(pca_arrays=np.stack([pca] * 3),
+                mean_icrf_arrays=np.stack([mean_icrf] * 3),
+                spacing=max(1, H5 * W5 // 2000), popsize=15, maxiter=1000,
+                tol=0.01, rng_seed=7)
+    scene_map = {f"scene{i}": paths for i in range(SCENES5)}
+    n_frames = FRAMES5 * len(paths) * SCENES5
+    log(f"phase 14: batch_video_to_hdr, {SCENES5} scenes x "
+        f"{len(paths)} exposures x {H5} x {W5} x 3, calibration leg on "
+        f"(spacing {spec['spacing']}, popsize 15, maxiter 1000, tol 0.01)")
+    # record what the pipeline hands the merge (ops/hdr.py's entry points,
+    # looked up at call time) and the solver, to hold them to the plain
+    # versions and the oracle afterwards
+    rec = {}
+    originals = {name: getattr(hdr_ops, name) for name in (
+        "merge_batch", "merge_corrected")}
+    solve = cal.calibration
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            rec[name] = (args, kwargs)
+            return originals[name](*args, **kwargs)
+        return call
+
+    def recording_solve(*args, **kwargs):
+        out = solve(*args, **kwargs, return_params=True)
+        rec["solve"] = (kwargs["channel_stacks"], out)
+        return out[:4]
+    for name in originals:
+        setattr(hdr_ops, name, recorder(name))
+    cal.calibration = recording_solve
+    launches, k1_times = {}, {}
+    try:
+        for wire_val, wire_std in (("u16", "f16"), ("f32", "f32")):
+            label = f"batch_video_to_hdr {wire_val}/{wire_std}"
+            failures = []
+            t0 = time.perf_counter()
+            warm = pipeline.prewarm_batch_video_to_hdr(
+                SCENES5, len(paths), H5, W5, icrf, calibrate=spec,
+                wire_val=wire_val, wire_std=wire_std)
+            log(f"  prewarm {wire_val}/{wire_std}: "
+                f"{time.perf_counter() - t0:.1f} s; h2d {warm['h2d_mbps']} "
+                "MB/s (one pinned std plane, host clock)")
+            for k in hdr_cuda.KERNELS:
+                k.launches = 0
+            obs.reset_stage_times()
+            rec.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipeline.batch_video_to_hdr(
+                scene_map, icrf, wire_val=wire_val, wire_std=wire_std,
+                calibrate=spec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+            launches[label] = counts
+            decoded = obs.decoded_frames.snapshot()
+            mps = n_frames * H5 * W5 / 1e6 / wall
+            log(f"  {label}: wall {wall:.3f} s, {mps:.2f} MP/s ({n_frames} "
+                f"frames x {H5} x {W5}); launches {counts}; decoders "
+                f"{decoded}")
+            log(f"  stages: {obs.snapshot_stage_times()}")
+            if counts != {"merge_nhwc_fused": 1, "merge_nhwc_lerp": 0,
+                          "merge_nhwc_lerp_bp": 0}:
+                failures.append(f"launches {counts}")
+            if decoded != {"raw": n_frames}:
+                failures.append(f"decoders {decoded}")
+            (bv, bs, ex, ic, icd), _ = rec["merge_batch"]
+            for s in (0, SCENES5 - 1):
+                got = out[f"scene{s}"].measurand
+                res.check("merge_nhwc_fused", f"{label}: scene {s} vs "
+                          "merge_fused_plain", (got.val, got.std),
+                          hdr_cuda.merge_fused_plain(bv[s], bs[s], ex, ic,
+                                                     icd))
+            for e, crop in enumerate(crops):
+                om, ostd = moments_oracle(crop)
+                gv = bv[0, e, :CROP_ROWS].cpu().numpy()
+                gs = bs[0, e, :CROP_ROWS].cpu().numpy()
+                if wire_val == "f32":
+                    check_gap(f"exposure {e} stack vs oracle, val", gv,
+                              om.astype(np.float32), 0.0, failures)
+                    check_gap(f"exposure {e} stack vs oracle, std", gs,
+                              ostd.astype(np.float32), 0.0, failures)
+                else:  # the wire's bounds, plus the f32 roundings of
+                    # the dequantization (grid constant and product)
+                    check_gap(f"exposure {e} stack vs oracle, val", gv, om,
+                              2.0 ** -17 + 2.0 ** -23, failures)
+                    check_gap(f"exposure {e} stack vs oracle, std", gs, ostd,
+                              2.0 ** -25, failures, rtol=2.0 ** -11)
+            stacks, solved = rec["solve"]
+            dn = stacks[0].cpu().numpy()
+            t_exp = stacks[2].cpu().numpy().astype(float)
+            for c in range(3):
+                oracle = reference_energy(solved[4][c], spec[
+                    "mean_icrf_arrays"][c], spec["pca_arrays"][c],
+                    dn[c][:, None, :], None, 5, 250, True, t_exp, 256)
+                gap = abs(solved[2][c] - oracle) / oracle
+                log(f"  calibration leg, channel {c}: final energy "
+                    f"{solved[2][c]:.8f}, oracle {oracle:.8f} (rel gap "
+                    f"{gap:.2e}), {dn.shape[1]} pixels")
+                if not gap <= ORACLE_RTOL:
+                    failures.append(f"channel {c} energy against the oracle")
+            for name, got in out.items():
+                v = got.measurand.val
+                if tuple(v.shape) != (H5, W5, 3) or \
+                        not torch.isfinite(v).all() or \
+                        not torch.isfinite(got.measurand.std).all():
+                    failures.append(f"{name} shape or non-finite values")
+            raise_failures(f"phase 14, {label}", failures)
+            if wire_val == "u16":
+                k1_times = time_k1_batch(dev, bv, bs, ex, ic, icd)
+            del out, bv, bs, ex, ic, icd
+            rec.clear()
+            torch.cuda.empty_cache()
+
+        # video_to_hdr for one scene: one K3 launch
+        for k in hdr_cuda.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hdr_set = pipeline.video_to_hdr(paths, icrf)
+        torch.cuda.synchronize()
+        t_v2h = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+        launches["video_to_hdr"] = counts
+        log(f"  video_to_hdr: {t_v2h:.3f} s host clock; launches {counts}")
+        if counts != {"merge_nhwc_fused": 0, "merge_nhwc_lerp": 0,
+                      "merge_nhwc_lerp_bp": 1}:
+            raise AssertionError(f"video_to_hdr launches {counts}")
+        # no darks and no flat: K3 reads zero dark planes, and a 256-entry
+        # table is its own base curve
+        val, std, dark, ex, ic, icd, thr = rec["merge_corrected"][0][:7]
+        if rec["merge_corrected"][0][7:] != (None, None) or dark.any():
+            raise AssertionError("video_to_hdr passed a flat or a dark")
+        res.check("merge_nhwc_lerp_bp", "video_to_hdr vs merge_lerp_bp_plain",
+                  (hdr_set.measurand.val, hdr_set.measurand.std),
+                  hdr_cuda.merge_lerp_bp_plain(val, std, dark, ex, ic, icd,
+                                               thr, 256))
+
+        def k3():
+            hdr_cuda.merge_nhwc_lerp_bp(val, std, dark, ex, ic, icd, thr,
+                                        256)
+        k3_ms = float(np.median(time_samples(k3, runs=10, reps=5)))
+        k3_bytes = (3 * len(paths) + 2) * frame_bytes * 4
+        k3_bound = k3_bytes / PEAK_BYTES_S * 1e3
+        log(f"  K3 in video_to_hdr: {k3_ms:.4f} ms (CUDA events), "
+            f"{k3_bytes / 1e6:.1f} MB (3 zero dark planes included), bound "
+            f"{k3_bound:.4f} ms ({k3_bound / k3_ms * 100:.1f} % of it); "
+            f"{k3_ms / (t_v2h * 1e3) * 100:.3f} % of video_to_hdr's "
+            f"{t_v2h * 1e3:.1f} ms")
+        del val, std, dark, hdr_set
+    finally:
+        for name, fn in originals.items():
+            setattr(hdr_ops, name, fn)
+        cal.calibration = solve
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, welford_ms=welford,
+                welford_bound_ms=wf_bound, k1=k1_times,
+                k3=dict(ms=k3_ms, bytes=k3_bytes, bound_ms=k3_bound,
+                        video_to_hdr_ms=t_v2h * 1e3))
+
+
+def time_k1_batch(dev, bv, bs, ex, ic, icd) -> dict:
+    """K1 on config 5's (B, N, H, W, C) batch: kernel, plain version (one
+    call per scene, the whole batch's intermediates would not fit beside
+    it), and a device-to-device ``copy_`` moving the same bytes."""
+    from camera_linearity_tpu_torch.ops import hdr_cuda
+    b = bv.shape[0]
+    nbytes = 2 * bv.numel() * 4 + 2 * (bv.numel() // bv.shape[1]) * 4
+    src = torch.empty(nbytes // 8, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+
+    def kernel():
+        hdr_cuda.merge_nhwc_fused(bv, bs, ex, ic, icd)
+
+    def plain():
+        for s in range(b):
+            hdr_cuda.merge_fused_plain(bv[s], bs[s], ex, ic, icd)
+
+    def copy():
+        dst.copy_(src)
+    k_s, p_s, c_s = [], [], []
+    for fn, out in ((plain, p_s), (copy, c_s), (kernel, k_s), (kernel, k_s),
+                    (copy, c_s), (plain, p_s)):
+        out += time_samples(fn, runs=3 if fn is plain else 10,
+                            reps=1 if fn is plain else 5,
+                            warmup=1 if fn is plain else 3)
+    del src, dst
+    k_ms, p_ms, c_ms = (float(np.median(x)) for x in (k_s, p_s, c_s))
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    log(f"  K1 at B = {b}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} "
+        f"GB/s of {nbytes / 1e9:.3f} GB), bound {bound:.4f} ms "
+        f"({bound / k_ms * 100:.1f} % of it), copy {c_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms ({b} scene-sized calls); kernel samples "
+        f"{min(k_s):.4f}-{max(k_s):.4f} ms")
+    return dict(ms=k_ms, plain_ms=p_ms, copy_ms=c_ms, bytes=nbytes,
+                bound_ms=bound, share=bound / k_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -853,12 +1289,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     linearity_phases(dev, t_np, vals_np, stds_np)
+    config5 = video_phases(dev, res)
 
+    # every main path's launches: phase 6's and config 5's, each counted
+    # from zero around its own run
+    paths = {"merge_hdr + process_HDR_image (phase 6)": launches,
+             **config5["launches"]}
     # no single PyTorch call computes the merge: no library yardstick
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name],
+                "launches": sum(p[name] for p in paths.values()),
+                "launches_by_path": {k: p[name] for k, p in paths.items()},
                 "max_abs_err": res.err[name], **times[name],
                 "library_ms": None} for name in REPLACES]
+    kernels[0]["config5_B8"] = config5["k1"]
+    kernels[2]["config5_video_to_hdr"] = config5["k3"]
+    log(json.dumps({"welford_ms_per_frame": config5["welford_ms"],
+                    "welford_bound_ms": config5["welford_bound_ms"]}))
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,8 @@ from camera_linearity_tpu_torch.models import calibration as cal  # noqa: E402
 from camera_linearity_tpu_torch.models.exposure_series import \
     ExposureSeries  # noqa: E402
 from camera_linearity_tpu_torch.models.image_set import ImageSet  # noqa: E402
+from camera_linearity_tpu_torch.models import pipeline  # noqa: E402
+from camera_linearity_tpu_torch.models import video  # noqa: E402
 from camera_linearity_tpu_torch.utils import device as dev  # noqa: E402
 
 
@@ -55,6 +57,17 @@ def _entry_points(tmp_path):
         "initialize_channel_image_stacks":
             lambda **kw: cal.initialize_channel_image_stacks(
                 tmp_path, False, 1, **kw),
+        # the video entry points resolve the device before any decode
+        "welford_algorithm(backend='device')":
+            lambda **kw: video.welford_algorithm(
+                tmp_path / "x 5ms.avi", backend="device", **kw),
+        "videos_to_exposure_series":
+            lambda **kw: pipeline.videos_to_exposure_series(
+                [tmp_path / "x 5ms.avi"], **kw),
+        "video_to_hdr": lambda **kw: pipeline.video_to_hdr(
+            [tmp_path / "x 5ms.avi"], np.eye(256, 3), **kw),
+        "batch_video_to_hdr": lambda **kw: pipeline.batch_video_to_hdr(
+            {"a": [tmp_path / "x 5ms.avi"]}, np.eye(256, 3), **kw),
     }
 
 
@@ -97,3 +110,27 @@ def test_entry_points_run_on_the_cpu_when_asked(tmp_path):
 def test_an_image_set_with_a_payload_takes_its_device():
     m = ImageSet("40ms BF a 50x.tif", value=torch.zeros(2, 2, 3))
     assert m.device == torch.device("cpu")
+
+
+def test_video_entry_points_run_on_the_cpu_when_asked(tmp_path):
+    cv2 = pytest.importorskip("cv2")
+    frames = np.random.default_rng(0).integers(0, 256, (3, 8, 8, 3),
+                                               dtype=np.uint8)
+    paths = []
+    for ms in (5, 10):
+        path = tmp_path / f"s {ms}ms.avi"
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"RGBA"),
+                                 10, (8, 8))
+        for f in frames:
+            writer.write(f)
+        writer.release()
+        paths.append(path)
+    icrf = np.linspace(0, 1, 256)[:, None].repeat(3, 1)
+    cpu = torch.device("cpu")
+    assert video.welford_algorithm(paths[0], backend="device",
+                                   device="cpu")["mean"].shape == (8, 8, 3)
+    series = pipeline.videos_to_exposure_series(paths, device="cpu")
+    assert [s.device for s in series.input_image_sets] == [cpu, cpu]
+    assert pipeline.video_to_hdr(paths, icrf, device="cpu").device == cpu
+    assert pipeline.batch_video_to_hdr({"a": paths}, icrf, device="cpu"
+                                       )["a"].device == cpu

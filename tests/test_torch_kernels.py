@@ -457,6 +457,12 @@ _PORT_MODULES = [
     "camera_linearity_tpu_torch.utils.state",
     "camera_linearity_tpu_torch.utils.general",
     "camera_linearity_tpu_torch.utils.checkpoint",
+    "camera_linearity_tpu_torch.utils.avi",
+    "camera_linearity_tpu_torch.utils.observability",
+    "camera_linearity_tpu_torch.native",
+    "camera_linearity_tpu_torch.ops.welford",
+    "camera_linearity_tpu_torch.models.video",
+    "camera_linearity_tpu_torch.models.pipeline",
 ]
 
 
@@ -465,7 +471,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         f"for m in {_PORT_MODULES!r}: importlib.import_module(m)\n"
         "print(sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'cv2',\n"
         "                                    'camera_linearity_tpu')))\n")
     assert out.strip() == "[]"
 
@@ -478,6 +484,9 @@ def test_import_builds_nothing():
         "from camera_linearity_tpu_torch import csrc\n"
         "from camera_linearity_tpu_torch.ops import hdr, hdr_cuda\n"
         "from camera_linearity_tpu_torch.models import exposure_series\n"
+        "from camera_linearity_tpu_torch.models import pipeline, video\n"
+        "from camera_linearity_tpu_torch import native\n"
         "print(csrc._libs == {}, calls == [],\n"
-        "      [k.launches for k in hdr_cuda.KERNELS])\n")
-    assert out.strip() == "True True [0, 0, 0]"
+        "      [k.launches for k in hdr_cuda.KERNELS],\n"
+        "      native._tried or native._mjpeg_tried)\n")
+    assert out.strip() == "True True [0, 0, 0] False"
