@@ -3,17 +3,17 @@
 Port of ``camera_linearity_tpu/models/image_set.py`` (reference:
 modules/image_set.py:25-501): filename-grammar features, dark/flat-frame
 matching, exposure scaling, differences and interpolation between frames,
-and tif loading.  The payload is a
-:class:`~camera_linearity_tpu_torch.measurand.Measurand`; images loaded
-from files land on the set's ``device``.  Saving, display and the
-dark/flat calibration helpers (``calibrate_flats``,
-``calibrate_dark_frames``) need the image codec and are not ported yet.
+tif loading and saving, and the dark/flat calibration helpers.  The
+payload is a :class:`~camera_linearity_tpu_torch.measurand.Measurand`;
+images loaded from files land on the set's ``device``, and saving moves
+the payload to the host.
 """
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from ..config import CameraConfig, DEFAULT_CONFIG
@@ -23,7 +23,11 @@ from ..utils.device import canonical_float, resolve_device
 
 Tensor = torch.Tensor
 
-__all__ = ["ImageSet"]
+__all__ = ["ImageSet", "calibrate_flats", "calibrate_dark_frames"]
+
+
+def _host(t: Optional[Tensor]) -> Optional[np.ndarray]:
+    return None if t is None else t.detach().cpu().numpy()
 
 
 class ImageSet:
@@ -229,6 +233,62 @@ class ImageSet:
                                        max_dn=self.config.max_dn)
         return lut.val
 
+    # --- persistence ---------------------------------------------------
+    def save_64bit(self, save_path: Optional[Path] = None,
+                   is_hdr: bool = False,
+                   separate_channels: bool = False) -> None:
+        """Save value (+std) as float64 tif (image_set.py:264-319)."""
+        file_path = save_path if save_path is not None else \
+            self.path.parent.joinpath("64bit", self.path.name)
+        acq_suffix = " HDR.tif" if is_hdr else ".tif"
+        std_suffix = " HDR STD.tif" if is_hdr else " STD.tif"
+        base = str(file_path).removesuffix(".tif")
+        val, std = _host(self.measurand.val), _host(self.measurand.std)
+        if not separate_channels:
+            io.save_image(base + acq_suffix, val)
+            if std is not None:
+                io.save_image(base + std_suffix, std)
+            return
+        for c in range(self.config.num_of_chs):
+            name = f" {self.config.ch_names[c]}.tif"
+            io.save_image(base + acq_suffix.replace(".tif", name),
+                          val[:, :, c])
+            if std is not None:
+                io.save_image(base + std_suffix.replace(".tif", name),
+                              std[:, :, c])
+
+    def save_8bit(self, save_path: Optional[Path] = None,
+                  force_8_bit: bool = False) -> None:
+        """Save quantized 8-bit tif (image_set.py:321-363); the std is
+        saved as float64 unless ``force_8_bit``."""
+        file_path = Path(save_path) if save_path is not None else \
+            self.path.parent.joinpath("8bit", self.path.name)
+        if file_path.suffix != ".tif":  # directory given, use own name
+            file_path = file_path.joinpath(self.path.name)
+        io.save_image(file_path, _host(self.measurand.val), as_8bit=True,
+                      max_dn=self.config.max_dn)
+        if self.measurand.std is not None:
+            io.save_image(io.std_path_for(file_path),
+                          _host(self.measurand.std), as_8bit=force_8_bit,
+                          max_dn=self.config.max_dn)
+
+    def show_image(self, block: bool = True) -> None:
+        """Display the value image in an OpenCV window
+        (image_set.py:423-435); needs cv2 and a display."""
+        if self.measurand is None or self.measurand.val is None:
+            raise ValueError("No image to show.")
+        try:
+            import cv2 as cv
+        except ImportError as exc:
+            raise ImportError("show_image needs OpenCV (cv2), which is not "
+                              "installed; save_8bit or save_64bit write the "
+                              "image instead") from exc
+        cv.namedWindow(self.path.name, cv.WINDOW_NORMAL)
+        cv.imshow(self.path.name, _host(self.measurand.val))
+        if block:
+            cv.waitKey(0)
+            cv.destroyAllWindows()
+
     # --- static combinators --------------------------------------------
     @staticmethod
     def compute_difference(short_set: "ImageSet", long_set: "ImageSet"):
@@ -267,3 +327,59 @@ class ImageSet:
         device = resolve_device(device)
         return [cls(file_path=p, config=config, device=device)
                 for p in io.list_image_paths(path)]
+
+
+def calibrate_flats(config: CameraConfig = DEFAULT_CONFIG,
+                    dark_path: Optional[Path] = None,
+                    flat_path: Optional[Path] = None,
+                    out_path: Optional[Path] = None,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> List[ImageSet]:
+    """Bias-subtract flat frames: bias = shortest dark (image_set.py:504-521),
+    on ``device`` (by default the card)."""
+    dark_path = dark_path or config.default_dark_path
+    flat_path = flat_path or config.uncalibrated_flat_path
+    out_path = out_path or config.default_flat_path
+    darks = ImageSet.multiple_from_path(dark_path, config=config,
+                                        device=device)
+    darks.sort(key=lambda s: s.features["exposure"])
+    flats = ImageSet.multiple_from_path(flat_path, config=config,
+                                        device=device)
+    bias = darks[0]
+    bias.load_value_image()
+    bias.load_std_image()
+    out = []
+    for flat in flats:
+        flat.load_value_image()
+        flat.load_std_image()
+        flat.measurand = flat.measurand - bias.measurand
+        flat.save_8bit(Path(out_path))
+        out.append(flat)
+    return out
+
+
+def calibrate_dark_frames(config: CameraConfig = DEFAULT_CONFIG,
+                          in_path: Optional[Path] = None,
+                          out_path: Optional[Path] = None,
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> List[ImageSet]:
+    """Bias-subtract dark frames (image_set.py:524-539), on ``device`` (by
+    default the card).  The bias is the shortest dark itself: at its own
+    turn it becomes its difference from itself, and the later darks
+    subtract that difference, as in the JAX package."""
+    in_path = in_path or config.uncalibrated_dark_path
+    out_path = out_path or config.default_dark_path
+    darks = ImageSet.multiple_from_path(in_path, config=config,
+                                        device=device)
+    darks.sort(key=lambda s: s.features["exposure"])
+    bias = darks[0]
+    bias.load_value_image()
+    bias.load_std_image()
+    out = []
+    for dark in darks:
+        dark.load_value_image()
+        dark.load_std_image()
+        dark.measurand = dark.measurand - bias.measurand
+        dark.save_8bit(Path(out_path))
+        out.append(dark)
+    return out

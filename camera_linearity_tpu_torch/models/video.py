@@ -15,9 +15,9 @@ AVI containers it knows itself (``utils/avi.py``): a lossless ``RGBA`` AVI
 with NumPy (``"raw"``), an MJPG AVI with the native libjpeg decoder
 (``"turbo"``; ``"turbo_fast"`` adds JDCT_IFAST).  Any other codec goes
 through ``cv2.VideoCapture`` when cv2 imports, and raises otherwise.
-``cv2`` is imported only when a video needs it.  Writing mean/std TIFFs
-(``process_video`` / ``process_directory``) waits for the port's image
-codec (ROADMAP queue 1 item 5).
+``cv2`` is imported only when a video needs it.  ``process_video`` and
+``process_directory`` write the mean/std frames as TIFFs through the
+port's own codec (``utils/tiff.py``).
 """
 from __future__ import annotations
 
@@ -43,8 +43,9 @@ from ..utils.observability import (decoded_frames, get_logger, stage,
 
 Tensor = torch.Tensor
 
-__all__ = ["probe_geometry", "welford_algorithm", "compute_noise_profiles",
-           "clean_data_edges", "calculate_std", "process_STD_data",
+__all__ = ["probe_geometry", "video_frame_generator", "welford_algorithm",
+           "compute_noise_profiles", "clean_data_edges", "calculate_std",
+           "process_STD_data", "process_video", "process_directory",
            "DECODERS"]
 
 # what a caller may ask for; "auto" reads env CL_DECODER (default "native")
@@ -366,6 +367,21 @@ def probe_geometry(video_path: Path) -> Tuple[int, int]:
     return height, width
 
 
+def video_frame_generator(video_path: Path, decoder: str = "auto"
+                          ) -> Iterator[Optional[np.ndarray]]:
+    """Yield the (H, W, 3) BGR uint8 frames of a video, then None
+    (general_functions.py:226-251), decoded by ``decoder`` (see
+    :func:`_resolve_decoder`)."""
+    height, width = probe_geometry(video_path)
+    dec = _resolve_decoder(decoder, [video_path], height, width, 3)[0]
+    for fill in _frame_fillers(video_path, dec):
+        frame = np.empty((height, width, 3), np.uint8)
+        if not fill(frame):
+            break
+        yield frame
+    yield None
+
+
 def welford_algorithm(file_paths: Union[Path, List[Path]],
                       ICRF=None,
                       use_std: bool = False,
@@ -628,3 +644,62 @@ def process_STD_data(config: CameraConfig = DEFAULT_CONFIG,
                                        ).cpu().numpy()
     io.save_txt(Path(cfg.data_path).joinpath(cfg.std_file_name), std_data)
     return std_data if pass_result else None
+
+
+def _save_frame(save_path: Path, arr: np.ndarray) -> None:
+    """uint8 frames as they are; float frames as 64-bit tifs."""
+    if arr.dtype == np.uint8:
+        save_path.parent.mkdir(parents=True, exist_ok=True)
+        io._imwrite(str(save_path), arr)
+    else:
+        io.save_image(save_path, arr)
+
+
+def process_video(video_path: Path, ICRF=None, use_std: bool = True,
+                  config: CameraConfig = DEFAULT_CONFIG,
+                  quantize: bool = False, decoder: str = "auto",
+                  device=None) -> None:
+    """Mean/std frames of one video, saved as tifs beside it
+    (video_processing.py:222-236).  Float (64-bit tif) outputs by
+    default; ``quantize=True`` writes the reference's uint8 frames.
+    ``device`` is the device backend's (with an ICRF)."""
+    ret = welford_algorithm(video_path, ICRF, use_std, config=config,
+                            quantize=quantize, decoder=decoder,
+                            device=device)
+    for key, arr in ret.items():
+        if arr is not None:
+            with stage("write_s"):
+                _save_frame(video_path.parent.joinpath(
+                    video_path.name.replace(".avi", f".{key}.tif")), arr)
+
+
+def process_directory(dir_path: Path, ICRF=None, separately: bool = True,
+                      config: CameraConfig = DEFAULT_CONFIG,
+                      quantize: bool = False, decoder: str = "auto",
+                      device=None) -> None:
+    """Process every .avi in a directory (video_processing.py:239-274):
+    separately, into ``mean/<name>.tif`` and ``std/<name> STD.tif``, or
+    pooled into ``total_mean.tif`` and ``total_std.tif``.  Float outputs
+    by default, like :func:`process_video`.  The writes' time accumulates
+    under ``write_s`` in ``utils.observability.stage_times``."""
+    video_files = sorted(dir_path.glob("*.avi"))
+    if not separately:
+        ret = welford_algorithm(list(video_files), ICRF, use_std=True,
+                                config=config, quantize=quantize,
+                                decoder=decoder, device=device)
+        for key, arr in ret.items():
+            if arr is not None:
+                with stage("write_s"):
+                    _save_frame(dir_path.joinpath(f"total_{key}.tif"), arr)
+        return
+    for path in video_files:
+        ret = welford_algorithm(path, ICRF, use_std=True, config=config,
+                                quantize=quantize, decoder=decoder,
+                                device=device)
+        for key, arr in ret.items():
+            if arr is None:
+                continue
+            name = path.name.replace(".avi", " STD.tif" if key == "std"
+                                     else ".tif")
+            with stage("write_s"):
+                _save_frame(path.parent.joinpath(key, name), arr)

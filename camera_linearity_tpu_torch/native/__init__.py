@@ -1,14 +1,18 @@
-"""ctypes bindings for the native host-staging library and MJPEG decoder.
+"""ctypes bindings for the native host-staging library, the MJPEG decoder
+and the TIFF codec.
 
 Port of ``camera_linearity_tpu/native`` (the parts the video statistics
 use), copied: importing the JAX package would import JAX.  ``stager.cpp``
-(exact integer moments of uint8 frames and their fused finalize) and
-``mjpeg.cpp`` (libjpeg decode of one JPEG into BGR) build with ``g++`` on
-first use, never at import, into ``build/native/<stem>-<hash>.so`` beside
-the package (the hash covers the source and the host's CPU features, so a
-changed source or another CPU builds anew).  Every stager entry point has a
-pure-NumPy fallback for hosts without a compiler; ``available()`` reports
-which path is active and :func:`build_error` why a build failed.
+(exact integer moments of uint8 frames and their fused finalize),
+``mjpeg.cpp`` (libjpeg decode of one JPEG into BGR) and ``tiff.cpp`` (TIFF
+LZW and predictors, the port's own) build with ``g++`` on first use, never
+at import, into ``build/native/<stem>-<hash>.so`` beside the package (the
+hash covers the source and the host's CPU features, so a changed source or
+another CPU builds anew).  Every stager entry point has a pure-NumPy
+fallback for hosts without a compiler; ``available()`` reports which path
+is active and :func:`build_error` why a build failed.  The TIFF codec has
+no fallback: its entry points raise without the library
+(``native/tiff_plain.py`` is the plain version the tests hold it to).
 """
 from __future__ import annotations
 
@@ -23,7 +27,9 @@ import numpy as np
 __all__ = ["available", "accum_moments_u8", "HostMoments",
            "mmap_buffer", "WIRE_U16F16",
            "wire_quantize_u16f16", "narrow_f16", "mjpeg_available",
-           "jpeg_decode_bgr", "build_error"]
+           "jpeg_decode_bgr", "tiff_available", "lzw_decode_chunks",
+           "lzw_encode_chunks", "predictor_undo", "predictor_apply",
+           "build_error"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
 # fixed-point mean (grid 1/65535 on the [0,1] DN scale, absolute error
@@ -91,6 +97,7 @@ def mmap_buffer(shape, dtype) -> np.ndarray:
 _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "stager.cpp"
 _MJPEG_SRC = _DIR / "mjpeg.cpp"
+_TIFF_SRC = _DIR / "tiff.cpp"
 _BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 
 
@@ -130,14 +137,16 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _mjpeg_lib: Optional[ctypes.CDLL] = None
 _mjpeg_tried = False
+_tiff_lib: Optional[ctypes.CDLL] = None
+_tiff_tried = False
 _build_errors: Dict[str, str] = {}
 
 _NTHREADS = min(16, os.cpu_count() or 1)
 
 
 def build_error(stem: str = "_stager") -> Optional[str]:
-    """Why the last build of ``stem`` (``"_stager"`` or ``"_mjpeg"``)
-    failed, or None when it did not fail."""
+    """Why the last build of ``stem`` (``"_stager"``, ``"_mjpeg"`` or
+    ``"_tiff"``) failed, or None when it did not fail."""
     return _build_errors.get(stem)
 
 
@@ -180,7 +189,7 @@ def _prune_stale_libs(keep: Path, min_age_s: float = 600.0) -> None:
     another source version keeps the one it just built."""
     import time
     now = time.time()
-    stem = keep.name.split("-")[0]  # _stager / _mjpeg: prune only own kind
+    stem = keep.name.split("-")[0]  # _stager / _mjpeg / _tiff: own kind
     for p in keep.parent.glob(f"{stem}-*.so"):
         if p == keep or ".tmp" in p.name:
             continue
@@ -304,6 +313,170 @@ def jpeg_decode_bgr(src, dst: np.ndarray, fast: bool = False) -> None:
                    -2: f"frame geometry != {dst.shape[:2]}",
                    -3: "not a 3-component image"}
         raise ValueError(f"jpeg_decode_bgr: {reasons.get(rc, rc)}")
+
+
+def _load_tiff() -> Optional[ctypes.CDLL]:
+    """Load (building on first use) the TIFF codec library."""
+    global _tiff_lib, _tiff_tried
+    if _tiff_lib is not None or _tiff_tried:
+        return _tiff_lib
+    _tiff_tried = True
+    try:
+        lib_path = _lib_path("_tiff", _TIFF_SRC)
+        if not lib_path.exists() and not _build(lib_path, _TIFF_SRC):
+            return None
+        lib = ctypes.CDLL(str(lib_path))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        sz, i = ctypes.c_size_t, ctypes.c_int
+        lib.clt_lzw_decode_chunks.argtypes = [
+            u8p, sz, u64p, u64p, sz, u8p, u64p, u64p, i64p, i]
+        lib.clt_lzw_encode_chunks.argtypes = [
+            u8p, u64p, u64p, sz, u8p, u64p, u64p, u64p, i]
+        lib.clt_predictor_undo.argtypes = [u8p, sz, sz, i, i, i, i, i]
+        lib.clt_predictor_apply.argtypes = [u8p, sz, sz, i, i, i]
+        lib.clt_lzw_decode_chunks.restype = None
+        lib.clt_lzw_encode_chunks.restype = None
+        lib.clt_predictor_undo.restype = ctypes.c_int
+        lib.clt_predictor_apply.restype = ctypes.c_int
+        lib.clt_tiff_version.restype = ctypes.c_int
+    except (OSError, AttributeError) as exc:
+        _build_errors["_tiff"] = f"load failed: {exc}"
+        return None
+    _tiff_lib = lib
+    return _tiff_lib
+
+
+def tiff_available() -> bool:
+    """True when the native TIFF codec built (or was built) and loaded."""
+    return _load_tiff() is not None
+
+
+def _tiff() -> ctypes.CDLL:
+    lib = _load_tiff()
+    if lib is None:
+        raise RuntimeError("native TIFF codec unavailable (a C++ compiler "
+                           f"is needed): {build_error('_tiff')}")
+    return lib
+
+
+def _u8_buffer(arr: np.ndarray, name: str, writable: bool = False):
+    if arr.dtype != np.uint8 or arr.ndim != 1 or \
+            not arr.flags.c_contiguous or (writable and
+                                           not arr.flags.writeable):
+        raise ValueError(f"{name} must be a {'writable ' * writable}"
+                         "C-contiguous 1-D uint8 array")
+    return _as_u8_ptr(arr)
+
+
+def _u64(values, name: str) -> np.ndarray:
+    arr = np.ascontiguousarray(values, np.uint64)
+    if arr.ndim != 1:
+        raise ValueError(f"{name} must be 1-D")
+    return arr
+
+
+def _check_ranges(offsets, sizes, total: int, name: str) -> None:
+    if offsets.shape != sizes.shape:
+        raise ValueError(f"{name}: offsets and sizes differ in length")
+    if offsets.size and int((offsets + sizes).max()) > total:
+        raise ValueError(f"{name}: a chunk reaches past the buffer's "
+                         f"{total} bytes")
+
+
+def lzw_decode_chunks(src: np.ndarray, offsets, counts, dst: np.ndarray,
+                      dst_offsets, dst_sizes) -> np.ndarray:
+    """Decode TIFF-LZW chunks of the file image ``src`` (chunk i: bytes
+    ``offsets[i]`` to ``offsets[i] + counts[i]``) into ``dst`` (chunk i at
+    ``dst_offsets[i]``, room for ``dst_sizes[i]`` bytes), on all threads.
+    Returns each chunk's decoded length (int64); raises ValueError for a
+    corrupt chunk, one that decodes to more than its room, or one outside
+    the file."""
+    lib = _tiff()
+    src_p = _u8_buffer(src, "src")
+    dst_p = _u8_buffer(dst, "dst", writable=True)
+    offsets, counts = _u64(offsets, "offsets"), _u64(counts, "counts")
+    dst_offsets = _u64(dst_offsets, "dst_offsets")
+    dst_sizes = _u64(dst_sizes, "dst_sizes")
+    if offsets.shape != counts.shape:
+        raise ValueError("offsets and counts differ in length")
+    _check_ranges(dst_offsets, dst_sizes, dst.size, "dst")
+    if dst_offsets.shape != offsets.shape:
+        raise ValueError("dst_offsets and offsets differ in length")
+    got = np.empty(offsets.size, np.int64)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.clt_lzw_decode_chunks(
+        src_p, src.size, offsets.ctypes.data_as(u64p),
+        counts.ctypes.data_as(u64p), offsets.size, dst_p,
+        dst_offsets.ctypes.data_as(u64p), dst_sizes.ctypes.data_as(u64p),
+        got.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _NTHREADS)
+    bad = np.flatnonzero(got < 0)
+    if bad.size:
+        k = int(bad[0])
+        reason = {-1: "corrupt LZW data", -2: "decodes to more than "
+                  f"{int(dst_sizes[k])} bytes", -3: "lies outside the file"}
+        raise ValueError(f"LZW chunk {k} {reason[int(got[k])]}")
+    return got
+
+
+def lzw_encode_chunks(src: np.ndarray, offsets, sizes) -> list:
+    """TIFF-LZW encode chunks of ``src`` (chunk i: ``sizes[i]`` bytes at
+    ``offsets[i]``), on all threads, as libtiff's encoder codes them.
+    Returns one uint8 array per chunk."""
+    lib = _tiff()
+    src_p = _u8_buffer(src, "src")
+    offsets, sizes = _u64(offsets, "offsets"), _u64(sizes, "sizes")
+    _check_ranges(offsets, sizes, src.size, "src")
+    # at most one code of 12 bits per byte, a Clear per 3836 codes, and
+    # the Clear, last code and EOI
+    caps = sizes * 3 // 2 + sizes // 2048 + 16
+    dst_offsets = np.zeros_like(caps)
+    if caps.size:
+        np.cumsum(caps[:-1], out=dst_offsets[1:])
+    dst = np.empty(int(caps.sum()), np.uint8)
+    out = np.empty_like(sizes)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.clt_lzw_encode_chunks(
+        src_p, offsets.ctypes.data_as(u64p), sizes.ctypes.data_as(u64p),
+        sizes.size, _as_u8_ptr(dst), dst_offsets.ctypes.data_as(u64p),
+        caps.ctypes.data_as(u64p), out.ctypes.data_as(u64p), _NTHREADS)
+    if np.any(out > caps):
+        raise RuntimeError("LZW output exceeded its bound")
+    return [dst[int(o):int(o) + int(n)] for o, n in zip(dst_offsets, out)]
+
+
+def predictor_undo(data: np.ndarray, rows: int, samples: int, spp: int,
+                   size: int, predictor: int, swap: bool) -> None:
+    """Undo TIFF predictor ``predictor`` (1 none, 2 horizontal at 8/16
+    bits, 3 floating point at 32/64 bits) in place over ``rows`` rows of
+    ``samples`` samples of ``size`` bytes in the uint8 buffer ``data``;
+    ``swap``: the samples are big-endian in the file (they end in the
+    host's order)."""
+    lib = _tiff()
+    ptr = _u8_buffer(data, "data", writable=True)
+    if rows * samples * size > data.size:
+        raise ValueError(f"{rows} rows of {samples} samples of {size} bytes "
+                         f"exceed the buffer's {data.size} bytes")
+    if lib.clt_predictor_undo(ptr, rows, samples, spp, size, predictor,
+                              int(swap), _NTHREADS) != 0:
+        raise ValueError(f"Predictor={predictor} is not supported at "
+                         f"{8 * size}-bit samples")
+
+
+def predictor_apply(data: np.ndarray, rows: int, samples: int, spp: int,
+                    size: int) -> None:
+    """Apply horizontal differencing (TIFF predictor 2) in place, 8/16-bit
+    samples in the host's order."""
+    lib = _tiff()
+    ptr = _u8_buffer(data, "data", writable=True)
+    if rows * samples * size > data.size:
+        raise ValueError(f"{rows} rows of {samples} samples of {size} bytes "
+                         f"exceed the buffer's {data.size} bytes")
+    if lib.clt_predictor_apply(ptr, rows, samples, spp, size,
+                               _NTHREADS) != 0:
+        raise ValueError(f"Predictor=2 is not applied at {8 * size}-bit "
+                         "samples")
 
 
 def _as_u8_ptr(arr: np.ndarray):

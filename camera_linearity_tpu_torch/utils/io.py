@@ -6,8 +6,10 @@ image_set.py docstring / :542-568): a name like ``'5ms BF sample 50x.tif'``
 carries exposure, illumination, subject and magnification as space-separated
 descriptors; uncertainty images carry an extra ``STD`` descriptor.
 
-The image codec (OpenCV, else imageio) is imported inside :func:`_imread`,
-only when a file is read: machines that merge in-memory stacks need neither.
+TIFFs go through the port's own codec (``utils/tiff.py``), which returns
+what OpenCV returns for them, so the card's machine, which has no OpenCV,
+reads and writes captures.  Other formats need OpenCV, imported where a
+file of another format is read or written.
 """
 from __future__ import annotations
 
@@ -17,10 +19,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import tiff
+
 __all__ = [
     "features_from_file_name", "path_without_exposure", "is_exposure_match",
-    "load_image", "std_path_for", "read_txt_to_array", "read_icrf_file",
-    "list_image_paths",
+    "load_image", "save_image", "std_path_for", "read_txt_to_array",
+    "save_txt", "read_icrf_file", "list_image_paths",
 ]
 
 
@@ -78,20 +82,38 @@ def list_image_paths(path: Path | str) -> List[Path]:
 
 
 # ---------------------------------------------------------------------------
-# image codec (imported on first read)
+# image codecs
 # ---------------------------------------------------------------------------
 
+def _is_tiff(path: str) -> bool:
+    return Path(path).suffix.lower() in (".tif", ".tiff")
+
+
+def _cv2(path: str):
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError(f"{path}: formats other than TIFF need OpenCV "
+                          "(cv2), which is not installed") from exc
+    return cv2
+
+
 def _imread(path: str, unchanged: bool) -> Optional[np.ndarray]:
-    try:  # OpenCV is the reference's codec; fall back to imageio if absent.
-        import cv2 as cv
-    except ImportError:
-        import imageio.v3 as iio
-        try:
-            return iio.imread(path)
-        except FileNotFoundError:
-            return None
-    flags = cv.IMREAD_UNCHANGED if unchanged else cv.IMREAD_COLOR
-    return cv.imread(path, flags)
+    """``cv2.imread`` with IMREAD_UNCHANGED or IMREAD_COLOR (the JAX
+    package's flags); None for a missing file."""
+    if _is_tiff(path):
+        return tiff.imread(path, tiff.IMREAD_UNCHANGED if unchanged
+                           else tiff.IMREAD_COLOR)
+    cv = _cv2(path)
+    return cv.imread(path, cv.IMREAD_UNCHANGED if unchanged
+                     else cv.IMREAD_COLOR)
+
+
+def _imwrite(path: str, arr: np.ndarray) -> None:
+    if _is_tiff(path):
+        tiff.imwrite(path, arr)
+    elif not _cv2(path).imwrite(path, arr):
+        raise ValueError(f"cv2 could not write {path}")
 
 
 def load_image(path: Path | str, bit64: bool = False,
@@ -104,6 +126,23 @@ def load_image(path: Path | str, bit64: bool = False,
     if bit64:
         return arr
     return arr.astype(dtype) / max_dn
+
+
+def save_image(path: Path | str, arr: np.ndarray, as_8bit: bool = False,
+               max_dn: int = 255) -> None:
+    """Save float data as 64-bit tif, or quantized 8-bit
+    (image_set.py:264-363).  8-bit saving rescales >1 data to [0,1] first."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if as_8bit:
+        arr = np.asarray(arr, dtype=np.float64).copy()
+        peak = np.amax(arr) if arr.size else 0.0
+        if peak > 1:
+            arr /= peak
+        arr = np.around(arr * max_dn).astype(np.uint8)
+        _imwrite(str(path), arr)
+    else:
+        _imwrite(str(path), np.asarray(arr, dtype=np.float64))
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,29 @@
-"""Structured logging, per-stage wall times and decoder counts.
+"""Structured logging, device traces, per-stage wall times and decoder
+counts.
 
-Port of ``camera_linearity_tpu/utils/observability.py`` without its
-``trace`` (a ``jax.profiler`` context; the port's profiler hook waits for
-ROADMAP queue 1 item 5): a namespaced stdlib logger, a process-global
-accumulator of each pipeline stage's busy time, a count of the frames each
-video decoder produced, and a wall-clock scope that synchronizes the card
-so timings are honest under asynchronous CUDA launches.
+Port of ``camera_linearity_tpu/utils/observability.py``: a namespaced
+stdlib logger, a ``torch.profiler`` trace context (where the JAX package
+has a ``jax.profiler`` one) with the device-busy time it saw, a
+process-global accumulator of each pipeline stage's busy time, a count of
+the frames each video decoder produced, and a wall-clock scope that
+synchronizes the card so timings are honest under asynchronous CUDA
+launches.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import threading
 import time
-from typing import Dict, Iterator
+from pathlib import Path
+from typing import Dict, Iterator, Tuple, Union
 
 import torch
 
-__all__ = ["get_logger", "timed", "stage", "stage_times",
-           "reset_stage_times", "snapshot_stage_times", "decoded_frames"]
+__all__ = ["get_logger", "trace", "device_busy", "timed", "stage",
+           "stage_times", "reset_stage_times", "snapshot_stage_times",
+           "decoded_frames"]
 
 _FORMAT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 
@@ -33,6 +38,42 @@ def get_logger() -> logging.Logger:
         logger.setLevel(logging.INFO)
         logger.propagate = False
     return logger
+
+
+@contextlib.contextmanager
+def trace(log_dir: Union[str, Path]) -> Iterator["torch.profiler.profile"]:
+    """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity when a card is there) and export a Chrome trace
+    (``trace-<pid>-<ms>.json``, for chrome://tracing or Perfetto) into
+    ``log_dir``.  Yields the profiler, for :func:`device_busy`."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(str(
+        log_dir / f"trace-{os.getpid()}-{int(time.time() * 1e3)}.json"))
+
+
+def device_busy(prof: "torch.profiler.profile") -> Tuple[float, int]:
+    """(ms during which at least one kernel or copy ran on the card, and
+    their count) in a finished profile: the union of the device
+    intervals, so overlapping streams count once.  ``Command Buffer
+    Full`` marks the host waiting on a full launch queue, not device
+    work, and is left out."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "Command Buffer Full")
+    busy_us, end_us = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end_us))
+        end_us = max(end_us, b)
+    return busy_us / 1e3, len(spans)
 
 
 class _Totals:

@@ -46,10 +46,13 @@ kernels' results before the last line, and as the last line
 no last line.  Without a CUDA device it exits with code 2.
 """
 import json
+import logging
 import struct
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -82,6 +85,9 @@ CAL_GAMMAS = (2.0, 2.2, 2.4)
 # scenes of 3 exposure videos at 4K; frames cut from 1000 to 12 a video
 H5, W5, SCENES5, FRAMES5 = 2160, 3840, 8, 12
 EXPOSURES5_MS = (5, 10, 20)
+# phases 15-16: config 3's captures as files; the three longest exposures
+# reach dark_threshold (35 ms) and get dark frames
+FILE_EXPOSURES_MS = (5, 10, 20, 40, 80, 160)
 CROP_ROWS = 64   # rows held against the CPU in float64 and the oracle
 SOURCES = {
     "merge_nhwc_fused": "camera_linearity_tpu_torch/csrc/hdr_merge.cu",
@@ -249,6 +255,7 @@ def profile_breakdown(label: str, fn, top: int = 8,
     op)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from camera_linearity_tpu_torch.utils.observability import device_busy
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -257,23 +264,13 @@ def profile_breakdown(label: str, fn, top: int = 8,
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # "Command Buffer Full" marks the host waiting on a full launch queue,
-    # not device work
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.name != "Command Buffer Full")
-    busy_us, end_us = 0.0, float("-inf")
-    for a, b in spans:
-        busy_us += max(0.0, b - max(a, end_us))
-        end_us = max(end_us, b)
-    busy_ms = busy_us / 1e3
+    busy_ms, n_spans = device_busy(prof)
     if busy_ms == 0:
         log(f"  profile {label}: {wall_ms:.3f} ms with the profiler on; "
             "the profiler saw no device time (not measured)")
         return
     log(f"  profile {label}: {wall_ms:.3f} ms with the profiler on, "
-        f"{len(spans)} kernels, device busy {busy_ms:.3f} ms, idle share "
+        f"{n_spans} kernels, device busy {busy_ms:.3f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms) * 100:.1f} %")
     if by_kernel:
         kernel_us = {}
@@ -702,12 +699,11 @@ def check_gap(label, got, want, atol, failures, rtol=0.0):
         failures.append(label)
 
 
-def video_phases(dev, res) -> dict:
-    """Phases 12-14: config 5, the video -> HDR pipeline.  Returns each
-    kernel's launches on these paths and its config-5 times."""
+def video_phases(dev, res, directory) -> dict:
+    """Phases 12-14: config 5, the video -> HDR pipeline, with the videos
+    written into ``directory``.  Returns each kernel's launches on these
+    paths, its config-5 times and the three 4K videos' paths."""
     import ctypes.util
-    import tempfile
-    from pathlib import Path
     from camera_linearity_tpu_torch import native
     from camera_linearity_tpu_torch.models import calibration as cal
     from camera_linearity_tpu_torch.models import pipeline, video
@@ -749,8 +745,6 @@ def video_phases(dev, res) -> dict:
             f"libjpeg frames; max |libjpeg - cv2| {max_gap(got, cv):.0f} DN")
     else:
         log(f"  MJPEG check left out: {native.build_error('_mjpeg')}")
-    tmp = tempfile.TemporaryDirectory(prefix="clt_config5_")
-    directory = Path(tmp.name)
     t0 = time.perf_counter()
     paths, crop_paths, crops = make_videos(directory, dev)
     log(f"  wrote {len(paths)} videos of {FRAMES5} x {H5} x {W5} x 3 "
@@ -985,12 +979,442 @@ def video_phases(dev, res) -> dict:
         for name, fn in originals.items():
             setattr(hdr_ops, name, fn)
         cal.calibration = solve
-        tmp.cleanup()
     torch.cuda.empty_cache()
-    return dict(launches=launches, welford_ms=welford,
+    return dict(paths=paths, launches=launches, welford_ms=welford,
                 welford_bound_ms=wf_bound, k1=k1_times,
                 k3=dict(ms=k3_ms, bytes=k3_bytes, bound_ms=k3_bound,
                         video_to_hdr_ms=t_v2h * 1e3))
+
+
+class LogRecords(logging.Handler):
+    """Keeps the port logger's records, to read the numbers a command
+    logged (its arguments, not its text)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def arg(self, prefix: str):
+        found = [r.args[0] for r in self.records
+                 if r.msg.startswith(prefix)]
+        if not found:
+            raise AssertionError(f"nothing logged as {prefix!r}")
+        return np.asarray(found[-1])
+
+
+def write_captures(root, dev) -> dict:
+    """BASELINE config 3's captures as files: 6 exposures of 1200 x 1920 x
+    3 at FILE_EXPOSURES_MS (a gamma-like response of one scene plus read
+    noise, as 8-bit LZW value TIFFs and float64 STD TIFFs), dark frames
+    with ~0.5 % hot pixels for the exposures at or above dark_threshold,
+    a vignetted flat with its STD, the gamma PCA basis, and a config.ini
+    naming them.  Generated on the card from a seed.  Returns {path:
+    array written}."""
+    from camera_linearity_tpu_torch import CameraConfig
+    from camera_linearity_tpu_torch.utils import tiff
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float64)
+
+    def dn(x):
+        return torch.round(x.clamp(0, 1) * 255).to(torch.uint8)
+    written = {}
+
+    def put(path, tensor):
+        arr = tensor.cpu().numpy()
+        tiff.imwrite(path, arr)
+        written[path] = arr
+    images, darks, flats = (root / n for n in ("images", "darks", "flats"))
+    for d in (images, darks, flats):
+        d.mkdir()
+    radiance = rand(H, W, C) ** 2
+    gamma = torch.tensor([2.0, 2.2, 2.4], dtype=torch.float64, device=dev)
+    for ms in FILE_EXPOSURES_MS:
+        lin = (radiance * (ms / 40)).clamp(max=1.0)
+        noise = torch.randn((H, W, C), generator=gen, device=dev,
+                            dtype=torch.float64)
+        val = dn(lin ** (1 / gamma) + 0.004 * noise)
+        put(images / f"{ms}ms BF sample 50x.tif", val)
+        put(images / f"{ms}ms BF sample 50x STD.tif",
+            0.002 + 0.01 * torch.sqrt(val.double() / 255.0))
+    for ms in FILE_EXPOSURES_MS:
+        if ms / 1000 < CameraConfig().dark_threshold:
+            continue
+        dark = rand(H, W, C) * 0.01
+        hot = rand(H, W, C) < 0.005
+        dark[hot] = 0.05 + 0.45 * rand(int(hot.sum()))
+        put(darks / f"{ms}ms BF dark 50x.tif", dn(dark))
+    yy, xx = torch.meshgrid(
+        torch.linspace(-1, 1, H, dtype=torch.float64, device=dev),
+        torch.linspace(-1, 1, W, dtype=torch.float64, device=dev),
+        indexing="ij")
+    flat = (0.6 + 0.3 * torch.cos(0.6 * torch.sqrt(yy ** 2 + xx ** 2)))
+    put(flats / "BF flat 50x.tif", dn(flat[..., None].expand(H, W, C)))
+    put(flats / "BF flat 50x STD.tif",
+        torch.full((H, W, C), 0.004, dtype=torch.float64, device=dev))
+    mean_icrf, pca = gamma_basis()
+    for ch in "bgr":
+        np.savetxt(root / f"pca_{ch}.txt", pca)
+        np.savetxt(root / f"mean_{ch}.txt", mean_icrf)
+    (root / "config.ini").write_text(f"""[Integer data]
+channels = 3
+bit depth = 8
+final datapoints = 256
+number of principal components = {pca.shape[1]}
+
+[String data]
+dark frames path = {darks}
+flat fields path = {flats}
+principal components = pca_b.txt,pca_g.txt,pca_r.txt
+mean ICRFs = mean_b.txt,mean_g.txt,mean_r.txt
+""")
+    return written
+
+
+def codec_rates(arr, path) -> dict:
+    """Write and read MB/s of one plane through the port's codec on the
+    host clock (median of 3; MB of the array's bytes)."""
+    from camera_linearity_tpu_torch.utils import tiff
+    w, r = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tiff.imwrite(path, arr)
+        w.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tiff.imread(path, tiff.IMREAD_UNCHANGED)
+        r.append(time.perf_counter() - t0)
+    mb = arr.nbytes / 1e6
+    return dict(mb=mb, write_mbps=mb / float(np.median(w)),
+                read_mbps=mb / float(np.median(r)),
+                file_mb=path.stat().st_size / 1e6)
+
+
+def params_of_curve(curve, mean_icrf, pca):
+    """PCA parameters whose pinned curve is ``curve``: the pinned curve is
+    (mean[k] - mean[-1] + 1) + (pca[k] - pca[-1]) @ p, linear in p; a
+    least-squares fit over the inner points recovers p."""
+    a = pca[1:-1] - pca[-1]
+    b = curve[1:-1] - mean_icrf[1:-1] + mean_icrf[-1] - 1.0
+    p = np.linalg.lstsq(a, b, rcond=None)[0]
+    fit = mean_icrf + pca @ p
+    fit = fit + (1 - fit[-1])
+    fit[0] = 0.0
+    return p, float(np.max(np.abs(fit - curve)))
+
+
+def file_phases(dev, res, video_paths) -> dict:
+    """Phases 15-16: the port's TIFF codec and its command line, from
+    files, on the default device.  Returns the command line's kernel
+    launches and the numbers measured."""
+    import importlib.util
+    import os
+    from camera_linearity_tpu_torch import CameraConfig, native
+    from camera_linearity_tpu_torch.__main__ import (_load_icrf,
+                                                     _load_icrf_base)
+    from camera_linearity_tpu_torch.__main__ import main as cli
+    from camera_linearity_tpu_torch.models import calibration as cal
+    from camera_linearity_tpu_torch.models import video
+    from camera_linearity_tpu_torch.models.exposure_series import \
+        ExposureSeries
+    from camera_linearity_tpu_torch.models.image_set import ImageSet
+    from camera_linearity_tpu_torch.models.scipy_strict import \
+        reference_energy
+    from camera_linearity_tpu_torch.ops import hdr as hdr_ops
+    from camera_linearity_tpu_torch.ops import hdr_cuda
+    from camera_linearity_tpu_torch.utils import observability as obs
+    from camera_linearity_tpu_torch.utils import tiff
+
+    numbers = {}
+    # --- phase 15: the codec and config 3's captures as files -------------
+    log("phase 15: the native TIFF codec and BASELINE config 3's captures "
+        f"as files ({len(FILE_EXPOSURES_MS)} exposures of {H} x {W} x {C}"
+        f" at {FILE_EXPOSURES_MS} ms)")
+    t0 = time.perf_counter()
+    if not native.tiff_available():
+        raise AssertionError("the native TIFF codec did not build: "
+                             f"{native.build_error('_tiff')}")
+    log(f"  codec built and loaded in {time.perf_counter() - t0:.2f} s: "
+        f"{native._lib_path('_tiff', native._TIFF_SRC)}")
+    tmp = tempfile.TemporaryDirectory(prefix="clt_files_")
+    root = Path(tmp.name)
+    try:
+        t0 = time.perf_counter()
+        written = write_captures(root, dev)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for path, arr in written.items():
+            got = tiff.imread(path, tiff.IMREAD_UNCHANGED)
+            if got is None or got.dtype != arr.dtype or \
+                    not np.array_equal(got, arr):
+                raise AssertionError(f"{path.name} does not read back as "
+                                     "written")
+        t_read = time.perf_counter() - t0
+        total = sum(a.nbytes for a in written.values()) / 1e6
+        on_disk = sum(p.stat().st_size for p in written) / 1e6
+        log(f"  ok  {len(written)} files ({total:.1f} MB of arrays, "
+            f"{on_disk:.1f} MB on disk) written in {t_write:.2f} s "
+            f"(generation included) and read back bit for bit in "
+            f"{t_read:.2f} s")
+        images = root / "images"
+        first = f"{FILE_EXPOSURES_MS[0]}ms BF sample 50x"
+        for label, name in (("u8 LZW", f"{first}.tif"),
+                            ("f64", f"{first} STD.tif")):
+            rates = codec_rates(written[images / name], root / "rate.tif")
+            numbers[f"codec_{label.replace(' ', '_')}"] = rates
+            log(f"  {label} plane ({rates['mb']:.1f} MB, "
+                f"{rates['file_mb']:.1f} MB on disk): write "
+                f"{rates['write_mbps']:.1f} MB/s, read "
+                f"{rates['read_mbps']:.1f} MB/s (host clock, median of 3)")
+
+        # --- phase 16: the command line in-process ------------------------
+        ini = str(root / "config.ini")
+        cfg = CameraConfig.from_ini(ini)
+        icrf_path = root / "icrf.txt"
+        logs = LogRecords()
+        port_logger = obs.get_logger()  # set up before a handler is added
+        port_logger.addHandler(logs)
+        failures = []
+        log("phase 16 (a): calibrate --images DIR --spacing 150 --maxiter "
+            "1000 --seed 7 (default device)")
+        t0 = time.perf_counter()
+        rc = cli(["--config", ini, "calibrate", "--images", str(images),
+                  "--spacing", "150", "--maxiter", "1000", "--seed", "7",
+                  "--out", str(icrf_path)])
+        torch.cuda.synchronize()
+        numbers["calibrate_s"] = time.perf_counter() - t0
+        e0 = logs.arg("initial energies")
+        e1 = logs.arg("final energies")
+        base_curve = np.loadtxt(root / "icrf_base.txt")
+        icrf_file = np.loadtxt(icrf_path)
+        log(f"  rc {rc}, {numbers['calibrate_s']:.3f} s host clock "
+            f"(cold); energies {e0.tolist()} -> {e1.tolist()}; ICRF "
+            f"{icrf_file.shape}, base {base_curve.shape}")
+        if rc != 0 or not np.all(e1 <= e0) or icrf_file.shape != (256, C):
+            failures.append("calibrate's rc, energies or ICRF")
+        stacks, _, _, _ = cal.initialize_channel_image_stacks(
+            images, False, 150, config=cfg)
+        dn = stacks.cpu().numpy()
+        t_exp = np.array(FILE_EXPOSURES_MS, float) / 1000
+        mean_icrf, pca = gamma_basis()
+        for c in range(C):
+            params, fit_err = params_of_curve(base_curve[:, c], mean_icrf,
+                                              pca)
+            oracle = reference_energy(params, mean_icrf, pca,
+                                      dn[c][:, None, :], None, 5, 250, True,
+                                      t_exp, 256)
+            gap = abs(e1[c] - oracle) / oracle
+            log(f"  channel {c}: logged final {e1[c]:.8f}, oracle on the "
+                f"written curve {oracle:.8f} (rel gap {gap:.2e}; curve "
+                f"refit {fit_err:.1e}), {dn.shape[1]} pixels")
+            if not gap <= ORACLE_RTOL or not fit_err < 1e-5:
+                failures.append(f"channel {c} energy against the oracle")
+        raise_failures("phase 16 (a)", failures)
+
+        log("phase 16 (b): merge --images DIR --icrf <calibrated> --std "
+            "(darks and flat from config.ini)")
+        out_dir = root / "hdr"
+        merge_args = ["--config", ini, "merge", "--images", str(images),
+                      "--icrf", str(icrf_path), "--std", "--out",
+                      str(out_dir)]
+        for k in hdr_cuda.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        rc = cli(merge_args)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+        log(f"  rc {rc}; launches {counts} (1 series)")
+        if rc != 0 or counts != {"merge_nhwc_fused": 0, "merge_nhwc_lerp": 0,
+                                 "merge_nhwc_lerp_bp": 1}:
+            raise AssertionError(f"merge: rc {rc}, launches {counts}")
+        got = [tiff.imread(out_dir / f"sample BF 50x HDR{s}.tif",
+                           tiff.IMREAD_UNCHANGED) for s in ("", " STD")]
+
+        def merged(device):
+            """process_HDR_image on the series and frames the command
+            loads, with the tables it loads, on ``device``."""
+            d = torch.device(device)
+            icrf, icrf_diff = _load_icrf(icrf_path, cfg, d)
+            base, diff_base = _load_icrf_base(icrf_path, d)
+            (series,) = ExposureSeries.from_dir_path(images, config=cfg,
+                                                     device=d)
+            series.load_value_images()
+            series.load_std_images()
+            darks = ImageSet.multiple_from_path(cfg.default_dark_path,
+                                                config=cfg, device=d)
+            for s in darks:
+                s.load_value_image()
+            flats = ImageSet.multiple_from_path(cfg.default_flat_path,
+                                                config=cfg, device=d)
+            for s in flats:
+                s.load_value_image()
+                s.load_std_image()
+            hdr = series.process_HDR_image(
+                ICRF=icrf, ICRF_diff=icrf_diff, list_of_dark_fields=darks,
+                flat_field=series.input_image_sets[0].get_flat_field(flats),
+                ICRF_base=base, ICRF_diff_base=diff_base)
+            return hdr.measurand.val, hdr.measurand.std
+        rec = {}
+        original = hdr_ops.merge_corrected
+
+        def recorder(*args, **kwargs):
+            rec["args"], rec["kwargs"] = args, kwargs
+            return original(*args, **kwargs)
+        hdr_ops.merge_corrected = recorder
+        try:
+            card = merged(dev)
+        finally:
+            hdr_ops.merge_corrected = original
+        for label, g, w in (("HDR", got[0], card[0]),
+                            ("HDR STD", got[1], card[1])):
+            same = g is not None and g.dtype == np.float64 and \
+                np.array_equal(g, w.cpu().numpy().astype(np.float64))
+            log(f"  {'ok ' if same else 'BAD'} {label} file == "
+                "process_HDR_image on the card, exactly")
+            if not same:
+                failures.append(f"{label} file against the card")
+        val, std, dark, ex = rec["args"][:4]
+        thr = rec["args"][6]
+        base, diff_base = rec["kwargs"]["icrf_base"], \
+            rec["kwargs"]["icrf_diff_base"]
+        res.check("merge_nhwc_lerp_bp", "the command's inputs vs "
+                  "merge_lerp_bp_plain",
+                  hdr_cuda.merge_nhwc_lerp_bp(val, std, dark, ex, base,
+                                              diff_base, thr, 256),
+                  hdr_cuda.merge_lerp_bp_plain(val, std, dark, ex, base,
+                                               diff_base, thr, 256))
+        del val, std, dark, card, rec
+        t0 = time.perf_counter()
+        cpu = merged("cpu")
+        log(f"  CPU float64 reference run: {time.perf_counter() - t0:.1f} s")
+        res.check(None, "merge files vs the CPU in float64",
+                  (torch.as_tensor(got[0]), torch.as_tensor(got[1])), cpu,
+                  E2E_VAL_TOL, E2E_STD_TOL)
+        del cpu
+        raise_failures("phase 16 (b)", failures)
+        walls, splits = [], []
+        for run in range(4):  # one warm run, then 3 timed
+            obs.reset_stage_times()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli(merge_args)
+            torch.cuda.synchronize()
+            if run:
+                walls.append(time.perf_counter() - t0)
+                splits.append(obs.stage_times.snapshot())
+        k = int(np.argsort(walls)[1])
+        numbers["merge_s"] = dict(walls=walls, median=walls[k],
+                                  split_of_median=splits[k])
+        log(f"  merge walls {[round(w, 4) for w in walls]} s (host clock, "
+            f"after one warm run); the median's split "
+            f"{ {n: round(v, 4) for n, v in splits[k].items()} }")
+        with obs.trace(root / "trace") as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli(merge_args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_ms, n_dev = obs.device_busy(prof)
+        (trace_file,) = (root / "trace").glob("*.json")
+        numbers["merge_traced"] = dict(wall_s=wall, busy_ms=busy_ms,
+                                       device_ops=n_dev,
+                                       busy_share=busy_ms / 1e3 / wall)
+        log(f"  under trace: {wall:.4f} s wall, device busy {busy_ms:.3f} ms"
+            f" over {n_dev} kernels and copies: busy share "
+            f"{busy_ms / 1e3 / wall * 100:.2f} % (trace "
+            f"{trace_file.stat().st_size / 1e6:.1f} MB)")
+        launches = {"CLI merge (phase 16)": counts}
+
+        log(f"phase 16 (c): video --videos DIR ({len(video_paths)} raw RGBA "
+            f"videos of {FRAMES5} x {H5} x {W5} from phase 12)")
+        vdir = root / "videos"
+        vdir.mkdir()
+        for p in video_paths:
+            os.link(p, vdir / p.name)
+        obs.reset_stage_times()
+        t0 = time.perf_counter()
+        rc = cli(["video", "--videos", str(vdir)])
+        wall = time.perf_counter() - t0
+        split = obs.stage_times.snapshot()
+        numbers["video_s"] = dict(wall=wall, split=split)
+        log(f"  rc {rc}, {wall:.3f} s host clock; stages "
+            f"{ {n: round(v, 4) for n, v in split.items()} }; decoders "
+            f"{obs.decoded_frames.snapshot()}")
+        for p in video_paths:
+            want = video.welford_algorithm(p, use_std=True)
+            for key, name in (("mean", p.stem + ".tif"),
+                              ("std", p.stem + " STD.tif")):
+                g = tiff.imread(vdir / key / name, tiff.IMREAD_UNCHANGED)
+                same = g is not None and np.array_equal(g, want[key])
+                log(f"  {'ok ' if same else 'BAD'} {key}/{name} == "
+                    "welford_algorithm in memory, exactly")
+                if not same:
+                    failures.append(f"{key}/{name}")
+        raise_failures("phase 16 (c)", failures)
+
+        log("phase 16 (d): dorf on a synthetic dorfCurves.txt")
+        data = root / "dorf"
+        data.mkdir()
+        x = np.linspace(0, 1, 64)
+        lines = []
+        for name, g in [("aRed", 2.0), ("aGreen", 2.2), ("aBlue", 2.4),
+                        ("bRed", 2.1), ("bGreen", 2.3), ("bBlue", 2.5)]:
+            lines += [name, "t", "i", "I =",
+                      " ".join(f"{v:.5f}" for v in x),
+                      " ".join(f"{v:.5f}" for v in x ** g)]
+        (data / "dorfCurves.txt").write_text("\n".join(lines) + "\n")
+        (data / "config.ini").write_text("""[Integer data]
+channels = 3
+bit depth = 8
+final datapoints = 64
+original DoRF datapoints = 64
+number of principal components = 1
+
+[String data]
+source DoRF data = dorfCurves.txt
+ICRFs = icrf_b.txt,icrf_g.txt,icrf_r.txt
+mean ICRFs = mean_b.txt,mean_g.txt,mean_r.txt
+principal components = pca_b.txt,pca_g.txt,pca_r.txt
+""")
+        rc = cli(["--config", str(data / "config.ini"), "dorf", "--data",
+                  str(data)])
+        for ch in "bgr":
+            pc = np.loadtxt(data / f"pca_{ch}.txt")
+            mean = np.loadtxt(data / f"mean_{ch}.txt")
+            if rc != 0 or pc.shape != (64,) or mean.shape != (64,) or \
+                    not np.isfinite(pc).all() or pc[0] != 0.0 or \
+                    not np.any(pc):
+                failures.append(f"dorf pca_{ch}")
+        log(f"  rc {rc}; pca_[bgr].txt and mean_[bgr].txt of 64 finite "
+            f"points, each component zero-anchored: {not failures}")
+        raise_failures("phase 16 (d)", failures)
+
+        if importlib.util.find_spec("matplotlib") is None:
+            log("phase 16 (e): linearity --std left out: matplotlib is not "
+                "installed here, and the command draws its plots with it "
+                "(phase 8 runs process_linearity on the card)")
+        else:
+            log("phase 16 (e): linearity --std")
+            rc = cli(["--config", ini, "linearity", "--images",
+                      str(images), "--icrf", str(icrf_path), "--std",
+                      "--out", str(root)])
+            fits = [r.args for r in logs.records if "ODR fit" in r.msg]
+            log(f"  rc {rc}; {len(fits)} fits logged")
+            if rc != 0 or len(fits) != 2 * C or \
+                    not (root / "linearity_relative_0.png").exists():
+                raise AssertionError("phase 16 (e): linearity")
+
+        log("phase 16 (f): doctor")
+        if cli(["doctor"]) != 0:
+            raise AssertionError("phase 16 (f): doctor")
+        port_logger.removeHandler(logs)
+    finally:
+        tmp.cleanup()
+    return dict(launches=launches, numbers=numbers)
 
 
 def time_k1_batch(dev, bv, bs, ex, ic, icd) -> dict:
@@ -1289,12 +1713,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     linearity_phases(dev, t_np, vals_np, stds_np)
-    config5 = video_phases(dev, res)
+    with tempfile.TemporaryDirectory(prefix="clt_config5_") as tmp:
+        config5 = video_phases(dev, res, Path(tmp))
+        files = file_phases(dev, res, config5["paths"])
 
-    # every main path's launches: phase 6's and config 5's, each counted
-    # from zero around its own run
+    # every main path's launches: phase 6's, config 5's and the command
+    # line's, each counted from zero around its own run
     paths = {"merge_hdr + process_HDR_image (phase 6)": launches,
-             **config5["launches"]}
+             **config5["launches"], **files["launches"]}
     # no single PyTorch call computes the merge: no library yardstick
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
@@ -1306,6 +1732,7 @@ def main() -> int:
     kernels[2]["config5_video_to_hdr"] = config5["k3"]
     log(json.dumps({"welford_ms_per_frame": config5["welford_ms"],
                     "welford_bound_ms": config5["welford_bound_ms"]}))
+    log(json.dumps({"files": files["numbers"]}))
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

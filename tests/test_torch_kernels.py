@@ -463,6 +463,10 @@ _PORT_MODULES = [
     "camera_linearity_tpu_torch.ops.welford",
     "camera_linearity_tpu_torch.models.video",
     "camera_linearity_tpu_torch.models.pipeline",
+    "camera_linearity_tpu_torch.utils.tiff",
+    "camera_linearity_tpu_torch.native.tiff_plain",
+    "camera_linearity_tpu_torch.utils.visualization",
+    "camera_linearity_tpu_torch.__main__",
 ]
 
 
@@ -472,7 +476,8 @@ def test_port_imports_no_jax():
         f"for m in {_PORT_MODULES!r}: importlib.import_module(m)\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cv2',\n"
-        "                                    'camera_linearity_tpu')))\n")
+        "                                    'camera_linearity_tpu',\n"
+        "                                    'matplotlib')))\n")
     assert out.strip() == "[]"
 
 
@@ -486,7 +491,9 @@ def test_import_builds_nothing():
         "from camera_linearity_tpu_torch.models import exposure_series\n"
         "from camera_linearity_tpu_torch.models import pipeline, video\n"
         "from camera_linearity_tpu_torch import native\n"
+        "from camera_linearity_tpu_torch.utils import io, tiff\n"
+        "import camera_linearity_tpu_torch.__main__\n"
         "print(csrc._libs == {}, calls == [],\n"
         "      [k.launches for k in hdr_cuda.KERNELS],\n"
-        "      native._tried or native._mjpeg_tried)\n")
+        "      native._tried or native._mjpeg_tried or native._tiff_tried)\n")
     assert out.strip() == "True True [0, 0, 0] False"
