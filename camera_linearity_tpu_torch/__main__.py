@@ -128,12 +128,22 @@ def cmd_merge(args) -> int:
 
 
 def cmd_linearity(args) -> int:
+    """Analyse every exposure series of a directory and log the ODR fits
+    of its absolute and relative differences; draw them into
+    ``linearity_<kind>_<k>.png`` where matplotlib is installed (the fits
+    are logged either way)."""
+    import importlib.util
     from .models.exposure_series import ExposureSeries
     from .utils import visualization as viz
     from .utils.observability import get_logger
     log = get_logger()
     cfg = _load_config(args)
     dev = _device(args)
+    plots = importlib.util.find_spec("matplotlib") is not None
+    if not plots:
+        log.warning("matplotlib is not installed: the linearity plots "
+                    "(linearity_<kind>_<k>.png) are not written; the fits "
+                    "are logged")
     icrf = None
     if args.icrf:
         icrf, _ = _load_icrf(args.icrf, cfg, dev)
@@ -149,14 +159,15 @@ def cmd_linearity(args) -> int:
         out = Path(args.out) if args.out else Path(args.images)
         for name, stats in (("absolute", abs_stats), ("relative",
                                                       rel_stats)):
-            fits = viz.create_linearity_plots(
-                stats, out / f"linearity_{name}_{k}.png", fit_line=True,
-                ylabel=f"{name} difference", symbol="R", config=cfg)
-            for cc, fit in fits.items():
+            for cc, fit in viz.linearity_fits(stats, cfg).items():
                 log.info("series %d %s ODR fit %s: A=%.5g±%.2g "
                          "B=%.5g±%.2g", k, name, cc, fit["beta"][0],
                          fit["sd_beta"][0], fit["beta"][1],
                          fit["sd_beta"][1])
+            if plots:
+                viz.create_linearity_plots(
+                    stats, out / f"linearity_{name}_{k}.png", fit_line=True,
+                    ylabel=f"{name} difference", symbol="R", config=cfg)
         log.info("series %d: %d pairs, mean |rel| = %s", k,
                  len(series.exposure_pairs),
                  np.abs(rel_stats["means"]).mean(axis=0))

@@ -3,10 +3,14 @@
 Each ``.cu`` here has a plain C interface: ``nvcc`` compiles it for Hopper
 (sm_90a) into a shared library that ``ctypes`` loads, without PyTorch's
 headers (which would make the build take minutes instead of seconds).
-``hdr_merge.cu`` holds K1, ``hdr_merge_lerp.cu`` K2 and K3.  The build runs
-on first use, never at import, every source at once in its own ``nvcc``,
-into ``build/torch_kernels/<source>-<hash of source and flags>/`` beside
-the package; a changed source builds anew.
+``hdr_merge.cu`` holds K1, ``hdr_merge_lerp.cu`` K2 and K3,
+``exp_ablation.cu`` the kernel experiments' E1-E5.  The build runs
+on first use, never at import, each source in its own ``nvcc``, all at
+once, into ``build/torch_kernels/<source>-<hash of source and flags>/``
+beside the package; a changed source builds anew.  The first use of a
+merge kernel builds the two merge sources; ``exp_ablation.cu`` is built
+only when an experiment first runs, or by :func:`build` with no
+arguments.
 """
 from __future__ import annotations
 
@@ -15,13 +19,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
-__all__ = ["build", "library", "SOURCES", "NVCC_FLAGS"]
+__all__ = ["build", "library", "SOURCES", "MERGE_SOURCES", "NVCC_FLAGS",
+           "BUILD_SECONDS"]
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = ("hdr_merge", "hdr_merge_lerp")
+SOURCES = ("hdr_merge", "hdr_merge_lerp", "exp_ablation")
+MERGE_SOURCES = SOURCES[:2]  # built together on a merge kernel's first use
 _BUILD_ROOT = _HERE.parent.parent / "build" / "torch_kernels"
 
 # no -use_fast_math: the kernels round with rintf and weight with expf, and
@@ -32,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-ldl")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: Dict[str, float] = {}  # wall of each nvcc run, by source
 
 
 def _nvcc() -> str:
@@ -53,39 +62,52 @@ def _lib_path(name: str) -> Path:
     return _BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 
-def build() -> Dict[str, Path]:
-    """Compile every source not built already, all at once; return each
-    library's path by source name.  ``ptxas.log`` beside a library holds
-    its kernels' registers, shared memory and spills."""
-    paths = {name: _lib_path(name) for name in SOURCES}
-    running = []
-    for name, lib in paths.items():
-        if lib.exists():
-            continue
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_HERE / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        running.append((name, lib, tmp, proc))
+def _compile(name: str, lib: Path) -> float:
+    """``nvcc`` of ``<name>.cu`` into ``lib``; its wall seconds."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_HERE / f"{name}.cu")],
+        capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}.cu: nvcc failed with code "
+                           f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
+    (lib.parent / "ptxas.log").write_text(proc.stderr)
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
+    return seconds
+
+
+def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
+    """Compile each of ``names`` not built already, all at once; return
+    each library's path by source name and record each compile's wall in
+    :data:`BUILD_SECONDS`.  ``ptxas.log`` beside a library holds its
+    kernels' registers, shared memory and spills."""
+    paths = {name: _lib_path(name) for name in names}
+    todo = {name: lib for name, lib in paths.items() if not lib.exists()}
+    if not todo:
+        return paths
+    with ThreadPoolExecutor(len(todo)) as pool:
+        running = {name: pool.submit(_compile, name, lib)
+                   for name, lib in todo.items()}
     failed = []
-    for name, lib, tmp, proc in running:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu: nvcc failed with code "
-                          f"{proc.returncode}:\n{out}{err}")
-            continue
-        (lib.parent / "ptxas.log").write_text(err)
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
+    for name, future in running.items():
+        try:
+            BUILD_SECONDS[name] = future.result()
+        except RuntimeError as e:
+            failed.append(str(e))
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``<name>.cu``, built on the first call."""
+    """The loaded library of ``<name>.cu``, built on the first call (with
+    the other merge source, for a merge kernel)."""
     if name not in _libs:
-        _libs[name] = _declare(ctypes.CDLL(str(build()[name])))
+        group = MERGE_SOURCES if name in MERGE_SOURCES else (name,)
+        _libs[name] = _declare(ctypes.CDLL(str(build(group)[name])))
     return _libs[name]
 
 
@@ -99,6 +121,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                           p, p],
         "cl_merge_lerp_bp": [p, p, p, i, f, p, p, i, p, i, i, i, i, i, f, p,
                              p, p, p],
+        "cl_exposure_sum": [p, p, p, p, ll, i, ll, i, i, i, p],
+        "cl_merge_nolut": [p, p, ctypes.POINTER(f), p, p, ll, i, ll, i, p],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

@@ -40,6 +40,19 @@ moments oracle and the leg's energy against the reference's; then
 ``video_to_hdr`` through K3.  It times the device Welford and K1 at B = 8
 beside their bounds, and K3's share of ``video_to_hdr``.
 
+Phases 15-16, config 3's captures as files and the command line: build
+the native TIFF codec, write and read the captures, and run ``calibrate``,
+``merge``, ``video``, ``dorf``, ``linearity`` and ``doctor`` in-process;
+``linearity`` logs its fits with or without matplotlib (the card's machine
+has none: then no PNG is written and one warning says so).
+
+Phase 17, the kernel experiments E1-E5 (``benchmarks/exp_kernel.py`` and
+``exp_plateau.py``, ported to ``csrc/exp_ablation.cu``) at config 2: each
+variant against its plain version (the sums exactly, but for ``exp``'s
+value), the experiments' entry points with the launch counts reset, times beside a ``copy_`` of the
+same bytes and the two-``torch.sum`` yardstick, E5's launch sweep, and K1's
+time split into bytes, arithmetic and lookup.
+
 It prints the card's name and power limit early, one JSON line with the
 kernels' results before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: a nonzero exit and
@@ -106,6 +119,10 @@ PEAK_F32_S = 67e12
 # f32 operations per element and exposure of the merge with std, counted
 # from the kernels' source (quantize, weight, lookups, bracket; expf as 1)
 OPS_PER_ELEMENT = 48
+# phase 17: the ablation kernels; the merge without a lookup's f32
+# operations per element and exposure (weight, sums, bracket; expf as 1)
+ABLATION_SOURCE = "camera_linearity_tpu_torch/csrc/exp_ablation.cu"
+ABLATION_MERGE_OPS = 30
 
 
 def log(msg: str) -> None:
@@ -1393,20 +1410,31 @@ principal components = pca_b.txt,pca_g.txt,pca_r.txt
             f"points, each component zero-anchored: {not failures}")
         raise_failures("phase 16 (d)", failures)
 
-        if importlib.util.find_spec("matplotlib") is None:
-            log("phase 16 (e): linearity --std left out: matplotlib is not "
-                "installed here, and the command draws its plots with it "
-                "(phase 8 runs process_linearity on the card)")
-        else:
-            log("phase 16 (e): linearity --std")
-            rc = cli(["--config", ini, "linearity", "--images",
-                      str(images), "--icrf", str(icrf_path), "--std",
-                      "--out", str(root)])
-            fits = [r.args for r in logs.records if "ODR fit" in r.msg]
-            log(f"  rc {rc}; {len(fits)} fits logged")
-            if rc != 0 or len(fits) != 2 * C or \
-                    not (root / "linearity_relative_0.png").exists():
-                raise AssertionError("phase 16 (e): linearity")
+        # the plots need matplotlib (the card's machine has none); the
+        # fits are logged either way, and a missing matplotlib is warned
+        plots = importlib.util.find_spec("matplotlib") is not None
+        log(f"phase 16 (e): linearity --std (matplotlib "
+            f"{'installed' if plots else 'not installed: no PNG'})")
+        first = len(logs.records)
+        t0 = time.perf_counter()
+        rc = cli(["--config", ini, "linearity", "--images", str(images),
+                  "--icrf", str(icrf_path), "--std", "--out", str(root)])
+        wall = time.perf_counter() - t0
+        ran = logs.records[first:]
+        fits = [r.args for r in ran if "ODR fit" in r.msg]
+        warned = [r for r in ran if r.levelno == logging.WARNING
+                  and "matplotlib" in r.getMessage()]
+        png = (root / "linearity_relative_0.png").exists()
+        numbers["cli_linearity_s"] = wall
+        log(f"  rc {rc}; {len(fits)} fits logged in {wall:.3f} s; plots "
+            f"{'written' if png else 'not written'}, {len(warned)} "
+            "matplotlib warning(s)")
+        for f in fits:
+            log(f"    {f[1]} {f[2]}: A={f[3]:.5g} B={f[5]:.5g}")
+        if rc != 0 or len(fits) != 2 * C or png != plots or \
+                len(warned) != (0 if plots else 1) or \
+                not all(np.isfinite(f[3:]).all() for f in fits):
+            raise AssertionError("phase 16 (e): linearity")
 
         log("phase 16 (f): doctor")
         if cli(["doctor"]) != 0:
@@ -1415,6 +1443,210 @@ principal components = pca_b.txt,pca_g.txt,pca_r.txt
     finally:
         tmp.cleanup()
     return dict(launches=launches, numbers=numbers)
+
+
+def ablation_phase(dev, val, std, exposures, k1: dict) -> dict:
+    """Phase 17: the ablation kernels E1-E5 (``csrc/exp_ablation.cu``) at
+    config 2.  Holds every variant against its plain version (the sums
+    exactly; ``exp``'s value and the merges at K1's tolerances), drives
+    the experiments' entry points with the launch counts reset, times each
+    variant in phase 7's interleaved order beside a ``copy_`` of the same
+    bytes and, for the plain sums, the two-``torch.sum`` yardstick, sweeps
+    E5's launch settings, and splits K1's time (``k1``, phase 7's) into
+    bytes, arithmetic and lookup.  Returns the kernels' JSON entries."""
+    from camera_linearity_tpu_torch.experiments import exp_kernel, exp_plateau
+    from camera_linearity_tpu_torch.ops import ablation_cuda as ab
+    t_phase = time.perf_counter()
+    n, h, w, c = val.shape
+    log(f"phase 17: the ablation kernels E1-E5 at config 2 ({n} x {h} x "
+        f"{w} x {c}, f32 value and std)")
+    vcf, scf = exp_kernel.cfirst(val), exp_kernel.cfirst(std)
+    vf, sf = val.reshape(n, -1), std.reshape(n, -1)
+    vp, sp = exp_plateau.planar(val), exp_plateau.planar(std)
+    invt = 1.0 / exposures.cpu()  # passed by value: kept on the host
+
+    def sums(v, s, layout, mode="none"):
+        return (lambda: ab.exposure_sum(v, s, layout, mode),
+                lambda: ab.exposure_sum_plain(v, s, layout, mode))
+
+    def merges(v, s, it, layout, dead=False):
+        return (lambda: ab.merge_nolut(v, s, it, layout, dead),
+                lambda: ab.merge_nolut_plain(v, s, it, layout))
+    # which of (value, std) is held bit for bit; the rest at K1's
+    # tolerances.  Every sum's std adds in exposure order, as its plain
+    # version does; so does its value but for exp's expf terms.
+    exact, exact_std, close = (True, True), (False, True), (False, False)
+    # variant: (experiment, (kernel, plain), exactness, library call, f32
+    # operations per element and exposure, counted from exp_ablation.cu)
+    variants = {
+        "E1 cfirst sum": ("E1", sums(vcf, scf, "cfirst"), exact,
+                          lambda: (vcf.sum(1), scf.sum(1)), 2),
+        "E2 cfirst merge": ("E2", merges(vcf, scf, invt, "cfirst"), close,
+                            None, ABLATION_MERGE_OPS),
+        "E3 flat merge": ("E3", merges(vf, sf, invt, "flat"), close, None,
+                          ABLATION_MERGE_OPS),
+        "E3 flat merge, dead index": ("E3", merges(vf, sf, invt, "flat",
+                                                   True), close, None,
+                                      ABLATION_MERGE_OPS),
+        "E4 flat sum": ("E4", sums(vf, sf, "flat"), exact,
+                        lambda: (vf.sum(0, keepdim=True),
+                                 sf.sum(0, keepdim=True)), 2),
+        "E4 flat sum + mod": ("E4", sums(vf, sf, "flat", "mod"), exact,
+                              None, 2),
+        "E4 flat sum + round": ("E4", sums(vf, sf, "flat", "round"), exact,
+                                None, 7),
+        "E4 flat sum + exp": ("E4", sums(vf, sf, "flat", "exp"), exact_std,
+                              None, 8),
+        "E4 flat math": ("E4", merges(vf, sf, None, "flat"), close, None,
+                         ABLATION_MERGE_OPS),
+        "E5 planar sum": ("E5", sums(vp, sp, "planar"), exact,
+                          lambda: (vp.sum(0), sp.sum(0)), 2),
+    }
+
+    # each variant, each E5 launch setting, a ragged and a misaligned
+    # stack against the plain version
+    err = {e: 0.0 for e in ab.KERNELS}
+    failures = []
+
+    def hold(label, experiment, got, want, exactness):
+        gap = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+        ok = all(torch.equal(g, w_) if ex else torch.allclose(g, w_, **tol)
+                 for g, w_, ex, tol in zip(got, want, exactness,
+                                           (VAL_TOL, STD_TOL)))
+        err[experiment] = max(err[experiment], gap)
+        held = {exact: " (exact)", exact_std: " (std exact)"}.get(exactness,
+                                                                  "")
+        log(f"  {'ok ' if ok else 'BAD'} {label}: max abs err {gap:.3e}"
+            f"{held}")
+        if not ok:
+            failures.append(label)
+    for label, (experiment, (kernel, plain), exactness, _, _) in \
+            variants.items():
+        hold(label, experiment, kernel(), plain(), exactness)
+    for threads in ab.THREADS:
+        for vec in ab.VECS:
+            hold(f"E5 planar sum, {threads} threads x {vec} quads", "E5",
+                 ab.exposure_sum(vp, sp, "planar", threads=threads, vec=vec),
+                 ab.exposure_sum_plain(vp, sp, "planar"), exact)
+    ragged = [x[:, 3:].contiguous() for x in (vf, sf)]  # L % 4 == 1
+    skewed = [torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)
+              for x in (vf, sf)]  # 4 bytes off 16-byte alignment
+    for dst, x in zip(skewed, (vf, sf)):
+        dst.copy_(x)
+    for label, (v, s) in (("ragged rows", ragged), ("misaligned", skewed)):
+        hold(f"E4 flat sum + round, {label}", "E4",
+             ab.exposure_sum(v, s, "flat", "round"),
+             ab.exposure_sum_plain(v, s, "flat", "round"), exact)
+        hold(f"E3 flat merge, {label}", "E3",
+             ab.merge_nolut(v, s, invt, "flat"),
+             ab.merge_nolut_plain(v, s, invt, "flat"), close)
+    del ragged, skewed
+    raise_failures("phase 17", failures)
+
+    # the experiments' entry points, launch counts reset
+    log("  main path: exp_kernel.run(dma, math, flatdma), flat_dma (every "
+        "extra), exp_plateau.run(dma)")
+    for e in ab.KERNELS.values():
+        e.launches = 0
+    run_k = exp_kernel.run(["dma", "math", "flatdma"], device=dev)
+    flat = {extra: exp_kernel.flat_dma(vf, sf, extra)
+            for extra in (None, "mod", "round", "exp", "math")}
+    run_p = exp_plateau.run(["dma"], device=dev)
+    torch.cuda.synchronize()
+    launches = {e: k.launches for e, k in ab.KERNELS.items()}
+    log(f"  launches: {launches}")
+    outs = [r.out for r in run_k.values()] + list(flat.values()) + \
+        [r.out for r in run_p["dma"].values()]
+    if not all(torch.isfinite(x).all() for o in outs for x in o):
+        raise AssertionError("phase 17: an experiment returned non-finite "
+                             "values")
+    for e, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"phase 17: {e} was not launched by the "
+                                 "experiments")
+    del run_k, run_p, flat, outs
+
+    # times, in phase 7's interleaved order
+    nbytes = (2 * n + 2) * h * w * c * 4
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    src = torch.empty(nbytes // 8, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+
+    def copy():
+        dst.copy_(src)
+    log(f"  times ({nbytes / 1e6:.2f} MB each, bound {bytes_ms:.4f} ms at "
+        "3.35 TB/s; median of CUDA-event samples; copy = copy_ of the same "
+        "bytes; library = two torch.sum over the exposure axis)")
+    timed = {}
+    for label, (experiment, (kernel, plain), _, library, ops) in \
+            variants.items():
+        k_s, p_s, c_s, l_s = [], [], [], []
+        order = [(plain, p_s), (copy, c_s)] + \
+            ([(library, l_s)] if library else []) + \
+            [(kernel, k_s), (kernel, k_s)] + \
+            ([(library, l_s)] if library else []) + \
+            [(copy, c_s), (plain, p_s)]
+        for fn, out in order:
+            out += time_samples(fn, runs=10, reps=2 if fn is plain else 10)
+        k_ms, p_ms, c_ms = (float(np.median(x)) for x in (k_s, p_s, c_s))
+        l_ms = float(np.median(l_s)) if library else None
+        ops_ms = ops * n * h * w * c / PEAK_F32_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        timed[label] = dict(ms=k_ms, plain_ms=p_ms, copy_ms=c_ms,
+                            library_ms=l_ms, bound_ms=bound,
+                            bound_by="bytes" if bytes_ms >= ops_ms
+                            else "operations", share=bound / k_ms)
+        lib = "" if l_ms is None else f", library {l_ms:.4f} ms"
+        log(f"  {label}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} "
+            f"GB/s, {bound / k_ms * 100:.1f} % of the bound), copy "
+            f"{c_ms:.4f} ms{lib}, plain {p_ms:.4f} ms; kernel samples "
+            f"{min(k_s):.4f}-{max(k_s):.4f} ms")
+
+    log("  E5 launch sweep (planar sum; threads per block x 16-byte quads "
+        "a thread; the default is 256 x 1)")
+    sweep = {}
+    for threads in ab.THREADS:
+        for vec in ab.VECS:
+            samples = time_samples(lambda: ab.exposure_sum(
+                vp, sp, "planar", threads=threads, vec=vec), runs=5, reps=10)
+            ms = float(np.median(samples))
+            sweep[f"{threads}x{vec}"] = ms
+            log(f"    {threads:4d} threads x {vec} quads: {ms:.4f} ms "
+                f"({nbytes / ms / 1e6:.1f} GB/s, "
+                f"{bytes_ms / ms * 100:.1f} % of the bound)")
+    del src, dst, vcf, scf, vp, sp
+
+    e1, e2 = timed["E1 cfirst sum"]["ms"], timed["E2 cfirst merge"]["ms"]
+    e3, e4 = timed["E3 flat merge"]["ms"], timed["E4 flat sum"]["ms"]
+    split = dict(k1_ms=k1["ms"], lookup_ms=k1["ms"] - e2,
+                 math_ms=e2 - e1, e1_over_copy=e1 / timed["E1 cfirst sum"][
+                     "copy_ms"], lookup_flat_ms=k1["ms"] - e3,
+                 math_flat_ms=e3 - e4)
+    log(f"  K1 split (K1 {k1['ms']:.4f} ms from phase 7, NHWC = the flat "
+        f"layout): lookup K1 - E2 {split['lookup_ms']:.4f} ms, math E2 - E1 "
+        f"{split['math_ms']:.4f} ms, E1 / copy_ {split['e1_over_copy']:.3f};"
+        f" on the flat layout: lookup K1 - E3 {split['lookup_flat_ms']:.4f} "
+        f"ms, math E3 - E4 {split['math_flat_ms']:.4f} ms")
+
+    # one JSON entry for each experiment, by its first variant
+    first = {"E1": "E1 cfirst sum", "E2": "E2 cfirst merge",
+             "E3": "E3 flat merge", "E4": "E4 flat sum",
+             "E5": "E5 planar sum"}
+    kernels = []
+    for e, label in first.items():
+        entry = {"name": f"{ab.KERNELS[e].wrapper} ({e})", "route": "cuda",
+                 "source": ABLATION_SOURCE,
+                 "replaces": ab.KERNELS[e].replaces,
+                 "launches": launches[e],
+                 "launches_by_path": {"experiments (phase 17)": launches[e]},
+                 "max_abs_err": err[e], "bytes": nbytes, **timed[label],
+                 "variants": {k: v for k, v in timed.items()
+                              if variants[k][0] == e}}
+        kernels.append(entry)
+    kernels[-1]["sweep_ms"] = sweep
+    kernels[0]["k1_split"] = split
+    log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return dict(kernels=kernels, launches=launches)
 
 
 def time_k1_batch(dev, bv, bs, ex, ic, icd) -> dict:
@@ -1481,7 +1713,14 @@ def main() -> int:
         csrc.library(name)
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, path in lib_paths.items():
-        log(f"  {name}: {path}")
+        seconds = csrc.BUILD_SECONDS.get(name)
+        log(f"  {name}: {path}, " + ("built already" if seconds is None
+                                     else f"nvcc {seconds:.1f} s"))
+    if all(name in csrc.BUILD_SECONDS for name in csrc.MERGE_SOURCES):
+        log("  a merge kernel's first use builds "
+            f"{' + '.join(csrc.MERGE_SOURCES)}: "
+            f"{max(csrc.BUILD_SECONDS[n] for n in csrc.MERGE_SOURCES):.1f} s"
+            " (the slower nvcc of the two)")
 
     rng = np.random.default_rng(SEED)
     t_np, vals_np, stds_np, darks_np, flat_np, flat_std_np = make_inputs(rng)
@@ -1709,7 +1948,11 @@ def main() -> int:
         f"({H * W / e2e_ms / 1e3:.1f} MP/s)")
     profile_breakdown("process_HDR_image (config 3)", merge_e2e,
                       by_kernel=True)
-    del gpu_series, gpu_darks, gpu_flat, val, std, dark
+    del gpu_series, gpu_darks, gpu_flat, dark
+    torch.cuda.empty_cache()
+    ablation = ablation_phase(dev, val, std, exposures,
+                              times["merge_nhwc_fused"])
+    del val, std
     torch.cuda.empty_cache()
 
     linearity_phases(dev, t_np, vals_np, stds_np)
@@ -1730,6 +1973,7 @@ def main() -> int:
                 "library_ms": None} for name in REPLACES]
     kernels[0]["config5_B8"] = config5["k1"]
     kernels[2]["config5_video_to_hdr"] = config5["k3"]
+    kernels += ablation["kernels"]
     log(json.dumps({"welford_ms_per_frame": config5["welford_ms"],
                     "welford_bound_ms": config5["welford_bound_ms"]}))
     log(json.dumps({"files": files["numbers"]}))

@@ -1,4 +1,5 @@
-"""The CUDA merge kernels K1-K3 against their plain PyTorch versions.
+"""The CUDA merge kernels K1-K3 and the ablation kernels E1-E5 against
+their plain PyTorch versions.
 
 The tests marked ``cuda`` need a card and skip without one; on a machine
 with a card and no JAX, run them with
@@ -11,7 +12,11 @@ atol 1e-6, std rtol 2e-4 / atol 1e-5; the median repair agrees exactly.
 K2 and K3 are held at shapes that reach their tile edges, both load routes
 (TMA where a row is a multiple of 16 bytes, the copy route elsewhere), 1 to
 12 exposures, batches, every stack type, and hot pixels on tile borders,
-image corners and next to each other.  The CPU tests check that a wrapper
+image corners and next to each other.  The ablation kernels
+(``ops/ablation_cuda.py``) are held on every layout, mode and launch
+setting, on rows that end in a ragged quad and on stacks 4 bytes off
+16-byte alignment: the sums exactly (both add in exposure order), the
+merges at K1's tolerances.  The CPU tests check that a wrapper
 given a CPU tensor runs its plain version and counts no launch, the K2/K3
 tile planner and route choice, and that importing the port neither imports
 JAX nor builds a kernel.
@@ -27,7 +32,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from camera_linearity_tpu_torch.ops import filters, hdr, hdr_cuda  # noqa: E402
+from camera_linearity_tpu_torch.ops import (  # noqa: E402
+    ablation_cuda, filters, hdr, hdr_cuda)
 
 REPO = Path(__file__).resolve().parents[1]
 VAL_TOL = dict(rtol=2e-5, atol=1e-6)
@@ -332,6 +338,77 @@ def test_wrappers_reject_bad_input(cuda, rng):
 
 
 # ---------------------------------------------------------------------------
+# the ablation kernels E1-E5, on the card
+# ---------------------------------------------------------------------------
+
+# (exposures, outer or channels, row length, misaligned, and the sum's
+# launch: threads, vec)
+ABLATION_CASES = {
+    "config-like": (6, 3, 4096, False, 256, 1),
+    "one exposure, ragged rows": (1, 3, 1001, False, 128, 2),
+    "16 exposures, 4 B off": (16, 2, 4096, True, 512, 4),
+    "9 exposures, ragged": (9, 3, 1001, False, 512, 4),
+}
+
+
+def _ablation_stacks(rng, layout, n, outer, inner, misaligned, device):
+    """f32 value and std stacks of ``layout``; ``misaligned`` starts both
+    4 bytes past a 16-byte boundary (the kernels' scalar path)."""
+    shape = {"cfirst": (outer, n, 1, inner), "flat": (n, outer * inner),
+             "planar": (n, outer, 1, inner)}[layout]
+    count, skip = int(np.prod(shape)), int(misaligned)
+    return [_f32(rng.uniform(lo, hi, count + skip), device)[skip:].view(shape)
+            for lo, hi in ((0.0, 1.0), (0.001, 0.02))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ABLATION_CASES))
+@pytest.mark.parametrize("mode", list(ablation_cuda.MODES))
+@pytest.mark.parametrize("layout", list(ablation_cuda.LAYOUTS))
+def test_exposure_sum_matches_plain(cuda, rng, case, mode, layout):
+    n, outer, inner, misaligned, threads, vec = ABLATION_CASES[case]
+    val, std = _ablation_stacks(rng, layout, n, outer, inner, misaligned,
+                                cuda)
+    experiment = {"cfirst": "E1", "flat": "E4", "planar": "E5"}[layout]
+    before = ablation_cuda.KERNELS[experiment].launches
+    got = ablation_cuda.exposure_sum(val, std, layout, mode, threads, vec)
+    torch.cuda.synchronize()
+    assert ablation_cuda.KERNELS[experiment].launches == before + 1
+    want = ablation_cuda.exposure_sum_plain(val, std, layout, mode)
+    if mode == "exp":
+        _close(got, want)
+    else:
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ABLATION_CASES))
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("layout", ["cfirst", "flat"])
+def test_merge_nolut_matches_plain(cuda, rng, case, dead, layout):
+    n, outer, inner, misaligned, _, _ = ABLATION_CASES[case]
+    val, std = _ablation_stacks(rng, layout, n, outer, inner, misaligned,
+                                cuda)
+    invt = 1.0 / (0.001 * 2.0 ** torch.arange(n, dtype=torch.float32))
+    experiment = "E2" if layout == "cfirst" else "E3"
+    before = ablation_cuda.KERNELS[experiment].launches
+    got = ablation_cuda.merge_nolut(val, std, invt, layout, dead)
+    torch.cuda.synchronize()
+    assert ablation_cuda.KERNELS[experiment].launches == before + 1
+    _close(got, ablation_cuda.merge_nolut_plain(val, std, invt, layout))
+
+
+@pytest.mark.cuda
+def test_merge_nolut_without_invt_counts_as_e4(cuda, rng):
+    val, std = _ablation_stacks(rng, "flat", 6, 3, 4096, False, cuda)
+    before = ablation_cuda.KERNELS["E4"].launches
+    got = ablation_cuda.merge_nolut(val, std, None, "flat")
+    torch.cuda.synchronize()
+    assert ablation_cuda.KERNELS["E4"].launches == before + 1
+    _close(got, ablation_cuda.merge_nolut_plain(val, std, None, "flat"))
+
+
+# ---------------------------------------------------------------------------
 # on the CPU
 # ---------------------------------------------------------------------------
 
@@ -467,6 +544,9 @@ _PORT_MODULES = [
     "camera_linearity_tpu_torch.native.tiff_plain",
     "camera_linearity_tpu_torch.utils.visualization",
     "camera_linearity_tpu_torch.__main__",
+    "camera_linearity_tpu_torch.ops.ablation_cuda",
+    "camera_linearity_tpu_torch.experiments.exp_kernel",
+    "camera_linearity_tpu_torch.experiments.exp_plateau",
 ]
 
 
@@ -477,7 +557,7 @@ def test_port_imports_no_jax():
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cv2',\n"
         "                                    'camera_linearity_tpu',\n"
-        "                                    'matplotlib')))\n")
+        "                                    'matplotlib', 'benchmarks')))\n")
     assert out.strip() == "[]"
 
 
@@ -493,7 +573,68 @@ def test_import_builds_nothing():
         "from camera_linearity_tpu_torch import native\n"
         "from camera_linearity_tpu_torch.utils import io, tiff\n"
         "import camera_linearity_tpu_torch.__main__\n"
+        "from camera_linearity_tpu_torch.ops import ablation_cuda\n"
+        "from camera_linearity_tpu_torch.experiments import (exp_kernel,\n"
+        "                                                    exp_plateau)\n"
         "print(csrc._libs == {}, calls == [],\n"
         "      [k.launches for k in hdr_cuda.KERNELS],\n"
+        "      [e.launches for e in ablation_cuda.KERNELS.values()],\n"
         "      native._tried or native._mjpeg_tried or native._tiff_tried)\n")
-    assert out.strip() == "True True [0, 0, 0] False"
+    assert out.strip() == "True True [0, 0, 0] [0, 0, 0, 0, 0] False"
+
+
+def test_first_use_builds_only_its_group(monkeypatch):
+    """A merge kernel's first use builds the two merge sources, never the
+    experiments' source; an experiment's first use builds only that."""
+    from camera_linearity_tpu_torch import csrc
+    built = []
+
+    def fake_build(names=csrc.SOURCES):
+        built.append(tuple(names))
+        return {name: Path(f"lib{name}.so") for name in names}
+    monkeypatch.setattr(csrc, "_libs", {})
+    monkeypatch.setattr(csrc, "build", fake_build)
+    monkeypatch.setattr(csrc.ctypes, "CDLL", lambda path: object())
+    for name in ("hdr_merge", "hdr_merge_lerp", "exp_ablation", "hdr_merge"):
+        csrc.library(name)
+    assert built == [csrc.MERGE_SOURCES, csrc.MERGE_SOURCES,
+                     ("exp_ablation",)]
+
+
+_FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: writes the -o file, fails for a source named in FAIL
+for a; do src=$a; done
+while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out=$2; shift; done
+case "$src" in *"$FAIL"*) [ -n "$FAIL" ] && { echo "no" >&2; exit 2; } ;; esac
+echo "ptxas info" >&2
+: > "$out"
+"""
+
+
+@pytest.mark.parametrize("fail", ["", "exp_ablation"])
+def test_build_compiles_each_source_once(monkeypatch, tmp_path, fail):
+    """``build`` runs one compiler per source not built yet, records each
+    wall and raises naming a source that failed, keeping the others."""
+    from camera_linearity_tpu_torch import csrc
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("FAIL", fail)
+    monkeypatch.setattr(csrc, "_BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(csrc, "BUILD_SECONDS", {})
+    if fail:
+        with pytest.raises(RuntimeError, match="exp_ablation.cu: nvcc"):
+            csrc.build()
+    else:
+        paths = csrc.build()
+        assert sorted(paths) == sorted(csrc.SOURCES)
+    ok = [s for s in csrc.SOURCES if s != fail]
+    assert sorted(csrc.BUILD_SECONDS) == sorted(ok)
+    for name in ok:
+        lib = csrc._lib_path(name)
+        assert lib.exists() and (lib.parent / "ptxas.log").exists()
+    csrc.BUILD_SECONDS.clear()
+    csrc.build(ok)  # built already: nothing runs
+    assert csrc.BUILD_SECONDS == {}
