@@ -4,12 +4,14 @@ Each ``.cu`` here has a plain C interface: ``nvcc`` compiles it for Hopper
 (sm_90a) into a shared library that ``ctypes`` loads, without PyTorch's
 headers (which would make the build take minutes instead of seconds).
 ``hdr_merge.cu`` holds K1, ``hdr_merge_lerp.cu`` K2 and K3,
-``exp_ablation.cu`` the kernel experiments' E1-E5.  The build runs
-on first use, never at import, each source in its own ``nvcc``, all at
-once, into ``build/torch_kernels/<source>-<hash of source and flags>/``
-beside the package; a changed source builds anew.  The first use of a
-merge kernel builds the two merge sources; ``exp_ablation.cu`` is built
-only when an experiment first runs, or by :func:`build` with no
+``exp_ablation.cu`` the kernel experiments' E1-E5 and ``exp_lut_merge.cu``
+E6 and E7.  The build runs on first use, never at import, each source in
+its own ``nvcc``, all at once, into
+``build/torch_kernels/<source>-<hash of source and flags>/`` beside the
+package; a changed source builds anew (a source includes no header of this
+directory, so its own bytes are all the hash needs).  The first use of a
+merge kernel builds the two merge sources; an experiment's source is built
+only when one of its experiments first runs, or by :func:`build` with no
 arguments.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ __all__ = ["build", "library", "SOURCES", "MERGE_SOURCES", "NVCC_FLAGS",
            "BUILD_SECONDS"]
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = ("hdr_merge", "hdr_merge_lerp", "exp_ablation")
+SOURCES = ("hdr_merge", "hdr_merge_lerp", "exp_ablation", "exp_lut_merge")
 MERGE_SOURCES = SOURCES[:2]  # built together on a merge kernel's first use
 _BUILD_ROOT = _HERE.parent.parent / "build" / "torch_kernels"
 
@@ -123,6 +125,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                              p, p, p],
         "cl_exposure_sum": [p, p, p, p, ll, i, ll, i, i, i, p],
         "cl_merge_nolut": [p, p, ctypes.POINTER(f), p, p, ll, i, ll, i, p],
+        "cl_merge_pipelined": [p, p, p, p, ctypes.POINTER(f), p, p, i, i, ll,
+                               i, p, p],
+        "cl_merge_table_form": [p, p, p, p, ctypes.POINTER(f), p, p, i, i,
+                                ll, i, i, p],
     }
     for name, argtypes in signatures.items():
         if hasattr(lib, name):

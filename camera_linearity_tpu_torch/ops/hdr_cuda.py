@@ -42,9 +42,9 @@ Tensor = torch.Tensor
 ValStd = Tuple[Tensor, Optional[Tensor]]
 
 __all__ = ["merge_nhwc_fused", "merge_nhwc_lerp", "merge_nhwc_lerp_bp",
-           "merge_fused_plain", "merge_lerp_plain", "merge_lerp_bp_plain",
-           "is_piecewise_linear_256", "KERNELS", "TilePlan",
-           "plan_lerp_tiles", "tma_route"]
+           "merge_fused_plain", "fused_plain_invt", "merge_lerp_plain",
+           "merge_lerp_bp_plain", "is_piecewise_linear_256", "KERNELS",
+           "TilePlan", "plan_lerp_tiles", "tma_route"]
 
 # shared memory a block may take on Hopper (227 KB), and what each of two
 # blocks on one SM may take (228 KB an SM, 1 KB of it reserved per block)
@@ -60,16 +60,16 @@ MAX_SLOTS = 32
 # ---------------------------------------------------------------------------
 
 def _merge_math(x: Tensor, g: Tensor, fp: Optional[Tensor],
-                std: Optional[Tensor], exposures: Tensor,
+                std: Optional[Tensor], inv_t: Tensor,
                 compat: str) -> ValStd:
     """The merge on normalized values ``x`` and looked-up ICRF ``g`` (and
-    derivative ``fp``), all (..., N, H, W, C), in the kernels' arithmetic:
-    reciprocal exposure times and sum of weights, accumulation over the
-    exposure axis (exposure_series.py:317-397)."""
+    derivative ``fp``), all (..., N, H, W, C), with reciprocal exposure
+    times ``inv_t`` (N,), in the kernels' arithmetic: reciprocal sum of
+    weights, accumulation over the exposure axis
+    (exposure_series.py:317-397)."""
     w, dw = gaussian_weight(x)
     inv_sw = 1.0 / w.sum(dim=-4)
-    inv_t = (1.0 / exposures.to(device=x.device, dtype=x.dtype)
-             ).reshape(-1, 1, 1, 1)
+    inv_t = inv_t.reshape(-1, 1, 1, 1)
     val = (w * g * inv_t).sum(dim=-4) * inv_sw
     if std is None:
         return val, None
@@ -95,15 +95,32 @@ def _float_type(val: Tensor, table: Tensor) -> torch.dtype:
     return val.dtype if val.is_floating_point() else table.dtype
 
 
+def _reciprocal(exposures: Tensor, like: Tensor, dtype: torch.dtype
+                ) -> Tensor:
+    """1 / t in ``dtype``, on the device of ``like``."""
+    return 1.0 / exposures.to(device=like.device, dtype=dtype)
+
+
 def merge_fused_plain(stack_val: Tensor, stack_std: Optional[Tensor],
                       exposures: Tensor, icrf: Tensor, icrf_diff: Tensor,
                       compat: str = "corrected") -> ValStd:
     """K1's math in PyTorch: exact per-channel lookup in (bits, C) tables."""
+    inv_t = _reciprocal(exposures, stack_val, _float_type(stack_val, icrf))
+    return fused_plain_invt(stack_val, stack_std, inv_t, icrf, icrf_diff,
+                            compat)
+
+
+def fused_plain_invt(stack_val: Tensor, stack_std: Optional[Tensor],
+                     inv_t: Tensor, icrf: Tensor, icrf_diff: Tensor,
+                     compat: str = "corrected") -> ValStd:
+    """:func:`merge_fused_plain` given the reciprocal exposure times
+    ``inv_t`` (N,) in place of the exposure times."""
     dtype = _float_type(stack_val, icrf)
     x, idx = _x_and_idx(stack_val, icrf.shape[0] - 1, dtype)
     g = lut_lookup(idx, icrf).to(dtype)
     fp = None if stack_std is None else lut_lookup(idx, icrf_diff).to(dtype)
-    return _merge_math(x, g, fp, stack_std, exposures, compat)
+    inv_t = inv_t.to(device=x.device, dtype=dtype)
+    return _merge_math(x, g, fp, stack_std, inv_t, compat)
 
 
 def _lerp_lookup(idx: Tensor, base: Tensor, bits: int,
@@ -131,7 +148,8 @@ def merge_lerp_plain(stack_val: Tensor, stack_std: Optional[Tensor],
     g = _lerp_lookup(idx, icrf_base, bits, dtype)
     fp = None if stack_std is None else \
         _lerp_lookup(idx, icrf_diff_base, bits, dtype)
-    return _merge_math(x, g, fp, stack_std, exposures, compat)
+    return _merge_math(x, g, fp, stack_std,
+                       _reciprocal(exposures, x, dtype), compat)
 
 
 def merge_lerp_bp_plain(stack_val: Tensor, stack_std: Optional[Tensor],

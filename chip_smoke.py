@@ -53,6 +53,16 @@ value), the experiments' entry points with the launch counts reset, times beside
 same bytes and the two-``torch.sum`` yardstick, E5's launch sweep, and K1's
 time split into bytes, arithmetic and lookup.
 
+Phase 18, the lookup-merge experiments E6 and E7
+(``benchmarks/exp_manual_pipeline.py`` and ``exp_int8_planes.py``, ported
+to ``csrc/exp_lut_merge.cu``) on planar copies of config 2/3's stacks: E6
+at every (chunk, stages) setting of its sweep and by its scalar route on a
+37 x 53 crop, E7 in its three table forms (held to give the same bits),
+each against the plain version; the experiments' entry points with the
+launch counts reset; times beside a ``copy_`` of the same bytes, the bound,
+K1 at 8 and 12 bits on the same data and the plain version; E6's sweep;
+and K1's split extended by E6 and E7.
+
 It prints the card's name and power limit early, one JSON line with the
 kernels' results before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: a nonzero exit and
@@ -123,6 +133,9 @@ OPS_PER_ELEMENT = 48
 # operations per element and exposure (weight, sums, bracket; expf as 1)
 ABLATION_SOURCE = "camera_linearity_tpu_torch/csrc/exp_ablation.cu"
 ABLATION_MERGE_OPS = 30
+# phase 18: the lookup-merge experiments; their f32 operations per element
+# and exposure are K1's (OPS_PER_ELEMENT)
+LUT_SOURCE = "camera_linearity_tpu_torch/csrc/exp_lut_merge.cu"
 
 
 def log(msg: str) -> None:
@@ -1646,6 +1659,219 @@ def ablation_phase(dev, val, std, exposures, k1: dict) -> dict:
     kernels[-1]["sweep_ms"] = sweep
     kernels[0]["k1_split"] = split
     log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return dict(kernels=kernels, launches=launches, e2_ms=e2)
+
+
+def lut_phase(dev, val, std, exposures, tables, e2_ms: float) -> dict:
+    """Phase 18: the lookup-merge experiments E6 and E7
+    (``csrc/exp_lut_merge.cu``) on planar copies of config 2/3's stacks.
+    Holds E6 at every setting of its sweep, and by its scalar route on a
+    37 x 53 crop, and E7 in its three table forms against the plain
+    version at K1's tolerances, the forms against each other bit for bit
+    (at the JAX script's tolerance, logged, where they differ); drives the
+    experiments' entry points with the launch counts reset; times each in
+    phase 7's interleaved order beside a ``copy_`` of the same bytes and K1
+    at 8 and 12 bits on the same (channels-last) stacks; sweeps E6's
+    settings; and extends K1's split with E2's time (``e2_ms``, phase
+    17's).  ``tables`` is (icrf8, diff8, icrf12, diff12).  Returns the
+    kernels' JSON entries."""
+    from camera_linearity_tpu_torch import csrc
+    from camera_linearity_tpu_torch.experiments import (exp_int8_planes,
+                                                        exp_manual_pipeline)
+    from camera_linearity_tpu_torch.ops import hdr_cuda
+    from camera_linearity_tpu_torch.ops import lut_merge_cuda as lm
+    t_phase = time.perf_counter()
+    icrf8, diff8, icrf12, diff12 = tables
+    n, h, w, c = val.shape
+    log(f"phase 18: the lookup-merge experiments E6 and E7 at config 2/3 "
+        f"({n} x {c} x {h} x {w} planar f32 value and std)")
+    lib = csrc.build(["exp_lut_merge"])["exp_lut_merge"]
+    seconds = csrc.BUILD_SECONDS.get("exp_lut_merge")
+    log("  exp_lut_merge.cu: " + ("built before this run" if seconds is None
+                                  else f"nvcc {seconds:.1f} s (phase 2)")
+        + "; registers and spills (ptxas):")
+    for line in (lib.parent / "ptxas.log").read_text().splitlines():
+        if any(k in line for k in ("Compiling entry", "Used", "spill")):
+            log(f"    {line.strip()}")
+    vp, sp = (x.permute(0, 3, 1, 2).contiguous() for x in (val, std))
+    invt = 1.0 / exposures.cpu()  # passed by value: kept on the host
+
+    def e6(v=vp, s=sp, chunk=None, stages=None):
+        return lm.merge_pipelined(v, s, invt, icrf8, diff8, chunk, stages)
+
+    packed12 = {f: [lm.pack_table(x, f) for x in (icrf12, diff12)]
+                for f in lm.FORMS}  # packed once, as exp_int8_planes packs
+
+    def e7(form):
+        return lm.merge_table_form(vp, sp, invt, *packed12[form], form)
+
+    def plain(v, s, tab, diff):
+        return lambda: lm.merge_planar_plain(v, s, invt, tab, diff)
+    plain8, plain12 = plain(vp, sp, icrf8, diff8), plain(vp, sp, icrf12,
+                                                         diff12)
+    want8, want12 = plain8(), plain12()
+
+    err = {"E6": 0.0, "E7": 0.0}
+    failures = []
+
+    def hold(label, experiment, got, want, tols=(VAL_TOL, STD_TOL)):
+        gap = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+        ok = all(torch.allclose(g, w_, **tol)
+                 for g, w_, tol in zip(got, want, tols))
+        err[experiment] = max(err[experiment], gap)
+        log(f"  {'ok ' if ok else 'BAD'} {label}: max abs err {gap:.3e}")
+        if not ok:
+            failures.append(label)
+    default = lm.plan_pipeline(n, c)
+    settings = lm.pipeline_settings(n, c)
+    for chunk, stages in settings:
+        mark = " (the default)" if (chunk, stages) == (default.chunk,
+                                                       default.stages) else ""
+        hold(f"E6 {chunk} x {stages} stages{mark}", "E6", e6(chunk=chunk,
+                                                              stages=stages),
+             want8)
+    cv, cs = (x[:, :, :37, :53].contiguous() for x in (vp, sp))
+    if lm.bulk_route(cv[0].numel(), cv.data_ptr(), cs.data_ptr()):
+        raise AssertionError("phase 18: the 37 x 53 crop took the bulk route")
+    hold("E6 37 x 53 crop (scalar route)", "E6", e6(cv, cs),
+         plain(cv, cs, icrf8, diff8)())
+    outs = {f: e7(f) for f in lm.FORMS}
+    for f, out in outs.items():
+        hold(f"E7 {f}", "E7", out, want12)
+    bit_equal = all(torch.equal(a, b) for f in lm.FORMS[1:]
+                    for a, b in zip(outs[f], outs["f32"]))
+    log(f"  E7 forms equal bit for bit: {bit_equal}")
+    if not bit_equal:
+        for f in lm.FORMS[1:]:
+            hold(f"E7 {f} against f32 (exp_int8_planes.py:260-263)", "E7",
+                 outs[f], outs["f32"], (exp_int8_planes.FORM_VAL_TOL,
+                                        exp_int8_planes.FORM_STD_TOL))
+    del cv, cs, outs
+    raise_failures("phase 18", failures)
+
+    # the experiments' entry points, launch counts reset
+    log("  main path: exp_manual_pipeline.run(), exp_int8_planes.run()")
+    for e in lm.KERNELS.values():
+        e.launches = 0
+    run6 = exp_manual_pipeline.run(device=dev)
+    run7 = exp_int8_planes.run(device=dev)
+    torch.cuda.synchronize()
+    launches = {e: k.launches for e, k in lm.KERNELS.items()}
+    log(f"  launches: {launches}")
+    results = [r for r in run6.values()] + [run7[k] for k in (*lm.FORMS,
+                                                               "k1")]
+    if not all(torch.isfinite(x).all() for r in results for x in r.out):
+        raise AssertionError("phase 18: an experiment returned non-finite "
+                             "values")
+    if not run7["bit_equal"]:
+        log("  exp_int8_planes.run: the forms differ in some bits")
+    for e, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"phase 18: {e} was not launched by the "
+                                 "experiments")
+    run_ms = {"E6": {k: r.ms for k, r in run6.items()},
+              "E7": {k: run7[k].ms for k in (*lm.FORMS, "k1")}}
+    del run6, run7, results
+
+    # times, in phase 7's interleaved order
+    nbytes = (2 * n + 2) * h * w * c * 4
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    ops_ms = OPS_PER_ELEMENT * n * h * w * c / PEAK_F32_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    src = torch.empty(nbytes // 8, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+
+    def copy():
+        dst.copy_(src)
+
+    def k1(tab, diff):
+        return (lambda: hdr_cuda.merge_nhwc_fused(val, std, exposures, tab,
+                                                  diff),
+                lambda: hdr_cuda.merge_fused_plain(val, std, exposures, tab,
+                                                   diff))
+    variants = {  # label: (experiment, kernel, plain)
+        f"E6 {default.chunk} x {default.stages}": ("E6", e6, plain8),
+        "E7 f32": ("E7", lambda: e7("f32"), plain12),
+        "E7 bf16x3": ("E7", lambda: e7("bf16x3"), plain12),
+        "E7 u8x4": ("E7", lambda: e7("u8x4"), plain12),
+        "K1 8-bit": (None, *k1(icrf8, diff8)),
+        "K1 12-bit": (None, *k1(icrf12, diff12)),
+    }
+    log(f"  times ({nbytes / 1e6:.2f} MB each, bound {bound:.4f} ms at "
+        "3.35 TB/s; median of CUDA-event samples; copy = copy_ of the same "
+        "bytes; K1 on the channels-last stacks of the same values)")
+    timed = {}
+    for label, (_, kernel, plain_fn) in variants.items():
+        k_s, p_s, c_s = [], [], []
+        for fn, out in ((plain_fn, p_s), (copy, c_s), (kernel, k_s),
+                        (kernel, k_s), (copy, c_s), (plain_fn, p_s)):
+            out += time_samples(fn, runs=10,
+                                reps=2 if fn is plain_fn else 10)
+        k_ms, p_ms, c_ms = (float(np.median(x)) for x in (k_s, p_s, c_s))
+        timed[label] = dict(ms=k_ms, plain_ms=p_ms, copy_ms=c_ms,
+                            library_ms=None, bound_ms=bound,
+                            bound_by="bytes" if bytes_ms >= ops_ms
+                            else "operations", share=bound / k_ms)
+        log(f"  {label}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} "
+            f"GB/s, {bound / k_ms * 100:.1f} % of the bound), copy "
+            f"{c_ms:.4f} ms, plain {p_ms:.4f} ms; kernel samples "
+            f"{min(k_s):.4f}-{max(k_s):.4f} ms")
+
+    log("  E6 sweep (chunk elements x stages; scalar = the route of a stack "
+        "4 bytes off alignment)")
+    skewed = [torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)
+              for x in (vp, sp)]
+    for dst_, x in zip(skewed, (vp, sp)):
+        dst_.copy_(x)
+    hold("E6 scalar route, 4 bytes off", "E6", e6(*skewed), want8)
+    raise_failures("phase 18", failures)
+    sweep = {}
+    runs = {f"{k}x{s}": (lambda k=k, s=s: e6(chunk=k, stages=s))
+            for k, s in settings}
+    runs["scalar"] = lambda: e6(*skewed)
+    for label, fn in runs.items():
+        sweep[label] = float(np.median(time_samples(fn, runs=5, reps=10)))
+        log(f"    {label:>9}: {sweep[label]:.4f} ms "
+            f"({nbytes / sweep[label] / 1e6:.1f} GB/s, "
+            f"{bound / sweep[label] * 100:.1f} % of the bound)")
+    del src, dst, skewed, vp, sp
+
+    e6_ms = timed[f"E6 {default.chunk} x {default.stages}"]["ms"]
+    f32_ms = timed["E7 f32"]["ms"]
+    k1_8, k1_12 = timed["K1 8-bit"]["ms"], timed["K1 12-bit"]["ms"]
+    split = dict(e6_minus_e2_ms=e6_ms - e2_ms, k1_minus_e6_ms=k1_8 - e6_ms,
+                 k1_12_minus_e7_f32_ms=k1_12 - f32_ms,
+                 e7_f32_minus_e2_ms=f32_ms - e2_ms,
+                 u8x4_over_f32=timed["E7 u8x4"]["ms"] / f32_ms,
+                 bf16x3_over_f32=timed["E7 bf16x3"]["ms"] / f32_ms,
+                 bf16x3_over_u8x4=timed["E7 bf16x3"]["ms"]
+                 / timed["E7 u8x4"]["ms"])
+    log(f"  K1 split (E2 {e2_ms:.4f} ms from phase 17): staging and lookup "
+        f"E6 - E2 {split['e6_minus_e2_ms']:.4f} ms; K1's load pattern K1 - "
+        f"E6 {split['k1_minus_e6_ms']:.4f} ms (K1 8-bit {k1_8:.4f}); lookup "
+        f"at 4096 entries E7 f32 - E2 {split['e7_f32_minus_e2_ms']:.4f} ms, "
+        f"K1 12-bit - E7 f32 {split['k1_12_minus_e7_f32_ms']:.4f} ms (K1 "
+        f"12-bit {k1_12:.4f}); table form u8x4 / f32 "
+        f"{split['u8x4_over_f32']:.3f}, bf16x3 / f32 "
+        f"{split['bf16x3_over_f32']:.3f}, bf16x3 / u8x4 "
+        f"{split['bf16x3_over_u8x4']:.3f}")
+
+    kernels = []
+    for e, label in (("E6", f"E6 {default.chunk} x {default.stages}"),
+                     ("E7", "E7 bf16x3")):
+        kernels.append({
+            "name": f"{lm.KERNELS[e].wrapper} ({e})", "route": "cuda",
+            "source": LUT_SOURCE, "replaces": lm.KERNELS[e].replaces,
+            "launches": launches[e],
+            "launches_by_path": {"experiments (phase 18)": launches[e]},
+            "max_abs_err": err[e], "bytes": nbytes, **timed[label],
+            "variants": {k: v for k, v in timed.items()
+                         if variants[k][0] == e},
+            "k1_ms": {"8-bit": k1_8, "12-bit": k1_12}, "run_ms": run_ms[e]})
+    kernels[0]["sweep_ms"] = sweep
+    kernels[0]["k1_split"] = split
+    kernels[1]["bit_equal"] = bit_equal
+    log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
     return dict(kernels=kernels, launches=launches)
 
 
@@ -1952,6 +2178,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ablation = ablation_phase(dev, val, std, exposures,
                               times["merge_nhwc_fused"])
+    lut = lut_phase(dev, val, std, exposures, (icrf8, diff8, icrf12, diff12),
+                    ablation["e2_ms"])
     del val, std
     torch.cuda.empty_cache()
 
@@ -1973,7 +2201,7 @@ def main() -> int:
                 "library_ms": None} for name in REPLACES]
     kernels[0]["config5_B8"] = config5["k1"]
     kernels[2]["config5_video_to_hdr"] = config5["k3"]
-    kernels += ablation["kernels"]
+    kernels += ablation["kernels"] + lut["kernels"]
     log(json.dumps({"welford_ms_per_frame": config5["welford_ms"],
                     "welford_bound_ms": config5["welford_bound_ms"]}))
     log(json.dumps({"files": files["numbers"]}))

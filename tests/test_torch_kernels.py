@@ -1,5 +1,5 @@
-"""The CUDA merge kernels K1-K3 and the ablation kernels E1-E5 against
-their plain PyTorch versions.
+"""The CUDA merge kernels K1-K3, the ablation kernels E1-E5 and the
+lookup-merge experiments E6-E7 against their plain PyTorch versions.
 
 The tests marked ``cuda`` need a card and skip without one; on a machine
 with a card and no JAX, run them with
@@ -16,7 +16,13 @@ image corners and next to each other.  The ablation kernels
 (``ops/ablation_cuda.py``) are held on every layout, mode and launch
 setting, on rows that end in a ragged quad and on stacks 4 bytes off
 16-byte alignment: the sums exactly (both add in exposure order), the
-merges at K1's tolerances.  The CPU tests check that a wrapper
+merges at K1's tolerances.  E6 (``ops/lut_merge_cuda.py::merge_pipelined``)
+is held over (chunk, stages) settings, 1, 6 and 16 exposures, a ragged last
+chunk, quads that straddle two channels (or four, in 1 x 1 planes), and the
+scalar route of a 37 x 53 crop, of 1 x 1 planes and of stacks 4 bytes off
+alignment; E7 (``merge_table_form``) in all three table forms, which must
+agree bit for bit, on aligned, ragged, 1 x 1 and misaligned stacks; both at
+K1's tolerances.  The CPU tests check that a wrapper
 given a CPU tensor runs its plain version and counts no launch, the K2/K3
 tile planner and route choice, and that importing the port neither imports
 JAX nor builds a kernel.
@@ -33,7 +39,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from camera_linearity_tpu_torch.ops import (  # noqa: E402
-    ablation_cuda, filters, hdr, hdr_cuda)
+    ablation_cuda, filters, hdr, hdr_cuda, lut_merge_cuda)
 
 REPO = Path(__file__).resolve().parents[1]
 VAL_TOL = dict(rtol=2e-5, atol=1e-6)
@@ -409,6 +415,93 @@ def test_merge_nolut_without_invt_counts_as_e4(cuda, rng):
 
 
 # ---------------------------------------------------------------------------
+# the lookup-merge experiments E6 and E7, on the card
+# ---------------------------------------------------------------------------
+
+def _planar(rng, n, c, h, w, misaligned, device, rows):
+    """f32 (N, C, H, W) value and std stacks, ``misaligned`` starting 4
+    bytes past a 16-byte boundary, and (rows, C) tables."""
+    count, skip = n * c * h * w, int(misaligned)
+    val, std = (_f32(rng.uniform(lo, hi, count + skip), device)[skip:]
+                .view(n, c, h, w) for lo, hi in ((0.0, 1.0), (0.001, 0.02)))
+    icrf, diff = (_f32(a, device) for a in _tables(rng, rows, c))
+    invt = 1.0 / (0.001 * 2.0 ** torch.arange(n, dtype=torch.float32))
+    return val, std, invt, icrf, diff
+
+
+# (N, C, H, W, misaligned, chunk, stages, bulk route): planes of 30720,
+# 9900 and 4032 elements end in a ragged chunk; C = 4 of 37 x 53 has quads
+# that straddle two channels on the bulk route; planes of 1 x 1 put a
+# quad's elements in three or four channels
+E6_CASES = {
+    "n6 default": (6, 3, 40, 256, False, None, None, True),
+    "n6 2048x2": (6, 3, 40, 256, False, 2048, 2, True),
+    "n6 1024x3": (6, 3, 40, 256, False, 1024, 3, True),
+    "n1 512x4, ragged": (1, 3, 33, 100, False, 512, 4, True),
+    "n16 512x2, ragged": (16, 3, 21, 64, False, 512, 2, True),
+    "c4 37x53, straddling": (6, 4, 37, 53, False, 512, 3, True),
+    "c4 1x1, a channel an element": (6, 4, 1, 1, False, 512, 2, True),
+    "c3 1x1, scalar": (6, 3, 1, 1, False, None, None, False),
+    "crop 37x53, scalar": (6, 3, 37, 53, False, None, None, False),
+    "4 B off, scalar": (6, 3, 16, 64, True, 1024, 2, False),
+    "n16 4 B off, scalar": (16, 3, 9, 64, True, None, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(E6_CASES))
+def test_merge_pipelined_matches_plain(cuda, rng, case):
+    n, c, h, w, misaligned, chunk, stages, bulk = E6_CASES[case]
+    val, std, invt, icrf, diff = _planar(rng, n, c, h, w, misaligned, cuda,
+                                         256)
+    assert lut_merge_cuda.bulk_route(
+        c * h * w, val.data_ptr(), std.data_ptr()) == bulk
+    before = lut_merge_cuda.KERNELS["E6"].launches
+    got = lut_merge_cuda.merge_pipelined(val, std, invt, icrf, diff, chunk,
+                                         stages)
+    torch.cuda.synchronize()
+    assert lut_merge_cuda.KERNELS["E6"].launches == before + 1
+    _close(got, lut_merge_cuda.merge_planar_plain(val, std, invt, icrf,
+                                                  diff))
+
+
+# (N, C, H, W, misaligned): 37 x 53 and 1 x 1 planes end in a ragged quad
+E7_CASES = {"n6": (6, 3, 40, 256, False), "n1": (1, 3, 21, 60, False),
+            "n16": (16, 3, 9, 64, False),
+            "ragged 37x53": (6, 3, 37, 53, False),
+            "1x1": (6, 3, 1, 1, False),
+            "4 B off": (6, 3, 16, 64, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(E7_CASES))
+def test_merge_table_form_matches_plain(cuda, rng, case):
+    val, std, invt, icrf, diff = _planar(rng, *E7_CASES[case], cuda, 4096)
+    want = lut_merge_cuda.merge_planar_plain(val, std, invt, icrf, diff)
+    before = lut_merge_cuda.KERNELS["E7"].launches
+    pack = lut_merge_cuda.pack_table
+    outs = [lut_merge_cuda.merge_table_form(val, std, invt, pack(icrf, f),
+                                            pack(diff, f), f)
+            for f in lut_merge_cuda.FORMS]
+    torch.cuda.synchronize()
+    assert lut_merge_cuda.KERNELS["E7"].launches == before + 3
+    _close(outs[0], want)
+    for other in outs[1:]:  # every form rebuilds each entry exactly
+        assert all(torch.equal(a, b) for a, b in zip(other, outs[0]))
+
+
+@pytest.mark.cuda
+def test_lut_merge_wrappers_reject_bad_input(cuda, rng):
+    val, std, invt, icrf, diff = _planar(rng, 2, 3, 8, 8, False, cuda, 256)
+    with pytest.raises(ValueError):  # tables on another device
+        lut_merge_cuda.merge_pipelined(val, std, invt, icrf.cpu(), diff)
+    with pytest.raises(ValueError):  # E7 takes 4096-entry tables
+        lut_merge_cuda.merge_table_form(val, std, invt, icrf, diff, "f32")
+    with pytest.raises(TypeError):
+        lut_merge_cuda.merge_pipelined(val.double(), std, invt, icrf, diff)
+
+
+# ---------------------------------------------------------------------------
 # on the CPU
 # ---------------------------------------------------------------------------
 
@@ -547,6 +640,9 @@ _PORT_MODULES = [
     "camera_linearity_tpu_torch.ops.ablation_cuda",
     "camera_linearity_tpu_torch.experiments.exp_kernel",
     "camera_linearity_tpu_torch.experiments.exp_plateau",
+    "camera_linearity_tpu_torch.ops.lut_merge_cuda",
+    "camera_linearity_tpu_torch.experiments.exp_manual_pipeline",
+    "camera_linearity_tpu_torch.experiments.exp_int8_planes",
 ]
 
 
@@ -576,16 +672,21 @@ def test_import_builds_nothing():
         "from camera_linearity_tpu_torch.ops import ablation_cuda\n"
         "from camera_linearity_tpu_torch.experiments import (exp_kernel,\n"
         "                                                    exp_plateau)\n"
+        "from camera_linearity_tpu_torch.ops import lut_merge_cuda\n"
+        "from camera_linearity_tpu_torch.experiments import (\n"
+        "    exp_int8_planes, exp_manual_pipeline)\n"
         "print(csrc._libs == {}, calls == [],\n"
         "      [k.launches for k in hdr_cuda.KERNELS],\n"
         "      [e.launches for e in ablation_cuda.KERNELS.values()],\n"
+        "      [e.launches for e in lut_merge_cuda.KERNELS.values()],\n"
         "      native._tried or native._mjpeg_tried or native._tiff_tried)\n")
-    assert out.strip() == "True True [0, 0, 0] [0, 0, 0, 0, 0] False"
+    assert out.strip() == \
+        "True True [0, 0, 0] [0, 0, 0, 0, 0] [0, 0] False"
 
 
 def test_first_use_builds_only_its_group(monkeypatch):
-    """A merge kernel's first use builds the two merge sources, never the
-    experiments' source; an experiment's first use builds only that."""
+    """A merge kernel's first use builds the two merge sources, never an
+    experiments' source; an experiment's first use builds only its own."""
     from camera_linearity_tpu_torch import csrc
     built = []
 
@@ -595,10 +696,14 @@ def test_first_use_builds_only_its_group(monkeypatch):
     monkeypatch.setattr(csrc, "_libs", {})
     monkeypatch.setattr(csrc, "build", fake_build)
     monkeypatch.setattr(csrc.ctypes, "CDLL", lambda path: object())
-    for name in ("hdr_merge", "hdr_merge_lerp", "exp_ablation", "hdr_merge"):
+    for name in ("hdr_merge", "exp_lut_merge", "hdr_merge_lerp",
+                 "exp_ablation", "hdr_merge", "exp_lut_merge"):
         csrc.library(name)
-    assert built == [csrc.MERGE_SOURCES, csrc.MERGE_SOURCES,
-                     ("exp_ablation",)]
+    assert built == [csrc.MERGE_SOURCES, ("exp_lut_merge",),
+                     csrc.MERGE_SOURCES, ("exp_ablation",)]
+    assert not {"exp_ablation", "exp_lut_merge"} & set(csrc.MERGE_SOURCES)
+    assert set(csrc.SOURCES) == {*csrc.MERGE_SOURCES, "exp_ablation",
+                                 "exp_lut_merge"}
 
 
 _FAKE_NVCC = """#!/bin/sh
@@ -611,7 +716,7 @@ echo "ptxas info" >&2
 """
 
 
-@pytest.mark.parametrize("fail", ["", "exp_ablation"])
+@pytest.mark.parametrize("fail", ["", "exp_ablation", "exp_lut_merge"])
 def test_build_compiles_each_source_once(monkeypatch, tmp_path, fail):
     """``build`` runs one compiler per source not built yet, records each
     wall and raises naming a source that failed, keeping the others."""
@@ -625,7 +730,7 @@ def test_build_compiles_each_source_once(monkeypatch, tmp_path, fail):
     monkeypatch.setattr(csrc, "_BUILD_ROOT", tmp_path / "build")
     monkeypatch.setattr(csrc, "BUILD_SECONDS", {})
     if fail:
-        with pytest.raises(RuntimeError, match="exp_ablation.cu: nvcc"):
+        with pytest.raises(RuntimeError, match=f"{fail}.cu: nvcc"):
             csrc.build()
     else:
         paths = csrc.build()
