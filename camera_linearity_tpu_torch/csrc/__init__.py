@@ -118,7 +118,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                    ctypes.c_longlong)
     signatures = {
         "cl_merge_fused": [p, i, p, p, p, i, p, ll, i, i, i, i, i, f, p, p,
-                           p],
+                           p, p],
         "cl_merge_lerp": [p, i, p, p, p, i, p, ll, i, i, i, i, i, f, f, p, p,
                           p, p],
         "cl_merge_lerp_bp": [p, p, p, i, f, p, p, i, p, i, i, i, i, i, f, p,

@@ -21,10 +21,15 @@ plain PyTorch version (``merge_fused_plain``, ``merge_lerp_plain``,
 the kernels are held against on the card.  Importing this module builds
 nothing: the libraries are compiled on the first launch (``csrc.library``).
 
-K2 and K3 stage tiles of every exposure in shared memory.
-:func:`plan_lerp_tiles` picks the tile and lays out the shared memory of a
-launch, and :func:`tma_route` picks how the tiles are loaded: by TMA where
-the stack's base and row pitch allow it, else by the block's threads.
+K1 walks the stack in quads of 4 elements a thread (half quads past 8
+exposures), or element by element where the quads cannot go:
+:func:`plan_fused` picks the route and the instance by exposure count and
+lays out its tables' shared memory.  K2 and K3 stage tiles of every
+exposure in shared memory.  :func:`plan_lerp_tiles` picks the tile and
+lays out the shared memory of a launch, and :func:`tma_route` picks how
+the tiles are loaded: by TMA where the stack's base and row pitch allow
+it, else by the block's threads.  The planners are
+pure Python; each passes its plan to the C launch function as an int array.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ ValStd = Tuple[Tensor, Optional[Tensor]]
 __all__ = ["merge_nhwc_fused", "merge_nhwc_lerp", "merge_nhwc_lerp_bp",
            "merge_fused_plain", "fused_plain_invt", "merge_lerp_plain",
            "merge_lerp_bp_plain", "is_piecewise_linear_256", "KERNELS",
+           "FusedPlan", "plan_fused", "fused_launch_plan", "MAXN",
            "TilePlan", "plan_lerp_tiles", "tma_route"]
 
 # shared memory a block may take on Hopper (227 KB), and what each of two
@@ -53,6 +59,8 @@ _SMEM_TWO_BLOCKS = (233472 - 2 * 1024) // 2
 # exposures a K2/K3 block holds at once: K3 keeps its hot tests as the bits
 # of a 32-bit word
 MAX_SLOTS = 32
+# K1's quad-walk instances: exposures a thread holds in registers
+MAXN = (4, 8, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +206,65 @@ def is_piecewise_linear_256(icrf, tol: float = 1e-3) -> bool:
         if np.max(np.abs(recon - tab[:, ch])) > tol:
             return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# K1 launch plan
+# ---------------------------------------------------------------------------
+
+class FusedPlan(NamedTuple):
+    """One K1 launch, in the field order of the C struct ``FusedPlan`` of
+    ``csrc/hdr_merge.cu``; offsets and sizes in bytes."""
+    quad: int        # 1: the quad walk, 0: the scalar route
+    maxn: int        # the quad walk's instance (one of MAXN), 0: scalar
+    threads: int     # a block
+    pairs: int       # 1: (f, f') table pairs (a merge with std), 0: f alone
+    off_invt: int    # the N reciprocal exposure times, after the tables
+    smem: int        # the launch's dynamic shared memory
+
+    @property
+    def route(self) -> str:
+        return f"quad/{self.maxn}" if self.quad else "scalar"
+
+
+def plan_fused(n: int, c: int, rows: int, val_size: int, use_std: bool,
+               addrs: Tuple[int, Optional[int]], plane: int) -> FusedPlan:
+    """The route, instance and shared-memory layout of a K1 launch over
+    ``n`` exposures of ``plane`` (H*W*C) elements of ``c`` channels, whose
+    values take ``val_size`` bytes, with ``rows``-entry tables;
+    ``addrs`` holds the value and std stacks' base addresses (None for no
+    std).
+
+    The quad walk takes a quad of 4 elements a thread (half a quad in the
+    16-instance) with one load a plane: it needs a plane of a multiple of
+    4 elements, a value base aligned to a quad's load (16 bytes, 4 for u8),
+    a 16-byte aligned std base and ``n`` at most the largest instance, and
+    takes the smallest instance that holds ``n``.
+    Anything else takes the scalar route.  The tables lie channel-major,
+    as (f, f') pairs with std, then the reciprocal exposure times.  Raises
+    ValueError when they do not fit a block's shared memory."""
+    off_invt = _align(rows * c * (8 if use_std else 4), 16)
+    smem = off_invt + 4 * n
+    if smem > _MAX_SMEM:
+        raise ValueError(f"K1's tables need {smem} bytes of shared memory, "
+                         f"a block has {_MAX_SMEM}")
+    val_addr, std_addr = addrs
+    aligned = val_addr % (4 * val_size) == 0 and \
+        (std_addr is None or std_addr % 16 == 0)
+    maxn = next((m for m in MAXN if n <= m), 0)
+    quad = plane % 4 == 0 and aligned and maxn > 0
+    return FusedPlan(int(quad), maxn if quad else 0, 256, int(use_std),
+                     off_invt, smem)
+
+
+def fused_launch_plan(stack_val: Tensor, stack_std: Optional[Tensor],
+                      rows: int) -> FusedPlan:
+    """:func:`plan_fused` of a K1 launch on these stacks with ``rows``-entry
+    tables: the plan :func:`merge_nhwc_fused` launches with."""
+    n, h, w, c = stack_val.shape[-4:]
+    return plan_fused(n, c, rows, stack_val.element_size(),
+                      stack_std is not None,
+                      (stack_val.data_ptr(), _ptr(stack_std)), h * w * c)
 
 
 # ---------------------------------------------------------------------------
@@ -349,15 +416,12 @@ def _tables(device: torch.device, channels: int, rows: int,
             raise ValueError(f"table has shape {tuple(t.shape)}, expected "
                              f"({rows}, {channels})")
         out.append(t.to(torch.float32).contiguous())
-    n_tab = sum(t is not None for t in tabs)
-    return out, n_tab * rows * channels * 4
+    return out
 
 
 def _launch_args(stack_val: Tensor, stack_std: Optional[Tensor],
-                 exposures: Tensor, smem: Optional[int] = None):
-    """Checked batch geometry, reciprocal exposure times and outputs;
-    ``smem``, K1's table bytes, is checked against a block's shared
-    memory."""
+                 exposures: Tensor):
+    """Checked batch geometry, reciprocal exposure times and outputs."""
     if stack_val.ndim not in (4, 5):
         raise ValueError("stack must be (N, H, W, C) or (B, N, H, W, C), "
                          f"got {tuple(stack_val.shape)}")
@@ -370,9 +434,6 @@ def _launch_args(stack_val: Tensor, stack_std: Optional[Tensor],
     if exposures.shape != (n,):
         raise ValueError(f"exposures has shape {tuple(exposures.shape)}, "
                          f"expected ({n},)")
-    if smem is not None and smem + 4 * n > _MAX_SMEM:
-        raise ValueError(f"tables need {smem + 4 * n} bytes of shared "
-                         f"memory, a block has {_MAX_SMEM}")
     if stack_std is not None:
         _check_stack("stack_std", stack_std, device, (torch.float32,),
                      stack_val.shape)
@@ -427,15 +488,21 @@ def merge_nhwc_fused(stack_val: Tensor, stack_std: Optional[Tensor],
     from .. import csrc
     _check_stack("stack_val", stack_val, stack_val.device, tuple(_VAL_KIND))
     bits, c = icrf.shape[0], stack_val.shape[-1]
-    (tab, tab_d), smem = _tables(stack_val.device, c, bits, icrf,
-                                 None if stack_std is None else icrf_diff)
+    tab, tab_d = _tables(stack_val.device, c, bits, icrf,
+                         None if stack_std is None else icrf_diff)
     b, n, h, w, c, inv_t, out_v, out_s = _launch_args(
-        stack_val, stack_std, exposures, smem)
+        stack_val, stack_std, exposures)
+    # the kernel indexes a plane in 32 bits
+    if h * w * c >= 2 ** 31 or b >= 2 ** 31:
+        raise ValueError(f"stack {tuple(stack_val.shape)} exceeds K1's "
+                         "32-bit indexing")
+    plan = fused_launch_plan(stack_val, stack_std, bits)
     err = csrc.library("hdr_merge").cl_merge_fused(
         stack_val.data_ptr(), _VAL_KIND[stack_val.dtype], _ptr(stack_std),
         tab.data_ptr(), _ptr(tab_d), bits, inv_t.data_ptr(), b, n, h, w, c,
         int(compat == "reference"), ctypes.c_float(1.0 / (bits - 1)),
-        out_v.data_ptr(), _ptr(out_s), _stream())
+        out_v.data_ptr(), _ptr(out_s), _stream(),
+        (ctypes.c_int * len(plan))(*plan))
     _raise_on(err, "merge_nhwc_fused")
     merge_nhwc_fused.launches += 1
     return out_v, out_s
@@ -453,9 +520,9 @@ def merge_nhwc_lerp(stack_val: Tensor, stack_std: Optional[Tensor],
     from .. import csrc
     _check_base(icrf_base, icrf_diff_base, stack_std)
     _check_stack("stack_val", stack_val, stack_val.device, tuple(_VAL_KIND))
-    (tab, tab_d), _ = _tables(stack_val.device, stack_val.shape[-1], 256,
-                              icrf_base, None if stack_std is None
-                              else icrf_diff_base)
+    tab, tab_d = _tables(stack_val.device, stack_val.shape[-1], 256,
+                         icrf_base, None if stack_std is None
+                         else icrf_diff_base)
     b, n, h, w, c, inv_t, out_v, out_s = _launch_args(
         stack_val, stack_std, exposures)
     plan = _lerp_plan(stack_val, stack_std, None, b, n, h, w, c)
@@ -491,8 +558,8 @@ def merge_nhwc_lerp_bp(stack_val: Tensor, stack_std: Optional[Tensor],
     _check_stack("stack_val", stack_val, device, (torch.float32,))
     _check_stack("dark", dark, device, (torch.float32, torch.uint8),
                  stack_val.shape)
-    (tab, tab_d), _ = _tables(device, stack_val.shape[-1], 256, icrf_base,
-                              None if stack_std is None else icrf_diff_base)
+    tab, tab_d = _tables(device, stack_val.shape[-1], 256, icrf_base,
+                         None if stack_std is None else icrf_diff_base)
     _, n, h, w, c, inv_t, out_v, out_s = _launch_args(
         stack_val, stack_std, exposures)
     plan = _lerp_plan(stack_val, stack_std, dark, 1, n, h, w, c)

@@ -5,17 +5,19 @@
 
 Phases 1-7, the HDR merge: builds the merge kernels K1-K3 from
 ``camera_linearity_tpu_torch/csrc`` (one ``nvcc`` per source, all at once)
-and prints their registers and spills, holds each against its plain
-PyTorch version on the card at the shapes of BASELINE config 2 (6 exposures
-of 1200 x 1920 x 3, f32 value and std) and config 3 (the same geometry with
-dark frames, a flat field and 12-bit tables), and on a 37 x 53 crop that
-K2 and K3 load by their copy route, drives the port's entry points once
-(``merge_hdr`` and ``ExposureSeries.process_HDR_image``) with the launch
-counts reset, checks the end-to-end result against the same call on the
-CPU, times each kernel against its plain version and against a
+and prints their registers and spills, holds each against its plain PyTorch
+version on the card at the shapes of BASELINE config 2 (6 exposures of 1200
+x 1920 x 3, f32 value and std) and config 3 (the same geometry with dark
+frames, a flat field and 12-bit tables), and on a 37 x 53 crop that K2 and
+K3 load by their copy route; K1 on each of its routes and instances (f32,
+u8 and i32 stacks, 256 and 4096 entries, 3, 6, 12 and 18 exposures, 1, 3
+and 4 channels, batches, a 37 x 53 crop and a stack 4 bytes off alignment,
+the two routes bit for bit alike on the same values), drives the port's
+entry points once (``merge_hdr`` and ``ExposureSeries.process_HDR_image``)
+with the launch counts reset, checks the end-to-end result against the same
+call on the CPU, times each kernel against its plain version and against a
 device-to-device ``copy_`` of the same bytes with CUDA events, and times
-``process_HDR_image`` end to end on the host clock and under the
-profiler.
+``process_HDR_image`` end to end on the host clock and under the profiler.
 
 Phases 8-11, the linearity analysis and the calibration (plain PyTorch; no
 kernel of its own): ``process_linearity`` and
@@ -62,6 +64,12 @@ each against the plain version; the experiments' entry points with the
 launch counts reset; times beside a ``copy_`` of the same bytes, the bound,
 K1 at 8 and 12 bits on the same data and the plain version; E6's sweep;
 and K1's split extended by E6 and E7.
+
+Phase 19, K1's design choices: each entry of ``K1_VARIANTS`` is a text
+edit of ``csrc/hdr_merge.cu``, built beside the source as it is, held
+against the plain version and timed with it, in turns, at config 2 (8 and
+12 bits), at 12 exposures and at config 5's B = 8, beside a ``copy_`` of
+the same bytes.
 
 It prints the card's name and power limit early, one JSON line with the
 kernels' results before the last line, and as the last line
@@ -996,12 +1004,22 @@ def video_phases(dev, res, directory) -> dict:
         def k3():
             hdr_cuda.merge_nhwc_lerp_bp(val, std, dark, ex, ic, icd, thr,
                                         256)
-        k3_ms = float(np.median(time_samples(k3, runs=10, reps=5)))
         k3_bytes = (3 * len(paths) + 2) * frame_bytes * 4
+        src = torch.empty(k3_bytes // 8, dtype=torch.float32, device=dev)
+        dst = torch.empty_like(src)
+
+        def copy():
+            dst.copy_(src)
+        k3_s, c3_s = [], []
+        for fn, out in ((copy, c3_s), (k3, k3_s), (k3, k3_s), (copy, c3_s)):
+            out += time_samples(fn, runs=5, reps=5)
+        del src, dst
+        k3_ms, k3_copy = float(np.median(k3_s)), float(np.median(c3_s))
         k3_bound = k3_bytes / PEAK_BYTES_S * 1e3
         log(f"  K3 in video_to_hdr: {k3_ms:.4f} ms (CUDA events), "
             f"{k3_bytes / 1e6:.1f} MB (3 zero dark planes included), bound "
-            f"{k3_bound:.4f} ms ({k3_bound / k3_ms * 100:.1f} % of it); "
+            f"{k3_bound:.4f} ms ({k3_bound / k3_ms * 100:.1f} % of it), "
+            f"copy {k3_copy:.4f} ms; "
             f"{k3_ms / (t_v2h * 1e3) * 100:.3f} % of video_to_hdr's "
             f"{t_v2h * 1e3:.1f} ms")
         del val, std, dark, hdr_set
@@ -1013,7 +1031,7 @@ def video_phases(dev, res, directory) -> dict:
     return dict(paths=paths, launches=launches, welford_ms=welford,
                 welford_bound_ms=wf_bound, k1=k1_times,
                 k3=dict(ms=k3_ms, bytes=k3_bytes, bound_ms=k3_bound,
-                        video_to_hdr_ms=t_v2h * 1e3))
+                        copy_ms=k3_copy, video_to_hdr_ms=t_v2h * 1e3))
 
 
 class LogRecords(logging.Handler):
@@ -1817,6 +1835,9 @@ def lut_phase(dev, val, std, exposures, tables, e2_ms: float) -> dict:
             f"{c_ms:.4f} ms, plain {p_ms:.4f} ms; kernel samples "
             f"{min(k_s):.4f}-{max(k_s):.4f} ms")
 
+    plan = hdr_cuda.fused_launch_plan
+    log(f"  K1 routes: 8-bit {plan(val, std, icrf8.shape[0]).route}, "
+        f"12-bit {plan(val, std, icrf12.shape[0]).route}")
     log("  E6 sweep (chunk elements x stages; scalar = the route of a stack "
         "4 bytes off alignment)")
     skewed = [torch.empty(x.numel() + 1, device=dev)[1:].view_as(x)
@@ -1847,7 +1868,7 @@ def lut_phase(dev, val, std, exposures, tables, e2_ms: float) -> dict:
                  bf16x3_over_u8x4=timed["E7 bf16x3"]["ms"]
                  / timed["E7 u8x4"]["ms"])
     log(f"  K1 split (E2 {e2_ms:.4f} ms from phase 17): staging and lookup "
-        f"E6 - E2 {split['e6_minus_e2_ms']:.4f} ms; K1's load pattern K1 - "
+        f"E6 - E2 {split['e6_minus_e2_ms']:.4f} ms; K1's own design K1 - "
         f"E6 {split['k1_minus_e6_ms']:.4f} ms (K1 8-bit {k1_8:.4f}); lookup "
         f"at 4096 entries E7 f32 - E2 {split['e7_f32_minus_e2_ms']:.4f} ms, "
         f"K1 12-bit - E7 f32 {split['k1_12_minus_e7_f32_ms']:.4f} ms (K1 "
@@ -1873,6 +1894,133 @@ def lut_phase(dev, val, std, exposures, tables, e2_ms: float) -> dict:
     kernels[1]["bit_equal"] = bit_equal
     log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
     return dict(kernels=kernels, launches=launches)
+
+
+def k1_checks(res, val, std, exposures, icrf8, diff8, icrf12, diff12
+              ) -> dict:
+    """Phase 3: K1 against its plain version at config-2 size through
+    ``merge_hdr`` and ``merge_batch``, and on each route and instance of
+    its planner (``hdr_cuda.plan_fused``): the quad walk at 3, 6 and 12
+    exposures (instances 4, 8 and 16) and the scalar route of a 37 x 53
+    crop, of 18 exposures and of a stack 4 bytes off alignment; f32, u8
+    and i32 stacks, 256 and 4096 entries, both compat modes, with and
+    without std, 1, 3 and 4 channels, B = 2 with a plane of a multiple of
+    4 elements and a ragged one.  The offset stack holds the same values
+    as the aligned one, so the two routes must give the same bits.
+    Returns each case's route."""
+    from camera_linearity_tpu_torch.ops import hdr, hdr_cuda
+    routes = {}
+
+    def check(label, route, v, s, ex, tab, dtab, compat="corrected",
+              merge=hdr_cuda.merge_nhwc_fused):
+        got_route = hdr_cuda.fused_launch_plan(v, s, tab.shape[0]).route
+        routes[label] = got_route
+        if got_route != route:
+            raise AssertionError(f"phase 3, {label}: K1 took the {got_route}"
+                                 f" route, expected {route}")
+        got = merge(v, s, ex, tab, dtab, compat)
+        res.check("merge_nhwc_fused", f"{label} [{got_route}]", got,
+                  hdr_cuda.merge_fused_plain(v, s, ex, tab, dtab, compat))
+        return got
+
+    log("K1 merge_nhwc_fused vs merge_fused_plain (config 2), every route "
+        "and instance")
+    for compat in ("corrected", "reference"):
+        for s in (std, None):
+            check(f"merge_hdr {compat}, std={s is not None}", "quad/8", val,
+                  s, exposures, icrf8, diff8, compat, hdr.merge_hdr)
+            check(f"4096-entry exact tables, {compat}, std={s is not None}",
+                  "quad/8", val, s, exposures, icrf12, diff12, compat,
+                  hdr.merge_hdr)
+    for dtype, name in ((torch.uint8, "uint8"), (torch.int32, "int32")):
+        dn = torch.round(val * 255).to(dtype)
+        check(f"{name} DNs", "quad/8", dn, std, exposures, icrf8, diff8)
+        check(f"{name} DNs, 4096-entry tables", "quad/8", dn, std,
+              exposures, icrf12, diff12)
+    dn = torch.round(val * 4095).to(torch.int32)
+    check("int32 12-bit DNs, 4096-entry tables", "quad/8", dn, std,
+          exposures, icrf12, diff12)
+    del dn
+    quad = check("config 2, f32, std", "quad/8", val, std, exposures, icrf8,
+                 diff8, "reference")
+    sv, ss = (x.new_empty(x.numel() + 1)[1:].view_as(x).copy_(x)
+              for x in (val, std))
+    scalar = check("stack 4 bytes off alignment", "scalar", sv, ss,
+                   exposures, icrf8, diff8, "reference")
+    same = all(torch.equal(a, b) for a, b in zip(quad, scalar))
+    log(f"  quad walk and scalar route equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("phase 3: K1's routes differ on the same values")
+    del sv, ss, quad, scalar
+    check("N = 3 (config 5's count)", "quad/4", val[:3], std[:3],
+          exposures[:3], icrf8, diff8)
+    check("N = 3, uint8 DNs, value only", "quad/4",
+          torch.round(val[:3] * 255).to(torch.uint8), None, exposures[:3],
+          icrf8, diff8)
+    v12, s12 = (torch.cat([x, x.flip(1)]) for x in (val, std))
+    ex12 = torch.cat([exposures, exposures * 1.5])
+    check("N = 12", "quad/16", v12, s12, ex12, icrf8, diff8)
+    check("N = 12, 4096-entry tables, reference", "quad/16", v12, s12, ex12,
+          icrf12, diff12, "reference")
+    v18, s18 = (torch.cat([x, x[:6].flip(2)]) for x in (v12, s12))
+    ex18 = torch.cat([ex12, exposures * 3.0])
+    check("N = 18", "scalar", v18, s18, ex18, icrf8, diff8)
+    del v12, s12, v18, s18
+    cv, cs = (x[:, :37, :53].contiguous() for x in (val, std))
+    for compat in ("corrected", "reference"):
+        check(f"37 x 53 crop, {compat}", "scalar", cv, cs, exposures, icrf8,
+              diff8, compat)
+    check("37 x 53 crop, 4096-entry tables, value only", "scalar", cv, None,
+          exposures, icrf12, diff12)
+    check("merge_batch B = 2, 37 x 53 crops", "scalar",
+          torch.stack([cv, cv.flip(1)]), torch.stack([cs, cs.flip(1)]),
+          exposures, icrf8, diff8,
+          merge=lambda v, s, ex, tab, dtab, compat:
+          hdr.merge_batch(v, s, ex, tab, dtab, compat))
+    del cv, cs
+    bv, bs = torch.stack([val, val.flip(1)]), torch.stack([std, std.flip(1)])
+    check("merge_batch B = 2", "quad/8", bv, bs, exposures, icrf8, diff8,
+          merge=lambda v, s, ex, tab, dtab, compat:
+          hdr.merge_batch(v, s, ex, tab, dtab, compat))
+    del bv, bs
+    v1, s1 = (x[..., :1].contiguous() for x in (val, std))
+    check("C = 1", "quad/8", v1, s1, exposures, icrf8[:, :1].contiguous(),
+          diff8[:, :1].contiguous())
+    v4, s4 = (torch.cat([x, x[..., :1]], dim=-1) for x in (val, std))
+    for tab, dtab, rows in ((icrf8, diff8, 256), (icrf12, diff12, 4096)):
+        check(f"C = 4, {rows}-entry tables", "quad/8", v4, s4, exposures,
+              torch.cat([tab, tab[:, :1]], dim=1),
+              torch.cat([dtab, dtab[:, :1]], dim=1))
+    del v1, s1, v4, s4
+    torch.cuda.synchronize()
+    return routes
+
+
+def ptxas_entries(text: str) -> dict:
+    """Registers and spill bytes of each kernel entry in a ``ptxas -v``
+    log, by entry name (demangled where ``c++filt`` is there)."""
+    import re
+    import shutil
+    entries, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            entries[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            entries[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries[name]["registers"] = int(m.group(1))
+    if entries and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(entries),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(entries):
+            entries = dict(zip(names, entries.values()))
+    return entries
 
 
 def time_k1_batch(dev, bv, bs, ex, ic, icd) -> dict:
@@ -1903,13 +2051,192 @@ def time_k1_batch(dev, bv, bs, ex, ic, icd) -> dict:
     del src, dst
     k_ms, p_ms, c_ms = (float(np.median(x)) for x in (k_s, p_s, c_s))
     bound = nbytes / PEAK_BYTES_S * 1e3
-    log(f"  K1 at B = {b}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} "
+    route = hdr_cuda.fused_launch_plan(bv, bs, ic.shape[0]).route
+    log(f"  K1 at B = {b} ({route}): kernel {k_ms:.4f} ms "
+        f"({nbytes / k_ms / 1e6:.1f} "
         f"GB/s of {nbytes / 1e9:.3f} GB), bound {bound:.4f} ms "
         f"({bound / k_ms * 100:.1f} % of it), copy {c_ms:.4f} ms, plain "
         f"{p_ms:.4f} ms ({b} scene-sized calls); kernel samples "
         f"{min(k_s):.4f}-{max(k_s):.4f} ms")
     return dict(ms=k_ms, plain_ms=p_ms, copy_ms=c_ms, bytes=nbytes,
-                bound_ms=bound, share=bound / k_ms)
+                bound_ms=bound, share=bound / k_ms, plan_route=route)
+
+
+# K1's design choices, each as text edits (old, new) of csrc/hdr_merge.cu
+_PREFETCH = """    {  // the next unit's lines stream into L2 meanwhile
+      int nb = b, nu = u;
+      advance(nb, nu, stride, units);
+      if (nb < a.B) {
+        const long long next = nb * scene + V * nu;
+#pragma unroll
+        for (int n = 0; n < MAXN; ++n) {
+          if (n < a.N) {
+            asm volatile("prefetch.global.L2 [%0];"
+                         :: "l"(val + next + (long long)n * a.plane));
+            if (STD)
+              asm volatile("prefetch.global.L2 [%0];"
+                           :: "l"(a.std + next + (long long)n * a.plane));
+          }
+        }
+      }
+    }
+"""
+_BASE = "    int base[V];  // each lane's table entries: channel * rows\n"
+_HALF_QUAD = "  static constexpr int V = MAXN > 8 ? 2 : 4;"
+K1_VARIANTS = {
+    "whole quad at MAXN 16, one block an SM": [
+        (_HALF_QUAD, "  static constexpr int V = 4;"),
+        ("__launch_bounds__(kMaxThreads, 2)\nquad_kernel",
+         "__launch_bounds__(kMaxThreads, MAXN > 8 ? 1 : 2)\nquad_kernel")],
+    "whole quad at MAXN 16, 128 registers": [
+        (_HALF_QUAD, "  static constexpr int V = 4;")],
+    "L2 prefetch of the next unit": [(_BASE, _PREFETCH + _BASE)],
+    "idx and dw recomputed in pass 2": [
+        ("""          quantize(x[n][k], a, xf, idx[n]);
+          const float d = xf - 0.5f;
+          w[n] = weight(d);
+          if (STD) dw[n] = weight_slope(d, w[n]);""",
+         """          quantize(x[n][k], a, xf, idx[n]);
+          w[n] = weight(xf - 0.5f);"""),
+        ("""          float g, fp;
+          lookup<STD>(smem, base[k], idx[n], g, fp);
+          accumulate<STD>(w[n], STD ? dw[n] : 0.0f, g, fp,""",
+         """          float g, fp, xf;
+          quantize(x[n][k], a, xf, idx[n]);
+          lookup<STD>(smem, base[k], idx[n], g, fp);
+          accumulate<STD>(w[n], STD ? weight_slope(xf - 0.5f, w[n]) : 0.0f,
+                          g, fp,""")],
+    "cached loads and stores (no streaming hint)": [
+        ("__ldcs(reinterpret_cast<const typename Vec<TV, V>::T*>(p))",
+         "__ldg(reinterpret_cast<const typename Vec<TV, V>::T*>(p))"),
+        ("__stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], "
+         "v[3]));", "*reinterpret_cast<float4*>(p) = "
+         "make_float4(v[0], v[1], v[2], v[3]);"),
+        ("__stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));",
+         "*reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);")],
+    "multiply-adds contracted": [
+        ("namespace {\n", "namespace {\n"
+         "__device__ __forceinline__ float mul_(float a, float b) "
+         "{ return a * b; }\n"
+         "__device__ __forceinline__ float add_(float a, float b) "
+         "{ return a + b; }\n"
+         "__device__ __forceinline__ float sub_(float a, float b) "
+         "{ return a - b; }\n"),
+        ("__fmul_rn(", "mul_("), ("__fadd_rn(", "add_("),
+        ("__fsub_rn(", "sub_(")],
+}
+
+
+def k1_variant_phase(dev, val, std, ex, tables) -> dict:
+    """Phase 19: builds every entry of ``K1_VARIANTS`` beside
+    ``csrc/hdr_merge.cu`` as it is (one ``nvcc`` each, all at once), holds
+    each against the plain version, and times each through
+    ``merge_nhwc_fused`` (its library swapped in) in turns, twice, beside a
+    ``copy_`` of the same bytes, on config 2's stacks ``val`` and ``std``
+    with ``tables`` (icrf8, diff8, icrf12, diff12), on 12 exposures of them
+    and on a random config-5 batch; logs each variant's registers and
+    spills.  Returns each case's times by variant."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    from camera_linearity_tpu_torch import csrc
+    from camera_linearity_tpu_torch.ops import hdr_cuda
+    t_phase = time.perf_counter()
+    icrf8, diff8, icrf12, diff12 = tables
+    log(f"phase 19: K1's design choices, {len(K1_VARIANTS)} variants of "
+        "hdr_merge.cu")
+    source = (Path(csrc.__file__).parent / "hdr_merge.cu").read_text()
+    texts = {"as it is": source}
+    for name, edits in K1_VARIANTS.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) < 1:
+                raise AssertionError(f"variant {name!r}: {old[:60]!r} not "
+                                     "found in hdr_merge.cu")
+            text = text.replace(old, new)
+        texts[name] = text
+    root = Path(__file__).resolve().parent / "build" / "k1_variants"
+    root.mkdir(parents=True, exist_ok=True)
+
+    def build(item):
+        i, (name, text) = item
+        src, lib = root / f"v{i}.cu", root / f"libv{i}.so"
+        src.write_text(text)
+        out = subprocess.run([csrc._nvcc(), *csrc.NVCC_FLAGS, "-o", str(lib),
+                              str(src)], capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed\n{out.stderr}")
+        return name, csrc._declare(ctypes.CDLL(str(lib))), out.stderr
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(texts)) as pool:
+        built = list(pool.map(build, enumerate(texts.items())))
+    log(f"  built {len(built)} K1 variants in "
+        f"{time.perf_counter() - t0:.1f} s")
+    libs = {name: lib for name, lib, _ in built}
+    for name, _, ptxas in built:
+        entries = ptxas_entries(ptxas)
+        log(f"  {name}: " + "; ".join(
+            f"{e.split('quad_kernel')[-1].split('(')[0]} "
+            f"{v.get('registers')} regs {v.get('spill_bytes')} B spills"
+            for e, v in entries.items()
+            if "quad_kernel<float" in e or "quad_kernelIf" in e))
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    b5 = torch.rand((SCENES5, 3, H5, W5, 3), device=dev, generator=g)
+    s5 = torch.rand(b5.shape, device=dev, generator=g) * 0.02 + 0.001
+    ex5 = torch.as_tensor(np.array(EXPOSURES5_MS, np.float32) / 1000,
+                          device=dev)
+    cases = {
+        "config 2, 8-bit": (val, std, ex, icrf8, diff8),
+        "config 2, 4096 entries": (val, std, ex, icrf12, diff12),
+        "N = 12": (torch.cat([val, val.flip(1)]),
+                   torch.cat([std, std.flip(1)]),
+                   torch.cat([ex, ex * 1.5]), icrf8, diff8),
+        "config 5, B = 8": (b5, s5, ex5, icrf8, diff8),
+    }
+    saved = csrc._libs.get("hdr_merge")
+    results = {}
+    try:
+        for label, args in cases.items():
+            v, s = args[:2]
+            n = v.shape[-4]
+            nbytes = (2 * n + 2) * (v.numel() // n) * 4
+            src = torch.empty(nbytes // 8, dtype=torch.float32, device=dev)
+            dst = torch.empty_like(src)
+            # a batch is held to the plain version on its first scene
+            want = hdr_cuda.merge_fused_plain(v[0] if v.ndim == 5 else v,
+                                              s[0] if v.ndim == 5 else s,
+                                              *args[2:])
+
+            def run(lib, args=args):
+                csrc._libs["hdr_merge"] = lib
+                return hdr_cuda.merge_nhwc_fused(*args)
+            for name, lib in libs.items():
+                got = [x[0] if v.ndim == 5 else x for x in run(lib)]
+                torch.testing.assert_close(got[0], want[0], **VAL_TOL)
+                torch.testing.assert_close(got[1], want[1], **STD_TOL)
+            runs = {name: (lambda lib=lib: run(lib))
+                    for name, lib in libs.items()}
+            runs["copy_"] = lambda: dst.copy_(src)
+            times = {name: [] for name in runs}
+            for name in [*runs, *reversed(runs)]:
+                times[name].append(float(np.median(time_samples(
+                    runs[name], runs=5, reps=5 if v.ndim == 5 else 10))))
+            del src, dst, want
+            bound = nbytes / PEAK_BYTES_S * 1e3
+            route = hdr_cuda.fused_launch_plan(v, s, args[3].shape[0]).route
+            results[label] = dict(bound_ms=bound, plan_route=route, ms=times)
+            log(f"  {label} ({route}; bound {bound:.4f} ms): " + ", ".join(
+                f"{k} {'/'.join(f'{t:.4f}' for t in ts)}"
+                for k, ts in times.items()))
+    finally:
+        if saved is None:
+            csrc._libs.pop("hdr_merge", None)
+        else:
+            csrc._libs["hdr_merge"] = saved
+    del cases, b5, s5
+    torch.cuda.empty_cache()
+    log(f"  phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return results
 
 
 def main() -> int:
@@ -1962,29 +2289,9 @@ def main() -> int:
     thr = torch.tensor(CameraConfig().dark_threshold, dtype=torch.float32)
     res = Results()
 
-    # --- phase 3: K1 against its plain version, through merge_hdr --------
-    log("K1 merge_nhwc_fused vs merge_fused_plain (config 2)")
-    for compat in ("corrected", "reference"):
-        for s in (std, None):
-            res.check("merge_nhwc_fused", f"{compat}, std={s is not None}",
-                      hdr.merge_hdr(val, s, exposures, icrf8, diff8, compat),
-                      hdr_cuda.merge_fused_plain(val, s, exposures, icrf8,
-                                                 diff8, compat))
-    dn = torch.round(val * 255).to(torch.uint8)
-    res.check("merge_nhwc_fused", "uint8 DNs",
-              hdr.merge_hdr(dn, std, exposures, icrf8, diff8),
-              hdr_cuda.merge_fused_plain(dn, std, exposures, icrf8, diff8))
-    res.check("merge_nhwc_fused", "4096-entry exact tables",
-              hdr.merge_hdr(val, std, exposures, icrf12, diff12),
-              hdr_cuda.merge_fused_plain(val, std, exposures, icrf12,
-                                         diff12))
-    batch_v = torch.stack([val, val.flip(1)])
-    batch_s = torch.stack([std, std.flip(1)])
-    res.check("merge_nhwc_fused", "merge_batch B=2",
-              hdr.merge_batch(batch_v, batch_s, exposures, icrf8, diff8),
-              hdr_cuda.merge_fused_plain(batch_v, batch_s, exposures, icrf8,
-                                         diff8))
-    del batch_v, batch_s, dn
+    # --- phase 3: K1 against its plain version, on every route -----------
+    k1_routes = k1_checks(res, val, std, exposures, icrf8, diff8, icrf12,
+                          diff12)
 
     # --- phase 4: K2 against its plain version, through merge_hdr --------
     log("K2 merge_nhwc_lerp vs merge_lerp_plain (config 3 tables)")
@@ -2106,11 +2413,15 @@ def main() -> int:
         "MP/s = H*W per second; GB/s = bytes the merge must move; bound = "
         "those bytes at 3.35 TB/s or its f32 operations at 67 TFLOP/s, the "
         "larger; copy = a device-to-device copy_ moving the same bytes)")
+    instances = {}
     for name, path in lib_paths.items():
         log(f"  registers and spills, {name}.cu (ptxas):")
-        for line in (path.parent / "ptxas.log").read_text().splitlines():
-            if any(k in line for k in ("Compiling entry", "Used", "spill")):
-                log(f"    {line.strip()}")
+        entries = ptxas_entries((path.parent / "ptxas.log").read_text())
+        for entry, info in entries.items():
+            log(f"    {info.get('registers')} registers, "
+                f"{info.get('spill_bytes')} bytes of spills: {entry}")
+        if name == "hdr_merge":
+            instances = entries
     plane = H * W * C * 4
     cases = {  # name: (kernel, plain, bytes read and written)
         "merge_nhwc_fused": (
@@ -2155,6 +2466,11 @@ def main() -> int:
             bound_ms=bound_ms,
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             share=bound_ms / k_ms)
+        if name == "merge_nhwc_fused":
+            times[name]["plan_route"] = hdr_cuda.fused_launch_plan(
+                val, std, icrf8.shape[0]).route
+            log("  merge_nhwc_fused takes the "
+                f"{times[name]['plan_route']} route")
         log(f"  {name}: kernel {k_ms:.4f} ms ({H * W / k_ms / 1e3:.1f} "
             f"MP/s, {nbytes / k_ms / 1e6:.1f} GB/s of {nbytes / 1e6:.0f} "
             f"MB), bound {bound_ms:.4f} ms ({times[name]['bound_by']}; "
@@ -2180,6 +2496,8 @@ def main() -> int:
                               times["merge_nhwc_fused"])
     lut = lut_phase(dev, val, std, exposures, (icrf8, diff8, icrf12, diff12),
                     ablation["e2_ms"])
+    k1_variants = k1_variant_phase(dev, val, std, exposures,
+                                   (icrf8, diff8, icrf12, diff12))
     del val, std
     torch.cuda.empty_cache()
 
@@ -2200,8 +2518,13 @@ def main() -> int:
                 "max_abs_err": res.err[name], **times[name],
                 "library_ms": None} for name in REPLACES]
     kernels[0]["config5_B8"] = config5["k1"]
+    kernels[0]["routes_checked"] = k1_routes
+    kernels[0]["instances"] = instances
+    kernels[0]["variants_ms"] = k1_variants
     kernels[2]["config5_video_to_hdr"] = config5["k3"]
     kernels += ablation["kernels"] + lut["kernels"]
+    if any(k["route"] not in ("cuda", "triton") for k in kernels):
+        raise AssertionError("a kernel's route is neither cuda nor triton")
     log(json.dumps({"welford_ms_per_frame": config5["welford_ms"],
                     "welford_bound_ms": config5["welford_bound_ms"]}))
     log(json.dumps({"files": files["numbers"]}))

@@ -6,25 +6,30 @@ with a card and no JAX, run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-(this file imports no JAX).  Card tolerances, f32 against f32, where the
-differences come from ``expf`` and FMA contraction: value rtol 2e-5 /
-atol 1e-6, std rtol 2e-4 / atol 1e-5; the median repair agrees exactly.
-K2 and K3 are held at shapes that reach their tile edges, both load routes
-(TMA where a row is a multiple of 16 bytes, the copy route elsewhere), 1 to
-12 exposures, batches, every stack type, and hot pixels on tile borders,
-image corners and next to each other.  The ablation kernels
-(``ops/ablation_cuda.py``) are held on every layout, mode and launch
-setting, on rows that end in a ragged quad and on stacks 4 bytes off
-16-byte alignment: the sums exactly (both add in exposure order), the
-merges at K1's tolerances.  E6 (``ops/lut_merge_cuda.py::merge_pipelined``)
-is held over (chunk, stages) settings, 1, 6 and 16 exposures, a ragged last
-chunk, quads that straddle two channels (or four, in 1 x 1 planes), and the
-scalar route of a 37 x 53 crop, of 1 x 1 planes and of stacks 4 bytes off
-alignment; E7 (``merge_table_form``) in all three table forms, which must
-agree bit for bit, on aligned, ragged, 1 x 1 and misaligned stacks; both at
-K1's tolerances.  The CPU tests check that a wrapper
-given a CPU tensor runs its plain version and counts no launch, the K2/K3
-tile planner and route choice, and that importing the port neither imports
+(this file imports no JAX). Card tolerances, f32 against f32, where the
+differences come from ``expf`` and FMA contraction: value rtol 2e-5 / atol
+1e-6, std rtol 2e-4 / atol 1e-5; the median repair agrees exactly. K1 is
+held on both of its routes and every instance: the quad walk at 3, 4, 6, 12
+and 16 exposures (instances 4, 8 and 16), the scalar route of a 37 x 53
+crop, of 17 exposures and of value or std stacks 4 bytes (u8: 1 byte) off
+alignment, 1, 3 and 4 channels and batches, ragged or not; the two routes
+must agree bit for bit on the same values. K2 and K3 are held at shapes
+that reach their tile edges, both load routes (TMA where a row is a
+multiple of 16 bytes, the copy route elsewhere), 1 to 12 exposures,
+batches, every stack type, and hot pixels on tile borders, image corners
+and next to each other. The ablation kernels (``ops/ablation_cuda.py``) are
+held on every layout, mode and launch setting, on rows that end in a ragged
+quad and on stacks 4 bytes off 16-byte alignment: the sums exactly (both
+add in exposure order), the merges at K1's tolerances. E6
+(``ops/lut_merge_cuda.py::merge_pipelined``) is held over (chunk, stages)
+settings, 1, 6 and 16 exposures, a ragged last chunk, quads that straddle
+two channels (or four, in 1 x 1 planes), and the scalar route of a 37 x 53
+crop, of 1 x 1 planes and of stacks 4 bytes off alignment; E7
+(``merge_table_form``) in all three table forms, which must agree bit for
+bit, on aligned, ragged, 1 x 1 and misaligned stacks; both at K1's
+tolerances. The CPU tests check that a wrapper given a CPU tensor runs its
+plain version and counts no launch, the K2/K3 tile planner and route
+choice, K1's launch planner, and that importing the port neither imports
 JAX nor builds a kernel.
 """
 import os
@@ -94,18 +99,62 @@ def _close(got, want):
 # on the card
 # ---------------------------------------------------------------------------
 
+def _exposures(n, device):
+    return _f32(0.002 * 2.0 ** np.arange(n), device)
+
+
+def _skewed(t):
+    """A contiguous copy of ``t`` at storage offset 1: one element (4
+    bytes, or 1 for u8) off the allocation's alignment."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
+# (B, N, H, W, C, skewed stack, K1's route with std): ragged sizes, planes
+# of a multiple of 4 elements for the quad walk at each instance, and each
+# reason for the scalar route
+K1_GEOMETRIES = {
+    "n4": (None, 4, 21, 60, 3, None, "quad/4"),
+    "n3": (None, 3, 16, 40, 3, None, "quad/4"),
+    "n6": (None, 6, 16, 40, 3, None, "quad/8"),
+    "n12": (None, 12, 8, 20, 3, None, "quad/16"),
+    "n16": (None, 16, 8, 20, 3, None, "quad/16"),
+    "n17": (None, 17, 8, 20, 3, None, "scalar"),
+    "crop": (None, 4, 37, 53, 3, None, "scalar"),
+    "skew": (None, 4, 21, 60, 3, "val", "scalar"),
+    "skew-std": (None, 4, 21, 60, 3, "std", "scalar"),
+    "c1": (None, 6, 21, 60, 1, None, "quad/8"),
+    "c4": (None, 6, 21, 61, 4, None, "quad/8"),
+    "b2": (2, 6, 21, 60, 3, None, "quad/8"),
+    "b2-ragged": (2, 5, 37, 53, 3, None, "scalar"),
+}
+
+
+def _k1_inputs(rng, geometry, kind, bits, use_std, device):
+    b, n, h, w, c, skew, route = K1_GEOMETRIES[geometry]
+    shape = (n, h, w, c) if b is None else (b, n, h, w, c)
+    val = _t(_stack(rng, shape, kind, bits - 1), device)
+    std = _f32(rng.uniform(0.001, 0.02, shape), device) if use_std else None
+    if skew == "val":
+        val = _skewed(val)
+    elif skew == "std" and use_std:
+        std = _skewed(std)
+    elif skew == "std":
+        route = "quad/4"  # no std stack, nothing skewed
+    icrf, diff = (_f32(a, device) for a in _tables(rng, bits, c))
+    return val, std, _exposures(n, device), icrf, diff, route
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("geometry", list(K1_GEOMETRIES))
 @pytest.mark.parametrize("kind", ["f32", "u8", "i32"])
 @pytest.mark.parametrize("bits", [256, 4096])
 @pytest.mark.parametrize("compat", ["corrected", "reference"])
 @pytest.mark.parametrize("use_std", [True, False])
-def test_k1_matches_plain(cuda, rng, kind, bits, compat, use_std):
-    n, h, w, c = 4, 21, 60, 3  # ragged: no size is a block multiple
-    val = _t(_stack(rng, (n, h, w, c), kind, bits - 1), cuda)
-    std = _f32(rng.uniform(0.001, 0.02, (n, h, w, c)), cuda) \
-        if use_std else None
-    exposures = _f32([0.002, 0.004, 0.008, 0.016], cuda)
-    icrf, diff = (_f32(a, cuda) for a in _tables(rng, bits, c))
+def test_k1_matches_plain(cuda, rng, geometry, kind, bits, compat, use_std):
+    val, std, exposures, icrf, diff, route = _k1_inputs(
+        rng, geometry, kind, bits, use_std, cuda)
+    assert hdr_cuda.fused_launch_plan(val, std, bits).route == route
     before = hdr_cuda.merge_nhwc_fused.launches
     got = hdr_cuda.merge_nhwc_fused(val, std, exposures, icrf, diff, compat)
     torch.cuda.synchronize()
@@ -115,24 +164,46 @@ def test_k1_matches_plain(cuda, rng, kind, bits, compat, use_std):
 
 
 @pytest.mark.cuda
-def test_k1_batch_and_dispatch(cuda, rng):
+@pytest.mark.parametrize("kind", ["f32", "u8", "i32"])
+@pytest.mark.parametrize("bits", [256, 4096])
+@pytest.mark.parametrize("compat", ["corrected", "reference"])
+def test_k1_routes_agree_bit_for_bit(cuda, rng, kind, bits, compat):
+    """The quad walk and the scalar route round every operation alike: the
+    same values through both give the same bits."""
+    val, std, exposures, icrf, diff, _ = _k1_inputs(rng, "n6", kind, bits,
+                                                    True, cuda)
+    quad = hdr_cuda.merge_nhwc_fused(val, std, exposures, icrf, diff, compat)
+    skewed = _skewed(val)
+    assert hdr_cuda.fused_launch_plan(skewed, std, bits).route == "scalar"
+    scalar = hdr_cuda.merge_nhwc_fused(skewed, std, exposures, icrf, diff,
+                                       compat)
+    assert all(torch.equal(a, b) for a, b in zip(quad, scalar))
+
+
+# (B, N, H, W, C) of merge_batch: a ragged plane (the scalar route), a
+# plane of a multiple of 4 elements (the quad walk), 17 exposures (scalar)
+K1_BATCHES = {"ragged": (2, 3, 17, 33, 3), "quad": (2, 3, 16, 32, 3),
+              "n17": (2, 17, 6, 10, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", list(K1_BATCHES))
+def test_k1_batch_and_dispatch(cuda, rng, geometry):
     """merge_batch is one K1 launch over a (B, N, H, W, C) batch and
     agrees with merging each scene alone."""
-    b, n, h, w, c = 2, 3, 17, 33, 3
+    b, n, h, w, c = K1_BATCHES[geometry]
     val = _f32(rng.uniform(0, 1, (b, n, h, w, c)), cuda)
     std = _f32(rng.uniform(0.001, 0.02, (b, n, h, w, c)), cuda)
-    exposures = _f32([0.001, 0.004, 0.016], cuda)
+    exposures = _exposures(n, cuda)
     icrf, diff = (_f32(a, cuda) for a in _tables(rng, 256, c))
+    assert hdr_cuda.fused_launch_plan(val, std, 256).route == \
+        ("quad/4" if geometry == "quad" else "scalar")
     before = hdr_cuda.merge_nhwc_fused.launches
     bv, bs = hdr.merge_batch(val, std, exposures, icrf, diff)
     assert hdr_cuda.merge_nhwc_fused.launches == before + 1
     for i in range(b):
         _close((bv[i], bs[i]), hdr.merge_hdr(val[i], std[i], exposures,
                                              icrf, diff, use_kernel=False))
-
-
-def _exposures(n, device):
-    return _f32(0.002 * 2.0 ** np.arange(n), device)
 
 
 def _route(val, std=None, dark=None):
@@ -527,6 +598,94 @@ def test_cpu_tensors_run_the_plain_versions(rng):
         torch.testing.assert_close(gv, wv, rtol=0, atol=0)
         torch.testing.assert_close(gs, ws, rtol=0, atol=0)
     assert [k.launches for k in hdr_cuda.KERNELS] == counts
+
+
+_VAL_SIZES = {"f32": 4, "u8": 1, "i32": 4}
+# planes of a multiple of 4 elements, then ragged ones
+_PLANES = (4 * 3001, 4 * 3001 + 1, 4 * 3001 + 2, 4 * 3001 + 3)
+
+
+@pytest.mark.parametrize("kind", list(_VAL_SIZES))
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+@pytest.mark.parametrize("rows", [256, 4096])
+@pytest.mark.parametrize("use_std", [True, False])
+def test_fused_plan_fits_and_routes(kind, c, rows, use_std):
+    """For 1 to 40 exposures a K1 plan fits a block's shared memory, two
+    blocks an SM wherever the tables allow it, or is refused; the quad walk
+    is chosen exactly when the plane is a multiple of 4 elements, the value
+    base is aligned to a quad's load (16 bytes, u8 4), the std base to 16
+    bytes and N is at most the largest instance, whose smallest that holds
+    N it takes."""
+    size = _VAL_SIZES[kind]
+    tables = rows * c * (8 if use_std else 4)
+    val_addrs = (0, 256, size, 4, 8, 12)
+    std_addrs = (256, 4, 260, 8) if use_std else (None,)
+    for n in range(1, 41):
+        if tables + 4 * n > hdr_cuda._MAX_SMEM:
+            with pytest.raises(ValueError, match="shared memory"):
+                hdr_cuda.plan_fused(n, c, rows, size, use_std, (0, None),
+                                    _PLANES[0])
+            continue
+        for plane in _PLANES:
+            for va in val_addrs:
+                for sa in std_addrs:
+                    p = hdr_cuda.plan_fused(n, c, rows, size, use_std,
+                                            (va, sa), plane)
+                    assert p.off_invt >= tables and p.off_invt % 16 == 0
+                    assert p.off_invt + 4 * n <= p.smem <= hdr_cuda._MAX_SMEM
+                    if tables + 4 * n <= hdr_cuda._SMEM_TWO_BLOCKS:
+                        assert p.smem <= hdr_cuda._SMEM_TWO_BLOCKS
+                    assert p.threads == 256 and p.pairs == int(use_std)
+                    quad = (plane % 4 == 0 and va % (4 * size) == 0
+                            and (sa is None or sa % 16 == 0)
+                            and n <= max(hdr_cuda.MAXN))
+                    assert p.quad == int(quad)
+                    assert p.maxn == (min(m for m in hdr_cuda.MAXN
+                                          if m >= n) if quad else 0)
+                    assert p.route == (f"quad/{p.maxn}" if quad
+                                       else "scalar")
+
+
+def test_fused_plan_of_the_configs():
+    """Config 2/3 (6 exposures, 3 channels, std) takes the 8-instance with
+    6 KB of 256-entry pair tables or 96 KB of 4096-entry ones, both two
+    blocks an SM; config 5 (N = 3) the 4-instance; 16384-entry pair tables
+    do not fit a block, the same tables without std fit one."""
+    plane = 1200 * 1920 * 3
+    for rows, off in ((256, 6144), (4096, 98304)):
+        p = hdr_cuda.plan_fused(6, 3, rows, 4, True, (0, 0), plane)
+        assert (p.quad, p.maxn, p.pairs, p.off_invt, p.smem) == \
+            (1, 8, 1, off, off + 24)
+        assert p.smem <= hdr_cuda._SMEM_TWO_BLOCKS
+    p5 = hdr_cuda.plan_fused(3, 3, 256, 4, True, (0, 0), 2160 * 3840 * 3)
+    assert p5.route == "quad/4"
+    with pytest.raises(ValueError, match="shared memory"):
+        hdr_cuda.plan_fused(6, 3, 16384, 4, True, (0, 0), plane)
+    big = hdr_cuda.plan_fused(6, 3, 16384, 4, False, (0, None), plane)
+    assert hdr_cuda._SMEM_TWO_BLOCKS < big.smem <= hdr_cuda._MAX_SMEM
+
+
+@pytest.mark.parametrize("kind", list(_VAL_SIZES))
+def test_fused_launch_plan_of_stacks(kind):
+    """The wrapper's plan from the stacks themselves: their shape, element
+    size and base addresses (CPU tensors here; the kernel is not run)."""
+    rng = np.random.default_rng(3)
+    val = _t(_stack(rng, (6, 16, 40, 3), kind), "cpu")
+    std = torch.ones(val.shape)
+    plan = hdr_cuda.fused_launch_plan
+    assert val.data_ptr() % 16 == 0 and std.data_ptr() % 16 == 0
+    assert plan(val, std, 256).route == "quad/8"
+    assert plan(val[:3], std[:3], 4096).route == "quad/4"
+    assert plan(val, None, 256).route == "quad/8"
+    assert plan(_skewed(val), std, 256).route == "scalar"
+    assert plan(val, _skewed(std), 256).route == "scalar"
+    assert plan(val[:, :13, :13].contiguous(), None, 256).route == "scalar"
+    n17 = torch.cat([val, val, val[:5]])
+    assert plan(n17, None, 256).route == "scalar"
+    assert plan(n17[:16], None, 256).route == "quad/16"
+    if kind == "u8":  # a quad of u8 is a 4-byte load
+        four_off = torch.empty(val.numel() + 4, dtype=val.dtype)[4:]
+        assert plan(four_off.view(val.shape), None, 256).route == "quad/8"
 
 
 # (value bytes, dark bytes) of each K2/K3 kernel instance
