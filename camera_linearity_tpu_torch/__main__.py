@@ -11,9 +11,10 @@ commands and arguments (``camera_linearity_tpu/__main__.py``).
 All commands take --config pointing at a reference-format config.ini, and
 --device (default cuda: without a card the commands raise; --device cpu
 runs them on the CPU).  TIFFs are read and written by the port's own codec
-(utils/tiff.py), so no OpenCV is needed.  The multi-process options
-(--coordinator, --num-processes, --process-id and their CL_* variables)
-are parsed, and raise: multi-process runs are the multi-GPU port.
+(utils/tiff.py), so no OpenCV is needed.  --coordinator, --num-processes
+and --process-id (or CL_COORDINATOR_ADDRESS, CL_NUM_PROCESSES,
+CL_PROCESS_ID and CL_LOCAL_DEVICE_IDS) join a multi-process run
+(parallel/distributed.py): NCCL on the card, gloo with --device cpu.
 """
 from __future__ import annotations
 
@@ -23,10 +24,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-
-_MULTI_PROCESS_ENV = ("CL_COORDINATOR_ADDRESS", "CL_NUM_PROCESSES",
-                      "CL_PROCESS_ID")
-
 
 def _load_config(args):
     from .config import CameraConfig
@@ -310,6 +307,11 @@ def cmd_doctor(args) -> int:
             torch.cuda.current_device()
         print(f"  device: {torch.cuda.get_device_name(index)}, power limit "
               f"{_power_limit(index)}, {torch.cuda.device_count()} visible")
+    from .parallel import distributed
+    if distributed.process_count() > 1:
+        print(f"multi-host: process {distributed.process_index()} of "
+              f"{distributed.process_count()}, backend "
+              f"{torch.distributed.get_backend()}, this process on {dev}")
     print(f"TF32 matmul: allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"float32_matmul_precision="
           f"{torch.get_float32_matmul_precision()}")
@@ -402,13 +404,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "cpu runs them on the CPU)")
     p.add_argument("--coordinator",
                    help="multi-process: coordinator address host:port "
-                        "(or env CL_COORDINATOR_ADDRESS); not ported yet")
+                        "(or env CL_COORDINATOR_ADDRESS)")
     p.add_argument("--num-processes", type=int,
                    help="multi-process: total process count "
-                        "(or env CL_NUM_PROCESSES); not ported yet")
+                        "(or env CL_NUM_PROCESSES)")
     p.add_argument("--process-id", type=int,
                    help="multi-process: this process's id "
-                        "(or env CL_PROCESS_ID); not ported yet")
+                        "(or env CL_PROCESS_ID)")
     sub = p.add_subparsers(dest="command", required=True)
 
     m = sub.add_parser("merge", help="HDR-merge exposure stacks")
@@ -483,15 +485,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    asked = [f"--{name.replace('_', '-')}" for name in
-             ("coordinator", "num_processes", "process_id")
-             if getattr(args, name) is not None]
-    asked += [name for name in _MULTI_PROCESS_ENV if os.environ.get(name)]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: multi-process runs are the multi-GPU port "
-            "(ROADMAP queue 1, item 4), which has not landed")
-    return args.fn(args)
+    # with no --coordinator/--num-processes/--process-id and no CL_*
+    # environment this is a no-op (single-process mode)
+    from .parallel import distributed
+    owner = not distributed.is_initialized()
+    distributed.initialize(coordinator_address=args.coordinator,
+                           num_processes=args.num_processes,
+                           process_id=args.process_id, device=args.device)
+    try:
+        return args.fn(args)
+    finally:
+        if owner:  # a group this call joined ends with it
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

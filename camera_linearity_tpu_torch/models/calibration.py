@@ -37,10 +37,13 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import CameraConfig, DEFAULT_CONFIG
 from ..ops import linearity as lin_ops
 from ..ops.linearize import interpolate_curve
+from ..parallel import distributed as pdist
+from ..parallel.mesh import axis_size, block_of, mesh_device
 from ..utils import general as gf
 from ..utils import io
 from ..utils.checkpoint import DECheckpoint
@@ -218,6 +221,32 @@ def _progress(state: _State) -> Tuple[int, bool]:
     return nit, bool(all_done)
 
 
+def _population_size(popsize: int, d: int, mesh, pop_axis: str) -> int:
+    """S for ``popsize`` and D parameters, rounded up to a multiple of
+    the mesh axis's length when the population shards over it."""
+    s = max(5, popsize * d)
+    if mesh is None:
+        return s
+    n_shards = axis_size(mesh, pop_axis)
+    return -(-s // n_shards) * n_shards
+
+
+def _resume(checkpoint_path, mesh):
+    """The DE state to resume from (``DECheckpoint.try_load``), or None.
+    With a mesh the process of rank 0, which writes the checkpoint, alone
+    reads it and broadcasts the state to every process: a path on a disk
+    of its own, or an older file on one host only, must not let the
+    processes resume from different states."""
+    if checkpoint_path is None:
+        return None
+    if mesh is None:
+        return DECheckpoint.try_load(checkpoint_path)
+    found = [DECheckpoint.try_load(checkpoint_path)
+             if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(found, src=0)
+    return found[0]
+
+
 def differential_evolution_batched(energy_fn: Callable,
                                    channel_data: Tuple,
                                    num_channels: int,
@@ -252,22 +281,28 @@ def differential_evolution_batched(energy_fn: Callable,
     generations (at the end when 0) and a solve resumes from a readable
     checkpoint found there.
 
+    With ``mesh`` (parallel/mesh.py), the population shards over the
+    mesh axis ``pop_axis``: S rounds up to a multiple of its length, as in
+    the JAX package, so the population changes with the mesh.  Every
+    process draws the whole generation from the same generators, evaluates
+    the energies of its own slice of S only and gathers everyone's, so
+    every process holds the same state.  Only the process of rank 0 writes
+    the checkpoint, and only it reads one: it broadcasts what it found, so
+    every process resumes from the same state or every one starts fresh.
+
     Returns a DEResult whose fields carry a leading channel axis, and the
     (C,) generation at which each channel froze (``maxiter`` when it did
-    not, or when the solve resumed).  ``mesh``/``pop_axis`` belong to the
-    multi-GPU port, which has not landed.
+    not, or when the solve resumed).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a population sharded over a mesh is the multi-GPU port "
-            "(ROADMAP queue 1, item 4), which has not landed")
     if device is None:
         device = next((x.device for x in channel_data
                        if isinstance(x, Tensor)), None)
+    if device is None and mesh is not None:
+        device = mesh_device(mesh)
     device = resolve_device(device)
     dtype = canonical_float(device)
     c, d = num_channels, num_params
-    s = max(5, popsize * d)
+    s = _population_size(popsize, d, mesh, pop_axis)
     lower_np = np.broadcast_to(np.asarray(bounds_lower, float), (c, d)).copy()
     upper_np = np.broadcast_to(np.asarray(bounds_upper, float), (c, d)).copy()
     lower = torch.as_tensor(lower_np, dtype=dtype, device=device)
@@ -280,13 +315,20 @@ def differential_evolution_batched(energy_fn: Callable,
 
     batched = _batched_energy(energy_fn, population_energy, channel_data)
 
-    def energy(pop_norm: Tensor) -> Tensor:
-        return batched(denorm(pop_norm))
+    if mesh is None:
+        def energy(pop_norm: Tensor) -> Tensor:
+            return batched(denorm(pop_norm))
+    else:
+        group = mesh.get_group(pop_axis)
+        mine = block_of(s, mesh, pop_axis, "members")
+
+        def energy(pop_norm: Tensor) -> Tensor:
+            local = batched(denorm(pop_norm[:, mine]))
+            return torch.cat(pdist.all_gather(local, group), dim=1)
 
     generators = [torch.Generator(device).manual_seed(seed + ch)
                   for ch in range(c)]
-    resumed = DECheckpoint.try_load(checkpoint_path) \
-        if checkpoint_path is not None else None
+    resumed = _resume(checkpoint_path, mesh)
     frozen0 = torch.full((c,), maxiter, device=device)
     if resumed is not None:
         pop_r, energies_r, gen_states, nit_r, done_r = resumed
@@ -319,8 +361,11 @@ def differential_evolution_batched(energy_fn: Callable,
                                     recombination, tol, energy_limit)
             nit, all_done = _progress(state)
         if checkpoint_path is not None:
-            DECheckpoint.save(checkpoint_path, state.pop, state.energies,
-                              generators, nit, state.done)
+            if mesh is None or dist.get_rank() == 0:
+                DECheckpoint.save(checkpoint_path, state.pop, state.energies,
+                                  generators, nit, state.done)
+            if mesh is not None:  # no process reads it before it is whole
+                dist.barrier()
 
     best = torch.argmin(state.energies, dim=-1)
     ch = torch.arange(c, device=device)
@@ -555,12 +600,13 @@ def calibration(lower_PCA_limit: float, upper_PCA_limit: float,
     pixel_ratio) as numpy arrays; with ``return_base`` the solved
     (datapoints, C) curve follows, whose np.interp expansion the table
     is; with ``return_params`` the solved (C, num_params) parameters come
-    last.  ``mesh``/``pop_axis`` belong to the multi-GPU port.
+    last.
+
+    ``mesh``/``pop_axis`` shard every stage's population over the mesh
+    axis (:func:`differential_evolution_batched`).  The polish then runs
+    on every process, and the answer of the process of rank 0 goes to all:
+    float sums on two cards need not agree to the bit.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "calibration over a mesh is the multi-GPU port (ROADMAP "
-            "queue 1, item 4), which has not landed")
     cfg = config
     chs = cfg.num_of_chs
 
@@ -655,7 +701,7 @@ def calibration(lower_PCA_limit: float, upper_PCA_limit: float,
 
     solve = dict(population_energy=True, popsize=popsize, mutation=mutation,
                  recombination=recombination, energy_limit=energy_limit,
-                 device=device)
+                 mesh=mesh, pop_axis=pop_axis, device=device)
     result, _ = differential_evolution_batched(
         energy_fn, channel_data, chs, len(x0), lower_b, upper_b,
         x0=np.array(x0), maxiter=maxiter, tol=tol, seed=rng_seed,
@@ -694,6 +740,10 @@ def calibration(lower_PCA_limit: float, upper_PCA_limit: float,
             use_mean_icrf, penalty, lower_dn, upper_dn,
             cfg.datapoints, int(polish_steps), float(polish_lr), pca, mean,
             hists, exposures, ii, jj)
+        if mesh is not None:
+            agreed = torch.cat([best_x, polished_e[:, None]], dim=1)
+            dist.broadcast(agreed, src=0)
+            best_x, polished_e = agreed[:, :-1], agreed[:, -1]
         final_energies = polished_e.cpu().numpy().astype(float)
 
     curves = _curves(best_x[:, None], pca, mean, use_mean_icrf,

@@ -11,8 +11,9 @@ overlapping the next video's decode: the host stacks are pinned, each copy
 runs ``non_blocking`` on the device's transfer stream with an event per
 plane, a stack buffer is refilled only after its previous scene's events
 have completed, and the merge stream waits on every event before it reads
-the planes.  The multi-GPU flow (``mesh=``, the JAX package's
-``batch_video_to_hdr_distributed``) waits for ROADMAP queue 1 item 4.
+the planes.  In a multi-process run (parallel/distributed.py) each process
+decodes and merges only its own block of the scenes
+(:func:`batch_video_to_hdr_distributed`).
 """
 from __future__ import annotations
 
@@ -23,12 +24,16 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import native
 from ..config import CameraConfig, DEFAULT_CONFIG
 from ..measurand import Measurand
 from ..ops import hdr as hdr_ops
 from ..ops.linearize import icrf_derivative
+from ..parallel import distributed as pdist
+from ..parallel import sharded
+from ..parallel.mesh import block_of, mesh_device
 from ..utils import io
 from ..utils.device import canonical_float, resolve_device
 from ..utils.general import stage_to_device, transfer_stream
@@ -40,7 +45,8 @@ from .image_set import ImageSet
 Tensor = torch.Tensor
 
 __all__ = ["videos_to_stacks", "videos_to_exposure_series", "video_to_hdr",
-           "batch_video_to_hdr", "prewarm_batch_video_to_hdr"]
+           "batch_video_to_hdr", "batch_video_to_hdr_distributed",
+           "prewarm_batch_video_to_hdr"]
 
 
 def _exposure_of(path: Path) -> float:
@@ -357,6 +363,115 @@ def _validate_scene_batch(scenes: Dict[str, Sequence[Path]],
     return exp0
 
 
+def batch_video_to_hdr_distributed(scenes: Dict[str, Sequence[Path]],
+                                   ICRF, ICRF_diff=None,
+                                   config: CameraConfig = DEFAULT_CONFIG,
+                                   mesh=None,
+                                   calibrate: Optional[dict] = None,
+                                   decoder: str = "auto",
+                                   wire_std: Optional[str] = None,
+                                   wire_val: Optional[str] = None,
+                                   device=None) -> Dict[str, ImageSet]:
+    """Multi-process BASELINE config 5: the batch-of-scenes axis shards over
+    the mesh's ``data`` axis (by default ``distributed.scene_mesh``, one
+    process per card, on ``device``), image rows over ``pixel``.
+
+    Every process calls this with the SAME ``scenes`` dict (its insertion
+    order defines the scene axis); each process DECODES ONLY ITS OWN
+    contiguous block of scenes, stages it as the single-process path does
+    (:func:`_stage_scene_batch`: pinned buffers, uploads that overlap the
+    decode, ``wire_std`` / ``wire_val``), merges its rows of the block on
+    its own device (one launch of K1 on CUDA), and returns only its own
+    scenes.  No scene's pixels cross processes, because the merge is
+    pointwise over pixels.  The scene count must divide evenly over the
+    data axis.
+
+    ``calibrate`` runs the config-5 calibration leg: the process of rank 0,
+    which staged global scene 0, solves the curve from it
+    (:func:`_calibrate_from_batch`), and broadcasts the solved table and its
+    derivative to every process.  The JAX package has every process run
+    the same solve instead; float sums on two cards need not agree to the
+    bit, so here the processes do not have to.  ``decoder`` forwards to
+    :func:`models.video.welford_algorithm`.
+    """
+    wire_u16, wire_f16 = _wire_flags(wire_val, wire_std)
+    log = get_logger()
+    cfg = config
+    mesh = mesh if mesh is not None else pdist.scene_mesh(device)
+    dev = mesh_device(mesh)
+    ftype = canonical_float(dev)
+    icrf_t = _table(ICRF, dev, ftype)
+    icrf_diff_t = icrf_derivative(icrf_t, cfg.bits) if ICRF_diff is None \
+        else _table(ICRF_diff, dev, ftype)
+
+    names = list(scenes.keys())
+    block = pdist.local_scene_block(len(names), mesh)
+    local_names = names[block]
+    # probe geometry for THIS process's block only (other processes' video
+    # files need not be readable here), then cross-check between processes:
+    # a mismatch would otherwise desynchronize the collectives with no
+    # attribution
+    _validate_scene_batch(scenes, names, probe_names=local_names)
+    h, w = video_mod.probe_geometry(
+        sorted(scenes[local_names[0]], key=_exposure_of)[0])
+    batch = torch.tensor([len(names), len(scenes[names[0]]), h, w],
+                         device=dev)
+    batches = torch.stack(pdist.all_gather(batch))
+    if not (batches == batches[0]).all():
+        raise ValueError(
+            "batch_video_to_hdr: the scene batch (scenes, videos, height, "
+            "width) differs between processes: "
+            f"{[tuple(b) for b in batches.tolist()]} (process order); all "
+            "processes must pass the same scenes, of one frame geometry")
+
+    batch_val, batch_std, exposures, scene_paths = _stage_scene_batch(
+        scenes, local_names, cfg, dev, wire_u16, wire_f16, decoder)
+    log.info("batch_video_to_hdr_distributed: process %d/%d staged "
+             "scenes %s", pdist.process_index(), pdist.process_count(),
+             local_names)
+
+    icrf_t, icrf_diff_t = _maybe_calibrate_distributed(
+        calibrate, batch_val, exposures, cfg, icrf_t, icrf_diff_t, log)
+
+    with stage("merge_s"):
+        rows = block_of(h, mesh, "pixel", "rows")
+        out_val, out_std = sharded.merge_batch_sharded(
+            batch_val[:, :, rows].contiguous(),
+            batch_std[:, :, rows].contiguous(), exposures, icrf_t,
+            icrf_diff_t, mesh)
+        lv = pdist.fetch_local_scenes(out_val, mesh, block)
+        ls = pdist.fetch_local_scenes(out_std, mesh, block)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return _hdr_sets(local_names, scene_paths, lv, ls, cfg, dev)
+
+
+def _maybe_calibrate_distributed(calibrate: Optional[dict],
+                                 batch_val: Tensor, exposures: Tensor,
+                                 cfg: CameraConfig, icrf_t: Tensor,
+                                 icrf_diff_t: Tensor, log):
+    """The multi-process calibration leg: returns (icrf, icrf_diff), solved
+    when ``calibrate`` is given, otherwise the passed curve unchanged.
+
+    The process of rank 0 sits at the mesh's first position, so its staged
+    ``batch_val`` starts with global scene 0: it solves from that scene, as
+    the single-process leg does, and broadcasts the ``(bits, C)`` table and
+    its derivative.  Every other process waits for them.
+    """
+    if calibrate is None:
+        return icrf_t, icrf_diff_t
+    with stage("calibrate_s"):
+        tables = torch.empty((2, cfg.bits, cfg.num_of_chs),
+                             dtype=icrf_t.dtype, device=icrf_t.device)
+        if dist.get_rank() == 0:
+            tables = torch.stack(_calibrate_from_batch(
+                batch_val[:1], exposures, cfg, calibrate))
+        dist.broadcast(tables, src=0)
+    log.info("batch_video_to_hdr_distributed: merged with the "
+             "batch-solved ICRF")
+    return tables[0], tables[1]
+
+
 def _calibrate_from_batch(batch_val: Tensor, exposures: Tensor,
                           cfg: CameraConfig, spec: dict):
     """The config-5 calibration leg: solve the ICRF from the freshly
@@ -404,57 +519,22 @@ def _calibrate_from_subsample(sub: Tensor, exposures: Tensor,
     return icrf_t, icrf_derivative(icrf_t, cfg.bits)
 
 
-def batch_video_to_hdr(scenes: Dict[str, Sequence[Path]], ICRF,
-                       ICRF_diff=None,
-                       config: CameraConfig = DEFAULT_CONFIG,
-                       mesh=None, wire_std: Optional[str] = None,
-                       wire_val: Optional[str] = None,
-                       calibrate: Optional[dict] = None,
-                       decoder: str = "auto",
-                       device=None) -> Dict[str, ImageSet]:
-    """Batch of scenes: stack every scene's series and merge them together
-    on ``device`` (by default the card) — on CUDA one launch of the merge
-    kernel K1 for the whole (B, N, H, W, C) batch.
+def _stage_scene_batch(scenes: Dict[str, Sequence[Path]], names: list,
+                       cfg: CameraConfig, dev: torch.device, wire_u16: bool,
+                       wire_f16: bool, decoder: str):
+    """Decode the videos of the scenes ``names`` and stage them as one
+    (B, N, H, W, C) batch on ``dev``: returns ``(batch_val, batch_std,
+    exposures, scene_paths)``.
 
     Every video's (val, std) planes start their upload as soon as they
     finalize, overlapping the NEXT video's decode (see the module
-    docstring); only the last video's upload is exposed.  Stage busy times
-    accumulate in ``utils.observability.stage_times`` (decode_s / stats_s /
-    finalize_s / upload_s / assemble_s / calibrate_s / merge_s ...); on
-    CUDA, assemble_s and merge_s end in a synchronize, so each holds its
-    device work.
-
-    ``wire_std`` (``"f32"`` by default; env ``CL_WIRE_STD``) ``"f16"``
-    ships the std plane as float16 and upcasts it on the device (<= 2^-11
-    relative).  ``wire_val`` (``"f32"`` by default; env ``CL_WIRE_VAL``)
-    ``"u16"`` ships the mean as fixed-point u16 on the 1/65535 grid
-    (<= 2^-17 absolute), written directly by the fused native finalize,
-    and implies the f16 std.  ``"f32"`` means the device's canonical
-    float (float64 on the CPU).
-
-    ``calibrate`` (optional dict) runs the config-5 calibration leg: the
-    ICRF is SOLVED from the decoded stacks (see
-    :func:`_calibrate_from_batch`) and replaces ``ICRF`` for the merge.
-    ``decoder`` selects the host video decoder (see
-    :func:`models.video._resolve_decoder`).  ``mesh`` belongs to the
-    multi-GPU port and raises NotImplementedError.
+    docstring), from a pool of two host stack pairs (pinned for the card);
+    ``wire_u16`` / ``wire_f16`` ship the planes in the wire formats of
+    :func:`batch_video_to_hdr`, dequantized on the device.  On CUDA the
+    ``assemble_s`` stage ends in a synchronize.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "batch_video_to_hdr over a mesh is the multi-GPU port (ROADMAP "
-            "queue 1, item 4), which has not landed")
-    wire_u16, wire_f16 = _wire_flags(wire_val, wire_std)
-    log = get_logger()
-    cfg = config
-    dev = resolve_device(device)
     ftype = canonical_float(dev)
     cuda = dev.type == "cuda"
-    icrf_t = _table(ICRF, dev, ftype)
-    icrf_diff_t = icrf_derivative(icrf_t, cfg.bits) if ICRF_diff is None \
-        else _table(ICRF_diff, dev, ftype)
-
-    names = list(scenes.keys())
-    _validate_scene_batch(scenes, names)
     h, w = video_mod.probe_geometry(
         sorted(scenes[names[0]], key=_exposure_of)[0])
     shape = (len(scenes[names[0]]), h, w, cfg.num_of_chs)
@@ -506,6 +586,83 @@ def batch_video_to_hdr(scenes: Dict[str, Sequence[Path]], ICRF,
         for ups in uploads:
             _wait(up for up, _ in ups)
         _return_scene_stack_pool(pool_key, pool)
+    return batch_val, batch_std, exposures, scene_paths
+
+
+def _hdr_sets(names: list, scene_paths: list, out_val: Tensor,
+              out_std: Tensor, cfg: CameraConfig,
+              dev: torch.device) -> Dict[str, ImageSet]:
+    """The merged scenes as HDR ImageSets, each named after its first
+    video."""
+    results = {}
+    for i, name in enumerate(names):
+        hdr_set = ImageSet(file_path=scene_paths[i][0].with_suffix(".tif"),
+                           measurand=Measurand(out_val[i], out_std[i]),
+                           config=cfg, device=dev)
+        hdr_set.is_hdr = True
+        results[name] = hdr_set
+    return results
+
+
+def batch_video_to_hdr(scenes: Dict[str, Sequence[Path]], ICRF,
+                       ICRF_diff=None,
+                       config: CameraConfig = DEFAULT_CONFIG,
+                       mesh=None, wire_std: Optional[str] = None,
+                       wire_val: Optional[str] = None,
+                       calibrate: Optional[dict] = None,
+                       decoder: str = "auto",
+                       device=None) -> Dict[str, ImageSet]:
+    """Batch of scenes: stack every scene's series and merge them together
+    on ``device`` (by default the card) — on CUDA one launch of the merge
+    kernel K1 for the whole (B, N, H, W, C) batch.
+
+    Every video's (val, std) planes start their upload as soon as they
+    finalize, overlapping the NEXT video's decode (see the module
+    docstring); only the last video's upload is exposed.  Stage busy times
+    accumulate in ``utils.observability.stage_times`` (decode_s / stats_s /
+    finalize_s / upload_s / assemble_s / calibrate_s / merge_s ...); on
+    CUDA, assemble_s and merge_s end in a synchronize, so each holds its
+    device work.
+
+    ``wire_std`` (``"f32"`` by default; env ``CL_WIRE_STD``) ``"f16"``
+    ships the std plane as float16 and upcasts it on the device (<= 2^-11
+    relative).  ``wire_val`` (``"f32"`` by default; env ``CL_WIRE_VAL``)
+    ``"u16"`` ships the mean as fixed-point u16 on the 1/65535 grid
+    (<= 2^-17 absolute), written directly by the fused native finalize,
+    and implies the f16 std.  ``"f32"`` means the device's canonical
+    float (float64 on the CPU).
+
+    ``calibrate`` (optional dict) runs the config-5 calibration leg: the
+    ICRF is SOLVED from the decoded stacks (see
+    :func:`_calibrate_from_batch`) and replaces ``ICRF`` for the merge.
+    ``decoder`` selects the host video decoder (see
+    :func:`models.video._resolve_decoder`).
+
+    In a run of several processes the call goes to
+    :func:`batch_video_to_hdr_distributed` (on ``mesh``, by default
+    ``distributed.scene_mesh``), and returns only this process's scenes.
+    In a single process a ``mesh`` spans that one process, which holds
+    every scene and row: it is accepted, as in the JAX package, and the
+    merge is the batched one.
+    """
+    if pdist.process_count() > 1:
+        return batch_video_to_hdr_distributed(
+            scenes, ICRF, ICRF_diff, config, mesh, wire_std=wire_std,
+            wire_val=wire_val, calibrate=calibrate, decoder=decoder,
+            device=device)
+    wire_u16, wire_f16 = _wire_flags(wire_val, wire_std)
+    log = get_logger()
+    cfg = config
+    dev = resolve_device(device)
+    ftype = canonical_float(dev)
+    icrf_t = _table(ICRF, dev, ftype)
+    icrf_diff_t = icrf_derivative(icrf_t, cfg.bits) if ICRF_diff is None \
+        else _table(ICRF_diff, dev, ftype)
+
+    names = list(scenes.keys())
+    _validate_scene_batch(scenes, names)
+    batch_val, batch_std, exposures, scene_paths = _stage_scene_batch(
+        scenes, names, cfg, dev, wire_u16, wire_f16, decoder)
     log.info("batch_video_to_hdr: %d scenes staged", len(names))
 
     if calibrate is not None:
@@ -518,14 +675,6 @@ def batch_video_to_hdr(scenes: Dict[str, Sequence[Path]], ICRF,
         out_val, out_std = hdr_ops.merge_batch(batch_val, batch_std,
                                                exposures, icrf_t,
                                                icrf_diff_t)
-        if cuda:
+        if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-
-    results = {}
-    for i, name in enumerate(names):
-        hdr_set = ImageSet(file_path=scene_paths[i][0].with_suffix(".tif"),
-                           measurand=Measurand(out_val[i], out_std[i]),
-                           config=cfg, device=dev)
-        hdr_set.is_hdr = True
-        results[name] = hdr_set
-    return results
+    return _hdr_sets(names, scene_paths, out_val, out_std, cfg, dev)

@@ -1,9 +1,10 @@
 """ctypes bindings for the native host-staging library, the MJPEG decoder
 and the TIFF codec.
 
-Port of ``camera_linearity_tpu/native`` (the parts the video statistics
-use), copied: importing the JAX package would import JAX.  ``stager.cpp``
-(exact integer moments of uint8 frames and their fused finalize),
+Port of ``camera_linearity_tpu/native``, copied: importing the JAX package
+would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
+and their fused finalize, u8 -> f32 normalization, a running Welford
+update from uint8 frames),
 ``mjpeg.cpp`` (libjpeg decode of one JPEG into BGR) and ``tiff.cpp`` (TIFF
 LZW and predictors, the port's own) build with ``g++`` on first use, never
 at import, into ``build/native/<stem>-<hash>.so`` beside the package (the
@@ -24,7 +25,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["available", "accum_moments_u8", "HostMoments",
+__all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
+           "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
+           "HostWelford",
            "mmap_buffer", "WIRE_U16F16",
            "wire_quantize_u16f16", "narrow_f16", "mjpeg_available",
            "jpeg_decode_bgr", "tiff_available", "lzw_decode_chunks",
@@ -222,7 +225,15 @@ def _load() -> Optional[ctypes.CDLL]:
     f64p = ctypes.POINTER(ctypes.c_double)
     u64p = ctypes.POINTER(ctypes.c_uint64)
     sz, dbl, i = ctypes.c_size_t, ctypes.c_double, ctypes.c_int
+    i64 = ctypes.c_int64
     try:
+        lib.clt_u8_to_f32.argtypes = [u8p, f32p, sz, ctypes.c_float, i]
+        lib.clt_u8_hwc_to_cfirst_f32.argtypes = [u8p, f32p, sz, sz,
+                                                 ctypes.c_float, i]
+        lib.clt_welford_update_u8.argtypes = [u8p, f64p, f64p, sz, dbl, i64,
+                                              i]
+        lib.clt_welford_update_batch_u8.argtypes = [u8p, f64p, f64p, sz, sz,
+                                                    dbl, i64, i]
         lib.clt_accum_moments_u8.argtypes = [u8p, sz, sz, u64p, u64p, i]
         lib.clt_finalize_moments_u64.argtypes = [
             u64p, u64p, sz, dbl, dbl, f64p, f64p, i]
@@ -231,7 +242,10 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.clt_finalize_moments_u64_wire.argtypes = [
             u64p, u64p, sz, dbl, dbl, u16p, u16p, i]
         lib.clt_f64_to_f16.argtypes = [f64p, u16p, sz]
-        for fn in (lib.clt_accum_moments_u8, lib.clt_finalize_moments_u64,
+        for fn in (lib.clt_u8_to_f32, lib.clt_u8_hwc_to_cfirst_f32,
+                   lib.clt_welford_update_u8,
+                   lib.clt_welford_update_batch_u8,
+                   lib.clt_accum_moments_u8, lib.clt_finalize_moments_u64,
                    lib.clt_finalize_moments_u64_f32,
                    lib.clt_finalize_moments_u64_wire, lib.clt_f64_to_f16):
             fn.restype = None
@@ -483,6 +497,70 @@ def _as_u8_ptr(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
+def u8_to_f32(arr: np.ndarray, scale: float) -> np.ndarray:
+    """arr.astype(f32) * scale, threaded natively when available."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    lib = _load()
+    if lib is None:
+        return arr.astype(np.float32) * np.float32(scale)
+    out = np.empty(arr.shape, np.float32)
+    lib.clt_u8_to_f32(_as_u8_ptr(arr),
+                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                      arr.size, scale, _NTHREADS)
+    return out
+
+
+def u8_hwc_to_cfirst_f32(arr: np.ndarray, scale: float) -> np.ndarray:
+    """(..., C) interleaved uint8 -> (C, pixels) planar float32 with
+    normalization."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    channels = arr.shape[-1]
+    pixels = arr.size // channels
+    lib = _load()
+    if lib is None:
+        flat = arr.reshape(pixels, channels).astype(np.float32) * \
+            np.float32(scale)
+        return np.ascontiguousarray(flat.T)
+    out = np.empty((channels, pixels), np.float32)
+    lib.clt_u8_hwc_to_cfirst_f32(
+        _as_u8_ptr(arr), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        pixels, channels, scale, _NTHREADS)
+    return out
+
+
+def welford_update_batch_u8(frames: np.ndarray, mean: np.ndarray,
+                            m2: np.ndarray, scale: float,
+                            start_count: int) -> int:
+    """In-place Welford over a (B, ...) uint8 frame batch into float64
+    ``mean`` and ``m2``; returns the new frame count.  Operation order
+    matches video_processing.py:206-208."""
+    frames = np.ascontiguousarray(frames, dtype=np.uint8)
+    batch = frames.shape[0]
+    n = frames.size // batch
+    for name, acc in (("mean", mean), ("m2", m2)):
+        if acc.size != n or acc.dtype != np.float64 or \
+                not acc.flags.c_contiguous:
+            raise ValueError(f"{name} must be C-contiguous float64 of {n} "
+                             "elements, one frame's")
+    lib = _load()
+    if lib is None:
+        count = start_count
+        fm = mean.reshape(-1)
+        f2 = m2.reshape(-1)
+        for b in range(batch):
+            count += 1
+            x = frames[b].reshape(-1).astype(np.float64) * scale
+            delta = x - fm
+            fm += delta / count
+            f2 += delta * (x - fm)
+        return count
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.clt_welford_update_batch_u8(
+        _as_u8_ptr(frames), mean.ctypes.data_as(f64p),
+        m2.ctypes.data_as(f64p), batch, n, scale, start_count, _NTHREADS)
+    return start_count + batch
+
+
 def narrow_f16(values) -> np.ndarray:
     """float64 values narrowed to float16 by the native routine the wire
     finalize stores its std with (round to nearest, ties to even; the
@@ -675,3 +753,29 @@ class HostMoments:
             np.maximum(m2, 0.0, out=m2)
             std = np.sqrt(m2 / (n - 1.0)) / np.sqrt(n)
         return mean, std
+
+
+class HostWelford:
+    """Host-side streaming Welford accumulator over raw uint8 frames, in
+    float64: the reference's running update (video_processing.py:206-215),
+    threaded natively.  ``HostMoments`` is the exact alternative the video
+    statistics use."""
+
+    def __init__(self, shape, scale: float):
+        self.mean = np.zeros(shape, np.float64)
+        self.m2 = np.zeros(shape, np.float64)
+        self.count = 0
+        self.scale = float(scale)
+
+    def update(self, frames: np.ndarray) -> None:
+        if frames.ndim == len(self.mean.shape):
+            frames = frames[None]
+        self.count = welford_update_batch_u8(frames, self.mean, self.m2,
+                                             self.scale, self.count)
+
+    def finalize(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """(mean, std of the mean); the std is None below two frames."""
+        if self.count < 2:
+            return self.mean.copy(), None
+        std = np.sqrt(self.m2 / (self.count - 1)) / np.sqrt(self.count)
+        return self.mean.copy(), std

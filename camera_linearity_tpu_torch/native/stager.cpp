@@ -1,9 +1,10 @@
 // Native host-side staging primitives for camera_linearity_tpu_torch.
 //
 // The exact integer moments of raw uint8 video frames and their fused
-// finalization, copied from camera_linearity_tpu/native/stager.cpp (the
-// functions the video statistics use).  Everything here is threaded with a
-// simple pthread fork-join over element ranges.
+// finalization, u8 -> f32 normalization (interleaved or channel-first) and
+// the running f64 Welford update from raw uint8 frames, copied from
+// camera_linearity_tpu/native/stager.cpp.  Everything here is threaded with
+// a simple pthread fork-join over element ranges.
 //
 // One change from the copy: the f16 std of the wire finalize is narrowed
 // by a portable round-to-nearest-even routine (f64_to_f16_bits) instead of
@@ -83,6 +84,67 @@ inline std::uint16_t f64_to_f16_bits(double d) {
 }  // namespace
 
 extern "C" {
+
+// out[i] = in[i] * scale   (image normalization, image_set.py:223)
+void clt_u8_to_f32(const std::uint8_t* in, float* out, std::size_t n,
+                   float scale, int nthreads) {
+    parallel_for(n, nthreads, [&](std::size_t lo, std::size_t hi) {
+        for (std::size_t i = lo; i < hi; ++i)
+            out[i] = static_cast<float>(in[i]) * scale;
+    });
+}
+
+// (H*W, C) interleaved u8 -> (C, H*W) planar f32 with normalization.
+void clt_u8_hwc_to_cfirst_f32(const std::uint8_t* in, float* out,
+                              std::size_t pixels, std::size_t channels,
+                              float scale, int nthreads) {
+    parallel_for(pixels, nthreads, [&](std::size_t lo, std::size_t hi) {
+        for (std::size_t p = lo; p < hi; ++p) {
+            const std::uint8_t* row = in + p * channels;
+            for (std::size_t c = 0; c < channels; ++c)
+                out[c * pixels + p] = static_cast<float>(row[c]) * scale;
+        }
+    });
+}
+
+// Fused Welford update from a raw uint8 frame (count is the 1-based index
+// of this frame).  Operation order matches video_processing.py:206-208:
+//   x = in * scale; delta = x - mean; mean += delta / count;
+//   m2 += delta * (x - mean)
+void clt_welford_update_u8(const std::uint8_t* in, double* mean, double* m2,
+                           std::size_t n, double scale, std::int64_t count,
+                           int nthreads) {
+    const double inv_count = 1.0 / static_cast<double>(count);
+    parallel_for(n, nthreads, [&](std::size_t lo, std::size_t hi) {
+        for (std::size_t i = lo; i < hi; ++i) {
+            double x = static_cast<double>(in[i]) * scale;
+            double delta = x - mean[i];
+            mean[i] += delta * inv_count;
+            m2[i] += delta * (x - mean[i]);
+        }
+    });
+}
+
+// Batched variant: frames is (B, n) u8, applied sequentially (Welford is
+// order-dependent); threading is across pixels inside each frame.
+void clt_welford_update_batch_u8(const std::uint8_t* frames, double* mean,
+                                 double* m2, std::size_t batch,
+                                 std::size_t n, double scale,
+                                 std::int64_t start_count, int nthreads) {
+    parallel_for(n, nthreads, [&](std::size_t lo, std::size_t hi) {
+        for (std::size_t b = 0; b < batch; ++b) {
+            const std::uint8_t* in = frames + b * n;
+            const double inv_count =
+                1.0 / static_cast<double>(start_count + (std::int64_t)b + 1);
+            for (std::size_t i = lo; i < hi; ++i) {
+                double x = static_cast<double>(in[i]) * scale;
+                double delta = x - mean[i];
+                mean[i] += delta * inv_count;
+                m2[i] += delta * (x - mean[i]);
+            }
+        }
+    });
+}
 
 // Exact integer moment accumulation over a (B, n) uint8 frame batch:
 //   sum[i]   += sum_b frames[b][i]
@@ -228,6 +290,6 @@ void clt_f64_to_f16(const double* in, std::uint16_t* out, std::size_t n) {
     for (std::size_t i = 0; i < n; ++i) out[i] = f64_to_f16_bits(in[i]);
 }
 
-int clt_version() { return 6; }
+int clt_version() { return 7; }
 
 }  // extern "C"

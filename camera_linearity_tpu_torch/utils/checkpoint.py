@@ -1,21 +1,68 @@
 """Checkpoint / resume for long-running solves.
 
-Port of ``camera_linearity_tpu/utils/checkpoint.py``: the differential-
-evolution state (population, energies, the per-channel generators' states,
-generation counter and done flags) saves with ``torch.save`` in place of
-orbax, so a calibration can stop and continue where it left off.  The
-reference has no in-process persistence (SURVEY.md §5).
+Port of ``camera_linearity_tpu/utils/checkpoint.py``: trees of arrays, and
+the differential-evolution state (population, energies, the per-channel
+generators' states, generation counter and done flags) among them, save
+with ``torch.save`` in place of orbax, so a calibration can stop and
+continue where it left off.  The reference has no in-process persistence
+(SURVEY.md §5).
 """
 from __future__ import annotations
 
 import pickle
 import zipfile
 from pathlib import Path
-from typing import List
+from typing import Any, List
 
+import numpy as np
 import torch
 
-__all__ = ["DECheckpoint"]
+__all__ = ["save_pytree", "load_pytree", "DECheckpoint"]
+
+# a numpy array or scalar travels as {_NUMPY: tensor}: the weights-only
+# loader takes tensors, not numpy's own pickles
+_NUMPY = "__numpy__"
+
+
+def _encode(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return {_NUMPY: torch.from_numpy(np.array(tree))}
+    if isinstance(tree, dict):
+        return {k: _encode(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_encode(v) for v in tree)
+    return tree
+
+
+def _decode(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        if set(tree) == {_NUMPY}:
+            return tree[_NUMPY].numpy()
+        return {k: _decode(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_decode(v) for v in tree)
+    return tree
+
+
+def save_pytree(path: str | Path, tree: Any) -> None:
+    """Save nested dicts, lists and tuples of tensors, numpy arrays and
+    Python scalars to the file ``path`` (tensors on the CPU).  The file is
+    written beside ``path`` and renamed over it, so a reader never sees half
+    of one."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(_encode(tree), tmp)
+    tmp.replace(path)
+
+
+def load_pytree(path: str | Path) -> Any:
+    """The tree :func:`save_pytree` saved, its numpy arrays as numpy and its
+    tensors on the CPU; loads tensors and containers only
+    (``weights_only``)."""
+    return _decode(torch.load(path, map_location="cpu", weights_only=True))
 
 
 class DECheckpoint:
@@ -32,19 +79,15 @@ class DECheckpoint:
     @staticmethod
     def save(path: str | Path, pop, energies,
              generators: List[torch.Generator], nit: int, done) -> None:
-        path = Path(path)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save({"pop": pop.detach().cpu(),
-                    "energies": energies.detach().cpu(),
-                    "generator_states": [g.get_state() for g in generators],
-                    "nit": int(nit), "done": done.detach().cpu()}, tmp)
-        tmp.replace(path)
+        save_pytree(path, {
+            "pop": pop, "energies": energies,
+            "generator_states": [g.get_state() for g in generators],
+            "nit": int(nit), "done": done})
 
     @staticmethod
     def load(path: str | Path):
         """(pop, energies, generator_states, nit, done), on the CPU."""
-        state = torch.load(path, map_location="cpu", weights_only=True)
+        state = load_pytree(path)
         return tuple(state[k] for k in DECheckpoint.FIELDS)
 
     @staticmethod

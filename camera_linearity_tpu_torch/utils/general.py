@@ -1,7 +1,6 @@
 """Shared numeric utilities (reference: modules/general_functions.py).
 
-Port of the helpers of ``camera_linearity_tpu/utils/general.py`` that the
-linearity analysis, the calibration and the video pipeline use.
+Port of ``camera_linearity_tpu/utils/general.py``.
 """
 from __future__ import annotations
 
@@ -16,7 +15,8 @@ from ..ops.linearize import _interp
 
 Tensor = torch.Tensor
 
-__all__ = ["choose_evenly_spaced_points", "predict_output_shape",
+__all__ = ["is_broadcastable", "choose_evenly_spaced_points",
+           "predict_output_shape",
            "map_linearity_limits", "interpolate_data", "set_thread_priority",
            "stage_to_device", "transfer_stream"]
 
@@ -86,6 +86,17 @@ def stage_to_device(arr: np.ndarray, device, out: Optional[Tensor] = None
         event = torch.cuda.Event()
         event.record(stream)
     return out, event
+
+
+def is_broadcastable(shape1: Tuple[int, ...], shape2: Tuple[int, ...]) -> bool:
+    """NumPy broadcast-compatibility test (general_functions.py:14-24)."""
+    if not shape1 or not shape2:
+        raise ValueError("Shapes cannot be empty")
+    for a, b in zip(shape1[::-1], shape2[::-1]):
+        if a == 1 or b == 1 or a == b:
+            continue
+        return False
+    return True
 
 
 def choose_evenly_spaced_points(array, step_x: int,

@@ -71,6 +71,19 @@ against the plain version and timed with it, in turns, at config 2 (8 and
 12 bits), at 12 exposures and at config 5's B = 8, beside a ``copy_`` of
 the same bytes.
 
+Phase 20, the multi-process layer (``parallel/``), in phase 12's
+directory: (a) an NCCL world of one in this process runs
+``batch_video_to_hdr_distributed`` on config 5's 8 scenes with the
+calibration leg (held to phase 14's f32/f32 run, and timed beside phase
+14's call made again in the same world), ``merge_batch_sharded``
+of config 3's stack with base curves (K2, held to its plain version), the
+sharded statistics on config 2's planes (held to ``ops/stats.py``) and the population-sharded
+config-4 solve (held to phase 10's); (b) two processes share the one card
+over gloo (this script run again with ``--phase20-worker RANK PORT DIR``),
+each decoding and merging 4 scenes with one K1 launch, held to (a), with
+the statistics' rows and the solve's population split between them.  The
+card has no peer, so no multi-GPU speed is measured.
+
 It prints the card's name and power limit early, one JSON line with the
 kernels' results before the last line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: a nonzero exit and
@@ -120,6 +133,8 @@ EXPOSURES5_MS = (5, 10, 20)
 # reach dark_threshold (35 ms) and get dark frames
 FILE_EXPOSURES_MS = (5, 10, 20, 40, 80, 160)
 CROP_ROWS = 64   # rows held against the CPU in float64 and the oracle
+# phase 20 (b): a worker process that has not finished by then fails it
+PHASE20_WORKER_TIMEOUT_S = 300
 SOURCES = {
     "merge_nhwc_fused": "camera_linearity_tpu_torch/csrc/hdr_merge.cu",
     "merge_nhwc_lerp": "camera_linearity_tpu_torch/csrc/hdr_merge_lerp.cu",
@@ -344,8 +359,8 @@ def compare(label: str, got, want, tol, failures: list) -> float:
     w = want.detach().double().cpu()
     same_inf = torch.equal(torch.isinf(g), torch.isinf(w))
     fin = torch.isfinite(w)
-    gap = ((g[fin] - w[fin]).abs() / w[fin].abs().clamp_min(1e-300)).max()
-    gap = gap.item() if fin.any() else 0.0
+    gap = ((g[fin] - w[fin]).abs() / w[fin].abs().clamp_min(1e-300)
+           ).max().item() if fin.any() else 0.0
     ok = same_inf and torch.allclose(g[fin], w[fin], **tol)
     log(f"  {'ok ' if ok else 'BAD'} {label}: max rel gap {gap:.3e}"
         f"{'' if same_inf else ' (inf pattern differs)'}")
@@ -360,8 +375,9 @@ def raise_failures(phase: str, failures: list) -> None:
                              "tolerance")
 
 
-def linearity_phases(dev, t_np, vals_np, stds_np) -> None:
-    """Phases 8-11: the linearity analysis and the calibration."""
+def linearity_phases(dev, t_np, vals_np, stds_np) -> dict:
+    """Phases 8-11: the linearity analysis and the calibration.  Returns
+    phase 10's warm config-4 solve (ICRF, final energies)."""
     from camera_linearity_tpu_torch import CameraConfig
     from camera_linearity_tpu_torch.models import calibration as cal
     from camera_linearity_tpu_torch.models.exposure_series import \
@@ -645,6 +661,7 @@ def linearity_phases(dev, t_np, vals_np, stds_np) -> None:
                                             True, 16384),
         (pca_t, mean_t, stacks_w[0], stacks_w[2], g_ii, g_jj, stacks_w[1]))
     del stacks_u, stacks_w, hists
+    return {"config4": (icrf4, e_final)}
 
 
 def write_rgba_avi(path, frames_rgba, height: int, width: int) -> None:
@@ -973,6 +990,11 @@ def video_phases(dev, res, directory) -> dict:
             raise_failures(f"phase 14, {label}", failures)
             if wire_val == "u16":
                 k1_times = time_k1_batch(dev, bv, bs, ex, ic, icd)
+            else:  # phase 20 holds the distributed path to this run
+                f32_run = dict(out={k: (v.measurand.val, v.measurand.std)
+                                    for k, v in out.items()},
+                               wall=wall, mps=mps,
+                               stages=obs.snapshot_stage_times())
             del out, bv, bs, ex, ic, icd
             rec.clear()
             torch.cuda.empty_cache()
@@ -1029,6 +1051,7 @@ def video_phases(dev, res, directory) -> dict:
         cal.calibration = solve
     torch.cuda.empty_cache()
     return dict(paths=paths, launches=launches, welford_ms=welford,
+                icrf=icrf, spec=spec, f32_run=f32_run,
                 welford_bound_ms=wf_bound, k1=k1_times,
                 k3=dict(ms=k3_ms, bytes=k3_bytes, bound_ms=k3_bound,
                         copy_ms=k3_copy, video_to_hdr_ms=t_v2h * 1e3))
@@ -2239,6 +2262,362 @@ def k1_variant_phase(dev, val, std, ex, tables) -> dict:
     return results
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def distributed_phase(dev, res, directory, config5, vals_np, stds_np, t_np,
+                      tables, config4) -> dict:
+    """Phase 20: the multi-process layer (``parallel/``) on the card.
+
+    (a) An NCCL world of one, in this process: ``batch_video_to_hdr_
+    distributed`` on config 5's 8 scenes with the calibration leg, held to
+    phase 14's f32/f32 run, then phase 14's call timed again in the same
+    world; ``merge_batch_sharded`` of config 3's stack
+    with base curves (K2), held to its plain version; the sharded
+    statistics on config 2's planes, held to ``ops/stats.py``; the
+    population-sharded config-4 solve, held to phase 10's.  (b) Two
+    processes sharing the one card over gloo (this script run again with
+    ``--phase20-worker``), each decoding and merging 4 scenes, held to (a).
+    Returns each path's kernel launches."""
+    from camera_linearity_tpu_torch import CameraConfig
+    from camera_linearity_tpu_torch.models import calibration as cal
+    from camera_linearity_tpu_torch.models import pipeline
+    from camera_linearity_tpu_torch.ops import hdr_cuda, stats
+    from camera_linearity_tpu_torch.ops.uncertainty import scale_difference
+    from camera_linearity_tpu_torch.parallel import distributed as pdist
+    from camera_linearity_tpu_torch.parallel import mesh as pmesh
+    from camera_linearity_tpu_torch.parallel import sharded
+    from camera_linearity_tpu_torch.utils import observability as obs
+    from camera_linearity_tpu_torch.utils.checkpoint import (load_pytree,
+                                                             save_pytree)
+    from camera_linearity_tpu_torch.utils.state import (
+        channel_stacks_from_numpy, pca_from_numpy)
+
+    t_phase = time.perf_counter()
+    paths, spec, icrf = config5["paths"], config5["spec"], config5["icrf"]
+    f32 = config5["f32_run"]
+    scene_map = {f"scene{i}": paths for i in range(SCENES5)}
+    n_frames = FRAMES5 * len(paths) * SCENES5
+    failures = []
+
+    # --- (a) an NCCL world of one -----------------------------------------
+    log("phase 20 (a): an NCCL world of one: batch_video_to_hdr_distributed "
+        f"on {SCENES5} scenes with the calibration leg, merge_batch_sharded "
+        "with base curves, the sharded statistics, the population-sharded "
+        "config-4 solve")
+    pdist.initialize(f"localhost:{free_port()}", 1, 0, timeout_s=120)
+    try:
+        mesh = pdist.scene_mesh()
+        if list(mesh.shape) != [1, 1] or \
+                torch.distributed.get_backend() != "nccl" or \
+                pmesh.mesh_device(mesh).type != "cuda":
+            raise AssertionError(f"phase 20 (a): mesh {mesh}, backend "
+                                 f"{torch.distributed.get_backend()}")
+        for k in hdr_cuda.KERNELS:
+            k.launches = 0
+        obs.reset_stage_times()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline.batch_video_to_hdr_distributed(scene_map, icrf,
+                                                      calibrate=spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+        stages = obs.snapshot_stage_times()
+        # phase 14's single-process call, in the same world and after the
+        # distributed one: both run beside the process group's threads
+        obs.reset_stage_times()
+        t0 = time.perf_counter()
+        plain_out = pipeline.batch_video_to_hdr(scene_map, icrf,
+                                                calibrate=spec)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        stages_plain = obs.snapshot_stage_times()
+        for name, got in plain_out.items():
+            want_v, want_s = f32["out"][name]
+            if not (torch.allclose(got.measurand.val, want_v, **VAL_TOL) and
+                    torch.allclose(got.measurand.std, want_s, **STD_TOL)):
+                failures.append(f"{name}: batch_video_to_hdr in the world "
+                                "against phase 14")
+        del plain_out
+        # config 3's stack as a batch of one with 256-point base curves
+        icrf12, diff12, base, diff_base = tables
+        bv, bs = (torch.as_tensor(a[None], device=dev)
+                  for a in (vals_np, stds_np))
+        ex = torch.as_tensor(t_np, device=dev)
+        for k in hdr_cuda.KERNELS:
+            k.launches = 0
+        got = sharded.merge_batch_sharded(
+            bv, bs, ex, icrf12, diff12, mesh, icrf_base=base,
+            icrf_diff_base=diff_base)
+        torch.cuda.synchronize()
+        base_counts = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+        res.check("merge_nhwc_lerp", "merge_batch_sharded, config 3 tables "
+                  "with base curves, vs merge_lerp_plain",
+                  (got[0][0], got[1][0]),
+                  hdr_cuda.merge_lerp_plain(bv[0], bs[0], ex, base,
+                                            diff_base, 4096))
+        del bv, bs, got
+        mps = n_frames * H5 * W5 / 1e6 / wall
+        log(f"  wall {wall:.3f} s, {mps:.2f} MP/s; phase 14 f32/f32: "
+            f"{f32['wall']:.3f} s, {f32['mps']:.2f} MP/s (host clock, one "
+            "call each)")
+        log(f"  stages: {stages}")
+        log(f"  phase 14 stages: {f32['stages']}")
+        log(f"  batch_video_to_hdr (phase 14's path) in the same world, "
+            f"after it: wall {wall_plain:.3f} s, "
+            f"{n_frames * H5 * W5 / 1e6 / wall_plain:.2f} MP/s (host "
+            f"clock); stages {stages_plain}")
+        log(f"  launches: batch_video_to_hdr_distributed {counts}, "
+            f"merge_batch_sharded with base curves {base_counts}")
+        if counts != {"merge_nhwc_fused": 1, "merge_nhwc_lerp": 0,
+                      "merge_nhwc_lerp_bp": 0}:
+            failures.append(f"launches {counts}")
+        if base_counts != {"merge_nhwc_fused": 0, "merge_nhwc_lerp": 1,
+                           "merge_nhwc_lerp_bp": 0}:
+            failures.append(f"launches with base curves {base_counts}")
+        if list(out) != list(scene_map):
+            failures.append(f"scenes {list(out)}")
+        gaps = [0.0, 0.0]
+        for name, got in out.items():
+            want_v, want_s = f32["out"][name]
+            for i, (g, w, tol) in enumerate((
+                    (got.measurand.val, want_v, VAL_TOL),
+                    (got.measurand.std, want_s, STD_TOL))):
+                if tuple(g.shape) != (H5, W5, 3) or not g.is_cuda or \
+                        not torch.isfinite(g).all():
+                    failures.append(f"{name}: shape, device or values")
+                    continue
+                gaps[i] = max(gaps[i], (g - w).abs().max().item())
+                if not torch.allclose(g, w, **tol):
+                    failures.append(f"{name} against phase 14")
+        log(f"  {'ok ' if not failures else 'BAD'} {SCENES5} scenes against "
+            f"phase 14's f32/f32 run: largest gap {gaps[0]:.3e} (value), "
+            f"{gaps[1]:.3e} (std)")
+        a_out = {k: (v.measurand.val, v.measurand.std) for k, v in
+                 out.items()}
+        del out
+
+        # the statistics of config 2's first exposure, and the pair (0, 1)
+        ratio = float(t_np[0] / t_np[1])
+        planes = [torch.as_tensor(a, device=dev) for a in (
+            vals_np[0], stds_np[0], vals_np[1], stds_np[1])]
+        got = sharded.dimension_statistics_sharded(planes[0], planes[1],
+                                                   mesh)
+        want = stats.dimension_statistics(planes[0], planes[1], axis=(0, 1))
+        for k in ("mean", "std", "error"):
+            compare(f"dimension_statistics_sharded {k}", got[k], want[k],
+                    dict(rtol=1e-5, atol=0.0), failures)
+        pair = sharded.pair_stats_sharded(planes[0], planes[2], planes[1],
+                                          planes[3], ratio, mesh)
+        (av, astd), (rv, rstd) = scale_difference(
+            planes[0], planes[1], planes[2], planes[3], ratio)
+        for label, g, (v, s_) in (("absolute", pair[0], (av, astd)),
+                                  ("relative", pair[1], (rv, rstd))):
+            # the sharded statistics (as JAX's) leave out every element
+            # whose value or std is not finite (a relative difference over
+            # a zero DN), where dimension_statistics keeps an infinite std
+            # in ``error``; NaN, the reference's mask, leaves them out there
+            keep = torch.isfinite(v) & torch.isfinite(s_)
+            v, s_ = (torch.where(keep, x, torch.nan) for x in (v, s_))
+            w = stats.dimension_statistics(v, s_, axis=(0, 1))
+            for k in ("mean", "std", "error"):
+                compare(f"pair_stats_sharded {label} {k}", g[k], w[k],
+                        dict(rtol=1e-5, atol=0.0), failures)
+        a_stats = {k: v.cpu() for k, v in got.items()}
+
+        # the config-4 solve with its population over the mesh
+        stacks, exposures, mean4, pca4 = config4_problem()
+        pca_t, mean_t = pca_from_numpy(np.stack([pca4] * 3),
+                                       np.stack([mean4] * 3), device=dev)
+        t0 = time.perf_counter()
+        icrf4, _, e4, _ = cal.calibration(
+            -1.0, 1.0, channel_stacks=channel_stacks_from_numpy(
+                stacks, None, exposures, device=dev),
+            pca_arrays=pca_t, mean_icrf_arrays=mean_t,
+            config=CameraConfig(num_of_chs=3, datapoints=256), popsize=15,
+            maxiter=1000, tol=0.01, rng_seed=7, mesh=pmesh.make_mesh(),
+            pop_axis="data")
+        log(f"  sharded config-4 solve (S = 75 on 1 process): "
+            f"{time.perf_counter() - t0:.4f} s host clock; final energies "
+            f"{e4.tolist()}")
+        compare("sharded config-4 final energies vs phase 10",
+                torch.as_tensor(e4), torch.as_tensor(config4[1]),
+                dict(rtol=1e-5, atol=0.0), failures)
+        compare("sharded config-4 ICRF vs phase 10", torch.as_tensor(icrf4),
+                torch.as_tensor(config4[0]), dict(rtol=0.0, atol=1e-5),
+                failures)
+    finally:
+        pdist.shutdown()
+    raise_failures("phase 20 (a)", failures)
+
+    # --- (b) two processes sharing the one card over gloo -----------------
+    log("phase 20 (b): two processes on the one card over gloo, 4 scenes "
+        "each (a check of the multi-process path, not a multi-GPU speed)")
+    torch.cuda.empty_cache()  # the workers share the card
+    save_pytree(directory / "phase20_inputs.pt", {
+        "paths": [str(p) for p in paths], "icrf": icrf, "spec": spec,
+        "planes": [vals_np[0], stds_np[0]]})
+    port = str(free_port())
+    logs = [open(directory / f"phase20_{r}.log", "w+") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--phase20-worker", str(r), port,
+                               str(directory)], stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=PHASE20_WORKER_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.seek(0)
+        texts = [f.read() for f in logs]
+        for f in logs:
+            f.close()
+    wall_b = time.perf_counter() - t0
+    for r, text in enumerate(texts):
+        for line in text.strip().splitlines()[-6:]:
+            log(f"  [process {r}] {line}")
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"phase 20 (b): worker exit codes "
+                             f"{[p.returncode for p in procs]}")
+    results = [load_pytree(directory / f"phase20_{r}.pt") for r in range(2)]
+    log(f"  both processes: {wall_b:.3f} s wall from launch to exit "
+        "(host clock; two processes sharing one card, NOT a multi-GPU "
+        "speed)")
+    names = list(scene_map)
+    gaps = [0.0, 0.0]
+    b_launches = {k.__name__: 0 for k in hdr_cuda.KERNELS}
+    for r, res_b in enumerate(results):
+        log(f"  process {r}: scenes {res_b['names']}, batch_video_to_hdr "
+            f"{res_b['wall']:.3f} s ({res_b['mps']:.2f} MP/s of its own "
+            f"frames), launches {res_b['launches']}, stages "
+            f"{res_b['stages']}")
+        if res_b["names"] != names[4 * r:4 * r + 4]:
+            failures.append(f"process {r} scenes {res_b['names']}")
+        if res_b["launches"] != {"merge_nhwc_fused": 1,
+                                 "merge_nhwc_lerp": 0,
+                                 "merge_nhwc_lerp_bp": 0}:
+            failures.append(f"process {r} launches {res_b['launches']}")
+        for k, n in res_b["launches"].items():
+            b_launches[k] += n
+        for i, name in enumerate(res_b["names"]):
+            for j, (g, tol) in enumerate(((res_b["val"][i], VAL_TOL),
+                                          (res_b["std"][i], STD_TOL))):
+                w = a_out[name][j].cpu()
+                gaps[j] = max(gaps[j], (g - w).abs().max().item())
+                if not torch.allclose(g, w, **tol):
+                    failures.append(f"process {r} {name} against (a)")
+        for k in ("mean", "std", "error"):
+            compare(f"process {r} statistics {k} (rows over 2) vs (a)",
+                    res_b["stats"][k], a_stats[k],
+                    dict(rtol=1e-5, atol=0.0), failures)
+    log(f"  {SCENES5} scenes against (a): largest gap {gaps[0]:.3e} "
+        f"(value), {gaps[1]:.3e} (std)")
+    first, second = results
+    for key in ("stats", "solve"):
+        same = all(torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+                   for x, y in zip(
+                       (first[key][k] for k in sorted(first[key])),
+                       (second[key][k] for k in sorted(second[key]))))
+        log(f"  {'ok ' if same else 'BAD'} the processes' {key} agree bit "
+            "for bit")
+        if not same:
+            failures.append(f"{key} differ between the processes")
+    e0, e1 = (np.asarray(first["solve"][k]) for k in ("e0", "e1"))
+    log(f"  sharded config-4 solve over 2 processes (S = 76): energies "
+        f"{e0.tolist()} -> {e1.tolist()}")
+    if not (np.isfinite(np.asarray(first["solve"]["icrf"])).all()
+            and np.all(e1 <= e0)):
+        failures.append("the 2-process solve")
+    raise_failures("phase 20 (b)", failures)
+    log(f"  phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return {"batch_video_to_hdr_distributed (phase 20 a)": counts,
+            "merge_batch_sharded with base curves (phase 20 a)": base_counts,
+            "distributed, 2 processes on one card (phase 20 b)": b_launches}
+
+
+def phase20_worker(rank: int, port: str, directory: str) -> int:
+    """One process of phase 20 (b): joins a gloo world of two on cuda:0,
+    runs ``batch_video_to_hdr`` (which takes the distributed path) on its 4
+    of the 8 scenes with the calibration leg, the sharded statistics with
+    the rows of config 2's first exposure split over the two processes, and
+    the config-4 solve with its population split over them; saves what it
+    got for the parent."""
+    from camera_linearity_tpu_torch import CameraConfig
+    from camera_linearity_tpu_torch.models import calibration as cal
+    from camera_linearity_tpu_torch.models import pipeline
+    from camera_linearity_tpu_torch.ops import hdr_cuda
+    from camera_linearity_tpu_torch.parallel import distributed as pdist
+    from camera_linearity_tpu_torch.parallel import mesh as pmesh
+    from camera_linearity_tpu_torch.parallel import sharded
+    from camera_linearity_tpu_torch.utils import observability as obs
+    from camera_linearity_tpu_torch.utils.checkpoint import (load_pytree,
+                                                             save_pytree)
+    from camera_linearity_tpu_torch.utils.state import (
+        channel_stacks_from_numpy, pca_from_numpy)
+
+    directory = Path(directory)
+    x = load_pytree(directory / "phase20_inputs.pt")
+    pdist.initialize(f"localhost:{port}", 2, rank, backend="gloo",
+                     timeout_s=PHASE20_WORKER_TIMEOUT_S)
+    try:
+        if pdist.process_count() != 2 or torch.cuda.current_device() != 0:
+            raise AssertionError("not a world of two on cuda:0")
+        paths = [Path(p) for p in x["paths"]]
+        scene_map = {f"scene{i}": paths for i in range(SCENES5)}
+        for k in hdr_cuda.KERNELS:
+            k.launches = 0
+        obs.reset_stage_times()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline.batch_video_to_hdr(scene_map, x["icrf"],
+                                          calibrate=x["spec"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+        stages = obs.snapshot_stage_times()
+        frames = FRAMES5 * len(paths) * len(out)
+        log(f"batch_video_to_hdr: {list(out)} in {wall:.3f} s, launches "
+            f"{launches}")
+
+        rows = pmesh.data_pixel_mesh()
+        band = pmesh.block_of(H, rows, "pixel", "rows")
+        val, std = (torch.as_tensor(a[band], device="cuda")
+                    for a in x["planes"])
+        stats = sharded.dimension_statistics_sharded(val, std, rows)
+
+        stacks, exposures, mean4, pca4 = config4_problem()
+        pca_t, mean_t = pca_from_numpy(np.stack([pca4] * 3),
+                                       np.stack([mean4] * 3), device="cuda")
+        icrf4, e0, e1, _ = cal.calibration(
+            -1.0, 1.0, channel_stacks=channel_stacks_from_numpy(
+                stacks, None, exposures, device="cuda"),
+            pca_arrays=pca_t, mean_icrf_arrays=mean_t,
+            config=CameraConfig(num_of_chs=3, datapoints=256), popsize=15,
+            maxiter=1000, tol=0.01, rng_seed=7, mesh=pmesh.make_mesh(),
+            pop_axis="data")
+        log(f"config-4 solve: {e0.tolist()} -> {e1.tolist()}")
+        save_pytree(directory / f"phase20_{rank}.pt", {
+            "names": list(out), "wall": wall,
+            "mps": frames * H5 * W5 / 1e6 / wall, "stages": stages,
+            "launches": launches,
+            "val": torch.stack([o.measurand.val for o in out.values()]),
+            "std": torch.stack([o.measurand.std for o in out.values()]),
+            "stats": {k: v for k, v in stats.items()},
+            "solve": {"icrf": icrf4, "e0": e0, "e1": e1}})
+    finally:
+        pdist.shutdown()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2501,15 +2880,20 @@ def main() -> int:
     del val, std
     torch.cuda.empty_cache()
 
-    linearity_phases(dev, t_np, vals_np, stds_np)
+    calibration = linearity_phases(dev, t_np, vals_np, stds_np)
     with tempfile.TemporaryDirectory(prefix="clt_config5_") as tmp:
         config5 = video_phases(dev, res, Path(tmp))
         files = file_phases(dev, res, config5["paths"])
+        distributed = distributed_phase(
+            dev, res, Path(tmp), config5, vals_np, stds_np, t_np,
+            (icrf12, diff12, base, diff_base), calibration["config4"])
+        del config5["f32_run"]
 
-    # every main path's launches: phase 6's, config 5's and the command
-    # line's, each counted from zero around its own run
+    # every main path's launches: phase 6's, config 5's, the command
+    # line's and the multi-process layer's, each counted from zero around
+    # its own run
     paths = {"merge_hdr + process_HDR_image (phase 6)": launches,
-             **config5["launches"], **files["launches"]}
+             **config5["launches"], **files["launches"], **distributed}
     # no single PyTorch call computes the merge: no library yardstick
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
@@ -2537,4 +2921,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase20-worker"]:
+        sys.exit(phase20_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

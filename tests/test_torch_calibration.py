@@ -36,6 +36,8 @@ from camera_linearity_tpu_torch.utils.checkpoint import \
     DECheckpoint  # noqa: E402
 from camera_linearity_tpu_torch.utils.state import (  # noqa: E402
     channel_stacks_from_numpy, pca_from_numpy)
+from camera_linearity_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from tests._torch_parallel_worker import world_of_one  # noqa: E402
 from tests.unit.test_dorf import _write_dorf  # noqa: E402
 from tests.unit.test_scipy_parity import _np_energy  # noqa: E402
 
@@ -379,7 +381,7 @@ def test_calibration_recovers_gamma_curve():
         rtol=1e-6)
 
 
-def test_calibration_energy_forms_agree():
+def test_calibration_energy_forms_agree(tmp_path):
     stacks, exposures, mean_icrf, pca = _problem()
     kw = _kw(stacks, exposures, mean_icrf, pca, popsize=8, maxiter=15,
              tol=1e-9, rng_seed=5, refine_rounds=0, polish_steps=0)
@@ -402,8 +404,12 @@ def test_calibration_energy_forms_agree():
     _, _, e1o, _ = tcal.calibration(-1.0, 1.0, **std_kw,
                                     energy_form="onehot")
     np.testing.assert_allclose(float(e1c[0]), float(e1o[0]), rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tcal.calibration(-1.0, 1.0, **kw, mesh=object())
+    # a mesh of one process shards nothing: the same solve
+    with world_of_one(tmp_path):
+        meshed = tcal.calibration(-1.0, 1.0, **kw, energy_form="onehot",
+                                  mesh=pmesh.make_mesh(device="cpu"))
+    for got, want in zip(meshed, res["onehot"]):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_calibration_without_mean_icrf():

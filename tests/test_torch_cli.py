@@ -348,10 +348,38 @@ def test_doctor_prints_its_lines(tmp_path, capsys):
                                   ["--num-processes", "2"],
                                   ["--process-id", "0"], "CL_NUM_PROCESSES"])
 def test_multi_process_options_raise(tmp_path, monkeypatch, flag):
+    """One setting alone is not a multi-process run: the others are named,
+    before any command runs."""
     args = CPU + ["dorf", "--data", str(tmp_path)]
     if isinstance(flag, str):
         monkeypatch.setenv(flag, "2")
     else:
         args = flag + args
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(ValueError, match="a multi-process run needs all "
+                                         "three"):
         tmain(args)
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("by", ["flags", "env"])
+def test_multi_process_options_join_a_world_of_one(tmp_path, monkeypatch,
+                                                   capsys, by):
+    """The flags (or CL_*) join a process group for the command and leave
+    it when the command ends."""
+    wiring = ["--coordinator", f"file://{tmp_path / 'rendezvous'}",
+              "--num-processes", "1", "--process-id", "0"]
+    if by == "env":
+        for name, value in zip(("CL_COORDINATOR_ADDRESS",
+                                "CL_NUM_PROCESSES", "CL_PROCESS_ID"),
+                               wiring[1::2]):
+            monkeypatch.setenv(name, value)
+        wiring = []
+    seen = {}
+    monkeypatch.setattr(
+        "camera_linearity_tpu_torch.__main__.cmd_dorf",
+        lambda args: seen.update(size=torch.distributed.get_world_size(),
+                                 backend=torch.distributed.get_backend())
+        or 0)
+    assert tmain(wiring + CPU + ["dorf"]) == 0
+    assert seen == {"size": 1, "backend": "gloo"}
+    assert not torch.distributed.is_initialized()

@@ -802,6 +802,9 @@ _PORT_MODULES = [
     "camera_linearity_tpu_torch.ops.lut_merge_cuda",
     "camera_linearity_tpu_torch.experiments.exp_manual_pipeline",
     "camera_linearity_tpu_torch.experiments.exp_int8_planes",
+    "camera_linearity_tpu_torch.parallel.mesh",
+    "camera_linearity_tpu_torch.parallel.sharded",
+    "camera_linearity_tpu_torch.parallel.distributed",
 ]
 
 

@@ -28,6 +28,8 @@ from camera_linearity_tpu_torch.models import calibration as tcal  # noqa
 from camera_linearity_tpu_torch.models import pipeline as tpipe  # noqa
 from camera_linearity_tpu_torch.ops import hdr_cuda  # noqa: E402
 from camera_linearity_tpu_torch.utils import observability as obs  # noqa
+from camera_linearity_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from tests._torch_parallel_worker import world_of_one  # noqa: E402
 from tests.test_torch_native import write_rgba_avi  # noqa: E402
 
 VAL_TOL = dict(rtol=1e-10, atol=1e-14)
@@ -189,8 +191,27 @@ def test_rejects_empty_scenes_and_bad_arguments(scenes):
         tpipe.batch_video_to_hdr(scenes, ICRF, wire_std="f8", device="cpu")
     with pytest.raises(ValueError, match="wire_val"):
         tpipe.batch_video_to_hdr(scenes, ICRF, wire_val="u8", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        tpipe.batch_video_to_hdr(scenes, ICRF, mesh=object(), device="cpu")
+
+
+def test_mesh_merge_equals_the_batched_merge(scenes, tmp_path):
+    """On one process a mesh holds every scene and row: a ``mesh=`` call
+    is accepted, as in the JAX package, and gives the batched merge's
+    values."""
+    # the first multi-threaded exp of a process on the CPU has come out
+    # off in the last bits in some runs (tests/test_torch_lut_merge.py)
+    torch.exp(torch.rand(3, 32, 128, 3))
+    plain = tpipe.batch_video_to_hdr(scenes, ICRF, device="cpu")
+    with world_of_one(tmp_path):
+        meshed = tpipe.batch_video_to_hdr(
+            scenes, ICRF, mesh=pmesh.data_pixel_mesh(device="cpu"),
+            device="cpu")
+    assert list(meshed) == list(plain)
+    for name in plain:
+        for got, want in ((meshed[name].measurand.val,
+                           plain[name].measurand.val),
+                          (meshed[name].measurand.std,
+                           plain[name].measurand.std)):
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def _spec(spacing=7):
