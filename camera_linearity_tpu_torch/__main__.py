@@ -289,7 +289,7 @@ def cmd_doctor(args) -> int:
 
     Probes the pieces whose availability and speed decide every pipeline:
     torch and CUDA, the device (name and power limit), TF32, the native
-    host library and TIFF codec, host parallelism, the pinned
+    host library, MJPEG decoder and TIFF codec, host parallelism, the pinned
     host-to-device rate, a warm dispatch round trip, and (with --video)
     the decode rate of the port's readers.
     """
@@ -347,6 +347,10 @@ def cmd_doctor(args) -> int:
     else:
         print(f"native TIFF codec: unavailable ({native.build_error('_tiff')})"
               "; TIFFs cannot be read or written")
+    print("native MJPEG decoder: " + (
+        "built" if native.mjpeg_available() else
+        f"unavailable ({native.build_error('_mjpeg')}); MJPG AVIs cannot be "
+        "read"))
     if dev.type == "cuda":
         # one-time costs are paid before each timed window: the point is
         # the steady rate
@@ -371,13 +375,36 @@ def cmd_doctor(args) -> int:
 
 
 def _doctor_video(path: Path) -> None:
-    """Decode rate of each reader the port has for ``path``."""
+    """Decode rate of each reader the port has for ``path``; for an MJPG
+    AVI, the port's decoder in both modes, on one thread and on all."""
     import importlib.util
+    import itertools
     import time
 
+    from . import native
     from .models import video as video_mod
+    from .utils import avi
     h, w = video_mod.probe_geometry(path)
+    info = avi.probe_avi(path)
     decoders = ["native"]
+    if info is not None and info.codec == "MJPG":
+        decoders = []
+        payloads = list(itertools.islice(avi.mjpg_chunks(path), 120))
+        cores = os.cpu_count() or 1
+        dst = np.empty((min(cores, len(payloads)), h, w, 3), np.uint8)
+        for mode in ("turbo", "turbo_fast"):
+            for threads in sorted({1, cores}):
+                t0 = time.perf_counter()
+                for at in range(0, len(payloads), len(dst)):
+                    part = payloads[at:at + len(dst)]
+                    native.jpeg_decode_bgr_batch(
+                        part, dst[:len(part)], fast=mode == "turbo_fast",
+                        threads=threads)
+                secs = time.perf_counter() - t0
+                print(f"decode ({mode}, {threads} thread(s)): "
+                      f"{len(payloads) * h * w / 1e6 / secs:.0f} MP/s "
+                      f"({w}x{h}, {len(payloads)} frames, "
+                      f"{secs / len(payloads) * 1e3:.1f} ms a frame)")
     if importlib.util.find_spec("cv2") is not None:
         decoders.append("cv2")
     for decoder in decoders:

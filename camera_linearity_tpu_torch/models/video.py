@@ -10,17 +10,22 @@ reference's uint8 quantization of outputs is available behind
 straight to uint8 (video_processing.py:214-215, almost always 0); the
 default returns float arrays.
 
-Decoders.  The machine with the card has no OpenCV, so the port reads the
-AVI containers it knows itself (``utils/avi.py``): a lossless ``RGBA`` AVI
-with NumPy (``"raw"``), an MJPG AVI with the native libjpeg decoder
-(``"turbo"``; ``"turbo_fast"`` adds JDCT_IFAST).  Any other codec goes
-through ``cv2.VideoCapture`` when cv2 imports, and raises otherwise.
+Decoders.  The machine with the card has no OpenCV and no libjpeg, so the
+port reads the AVI containers it knows itself (``utils/avi.py``): a
+lossless ``RGBA`` AVI with NumPy (``"raw"``), an MJPG AVI with the port's
+own JPEG decoder (``native/jpeg.cpp``), which gives libjpeg-turbo's bytes:
+``"turbo"`` its JDCT_ISLOW IDCT and fancy upsampling, ``"turbo_fast"`` its
+JDCT_IFAST IDCT and merged upsampling.  An MJPG AVI always takes that
+decoder: a frame mode it does not read, or a failed build, raises before
+any frame is decoded.  Any other codec goes through ``cv2.VideoCapture``
+when cv2 imports, and raises otherwise.
 ``cv2`` is imported only when a video needs it.  ``process_video`` and
 ``process_directory`` write the mean/std frames as TIFFs through the
 port's own codec (``utils/tiff.py``).
 """
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -61,7 +66,8 @@ def _cv2(why: str):
         raise ValueError(
             f"{why} needs cv2, which is not installed; without it the port "
             "reads RGBA AVIs (decoder 'native', NumPy) and MJPG AVIs "
-            "('native' / 'turbo' / 'turbo_fast', libjpeg)") from exc
+            "('native' / 'turbo' / 'turbo_fast', its own JPEG decoder)"
+        ) from exc
     return cv2
 
 
@@ -147,19 +153,27 @@ def _return_host_buffers(key, buffers) -> None:
 
 
 def _frame_fillers(path: Path, decoder: str
-                   ) -> Iterator[Callable[[np.ndarray], bool]]:
-    """One callable per frame of ``path`` that decodes the frame into the
-    (H, W, C) uint8 array it is given and returns True (False: the stream
-    ended).  The raw reader reads each frame when the iterator advances;
-    the others decode inside the call."""
+                   ) -> Iterator[Callable[[np.ndarray], int]]:
+    """Callables that decode the next frames of ``path`` into the (k, H, W,
+    C) uint8 array they are given and return how many they decoded (0:
+    the stream ended).  The MJPEG decoder takes up to k frames a call, on
+    all cores; the raw reader (which reads each frame when the iterator
+    advances) and cv2 take one."""
     if decoder == "raw":
         for frame in avi.raw_frames(path):
-            yield lambda dst, frame=frame: np.copyto(dst, frame) or True
+            yield lambda dst, frame=frame: np.copyto(dst[0], frame) or 1
     elif decoder in ("turbo", "turbo_fast"):
         fast = decoder == "turbo_fast"
-        for payload in avi.mjpg_chunks(path):
-            yield lambda dst, payload=payload: native.jpeg_decode_bgr(
-                payload, dst, fast=fast) or True
+        chunks = avi.mjpg_chunks(path)
+
+        def fill_mjpg(dst: np.ndarray) -> int:
+            payloads = list(itertools.islice(chunks, len(dst)))
+            if payloads:
+                native.jpeg_decode_bgr_batch(payloads, dst[:len(payloads)],
+                                             fast=fast)
+            return len(payloads)
+        while True:
+            yield fill_mjpg
     else:
         cv = _cv2(f"decoding {path}")
         video = cv.VideoCapture(str(path))
@@ -167,11 +181,11 @@ def _frame_fillers(path: Path, decoder: str
             video.release()
             raise ValueError(f"Unable to open video file at {path}")
 
-        def fill(dst: np.ndarray) -> bool:
-            ret, frame = video.retrieve(dst)
-            if ret and frame is not dst:
-                np.copyto(dst, frame)  # codec returned its own buffer
-            return bool(ret)
+        def fill(dst: np.ndarray) -> int:
+            ret, frame = video.retrieve(dst[0])
+            if ret and frame is not dst[0]:
+                np.copyto(dst[0], frame)  # codec returned its own buffer
+            return int(ret)
         try:
             while video.grab():
                 yield fill
@@ -210,10 +224,11 @@ def _frame_batches_into(file_paths: List[Path], batch_size: int,
         t0 = perf_counter()
         count = 0
         for fill in _frame_fillers(file_path, decoder):
-            if not fill(buf[filled]):
+            got = fill(buf[filled:])
+            if not got:
                 break
-            filled += 1
-            count += 1
+            filled += got
+            count += got
             if filled == batch_size:
                 # decode busy-time only: the clock pauses across the yield
                 stage_times.add("decode_s", perf_counter() - t0)
@@ -248,11 +263,15 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
                 f"has num_of_chs={chs}")
         if info.codec == "RGBA":
             return "raw"
-        if native.mjpeg_available():
-            return "turbo_fast" if fast else "turbo"
-        get_logger().warning(
-            "%s is MJPG but the native MJPEG decoder is unavailable (%s); "
-            "decoding with cv2", path, native.build_error("_mjpeg"))
+        unsupported = avi.jpeg_unsupported(info.jpeg)
+        if unsupported:
+            raise ValueError(f"{path} is an MJPG AVI whose frames the port's "
+                             f"JPEG decoder does not read: {unsupported}")
+        if not native.mjpeg_available():
+            raise RuntimeError(f"{path} is MJPG but the port's JPEG decoder "
+                               "did not build: "
+                               f"{native.build_error('_mjpeg')}")
+        return "turbo_fast" if fast else "turbo"
     codec = "not an AVI" if info is None else f"codec {info.codec!r}"
     _cv2(f"{path} ({codec})")
     return "cv2"
@@ -265,12 +284,15 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
 
     ``"auto"`` reads env ``CL_DECODER`` (default ``"native"``).
     ``"native"``: the container decides — an RGBA AVI reads raw, an MJPG
-    AVI through libjpeg, anything else through cv2 when it imports (else a
-    ValueError naming the codec).  ``"turbo"``/``"turbo_fast"``: libjpeg
-    on MJPG files; another container logs a warning and takes its own
-    decoder.  ``"cv2"``: cv2 for every file.  RGBA and MJPG files are
-    checked against the expected geometry and ``chs`` before any decode: a
-    grayscale MJPG raises here, not mid-run.
+    AVI through the port's JPEG decoder (as ``"turbo"``), anything else
+    through cv2 when it imports (else a ValueError naming the codec).
+    ``"turbo"``/``"turbo_fast"``: that decoder's two modes on MJPG files;
+    another container logs a warning and takes its own decoder.
+    ``"cv2"``: cv2 for every file.  RGBA and MJPG files are checked against
+    the expected geometry and ``chs`` before any decode, and an MJPG's
+    first frame for a JPEG mode the decoder does not read (it names it): a
+    grayscale or progressive MJPG raises here, not mid-run, and so does an
+    MJPG AVI where the decoder did not build (RuntimeError).
     """
     if decoder == "auto":
         decoder = os.environ.get("CL_DECODER", "native")
@@ -299,10 +321,10 @@ def _prefetch(iterator: Iterator[np.ndarray], depth: int = 2
               ) -> Iterator[np.ndarray]:
     """Run ``iterator`` on a background thread, handing items over through a
     bounded queue — double-buffers host video decode against downstream
-    statistics and transfer.  NumPy copies, libjpeg and OpenCV release the
-    GIL, so on multi-core hosts the next batch decodes while the consumer
-    works on the current one; exceptions raised by the producer re-raise at
-    the consumer."""
+    statistics and transfer.  NumPy copies, the native decoders and OpenCV
+    release the GIL, so on multi-core hosts the next batch decodes while
+    the consumer works on the current one; exceptions raised by the
+    producer re-raise at the consumer."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
 
     def worker():
@@ -375,10 +397,10 @@ def video_frame_generator(video_path: Path, decoder: str = "auto"
     height, width = probe_geometry(video_path)
     dec = _resolve_decoder(decoder, [video_path], height, width, 3)[0]
     for fill in _frame_fillers(video_path, dec):
-        frame = np.empty((height, width, 3), np.uint8)
+        frame = np.empty((1, height, width, 3), np.uint8)
         if not fill(frame):
             break
-        yield frame
+        yield frame[0]
     yield None
 
 

@@ -5,15 +5,17 @@ Port of ``camera_linearity_tpu/native``, copied: importing the JAX package
 would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
 and their fused finalize, u8 -> f32 normalization, a running Welford
 update from uint8 frames),
-``mjpeg.cpp`` (libjpeg decode of one JPEG into BGR) and ``tiff.cpp`` (TIFF
-LZW and predictors, the port's own) build with ``g++`` on first use, never
-at import, into ``build/native/<stem>-<hash>.so`` beside the package (the
-hash covers the source and the host's CPU features, so a changed source or
-another CPU builds anew).  Every stager entry point has a pure-NumPy
-fallback for hosts without a compiler; ``available()`` reports which path
-is active and :func:`build_error` why a build failed.  The TIFF codec has
-no fallback: its entry points raise without the library
-(``native/tiff_plain.py`` is the plain version the tests hold it to).
+``jpeg.cpp`` (baseline JPEG into BGR, the port's own, giving libjpeg-turbo's
+bytes) and ``tiff.cpp`` (TIFF LZW and predictors, the port's own) build
+with ``g++`` on first use, never at import, into
+``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
+source and the host's CPU features, so a changed source or another CPU
+builds anew).  Every stager entry point has a pure-NumPy fallback for hosts
+without a compiler; ``available()`` reports which path is active and
+:func:`build_error` why a build failed.  The MJPEG decoder and the TIFF
+codec have no fallback: their entry points raise without the library
+(``native/jpeg_plain.py`` and ``native/tiff_plain.py`` are the plain
+versions the tests hold them to).
 """
 from __future__ import annotations
 
@@ -30,9 +32,9 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "HostWelford",
            "mmap_buffer", "WIRE_U16F16",
            "wire_quantize_u16f16", "narrow_f16", "mjpeg_available",
-           "jpeg_decode_bgr", "tiff_available", "lzw_decode_chunks",
-           "lzw_encode_chunks", "predictor_undo", "predictor_apply",
-           "build_error"]
+           "jpeg_decode_bgr", "jpeg_decode_bgr_batch", "tiff_available",
+           "lzw_decode_chunks", "lzw_encode_chunks", "predictor_undo",
+           "predictor_apply", "build_error"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
 # fixed-point mean (grid 1/65535 on the [0,1] DN scale, absolute error
@@ -99,7 +101,7 @@ def mmap_buffer(shape, dtype) -> np.ndarray:
 
 _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "stager.cpp"
-_MJPEG_SRC = _DIR / "mjpeg.cpp"
+_MJPEG_SRC = _DIR / "jpeg.cpp"
 _TIFF_SRC = _DIR / "tiff.cpp"
 _BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 
@@ -264,27 +266,28 @@ def available() -> bool:
 
 
 def _load_mjpeg() -> Optional[ctypes.CDLL]:
-    """Load (building on first use) the libjpeg-backed MJPEG decoder.
-
-    Its own shared library: linking needs the system libjpeg(-turbo) dev
-    files, and a host without them must degrade ONLY this decoder — the
-    stager library's paths stay native."""
+    """Load (building on first use) the MJPEG decoder (``jpeg.cpp``)."""
     global _mjpeg_lib, _mjpeg_tried
     if _mjpeg_lib is not None or _mjpeg_tried:
         return _mjpeg_lib
     _mjpeg_tried = True
     try:
         lib_path = _lib_path("_mjpeg", _MJPEG_SRC)
+        # -fwrapv: the IDCTs' sums of corrupt coefficients wrap, as
+        # libjpeg's 32-bit lanes do, instead of being undefined
         if not lib_path.exists() and not _build(lib_path, _MJPEG_SRC,
-                                                extra_flags=("-ljpeg",)):
+                                                extra_flags=("-fwrapv",)):
             return None
         lib = ctypes.CDLL(str(lib_path))
         u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.clt_jpeg_decode_bgr.argtypes = [
-            u8p, ctypes.c_size_t, u8p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int]
-        lib.clt_jpeg_decode_bgr.restype = ctypes.c_int
-        lib.clt_mjpeg_version.restype = ctypes.c_int
+        sz, i = ctypes.c_size_t, ctypes.c_int
+        lib.clt_jpeg_decode_bgr.argtypes = [u8p, sz, u8p, i, i, i]
+        lib.clt_jpeg_decode_bgr.restype = i
+        lib.clt_jpeg_decode_bgr_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i,
+            i, i, i, ctypes.POINTER(i)]
+        lib.clt_jpeg_decode_bgr_batch.restype = None
+        lib.clt_jpeg_version.restype = i
     except (OSError, AttributeError) as exc:
         _build_errors["_mjpeg"] = f"load failed: {exc}"
         return None
@@ -293,40 +296,82 @@ def _load_mjpeg() -> Optional[ctypes.CDLL]:
 
 
 def mjpeg_available() -> bool:
+    """True when the MJPEG decoder built (or was built) and loaded."""
     return _load_mjpeg() is not None
+
+
+def _mjpeg() -> ctypes.CDLL:
+    lib = _load_mjpeg()
+    if lib is None:
+        raise RuntimeError("native MJPEG decoder unavailable (a C++ "
+                           f"compiler is needed): {build_error('_mjpeg')}")
+    return lib
+
+
+def _check_frames(dst: np.ndarray, ndim: int, what: str) -> None:
+    if dst.dtype != np.uint8 or dst.ndim != ndim or dst.shape[-1] != 3 or \
+            not dst.flags.c_contiguous or not dst.flags.writeable:
+        raise ValueError(f"dst must be a writable C-contiguous {what} "
+                         "uint8 array")
+
+
+def _jpeg_error(rc: int, payload, shape) -> ValueError:
+    """The ValueError for a decoder return code; an unsupported frame's
+    (and a frame of other than three components) names the feature its
+    headers show."""
+    if rc in (-3, -4):
+        from ..utils.avi import jpeg_unsupported
+        why = jpeg_unsupported(bytes(payload)) or "a mode it does not read"
+        what = "not a 3-component image" if rc == -3 else "unsupported JPEG"
+        return ValueError(f"jpeg_decode_bgr: {what}: {why}")
+    reasons = {-1: "corrupt JPEG data",
+               -2: f"frame geometry != {tuple(shape)}"}
+    return ValueError(f"jpeg_decode_bgr: {reasons.get(rc, rc)}")
 
 
 def jpeg_decode_bgr(src, dst: np.ndarray, fast: bool = False) -> None:
     """Decode one JPEG byte string/buffer into ``dst`` (H, W, 3) BGR uint8.
 
-    Backed by the system libjpeg(-turbo) with its merged SIMD
-    upsample+color-convert path (``fast=True`` adds JDCT_IFAST + plain
-    chroma upsampling).  Raises ValueError on malformed data or geometry
-    mismatch; callers that need a decoder fallback should gate on
-    :func:`mjpeg_available` instead of catching this.
+    The bytes libjpeg-turbo gives: ``fast=False`` its JDCT_ISLOW IDCT and
+    fancy chroma upsampling, ``fast=True`` JDCT_IFAST and replicated
+    (merged) chroma.  Raises ValueError on malformed data, a geometry
+    mismatch or a mode the decoder does not read (naming it).
     """
-    lib = _load_mjpeg()
-    if lib is None:
-        raise RuntimeError("native MJPEG decoder unavailable "
-                           "(libjpeg dev files or compiler missing): "
-                           f"{build_error('_mjpeg')}")
-    if dst.dtype != np.uint8 or dst.ndim != 3 or dst.shape[2] != 3 or \
-            not dst.flags.c_contiguous or not dst.flags.writeable:
-        raise ValueError("dst must be a writable C-contiguous "
-                         "(H, W, 3) uint8 array")
+    lib = _mjpeg()
+    _check_frames(dst, 3, "(H, W, 3)")
     # zero-copy pointer to the source payload (np.frombuffer accepts both
     # read-only bytes and writable buffers without copying)
     flat = np.frombuffer(src, np.uint8)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
     rc = lib.clt_jpeg_decode_bgr(
-        flat.ctypes.data_as(u8p), flat.size,
-        dst.ctypes.data_as(u8p), dst.shape[0], dst.shape[1],
-        1 if fast else 0)
+        _as_u8_ptr(flat), flat.size, _as_u8_ptr(dst), dst.shape[0],
+        dst.shape[1], 1 if fast else 0)
     if rc != 0:
-        reasons = {-1: "libjpeg decode error",
-                   -2: f"frame geometry != {dst.shape[:2]}",
-                   -3: "not a 3-component image"}
-        raise ValueError(f"jpeg_decode_bgr: {reasons.get(rc, rc)}")
+        raise _jpeg_error(rc, flat, dst.shape[:2])
+
+
+def jpeg_decode_bgr_batch(payloads, dst: np.ndarray, fast: bool = False,
+                          threads: Optional[int] = None) -> None:
+    """Decode JPEG payload i into ``dst[i]`` ((k, H, W, 3) BGR uint8, k =
+    ``len(payloads)``) on up to ``threads`` threads (default: every CPU),
+    as :func:`jpeg_decode_bgr` decodes each.  Raises the first failing
+    frame's ValueError, after every frame was tried."""
+    lib = _mjpeg()
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    k = len(payloads)
+    if dst.shape[0] != k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, "
+                         f"payloads {k}")
+    # the arrays keep every payload alive across the call
+    flats = [np.frombuffer(p, np.uint8) for p in payloads]
+    ptrs = (ctypes.c_void_p * k)(*[f.ctypes.data for f in flats])
+    sizes = (ctypes.c_size_t * k)(*[f.size for f in flats])
+    rcs = (ctypes.c_int * k)()
+    lib.clt_jpeg_decode_bgr_batch(
+        ptrs, sizes, k, _as_u8_ptr(dst), dst.shape[1], dst.shape[2],
+        1 if fast else 0, threads or os.cpu_count() or 1, rcs)
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            raise _jpeg_error(rc, flats[i], dst.shape[1:3])
 
 
 def _load_tiff() -> Optional[ctypes.CDLL]:

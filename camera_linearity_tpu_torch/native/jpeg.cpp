@@ -1,0 +1,965 @@
+// Baseline JPEG decoder for camera_linearity_tpu_torch: the frames of an
+// MJPG AVI, decoded into interleaved BGR uint8, with no libjpeg.
+//
+// It gives the bytes libjpeg-turbo 2.1 gives for the same frame, in its
+// two modes:
+//   fast = 0: jpeg_idct_islow (13-bit constants, two pass-1 bits, rounding
+//             descales), then fancy (triangle) upsampling of h2v1 and h2v2
+//             chroma, then jdcolor's fixed-point YCbCr -> RGB tables;
+//   fast = 1: jpeg_idct_ifast (8-bit AAN multipliers, truncating
+//             descales), then jdmerge's merged upsample and colour convert,
+//             which is replicated chroma.
+// Input: SOF0/SOF1, 8-bit, three components in one interleaved Huffman
+// scan; DQT with 8- and 16-bit tables; DHT, or Annex K's standard tables
+// for a slot no DHT defined (MJPEG cameras leave them out); DRI with
+// RST0-7; byte stuffing and fill bytes; sampling with chroma at full size,
+// halved across (h2v1) or halved both ways (h2v2); any width and height.
+// YCbCr, or RGB where an Adobe APP14 says transform 0 or the component IDs
+// are 'R', 'G', 'B' (no JFIF APP0), as libjpeg decides.  Anything else
+// returns kUnsupported (or kComponents for a component count other than
+// three).  Entropy data that ends early decodes as libjpeg's does: zero
+// bits past the end, and every later MCU of the segment left at zero.
+//
+// Built as a plain shared library with g++ on first use;
+// camera_linearity_tpu_torch.native loads it with ctypes.  The plain
+// Python version in native/jpeg_plain.py is what the tests hold it to.
+
+#include <algorithm>
+#include <atomic>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+
+namespace {
+
+constexpr int kOk = 0;
+constexpr int kCorrupt = -1;      // libjpeg would stop with an error
+constexpr int kGeometry = -2;     // not the caller's height and width
+constexpr int kComponents = -3;   // not three components
+constexpr int kUnsupported = -4;  // a mode this decoder does not read
+
+constexpr int kEoi = 0xD9;
+constexpr int kLook = 9;          // Huffman lookahead bits
+
+// Run fn(i) for i in [0, n) on up to nthreads threads, each taking the
+// next index from a shared counter (chunks differ in cost).
+template <typename F>
+void parallel_items(std::size_t n, int nthreads, F&& fn) {
+    const int t = static_cast<int>(
+        std::min<std::size_t>(n, static_cast<std::size_t>(std::max(1, nthreads))));
+    if (t <= 1) {
+        for (std::size_t i = 0; i < n; ++i) fn(i);
+        return;
+    }
+    std::atomic<std::size_t> next{0};
+    auto work = [&] {
+        for (std::size_t i = next++; i < n; i = next++) fn(i);
+    };
+    std::vector<std::thread> threads;
+    for (int k = 1; k < t; ++k) threads.emplace_back(work);
+    work();
+    for (auto& th : threads) th.join();
+}
+
+// zigzag index -> natural (row-major) index; the 16 extra entries catch a
+// corrupt run that steps past the last coefficient, as libjpeg's do
+constexpr int kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// AAN scale factors of jddctmgr.c, 14 bits, natural order
+constexpr int kAanScales[64] = {
+    16384, 22725, 21407, 19266, 16384, 12873, 8867,  4520,
+    22725, 31521, 29692, 26722, 22725, 17855, 12299, 6270,
+    21407, 29692, 27969, 25172, 21407, 16819, 11585, 5906,
+    19266, 26722, 25172, 22654, 19266, 15137, 10426, 5315,
+    16384, 22725, 21407, 19266, 16384, 12873, 8867,  4520,
+    12873, 17855, 16819, 15137, 12873, 10114, 6967,  3552,
+    8867,  12299, 11585, 10426, 8867,  6967,  4799,  2446,
+    4520,  6270,  5906,  5315,  4520,  3552,  2446,  1247};
+
+// A Huffman table as DHT gives it: counts per length 1..16, symbols.
+struct HuffSpec {
+    std::uint8_t bits[17];
+    std::uint8_t val[256];
+    bool defined;
+};
+
+// Annex K.3's tables, which libjpeg-turbo puts in slots 0 and 1 when no
+// DHT defined them
+constexpr std::uint8_t kDcLumBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1,
+                                         0, 0, 0, 0, 0, 0, 0};
+constexpr std::uint8_t kDcChromBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1,
+                                           1, 1, 0, 0, 0, 0, 0};
+constexpr std::uint8_t kDcVal[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+constexpr std::uint8_t kAcLumBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5,
+                                         5, 4, 4, 0, 0, 1, 0x7d};
+constexpr std::uint8_t kAcLumVal[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+constexpr std::uint8_t kAcChromBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7,
+                                           5, 4, 4, 0, 1, 2, 0x77};
+constexpr std::uint8_t kAcChromVal[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+void standard_table(HuffSpec& spec, const std::uint8_t* bits,
+                    const std::uint8_t* val, int n) {
+    std::memcpy(spec.bits, bits, 17);
+    std::memset(spec.val, 0, sizeof(spec.val));
+    std::memcpy(spec.val, val, n);
+    spec.defined = true;
+}
+
+inline int extend(int x, int s) {
+    return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x;
+}
+
+// A table ready to decode with (jdhuff.c's derived table): a lookahead of
+// kLook bits gives (length << 8) | symbol for codes up to kLook bits, 0
+// for longer ones, which walk maxcode.
+struct Huff {
+    std::uint16_t look[1 << kLook];
+    std::int32_t maxcode[18];
+    std::int32_t valoff[18];
+    std::uint8_t val[256];
+    // AC tables: a code and its extra bits together within kLook bits, as
+    // (value << 16) | (run << 8) | bits taken; 0 for the rest
+    std::int32_t fast_ac[1 << kLook];
+};
+
+// False for a table libjpeg rejects (JERR_BAD_HUFF_TABLE).
+bool derive(const HuffSpec& spec, bool dc, Huff& h) {
+    int size[257];
+    std::uint32_t code_of[257];
+    int p = 0;
+    for (int l = 1; l <= 16; ++l) {
+        int i = spec.bits[l];
+        if (p + i > 256) return false;
+        while (i--) size[p++] = l;
+    }
+    size[p] = 0;
+    const int nsym = p;
+    std::uint32_t code = 0;
+    int si = size[0];
+    p = 0;
+    while (size[p]) {
+        while (size[p] == si) code_of[p++] = code++;
+        if (code >= (1u << si)) return false;
+        code <<= 1;
+        ++si;
+    }
+    p = 0;
+    for (int l = 1; l <= 16; ++l) {
+        if (spec.bits[l]) {
+            h.valoff[l] = p - static_cast<std::int32_t>(code_of[p]);
+            p += spec.bits[l];
+            h.maxcode[l] = static_cast<std::int32_t>(code_of[p - 1]);
+        } else {
+            h.maxcode[l] = -1;
+        }
+    }
+    h.valoff[17] = 0;
+    h.maxcode[17] = 0xFFFFF;
+    std::memset(h.look, 0, sizeof(h.look));
+    p = 0;
+    for (int l = 1; l <= kLook; ++l) {
+        for (int i = 0; i < spec.bits[l]; ++i, ++p) {
+            std::uint32_t at = code_of[p] << (kLook - l);
+            for (int k = 0; k < (1 << (kLook - l)); ++k)
+                h.look[at++] = static_cast<std::uint16_t>((l << 8) | spec.val[p]);
+        }
+    }
+    std::memcpy(h.val, spec.val, sizeof(h.val));
+    for (int i = 0; i < (1 << kLook); ++i) {
+        const int e = h.look[i], len = e >> 8, rs = e & 0xFF, sz = rs & 15;
+        h.fast_ac[i] = 0;
+        if (!len || !sz || len + sz > kLook) continue;
+        const int bits = (i >> (kLook - len - sz)) & ((1 << sz) - 1);
+        h.fast_ac[i] = static_cast<std::int32_t>(
+            static_cast<std::uint32_t>(extend(bits, sz)) << 16) |
+            ((rs >> 4) << 8) | (len + sz);
+    }
+    if (dc)
+        for (int i = 0; i < nsym; ++i)
+            if (spec.val[i] > 15) return false;
+    return true;
+}
+
+// The byte source, as libjpeg's memory source sees it: past the end it
+// reads fake EOI markers, FF D9 FF D9 ...
+struct Source {
+    const std::uint8_t* data;
+    std::size_t n;
+    std::size_t pos;
+
+    inline int at(std::size_t i) const {
+        return i < n ? data[i] : ((i - n) & 1) ? kEoi : 0xFF;
+    }
+
+    // The next marker at or after pos (jdmarker.c's next_marker): skips
+    // other bytes, fill 0xFF bytes and stuffed FF 00 pairs.
+    int next_marker() {
+        for (;;) {
+            int c = at(pos++);
+            while (c != 0xFF) c = at(pos++);
+            do c = at(pos++); while (c == 0xFF);
+            if (c != 0) return c;
+        }
+    }
+};
+
+// Entropy-coded bits, MSB first, in the low `nbits` bits of `buf`.  Reading
+// stops at a marker (kept in `marker`, as libjpeg's unread_marker); bits
+// asked for past it are zeros, and taking one sets `insufficient`.
+struct BitReader {
+    Source* src;
+    std::uint64_t buf = 0;
+    int nbits = 0;
+    int marker = 0;
+    bool insufficient = false;
+
+    void fill() {
+        std::size_t pos = src->pos;
+        while (nbits <= 56 && !marker) {
+            int c = src->at(pos++);
+            if (c == 0xFF) {
+                do c = src->at(pos++); while (c == 0xFF);
+                if (c != 0) {
+                    marker = c;
+                    break;
+                }
+                c = 0xFF;
+            }
+            buf = (buf << 8) | static_cast<std::uint32_t>(c);
+            nbits += 8;
+        }
+        src->pos = pos;
+    }
+
+    // k <= 32 bits, zeros past the data; reads no state but the buffer
+    inline std::uint32_t peek(int k) {
+        if (nbits < k) fill();
+        if (nbits >= k)
+            return static_cast<std::uint32_t>(buf >> (nbits - k)) & ((1u << k) - 1);
+        return static_cast<std::uint32_t>(buf << (k - nbits)) & ((1u << k) - 1);
+    }
+
+    inline void skip(int k) {
+        if (nbits < k) {
+            fill();
+            if (nbits < k) {  // past the data: pad with zero bits
+                insufficient = true;
+                buf <<= 57 - nbits;
+                nbits = 57;
+            }
+        }
+        nbits -= k;
+    }
+
+    inline int get(int k) {
+        const int v = static_cast<int>(peek(k));
+        skip(k);
+        return v;
+    }
+
+    inline int decode(const Huff& h) {
+        const int e = h.look[peek(kLook)];
+        if (e >> 8) {
+            skip(e >> 8);
+            return e & 0xFF;
+        }
+        const std::uint32_t bits = peek(17);
+        int l = kLook + 1;
+        std::int32_t code = static_cast<std::int32_t>(bits >> (17 - l));
+        while (code > h.maxcode[l]) {
+            ++l;
+            code = static_cast<std::int32_t>(bits >> (17 - l));
+        }
+        skip(l);
+        if (l > 16) return 0;  // a bad code: libjpeg warns, reads a zero
+        return h.val[(code + h.valoff[l]) & 0xFF];
+    }
+};
+
+inline std::uint8_t clamp255(int v) {
+    return static_cast<std::uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+}
+
+// The IDCTs below are libjpeg-turbo's as its x86-64 SIMD code computes
+// them (jidctint-avx2, jidctfst-sse2), which is what it runs there: the
+// same integer algorithms as jidctint.c and jidctfst.c, held in 16-bit
+// lanes.  On valid data nothing leaves those lanes and the C and SIMD
+// paths agree; on corrupt or truncated data a sum can wrap (i16) or
+// saturate (sat16), and the sample saturates into [0, 255] where the C
+// path's range-limit table would wrap.
+inline std::int32_t i16(std::int32_t v) { return static_cast<std::int16_t>(v); }
+inline std::int32_t sat16(std::int32_t v) {
+    return v < -32768 ? -32768 : v > 32767 ? 32767 : v;
+}
+inline std::uint8_t sample(std::int32_t v) {  // packsswb, then +128
+    return static_cast<std::uint8_t>((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+}
+
+// jpeg_idct_islow's 1-D transform of x[0], x[s], ..., x[7s] into o[8],
+// before the descale: the pass-1 sums z3 and z4 and the even part's x0 +
+// x4 are 16-bit lanes in jidctint-avx2.
+template <int s>
+inline void islow_1d(const std::int32_t* x, std::int32_t* o) {
+    constexpr std::int32_t F0298 = 2446, F0390 = 3196, F0541 = 4433,
+                           F0765 = 6270, F0899 = 7373, F1175 = 9633,
+                           F1501 = 12299, F1847 = 15137, F1961 = 16069,
+                           F2053 = 16819, F2562 = 20995, F3072 = 25172;
+    std::int32_t z2 = x[2 * s], z3 = x[6 * s];
+    std::int32_t z1 = (z2 + z3) * F0541;
+    std::int32_t tmp2 = z1 + z3 * -F1847;
+    std::int32_t tmp3 = z1 + z2 * F0765;
+    std::int32_t tmp0 = i16(x[0] + x[4 * s]) * (1 << 13);
+    std::int32_t tmp1 = i16(x[0] - x[4 * s]) * (1 << 13);
+    const std::int32_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
+    const std::int32_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+    tmp0 = x[7 * s];
+    tmp1 = x[5 * s];
+    tmp2 = x[3 * s];
+    tmp3 = x[s];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = i16(tmp0 + tmp2);
+    std::int32_t z4 = i16(tmp1 + tmp3);
+    const std::int32_t z5 = (z3 + z4) * F1175;
+    tmp0 *= F0298;
+    tmp1 *= F2053;
+    tmp2 *= F3072;
+    tmp3 *= F1501;
+    z1 *= -F0899;
+    z2 *= -F2562;
+    z3 = z3 * -F1961 + z5;
+    z4 = z4 * -F0390 + z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    o[0] = t10 + tmp3;
+    o[7] = t10 - tmp3;
+    o[1] = t11 + tmp2;
+    o[6] = t11 - tmp2;
+    o[2] = t12 + tmp1;
+    o[5] = t12 - tmp1;
+    o[3] = t13 + tmp0;
+    o[4] = t13 - tmp0;
+}
+
+// jpeg_idct_islow: 13-bit constants, two pass-1 bits, rounding descales.
+// Pass 1 runs the eight columns side by side (the loop vectorizes), pass
+// 2 a row at a time.
+void idct_islow(const std::int16_t* in, const std::int16_t* q,
+                std::uint8_t* out, std::size_t stride) {
+    std::int32_t v[64], ws[64];
+    int ac = 0;
+    for (int i = 8; i < 64; ++i) ac |= in[i];
+    for (int i = 0; i < 64; ++i)  // pmullw
+        v[i] = static_cast<std::int16_t>(in[i] * q[i]);
+    if (!ac) {  // no AC term in the block: row 0 << PASS1_BITS, in 16 bits
+        for (int i = 0; i < 64; ++i) ws[i] = i16(v[i & 7] * 4);
+    } else {
+        for (int c = 0; c < 8; ++c) {
+            std::int32_t o[8];
+            islow_1d<8>(v + c, o);
+            for (int r = 0; r < 8; ++r) ws[8 * r + c] = sat16((o[r] + 1024) >> 11);
+        }
+    }
+    for (int r = 0; r < 8; ++r) {
+        const std::int32_t* w = ws + 8 * r;
+        std::uint8_t* row = out + r * stride;
+        if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
+            std::memset(row, sample((w[0] + 16) >> 5), 8);
+            continue;
+        }
+        std::int32_t o[8];
+        islow_1d<1>(w, o);
+        for (int k = 0; k < 8; ++k) row[k] = sample((o[k] + (1 << 17)) >> 18);
+    }
+}
+
+// AAN multiply by an 8-bit constant: pmulhw of (x << 2) and (c << 6)
+inline std::int32_t aan(std::int32_t x, std::int32_t c) {
+    return (i16(x * 4) * (c * 64)) >> 16;
+}
+
+// jpeg_idct_ifast's butterflies over x[0], x[s], ..., x[7s] into y[0],
+// y[s], ..., every sum in a 16-bit lane as in jidctfst-sse2
+template <int s>
+inline void ifast_1d(const std::int32_t* x, std::int32_t* y) {
+    constexpr std::int32_t F1082 = 277, F1414 = 362, F1847 = 473,
+                           F1613 = 669 - 256;
+    std::int32_t tmp10 = i16(x[0] + x[4 * s]), tmp11 = i16(x[0] - x[4 * s]);
+    std::int32_t tmp13 = i16(x[2 * s] + x[6 * s]);
+    std::int32_t tmp12 = i16(aan(i16(x[2 * s] - x[6 * s]), F1414) - tmp13);
+    const std::int32_t tmp0 = i16(tmp10 + tmp13), tmp3 = i16(tmp10 - tmp13);
+    const std::int32_t tmp1 = i16(tmp11 + tmp12), tmp2 = i16(tmp11 - tmp12);
+    const std::int32_t z13 = i16(x[5 * s] + x[3 * s]), z10 = i16(x[5 * s] - x[3 * s]);
+    const std::int32_t z11 = i16(x[s] + x[7 * s]), z12 = i16(x[s] - x[7 * s]);
+    const std::int32_t tmp7 = i16(z11 + z13);
+    tmp11 = aan(i16(z11 - z13), F1414);
+    const std::int32_t z10s = i16(z10 * 4), z12s = i16(z12 * 4);
+    const std::int32_t z5 = (i16(z10s + z12s) * (F1847 * 64)) >> 16;
+    tmp10 = i16(((z12s * (F1082 * 64)) >> 16) - z5);
+    tmp12 = i16(i16(((z10s * (-F1613 * 64)) >> 16) - z10) + z5);
+    const std::int32_t tmp6 = i16(tmp12 - tmp7);
+    const std::int32_t tmp5 = i16(tmp11 - tmp6);
+    const std::int32_t tmp4 = i16(tmp10 + tmp5);
+    y[0] = i16(tmp0 + tmp7);
+    y[7 * s] = i16(tmp0 - tmp7);
+    y[s] = i16(tmp1 + tmp6);
+    y[6 * s] = i16(tmp1 - tmp6);
+    y[2 * s] = i16(tmp2 + tmp5);
+    y[5 * s] = i16(tmp2 - tmp5);
+    y[4 * s] = i16(tmp3 + tmp4);
+    y[3 * s] = i16(tmp3 - tmp4);
+}
+
+// jpeg_idct_ifast: q holds the AAN-scaled multipliers; truncating
+// descales.  Pass 1 side by side over the columns, pass 2 by rows.
+void idct_ifast(const std::int16_t* in, const std::int16_t* q,
+                std::uint8_t* out, std::size_t stride) {
+    std::int32_t v[64], ws[64];
+    for (int i = 0; i < 64; ++i)  // pmullw
+        v[i] = static_cast<std::int16_t>(in[i] * q[i]);
+    for (int c = 0; c < 8; ++c) ifast_1d<8>(v + c, ws + c);
+    for (int r = 0; r < 8; ++r) {
+        const std::int32_t* w = ws + 8 * r;
+        std::uint8_t* row = out + r * stride;
+        if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
+            std::memset(row, sample(w[0] >> 5), 8);
+            continue;
+        }
+        std::int32_t o[8];
+        ifast_1d<1>(w, o);
+        for (int k = 0; k < 8; ++k) row[k] = sample(o[k] >> 5);
+    }
+}
+
+struct Component {
+    int id, h, v, tq;
+    int td = 0, ta = 0;                   // Huffman slots of the scan
+    int width = 0, height = 0;            // libjpeg's downsampled size
+    std::size_t stride = 0, rows = 0;     // the plane: whole MCUs
+    std::uint8_t* plane = nullptr;
+    std::int16_t q[64];                   // multipliers of the IDCT
+};
+
+struct Header {
+    int precision = 0, height = 0, width = 0, ncomp = 0;
+    Component comp[3];
+    std::uint16_t qt[4][64];
+    bool qdef[4] = {false, false, false, false};
+    HuffSpec dc[4], ac[4];
+    int restart = 0;
+    bool jfif = false, adobe = false;
+    int transform = 0;
+    int scan_order[3];                    // frame index of each scan slot
+};
+
+inline int be16(const std::uint8_t* p) { return (p[0] << 8) | p[1]; }
+
+// Reads the markers from SOI to the first SOS into hd, leaving src at the
+// entropy-coded data.  Returns kOk or the frame's fault.  Segments are read
+// through Source::at, so a frame cut inside its headers reads libjpeg's
+// fake EOI bytes there as libjpeg does.
+int read_header(Source& src, Header& hd) {
+    if (src.at(0) != 0xFF || src.at(1) != 0xD8) return kCorrupt;
+    src.pos = 2;
+    for (auto& t : hd.dc) t.defined = false;
+    for (auto& t : hd.ac) t.defined = false;
+    bool saw_sof = false;
+    std::uint8_t seg[1 << 16];
+    for (;;) {
+        const int m = src.next_marker();
+        if (m == kEoi || m == 0xD8) return kCorrupt;
+        if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;  // RSTn, TEM
+        const int len = (src.at(src.pos) << 8) | src.at(src.pos + 1);
+        const int body = len - 2;
+        // APPn and COM are read only as far as libjpeg examines them
+        const bool skipped = (m >= 0xE0 && m <= 0xEF) || m == 0xFE;
+        const int keep = skipped ? std::min(body, 14) : body;
+        for (int i = 0; i < keep; ++i) seg[i] = static_cast<std::uint8_t>(src.at(src.pos + 2 + i));
+        if (len >= 2) src.pos += len;
+        else src.pos += 2;
+        if (m == 0xC0 || m == 0xC1) {  // baseline, extended sequential
+            if (saw_sof || body < 6) return kCorrupt;
+            saw_sof = true;
+            hd.precision = seg[0];
+            hd.height = be16(seg + 1);
+            hd.width = be16(seg + 3);
+            hd.ncomp = seg[5];
+            if (hd.height <= 0 || hd.width <= 0 || hd.ncomp <= 0 ||
+                body != 6 + 3 * hd.ncomp)
+                return kCorrupt;
+            if (hd.precision != 8) return kUnsupported;
+            if (hd.ncomp != 3) return kComponents;
+            for (int c = 0; c < 3; ++c) {
+                Component& k = hd.comp[c];
+                k.id = seg[6 + 3 * c];
+                k.h = seg[7 + 3 * c] >> 4;
+                k.v = seg[7 + 3 * c] & 15;
+                k.tq = seg[8 + 3 * c];
+            }
+        } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
+            // progressive, lossless, hierarchical or arithmetic coding
+            return kUnsupported;
+        } else if (m == 0xC4) {  // DHT
+            int at = 0;
+            while (body - at > 16) {
+                const int index = seg[at];
+                int count = 0;
+                for (int i = 1; i <= 16; ++i) count += seg[at + i];
+                at += 17;
+                if (count > 256 || count > body - at) return kCorrupt;
+                const int slot = index & 0x0F;
+                if ((index & ~0x10) > 3) return kCorrupt;
+                HuffSpec& t = (index & 0x10) ? hd.ac[slot] : hd.dc[slot];
+                t.bits[0] = 0;
+                std::memcpy(t.bits + 1, seg + at - 16, 16);
+                std::memset(t.val, 0, sizeof(t.val));
+                std::memcpy(t.val, seg + at, count);
+                t.defined = true;
+                at += count;
+            }
+            if (at != body) return kCorrupt;
+        } else if (m == 0xDB) {  // DQT
+            int at = 0;
+            while (at < body) {
+                const int prec = seg[at] >> 4, slot = seg[at] & 15;
+                ++at;
+                if (slot > 3) return kCorrupt;
+                if (at + 64 * (prec ? 2 : 1) > body) return kCorrupt;
+                for (int i = 0; i < 64; ++i) {
+                    hd.qt[slot][kNatural[i]] = static_cast<std::uint16_t>(
+                        prec ? be16(seg + at + 2 * i) : seg[at + i]);
+                }
+                at += 64 * (prec ? 2 : 1);
+                hd.qdef[slot] = true;
+            }
+            if (at != body) return kCorrupt;
+        } else if (m == 0xDD) {  // DRI
+            if (body != 2) return kCorrupt;
+            hd.restart = be16(seg);
+        } else if (m == 0xE0) {  // APP0: JFIF says YCbCr
+            if (body >= 14 && std::memcmp(seg, "JFIF\0", 5) == 0) hd.jfif = true;
+        } else if (m == 0xEE) {  // APP14: Adobe's colour transform
+            if (body >= 12 && std::memcmp(seg, "Adobe", 5) == 0) {
+                hd.adobe = true;
+                hd.transform = seg[11];
+            }
+        } else if (m == 0xDA) {  // SOS
+            if (!saw_sof) return kCorrupt;
+            const int n = body >= 1 ? seg[0] : 0;
+            if (body != 4 + 2 * n || n < 1 || n > 4) return kCorrupt;
+            if (n != 3) return kUnsupported;  // one component a scan
+            bool used[3] = {false, false, false};
+            for (int i = 0; i < n; ++i) {
+                const int id = seg[1 + 2 * i], tabs = seg[2 + 2 * i];
+                int c = 0;
+                while (c < 3 && (hd.comp[c].id != id || used[c])) ++c;
+                if (c == 3) return kCorrupt;
+                used[c] = true;
+                hd.comp[c].td = tabs >> 4;
+                hd.comp[c].ta = tabs & 15;
+                hd.scan_order[i] = c;
+            }
+            return kOk;
+        } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xCC ||
+                   m == 0xDC) {
+            // other APPn, COM, DAC, DNL: skipped
+        } else {
+            return kCorrupt;  // a marker libjpeg does not know
+        }
+    }
+}
+
+// Per-thread planes and row buffers, reused across frames.
+struct Scratch {
+    std::unique_ptr<std::uint8_t[]> planes;
+    std::size_t cap = 0;
+    std::vector<std::int32_t> colsum;
+    std::vector<std::uint16_t> row[2];   // upsampled chroma, pairs a word
+    std::vector<std::uint32_t> packed;   // a row's pixels, B | G << 8 | R << 16
+};
+
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+              "an upsampled pair and a packed pixel are read back as bytes");
+
+thread_local Scratch tls_scratch;
+
+enum class Upsample { kNone, kReplicate, kH2V1, kH2V2 };
+
+struct Decoder {
+    Header hd;
+    bool fast = false, rgb = false;
+    int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+    Huff dctab[4], actab[4];
+    Upsample up[3];
+    Scratch* s = nullptr;
+
+    // The output rows [y0, y1) from the planes, as BGR.
+    void convert(std::uint8_t* dst, int y0, int y1) {
+        const int W = hd.width;
+        std::uint32_t* px = s->packed.data();
+        for (int y = y0; y < y1; ++y) {
+            const std::uint8_t* c0 = hd.comp[0].plane + y * hd.comp[0].stride;
+            const std::uint8_t* c1 = chroma_row(1, y, s->row[0].data());
+            const std::uint8_t* c2 = chroma_row(2, y, s->row[1].data());
+            if (rgb) {
+                for (int x = 0; x < W; ++x)
+                    px[x] = c2[x] | (c1[x] << 8) | (c0[x] << 16);
+            } else {
+                // jdcolor.c's tables, computed: Cr_r = (FIX(1.402) x +
+                // ONE_HALF) >> 16 and so on, x = sample - 128
+                for (int x = 0; x < W; ++x) {
+                    const int yy = c0[x], cb = c1[x] - 128, cr = c2[x] - 128;
+                    const std::uint32_t b = clamp255(yy + ((116130 * cb + 32768) >> 16));
+                    const std::uint32_t g = clamp255(
+                        yy + ((-22554 * cb - 46802 * cr + 32768) >> 16));
+                    const std::uint32_t r = clamp255(yy + ((91881 * cr + 32768) >> 16));
+                    px[x] = b | (g << 8) | (r << 16);
+                }
+            }
+            // each pixel as 4 bytes, the next overwriting the fourth
+            std::uint8_t* o = dst + static_cast<std::size_t>(y) * W * 3;
+            for (int x = 0; x + 1 < W; ++x) std::memcpy(o + 3 * x, px + x, 4);
+            for (int k = 0; k < 3; ++k)
+                o[3 * (W - 1) + k] = static_cast<std::uint8_t>(px[W - 1] >> (8 * k));
+        }
+    }
+
+    // Component k's samples for output row y at full width (jdsample.c):
+    // an upsampled pair of samples is one 16-bit word of out, which has
+    // room for width + 8 words.
+    const std::uint8_t* chroma_row(int k, int y, std::uint16_t* out) {
+        const Component& cp = hd.comp[k];
+        const int n = cp.width;
+        auto pair = [](int even, int odd) {
+            return static_cast<std::uint16_t>(even | (odd << 8));
+        };
+        switch (up[k]) {
+        case Upsample::kNone:
+            return cp.plane + y * cp.stride;
+        case Upsample::kReplicate: {
+            const std::uint8_t* in = cp.plane + (y / (vmax / cp.v)) * cp.stride;
+            if (hmax == cp.h) return in;
+            for (int i = 0; i < n; ++i) out[i] = pair(in[i], in[i]);
+            break;
+        }
+        case Upsample::kH2V1: {  // triangle filter across, n > 2
+            const std::uint8_t* in = cp.plane + y * cp.stride;
+            out[0] = pair(in[0], (3 * in[0] + in[1] + 2) >> 2);
+            for (int i = 1; i < n - 1; ++i)
+                out[i] = pair((3 * in[i] + in[i - 1] + 1) >> 2,
+                              (3 * in[i] + in[i + 1] + 2) >> 2);
+            out[n - 1] = pair((3 * in[n - 1] + in[n - 2] + 1) >> 2, in[n - 1]);
+            break;
+        }
+        case Upsample::kH2V2: {  // and down, from the nearer row's neighbour
+            const int r = y >> 1;
+            const int nr = (y & 1) ? std::min(r + 1, cp.height - 1) : std::max(r - 1, 0);
+            const std::uint8_t* in0 = cp.plane + r * cp.stride;
+            const std::uint8_t* in1 = cp.plane + nr * cp.stride;
+            std::int32_t* cs = s->colsum.data();
+            for (int i = 0; i < n; ++i) cs[i] = 3 * in0[i] + in1[i];
+            out[0] = pair((4 * cs[0] + 8) >> 4, (3 * cs[0] + cs[1] + 7) >> 4);
+            for (int i = 1; i < n - 1; ++i)
+                out[i] = pair((3 * cs[i] + cs[i - 1] + 8) >> 4,
+                              (3 * cs[i] + cs[i + 1] + 7) >> 4);
+            out[n - 1] = pair((3 * cs[n - 1] + cs[n - 2] + 8) >> 4,
+                              (4 * cs[n - 1] + 7) >> 4);
+            break;
+        }
+        }
+        return reinterpret_cast<const std::uint8_t*>(out);
+    }
+
+    int setup() {
+        for (int k = 0; k < 3; ++k) {
+            const Component& c = hd.comp[k];
+            if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return kCorrupt;
+            hmax = std::max(hmax, c.h);
+            vmax = std::max(vmax, c.v);
+        }
+        int blocks = 0;
+        for (const Component& c : hd.comp) blocks += c.h * c.v;
+        if (blocks > 10) return kCorrupt;  // libjpeg's D_MAX_BLOCKS_IN_MCU
+        // the first component at full size; the other two alike, at full
+        // size or halved across or both ways
+        const Component &c0 = hd.comp[0], &c1 = hd.comp[1], &c2 = hd.comp[2];
+        if (c0.h != hmax || c0.v != vmax || c1.h != c2.h || c1.v != c2.v ||
+            hmax % c1.h || vmax % c1.v)
+            return kUnsupported;
+        const int hx = hmax / c1.h, vx = vmax / c1.v;
+        if (!((hx == 1 && vx == 1) || (hx == 2 && vx == 1) || (hx == 2 && vx == 2)))
+            return kUnsupported;
+        // libjpeg's colour space guess (jdapimin.c)
+        if (hd.jfif) rgb = false;
+        else if (hd.adobe) rgb = hd.transform == 0;
+        else rgb = c0.id == 'R' && c1.id == 'G' && c2.id == 'B';
+        for (int k = 0; k < 3; ++k) {
+            Component& c = hd.comp[k];
+            if (c.tq > 3 || !hd.qdef[c.tq]) return kCorrupt;
+            const std::uint16_t* qt = hd.qt[c.tq];
+            for (int i = 0; i < 64; ++i) {
+                c.q[i] = fast ? static_cast<std::int16_t>(
+                                    (static_cast<std::int64_t>(qt[i]) * kAanScales[i] + (1 << 11)) >> 12)
+                              : static_cast<std::int16_t>(qt[i]);
+            }
+        }
+        // missing tables in slots 0 and 1 are Annex K's (jstdhuff.c)
+        if (!hd.dc[0].defined) standard_table(hd.dc[0], kDcLumBits, kDcVal, 12);
+        if (!hd.ac[0].defined) standard_table(hd.ac[0], kAcLumBits, kAcLumVal, 162);
+        if (!hd.dc[1].defined) standard_table(hd.dc[1], kDcChromBits, kDcVal, 12);
+        if (!hd.ac[1].defined) standard_table(hd.ac[1], kAcChromBits, kAcChromVal, 162);
+        for (const Component& c : hd.comp) {
+            if (c.td > 3 || c.ta > 3 || !hd.dc[c.td].defined || !hd.ac[c.ta].defined)
+                return kCorrupt;
+            if (!derive(hd.dc[c.td], true, dctab[c.td]) ||
+                !derive(hd.ac[c.ta], false, actab[c.ta]))
+                return kCorrupt;
+        }
+        mcux = (hd.width + 8 * hmax - 1) / (8 * hmax);
+        mcuy = (hd.height + 8 * vmax - 1) / (8 * vmax);
+        for (int k = 0; k < 3; ++k) {
+            Component& c = hd.comp[k];
+            c.width = static_cast<int>((static_cast<long>(hd.width) * c.h + hmax - 1) / hmax);
+            c.height = static_cast<int>((static_cast<long>(hd.height) * c.v + vmax - 1) / vmax);
+            c.stride = static_cast<std::size_t>(mcux) * c.h * 8;
+            c.rows = static_cast<std::size_t>(mcuy) * c.v * 8;
+            const int hxk = hmax / c.h, vxk = vmax / c.v;
+            if (hxk == 1 && vxk == 1) up[k] = Upsample::kNone;
+            else if (fast || c.width <= 2) up[k] = Upsample::kReplicate;
+            else up[k] = vxk == 2 ? Upsample::kH2V2 : Upsample::kH2V1;
+        }
+        return kOk;
+    }
+
+    void alloc() {
+        std::size_t total = 0;
+        for (const Component& c : hd.comp) total += c.stride * c.rows;
+        if (s->cap < total) {
+            s->planes.reset(new std::uint8_t[total]);
+            s->cap = total;
+        }
+        std::uint8_t* p = s->planes.get();
+        for (Component& c : hd.comp) {
+            c.plane = p;
+            p += c.stride * c.rows;
+        }
+        const std::size_t w = static_cast<std::size_t>(hd.width) + 16;
+        if (s->colsum.size() < w) s->colsum.resize(w);
+        if (s->packed.size() < w) s->packed.resize(w);
+        for (auto& r : s->row)
+            if (r.size() < w) r.resize(w);
+    }
+
+    // jpeg_resync_to_restart (jdmarker.c), for a marker that is not the
+    // RSTn expected next; returns with br.marker cleared (action 1) or
+    // left against a marker the next segment will meet (action 3).
+    void resync(BitReader& br, Source& src, int desired) {
+        for (;;) {
+            const int m = br.marker;
+            int action;
+            if (m < 0xC0) action = 2;
+            else if (m < 0xD0 || m > 0xD7) action = 3;
+            else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7))
+                action = 3;
+            else if (m == 0xD0 + ((desired - 1) & 7) || m == 0xD0 + ((desired - 2) & 7))
+                action = 2;
+            else
+                action = 1;
+            if (action == 1) {
+                br.marker = 0;
+                return;
+            }
+            if (action == 3) return;
+            br.marker = src.next_marker();
+        }
+    }
+
+    int run(const std::uint8_t* data, std::size_t n, std::size_t scan_at,
+            std::uint8_t* dst) {
+        Source src{data, n, scan_at};
+        BitReader br;
+        br.src = &src;
+        alloc();
+        int pred[3] = {0, 0, 0};
+        int togo = hd.restart, next_rst = 0;
+        alignas(16) std::int16_t blk[64];
+        const int band = 8 * vmax;
+        for (int my = 0; my < mcuy; ++my) {
+            for (int mx = 0; mx < mcux; ++mx) {
+                if (hd.restart) {
+                    if (togo == 0) {  // process_restart (jdhuff.c)
+                        br.nbits = 0;
+                        if (!br.marker) br.marker = src.next_marker();
+                        if (br.marker == 0xD0 + next_rst) br.marker = 0;
+                        else resync(br, src, next_rst);
+                        next_rst = (next_rst + 1) & 7;
+                        pred[0] = pred[1] = pred[2] = 0;
+                        togo = hd.restart;
+                        if (!br.marker) br.insufficient = false;
+                    }
+                }
+                // once the data ran out, the segment's MCUs stay zero
+                const bool skip = br.insufficient;
+                for (int i = 0; i < 3; ++i) {
+                    const int k = hd.scan_order[i];
+                    Component& c = hd.comp[k];
+                    const Huff& dct = dctab[c.td];
+                    const Huff& act = actab[c.ta];
+                    for (int by = 0; by < c.v; ++by) {
+                        for (int bx = 0; bx < c.h; ++bx) {
+                            std::memset(blk, 0, sizeof(blk));
+                            if (!skip) {
+                                int t = br.decode(dct);
+                                const int diff = t ? extend(br.get(t), t) : 0;
+                                pred[k] = static_cast<int>(static_cast<unsigned>(diff) +
+                                                           static_cast<unsigned>(pred[k]));
+                                blk[0] = static_cast<std::int16_t>(pred[k]);
+                                for (int z = 1; z < 64; ++z) {
+                                    if (br.nbits < kLook) br.fill();
+                                    if (br.nbits >= kLook) {  // code + bits at once
+                                        const std::int32_t e = act.fast_ac[
+                                            (br.buf >> (br.nbits - kLook)) & ((1 << kLook) - 1)];
+                                        if (e) {
+                                            br.nbits -= e & 0xFF;
+                                            z += (e >> 8) & 0xFF;
+                                            blk[kNatural[z]] = static_cast<std::int16_t>(e >> 16);
+                                            continue;
+                                        }
+                                    }
+                                    t = br.decode(act);
+                                    const int r = t >> 4, sz = t & 15;
+                                    if (sz) {
+                                        z += r;
+                                        blk[kNatural[z]] = static_cast<std::int16_t>(
+                                            extend(br.get(sz), sz));
+                                    } else {
+                                        if (r != 15) break;
+                                        z += 15;
+                                    }
+                                }
+                            }
+                            std::uint8_t* out = c.plane +
+                                (static_cast<std::size_t>(my) * c.v + by) * 8 * c.stride +
+                                (static_cast<std::size_t>(mx) * c.h + bx) * 8;
+                            if (fast) idct_ifast(blk, c.q, out, c.stride);
+                            else idct_islow(blk, c.q, out, c.stride);
+                        }
+                    }
+                }
+                if (hd.restart) --togo;
+            }
+            // the rows above this MCU row have every context row they need
+            if (my > 0)
+                convert(dst, (my - 1) * band, std::min(my * band, hd.height));
+        }
+        convert(dst, (mcuy - 1) * band, hd.height);
+        return trailer(br, src);
+    }
+
+    // The markers after the scan, up to EOI, as jpeg_finish_decompress
+    // reads them: a second scan is a mode this decoder does not read.
+    int trailer(BitReader& br, Source& src) {
+        int m = br.marker ? br.marker : src.next_marker();
+        for (;;) {
+            if (m == kEoi) return kOk;
+            if (m == 0xDA) return kUnsupported;
+            if (m == 0xD8 || (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC))
+                return kCorrupt;
+            const bool bare = (m >= 0xD0 && m <= 0xD7) || m == 0x01;
+            if (!bare) {
+                const bool known = m == 0xC4 || m == 0xCC || m == 0xDB || m == 0xDC ||
+                                   m == 0xDD || m == 0xFE || (m >= 0xE0 && m <= 0xEF);
+                if (!known) return kCorrupt;
+                const int len = (src.at(src.pos) << 8) | src.at(src.pos + 1);
+                src.pos += std::max(len, 2);
+            }
+            m = src.next_marker();
+        }
+    }
+};
+
+int decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst,
+           int height, int width, bool fast) {
+    Decoder dec;
+    dec.fast = fast;
+    dec.s = &tls_scratch;
+    Source src{data, n, 0};
+    int rc = read_header(src, dec.hd);
+    if (rc != kOk) return rc;
+    rc = dec.setup();
+    if (rc != kOk) return rc;
+    if (dec.hd.height != height || dec.hd.width != width) return kGeometry;
+    return dec.run(data, n, src.pos, dst);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode one JPEG (bytes src[0..n)) into dst = height*width*3 interleaved
+// BGR uint8.  Returns 0 on success; -1 a decode error (where libjpeg would
+// stop with one); -2 the frame's geometry differs from (height, width);
+// -3 not a 3-component image; -4 a mode this decoder does not read
+// (progressive, lossless, arithmetic, 12-bit, several scans, other
+// sampling).
+int clt_jpeg_decode_bgr(const unsigned char* src, std::size_t n,
+                        unsigned char* dst, int height, int width,
+                        int fast_dct) {
+    return decode(src, n, dst, height, width, fast_dct != 0);
+}
+
+// Decode k JPEGs (srcs[i], sizes[i] bytes) into dst, frame i at
+// i*height*width*3, on up to nthreads threads; rcs[i] gets frame i's
+// return code as clt_jpeg_decode_bgr gives it.
+void clt_jpeg_decode_bgr_batch(const unsigned char* const* srcs,
+                               const std::size_t* sizes, std::size_t k,
+                               unsigned char* dst, int height, int width,
+                               int fast_dct, int nthreads, int* rcs) {
+    const std::size_t frame = static_cast<std::size_t>(height) * width * 3;
+    parallel_items(k, nthreads, [&](std::size_t i) {
+        rcs[i] = decode(srcs[i], sizes[i], dst + i * frame, height, width,
+                        fast_dct != 0);
+    });
+}
+
+int clt_jpeg_version() { return 1; }
+
+}  // extern "C"

@@ -4,8 +4,8 @@ frames and the stream's geometry.
 Port of ``camera_linearity_tpu/utils/avi.py``, copied (importing the JAX
 package would import JAX).  An AVI file is a RIFF tree; the walker goes
 through it linearly and yields the video stream's data chunks.  For an MJPG
-codec a chunk is a complete JFIF image, handed to the native libjpeg
-decoder; for the ``RGBA`` codec (lossless, written by
+codec a chunk is a complete JFIF image, handed to the port's own JPEG
+decoder (``native/jpeg.cpp``); for the ``RGBA`` codec (lossless, written by
 ``cv2.VideoWriter_fourcc(*"RGBA")``) a chunk is one top-down frame of
 H * W * 4 bytes in R, G, B, A order, read here with NumPy.  So the port
 reads both without a video codec library, and reads exactly the frames
@@ -25,13 +25,15 @@ Reference decode flow: modules/general_functions.py:226-251
 """
 from __future__ import annotations
 
+import re
 import struct
 from pathlib import Path
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "AviInfo"]
+__all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "AviInfo",
+           "JpegInfo", "jpeg_unsupported"]
 
 # containers we descend into: their payload is a fourcc + nested chunks
 _CONTAINERS = (b"RIFF", b"LIST")
@@ -97,9 +99,24 @@ def _open_avi(f) -> bool:
     return len(head) == 12 and head[:4] == b"RIFF" and head[8:] == b"AVI "
 
 
-def _first_jpeg_sof(path: Path) -> Optional[Tuple[int, int, int]]:
-    """(height, width, components) of an AVI's first video frame when it
-    is a JPEG, else None."""
+class JpegInfo(NamedTuple):
+    """What a JPEG's headers say before any entropy-coded data is decoded:
+    geometry, components, sample precision in bits, the start-of-frame
+    marker (``0xC0`` baseline, ``0xC1`` extended sequential, ``0xC2``
+    progressive, ...), each component's (horizontal, vertical) sampling
+    factors and the number of scans (SOS markers)."""
+    height: int
+    width: int
+    components: int
+    precision: int
+    sof: int
+    sampling: Tuple[Tuple[int, int], ...]
+    scans: int
+
+
+def _first_jpeg_sof(path: Path) -> Optional[JpegInfo]:
+    """The headers of an AVI's first video frame when it is a JPEG, else
+    None."""
     try:
         with open(path, "rb") as f:
             if not _open_avi(f):
@@ -112,39 +129,106 @@ def _first_jpeg_sof(path: Path) -> Optional[Tuple[int, int, int]]:
     return _jpeg_sof(first)
 
 
-def _jpeg_sof(data: bytes) -> Optional[Tuple[int, int, int]]:
-    """(height, width, components) from a JPEG's start-of-frame segment."""
+# the end of entropy-coded data: 0xFF (fill 0xFFs too) before a byte that
+# is neither a stuffed zero nor a restart marker
+_SCAN_END = re.compile(rb"\xff+[^\x00\xd0-\xd7\xff]")
+
+
+def _jpeg_sof(data: bytes) -> Optional[JpegInfo]:
+    """A JPEG's :class:`JpegInfo` from its marker segments up to EOI (the
+    scans' entropy-coded data is skipped, not decoded); None without a
+    start-of-frame segment."""
     i = 2
     n = len(data)
-    while i + 4 <= n:
+    sof = None
+    scans = 0
+    while i + 2 <= n:
         if data[i] != 0xFF:
             return None
         marker = data[i + 1]
         if marker == 0xFF:  # 0xFF fill bytes before a marker are legal
             i += 1
             continue
+        if marker == 0xD9:
+            break
         if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
             i += 2
             continue
+        if i + 4 > n:
+            break
         seg_len = struct.unpack(">H", data[i + 2:i + 4])[0]
         # SOF0..SOF15 except DHT(C4)/JPG(C8)/DAC(CC) carry geometry
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             if i + 10 > n:
                 return None
-            height, width, comps = struct.unpack(">HHB", data[i + 5:i + 10])
-            return height, width, comps
+            precision, height, width, comps = struct.unpack(
+                ">BHHB", data[i + 4:i + 10])
+            factors = data[i + 10:i + 10 + 3 * comps][1::3]
+            sof = (height, width, comps, precision, marker,
+                   tuple((b >> 4, b & 15) for b in factors))
         i += 2 + seg_len
+        if marker == 0xDA:
+            scans += 1
+            end = _SCAN_END.search(data, i)
+            if end is None:
+                break
+            i = end.end() - 2
+    if sof is None:
+        return None
+    return JpegInfo(*sof, scans)
+
+
+_PROCESS = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
+            0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
+            0xC9: "arithmetic coding", 0xCA: "progressive arithmetic coding",
+            0xCB: "lossless arithmetic coding",
+            0xCD: "hierarchical arithmetic coding",
+            0xCE: "hierarchical progressive arithmetic coding",
+            0xCF: "hierarchical lossless arithmetic coding"}
+
+
+def jpeg_unsupported(data_or_info) -> Optional[str]:
+    """The feature of a JPEG (bytes or its :class:`JpegInfo`) that the
+    port's decoder does not read, or None when it reads the headers'
+    mode: baseline or extended-sequential Huffman coding of 8-bit
+    samples, three components in one scan, the second and third sampled
+    alike at full size, halved across (4:2:2) or halved both ways
+    (4:2:0)."""
+    info = data_or_info if isinstance(data_or_info, JpegInfo) else \
+        _jpeg_sof(bytes(data_or_info))
+    if info is None:
+        return "no start-of-frame segment"
+    if info.sof in _PROCESS:
+        return _PROCESS[info.sof]
+    if info.sof not in (0xC0, 0xC1):
+        return f"start-of-frame marker 0x{info.sof:02X}"
+    if info.precision != 8:
+        return f"{info.precision}-bit samples"
+    if info.components == 1:
+        return "grayscale"
+    if info.components != 3:
+        return f"{info.components} components"
+    if info.scans != 1:
+        return f"multi-scan ({info.scans} scans)"
+    (h0, v0), (h1, v1), (h2, v2) = info.sampling
+    ratio = (h0 // max(h1, 1), v0 // max(v1, 1))
+    if (h0, v0) != (max(h0, h1, h2), max(v0, v1, v2)) or \
+            (h1, v1) != (h2, v2) or h0 % max(h1, 1) or v0 % max(v1, 1) or \
+            ratio not in ((1, 1), (2, 1), (2, 2)):
+        return "sampling " + " ".join(f"{h}x{v}" for h, v in info.sampling)
     return None
 
 
 class AviInfo(NamedTuple):
     """An AVI video stream's codec (the BITMAPINFOHEADER's compression
     fourcc, e.g. ``"MJPG"`` or ``"RGBA"``; ``"DIB"`` for uncompressed
-    BI_RGB), frame geometry and components per pixel."""
+    BI_RGB), frame geometry and components per pixel; for MJPG also the
+    first frame's :class:`JpegInfo`."""
     codec: str
     height: int
     width: int
     components: int
+    jpeg: Optional[JpegInfo] = None
 
 
 def probe_avi(path: Path) -> Optional[AviInfo]:
@@ -152,10 +236,11 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
     headers, or None when ``path`` is not a readable AVI with a video
     stream.
 
-    For MJPG the geometry and the component count come from the first
-    frame's own SOF segment, not the container's header, so a lying
-    container cannot route mismatched frames into a fixed-size decode
-    buffer (the native decoder re-checks every frame anyway); for other
+    For MJPG the geometry, the component count and the JPEG mode
+    (:class:`JpegInfo`) come from the first frame's own headers, not the
+    container's, so a lying container cannot route mismatched frames into
+    a fixed-size decode buffer (the native decoder re-checks every frame
+    anyway); for other
     codecs from the stream's BITMAPINFOHEADER (components = bits per pixel
     / 8).
     """
@@ -184,7 +269,7 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
         sof = _first_jpeg_sof(path)
         if sof is None:
             return None
-        return AviInfo(codec, *sof)
+        return AviInfo(codec, sof.height, sof.width, sof.components, sof)
     return AviInfo(codec, abs(height), width, bit_count // 8)
 
 

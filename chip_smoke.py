@@ -31,20 +31,32 @@ each.  Inputs come from fixed numpy seeds; tables are gamma-like response
 curves.
 
 Phases 12-14, BASELINE config 5 (video -> HDR): build the native host
-library (and, where libjpeg is there, the MJPEG decoder, held to committed
-frames), write three raw RGBA exposure videos of 12 frames at 2160 x 3840
-into a temporary directory; run ``welford_algorithm`` on the card against
-the host backend and the CPU in float64, and ``compute_noise_profiles``
-against the CPU; run ``batch_video_to_hdr`` on 8 scenes with the
-calibration leg, once with the u16/f16 wire and once with f32/f32, holding
-scenes 0 and 7 against the plain merge, the stacks against a NumPy
-moments oracle and the leg's energy against the reference's; then
-``video_to_hdr`` through K3.  It times the device Welford and K1 at B = 8
-beside their bounds, and K3's share of ``video_to_hdr``.
+library and the port's MJPEG decoder (``native/jpeg.cpp``, no libjpeg),
+decode ``tests/data/mjpg 5ms.avi`` in both modes (``turbo`` equal to the
+committed libjpeg frames bit for bit) and hold ``jpeg.cpp`` to
+``native/jpeg_plain.py`` bit for bit on frames this script encodes (37 x
+53 and 64 x 3840 noise; 4:4:4, 4:2:2, 4:2:0; with and without DRI; both
+modes); write three raw RGBA exposure videos of 12 frames at 2160 x 3840
+into a temporary directory, and the same content as MJPG AVIs
+(``tests/_torch_mjpeg_writer.py``, as ``cv2.VideoWriter`` writes them; a
+pool of distinct frames cycled to 12, cached under ``build/``), timing
+one 4K frame's decode on one thread and on all; run ``welford_algorithm``
+on the card against the host backend and the CPU in float64, and
+``compute_noise_profiles`` against the CPU; run ``batch_video_to_hdr`` on
+8 scenes with the calibration leg, from raw AVIs once with the u16/f16
+wire and once with f32/f32, then from MJPG AVIs with ``turbo_fast`` and
+u16/f16 and with ``turbo`` and f32/f32, holding scenes 0 and 7 against
+the plain merge, the stacks against a NumPy moments oracle (fed, for
+MJPG, by ``jpeg_plain.py``'s decode of crop videos) and the leg's energy
+against the reference's; then ``video_to_hdr`` through K3 on each kind.
+It times the device Welford and K1 at B = 8 beside their bounds, K3's
+share of ``video_to_hdr``, and ``welford_algorithm`` on one MJPG video by
+decoder threads.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, and run ``calibrate``,
-``merge``, ``video``, ``dorf``, ``linearity`` and ``doctor`` in-process;
+``merge``, ``video`` (on the raw and the MJPG videos), ``dorf``,
+``linearity`` and ``doctor`` in-process;
 ``linearity`` logs its fits with or without matplotlib (the card's machine
 has none: then no PNG is written and one warning says so).
 
@@ -91,6 +103,7 @@ no last line.  Without a CUDA device it exits with code 2.
 """
 import json
 import logging
+import os
 import struct
 import subprocess
 import sys
@@ -133,6 +146,14 @@ EXPOSURES5_MS = (5, 10, 20)
 # reach dark_threshold (35 ms) and get dark frames
 FILE_EXPOSURES_MS = (5, 10, 20, 40, 80, 160)
 CROP_ROWS = 64   # rows held against the CPU in float64 and the oracle
+# phases 12-14, config 5 from MJPG AVIs as cv2.VideoWriter writes them:
+# each exposure cycles a pool of 4 distinct frames (bench_video.py cycles
+# 12) at a quality whose 4K frames weigh what cv2's do (1.9-2.5 MB); the
+# oracle's crops are 16 rows taller than CROP_ROWS, so that their first
+# CROP_ROWS rows decode as the full frame's (fancy upsampling reads the
+# chroma row below)
+MJPG_POOL, MJPG_QUALITY, MJPG_CROP_ROWS = 4, 25, CROP_ROWS + 16
+ROOT = Path(__file__).resolve().parent
 # phase 20 (b): a worker process that has not finished by then fails it
 PHASE20_WORKER_TIMEOUT_S = 300
 SOURCES = {
@@ -698,12 +719,13 @@ def make_videos(directory, dev):
     makes them (a uniform base x exposure x 230 plus N(0, 6) noise, clipped
     to uint8), generated on the card from seed 42 and written as raw RGBA
     AVIs: ``scene <ms>ms.avi`` at full size and ``crop <ms>ms.avi`` of
-    their first CROP_ROWS rows.  Returns both path lists and each
-    exposure's (frames, CROP_ROWS, W, 3) BGR crop for the NumPy oracle."""
+    their first CROP_ROWS rows.  Returns both path lists, each exposure's
+    (frames, CROP_ROWS, W, 3) BGR crop for the NumPy oracle and its first
+    MJPG_POOL frames (BGR) for the MJPG videos."""
     gen = torch.Generator(device=dev).manual_seed(42)
     base = torch.rand((H5, W5, 3), generator=gen, device=dev)
     rgba = torch.full((H5, W5, 4), 255, dtype=torch.uint8, device=dev)
-    paths, crop_paths, crops = [], [], []
+    paths, crop_paths, crops, pools = [], [], [], []
     for ms in EXPOSURES5_MS:
         level = (base * (ms / max(EXPOSURES5_MS)) * 230).clamp(0, 255)
         full, crop = [], []
@@ -721,8 +743,9 @@ def make_videos(directory, dev):
             out.append(directory / f"{name} {ms}ms.avi")
             write_rgba_avi(out[-1], frames, rows, W5)
         crops.append(np.stack(crop)[..., 2::-1])
+        pools.append(np.stack([f[..., 2::-1] for f in full[:MJPG_POOL]]))
         del full
-    return paths, crop_paths, crops
+    return paths, crop_paths, crops, pools
 
 
 def moments_oracle(frames_u8):
@@ -754,60 +777,172 @@ def check_gap(label, got, want, atol, failures, rtol=0.0):
         failures.append(label)
 
 
+def make_mjpg_videos(pools):
+    """Config 5's exposure videos as MJPG AVIs, written by the NumPy writer
+    of ``tests/_torch_mjpeg_writer.py`` as ``cv2.VideoWriter`` writes them
+    (4:2:0, one quantization table, no DRI): each exposure's MJPG_POOL
+    distinct frames (``pools``, BGR) cycled to FRAMES5, as
+    ``benchmarks/bench_video.py:59-66`` cycles its pool, at full size and
+    as MJPG_CROP_ROWS-row crops.  Cached under ``build/`` by the frames'
+    bytes and the writer's source.  Returns (paths, crop paths, seconds
+    spent encoding, or None when the cache had them)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    from tests import _torch_mjpeg_writer as writer
+
+    key = hashlib.md5(usedforsecurity=False)
+    key.update(Path(writer.__file__).read_bytes())
+    key.update(f"{MJPG_QUALITY} {FRAMES5} {MJPG_CROP_ROWS}".encode())
+    for pool in pools:
+        key.update(np.ascontiguousarray(pool).data)
+    cache = ROOT / "build" / "chip_smoke_mjpg" / key.hexdigest()[:12]
+    paths = [cache / f"mjpg scene {ms}ms.avi" for ms in EXPOSURES5_MS]
+    crop_paths = [cache / f"mjpg crop {ms}ms.avi" for ms in EXPOSURES5_MS]
+    if all(p.exists() for p in paths + crop_paths):
+        return paths, crop_paths, None
+    t0 = time.perf_counter()
+    cache.mkdir(parents=True, exist_ok=True)
+    jobs = [f for pool in pools for f in pool] + \
+        [f[:MJPG_CROP_ROWS] for pool in pools for f in pool]
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        coded = list(ex.map(lambda f: writer.encode_jpeg(f, MJPG_QUALITY),
+                            jobs))
+    full, crop = coded[:len(coded) // 2], coded[len(coded) // 2:]
+    for e in range(len(pools)):
+        for out, frames, rows in ((paths[e], full, H5),
+                                  (crop_paths[e], crop, MJPG_CROP_ROWS)):
+            own = frames[e * MJPG_POOL:(e + 1) * MJPG_POOL]
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            writer.write_mjpg_avi(
+                tmp, [own[i % MJPG_POOL] for i in range(FRAMES5)], rows, W5)
+            os.replace(tmp, out)
+    return paths, crop_paths, time.perf_counter() - t0
+
+
+def plain_crop_frames(crop_path, fast: bool):
+    """The first CROP_ROWS rows of every frame of an MJPG crop video, as
+    ``native/jpeg_plain.py`` decodes them: the NumPy oracle's input.  Each
+    distinct payload is decoded once."""
+    from camera_linearity_tpu_torch.native import jpeg_plain
+    from camera_linearity_tpu_torch.utils import avi
+    decoded, frames = {}, []
+    for payload in avi.mjpg_chunks(crop_path):
+        if payload not in decoded:
+            decoded[payload] = jpeg_plain.decode(payload, fast)[:CROP_ROWS]
+        frames.append(decoded[payload])
+    return np.stack(frames)
+
+
 def video_phases(dev, res, directory) -> dict:
-    """Phases 12-14: config 5, the video -> HDR pipeline, with the videos
-    written into ``directory``.  Returns each kernel's launches on these
-    paths, its config-5 times and the three 4K videos' paths."""
-    import ctypes.util
+    """Phases 12-14: config 5, the video -> HDR pipeline, with the raw
+    videos written into ``directory`` and the MJPG ones cached under
+    ``build/``.  Returns each kernel's launches on these paths, its
+    config-5 times and both sets of 4K videos' paths."""
     from camera_linearity_tpu_torch import native
     from camera_linearity_tpu_torch.models import calibration as cal
     from camera_linearity_tpu_torch.models import pipeline, video
     from camera_linearity_tpu_torch.models.scipy_strict import \
         reference_energy
+    from camera_linearity_tpu_torch.native import jpeg_plain
     from camera_linearity_tpu_torch.ops import hdr as hdr_ops
     from camera_linearity_tpu_torch.ops import hdr_cuda
     from camera_linearity_tpu_torch.ops import welford as wf
     from camera_linearity_tpu_torch.utils import avi
     from camera_linearity_tpu_torch.utils import observability as obs
+    from tests import _torch_mjpeg_writer as writer
 
-    # --- phase 12: native builds, the MJPEG check, the videos -------------
-    log("phase 12: native host library, MJPEG decoder, config-5 videos")
+    # --- phase 12: native builds, the MJPEG checks, the videos ------------
+    log("phase 12: native host library, MJPEG decoder, config-5 videos "
+        f"(host: {os.cpu_count()} CPUs)")
     t0 = time.perf_counter()
     if not native.available():
         raise AssertionError("the native stager did not build: "
                              f"{native.build_error()}")
     log(f"  stager built and loaded in {time.perf_counter() - t0:.2f} s: "
         f"{native._lib_path()}")
-    has_header = Path("/usr/include/jpeglib.h").exists()
-    log(f"  jpeglib.h present: {has_header}; libjpeg: "
-        f"{ctypes.util.find_library('jpeg')}")
-    mjpeg = native.mjpeg_available()
-    log(f"mjpeg_available: {mjpeg}")
-    if mjpeg:
-        data = Path(__file__).resolve().parent / "tests" / "data"
-        got = []
-        for payload in avi.mjpg_chunks(data / "mjpg 5ms.avi"):
-            dst = np.empty((32, 48, 3), np.uint8)
-            native.jpeg_decode_bgr(payload, dst)
-            got.append(dst)
-        got = np.stack(got)
-        want = np.load(data / "mjpg 5ms.libjpeg.npy")
-        cv = np.load(data / "mjpg 5ms.cv2.npy")
-        if not np.array_equal(got, want):
-            raise AssertionError("MJPEG decode differs from the committed "
-                                 "libjpeg frames")
-        log(f"  ok  MJPEG decode of {len(got)} frames equals the committed "
-            f"libjpeg frames; max |libjpeg - cv2| {max_gap(got, cv):.0f} DN")
-    else:
-        log(f"  MJPEG check left out: {native.build_error('_mjpeg')}")
     t0 = time.perf_counter()
-    paths, crop_paths, crops = make_videos(directory, dev)
+    if not native.mjpeg_available():
+        raise AssertionError("the MJPEG decoder did not build: "
+                             f"{native.build_error('_mjpeg')}")
+    log(f"  MJPEG decoder (jpeg.cpp, no libjpeg) built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s: "
+        f"{native._lib_path('_mjpeg', native._MJPEG_SRC)}")
+    data = ROOT / "tests" / "data"
+    payloads = list(avi.mjpg_chunks(data / "mjpg 5ms.avi"))
+    want = np.load(data / "mjpg 5ms.libjpeg.npy")
+    cv = np.load(data / "mjpg 5ms.cv2.npy")
+    for mode, fast in (("turbo", False), ("turbo_fast", True)):
+        got = np.empty((len(payloads), 32, 48, 3), np.uint8)
+        native.jpeg_decode_bgr_batch(payloads, got, fast=fast)
+        same = np.array_equal(got, want)
+        if mode == "turbo" and not same:
+            raise AssertionError("the turbo decode of mjpg 5ms.avi differs "
+                                 "from the committed libjpeg frames")
+        log(f"  {'ok ' if same or fast else 'BAD'} {mode} decode of "
+            f"'mjpg 5ms.avi' ({len(got)} frames): "
+            f"{'equals' if same else 'differs from'} the committed libjpeg "
+            f"(islow, fancy) frames, max |.| {max_gap(got, want):.0f} DN; "
+            f"max |. - cv2| {max_gap(got, cv):.0f} DN")
+    rng = np.random.default_rng(SEED)
+    failures, cases = [], 0
+    t0 = time.perf_counter()
+    for h, w in ((37, 53), (64, 3840)):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        for sampling in writer.SAMPLING:
+            for restart in (0, 7):
+                frame = writer.encode_jpeg(img, 75, sampling, restart)
+                for fast in (False, True):
+                    got = np.empty((h, w, 3), np.uint8)
+                    native.jpeg_decode_bgr(frame, got, fast=fast)
+                    cases += 1
+                    if not np.array_equal(got, jpeg_plain.decode(frame,
+                                                                 fast)):
+                        failures.append(f"{h} x {w} {sampling} DRI "
+                                        f"{restart} fast={fast}")
+    log(f"  {'ok ' if not failures else 'BAD'} jpeg.cpp == jpeg_plain.py bit "
+        f"for bit on {cases} decodes (noise at 37 x 53 and 64 x 3840; 4:4:4, "
+        f"4:2:2, 4:2:0; no DRI and DRI 7; both modes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    raise_failures("phase 12, jpeg.cpp against jpeg_plain.py", failures)
+    t0 = time.perf_counter()
+    paths, crop_paths, crops, pools = make_videos(directory, dev)
     log(f"  wrote {len(paths)} videos of {FRAMES5} x {H5} x {W5} x 3 "
         f"(RGBA, {paths[0].stat().st_size / 1e6:.1f} MB each) and their "
         f"{CROP_ROWS}-row crops in {time.perf_counter() - t0:.1f} s")
     info = avi.probe_avi(paths[0])
-    if info != ("RGBA", H5, W5, 4):
+    if info[:4] != ("RGBA", H5, W5, 4):
         raise AssertionError(f"probe_avi: {info}")
+    mjpg_paths, mjpg_crop_paths, enc_s = make_mjpg_videos(pools)
+    sizes = [len(p) for p in avi.mjpg_chunks(mjpg_paths[-1])][:MJPG_POOL]
+    log(f"  MJPG: {len(mjpg_paths)} videos of {FRAMES5} frames cycling a "
+        f"pool of {MJPG_POOL} distinct frames each (quality "
+        f"{MJPG_QUALITY}, 4:2:0, no DRI; {MJPG_CROP_ROWS}-row crops "
+        f"beside them), "
+        + ("from the cache" if enc_s is None else f"encoded in {enc_s:.1f} s")
+        + f": {mjpg_paths[0].parent}")
+    info = avi.probe_avi(mjpg_paths[0])
+    if info[:4] != ("MJPG", H5, W5, 3) or avi.jpeg_unsupported(info.jpeg):
+        raise AssertionError(f"probe_avi: {info}")
+    # one 4K frame of the brightest exposure: one thread, then a batch of
+    # the video's frames on every core
+    frame = next(avi.mjpg_chunks(mjpg_paths[-1]))
+    batch = list(avi.mjpg_chunks(mjpg_paths[-1]))
+    decode_ms = {}
+    for mode, fast in (("turbo", False), ("turbo_fast", True)):
+        one = np.empty((1, H5, W5, 3), np.uint8)
+        many = np.empty((len(batch), H5, W5, 3), np.uint8)
+        native.jpeg_decode_bgr_batch([frame], one, fast=fast)  # warm
+        single = host_ms(lambda: native.jpeg_decode_bgr_batch(
+            [frame], one, fast=fast, threads=1), runs=5, warmup=1)
+        wide = host_ms(lambda: native.jpeg_decode_bgr_batch(
+            batch, many, fast=fast), runs=3, warmup=1) / len(batch)
+        decode_ms[mode] = dict(one_thread=single, all_threads=wide)
+        log(f"  {mode}: one 4K frame ({len(frame) / 1e6:.3f} MB) "
+            f"{single:.1f} ms on one thread; {wide:.1f} ms a frame over a "
+            f"batch of {len(batch)} on {os.cpu_count()} threads (host "
+            "clock, median)")
+        del one, many
+    log(f"  frame bytes of the pool: {[s / 1e6 for s in sizes]} MB")
     icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
             ** np.array([2.0, 2.2, 2.4]))
 
@@ -884,11 +1019,12 @@ def video_phases(dev, res, directory) -> dict:
                 mean_icrf_arrays=np.stack([mean_icrf] * 3),
                 spacing=max(1, H5 * W5 // 2000), popsize=15, maxiter=1000,
                 tol=0.01, rng_seed=7)
-    scene_map = {f"scene{i}": paths for i in range(SCENES5)}
     n_frames = FRAMES5 * len(paths) * SCENES5
     log(f"phase 14: batch_video_to_hdr, {SCENES5} scenes x "
         f"{len(paths)} exposures x {H5} x {W5} x 3, calibration leg on "
-        f"(spacing {spec['spacing']}, popsize 15, maxiter 1000, tol 0.01)")
+        f"(spacing {spec['spacing']}, popsize 15, maxiter 1000, tol 0.01): "
+        "raw RGBA u16/f16 and f32/f32, then MJPG turbo_fast u16/f16 and "
+        "turbo f32/f32")
     # record what the pipeline hands the merge (ops/hdr.py's entry points,
     # looked up at call time) and the solver, to hold them to the plain
     # versions and the oracle afterwards
@@ -907,121 +1043,151 @@ def video_phases(dev, res, directory) -> dict:
         out = solve(*args, **kwargs, return_params=True)
         rec["solve"] = (kwargs["channel_stacks"], out)
         return out[:4]
-    for name in originals:
-        setattr(hdr_ops, name, recorder(name))
-    cal.calibration = recording_solve
-    launches, k1_times = {}, {}
-    try:
-        for wire_val, wire_std in (("u16", "f16"), ("f32", "f32")):
-            label = f"batch_video_to_hdr {wire_val}/{wire_std}"
-            failures = []
-            t0 = time.perf_counter()
-            warm = pipeline.prewarm_batch_video_to_hdr(
-                SCENES5, len(paths), H5, W5, icrf, calibrate=spec,
-                wire_val=wire_val, wire_std=wire_std)
-            log(f"  prewarm {wire_val}/{wire_std}: "
-                f"{time.perf_counter() - t0:.1f} s; h2d {warm['h2d_mbps']} "
-                "MB/s (one pinned std plane, host clock)")
-            for k in hdr_cuda.KERNELS:
-                k.launches = 0
-            obs.reset_stage_times()
-            rec.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = pipeline.batch_video_to_hdr(
-                scene_map, icrf, wire_val=wire_val, wire_std=wire_std,
-                calibrate=spec)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
-            launches[label] = counts
-            decoded = obs.decoded_frames.snapshot()
-            mps = n_frames * H5 * W5 / 1e6 / wall
-            log(f"  {label}: wall {wall:.3f} s, {mps:.2f} MP/s ({n_frames} "
-                f"frames x {H5} x {W5}); launches {counts}; decoders "
-                f"{decoded}")
-            log(f"  stages: {obs.snapshot_stage_times()}")
-            if counts != {"merge_nhwc_fused": 1, "merge_nhwc_lerp": 0,
-                          "merge_nhwc_lerp_bp": 0}:
-                failures.append(f"launches {counts}")
-            if decoded != {"raw": n_frames}:
-                failures.append(f"decoders {decoded}")
-            (bv, bs, ex, ic, icd), _ = rec["merge_batch"]
-            for s in (0, SCENES5 - 1):
-                got = out[f"scene{s}"].measurand
-                res.check("merge_nhwc_fused", f"{label}: scene {s} vs "
-                          "merge_fused_plain", (got.val, got.std),
-                          hdr_cuda.merge_fused_plain(bv[s], bs[s], ex, ic,
-                                                     icd))
-            for e, crop in enumerate(crops):
-                om, ostd = moments_oracle(crop)
-                gv = bv[0, e, :CROP_ROWS].cpu().numpy()
-                gs = bs[0, e, :CROP_ROWS].cpu().numpy()
-                if wire_val == "f32":
-                    check_gap(f"exposure {e} stack vs oracle, val", gv,
-                              om.astype(np.float32), 0.0, failures)
-                    check_gap(f"exposure {e} stack vs oracle, std", gs,
-                              ostd.astype(np.float32), 0.0, failures)
-                else:  # the wire's bounds, plus the f32 roundings of
-                    # the dequantization (grid constant and product)
-                    check_gap(f"exposure {e} stack vs oracle, val", gv, om,
-                              2.0 ** -17 + 2.0 ** -23, failures)
-                    check_gap(f"exposure {e} stack vs oracle, std", gs, ostd,
-                              2.0 ** -25, failures, rtol=2.0 ** -11)
-            stacks, solved = rec["solve"]
-            dn = stacks[0].cpu().numpy()
-            t_exp = stacks[2].cpu().numpy().astype(float)
-            for c in range(3):
-                oracle = reference_energy(solved[4][c], spec[
-                    "mean_icrf_arrays"][c], spec["pca_arrays"][c],
-                    dn[c][:, None, :], None, 5, 250, True, t_exp, 256)
-                gap = abs(solved[2][c] - oracle) / oracle
-                log(f"  calibration leg, channel {c}: final energy "
-                    f"{solved[2][c]:.8f}, oracle {oracle:.8f} (rel gap "
-                    f"{gap:.2e}), {dn.shape[1]} pixels")
-                if not gap <= ORACLE_RTOL:
-                    failures.append(f"channel {c} energy against the oracle")
-            for name, got in out.items():
-                v = got.measurand.val
-                if tuple(v.shape) != (H5, W5, 3) or \
-                        not torch.isfinite(v).all() or \
-                        not torch.isfinite(got.measurand.std).all():
-                    failures.append(f"{name} shape or non-finite values")
-            raise_failures(f"phase 14, {label}", failures)
-            if wire_val == "u16":
-                k1_times = time_k1_batch(dev, bv, bs, ex, ic, icd)
-            else:  # phase 20 holds the distributed path to this run
-                f32_run = dict(out={k: (v.measurand.val, v.measurand.std)
-                                    for k, v in out.items()},
-                               wall=wall, mps=mps,
-                               stages=obs.snapshot_stage_times())
-            del out, bv, bs, ex, ic, icd
-            rec.clear()
-            torch.cuda.empty_cache()
 
-        # video_to_hdr for one scene: one K3 launch
+    def run_batch(label, scene_paths, oracle_frames, wire_val, wire_std,
+                  decoder, decoded_as):
+        """One batch_video_to_hdr call with the counts reset, held to the
+        plain merge, the NumPy oracle at the crop and the reference
+        energy; returns what phase 14 keeps of it."""
+        failures = []
+        t0 = time.perf_counter()
+        warm = pipeline.prewarm_batch_video_to_hdr(
+            SCENES5, len(scene_paths), H5, W5, icrf, calibrate=spec,
+            wire_val=wire_val, wire_std=wire_std)
+        log(f"  prewarm {wire_val}/{wire_std}: "
+            f"{time.perf_counter() - t0:.1f} s; h2d {warm['h2d_mbps']} "
+            "MB/s (one pinned std plane, host clock)")
         for k in hdr_cuda.KERNELS:
             k.launches = 0
+        obs.reset_stage_times()
+        rec.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hdr_set = pipeline.video_to_hdr(paths, icrf)
+        out = pipeline.batch_video_to_hdr(
+            {f"scene{i}": scene_paths for i in range(SCENES5)}, icrf,
+            wire_val=wire_val, wire_std=wire_std, calibrate=spec,
+            decoder=decoder)
         torch.cuda.synchronize()
-        t_v2h = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
         counts = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
-        launches["video_to_hdr"] = counts
-        log(f"  video_to_hdr: {t_v2h:.3f} s host clock; launches {counts}")
+        launches[label] = counts
+        decoded = obs.decoded_frames.snapshot()
+        stages = obs.snapshot_stage_times()
+        mps = n_frames * H5 * W5 / 1e6 / wall
+        log(f"  {label}: wall {wall:.3f} s, {mps:.2f} MP/s ({n_frames} "
+            f"frames x {H5} x {W5}); launches {counts}; decoders "
+            f"{decoded}")
+        log(f"  stages: {stages}")
+        if counts != {"merge_nhwc_fused": 1, "merge_nhwc_lerp": 0,
+                      "merge_nhwc_lerp_bp": 0}:
+            failures.append(f"launches {counts}")
+        if decoded != {decoded_as: n_frames}:
+            failures.append(f"decoders {decoded}")
+        (bv, bs, ex, ic, icd), _ = rec["merge_batch"]
+        for s in (0, SCENES5 - 1):
+            got = out[f"scene{s}"].measurand
+            res.check("merge_nhwc_fused", f"{label}: scene {s} vs "
+                      "merge_fused_plain", (got.val, got.std),
+                      hdr_cuda.merge_fused_plain(bv[s], bs[s], ex, ic,
+                                                 icd))
+        for e, crop in enumerate(oracle_frames):
+            om, ostd = moments_oracle(crop)
+            gv = bv[0, e, :CROP_ROWS].cpu().numpy()
+            gs = bs[0, e, :CROP_ROWS].cpu().numpy()
+            if wire_val == "f32":
+                check_gap(f"exposure {e} stack vs oracle, val", gv,
+                          om.astype(np.float32), 0.0, failures)
+                check_gap(f"exposure {e} stack vs oracle, std", gs,
+                          ostd.astype(np.float32), 0.0, failures)
+            else:  # the wire's bounds, plus the f32 roundings of the
+                # dequantization (grid constant and product)
+                check_gap(f"exposure {e} stack vs oracle, val", gv, om,
+                          2.0 ** -17 + 2.0 ** -23, failures)
+                check_gap(f"exposure {e} stack vs oracle, std", gs, ostd,
+                          2.0 ** -25, failures, rtol=2.0 ** -11)
+        stacks, solved = rec["solve"]
+        dn = stacks[0].cpu().numpy()
+        t_exp = stacks[2].cpu().numpy().astype(float)
+        for c in range(3):
+            oracle = reference_energy(solved[4][c], spec[
+                "mean_icrf_arrays"][c], spec["pca_arrays"][c],
+                dn[c][:, None, :], None, 5, 250, True, t_exp, 256)
+            gap = abs(solved[2][c] - oracle) / oracle
+            log(f"  calibration leg, channel {c}: final energy "
+                f"{solved[2][c]:.8f}, oracle {oracle:.8f} (rel gap "
+                f"{gap:.2e}), {dn.shape[1]} pixels")
+            if not gap <= ORACLE_RTOL:
+                failures.append(f"channel {c} energy against the oracle")
+        for name, got in out.items():
+            v = got.measurand.val
+            if tuple(v.shape) != (H5, W5, 3) or \
+                    not torch.isfinite(v).all() or \
+                    not torch.isfinite(got.measurand.std).all():
+                failures.append(f"{name} shape or non-finite values")
+        raise_failures(f"phase 14, {label}", failures)
+        kept = dict(wall=wall, mps=mps, stages=stages,
+                    merge=(bv, bs, ex, ic, icd),
+                    out={k: (v.measurand.val, v.measurand.std)
+                         for k, v in out.items()})
+        del out
+        rec.clear()
+        return kept
+
+    def run_video_to_hdr(label, video_paths, decoded_as):
+        """video_to_hdr on one scene with the counts reset: one K3 launch,
+        held to its plain version."""
+        for k in hdr_cuda.KERNELS:
+            k.launches = 0
+        obs.reset_stage_times()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hdr_set = pipeline.video_to_hdr(video_paths, icrf)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+        decoded = obs.decoded_frames.snapshot()
+        launches[label] = counts
+        log(f"  {label}: {seconds:.3f} s host clock; launches {counts}; "
+            f"decoders {decoded}; stages {obs.snapshot_stage_times()}")
         if counts != {"merge_nhwc_fused": 0, "merge_nhwc_lerp": 0,
                       "merge_nhwc_lerp_bp": 1}:
-            raise AssertionError(f"video_to_hdr launches {counts}")
+            raise AssertionError(f"{label} launches {counts}")
+        if decoded != {decoded_as: FRAMES5 * len(video_paths)}:
+            raise AssertionError(f"{label} decoders {decoded}")
         # no darks and no flat: K3 reads zero dark planes, and a 256-entry
         # table is its own base curve
         val, std, dark, ex, ic, icd, thr = rec["merge_corrected"][0][:7]
         if rec["merge_corrected"][0][7:] != (None, None) or dark.any():
-            raise AssertionError("video_to_hdr passed a flat or a dark")
-        res.check("merge_nhwc_lerp_bp", "video_to_hdr vs merge_lerp_bp_plain",
+            raise AssertionError(f"{label} passed a flat or a dark")
+        res.check("merge_nhwc_lerp_bp", f"{label} vs merge_lerp_bp_plain",
                   (hdr_set.measurand.val, hdr_set.measurand.std),
                   hdr_cuda.merge_lerp_bp_plain(val, std, dark, ex, ic, icd,
                                                thr, 256))
+        del hdr_set
+        return seconds, (val, std, dark, ex, ic, icd, thr)
+
+    for name in originals:
+        setattr(hdr_ops, name, recorder(name))
+    cal.calibration = recording_solve
+    launches, k1_times, runs = {}, {}, {}
+    try:
+        for wire_val, wire_std in (("u16", "f16"), ("f32", "f32")):
+            label = f"batch_video_to_hdr {wire_val}/{wire_std}"
+            run = run_batch(label, paths, crops, wire_val, wire_std,
+                            "auto", "raw")
+            runs[label] = run
+            if wire_val == "u16":
+                k1_times = time_k1_batch(dev, *run.pop("merge"))
+            else:  # phase 20 holds the distributed path to this run
+                f32_run = dict(out=run.pop("out"), wall=run["wall"],
+                               mps=run["mps"], stages=run["stages"])
+            run.pop("merge", None)
+            run.pop("out", None)
+            torch.cuda.empty_cache()
+
+        # video_to_hdr for one scene: one K3 launch
+        t_v2h_s, (val, std, dark, ex, ic, icd, thr) = run_video_to_hdr(
+            "video_to_hdr", paths, "raw")
 
         def k3():
             hdr_cuda.merge_nhwc_lerp_bp(val, std, dark, ex, ic, icd, thr,
@@ -1032,29 +1198,93 @@ def video_phases(dev, res, directory) -> dict:
 
         def copy():
             dst.copy_(src)
-        k3_s, c3_s = [], []
-        for fn, out in ((copy, c3_s), (k3, k3_s), (k3, k3_s), (copy, c3_s)):
-            out += time_samples(fn, runs=5, reps=5)
+        def k3_plain():
+            hdr_cuda.merge_lerp_bp_plain(val, std, dark, ex, ic, icd, thr,
+                                         256)
+        k3_s, c3_s, p3_s = [], [], []
+        for fn, out, reps in ((k3_plain, p3_s, 1), (copy, c3_s, 5),
+                              (k3, k3_s, 5), (k3, k3_s, 5), (copy, c3_s, 5),
+                              (k3_plain, p3_s, 1)):
+            out += time_samples(fn, runs=5, reps=reps)
         del src, dst
         k3_ms, k3_copy = float(np.median(k3_s)), float(np.median(c3_s))
+        k3_plain_ms = float(np.median(p3_s))
         k3_bound = k3_bytes / PEAK_BYTES_S * 1e3
         log(f"  K3 in video_to_hdr: {k3_ms:.4f} ms (CUDA events), "
             f"{k3_bytes / 1e6:.1f} MB (3 zero dark planes included), bound "
             f"{k3_bound:.4f} ms ({k3_bound / k3_ms * 100:.1f} % of it), "
-            f"copy {k3_copy:.4f} ms; "
-            f"{k3_ms / (t_v2h * 1e3) * 100:.3f} % of video_to_hdr's "
-            f"{t_v2h * 1e3:.1f} ms")
-        del val, std, dark, hdr_set
+            f"copy {k3_copy:.4f} ms, plain {k3_plain_ms:.4f} ms; "
+            f"{k3_ms / (t_v2h_s * 1e3) * 100:.3f} % of video_to_hdr's "
+            f"{t_v2h_s * 1e3:.1f} ms")
+        del val, std, dark
+        torch.cuda.empty_cache()
+
+        # the same scenes from MJPG AVIs, through the port's decoder; the
+        # oracle reads the crops through jpeg_plain.py
+        t0 = time.perf_counter()
+        plain_crops = {fast: [plain_crop_frames(p, fast)
+                              for p in mjpg_crop_paths]
+                       for fast in (True, False)}
+        log(f"  jpeg_plain.py decoded the MJPG crops for the oracle in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for wire_val, wire_std, decoder in (("u16", "f16", "turbo_fast"),
+                                            ("f32", "f32", "turbo")):
+            label = (f"batch_video_to_hdr {wire_val}/{wire_std} "
+                     f"(MJPG, {decoder})")
+            run = run_batch(label, mjpg_paths,
+                            plain_crops[decoder == "turbo_fast"], wire_val,
+                            wire_std, decoder, decoder)
+            run.pop("merge")
+            run.pop("out")
+            runs[label] = run
+            torch.cuda.empty_cache()
+        t_v2h_mjpg, _ = run_video_to_hdr("video_to_hdr (MJPG)", mjpg_paths,
+                                         "turbo")
+        log("  config 5, MJPG beside raw RGBA (host clock; stages overlap):")
+        for label, run in runs.items():
+            st = run["stages"]
+            log(f"    {label}: wall {run['wall']:.3f} s, {run['mps']:.2f} "
+                f"MP/s, decode_s {st.get('decode_s', 0):.3f}, stats_s "
+                f"{st.get('stats_s', 0):.3f}, finalize_s "
+                f"{st.get('finalize_s', 0):.3f}, calibrate_s "
+                f"{st.get('calibrate_s', 0):.3f}, merge_s "
+                f"{st.get('merge_s', 0):.3f}")
+        log(f"    video_to_hdr: raw {t_v2h_s:.3f} s, MJPG {t_v2h_mjpg:.3f} s")
     finally:
         for name, fn in originals.items():
             setattr(hdr_ops, name, fn)
         cal.calibration = solve
     torch.cuda.empty_cache()
-    return dict(paths=paths, launches=launches, welford_ms=welford,
-                icrf=icrf, spec=spec, f32_run=f32_run,
+
+    # decode and statistics together on one MJPG video, by decoder threads
+    threads = sorted({2, 4, os.cpu_count() or 1})
+    batch_decode = native.jpeg_decode_bgr_batch
+    t_by_threads = {}
+    try:
+        for t in threads:
+            native.jpeg_decode_bgr_batch = (
+                lambda p, d, fast=False, threads=None, t=t:
+                batch_decode(p, d, fast=fast, threads=t))
+            t_by_threads[t] = host_ms(lambda: video.welford_algorithm(
+                mjpg_paths[-1], use_std=True, decoder="turbo_fast"),
+                runs=3, warmup=1)
+    finally:
+        native.jpeg_decode_bgr_batch = batch_decode
+    log(f"  welford_algorithm (host backend, turbo_fast) on one MJPG video "
+        f"of {FRAMES5} frames, by decoder threads: "
+        + ", ".join(f"{t}: {ms:.0f} ms" for t, ms in t_by_threads.items()))
+    return dict(paths=paths, mjpg_paths=mjpg_paths, launches=launches,
+                welford_ms=welford, icrf=icrf, spec=spec, f32_run=f32_run,
                 welford_bound_ms=wf_bound, k1=k1_times,
-                k3=dict(ms=k3_ms, bytes=k3_bytes, bound_ms=k3_bound,
-                        copy_ms=k3_copy, video_to_hdr_ms=t_v2h * 1e3))
+                mjpg=dict(decode_ms=decode_ms, frame_bytes=sizes,
+                          runs={k: dict(wall=r["wall"], mps=r["mps"],
+                                        stages=r["stages"])
+                                for k, r in runs.items()},
+                          video_to_hdr_s=dict(raw=t_v2h_s, mjpg=t_v2h_mjpg),
+                          welford_ms_by_threads=t_by_threads),
+                k3=dict(ms=k3_ms, plain_ms=k3_plain_ms, bytes=k3_bytes,
+                        bound_ms=k3_bound, copy_ms=k3_copy,
+                        video_to_hdr_ms=t_v2h_s * 1e3))
 
 
 class LogRecords(logging.Handler):
@@ -1178,12 +1408,11 @@ def params_of_curve(curve, mean_icrf, pca):
     return p, float(np.max(np.abs(fit - curve)))
 
 
-def file_phases(dev, res, video_paths) -> dict:
+def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
     """Phases 15-16: the port's TIFF codec and its command line, from
     files, on the default device.  Returns the command line's kernel
     launches and the numbers measured."""
     import importlib.util
-    import os
     from camera_linearity_tpu_torch import CameraConfig, native
     from camera_linearity_tpu_torch.__main__ import (_load_icrf,
                                                      _load_icrf_base)
@@ -1400,32 +1629,35 @@ def file_phases(dev, res, video_paths) -> dict:
             f"{trace_file.stat().st_size / 1e6:.1f} MB)")
         launches = {"CLI merge (phase 16)": counts}
 
-        log(f"phase 16 (c): video --videos DIR ({len(video_paths)} raw RGBA "
-            f"videos of {FRAMES5} x {H5} x {W5} from phase 12)")
-        vdir = root / "videos"
-        vdir.mkdir()
-        for p in video_paths:
-            os.link(p, vdir / p.name)
-        obs.reset_stage_times()
-        t0 = time.perf_counter()
-        rc = cli(["video", "--videos", str(vdir)])
-        wall = time.perf_counter() - t0
-        split = obs.stage_times.snapshot()
-        numbers["video_s"] = dict(wall=wall, split=split)
-        log(f"  rc {rc}, {wall:.3f} s host clock; stages "
-            f"{ {n: round(v, 4) for n, v in split.items()} }; decoders "
-            f"{obs.decoded_frames.snapshot()}")
-        for p in video_paths:
-            want = video.welford_algorithm(p, use_std=True)
-            for key, name in (("mean", p.stem + ".tif"),
-                              ("std", p.stem + " STD.tif")):
-                g = tiff.imread(vdir / key / name, tiff.IMREAD_UNCHANGED)
-                same = g is not None and np.array_equal(g, want[key])
-                log(f"  {'ok ' if same else 'BAD'} {key}/{name} == "
-                    "welford_algorithm in memory, exactly")
-                if not same:
-                    failures.append(f"{key}/{name}")
-        raise_failures("phase 16 (c)", failures)
+        for kind, paths, vdir in (("raw RGBA", video_paths, "videos"),
+                                  ("MJPG", mjpg_paths, "mjpg_videos")):
+            log(f"phase 16 (c): video --videos DIR ({len(paths)} {kind} "
+                f"videos of {FRAMES5} x {H5} x {W5} from phase 12)")
+            vdir = root / vdir
+            vdir.mkdir()
+            for p in paths:  # the MJPG ones live in build/'s cache
+                os.symlink(p, vdir / p.name)
+            obs.reset_stage_times()
+            t0 = time.perf_counter()
+            rc = cli(["video", "--videos", str(vdir)])
+            wall = time.perf_counter() - t0
+            split = obs.stage_times.snapshot()
+            numbers["video_s" if kind == "raw RGBA" else "video_mjpg_s"] = \
+                dict(wall=wall, split=split)
+            log(f"  rc {rc}, {wall:.3f} s host clock; stages "
+                f"{ {n: round(v, 4) for n, v in split.items()} }; decoders "
+                f"{obs.decoded_frames.snapshot()}")
+            for p in paths:
+                want = video.welford_algorithm(p, use_std=True)
+                for key, name in (("mean", p.stem + ".tif"),
+                                  ("std", p.stem + " STD.tif")):
+                    g = tiff.imread(vdir / key / name, tiff.IMREAD_UNCHANGED)
+                    same = g is not None and np.array_equal(g, want[key])
+                    log(f"  {'ok ' if same else 'BAD'} {key}/{name} == "
+                        "welford_algorithm in memory, exactly")
+                    if not same:
+                        failures.append(f"{key}/{name}")
+            raise_failures(f"phase 16 (c), {kind}", failures)
 
         log("phase 16 (d): dorf on a synthetic dorfCurves.txt")
         data = root / "dorf"
@@ -2631,6 +2863,7 @@ def main() -> int:
         icrf_tables_from_numpy, measurand_from_numpy)
 
     # --- phase 1: the card ------------------------------------------------
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     gpu = gpu_line()
     log(gpu)
@@ -2883,7 +3116,7 @@ def main() -> int:
     calibration = linearity_phases(dev, t_np, vals_np, stds_np)
     with tempfile.TemporaryDirectory(prefix="clt_config5_") as tmp:
         config5 = video_phases(dev, res, Path(tmp))
-        files = file_phases(dev, res, config5["paths"])
+        files = file_phases(dev, res, config5["paths"], config5["mjpg_paths"])
         distributed = distributed_phase(
             dev, res, Path(tmp), config5, vals_np, stds_np, t_np,
             (icrf12, diff12, base, diff_base), calibration["config4"])
@@ -2911,7 +3144,10 @@ def main() -> int:
         raise AssertionError("a kernel's route is neither cuda nor triton")
     log(json.dumps({"welford_ms_per_frame": config5["welford_ms"],
                     "welford_bound_ms": config5["welford_bound_ms"]}))
+    log(json.dumps({"config5_mjpg": config5["mjpg"],
+                    "host_cpus": os.cpu_count()}))
     log(json.dumps({"files": files["numbers"]}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(gpu)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,65 @@
+"""Decode time of one 4K MJPG frame: the port's decoder against the JAX
+package's libjpeg-turbo decoder, on this machine's CPU.
+
+    python -m tests._torch_jpeg_rate [--quality 25] [--runs 5]
+
+The frame is ``chip_smoke.py``'s config-5 content (a uniform base x 230
+plus N(0, 6) noise, seeded; NumPy here), encoded by
+``tests/_torch_mjpeg_writer.py`` as cv2's MJPG writer lays it out.  It
+prints the frame's bytes, then the median ms of one frame on one thread
+for each decoder and mode, and the port's ms a frame over a batch of 12 on
+every core.  Where the JAX package's decoder did not build (no libjpeg
+headers), its lines are left out.  Test tooling: a host-CPU measurement,
+not a device one.
+"""
+import argparse
+import os
+import time
+
+import numpy as np
+
+from camera_linearity_tpu_torch import native
+from tests._torch_mjpeg_writer import encode_jpeg
+
+H, W = 2160, 3840
+
+
+def median_ms(fn, runs: int) -> float:
+    fn()  # warm
+    samples = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(samples))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quality", type=int, default=25)
+    ap.add_argument("--runs", type=int, default=5)
+    args = ap.parse_args()
+    rng = np.random.default_rng(42)
+    frame = np.clip(rng.random((H, W, 3)) * 230
+                    + rng.normal(0, 6, (H, W, 3)), 0, 255).astype(np.uint8)
+    data = encode_jpeg(frame, args.quality)
+    print(f"one {H} x {W} frame, quality {args.quality}: "
+          f"{len(data) / 1e6:.3f} MB; {os.cpu_count()} CPUs")
+    decoders = {"jpeg.cpp": native.jpeg_decode_bgr}
+    from camera_linearity_tpu import native as jnative
+    if jnative.mjpeg_available():
+        decoders["libjpeg-turbo (JAX package)"] = jnative.jpeg_decode_bgr
+    dst = np.empty((H, W, 3), np.uint8)
+    for mode, fast in (("turbo", False), ("turbo_fast", True)):
+        for name, decode in decoders.items():
+            ms = median_ms(lambda: decode(data, dst, fast=fast), args.runs)
+            print(f"{mode}, {name}: {ms:.1f} ms on one thread")
+        batch = np.empty((12, H, W, 3), np.uint8)
+        ms = median_ms(lambda: native.jpeg_decode_bgr_batch(
+            [data] * 12, batch, fast=fast), args.runs) / 12
+        print(f"{mode}, jpeg.cpp: {ms:.1f} ms a frame over a batch of 12 on "
+              f"{os.cpu_count()} threads")
+
+
+if __name__ == "__main__":
+    main()

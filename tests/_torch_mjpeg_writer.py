@@ -1,0 +1,294 @@
+"""An MJPG AVI writer in NumPy, for the tests and ``chip_smoke.py``.
+
+The machine with the card has neither cv2 nor PIL, so ``chip_smoke.py``
+encodes its config-5 videos with this.  It writes what ``cv2.VideoWriter``
+writes for ``VideoWriter_fourcc(*"MJPG")`` (``tests/data/mjpg 5ms.avi``):
+baseline JPEG frames in 4:2:0 (Y 2x2, Cb and Cr 1x1), one quantization
+table for all three components, Annex K's Huffman tables in a DHT, no DRI,
+and no APP0 (component IDs 1, 2, 3 say YCbCr); one ``00dc`` chunk a frame.
+
+The encoder: JFIF's YCbCr conversion, 2x2 chroma means, the FDCT as two
+matrix products per 8 x 8 block, libjpeg's quality scaling of Annex K's
+luminance table, and vectorised entropy coding, bit packing and byte
+stuffing.  Every step works block by block, so a frame's first MCU rows
+encode to the same coefficients whatever rows follow them.  Test tooling,
+not a feature of the package: it imports nothing of it.
+"""
+from __future__ import annotations
+
+import struct
+from pathlib import Path
+from typing import Iterable
+
+import numpy as np
+
+__all__ = ["encode_jpeg", "write_mjpg_avi", "QUALITY", "SAMPLING"]
+
+QUALITY = 75
+
+_LUMINANCE = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64)
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+# Annex K.3: (counts of code lengths 1..16, symbols)
+_DC_LUM = ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12)))
+_DC_CHROM = ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0),
+             bytes(range(12)))
+_AC_LUM = ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D), bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+    "4a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+    "f9fa"))
+_AC_CHROM = ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77),
+             bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa"))
+
+# the orthonormal DCT-II matrix, which is JPEG's FDCT scaling
+_U = np.arange(8)[:, None]
+_DCT = np.cos((2 * np.arange(8)[None, :] + 1) * _U * np.pi / 16) * \
+    np.where(_U == 0, np.sqrt(1 / 8), 1 / 2)
+
+
+def _codes(spec):
+    """Canonical Huffman codes: (code, length) arrays indexed by symbol."""
+    counts, symbols = spec
+    code = np.zeros(256, np.int64)
+    length = np.zeros(256, np.int64)
+    c, p = 0, 0
+    for n, k in enumerate(counts, 1):
+        for _ in range(k):
+            code[symbols[p]], length[symbols[p]] = c, n
+            c += 1
+            p += 1
+        c <<= 1
+    return code, length
+
+
+_TABLES = [(_codes(_DC_LUM), _codes(_AC_LUM)),
+           (_codes(_DC_CHROM), _codes(_AC_CHROM))]
+
+
+def _quant_table(quality: int) -> np.ndarray:
+    """jcparam.c's jpeg_quality_scaling and jpeg_add_quant_table
+    (baseline: entries kept in 1..255)."""
+    quality = min(max(quality, 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((_LUMINANCE * scale + 50) // 100, 1, 255)
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(rows, cols) -> (rows/8, cols/8, 8, 8)."""
+    r, c = plane.shape
+    return plane.reshape(r // 8, 8, c // 8, 8).swapaxes(1, 2)
+
+
+def _size(v: np.ndarray) -> np.ndarray:
+    """JPEG's magnitude category: the bit length of |v|."""
+    a = np.abs(v)
+    n = np.zeros(a.shape, np.int64)
+    while np.any(a >> n):
+        n += (a >> n) != 0
+    return n
+
+
+def _bits(v: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """The n extra bits of v (negative v: its ones' complement)."""
+    return np.where(v < 0, v + (1 << n) - 1, v)
+
+
+# (horizontal, vertical) sampling factors of Y; Cb and Cr are 1x1
+SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}
+
+
+def encode_jpeg(bgr: np.ndarray, quality: int = QUALITY,
+                sampling: str = "420", restart: int = 0) -> bytes:
+    """One (H, W, 3) BGR uint8 frame as a baseline JPEG: 4:2:0 and no DRI
+    as ``cv2.VideoWriter`` writes them, or ``sampling`` "444" / "422" and
+    a restart marker every ``restart`` MCUs."""
+    hy, vy = SAMPLING[sampling]
+    h, w = bgr.shape[:2]
+    ph, pw = -(-h // (8 * vy)) * 8 * vy, -(-w // (8 * hy)) * 8 * hy
+    img = np.pad(bgr.astype(np.float64), ((0, ph - h), (0, pw - w), (0, 0)),
+                 mode="edge")
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+    planes = [np.clip(np.round(y), 0, 255)]
+    for c in (cb, cr):
+        c = c.reshape(ph // vy, vy, pw // hy, hy).mean(axis=(1, 3))
+        planes.append(np.clip(np.round(c), 0, 255))
+    q = _quant_table(quality)
+    qz = q[_ZIGZAG].astype(np.float64)
+    mcu_y, mcu_x = ph // (8 * vy), pw // (8 * hy)
+    coefs = []
+    for k, plane in enumerate(planes):
+        f = _DCT @ (_blocks(plane - 128.0)) @ _DCT.T
+        z = f.reshape(f.shape[:2] + (64,))[..., _ZIGZAG] / qz
+        z = (np.sign(z) * np.floor(np.abs(z) + 0.5)).astype(np.int64)
+        if k == 0:  # MCU order: an MCU's Y blocks, row by row
+            z = z.reshape(mcu_y, vy, mcu_x, hy, 64).swapaxes(1, 2)
+            z = z.reshape(mcu_y, mcu_x, hy * vy, 64)
+        else:
+            z = z.reshape(mcu_y, mcu_x, 1, 64)
+        coefs.append(z)
+    # every block in coding order, with its component and MCU
+    order = np.concatenate(coefs, axis=2).reshape(-1, 64)
+    per_mcu = hy * vy + 2
+    comp = np.tile(np.array([0] * (hy * vy) + [1, 2]), mcu_y * mcu_x)
+    interval = np.arange(len(order)) // per_mcu // restart if restart else \
+        np.zeros(len(order), np.int64)
+    scan = _entropy(order, comp, interval)
+    seg = _segments(q, h, w, hy, vy, restart)
+    return b"\xff\xd8" + seg + scan + b"\xff\xd9"
+
+
+def _entropy(blocks: np.ndarray, comp: np.ndarray,
+             interval: np.ndarray) -> bytes:
+    """Huffman-code blocks (coding order, zigzag) into stuffed bytes, the
+    DC predictions and the bytes of each restart interval apart."""
+    nb = len(blocks)
+    values, lengths, keys = [], [], []
+    # DC differences, each component against its previous block in the
+    # same restart interval
+    dc = blocks[:, 0]
+    diff = np.empty(nb, np.int64)
+    for c in range(3):
+        at = np.flatnonzero(comp == c)
+        prev = np.concatenate([[0], dc[at][:-1]])
+        first = np.concatenate([[True], interval[at][1:] != interval[at][:-1]])
+        diff[at] = dc[at] - np.where(first, 0, prev)
+    n = _size(diff)
+    table = np.where(comp == 0, 0, 1)
+    for t in (0, 1):
+        sel = table == t
+        (code, length), _ = _TABLES[t]
+        nn = n[sel]
+        values.append((code[nn] << nn) | _bits(diff[sel], nn))
+        lengths.append(length[nn] + nn)
+        keys.append(np.flatnonzero(sel) * 128)
+    # AC coefficients: run/size symbols, ZRLs for runs over 15, EOB
+    ac = blocks[:, 1:]
+    bi, k = np.nonzero(ac)
+    k = k + 1
+    prev = np.zeros_like(k)
+    if len(k) > 1:
+        prev[1:] = np.where(bi[1:] == bi[:-1], k[:-1], 0)
+    run = k - prev - 1
+    v = ac[bi, k - 1]
+    s = _size(v)
+    t = table[bi]
+    for tt in (0, 1):
+        _, (code, length) = _TABLES[tt]
+        sel = t == tt
+        sym = ((run[sel] % 16) << 4) | s[sel]
+        values.append((code[sym] << s[sel]) | _bits(v[sel], s[sel]))
+        lengths.append(length[sym] + s[sel])
+        keys.append(bi[sel] * 128 + 2 * k[sel] + 1)
+        # ZRLs sort before their symbol (a run over 15 leaves room)
+        reps = np.repeat(np.arange(sel.sum()), run[sel] // 16)
+        values.append(np.full(len(reps), code[0xF0]))
+        lengths.append(np.full(len(reps), length[0xF0]))
+        keys.append(bi[sel][reps] * 128 + 2 * k[sel][reps] - 1)
+    last = np.zeros(nb, np.int64)
+    np.maximum.at(last, bi, k)
+    eob = np.flatnonzero(last < 63)
+    for tt in (0, 1):
+        _, (code, length) = _TABLES[tt]
+        sel = eob[table[eob] == tt]
+        values.append(np.full(len(sel), code[0x00]))
+        lengths.append(np.full(len(sel), length[0x00]))
+        keys.append(sel * 128 + 127)
+    keys = np.concatenate(keys)
+    order = np.argsort(keys, kind="stable")
+    values = np.concatenate(values)[order]
+    lengths = np.concatenate(lengths)[order]
+    # each restart interval packs on its own, then RSTn between them
+    item_interval = interval[keys[order] // 128]
+    cuts = np.flatnonzero(np.diff(item_interval)) + 1
+    parts = []
+    for i, (a, b) in enumerate(zip(np.concatenate([[0], cuts]),
+                                   np.concatenate([cuts, [len(values)]]))):
+        if i:
+            parts.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+        parts.append(_pack(values[a:b], lengths[a:b]))
+    return b"".join(parts)
+
+
+def _pack(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Concatenate codes MSB first, pad with 1 bits, stuff 0xFF bytes."""
+    out = []
+    shifts = np.arange(31, -1, -1)
+    for at in range(0, len(values), 1 << 20):
+        v = values[at:at + (1 << 20), None]
+        n = lengths[at:at + (1 << 20), None]
+        bits = ((v >> shifts) & 1).astype(np.uint8)
+        out.append(bits[shifts[None, :] < n])
+    bits = np.concatenate(out) if out else np.zeros(0, np.uint8)
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    data = np.packbits(bits)
+    ff = np.flatnonzero(data == 0xFF)
+    return np.insert(data, ff + 1, 0).tobytes()
+
+
+def _segments(q: np.ndarray, h: int, w: int, hy: int, vy: int,
+              restart: int) -> bytes:
+    """DQT (one table), DHT (Annex K's four), DRI where there are restart
+    markers, SOF0 (table 0 for every component), SOS."""
+    def seg(marker: int, body: bytes) -> bytes:
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+    dqt = seg(0xDB, b"\x00" + bytes(q[_ZIGZAG].astype(np.uint8)))
+    dht = b""
+    for index, (counts, symbols) in ((0x00, _DC_LUM), (0x10, _AC_LUM),
+                                     (0x01, _DC_CHROM), (0x11, _AC_CHROM)):
+        dht += bytes([index]) + bytes(counts) + symbols
+    dri = seg(0xDD, struct.pack(">H", restart)) if restart else b""
+    sof = seg(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+              + bytes([1, hy << 4 | vy, 0, 2, 0x11, 0, 3, 0x11, 0]))
+    sos = seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return dqt + seg(0xC4, dht) + dri + sof + sos
+
+
+def write_mjpg_avi(path: Path, frames: Iterable[bytes], height: int,
+                   width: int, fps: int = 30) -> None:
+    """An AVI of JPEG frames (bytes) with the ``MJPG`` fourcc, as
+    ``write_rgba_avi`` writes raw ones: one video stream, one movi LIST of
+    ``00dc`` chunks (word-aligned), no index."""
+    frames = list(frames)
+    n = len(frames)
+    biggest = max((len(f) for f in frames), default=0)
+
+    def chunk(fourcc: bytes, payload: bytes) -> bytes:
+        return struct.pack("<4sI", fourcc, len(payload)) + payload + \
+            b"\0" * (len(payload) & 1)
+    avih = struct.pack("<14I", 1000000 // fps, biggest * fps, 0, 0x10, n, 0,
+                       1, biggest, width, height, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids", b"MJPG", 0, 0, 0, 0, 1,
+                       fps, 0, n, biggest, 0xFFFFFFFF, 0, 0, 0, width,
+                       height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
+                       width * height * 3, 0, 0, 0, 0)
+    hdrl = chunk(b"LIST", b"hdrl" + chunk(b"avih", avih) + chunk(
+        b"LIST", b"strl" + chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi = b"movi" + b"".join(chunk(b"00dc", f) for f in frames)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sI4s", b"RIFF", 4 + len(hdrl) + 8 + len(movi),
+                            b"AVI "))
+        f.write(hdrl)
+        f.write(struct.pack("<4sI", b"LIST", len(movi)))
+        f.write(movi)

@@ -789,6 +789,7 @@ _PORT_MODULES = [
     "camera_linearity_tpu_torch.utils.avi",
     "camera_linearity_tpu_torch.utils.observability",
     "camera_linearity_tpu_torch.native",
+    "camera_linearity_tpu_torch.native.jpeg_plain",
     "camera_linearity_tpu_torch.ops.welford",
     "camera_linearity_tpu_torch.models.video",
     "camera_linearity_tpu_torch.models.pipeline",
@@ -809,11 +810,21 @@ _PORT_MODULES = [
 
 
 def test_port_imports_no_jax():
+    """Importing the port, and decoding an MJPG AVI with its decoder and
+    the decoder's plain version, pulls in no JAX, cv2, PIL or matplotlib."""
     out = _run_python(
         "import importlib, sys\n"
         f"for m in {_PORT_MODULES!r}: importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from camera_linearity_tpu_torch import native\n"
+        "from camera_linearity_tpu_torch.native import jpeg_plain\n"
+        "from camera_linearity_tpu_torch.utils import avi\n"
+        "frames = list(avi.mjpg_chunks('tests/data/mjpg 5ms.avi'))\n"
+        "dst = np.empty((len(frames), 32, 48, 3), np.uint8)\n"
+        "native.jpeg_decode_bgr_batch(frames, dst, fast=True)\n"
+        "jpeg_plain.decode(frames[0])\n"
         "print(sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'cv2',\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'PIL',\n"
         "                                    'camera_linearity_tpu',\n"
         "                                    'matplotlib', 'benchmarks')))\n")
     assert out.strip() == "[]"

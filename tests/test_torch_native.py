@@ -1,5 +1,6 @@
-"""Port parity: the AVI reader (utils/avi.py) and the native staging library
-and MJPEG decoder (native/) against the JAX package's copies.
+"""Port parity: the AVI reader (utils/avi.py), the native staging library
+and the MJPEG decoder (native/) against the JAX package's copies and its
+libjpeg decoder.
 
 * Raw ``RGBA`` frames read with NumPy equal cv2's decode of the same file
   exactly; MJPEG chunks, probes and native decodes equal the JAX package's.
@@ -99,8 +100,11 @@ def test_raw_frames_equal_cv2(tmp_path, shape):
 
 def test_probe_avi_reads_the_stream_headers(rgba_avi):
     path, frames = rgba_avi
-    assert tavi.probe_avi(path) == ("RGBA", 24, 40, 4)
-    assert tavi.probe_avi(MJPG) == ("MJPG", 32, 48, 3)
+    assert tavi.probe_avi(path) == ("RGBA", 24, 40, 4, None)
+    # an MJPG's probe carries its first frame's JPEG headers: baseline,
+    # 8-bit, 4:2:0 (Y 2x2, Cb and Cr 1x1), one scan
+    assert tavi.probe_avi(MJPG) == ("MJPG", 32, 48, 3, (
+        32, 48, 3, 8, 0xC0, ((2, 2), (1, 1), (1, 1)), 1))
     assert tavi.probe_avi(MJPG.with_suffix(".npy")) is None
     assert tavi.probe_avi(path.parent / "missing.avi") is None
 
@@ -330,14 +334,17 @@ def test_stager_builds_without_float16(tmp_path, capsys):
 
 @pytest.fixture
 def mjpeg():
-    if not Path("/usr/include/jpeglib.h").exists():
-        pytest.skip("libjpeg's headers (jpeglib.h) are not installed")
+    """The port's own decoder (``native/jpeg.cpp``), which needs only a
+    C++ compiler."""
     assert tnative.mjpeg_available(), tnative.build_error("_mjpeg")
     return tnative
 
 
 @pytest.mark.parametrize("fast", [False, True])
 def test_mjpeg_decode_equals_jax(mjpeg, fast):
+    if not jnative.mjpeg_available():
+        pytest.skip("the oracle, the JAX package's libjpeg decoder, did not "
+                    "build")
     for payload in tavi.mjpg_chunks(MJPG):
         got = np.empty((32, 48, 3), np.uint8)
         want = np.empty((32, 48, 3), np.uint8)
@@ -347,8 +354,8 @@ def test_mjpeg_decode_equals_jax(mjpeg, fast):
 
 
 def test_committed_mjpeg_frames(mjpeg):
-    """The file beside ``chip_smoke.py``'s MJPEG check: libjpeg's decode
-    here equals the committed frames exactly, and cv2's decode (another
+    """The file beside ``chip_smoke.py``'s MJPEG check: the port's decode
+    equals the committed libjpeg frames exactly, and cv2's decode (another
     IDCT) equals its committed frames and stays within 8 DN of libjpeg's,
     the bound the JAX suite holds the two decoders to."""
     got = []
@@ -367,7 +374,7 @@ def test_mjpeg_decode_errors(mjpeg):
     payload = next(tavi.mjpg_chunks(MJPG))
     with pytest.raises(ValueError, match="geometry"):
         mjpeg.jpeg_decode_bgr(payload, np.empty((8, 8, 3), np.uint8))
-    with pytest.raises(ValueError, match="libjpeg decode error"):
+    with pytest.raises(ValueError, match="corrupt JPEG data"):
         mjpeg.jpeg_decode_bgr(b"\xff\xd8garbage", np.empty((8, 8, 3),
                                                           np.uint8))
     with pytest.raises(ValueError, match="dst must be"):

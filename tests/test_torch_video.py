@@ -25,9 +25,12 @@ cv2 = pytest.importorskip("cv2")
 import jax.numpy as jnp  # noqa: E402
 
 from camera_linearity_tpu import CameraConfig as JConfig  # noqa: E402
+from camera_linearity_tpu import native as jnative  # noqa: E402
+from camera_linearity_tpu.models import pipeline as jpipe  # noqa: E402
 from camera_linearity_tpu.models import video as jvideo  # noqa: E402
 from camera_linearity_tpu.ops import welford as jwf  # noqa: E402
 from camera_linearity_tpu_torch import CameraConfig, native  # noqa: E402
+from camera_linearity_tpu_torch.models import pipeline as tpipe  # noqa
 from camera_linearity_tpu_torch.models import video as tvideo  # noqa: E402
 from camera_linearity_tpu_torch.ops import welford as twf  # noqa: E402
 from camera_linearity_tpu_torch.utils import observability as obs  # noqa
@@ -367,6 +370,69 @@ def test_a_grayscale_mjpg_is_rejected_before_decode(tmp_path, capsys):
         print(f"JAX package on a grayscale MJPG: decoder {picked!r}, "
               f"{outcome}")
         assert "JAX package" in capsys.readouterr().out
+
+
+def _mjpg_scene(directory, seed, n_frames=6):
+    """One scene's exposure videos as cv2 writes MJPG AVIs."""
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.15, 0.45, (H, W, 3))
+    paths = []
+    for ms in (4, 8, 16):
+        path = directory / f"{directory.name} {ms}ms.avi"
+        out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                              (W, H))
+        for _ in range(n_frames):
+            frame = np.clip(base * ms / 16 + rng.normal(0, 0.02, (H, W, 3)),
+                            0, 1)
+            out.write(np.around(frame * 255).astype(np.uint8))
+        out.release()
+        paths.append(path)
+    return paths
+
+
+@pytest.mark.parametrize("decoder", ["turbo", "turbo_fast"])
+def test_mjpg_batch_video_to_hdr_equals_jax(tmp_path, decoder):
+    """MJPG scenes through the port's decoder and the JAX package's
+    libjpeg one decode to the same frames, so the pipelines agree as on
+    raw videos (tests/test_torch_pipeline.py's tolerances)."""
+    if not jnative.mjpeg_available():
+        pytest.skip("the oracle, the JAX package's libjpeg decoder, did not "
+                    "build")
+    icrf = _icrf(256)
+    scenes = {name: _mjpg_scene(tmp_path / name, seed)
+              for seed, name in enumerate(("a", "b"))}
+    obs.reset_stage_times()
+    got = tpipe.batch_video_to_hdr(scenes, icrf, decoder=decoder,
+                                   device="cpu")
+    assert obs.decoded_frames.snapshot() == {decoder: 2 * 3 * 6}
+    want = jpipe.batch_video_to_hdr(scenes, jnp.asarray(icrf),
+                                    decoder=decoder)
+    for name in scenes:
+        np.testing.assert_allclose(
+            got[name].measurand.val.numpy(),
+            np.asarray(want[name].measurand.val), rtol=1e-10, atol=1e-14)
+        np.testing.assert_allclose(
+            got[name].measurand.std.numpy(),
+            np.asarray(want[name].measurand.std), rtol=1e-9, atol=1e-14)
+
+
+def test_a_failed_mjpeg_build_raises_and_never_reaches_cv2(monkeypatch):
+    """An MJPG AVI takes the port's decoder or raises: a failed build of
+    ``_mjpeg`` is reported, not hidden behind cv2."""
+    monkeypatch.setattr(native, "_load_mjpeg", lambda: None)
+    monkeypatch.setitem(native._build_errors, "_mjpeg",
+                        "g++: simulated failure")
+
+    def no_cv2(why):
+        raise AssertionError(f"cv2 was reached: {why}")
+    monkeypatch.setattr(tvideo, "_cv2", no_cv2)
+    mjpg = DATA / "mjpg 5ms.avi"
+    for decoder in ("native", "turbo", "turbo_fast"):
+        with pytest.raises(RuntimeError, match="simulated failure"):
+            tvideo._resolve_decoder(decoder, [mjpg], 32, 48, 3)
+    with pytest.raises(RuntimeError, match="simulated failure"):
+        tvideo.welford_algorithm(mjpg, use_std=True)
 
 
 def test_decoded_frames_are_counted(video):
