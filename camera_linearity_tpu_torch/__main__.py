@@ -348,7 +348,9 @@ def cmd_doctor(args) -> int:
         print(f"native TIFF codec: unavailable ({native.build_error('_tiff')})"
               "; TIFFs cannot be read or written")
     print("native MJPEG decoder: " + (
-        "built" if native.mjpeg_available() else
+        "built; modes " + ", ".join(native.JPEG_MODES) + " (an MJPG AVI "
+        "takes 'ffmpeg', cv2's bytes, unless CL_DECODER names another)"
+        if native.mjpeg_available() else
         f"unavailable ({native.build_error('_mjpeg')}); MJPG AVIs cannot be "
         "read"))
     if dev.type == "cuda":
@@ -376,7 +378,7 @@ def cmd_doctor(args) -> int:
 
 def _doctor_video(path: Path) -> None:
     """Decode rate of each reader the port has for ``path``; for an MJPG
-    AVI, the port's decoder in both modes, on one thread and on all."""
+    AVI, the port's decoder in each mode, on one thread and on all."""
     import importlib.util
     import itertools
     import time
@@ -392,14 +394,13 @@ def _doctor_video(path: Path) -> None:
         payloads = list(itertools.islice(avi.mjpg_chunks(path), 120))
         cores = os.cpu_count() or 1
         dst = np.empty((min(cores, len(payloads)), h, w, 3), np.uint8)
-        for mode in ("turbo", "turbo_fast"):
+        for mode in native.JPEG_MODES:
             for threads in sorted({1, cores}):
                 t0 = time.perf_counter()
                 for at in range(0, len(payloads), len(dst)):
                     part = payloads[at:at + len(dst)]
                     native.jpeg_decode_bgr_batch(
-                        part, dst[:len(part)], fast=mode == "turbo_fast",
-                        threads=threads)
+                        part, dst[:len(part)], mode=mode, threads=threads)
                 secs = time.perf_counter() - t0
                 print(f"decode ({mode}, {threads} thread(s)): "
                       f"{len(payloads) * h * w / 1e6 / secs:.0f} MP/s "
@@ -496,8 +497,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "--no-separately for one pooled pair")
     v.add_argument("--decoder", default="auto", choices=["auto", *DECODERS],
                    help="video reader: native (the container decides: NumPy "
-                        "for RGBA AVIs, libjpeg for MJPG), cv2, turbo or "
-                        "turbo_fast; auto = env CL_DECODER, default native")
+                        "for RGBA AVIs, the port's JPEG decoder in its ffmpeg "
+                        "mode, cv2's bytes, for MJPG), cv2, ffmpeg, turbo or "
+                        "turbo_fast (libjpeg-turbo's bytes); auto = env "
+                        "CL_DECODER, default native")
     v.set_defaults(fn=cmd_video)
 
     d = sub.add_parser("dorf", help="build the DoRF PCA basis")

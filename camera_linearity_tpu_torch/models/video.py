@@ -13,12 +13,18 @@ default returns float arrays.
 Decoders.  The machine with the card has no OpenCV and no libjpeg, so the
 port reads the AVI containers it knows itself (``utils/avi.py``): a
 lossless ``RGBA`` AVI with NumPy (``"raw"``), an MJPG AVI with the port's
-own JPEG decoder (``native/jpeg.cpp``), which gives libjpeg-turbo's bytes:
-``"turbo"`` its JDCT_ISLOW IDCT and fancy upsampling, ``"turbo_fast"`` its
-JDCT_IFAST IDCT and merged upsampling.  An MJPG AVI always takes that
-decoder: a frame mode it does not read, or a failed build, raises before
-any frame is decoded.  Any other codec goes through ``cv2.VideoCapture``
-when cv2 imports, and raises otherwise.
+own JPEG decoder (``native/jpeg.cpp``) in one of three modes.  ``"ffmpeg"``,
+the default, gives the bytes ``cv2.VideoCapture`` gives (FFmpeg's MJPEG
+decoder and swscale), which is what the JAX package decodes at its default
+(``CL_DECODER=cv2``); it ends a file at a frame where cv2's stream ends
+(data that stops before the first scan), and raises, naming the frame,
+where FFmpeg would conceal an error.  ``"turbo"`` and ``"turbo_fast"`` give
+libjpeg-turbo's bytes, as the JAX package's modes of those names do: its
+JDCT_ISLOW IDCT and fancy upsampling, or its JDCT_IFAST IDCT and merged
+upsampling.  An MJPG AVI always takes that decoder: a frame mode it does
+not read, or a failed build, raises before any frame is decoded.  Any
+other codec goes through ``cv2.VideoCapture`` when cv2 imports, and raises
+otherwise.
 ``cv2`` is imported only when a video needs it.  ``process_video`` and
 ``process_directory`` write the mean/std frames as TIFFs through the
 port's own codec (``utils/tiff.py``).
@@ -53,8 +59,9 @@ __all__ = ["probe_geometry", "video_frame_generator", "welford_algorithm",
            "process_STD_data", "process_video", "process_directory",
            "DECODERS"]
 
-# what a caller may ask for; "auto" reads env CL_DECODER (default "native")
-DECODERS = ("native", "cv2", "turbo", "turbo_fast")
+# what a caller may ask for; "auto" reads env CL_DECODER (default "native":
+# an MJPG AVI then decodes in the JPEG decoder's "ffmpeg" mode, as cv2 does)
+DECODERS = ("native", "cv2", "turbo", "turbo_fast", "ffmpeg")
 
 
 def _cv2(why: str):
@@ -66,7 +73,8 @@ def _cv2(why: str):
         raise ValueError(
             f"{why} needs cv2, which is not installed; without it the port "
             "reads RGBA AVIs (decoder 'native', NumPy) and MJPG AVIs "
-            "('native' / 'turbo' / 'turbo_fast', its own JPEG decoder)"
+            "('native' / 'ffmpeg' / 'turbo' / 'turbo_fast', its own JPEG "
+            "decoder)"
         ) from exc
     return cv2
 
@@ -162,16 +170,29 @@ def _frame_fillers(path: Path, decoder: str
     if decoder == "raw":
         for frame in avi.raw_frames(path):
             yield lambda dst, frame=frame: np.copyto(dst[0], frame) or 1
-    elif decoder in ("turbo", "turbo_fast"):
-        fast = decoder == "turbo_fast"
+    elif decoder in native.JPEG_MODES:
         chunks = avi.mjpg_chunks(path)
+        if decoder == "ffmpeg":  # FFmpeg's AVI reader drops empty chunks
+            chunks = (c for c in chunks if len(c))
+        done = 0      # frames decoded so far
+        ended = False
 
         def fill_mjpg(dst: np.ndarray) -> int:
-            payloads = list(itertools.islice(chunks, len(dst)))
-            if payloads:
-                native.jpeg_decode_bgr_batch(payloads, dst[:len(payloads)],
-                                             fast=fast)
-            return len(payloads)
+            nonlocal done, ended
+            payloads = [] if ended else list(
+                itertools.islice(chunks, len(dst)))
+            if not payloads:
+                return 0
+            try:
+                got = native.jpeg_decode_bgr_batch(
+                    payloads, dst[:len(payloads)], mode=decoder,
+                    first_frame=done)
+            except ValueError as exc:
+                raise ValueError(f"{path}: {exc}") from exc
+            # a frame cv2 gives no frame for ends the stream there
+            ended = got < len(payloads)
+            done += got
+            return got
         while True:
             yield fill_mjpg
     else:
@@ -247,7 +268,7 @@ def _frame_batches_into(file_paths: List[Path], batch_size: int,
 
 def _container_decoder(path: Path, info: Optional[avi.AviInfo],
                        height: int, width: int, chs: int,
-                       fast: bool) -> str:
+                       mode: str) -> str:
     """The decoder a file's container asks for, checked against the
     expected geometry and channel count before any decode."""
     if info is not None and info.codec in ("RGBA", "MJPG"):
@@ -263,15 +284,16 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
                 f"has num_of_chs={chs}")
         if info.codec == "RGBA":
             return "raw"
-        unsupported = avi.jpeg_unsupported(info.jpeg)
+        unsupported = avi.jpeg_unsupported(info.jpeg, mode=mode)
         if unsupported:
             raise ValueError(f"{path} is an MJPG AVI whose frames the port's "
-                             f"JPEG decoder does not read: {unsupported}")
+                             f"JPEG decoder does not read in its {mode!r} "
+                             f"mode: {unsupported}")
         if not native.mjpeg_available():
             raise RuntimeError(f"{path} is MJPG but the port's JPEG decoder "
                                "did not build: "
                                f"{native.build_error('_mjpeg')}")
-        return "turbo_fast" if fast else "turbo"
+        return mode
     codec = "not an AVI" if info is None else f"codec {info.codec!r}"
     _cv2(f"{path} ({codec})")
     return "cv2"
@@ -279,15 +301,16 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
 
 def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
                      width: int, chs: int) -> List[str]:
-    """Each file's decoder: ``"raw"``, ``"turbo"``, ``"turbo_fast"`` or
-    ``"cv2"``.
+    """Each file's decoder: ``"raw"``, ``"ffmpeg"``, ``"turbo"``,
+    ``"turbo_fast"`` or ``"cv2"``.
 
     ``"auto"`` reads env ``CL_DECODER`` (default ``"native"``).
     ``"native"``: the container decides — an RGBA AVI reads raw, an MJPG
-    AVI through the port's JPEG decoder (as ``"turbo"``), anything else
-    through cv2 when it imports (else a ValueError naming the codec).
-    ``"turbo"``/``"turbo_fast"``: that decoder's two modes on MJPG files;
-    another container logs a warning and takes its own decoder.
+    AVI through the port's JPEG decoder in its ``"ffmpeg"`` mode (cv2's
+    bytes, as the JAX package's default gives them), anything else through
+    cv2 when it imports (else a ValueError naming the codec).
+    ``"ffmpeg"``/``"turbo"``/``"turbo_fast"``: that decoder's modes on MJPG
+    files; another container logs a warning and takes its own decoder.
     ``"cv2"``: cv2 for every file.  RGBA and MJPG files are checked against
     the expected geometry and ``chs`` before any decode, and an MJPG's
     first frame for a JPEG mode the decoder does not read (it names it): a
@@ -309,8 +332,8 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
             get_logger().warning(
                 "decoder=%s requested but %s is not an MJPG AVI; using its "
                 "container's decoder", decoder, p)
-        out.append(_container_decoder(p, info, height, width, chs,
-                                      fast=decoder == "turbo_fast"))
+        mode = "ffmpeg" if decoder == "native" else decoder
+        out.append(_container_decoder(p, info, height, width, chs, mode))
     return out
 
 

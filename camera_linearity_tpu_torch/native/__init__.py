@@ -27,12 +27,17 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+# the MJPEG decoder's modes, by their number in jpeg.cpp, and the code of
+# a frame that ends before its first scan ("ffmpeg" mode: cv2 gives none)
+from .jpeg_plain import MODES as JPEG_MODES, NO_FRAME as JPEG_NO_FRAME
+
 __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
            "HostWelford",
            "mmap_buffer", "WIRE_U16F16",
            "wire_quantize_u16f16", "narrow_f16", "mjpeg_available",
-           "jpeg_decode_bgr", "jpeg_decode_bgr_batch", "tiff_available",
+           "jpeg_decode_bgr", "jpeg_decode_bgr_batch", "JPEG_MODES",
+           "tiff_available",
            "lzw_decode_chunks", "lzw_encode_chunks", "predictor_undo",
            "predictor_apply", "build_error"]
 
@@ -315,47 +320,79 @@ def _check_frames(dst: np.ndarray, ndim: int, what: str) -> None:
                          "uint8 array")
 
 
-def _jpeg_error(rc: int, payload, shape) -> ValueError:
+
+
+def _jpeg_mode(mode: Optional[str], fast: bool) -> int:
+    """A mode's number in jpeg.cpp; ``mode=None`` takes the old ``fast``
+    flag (False: ``"turbo"``, True: ``"turbo_fast"``)."""
+    if mode is None:
+        return 1 if fast else 0
+    if mode not in JPEG_MODES:
+        raise ValueError(f"unknown JPEG decoder mode {mode!r}; expected one "
+                         f"of {JPEG_MODES}")
+    return JPEG_MODES.index(mode)
+
+
+def _jpeg_error(rc: int, payload, shape, mode: int = 0,
+                frame: Optional[int] = None) -> ValueError:
     """The ValueError for a decoder return code; an unsupported frame's
     (and a frame of other than three components) names the feature its
-    headers show."""
+    headers show, and ``frame`` (an index) names the frame."""
+    at = "" if frame is None else f"frame {frame}: "
     if rc in (-3, -4):
         from ..utils.avi import jpeg_unsupported
-        why = jpeg_unsupported(bytes(payload)) or "a mode it does not read"
+        why = jpeg_unsupported(bytes(payload), mode=JPEG_MODES[mode]) or \
+            "a mode it does not read"
         what = "not a 3-component image" if rc == -3 else "unsupported JPEG"
-        return ValueError(f"jpeg_decode_bgr: {what}: {why}")
+        return ValueError(f"jpeg_decode_bgr: {at}{what}: {why}")
     reasons = {-1: "corrupt JPEG data",
-               -2: f"frame geometry != {tuple(shape)}"}
-    return ValueError(f"jpeg_decode_bgr: {reasons.get(rc, rc)}")
+               -2: f"frame geometry != {tuple(shape)}",
+               -5: "data FFmpeg decodes with an error it conceals (cv2 "
+                   "returns a frame the 'ffmpeg' mode cannot match)",
+               -6: "the data ends before the first scan (cv2 returns no "
+                   "frame)"}
+    return ValueError(f"jpeg_decode_bgr: {at}{reasons.get(rc, rc)}")
 
 
-def jpeg_decode_bgr(src, dst: np.ndarray, fast: bool = False) -> None:
+def jpeg_decode_bgr(src, dst: np.ndarray, fast: bool = False,
+                    mode: Optional[str] = None) -> None:
     """Decode one JPEG byte string/buffer into ``dst`` (H, W, 3) BGR uint8.
 
-    The bytes libjpeg-turbo gives: ``fast=False`` its JDCT_ISLOW IDCT and
-    fancy chroma upsampling, ``fast=True`` JDCT_IFAST and replicated
-    (merged) chroma.  Raises ValueError on malformed data, a geometry
-    mismatch or a mode the decoder does not read (naming it).
+    ``mode`` (one of ``JPEG_MODES``; None takes ``fast``): ``"turbo"``
+    gives libjpeg-turbo's bytes with its JDCT_ISLOW IDCT and fancy chroma
+    upsampling, ``"turbo_fast"`` (``fast=True``) JDCT_IFAST and replicated
+    (merged) chroma, ``"ffmpeg"`` what ``cv2.VideoCapture`` gives for an
+    MJPG frame (FFmpeg's decoder and swscale).  Raises ValueError on
+    malformed data, a geometry mismatch, a mode the decoder does not read
+    (naming it) or, in ``"ffmpeg"`` mode, data FFmpeg conceals errors in or
+    gives no frame for.
     """
     lib = _mjpeg()
+    m = _jpeg_mode(mode, fast)
     _check_frames(dst, 3, "(H, W, 3)")
     # zero-copy pointer to the source payload (np.frombuffer accepts both
     # read-only bytes and writable buffers without copying)
     flat = np.frombuffer(src, np.uint8)
     rc = lib.clt_jpeg_decode_bgr(
         _as_u8_ptr(flat), flat.size, _as_u8_ptr(dst), dst.shape[0],
-        dst.shape[1], 1 if fast else 0)
+        dst.shape[1], m)
     if rc != 0:
-        raise _jpeg_error(rc, flat, dst.shape[:2])
+        raise _jpeg_error(rc, flat, dst.shape[:2], m)
 
 
 def jpeg_decode_bgr_batch(payloads, dst: np.ndarray, fast: bool = False,
-                          threads: Optional[int] = None) -> None:
+                          threads: Optional[int] = None,
+                          mode: Optional[str] = None,
+                          first_frame: int = 0) -> int:
     """Decode JPEG payload i into ``dst[i]`` ((k, H, W, 3) BGR uint8, k =
     ``len(payloads)``) on up to ``threads`` threads (default: every CPU),
-    as :func:`jpeg_decode_bgr` decodes each.  Raises the first failing
-    frame's ValueError, after every frame was tried."""
+    as :func:`jpeg_decode_bgr` decodes each.  Returns the number of frames
+    before the first that gives no frame (``"ffmpeg"`` mode, where cv2's
+    stream ends: k when every frame decoded), and raises the first failing
+    frame's ValueError before it, after every frame was tried; errors name
+    frames from ``first_frame``."""
     lib = _mjpeg()
+    m = _jpeg_mode(mode, fast)
     _check_frames(dst, 4, "(k, H, W, 3)")
     k = len(payloads)
     if dst.shape[0] != k:
@@ -368,10 +405,14 @@ def jpeg_decode_bgr_batch(payloads, dst: np.ndarray, fast: bool = False,
     rcs = (ctypes.c_int * k)()
     lib.clt_jpeg_decode_bgr_batch(
         ptrs, sizes, k, _as_u8_ptr(dst), dst.shape[1], dst.shape[2],
-        1 if fast else 0, threads or os.cpu_count() or 1, rcs)
+        m, threads or os.cpu_count() or 1, rcs)
     for i, rc in enumerate(rcs):
+        if rc == JPEG_NO_FRAME:
+            return i
         if rc != 0:
-            raise _jpeg_error(rc, flats[i], dst.shape[1:3])
+            raise _jpeg_error(rc, flats[i], dst.shape[1:3], m,
+                              first_frame + i)
+    return k
 
 
 def _load_tiff() -> Optional[ctypes.CDLL]:

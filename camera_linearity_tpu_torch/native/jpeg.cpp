@@ -1,14 +1,27 @@
 // Baseline JPEG decoder for camera_linearity_tpu_torch: the frames of an
 // MJPG AVI, decoded into interleaved BGR uint8, with no libjpeg.
 //
-// It gives the bytes libjpeg-turbo 2.1 gives for the same frame, in its
-// two modes:
-//   fast = 0: jpeg_idct_islow (13-bit constants, two pass-1 bits, rounding
-//             descales), then fancy (triangle) upsampling of h2v1 and h2v2
-//             chroma, then jdcolor's fixed-point YCbCr -> RGB tables;
-//   fast = 1: jpeg_idct_ifast (8-bit AAN multipliers, truncating
+// Three modes.  The first two give the bytes libjpeg-turbo 2.1 gives for
+// the same frame:
+//   mode 0 (turbo): jpeg_idct_islow (13-bit constants, two pass-1 bits,
+//             rounding descales), then fancy (triangle) upsampling of h2v1
+//             and h2v2 chroma, then jdcolor's fixed-point YCbCr -> RGB
+//             tables;
+//   mode 1 (turbo_fast): jpeg_idct_ifast (8-bit AAN multipliers, truncating
 //             descales), then jdmerge's merged upsample and colour convert,
 //             which is replicated chroma.
+// The third gives what cv2.VideoCapture gives for an MJPG frame, FFmpeg 8's
+// MJPEG decoder and then swscale to BGR24 on x86-64 (native/jpeg_plain.py's
+// docstring has each stage):
+//   mode 2 (ffmpeg): the DC predictor on dequantized values; FFmpeg's
+//             simple_idct as its SSE2/AVX routine computes it (row pass
+//             first, saturated to 16 bits); the yuvj planes converted as
+//             swscale does: 4:2:0 and 4:2:2 by its unscaled SSSE3 path
+//             (replicated chroma, truncating pmulhw), 4:4:4 by its
+//             full-chroma scaler output (rounding).  Data FFmpeg meets with
+//             an error it conceals returns kUnmatched, and data that ends
+//             before the first SOS marker kNoFrame (FFmpeg returns no
+//             frame there).
 // Input: SOF0/SOF1, 8-bit, three components in one interleaved Huffman
 // scan; DQT with 8- and 16-bit tables; DHT, or Annex K's standard tables
 // for a slot no DHT defined (MJPEG cameras leave them out); DRI with
@@ -40,6 +53,10 @@ constexpr int kCorrupt = -1;      // libjpeg would stop with an error
 constexpr int kGeometry = -2;     // not the caller's height and width
 constexpr int kComponents = -3;   // not three components
 constexpr int kUnsupported = -4;  // a mode this decoder does not read
+constexpr int kUnmatched = -5;    // ffmpeg mode: an error FFmpeg conceals
+constexpr int kNoFrame = -6;      // ffmpeg mode: data ends before the scan
+
+enum Mode { kTurbo = 0, kTurboFast = 1, kFfmpeg = 2 };
 
 constexpr int kEoi = 0xD9;
 constexpr int kLook = 9;          // Huffman lookahead bits
@@ -222,6 +239,7 @@ struct Source {
     const std::uint8_t* data;
     std::size_t n;
     std::size_t pos;
+    bool sos = false;  // the header walk has met the first SOS marker
 
     inline int at(std::size_t i) const {
         return i < n ? data[i] : ((i - n) & 1) ? kEoi : 0xFF;
@@ -248,6 +266,7 @@ struct BitReader {
     int nbits = 0;
     int marker = 0;
     bool insufficient = false;
+    bool bad_code = false;  // a code no table holds was read
 
     void fill() {
         std::size_t pos = src->pos;
@@ -307,7 +326,10 @@ struct BitReader {
             code = static_cast<std::int32_t>(bits >> (17 - l));
         }
         skip(l);
-        if (l > 16) return 0;  // a bad code: libjpeg warns, reads a zero
+        if (l > 16) {  // a bad code: libjpeg warns, reads a zero
+            bad_code = true;
+            return 0;
+        }
         return h.val[(code + h.valoff[l]) & 0xFF];
     }
 };
@@ -487,8 +509,14 @@ struct Header {
     int restart = 0;
     bool jfif = false, adobe = false;
     int transform = 0;
+    bool ffmpeg_comment = false;          // a COM FFmpeg reads as a flag
     int scan_order[3];                    // frame index of each scan slot
 };
+
+// COM segments that change how FFmpeg's MJPEG decoder reads a frame
+// (limited range, flipped or interlaced frames)
+constexpr const char* kFfmpegComments[] = {
+    "CS=ITU601", "Intel(R) JPEG", "Metasoft MJPEG", "MULTISCOPE II", "AVID"};
 
 inline int be16(const std::uint8_t* p) { return (p[0] << 8) | p[1]; }
 
@@ -582,6 +610,7 @@ int read_header(Source& src, Header& hd) {
                 hd.transform = seg[11];
             }
         } else if (m == 0xDA) {  // SOS
+            src.sos = true;
             if (!saw_sof) return kCorrupt;
             const int n = body >= 1 ? seg[0] : 0;
             if (body != 4 + 2 * n || n < 1 || n > 4) return kCorrupt;
@@ -601,11 +630,91 @@ int read_header(Source& src, Header& hd) {
         } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xCC ||
                    m == 0xDC) {
             // other APPn, COM, DAC, DNL: skipped
+            if (m == 0xFE)
+                for (const char* c : kFfmpegComments) {
+                    const std::size_t k = std::strlen(c);
+                    if (static_cast<std::size_t>(keep) >= k && std::memcmp(seg, c, k) == 0)
+                        hd.ffmpeg_comment = true;
+                }
         } else {
             return kCorrupt;  // a marker libjpeg does not know
         }
     }
 }
+
+// FFmpeg's simple_idct for 8-bit samples as its x86-64 SSE2/AVX routine
+// (ff_simple_idct8_put_*) computes it: W_k = round(cos(k pi / 16) sqrt(2)
+// 2^14), W4 one less; the row pass first, each row (sum + 2^10) >> 11
+// saturated to 16 bits, or DC << 3 in 16 bits where the row has no AC
+// term; then the columns, the rounding (1 << 19) / W4 = 32 added to the DC
+// in 16 bits, sum >> 20, clamped to 0..255.  Sums wrap in 32 bits.
+constexpr std::uint32_t kW1 = 22725, kW2 = 21407, kW3 = 19266, kW4 = 16383,
+                        kW5 = 12873, kW6 = 8867, kW7 = 4520;
+
+// simple_idct's butterflies on eight lanes side by side (the loop
+// vectorizes): x[k][lane] the k-th input, a[lane] the DC term (rounding
+// included), o[k][lane] the k-th sum before the shift
+inline void simple_lanes(const std::int32_t (*x)[8], const std::uint32_t* a,
+                         std::int32_t (*o)[8]) {
+    for (int l = 0; l < 8; ++l) {
+        const std::uint32_t x1 = x[1][l], x2 = x[2][l], x3 = x[3][l], x4 = x[4][l],
+                            x5 = x[5][l], x6 = x[6][l], x7 = x[7][l];
+        const std::uint32_t a0 = a[l] + kW2 * x2 + kW4 * x4 + kW6 * x6;
+        const std::uint32_t a1 = a[l] + kW6 * x2 - kW4 * x4 - kW2 * x6;
+        const std::uint32_t a2 = a[l] - kW6 * x2 - kW4 * x4 + kW2 * x6;
+        const std::uint32_t a3 = a[l] - kW2 * x2 + kW4 * x4 - kW6 * x6;
+        const std::uint32_t b0 = kW1 * x1 + kW3 * x3 + kW5 * x5 + kW7 * x7;
+        const std::uint32_t b1 = kW3 * x1 - kW7 * x3 - kW1 * x5 - kW5 * x7;
+        const std::uint32_t b2 = kW5 * x1 - kW1 * x3 + kW7 * x5 + kW3 * x7;
+        const std::uint32_t b3 = kW7 * x1 - kW5 * x3 + kW3 * x5 - kW1 * x7;
+        o[0][l] = static_cast<std::int32_t>(a0 + b0);
+        o[1][l] = static_cast<std::int32_t>(a1 + b1);
+        o[2][l] = static_cast<std::int32_t>(a2 + b2);
+        o[3][l] = static_cast<std::int32_t>(a3 + b3);
+        o[4][l] = static_cast<std::int32_t>(a3 - b3);
+        o[5][l] = static_cast<std::int32_t>(a2 - b2);
+        o[6][l] = static_cast<std::int32_t>(a1 - b1);
+        o[7][l] = static_cast<std::int32_t>(a0 - b0);
+    }
+}
+
+// in[0] is the dequantized DC; the AC terms are multiplied by q here.  The
+// row pass runs the eight rows as lanes, the column pass the columns.
+void idct_simple(const std::int16_t* in, const std::int16_t* q,
+                 std::uint8_t* out, std::size_t stride) {
+    std::int32_t x[8][8], o[8][8], y[8][8];
+    std::uint32_t a[8];
+    int ac = 0;
+    for (int i = 1; i < 64; ++i) ac |= static_cast<std::int16_t>(in[i] * q[i]);
+    if (!ac) {  // rows 1-7 are zero and row 0 is DC << 3: a flat block
+        const std::int32_t d = i16(in[0] * 8);
+        const std::uint8_t v = clamp255(
+            static_cast<std::int32_t>(kW4 * static_cast<std::uint32_t>(i16(d + 32))) >> 20);
+        for (int r = 0; r < 8; ++r) std::memset(out + r * stride, v, 8);
+        return;
+    }
+    for (int r = 0; r < 8; ++r)
+        for (int k = 0; k < 8; ++k)
+            x[k][r] = static_cast<std::int16_t>(in[8 * r + k] * q[8 * r + k]);
+    x[0][0] = in[0];
+    for (int r = 0; r < 8; ++r) a[r] = kW4 * static_cast<std::uint32_t>(x[0][r]) + (1u << 10);
+    simple_lanes(x, a, o);
+    for (int r = 0; r < 8; ++r) {
+        const bool ac = x[1][r] | x[2][r] | x[3][r] | x[4][r] | x[5][r] | x[6][r] | x[7][r];
+        const std::int32_t d = i16(x[0][r] * 8);
+        for (int c = 0; c < 8; ++c) y[r][c] = ac ? sat16(o[c][r] >> 11) : d;
+    }
+    for (int c = 0; c < 8; ++c) a[c] = kW4 * static_cast<std::uint32_t>(i16(y[0][c] + 32));
+    simple_lanes(y, a, o);
+    for (int r = 0; r < 8; ++r) {
+        std::uint8_t* row = out + r * stride;
+        for (int c = 0; c < 8; ++c) row[c] = clamp255(o[r][c] >> 20);
+    }
+}
+
+// swscale's full-range BT.601 coefficients (13 fractional bits): u -> b,
+// u -> g, v -> g, v -> r
+constexpr std::int32_t kUb = 14516, kUg = -2819, kVg = -5850, kVr = 11485;
 
 // Per-thread planes and row buffers, reused across frames.
 struct Scratch {
@@ -625,6 +734,7 @@ enum class Upsample { kNone, kReplicate, kH2V1, kH2V2 };
 
 struct Decoder {
     Header hd;
+    int mode = kTurbo;
     bool fast = false, rgb = false;
     int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
     Huff dctab[4], actab[4];
@@ -654,12 +764,18 @@ struct Decoder {
                     px[x] = b | (g << 8) | (r << 16);
                 }
             }
-            // each pixel as 4 bytes, the next overwriting the fourth
-            std::uint8_t* o = dst + static_cast<std::size_t>(y) * W * 3;
-            for (int x = 0; x + 1 < W; ++x) std::memcpy(o + 3 * x, px + x, 4);
-            for (int k = 0; k < 3; ++k)
-                o[3 * (W - 1) + k] = static_cast<std::uint8_t>(px[W - 1] >> (8 * k));
+            store_row(dst, y, px);
         }
+    }
+
+    // Row y of dst from px, B | G << 8 | R << 16 a pixel: each pixel as 4
+    // bytes, the next overwriting the fourth.
+    void store_row(std::uint8_t* dst, int y, const std::uint32_t* px) const {
+        const int W = hd.width;
+        std::uint8_t* o = dst + static_cast<std::size_t>(y) * W * 3;
+        for (int x = 0; x + 1 < W; ++x) std::memcpy(o + 3 * x, px + x, 4);
+        for (int k = 0; k < 3; ++k)
+            o[3 * (W - 1) + k] = static_cast<std::uint8_t>(px[W - 1] >> (8 * k));
     }
 
     // Component k's samples for output row y at full width (jdsample.c):
@@ -727,8 +843,19 @@ struct Decoder {
         const int hx = hmax / c1.h, vx = vmax / c1.v;
         if (!((hx == 1 && vx == 1) || (hx == 2 && vx == 1) || (hx == 2 && vx == 2)))
             return kUnsupported;
+        if (mode == kFfmpeg) {
+            // the sampling FFmpeg reads as yuvj420p/422p/444p (4:4:4 as
+            // planar RGB with IDs 'R', 'G', 'B' or Adobe transform 0)
+            if (c1.h != 1 || c1.v != 1 || (c0.id == 'Q' && c1.id == 'F' && c2.id == 'A'))
+                return kUnsupported;
+            // an odd height of subsampled chroma takes swscale's scaler
+            if (hmax > 1 && (hd.height & 1)) return kUnsupported;
+            if (hd.ffmpeg_comment) return kUnmatched;
+            rgb = hmax == 1 && ((hd.adobe && hd.transform == 0) ||
+                                (c0.id == 'R' && c1.id == 'G' && c2.id == 'B'));
+        }
         // libjpeg's colour space guess (jdapimin.c)
-        if (hd.jfif) rgb = false;
+        else if (hd.jfif) rgb = false;
         else if (hd.adobe) rgb = hd.transform == 0;
         else rgb = c0.id == 'R' && c1.id == 'G' && c2.id == 'B';
         for (int k = 0; k < 3; ++k) {
@@ -894,6 +1021,145 @@ struct Decoder {
         return trailer(br, src);
     }
 
+    // The output rows [y0, y1) from the planes as swscale converts FFmpeg's
+    // yuvj planes to BGR24: chroma replicated.  Each row is packed a pixel
+    // a word, then stored as convert() stores its rows.
+    void convert_ffmpeg(std::uint8_t* dst, int y0, int y1) {
+        const int W = hd.width;
+        const Component &c0 = hd.comp[0], &c1 = hd.comp[1], &c2 = hd.comp[2];
+        const int xs = hmax > 1 ? 1 : 0, ys = vmax > 1 ? 1 : 0;
+        std::uint32_t* __restrict px = s->packed.data();
+        auto clip = [](std::int32_t v) {
+            return static_cast<std::uint32_t>(std::min(std::max(v, 0), 255));
+        };
+        for (int y = y0; y < y1; ++y) {
+            const std::uint8_t* __restrict py = c0.plane + y * c0.stride;
+            const std::uint8_t* __restrict pu = c1.plane + (y >> ys) * c1.stride;
+            const std::uint8_t* __restrict pv = c2.plane + (y >> ys) * c2.stride;
+            if (rgb) {
+                for (int x = 0; x < W; ++x)
+                    px[x] = pv[x] | (pu[x] << 8) | (py[x] << 16);
+            } else if (xs) {  // the unscaled SSSE3 converter: pmulhw
+                // chroma replicated across into pairs (the loop below then
+                // vectorizes)
+                std::uint16_t* __restrict u2 = s->row[0].data();
+                std::uint16_t* __restrict v2 = s->row[1].data();
+                for (int i = 0; i < (W + 1) / 2; ++i) {
+                    u2[i] = static_cast<std::uint16_t>(pu[i] * 0x0101);
+                    v2[i] = static_cast<std::uint16_t>(pv[i] * 0x0101);
+                }
+                const std::uint8_t* __restrict uu = reinterpret_cast<const std::uint8_t*>(u2);
+                const std::uint8_t* __restrict vv = reinterpret_cast<const std::uint8_t*>(v2);
+                for (int x = 0; x < W; ++x) {
+                    const std::int32_t yy = py[x], u = uu[x] * 8 - 1024, v = vv[x] * 8 - 1024;
+                    px[x] = clip(yy + ((u * kUb) >> 16)) |
+                            clip(yy + ((u * kUg) >> 16) + ((v * kVg) >> 16)) << 8 |
+                            clip(yy + ((v * kVr) >> 16)) << 16;
+                }
+            } else {  // the full-chroma scaler output: rounds
+                for (int x = 0; x < W; ++x) {
+                    const std::int32_t yy = (py[x] << 22) + (1 << 21),
+                                       u = (pu[x] - 128) * 512, v = (pv[x] - 128) * 512;
+                    px[x] = clip((yy + u * kUb) >> 22) |
+                            clip((yy + u * kUg + v * kVg) >> 22) << 8 |
+                            clip((yy + v * kVr) >> 22) << 16;
+                }
+            }
+            store_row(dst, y, px);
+        }
+    }
+
+    // The scan as FFmpeg's MJPEG decoder reads it (mjpegdec.c): the DC
+    // predictor runs on dequantized values from 1024 and each DC is the sum
+    // clipped to int16; a restart interval ends in padding bits (all ones
+    // or all zeros) and any RSTn.  What FFmpeg would stop at with an error
+    // it then conceals returns kUnmatched: a bad Huffman code, a run past
+    // the 64th coefficient, a size-0 symbol other than EOB and ZRL, bits
+    // past the data, an interval that does not end at its marker.
+    int run_ffmpeg(const std::uint8_t* data, std::size_t n, std::size_t scan_at,
+                   std::uint8_t* dst) {
+        Source src{data, n, scan_at};
+        BitReader br;
+        br.src = &src;
+        alloc();
+        int pred[3] = {1024, 1024, 1024};
+        int togo = hd.restart;
+        alignas(16) std::int16_t blk[64];
+        const int band = 8 * vmax;
+        for (int my = 0; my < mcuy; ++my) {
+            for (int mx = 0; mx < mcux; ++mx) {
+                if (hd.restart && togo == 0) {
+                    if (!br.marker) br.fill();
+                    if (!br.marker || br.nbits >= 8 || br.marker < 0xD0 || br.marker > 0xD7)
+                        return kUnmatched;
+                    const std::uint32_t ones = (1u << br.nbits) - 1;
+                    const std::uint32_t pad = static_cast<std::uint32_t>(br.buf) & ones;
+                    if (pad != 0 && pad != ones) return kUnmatched;
+                    br.buf = 0;
+                    br.nbits = 0;
+                    br.marker = 0;
+                    pred[0] = pred[1] = pred[2] = 1024;
+                    togo = hd.restart;
+                }
+                for (int i = 0; i < 3; ++i) {
+                    const int k = hd.scan_order[i];
+                    Component& c = hd.comp[k];
+                    const Huff& dct = dctab[c.td];
+                    const Huff& act = actab[c.ta];
+                    const unsigned q0 = hd.qt[c.tq][0];
+                    for (int by = 0; by < c.v; ++by) {
+                        for (int bx = 0; bx < c.h; ++bx) {
+                            std::memset(blk, 0, sizeof(blk));
+                            int t = br.decode(dct);
+                            const int diff = t ? extend(br.get(t), t) : 0;
+                            pred[k] = static_cast<int>(static_cast<unsigned>(diff) * q0 +
+                                                       static_cast<unsigned>(pred[k]));
+                            blk[0] = static_cast<std::int16_t>(
+                                std::min(std::max(pred[k], -32768), 32767));
+                            for (int z = 1; z < 64; ++z) {
+                                if (br.nbits < kLook) br.fill();
+                                if (br.nbits >= kLook) {  // code + bits at once
+                                    const std::int32_t e = act.fast_ac[
+                                        (br.buf >> (br.nbits - kLook)) & ((1 << kLook) - 1)];
+                                    if (e) {
+                                        br.nbits -= e & 0xFF;
+                                        z += (e >> 8) & 0xFF;
+                                        if (z > 63) return kUnmatched;
+                                        blk[kNatural[z]] = static_cast<std::int16_t>(e >> 16);
+                                        continue;
+                                    }
+                                }
+                                t = br.decode(act);
+                                const int r = t >> 4, sz = t & 15;
+                                if (sz) {
+                                    z += r;
+                                    if (z > 63) return kUnmatched;
+                                    blk[kNatural[z]] = static_cast<std::int16_t>(
+                                        extend(br.get(sz), sz));
+                                } else {
+                                    if (r != 15) {
+                                        if (r) return kUnmatched;
+                                        break;
+                                    }
+                                    z += 15;
+                                }
+                            }
+                            if (br.bad_code) return kUnmatched;
+                            std::uint8_t* out = c.plane +
+                                (static_cast<std::size_t>(my) * c.v + by) * 8 * c.stride +
+                                (static_cast<std::size_t>(mx) * c.h + bx) * 8;
+                            idct_simple(blk, c.q, out, c.stride);
+                        }
+                    }
+                }
+                if (br.insufficient) return kUnmatched;
+                if (hd.restart) --togo;
+            }
+            convert_ffmpeg(dst, my * band, std::min((my + 1) * band, hd.height));
+        }
+        return trailer(br, src);
+    }
+
     // The markers after the scan, up to EOI, as jpeg_finish_decompress
     // reads them: a second scan is a mode this decoder does not read.
     int trailer(BitReader& br, Source& src) {
@@ -917,16 +1183,20 @@ struct Decoder {
 };
 
 int decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst,
-           int height, int width, bool fast) {
+           int height, int width, int mode) {
+    if (mode < kTurbo || mode > kFfmpeg) return kUnsupported;
     Decoder dec;
-    dec.fast = fast;
+    dec.mode = mode;
+    dec.fast = mode == kTurboFast;
     dec.s = &tls_scratch;
     Source src{data, n, 0};
     int rc = read_header(src, dec.hd);
-    if (rc != kOk) return rc;
+    if (rc != kOk)  // FFmpeg gives no frame for data that ends before SOS
+        return mode == kFfmpeg && !src.sos && src.pos >= n ? kNoFrame : rc;
     rc = dec.setup();
     if (rc != kOk) return rc;
     if (dec.hd.height != height || dec.hd.width != width) return kGeometry;
+    if (mode == kFfmpeg) return dec.run_ffmpeg(data, n, src.pos, dst);
     return dec.run(data, n, src.pos, dst);
 }
 
@@ -935,15 +1205,18 @@ int decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst,
 extern "C" {
 
 // Decode one JPEG (bytes src[0..n)) into dst = height*width*3 interleaved
-// BGR uint8.  Returns 0 on success; -1 a decode error (where libjpeg would
-// stop with one); -2 the frame's geometry differs from (height, width);
-// -3 not a 3-component image; -4 a mode this decoder does not read
-// (progressive, lossless, arithmetic, 12-bit, several scans, other
-// sampling).
+// BGR uint8 in mode 0 (turbo), 1 (turbo_fast) or 2 (ffmpeg).  Returns 0
+// on success; -1 a decode error (where libjpeg would stop with one); -2
+// the frame's geometry differs from (height, width); -3 not a 3-component
+// image; -4 a mode this decoder does not read (progressive, lossless,
+// arithmetic, 12-bit, several scans, other sampling; in mode 2 also
+// subsampled chroma of odd height); mode 2 only: -5 data FFmpeg decodes
+// with an error it conceals, -6 data that ends before the first scan
+// (FFmpeg returns no frame).
 int clt_jpeg_decode_bgr(const unsigned char* src, std::size_t n,
                         unsigned char* dst, int height, int width,
-                        int fast_dct) {
-    return decode(src, n, dst, height, width, fast_dct != 0);
+                        int mode) {
+    return decode(src, n, dst, height, width, mode);
 }
 
 // Decode k JPEGs (srcs[i], sizes[i] bytes) into dst, frame i at
@@ -952,14 +1225,14 @@ int clt_jpeg_decode_bgr(const unsigned char* src, std::size_t n,
 void clt_jpeg_decode_bgr_batch(const unsigned char* const* srcs,
                                const std::size_t* sizes, std::size_t k,
                                unsigned char* dst, int height, int width,
-                               int fast_dct, int nthreads, int* rcs) {
+                               int mode, int nthreads, int* rcs) {
     const std::size_t frame = static_cast<std::size_t>(height) * width * 3;
     parallel_items(k, nthreads, [&](std::size_t i) {
         rcs[i] = decode(srcs[i], sizes[i], dst + i * frame, height, width,
-                        fast_dct != 0);
+                        mode);
     });
 }
 
-int clt_jpeg_version() { return 1; }
+int clt_jpeg_version() { return 2; }
 
 }  // extern "C"

@@ -4,8 +4,35 @@ The tests and ``chip_smoke.py`` hold the native library to it bit for bit:
 the same marker walk and byte source (libjpeg's fake EOI bytes past the
 end), the same Huffman decode (in Python, one symbol at a time, with the
 same zero bits past the data and restart handling), and the same integer
-IDCTs, upsampling and colour tables (vectorised NumPy).  Nothing in the
+IDCTs, upsampling and colour tables (vectorised NumPy), in each of the
+three modes (``MODES``): ``"turbo"`` and ``"turbo_fast"`` give
+libjpeg-turbo's bytes, ``"ffmpeg"`` what ``cv2.VideoCapture`` gives for an
+MJPG frame (FFmpeg's MJPEG decoder, then swscale to BGR24).  Nothing in the
 package calls it; a 4K frame takes it about a minute.
+
+The ``"ffmpeg"`` mode, stage by stage, as FFmpeg 8 (libavcodec 62,
+libswscale 9) runs on x86-64:
+
+* entropy decode as libjpeg's, but the DC predictor runs on dequantized
+  values (it starts at 1024, the level shift, and each block's DC is the
+  running sum clipped to int16), and a restart marker is any RSTn;
+* the ``simple_idct`` of its SSE2/AVX routine (``ff_simple_idct8_*``):
+  W1-W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520, a row pass first
+  (a row with no AC term is ``DC << 3`` in 16 bits, else ``(sum + 2^10)
+  >> 11`` saturated to int16), then the column pass (the DC rounding 32
+  added in 16 bits, ``sum >> 20`` in 32 bits), clamped to 0..255;
+* the planes as ``yuvj420p``/``yuvj422p``/``yuvj444p``; cv2 asks swscale
+  for BGR24 at the same size.  4:2:0 and 4:2:2 of even height take its
+  unscaled SSSE3 converter: chroma replicated, ``pmulhw`` with the
+  full-range BT.601 coefficients (``y + ((c * 8 - 1024) * k >> 16)``,
+  k = 14516, -2819, -5850, 11485).  4:4:4 takes the scaler's full-chroma
+  output: ``(y << 22 + 2^21 + (c - 128 << 9) * k) >> 22``, which rounds.
+  4:4:4 with component IDs 'R', 'G', 'B' or Adobe transform 0 is planar
+  RGB.  An odd height in 4:2:0 or 4:2:2 takes swscale's bicubic scaler,
+  which this mode does not reproduce: UNSUPPORTED;
+* data FFmpeg would meet with an error it conceals (a bad Huffman code, a
+  run past the 64th coefficient, bits past the end of the data, a restart
+  interval that does not end at its marker): UNMATCHED, not a guess.
 """
 from __future__ import annotations
 
@@ -14,14 +41,38 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["decode", "decode_bgr", "STANDARD_TABLES", "OK", "CORRUPT",
-           "GEOMETRY", "COMPONENTS", "UNSUPPORTED"]
+__all__ = ["decode", "decode_bgr", "STANDARD_TABLES", "MODES", "OK",
+           "CORRUPT", "GEOMETRY", "COMPONENTS", "UNSUPPORTED", "UNMATCHED",
+           "NO_FRAME"]
 
-# clt_jpeg_decode_bgr's return codes
-OK, CORRUPT, GEOMETRY, COMPONENTS, UNSUPPORTED = 0, -1, -2, -3, -4
+# clt_jpeg_decode_bgr's return codes; NO_FRAME (the "ffmpeg" mode only):
+# the data ends before the first scan, where FFmpeg returns no frame
+OK, CORRUPT, GEOMETRY, COMPONENTS, UNSUPPORTED, UNMATCHED, NO_FRAME = \
+    0, -1, -2, -3, -4, -5, -6
 _REASONS = {CORRUPT: "corrupt JPEG data", GEOMETRY: "frame geometry",
             COMPONENTS: "not a 3-component image",
-            UNSUPPORTED: "a mode the decoder does not read"}
+            UNSUPPORTED: "a mode the decoder does not read",
+            UNMATCHED: "data FFmpeg decodes with an error it conceals",
+            NO_FRAME: "the data ends before the first scan"}
+
+# the decoder's modes, by their number in jpeg.cpp
+MODES = ("turbo", "turbo_fast", "ffmpeg")
+
+# COM segments that change how FFmpeg's MJPEG decoder reads a frame
+# (limited range, flipped or interlaced frames)
+_FFMPEG_COMMENTS = (b"CS=ITU601", b"Intel(R) JPEG", b"Metasoft MJPEG",
+                    b"MULTISCOPE II", b"AVID")
+
+
+def mode_name(mode) -> str:
+    """A mode's name from its name or the old ``fast`` flag (False:
+    ``"turbo"``, True: ``"turbo_fast"``)."""
+    if isinstance(mode, (bool, np.bool_)):
+        return MODES[int(mode)]
+    if mode not in MODES:
+        raise ValueError(f"unknown JPEG decoder mode {mode!r}; expected one "
+                         f"of {MODES}")
+    return mode
 
 _EOI = 0xD9
 _LOOK = 9
@@ -78,6 +129,7 @@ class _Source:
         self.data = data
         self.n = len(data)
         self.pos = 0
+        self.sos = False  # the walk has met the first SOS marker
         # the data and enough fake EOI bytes for a segment search
         self.ext = data + b"\xff\xd9" * 4
 
@@ -167,6 +219,7 @@ class _Header:
         self.restart = 0
         self.jfif = self.adobe = False
         self.transform = 0
+        self.comments: List[bytes] = []  # the first 14 bytes of each COM
         self.scan: List[int] = []  # frame index of each scan slot
 
 
@@ -252,6 +305,7 @@ def _read_header(src: _Source) -> _Header:
             if body >= 12 and seg[:5] == b"Adobe":
                 hd.adobe, hd.transform = True, seg[11]
         elif m == 0xDA:
+            src.sos = True
             if not saw_sof:
                 raise _Fault(CORRUPT)
             n = seg[0] if body >= 1 else 0
@@ -271,7 +325,8 @@ def _read_header(src: _Source) -> _Header:
                 hd.scan.append(c)
             return hd
         elif skipped or m in (0xCC, 0xDC):
-            pass
+            if m == 0xFE:
+                hd.comments.append(seg)
         else:
             raise _Fault(CORRUPT)
 
@@ -322,21 +377,38 @@ def _take(win: list, p: int, n: int) -> Tuple[int, int]:
 
 
 def _blocks(hd: _Header, src: _Source, mcux: int, mcuy: int, hmax: int,
-            vmax: int, tables) -> Tuple[List[np.ndarray], int]:
+            vmax: int, tables, dc_quant=None) -> Tuple[List[np.ndarray], int]:
     """The quantized coefficients of every block, per component as
     (blocks down, blocks across, 64) int16 in natural order, and the
     source's marker after the scan (``jpeg.cpp``'s run, without the
-    IDCT)."""
+    IDCT).
+
+    With ``dc_quant`` (each component's DC quantizer) the scan decodes as
+    FFmpeg's does: each DC is the dequantized running sum from 1024
+    clipped to int16, a restart is any RSTn right after the interval's
+    padding bits (all ones or all zeros), and what FFmpeg would stop at
+    with an error raises UNMATCHED."""
+    ffmpeg = dc_quant is not None
     coefs = [np.zeros((mcuy * c["v"], mcux * c["h"], 64), np.int16)
              for c in hd.comps]
     bits = _Bits(src)
     short = False
-    pred = [0, 0, 0]
+    start = 1024 if ffmpeg else 0
+    pred = [start] * 3
     togo, next_rst = hd.restart, 0
     natural = _NATURAL
     for my in range(mcuy):
         for mx in range(mcux):
-            if hd.restart and togo == 0:
+            if ffmpeg and hd.restart and togo == 0:
+                rest = bits.real - bits.p
+                if not 0 <= rest < 8 or not 0xD0 <= bits.marker <= 0xD7 or \
+                        _take(bits.win, bits.p, rest)[0] not in (
+                            0, (1 << rest) - 1):
+                    raise _Fault(UNMATCHED)
+                pred = [start] * 3
+                togo = hd.restart
+                bits = _Bits(src)
+            elif hd.restart and togo == 0:
                 m = bits.marker
                 against = None
                 if m == 0xD0 + next_rst:
@@ -376,19 +448,31 @@ def _blocks(hd: _Header, src: _Source, mcux: int, mcuy: int, hmax: int,
                         row = coefs[k][my * c["v"] + by]
                         for bx in range(c["h"]):
                             blk = row[mx * c["h"] + bx]
+                            at = p
                             t, p = _symbol(win, p, dct)
+                            if ffmpeg and p - at > 16:  # a bad code
+                                raise _Fault(UNMATCHED)
                             diff = 0
                             if t:
                                 x, p = _take(win, p, t)
                                 diff = x - (1 << t) + 1 \
                                     if x < 1 << (t - 1) else x
-                            pred[k] = (pred[k] + diff + 2 ** 31) % 2 ** 32 \
-                                - 2 ** 31
-                            blk[0] = (pred[k] + 32768) % 65536 - 32768
+                            if ffmpeg:
+                                pred[k] = (pred[k] + diff * dc_quant[k]
+                                           + 2 ** 31) % 2 ** 32 - 2 ** 31
+                                blk[0] = min(max(pred[k], -32768), 32767)
+                            else:
+                                pred[k] = (pred[k] + diff + 2 ** 31) \
+                                    % 2 ** 32 - 2 ** 31
+                                blk[0] = (pred[k] + 32768) % 65536 - 32768
                             z = 1
                             while z < 64:
+                                at = p
                                 t, p = _symbol(win, p, act)
                                 r, s = t >> 4, t & 15
+                                if ffmpeg and (p - at > 16 or (
+                                        z + r > 63 if s else r not in (0, 15))):
+                                    raise _Fault(UNMATCHED)
                                 if s:
                                     z += r
                                     x, p = _take(win, p, s)
@@ -401,6 +485,8 @@ def _blocks(hd: _Header, src: _Source, mcux: int, mcuy: int, hmax: int,
                                 z += 1
                 bits.p = p
                 if p > bits.real:
+                    if ffmpeg:
+                        raise _Fault(UNMATCHED)
                     short = True
             if hd.restart:
                 togo -= 1
@@ -502,6 +588,75 @@ def _idct_ifast(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
     return _sample(_ifast_1d(np.swapaxes(ws, 1, 2)) >> 5).swapaxes(1, 2)
 
 
+# FFmpeg's simple_idct (8-bit): W_k = round(cos(k pi / 16) sqrt(2) 2^14),
+# W4 one less
+_W = (None, 22725, 21407, 19266, 16383, 12873, 8867, 4520)
+
+
+def _i32(x: np.ndarray) -> np.ndarray:
+    return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _simple_1d(x, a0):
+    """simple_idct's butterflies along the last axis of x, with the DC
+    term ``a0`` given: the eight sums before the shift."""
+    W1, W2, W3, W4, W5, W6, W7 = _W[1:]
+    a1, a2, a3 = a0 + W6 * x[..., 2], a0 - W6 * x[..., 2], \
+        a0 - W2 * x[..., 2]
+    a0 = a0 + W2 * x[..., 2]
+    b0 = W1 * x[..., 1] + W3 * x[..., 3] + W5 * x[..., 5] + W7 * x[..., 7]
+    b1 = W3 * x[..., 1] - W7 * x[..., 3] - W1 * x[..., 5] - W5 * x[..., 7]
+    b2 = W5 * x[..., 1] - W1 * x[..., 3] + W7 * x[..., 5] + W3 * x[..., 7]
+    b3 = W7 * x[..., 1] - W5 * x[..., 3] + W3 * x[..., 5] - W1 * x[..., 7]
+    a0 = a0 + W4 * x[..., 4] + W6 * x[..., 6]
+    a1 = a1 - W4 * x[..., 4] - W2 * x[..., 6]
+    a2 = a2 - W4 * x[..., 4] + W2 * x[..., 6]
+    a3 = a3 + W4 * x[..., 4] - W6 * x[..., 6]
+    return np.stack([a0 + b0, a1 + b1, a2 + b2, a3 + b3,
+                     a3 - b3, a2 - b2, a1 - b1, a0 - b0], -1)
+
+
+def _idct_simple(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """(n, 64) int16 coefficients, the DC already dequantized -> (n, 8, 8)
+    uint8 samples, as ff_simple_idct8_put_sse2/avx computes them."""
+    c = coef.astype(np.int64).reshape(-1, 8, 8)
+    v = _i16(c * q.astype(np.int64).reshape(8, 8))
+    v[:, 0, 0] = c[:, 0, 0]
+    W4 = _W[4]
+    # rows: a row with no AC term is DC << 3 in 16 bits
+    rows = _sat16(_i32(_simple_1d(v, W4 * v[..., 0] + (1 << 10))) >> 11)
+    dc_only = ~(v[..., 1:] != 0).any(-1)
+    rows = np.where(dc_only[..., None], _i16(v[..., :1] * 8), rows)
+    # columns: the rounding (1 << 19) / W4 = 32 added to the DC in 16 bits
+    cols = np.swapaxes(rows, 1, 2)
+    out = _i32(_simple_1d(cols, W4 * _i16(cols[..., 0] + 32))) >> 20
+    return np.clip(np.swapaxes(out, 1, 2), 0, 255).astype(np.uint8)
+
+
+# swscale's full-range BT.601 coefficients (ff_yuv2rgb_c_init_tables, 13
+# fractional bits): u -> b, u -> g, v -> g, v -> r
+_UB, _UG, _VG, _VR = 14516, -2819, -5850, 11485
+
+
+def _ffmpeg_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                subsampled: bool) -> np.ndarray:
+    """BGR24 from full-size planes as swscale converts them: the unscaled
+    SSSE3 path (pmulhw, truncating) for subsampled chroma, the full-chroma
+    scaler (rounding) for 4:4:4."""
+    y, cb, cr = (a.astype(np.int64) for a in (y, cb, cr))
+    if subsampled:
+        u, v = cb * 8 - 1024, cr * 8 - 1024
+        bgr = (y + ((u * _UB) >> 16),
+               y + ((u * _UG) >> 16) + ((v * _VG) >> 16),
+               y + ((v * _VR) >> 16))
+    else:
+        yy = (y << 22) + (1 << 21)
+        u, v = (cb - 128) << 9, (cr - 128) << 9
+        bgr = ((yy + u * _UB) >> 22, (yy + u * _UG + v * _VG) >> 22,
+               (yy + v * _VR) >> 22)
+    return np.stack(bgr, -1).clip(0, 255).astype(np.uint8)
+
+
 # jdcolor.c's tables (SCALEBITS 16)
 def _fix(x: float) -> int:
     return int(x * 65536.0 + 0.5)
@@ -541,22 +696,31 @@ def _upsample(plane: np.ndarray, dh: int, dw: int, hx: int, vx: int,
     return out[:, :width]
 
 
-def decode_bgr(data: bytes, height: int, width: int, fast: bool = False
+def decode_bgr(data: bytes, height: int, width: int, mode="ffmpeg"
                ) -> Tuple[int, Optional[np.ndarray]]:
     """``clt_jpeg_decode_bgr`` in plain Python: ``(return code, frame)``,
     the frame (H, W, 3) BGR uint8 wherever the native decoder writes one
-    (a fault after the scan still leaves it), else None."""
+    (a fault after the scan still leaves it), else None.  ``mode``: one of
+    ``MODES``, or a bool as the old ``fast`` argument (False ``"turbo"``,
+    True ``"turbo_fast"``)."""
+    mode = mode_name(mode)
     src = _Source(bytes(data))
     try:
         hd = _read_header(src)
-        frame, code = _decode(hd, src, fast, height, width)
+    except _Fault as fault:
+        if mode == "ffmpeg" and not src.sos and src.pos >= src.n:
+            return NO_FRAME, None
+        return fault.code, None
+    try:
+        frame, code = _decode(hd, src, mode, height, width)
     except _Fault as fault:
         return fault.code, None
     return code, frame
 
 
-def _decode(hd: _Header, src: _Source, fast: bool, height: int,
+def _decode(hd: _Header, src: _Source, mode: str, height: int,
             width: int):
+    fast = mode == "turbo_fast"
     comps = hd.comps
     for c in comps:
         if not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4):
@@ -571,12 +735,25 @@ def _decode(hd: _Header, src: _Source, fast: bool, height: int,
             hmax % c1["h"] or vmax % c1["v"] or \
             (hmax // c1["h"], vmax // c1["v"]) not in ((1, 1), (2, 1), (2, 2)):
         raise _Fault(UNSUPPORTED)
-    if hd.jfif:
+    ids = bytes(c["id"] for c in comps)
+    if mode == "ffmpeg":
+        # the sampling FFmpeg reads as yuvj420p/422p/444p (and as
+        # planar RGB: 4:4:4 with IDs 'R', 'G', 'B' or Adobe transform 0)
+        if (c1["h"], c1["v"]) != (1, 1) or ids == b"QFA":
+            raise _Fault(UNSUPPORTED)
+        subsampled = hmax > 1
+        if subsampled and hd.height % 2:
+            raise _Fault(UNSUPPORTED)
+        if any(c.startswith(_FFMPEG_COMMENTS) for c in hd.comments):
+            raise _Fault(UNMATCHED)
+        rgb = not subsampled and (hd.adobe and hd.transform == 0
+                                  or ids == b"RGB")
+    elif hd.jfif:
         rgb = False
     elif hd.adobe:
         rgb = hd.transform == 0
     else:
-        rgb = (c0["id"], c1["id"], c2["id"]) == tuple(b"RGB")
+        rgb = ids == b"RGB"
     quant = []
     for c in comps:
         if c["tq"] > 3 or hd.qt[c["tq"]] is None:
@@ -595,6 +772,24 @@ def _decode(hd: _Header, src: _Source, fast: bool, height: int,
         raise _Fault(GEOMETRY)
     mcux = -(-hd.width // (8 * hmax))
     mcuy = -(-hd.height // (8 * vmax))
+    if mode == "ffmpeg":
+        coefs, marker = _blocks(hd, src, mcux, mcuy, hmax, vmax, tables,
+                                dc_quant=[int(q[0]) for q in quant])
+        code = _trailer(src, marker)
+        if code != OK:
+            raise _Fault(code)
+        full = []
+        for c, coef, q in zip(comps, coefs, quant):
+            nby, nbx = coef.shape[:2]
+            plane = _idct_simple(coef.reshape(-1, 64), q)
+            plane = plane.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3)
+            plane = plane.reshape(nby * 8, nbx * 8)
+            hx, vx = hmax // c["h"], vmax // c["v"]
+            full.append(np.repeat(np.repeat(plane, vx, 0), hx, 1)[
+                :height, :width])
+        if rgb:
+            return np.stack(full[::-1], -1), OK
+        return _ffmpeg_bgr(*full, subsampled=hmax > 1), OK
     coefs, marker = _blocks(hd, src, mcux, mcuy, hmax, vmax, tables)
     idct = _idct_ifast if fast else _idct_islow
     full = []
@@ -634,13 +829,15 @@ def _trailer(src: _Source, m: int) -> int:
         m = src.next_marker()
 
 
-def decode(data: bytes, fast: bool = False) -> np.ndarray:
-    """One JPEG's (H, W, 3) BGR uint8 frame; a ValueError where the native
-    decoder returns a fault."""
+def decode(data: bytes, mode=False) -> np.ndarray:
+    """One JPEG's (H, W, 3) BGR uint8 frame in ``mode`` (as
+    :func:`decode_bgr` takes it; the default is ``"turbo"``); a ValueError
+    where the native decoder returns a fault."""
+    mode = mode_name(mode)
     src = _Source(bytes(data))
     try:
         hd = _read_header(src)
-        frame, code = _decode(hd, src, fast, hd.height, hd.width)
+        frame, code = _decode(hd, src, mode, hd.height, hd.width)
     except _Fault as fault:
         code, frame = fault.code, None
     if code != OK:

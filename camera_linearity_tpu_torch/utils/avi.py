@@ -187,13 +187,15 @@ _PROCESS = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
             0xCF: "hierarchical lossless arithmetic coding"}
 
 
-def jpeg_unsupported(data_or_info) -> Optional[str]:
+def jpeg_unsupported(data_or_info, mode: str = "turbo") -> Optional[str]:
     """The feature of a JPEG (bytes or its :class:`JpegInfo`) that the
-    port's decoder does not read, or None when it reads the headers'
-    mode: baseline or extended-sequential Huffman coding of 8-bit
+    port's decoder does not read in ``mode``, or None when it reads the
+    headers' mode: baseline or extended-sequential Huffman coding of 8-bit
     samples, three components in one scan, the second and third sampled
     alike at full size, halved across (4:2:2) or halved both ways
-    (4:2:0)."""
+    (4:2:0).  The ``"ffmpeg"`` mode also needs the second and third
+    sampled 1x1 and, for halved chroma, an even height (an odd one takes
+    swscale's bicubic scaler, which it does not reproduce)."""
     info = data_or_info if isinstance(data_or_info, JpegInfo) else \
         _jpeg_sof(bytes(data_or_info))
     if info is None:
@@ -214,8 +216,12 @@ def jpeg_unsupported(data_or_info) -> Optional[str]:
     ratio = (h0 // max(h1, 1), v0 // max(v1, 1))
     if (h0, v0) != (max(h0, h1, h2), max(v0, v1, v2)) or \
             (h1, v1) != (h2, v2) or h0 % max(h1, 1) or v0 % max(v1, 1) or \
-            ratio not in ((1, 1), (2, 1), (2, 2)):
+            ratio not in ((1, 1), (2, 1), (2, 2)) or \
+            mode == "ffmpeg" and (h1, v1) != (1, 1):
         return "sampling " + " ".join(f"{h}x{v}" for h, v in info.sampling)
+    if mode == "ffmpeg" and ratio != (1, 1) and info.height % 2:
+        return (f"{'4:2:2' if ratio == (2, 1) else '4:2:0'} of odd height "
+                f"{info.height} (swscale's scaled path)")
     return None
 
 

@@ -32,11 +32,14 @@ curves.
 
 Phases 12-14, BASELINE config 5 (video -> HDR): build the native host
 library and the port's MJPEG decoder (``native/jpeg.cpp``, no libjpeg),
-decode ``tests/data/mjpg 5ms.avi`` in both modes (``turbo`` equal to the
-committed libjpeg frames bit for bit) and hold ``jpeg.cpp`` to
-``native/jpeg_plain.py`` bit for bit on frames this script encodes (37 x
-53 and 64 x 3840 noise; 4:4:4, 4:2:2, 4:2:0; with and without DRI; both
-modes); write three raw RGBA exposure videos of 12 frames at 2160 x 3840
+decode ``tests/data/mjpg 5ms.avi`` in its three modes (``turbo`` equal to
+the committed libjpeg frames bit for bit, ``ffmpeg`` to the committed
+``cv2.VideoCapture`` frames, and so on every committed ``*.cv2.npy``) and
+hold ``jpeg.cpp`` to ``native/jpeg_plain.py`` bit for bit on frames this
+script encodes (37 x 53, 38 x 53 and 64 x 3840 noise; 4:4:4, 4:2:2,
+4:2:0; with and without DRI; the three modes, the ffmpeg mode refusing
+subsampled chroma of odd height in both); write three raw RGBA exposure
+videos of 12 frames at 2160 x 3840
 into a temporary directory, and the same content as MJPG AVIs
 (``tests/_torch_mjpeg_writer.py``, as ``cv2.VideoWriter`` writes them; a
 pool of distinct frames cycled to 12, cached under ``build/``), timing
@@ -45,7 +48,9 @@ on the card against the host backend and the CPU in float64, and
 ``compute_noise_profiles`` against the CPU; run ``batch_video_to_hdr`` on
 8 scenes with the calibration leg, from raw AVIs once with the u16/f16
 wire and once with f32/f32, then from MJPG AVIs with ``turbo_fast`` and
-u16/f16 and with ``turbo`` and f32/f32, holding scenes 0 and 7 against
+u16/f16, with ``turbo`` and f32/f32, and at the default decoder
+(``"auto"`` with ``CL_DECODER`` unset: the ``ffmpeg`` mode, cv2's bytes)
+and u16/f16, holding scenes 0 and 7 against
 the plain merge, the stacks against a NumPy moments oracle (fed, for
 MJPG, by ``jpeg_plain.py``'s decode of crop videos) and the leg's energy
 against the reference's; then ``video_to_hdr`` through K3 on each kind.
@@ -95,6 +100,10 @@ over gloo (this script run again with ``--phase20-worker RANK PORT DIR``),
 each decoding and merging 4 scenes with one K1 launch, held to (a), with
 the statistics' rows and the solve's population split between them.  The
 card has no peer, so no multi-GPU speed is measured.
+
+Phase 21, the port's examples (``examples/torch_*.py``), each run once on
+the card in a process of its own at a small size; the distributed one as
+an NCCL world of one.
 
 It prints the card's name and power limit early, one JSON line with the
 kernels' results before the last line, and as the last line
@@ -819,16 +828,16 @@ def make_mjpg_videos(pools):
     return paths, crop_paths, time.perf_counter() - t0
 
 
-def plain_crop_frames(crop_path, fast: bool):
+def plain_crop_frames(crop_path, mode: str):
     """The first CROP_ROWS rows of every frame of an MJPG crop video, as
-    ``native/jpeg_plain.py`` decodes them: the NumPy oracle's input.  Each
-    distinct payload is decoded once."""
+    ``native/jpeg_plain.py`` decodes them in ``mode``: the NumPy oracle's
+    input.  Each distinct payload is decoded once."""
     from camera_linearity_tpu_torch.native import jpeg_plain
     from camera_linearity_tpu_torch.utils import avi
     decoded, frames = {}, []
     for payload in avi.mjpg_chunks(crop_path):
         if payload not in decoded:
-            decoded[payload] = jpeg_plain.decode(payload, fast)[:CROP_ROWS]
+            decoded[payload] = jpeg_plain.decode(payload, mode)[:CROP_ROWS]
         frames.append(decoded[payload])
     return np.stack(frames)
 
@@ -871,37 +880,64 @@ def video_phases(dev, res, directory) -> dict:
     payloads = list(avi.mjpg_chunks(data / "mjpg 5ms.avi"))
     want = np.load(data / "mjpg 5ms.libjpeg.npy")
     cv = np.load(data / "mjpg 5ms.cv2.npy")
-    for mode, fast in (("turbo", False), ("turbo_fast", True)):
+    for mode in native.JPEG_MODES:
         got = np.empty((len(payloads), 32, 48, 3), np.uint8)
-        native.jpeg_decode_bgr_batch(payloads, got, fast=fast)
+        native.jpeg_decode_bgr_batch(payloads, got, mode=mode)
         same = np.array_equal(got, want)
         if mode == "turbo" and not same:
             raise AssertionError("the turbo decode of mjpg 5ms.avi differs "
                                  "from the committed libjpeg frames")
-        log(f"  {'ok ' if same or fast else 'BAD'} {mode} decode of "
-            f"'mjpg 5ms.avi' ({len(got)} frames): "
+        if mode == "ffmpeg" and not np.array_equal(got, cv):
+            raise AssertionError("the ffmpeg decode of mjpg 5ms.avi differs "
+                                 "from the committed cv2 frames")
+        log(f"  {'ok ' if same or mode != 'turbo' else 'BAD'} {mode} decode "
+            f"of 'mjpg 5ms.avi' ({len(got)} frames): "
             f"{'equals' if same else 'differs from'} the committed libjpeg "
             f"(islow, fancy) frames, max |.| {max_gap(got, want):.0f} DN; "
             f"max |. - cv2| {max_gap(got, cv):.0f} DN")
+    # the ffmpeg mode against every committed cv2.VideoCapture decode
+    for clip in sorted(data.glob("*.cv2.npy")):
+        name = clip.name[:-len(".cv2.npy")]
+        cv = np.load(clip)
+        got = np.empty_like(cv)
+        chunks = list(avi.mjpg_chunks(data / f"{name}.avi"))
+        n = native.jpeg_decode_bgr_batch(chunks, got, mode="ffmpeg")
+        same = n == len(cv) and np.array_equal(got, cv)
+        log(f"  {'ok ' if same else 'BAD'} ffmpeg decode of '{name}.avi' "
+            f"({len(cv)} x {cv.shape[1]} x {cv.shape[2]}): "
+            f"{'equals' if same else 'differs from'} the committed "
+            f"cv2.VideoCapture frames, max |.| {max_gap(got, cv):.0f} DN")
+        if not same:
+            raise AssertionError(f"the ffmpeg decode of {name}.avi differs "
+                                 "from its committed cv2 frames")
     rng = np.random.default_rng(SEED)
     failures, cases = [], 0
     t0 = time.perf_counter()
-    for h, w in ((37, 53), (64, 3840)):
+    lib = native._load_mjpeg()
+    for h, w in ((37, 53), (38, 53), (64, 3840)):
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         for sampling in writer.SAMPLING:
             for restart in (0, 7):
                 frame = writer.encode_jpeg(img, 75, sampling, restart)
-                for fast in (False, True):
-                    got = np.empty((h, w, 3), np.uint8)
-                    native.jpeg_decode_bgr(frame, got, fast=fast)
+                buf = np.frombuffer(frame, np.uint8)
+                for m, mode in enumerate(native.JPEG_MODES):
+                    got = np.zeros((h, w, 3), np.uint8)
+                    rc = lib.clt_jpeg_decode_bgr(
+                        native._as_u8_ptr(buf), buf.size,
+                        native._as_u8_ptr(got), h, w, m)
+                    prc, want = jpeg_plain.decode_bgr(frame, h, w, mode)
                     cases += 1
-                    if not np.array_equal(got, jpeg_plain.decode(frame,
-                                                                 fast)):
+                    # the ffmpeg mode reads no subsampled chroma of odd
+                    # height (swscale's scaler): both say so
+                    odd = mode == "ffmpeg" and h % 2 and sampling != "444"
+                    if rc != prc or (rc != 0) != bool(odd) or \
+                            rc == 0 and not np.array_equal(got, want):
                         failures.append(f"{h} x {w} {sampling} DRI "
-                                        f"{restart} fast={fast}")
+                                        f"{restart} {mode}: rc {rc}, plain "
+                                        f"{prc}")
     log(f"  {'ok ' if not failures else 'BAD'} jpeg.cpp == jpeg_plain.py bit "
-        f"for bit on {cases} decodes (noise at 37 x 53 and 64 x 3840; 4:4:4, "
-        f"4:2:2, 4:2:0; no DRI and DRI 7; both modes) in "
+        f"for bit on {cases} decodes (noise at 37 x 53, 38 x 53 and 64 x "
+        f"3840; 4:4:4, 4:2:2, 4:2:0; no DRI and DRI 7; the three modes) in "
         f"{time.perf_counter() - t0:.1f} s")
     raise_failures("phase 12, jpeg.cpp against jpeg_plain.py", failures)
     t0 = time.perf_counter()
@@ -928,14 +964,14 @@ def video_phases(dev, res, directory) -> dict:
     frame = next(avi.mjpg_chunks(mjpg_paths[-1]))
     batch = list(avi.mjpg_chunks(mjpg_paths[-1]))
     decode_ms = {}
-    for mode, fast in (("turbo", False), ("turbo_fast", True)):
+    for mode in native.JPEG_MODES:
         one = np.empty((1, H5, W5, 3), np.uint8)
         many = np.empty((len(batch), H5, W5, 3), np.uint8)
-        native.jpeg_decode_bgr_batch([frame], one, fast=fast)  # warm
+        native.jpeg_decode_bgr_batch([frame], one, mode=mode)  # warm
         single = host_ms(lambda: native.jpeg_decode_bgr_batch(
-            [frame], one, fast=fast, threads=1), runs=5, warmup=1)
+            [frame], one, mode=mode, threads=1), runs=5, warmup=1)
         wide = host_ms(lambda: native.jpeg_decode_bgr_batch(
-            batch, many, fast=fast), runs=3, warmup=1) / len(batch)
+            batch, many, mode=mode), runs=3, warmup=1) / len(batch)
         decode_ms[mode] = dict(one_thread=single, all_threads=wide)
         log(f"  {mode}: one 4K frame ({len(frame) / 1e6:.3f} MB) "
             f"{single:.1f} ms on one thread; {wide:.1f} ms a frame over a "
@@ -1023,8 +1059,9 @@ def video_phases(dev, res, directory) -> dict:
     log(f"phase 14: batch_video_to_hdr, {SCENES5} scenes x "
         f"{len(paths)} exposures x {H5} x {W5} x 3, calibration leg on "
         f"(spacing {spec['spacing']}, popsize 15, maxiter 1000, tol 0.01): "
-        "raw RGBA u16/f16 and f32/f32, then MJPG turbo_fast u16/f16 and "
-        "turbo f32/f32")
+        "raw RGBA u16/f16 and f32/f32, then MJPG turbo_fast u16/f16, "
+        "turbo f32/f32 and the default decoder (ffmpeg, CL_DECODER unset) "
+        "u16/f16")
     # record what the pipeline hands the merge (ops/hdr.py's entry points,
     # looked up at call time) and the solver, to hold them to the plain
     # versions and the oracle afterwards
@@ -1222,24 +1259,31 @@ def video_phases(dev, res, directory) -> dict:
         # the same scenes from MJPG AVIs, through the port's decoder; the
         # oracle reads the crops through jpeg_plain.py
         t0 = time.perf_counter()
-        plain_crops = {fast: [plain_crop_frames(p, fast)
+        plain_crops = {mode: [plain_crop_frames(p, mode)
                               for p in mjpg_crop_paths]
-                       for fast in (True, False)}
+                       for mode in native.JPEG_MODES}
         log(f"  jpeg_plain.py decoded the MJPG crops for the oracle in "
             f"{time.perf_counter() - t0:.1f} s")
-        for wire_val, wire_std, decoder in (("u16", "f16", "turbo_fast"),
-                                            ("f32", "f32", "turbo")):
-            label = (f"batch_video_to_hdr {wire_val}/{wire_std} "
-                     f"(MJPG, {decoder})")
-            run = run_batch(label, mjpg_paths,
-                            plain_crops[decoder == "turbo_fast"], wire_val,
-                            wire_std, decoder, decoder)
-            run.pop("merge")
-            run.pop("out")
-            runs[label] = run
-            torch.cuda.empty_cache()
-        t_v2h_mjpg, _ = run_video_to_hdr("video_to_hdr (MJPG)", mjpg_paths,
-                                         "turbo")
+        # "auto" with CL_DECODER unset: the default, cv2's bytes
+        cl_decoder = os.environ.pop("CL_DECODER", None)
+        try:
+            for wire_val, wire_std, decoder, decoded_as in (
+                    ("u16", "f16", "turbo_fast", "turbo_fast"),
+                    ("f32", "f32", "turbo", "turbo"),
+                    ("u16", "f16", "auto", "ffmpeg")):
+                label = (f"batch_video_to_hdr {wire_val}/{wire_std} "
+                         f"(MJPG, {decoder})")
+                run = run_batch(label, mjpg_paths, plain_crops[decoded_as],
+                                wire_val, wire_std, decoder, decoded_as)
+                run.pop("merge")
+                run.pop("out")
+                runs[label] = run
+                torch.cuda.empty_cache()
+            t_v2h_mjpg, _ = run_video_to_hdr("video_to_hdr (MJPG)",
+                                             mjpg_paths, "ffmpeg")
+        finally:
+            if cl_decoder is not None:
+                os.environ["CL_DECODER"] = cl_decoder
         log("  config 5, MJPG beside raw RGBA (host clock; stages overlap):")
         for label, run in runs.items():
             st = run["stages"]
@@ -1263,8 +1307,8 @@ def video_phases(dev, res, directory) -> dict:
     try:
         for t in threads:
             native.jpeg_decode_bgr_batch = (
-                lambda p, d, fast=False, threads=None, t=t:
-                batch_decode(p, d, fast=fast, threads=t))
+                lambda p, d, t=t, **kw: batch_decode(p, d, **{
+                    **kw, "threads": t}))
             t_by_threads[t] = host_ms(lambda: video.welford_algorithm(
                 mjpg_paths[-1], use_std=True, decoder="turbo_fast"),
                 runs=3, warmup=1)
@@ -2850,6 +2894,42 @@ def phase20_worker(rank: int, port: str, directory: str) -> int:
     return 0
 
 
+# the port's examples at a small size: (arguments, a line the output holds)
+EXAMPLES = {
+    "torch_end_to_end": (["--size", "16", "--maxiter", "60"],
+                         "pairwise relative-difference means"),
+    "torch_video_pipeline": (["--frames", "6", "--size", "16", "24"],
+                             "HDR from video on cuda"),
+    "torch_distributed_batch": (["--scenes", "2", "--frames", "3"],
+                                "over nccl on cuda"),
+}
+
+
+def examples_phase(directory: Path) -> dict:
+    """Phase 21: each of examples/torch_*.py once on the card, as a user
+    runs it (a process of its own; the distributed one as an NCCL world of
+    one).  Returns each one's wall seconds."""
+    log(f"phase 21: the port's examples on the card ({', '.join(EXAMPLES)})")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CL_")}
+    walls, failures = {}, []
+    for name, (extra, expect) in EXAMPLES.items():
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+             str(directory / name), "--device", "cuda", *extra],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        walls[name] = time.perf_counter() - t0
+        ok = out.returncode == 0 and expect in out.stdout
+        last = (out.stdout.strip().splitlines() or [""])[-1]
+        log(f"  {'ok ' if ok else 'BAD'} {name} {' '.join(extra)}: rc "
+            f"{out.returncode}, {walls[name]:.1f} s; {last}")
+        if not ok:
+            log(out.stderr[-3000:])
+            failures.append(name)
+    raise_failures("phase 21, the examples", failures)
+    return walls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3121,6 +3201,7 @@ def main() -> int:
             dev, res, Path(tmp), config5, vals_np, stds_np, t_np,
             (icrf12, diff12, base, diff_base), calibration["config4"])
         del config5["f32_run"]
+        example_walls = examples_phase(Path(tmp))
 
     # every main path's launches: phase 6's, config 5's, the command
     # line's and the multi-process layer's, each counted from zero around
@@ -3147,6 +3228,7 @@ def main() -> int:
     log(json.dumps({"config5_mjpg": config5["mjpg"],
                     "host_cpus": os.cpu_count()}))
     log(json.dumps({"files": files["numbers"]}))
+    log(json.dumps({"examples_s": example_walls}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(gpu)
     log(json.dumps({"kernels": kernels}))

@@ -7,9 +7,10 @@ The frame is ``chip_smoke.py``'s config-5 content (a uniform base x 230
 plus N(0, 6) noise, seeded; NumPy here), encoded by
 ``tests/_torch_mjpeg_writer.py`` as cv2's MJPG writer lays it out.  It
 prints the frame's bytes, then the median ms of one frame on one thread
-for each decoder and mode, and the port's ms a frame over a batch of 12 on
-every core.  Where the JAX package's decoder did not build (no libjpeg
-headers), its lines are left out.  Test tooling: a host-CPU measurement,
+for each decoder and mode (the port's three, libjpeg-turbo's two), and the
+port's ms a frame over a batch of 12 on every core.  Where the JAX
+package's decoder did not build (no libjpeg headers), its lines are left
+out.  Test tooling: a host-CPU measurement,
 not a device one.
 """
 import argparse
@@ -50,13 +51,17 @@ def main() -> None:
     if jnative.mjpeg_available():
         decoders["libjpeg-turbo (JAX package)"] = jnative.jpeg_decode_bgr
     dst = np.empty((H, W, 3), np.uint8)
-    for mode, fast in (("turbo", False), ("turbo_fast", True)):
+    for mode in native.JPEG_MODES:
         for name, decode in decoders.items():
-            ms = median_ms(lambda: decode(data, dst, fast=fast), args.runs)
+            if name != "jpeg.cpp" and mode == "ffmpeg":
+                continue  # libjpeg-turbo has the two turbo modes only
+            ms = median_ms(lambda: decode(
+                data, dst, **({"mode": mode} if name == "jpeg.cpp" else
+                              {"fast": mode == "turbo_fast"})), args.runs)
             print(f"{mode}, {name}: {ms:.1f} ms on one thread")
         batch = np.empty((12, H, W, 3), np.uint8)
         ms = median_ms(lambda: native.jpeg_decode_bgr_batch(
-            [data] * 12, batch, fast=fast), args.runs) / 12
+            [data] * 12, batch, mode=mode), args.runs) / 12
         print(f"{mode}, jpeg.cpp: {ms:.1f} ms a frame over a batch of 12 on "
               f"{os.cpu_count()} threads")
 

@@ -305,7 +305,7 @@ def test_decoder_resolution(video, tmp_path, monkeypatch, caplog):
     monkeypatch.setenv("CL_DECODER", "cv2")
     assert resolve("auto", [path], H, W, 3) == ["cv2"]
     if native.mjpeg_available():
-        assert resolve("native", [mjpg], 32, 48, 3) == ["turbo"]
+        assert resolve("native", [mjpg], 32, 48, 3) == ["ffmpeg"]
         assert resolve("turbo_fast", [mjpg], 32, 48, 3) == ["turbo_fast"]
     logger = logging.getLogger("camera_linearity_tpu_torch")
     logger.addHandler(caplog.handler)  # the port's logger does not propagate
@@ -315,7 +315,7 @@ def test_decoder_resolution(video, tmp_path, monkeypatch, caplog):
         logger.removeHandler(caplog.handler)
     assert "not an MJPG AVI" in caplog.text
     with pytest.raises(ValueError, match="unknown decoder"):
-        resolve("ffmpeg", [path], H, W, 3)
+        resolve("libav", [path], H, W, 3)
     with pytest.raises(ValueError, match="frame geometry"):
         resolve("native", [mjpg, path], 32, 48, 3)
 
