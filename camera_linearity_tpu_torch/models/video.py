@@ -16,9 +16,12 @@ lossless ``RGBA`` AVI with NumPy (``"raw"``), an MJPG AVI with the port's
 own JPEG decoder (``native/jpeg.cpp``) in one of three modes.  ``"ffmpeg"``,
 the default, gives the bytes ``cv2.VideoCapture`` gives (FFmpeg's MJPEG
 decoder and swscale), which is what the JAX package decodes at its default
-(``CL_DECODER=cv2``); it ends a file at a frame where cv2's stream ends
-(data that stops before the first scan), and raises, naming the frame,
-where FFmpeg would conceal an error.  ``"turbo"`` and ``"turbo_fast"`` give
+(``CL_DECODER=cv2``), for every frame FFmpeg decodes as gray or
+yuvj444p/422p/420p/411p/440p, sequential or progressive, at any size
+(grayscale comes out as three equal channels, as cv2 gives it); it ends a
+file at a frame where cv2's stream ends (data that stops before the first
+scan), and raises, naming the frame, where FFmpeg would conceal an error.
+``"turbo"`` and ``"turbo_fast"`` give
 libjpeg-turbo's bytes, as the JAX package's modes of those names do: its
 JDCT_ISLOW IDCT and fancy upsampling, or its JDCT_IFAST IDCT and merged
 upsampling.  An MJPG AVI always takes that decoder: a frame mode it does
@@ -270,9 +273,13 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
                        height: int, width: int, chs: int,
                        mode: str) -> str:
     """The decoder a file's container asks for, checked against the
-    expected geometry and channel count before any decode."""
+    expected geometry and channel count before any decode.  An MJPG
+    decodes to three channels in the ``"ffmpeg"`` mode whatever its
+    component count (cv2 gives BGR for grayscale too), to its component
+    count in the ``"turbo"`` modes."""
     if info is not None and info.codec in ("RGBA", "MJPG"):
-        comps = 3 if info.codec == "RGBA" else info.components
+        comps = 3 if info.codec == "RGBA" or mode == "ffmpeg" else \
+            info.components
         geometry = (info.height, info.width)
         if geometry != (height, width):
             raise ValueError(f"{path} has frame geometry {geometry}, "
@@ -313,9 +320,11 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
     files; another container logs a warning and takes its own decoder.
     ``"cv2"``: cv2 for every file.  RGBA and MJPG files are checked against
     the expected geometry and ``chs`` before any decode, and an MJPG's
-    first frame for a JPEG mode the decoder does not read (it names it): a
-    grayscale or progressive MJPG raises here, not mid-run, and so does an
-    MJPG AVI where the decoder did not build (RuntimeError).
+    first frame for a JPEG mode the decoder does not read (it names it):
+    in the ``"turbo"`` modes a grayscale, progressive or 4:1:1 MJPG raises
+    here, not mid-run, and in every mode a lossless, arithmetic-coded or
+    12-bit one; so does an MJPG AVI where the decoder did not build
+    (RuntimeError).
     """
     if decoder == "auto":
         decoder = os.environ.get("CL_DECODER", "native")

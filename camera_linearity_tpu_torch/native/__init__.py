@@ -5,8 +5,8 @@ Port of ``camera_linearity_tpu/native``, copied: importing the JAX package
 would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
 and their fused finalize, u8 -> f32 normalization, a running Welford
 update from uint8 frames),
-``jpeg.cpp`` (baseline JPEG into BGR, the port's own, giving libjpeg-turbo's
-bytes) and ``tiff.cpp`` (TIFF LZW and predictors, the port's own) build
+``jpeg.cpp`` (JPEG into BGR, the port's own, giving libjpeg-turbo's or
+cv2's bytes) and ``tiff.cpp`` (TIFF LZW and predictors, the port's own) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -343,7 +343,9 @@ def _jpeg_error(rc: int, payload, shape, mode: int = 0,
         from ..utils.avi import jpeg_unsupported
         why = jpeg_unsupported(bytes(payload), mode=JPEG_MODES[mode]) or \
             "a mode it does not read"
-        what = "not a 3-component image" if rc == -3 else "unsupported JPEG"
+        what = "unsupported JPEG" if rc == -4 else \
+            "not a 1- or 3-component image" if JPEG_MODES[mode] == "ffmpeg" \
+            else "not a 3-component image"
         return ValueError(f"jpeg_decode_bgr: {at}{what}: {why}")
     reasons = {-1: "corrupt JPEG data",
                -2: f"frame geometry != {tuple(shape)}",
@@ -362,7 +364,8 @@ def jpeg_decode_bgr(src, dst: np.ndarray, fast: bool = False,
     gives libjpeg-turbo's bytes with its JDCT_ISLOW IDCT and fancy chroma
     upsampling, ``"turbo_fast"`` (``fast=True``) JDCT_IFAST and replicated
     (merged) chroma, ``"ffmpeg"`` what ``cv2.VideoCapture`` gives for an
-    MJPG frame (FFmpeg's decoder and swscale).  Raises ValueError on
+    MJPG frame (FFmpeg's decoder and swscale), three channels whatever the
+    frame's component count.  Raises ValueError on
     malformed data, a geometry mismatch, a mode the decoder does not read
     (naming it) or, in ``"ffmpeg"`` mode, data FFmpeg conceals errors in or
     gives no frame for.

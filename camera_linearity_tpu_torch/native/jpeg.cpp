@@ -13,23 +13,30 @@
 // The third gives what cv2.VideoCapture gives for an MJPG frame, FFmpeg 8's
 // MJPEG decoder and then swscale to BGR24 on x86-64 (native/jpeg_plain.py's
 // docstring has each stage):
-//   mode 2 (ffmpeg): the DC predictor on dequantized values; FFmpeg's
-//             simple_idct as its SSE2/AVX routine computes it (row pass
-//             first, saturated to 16 bits); the yuvj planes converted as
-//             swscale does: 4:2:0 and 4:2:2 by its unscaled SSSE3 path
-//             (replicated chroma, truncating pmulhw), 4:4:4 by its
-//             full-chroma scaler output (rounding).  Data FFmpeg meets with
-//             an error it conceals returns kUnmatched, and data that ends
+//   mode 2 (ffmpeg): the pixel formats FFmpeg reads without upscaling of
+//             its own: gray8 (one component, any factors) and yuvj444p,
+//             422p, 420p, 411p and 440p; sequential scans, one or several
+//             (each block through the IDCT as it is read), or progressive
+//             ones (SOF2; dequantized coefficients kept until EOI); the DC
+//             predictor on dequantized values; FFmpeg's simple_idct as its
+//             SSE2/AVX routine computes it (row pass first, saturated to 16
+//             bits); then swscale's BGR24: gray8 replicated, 4:2:0 and
+//             4:2:2 of even height by its unscaled SSSE3 path (replicated
+//             chroma, truncating pmulhw), 4:4:4 by its full-chroma scaler
+//             output (rounding), the rest (4:1:1, 4:4:0, odd heights) by
+//             its scaled path with SWS_BICUBIC.  Data FFmpeg meets with an
+//             error it conceals returns kUnmatched, and data that ends
 //             before the first SOS marker kNoFrame (FFmpeg returns no
 //             frame there).
-// Input: SOF0/SOF1, 8-bit, three components in one interleaved Huffman
-// scan; DQT with 8- and 16-bit tables; DHT, or Annex K's standard tables
-// for a slot no DHT defined (MJPEG cameras leave them out); DRI with
-// RST0-7; byte stuffing and fill bytes; sampling with chroma at full size,
-// halved across (h2v1) or halved both ways (h2v2); any width and height.
-// YCbCr, or RGB where an Adobe APP14 says transform 0 or the component IDs
-// are 'R', 'G', 'B' (no JFIF APP0), as libjpeg decides.  Anything else
-// returns kUnsupported (or kComponents for a component count other than
+// Input of modes 0 and 1: SOF0/SOF1, 8-bit, three components in one
+// interleaved Huffman scan; DQT with 8- and 16-bit tables; DHT, or Annex
+// K's standard tables for a slot no DHT defined (MJPEG cameras leave them
+// out); DRI with RST0-7; byte stuffing and fill bytes; sampling with
+// chroma at full size, halved across (h2v1) or halved both ways (h2v2);
+// any width and height.  YCbCr, or RGB where an Adobe APP14 says
+// transform 0 or the component IDs are 'R', 'G', 'B' (no JFIF APP0), as
+// libjpeg decides.  Anything else returns kUnsupported (kComponents for a
+// component count other than three, or in mode 2 other than one or
 // three).  Entropy data that ends early decodes as libjpeg's does: zero
 // bits past the end, and every later MCU of the segment left at zero.
 //
@@ -41,6 +48,7 @@
 #include <atomic>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -51,7 +59,7 @@ namespace {
 constexpr int kOk = 0;
 constexpr int kCorrupt = -1;      // libjpeg would stop with an error
 constexpr int kGeometry = -2;     // not the caller's height and width
-constexpr int kComponents = -3;   // not three components
+constexpr int kComponents = -3;   // not three components (mode 2: not one or three)
 constexpr int kUnsupported = -4;  // a mode this decoder does not read
 constexpr int kUnmatched = -5;    // ffmpeg mode: an error FFmpeg conceals
 constexpr int kNoFrame = -6;      // ffmpeg mode: data ends before the scan
@@ -501,7 +509,7 @@ struct Component {
 };
 
 struct Header {
-    int precision = 0, height = 0, width = 0, ncomp = 0;
+    int sof = 0, precision = 0, height = 0, width = 0, ncomp = 0;
     Component comp[3];
     std::uint16_t qt[4][64];
     bool qdef[4] = {false, false, false, false};
@@ -510,7 +518,9 @@ struct Header {
     bool jfif = false, adobe = false;
     int transform = 0;
     bool ffmpeg_comment = false;          // a COM FFmpeg reads as a flag
+    int nscan = 0;                        // components in the scan
     int scan_order[3];                    // frame index of each scan slot
+    int ss = 0, se = 0, ah = 0, al = 0;   // spectral selection, approximation
 };
 
 // COM segments that change how FFmpeg's MJPEG decoder reads a frame
@@ -520,20 +530,47 @@ constexpr const char* kFfmpegComments[] = {
 
 inline int be16(const std::uint8_t* p) { return (p[0] << 8) | p[1]; }
 
-// Reads the markers from SOI to the first SOS into hd, leaving src at the
-// entropy-coded data.  Returns kOk or the frame's fault.  Segments are read
+// A scan header: each component's frame index and table slots, then Ss,
+// Se, Ah and Al.  Modes 0 and 1 read only scans of all three components.
+int read_sos(Header& hd, const std::uint8_t* seg, int body, bool ffmpeg) {
+    const int n = body >= 1 ? seg[0] : 0;
+    if (body != 4 + 2 * n || n < 1 || n > 4) return kCorrupt;
+    if (n != 3 && !ffmpeg) return kUnsupported;  // one component a scan
+    if (n > hd.ncomp) return kCorrupt;
+    bool used[3] = {false, false, false};
+    for (int i = 0; i < n; ++i) {
+        const int id = seg[1 + 2 * i], tabs = seg[2 + 2 * i];
+        int c = 0;
+        while (c < hd.ncomp && (hd.comp[c].id != id || used[c])) ++c;
+        if (c == hd.ncomp) return kCorrupt;
+        used[c] = true;
+        hd.comp[c].td = tabs >> 4;
+        hd.comp[c].ta = tabs & 15;
+        hd.scan_order[i] = c;
+    }
+    hd.nscan = n;
+    hd.ss = seg[1 + 2 * n];
+    hd.se = seg[2 + 2 * n];
+    hd.ah = seg[3 + 2 * n] >> 4;
+    hd.al = seg[3 + 2 * n] & 15;
+    return kOk;
+}
+
+// Reads marker segments into hd, from marker `first` (0: the next one in
+// src), up to and including the next SOS (its scan header read, src left
+// at the entropy-coded data), or, between the scans of mode 2, up to EOI.
+// Returns that marker, or a fault (a negative code).  Segments are read
 // through Source::at, so a frame cut inside its headers reads libjpeg's
-// fake EOI bytes there as libjpeg does.
-int read_header(Source& src, Header& hd) {
-    if (src.at(0) != 0xFF || src.at(1) != 0xD8) return kCorrupt;
-    src.pos = 2;
-    for (auto& t : hd.dc) t.defined = false;
-    for (auto& t : hd.ac) t.defined = false;
-    bool saw_sof = false;
+// fake EOI bytes there as libjpeg does.  Mode 2 also reads progressive
+// (SOF2) frames and grayscale.
+int walk(Source& src, Header& hd, int mode, bool header, int first = 0) {
+    const bool ffmpeg = mode == kFfmpeg;
     std::uint8_t seg[1 << 16];
-    for (;;) {
-        const int m = src.next_marker();
-        if (m == kEoi || m == 0xD8) return kCorrupt;
+    for (int m = first ? first : src.next_marker();; m = src.next_marker()) {
+        if (m == kEoi || m == 0xD8) {
+            if (header) return kCorrupt;
+            return m == kEoi ? kEoi : kUnmatched;
+        }
         if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;  // RSTn, TEM
         const int len = (src.at(src.pos) << 8) | src.at(src.pos + 1);
         const int body = len - 2;
@@ -543,9 +580,10 @@ int read_header(Source& src, Header& hd) {
         for (int i = 0; i < keep; ++i) seg[i] = static_cast<std::uint8_t>(src.at(src.pos + 2 + i));
         if (len >= 2) src.pos += len;
         else src.pos += 2;
-        if (m == 0xC0 || m == 0xC1) {  // baseline, extended sequential
-            if (saw_sof || body < 6) return kCorrupt;
-            saw_sof = true;
+        if (m == 0xC0 || m == 0xC1 || (ffmpeg && m == 0xC2)) {
+            // baseline, extended sequential; progressive in mode 2
+            if (hd.sof || body < 6) return header ? kCorrupt : kUnmatched;
+            hd.sof = m;
             hd.precision = seg[0];
             hd.height = be16(seg + 1);
             hd.width = be16(seg + 3);
@@ -554,8 +592,8 @@ int read_header(Source& src, Header& hd) {
                 body != 6 + 3 * hd.ncomp)
                 return kCorrupt;
             if (hd.precision != 8) return kUnsupported;
-            if (hd.ncomp != 3) return kComponents;
-            for (int c = 0; c < 3; ++c) {
+            if (hd.ncomp != 3 && !(ffmpeg && hd.ncomp == 1)) return kComponents;
+            for (int c = 0; c < hd.ncomp; ++c) {
                 Component& k = hd.comp[c];
                 k.id = seg[6 + 3 * c];
                 k.h = seg[7 + 3 * c] >> 4;
@@ -563,7 +601,8 @@ int read_header(Source& src, Header& hd) {
                 k.tq = seg[8 + 3 * c];
             }
         } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
-            // progressive, lossless, hierarchical or arithmetic coding
+            // progressive (modes 0 and 1), lossless, hierarchical or
+            // arithmetic coding
             return kUnsupported;
         } else if (m == 0xC4) {  // DHT
             int at = 0;
@@ -611,22 +650,9 @@ int read_header(Source& src, Header& hd) {
             }
         } else if (m == 0xDA) {  // SOS
             src.sos = true;
-            if (!saw_sof) return kCorrupt;
-            const int n = body >= 1 ? seg[0] : 0;
-            if (body != 4 + 2 * n || n < 1 || n > 4) return kCorrupt;
-            if (n != 3) return kUnsupported;  // one component a scan
-            bool used[3] = {false, false, false};
-            for (int i = 0; i < n; ++i) {
-                const int id = seg[1 + 2 * i], tabs = seg[2 + 2 * i];
-                int c = 0;
-                while (c < 3 && (hd.comp[c].id != id || used[c])) ++c;
-                if (c == 3) return kCorrupt;
-                used[c] = true;
-                hd.comp[c].td = tabs >> 4;
-                hd.comp[c].ta = tabs & 15;
-                hd.scan_order[i] = c;
-            }
-            return kOk;
+            if (!hd.sof) return kCorrupt;
+            const int rc = read_sos(hd, seg, body, ffmpeg);
+            return rc == kOk ? m : rc;
         } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xCC ||
                    m == 0xDC) {
             // other APPn, COM, DAC, DNL: skipped
@@ -640,6 +666,17 @@ int read_header(Source& src, Header& hd) {
             return kCorrupt;  // a marker libjpeg does not know
         }
     }
+}
+
+// Reads the markers from SOI to the first SOS into hd, leaving src at the
+// entropy-coded data.  Returns kOk or the frame's fault.
+int read_header(Source& src, Header& hd, int mode) {
+    if (src.at(0) != 0xFF || src.at(1) != 0xD8) return kCorrupt;
+    src.pos = 2;
+    for (auto& t : hd.dc) t.defined = false;
+    for (auto& t : hd.ac) t.defined = false;
+    const int m = walk(src, hd, mode, true);
+    return m == 0xDA ? kOk : m < 0 ? m : kCorrupt;
 }
 
 // FFmpeg's simple_idct for 8-bit samples as its x86-64 SSE2/AVX routine
@@ -716,6 +753,223 @@ void idct_simple(const std::int16_t* in, const std::int16_t* q,
 // u -> g, v -> g, v -> r
 constexpr std::int32_t kUb = 14516, kUg = -2819, kVg = -5850, kVr = 11485;
 
+// swscale's lookup tables of its C output (ff_yuv2rgb_c_init_tables):
+// the same coefficients with 16 fractional bits, g's rounded toward zero
+constexpr std::int32_t kCrv = 91881, kCbu = 116129, kCgu = -22552, kCgv = -46801;
+
+// swscale's initFilter for SWS_BICUBIC (B = 0, C = 0.6) with the default
+// chroma position (every sample at its centre, 128/256 of its pixel, in
+// source and output alike): dst_w rows of `size` coefficients summing to
+// `one`, and each row's first source index; returns size.  A unit step is
+// the one-tap identity; otherwise each tap is the Keys cubic at its
+// distance in 1/2^17 pixels, the sides cut where their weight is below
+// 0.002 of the filter's scale, the rows padded to `align` taps, folded
+// inside [0, src_w) and rounded with the error carried along the row.
+// jpeg_plain.init_filter is the same in Python.
+int init_filter(int inc, int src_w, int dst_w, int align, int one,
+                std::vector<std::int16_t>& coef, std::vector<std::int32_t>& first) {
+    int lg = 0;
+    for (int r = src_w / dst_w; r > 1; r >>= 1) ++lg;
+    const std::int64_t fone = std::int64_t{1} << (54 - std::min(lg, 8));
+    int size;
+    std::vector<std::int64_t> filt;
+    std::vector<std::int64_t> pos(dst_w);
+    if (std::abs(inc - 0x10000) < 10) {
+        size = 1;
+        filt.assign(dst_w, fone);
+        for (int i = 0; i < dst_w; ++i) pos[i] = i;
+    } else {
+        size = inc <= (1 << 16) ? 5 : 1 + (4 * src_w + dst_w - 1) / dst_w;
+        size = std::max(std::min(size, src_w - 2), 1);
+        const std::int64_t b = 0, c = static_cast<std::int64_t>(0.6 * (1 << 24));
+        const std::int64_t k24 = std::int64_t{1} << 24, k30 = std::int64_t{1} << 30;
+        std::int64_t x = ((128 * std::int64_t{inc}) >> 7) - ((128 * std::int64_t{0x10000}) >> 7);
+        filt.assign(static_cast<std::size_t>(dst_w) * size, 0);
+        for (int i = 0; i < dst_w; ++i) {
+            std::int64_t xx = (x - (size - 2) * (std::int64_t{1} << 16)) / (1 << 17);
+            pos[i] = xx;
+            for (int j = 0; j < size; ++j, ++xx) {
+                std::int64_t d = std::llabs(xx * (std::int64_t{1} << 17) - x) << 13;
+                if (inc > (1 << 16)) d = d * dst_w / src_w;
+                std::int64_t coeff = 0;
+                if (d < (std::int64_t{1} << 31)) {
+                    const std::int64_t dd = (d * d) >> 30, ddd = (dd * d) >> 30;
+                    if (d < k30)
+                        coeff = (12 * k24 - 9 * b - 6 * c) * ddd +
+                                (-18 * k24 + 12 * b + 6 * c) * dd + (6 * k24 - 2 * b) * k30;
+                    else
+                        coeff = (-b - 6 * c) * ddd + (6 * b + 30 * c) * dd +
+                                (-12 * b - 48 * c) * d + (8 * b + 24 * c) * k30;
+                }
+                filt[static_cast<std::size_t>(i) * size + j] =
+                    coeff / ((std::int64_t{1} << 54) / fone);
+            }
+            x += 2 * std::int64_t{inc};
+        }
+    }
+    const double cut = 0.002 * static_cast<double>(fone);
+    int min_size = 0;
+    for (int i = dst_w - 1; i >= 0; --i) {
+        std::int64_t* row = filt.data() + static_cast<std::size_t>(i) * size;
+        std::int64_t acc = 0;
+        for (int j = 0; j < size; ++j) {
+            acc += std::llabs(row[0]);
+            if (static_cast<double>(acc) > cut) break;
+            if (i < dst_w - 1 && pos[i] >= pos[i + 1]) break;
+            for (int k = 1; k < size; ++k) row[k - 1] = row[k];
+            row[size - 1] = 0;
+            ++pos[i];
+        }
+        int n = size;
+        acc = 0;
+        for (int j = size - 1; j > 0; --j) {
+            acc += std::llabs(row[j]);
+            if (static_cast<double>(acc) > cut) break;
+            --n;
+        }
+        min_size = std::max(min_size, n);
+    }
+    if (min_size == 1 && align == 2) align = 1;
+    const int ns = (min_size + align - 1) & ~(align - 1);
+    std::vector<std::int64_t> f(static_cast<std::size_t>(dst_w) * ns, 0);
+    for (int i = 0; i < dst_w; ++i)
+        for (int j = 0; j < std::min(ns, size); ++j)
+            f[static_cast<std::size_t>(i) * ns + j] = filt[static_cast<std::size_t>(i) * size + j];
+    coef.assign(static_cast<std::size_t>(dst_w) * ns, 0);
+    first.assign(dst_w, 0);
+    for (int i = 0; i < dst_w; ++i) {
+        std::int64_t* row = f.data() + static_cast<std::size_t>(i) * ns;
+        if (pos[i] < 0) {
+            for (int j = 1; j < ns; ++j) {
+                const std::int64_t left = std::max<std::int64_t>(j + pos[i], 0);
+                row[left] += row[j];
+                row[j] = 0;
+            }
+            pos[i] = 0;
+        }
+        if (pos[i] + ns > src_w) {
+            const std::int64_t shift = pos[i] + std::min(ns - src_w, 0);
+            std::int64_t acc = 0;
+            for (int j = ns - 1; j >= 0; --j)
+                if (pos[i] + j >= src_w) {
+                    acc += row[j];
+                    row[j] = 0;
+                }
+            for (int j = ns - 1; j >= 0; --j) row[j] = j < shift ? 0 : row[j - shift];
+            pos[i] -= shift;
+            row[src_w - 1 - pos[i]] += acc;
+        }
+        std::int64_t sum = 0;
+        for (int j = 0; j < ns; ++j) sum += row[j];
+        std::int64_t total = (sum + one / 2) / one;
+        if (!total) total = 1;
+        std::int64_t err = 0;
+        for (int j = 0; j < ns; ++j) {
+            const std::int64_t v = row[j] + err;
+            const std::int64_t iv = v >= 0 ? (v + (total >> 1)) / total : (v - (total >> 1)) / total;
+            coef[static_cast<std::size_t>(i) * ns + j] = static_cast<std::int16_t>(iv);
+            err = v - iv * total;
+        }
+        first[i] = static_cast<std::int32_t>(pos[i]);
+    }
+    return ns;
+}
+
+// A run of outputs [lo, hi) of a horizontal filter that repeat with period
+// p: output lo + r + p * k reads from first[lo + r] + step * k with row lo
+// + r's coefficients, inside the source.  Integer ratios (4:1:1's and
+// 4:4:0's chroma at an even width) give one over nearly the whole row.
+struct Phases {
+    int p = 0, step = 0, lo = 0, hi = 0;
+};
+
+Phases find_phases(const std::vector<std::int16_t>& coef,
+                   const std::vector<std::int32_t>& first, int size, int dst_w, int src_w) {
+    Phases best;
+    for (int p = 1; p <= 2; ++p) {
+        int i = p;
+        while (i < dst_w) {
+            const int a = i - p, step = first[i] - first[a];
+            int b = i;
+            auto same = [&](int u) {
+                return first[u] - first[u - p] == step && first[u] + size <= src_w &&
+                       std::memcmp(&coef[static_cast<std::size_t>(u) * size],
+                                   &coef[static_cast<std::size_t>(u - p) * size],
+                                   sizeof(std::int16_t) * size) == 0;
+            };
+            while (b < dst_w && same(b)) ++b;
+            const int hi = a + (b - a) / p * p;
+            if (first[a] + size <= src_w && hi - a > best.hi - best.lo)
+                best = Phases{p, step, a, hi};
+            i = std::max(b, i + 1);
+        }
+    }
+    return best;
+}
+
+// One source row through the horizontal filter: 15-bit samples
+// (hScale8To15).  The periodic run goes a phase and a tap at a time over
+// contiguous bytes (a run stepping by 2 reads the row split by parity;
+// two phases are interleaved afterwards), so the loops vectorize with no
+// gather; the rest of the row goes tap by tap.  acc holds dst_w words,
+// split src_w + 2 bytes, tmp dst_w + 2 halfwords.
+void hscale_row(const std::uint8_t* src, int src_w, std::int16_t* out, int dst_w,
+                const std::int16_t* coef, const std::int32_t* first, int size,
+                const Phases& ph, std::int32_t* __restrict acc,
+                std::uint8_t* __restrict split, std::int16_t* __restrict tmp) {
+    auto one = [&](int i) {
+        std::int32_t v = 0;
+        for (int j = 0; j < size; ++j)
+            v += src[std::min(first[i] + j, src_w - 1)] * coef[static_cast<std::size_t>(i) * size + j];
+        v >>= 7;
+        out[i] = static_cast<std::int16_t>(v > 32767 ? 32767 : v);
+    };
+    int i = 0;
+    if (ph.hi > ph.lo && (ph.step == 1 || ph.step == 2)) {
+        for (; i < ph.lo; ++i) one(i);
+        const int n = (ph.hi - ph.lo) / ph.p, half = (src_w + 1) / 2;
+        if (ph.step == 2) {
+            for (int m = 0; m < src_w / 2; ++m) {
+                split[m] = src[2 * m];
+                split[half + m] = src[2 * m + 1];
+            }
+            if (src_w & 1) split[half - 1] = src[src_w - 1];
+        }
+        for (int r = 0; r < ph.p; ++r) {
+            const int base = first[ph.lo + r];
+            const std::int16_t* c = coef + static_cast<std::size_t>(ph.lo + r) * size;
+            for (int k = 0; k < n; ++k) acc[k] = 0;
+            for (int j = 0; j < size; ++j) {
+                const int at = base + j;
+                const std::uint8_t* __restrict sj =
+                    ph.step == 1 ? src + at : split + (at & 1 ? half : 0) + at / 2;
+                const std::int32_t cj = c[j];
+                for (int k = 0; k < n; ++k) acc[k] += sj[k] * cj;
+            }
+            std::int16_t* __restrict o = ph.p == 1 ? out + ph.lo : tmp + r * n;
+            for (int k = 0; k < n; ++k) {
+                const std::int32_t v = acc[k] >> 7;
+                o[k] = static_cast<std::int16_t>(v > 32767 ? 32767 : v);
+            }
+        }
+        if (ph.p == 2) {  // the two phases interleaved, a pair a word
+            const std::int16_t* __restrict t0 = tmp;
+            const std::int16_t* __restrict t1 = tmp + n;
+            std::int16_t* __restrict o = out + ph.lo;
+            for (int k = 0; k < n; ++k) {
+                const std::uint32_t w = static_cast<std::uint16_t>(t0[k]) |
+                                        static_cast<std::uint32_t>(static_cast<std::uint16_t>(t1[k])) << 16;
+                std::memcpy(o + 2 * k, &w, 4);
+            }
+        }
+        i = ph.hi;
+    }
+    for (; i < dst_w; ++i) one(i);
+}
+
+// A halfword view of words written as pairs (read back as int16 lanes).
+typedef std::int16_t __attribute__((may_alias)) I16Alias;
+
 // Per-thread planes and row buffers, reused across frames.
 struct Scratch {
     std::unique_ptr<std::uint8_t[]> planes;
@@ -723,6 +977,17 @@ struct Scratch {
     std::vector<std::int32_t> colsum;
     std::vector<std::uint16_t> row[2];   // upsampled chroma, pairs a word
     std::vector<std::uint32_t> packed;   // a row's pixels, B | G << 8 | R << 16
+    // mode 2: a progressive frame's dequantized coefficients and each
+    // block's last nonzero index; the scaler's filters and rows
+    std::vector<std::int16_t> coef;
+    std::vector<std::uint8_t> nnz;
+    std::vector<std::int16_t> hcoef, vcoef;
+    std::vector<std::int32_t> hpos, vpos;
+    std::vector<std::int16_t> chroma;    // horizontally scaled Cb, Cr rows
+    std::vector<std::int32_t> work[2];   // a row's chroma sums (32 bits)
+    std::vector<std::int16_t> half[2];   // a row's chroma (16 bits)
+    std::vector<std::uint32_t> pairs[3]; // its terms, each twice a word
+    std::vector<std::uint8_t> split;     // a chroma row split by parity
 };
 
 static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
@@ -843,19 +1108,8 @@ struct Decoder {
         const int hx = hmax / c1.h, vx = vmax / c1.v;
         if (!((hx == 1 && vx == 1) || (hx == 2 && vx == 1) || (hx == 2 && vx == 2)))
             return kUnsupported;
-        if (mode == kFfmpeg) {
-            // the sampling FFmpeg reads as yuvj420p/422p/444p (4:4:4 as
-            // planar RGB with IDs 'R', 'G', 'B' or Adobe transform 0)
-            if (c1.h != 1 || c1.v != 1 || (c0.id == 'Q' && c1.id == 'F' && c2.id == 'A'))
-                return kUnsupported;
-            // an odd height of subsampled chroma takes swscale's scaler
-            if (hmax > 1 && (hd.height & 1)) return kUnsupported;
-            if (hd.ffmpeg_comment) return kUnmatched;
-            rgb = hmax == 1 && ((hd.adobe && hd.transform == 0) ||
-                                (c0.id == 'R' && c1.id == 'G' && c2.id == 'B'));
-        }
         // libjpeg's colour space guess (jdapimin.c)
-        else if (hd.jfif) rgb = false;
+        if (hd.jfif) rgb = false;
         else if (hd.adobe) rgb = hd.transform == 0;
         else rgb = c0.id == 'R' && c1.id == 'G' && c2.id == 'B';
         for (int k = 0; k < 3; ++k) {
@@ -1021,25 +1275,447 @@ struct Decoder {
         return trailer(br, src);
     }
 
-    // The output rows [y0, y1) from the planes as swscale converts FFmpeg's
-    // yuvj planes to BGR24: chroma replicated.  Each row is packed a pixel
-    // a word, then stored as convert() stores its rows.
-    void convert_ffmpeg(std::uint8_t* dst, int y0, int y1) {
+    // ---- mode 2 (ffmpeg) ----
+    int hs = 0, vs = 0;          // the yuvj format's chroma shifts
+    bool gray = false;           // one component: FFmpeg's gray8
+    bool scaled = false;         // swscale's scaled path converts the frame
+    std::size_t cofs[3] = {0, 0, 0};  // each component's first block in s->coef
+
+    // The frame as FFmpeg's MJPEG decoder sets it up (mjpegdec.c): the
+    // sampling's pixel format after its normalisation (all-even factors
+    // halved), the tables of the first scan.
+    int setup_ffmpeg() {
+        const int nc = hd.ncomp;
+        for (int k = 0; k < nc; ++k) {
+            const Component& c = hd.comp[k];
+            if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return kCorrupt;
+            hmax = std::max(hmax, c.h);
+            vmax = std::max(vmax, c.v);
+        }
+        int blocks = 0;
+        for (int k = 0; k < nc; ++k) blocks += hd.comp[k].h * hd.comp[k].v;
+        if (blocks > 10) return kCorrupt;
+        gray = nc == 1;
+        const Component &c0 = hd.comp[0], &c1 = hd.comp[1], &c2 = hd.comp[2];
+        if (!gray) {
+            std::uint32_t pid = 0;
+            for (int k = 0; k < 3; ++k)
+                pid |= static_cast<std::uint32_t>(hd.comp[k].h) << (28 - 8 * k) |
+                       static_cast<std::uint32_t>(hd.comp[k].v) << (24 - 8 * k);
+            if (!(pid & 0xD0D0D0D0u)) pid -= (pid & 0xF0F0F0F0u) >> 1;
+            if (!(pid & 0x0D0D0D0Du)) pid -= (pid & 0x0F0F0F0Fu) >> 1;
+            switch (pid) {  // yuvj444p, 422p, 420p, 411p, 440p
+            case 0x11111100: hs = 0; vs = 0; break;
+            case 0x21111100: hs = 1; vs = 0; break;
+            case 0x22111100: hs = 1; vs = 1; break;
+            case 0x41111100: hs = 2; vs = 0; break;
+            case 0x12111100: hs = 0; vs = 1; break;
+            default: return kUnsupported;
+            }
+            if (c1.h != c2.h || c1.v != c2.v || (c0.id == 'Q' && c1.id == 'F' && c2.id == 'A'))
+                return kUnsupported;
+        }
+        if (hd.ffmpeg_comment) return kUnmatched;
+        // 4:4:4 with IDs 'R', 'G', 'B' or Adobe transform 0 is planar RGB
+        rgb = !gray && !hs && !vs &&
+              ((hd.adobe && hd.transform == 0) || (c0.id == 'R' && c1.id == 'G' && c2.id == 'B'));
+        for (int k = 0; k < nc; ++k)
+            if (hd.comp[k].tq > 3 || !hd.qdef[hd.comp[k].tq]) return kCorrupt;
+        if (!hd.dc[0].defined) standard_table(hd.dc[0], kDcLumBits, kDcVal, 12);
+        if (!hd.ac[0].defined) standard_table(hd.ac[0], kAcLumBits, kAcLumVal, 162);
+        if (!hd.dc[1].defined) standard_table(hd.dc[1], kDcChromBits, kDcVal, 12);
+        if (!hd.ac[1].defined) standard_table(hd.ac[1], kAcChromBits, kAcChromVal, 162);
+        const int rc = scan_tables();
+        if (rc != kOk) return rc;
+        mcux = (hd.width + 8 * hmax - 1) / (8 * hmax);
+        mcuy = (hd.height + 8 * vmax - 1) / (8 * vmax);
+        for (int k = 0; k < nc; ++k) {
+            Component& c = hd.comp[k];
+            c.width = static_cast<int>((static_cast<long>(hd.width) * c.h + hmax - 1) / hmax);
+            c.height = static_cast<int>((static_cast<long>(hd.height) * c.v + vmax - 1) / vmax);
+            c.stride = static_cast<std::size_t>(mcux) * c.h * 8;
+            c.rows = static_cast<std::size_t>(mcuy) * c.v * 8;
+        }
+        // 4:2:0 and 4:2:2 of even height take swscale's unscaled converter
+        scaled = !gray && (hs || vs) && !(hs == 1 && !(hd.height & 1));
+        return kOk;
+    }
+
+    // The Huffman tables the scan decodes with (a progressive DC scan only
+    // DC, a refinement of it none, an AC scan only AC), derived.
+    int scan_tables() {
+        const bool progressive = hd.sof == 0xC2;
+        const bool dc = !progressive || (hd.ss == 0 && !hd.ah);
+        const bool ac = !progressive || hd.ss != 0;
+        for (int i = 0; i < hd.nscan; ++i) {
+            const Component& c = hd.comp[hd.scan_order[i]];
+            if (dc && (c.td > 3 || !hd.dc[c.td].defined)) return kCorrupt;
+            if (ac && (c.ta > 3 || !hd.ac[c.ta].defined)) return kCorrupt;
+        }
+        for (int i = 0; i < hd.nscan; ++i) {
+            const Component& c = hd.comp[hd.scan_order[i]];
+            if (dc && !derive(hd.dc[c.td], true, dctab[c.td])) return kCorrupt;
+            if (ac && !derive(hd.ac[c.ta], false, actab[c.ta])) return kCorrupt;
+        }
+        return kOk;
+    }
+
+    // A one-component scan's blocks across and down (FFmpeg counts
+    // ceil(width / (8 * hmax / h)) of them).
+    void comp_blocks(int k, int& nbx, int& nby) const {
+        const int hx = hmax / hd.comp[k].h, vx = vmax / hd.comp[k].v;
+        nbx = (hd.width + 8 * hx - 1) / (8 * hx);
+        nby = (hd.height + 8 * vx - 1) / (8 * vx);
+    }
+
+    // FFmpeg's restart: the interval's padding bits, all ones or all
+    // zeros, then any RSTn; false where it would meet an error.
+    static bool restart(BitReader& br) {
+        if (!br.marker) br.fill();
+        if (!br.marker || br.nbits >= 8 || br.marker < 0xD0 || br.marker > 0xD7) return false;
+        const std::uint32_t ones = (1u << br.nbits) - 1;
+        const std::uint32_t pad = static_cast<std::uint32_t>(br.buf) & ones;
+        if (pad != 0 && pad != ones) return false;
+        br.buf = 0;
+        br.nbits = 0;
+        br.marker = 0;
+        return true;
+    }
+
+    // Calls unit(k, by, bx) for each block of the scan in order, and row()
+    // after each row of MCUs (of blocks in a one-component scan), with the
+    // restart processing between intervals; returns unit's first fault.
+    template <typename Unit, typename Row>
+    int each_block(BitReader& br, Unit&& unit, Row&& row, int* pred, int& eobrun) {
+        int togo = hd.restart;
+        bool first = true;
+        auto begin = [&]() {
+            if (hd.restart && togo == 0 && !first) {
+                if (!restart(br)) return false;
+                for (int i = 0; i < 3; ++i) pred[i] = 1024;
+                eobrun = 0;
+                togo = hd.restart;
+            }
+            first = false;
+            return true;
+        };
+        auto end = [&]() {
+            if (br.bad_code || br.insufficient) return false;
+            if (hd.restart) --togo;
+            return true;
+        };
+        if (hd.nscan > 1) {
+            for (int my = 0; my < mcuy; ++my) {
+                for (int mx = 0; mx < mcux; ++mx) {
+                    if (!begin()) return kUnmatched;
+                    for (int i = 0; i < hd.nscan; ++i) {
+                        const int k = hd.scan_order[i];
+                        const Component& c = hd.comp[k];
+                        for (int by = 0; by < c.v; ++by)
+                            for (int bx = 0; bx < c.h; ++bx) {
+                                const int rc = unit(i, k, my * c.v + by, mx * c.h + bx);
+                                if (rc != kOk) return rc;
+                            }
+                    }
+                    if (!end()) return kUnmatched;
+                }
+                row(my * 8 * vmax, std::min((my + 1) * 8 * vmax, hd.height));
+            }
+            return kOk;
+        }
+        const int k = hd.scan_order[0];
+        int nbx, nby;
+        comp_blocks(k, nbx, nby);
+        const int band = 8 * (vmax / hd.comp[k].v);
+        for (int by = 0; by < nby; ++by) {
+            for (int bx = 0; bx < nbx; ++bx) {
+                if (!begin()) return kUnmatched;
+                const int rc = unit(0, k, by, bx);
+                if (rc != kOk) return rc;
+                if (!end()) return kUnmatched;
+            }
+            row(by * band, std::min((by + 1) * band, hd.height));
+        }
+        return kOk;
+    }
+
+    // A sequential scan as FFmpeg's MJPEG decoder reads it (mjpegdec.c):
+    // the DC predictor runs on dequantized values from 1024 and each DC is
+    // the sum clipped to int16; each block goes through simple_idct into
+    // its plane at once.  With `rows`, the output rows of each MCU row are
+    // converted as soon as it is decoded.  What FFmpeg would stop at with
+    // an error it then conceals returns kUnmatched: a bad Huffman code, a
+    // run past the 64th coefficient, a size-0 symbol other than EOB and
+    // ZRL, bits past the data, an interval that does not end at its marker.
+    int scan_sequential(BitReader& br, bool rows, std::uint8_t* dst) {
+        for (int i = 0; i < hd.nscan; ++i) {  // the scan's tables as they stand
+            Component& c = hd.comp[hd.scan_order[i]];
+            for (int z = 0; z < 64; ++z) c.q[z] = static_cast<std::int16_t>(hd.qt[c.tq][z]);
+        }
+        int pred[3] = {1024, 1024, 1024}, eobrun = 0;
+        alignas(16) std::int16_t blk[64];
+        auto unit = [&](int slot, int k, int by, int bx) {
+            Component& c = hd.comp[k];
+            const Huff& dct = dctab[c.td];
+            const Huff& act = actab[c.ta];
+            const unsigned q0 = hd.qt[c.tq][0];
+            std::memset(blk, 0, sizeof(blk));
+            int t = br.decode(dct);
+            const int diff = t ? extend(br.get(t), t) : 0;
+            pred[slot] = static_cast<int>(static_cast<unsigned>(diff) * q0 +
+                                          static_cast<unsigned>(pred[slot]));
+            blk[0] = static_cast<std::int16_t>(std::min(std::max(pred[slot], -32768), 32767));
+            for (int z = 1; z < 64; ++z) {
+                if (br.nbits < kLook) br.fill();
+                if (br.nbits >= kLook) {  // code + bits at once
+                    const std::int32_t e = act.fast_ac[
+                        (br.buf >> (br.nbits - kLook)) & ((1 << kLook) - 1)];
+                    if (e) {
+                        br.nbits -= e & 0xFF;
+                        z += (e >> 8) & 0xFF;
+                        if (z > 63) return kUnmatched;
+                        blk[kNatural[z]] = static_cast<std::int16_t>(e >> 16);
+                        continue;
+                    }
+                }
+                t = br.decode(act);
+                const int r = t >> 4, sz = t & 15;
+                if (sz) {
+                    z += r;
+                    if (z > 63) return kUnmatched;
+                    blk[kNatural[z]] = static_cast<std::int16_t>(extend(br.get(sz), sz));
+                } else {
+                    if (r != 15) {
+                        if (r) return kUnmatched;
+                        break;
+                    }
+                    z += 15;
+                }
+            }
+            if (br.bad_code) return kUnmatched;
+            idct_simple(blk, c.q, c.plane + static_cast<std::size_t>(by) * 8 * c.stride +
+                                      static_cast<std::size_t>(bx) * 8, c.stride);
+            return kOk;
+        };
+        auto row = [&](int y0, int y1) {
+            if (rows) convert_rows(dst, y0, y1);
+        };
+        return each_block(br, unit, row, pred, eobrun);
+    }
+
+    // A progressive scan (SOF2) into the frame's dequantized coefficients,
+    // as mjpegdec.c reads them: a first DC scan clears the block and keeps
+    // the running sum of diff * (q << Al) from 1024, wrapped, not clipped;
+    // a DC refinement adds bit * q << Al; a first AC band stores level * (q
+    // << Al) with EOB runs; an AC refinement adds +-(q << Al) to nonzero
+    // terms up to the block's last nonzero index seen so far.  A restart
+    // resets the DC sums and the EOB run.
+    int scan_progressive(BitReader& br) {
+        const int ss = hd.ss, se = hd.se, ah = hd.ah, al = hd.al;
+        if (se > 63 || se < ss || (ss == 0) != (se == 0) || (ss && hd.nscan != 1))
+            return kUnmatched;
+        int pred[3] = {1024, 1024, 1024}, eobrun = 0;
+        auto unit = [&](int slot, int k, int by, int bx) {
+            const Component& c = hd.comp[k];
+            const std::size_t b = cofs[k] + static_cast<std::size_t>(by) * (c.stride / 8) + bx;
+            std::int16_t* blk = s->coef.data() + b * 64;
+            std::uint8_t* nnz = s->nnz.data() + b;
+            const std::uint16_t* qt = hd.qt[c.tq];
+            if (ss == 0 && !ah) {
+                std::memset(blk, 0, 64 * sizeof(std::int16_t));
+                const int t = br.decode(dctab[c.td]);
+                const int diff = t ? extend(br.get(t), t) : 0;
+                pred[slot] = static_cast<int>(
+                    static_cast<unsigned>(diff) * (static_cast<unsigned>(qt[0]) << al) +
+                    static_cast<unsigned>(pred[slot]));
+                blk[0] = static_cast<std::int16_t>(pred[slot]);
+                return kOk;
+            }
+            if (ss == 0) {
+                blk[0] = static_cast<std::int16_t>(blk[0] + ((br.get(1) * qt[0]) << al));
+                return kOk;
+            }
+            return ah ? ac_refine(br, blk, nnz, actab[c.ta], qt, eobrun)
+                      : ac_first(br, blk, nnz, actab[c.ta], qt, eobrun);
+        };
+        return each_block(br, unit, [](int, int) {}, pred, eobrun);
+    }
+
+    // decode_block_progressive
+    int ac_first(BitReader& br, std::int16_t* blk, std::uint8_t* nnz, const Huff& h,
+                 const std::uint16_t* qt, int& eobrun) {
+        const int se = hd.se, al = hd.al;
+        if (eobrun) {
+            --eobrun;
+            return kOk;
+        }
+        int i = hd.ss;
+        for (;; ++i) {
+            const int t = br.decode(h);
+            const int run = t >> 4, size = t & 15;
+            if (size) {
+                i += run;
+                const int level = extend(br.get(size), size);
+                if (i >= se) {
+                    if (i > se) return kUnmatched;
+                    blk[kNatural[se]] = static_cast<std::int16_t>(level * (qt[kNatural[se]] << al));
+                    break;
+                }
+                blk[kNatural[i]] = static_cast<std::int16_t>(level * (qt[kNatural[i]] << al));
+            } else if (run == 15) {
+                i += 15;
+                if (i >= se) return kUnmatched;
+            } else {
+                int val = 1 << run;
+                if (run) val += br.get(run);
+                eobrun = val - 1;
+                break;
+            }
+        }
+        if (i > *nnz) *nnz = static_cast<std::uint8_t>(i);
+        return kOk;
+    }
+
+    // decode_block_refinement
+    int ac_refine(BitReader& br, std::int16_t* blk, std::uint8_t* nnz, const Huff& h,
+                  const std::uint16_t* qt, int& eobrun) {
+        const int se = hd.se, al = hd.al;
+        const int last = std::min(se, static_cast<int>(*nnz));
+        int i = hd.ss;
+        auto refine = [&](int at) {
+            const int j = kNatural[at];
+            const int q = blk[j] < 0 ? -static_cast<int>(qt[j]) : static_cast<int>(qt[j]);
+            blk[j] = static_cast<std::int16_t>(blk[j] + br.get(1) * q * (1 << al));
+        };
+        // ZERO_RUN: false where FFmpeg stops with an error
+        auto zero_run = [&](int run) {
+            for (;; ++i) {
+                if (i > last) {
+                    i += run;
+                    return i <= se;
+                }
+                if (blk[kNatural[i]]) refine(i);
+                else if (run-- == 0) return true;
+            }
+        };
+        if (eobrun) {
+            --eobrun;
+        } else {
+            for (;; ++i) {
+                const int t = br.decode(h);
+                const int run = t >> 4;
+                if (t & 15) {
+                    const int bit = br.get(1);
+                    if (!zero_run(run)) return kUnmatched;
+                    const int q = qt[kNatural[i]] << al;
+                    blk[kNatural[i]] = static_cast<std::int16_t>(bit ? q : -q);
+                    if (i == se) {
+                        if (i > *nnz) *nnz = static_cast<std::uint8_t>(i);
+                        return kOk;
+                    }
+                } else if (run == 15) {
+                    if (!zero_run(run)) return kUnmatched;
+                } else {
+                    int r = 1 << run;
+                    if (run) r += br.get(run);
+                    eobrun = r - 1;
+                    break;
+                }
+            }
+            if (i > *nnz) *nnz = static_cast<std::uint8_t>(i);
+        }
+        for (; i <= last; ++i)
+            if (blk[kNatural[i]]) refine(i);
+        return kOk;
+    }
+
+    // The whole frame, every scan, as FFmpeg decodes it and swscale
+    // converts it to BGR24.  A progressive frame keeps its coefficients
+    // in the thread's scratch (zeroed a frame, grown as needed) until EOI,
+    // then each component's blocks go through simple_idct.
+    int run_ffmpeg(const std::uint8_t* data, std::size_t n, std::size_t scan_at,
+                   std::uint8_t* dst) {
+        Source src{data, n, scan_at};
+        alloc();
+        const bool progressive = hd.sof == 0xC2;
+        if (progressive) {
+            std::size_t blocks = 0;
+            for (int k = 0; k < hd.ncomp; ++k) {
+                cofs[k] = blocks;
+                blocks += (hd.comp[k].stride / 8) * (hd.comp[k].rows / 8);
+            }
+            if (s->coef.size() < blocks * 64) s->coef.resize(blocks * 64);
+            if (s->nnz.size() < blocks) s->nnz.resize(blocks);
+            std::memset(s->coef.data(), 0, blocks * 64 * sizeof(std::int16_t));
+            std::memset(s->nnz.data(), 0, blocks);
+        }
+        // one scan of every component converts its rows as it goes
+        const bool rows = !progressive && !scaled && hd.nscan == hd.ncomp;
+        bool coded[3] = {false, false, false};
+        int scans = 0;
+        for (;;) {
+            BitReader br;
+            br.src = &src;
+            const int rc = progressive ? scan_progressive(br)
+                                       : scan_sequential(br, rows && !scans, dst);
+            if (rc != kOk) return rc;
+            ++scans;
+            for (int i = 0; i < hd.nscan; ++i) coded[hd.scan_order[i]] = true;
+            const int m = walk(src, hd, kFfmpeg, false, br.marker ? br.marker : src.next_marker());
+            if (m == kEoi) break;
+            if (m < 0) return m;
+            const int tc = scan_tables();
+            if (tc != kOk) return tc;
+        }
+        for (int k = 0; k < hd.ncomp; ++k)
+            if (!coded[k]) return kUnmatched;
+        if (progressive) {
+            static const std::int16_t ones[64] = {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                                  1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                                  1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                                  1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+            for (int k = 0; k < hd.ncomp; ++k) {
+                const Component& c = hd.comp[k];
+                int nbx, nby;
+                comp_blocks(k, nbx, nby);
+                for (int by = 0; by < nby; ++by)
+                    for (int bx = 0; bx < nbx; ++bx)
+                        idct_simple(s->coef.data() + (cofs[k] + by * (c.stride / 8) + bx) * 64,
+                                    ones, c.plane + static_cast<std::size_t>(by) * 8 * c.stride + bx * 8,
+                                    c.stride);
+            }
+        }
+        if (rows && scans == 1) return kOk;
+        if (scaled) scale_frame(dst);
+        else convert_rows(dst, 0, hd.height);
+        return kOk;
+    }
+
+    // Output rows [y0, y1) where swscale converts without scaling: gray8
+    // replicated; yuvj420p/422p of even height by the unscaled SSSE3
+    // converter (replicated chroma, truncating pmulhw); yuvj444p by the
+    // full-chroma scaler output (rounding), or as planar RGB.  Each row is
+    // packed a pixel a word, then stored as convert() stores its rows.
+    void convert_rows(std::uint8_t* dst, int y0, int y1) {
         const int W = hd.width;
         const Component &c0 = hd.comp[0], &c1 = hd.comp[1], &c2 = hd.comp[2];
-        const int xs = hmax > 1 ? 1 : 0, ys = vmax > 1 ? 1 : 0;
         std::uint32_t* __restrict px = s->packed.data();
         auto clip = [](std::int32_t v) {
             return static_cast<std::uint32_t>(std::min(std::max(v, 0), 255));
         };
         for (int y = y0; y < y1; ++y) {
             const std::uint8_t* __restrict py = c0.plane + y * c0.stride;
-            const std::uint8_t* __restrict pu = c1.plane + (y >> ys) * c1.stride;
-            const std::uint8_t* __restrict pv = c2.plane + (y >> ys) * c2.stride;
+            if (gray) {
+                for (int x = 0; x < W; ++x) px[x] = py[x] * 0x010101u;
+                store_row(dst, y, px);
+                continue;
+            }
+            const std::uint8_t* __restrict pu = c1.plane + (y >> vs) * c1.stride;
+            const std::uint8_t* __restrict pv = c2.plane + (y >> vs) * c2.stride;
             if (rgb) {
                 for (int x = 0; x < W; ++x)
                     px[x] = pv[x] | (pu[x] << 8) | (py[x] << 16);
-            } else if (xs) {  // the unscaled SSSE3 converter: pmulhw
+            } else if (hs) {  // the unscaled SSSE3 converter: pmulhw
                 // chroma replicated across into pairs (the loop below then
                 // vectorizes)
                 std::uint16_t* __restrict u2 = s->row[0].data();
@@ -1069,95 +1745,213 @@ struct Decoder {
         }
     }
 
-    // The scan as FFmpeg's MJPEG decoder reads it (mjpegdec.c): the DC
-    // predictor runs on dequantized values from 1024 and each DC is the sum
-    // clipped to int16; a restart interval ends in padding bits (all ones
-    // or all zeros) and any RSTn.  What FFmpeg would stop at with an error
-    // it then conceals returns kUnmatched: a bad Huffman code, a run past
-    // the 64th coefficient, a size-0 symbol other than EOB and ZRL, bits
-    // past the data, an interval that does not end at its marker.
-    int run_ffmpeg(const std::uint8_t* data, std::size_t n, std::size_t scan_at,
-                   std::uint8_t* dst) {
-        Source src{data, n, scan_at};
-        BitReader br;
-        br.src = &src;
-        alloc();
-        int pred[3] = {1024, 1024, 1024};
-        int togo = hd.restart;
-        alignas(16) std::int16_t blk[64];
-        const int band = 8 * vmax;
-        for (int my = 0; my < mcuy; ++my) {
-            for (int mx = 0; mx < mcux; ++mx) {
-                if (hd.restart && togo == 0) {
-                    if (!br.marker) br.fill();
-                    if (!br.marker || br.nbits >= 8 || br.marker < 0xD0 || br.marker > 0xD7)
-                        return kUnmatched;
-                    const std::uint32_t ones = (1u << br.nbits) - 1;
-                    const std::uint32_t pad = static_cast<std::uint32_t>(br.buf) & ones;
-                    if (pad != 0 && pad != ones) return kUnmatched;
-                    br.buf = 0;
-                    br.nbits = 0;
-                    br.marker = 0;
-                    pred[0] = pred[1] = pred[2] = 1024;
-                    togo = hd.restart;
-                }
-                for (int i = 0; i < 3; ++i) {
-                    const int k = hd.scan_order[i];
-                    Component& c = hd.comp[k];
-                    const Huff& dct = dctab[c.td];
-                    const Huff& act = actab[c.ta];
-                    const unsigned q0 = hd.qt[c.tq][0];
-                    for (int by = 0; by < c.v; ++by) {
-                        for (int bx = 0; bx < c.h; ++bx) {
-                            std::memset(blk, 0, sizeof(blk));
-                            int t = br.decode(dct);
-                            const int diff = t ? extend(br.get(t), t) : 0;
-                            pred[k] = static_cast<int>(static_cast<unsigned>(diff) * q0 +
-                                                       static_cast<unsigned>(pred[k]));
-                            blk[0] = static_cast<std::int16_t>(
-                                std::min(std::max(pred[k], -32768), 32767));
-                            for (int z = 1; z < 64; ++z) {
-                                if (br.nbits < kLook) br.fill();
-                                if (br.nbits >= kLook) {  // code + bits at once
-                                    const std::int32_t e = act.fast_ac[
-                                        (br.buf >> (br.nbits - kLook)) & ((1 << kLook) - 1)];
-                                    if (e) {
-                                        br.nbits -= e & 0xFF;
-                                        z += (e >> 8) & 0xFF;
-                                        if (z > 63) return kUnmatched;
-                                        blk[kNatural[z]] = static_cast<std::int16_t>(e >> 16);
-                                        continue;
-                                    }
-                                }
-                                t = br.decode(act);
-                                const int r = t >> 4, sz = t & 15;
-                                if (sz) {
-                                    z += r;
-                                    if (z > 63) return kUnmatched;
-                                    blk[kNatural[z]] = static_cast<std::int16_t>(
-                                        extend(br.get(sz), sz));
-                                } else {
-                                    if (r != 15) {
-                                        if (r) return kUnmatched;
-                                        break;
-                                    }
-                                    z += 15;
-                                }
-                            }
-                            if (br.bad_code) return kUnmatched;
-                            std::uint8_t* out = c.plane +
-                                (static_cast<std::size_t>(my) * c.v + by) * 8 * c.stride +
-                                (static_cast<std::size_t>(mx) * c.h + bx) * 8;
-                            idct_simple(blk, c.q, out, c.stride);
-                        }
-                    }
-                }
-                if (br.insufficient) return kUnmatched;
-                if (hd.restart) --togo;
-            }
-            convert_ffmpeg(dst, my * band, std::min((my + 1) * band, hd.height));
+    // The frame through swscale's scaled path with cv2's SWS_BICUBIC
+    // (jpeg_plain._swscale_bgr has each rule): the chroma planes filtered
+    // across to the output's chroma width (ceil(W / 2) for an even width,
+    // W for an odd one), then each output row filtered down and converted:
+    // an odd width by the full-chroma C output; an even one by the MMXEXT
+    // output (16-bit pmulhw sums from the rounder 4) on every row but the
+    // last two, which take the C output's lookup tables.  A vertical filter
+    // of one tap, or of two weights summing to 4096, takes yuv2packed1's
+    // rules instead of the general sum.
+    void scale_frame(std::uint8_t* dst) {
+        const int W = hd.width, H = hd.height;
+        const bool full = W & 1;
+        const int cw = (W + (1 << hs) - 1) >> hs, ch = (H + (1 << vs) - 1) >> vs;
+        const int dw = full ? W : (W + 1) >> 1;
+        const int xinc = static_cast<int>(((static_cast<std::int64_t>(cw) << 16) + (dw >> 1)) / dw);
+        const int yinc = static_cast<int>(((static_cast<std::int64_t>(ch) << 16) + (H >> 1)) / H);
+        const int hsize = init_filter(xinc, cw, dw, 4, 1 << 14, s->hcoef, s->hpos);
+        const int vsize = init_filter(yinc, ch, H, 2, 1 << 12, s->vcoef, s->vpos);
+        const Phases ph = find_phases(s->hcoef, s->hpos, hsize, dw, cw);
+        const Component &c0 = hd.comp[0], &c1 = hd.comp[1], &c2 = hd.comp[2];
+        const std::size_t cstride = static_cast<std::size_t>(dw) + 16;
+        for (auto& w : s->work)
+            if (w.size() < static_cast<std::size_t>(W) + 16) w.resize(W + 16);
+        for (auto& w : s->half)
+            if (w.size() < 2 * static_cast<std::size_t>(W) + 32) w.resize(2 * W + 32);
+        for (auto& w : s->pairs)
+            if (w.size() < static_cast<std::size_t>(W) + 16) w.resize(W + 16);
+        if (s->split.size() < static_cast<std::size_t>(cw) + 16) s->split.resize(cw + 16);
+        if (s->chroma.size() < 2 * ch * cstride) s->chroma.resize(2 * ch * cstride);
+        std::int16_t* hu = s->chroma.data();
+        std::int16_t* hv = hu + ch * cstride;
+        for (int r = 0; r < ch; ++r) {
+            hscale_row(c1.plane + r * c1.stride, cw, hu + r * cstride, dw, s->hcoef.data(),
+                       s->hpos.data(), hsize, ph, s->work[0].data(), s->split.data(),
+                       s->half[0].data());
+            hscale_row(c2.plane + r * c2.stride, cw, hv + r * cstride, dw, s->hcoef.data(),
+                       s->hpos.data(), hsize, ph, s->work[0].data(), s->split.data(),
+                       s->half[0].data());
         }
-        return trailer(br, src);
+        std::uint32_t* __restrict px = s->packed.data();
+        for (int y = 0; y < H; ++y) {
+            const std::int16_t* c = s->vcoef.data() + static_cast<std::size_t>(y) * vsize;
+            const std::int16_t* u[8];
+            const std::int16_t* v[8];
+            for (int j = 0; j < vsize && j < 8; ++j) {
+                const int r = std::min(s->vpos[y] + j, ch - 1);
+                u[j] = hu + r * cstride;
+                v[j] = hv + r * cstride;
+            }
+            const bool one = vsize == 1 || (vsize == 2 && c[0] >= 0 && c[1] >= 0 &&
+                                            c[1] <= 4096 && c[0] + c[1] == 4096);
+            const int alpha = vsize == 1 ? 0 : c[vsize - 1];
+            const std::uint8_t* __restrict py = c0.plane + y * c0.stride;
+            if (full) row_full(py, u, v, c, vsize, one, alpha, px);
+            else if (y < H - 2) row_mmx(py, u, v, c, vsize, one, alpha, dw, px);
+            else row_c(py, u, v, c, vsize, one, alpha, dw, px);
+            store_row(dst, y, px);
+        }
+    }
+
+    // yuv2rgb_full_{1,X}_c into BGR24: 32-bit sums, Y << 22 and rounding
+    // 2^21, clipped to 30 bits where any channel leaves them
+    void row_full(const std::uint8_t* __restrict py, const std::int16_t* const* u,
+                  const std::int16_t* const* v, const std::int16_t* c, int n, bool one,
+                  int alpha, std::uint32_t* __restrict px) {
+        const int W = hd.width;
+        std::int32_t* __restrict uu = s->work[0].data();
+        std::int32_t* __restrict vv = s->work[1].data();
+        if (one && alpha == 0) {
+            for (int x = 0; x < W; ++x) {
+                uu[x] = (u[0][x] - (128 << 7)) * 4;
+                vv[x] = (v[0][x] - (128 << 7)) * 4;
+            }
+        } else if (one) {
+            const std::int32_t a1 = 4096 - alpha;
+            for (int x = 0; x < W; ++x) {
+                uu[x] = (u[0][x] * a1 + u[1][x] * alpha - (128 << 19)) >> 10;
+                vv[x] = (v[0][x] * a1 + v[1][x] * alpha - (128 << 19)) >> 10;
+            }
+        } else {
+            for (int x = 0; x < W; ++x) uu[x] = vv[x] = (1 << 9) - (128 << 19);
+            for (int j = 0; j < n; ++j) {
+                const std::int32_t cj = c[j];
+                const std::int16_t* __restrict uj = u[j];
+                const std::int16_t* __restrict vj = v[j];
+                for (int x = 0; x < W; ++x) {
+                    uu[x] += uj[x] * cj;
+                    vv[x] += vj[x] * cj;
+                }
+            }
+            for (int x = 0; x < W; ++x) {
+                uu[x] >>= 10;
+                vv[x] >>= 10;
+            }
+        }
+        auto clip30 = [](std::uint32_t t) {
+            const std::int32_t v = static_cast<std::int32_t>(t);
+            return static_cast<std::uint32_t>(v < 0 ? 0 : v > (1 << 30) - 1 ? (1 << 30) - 1 : v) >> 22;
+        };
+        for (int x = 0; x < W; ++x) {
+            const std::uint32_t yy = (static_cast<std::uint32_t>(py[x]) << 22) + (1u << 21);
+            const std::uint32_t U = static_cast<std::uint32_t>(uu[x]), V = static_cast<std::uint32_t>(vv[x]);
+            const std::uint32_t r = yy + V * static_cast<std::uint32_t>(kVr);
+            const std::uint32_t g = yy + V * static_cast<std::uint32_t>(kVg) + U * static_cast<std::uint32_t>(kUg);
+            const std::uint32_t b = yy + U * static_cast<std::uint32_t>(kUb);
+            px[x] = clip30(b) | clip30(g) << 8 | clip30(r) << 16;
+        }
+    }
+
+    // The MMXEXT yuv2bgr24_{1,X}: chroma as 8x its value in 16 bits (the
+    // sum of pmulhw terms from the rounder 4, or one row >> 4, or two rows'
+    // sum >> 5), then pmulhw by the coefficients, two pixels a chroma
+    // sample, packuswb.  16-bit lanes throughout, as the MMX code has them.
+    void row_mmx(const std::uint8_t* __restrict py, const std::int16_t* const* u,
+                 const std::int16_t* const* v, const std::int16_t* c, int n, bool one,
+                 int alpha, int dw, std::uint32_t* __restrict px) {
+        const int W = hd.width;
+        std::int16_t* __restrict cu = s->half[0].data();
+        std::int16_t* __restrict cv = s->half[1].data();
+        if (one && alpha < 2048) {
+            for (int i = 0; i < dw; ++i) {
+                cu[i] = static_cast<std::int16_t>(u[0][i] >> 4);
+                cv[i] = static_cast<std::int16_t>(v[0][i] >> 4);
+            }
+        } else if (one) {
+            for (int i = 0; i < dw; ++i) {
+                cu[i] = static_cast<std::int16_t>(static_cast<std::uint16_t>(u[0][i] + u[1][i]) >> 5);
+                cv[i] = static_cast<std::int16_t>(static_cast<std::uint16_t>(v[0][i] + v[1][i]) >> 5);
+            }
+        } else {
+            for (int i = 0; i < dw; ++i) cu[i] = cv[i] = 4;
+            for (int j = 0; j < n; ++j) {
+                const std::int16_t cj = c[j];
+                const std::int16_t* __restrict uj = u[j];
+                const std::int16_t* __restrict vj = v[j];
+                for (int i = 0; i < dw; ++i) {
+                    cu[i] = static_cast<std::int16_t>(cu[i] + ((uj[i] * cj) >> 16));
+                    cv[i] = static_cast<std::int16_t>(cv[i] + ((vj[i] * cj) >> 16));
+                }
+            }
+        }
+        // each term twice, a pair a word, so the pixel loop reads its own
+        std::uint32_t* __restrict b2 = s->pairs[0].data();
+        std::uint32_t* __restrict g2 = s->pairs[1].data();
+        std::uint32_t* __restrict r2 = s->pairs[2].data();
+        auto twice = [](std::int32_t t) {
+            return static_cast<std::uint32_t>(static_cast<std::uint16_t>(t)) * 0x10001u;
+        };
+        for (int i = 0; i < dw; ++i) {
+            const std::int32_t uu = static_cast<std::int16_t>(cu[i] - 1024);
+            const std::int32_t vv = static_cast<std::int16_t>(cv[i] - 1024);
+            b2[i] = twice((uu * kUb) >> 16);
+            g2[i] = twice(((uu * kUg) >> 16) + ((vv * kVg) >> 16));
+            r2[i] = twice((vv * kVr) >> 16);
+        }
+        const I16Alias* __restrict b = reinterpret_cast<const I16Alias*>(b2);
+        const I16Alias* __restrict g = reinterpret_cast<const I16Alias*>(g2);
+        const I16Alias* __restrict r = reinterpret_cast<const I16Alias*>(r2);
+        auto sat = [](std::int32_t t) {
+            return static_cast<std::uint32_t>(t < 0 ? 0 : t > 255 ? 255 : t);
+        };
+        for (int x = 0; x < W; ++x) {
+            const std::int32_t yy = py[x];
+            px[x] = sat(yy + b[x]) | sat(yy + g[x]) << 8 | sat(yy + r[x]) << 16;
+        }
+    }
+
+    // The C yuv2rgb_{1,X}_c: chroma rounded to 8 bits (a pair's four
+    // values clipped together where one leaves them), then the tables
+    void row_c(const std::uint8_t* __restrict py, const std::int16_t* const* u,
+               const std::int16_t* const* v, const std::int16_t* c, int n, bool one,
+               int alpha, int dw, std::uint32_t* __restrict px) {
+        auto clip = [](std::int32_t t) { return t < 0 ? 0 : t > 255 ? 255 : t; };
+        for (int i = 0; i < dw; ++i) {
+            std::int32_t U, V;
+            if (one && alpha < 2048) {
+                U = (u[0][i] + 64) >> 7;
+                V = (v[0][i] + 64) >> 7;
+            } else if (one) {
+                U = (u[0][i] * (4096 - alpha) + u[1][i] * alpha + (128 << 11)) >> 19;
+                V = (v[0][i] * (4096 - alpha) + v[1][i] * alpha + (128 << 11)) >> 19;
+            } else {
+                std::int32_t su = 1 << 18, sv = 1 << 18;
+                for (int j = 0; j < n; ++j) {
+                    su += u[j][i] * c[j];
+                    sv += v[j][i] * c[j];
+                }
+                U = su >> 19;
+                V = sv >> 19;
+            }
+            std::int32_t y1 = py[2 * i], y2 = py[2 * i + 1];
+            if ((y1 | y2 | U | V) & 0x100) {
+                y1 = clip(y1);
+                y2 = clip(y2);
+                U = clip(U);
+                V = clip(V);
+            }
+            const std::int32_t b = ((U * kCbu) >> 16) - (kCbu >> 9);
+            const std::int32_t g = ((U * kCgu) >> 16) - (kCgu >> 9) + ((V * kCgv) >> 16) - (kCgv >> 9);
+            const std::int32_t r = ((V * kCrv) >> 16) - (kCrv >> 9);
+            for (int k = 0; k < 2; ++k) {
+                const std::int32_t yy = k ? y2 : y1;
+                px[2 * i + k] = static_cast<std::uint32_t>(clip(yy + b)) |
+                                static_cast<std::uint32_t>(clip(yy + g)) << 8 |
+                                static_cast<std::uint32_t>(clip(yy + r)) << 16;
+            }
+        }
     }
 
     // The markers after the scan, up to EOI, as jpeg_finish_decompress
@@ -1190,10 +1984,10 @@ int decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst,
     dec.fast = mode == kTurboFast;
     dec.s = &tls_scratch;
     Source src{data, n, 0};
-    int rc = read_header(src, dec.hd);
+    int rc = read_header(src, dec.hd, mode);
     if (rc != kOk)  // FFmpeg gives no frame for data that ends before SOS
         return mode == kFfmpeg && !src.sos && src.pos >= n ? kNoFrame : rc;
-    rc = dec.setup();
+    rc = mode == kFfmpeg ? dec.setup_ffmpeg() : dec.setup();
     if (rc != kOk) return rc;
     if (dec.hd.height != height || dec.hd.width != width) return kGeometry;
     if (mode == kFfmpeg) return dec.run_ffmpeg(data, n, src.pos, dst);
@@ -1207,12 +2001,14 @@ extern "C" {
 // Decode one JPEG (bytes src[0..n)) into dst = height*width*3 interleaved
 // BGR uint8 in mode 0 (turbo), 1 (turbo_fast) or 2 (ffmpeg).  Returns 0
 // on success; -1 a decode error (where libjpeg would stop with one); -2
-// the frame's geometry differs from (height, width); -3 not a 3-component
-// image; -4 a mode this decoder does not read (progressive, lossless,
-// arithmetic, 12-bit, several scans, other sampling; in mode 2 also
-// subsampled chroma of odd height); mode 2 only: -5 data FFmpeg decodes
-// with an error it conceals, -6 data that ends before the first scan
-// (FFmpeg returns no frame).
+// the frame's geometry differs from (height, width); -3 a component count
+// the mode does not read (modes 0 and 1: other than three; mode 2: other
+// than one or three); -4 a mode this decoder does not read (lossless,
+// arithmetic, hierarchical, 12-bit; in modes 0 and 1 also progressive,
+// several scans and sampling other than 4:4:4/4:2:2/4:2:0; in mode 2
+// sampling FFmpeg does not read as gray or yuvj444p/422p/420p/411p/440p);
+// mode 2 only: -5 data FFmpeg decodes with an error it conceals, -6 data
+// that ends before the first scan (FFmpeg returns no frame).
 int clt_jpeg_decode_bgr(const unsigned char* src, std::size_t n,
                         unsigned char* dst, int height, int width,
                         int mode) {
@@ -1233,6 +2029,6 @@ void clt_jpeg_decode_bgr_batch(const unsigned char* const* srcs,
     });
 }
 
-int clt_jpeg_version() { return 2; }
+int clt_jpeg_version() { return 3; }
 
 }  // extern "C"

@@ -13,26 +13,43 @@ package calls it; a 4K frame takes it about a minute.
 The ``"ffmpeg"`` mode, stage by stage, as FFmpeg 8 (libavcodec 62,
 libswscale 9) runs on x86-64:
 
-* entropy decode as libjpeg's, but the DC predictor runs on dequantized
-  values (it starts at 1024, the level shift, and each block's DC is the
-  running sum clipped to int16), and a restart marker is any RSTn;
+* the frame's pixel format from its sampling (mjpegdec.c's pix_fmt_id,
+  all-even factors halved): one component is gray8 at any factors; three
+  are yuvj444p, 422p (Y 2x1), 420p (2x2), 411p (4x1) or 440p (1x2), the
+  chroma 1x1; the rest UNSUPPORTED;
+* sequential scans, one or several, as libjpeg reads them, but the DC
+  predictor runs on dequantized values (it starts at 1024, the level
+  shift, and each block's DC is the running sum clipped to int16), and a
+  restart marker is any RSTn;
+* progressive (SOF2) scans into the frame's coefficients, dequantized as
+  they are read: a first DC scan clears the block and keeps the running
+  sum of ``diff * (q << Al)`` from 1024 (wrapped to int16, not clipped); a
+  DC refinement adds ``bit * q << Al``; a first AC band stores ``level *
+  (q << Al)`` with EOB runs; an AC refinement adds ``+-(q << Al)`` to the
+  nonzero terms up to the last nonzero index the block has had; a
+  restart resets the DC sums and the EOB run.  At EOI every block goes
+  through the IDCT;
 * the ``simple_idct`` of its SSE2/AVX routine (``ff_simple_idct8_*``):
   W1-W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520, a row pass first
   (a row with no AC term is ``DC << 3`` in 16 bits, else ``(sum + 2^10)
   >> 11`` saturated to int16), then the column pass (the DC rounding 32
   added in 16 bits, ``sum >> 20`` in 32 bits), clamped to 0..255;
-* the planes as ``yuvj420p``/``yuvj422p``/``yuvj444p``; cv2 asks swscale
-  for BGR24 at the same size.  4:2:0 and 4:2:2 of even height take its
+* cv2 asks swscale for BGR24 at the same size with SWS_BICUBIC.  gray8 is
+  Y in all three channels.  4:2:0 and 4:2:2 of even height take its
   unscaled SSSE3 converter: chroma replicated, ``pmulhw`` with the
-  full-range BT.601 coefficients (``y + ((c * 8 - 1024) * k >> 16)``,
-  k = 14516, -2819, -5850, 11485).  4:4:4 takes the scaler's full-chroma
-  output: ``(y << 22 + 2^21 + (c - 128 << 9) * k) >> 22``, which rounds.
-  4:4:4 with component IDs 'R', 'G', 'B' or Adobe transform 0 is planar
-  RGB.  An odd height in 4:2:0 or 4:2:2 takes swscale's bicubic scaler,
-  which this mode does not reproduce: UNSUPPORTED;
+  full-range BT.601 coefficients (``y + ((c * 8 - 1024) * k >> 16)``, k =
+  14516, -2819, -5850, 11485).  4:4:4 takes the scaler's full-chroma
+  output: ``(y << 22 + 2^21 + (c - 128 << 9) * k) >> 22``, which rounds;
+  with component IDs 'R', 'G', 'B' or Adobe transform 0 it is planar RGB.
+  4:1:1, 4:4:0 and 4:2:0/4:2:2 of odd height take the scaled path
+  (``_swscale_bgr``): the chroma resampled by ``init_filter``'s integer
+  bicubic to the output's chroma size, then the MMXEXT output on all rows
+  but the last two (which take the C output), or the full-chroma C output
+  for an odd width;
 * data FFmpeg would meet with an error it conceals (a bad Huffman code, a
-  run past the 64th coefficient, bits past the end of the data, a restart
-  interval that does not end at its marker): UNMATCHED, not a guess.
+  run past the 64th coefficient or the band, bits past the end of the
+  data, a restart interval that does not end at its marker, a component
+  no sequential scan codes): UNMATCHED, not a guess.
 """
 from __future__ import annotations
 
@@ -50,7 +67,8 @@ __all__ = ["decode", "decode_bgr", "STANDARD_TABLES", "MODES", "OK",
 OK, CORRUPT, GEOMETRY, COMPONENTS, UNSUPPORTED, UNMATCHED, NO_FRAME = \
     0, -1, -2, -3, -4, -5, -6
 _REASONS = {CORRUPT: "corrupt JPEG data", GEOMETRY: "frame geometry",
-            COMPONENTS: "not a 3-component image",
+            COMPONENTS: "a component count the mode does not read (2 or 4; "
+                        "1 outside the 'ffmpeg' mode)",
             UNSUPPORTED: "a mode the decoder does not read",
             UNMATCHED: "data FFmpeg decodes with an error it conceals",
             NO_FRAME: "the data ends before the first scan"}
@@ -221,19 +239,32 @@ class _Header:
         self.transform = 0
         self.comments: List[bytes] = []  # the first 14 bytes of each COM
         self.scan: List[int] = []  # frame index of each scan slot
+        self.ss = self.se = self.ah = self.al = 0  # the scan's Ss, Se, Ah, Al
 
 
-def _read_header(src: _Source) -> _Header:
-    """Markers from SOI to the first SOS (``jpeg.cpp``'s read_header)."""
+def _read_header(src: _Source, mode: str = "turbo") -> _Header:
+    """Markers from SOI to the first SOS (``jpeg.cpp``'s read_header).  The
+    ``"ffmpeg"`` mode also reads progressive (SOF2) frames, grayscale and
+    scans of fewer than three components."""
     if src.at(0) != 0xFF or src.at(1) != 0xD8:
         raise _Fault(CORRUPT)
     src.pos = 2
     hd = _Header()
-    saw_sof = False
+    if _walk(src, hd, mode, header=True) != 0xDA:
+        raise _Fault(CORRUPT)
+    return hd
+
+
+def _walk(src: _Source, hd: _Header, mode: str, header: bool) -> int:
+    """Reads marker segments into hd up to and including the next SOS (its
+    scan header read), or up to EOI between scans; returns that marker."""
+    ffmpeg = mode == "ffmpeg"
     while True:
         m = src.next_marker()
         if m in (_EOI, 0xD8):
-            raise _Fault(CORRUPT)
+            if header or m == 0xD8:
+                raise _Fault(CORRUPT if header else UNMATCHED)
+            return m
         if 0xD0 <= m <= 0xD7 or m == 0x01:
             continue
         length = (src.at(src.pos) << 8) | src.at(src.pos + 1)
@@ -242,10 +273,9 @@ def _read_header(src: _Source) -> _Header:
         keep = min(body, 14) if skipped else body
         seg = bytes(src.at(src.pos + 2 + i) for i in range(max(keep, 0)))
         src.pos += length if length >= 2 else 2
-        if m in (0xC0, 0xC1):
-            if saw_sof or body < 6:
-                raise _Fault(CORRUPT)
-            saw_sof = True
+        if m in (0xC0, 0xC1) or (ffmpeg and m == 0xC2):
+            if hd.sof or body < 6:
+                raise _Fault(CORRUPT if header else UNMATCHED)
             hd.sof, hd.precision = m, seg[0]
             hd.height = (seg[1] << 8) | seg[2]
             hd.width = (seg[3] << 8) | seg[4]
@@ -255,11 +285,11 @@ def _read_header(src: _Source) -> _Header:
                 raise _Fault(CORRUPT)
             if hd.precision != 8:
                 raise _Fault(UNSUPPORTED)
-            if ncomp != 3:
+            if ncomp not in ((1, 3) if ffmpeg else (3,)):
                 raise _Fault(COMPONENTS)
             hd.comps = [dict(id=seg[6 + 3 * c], h=seg[7 + 3 * c] >> 4,
                              v=seg[7 + 3 * c] & 15, tq=seg[8 + 3 * c])
-                        for c in range(3)]
+                        for c in range(ncomp)]
         elif 0xC0 <= m <= 0xCF and m not in (0xC4, 0xCC):
             raise _Fault(UNSUPPORTED)
         elif m == 0xC4:
@@ -306,29 +336,41 @@ def _read_header(src: _Source) -> _Header:
                 hd.adobe, hd.transform = True, seg[11]
         elif m == 0xDA:
             src.sos = True
-            if not saw_sof:
+            if not hd.sof:
                 raise _Fault(CORRUPT)
-            n = seg[0] if body >= 1 else 0
-            if body != 4 + 2 * n or not 1 <= n <= 4:
-                raise _Fault(CORRUPT)
-            if n != 3:
-                raise _Fault(UNSUPPORTED)
-            used = set()
-            for i in range(n):
-                cid, tabs = seg[1 + 2 * i], seg[2 + 2 * i]
-                c = next((c for c in range(3) if hd.comps[c]["id"] == cid
-                          and c not in used), None)
-                if c is None:
-                    raise _Fault(CORRUPT)
-                used.add(c)
-                hd.comps[c]["td"], hd.comps[c]["ta"] = tabs >> 4, tabs & 15
-                hd.scan.append(c)
-            return hd
+            _read_sos(hd, seg, body, ffmpeg)
+            return m
         elif skipped or m in (0xCC, 0xDC):
             if m == 0xFE:
                 hd.comments.append(seg)
         else:
             raise _Fault(CORRUPT)
+
+
+def _read_sos(hd: _Header, seg: bytes, body: int, ffmpeg: bool) -> None:
+    """A scan header: the frame index and table slots of each component,
+    and the spectral selection and successive approximation (Ss, Se, Ah,
+    Al) that progressive scans use."""
+    n = seg[0] if body >= 1 else 0
+    if body != 4 + 2 * n or not 1 <= n <= 4:
+        raise _Fault(CORRUPT)
+    if n != 3 and not ffmpeg:
+        raise _Fault(UNSUPPORTED)
+    if n > len(hd.comps):
+        raise _Fault(CORRUPT)
+    used = set()
+    hd.scan = []
+    for i in range(n):
+        cid, tabs = seg[1 + 2 * i], seg[2 + 2 * i]
+        c = next((c for c in range(len(hd.comps))
+                  if hd.comps[c]["id"] == cid and c not in used), None)
+        if c is None:
+            raise _Fault(CORRUPT)
+        used.add(c)
+        hd.comps[c]["td"], hd.comps[c]["ta"] = tabs >> 4, tabs & 15
+        hd.scan.append(c)
+    hd.ss, hd.se = seg[1 + 2 * n], seg[2 + 2 * n]
+    hd.ah, hd.al = seg[3 + 2 * n] >> 4, seg[3 + 2 * n] & 15
 
 
 class _Bits:
@@ -377,38 +419,21 @@ def _take(win: list, p: int, n: int) -> Tuple[int, int]:
 
 
 def _blocks(hd: _Header, src: _Source, mcux: int, mcuy: int, hmax: int,
-            vmax: int, tables, dc_quant=None) -> Tuple[List[np.ndarray], int]:
+            vmax: int, tables) -> Tuple[List[np.ndarray], int]:
     """The quantized coefficients of every block, per component as
     (blocks down, blocks across, 64) int16 in natural order, and the
     source's marker after the scan (``jpeg.cpp``'s run, without the
-    IDCT).
-
-    With ``dc_quant`` (each component's DC quantizer) the scan decodes as
-    FFmpeg's does: each DC is the dequantized running sum from 1024
-    clipped to int16, a restart is any RSTn right after the interval's
-    padding bits (all ones or all zeros), and what FFmpeg would stop at
-    with an error raises UNMATCHED."""
-    ffmpeg = dc_quant is not None
+    IDCT)."""
     coefs = [np.zeros((mcuy * c["v"], mcux * c["h"], 64), np.int16)
              for c in hd.comps]
     bits = _Bits(src)
     short = False
-    start = 1024 if ffmpeg else 0
-    pred = [start] * 3
+    pred = [0] * 3
     togo, next_rst = hd.restart, 0
     natural = _NATURAL
     for my in range(mcuy):
         for mx in range(mcux):
-            if ffmpeg and hd.restart and togo == 0:
-                rest = bits.real - bits.p
-                if not 0 <= rest < 8 or not 0xD0 <= bits.marker <= 0xD7 or \
-                        _take(bits.win, bits.p, rest)[0] not in (
-                            0, (1 << rest) - 1):
-                    raise _Fault(UNMATCHED)
-                pred = [start] * 3
-                togo = hd.restart
-                bits = _Bits(src)
-            elif hd.restart and togo == 0:
+            if hd.restart and togo == 0:
                 m = bits.marker
                 against = None
                 if m == 0xD0 + next_rst:
@@ -448,31 +473,19 @@ def _blocks(hd: _Header, src: _Source, mcux: int, mcuy: int, hmax: int,
                         row = coefs[k][my * c["v"] + by]
                         for bx in range(c["h"]):
                             blk = row[mx * c["h"] + bx]
-                            at = p
                             t, p = _symbol(win, p, dct)
-                            if ffmpeg and p - at > 16:  # a bad code
-                                raise _Fault(UNMATCHED)
                             diff = 0
                             if t:
                                 x, p = _take(win, p, t)
                                 diff = x - (1 << t) + 1 \
                                     if x < 1 << (t - 1) else x
-                            if ffmpeg:
-                                pred[k] = (pred[k] + diff * dc_quant[k]
-                                           + 2 ** 31) % 2 ** 32 - 2 ** 31
-                                blk[0] = min(max(pred[k], -32768), 32767)
-                            else:
-                                pred[k] = (pred[k] + diff + 2 ** 31) \
-                                    % 2 ** 32 - 2 ** 31
-                                blk[0] = (pred[k] + 32768) % 65536 - 32768
+                            pred[k] = (pred[k] + diff + 2 ** 31) \
+                                % 2 ** 32 - 2 ** 31
+                            blk[0] = (pred[k] + 32768) % 65536 - 32768
                             z = 1
                             while z < 64:
-                                at = p
                                 t, p = _symbol(win, p, act)
                                 r, s = t >> 4, t & 15
-                                if ffmpeg and (p - at > 16 or (
-                                        z + r > 63 if s else r not in (0, 15))):
-                                    raise _Fault(UNMATCHED)
                                 if s:
                                     z += r
                                     x, p = _take(win, p, s)
@@ -485,12 +498,233 @@ def _blocks(hd: _Header, src: _Source, mcux: int, mcuy: int, hmax: int,
                                 z += 1
                 bits.p = p
                 if p > bits.real:
-                    if ffmpeg:
-                        raise _Fault(UNMATCHED)
                     short = True
             if hd.restart:
                 togo -= 1
     return coefs, bits.marker
+
+
+def _extend(x: int, s: int) -> int:
+    return x - (1 << s) + 1 if x < 1 << (s - 1) else x
+
+
+def _wrap16(v: int) -> int:
+    return (v + 32768) % 65536 - 32768
+
+
+def _units(hd: _Header, hmax: int, vmax: int):
+    """The scan's units in order: for each, a list of (component, block
+    row, block column); an interleaved scan's unit is an MCU, a
+    one-component scan's a block of that component (FFmpeg counts
+    ceil(width / (8 * hmax / h)) blocks across, and so down)."""
+    if len(hd.scan) > 1:
+        mcux = -(-hd.width // (8 * hmax))
+        mcuy = -(-hd.height // (8 * vmax))
+        for my in range(mcuy):
+            for mx in range(mcux):
+                yield [(k, my * hd.comps[k]["v"] + by, mx * hd.comps[k]["h"]
+                        + bx) for k in hd.scan
+                       for by in range(hd.comps[k]["v"])
+                       for bx in range(hd.comps[k]["h"])]
+    else:
+        k = hd.scan[0]
+        c = hd.comps[k]
+        nbx = -(-hd.width // (8 * (hmax // c["h"])))
+        nby = -(-hd.height // (8 * (vmax // c["v"])))
+        for by in range(nby):
+            for bx in range(nbx):
+                yield [(k, by, bx)]
+
+
+def _scan_ffmpeg(hd: _Header, src: _Source, coefs, last_nnz, hmax: int,
+                 vmax: int, progressive: bool) -> int:
+    """One scan as FFmpeg's MJPEG decoder reads it (mjpegdec.c), into the
+    frame's dequantized coefficients; returns the marker after it.
+
+    Sequential: each DC is the dequantized running sum from 1024 clipped
+    to int16, each AC term ``level * q`` in int16.  Progressive: a first
+    DC scan clears the block and keeps the running sum of ``diff * (q <<
+    Al)`` (wrapped, not clipped); a DC refinement adds ``bit * q << Al``;
+    AC bands store ``level * (q << Al)`` with EOB runs; AC refinements
+    add ``+-(q << Al)`` to nonzero terms up to the block's last nonzero
+    index seen so far.  A restart is any RSTn after the interval's padding
+    bits (all ones or all zeros) and resets the DC sums and the EOB run.
+    What FFmpeg would stop at with an error raises UNMATCHED."""
+    ss, se, ah, al = hd.ss, hd.se, hd.ah, hd.al
+    if progressive and (se > 63 or se < ss or (ss == 0) != (se == 0) or
+                        (ss and len(hd.scan) != 1)):
+        raise _Fault(UNMATCHED)
+    tables = _scan_tables(hd, progressive)
+    q = {k: hd.qt[hd.comps[k]["tq"]] for k in hd.scan}
+    qz = {k: [int(q[k][_NATURAL[z]]) for z in range(64)] for k in hd.scan}
+    natural = _NATURAL
+    bits = _Bits(src)
+    pred = {k: 1024 for k in hd.scan}
+    togo, eobrun = hd.restart, 0
+    first = True
+    for unit in _units(hd, hmax, vmax):
+        if hd.restart and togo == 0 and not first:
+            rest = bits.real - bits.p
+            if not 0 <= rest < 8 or not 0xD0 <= bits.marker <= 0xD7 or \
+                    _take(bits.win, bits.p, rest)[0] not in (
+                        0, (1 << rest) - 1):
+                raise _Fault(UNMATCHED)
+            pred = {k: 1024 for k in hd.scan}
+            togo, eobrun = hd.restart, 0
+            bits = _Bits(src)
+        first = False
+        win, p = bits.win, bits.p
+        for k, by, bx in unit:
+            blk = coefs[k][by, bx]
+            if not progressive or ss == 0 and not ah:
+                at = p
+                t, p = _symbol(win, p, tables[(k, 0)])
+                if p - at > 16:  # a bad code
+                    raise _Fault(UNMATCHED)
+                diff = 0
+                if t:
+                    x, p = _take(win, p, t)
+                    diff = _extend(x, t)
+                blk[:] = 0
+                if progressive:
+                    pred[k] = (pred[k] + diff * (qz[k][0] << al)
+                               + 2 ** 31) % 2 ** 32 - 2 ** 31
+                    blk[0] = _wrap16(pred[k])
+                    continue
+                pred[k] = (pred[k] + diff * qz[k][0] + 2 ** 31) % 2 ** 32 \
+                    - 2 ** 31
+                blk[0] = min(max(pred[k], -32768), 32767)
+                z = 1
+                act = tables[(k, 1)]
+                while z < 64:
+                    at = p
+                    t, p = _symbol(win, p, act)
+                    r, s = t >> 4, t & 15
+                    if p - at > 16 or (z + r > 63 if s else r not in (0, 15)):
+                        raise _Fault(UNMATCHED)
+                    if s:
+                        z += r
+                        x, p = _take(win, p, s)
+                        blk[natural[z]] = _wrap16(_extend(x, s) * qz[k][z])
+                    elif r != 15:
+                        break
+                    else:
+                        z += 15
+                    z += 1
+            elif ss == 0:  # DC refinement
+                x, p = _take(win, p, 1)
+                blk[0] = _wrap16(int(blk[0]) + ((x * qz[k][0]) << al))
+            elif not ah:
+                p, eobrun = _ac_first(win, p, blk, tables[(k, 1)], qz[k],
+                                      ss, se, al, eobrun, last_nnz[k], by, bx)
+            else:
+                p, eobrun = _ac_refine(win, p, blk, tables[(k, 1)], qz[k],
+                                       ss, se, al, eobrun, last_nnz[k], by,
+                                       bx)
+        bits.p = p
+        if p > bits.real:
+            raise _Fault(UNMATCHED)
+        if hd.restart:
+            togo -= 1
+    return bits.marker
+
+
+def _ac_first(win, p, blk, tab, qz, ss, se, al, eobrun, nnz, by, bx):
+    """decode_block_progressive: one block of a first AC scan."""
+    if eobrun:
+        return p, eobrun - 1
+    i = ss
+    while True:
+        at = p
+        t, p = _symbol(win, p, tab)
+        if p - at > 16:
+            raise _Fault(UNMATCHED)
+        run, size = t >> 4, t & 15
+        if size:
+            i += run
+            x, p = _take(win, p, size)
+            if i >= se:
+                if i > se:
+                    raise _Fault(UNMATCHED)
+                blk[_NATURAL[se]] = _wrap16(_extend(x, size) * (qz[se] << al))
+                break
+            blk[_NATURAL[i]] = _wrap16(_extend(x, size) * (qz[i] << al))
+        elif run == 15:
+            i += 15
+            if i >= se:
+                raise _Fault(UNMATCHED)
+        else:
+            val = 1 << run
+            if run:
+                x, p = _take(win, p, run)
+                val += x
+            eobrun = val - 1
+            break
+        i += 1
+    nnz[by, bx] = max(nnz[by, bx], i)
+    return p, eobrun
+
+
+def _ac_refine(win, p, blk, tab, qz, ss, se, al, eobrun, nnz, by, bx):
+    """decode_block_refinement: one block of an AC refinement scan."""
+    last = min(se, int(nnz[by, bx]))
+    i = ss
+
+    def refine(p, i):
+        j = _NATURAL[i]
+        x, p = _take(win, p, 1)
+        q = qz[i] if blk[j] >= 0 else -qz[i]
+        blk[j] = _wrap16(int(blk[j]) + ((x * q) << al))
+        return p
+
+    def zero_run(p, i, run):
+        while True:
+            if i > last:
+                i += run
+                if i > se:
+                    raise _Fault(UNMATCHED)
+                return p, i
+            if blk[_NATURAL[i]]:
+                p = refine(p, i)
+            elif run == 0:
+                return p, i
+            else:
+                run -= 1
+            i += 1
+
+    if eobrun:
+        eobrun -= 1
+    else:
+        while True:
+            at = p
+            t, p = _symbol(win, p, tab)
+            if p - at > 16:
+                raise _Fault(UNMATCHED)
+            run = t >> 4
+            if t & 15:
+                x, p = _take(win, p, 1)
+                p, i = zero_run(p, i, run)
+                blk[_NATURAL[i]] = _wrap16(qz[i] << al if x else
+                                           -(qz[i] << al))
+                if i == se:
+                    nnz[by, bx] = max(nnz[by, bx], i)
+                    return p, eobrun
+            elif run == 15:
+                p, i = zero_run(p, i, run)
+            else:
+                val = 1 << run
+                if run:
+                    x, p = _take(win, p, run)
+                    val += x
+                eobrun = val - 1
+                break
+            i += 1
+        nnz[by, bx] = max(nnz[by, bx], i)
+    while i <= last:
+        if blk[_NATURAL[i]]:
+            p = refine(p, i)
+        i += 1
+    return p, eobrun
 
 
 def _i16(x: np.ndarray) -> np.ndarray:
@@ -657,6 +891,218 @@ def _ffmpeg_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
     return np.stack(bgr, -1).clip(0, 255).astype(np.uint8)
 
 
+# swscale's lookup tables of its C output (ff_yuv2rgb_c_init_tables): the
+# same coefficients, 16 fractional bits, g's rounded toward zero
+_CRV, _CBU, _CGU, _CGV = 91881, 116129, -22552, -46801
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def init_filter(inc: int, src_w: int, dst_w: int, align: int, one: int,
+                src_pos: int, dst_pos: int) -> Tuple[np.ndarray, np.ndarray]:
+    """swscale's initFilter for SWS_BICUBIC (B = 0, C = 0.6): (dst_w, size)
+    integer coefficients summing to ``one`` and each output's first
+    source index.  A unit step at the same position is the one-tap
+    identity; otherwise each output's taps come from the Keys cubic at
+    its distance in 1/2^17 pixels, cut where a side's weight is below
+    0.002 of the filter's scale, padded to ``align`` taps, folded inside
+    [0, src_w) and rounded to integers with the error carried along."""
+    fone = 1 << (54 - min(max((src_w // dst_w).bit_length() - 1, 0), 8))
+    if abs(inc - 0x10000) < 10 and src_pos == dst_pos:
+        size = 1
+        filt = [[fone] for _ in range(dst_w)]
+        pos = list(range(dst_w))
+    else:
+        size = 5 if inc <= 1 << 16 else 1 + (4 * src_w + dst_w - 1) // dst_w
+        size = max(min(size, src_w - 2), 1)
+        b, c = 0, int(0.6 * (1 << 24))
+        x = ((dst_pos * inc) >> 7) - ((src_pos * 0x10000) >> 7)
+        filt, pos = [], []
+        for _ in range(dst_w):
+            xx = _cdiv(x - (size - 2) * (1 << 16), 1 << 17)
+            pos.append(xx)
+            row = []
+            for _ in range(size):
+                d = abs(xx * (1 << 17) - x) << 13
+                if inc > 1 << 16:
+                    d = _cdiv(d * dst_w, src_w)
+                if d >= 1 << 31:
+                    coeff = 0
+                else:
+                    dd = (d * d) >> 30
+                    ddd = (dd * d) >> 30
+                    if d < 1 << 30:
+                        coeff = (12 * (1 << 24) - 9 * b - 6 * c) * ddd + \
+                            (-18 * (1 << 24) + 12 * b + 6 * c) * dd + \
+                            (6 * (1 << 24) - 2 * b) * (1 << 30)
+                    else:
+                        coeff = (-b - 6 * c) * ddd + (6 * b + 30 * c) * dd + \
+                            (-12 * b - 48 * c) * d + (8 * b + 24 * c) * (1 << 30)
+                row.append(_cdiv(coeff, (1 << 54) // fone))
+                xx += 1
+            filt.append(row)
+            x += 2 * inc
+    cut = 0.002 * fone
+    min_size = 0
+    for i in range(dst_w - 1, -1, -1):
+        row = filt[i]
+        acc = 0
+        for _ in range(size):
+            acc += abs(row[0])
+            if acc > cut or (i < dst_w - 1 and pos[i] >= pos[i + 1]):
+                break
+            row[:] = row[1:] + [0]
+            pos[i] += 1
+        n, acc = size, 0
+        for j in range(size - 1, 0, -1):
+            acc += abs(row[j])
+            if acc > cut:
+                break
+            n -= 1
+        min_size = max(min_size, n)
+    if min_size == 1 and align == 2:
+        align = 1
+    new = (min_size + align - 1) & ~(align - 1)
+    filt = [[row[j] if j < size else 0 for j in range(new)] for row in filt]
+    size = new
+    for i, row in enumerate(filt):
+        if pos[i] < 0:
+            for j in range(1, size):
+                left = max(j + pos[i], 0)
+                row[left] += row[j]
+                row[j] = 0
+            pos[i] = 0
+        if pos[i] + size > src_w:
+            shift = pos[i] + min(size - src_w, 0)
+            acc = 0
+            for j in range(size - 1, -1, -1):
+                if pos[i] + j >= src_w:
+                    acc += row[j]
+                    row[j] = 0
+            for j in range(size - 1, -1, -1):
+                row[j] = 0 if j < shift else row[j - shift]
+            pos[i] -= shift
+            row[src_w - 1 - pos[i]] += acc
+    out = np.zeros((dst_w, size), np.int64)
+    for i, row in enumerate(filt):
+        total = _cdiv(sum(row) + one // 2, one) or 1
+        err = 0
+        for j, v in enumerate(row):
+            v += err
+            iv = (v + (total >> 1)) // total if v >= 0 else \
+                -((-v + (total >> 1)) // total)
+            out[i, j] = iv
+            err = v - iv * total
+    return out, np.array(pos, np.int64)
+
+
+def _hscale(plane: np.ndarray, coef: np.ndarray, pos: np.ndarray):
+    """swscale's horizontal pass (hScale8To15): 15-bit samples."""
+    idx = np.minimum(pos[:, None] + np.arange(coef.shape[1]),
+                     plane.shape[1] - 1)
+    v = (plane.astype(np.int64)[:, idx] * coef).sum(-1)
+    return np.minimum(v >> 7, 32767)
+
+
+def _pmulhw(a, b):
+    return (a * b) >> 16
+
+
+def _w16(a):
+    return (a + 32768) % 65536 - 32768
+
+
+def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
+                 vs: int) -> np.ndarray:
+    """BGR24 from yuvj planes with chroma shifted (hs, vs) through
+    swscale's scaled path with cv2's SWS_BICUBIC: the chroma resampled to
+    the output's chroma size by ``init_filter``'s filters (across to
+    ceil(W / 2) for an even width, where two pixels share a chroma
+    sample, to W for an odd one; down to H), then per output row: the
+    full-chroma C output for an odd width (32-bit sums, rounding), else
+    the MMXEXT output (16-bit ``pmulhw`` sums from the rounder 4, one or
+    two chroma rows by their own rule where the vertical filter has one
+    tap or two summing to 4096) on every row but the last two, which take
+    the C output (lookup tables)."""
+    height, width = y.shape
+    full = width & 1
+    cw, ch = -(-width >> hs), -(-height >> vs)
+    dw = width if full else -(-width >> 1)
+    xinc = ((cw << 16) + (dw >> 1)) // dw
+    yinc = ((ch << 16) + (height >> 1)) // height
+    # swscale's default chroma position puts every sample at its centre:
+    # 128/256 of its own pixel in the source and the output alike
+    hc, hp = init_filter(xinc, cw, dw, 4, 1 << 14, 128, 128)
+    vc, vp = init_filter(yinc, ch, height, 2, 1 << 12, 128, 128)
+    yb = y.astype(np.int64) << 7
+    ub, vb = _hscale(cb, hc, hp), _hscale(cr, hc, hp)
+    taps = vc.shape[1]
+    rows = np.minimum(vp[:, None] + np.arange(taps), ch - 1)   # (H, taps)
+    # two taps take yuv2packed1 where both are weights (uint16 sums)
+    two = (vc.sum(1) == 4096) & (vc[:, -1] >= 0) & (vc[:, -1] <= 4096) \
+        & (vc[:, 0] >= 0) if taps == 2 else np.zeros(height, bool)
+    alpha = np.where(taps == 1, 0, vc[:, -1]) if taps <= 2 else \
+        np.zeros(height, np.int64)
+    one_tap = (taps == 1) | two          # the yuv2packed1 rows
+    u0, v0 = ub[rows[:, 0]], vb[rows[:, 0]]
+    u1, v1 = ub[rows[:, -1]], vb[rows[:, -1]]
+    usum = (ub[rows] * vc[:, :, None]).sum(1)                 # (H, dw)
+    vsum = (vb[rows] * vc[:, :, None]).sum(1)
+    a = alpha[:, None]
+    if full:
+        yy = yb * 4
+        blend = lambda c0, c1: (c0 * (4096 - a) + c1 * a - (128 << 19)) >> 10
+        u = np.where(one_tap[:, None], np.where(a == 0, (u0 - (128 << 7)) * 4,
+                                                blend(u0, u1)),
+                     ((1 << 9) - (128 << 19) + usum) >> 10)
+        v = np.where(one_tap[:, None], np.where(a == 0, (v0 - (128 << 7)) * 4,
+                                                blend(v0, v1)),
+                     ((1 << 9) - (128 << 19) + vsum) >> 10)
+        yy = yy * 8192 + (1 << 21)
+        out = [yy + u * _UB, yy + u * _UG + v * _VG, yy + v * _VR]
+        return np.stack([np.clip(_i32(c), 0, (1 << 30) - 1) >> 22
+                         for c in out], -1).astype(np.uint8)
+    # MMXEXT rows
+    y8 = yb >> 4
+    u8 = np.where(a < 2048, u0 >> 4, ((u0 + u1) & 0xFFFF) >> 5)
+    v8 = np.where(a < 2048, v0 >> 4, ((v0 + v1) & 0xFFFF) >> 5)
+    ux, vx = np.full(u0.shape, 4, np.int64), np.full(v0.shape, 4, np.int64)
+    for j in range(taps):
+        ux = _w16(ux + _pmulhw(ub[rows[:, j]], vc[:, j, None]))
+        vx = _w16(vx + _pmulhw(vb[rows[:, j]], vc[:, j, None]))
+    u8 = _w16(np.where(one_tap[:, None], u8, ux) - 1024)
+    v8 = _w16(np.where(one_tap[:, None], v8, vx) - 1024)
+    yv = _pmulhw(np.where(one_tap[:, None], y8, _w16(4 + (yb >> 4))), 8192)
+    pair = lambda c: np.repeat(c, 2, 1)[:, :width]
+    ug, vg = pair(_pmulhw(u8, _UG)), pair(_pmulhw(v8, _VG))
+    mmx = np.stack([yv + pair(_pmulhw(u8, _UB)), yv + _w16(ug + vg),
+                    yv + pair(_pmulhw(v8, _VR))], -1)
+    # C rows
+    yc = np.where(one_tap[:, None], (yb + 64) >> 7, ((1 << 18) + yb * 4096) >> 19)
+    cblend = lambda c0, c1: (c0 * (4096 - a) + c1 * a + (128 << 11)) >> 19
+    uc = np.where(one_tap[:, None], np.where(a < 2048, (u0 + 64) >> 7,
+                                             cblend(u0, u1)),
+                  ((1 << 18) + usum) >> 19)
+    vc_ = np.where(one_tap[:, None], np.where(a < 2048, (v0 + 64) >> 7,
+                                              cblend(v0, v1)),
+                   ((1 << 18) + vsum) >> 19)
+    bad = ((yc[:, 0::2] | yc[:, 1::2] | uc | vc_) & 0x100) != 0
+    uc, vc_ = np.where(bad, np.clip(uc, 0, 255), uc), \
+        np.where(bad, np.clip(vc_, 0, 255), vc_)
+    yc = np.where(pair(bad), np.clip(yc, 0, 255), yc)
+    uc, vc_ = pair(uc), pair(vc_)
+    c_out = np.stack([yc + ((uc * _CBU) >> 16) - (_CBU >> 9),
+                      yc + ((uc * _CGU) >> 16) - (_CGU >> 9)
+                      + ((vc_ * _CGV) >> 16) - (_CGV >> 9),
+                      yc + ((vc_ * _CRV) >> 16) - (_CRV >> 9)], -1)
+    last = (np.arange(height) >= height - 2)[:, None, None]
+    return np.clip(np.where(last, c_out, mmx), 0, 255).astype(np.uint8)
+
+
 # jdcolor.c's tables (SCALEBITS 16)
 def _fix(x: float) -> int:
     return int(x * 65536.0 + 0.5)
@@ -706,7 +1152,7 @@ def decode_bgr(data: bytes, height: int, width: int, mode="ffmpeg"
     mode = mode_name(mode)
     src = _Source(bytes(data))
     try:
-        hd = _read_header(src)
+        hd = _read_header(src, mode)
     except _Fault as fault:
         if mode == "ffmpeg" and not src.sos and src.pos >= src.n:
             return NO_FRAME, None
@@ -720,6 +1166,8 @@ def decode_bgr(data: bytes, height: int, width: int, mode="ffmpeg"
 
 def _decode(hd: _Header, src: _Source, mode: str, height: int,
             width: int):
+    if mode == "ffmpeg":
+        return _decode_ffmpeg(hd, src, height, width), OK
     fast = mode == "turbo_fast"
     comps = hd.comps
     for c in comps:
@@ -736,19 +1184,7 @@ def _decode(hd: _Header, src: _Source, mode: str, height: int,
             (hmax // c1["h"], vmax // c1["v"]) not in ((1, 1), (2, 1), (2, 2)):
         raise _Fault(UNSUPPORTED)
     ids = bytes(c["id"] for c in comps)
-    if mode == "ffmpeg":
-        # the sampling FFmpeg reads as yuvj420p/422p/444p (and as
-        # planar RGB: 4:4:4 with IDs 'R', 'G', 'B' or Adobe transform 0)
-        if (c1["h"], c1["v"]) != (1, 1) or ids == b"QFA":
-            raise _Fault(UNSUPPORTED)
-        subsampled = hmax > 1
-        if subsampled and hd.height % 2:
-            raise _Fault(UNSUPPORTED)
-        if any(c.startswith(_FFMPEG_COMMENTS) for c in hd.comments):
-            raise _Fault(UNMATCHED)
-        rgb = not subsampled and (hd.adobe and hd.transform == 0
-                                  or ids == b"RGB")
-    elif hd.jfif:
+    if hd.jfif:
         rgb = False
     elif hd.adobe:
         rgb = hd.transform == 0
@@ -772,24 +1208,6 @@ def _decode(hd: _Header, src: _Source, mode: str, height: int,
         raise _Fault(GEOMETRY)
     mcux = -(-hd.width // (8 * hmax))
     mcuy = -(-hd.height // (8 * vmax))
-    if mode == "ffmpeg":
-        coefs, marker = _blocks(hd, src, mcux, mcuy, hmax, vmax, tables,
-                                dc_quant=[int(q[0]) for q in quant])
-        code = _trailer(src, marker)
-        if code != OK:
-            raise _Fault(code)
-        full = []
-        for c, coef, q in zip(comps, coefs, quant):
-            nby, nbx = coef.shape[:2]
-            plane = _idct_simple(coef.reshape(-1, 64), q)
-            plane = plane.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3)
-            plane = plane.reshape(nby * 8, nbx * 8)
-            hx, vx = hmax // c["h"], vmax // c["v"]
-            full.append(np.repeat(np.repeat(plane, vx, 0), hx, 1)[
-                :height, :width])
-        if rgb:
-            return np.stack(full[::-1], -1), OK
-        return _ffmpeg_bgr(*full, subsampled=hmax > 1), OK
     coefs, marker = _blocks(hd, src, mcux, mcuy, hmax, vmax, tables)
     idct = _idct_ifast if fast else _idct_islow
     full = []
@@ -809,6 +1227,123 @@ def _decode(hd: _Header, src: _Source, mode: str, height: int,
                           y + ((_CB_G[cb] + _CR_G[cr]) >> 16),
                           y + _CR_R[cr]], -1).clip(0, 255).astype(np.uint8)
     return frame, _trailer(src, marker)
+
+
+# FFmpeg's pixel format for a sampling, by its pix_fmt_id after
+# mjpegdec.c's normalisation (factors all even are halved): the luma
+# factors of the three-component formats it reads without its own
+# upscaling, as (chroma shift across, chroma shift down)
+_FFMPEG_FORMATS = {0x11111100: (0, 0), 0x21111100: (1, 0),
+                   0x22111100: (1, 1), 0x41111100: (2, 0),
+                   0x12111100: (0, 1)}
+
+
+def ffmpeg_format(comps) -> Optional[Tuple[int, int]]:
+    """The chroma shifts (across, down) of the yuvj format FFmpeg decodes a
+    3-component sampling to, ``(0, 0)`` for grayscale (any factors), or
+    None for a sampling the ``"ffmpeg"`` mode does not read."""
+    if len(comps) == 1:
+        return (0, 0) if 1 <= comps[0][0] <= 4 and 1 <= comps[0][1] <= 4 \
+            else None
+    pid = 0
+    for i, (h, v) in enumerate(comps):
+        pid |= h << (28 - 8 * i) | v << (24 - 8 * i)
+    if not pid & 0xD0D0D0D0:
+        pid -= (pid & 0xF0F0F0F0) >> 1
+    if not pid & 0x0D0D0D0D:
+        pid -= (pid & 0x0F0F0F0F) >> 1
+    return _FFMPEG_FORMATS.get(pid)
+
+
+def _decode_ffmpeg(hd: _Header, src: _Source, height: int,
+                   width: int) -> np.ndarray:
+    """The frame as FFmpeg decodes it and swscale converts it to BGR24:
+    every scan's coefficients (``_scan_ffmpeg``), then ``simple_idct``
+    on each component's blocks, then the conversion of the planes."""
+    comps = hd.comps
+    for c in comps:
+        if not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4):
+            raise _Fault(CORRUPT)
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    if sum(c["h"] * c["v"] for c in comps) > 10:
+        raise _Fault(CORRUPT)
+    shifts = ffmpeg_format([(c["h"], c["v"]) for c in comps])
+    ids = bytes(c["id"] for c in comps)
+    gray = len(comps) == 1
+    if shifts is None or (not gray and (
+            (comps[1]["h"], comps[1]["v"]) != (comps[2]["h"], comps[2]["v"])
+            or ids == b"QFA")):
+        raise _Fault(UNSUPPORTED)
+    if any(c.startswith(_FFMPEG_COMMENTS) for c in hd.comments):
+        raise _Fault(UNMATCHED)
+    rgb = not gray and shifts == (0, 0) and (
+        hd.adobe and hd.transform == 0 or ids == b"RGB")
+    for c in comps:
+        if c["tq"] > 3 or hd.qt[c["tq"]] is None:
+            raise _Fault(CORRUPT)
+    progressive = hd.sof == 0xC2
+    mcux = -(-hd.width // (8 * hmax))
+    mcuy = -(-hd.height // (8 * vmax))
+    coefs = [np.zeros((mcuy * c["v"], mcux * c["h"], 64), np.int16)
+             for c in comps]
+    last_nnz = [np.zeros(cf.shape[:2], np.uint8) for cf in coefs]
+    if (hd.height, hd.width) != (height, width):
+        _scan_tables(hd, progressive)
+        raise _Fault(GEOMETRY)
+    coded = set()
+    while True:
+        _scan_ffmpeg(hd, src, coefs, last_nnz, hmax, vmax, progressive)
+        coded.update(hd.scan)
+        src.pos -= 2  # back to the marker after the scan
+        if _walk(src, hd, "ffmpeg", header=False) == _EOI:
+            break
+    if len(coded) != len(comps):
+        raise _Fault(UNMATCHED)
+    planes = []
+    for c, coef in zip(comps, coefs):
+        nby, nbx = coef.shape[:2]
+        plane = _idct_simple(coef.reshape(-1, 64), np.ones(64, np.int64))
+        plane = plane.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3)
+        planes.append(plane.reshape(nby * 8, nbx * 8))
+    y = planes[0][:height, :width]
+    if gray:
+        return np.repeat(y[..., None], 3, -1)
+    hs, vs = shifts
+    ch, cw = -(-height >> vs), -(-width >> hs)
+    cb, cr = (p[:ch, :cw] for p in planes[1:])
+    if rgb:
+        return np.stack([cr, cb, y], -1)
+    if shifts == (0, 0):
+        return _ffmpeg_bgr(y, cb, cr, subsampled=False)
+    if hs == 1 and height % 2 == 0:  # 4:2:2 and 4:2:0: the unscaled path
+        full = [np.repeat(np.repeat(c, 1 + vs, 0), 2, 1)[:height, :width]
+                for c in (cb, cr)]
+        return _ffmpeg_bgr(y, *full, subsampled=True)
+    return _swscale_bgr(y, cb, cr, hs, vs)
+
+
+def _classes(hd: _Header, progressive: bool) -> List[int]:
+    """The Huffman classes (0 DC, 1 AC) the scan decodes with."""
+    if not progressive:
+        return [0, 1]
+    if hd.ss:
+        return [1]
+    return [] if hd.ah else [0]
+
+
+def _scan_tables(hd: _Header, progressive: bool) -> dict:
+    """The scan's derived Huffman tables by (component, class); CORRUPT
+    where it names a slot no table fills, or a table libjpeg rejects."""
+    huff = dict(STANDARD_TABLES)
+    huff.update(hd.huff)
+    slots = {(k, cls): hd.comps[k]["ta"] if cls else hd.comps[k]["td"]
+             for k in hd.scan for cls in _classes(hd, progressive)}
+    if any(slot > 3 or (cls, slot) not in huff
+           for (k, cls), slot in slots.items()):
+        raise _Fault(CORRUPT)
+    return {(k, cls): _Huff(*huff[(cls, slot)], dc=cls == 0)
+            for (k, cls), slot in slots.items()}
 
 
 def _trailer(src: _Source, m: int) -> int:
@@ -836,7 +1371,7 @@ def decode(data: bytes, mode=False) -> np.ndarray:
     mode = mode_name(mode)
     src = _Source(bytes(data))
     try:
-        hd = _read_header(src)
+        hd = _read_header(src, mode)
         frame, code = _decode(hd, src, mode, hd.height, hd.width)
     except _Fault as fault:
         code, frame = fault.code, None

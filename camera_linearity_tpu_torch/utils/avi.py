@@ -32,6 +32,8 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from ..native.jpeg_plain import ffmpeg_format
+
 __all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "AviInfo",
            "JpegInfo", "jpeg_unsupported"]
 
@@ -190,38 +192,43 @@ _PROCESS = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
 def jpeg_unsupported(data_or_info, mode: str = "turbo") -> Optional[str]:
     """The feature of a JPEG (bytes or its :class:`JpegInfo`) that the
     port's decoder does not read in ``mode``, or None when it reads the
-    headers' mode: baseline or extended-sequential Huffman coding of 8-bit
-    samples, three components in one scan, the second and third sampled
-    alike at full size, halved across (4:2:2) or halved both ways
-    (4:2:0).  The ``"ffmpeg"`` mode also needs the second and third
-    sampled 1x1 and, for halved chroma, an even height (an odd one takes
-    swscale's bicubic scaler, which it does not reproduce)."""
+    headers' mode.  ``"turbo"`` and ``"turbo_fast"`` read baseline or
+    extended-sequential Huffman coding of 8-bit samples, three components
+    in one scan, the second and third sampled alike at full size, halved
+    across (4:2:2) or halved both ways (4:2:0).  ``"ffmpeg"`` reads what
+    FFmpeg's MJPEG decoder reads as gray or yuvj444p/422p/420p/411p/440p
+    (grayscale at any factors; three components with the second and third
+    sampled 1x1, after FFmpeg's halving of all-even factors), sequential
+    or progressive (SOF2), in any number of scans, at any size."""
     info = data_or_info if isinstance(data_or_info, JpegInfo) else \
         _jpeg_sof(bytes(data_or_info))
+    ffmpeg = mode == "ffmpeg"
     if info is None:
         return "no start-of-frame segment"
-    if info.sof in _PROCESS:
+    if info.sof in _PROCESS and not (ffmpeg and info.sof == 0xC2):
         return _PROCESS[info.sof]
-    if info.sof not in (0xC0, 0xC1):
+    if info.sof not in (0xC0, 0xC1, 0xC2):
         return f"start-of-frame marker 0x{info.sof:02X}"
     if info.precision != 8:
         return f"{info.precision}-bit samples"
-    if info.components == 1:
+    if info.components == 1 and not ffmpeg:
         return "grayscale"
-    if info.components != 3:
+    if info.components not in ((1, 3) if ffmpeg else (3,)):
         return f"{info.components} components"
-    if info.scans != 1:
+    if info.scans != 1 and not ffmpeg:
         return f"multi-scan ({info.scans} scans)"
+    sampling = "sampling " + " ".join(f"{h}x{v}" for h, v in info.sampling)
+    if ffmpeg:
+        if ffmpeg_format(info.sampling) is None or \
+                info.components == 3 and info.sampling[1] != info.sampling[2]:
+            return sampling
+        return None
     (h0, v0), (h1, v1), (h2, v2) = info.sampling
     ratio = (h0 // max(h1, 1), v0 // max(v1, 1))
     if (h0, v0) != (max(h0, h1, h2), max(v0, v1, v2)) or \
             (h1, v1) != (h2, v2) or h0 % max(h1, 1) or v0 % max(v1, 1) or \
-            ratio not in ((1, 1), (2, 1), (2, 2)) or \
-            mode == "ffmpeg" and (h1, v1) != (1, 1):
-        return "sampling " + " ".join(f"{h}x{v}" for h, v in info.sampling)
-    if mode == "ffmpeg" and ratio != (1, 1) and info.height % 2:
-        return (f"{'4:2:2' if ratio == (2, 1) else '4:2:0'} of odd height "
-                f"{info.height} (swscale's scaled path)")
+            ratio not in ((1, 1), (2, 1), (2, 2)):
+        return sampling
     return None
 
 

@@ -37,13 +37,16 @@ the committed libjpeg frames bit for bit, ``ffmpeg`` to the committed
 ``cv2.VideoCapture`` frames, and so on every committed ``*.cv2.npy``) and
 hold ``jpeg.cpp`` to ``native/jpeg_plain.py`` bit for bit on frames this
 script encodes (37 x 53, 38 x 53 and 64 x 3840 noise; 4:4:4, 4:2:2,
-4:2:0; with and without DRI; the three modes, the ffmpeg mode refusing
-subsampled chroma of odd height in both); write three raw RGBA exposure
+4:2:0, 4:1:1, 4:4:0 and grayscale, baseline and progressive; with and
+without DRI; the three modes, the turbo ones refusing the frame modes
+only ``ffmpeg`` reads, in both); write three raw RGBA exposure
 videos of 12 frames at 2160 x 3840
 into a temporary directory, and the same content as MJPG AVIs
 (``tests/_torch_mjpeg_writer.py``, as ``cv2.VideoWriter`` writes them; a
-pool of distinct frames cycled to 12, cached under ``build/``), timing
-one 4K frame's decode on one thread and on all; run ``welford_algorithm``
+pool of distinct frames cycled to 12, cached under ``build/``), and as
+grayscale MJPG for every exposure and 4:1:1, 4:4:0 and progressive 4:2:0
+MJPG for the brightest, timing one 4K frame's decode on one thread and a
+video's frames on all, in every mode; run ``welford_algorithm``
 on the card against the host backend and the CPU in float64, and
 ``compute_noise_profiles`` against the CPU; run ``batch_video_to_hdr`` on
 8 scenes with the calibration leg, from raw AVIs once with the u16/f16
@@ -53,10 +56,13 @@ u16/f16, with ``turbo`` and f32/f32, and at the default decoder
 and u16/f16, holding scenes 0 and 7 against
 the plain merge, the stacks against a NumPy moments oracle (fed, for
 MJPG, by ``jpeg_plain.py``'s decode of crop videos) and the leg's energy
-against the reference's; then ``video_to_hdr`` through K3 on each kind.
-It times the device Welford and K1 at B = 8 beside their bounds, K3's
-share of ``video_to_hdr``, and ``welford_algorithm`` on one MJPG video by
-decoder threads.
+against the reference's; then ``video_to_hdr`` through K3 on each kind;
+then the default decoder on the grayscale MJPG (``batch_video_to_hdr``
+u16/f16 held alike, its staged channels equal, and ``video_to_hdr``), and
+``welford_algorithm`` on the card over the 4:4:0 and the progressive
+video against the oracle at the crop.  It times the device Welford and
+K1 at B = 8 beside their bounds, K3's share of ``video_to_hdr``, and
+``welford_algorithm`` on one MJPG video by decoder threads.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, and run ``calibrate``,
@@ -786,27 +792,40 @@ def check_gap(label, got, want, atol, failures, rtol=0.0):
         failures.append(label)
 
 
-def make_mjpg_videos(pools):
+# the MJPG frame modes beside cv2.VideoWriter's 4:2:0: name -> the writer's
+# (sampling, progressive), grayscale being the frames' green channel
+MJPG_VARIANTS = {"420": ("420", False), "gray": ("420", False),
+                 "411": ("411", False), "440": ("440", False),
+                 "progressive": ("420", True)}
+
+
+def make_mjpg_videos(pools, variant: str = "420"):
     """Config 5's exposure videos as MJPG AVIs, written by the NumPy writer
     of ``tests/_torch_mjpeg_writer.py`` as ``cv2.VideoWriter`` writes them
-    (4:2:0, one quantization table, no DRI): each exposure's MJPG_POOL
-    distinct frames (``pools``, BGR) cycled to FRAMES5, as
-    ``benchmarks/bench_video.py:59-66`` cycles its pool, at full size and
-    as MJPG_CROP_ROWS-row crops.  Cached under ``build/`` by the frames'
-    bytes and the writer's source.  Returns (paths, crop paths, seconds
-    spent encoding, or None when the cache had them)."""
+    (4:2:0, one quantization table, no DRI), or in another frame mode of
+    MJPG_VARIANTS: each exposure's MJPG_POOL distinct frames (``pools``,
+    BGR) cycled to FRAMES5, as ``benchmarks/bench_video.py:59-66`` cycles
+    its pool, at full size and as MJPG_CROP_ROWS-row crops.  Cached under
+    ``build/`` by the frames' bytes, the variant and the writer's source.
+    Returns (paths, crop paths, seconds spent encoding, or None when the
+    cache had them)."""
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
     from tests import _torch_mjpeg_writer as writer
 
+    sampling, progressive = MJPG_VARIANTS[variant]
+    gray = variant == "gray"
     key = hashlib.md5(usedforsecurity=False)
     key.update(Path(writer.__file__).read_bytes())
     key.update(f"{MJPG_QUALITY} {FRAMES5} {MJPG_CROP_ROWS}".encode())
+    if variant != "420":
+        key.update(variant.encode())
     for pool in pools:
         key.update(np.ascontiguousarray(pool).data)
     cache = ROOT / "build" / "chip_smoke_mjpg" / key.hexdigest()[:12]
-    paths = [cache / f"mjpg scene {ms}ms.avi" for ms in EXPOSURES5_MS]
-    crop_paths = [cache / f"mjpg crop {ms}ms.avi" for ms in EXPOSURES5_MS]
+    exposures = EXPOSURES5_MS[-len(pools):]
+    paths = [cache / f"mjpg scene {ms}ms.avi" for ms in exposures]
+    crop_paths = [cache / f"mjpg crop {ms}ms.avi" for ms in exposures]
     if all(p.exists() for p in paths + crop_paths):
         return paths, crop_paths, None
     t0 = time.perf_counter()
@@ -814,8 +833,9 @@ def make_mjpg_videos(pools):
     jobs = [f for pool in pools for f in pool] + \
         [f[:MJPG_CROP_ROWS] for pool in pools for f in pool]
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
-        coded = list(ex.map(lambda f: writer.encode_jpeg(f, MJPG_QUALITY),
-                            jobs))
+        coded = list(ex.map(lambda f: writer.encode_jpeg(
+            np.ascontiguousarray(f[..., 1]) if gray else f, MJPG_QUALITY,
+            sampling, progressive=progressive), jobs))
     full, crop = coded[:len(coded) // 2], coded[len(coded) // 2:]
     for e in range(len(pools)):
         for out, frames, rows in ((paths[e], full, H5),
@@ -916,9 +936,17 @@ def video_phases(dev, res, directory) -> dict:
     lib = native._load_mjpeg()
     for h, w in ((37, 53), (38, 53), (64, 3840)):
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-        for sampling in writer.SAMPLING:
+        # (sampling, progressive, frame): every sampling of the writer,
+        # grayscale, and progressive 4:2:0, 4:4:4 and grayscale
+        kinds = [(s, False, img) for s in writer.SAMPLING] + [
+            (s, True, img) for s in ("420", "444")] + [
+            ("gray", p, np.ascontiguousarray(img[..., 0]))
+            for p in (False, True)]
+        for sampling, progressive, src in kinds:
             for restart in (0, 7):
-                frame = writer.encode_jpeg(img, 75, sampling, restart)
+                frame = writer.encode_jpeg(
+                    src, 75, "420" if sampling == "gray" else sampling,
+                    restart, progressive=progressive)
                 buf = np.frombuffer(frame, np.uint8)
                 for m, mode in enumerate(native.JPEG_MODES):
                     got = np.zeros((h, w, 3), np.uint8)
@@ -927,17 +955,21 @@ def video_phases(dev, res, directory) -> dict:
                         native._as_u8_ptr(got), h, w, m)
                     prc, want = jpeg_plain.decode_bgr(frame, h, w, mode)
                     cases += 1
-                    # the ffmpeg mode reads no subsampled chroma of odd
-                    # height (swscale's scaler): both say so
-                    odd = mode == "ffmpeg" and h % 2 and sampling != "444"
-                    if rc != prc or (rc != 0) != bool(odd) or \
+                    # the turbo modes read only 4:4:4, 4:2:2 and 4:2:0 in
+                    # one scan: both refuse the rest
+                    refused = mode != "ffmpeg" and (
+                        progressive or sampling in ("gray", "411", "440"))
+                    if rc != prc or (rc != 0) != refused or \
                             rc == 0 and not np.array_equal(got, want):
-                        failures.append(f"{h} x {w} {sampling} DRI "
-                                        f"{restart} {mode}: rc {rc}, plain "
-                                        f"{prc}")
+                        failures.append(
+                            f"{h} x {w} {sampling}"
+                            f"{' progressive' if progressive else ''} DRI "
+                            f"{restart} {mode}: rc {rc}, plain {prc}")
     log(f"  {'ok ' if not failures else 'BAD'} jpeg.cpp == jpeg_plain.py bit "
         f"for bit on {cases} decodes (noise at 37 x 53, 38 x 53 and 64 x "
-        f"3840; 4:4:4, 4:2:2, 4:2:0; no DRI and DRI 7; the three modes) in "
+        f"3840; 4:4:4, 4:2:2, 4:2:0, 4:1:1, 4:4:0, grayscale, and "
+        f"progressive 4:2:0, 4:4:4 and grayscale; no DRI and DRI 7; the "
+        f"three modes, the turbo ones refusing the new modes) in "
         f"{time.perf_counter() - t0:.1f} s")
     raise_failures("phase 12, jpeg.cpp against jpeg_plain.py", failures)
     t0 = time.perf_counter()
@@ -979,6 +1011,40 @@ def video_phases(dev, res, directory) -> dict:
             "clock, median)")
         del one, many
     log(f"  frame bytes of the pool: {[s / 1e6 for s in sizes]} MB")
+    # the default decoder's other frame modes: grayscale MJPG (the frames'
+    # green channel) for every exposure, for phase 14; 4:1:1, 4:4:0 and
+    # progressive 4:2:0 for the brightest.  One 4K frame of each on one
+    # thread and its video's frames on every core, beside the 4:2:0 above
+    variants = {"gray": make_mjpg_videos(pools, "gray")}
+    for variant in ("411", "440", "progressive"):
+        variants[variant] = make_mjpg_videos(pools[-1:], variant)
+    enc = [v[2] for v in variants.values() if v[2] is not None]
+    log(f"  MJPG in the other modes (quality {MJPG_QUALITY}, no DRI): "
+        f"grayscale x {len(variants['gray'][0])} exposures, 4:1:1, 4:4:0 "
+        f"and progressive 4:2:0 (spectral selection) x 1, "
+        + (f"encoded in {sum(enc):.1f} s" if enc else "from the cache"))
+    for variant, (vpaths, _, _) in variants.items():
+        info = avi.probe_avi(vpaths[-1])
+        comps = 1 if variant == "gray" else 3
+        if info[:4] != ("MJPG", H5, W5, comps) or \
+                avi.jpeg_unsupported(info.jpeg, mode="ffmpeg") or \
+                not avi.jpeg_unsupported(info.jpeg):
+            raise AssertionError(f"probe_avi ({variant}): {info}")
+        vbatch = list(avi.mjpg_chunks(vpaths[-1]))
+        one = np.empty((1, H5, W5, 3), np.uint8)
+        many = np.empty((len(vbatch), H5, W5, 3), np.uint8)
+        native.jpeg_decode_bgr_batch(vbatch[:1], one, mode="ffmpeg")  # warm
+        single = host_ms(lambda: native.jpeg_decode_bgr_batch(
+            vbatch[:1], one, mode="ffmpeg", threads=1), runs=5, warmup=1)
+        wide = host_ms(lambda: native.jpeg_decode_bgr_batch(
+            vbatch, many, mode="ffmpeg"), runs=3, warmup=1) / len(vbatch)
+        decode_ms[f"ffmpeg {variant}"] = dict(
+            one_thread=single, all_threads=wide, frame_mb=len(vbatch[0]) / 1e6)
+        log(f"  ffmpeg {variant}: one 4K frame ({len(vbatch[0]) / 1e6:.3f} "
+            f"MB) {single:.1f} ms on one thread; {wide:.1f} ms a frame over "
+            f"a batch of {len(vbatch)} on {os.cpu_count()} threads (host "
+            f"clock, median; {info.jpeg.scans} scans a frame)")
+        del one, many
     icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
             ** np.array([2.0, 2.2, 2.4]))
 
@@ -1281,6 +1347,28 @@ def video_phases(dev, res, directory) -> dict:
                 torch.cuda.empty_cache()
             t_v2h_mjpg, _ = run_video_to_hdr("video_to_hdr (MJPG)",
                                              mjpg_paths, "ffmpeg")
+            # grayscale MJPG at the default decoder: three equal channels,
+            # as cv2 gives them; the oracle reads the crops through
+            # jpeg_plain.py's ffmpeg mode
+            gray_paths, gray_crop_paths, _ = variants["gray"]
+            t0 = time.perf_counter()
+            gray_crops = [plain_crop_frames(p, "ffmpeg")
+                          for p in gray_crop_paths]
+            log(f"  jpeg_plain.py decoded the grayscale MJPG crops in "
+                f"{time.perf_counter() - t0:.1f} s")
+            label = "batch_video_to_hdr u16/f16 (MJPG gray, auto)"
+            run = run_batch(label, gray_paths, gray_crops, "u16", "f16",
+                            "auto", "ffmpeg")
+            run.pop("out")
+            bv = run.pop("merge")[0]   # the staged means, (S, E, H, W, 3)
+            runs[label] = run
+            if not (torch.equal(bv[..., 0], bv[..., 1]) and
+                    torch.equal(bv[..., 1], bv[..., 2])):
+                raise AssertionError(f"{label}: the staged channels differ")
+            del bv
+            torch.cuda.empty_cache()
+            t_v2h_gray, _ = run_video_to_hdr("video_to_hdr (MJPG gray)",
+                                             gray_paths, "ffmpeg")
         finally:
             if cl_decoder is not None:
                 os.environ["CL_DECODER"] = cl_decoder
@@ -1293,12 +1381,42 @@ def video_phases(dev, res, directory) -> dict:
                 f"{st.get('finalize_s', 0):.3f}, calibrate_s "
                 f"{st.get('calibrate_s', 0):.3f}, merge_s "
                 f"{st.get('merge_s', 0):.3f}")
-        log(f"    video_to_hdr: raw {t_v2h_s:.3f} s, MJPG {t_v2h_mjpg:.3f} s")
+        log(f"    video_to_hdr: raw {t_v2h_s:.3f} s, MJPG {t_v2h_mjpg:.3f} s, "
+            f"MJPG gray {t_v2h_gray:.3f} s")
     finally:
         for name, fn in originals.items():
             setattr(hdr_ops, name, fn)
         cal.calibration = solve
     torch.cuda.empty_cache()
+
+    # welford_algorithm on the card over a 4:4:0 video and a progressive
+    # 4:2:0 one at the default decoder, held to the oracle at the crop
+    failures, welford_modes = [], {}
+    cl_decoder = os.environ.pop("CL_DECODER", None)
+    try:
+        for variant in ("440", "progressive"):
+            vpaths, vcrops, _ = variants[variant]
+            obs.reset_stage_times()
+            t0 = time.perf_counter()
+            got = video.welford_algorithm(vpaths[-1], use_std=True,
+                                          backend="device", batch_size=8)
+            seconds = time.perf_counter() - t0
+            decoded = obs.decoded_frames.snapshot()
+            welford_modes[variant] = seconds
+            log(f"  welford_algorithm on the card, MJPG {variant}: "
+                f"{seconds:.3f} s host clock, decoders {decoded}")
+            if decoded != {"ffmpeg": FRAMES5}:
+                failures.append(f"{variant} decoders {decoded}")
+            om, ostd = moments_oracle(plain_crop_frames(vcrops[-1], "ffmpeg"))
+            check_gap(f"MJPG {variant} device vs NumPy oracle (crop), mean",
+                      got["mean"][:CROP_ROWS], om, 2e-6, failures)
+            check_gap(f"MJPG {variant} device vs NumPy oracle (crop), std",
+                      got["std"][:CROP_ROWS], ostd, 2e-5, failures)
+    finally:
+        if cl_decoder is not None:
+            os.environ["CL_DECODER"] = cl_decoder
+    raise_failures("phase 14, welford_algorithm on 4:4:0 and progressive "
+                   "MJPG", failures)
 
     # decode and statistics together on one MJPG video, by decoder threads
     threads = sorted({2, 4, os.cpu_count() or 1})
@@ -1324,7 +1442,9 @@ def video_phases(dev, res, directory) -> dict:
                           runs={k: dict(wall=r["wall"], mps=r["mps"],
                                         stages=r["stages"])
                                 for k, r in runs.items()},
-                          video_to_hdr_s=dict(raw=t_v2h_s, mjpg=t_v2h_mjpg),
+                          video_to_hdr_s=dict(raw=t_v2h_s, mjpg=t_v2h_mjpg,
+                                              mjpg_gray=t_v2h_gray),
+                          welford_modes_s=welford_modes,
                           welford_ms_by_threads=t_by_threads),
                 k3=dict(ms=k3_ms, plain_ms=k3_plain_ms, bytes=k3_bytes,
                         bound_ms=k3_bound, copy_ms=k3_copy,

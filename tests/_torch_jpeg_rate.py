@@ -8,7 +8,9 @@ plus N(0, 6) noise, seeded; NumPy here), encoded by
 ``tests/_torch_mjpeg_writer.py`` as cv2's MJPG writer lays it out.  It
 prints the frame's bytes, then the median ms of one frame on one thread
 for each decoder and mode (the port's three, libjpeg-turbo's two), and the
-port's ms a frame over a batch of 12 on every core.  Where the JAX
+port's ms a frame over a batch of 12 on every core; then the same for
+the other frame modes of the ``ffmpeg`` mode (grayscale, the frame's
+green channel; 4:1:1; 4:4:0; progressive 4:2:0).  Where the JAX
 package's decoder did not build (no libjpeg headers), its lines are left
 out.  Test tooling: a host-CPU measurement,
 not a device one.
@@ -64,6 +66,21 @@ def main() -> None:
             [data] * 12, batch, mode=mode), args.runs) / 12
         print(f"{mode}, jpeg.cpp: {ms:.1f} ms a frame over a batch of 12 on "
               f"{os.cpu_count()} threads")
+    batch = np.empty((12, H, W, 3), np.uint8)
+    for name, src, kwargs in (
+            ("grayscale", np.ascontiguousarray(frame[..., 1]), {}),
+            ("4:1:1", frame, {"sampling": "411"}),
+            ("4:4:0", frame, {"sampling": "440"}),
+            ("progressive 4:2:0", frame, {"progressive": True})):
+        coded = encode_jpeg(src, args.quality, **kwargs)
+        one = median_ms(lambda: native.jpeg_decode_bgr(coded, dst,
+                                                       mode="ffmpeg"),
+                        args.runs)
+        many = median_ms(lambda: native.jpeg_decode_bgr_batch(
+            [coded] * 12, batch, mode="ffmpeg"), args.runs) / 12
+        print(f"ffmpeg {name} ({len(coded) / 1e6:.3f} MB), jpeg.cpp: "
+              f"{one:.1f} ms on one thread, {many:.1f} ms a frame over a "
+              f"batch of 12 on {os.cpu_count()} threads")
 
 
 if __name__ == "__main__":

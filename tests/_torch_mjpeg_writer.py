@@ -6,8 +6,12 @@ writes for ``VideoWriter_fourcc(*"MJPG")`` (``tests/data/mjpg 5ms.avi``):
 baseline JPEG frames in 4:2:0 (Y 2x2, Cb and Cr 1x1), one quantization
 table for all three components, Annex K's Huffman tables in a DHT, no DRI,
 and no APP0 (component IDs 1, 2, 3 say YCbCr); one ``00dc`` chunk a frame.
+It also writes 4:4:4, 4:2:2, 4:1:1 and 4:4:0, grayscale, restart
+intervals, one scan a component and progressive frames (spectral
+selection), the modes of FFmpeg's MJPEG decoder the port reproduces.
 
-The encoder: JFIF's YCbCr conversion, 2x2 chroma means, the FDCT as two
+The encoder: JFIF's YCbCr conversion, chroma means over each chroma
+sample's luma pixels, the FDCT as two
 matrix products per 8 x 8 block, libjpeg's quality scaling of Annex K's
 luminance table, and vectorised entropy coding, bit packing and byte
 stuffing.  Every step works block by block, so a frame's first MCU rows
@@ -112,108 +116,152 @@ def _bits(v: np.ndarray, n: np.ndarray) -> np.ndarray:
 
 
 # (horizontal, vertical) sampling factors of Y; Cb and Cr are 1x1
-SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}
+SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "411": (4, 1),
+            "440": (1, 2)}
 
 
 def encode_jpeg(bgr: np.ndarray, quality: int = QUALITY,
-                sampling: str = "420", restart: int = 0) -> bytes:
-    """One (H, W, 3) BGR uint8 frame as a baseline JPEG: 4:2:0 and no DRI
-    as ``cv2.VideoWriter`` writes them, or ``sampling`` "444" / "422" and
-    a restart marker every ``restart`` MCUs."""
-    hy, vy = SAMPLING[sampling]
+                sampling: str = "420", restart: int = 0,
+                progressive: bool = False, separate: bool = False) -> bytes:
+    """One frame as a JPEG: an (H, W, 3) BGR uint8 frame in ``sampling``
+    ("420", as ``cv2.VideoWriter`` writes it, "422", "444", "411" or
+    "440"), or an (H, W) uint8 frame as grayscale (one component, Y the
+    frame itself); a restart marker every ``restart`` MCUs (blocks in a
+    one-component scan).  Baseline, one interleaved scan; or with
+    ``progressive`` (SOF2) spectral selection without successive
+    approximation: an interleaved DC scan, then AC bands 1-5 and 6-63 of
+    each component in turn."""
+    gray = bgr.ndim == 2
+    hy, vy = (1, 1) if gray else SAMPLING[sampling]
     h, w = bgr.shape[:2]
     ph, pw = -(-h // (8 * vy)) * 8 * vy, -(-w // (8 * hy)) * 8 * hy
-    img = np.pad(bgr.astype(np.float64), ((0, ph - h), (0, pw - w), (0, 0)),
-                 mode="edge")
-    b, g, r = img[..., 0], img[..., 1], img[..., 2]
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
-    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
-    planes = [np.clip(np.round(y), 0, 255)]
-    for c in (cb, cr):
-        c = c.reshape(ph // vy, vy, pw // hy, hy).mean(axis=(1, 3))
-        planes.append(np.clip(np.round(c), 0, 255))
+    if gray:
+        img = np.pad(bgr.astype(np.float64), ((0, ph - h), (0, pw - w)),
+                     mode="edge")
+        planes = [img]
+    else:
+        img = np.pad(bgr.astype(np.float64),
+                     ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+        b, g, r = img[..., 0], img[..., 1], img[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+        planes = [np.clip(np.round(y), 0, 255)]
+        for c in (cb, cr):
+            c = c.reshape(ph // vy, vy, pw // hy, hy).mean(axis=(1, 3))
+            planes.append(np.clip(np.round(c), 0, 255))
     q = _quant_table(quality)
     qz = q[_ZIGZAG].astype(np.float64)
     mcu_y, mcu_x = ph // (8 * vy), pw // (8 * hy)
     coefs = []
-    for k, plane in enumerate(planes):
+    for plane in planes:
         f = _DCT @ (_blocks(plane - 128.0)) @ _DCT.T
         z = f.reshape(f.shape[:2] + (64,))[..., _ZIGZAG] / qz
-        z = (np.sign(z) * np.floor(np.abs(z) + 0.5)).astype(np.int64)
-        if k == 0:  # MCU order: an MCU's Y blocks, row by row
-            z = z.reshape(mcu_y, vy, mcu_x, hy, 64).swapaxes(1, 2)
-            z = z.reshape(mcu_y, mcu_x, hy * vy, 64)
-        else:
-            z = z.reshape(mcu_y, mcu_x, 1, 64)
-        coefs.append(z)
-    # every block in coding order, with its component and MCU
-    order = np.concatenate(coefs, axis=2).reshape(-1, 64)
-    per_mcu = hy * vy + 2
-    comp = np.tile(np.array([0] * (hy * vy) + [1, 2]), mcu_y * mcu_x)
-    interval = np.arange(len(order)) // per_mcu // restart if restart else \
-        np.zeros(len(order), np.int64)
-    scan = _entropy(order, comp, interval)
-    seg = _segments(q, h, w, hy, vy, restart)
-    return b"\xff\xd8" + seg + scan + b"\xff\xd9"
+        coefs.append((np.sign(z) * np.floor(np.abs(z) + 0.5)).astype(
+            np.int64))
+    factors = [(hy, vy)] + [(1, 1)] * (len(planes) - 1)
+    if progressive:
+        scans = [(tuple(range(len(planes))), 0, 0)] + [
+            ((k,), ss, se) for ss, se in ((1, 5), (6, 63))
+            for k in range(len(planes))]
+    elif separate:
+        scans = [((k,), 0, 63) for k in range(len(planes))]
+    else:
+        scans = [(tuple(range(len(planes))), 0, 63)]
+    out = b""
+    for comps, ss, se in scans:
+        order, comp, unit = _scan_blocks(coefs, comps, factors, mcu_y, mcu_x,
+                                         h, w, hy, vy)
+        interval = unit // restart if restart else np.zeros_like(unit)
+        out += _sos(comps, ss, se) + _entropy(order, comp, interval, ss, se)
+    seg = _headers(q, h, w, factors, restart, progressive)
+    return b"\xff\xd8" + seg + out + b"\xff\xd9"
 
 
-def _entropy(blocks: np.ndarray, comp: np.ndarray,
-             interval: np.ndarray) -> bytes:
-    """Huffman-code blocks (coding order, zigzag) into stuffed bytes, the
-    DC predictions and the bytes of each restart interval apart."""
+def _scan_blocks(coefs, comps, factors, mcu_y, mcu_x, h, w, hy, vy):
+    """A scan's blocks in coding order, with each one's component and
+    unit: MCU order over the padded frame for several components; for
+    one, its own blocks row by row (ceil(W / 8 / (hmax / h)) across)."""
+    if len(comps) > 1:
+        parts, comp = [], []
+        for k in comps:
+            hk, vk = factors[k]
+            z = coefs[k].reshape(mcu_y, vk, mcu_x, hk, 64).swapaxes(1, 2)
+            parts.append(z.reshape(mcu_y, mcu_x, hk * vk, 64))
+            comp += [k] * (hk * vk)
+        order = np.concatenate(parts, axis=2).reshape(-1, 64)
+        n = len(comp)
+        return (order, np.tile(np.array(comp), mcu_y * mcu_x),
+                np.arange(len(order)) // n)
+    k = comps[0]
+    hk, vk = factors[k]
+    nby = -(-h // (8 * (vy // vk)))
+    nbx = -(-w // (8 * (hy // hk)))
+    order = coefs[k][:nby, :nbx].reshape(-1, 64)
+    return order, np.full(len(order), k), np.arange(len(order))
+
+
+def _entropy(blocks: np.ndarray, comp: np.ndarray, interval: np.ndarray,
+             ss: int = 0, se: int = 63) -> bytes:
+    """Huffman-code the band ``ss``..``se`` (zigzag) of blocks (coding
+    order) into stuffed bytes: the DC differences where the band starts at
+    0, each component against its previous block in the same restart
+    interval; the AC terms as run/size symbols with ZRLs and an EOB where
+    the band's last terms are zero; each restart interval apart."""
     nb = len(blocks)
     values, lengths, keys = [], [], []
-    # DC differences, each component against its previous block in the
-    # same restart interval
-    dc = blocks[:, 0]
-    diff = np.empty(nb, np.int64)
-    for c in range(3):
-        at = np.flatnonzero(comp == c)
-        prev = np.concatenate([[0], dc[at][:-1]])
-        first = np.concatenate([[True], interval[at][1:] != interval[at][:-1]])
-        diff[at] = dc[at] - np.where(first, 0, prev)
-    n = _size(diff)
     table = np.where(comp == 0, 0, 1)
-    for t in (0, 1):
-        sel = table == t
-        (code, length), _ = _TABLES[t]
-        nn = n[sel]
-        values.append((code[nn] << nn) | _bits(diff[sel], nn))
-        lengths.append(length[nn] + nn)
-        keys.append(np.flatnonzero(sel) * 128)
-    # AC coefficients: run/size symbols, ZRLs for runs over 15, EOB
-    ac = blocks[:, 1:]
-    bi, k = np.nonzero(ac)
-    k = k + 1
-    prev = np.zeros_like(k)
-    if len(k) > 1:
-        prev[1:] = np.where(bi[1:] == bi[:-1], k[:-1], 0)
-    run = k - prev - 1
-    v = ac[bi, k - 1]
-    s = _size(v)
-    t = table[bi]
-    for tt in (0, 1):
-        _, (code, length) = _TABLES[tt]
-        sel = t == tt
-        sym = ((run[sel] % 16) << 4) | s[sel]
-        values.append((code[sym] << s[sel]) | _bits(v[sel], s[sel]))
-        lengths.append(length[sym] + s[sel])
-        keys.append(bi[sel] * 128 + 2 * k[sel] + 1)
-        # ZRLs sort before their symbol (a run over 15 leaves room)
-        reps = np.repeat(np.arange(sel.sum()), run[sel] // 16)
-        values.append(np.full(len(reps), code[0xF0]))
-        lengths.append(np.full(len(reps), length[0xF0]))
-        keys.append(bi[sel][reps] * 128 + 2 * k[sel][reps] - 1)
-    last = np.zeros(nb, np.int64)
-    np.maximum.at(last, bi, k)
-    eob = np.flatnonzero(last < 63)
-    for tt in (0, 1):
-        _, (code, length) = _TABLES[tt]
-        sel = eob[table[eob] == tt]
-        values.append(np.full(len(sel), code[0x00]))
-        lengths.append(np.full(len(sel), length[0x00]))
-        keys.append(sel * 128 + 127)
+    if ss == 0:
+        dc = blocks[:, 0]
+        diff = np.empty(nb, np.int64)
+        for c in np.unique(comp):
+            at = np.flatnonzero(comp == c)
+            prev = np.concatenate([[0], dc[at][:-1]])
+            first = np.concatenate([[True],
+                                    interval[at][1:] != interval[at][:-1]])
+            diff[at] = dc[at] - np.where(first, 0, prev)
+        n = _size(diff)
+        for t in (0, 1):
+            sel = table == t
+            (code, length), _ = _TABLES[t]
+            nn = n[sel]
+            values.append((code[nn] << nn) | _bits(diff[sel], nn))
+            lengths.append(length[nn] + nn)
+            keys.append(np.flatnonzero(sel) * 128)
+    lo = max(ss, 1)
+    if se >= lo:
+        # AC coefficients: run/size symbols, ZRLs for runs over 15, EOB
+        ac = blocks[:, lo:se + 1]
+        bi, k = np.nonzero(ac)
+        k = k + lo
+        prev = np.full_like(k, lo - 1)
+        if len(k) > 1:
+            prev[1:] = np.where(bi[1:] == bi[:-1], k[:-1], lo - 1)
+        run = k - prev - 1
+        v = blocks[bi, k]
+        s = _size(v)
+        t = table[bi]
+        for tt in (0, 1):
+            _, (code, length) = _TABLES[tt]
+            sel = t == tt
+            sym = ((run[sel] % 16) << 4) | s[sel]
+            values.append((code[sym] << s[sel]) | _bits(v[sel], s[sel]))
+            lengths.append(length[sym] + s[sel])
+            keys.append(bi[sel] * 128 + 2 * k[sel] + 1)
+            # ZRLs sort before their symbol (a run over 15 leaves room)
+            reps = np.repeat(np.arange(sel.sum()), run[sel] // 16)
+            values.append(np.full(len(reps), code[0xF0]))
+            lengths.append(np.full(len(reps), length[0xF0]))
+            keys.append(bi[sel][reps] * 128 + 2 * k[sel][reps] - 1)
+        last = np.full(nb, lo - 1, np.int64)
+        np.maximum.at(last, bi, k)
+        eob = np.flatnonzero(last < se)
+        for tt in (0, 1):
+            _, (code, length) = _TABLES[tt]
+            sel = eob[table[eob] == tt]
+            values.append(np.full(len(sel), code[0x00]))
+            lengths.append(np.full(len(sel), length[0x00]))
+            keys.append(sel * 128 + 127)
     keys = np.concatenate(keys)
     order = np.argsort(keys, kind="stable")
     values = np.concatenate(values)[order]
@@ -246,22 +294,42 @@ def _pack(values: np.ndarray, lengths: np.ndarray) -> bytes:
     return np.insert(data, ff + 1, 0).tobytes()
 
 
+def _seg(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
 def _segments(q: np.ndarray, h: int, w: int, hy: int, vy: int,
               restart: int) -> bytes:
     """DQT (one table), DHT (Annex K's four), DRI where there are restart
-    markers, SOF0 (table 0 for every component), SOS."""
-    def seg(marker: int, body: bytes) -> bytes:
-        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
-    dqt = seg(0xDB, b"\x00" + bytes(q[_ZIGZAG].astype(np.uint8)))
+    markers, SOF0 (table 0 for every component), SOS (one interleaved
+    scan of the three)."""
+    return _headers(q, h, w, [(hy, vy), (1, 1), (1, 1)], restart) + \
+        _sos((0, 1, 2), 0, 63)
+
+
+def _headers(q: np.ndarray, h: int, w: int, factors, restart: int,
+             progressive: bool = False) -> bytes:
+    """DQT (one table), DHT (Annex K's four), DRI where there are restart
+    markers, SOF0 (SOF2 when progressive; table 0 for every component,
+    the first sampled ``factors[0]``, the others 1x1)."""
+    dqt = _seg(0xDB, b"\x00" + bytes(q[_ZIGZAG].astype(np.uint8)))
     dht = b""
     for index, (counts, symbols) in ((0x00, _DC_LUM), (0x10, _AC_LUM),
                                      (0x01, _DC_CHROM), (0x11, _AC_CHROM)):
         dht += bytes([index]) + bytes(counts) + symbols
-    dri = seg(0xDD, struct.pack(">H", restart)) if restart else b""
-    sof = seg(0xC0, struct.pack(">BHHB", 8, h, w, 3)
-              + bytes([1, hy << 4 | vy, 0, 2, 0x11, 0, 3, 0x11, 0]))
-    sos = seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
-    return dqt + seg(0xC4, dht) + dri + sof + sos
+    dri = _seg(0xDD, struct.pack(">H", restart)) if restart else b""
+    comps = b"".join(bytes([k + 1, hk << 4 | vk, 0])
+                     for k, (hk, vk) in enumerate(factors))
+    sof = _seg(0xC2 if progressive else 0xC0,
+               struct.pack(">BHHB", 8, h, w, len(factors)) + comps)
+    return dqt + _seg(0xC4, dht) + dri + sof
+
+
+def _sos(comps, ss: int, se: int) -> bytes:
+    """A scan header: component k + 1 with tables 0 (k = 0) or 1."""
+    return _seg(0xDA, bytes([len(comps)]) + b"".join(
+        bytes([k + 1, 0x00 if k == 0 else 0x11]) for k in comps)
+        + bytes([ss, se, 0]))
 
 
 def write_mjpg_avi(path: Path, frames: Iterable[bytes], height: int,

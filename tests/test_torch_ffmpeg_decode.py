@@ -320,21 +320,16 @@ def test_committed_clips(name):
         np.testing.assert_array_equal(frame, want[i])
 
 
-def test_modes_the_ffmpeg_mode_does_not_read():
+def test_modes_the_ffmpeg_mode_does_not_read(tmp_path):
     """4:2:0 and 4:2:2 of odd height take swscale's bicubic scaler, which
-    the mode does not reproduce: it raises, naming it, and so does the
-    probe; 4:4:4 of odd height decodes."""
-    for sampling in ("420", "422"):
+    the mode once refused; it now reproduces it, so they decode to cv2's
+    bytes (native and plain) and the probe reads them, as it reads 4:4:4
+    of odd height.  An unknown mode still raises."""
+    for sampling in ("420", "422", "444"):
         data = imencode(content("noise", 37, 53), 75, sampling)
-        assert "odd height 37" in avi.jpeg_unsupported(data, mode="ffmpeg")
+        assert avi.jpeg_unsupported(data, mode="ffmpeg") is None
         assert avi.jpeg_unsupported(data) is None
-        with pytest.raises(ValueError, match="odd height 37"):
-            native.jpeg_decode_bgr(data, np.empty((37, 53, 3), np.uint8),
-                                   mode="ffmpeg")
-        assert jpeg_plain.decode_bgr(data, 37, 53)[0] == \
-            jpeg_plain.UNSUPPORTED
-    data = imencode(content("noise", 37, 53), 75, "444")
-    assert port(data, 37, 53)[0] == 0
+        same_as_cv2(tmp_path, [data], 37, 53, plain=True)
     with pytest.raises(ValueError, match="unknown JPEG decoder mode"):
         native.jpeg_decode_bgr(data, np.empty((37, 53, 3), np.uint8),
                                mode="libav")

@@ -284,7 +284,7 @@ def test_unsupported_modes_raise_before_decode(oracle, feature, tmp_path,
     # a frame on its own: the decoder names the feature
     with pytest.raises(ValueError, match=feature):
         native.jpeg_decode_bgr(data, np.empty((24, 40, 3), np.uint8))
-    rc, _ = jpeg_plain.decode_bgr(data, 24, 40)
+    rc, _ = jpeg_plain.decode_bgr(data, 24, 40, "turbo")
     assert rc == decode(native, data, 24, 40, False)[0] < 0
     # an MJPG AVI of such frames raises before any frame is decoded
     path = tmp_path / "unsupported 5ms.avi"

@@ -349,27 +349,43 @@ def test_raw_avis_need_no_cv2(video, monkeypatch):
     np.testing.assert_allclose(got["mean"], om, **TOL)
 
 
-def test_a_grayscale_mjpg_is_rejected_before_decode(tmp_path, capsys):
-    """Repair of ``_resolve_decoder`` (models/video.py:269-275), which
-    checks only an MJPG's geometry: a 1-component JPEG stream passes it and
-    fails mid-run.  The port checks the component count against
-    ``num_of_chs`` first."""
-    ok, jpeg = cv2.imencode(".jpg", np.full((H, W), 90, np.uint8))
-    assert ok
+@pytest.mark.parametrize("decoder", ["native", "turbo"])
+def test_a_grayscale_mjpg_is_rejected_before_decode(tmp_path, decoder,
+                                                    monkeypatch):
+    """A 1-component MJPG.  At ``decoder="native"`` (the ``ffmpeg`` mode)
+    it decodes to three equal channels, as cv2 gives it, and the port's
+    statistics equal the JAX package's default (cv2) at rtol 1e-10.  The
+    ``turbo`` mode does not read grayscale: it raises before any frame is
+    decoded, naming it (and with ``num_of_chs=3``, naming the component
+    count first, as ``_resolve_decoder`` checks it)."""
+    monkeypatch.delenv("CL_DECODER", raising=False)
+    rng = np.random.default_rng(3)
+    frames = []
+    for _ in range(3):
+        ok, jpeg = cv2.imencode(".jpg", rng.integers(60, 200, (H, W),
+                                                     dtype=np.uint8))
+        assert ok
+        frames.append(jpeg.tobytes())
     path = tmp_path / "gray 5ms.avi"
-    path.write_bytes(avi_bytes(b"MJPG", H, W, 24, [jpeg.tobytes()] * 3))
+    path.write_bytes(avi_bytes(b"MJPG", H, W, 24, frames))
+    if decoder == "native":
+        got = tvideo.welford_algorithm(path, use_std=True, decoder=decoder,
+                                       device="cpu")
+        want = jvideo.welford_algorithm(path, use_std=True)
+        for key in ("mean", "std"):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-10,
+                                       atol=1e-15)
+        assert np.array_equal(got["mean"][..., 0], got["mean"][..., 1])
+        return
+
+    def no_decode(*args, **kwargs):
+        raise AssertionError("a frame was decoded")
+    monkeypatch.setattr(native, "jpeg_decode_bgr_batch", no_decode)
     with pytest.raises(ValueError, match="1 components.*num_of_chs=3"):
-        tvideo.welford_algorithm(path, decoder="native")
-    if native.mjpeg_available():
-        picked = jvideo._resolve_decoder("turbo", [path], H, W)
-        try:
-            jvideo.welford_algorithm(path, decoder="turbo")
-            outcome = "ran"
-        except ValueError as exc:
-            outcome = f"raised mid-run: {exc}"
-        print(f"JAX package on a grayscale MJPG: decoder {picked!r}, "
-              f"{outcome}")
-        assert "JAX package" in capsys.readouterr().out
+        tvideo.welford_algorithm(path, decoder=decoder)
+    with pytest.raises(ValueError, match="grayscale"):
+        tvideo.welford_algorithm(path, decoder=decoder,
+                                 config=tvideo.CameraConfig(num_of_chs=1))
 
 
 def _mjpg_scene(directory, seed, n_frames=6):
