@@ -289,7 +289,8 @@ def cmd_doctor(args) -> int:
 
     Probes the pieces whose availability and speed decide every pipeline:
     torch and CUDA, the device (name and power limit), TF32, the native
-    host library, MJPEG decoder and TIFF codec, host parallelism, the pinned
+    host library, MJPEG decoder (and rawvideo reader) and TIFF codec, host
+    parallelism, the pinned
     host-to-device rate, a warm dispatch round trip, and (with --video)
     the decode rate of the port's readers.
     """
@@ -349,10 +350,12 @@ def cmd_doctor(args) -> int:
               "; TIFFs cannot be read or written")
     print("native MJPEG decoder: " + (
         "built; modes " + ", ".join(native.JPEG_MODES) + " (an MJPG AVI "
-        "takes 'ffmpeg', cv2's bytes, unless CL_DECODER names another)"
+        "takes 'ffmpeg', cv2's bytes, unless CL_DECODER names another); "
+        "rawvideo layouts " + ", ".join(native.RAW_LAYOUTS) + " (the "
+        "uncompressed AVIs, cv2's bytes)"
         if native.mjpeg_available() else
-        f"unavailable ({native.build_error('_mjpeg')}); MJPG AVIs cannot be "
-        "read"))
+        f"unavailable ({native.build_error('_mjpeg')}); MJPG and "
+        "uncompressed AVIs other than RGBA cannot be read"))
     if dev.type == "cuda":
         # one-time costs are paid before each timed window: the point is
         # the steady rate

@@ -12,7 +12,16 @@ default returns float arrays.
 
 Decoders.  The machine with the card has no OpenCV and no libjpeg, so the
 port reads the AVI containers it knows itself (``utils/avi.py``): a
-lossless ``RGBA`` AVI with NumPy (``"raw"``), an MJPG AVI with the port's
+lossless ``RGBA`` AVI with NumPy (``"raw"``); the uncompressed layouts
+FFmpeg's rawvideo decoder reads (BI_RGB at 8 bits with its palette, 16,
+24 and 32 bits, either row order; ``Y800``/``GREY``/``Y8``; ``I420``/
+``IYUV``/``YV12``; ``NV12``; ``YUY2``/``UYVY``) with the port's own reader
+(``"rawvideo"``, ``native.raw_decode_bgr_batch`` in ``native/jpeg.cpp``),
+which gives cv2's bytes for each (the YUV layouts through swscale's
+limited-range BT.601 conversion), while 1/2/4-bit BI_RGB, BI_BITFIELDS,
+palette changes and chunks longer than the frame (other than its padded
+size) raise before any decode, and a chunk shorter than the frame ends
+the video, as cv2's read loop ends there; an MJPG AVI with the port's
 own JPEG decoder (``native/jpeg.cpp``) in one of three modes.  ``"ffmpeg"``,
 the default, gives the bytes ``cv2.VideoCapture`` gives (FFmpeg's MJPEG
 decoder and swscale), which is what the JAX package decodes at its default
@@ -75,9 +84,10 @@ def _cv2(why: str):
     except ImportError as exc:
         raise ValueError(
             f"{why} needs cv2, which is not installed; without it the port "
-            "reads RGBA AVIs (decoder 'native', NumPy) and MJPG AVIs "
-            "('native' / 'ffmpeg' / 'turbo' / 'turbo_fast', its own JPEG "
-            "decoder)"
+            "reads RGBA AVIs (decoder 'native', NumPy), uncompressed AVIs "
+            "(BI_RGB 8/16/24/32-bit, Y800, I420, YV12, NV12, YUY2, UYVY: "
+            "'native', its own reader) and MJPG AVIs ('native' / 'ffmpeg' / "
+            "'turbo' / 'turbo_fast', its own JPEG decoder)"
         ) from exc
     return cv2
 
@@ -163,16 +173,40 @@ def _return_host_buffers(key, buffers) -> None:
     _HOST_BUFFERS.give_back(key, buffers)
 
 
-def _frame_fillers(path: Path, decoder: str
+def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
                    ) -> Iterator[Callable[[np.ndarray], int]]:
     """Callables that decode the next frames of ``path`` into the (k, H, W,
     C) uint8 array they are given and return how many they decoded (0:
-    the stream ended).  The MJPEG decoder takes up to k frames a call, on
-    all cores; the raw reader (which reads each frame when the iterator
-    advances) and cv2 take one."""
+    the stream ended).  The MJPEG decoder takes up to k frames a call, and
+    the rawvideo reader up to ``batch_size``, on all cores; the raw RGBA
+    reader (which reads each frame when the iterator advances) and cv2
+    take one."""
     if decoder == "raw":
         for frame in avi.raw_frames(path):
             yield lambda dst, frame=frame: np.copyto(dst[0], frame) or 1
+    elif decoder == "rawvideo":
+        info = avi.probe_avi(path)
+        # every chunk of a call is read into a buffer of its own
+        chunks = avi.raw_chunks(path, info, ring=batch_size)
+        done = 0      # frames decoded so far
+
+        def fill_raw(dst: np.ndarray) -> int:
+            nonlocal done
+            payloads = list(itertools.islice(chunks, min(len(dst),
+                                                         batch_size)))
+            if not payloads:
+                return 0
+            try:
+                native.raw_decode_bgr_batch(
+                    payloads, dst[:len(payloads)], info.layout,
+                    bottom_up=info.raw.bottom_up, palette=info.raw.palette,
+                    first_frame=done)
+            except ValueError as exc:
+                raise ValueError(f"{path}: {exc}") from exc
+            done += len(payloads)
+            return len(payloads)
+        while True:
+            yield fill_raw
     elif decoder in native.JPEG_MODES:
         chunks = avi.mjpg_chunks(path)
         if decoder == "ffmpeg":  # FFmpeg's AVI reader drops empty chunks
@@ -247,7 +281,7 @@ def _frame_batches_into(file_paths: List[Path], batch_size: int,
     for file_path, decoder in zip(file_paths, decoders):
         t0 = perf_counter()
         count = 0
-        for fill in _frame_fillers(file_path, decoder):
+        for fill in _frame_fillers(file_path, decoder, batch_size):
             got = fill(buf[filled:])
             if not got:
                 break
@@ -276,9 +310,17 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
     expected geometry and channel count before any decode.  An MJPG
     decodes to three channels in the ``"ffmpeg"`` mode whatever its
     component count (cv2 gives BGR for grayscale too), to its component
-    count in the ``"turbo"`` modes."""
-    if info is not None and info.codec in ("RGBA", "MJPG"):
-        comps = 3 if info.codec == "RGBA" or mode == "ffmpeg" else \
+    count in the ``"turbo"`` modes; RGBA and the rawvideo layouts to
+    three.  An uncompressed AVI the rawvideo reader does not read raises
+    here, naming what (``avi.raw_unsupported``)."""
+    if info is not None and info.codec not in ("RGBA", "MJPG"):
+        unsupported = avi.raw_unsupported(path, info)
+        if unsupported:
+            raise ValueError(f"{path} is an uncompressed AVI ({info.codec}) "
+                             "whose frames the port's rawvideo reader does "
+                             f"not read: {unsupported}")
+    if info is not None and (info.codec in ("RGBA", "MJPG") or info.layout):
+        comps = 3 if info.codec != "MJPG" or mode == "ffmpeg" else \
             info.components
         geometry = (info.height, info.width)
         if geometry != (height, width):
@@ -291,6 +333,13 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
                 f"has num_of_chs={chs}")
         if info.codec == "RGBA":
             return "raw"
+        if info.layout:
+            if not native.mjpeg_available():
+                raise RuntimeError(
+                    f"{path} is an uncompressed {info.layout} AVI but the "
+                    "port's reader (native/jpeg.cpp) did not build: "
+                    f"{native.build_error('_mjpeg')}")
+            return "rawvideo"
         unsupported = avi.jpeg_unsupported(info.jpeg, mode=mode)
         if unsupported:
             raise ValueError(f"{path} is an MJPG AVI whose frames the port's "
@@ -308,18 +357,23 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
 
 def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
                      width: int, chs: int) -> List[str]:
-    """Each file's decoder: ``"raw"``, ``"ffmpeg"``, ``"turbo"``,
-    ``"turbo_fast"`` or ``"cv2"``.
+    """Each file's decoder: ``"raw"``, ``"rawvideo"``, ``"ffmpeg"``,
+    ``"turbo"``, ``"turbo_fast"`` or ``"cv2"``.
 
     ``"auto"`` reads env ``CL_DECODER`` (default ``"native"``).
-    ``"native"``: the container decides — an RGBA AVI reads raw, an MJPG
-    AVI through the port's JPEG decoder in its ``"ffmpeg"`` mode (cv2's
-    bytes, as the JAX package's default gives them), anything else through
-    cv2 when it imports (else a ValueError naming the codec).
+    ``"native"``: the container decides — an RGBA AVI reads raw, the other
+    uncompressed layouts through the port's rawvideo reader (cv2's bytes:
+    BI_RGB 8/16/24/32-bit, Y800/GREY/Y8, I420/IYUV/YV12, NV12, YUY2/UYVY),
+    an MJPG AVI through the port's JPEG decoder in its ``"ffmpeg"`` mode
+    (cv2's bytes, as the JAX package's default gives them), anything else
+    through cv2 when it imports (else a ValueError naming the codec).
     ``"ffmpeg"``/``"turbo"``/``"turbo_fast"``: that decoder's modes on MJPG
     files; another container logs a warning and takes its own decoder.
-    ``"cv2"``: cv2 for every file.  RGBA and MJPG files are checked against
-    the expected geometry and ``chs`` before any decode, and an MJPG's
+    ``"cv2"``: cv2 for every file.  RGBA, rawvideo and MJPG files are
+    checked against the expected geometry and ``chs`` before any decode;
+    1/2/4-bit BI_RGB, BI_BITFIELDS, palette-change chunks and a frame
+    chunk longer than the frame (not its padded size) raise then, naming
+    what; and an MJPG's
     first frame for a JPEG mode the decoder does not read (it names it):
     in the ``"turbo"`` modes a grayscale, progressive or 4:1:1 MJPG raises
     here, not mid-run, and in every mode a lossless, arithmetic-coded or

@@ -6,7 +6,8 @@ would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
 and their fused finalize, u8 -> f32 normalization, a running Welford
 update from uint8 frames),
 ``jpeg.cpp`` (JPEG into BGR, the port's own, giving libjpeg-turbo's or
-cv2's bytes) and ``tiff.cpp`` (TIFF LZW and predictors, the port's own) build
+cv2's bytes, and the frames of uncompressed AVIs as cv2 gives them) and
+``tiff.cpp`` (TIFF LZW and predictors, the port's own) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -30,6 +31,8 @@ import numpy as np
 # the MJPEG decoder's modes, by their number in jpeg.cpp, and the code of
 # a frame that ends before its first scan ("ffmpeg" mode: cv2 gives none)
 from .jpeg_plain import MODES as JPEG_MODES, NO_FRAME as JPEG_NO_FRAME
+# the uncompressed video layouts, by their number in jpeg.cpp
+from .rawvideo_plain import LAYOUTS as RAW_LAYOUTS, frame_bytes
 
 __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
@@ -37,6 +40,7 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "mmap_buffer", "WIRE_U16F16",
            "wire_quantize_u16f16", "narrow_f16", "mjpeg_available",
            "jpeg_decode_bgr", "jpeg_decode_bgr_batch", "JPEG_MODES",
+           "raw_decode_bgr_batch", "RAW_LAYOUTS",
            "tiff_available",
            "lzw_decode_chunks", "lzw_encode_chunks", "predictor_undo",
            "predictor_apply", "build_error"]
@@ -292,6 +296,10 @@ def _load_mjpeg() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i,
             i, i, i, ctypes.POINTER(i)]
         lib.clt_jpeg_decode_bgr_batch.restype = None
+        lib.clt_raw_decode_bgr_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i,
+            i, i, i, u8p, i, ctypes.POINTER(i)]
+        lib.clt_raw_decode_bgr_batch.restype = None
         lib.clt_jpeg_version.restype = i
     except (OSError, AttributeError) as exc:
         _build_errors["_mjpeg"] = f"load failed: {exc}"
@@ -415,6 +423,54 @@ def jpeg_decode_bgr_batch(payloads, dst: np.ndarray, fast: bool = False,
         if rc != 0:
             raise _jpeg_error(rc, flats[i], dst.shape[1:3], m,
                               first_frame + i)
+    return k
+
+
+def raw_decode_bgr_batch(payloads, dst: np.ndarray, layout: str,
+                         bottom_up: bool = False,
+                         palette: Optional[np.ndarray] = None,
+                         threads: Optional[int] = None,
+                         first_frame: int = 0) -> int:
+    """Decode uncompressed frame chunk i of ``layout`` (one of
+    ``RAW_LAYOUTS``) into ``dst[i]`` ((k, H, W, 3) BGR uint8, k =
+    ``len(payloads)``) on up to ``threads`` threads (default: every CPU),
+    giving the frame ``cv2.VideoCapture`` gives for it
+    (``native/rawvideo_plain.py`` has each layout's rule).  ``bottom_up``:
+    the rows of a single-plane layout are stored last first (BI_RGB of
+    positive height); ``palette``: pal8's (256, 4) B, G, R, X entries.
+    Returns k; a chunk shorter than its frame raises ValueError naming
+    it (from ``first_frame``), after every frame was tried.  Built with
+    the MJPEG decoder, in ``jpeg.cpp``; raises RuntimeError where it did
+    not build."""
+    lib = _mjpeg()
+    if layout not in RAW_LAYOUTS:
+        raise ValueError(f"unknown raw video layout {layout!r}; expected one "
+                         f"of {RAW_LAYOUTS}")
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    k = len(payloads)
+    if dst.shape[0] != k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, payloads {k}")
+    if layout == "pal8":
+        if palette is None or palette.shape != (256, 4):
+            raise ValueError("a pal8 frame needs a (256, 4) palette")
+        palette = np.ascontiguousarray(palette, np.uint8)
+    flats = [np.frombuffer(p, np.uint8) for p in payloads]
+    ptrs = (ctypes.c_void_p * k)(*[f.ctypes.data for f in flats])
+    sizes = (ctypes.c_size_t * k)(*[f.size for f in flats])
+    rcs = (ctypes.c_int * k)()
+    lib.clt_raw_decode_bgr_batch(
+        ptrs, sizes, k, _as_u8_ptr(dst), dst.shape[1], dst.shape[2],
+        RAW_LAYOUTS.index(layout), int(bottom_up),
+        None if palette is None else _as_u8_ptr(palette),
+        threads or os.cpu_count() or 1, rcs)
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            need = frame_bytes(layout, *dst.shape[1:3])
+            raise ValueError(
+                f"raw_decode_bgr_batch: frame {first_frame + i}: "
+                + (f"{layout} chunk of {flats[i].size} bytes, shorter than "
+                   f"the {dst.shape[1]} x {dst.shape[2]} frame's {need}"
+                   if rc == -7 else f"return code {rc}"))
     return k
 
 

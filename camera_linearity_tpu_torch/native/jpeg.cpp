@@ -749,13 +749,33 @@ void idct_simple(const std::int16_t* in, const std::int16_t* q,
     }
 }
 
-// swscale's full-range BT.601 coefficients (13 fractional bits): u -> b,
-// u -> g, v -> g, v -> r
-constexpr std::int32_t kUb = 14516, kUg = -2819, kVg = -5850, kVr = 11485;
+// swscale's BT.601 tables for one input range, as ff_yuv2rgb_c_init_tables
+// makes them from the inverse coefficients 104597, 132201, 25675, 53279
+// (jpeg_plain._sws_range computes them): the SIMD outputs' pmulhw luma
+// coefficient and offset, ((y << 3) - yo) * yc >> 16; the chroma
+// coefficients with 13 fractional bits (u -> b, u -> g, v -> g, v -> r);
+// the C output's with 16 (v -> r, u -> b, u -> g, v -> g), divided by the
+// luma scale its lookup table applies; that scale and its offset cy, oy
+// (16 fractional bits), which the full-chroma output takes too.
+struct SwsRange {
+    std::int32_t yc, yo, ub, ug, vg, vr, crv, cbu, cgu, cgv, cy, oy;
+};
+// full range (yuvj and gray: what FFmpeg's MJPEG decoder gives): the
+// chroma scaled by 224/255
+constexpr SwsRange kSwsFull = {8192, 0, 14516, -2819, -5850, 11485,
+                               91881, 116129, -22552, -46800, 65536, 0};
+// limited range (yuv420p, nv12, yuyv422: raw video): the luma scaled by
+// 255/219 from 16
+constexpr SwsRange kSwsLimited = {9539, 128, 16525, -3209, -6660, 13075,
+                                  89830, 113537, -22049, -45756, 76309, 16 << 16};
 
-// swscale's lookup tables of its C output (ff_yuv2rgb_c_init_tables):
-// the same coefficients with 16 fractional bits, g's rounded toward zero
-constexpr std::int32_t kCrv = 91881, kCbu = 116129, kCgu = -22552, kCgv = -46801;
+// The C output's luma table (y_table from yoffs: 384 entries in at full
+// range, 326 at limited range) at index t, clipped.
+inline std::int32_t sws_table(const SwsRange& r, std::int32_t t) {
+    const std::int64_t at = r.oy ? 326 : 384;
+    const std::int64_t v = ((at + t) * r.cy - (std::int64_t{384} << 16) - r.oy + 0x8000) >> 16;
+    return static_cast<std::int32_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+}
 
 // swscale's initFilter for SWS_BICUBIC (B = 0, C = 0.6) with the default
 // chroma position (every sample at its centre, 128/256 of its pixel, in
@@ -1162,6 +1182,11 @@ struct Decoder {
             c.plane = p;
             p += c.stride * c.rows;
         }
+        alloc_rows();
+    }
+
+    // The row buffers of a frame hd.width wide.
+    void alloc_rows() {
         const std::size_t w = static_cast<std::size_t>(hd.width) + 16;
         if (s->colsum.size() < w) s->colsum.resize(w);
         if (s->packed.size() < w) s->packed.resize(w);
@@ -1278,6 +1303,7 @@ struct Decoder {
     // ---- mode 2 (ffmpeg) ----
     int hs = 0, vs = 0;          // the yuvj format's chroma shifts
     bool gray = false;           // one component: FFmpeg's gray8
+    const SwsRange* range = &kSwsFull;  // the input's range, swscale's tables
     bool scaled = false;         // swscale's scaled path converts the frame
     std::size_t cofs[3] = {0, 0, 0};  // each component's first block in s->coef
 
@@ -1699,6 +1725,7 @@ struct Decoder {
     void convert_rows(std::uint8_t* dst, int y0, int y1) {
         const int W = hd.width;
         const Component &c0 = hd.comp[0], &c1 = hd.comp[1], &c2 = hd.comp[2];
+        const SwsRange r = *range;
         std::uint32_t* __restrict px = s->packed.data();
         auto clip = [](std::int32_t v) {
             return static_cast<std::uint32_t>(std::min(std::max(v, 0), 255));
@@ -1727,18 +1754,19 @@ struct Decoder {
                 const std::uint8_t* __restrict uu = reinterpret_cast<const std::uint8_t*>(u2);
                 const std::uint8_t* __restrict vv = reinterpret_cast<const std::uint8_t*>(v2);
                 for (int x = 0; x < W; ++x) {
-                    const std::int32_t yy = py[x], u = uu[x] * 8 - 1024, v = vv[x] * 8 - 1024;
-                    px[x] = clip(yy + ((u * kUb) >> 16)) |
-                            clip(yy + ((u * kUg) >> 16) + ((v * kVg) >> 16)) << 8 |
-                            clip(yy + ((v * kVr) >> 16)) << 16;
+                    const std::int32_t yy = ((py[x] * 8 - r.yo) * r.yc) >> 16,
+                                       u = uu[x] * 8 - 1024, v = vv[x] * 8 - 1024;
+                    px[x] = clip(yy + ((u * r.ub) >> 16)) |
+                            clip(yy + ((u * r.ug) >> 16) + ((v * r.vg) >> 16)) << 8 |
+                            clip(yy + ((v * r.vr) >> 16)) << 16;
                 }
             } else {  // the full-chroma scaler output: rounds
                 for (int x = 0; x < W; ++x) {
-                    const std::int32_t yy = (py[x] << 22) + (1 << 21),
+                    const std::int32_t yy = ((py[x] << 9) - (r.oy >> 7)) * r.yc + (1 << 21),
                                        u = (pu[x] - 128) * 512, v = (pv[x] - 128) * 512;
-                    px[x] = clip((yy + u * kUb) >> 22) |
-                            clip((yy + u * kUg + v * kVg) >> 22) << 8 |
-                            clip((yy + v * kVr) >> 22) << 16;
+                    px[x] = clip((yy + u * r.ub) >> 22) |
+                            clip((yy + u * r.ug + v * r.vg) >> 22) << 8 |
+                            clip((yy + v * r.vr) >> 22) << 16;
                 }
             }
             store_row(dst, y, px);
@@ -1840,17 +1868,19 @@ struct Decoder {
                 vv[x] >>= 10;
             }
         }
+        const SwsRange r = *range;
         auto clip30 = [](std::uint32_t t) {
             const std::int32_t v = static_cast<std::int32_t>(t);
             return static_cast<std::uint32_t>(v < 0 ? 0 : v > (1 << 30) - 1 ? (1 << 30) - 1 : v) >> 22;
         };
         for (int x = 0; x < W; ++x) {
-            const std::uint32_t yy = (static_cast<std::uint32_t>(py[x]) << 22) + (1u << 21);
+            const std::uint32_t yy =
+                static_cast<std::uint32_t>(((py[x] << 9) - (r.oy >> 7)) * r.yc) + (1u << 21);
             const std::uint32_t U = static_cast<std::uint32_t>(uu[x]), V = static_cast<std::uint32_t>(vv[x]);
-            const std::uint32_t r = yy + V * static_cast<std::uint32_t>(kVr);
-            const std::uint32_t g = yy + V * static_cast<std::uint32_t>(kVg) + U * static_cast<std::uint32_t>(kUg);
-            const std::uint32_t b = yy + U * static_cast<std::uint32_t>(kUb);
-            px[x] = clip30(b) | clip30(g) << 8 | clip30(r) << 16;
+            const std::uint32_t red = yy + V * static_cast<std::uint32_t>(r.vr);
+            const std::uint32_t g = yy + V * static_cast<std::uint32_t>(r.vg) + U * static_cast<std::uint32_t>(r.ug);
+            const std::uint32_t b = yy + U * static_cast<std::uint32_t>(r.ub);
+            px[x] = clip30(b) | clip30(g) << 8 | clip30(red) << 16;
         }
     }
 
@@ -1890,25 +1920,29 @@ struct Decoder {
         std::uint32_t* __restrict b2 = s->pairs[0].data();
         std::uint32_t* __restrict g2 = s->pairs[1].data();
         std::uint32_t* __restrict r2 = s->pairs[2].data();
+        const SwsRange r = *range;
         auto twice = [](std::int32_t t) {
             return static_cast<std::uint32_t>(static_cast<std::uint16_t>(t)) * 0x10001u;
         };
         for (int i = 0; i < dw; ++i) {
             const std::int32_t uu = static_cast<std::int16_t>(cu[i] - 1024);
             const std::int32_t vv = static_cast<std::int16_t>(cv[i] - 1024);
-            b2[i] = twice((uu * kUb) >> 16);
-            g2[i] = twice(((uu * kUg) >> 16) + ((vv * kVg) >> 16));
-            r2[i] = twice((vv * kVr) >> 16);
+            b2[i] = twice((uu * r.ub) >> 16);
+            g2[i] = twice(((uu * r.ug) >> 16) + ((vv * r.vg) >> 16));
+            r2[i] = twice((vv * r.vr) >> 16);
         }
         const I16Alias* __restrict b = reinterpret_cast<const I16Alias*>(b2);
         const I16Alias* __restrict g = reinterpret_cast<const I16Alias*>(g2);
-        const I16Alias* __restrict r = reinterpret_cast<const I16Alias*>(r2);
+        const I16Alias* __restrict rr = reinterpret_cast<const I16Alias*>(r2);
         auto sat = [](std::int32_t t) {
             return static_cast<std::uint32_t>(t < 0 ? 0 : t > 255 ? 255 : t);
         };
+        // the luma as 8x its value, from the rounder 4 in the general sum,
+        // less the offset (16 bits), times its coefficient
+        const std::int32_t ybias = (one ? 0 : 4) - r.yo;
         for (int x = 0; x < W; ++x) {
-            const std::int32_t yy = py[x];
-            px[x] = sat(yy + b[x]) | sat(yy + g[x]) << 8 | sat(yy + r[x]) << 16;
+            const std::int32_t yy = (static_cast<std::int16_t>(py[x] * 8 + ybias) * r.yc) >> 16;
+            px[x] = sat(yy + b[x]) | sat(yy + g[x]) << 8 | sat(yy + rr[x]) << 16;
         }
     }
 
@@ -1918,6 +1952,7 @@ struct Decoder {
                const std::int16_t* const* v, const std::int16_t* c, int n, bool one,
                int alpha, int dw, std::uint32_t* __restrict px) {
         auto clip = [](std::int32_t t) { return t < 0 ? 0 : t > 255 ? 255 : t; };
+        const SwsRange& r = *range;
         for (int i = 0; i < dw; ++i) {
             std::int32_t U, V;
             if (one && alpha < 2048) {
@@ -1942,14 +1977,14 @@ struct Decoder {
                 U = clip(U);
                 V = clip(V);
             }
-            const std::int32_t b = ((U * kCbu) >> 16) - (kCbu >> 9);
-            const std::int32_t g = ((U * kCgu) >> 16) - (kCgu >> 9) + ((V * kCgv) >> 16) - (kCgv >> 9);
-            const std::int32_t r = ((V * kCrv) >> 16) - (kCrv >> 9);
+            const std::int32_t b = ((U * r.cbu) >> 16) - (r.cbu >> 9);
+            const std::int32_t g = ((U * r.cgu) >> 16) - (r.cgu >> 9) + ((V * r.cgv) >> 16) - (r.cgv >> 9);
+            const std::int32_t red = ((V * r.crv) >> 16) - (r.crv >> 9);
             for (int k = 0; k < 2; ++k) {
                 const std::int32_t yy = k ? y2 : y1;
-                px[2 * i + k] = static_cast<std::uint32_t>(clip(yy + b)) |
-                                static_cast<std::uint32_t>(clip(yy + g)) << 8 |
-                                static_cast<std::uint32_t>(clip(yy + r)) << 16;
+                px[2 * i + k] = static_cast<std::uint32_t>(sws_table(r, yy + b)) |
+                                static_cast<std::uint32_t>(sws_table(r, yy + g)) << 8 |
+                                static_cast<std::uint32_t>(sws_table(r, yy + red)) << 16;
             }
         }
     }
@@ -1994,6 +2029,118 @@ int decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst,
     return dec.run(data, n, src.pos, dst);
 }
 
+// ---- rawvideo: the frames of an uncompressed AVI ----
+//
+// What cv2.VideoCapture gives for a frame chunk (FFmpeg's rawdec.c, then
+// swscale to BGR24; native/rawvideo_plain.py has each rule): pal8 looked
+// up in its palette, RGB555 with each field's bits repeated, BGR24 as it
+// is, BGR0 its first three bytes, gray8 in three channels; their rows
+// bottom-up where the caller says so (BI_RGB of positive height), and
+// padded to 4 bytes where the chunk holds the padded frame.  The YUV
+// layouts go through the MJPEG decoder's converter with the limited-range
+// tables: yuv420p (I420, and YV12 with its planes swapped) by the unscaled
+// SSSE3 path at an even height, every other case by the scaled path.
+enum RawLayout { kPal8, kRgb555, kBgr24, kBgr0, kGray8, kI420, kYv12, kNv12, kYuyv, kUyvy };
+
+constexpr int kShortChunk = -7;   // rawvideo: a chunk shorter than the frame
+
+int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int height,
+               int width, int layout, bool bottom_up, const std::uint8_t* palette) {
+    if (height < 1 || width < 1 || layout < kPal8 || layout > kUyvy) return kUnsupported;
+    const std::size_t H = height, W = width, h2 = (H + 1) / 2, w2 = (W + 1) / 2;
+    static const int kPixelBytes[5] = {1, 2, 3, 4, 1};
+    if (layout <= kGray8) {
+        const std::size_t row = W * kPixelBytes[layout], padded = (row + 3) & ~std::size_t{3};
+        if (n < row * H) return kShortChunk;
+        const std::size_t stride = layout != kBgr0 && padded * H <= n ? padded : row;
+        for (std::size_t y = 0; y < H; ++y) {
+            const std::uint8_t* __restrict in = data + (bottom_up ? H - 1 - y : y) * stride;
+            std::uint8_t* __restrict out = dst + y * W * 3;
+            switch (layout) {
+            case kPal8:
+                for (std::size_t x = 0; x < W; ++x) std::memcpy(out + 3 * x, palette + 4 * in[x], 3);
+                break;
+            case kGray8:
+                for (std::size_t x = 0; x < W; ++x) out[3 * x] = out[3 * x + 1] = out[3 * x + 2] = in[x];
+                break;
+            case kRgb555:
+                for (std::size_t x = 0; x < W; ++x) {
+                    const int v = in[2 * x] | in[2 * x + 1] << 8;
+                    for (int k = 0; k < 3; ++k) {
+                        const int f = (v >> (5 * k)) & 31;
+                        out[3 * x + k] = static_cast<std::uint8_t>(f << 3 | f >> 2);
+                    }
+                }
+                break;
+            case kBgr24:
+                std::memcpy(out, in, W * 3);
+                break;
+            default:  // kBgr0
+                for (std::size_t x = 0; x < W; ++x)
+                    for (int k = 0; k < 3; ++k) out[3 * x + k] = in[4 * x + k];
+            }
+        }
+        return kOk;
+    }
+    const bool packed = layout == kYuyv || layout == kUyvy;
+    if (n < (packed ? H * w2 * 4 : H * W + 2 * h2 * w2)) return kShortChunk;
+    Decoder dec;
+    dec.mode = kFfmpeg;
+    dec.s = &tls_scratch;
+    dec.hd.width = width;
+    dec.hd.height = height;
+    dec.hd.ncomp = 3;
+    dec.hs = 1;
+    dec.vs = packed ? 0 : 1;
+    dec.range = &kSwsLimited;
+    dec.alloc_rows();
+    Component *c = dec.hd.comp;
+    const std::size_t ch = packed ? H : h2;
+    c[0].stride = W;
+    c[1].stride = c[2].stride = w2;
+    if (layout == kI420 || layout == kYv12) {
+        std::uint8_t* planes = const_cast<std::uint8_t*>(data);
+        c[0].plane = planes;
+        c[layout == kI420 ? 1 : 2].plane = planes + H * W;
+        c[layout == kI420 ? 2 : 1].plane = planes + H * W + h2 * w2;
+    } else {  // split into planes of the scratch buffer
+        Scratch& sc = *dec.s;
+        const std::size_t need = (packed ? H * W : 0) + 2 * ch * w2;
+        if (sc.cap < need) {
+            sc.planes.reset(new std::uint8_t[need]);
+            sc.cap = need;
+        }
+        std::uint8_t* __restrict u = sc.planes.get();
+        std::uint8_t* __restrict v = u + ch * w2;
+        if (layout == kNv12) {
+            c[0].plane = const_cast<std::uint8_t*>(data);
+            const std::uint8_t* __restrict uv = data + H * W;
+            for (std::size_t i = 0; i < h2 * w2; ++i) {
+                u[i] = uv[2 * i];
+                v[i] = uv[2 * i + 1];
+            }
+        } else {
+            std::uint8_t* __restrict y = v + ch * w2;
+            const int ly = layout == kYuyv ? 0 : 1, lu = 1 - ly;
+            for (std::size_t r = 0; r < H; ++r) {
+                const std::uint8_t* __restrict in = data + r * w2 * 4;
+                for (std::size_t i = 0; i < w2; ++i) {
+                    y[r * W + 2 * i] = in[4 * i + ly];
+                    if (2 * i + 1 < W) y[r * W + 2 * i + 1] = in[4 * i + 2 + ly];
+                    u[r * w2 + i] = in[4 * i + lu];
+                    v[r * w2 + i] = in[4 * i + 2 + lu];
+                }
+            }
+            c[0].plane = y;
+        }
+        c[1].plane = u;
+        c[2].plane = v;
+    }
+    if ((layout == kI420 || layout == kYv12) && !(height & 1)) dec.convert_rows(dst, 0, height);
+    else dec.scale_frame(dst);
+    return kOk;
+}
+
 }  // namespace
 
 extern "C" {
@@ -2029,6 +2176,26 @@ void clt_jpeg_decode_bgr_batch(const unsigned char* const* srcs,
     });
 }
 
-int clt_jpeg_version() { return 3; }
+// Decode k uncompressed frames (srcs[i], sizes[i] bytes) of one layout
+// (RawLayout: 0 pal8, 1 rgb555, 2 bgr24, 3 bgr0, 4 gray8, 5 i420, 6 yv12,
+// 7 nv12, 8 yuyv422, 9 uyvy422) into dst, frame i at i*height*width*3 as
+// BGR, on up to nthreads threads.  bottom_up: the single-plane layouts'
+// rows are stored last first; palette: pal8's 256 B, G, R, X entries.
+// rcs[i] gets 0, -7 for a chunk shorter than the frame, or -4 for an
+// unknown layout or an empty frame.
+void clt_raw_decode_bgr_batch(const unsigned char* const* srcs,
+                              const std::size_t* sizes, std::size_t k,
+                              unsigned char* dst, int height, int width,
+                              int layout, int bottom_up,
+                              const unsigned char* palette, int nthreads,
+                              int* rcs) {
+    const std::size_t frame = static_cast<std::size_t>(height) * width * 3;
+    parallel_items(k, nthreads, [&](std::size_t i) {
+        rcs[i] = raw_decode(srcs[i], sizes[i], dst + i * frame, height, width,
+                            layout, bottom_up != 0, palette);
+    });
+}
+
+int clt_jpeg_version() { return 4; }
 
 }  // extern "C"

@@ -54,7 +54,7 @@ libswscale 9) runs on x86-64:
 from __future__ import annotations
 
 import re
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -867,39 +867,91 @@ def _idct_simple(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
     return np.clip(np.swapaxes(out, 1, 2), 0, 255).astype(np.uint8)
 
 
-# swscale's full-range BT.601 coefficients (ff_yuv2rgb_c_init_tables, 13
-# fractional bits): u -> b, u -> g, v -> g, v -> r
-_UB, _UG, _VG, _VR = 14516, -2819, -5850, 11485
-
-
-def _ffmpeg_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
-                subsampled: bool) -> np.ndarray:
-    """BGR24 from full-size planes as swscale converts them: the unscaled
-    SSSE3 path (pmulhw, truncating) for subsampled chroma, the full-chroma
-    scaler (rounding) for 4:4:4."""
-    y, cb, cr = (a.astype(np.int64) for a in (y, cb, cr))
-    if subsampled:
-        u, v = cb * 8 - 1024, cr * 8 - 1024
-        bgr = (y + ((u * _UB) >> 16),
-               y + ((u * _UG) >> 16) + ((v * _VG) >> 16),
-               y + ((v * _VR) >> 16))
-    else:
-        yy = (y << 22) + (1 << 21)
-        u, v = (cb - 128) << 9, (cr - 128) << 9
-        bgr = ((yy + u * _UB) >> 22, (yy + u * _UG + v * _VG) >> 22,
-               (yy + v * _VR) >> 22)
-    return np.stack(bgr, -1).clip(0, 255).astype(np.uint8)
-
-
-# swscale's lookup tables of its C output (ff_yuv2rgb_c_init_tables): the
-# same coefficients, 16 fractional bits, g's rounded toward zero
-_CRV, _CBU, _CGU, _CGV = 91881, 116129, -22552, -46801
-
-
 def _cdiv(a: int, b: int) -> int:
     """C's integer division (toward zero)."""
     q = abs(a) // abs(b)
     return q if (a >= 0) == (b > 0) else -q
+
+
+class SwsRange(NamedTuple):
+    """swscale's BT.601 tables for one input range, as
+    ff_yuv2rgb_c_init_tables makes them: the pmulhw luma coefficient and
+    offset of its SIMD outputs (``((y << 3) - yo) * yc >> 16``); the
+    chroma coefficients with 13 fractional bits (u -> b, u -> g, v -> g,
+    v -> r); the C output's with 16 (v -> r, u -> b, u -> g, v -> g); and
+    the luma scale ``cy`` and offset ``oy`` (16 fractional bits) of the
+    full-chroma output and of the C output's lookup table."""
+    yc: int
+    yo: int
+    ub: int
+    ug: int
+    vg: int
+    vr: int
+    crv: int
+    cbu: int
+    cgu: int
+    cgv: int
+    cy: int
+    oy: int
+
+
+def _round16(x: int) -> int:
+    """swscale's roundToInt16: (x + 2^15) >> 16, clipped to int16."""
+    return max(min((x + (1 << 15)) >> 16, 32767), -32768)
+
+
+def _sws_range(limited: bool) -> SwsRange:
+    """The tables of ff_yuv2rgb_c_init_tables for the default BT.601
+    matrix (inverse coefficients 104597, 132201, 25675, 53279): full
+    range scales the chroma by 224/255, limited range the luma by 255/219
+    from an offset of 16 (C divisions, toward zero); the C output's
+    coefficients are then divided by the luma scale, as its lookup table
+    applies that."""
+    crv, cbu, cgu, cgv = 104597, 132201, -25675, -53279
+    cy, oy = 1 << 16, 0
+    if limited:
+        cy, oy = cy * 255 // 219, 16 << 16
+    else:
+        crv, cbu, cgu, cgv = (_cdiv(k * 224, 255) for k in (crv, cbu, cgu,
+                                                             cgv))
+    return SwsRange(_round16(cy << 13), _round16(oy << 3),
+                    *(_round16(k << 13) for k in (cbu, cgu, cgv, crv)),
+                    *(_cdiv((k << 16) + 0x8000, cy)
+                      for k in (crv, cbu, cgu, cgv)), cy, oy)
+
+
+# full range (yuvj, what FFmpeg's MJPEG decoder gives) and limited range
+# (yuv420p, what a raw I420/YV12 frame is)
+SWS_FULL, SWS_LIMITED = _sws_range(False), _sws_range(True)
+
+
+def _sws_table(t: np.ndarray, rng: SwsRange) -> np.ndarray:
+    """The C output's luma lookup table at index ``t`` (its y_table from
+    ``yoffs``: 384 entries in at full range, 326 at limited range)."""
+    at = 326 if rng.oy else 384
+    return np.clip(((at + t) * rng.cy - (384 << 16) - rng.oy + 0x8000) >> 16,
+                   0, 255)
+
+
+def _ffmpeg_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                subsampled: bool, rng: SwsRange = SWS_FULL) -> np.ndarray:
+    """BGR24 from full-size planes as swscale converts them: the unscaled
+    SSSE3 path (pmulhw, truncating) for subsampled chroma, the full-chroma
+    scaler (rounding) for 4:4:4; ``rng`` is the input's range."""
+    y, cb, cr = (a.astype(np.int64) for a in (y, cb, cr))
+    if subsampled:
+        yy = _pmulhw((y << 3) - rng.yo, rng.yc)
+        u, v = cb * 8 - 1024, cr * 8 - 1024
+        bgr = (yy + _pmulhw(u, rng.ub),
+               yy + _pmulhw(u, rng.ug) + _pmulhw(v, rng.vg),
+               yy + _pmulhw(v, rng.vr))
+    else:
+        yy = ((y << 9) - (rng.oy >> 7)) * rng.yc + (1 << 21)
+        u, v = (cb - 128) << 9, (cr - 128) << 9
+        bgr = ((yy + u * rng.ub) >> 22,
+               (yy + u * rng.ug + v * rng.vg) >> 22,
+               (yy + v * rng.vr) >> 22)
+    return np.stack(bgr, -1).clip(0, 255).astype(np.uint8)
 
 
 def init_filter(inc: int, src_w: int, dst_w: int, align: int, one: int,
@@ -1017,7 +1069,7 @@ def _w16(a):
 
 
 def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
-                 vs: int) -> np.ndarray:
+                 vs: int, rng: SwsRange = SWS_FULL) -> np.ndarray:
     """BGR24 from yuvj planes with chroma shifted (hs, vs) through
     swscale's scaled path with cv2's SWS_BICUBIC: the chroma resampled to
     the output's chroma size by ``init_filter``'s filters (across to
@@ -1027,7 +1079,7 @@ def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
     the MMXEXT output (16-bit ``pmulhw`` sums from the rounder 4, one or
     two chroma rows by their own rule where the vertical filter has one
     tap or two summing to 4096) on every row but the last two, which take
-    the C output (lookup tables)."""
+    the C output (lookup tables); ``rng`` is the input's range."""
     height, width = y.shape
     full = width & 1
     cw, ch = -(-width >> hs), -(-height >> vs)
@@ -1062,8 +1114,9 @@ def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
         v = np.where(one_tap[:, None], np.where(a == 0, (v0 - (128 << 7)) * 4,
                                                 blend(v0, v1)),
                      ((1 << 9) - (128 << 19) + vsum) >> 10)
-        yy = yy * 8192 + (1 << 21)
-        out = [yy + u * _UB, yy + u * _UG + v * _VG, yy + v * _VR]
+        yy = (yy - (rng.oy >> 7)) * rng.yc + (1 << 21)
+        out = [yy + u * rng.ub, yy + u * rng.ug + v * rng.vg,
+               yy + v * rng.vr]
         return np.stack([np.clip(_i32(c), 0, (1 << 30) - 1) >> 22
                          for c in out], -1).astype(np.uint8)
     # MMXEXT rows
@@ -1076,11 +1129,12 @@ def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
         vx = _w16(vx + _pmulhw(vb[rows[:, j]], vc[:, j, None]))
     u8 = _w16(np.where(one_tap[:, None], u8, ux) - 1024)
     v8 = _w16(np.where(one_tap[:, None], v8, vx) - 1024)
-    yv = _pmulhw(np.where(one_tap[:, None], y8, _w16(4 + (yb >> 4))), 8192)
+    yv = _pmulhw(_w16(np.where(one_tap[:, None], y8, _w16(4 + (yb >> 4)))
+                      - rng.yo), rng.yc)
     pair = lambda c: np.repeat(c, 2, 1)[:, :width]
-    ug, vg = pair(_pmulhw(u8, _UG)), pair(_pmulhw(v8, _VG))
-    mmx = np.stack([yv + pair(_pmulhw(u8, _UB)), yv + _w16(ug + vg),
-                    yv + pair(_pmulhw(v8, _VR))], -1)
+    ug, vg = pair(_pmulhw(u8, rng.ug)), pair(_pmulhw(v8, rng.vg))
+    mmx = np.stack([yv + pair(_pmulhw(u8, rng.ub)), yv + _w16(ug + vg),
+                    yv + pair(_pmulhw(v8, rng.vr))], -1)
     # C rows
     yc = np.where(one_tap[:, None], (yb + 64) >> 7, ((1 << 18) + yb * 4096) >> 19)
     cblend = lambda c0, c1: (c0 * (4096 - a) + c1 * a + (128 << 11)) >> 19
@@ -1095,10 +1149,11 @@ def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
         np.where(bad, np.clip(vc_, 0, 255), vc_)
     yc = np.where(pair(bad), np.clip(yc, 0, 255), yc)
     uc, vc_ = pair(uc), pair(vc_)
-    c_out = np.stack([yc + ((uc * _CBU) >> 16) - (_CBU >> 9),
-                      yc + ((uc * _CGU) >> 16) - (_CGU >> 9)
-                      + ((vc_ * _CGV) >> 16) - (_CGV >> 9),
-                      yc + ((vc_ * _CRV) >> 16) - (_CRV >> 9)], -1)
+    c_out = _sws_table(np.stack(
+        [yc + ((uc * rng.cbu) >> 16) - (rng.cbu >> 9),
+         yc + ((uc * rng.cgu) >> 16) - (rng.cgu >> 9)
+         + ((vc_ * rng.cgv) >> 16) - (rng.cgv >> 9),
+         yc + ((vc_ * rng.crv) >> 16) - (rng.crv >> 9)], -1), rng)
     last = (np.arange(height) >= height - 2)[:, None, None]
     return np.clip(np.where(last, c_out, mmx), 0, 255).astype(np.uint8)
 

@@ -1,5 +1,6 @@
 """AVI container reader (pure Python, streaming): MJPG chunks, raw RGBA
-frames and the stream's geometry.
+frames, the chunks of the other uncompressed layouts and the stream's
+geometry.
 
 Port of ``camera_linearity_tpu/utils/avi.py``, copied (importing the JAX
 package would import JAX).  An AVI file is a RIFF tree; the walker goes
@@ -7,8 +8,12 @@ through it linearly and yields the video stream's data chunks.  For an MJPG
 codec a chunk is a complete JFIF image, handed to the port's own JPEG
 decoder (``native/jpeg.cpp``); for the ``RGBA`` codec (lossless, written by
 ``cv2.VideoWriter_fourcc(*"RGBA")``) a chunk is one top-down frame of
-H * W * 4 bytes in R, G, B, A order, read here with NumPy.  So the port
-reads both without a video codec library, and reads exactly the frames
+H * W * 4 bytes in R, G, B, A order, read here with NumPy.  The other
+uncompressed layouts FFmpeg's rawvideo decoder reads (BI_RGB at 8, 16, 24
+and 32 bits, gray8, I420/YV12, NV12, YUY2/UYVY: ``AviInfo.layout``) are
+read here chunk by chunk (:func:`raw_chunks`) and converted by the port's
+``rawvideo`` reader (``native.raw_decode_bgr_batch``).  So the port reads
+all of them without a video codec library, and reads exactly the frames
 ``cv2.VideoCapture`` returns for them.
 
 Handles the OpenDML/AVIX extension OpenCV's writer emits for files >1-2 GB
@@ -33,9 +38,12 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 
 from ..native.jpeg_plain import ffmpeg_format
+from ..native.rawvideo_plain import (DIB_LAYOUTS, FOURCC_LAYOUTS,
+                                     chunk_sizes, frame_bytes)
 
-__all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "AviInfo",
-           "JpegInfo", "jpeg_unsupported"]
+__all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "raw_chunks",
+           "raw_unsupported", "AviInfo", "RawLayout", "JpegInfo",
+           "jpeg_unsupported"]
 
 # containers we descend into: their payload is a fourcc + nested chunks
 _CONTAINERS = (b"RIFF", b"LIST")
@@ -82,8 +90,10 @@ def _stream_chunks(f, data_fourccs) -> Iterator[bytes]:
 
 
 # the frames of stream 0, where OpenCV writes video: chunks with both the
-# compressed (``dc``) and uncompressed (``db``) suffix
+# compressed (``dc``) and uncompressed (``db``) suffix; ``pc`` changes the
+# palette
 _FRAME_FOURCCS = (b"00dc", b"00db")
+_PALETTE_CHANGE = b"00pc"
 
 
 def mjpg_chunks(path: Path) -> Iterator[bytes]:
@@ -232,16 +242,41 @@ def jpeg_unsupported(data_or_info, mode: str = "turbo") -> Optional[str]:
     return None
 
 
-class AviInfo(NamedTuple):
-    """An AVI video stream's codec (the BITMAPINFOHEADER's compression
-    fourcc, e.g. ``"MJPG"`` or ``"RGBA"``; ``"DIB"`` for uncompressed
-    BI_RGB), frame geometry and components per pixel; for MJPG also the
-    first frame's :class:`JpegInfo`."""
+class RawLayout(NamedTuple):
+    """What the BITMAPINFOHEADER of an uncompressed stream says: the
+    layout of the port's rawvideo reader (``native/rawvideo_plain.py``;
+    None where it has none), the bits per pixel, whether the rows are
+    stored bottom-up (BI_RGB of positive height) and, for 8-bit BI_RGB,
+    the (256, 4) B, G, R, X palette as FFmpeg's AVI demuxer reads it (the
+    last entries of the header's extra bytes, up to 256; the rest
+    zero)."""
+    layout: Optional[str]
+    bit_count: int
+    bottom_up: bool
+    palette: Optional[np.ndarray]
+
+
+class _AviHeader(NamedTuple):
     codec: str
     height: int
     width: int
     components: int
     jpeg: Optional[JpegInfo] = None
+
+
+class AviInfo(_AviHeader):
+    """An AVI video stream's codec (the BITMAPINFOHEADER's compression
+    fourcc, e.g. ``"MJPG"`` or ``"RGBA"``; ``"DIB"`` for uncompressed
+    BI_RGB, ``"BITFIELDS"`` for BI_BITFIELDS), frame geometry and
+    components per pixel; for MJPG also the first frame's
+    :class:`JpegInfo`.  It compares as the tuple of those five; for
+    another codec ``raw`` holds its :class:`RawLayout` and ``layout``
+    the rawvideo reader's layout (None where the reader has none)."""
+    raw: Optional[RawLayout] = None
+
+    @property
+    def layout(self) -> Optional[str]:
+        return None if self.raw is None else self.raw.layout
 
 
 def probe_avi(path: Path) -> Optional[AviInfo]:
@@ -276,14 +311,87 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
         return None
     _, width, height, _, bit_count, compression = struct.unpack(
         "<IiiHH4s", header[:20])
-    codec = "DIB" if compression == b"\0\0\0\0" else \
-        compression.decode("latin-1").strip()
+    codec = {b"\0\0\0\0": "DIB", b"\3\0\0\0": "BITFIELDS"}.get(
+        compression) or compression.decode("latin-1").strip()
     if codec == "MJPG":
         sof = _first_jpeg_sof(path)
         if sof is None:
             return None
         return AviInfo(codec, sof.height, sof.width, sof.components, sof)
-    return AviInfo(codec, abs(height), width, bit_count // 8)
+    dib = codec == "DIB"
+    layout = DIB_LAYOUTS.get(bit_count) if dib else FOURCC_LAYOUTS.get(codec)
+    palette = None
+    if layout == "pal8":
+        # avidec.c: the last (1 << bits) * 4 bytes after the header, or all
+        # of them where fewer
+        extra = header[40:]
+        n = min(1024, len(extra))
+        palette = np.zeros((256, 4), np.uint8)
+        palette.reshape(-1)[:n // 4 * 4] = np.frombuffer(
+            extra, np.uint8, n // 4 * 4, len(extra) - n)
+    info = AviInfo(codec, abs(height), width, bit_count // 8)
+    info.raw = RawLayout(layout, bit_count, dib and height > 0, palette)
+    return info
+
+
+def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:
+    """What of an uncompressed AVI the port's rawvideo reader does not
+    read, or None when it reads every frame: 1-, 2- and 4-bit BI_RGB,
+    BI_BITFIELDS, palette-change (``00pc``) chunks, or a frame chunk
+    longer than the layout's frame that is not its padded size either
+    (the chunk headers are walked, no frame is read).  Empty chunks are
+    skipped, as FFmpeg's AVI reader skips them, and a shorter chunk ends
+    the video, as cv2's read loop ends there.  Other codecs are not asked
+    about here."""
+    bits = info.raw.bit_count if info.raw else 0
+    if info.codec == "BITFIELDS":
+        return f"BI_BITFIELDS ({bits}-bit)"
+    if info.codec == "DIB" and bits in (1, 2, 4):
+        return f"{bits}-bit BI_RGB"
+    if info.layout is None:
+        return None
+    sizes = chunk_sizes(info.layout, info.height, info.width)
+    try:
+        with open(path, "rb") as f:
+            for fourcc, size in _chunk_spans(
+                    f, _FRAME_FOURCCS + (_PALETTE_CHANGE,)):
+                if fourcc == _PALETTE_CHANGE:
+                    return "palette-change (00pc) chunks"
+                if size > sizes[0] and size not in sizes:
+                    return (f"a {info.layout} frame chunk of {size} bytes, "
+                            f"not the {info.height} x {info.width} frame's "
+                            + " or ".join(map(str, sizes)))
+    except OSError as exc:
+        return f"unreadable ({exc})"
+    return None
+
+
+def raw_chunks(path: Path, info: AviInfo, ring: int = 1
+               ) -> Iterator[np.ndarray]:
+    """Yield each non-empty frame chunk of an uncompressed AVI of
+    ``info.layout`` as a uint8 array, read into one of ``ring`` reused
+    buffers in turn: a chunk is valid until ``ring`` more are requested.
+    A chunk shorter than the layout's frame ends the stream, as cv2's
+    read loop ends at it (FFmpeg decodes no frame from it), and so does a
+    truncated final chunk."""
+    need = frame_bytes(info.layout, info.height, info.width)
+    buffers: list = [np.empty(0, np.uint8)] * ring
+    with open(path, "rb", buffering=0) as f:
+        for i, (_, size) in enumerate(
+                (s for s in _chunk_spans(f, _FRAME_FOURCCS) if s[1])):
+            if size < need:
+                return
+            slot = i % ring
+            if buffers[slot].size < size:
+                buffers[slot] = np.empty(size, np.uint8)
+            view = memoryview(buffers[slot])[:size]
+            got = 0
+            while got < size:
+                n = f.readinto(view[got:])
+                if not n:
+                    return  # truncated final chunk
+                got += n
+            yield buffers[slot][:size]
 
 
 def raw_frames(path: Path) -> Iterator[np.ndarray]:

@@ -31,7 +31,8 @@ each.  Inputs come from fixed numpy seeds; tables are gamma-like response
 curves.
 
 Phases 12-14, BASELINE config 5 (video -> HDR): build the native host
-library and the port's MJPEG decoder (``native/jpeg.cpp``, no libjpeg),
+library and the port's MJPEG decoder and rawvideo reader
+(``native/jpeg.cpp``, no libjpeg),
 decode ``tests/data/mjpg 5ms.avi`` in its three modes (``turbo`` equal to
 the committed libjpeg frames bit for bit, ``ffmpeg`` to the committed
 ``cv2.VideoCapture`` frames, and so on every committed ``*.cv2.npy``) and
@@ -46,7 +47,13 @@ into a temporary directory, and the same content as MJPG AVIs
 pool of distinct frames cycled to 12, cached under ``build/``), and as
 grayscale MJPG for every exposure and 4:1:1, 4:4:0 and progressive 4:2:0
 MJPG for the brightest, timing one 4K frame's decode on one thread and a
-video's frames on all, in every mode; run ``welford_algorithm``
+video's frames on all, in every mode; hold the rawvideo reader to
+``native/rawvideo_plain.py`` bit for bit on one 4K frame of each layout
+it reads (8-bit paletted, RGB555 and 24-bit BI_RGB bottom-up, 32-bit
+top-down, gray8, I420, YV12, NV12, YUY2, UYVY) and time it on one thread
+and over a batch of 12 on all; write the raw videos' frames again as
+I420 AVIs (``yuv_planes``, as ``cv2.VideoWriter(fourcc "I420")`` lays them
+out); run ``welford_algorithm``
 on the card against the host backend and the CPU in float64, and
 ``compute_noise_profiles`` against the CPU; run ``batch_video_to_hdr`` on
 8 scenes with the calibration leg, from raw AVIs once with the u16/f16
@@ -58,7 +65,10 @@ the plain merge, the stacks against a NumPy moments oracle (fed, for
 MJPG, by ``jpeg_plain.py``'s decode of crop videos) and the leg's energy
 against the reference's; then ``video_to_hdr`` through K3 on each kind;
 then the default decoder on the grayscale MJPG (``batch_video_to_hdr``
-u16/f16 held alike, its staged channels equal, and ``video_to_hdr``), and
+u16/f16 held alike, its staged channels equal, and ``video_to_hdr``),
+then the I420 AVIs through the rawvideo reader (``batch_video_to_hdr``
+u16/f16, the oracle fed by ``rawvideo_plain.py``'s decode of the I420
+crops, and ``video_to_hdr``), and
 ``welford_algorithm`` on the card over the 4:4:0 and the progressive
 video against the oracle at the crop.  It times the device Welford and
 K1 at B = 8 beside their bounds, K3's share of ``video_to_hdr``, and
@@ -729,21 +739,45 @@ def write_rgba_avi(path, frames_rgba, height: int, width: int) -> None:
             f.write(memoryview(frame).cast("B"))
 
 
+def yuv_planes(bgr, vs: int = 1):
+    """Limited-range BT.601 Y, U, V planes (uint8, on the host) of a (H, W,
+    3) BGR uint8 tensor of even H and W: the integer formula (66 R + 129 G
+    + 25 B + 128) >> 8 + 16 and its chroma pair, the chroma averaged over
+    each 2 x 2 block (``vs`` 1: 4:2:0) or each pair across (``vs`` 0:
+    4:2:2), rounding."""
+    x = bgr.to(torch.int32)
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    y = ((66 * r + 129 * g + 25 * b + 128) >> 8) + 16
+    h, w = y.shape
+    out = [y]
+    for c in ((-38 * r - 74 * g + 112 * b + 128) >> 8) + 128, \
+            ((112 * r - 94 * g - 18 * b + 128) >> 8) + 128:
+        blocks = c.view(h >> vs, 1 << vs, w // 2, 2).sum((1, 3))
+        n = 2 << vs
+        out.append((blocks + n // 2) // n)
+    return [p.to(torch.uint8).cpu().numpy() for p in out]
+
+
 def make_videos(directory, dev):
     """BASELINE config 5's exposure videos, as benchmarks/bench_video.py
     makes them (a uniform base x exposure x 230 plus N(0, 6) noise, clipped
     to uint8), generated on the card from seed 42 and written as raw RGBA
     AVIs: ``scene <ms>ms.avi`` at full size and ``crop <ms>ms.avi`` of
-    their first CROP_ROWS rows.  Returns both path lists, each exposure's
-    (frames, CROP_ROWS, W, 3) BGR crop for the NumPy oracle and its first
-    MJPG_POOL frames (BGR) for the MJPG videos."""
+    their first CROP_ROWS rows; and the same frames as I420 AVIs in the
+    layout ``cv2.VideoWriter(fourcc "I420")`` writes (``yuv_planes``;
+    ``i420 scene <ms>ms.avi`` and ``i420 crop <ms>ms.avi``).  Returns the
+    RGBA path lists, each exposure's (frames, CROP_ROWS, W, 3) BGR crop
+    for the NumPy oracle, its first MJPG_POOL frames (BGR) for the MJPG
+    videos and the I420 path lists."""
+    from tests._torch_rawvideo_writer import encode_frame, write_raw_avi
     gen = torch.Generator(device=dev).manual_seed(42)
     base = torch.rand((H5, W5, 3), generator=gen, device=dev)
     rgba = torch.full((H5, W5, 4), 255, dtype=torch.uint8, device=dev)
     paths, crop_paths, crops, pools = [], [], [], []
+    i420_paths, i420_crop_paths = [], []
     for ms in EXPOSURES5_MS:
         level = (base * (ms / max(EXPOSURES5_MS)) * 230).clamp(0, 255)
-        full, crop = [], []
+        full, crop, i420, i420_crop = [], [], [], []
         for _ in range(FRAMES5):
             bgr = (level + 6 * torch.randn((H5, W5, 3), generator=gen,
                                            device=dev)).clamp(0, 255).to(
@@ -752,15 +786,57 @@ def make_videos(directory, dev):
             host = rgba.to("cpu", copy=True).numpy()
             full.append(host)
             crop.append(host[:CROP_ROWS].copy())
+            y, u, v = yuv_planes(bgr)
+            i420.append(encode_frame("I420", (y, u, v)))
+            i420_crop.append(encode_frame("I420", (
+                y[:CROP_ROWS], u[:CROP_ROWS // 2], v[:CROP_ROWS // 2])))
         for name, frames, rows, out in (("scene", full, H5, paths),
                                         ("crop", crop, CROP_ROWS,
                                          crop_paths)):
             out.append(directory / f"{name} {ms}ms.avi")
             write_rgba_avi(out[-1], frames, rows, W5)
+        for name, frames, rows, out in (
+                ("i420 scene", i420, H5, i420_paths),
+                ("i420 crop", i420_crop, CROP_ROWS, i420_crop_paths)):
+            out.append(directory / f"{name} {ms}ms.avi")
+            write_raw_avi(out[-1], frames, rows, W5, "I420")
         crops.append(np.stack(crop)[..., 2::-1])
         pools.append(np.stack([f[..., 2::-1] for f in full[:MJPG_POOL]]))
-        del full
-    return paths, crop_paths, crops, pools
+        del full, i420
+    return paths, crop_paths, crops, pools, (i420_paths, i420_crop_paths)
+
+
+def raw_layout_chunks(bgr_host, bgr_dev):
+    """One 4K frame of the smoke's content in each layout of the port's
+    rawvideo reader, as their writers store it: layout -> (chunk,
+    bottom-up, palette).  BI_RGB at 8 bits (the green channel through a
+    palette that is not the identity), 16 and 24 bits bottom-up as camera
+    SDKs write them, 32 bits top-down; gray8 the green channel; the YUV
+    layouts from ``yuv_planes``."""
+    from tests._torch_rawvideo_writer import encode_frame
+    b, g, r = (bgr_host[..., k].astype(np.uint16) for k in range(3))
+    i = np.arange(256, dtype=np.uint16)
+    palette = np.stack([i, 255 - i, (i * 7) & 255, 0 * i], -1).astype(
+        np.uint8)
+    y, u, v = yuv_planes(bgr_dev)
+    y2, u2, v2 = yuv_planes(bgr_dev, vs=0)
+    green = np.ascontiguousarray(bgr_host[..., 1])
+    dib = lambda frame, bits, bottom_up=True: encode_frame(  # noqa: E731
+        "DIB", frame, bits, top_down=not bottom_up)
+    return {
+        "pal8": (dib(green, 8), True, palette),
+        "rgb555": (dib((r >> 3) << 10 | (g >> 3) << 5 | b >> 3, 16), True,
+                   None),
+        "bgr24": (dib(bgr_host, 24), True, None),
+        "bgr0": (dib(np.concatenate([bgr_host, bgr_host[..., :1]], -1),
+                     32, False), False, None),
+        "gray8": (encode_frame("Y800", green), False, None),
+        "i420": (encode_frame("I420", (y, u, v)), False, None),
+        "yv12": (encode_frame("YV12", (y, u, v)), False, None),
+        "nv12": (encode_frame("NV12", (y, u, v)), False, None),
+        "yuyv422": (encode_frame("YUY2", (y2, u2, v2)), False, None),
+        "uyvy422": (encode_frame("UYVY", (y2, u2, v2)), False, None),
+    }
 
 
 def moments_oracle(frames_u8):
@@ -973,13 +1049,19 @@ def video_phases(dev, res, directory) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     raise_failures("phase 12, jpeg.cpp against jpeg_plain.py", failures)
     t0 = time.perf_counter()
-    paths, crop_paths, crops, pools = make_videos(directory, dev)
+    paths, crop_paths, crops, pools, (i420_paths, i420_crop_paths) = \
+        make_videos(directory, dev)
     log(f"  wrote {len(paths)} videos of {FRAMES5} x {H5} x {W5} x 3 "
-        f"(RGBA, {paths[0].stat().st_size / 1e6:.1f} MB each) and their "
+        f"(RGBA, {paths[0].stat().st_size / 1e6:.1f} MB each; I420, "
+        f"{i420_paths[0].stat().st_size / 1e6:.1f} MB each) and their "
         f"{CROP_ROWS}-row crops in {time.perf_counter() - t0:.1f} s")
     info = avi.probe_avi(paths[0])
     if info[:4] != ("RGBA", H5, W5, 4):
         raise AssertionError(f"probe_avi: {info}")
+    info = avi.probe_avi(i420_paths[0])
+    if (info.codec, info.height, info.width, info.layout) != (
+            "I420", H5, W5, "i420"):
+        raise AssertionError(f"probe_avi (I420): {info}")
     mjpg_paths, mjpg_crop_paths, enc_s = make_mjpg_videos(pools)
     sizes = [len(p) for p in avi.mjpg_chunks(mjpg_paths[-1])][:MJPG_POOL]
     log(f"  MJPG: {len(mjpg_paths)} videos of {FRAMES5} frames cycling a "
@@ -1045,6 +1127,52 @@ def video_phases(dev, res, directory) -> dict:
             f"a batch of {len(vbatch)} on {os.cpu_count()} threads (host "
             f"clock, median; {info.jpeg.scans} scans a frame)")
         del one, many
+    # the rawvideo reader (in jpeg.cpp) on one 4K frame of each layout it
+    # reads, held to rawvideo_plain.py bit for bit; one thread, then a
+    # batch of FRAMES5 on every core, beside the MJPEG times above.  The
+    # plain versions run first, on a thread a layout (NumPy releases the
+    # GIL), and never beside a timed call
+    from concurrent.futures import ThreadPoolExecutor
+    from camera_linearity_tpu_torch.native import rawvideo_plain
+    bgr_dev = torch.as_tensor(pools[-1][0], device=dev)
+    failures, t0 = [], time.perf_counter()
+    layouts = raw_layout_chunks(pools[-1][0], bgr_dev)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
+        plain = dict(zip(layouts, ex.map(
+            lambda item: rawvideo_plain.decode_bgr(item[1][0], item[0], H5,
+                                                   W5, *item[1][1:]),
+            layouts.items())))
+    plain_s = time.perf_counter() - t0
+    for layout, (chunk, bottom_up, palette) in layouts.items():
+        want = plain.pop(layout)
+        one = np.empty((1, H5, W5, 3), np.uint8)
+        many = np.empty((FRAMES5, H5, W5, 3), np.uint8)
+        decode = lambda chunks, dst, **kw: native.raw_decode_bgr_batch(  # noqa
+            chunks, dst, layout, bottom_up=bottom_up, palette=palette, **kw)
+        decode([chunk], one)
+        same = np.array_equal(one[0], want)
+        if not same:
+            failures.append(layout)
+        single = host_ms(lambda: decode([chunk], one, threads=1), runs=5,
+                         warmup=1)
+        wide = host_ms(lambda: decode([chunk] * FRAMES5, many), runs=3,
+                       warmup=1) / FRAMES5
+        decode_ms[f"rawvideo {layout}"] = dict(
+            one_thread=single, all_threads=wide, frame_mb=len(chunk) / 1e6)
+        log(f"  {'ok ' if same else 'BAD'} rawvideo {layout}"
+            f"{' bottom-up' if bottom_up else ''}: one 4K frame "
+            f"({len(chunk) / 1e6:.3f} MB) {single:.1f} ms on one thread; "
+            f"{wide:.1f} ms a frame over a batch of {FRAMES5} on "
+            f"{os.cpu_count()} threads (host clock, median); "
+            f"{'equals' if same else 'differs from'} rawvideo_plain.py, "
+            f"max |.| {max_gap(one[0], want):.0f} DN")
+        del one, many, want
+    log(f"  rawvideo: {len(layouts)} layouts checked in "
+        f"{time.perf_counter() - t0:.1f} s (the plain versions "
+        f"{plain_s:.1f} s of it, on {os.cpu_count()} threads)")
+    del bgr_dev, layouts
+    raise_failures("phase 12, the rawvideo reader against "
+                   "rawvideo_plain.py", failures)
     icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
             ** np.array([2.0, 2.2, 2.4]))
 
@@ -1127,7 +1255,7 @@ def video_phases(dev, res, directory) -> dict:
         f"(spacing {spec['spacing']}, popsize 15, maxiter 1000, tol 0.01): "
         "raw RGBA u16/f16 and f32/f32, then MJPG turbo_fast u16/f16, "
         "turbo f32/f32 and the default decoder (ffmpeg, CL_DECODER unset) "
-        "u16/f16")
+        "u16/f16, then I420 (rawvideo) u16/f16")
     # record what the pipeline hands the merge (ops/hdr.py's entry points,
     # looked up at call time) and the solver, to hold them to the plain
     # versions and the oracle afterwards
@@ -1369,6 +1497,22 @@ def video_phases(dev, res, directory) -> dict:
             torch.cuda.empty_cache()
             t_v2h_gray, _ = run_video_to_hdr("video_to_hdr (MJPG gray)",
                                              gray_paths, "ffmpeg")
+            # the same scenes from I420 AVIs, through the rawvideo reader;
+            # the oracle reads the crops through rawvideo_plain.py
+            from camera_linearity_tpu_torch.native import rawvideo_plain
+            i420_crops = [np.stack([
+                rawvideo_plain.decode_bgr(c, "i420", CROP_ROWS, W5)
+                for c in avi.raw_chunks(p, avi.probe_avi(p))])
+                for p in i420_crop_paths]
+            label = "batch_video_to_hdr u16/f16 (I420, auto)"
+            run = run_batch(label, i420_paths, i420_crops, "u16", "f16",
+                            "auto", "rawvideo")
+            run.pop("merge")
+            run.pop("out")
+            runs[label] = run
+            torch.cuda.empty_cache()
+            t_v2h_i420, _ = run_video_to_hdr("video_to_hdr (I420)",
+                                             i420_paths, "rawvideo")
         finally:
             if cl_decoder is not None:
                 os.environ["CL_DECODER"] = cl_decoder
@@ -1382,7 +1526,7 @@ def video_phases(dev, res, directory) -> dict:
                 f"{st.get('calibrate_s', 0):.3f}, merge_s "
                 f"{st.get('merge_s', 0):.3f}")
         log(f"    video_to_hdr: raw {t_v2h_s:.3f} s, MJPG {t_v2h_mjpg:.3f} s, "
-            f"MJPG gray {t_v2h_gray:.3f} s")
+            f"MJPG gray {t_v2h_gray:.3f} s, I420 {t_v2h_i420:.3f} s")
     finally:
         for name, fn in originals.items():
             setattr(hdr_ops, name, fn)
@@ -1443,7 +1587,8 @@ def video_phases(dev, res, directory) -> dict:
                                         stages=r["stages"])
                                 for k, r in runs.items()},
                           video_to_hdr_s=dict(raw=t_v2h_s, mjpg=t_v2h_mjpg,
-                                              mjpg_gray=t_v2h_gray),
+                                              mjpg_gray=t_v2h_gray,
+                                              i420=t_v2h_i420),
                           welford_modes_s=welford_modes,
                           welford_ms_by_threads=t_by_threads),
                 k3=dict(ms=k3_ms, plain_ms=k3_plain_ms, bytes=k3_bytes,

@@ -1,0 +1,134 @@
+"""Uncompressed AVI writer for the port's rawvideo tests (NumPy + struct,
+no cv2).
+
+``write_raw_avi`` writes one video stream in the layouts the port's
+reader takes (``camera_linearity_tpu_torch/native/rawvideo_plain.py``):
+
+* ``BI_RGB`` (compression 0) at 8 bits (a palette after the header), 16
+  bits (RGB555), 24 bits (B, G, R) and 32 bits (B, G, R, X), as camera
+  SDKs and ImageJ/Fiji's "Save As AVI, uncompressed" write them: rows
+  padded to 4 bytes, bottom-up for a positive height, top-down for a
+  negative one, ``00db`` chunks;
+* the YUV and gray fourccs (``I420``, ``IYUV``, ``YV12``, ``NV12``,
+  ``YUY2``, ``UYVY``, ``Y800``, ``GREY``, ``Y8  ``) as
+  ``cv2.VideoWriter(path, cv2.CAP_FFMPEG, fourcc, ...)`` writes them:
+  top-down unpadded planes, the height positive, ``00dc`` chunks, and
+  ``biBitCount`` 12 for the 4:2:0 fourccs, 8 for the gray ones (16 for
+  YUY2/UYVY, which cv2's writer does not write in their own layout: its
+  ``YUY2`` file holds 4:2:0 frames under a 12-bit header and reads back
+  as no frame).
+
+``encode_frame`` packs a frame of a layout into its chunk's bytes.
+"""
+from __future__ import annotations
+
+import struct
+from pathlib import Path
+from typing import Iterable, Optional, Sequence
+
+import numpy as np
+
+# each fourcc's bits per pixel as cv2's writer (or the format) states it
+BIT_COUNT = {"I420": 12, "IYUV": 12, "YV12": 12, "NV12": 12, "YUY2": 16,
+             "UYVY": 16, "Y800": 8, "GREY": 8, "Y8  ": 8}
+
+
+def _pad_rows(rows: np.ndarray) -> np.ndarray:
+    """(H, n) bytes -> (H, n rounded up to 4) with zero padding."""
+    h, n = rows.shape
+    out = np.zeros((h, -(-n // 4) * 4), np.uint8)
+    out[:, :n] = rows
+    return out
+
+
+def encode_frame(codec: str, frame, bit_count: int = 0,
+                 top_down: bool = False) -> bytes:
+    """One frame's chunk bytes.
+
+    ``codec`` ``"DIB"`` (BI_RGB) takes, by ``bit_count``: 8, an (H, W)
+    palette index array; 16, (H, W) uint16 RGB555 words; 24, (H, W, 3)
+    B, G, R; 32, (H, W, 4) B, G, R, X.  Rows are padded to 4 bytes and
+    stored bottom-up unless ``top_down``.  ``I420``/``IYUV``/``YV12`` and
+    ``NV12`` take a tuple (Y (H, W), U, V (ceil(H/2), ceil(W/2)));
+    ``YUY2``/``UYVY`` (Y (H, W), U, V (H, ceil(W/2))), an odd W padded
+    with a zero sample; the gray fourccs an (H, W) array.
+    """
+    if codec == "DIB":
+        a = np.ascontiguousarray(frame)
+        h = a.shape[0]
+        rows = _pad_rows(a.view(np.uint8).reshape(h, -1))
+        return (rows if top_down else rows[::-1]).tobytes()
+    if codec in ("Y800", "GREY", "Y8  "):
+        return np.ascontiguousarray(frame, np.uint8).tobytes()
+    y, u, v = (np.ascontiguousarray(p, np.uint8) for p in frame)
+    if codec in ("I420", "IYUV"):
+        return y.tobytes() + u.tobytes() + v.tobytes()
+    if codec == "YV12":
+        return y.tobytes() + v.tobytes() + u.tobytes()
+    if codec == "NV12":
+        return y.tobytes() + np.stack([u, v], -1).tobytes()
+    if codec in ("YUY2", "UYVY"):
+        h, w = y.shape
+        if w % 2:  # the last pair's second luma sample is padding
+            y = np.concatenate([y, np.zeros((h, 1), np.uint8)], 1)
+        px = np.empty((h, -(-w // 2), 4), np.uint8)
+        lum, chrom = ((0, 2), (1, 3)) if codec == "YUY2" else ((1, 3), (0, 2))
+        px[..., lum[0]], px[..., lum[1]] = y[:, 0::2], y[:, 1::2]
+        px[..., chrom[0]], px[..., chrom[1]] = u, v
+        return px.tobytes()
+    raise ValueError(f"unknown codec {codec!r}")
+
+
+def write_raw_avi(path: Path, payloads: Iterable[bytes], height: int,
+                  width: int, codec: str, bit_count: Optional[int] = None,
+                  top_down: bool = False,
+                  palette: Optional[np.ndarray] = None,
+                  clr_used: Optional[int] = None,
+                  compression: Optional[int] = None,
+                  extra_chunks: Sequence[tuple] = (), fps: int = 30) -> None:
+    """An AVI of one video stream whose frames are ``payloads`` (chunk
+    bytes, e.g. from :func:`encode_frame`), with no index.
+
+    ``codec`` is a fourcc, or ``"DIB"`` for BI_RGB (compression 0, or
+    ``compression`` where given: 3 is BI_BITFIELDS); ``bit_count``
+    defaults to the fourcc's (:data:`BIT_COUNT`).  ``palette`` ((n, 4)
+    B, G, R, X bytes) follows the header, ``clr_used`` (default n) is its
+    stated length.  BI_RGB frames go into ``00db`` chunks, the others into
+    ``00dc``; ``extra_chunks`` ((index, fourcc, bytes)) are put before
+    frame ``index``."""
+    payloads = list(payloads)
+    n = len(payloads)
+    biggest = max((len(p) for p in payloads), default=0)
+    dib = codec == "DIB"
+    bits = bit_count if bit_count is not None else BIT_COUNT[codec]
+    tag = struct.pack("<I", compression or 0) if dib else codec.encode()
+    pal = b"" if palette is None else \
+        np.ascontiguousarray(palette, np.uint8).tobytes()
+    used = (len(pal) // 4) if clr_used is None else clr_used
+
+    def chunk(fourcc: bytes, payload: bytes) -> bytes:
+        return struct.pack("<4sI", fourcc, len(payload)) + payload + \
+            b"\0" * (len(payload) & 1)
+    avih = struct.pack("<14I", 1000000 // fps, biggest * fps, 0, 0x10, n, 0,
+                       1, biggest, width, height, 0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids",
+                       b"\0\0\0\0" if dib else tag, 0, 0, 0, 0, 1, fps, 0,
+                       n, biggest, 0xFFFFFFFF, 0, 0, 0, width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width,
+                       -height if top_down else height, 1, bits, tag,
+                       biggest, 0, 0, used, 0) + pal
+    hdrl = chunk(b"LIST", b"hdrl" + chunk(b"avih", avih) + chunk(
+        b"LIST", b"strl" + chunk(b"strh", strh) + chunk(b"strf", strf)))
+    extra = {}
+    for index, fourcc, body in extra_chunks:
+        extra.setdefault(index, []).append(chunk(fourcc, body))
+    frame_tag = b"00db" if dib else b"00dc"
+    movi = b"movi" + b"".join(
+        b"".join(extra.get(i, [])) + chunk(frame_tag, p)
+        for i, p in enumerate(payloads)) + b"".join(extra.get(n, []))
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sI4s", b"RIFF", 4 + len(hdrl) + 8 + len(movi),
+                            b"AVI "))
+        f.write(hdrl)
+        f.write(struct.pack("<4sI", b"LIST", len(movi)))
+        f.write(movi)
