@@ -7,7 +7,7 @@ and their fused finalize, u8 -> f32 normalization, a running Welford
 update from uint8 frames),
 ``jpeg.cpp`` (JPEG into BGR, the port's own, giving libjpeg-turbo's or
 cv2's bytes, and the frames of uncompressed AVIs as cv2 gives them) and
-``tiff.cpp`` (TIFF LZW and predictors, the port's own) build
+``tiff.cpp`` (TIFF LZW, PackBits and predictors, the port's own) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -42,7 +42,8 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "jpeg_decode_bgr", "jpeg_decode_bgr_batch", "JPEG_MODES",
            "raw_decode_bgr_batch", "RAW_LAYOUTS",
            "tiff_available",
-           "lzw_decode_chunks", "lzw_encode_chunks", "predictor_undo",
+           "lzw_decode_chunks", "packbits_decode_chunks",
+           "lzw_encode_chunks", "predictor_undo",
            "predictor_apply", "build_error"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
@@ -491,11 +492,14 @@ def _load_tiff() -> Optional[ctypes.CDLL]:
         sz, i = ctypes.c_size_t, ctypes.c_int
         lib.clt_lzw_decode_chunks.argtypes = [
             u8p, sz, u64p, u64p, sz, u8p, u64p, u64p, i64p, i]
+        lib.clt_packbits_decode_chunks.argtypes = [
+            u8p, sz, u64p, u64p, sz, u8p, u64p, u64p, i64p, i]
         lib.clt_lzw_encode_chunks.argtypes = [
             u8p, u64p, u64p, sz, u8p, u64p, u64p, u64p, i]
         lib.clt_predictor_undo.argtypes = [u8p, sz, sz, i, i, i, i, i]
         lib.clt_predictor_apply.argtypes = [u8p, sz, sz, i, i, i]
         lib.clt_lzw_decode_chunks.restype = None
+        lib.clt_packbits_decode_chunks.restype = None
         lib.clt_lzw_encode_chunks.restype = None
         lib.clt_predictor_undo.restype = ctypes.c_int
         lib.clt_predictor_apply.restype = ctypes.c_int
@@ -544,15 +548,8 @@ def _check_ranges(offsets, sizes, total: int, name: str) -> None:
                          f"{total} bytes")
 
 
-def lzw_decode_chunks(src: np.ndarray, offsets, counts, dst: np.ndarray,
-                      dst_offsets, dst_sizes) -> np.ndarray:
-    """Decode TIFF-LZW chunks of the file image ``src`` (chunk i: bytes
-    ``offsets[i]`` to ``offsets[i] + counts[i]``) into ``dst`` (chunk i at
-    ``dst_offsets[i]``, room for ``dst_sizes[i]`` bytes), on all threads.
-    Returns each chunk's decoded length (int64); raises ValueError for a
-    corrupt chunk, one that decodes to more than its room, or one outside
-    the file."""
-    lib = _tiff()
+def _decode_chunks(fn, name: str, src: np.ndarray, offsets, counts,
+                   dst: np.ndarray, dst_offsets, dst_sizes) -> np.ndarray:
     src_p = _u8_buffer(src, "src")
     dst_p = _u8_buffer(dst, "dst", writable=True)
     offsets, counts = _u64(offsets, "offsets"), _u64(counts, "counts")
@@ -565,18 +562,41 @@ def lzw_decode_chunks(src: np.ndarray, offsets, counts, dst: np.ndarray,
         raise ValueError("dst_offsets and offsets differ in length")
     got = np.empty(offsets.size, np.int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
-    lib.clt_lzw_decode_chunks(
-        src_p, src.size, offsets.ctypes.data_as(u64p),
-        counts.ctypes.data_as(u64p), offsets.size, dst_p,
-        dst_offsets.ctypes.data_as(u64p), dst_sizes.ctypes.data_as(u64p),
-        got.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _NTHREADS)
+    fn(src_p, src.size, offsets.ctypes.data_as(u64p),
+       counts.ctypes.data_as(u64p), offsets.size, dst_p,
+       dst_offsets.ctypes.data_as(u64p), dst_sizes.ctypes.data_as(u64p),
+       got.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _NTHREADS)
     bad = np.flatnonzero(got < 0)
     if bad.size:
         k = int(bad[0])
-        reason = {-1: "corrupt LZW data", -2: "decodes to more than "
+        reason = {-1: f"corrupt {name} data", -2: "decodes to more than "
                   f"{int(dst_sizes[k])} bytes", -3: "lies outside the file"}
-        raise ValueError(f"LZW chunk {k} {reason[int(got[k])]}")
+        raise ValueError(f"{name} chunk {k} {reason[int(got[k])]}")
     return got
+
+
+def lzw_decode_chunks(src: np.ndarray, offsets, counts, dst: np.ndarray,
+                      dst_offsets, dst_sizes) -> np.ndarray:
+    """Decode TIFF-LZW chunks of the file image ``src`` (chunk i: bytes
+    ``offsets[i]`` to ``offsets[i] + counts[i]``) into ``dst`` (chunk i at
+    ``dst_offsets[i]``, room for ``dst_sizes[i]`` bytes), on all threads.
+    Returns each chunk's decoded length (int64); raises ValueError for a
+    corrupt chunk, one that decodes to more than its room, or one outside
+    the file."""
+    return _decode_chunks(_tiff().clt_lzw_decode_chunks, "LZW", src,
+                          offsets, counts, dst, dst_offsets, dst_sizes)
+
+
+def packbits_decode_chunks(src: np.ndarray, offsets, counts,
+                           dst: np.ndarray, dst_offsets,
+                           dst_sizes) -> np.ndarray:
+    """Decode PackBits chunks (TIFF compression 32773) as
+    ``lzw_decode_chunks`` decodes LZW ones.  As in libtiff, output past a
+    chunk's room is dropped, so a length below ``dst_sizes[i]`` is the only
+    sign of a bad chunk (it ran out of data); raises ValueError for a
+    chunk outside the file."""
+    return _decode_chunks(_tiff().clt_packbits_decode_chunks, "PackBits",
+                          src, offsets, counts, dst, dst_offsets, dst_sizes)
 
 
 def lzw_encode_chunks(src: np.ndarray, offsets, sizes) -> list:
@@ -607,11 +627,11 @@ def lzw_encode_chunks(src: np.ndarray, offsets, sizes) -> list:
 
 def predictor_undo(data: np.ndarray, rows: int, samples: int, spp: int,
                    size: int, predictor: int, swap: bool) -> None:
-    """Undo TIFF predictor ``predictor`` (1 none, 2 horizontal at 8/16
-    bits, 3 floating point at 32/64 bits) in place over ``rows`` rows of
-    ``samples`` samples of ``size`` bytes in the uint8 buffer ``data``;
-    ``swap``: the samples are big-endian in the file (they end in the
-    host's order)."""
+    """Undo TIFF predictor ``predictor`` (1 none, 2 horizontal at 8, 16,
+    32 or 64 bits, 3 floating point at 32/64 bits) in place over ``rows``
+    rows of ``samples`` samples of ``size`` bytes in the uint8 buffer
+    ``data``; ``swap``: the samples are big-endian in the file (they end
+    in the host's order)."""
     lib = _tiff()
     ptr = _u8_buffer(data, "data", writable=True)
     if rows * samples * size > data.size:

@@ -2,9 +2,11 @@
 //
 // LZW (TIFF 6.0 section 13, libtiff's variant: codes MSB-first, 9 to 12
 // bits, Clear 256, EOI 257, the width growing one code early, a Clear
-// once the table holds 4094 entries) and the predictors: horizontal
-// differencing (2) at 8 and 16 bits, undone and applied, and libtiff's
-// floating-point predictor (3) at 32 and 64 bits, undone.  Chunks
+// once the table holds 4094 entries), PackBits (section 9, decoded as
+// libtiff's PackBitsDecode does) and the predictors: horizontal
+// differencing (2) at 8, 16, 32 and 64 bits, undone, and at 8 and 16
+// bits applied, and libtiff's floating-point predictor (3) at 32 and 64
+// bits, undone.  Chunks
 // (strips or tiles) and rows are independent, so every entry point takes
 // a batch and spreads it over threads, each taking the next chunk or row
 // block from a shared counter.
@@ -125,6 +127,33 @@ std::int64_t lzw_decode(const std::uint8_t* src, std::size_t n,
         out += static_cast<std::size_t>(len);
         old = code;
         if (next + 1 >= (1 << width) && width < kMaxBits) ++width;
+    }
+    return static_cast<std::int64_t>(out);
+}
+
+// Decode one PackBits chunk into dst as libtiff does: a header n >= 0
+// copies n + 1 bytes, n in [-127, -1] repeats the next byte 1 - n times,
+// -128 is a no-op; output past cap is dropped.  Returns the bytes
+// written (short of cap when the data run out).
+std::int64_t packbits_decode(const std::uint8_t* src, std::size_t n,
+                             std::uint8_t* dst, std::size_t cap) {
+    std::size_t pos = 0, out = 0;
+    while (pos < n && out < cap) {
+        const int h = static_cast<std::int8_t>(src[pos++]);
+        if (h == -128) continue;
+        if (h < 0) {
+            if (pos == n) break;
+            const std::size_t len = std::min<std::size_t>(1 - h, cap - out);
+            std::memset(dst + out, src[pos++], len);
+            out += len;
+        } else {
+            const std::size_t len = static_cast<std::size_t>(h) + 1;
+            if (n - pos < len) break;
+            const std::size_t keep = std::min(len, cap - out);
+            std::memcpy(dst + out, src + pos, keep);
+            out += keep;
+            pos += len;
+        }
     }
     return static_cast<std::int64_t>(out);
 }
@@ -263,7 +292,7 @@ void fp_acc(std::uint8_t* row, std::size_t samples, int spp, int size,
 
 extern "C" {
 
-int clt_tiff_version() { return 1; }
+int clt_tiff_version() { return 2; }
 
 // Decode n LZW chunks of the file image `src` (chunk i at offsets[i],
 // counts[i] bytes) into dst (chunk i at dst_offsets[i], room for
@@ -286,6 +315,25 @@ void clt_lzw_decode_chunks(const std::uint8_t* src, std::size_t src_size,
     });
 }
 
+// Decode n PackBits chunks as clt_lzw_decode_chunks decodes LZW ones
+// (got[i] < 0 only for a chunk outside the file, -3).
+void clt_packbits_decode_chunks(const std::uint8_t* src, std::size_t src_size,
+                                const std::uint64_t* offsets,
+                                const std::uint64_t* counts, std::size_t n,
+                                std::uint8_t* dst,
+                                const std::uint64_t* dst_offsets,
+                                const std::uint64_t* dst_sizes,
+                                std::int64_t* got, int nthreads) {
+    parallel_items(n, nthreads, [&](std::size_t i) {
+        if (offsets[i] > src_size || counts[i] > src_size - offsets[i]) {
+            got[i] = -3;
+            return;
+        }
+        got[i] = packbits_decode(src + offsets[i], counts[i],
+                                 dst + dst_offsets[i], dst_sizes[i]);
+    });
+}
+
 // Encode n chunks of src (chunk i at src_offsets[i], src_sizes[i] bytes)
 // into dst (chunk i at dst_offsets[i], room for dst_caps[i] bytes).
 // sizes[i] receives chunk i's encoded size; a size above dst_caps[i]
@@ -304,14 +352,15 @@ void clt_lzw_encode_chunks(const std::uint8_t* src,
 
 // Undo a predictor in place over `rows` rows of `samples` samples of
 // `size` bytes each, stored back to back: 1 none, 2 horizontal
-// differencing (size 1 or 2), 3 floating point (size 4 or 8).  `swap`
+// differencing (size 1, 2, 4 or 8), 3 floating point (size 4 or 8).  `swap`
 // says the samples are big-endian in the file: they are swapped to the
 // host's order first (predictor 3 yields the host's order itself).
 // Returns 0, or -1 for a combination it does not handle.
 int clt_predictor_undo(std::uint8_t* data, std::size_t rows,
                        std::size_t samples, int spp, int size, int predictor,
                        int swap, int nthreads) {
-    if (spp < 1 || (predictor == 2 && size != 1 && size != 2) ||
+    if (spp < 1 ||
+        (predictor == 2 && size != 1 && size != 2 && size != 4 && size != 8) ||
         (predictor == 3 && size != 4 && size != 8) ||
         (predictor != 1 && predictor != 2 && predictor != 3))
         return -1;
@@ -330,7 +379,12 @@ int clt_predictor_undo(std::uint8_t* data, std::size_t rows,
             if (swap && size > 1) swap_bytes(row, samples, size);
             if (predictor != 2) continue;
             if (size == 1) hor_acc(row, samples, spp);
-            else hor_acc(reinterpret_cast<std::uint16_t*>(row), samples, spp);
+            else if (size == 2)
+                hor_acc(reinterpret_cast<std::uint16_t*>(row), samples, spp);
+            else if (size == 4)
+                hor_acc(reinterpret_cast<std::uint32_t*>(row), samples, spp);
+            else
+                hor_acc(reinterpret_cast<std::uint64_t*>(row), samples, spp);
         }
     });
     return 0;

@@ -1,14 +1,16 @@
 """Plain Python / NumPy versions of the native TIFF codec (``tiff.cpp``).
 
 The tests hold the native library to these: the same LZW code stream
-byte for byte, and the same predictor arithmetic.  Nothing in the package
+byte for byte, the same PackBits output, and the same predictor
+arithmetic.  Nothing in the package
 calls them; the LZW here is pure Python and far too slow for a capture.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["lzw_decode", "lzw_encode", "predictor_undo", "predictor_apply"]
+__all__ = ["lzw_decode", "lzw_encode", "packbits_decode", "predictor_undo",
+           "predictor_apply"]
 
 _CLEAR, _EOI, _FIRST, _MAX_BITS = 256, 257, 258, 12
 
@@ -105,13 +107,39 @@ def lzw_encode(data: bytes) -> bytes:
     return bytes(out)
 
 
+def packbits_decode(data: bytes, size: int) -> bytes:
+    """Decode one PackBits chunk into at most ``size`` bytes, as libtiff
+    does: a header byte n >= 0 copies the next n + 1 bytes, n in
+    [-127, -1] repeats the next byte 1 - n times, -128 does nothing;
+    output past ``size`` is dropped, and a packet cut short by the end of
+    the data ends the decode (the result is then shorter)."""
+    out = bytearray()
+    pos = 0
+    while pos < len(data) and len(out) < size:
+        n = data[pos] - 256 if data[pos] > 127 else data[pos]
+        pos += 1
+        if n == -128:
+            continue
+        if n < 0:
+            if pos == len(data):
+                break
+            out += bytes([data[pos]]) * (1 - n)
+            pos += 1
+        else:
+            if len(data) - pos < n + 1:
+                break
+            out += data[pos:pos + n + 1]
+            pos += n + 1
+    return bytes(out[:size])
+
+
 def predictor_undo(rows: np.ndarray, spp: int, size: int, predictor: int,
                    big_endian: bool = False) -> np.ndarray:
     """Undo a predictor on ``rows``, a (R, row bytes) uint8 array of file
     bytes holding samples of ``size`` bytes; returns (R, samples) in the
-    host's order: unsigned integers for predictor 1 and 2, floats for
-    predictor 3 (whose byte planes run most significant first, whatever
-    ``big_endian`` says)."""
+    host's order: unsigned integers of any width for predictor 1 and 2,
+    floats for predictor 3 (whose byte planes run most significant first,
+    whatever ``big_endian`` says)."""
     rows = np.ascontiguousarray(rows, np.uint8)
     r = rows.shape[0]
     if predictor == 3:

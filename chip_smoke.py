@@ -75,8 +75,14 @@ K1 at B = 8 beside their bounds, K3's share of ``video_to_hdr``, and
 ``welford_algorithm`` on one MJPG video by decoder threads.
 
 Phases 15-16, config 3's captures as files and the command line: build
-the native TIFF codec, write and read the captures, and run ``calibrate``,
-``merge``, ``video`` (on the raw and the MJPG videos), ``dorf``,
+the native TIFF codec, write and read the captures, read one config-3
+plane in each TIFF layout the reader gained (``tests/_torch_tiff_writer.py``:
+BigTIFF, PackBits, Deflate 32946, planar, signed and 32-bit integers,
+12-bit, MinIsWhite, palette, CMYK, gray + alpha, Orientation, FillOrder 2)
+under both flags against the arrays cv2 returns, the native PackBits
+against its plain version, and run ``calibrate``, ``merge`` (then again on
+the captures rewritten as BigTIFF + PackBits + planar, held to the first
+at 0 error), ``video`` (on the raw and the MJPG videos), ``dorf``,
 ``linearity`` and ``doctor`` in-process;
 ``linearity`` logs its fits with or without matplotlib (the card's machine
 has none: then no PNG is written and one warning says so).
@@ -129,6 +135,7 @@ no last line.  Without a CUDA device it exits with code 2.
 import json
 import logging
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -1704,6 +1711,97 @@ def codec_rates(arr, path) -> dict:
                 file_mb=path.stat().st_size / 1e6)
 
 
+def same_image(got, want) -> bool:
+    """``got`` is ``want`` bit for bit (dtype and shape too), or both are
+    None."""
+    if got is None or want is None:
+        return got is None and want is None
+    return got.dtype == want.dtype and got.shape == want.shape and \
+        np.array_equal(got, want)
+
+
+def tiff_layout_phase(root) -> dict:
+    """Phase 15 (b): one config-3 plane (H x W, 3 samples, one for gray)
+    in each TIFF layout the reader gained, written by
+    ``tests/_torch_tiff_writer.py`` and read under IMREAD_UNCHANGED and
+    IMREAD_COLOR: held bit for bit to the arrays of ``layout_cases``
+    (``tests/test_torch_tiff.py`` holds those formulas to cv2 on the
+    CPU), the PackBits plane's chunks decoded natively and by the plain
+    version.  Returns each layout's read MB/s (IMREAD_UNCHANGED, host
+    clock, median of 3; MB of the samples written)."""
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.native import tiff_plain
+    from camera_linearity_tpu_torch.utils import tiff
+    from tests._torch_tiff_writer import build_tiff, layout_cases
+    log(f"phase 15 (b): the layouts the TIFF reader gained, one {H} x {W} "
+        "plane each, under both flags")
+    path = root / "layout.tif"
+    rates, failures = {}, []
+    for name, px, kw, want_u, want_c in layout_cases(H, W, SEED + 16):
+        build_tiff(path, "<", px, **kw)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got_u = tiff.imread(path, tiff.IMREAD_UNCHANGED)
+            walls.append(time.perf_counter() - t0)
+        got_c = tiff.imread(path, tiff.IMREAD_COLOR)
+        ok = same_image(got_u, want_u) and same_image(got_c, want_c)
+        mbps = None if want_u is None else \
+            px.nbytes / 1e6 / float(np.median(walls))
+        rates[name] = mbps
+        shapes = [None if g is None else f"{g.dtype} {g.shape}"
+                  for g in (got_u, got_c)]
+        log(f"  {'ok ' if ok else 'BAD'} {name}: {shapes}; read "
+            + ("None, as cv2" if mbps is None else f"{mbps:.1f} MB/s")
+            + f" ({path.stat().st_size / 1e6:.1f} MB on disk)")
+        if not ok:
+            failures.append(name)
+        if name == "PackBits u8 RGB":
+            data = np.fromfile(path, np.uint8)
+            ifd = tiff._Ifd(data, "<", int(data[4:8].view("<u4")[0]))
+            offsets, counts, rps = ifd.get(273), ifd.get(279), ifd.one(278)
+            sizes = np.minimum(rps, H - rps * np.arange(offsets.size)) * \
+                W * px.shape[2]
+            starts = np.concatenate([[0], np.cumsum(sizes[:-1])])
+            out = np.empty(int(sizes.sum()), np.uint8)
+            native.packbits_decode_chunks(data, offsets, counts, out,
+                                          starts, sizes)
+            plain = b"".join(tiff_plain.packbits_decode(
+                data[o:o + c].tobytes(), int(n))
+                for o, c, n in zip(offsets, counts, sizes))
+            same = out.tobytes() == plain
+            log(f"  {'ok ' if same else 'BAD'} native PackBits == "
+                f"tiff_plain.packbits_decode on the {offsets.size} strips")
+            if not same:
+                failures.append("native PackBits against its plain version")
+    path.unlink()
+    raise_failures("phase 15 (b)", failures)
+    return rates
+
+
+def rewrite_captures(root, dest, written) -> Path:
+    """Config 3's captures (``written``: path -> array, from
+    ``write_captures``) rewritten under ``dest`` as BigTIFF + PackBits +
+    PlanarConfiguration 2 (8-bit values, darks and flat; strips of 16
+    rows) and BigTIFF planar uncompressed float64 STD files, with a
+    config.ini naming the new darks and flats.  Returns the ini."""
+    from tests._torch_tiff_writer import build_tiff
+    for path, arr in written.items():
+        out = dest / path.relative_to(root)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        extra = dict(compression=32773) if arr.dtype == np.uint8 else {}
+        build_tiff(out, "<", arr[..., ::-1], bigtiff=True, planar=True,
+                   rps=16, **extra)
+    for txt in root.glob("*.txt"):
+        if txt.name.startswith(("pca_", "mean_")):
+            shutil.copy(txt, dest / txt.name)
+    ini = (root / "config.ini").read_text()
+    for sub in ("darks", "flats"):
+        ini = ini.replace(str(root / sub), str(dest / sub))
+    (dest / "config.ini").write_text(ini)
+    return dest / "config.ini"
+
+
 def params_of_curve(curve, mean_icrf, pca):
     """PCA parameters whose pinned curve is ``curve``: the pinned curve is
     (mean[k] - mean[-1] + 1) + (pca[k] - pca[-1]) @ p, linear in p; a
@@ -1779,6 +1877,7 @@ def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
                 f"{rates['file_mb']:.1f} MB on disk): write "
                 f"{rates['write_mbps']:.1f} MB/s, read "
                 f"{rates['read_mbps']:.1f} MB/s (host clock, median of 3)")
+        numbers["codec_layouts_read_mbps"] = tiff_layout_phase(root)
 
         # --- phase 16: the command line in-process ------------------------
         ini = str(root / "config.ini")
@@ -1937,6 +2036,46 @@ def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
             f"{busy_ms / 1e3 / wall * 100:.2f} % (trace "
             f"{trace_file.stat().st_size / 1e6:.1f} MB)")
         launches = {"CLI merge (phase 16)": counts}
+
+        log("phase 16 (b), second series: the same captures as BigTIFF + "
+            "PackBits + planar 8-bit values, darks and flat and BigTIFF "
+            "planar float64 STD files")
+        alt = root / "layouts"
+        t0 = time.perf_counter()
+        alt_ini = rewrite_captures(root, alt, written)
+        t_rewrite = time.perf_counter() - t0
+        for k in hdr_cuda.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli(["--config", str(alt_ini), "merge", "--images",
+                  str(alt / "images"), "--icrf", str(icrf_path), "--std",
+                  "--out", str(alt / "hdr")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts2 = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+        numbers["merge_layouts"] = dict(rewrite_s=t_rewrite, wall_s=wall)
+        log(f"  rewritten in {t_rewrite:.2f} s; rc {rc}, {wall:.3f} s host "
+            f"clock (one run); launches {counts2} (1 series)")
+        if rc != 0 or counts2 != {"merge_nhwc_fused": 0,
+                                  "merge_nhwc_lerp": 0,
+                                  "merge_nhwc_lerp_bp": 1}:
+            raise AssertionError(f"merge of the rewritten series: rc {rc}, "
+                                 f"launches {counts2}")
+        for suffix, want in zip(("", " STD"), got):
+            g = tiff.imread(alt / "hdr" / f"sample BF 50x HDR{suffix}.tif",
+                            tiff.IMREAD_UNCHANGED)
+            err = None if g is None or g.shape != want.shape else \
+                float(np.max(np.abs(g - want)))
+            log(f"  {'ok ' if err == 0 else 'BAD'} HDR{suffix} of the "
+                f"rewritten series against the LZW series': max abs error "
+                f"{err}")
+            if err != 0:
+                failures.append(f"HDR{suffix} of the rewritten series")
+        raise_failures("phase 16 (b), second series", failures)
+        shutil.rmtree(alt)
+        launches["CLI merge, BigTIFF + PackBits + planar (phase 16)"] = \
+            counts2
 
         for kind, paths, vdir in (("raw RGBA", video_paths, "videos"),
                                   ("MJPG", mjpg_paths, "mjpg_videos")):

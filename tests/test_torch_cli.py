@@ -106,6 +106,74 @@ def test_merge_matches_jax(capture_dir, tmp_path, corrections, std):
     assert all("HDR" in n for n in names)
 
 
+def _rewrite_workspace(capture_dir, root, std_planar, int16_darks):
+    """The captures, darks and flat of ``capture_dir`` (LZW and float64
+    TIFFs as cv2 writes them) rewritten as BigTIFF + PackBits + planar
+    8-bit values and BigTIFF float64 STD files (planar and uncompressed
+    when ``std_planar``, else chunky PackBits); with ``int16_darks`` the
+    darks become one-sample int16 MinIsWhite frames whose IMREAD_COLOR
+    reading (``255 - (v >> 8)``, repeated) is the dark's first channel.
+    Returns (images, icrf, config.ini)."""
+    from tests._torch_tiff_writer import build_tiff
+    d, icrf_path, _ = capture_dir
+    src = d.parent
+    rng = np.random.default_rng(5)
+    for path in sorted(src.rglob("*.tif")):
+        rel = path.relative_to(src)
+        if rel.parts[0] not in ("captures", "darks", "flats"):
+            continue
+        out = root / rel
+        out.parent.mkdir(parents=True, exist_ok=True)
+        arr = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        rgb = arr[..., ::-1]
+        if arr.dtype == np.float64:
+            build_tiff(out, ">", rgb, bigtiff=True, rps=7,
+                       **(dict(planar=True) if std_planar
+                          else dict(compression=32773)))
+        elif int16_darks and rel.parts[0] == "darks":
+            low = rng.integers(0, 256, arr.shape[:2])
+            v = ((255 - arr[..., 0].astype(np.int64)) << 8) | low
+            build_tiff(out, "<", v.astype(np.uint16).view(np.int16),
+                       rps=5, compression=32773, extra_tags=[(262, 3, [0])])
+        else:
+            build_tiff(out, "<", rgb, bigtiff=True, planar=True,
+                       compression=32773, rps=5)
+    ini = root / "config.ini"
+    ini.write_text(f"""
+[String data]
+dark frames path = {root / "darks"}
+flat fields path = {root / "flats"}
+""")
+    return root / "captures", icrf_path, ini
+
+
+@pytest.mark.parametrize("int16_darks", [False, True],
+                         ids=["values", "int16 MinIsWhite darks"])
+def test_merge_matches_jax_on_new_tiff_layouts(capture_dir, tmp_path,
+                                               int16_darks):
+    """``merge --std`` with darks and flat on captures stored as BigTIFF +
+    PackBits + planar: the port equals the JAX package (cv2 reading the
+    same files); the planar float64 STD files (which cv2 misreads) merge
+    to what the chunky ones do."""
+    runs = {}
+    for std_planar in (False, True):
+        images, icrf_path, ini = _rewrite_workspace(
+            capture_dir, tmp_path / f"w{int(std_planar)}", std_planar,
+            int16_darks)
+        common = ["--config", str(ini), "merge", "--images", str(images),
+                  "--icrf", str(icrf_path), "--std"]
+        out = tmp_path / f"port{int(std_planar)}"
+        assert tmain(CPU + common + ["--out", str(out)]) == 0
+        runs[std_planar] = out
+        if not std_planar:
+            assert jmain(common + ["--out", str(tmp_path / "jax")]) == 0
+    _same_tiffs(runs[False], tmp_path / "jax")
+    got, want = _read_dir(runs[True]), _read_dir(runs[False])
+    assert sorted(got) == sorted(want) and len(want) == 4
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
 def test_merge_stage_times_and_default_out(capture_dir):
     from camera_linearity_tpu_torch.utils import observability as obs
     d, icrf_path, ini = capture_dir
