@@ -344,7 +344,9 @@ def cmd_doctor(args) -> int:
                                  rows, sizes)
         mbps = plane.size / 1e6 / (time.perf_counter() - t0)
         print(f"native TIFF codec: built; LZW decode {mbps:.0f} MB/s "
-              "(one 1200 x 1920 x 3 u8 plane of noise)")
+              "(one 1200 x 1920 x 3 u8 plane of noise); also PackBits, "
+              "CCITT (compression 2, 3, 4), and JPEG (7) through the MJPEG "
+              "decoder")
     else:
         print(f"native TIFF codec: unavailable ({native.build_error('_tiff')})"
               "; TIFFs cannot be read or written")
@@ -352,10 +354,12 @@ def cmd_doctor(args) -> int:
         "built; modes " + ", ".join(native.JPEG_MODES) + " (an MJPG AVI "
         "takes 'ffmpeg', cv2's bytes, unless CL_DECODER names another); "
         "rawvideo layouts " + ", ".join(native.RAW_LAYOUTS) + " (the "
-        "uncompressed AVIs, cv2's bytes)"
+        "uncompressed AVIs, cv2's bytes); TIFF JPEG chunks as "
+        + ", ".join(native.TIFF_JPEG_FORMS)
         if native.mjpeg_available() else
-        f"unavailable ({native.build_error('_mjpeg')}); MJPG and "
-        "uncompressed AVIs other than RGBA cannot be read"))
+        f"unavailable ({native.build_error('_mjpeg')}); MJPG, "
+        "uncompressed AVIs other than RGBA and JPEG-compressed TIFFs "
+        "cannot be read"))
     if dev.type == "cuda":
         # one-time costs are paid before each timed window: the point is
         # the steady rate

@@ -6,8 +6,10 @@ would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
 and their fused finalize, u8 -> f32 normalization, a running Welford
 update from uint8 frames),
 ``jpeg.cpp`` (JPEG into BGR, the port's own, giving libjpeg-turbo's or
-cv2's bytes, and the frames of uncompressed AVIs as cv2 gives them) and
-``tiff.cpp`` (TIFF LZW, PackBits and predictors, the port's own) build
+cv2's bytes; the JPEG chunks of a TIFF as libtiff has libjpeg decode
+them; and the frames of uncompressed AVIs as cv2 gives them) and
+``tiff.cpp`` (TIFF LZW, PackBits, predictors and CCITT fax decoding, the
+port's own) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -31,6 +33,8 @@ import numpy as np
 # the MJPEG decoder's modes, by their number in jpeg.cpp, and the code of
 # a frame that ends before its first scan ("ffmpeg" mode: cv2 gives none)
 from .jpeg_plain import MODES as JPEG_MODES, NO_FRAME as JPEG_NO_FRAME
+# the output forms of a TIFF's JPEG chunks, by their number in jpeg.cpp
+from .jpeg_plain import TIFF_FORMS as TIFF_JPEG_FORMS
 # the uncompressed video layouts, by their number in jpeg.cpp
 from .rawvideo_plain import LAYOUTS as RAW_LAYOUTS, frame_bytes
 
@@ -41,8 +45,9 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "wire_quantize_u16f16", "narrow_f16", "mjpeg_available",
            "jpeg_decode_bgr", "jpeg_decode_bgr_batch", "JPEG_MODES",
            "raw_decode_bgr_batch", "RAW_LAYOUTS",
-           "tiff_available",
+           "jpeg_decode_tiff_chunks", "TIFF_JPEG_FORMS", "tiff_available",
            "lzw_decode_chunks", "packbits_decode_chunks",
+           "ccitt_decode_chunks",
            "lzw_encode_chunks", "predictor_undo",
            "predictor_apply", "build_error"]
 
@@ -301,6 +306,11 @@ def _load_mjpeg() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i,
             i, i, i, u8p, i, ctypes.POINTER(i)]
         lib.clt_raw_decode_bgr_batch.restype = None
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        lib.clt_jpeg_decode_tiff_batch.argtypes = [
+            u8p, sz, u8p, sz, u64p, u64p, sz, u8p, u64p,
+            ctypes.POINTER(i), i, i, i, i, i, ctypes.POINTER(i)]
+        lib.clt_jpeg_decode_tiff_batch.restype = None
         lib.clt_jpeg_version.restype = i
     except (OSError, AttributeError) as exc:
         _build_errors["_mjpeg"] = f"load failed: {exc}"
@@ -427,6 +437,50 @@ def jpeg_decode_bgr_batch(payloads, dst: np.ndarray, fast: bool = False,
     return k
 
 
+def jpeg_decode_tiff_chunks(tables, src: np.ndarray, offsets, counts,
+                            dst: np.ndarray, dst_offsets, heights,
+                            width: int, form: str,
+                            sampling=(1, 1)) -> np.ndarray:
+    """Decode the JPEG chunks (TIFF compression 7) of the file image
+    ``src`` (chunk i: bytes ``offsets[i]`` to ``offsets[i] + counts[i]``)
+    with one JPEGTables stream ``tables`` (bytes; empty for none) into
+    ``dst``, chunk i at ``dst_offsets[i]``, ``heights[i]`` x ``width``
+    pixels of 3 bytes (``form`` "ycc": YCbCr converted to RGB; "stored":
+    three components as stored) or 1 ("gray"), as libtiff has libjpeg
+    decode them for TIFFReadRGBA* and ``jpeg_plain.decode_tiff`` decodes
+    each; ``sampling``: the YCbCrSubSampling "ycc" holds the first
+    component to.  On all threads.  Returns each chunk's return code
+    (int32): 0, or ``jpeg_plain``'s codes (SAMPLING -8, and -9 for a
+    chunk outside the file)."""
+    lib = _mjpeg()
+    if form not in TIFF_JPEG_FORMS:
+        raise ValueError(f"unknown TIFF JPEG form {form!r}; expected one of "
+                         f"{TIFF_JPEG_FORMS}")
+    tab = np.frombuffer(bytes(tables), np.uint8)
+    src_p = _u8_buffer(src, "src")
+    offsets, counts = _u64(offsets, "offsets"), _u64(counts, "counts")
+    dst_offsets = _u64(dst_offsets, "dst_offsets")
+    heights = np.ascontiguousarray(heights, np.int32)
+    if not offsets.shape == counts.shape == dst_offsets.shape == \
+            heights.shape:
+        raise ValueError("offsets, counts, dst_offsets and heights differ "
+                         "in length")
+    channels = 1 if form == "gray" else 3
+    _check_ranges(dst_offsets, heights.astype(np.uint64) * width * channels,
+                  dst.size, "dst")
+    dst_p = _u8_buffer(dst, "dst", writable=True)
+    rcs = np.empty(offsets.size, np.int32)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.clt_jpeg_decode_tiff_batch(
+        _as_u8_ptr(tab), tab.size, src_p, src.size,
+        offsets.ctypes.data_as(u64p), counts.ctypes.data_as(u64p),
+        offsets.size, dst_p, dst_offsets.ctypes.data_as(u64p),
+        heights.ctypes.data_as(ip), width, TIFF_JPEG_FORMS.index(form),
+        int(sampling[0]), int(sampling[1]), _NTHREADS, rcs.ctypes.data_as(ip))
+    return rcs
+
+
 def raw_decode_bgr_batch(payloads, dst: np.ndarray, layout: str,
                          bottom_up: bool = False,
                          palette: Optional[np.ndarray] = None,
@@ -498,6 +552,10 @@ def _load_tiff() -> Optional[ctypes.CDLL]:
             u8p, u64p, u64p, sz, u8p, u64p, u64p, u64p, i]
         lib.clt_predictor_undo.argtypes = [u8p, sz, sz, i, i, i, i, i]
         lib.clt_predictor_apply.argtypes = [u8p, sz, sz, i, i, i]
+        lib.clt_ccitt_decode_chunks.argtypes = [
+            u8p, sz, u64p, u64p, sz, u8p, u64p, u64p,
+            ctypes.POINTER(ctypes.c_int32), i, i, i, i64p, i]
+        lib.clt_ccitt_decode_chunks.restype = None
         lib.clt_lzw_decode_chunks.restype = None
         lib.clt_packbits_decode_chunks.restype = None
         lib.clt_lzw_encode_chunks.restype = None
@@ -597,6 +655,51 @@ def packbits_decode_chunks(src: np.ndarray, offsets, counts,
     chunk outside the file."""
     return _decode_chunks(_tiff().clt_packbits_decode_chunks, "PackBits",
                           src, offsets, counts, dst, dst_offsets, dst_sizes)
+
+
+_CCITT_REASONS = {-1: "a bad code or a row of the wrong length",
+                  -2: "more rows than its room", -3: "lies outside the file",
+                  -4: "data that end inside a row",
+                  -5: "a row without its EOL"}
+
+
+def ccitt_decode_chunks(src: np.ndarray, offsets, counts, dst: np.ndarray,
+                        dst_offsets, dst_sizes, rows, width: int,
+                        compression: int, t4_options: int = 0) -> np.ndarray:
+    """Decode CCITT chunks of the file image ``src`` (chunk i: bytes
+    ``offsets[i]`` to ``offsets[i] + counts[i]``, ``rows[i]`` rows of
+    ``width`` pixels) into packed rows, 1 for black, each padded to a
+    byte (chunk i at ``dst_offsets[i]``, room for ``dst_sizes[i]``
+    bytes), on all threads: compression 2 (Modified Huffman), 3 (T.4,
+    ``t4_options`` its T4Options: bit 0 two-dimensional rows) or 4
+    (T.6).  Returns each chunk's bytes; raises ValueError naming the
+    first chunk that does not decode cleanly (where libtiff would conceal
+    an error), as ``tiff_plain.ccitt_decode`` raises."""
+    lib = _tiff()
+    src_p = _u8_buffer(src, "src")
+    dst_p = _u8_buffer(dst, "dst", writable=True)
+    offsets, counts = _u64(offsets, "offsets"), _u64(counts, "counts")
+    dst_offsets = _u64(dst_offsets, "dst_offsets")
+    dst_sizes = _u64(dst_sizes, "dst_sizes")
+    rows = np.ascontiguousarray(rows, np.int32)
+    if not offsets.shape == counts.shape == dst_offsets.shape == rows.shape:
+        raise ValueError("offsets, counts, dst_offsets and rows differ in "
+                         "length")
+    _check_ranges(dst_offsets, dst_sizes, dst.size, "dst")
+    got = np.empty(offsets.size, np.int64)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.clt_ccitt_decode_chunks(
+        src_p, src.size, offsets.ctypes.data_as(u64p),
+        counts.ctypes.data_as(u64p), offsets.size, dst_p,
+        dst_offsets.ctypes.data_as(u64p), dst_sizes.ctypes.data_as(u64p),
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), width,
+        compression, t4_options,
+        got.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), _NTHREADS)
+    bad = np.flatnonzero(got < 0)
+    if bad.size:
+        k = int(bad[0])
+        raise ValueError(f"CCITT chunk {k}: {_CCITT_REASONS[int(got[k])]}")
+    return got
 
 
 def lzw_encode_chunks(src: np.ndarray, offsets, sizes) -> list:

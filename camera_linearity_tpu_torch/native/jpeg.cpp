@@ -40,6 +40,15 @@
 // three).  Entropy data that ends early decodes as libjpeg's does: zero
 // bits past the end, and every later MCU of the segment left at zero.
 //
+// A fourth entry decodes the JPEG chunks of a TIFF (compression 7) as
+// libtiff sets libjpeg up for TIFFReadRGBA*: the JPEGTables stream's
+// segments spliced after each chunk's SOI, then mode 0's decode into one
+// output form, libjpeg's own channel order: photometric YCbCr converted
+// to RGB whatever the markers say, three components as stored (RGB), or
+// one component (gray); libtiff's component count and sampling checks
+// (the first component sampled as YCbCrSubSampling for YCbCr, 1x1
+// otherwise, the rest 1x1) return kSampling or kComponents.
+//
 // Built as a plain shared library with g++ on first use;
 // camera_linearity_tpu_torch.native loads it with ctypes.  The plain
 // Python version in native/jpeg_plain.py is what the tests hold it to.
@@ -63,8 +72,13 @@ constexpr int kComponents = -3;   // not three components (mode 2: not one or th
 constexpr int kUnsupported = -4;  // a mode this decoder does not read
 constexpr int kUnmatched = -5;    // ffmpeg mode: an error FFmpeg conceals
 constexpr int kNoFrame = -6;      // ffmpeg mode: data ends before the scan
+constexpr int kSampling = -8;     // TIFF chunk: sampling libtiff refuses
+constexpr int kOutside = -9;      // TIFF chunk: bytes outside the file
 
-enum Mode { kTurbo = 0, kTurboFast = 1, kFfmpeg = 2 };
+// kTiff: mode 0's decode of a TIFF chunk, one component allowed
+enum Mode { kTurbo = 0, kTurboFast = 1, kFfmpeg = 2, kTiff = 3 };
+// a TIFF chunk's output form (libjpeg's output colour space)
+enum TiffForm { kFormYcc = 0, kFormStored = 1, kFormGray = 2 };
 
 constexpr int kEoi = 0xD9;
 constexpr int kLook = 9;          // Huffman lookahead bits
@@ -531,11 +545,13 @@ constexpr const char* kFfmpegComments[] = {
 inline int be16(const std::uint8_t* p) { return (p[0] << 8) | p[1]; }
 
 // A scan header: each component's frame index and table slots, then Ss,
-// Se, Ah and Al.  Modes 0 and 1 read only scans of all three components.
-int read_sos(Header& hd, const std::uint8_t* seg, int body, bool ffmpeg) {
+// Se, Ah and Al.  Modes 0 and 1 read only scans of all three components
+// (a TIFF chunk: of all its components).
+int read_sos(Header& hd, const std::uint8_t* seg, int body, bool ffmpeg,
+             bool tiff) {
     const int n = body >= 1 ? seg[0] : 0;
     if (body != 4 + 2 * n || n < 1 || n > 4) return kCorrupt;
-    if (n != 3 && !ffmpeg) return kUnsupported;  // one component a scan
+    if (n != (tiff ? hd.ncomp : 3) && !ffmpeg) return kUnsupported;  // one component a scan
     if (n > hd.ncomp) return kCorrupt;
     bool used[3] = {false, false, false};
     for (int i = 0; i < n; ++i) {
@@ -592,7 +608,8 @@ int walk(Source& src, Header& hd, int mode, bool header, int first = 0) {
                 body != 6 + 3 * hd.ncomp)
                 return kCorrupt;
             if (hd.precision != 8) return kUnsupported;
-            if (hd.ncomp != 3 && !(ffmpeg && hd.ncomp == 1)) return kComponents;
+            if (hd.ncomp != 3 && !((ffmpeg || mode == kTiff) && hd.ncomp == 1))
+                return kComponents;
             for (int c = 0; c < hd.ncomp; ++c) {
                 Component& k = hd.comp[c];
                 k.id = seg[6 + 3 * c];
@@ -651,7 +668,7 @@ int walk(Source& src, Header& hd, int mode, bool header, int first = 0) {
         } else if (m == 0xDA) {  // SOS
             src.sos = true;
             if (!hd.sof) return kCorrupt;
-            const int rc = read_sos(hd, seg, body, ffmpeg);
+            const int rc = read_sos(hd, seg, body, ffmpeg, mode == kTiff);
             return rc == kOk ? m : rc;
         } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xCC ||
                    m == 0xDC) {
@@ -1021,22 +1038,31 @@ struct Decoder {
     Header hd;
     int mode = kTurbo;
     bool fast = false, rgb = false;
+    int form = -1;                 // a TIFF chunk's TiffForm; -1 a video frame
+    int ss_h = 1, ss_v = 1;        // a TIFF's YCbCrSubSampling
     int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
     Huff dctab[4], actab[4];
     Upsample up[3];
     Scratch* s = nullptr;
 
-    // The output rows [y0, y1) from the planes, as BGR.
+    // The output rows [y0, y1) from the planes, as BGR (a TIFF chunk: in
+    // libjpeg's order, RGB or the components as stored; gray one byte).
     void convert(std::uint8_t* dst, int y0, int y1) {
         const int W = hd.width;
         std::uint32_t* px = s->packed.data();
+        // the byte shifts of the first and last output channel
+        const int lo = form >= 0 ? 0 : 16, hi = 16 - lo;
         for (int y = y0; y < y1; ++y) {
             const std::uint8_t* c0 = hd.comp[0].plane + y * hd.comp[0].stride;
+            if (hd.ncomp == 1) {
+                std::memcpy(dst + static_cast<std::size_t>(y) * W, c0, W);
+                continue;
+            }
             const std::uint8_t* c1 = chroma_row(1, y, s->row[0].data());
             const std::uint8_t* c2 = chroma_row(2, y, s->row[1].data());
             if (rgb) {
                 for (int x = 0; x < W; ++x)
-                    px[x] = c2[x] | (c1[x] << 8) | (c0[x] << 16);
+                    px[x] = (c2[x] << hi) | (c1[x] << 8) | (c0[x] << lo);
             } else {
                 // jdcolor.c's tables, computed: Cr_r = (FIX(1.402) x +
                 // ONE_HALF) >> 16 and so on, x = sample - 128
@@ -1046,7 +1072,7 @@ struct Decoder {
                     const std::uint32_t g = clamp255(
                         yy + ((-22554 * cb - 46802 * cr + 32768) >> 16));
                     const std::uint32_t r = clamp255(yy + ((91881 * cr + 32768) >> 16));
-                    px[x] = b | (g << 8) | (r << 16);
+                    px[x] = (b << hi) | (g << 8) | (r << lo);
                 }
             }
             store_row(dst, y, px);
@@ -1110,29 +1136,42 @@ struct Decoder {
     }
 
     int setup() {
-        for (int k = 0; k < 3; ++k) {
+        const int nc = hd.ncomp;
+        for (int k = 0; k < nc; ++k) {
             const Component& c = hd.comp[k];
             if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return kCorrupt;
             hmax = std::max(hmax, c.h);
             vmax = std::max(vmax, c.v);
         }
         int blocks = 0;
-        for (const Component& c : hd.comp) blocks += c.h * c.v;
+        for (int k = 0; k < nc; ++k) blocks += hd.comp[k].h * hd.comp[k].v;
         if (blocks > 10) return kCorrupt;  // libjpeg's D_MAX_BLOCKS_IN_MCU
-        // the first component at full size; the other two alike, at full
-        // size or halved across or both ways
+        if (form >= 0) {  // libtiff's checks (tif_jpeg.c, JPEGPreDecode)
+            if (nc != (form == kFormGray ? 1 : 3)) return kComponents;
+            for (int k = 0; k < nc; ++k) {
+                const bool sub = k == 0 && form == kFormYcc;
+                if (hd.comp[k].h != (sub ? ss_h : 1) || hd.comp[k].v != (sub ? ss_v : 1))
+                    return kSampling;
+            }
+        }
         const Component &c0 = hd.comp[0], &c1 = hd.comp[1], &c2 = hd.comp[2];
-        if (c0.h != hmax || c0.v != vmax || c1.h != c2.h || c1.v != c2.v ||
-            hmax % c1.h || vmax % c1.v)
-            return kUnsupported;
-        const int hx = hmax / c1.h, vx = vmax / c1.v;
-        if (!((hx == 1 && vx == 1) || (hx == 2 && vx == 1) || (hx == 2 && vx == 2)))
-            return kUnsupported;
-        // libjpeg's colour space guess (jdapimin.c)
-        if (hd.jfif) rgb = false;
+        if (nc == 3) {
+            // the first component at full size; the other two alike, at
+            // full size or halved across or both ways
+            if (c0.h != hmax || c0.v != vmax || c1.h != c2.h || c1.v != c2.v ||
+                hmax % c1.h || vmax % c1.v)
+                return kUnsupported;
+            const int hx = hmax / c1.h, vx = vmax / c1.v;
+            if (!((hx == 1 && vx == 1) || (hx == 2 && vx == 1) || (hx == 2 && vx == 2)))
+                return kUnsupported;
+        }
+        // libjpeg's colour space guess (jdapimin.c); libtiff sets it for a
+        // TIFF chunk
+        if (form >= 0) rgb = form == kFormStored;
+        else if (hd.jfif) rgb = false;
         else if (hd.adobe) rgb = hd.transform == 0;
         else rgb = c0.id == 'R' && c1.id == 'G' && c2.id == 'B';
-        for (int k = 0; k < 3; ++k) {
+        for (int k = 0; k < nc; ++k) {
             Component& c = hd.comp[k];
             if (c.tq > 3 || !hd.qdef[c.tq]) return kCorrupt;
             const std::uint16_t* qt = hd.qt[c.tq];
@@ -1147,7 +1186,8 @@ struct Decoder {
         if (!hd.ac[0].defined) standard_table(hd.ac[0], kAcLumBits, kAcLumVal, 162);
         if (!hd.dc[1].defined) standard_table(hd.dc[1], kDcChromBits, kDcVal, 12);
         if (!hd.ac[1].defined) standard_table(hd.ac[1], kAcChromBits, kAcChromVal, 162);
-        for (const Component& c : hd.comp) {
+        for (int k = 0; k < nc; ++k) {
+            const Component& c = hd.comp[k];
             if (c.td > 3 || c.ta > 3 || !hd.dc[c.td].defined || !hd.ac[c.ta].defined)
                 return kCorrupt;
             if (!derive(hd.dc[c.td], true, dctab[c.td]) ||
@@ -1156,7 +1196,7 @@ struct Decoder {
         }
         mcux = (hd.width + 8 * hmax - 1) / (8 * hmax);
         mcuy = (hd.height + 8 * vmax - 1) / (8 * vmax);
-        for (int k = 0; k < 3; ++k) {
+        for (int k = 0; k < nc; ++k) {
             Component& c = hd.comp[k];
             c.width = static_cast<int>((static_cast<long>(hd.width) * c.h + hmax - 1) / hmax);
             c.height = static_cast<int>((static_cast<long>(hd.height) * c.v + vmax - 1) / vmax);
@@ -1244,7 +1284,7 @@ struct Decoder {
                 }
                 // once the data ran out, the segment's MCUs stay zero
                 const bool skip = br.insufficient;
-                for (int i = 0; i < 3; ++i) {
+                for (int i = 0; i < hd.nscan; ++i) {
                     const int k = hd.scan_order[i];
                     Component& c = hd.comp[k];
                     const Huff& dct = dctab[c.td];
@@ -2029,6 +2069,29 @@ int decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst,
     return dec.run(data, n, src.pos, dst);
 }
 
+// One TIFF chunk (already spliced with its tables) in TiffForm `form`
+// into dst: height*width*3 bytes (RGB or as stored) or height*width
+// (gray).
+int tiff_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst,
+                int height, int width, int form, int hs, int vs) {
+    if (form < kFormYcc || form > kFormGray) return kUnsupported;
+    Decoder dec;
+    dec.mode = kTiff;
+    dec.form = form;
+    dec.ss_h = hs;
+    dec.ss_v = vs;
+    dec.s = &tls_scratch;
+    Source src{data, n, 0};
+    int rc = read_header(src, dec.hd, kTiff);
+    if (rc != kOk) return rc;
+    rc = dec.setup();
+    if (rc != kOk) return rc;
+    if (dec.hd.height != height || dec.hd.width != width) return kGeometry;
+    return dec.run(data, n, src.pos, dst);
+}
+
+thread_local std::vector<std::uint8_t> tls_spliced;
+
 // ---- rawvideo: the frames of an uncompressed AVI ----
 //
 // What cv2.VideoCapture gives for a frame chunk (FFmpeg's rawdec.c, then
@@ -2196,6 +2259,51 @@ void clt_raw_decode_bgr_batch(const unsigned char* const* srcs,
     });
 }
 
-int clt_jpeg_version() { return 4; }
+// Decode k JPEG chunks of a TIFF's file image `src` (chunk i at
+// offsets[i], counts[i] bytes) with one JPEGTables stream (tables_n
+// bytes, 0 for none) into dst, chunk i at dst_offsets[i], heights[i] x
+// width pixels of 3 bytes (form 0 YCbCr -> RGB, 1 as stored) or 1 (form
+// 2 gray); hs, vs: the YCbCrSubSampling form 0 checks the first
+// component against.  On up to nthreads threads; rcs[i] gets chunk i's
+// return code as clt_jpeg_decode_bgr gives it in mode 0 (-3 also for a
+// component count other than the form's), -8 for sampling libtiff
+// refuses, -9 for a chunk outside the file, -1 for tables or a chunk
+// that do not start with SOI (the tables: or end with EOI).
+void clt_jpeg_decode_tiff_batch(const unsigned char* tables, std::size_t tables_n,
+                                const unsigned char* src, std::size_t src_size,
+                                const std::uint64_t* offsets,
+                                const std::uint64_t* counts, std::size_t k,
+                                unsigned char* dst, const std::uint64_t* dst_offsets,
+                                const int* heights, int width, int form, int hs,
+                                int vs, int nthreads, int* rcs) {
+    const bool tables_ok = tables_n == 0 ||
+        (tables_n >= 4 && tables[0] == 0xFF && tables[1] == 0xD8 &&
+         tables[tables_n - 2] == 0xFF && tables[tables_n - 1] == kEoi);
+    parallel_items(k, nthreads, [&](std::size_t i) {
+        if (offsets[i] > src_size || counts[i] > src_size - offsets[i]) {
+            rcs[i] = kOutside;
+            return;
+        }
+        const unsigned char* chunk = src + offsets[i];
+        const std::size_t n = counts[i];
+        if (!tables_ok || n < 2 || chunk[0] != 0xFF || chunk[1] != 0xD8) {
+            rcs[i] = kCorrupt;
+            return;
+        }
+        const unsigned char* data = chunk;
+        std::size_t size = n;
+        if (tables_n) {  // the tables' segments after the chunk's SOI
+            tls_spliced.resize(tables_n - 2 + n - 2);
+            std::memcpy(tls_spliced.data(), tables, tables_n - 2);
+            std::memcpy(tls_spliced.data() + tables_n - 2, chunk + 2, n - 2);
+            data = tls_spliced.data();
+            size = tls_spliced.size();
+        }
+        rcs[i] = tiff_decode(data, size, dst + dst_offsets[i], heights[i], width,
+                             form, hs, vs);
+    });
+}
+
+int clt_jpeg_version() { return 5; }
 
 }  // extern "C"

@@ -58,23 +58,32 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["decode", "decode_bgr", "STANDARD_TABLES", "MODES", "OK",
-           "CORRUPT", "GEOMETRY", "COMPONENTS", "UNSUPPORTED", "UNMATCHED",
-           "NO_FRAME"]
+__all__ = ["decode", "decode_bgr", "decode_tiff", "splice_tables",
+           "STANDARD_TABLES", "MODES", "TIFF_FORMS", "OK", "CORRUPT",
+           "GEOMETRY", "COMPONENTS", "UNSUPPORTED", "UNMATCHED", "NO_FRAME",
+           "SAMPLING"]
 
 # clt_jpeg_decode_bgr's return codes; NO_FRAME (the "ffmpeg" mode only):
-# the data ends before the first scan, where FFmpeg returns no frame
+# the data ends before the first scan, where FFmpeg returns no frame;
+# SAMPLING (TIFF chunks only): sampling factors libtiff refuses
 OK, CORRUPT, GEOMETRY, COMPONENTS, UNSUPPORTED, UNMATCHED, NO_FRAME = \
     0, -1, -2, -3, -4, -5, -6
+SAMPLING = -8
 _REASONS = {CORRUPT: "corrupt JPEG data", GEOMETRY: "frame geometry",
             COMPONENTS: "a component count the mode does not read (2 or 4; "
                         "1 outside the 'ffmpeg' mode)",
             UNSUPPORTED: "a mode the decoder does not read",
             UNMATCHED: "data FFmpeg decodes with an error it conceals",
-            NO_FRAME: "the data ends before the first scan"}
+            NO_FRAME: "the data ends before the first scan",
+            SAMPLING: "sampling factors other than the TIFF tags say"}
 
 # the decoder's modes, by their number in jpeg.cpp
 MODES = ("turbo", "turbo_fast", "ffmpeg")
+# the output forms of a TIFF chunk, by their number in jpeg.cpp, as libtiff
+# sets up libjpeg for TIFFReadRGBA*: photometric YCbCr converted to RGB
+# (JPEGCOLORMODE_RGB: jpeg_color_space YCbCr whatever the markers say),
+# three components as stored (JCS_UNKNOWN: RGB), one component (gray)
+TIFF_FORMS = ("ycc", "stored", "gray")
 
 # COM segments that change how FFmpeg's MJPEG decoder reads a frame
 # (limited range, flipped or interlaced frames)
@@ -258,7 +267,7 @@ def _read_header(src: _Source, mode: str = "turbo") -> _Header:
 def _walk(src: _Source, hd: _Header, mode: str, header: bool) -> int:
     """Reads marker segments into hd up to and including the next SOS (its
     scan header read), or up to EOI between scans; returns that marker."""
-    ffmpeg = mode == "ffmpeg"
+    ffmpeg, tiff = mode == "ffmpeg", mode == "tiff"
     while True:
         m = src.next_marker()
         if m in (_EOI, 0xD8):
@@ -285,7 +294,7 @@ def _walk(src: _Source, hd: _Header, mode: str, header: bool) -> int:
                 raise _Fault(CORRUPT)
             if hd.precision != 8:
                 raise _Fault(UNSUPPORTED)
-            if ncomp not in ((1, 3) if ffmpeg else (3,)):
+            if ncomp not in ((1, 3) if ffmpeg or tiff else (3,)):
                 raise _Fault(COMPONENTS)
             hd.comps = [dict(id=seg[6 + 3 * c], h=seg[7 + 3 * c] >> 4,
                              v=seg[7 + 3 * c] & 15, tq=seg[8 + 3 * c])
@@ -338,7 +347,7 @@ def _walk(src: _Source, hd: _Header, mode: str, header: bool) -> int:
             src.sos = True
             if not hd.sof:
                 raise _Fault(CORRUPT)
-            _read_sos(hd, seg, body, ffmpeg)
+            _read_sos(hd, seg, body, ffmpeg, tiff)
             return m
         elif skipped or m in (0xCC, 0xDC):
             if m == 0xFE:
@@ -347,14 +356,15 @@ def _walk(src: _Source, hd: _Header, mode: str, header: bool) -> int:
             raise _Fault(CORRUPT)
 
 
-def _read_sos(hd: _Header, seg: bytes, body: int, ffmpeg: bool) -> None:
+def _read_sos(hd: _Header, seg: bytes, body: int, ffmpeg: bool,
+              tiff: bool = False) -> None:
     """A scan header: the frame index and table slots of each component,
     and the spectral selection and successive approximation (Ss, Se, Ah,
     Al) that progressive scans use."""
     n = seg[0] if body >= 1 else 0
     if body != 4 + 2 * n or not 1 <= n <= 4:
         raise _Fault(CORRUPT)
-    if n != 3 and not ffmpeg:
+    if n != (len(hd.comps) if tiff else 3) and not ffmpeg:
         raise _Fault(UNSUPPORTED)
     if n > len(hd.comps):
         raise _Fault(CORRUPT)
@@ -1220,7 +1230,8 @@ def decode_bgr(data: bytes, height: int, width: int, mode="ffmpeg"
 
 
 def _decode(hd: _Header, src: _Source, mode: str, height: int,
-            width: int):
+            width: int, form: Optional[str] = None,
+            sampling: Tuple[int, int] = (1, 1)):
     if mode == "ffmpeg":
         return _decode_ffmpeg(hd, src, height, width), OK
     fast = mode == "turbo_fast"
@@ -1232,14 +1243,25 @@ def _decode(hd: _Header, src: _Source, mode: str, height: int,
     vmax = max(c["v"] for c in comps)
     if sum(c["h"] * c["v"] for c in comps) > 10:
         raise _Fault(CORRUPT)
-    c0, c1, c2 = comps
-    if (c0["h"], c0["v"]) != (hmax, vmax) or \
-            (c1["h"], c1["v"]) != (c2["h"], c2["v"]) or \
-            hmax % c1["h"] or vmax % c1["v"] or \
-            (hmax // c1["h"], vmax // c1["v"]) not in ((1, 1), (2, 1), (2, 2)):
-        raise _Fault(UNSUPPORTED)
+    if form is not None:  # libtiff's checks (tif_jpeg.c, JPEGPreDecode)
+        if len(comps) != (1 if form == "gray" else 3):
+            raise _Fault(COMPONENTS)
+        want = [sampling if form == "ycc" else (1, 1)] + \
+            [(1, 1)] * (len(comps) - 1)
+        if [(c["h"], c["v"]) for c in comps] != want:
+            raise _Fault(SAMPLING)
+    if len(comps) == 3:
+        c0, c1, c2 = comps
+        if (c0["h"], c0["v"]) != (hmax, vmax) or \
+                (c1["h"], c1["v"]) != (c2["h"], c2["v"]) or \
+                hmax % c1["h"] or vmax % c1["v"] or \
+                (hmax // c1["h"], vmax // c1["v"]) not in ((1, 1), (2, 1),
+                                                          (2, 2)):
+            raise _Fault(UNSUPPORTED)
     ids = bytes(c["id"] for c in comps)
-    if hd.jfif:
+    if form is not None:  # libtiff sets the colour space itself
+        rgb = form == "stored"
+    elif hd.jfif:
         rgb = False
     elif hd.adobe:
         rgb = hd.transform == 0
@@ -1274,13 +1296,17 @@ def _decode(hd: _Header, src: _Source, mode: str, height: int,
         dw = -(-hd.width * c["h"] // hmax)
         full.append(_upsample(plane, dh, dw, hmax // c["h"], vmax // c["v"],
                               not fast, height, width))
-    if rgb:
+    if len(full) == 1:
+        frame = full[0].astype(np.uint8)
+    elif rgb:
         frame = np.stack([full[2], full[1], full[0]], -1).astype(np.uint8)
     else:
         y, cb, cr = full
         frame = np.stack([y + _CB_B[cb],
                           y + ((_CB_G[cb] + _CR_G[cr]) >> 16),
                           y + _CR_R[cr]], -1).clip(0, 255).astype(np.uint8)
+    if form is not None and frame.ndim == 3:  # libjpeg's order: RGB
+        frame = np.ascontiguousarray(frame[..., ::-1])
     return frame, _trailer(src, marker)
 
 
@@ -1433,3 +1459,40 @@ def decode(data: bytes, mode=False) -> np.ndarray:
     if code != OK:
         raise ValueError(f"jpeg_plain.decode: {_REASONS[code]}")
     return frame
+
+
+def splice_tables(tables: bytes, chunk: bytes) -> bytes:
+    """One stream from a TIFF's JPEGTables (SOI, tables, EOI) and an
+    abbreviated chunk: the tables' segments after the chunk's SOI, which
+    is what libjpeg reading both streams in turn keeps.  No tables: the
+    chunk."""
+    if not tables:
+        return bytes(chunk)
+    if tables[:2] != b"\xff\xd8" or tables[-2:] != b"\xff\xd9" or \
+            chunk[:2] != b"\xff\xd8":
+        raise _Fault(CORRUPT)
+    return bytes(tables[:-2]) + bytes(chunk[2:])
+
+
+def decode_tiff(tables: bytes, chunk: bytes, height: int, width: int,
+                form: str, sampling: Tuple[int, int] = (1, 1)
+                ) -> Tuple[int, Optional[np.ndarray]]:
+    """``clt_jpeg_decode_tiff_batch``'s decode of one TIFF chunk in plain
+    Python: ``(return code, samples)``, the samples (height, width, 3)
+    RGB (``form`` "ycc" or "stored") or (height, width) uint8 ("gray"),
+    decoded as the ``"turbo"`` mode decodes (islow IDCT, fancy
+    upsampling, jdcolor's tables).  The frame must have one component for
+    "gray" and three otherwise (COMPONENTS), the first sampled as
+    ``sampling`` for "ycc" and every other one 1x1 (SAMPLING), and be
+    ``height`` x ``width`` (GEOMETRY)."""
+    if form not in TIFF_FORMS:
+        raise ValueError(f"unknown TIFF form {form!r}; expected one of "
+                         f"{TIFF_FORMS}")
+    try:
+        src = _Source(splice_tables(tables, chunk))
+        hd = _read_header(src, "tiff")
+        frame, code = _decode(hd, src, "turbo", height, width, form,
+                              sampling)
+    except _Fault as fault:
+        return fault.code, None
+    return code, frame

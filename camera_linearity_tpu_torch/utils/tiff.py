@@ -38,22 +38,62 @@ the stored image.
 It reads the first IFD of a classic TIFF or a BigTIFF, ``II`` or ``MM``
 byte order, strips or tiles, chunky or planar samples, FillOrder 1 or 2,
 Orientation 1-8; compression 1, 5 (LZW, native), 8 and 32946 (Deflate,
-through ``zlib``) or 32773 (PackBits, native); predictor 1, 2 (8-64 bit
-integers and floats) or 3 (floats); 8-, 16-, 32- and 64-bit unsigned or
-signed integer and 32- and 64-bit float samples, packed 10-, 12- and
-14-bit unsigned samples; photometric MinIsWhite (0) and MinIsBlack (1)
-with 1 or 2 samples, RGB (2) with 1, 3 or 4, palette (3) of 1-, 4- or
-8-bit indices (8-bit with alpha too), CMYK (5, InkSet 1) of 4 8-bit
-samples; a predictor only under LZW and Deflate, as libtiff.  Refused before
-any decode, by a ValueError naming the tag and its value (nothing falls
-back to another codec): JPEG (6, 7), CCITT (2-4), LZMA, ZSTD, WebP, JPEG
-XL and other compressions; YCbCr (6), CIELab and other photometrics;
-bilevel and other sub-byte gray, 2-bit and 16-bit palettes, 16-bit
-floats, CMYK other than 4 8-bit samples, gray with more than 2 samples,
-more than 4 samples; mixed BitsPerSample or SampleFormat; signed packed
-samples; predictor 2 on packed samples, predictor 3 on integers;
+through ``zlib``), 32773 (PackBits, native), 7 (JPEG, native: below) or
+2, 3 and 4 (CCITT Modified Huffman, T.4 one- and two-dimensional with or
+without fill bits, T.6; native, 1-bit rows filled 1 for black as
+libtiff's decoder fills them); predictor 1, 2 (8-64 bit integers and
+floats) or 3 (floats); 8-, 16-, 32- and 64-bit unsigned or signed integer
+and 32- and 64-bit float samples, packed 10-, 12- and 14-bit samples
+(signed ones as ``min(v << (16 - bits), 32767)`` in int16, cv2's
+saturation); photometric MinIsWhite (0) and MinIsBlack (1) with 1 to 4
+samples (with 3 or 4: the first sample on the RGBA route, cv2's gray of
+the first three, taken as RGB, on the direct one) or 1-bit (0 or 255;
+2- and 4-bit gray give None, as cv2), RGB (2) with 1, 3 or 4, palette
+(3) of 1-, 4- or 8-bit indices (8-bit with alpha too; an 8-bit one
+without its ColorMap reads as gray, 1- and 4-bit ones give None, as
+cv2), CMYK (5, InkSet 1) of 4 8-bit samples, YCbCr (6) of 3 8-bit
+chunky samples; a predictor only under LZW and Deflate, as libtiff.
+
+YCbCr outside JPEG comes in units (a block of YCbCrSubSampling Y, then
+Cb and Cr; 1x1, 2x1, 2x2, 1x2, 4x1, 4x2 and 4x4 read, 1x4 and 2x4 give
+None as libtiff refuses them), converted as libtiff's RGBA reader does:
+chroma repeated over its block, ``TIFFYCbCrtoRGB``'s integer tables from
+YCbCrCoefficients and ReferenceBlackWhite (rationals as
+single-precision floats; defaults 0.299/0.587/0.114 and 0, 255, 128,
+255, 128, 255); YCbCrPositioning is not used.  JPEG chunks decode as
+libtiff has libjpeg decode them for ``TIFFReadRGBA*``: the JPEGTables
+stream's segments spliced after each chunk's SOI, then libjpeg-turbo's
+islow IDCT, fancy upsampling and ``jdcolor`` tables
+(``native.jpeg_decode_tiff_chunks``): photometric YCbCr converted to RGB
+whatever JFIF, Adobe or the component IDs say, RGB as stored, gray as
+one component; a tile at its full size, the last strip at its own rows;
+YCbCr sampling 1x1, 2x1 or 2x2, taken from the first chunk where the
+YCbCrSubSampling tag is missing (libtiff's JPEGFixupTags); FillOrder is
+ignored, as libtiff's JPEG codec ignores it.  A chunk sampled otherwise
+than the tags say, or with another component count, gives None (libtiff
+refuses it, and cv2 gives None).
+
+Refused before any decode, by a ValueError naming the tag and its value
+(nothing falls back to another codec): old-style JPEG (6), JPEG 2000,
+LZMA, ZSTD, WebP, JPEG XL and other compressions; JPEG chunks of other
+than 8-bit gray, RGB or YCbCr chunky samples (CMYK among them); CCITT of
+other than one 1-bit sample, T4Options or T6Options uncompressed mode;
+CIELab, ICCLab, ITULab and other photometrics; YCbCr of other than 3
+8-bit chunky samples, other subsamplings, a predictor on subsampled
+units, strips of a row count that is not a multiple of the unit, tiles
+not a multiple of it, 4x4 units in tiles of an image whose sides are not
+multiples of 4 (libtiff writes wrong pixels there); sub-byte gray with
+more than one sample, gray of 3-4 samples wider than 16 bits, 2-bit and
+16-bit palettes, a missing ColorMap on other than one unsigned sample,
+16-bit floats, CMYK other than 4 8-bit samples, more than 4 samples;
+mixed BitsPerSample or SampleFormat; signed packed samples of more than
+one sample; predictor 2 on packed samples, predictor 3 on integers;
 FillOrder 2 on uncompressed tiles (cv2 gives None or not by the tile
-size).
+size).  Raised while decoding, naming the chunk: a JPEG chunk libjpeg
+would stop on or that is progressive, lossless, arithmetic or 12-bit,
+or whose frame is not the chunk's size; a CCITT chunk libtiff would read
+only by concealing an error (a bad code, a row of the wrong length, a
+missing EOL, data that end inside a row).
 
 ``imwrite`` makes OpenCV's choices: LZW with predictor 2 for uint8 and
 uint16, no compression for float32 and float64, strips of about 8 KiB,
@@ -82,6 +122,8 @@ _FILL_ORDER, _STRIP_OFFSETS, _ORIENTATION, _SPP = 266, 273, 274, 277
 _ROWS_PER_STRIP, _STRIP_COUNTS, _PLANAR, _PREDICTOR = 278, 279, 284, 317
 _COLORMAP, _TILE_WIDTH, _TILE_LENGTH, _TILE_OFFSETS = 320, 322, 323, 324
 _TILE_COUNTS, _INKSET, _EXTRA_SAMPLES, _SAMPLE_FORMAT = 325, 332, 338, 339
+_T4_OPTIONS, _T6_OPTIONS, _JPEG_TABLES = 292, 293, 347
+_YCBCR_COEFFICIENTS, _YCBCR_SUBSAMPLING, _REFERENCE_BW = 529, 530, 532
 
 _TAG_NAMES = {
     _BITS: "BitsPerSample", _COMPRESSION: "Compression",
@@ -90,12 +132,24 @@ _TAG_NAMES = {
     _PLANAR: "PlanarConfiguration", _PREDICTOR: "Predictor",
     _COLORMAP: "ColorMap", _INKSET: "InkSet",
     _EXTRA_SAMPLES: "ExtraSamples", _SAMPLE_FORMAT: "SampleFormat",
+    _T4_OPTIONS: "T4Options", _T6_OPTIONS: "T6Options",
+    _YCBCR_COEFFICIENTS: "YCbCrCoefficients",
+    _YCBCR_SUBSAMPLING: "YCbCrSubSampling",
+    _REFERENCE_BW: "ReferenceBlackWhite", _ROWS_PER_STRIP: "RowsPerStrip",
+    _TILE_WIDTH: "TileWidth",
 }
 # TIFF field type -> NumPy code (the byte order is added per file)
 _TYPES = {1: "u1", 2: "u1", 3: "u2", 4: "u4", 6: "i1", 7: "u1", 8: "i2",
           9: "i4", 11: "f4", 12: "f8", 13: "u4", 16: "u8", 17: "i8",
           18: "u8"}
-_COMPRESSIONS = (1, 5, 8, 32773, 32946)
+_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946)
+_CCITT = (2, 3, 4)
+# YCbCrSubSampling libtiff's RGBA reader converts (uncompressed units);
+# (1, 4) and (2, 4) it refuses (cv2 gives None); JPEG: libjpeg's fancy
+# upsampling as jpeg.cpp reads it
+_YCBCR_UNITS = ((1, 1), (2, 1), (2, 2), (1, 2), (4, 1), (4, 2), (4, 4))
+_YCBCR_NONE = ((1, 4), (2, 4))
+_YCBCR_JPEG = ((1, 1), (2, 1), (2, 2))
 _REVERSED_BITS = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                           np.uint8)
 
@@ -119,10 +173,12 @@ class _Ifd:
             tag, typ, count, value = struct.unpack_from(
                 order + ("HHQ8s" if big else "HHI4s"), data,
                 offset + head + entry * k)
-            code = _TYPES.get(typ)
-            if code is None:  # rationals: no tag read here needs one
+            rational = typ in (5, 10)
+            code = ("u4" if typ == 5 else "i4") if rational else \
+                _TYPES.get(typ)
+            if code is None:
                 continue
-            size = np.dtype(code).itemsize * count
+            size = np.dtype(code).itemsize * count * (2 if rational else 1)
             if size <= inline:
                 raw = np.frombuffer(value, np.uint8, size)
             else:
@@ -131,7 +187,14 @@ class _Ifd:
                     raise ValueError(f"tag {tag}'s values lie outside the "
                                      "file")
                 raw = data[at:at + size]
-            self.tags[tag] = raw.view(order + code).astype(np.int64)
+            values = raw.view(order + code)
+            if rational:  # as libtiff reads them: float num / float den
+                num, den = (values[0::2].astype(np.float32),
+                            values[1::2].astype(np.float32))
+                self.tags[tag] = np.divide(num, den, out=np.zeros_like(num),
+                                           where=den != 0)
+            else:
+                self.tags[tag] = values.astype(np.int64)
 
     def get(self, tag: int, default=None):
         v = self.tags.get(tag)
@@ -165,6 +228,8 @@ class _Layout(NamedTuple):
     orientation: int
     unassociated: bool    # the 4th sample is unassociated alpha
     colormap: Optional[np.ndarray]   # (3, 2 ** bits) for a palette
+    ycbcr: Optional[Tuple[int, int]] = None  # YCbCrSubSampling (YCbCr)
+    t4: int = 0           # T4Options (compression 3)
 
     @property
     def packed(self) -> bool:
@@ -193,8 +258,10 @@ def _sample_code(bits: int, fmt: int, photometric: int) -> str:
         return f"f{bits // 8}"
     if bits in (8, 16, 32, 64):
         return f"{'ui'[fmt - 1]}{bits // 8}"
-    if bits in (10, 12, 14) and fmt == 1:
-        return "u2"
+    if bits in (10, 12, 14):
+        return "iu"[fmt == 1] + "2"
+    if bits in (1, 2, 4) and fmt == 1 and photometric in (0, 1):
+        return "u1"
     raise _unsupported(_BITS, bits if fmt == 1 else
                        f"{bits} with SampleFormat={fmt}")
 
@@ -210,7 +277,7 @@ def _layout(ifd: _Ifd) -> _Layout:
     if compression not in _COMPRESSIONS:
         raise _unsupported(_COMPRESSION, compression)
     photometric = ifd.one(_PHOTOMETRIC)
-    if photometric not in (0, 1, 2, 3, 5):
+    if photometric not in (0, 1, 2, 3, 5, 6):
         raise _unsupported(_PHOTOMETRIC, photometric)
     spp = ifd.one(_SPP, 1)
     if not 1 <= spp <= 4:
@@ -218,10 +285,35 @@ def _layout(ifd: _Ifd) -> _Layout:
     bits = _same(ifd, _BITS, 1)
     fmt = _same(ifd, _SAMPLE_FORMAT, 1)
     code = _sample_code(bits, fmt, photometric)
-    if (photometric in (0, 1) and spp > 2) or (photometric == 3 and
-                                               spp > (2 if bits == 8 else 1)):
+    if photometric == 3 and _COLORMAP not in ifd.tags and bits == 8 and \
+            fmt == 1 and spp == 1:
+        photometric = 1   # cv2 reads it as gray
+    gray_wide = photometric in (0, 1) and spp > 2
+    if (gray_wide and code not in ("u1", "u2")) or \
+            (photometric in (0, 1) and bits < 8 and spp > 1) or \
+            (photometric == 3 and spp > (2 if bits == 8 else 1)):
         raise _unsupported(_SPP, f"{spp} with PhotometricInterpretation="
-                           f"{photometric}")
+                           f"{photometric} and {bits}-bit samples")
+    if code[0] == "i" and bits % 8 and spp > 1:
+        raise _unsupported(_BITS, f"{bits} with SampleFormat=2 and "
+                           f"SamplesPerPixel={spp}")
+    planar = ifd.one(_PLANAR, 1)
+    if compression in _CCITT and (bits != 1 or spp != 1):
+        raise _unsupported(_COMPRESSION, f"{compression} with {spp} "
+                           f"samples of {bits} bits")
+    t4 = ifd.one(_T4_OPTIONS, 0) if compression == 3 else 0
+    if t4 & 2:
+        raise _unsupported(_T4_OPTIONS, f"{t4} (uncompressed mode)")
+    if compression == 4 and ifd.one(_T6_OPTIONS, 0) & 2:
+        raise _unsupported(_T6_OPTIONS, f"{ifd.one(_T6_OPTIONS)} "
+                           "(uncompressed mode)")
+    if compression == 7 and (bits != 8 or fmt != 1 or planar != 1 or (
+            spp, photometric) not in ((1, 0), (1, 1), (3, 2), (3, 6))):
+        raise _unsupported(_COMPRESSION, f"7 with {spp} {bits}-bit samples"
+                           f", PhotometricInterpretation={photometric}, "
+                           f"PlanarConfiguration={planar}")
+    ycbcr = _ycbcr_layout(ifd, compression, spp, bits, fmt, planar) \
+        if photometric == 6 else None
     if photometric == 5 and (spp != 4 or bits != 8 or
                              ifd.one(_INKSET, 1) != 1):
         raise _unsupported(_PHOTOMETRIC, f"5 with SamplesPerPixel={spp}, "
@@ -234,7 +326,9 @@ def _layout(ifd: _Ifd) -> _Layout:
             (predictor == 3 and fmt != 3):
         raise _unsupported(_PREDICTOR, f"{predictor} with {bits}-bit "
                            f"SampleFormat={fmt} samples")
-    planar = ifd.one(_PLANAR, 1)
+    if predictor != 1 and ycbcr not in (None, (1, 1)):
+        raise _unsupported(_PREDICTOR, f"{predictor} with "
+                           f"YCbCrSubSampling={list(ycbcr)}")
     if planar not in (1, 2):
         raise _unsupported(_PLANAR, planar)
     fill_order = ifd.one(_FILL_ORDER, 1)
@@ -253,20 +347,72 @@ def _layout(ifd: _Ifd) -> _Layout:
     colormap = None
     if photometric == 3:
         colormap = ifd.get(_COLORMAP)
-        if colormap is None or colormap.size != 3 << bits:
-            raise _unsupported(_COLORMAP, "missing" if colormap is None
-                               else f"of {colormap.size} entries")
-        colormap = colormap.reshape(3, 1 << bits)
+        if colormap is None and (bits == 8 or code != "u1" or spp != 1):
+            raise _unsupported(_COLORMAP, f"missing, with {spp} {bits}-bit "
+                               f"SampleFormat={fmt} samples")
+        if colormap is not None:  # missing: cv2 gives None (1-, 4-bit)
+            if colormap.size != 3 << bits:
+                raise _unsupported(_COLORMAP, f"of {colormap.size} entries")
+            colormap = colormap.reshape(3, 1 << bits)
+    if ycbcr is not None and compression != 7:
+        _check_unit_chunks(ifd, ycbcr, height, width)
     return _Layout(height, width, spp, bits, code, compression, predictor,
                    photometric, planar == 2 and spp > 1, fill_order,
                    orientation, spp == 4 and bool(extra) and extra[0] == 2,
-                   colormap)
+                   colormap, ycbcr, t4)
+
+
+def _ycbcr_layout(ifd: _Ifd, compression: int, spp: int, bits: int,
+                  fmt: int, planar: int) -> Tuple[int, int]:
+    """YCbCr's YCbCrSubSampling (libtiff's default 2 x 2; under JPEG
+    without the tag, the first chunk's, which ``_decode_jpeg`` reads: (0,
+    0) here), after the checks of what is read."""
+    if spp != 3 or bits != 8 or fmt != 1 or planar != 1:
+        raise _unsupported(_PHOTOMETRIC, f"6 with {spp} {bits}-bit "
+                           f"SampleFormat={fmt} samples, "
+                           f"PlanarConfiguration={planar}")
+    given = _YCBCR_SUBSAMPLING in ifd.tags
+    sub = tuple(ifd.get(_YCBCR_SUBSAMPLING, np.array([2, 2])).tolist())
+    if len(sub) != 2 or sub not in (
+            _YCBCR_JPEG if compression == 7 else _YCBCR_UNITS + _YCBCR_NONE):
+        raise _unsupported(_YCBCR_SUBSAMPLING, list(sub))
+    if compression != 7:
+        luma = ifd.get(_YCBCR_COEFFICIENTS)
+        ref = ifd.get(_REFERENCE_BW)
+        if luma is not None and (luma.size != 3 or not np.all(
+                np.isfinite(luma)) or luma[1] == 0):
+            raise _unsupported(_YCBCR_COEFFICIENTS, luma.tolist())
+        if ref is not None and (ref.size != 6 or not np.all(
+                np.isfinite(ref))):
+            raise _unsupported(_REFERENCE_BW, ref.tolist())
+    return sub if given or compression != 7 else (0, 0)
+
+
+def _check_unit_chunks(ifd: _Ifd, sub: Tuple[int, int], height: int,
+                       width: int) -> None:
+    """Chunks of whole subsampling units (strips of a multiple of vs
+    rows, tiles a multiple of the unit), and libtiff's 4 x 4 tile
+    routine only where it is right: images a multiple of 4 each way."""
+    hs, vs = sub
+    if _TILE_WIDTH in ifd.tags:
+        tw, th = ifd.one(_TILE_WIDTH), ifd.one(_TILE_LENGTH)
+        if tw % hs or th % vs:
+            raise _unsupported(_TILE_WIDTH, f"{tw} x {th} with "
+                               f"YCbCrSubSampling={list(sub)}")
+        if sub == (4, 4) and (height % 4 or width % 4):
+            raise _unsupported(_YCBCR_SUBSAMPLING, f"[4, 4] in tiles of an "
+                               f"image of {width} x {height}")
+    else:
+        rps = min(ifd.one(_ROWS_PER_STRIP, 2 ** 32 - 1), height)
+        if rps % vs and rps < height:
+            raise _unsupported(_ROWS_PER_STRIP, f"{rps} with "
+                               f"YCbCrSubSampling={list(sub)}")
 
 
 def _rgba_route(lay: _Layout, flags: int) -> bool:
     """True where OpenCV reads through libtiff's RGBA reader: 8-bit
     results."""
-    return flags == IMREAD_COLOR or lay.bits in (1, 4, 8) or \
+    return flags == IMREAD_COLOR or lay.bits in (1, 2, 4, 8) or \
         (lay.bits == 16 and lay.spp == 2)
 
 
@@ -278,12 +424,16 @@ def _channels(lay: _Layout, flags: int) -> int:
         return 1 if lay.bits == 1 else 3
     if lay.photometric == 5:
         return 4
-    return lay.spp if lay.photometric == 2 and lay.spp > 2 else 1
+    return lay.spp if lay.photometric in (2, 6) and lay.spp > 2 else 1
 
 
 def _cv2_gives_none(lay: _Layout, flags: int) -> bool:
     """The layouts cv2 reads to None under ``flags`` (module docstring)."""
     if lay.orientation >= 5 and lay.height != lay.width:
+        return True
+    if (lay.photometric in (0, 1) and lay.bits in (2, 4)) or \
+            (lay.photometric == 3 and lay.colormap is None) or \
+            (lay.compression != 7 and lay.ycbcr in _YCBCR_NONE):
         return True
     if lay.spp == 2 and (lay.photometric == 2 or lay.bits not in (8, 16)):
         return True
@@ -293,22 +443,37 @@ def _cv2_gives_none(lay: _Layout, flags: int) -> bool:
     return False
 
 
-def _chunks(ifd: _Ifd, lay: _Layout):
-    """(file offsets, byte counts, decoded sizes, chunk rows, chunk
-    columns, tiled): chunks (strips or tiles) in file order, every plane's
+class _Chunks(NamedTuple):
+    """A file's chunks (strips or tiles) in file order, every plane's
     after the one before when planar."""
+    offsets: np.ndarray   # in the file
+    counts: np.ndarray    # bytes in the file
+    sizes: np.ndarray     # decoded bytes
+    heights: np.ndarray   # rows each holds: a tile's all, a strip's own
+    rows: int             # a tile's rows, RowsPerStrip
+    cols: int             # a tile's columns, the width
+    tiled: bool
+
+
+def _chunks(ifd: _Ifd, lay: _Layout) -> _Chunks:
+    """The chunks of ``lay`` (see ``_Chunks``)."""
     planes = lay.spp if lay.planar else 1
     across = lay.spp // planes
+    hs, vs = lay.ycbcr if lay.ycbcr and lay.compression != 7 else (1, 1)
 
-    def row_bytes(cols):
-        return -(-cols * across * lay.bits // 8)
+    def chunk_bytes(rows, cols):
+        """Subsampled YCbCr: units of hs x vs Y samples, Cb and Cr."""
+        if (hs, vs) != (1, 1):
+            return -(-rows // vs) * -(-cols // hs) * (hs * vs + 2)
+        return rows * -(-cols * across * lay.bits // 8)
     if _TILE_WIDTH in ifd.tags:
         tw, th = ifd.one(_TILE_WIDTH), ifd.one(_TILE_LENGTH)
         if tw < 1 or th < 1:
             raise ValueError(f"unsupported TIFF: tiles of {tw} x {th}")
         offsets, counts = ifd.get(_TILE_OFFSETS), ifd.get(_TILE_COUNTS)
         n = -(-lay.height // th) * -(-lay.width // tw) * planes
-        sizes = np.full(n, th * row_bytes(tw), np.int64)
+        sizes = np.full(n, chunk_bytes(th, tw), np.int64)
+        heights = np.full(n, th, np.int64)
         rows, cols, tiled = th, tw, True
     else:
         rps = min(ifd.one(_ROWS_PER_STRIP, 2 ** 32 - 1), lay.height)
@@ -317,13 +482,14 @@ def _chunks(ifd: _Ifd, lay: _Layout):
         offsets, counts = ifd.get(_STRIP_OFFSETS), ifd.get(_STRIP_COUNTS)
         per_plane = -(-lay.height // rps)
         strip_rows = np.minimum(rps, lay.height - rps * np.arange(per_plane))
-        sizes = np.tile(strip_rows * row_bytes(lay.width), planes)
+        sizes = np.tile(chunk_bytes(strip_rows, lay.width), planes)
+        heights = np.tile(strip_rows, planes)
         n = sizes.size
         rows, cols, tiled = rps, lay.width, False
     if offsets is None or counts is None or len(offsets) != n or \
             len(counts) != n:
         raise ValueError(f"expected {n} chunk offsets and byte counts")
-    return offsets, counts, sizes, rows, cols, tiled
+    return _Chunks(offsets, counts, sizes, heights, rows, cols, tiled)
 
 
 def _unpack(buf: np.ndarray, n_rows: int, samples: int,
@@ -337,27 +503,170 @@ def _unpack(buf: np.ndarray, n_rows: int, samples: int,
         np.uint16 if bits > 8 else np.uint8)
 
 
+def _sof_sampling(chunk: np.ndarray) -> Tuple[int, int]:
+    """The first component's sampling factors in a JPEG chunk's frame
+    header, found as libtiff's JPEGFixupTagsSubsampling finds them: the
+    marker segments from SOI to the first SOFn."""
+    raw = chunk.tobytes()
+    at = 2
+    while raw[:2] == b"\xff\xd8" and at + 4 <= len(raw):
+        if raw[at] != 0xFF:
+            break
+        m = raw[at + 1]
+        if m == 0xFF:
+            at += 1
+            continue
+        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+            if at + 12 <= len(raw):
+                return raw[at + 11] >> 4, raw[at + 11] & 15
+            break
+        at += 2 + struct.unpack(">H", raw[at + 2:at + 4])[0]
+    raise ValueError("JPEG chunk 0: no frame header for the "
+                     "YCbCrSubSampling the file leaves out")
+
+
+_JPEG_REASONS = {-1: "corrupt JPEG data", -4: "a JPEG mode it does not read "
+                 "(progressive, lossless, arithmetic, 12-bit, or one "
+                 "component a scan)", -9: "lies outside the file"}
+
+
+def _decode_jpeg(data: np.ndarray, ifd: _Ifd, lay: _Layout, ch: _Chunks,
+                 dst_offsets: np.ndarray) -> Optional[np.ndarray]:
+    """JPEG chunks (compression 7) decoded as libtiff has libjpeg decode
+    them for TIFFReadRGBA*: (chunks' rows, cols, 3) RGB, or 1 sample of
+    gray; None where libtiff refuses a chunk's sampling or component
+    count (cv2 gives None)."""
+    offsets, counts, heights = ch.offsets, ch.counts, ch.heights
+    buf = np.empty(int(ch.sizes.sum()), np.uint8)
+    tables = ifd.get(_JPEG_TABLES, np.array([], np.int64)).astype(
+        np.uint8).tobytes()
+    form = "gray" if lay.spp == 1 else "ycc" if lay.photometric == 6 else \
+        "stored"
+    sampling = lay.ycbcr or (1, 1)
+    if sampling == (0, 0) and offsets.size:
+        at, n = int(offsets[0]), int(counts[0])
+        sampling = _sof_sampling(data[at:at + n])
+    rcs = native.jpeg_decode_tiff_chunks(tables, data, offsets, counts, buf,
+                                         dst_offsets, heights, ch.cols, form,
+                                         sampling)
+    if np.any((rcs == -8) | (rcs == -3)):
+        return None
+    bad = np.flatnonzero(rcs)
+    if bad.size:
+        k = int(bad[0])
+        raise ValueError(
+            f"JPEG chunk {k}: " + (
+                f"its frame is not {int(heights[k])} x {ch.cols}"
+                if rcs[k] == -2 else _JPEG_REASONS.get(int(rcs[k]),
+                                                       f"code {rcs[k]}")))
+    return buf
+
+
+def _ycbcr_tables(ifd: _Ifd) -> Tuple[np.ndarray, ...]:
+    """libtiff's TIFFYCbCrToRGB tables (tif_color.c: 16 fractional bits,
+    single-precision floats) from YCbCrCoefficients and
+    ReferenceBlackWhite: Y, Cr -> R, Cb -> B, Cb -> G, Cr -> G."""
+    luma = ifd.get(_YCBCR_COEFFICIENTS, np.array([0.299, 0.587, 0.114],
+                                                 np.float32))
+    ref = ifd.get(_REFERENCE_BW, np.array([0, 255, 128, 255, 128, 255],
+                                          np.float32))
+    lr, lg, lb = (np.float32(v) for v in luma)
+    ref = [np.float32(v) for v in ref]
+
+    def fix(x) -> int:
+        return int(np.float64(np.clip(x, np.float32(0), np.float32(2)))
+                   * 65536 + 0.5)
+    f1 = np.float32(2) - np.float32(2) * lr
+    f3 = np.float32(2) - np.float32(2) * lb
+    d1, d2 = fix(f1), -fix(lr * f1 / lg)
+    d3, d4 = fix(f3), -fix(lb * f3 / lg)
+    x = np.arange(256) - 128
+
+    def code2v(c, black, white, scale):
+        span = np.float32(white - black) or np.float32(1)
+        v = (c - int(black)).astype(np.float32) * np.float32(scale) / span
+        return np.clip(v, -128 * 32, 128 * 32).astype(np.int64)
+    cr = code2v(x, ref[4] - np.float32(128), ref[5] - np.float32(128), 127)
+    cb = code2v(x, ref[2] - np.float32(128), ref[3] - np.float32(128), 127)
+    return (code2v(x + 128, ref[0], ref[1], 255), (d1 * cr + 32768) >> 16,
+            (d3 * cb + 32768) >> 16, d4 * cb + 32768, d2 * cr)
+
+
+def _ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                  ifd: _Ifd) -> np.ndarray:
+    """TIFFYCbCrtoRGB on uint8 samples: ``y`` (rows, cols), ``cb`` and
+    ``cr`` one a block of hs x vs Y (rows / vs, cols / hs), each repeated
+    over its block as libtiff's RGBA reader does; (rows, cols, 3) RGB
+    uint8."""
+    y_tab, cr_r, cb_b, cb_g, cr_g = _ycbcr_tables(ifd)
+    vs, hs = y.shape[0] // cb.shape[0], y.shape[1] // cb.shape[1]
+    # every sum below lies within +-16384: int16 halves the traffic
+    luma = y_tab.astype(np.int16)[y]
+    out = np.empty(y.shape + (3,), np.uint8)
+    for k, term in enumerate((cr_r[cr], (cb_g[cb] + cr_g[cr]) >> 16,
+                              cb_b[cb])):
+        term = term.astype(np.int16)
+        if (vs, hs) != (1, 1):
+            term = np.repeat(np.repeat(term, vs, axis=0), hs, axis=1)
+        channel = luma + term
+        np.clip(channel, 0, 255, out=channel)
+        out[..., k] = channel
+    return out
+
+
+def _units_to_rgb(buf: np.ndarray, lay: _Layout, crows: int, ccols: int,
+                  tiled: bool, ifd: _Ifd) -> np.ndarray:
+    """Subsampled YCbCr units (a block of hs x vs Y, then Cb and Cr) as
+    (rows, cols, 3) RGB, as libtiff's RGBA reader converts them: strips
+    joined, or tiles each (crows, ccols) in file order, stacked down."""
+    hs, vs = lay.ycbcr
+    unit = hs * vs + 2
+    if tiled:
+        urows, ucols = crows // vs, ccols // hs
+        n = buf.size // (urows * ucols * unit)
+    else:
+        n, urows, ucols = 1, -(-lay.height // vs), -(-lay.width // hs)
+    u = buf.reshape(n * urows, ucols, unit)
+    y = u[..., :hs * vs].reshape(n * urows, ucols, vs, hs).transpose(
+        0, 2, 1, 3).reshape(n * urows * vs, ucols * hs)
+    return _ycbcr_to_rgb(y, u[..., hs * vs], u[..., hs * vs + 1], ifd)
+
+
 def _decode(data: np.ndarray, ifd: _Ifd, lay: _Layout
-            ) -> Tuple[np.ndarray, Optional[Tuple[int, int]]]:
+            ) -> Tuple[Optional[np.ndarray], Optional[Tuple[int, int]]]:
     """The samples, in the host's byte order, file channel order (a view
     where it can be): (H, W, spp) from strips, or the whole tiles, cut to
-    (H, W) by the caller, and the tile shape (None for strips)."""
+    (H, W) by the caller, and the tile shape (None for strips).  JPEG
+    chunks come out as libjpeg gives them (YCbCr as RGB), subsampled YCbCr
+    units as RGB; None where cv2 gives None."""
     height, width, spp = lay.height, lay.width, lay.spp
-    offsets, counts, sizes, crows, ccols, tiled = _chunks(ifd, lay)
-    if lay.fill_order == 2:  # libtiff reverses the bits before decoding
+    ch = _chunks(ifd, lay)
+    offsets, counts, sizes = ch.offsets, ch.counts, ch.sizes
+    crows, ccols, tiled = ch.rows, ch.cols, ch.tiled
+    # libtiff reverses the bits before decoding (its JPEG codec: never)
+    if lay.fill_order == 2 and lay.compression != 7:
         data = _REVERSED_BITS[data]
     dst_offsets = np.zeros_like(sizes)
     np.cumsum(sizes[:-1], out=dst_offsets[1:])
     total = int(sizes.sum())
     compression = lay.compression
-    if compression == 1 and np.all(offsets == offsets[0] + dst_offsets) \
+    if compression == 7:
+        buf = _decode_jpeg(data, ifd, lay, ch, dst_offsets)
+        if buf is None:
+            return None, None
+        compression = None
+    elif compression == 1 and np.all(offsets == offsets[0] + dst_offsets) \
             and np.all(counts >= sizes) and offsets[0] + total <= data.size:
         # uncompressed chunks back to back in the file: no copy
         buf = data[int(offsets[0]):int(offsets[0]) + total]
         compression = None
     else:
         buf = np.empty(total, np.uint8)
-    if compression in (5, 32773):
+    if compression in _CCITT:
+        native.ccitt_decode_chunks(data, offsets, counts, buf, dst_offsets,
+                                   sizes, ch.heights, ccols, compression,
+                                   lay.t4)
+    elif compression in (5, 32773):
         decode = native.lzw_decode_chunks if compression == 5 else \
             native.packbits_decode_chunks
         got = decode(data, offsets, counts, buf, dst_offsets, sizes)
@@ -378,6 +687,14 @@ def _decode(data: np.ndarray, ifd: _Ifd, lay: _Layout
                 raise ValueError(f"chunk {k} holds {raw.size} bytes, "
                                  f"expected {want}")
             buf[dst:dst + want] = raw[:want]
+    if lay.ycbcr and lay.ycbcr != (1, 1) and lay.compression != 7:
+        px = _units_to_rgb(buf, lay, crows, ccols, tiled, ifd)
+        if not tiled:
+            return px[:height, :width], None
+        down, right = -(-height // crows), -(-width // ccols)
+        return px.reshape(down, right, crows, ccols, 3).transpose(
+            0, 2, 1, 3, 4).reshape(down * crows, right * ccols, 3), \
+            (crows, ccols)
     planes = spp if lay.planar else 1
     across = spp // planes
     n_rows = total // (-(-ccols * across * lay.bits // 8))
@@ -479,7 +796,8 @@ def _read_rgba(px: np.ndarray, lay: _Layout, cn: int) -> np.ndarray:
     channels (see the module docstring)."""
     u = px.view(px.dtype.str.replace("i", "u"))
     if lay.photometric in (0, 1):
-        g = u[..., 0] if lay.bits == 8 else (u[..., 0] >> 8).astype(np.uint8)
+        g = u[..., 0] if lay.bits == 8 else u[..., 0] * np.uint8(255) \
+            if lay.bits == 1 else (u[..., 0] >> 8).astype(np.uint8)
         if lay.photometric == 0:
             g = 255 - g
         return g if cn == 1 else np.repeat(g[..., None], 3, axis=2)
@@ -510,8 +828,16 @@ def _read_rgba(px: np.ndarray, lay: _Layout, cn: int) -> np.ndarray:
 
 
 def _read_direct(px: np.ndarray, lay: _Layout, cn: int) -> np.ndarray:
-    if lay.packed:
+    if lay.packed and lay.code[0] == "i":  # saturated into int16
+        px = np.minimum(px.astype(np.int32) << (16 - lay.bits), 32767
+                        ).astype(np.int16)
+    elif lay.packed:
         px = px << (16 - lay.bits)
+    if lay.photometric in (0, 1) and lay.spp > 2:
+        # cv2 reads the first three samples as RGB and takes its gray
+        r, g, b = (px[..., k].astype(np.int64) for k in range(3))
+        return ((r * 4899 + g * 9617 + b * 1868 + 8192) >> 14).astype(
+            px.dtype)
     return np.ascontiguousarray(px[..., 0]) if cn == 1 else \
         _swap_red_blue(px)
 
@@ -545,6 +871,12 @@ def imread(path: Union[str, Path], flags: int = IMREAD_COLOR
     if _cv2_gives_none(lay, flags):
         return None
     px, tile = _decode(data, ifd, lay)
+    if px is None:
+        return None
+    if lay.photometric == 6:  # RGB from here on
+        if lay.compression != 7 and lay.ycbcr == (1, 1):
+            px = _ycbcr_to_rgb(px[..., 0], px[..., 1], px[..., 2], ifd)
+        lay = lay._replace(photometric=2)
     cn = _channels(lay, flags)
     if not _rgba_route(lay, flags):
         px = px[:lay.height, :lay.width]

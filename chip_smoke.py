@@ -80,10 +80,19 @@ plane in each TIFF layout the reader gained (``tests/_torch_tiff_writer.py``:
 BigTIFF, PackBits, Deflate 32946, planar, signed and 32-bit integers,
 12-bit, MinIsWhite, palette, CMYK, gray + alpha, Orientation, FillOrder 2)
 under both flags against the arrays cv2 returns, the native PackBits
-against its plain version, and run ``calibrate``, ``merge`` (then again on
-the captures rewritten as BigTIFF + PackBits + planar, held to the first
-at 0 error), ``video`` (on the raw and the MJPG videos), ``dorf``,
-``linearity`` and ``doctor`` in-process;
+against its plain version; then one plane in each JPEG, YCbCr and fax
+layout (JPEG YCbCr 4:2:0 in strips and in 256 x 256 tiles, JPEG 4:4:4
+RGB, JPEG gray, uncompressed YCbCr 2x2, 1-bit uncompressed and PackBits,
+4-bit gray, CCITT Group 3 1-D) read natively and by the plain reader
+(``PlainCodecs``: ``jpeg_plain.py``, ``tiff_plain.py``, a chunk a task in
+spawned processes) under both flags, bit for bit alike, and every committed
+``tests/data/tiff *.tif`` against its cv2 arrays; and run ``calibrate``,
+``merge`` (then again on the captures rewritten as BigTIFF + PackBits +
+planar, held to the first at 0 error, and on them rewritten as
+JPEG-compressed YCbCr 4:2:0 tiles, one K3 launch, held at 0 error to
+``process_HDR_image`` on the plain reader's arrays), ``video`` (on the
+raw and the MJPG videos), ``dorf``, ``linearity`` and ``doctor``
+in-process;
 ``linearity`` logs its fits with or without matplotlib (the card's machine
 has none: then no PNG is written and one warning says so).
 
@@ -1779,19 +1788,223 @@ def tiff_layout_phase(root) -> dict:
     return rates
 
 
-def rewrite_captures(root, dest, written) -> Path:
-    """Config 3's captures (``written``: path -> array, from
-    ``write_captures``) rewritten under ``dest`` as BigTIFF + PackBits +
-    PlanarConfiguration 2 (8-bit values, darks and flat; strips of 16
-    rows) and BigTIFF planar uncompressed float64 STD files, with a
-    config.ini naming the new darks and flats.  Returns the ini."""
+# phase 15 (b): the JPEG, YCbCr, bilevel and CCITT layouts, one config-3
+# plane each: (name, samples: "rgb" the first capture's 8-bit values in file
+# order, "gray" its green channel, "nibble" that >> 4, "bilevel" a hatch
+# over the flat's disk, "units" the values taken as Y, Cb, Cr; keywords)
+JPEG_LAYOUTS = (
+    ("JPEG YCbCr 4:2:0 strips", "rgb", dict(compression=7, ycbcr=(2, 2),
+                                            quality=90, rps=16)),
+    ("JPEG YCbCr 4:2:0 tiles 256", "rgb", dict(compression=7, ycbcr=(2, 2),
+                                               quality=90, tile=(256, 256))),
+    ("JPEG 4:4:4 RGB", "rgb", dict(compression=7, quality=90, rps=16)),
+    ("JPEG gray", "gray", dict(compression=7, quality=90, rps=16)),
+    ("YCbCr 2x2 uncompressed", "units", dict(ycbcr=(2, 2), rps=16)),
+    ("1-bit uncompressed", "bilevel", dict(bits=1, rps=64)),
+    ("1-bit PackBits", "bilevel", dict(bits=1, compression=32773, rps=64)),
+    ("4-bit gray (cv2: None)", "nibble", dict(bits=4, rps=64)),
+    ("CCITT G3 1-D", "bilevel", dict(bits=1, compression=3, rps=64,
+                                     extra_tags=[(262, 3, [0])])),
+)
+# phase 16 (b), third series: config 3's 8-bit files as libtiff writes
+# JPEG-compressed YCbCr 4:2:0
+JPEG_SERIES = dict(compression=7, ycbcr=(2, 2), quality=90, tile=(256, 256))
+
+
+def plain_pool():
+    """Processes for the plain decoders (pure Python, one chunk a task);
+    spawned, so that none inherits the CUDA context."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(max_workers=os.cpu_count() or 1,
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+
+
+class PlainCodecs:
+    """Within ``with``, ``utils/tiff.imread`` decodes JPEG, CCITT and
+    PackBits chunks with the plain versions (``jpeg_plain.decode_tiff``,
+    ``tiff_plain.ccitt_decode``, ``tiff_plain.packbits_decode``), the
+    chunks spread over ``pool``: the plain reader."""
+
+    def __init__(self, pool):
+        self.pool = pool
+
+    @staticmethod
+    def chunk_bytes(src, offsets, counts):
+        return [src[o:o + c].tobytes() for o, c in
+                zip(np.asarray(offsets).tolist(),
+                    np.asarray(counts).tolist())]
+
+    def jpeg(self, tables, src, offsets, counts, dst, dst_offsets, heights,
+             width, form, sampling=(1, 1)):
+        from camera_linearity_tpu_torch.native import jpeg_plain
+        chunks = self.chunk_bytes(src, offsets, counts)
+        n = len(chunks)
+        rcs = []
+        for (code, frame), at in zip(self.pool.map(
+                jpeg_plain.decode_tiff, [bytes(tables)] * n, chunks,
+                [int(h) for h in heights], [width] * n, [form] * n,
+                [tuple(sampling)] * n, chunksize=2),
+                np.asarray(dst_offsets).tolist()):
+            if code == 0:
+                dst[at:at + frame.size] = frame.reshape(-1)
+            rcs.append(code)
+        return np.array(rcs, np.int32)
+
+    def ccitt(self, src, offsets, counts, dst, dst_offsets, dst_sizes, rows,
+              width, compression, t4_options=0):
+        from camera_linearity_tpu_torch.native import tiff_plain
+        chunks = self.chunk_bytes(src, offsets, counts)
+        n = len(chunks)
+        got = []
+        for raw, at in zip(self.pool.map(
+                tiff_plain.ccitt_decode, chunks, [width] * n,
+                [int(r) for r in rows], [compression] * n,
+                [t4_options] * n, chunksize=2),
+                np.asarray(dst_offsets).tolist()):
+            dst[at:at + len(raw)] = np.frombuffer(raw, np.uint8)
+            got.append(len(raw))
+        return np.array(got, np.int64)
+
+    @staticmethod
+    def packbits(src, offsets, counts, dst, dst_offsets, dst_sizes):
+        from camera_linearity_tpu_torch.native import tiff_plain
+        got = []
+        for chunk, at, size in zip(PlainCodecs.chunk_bytes(src, offsets,
+                                                           counts),
+                                   np.asarray(dst_offsets).tolist(),
+                                   np.asarray(dst_sizes).tolist()):
+            raw = tiff_plain.packbits_decode(chunk, size)
+            dst[at:at + len(raw)] = np.frombuffer(raw, np.uint8)
+            got.append(len(raw))
+        return np.array(got, np.int64)
+
+    def __enter__(self):
+        from camera_linearity_tpu_torch import native
+        self.saved = (native.jpeg_decode_tiff_chunks,
+                      native.ccitt_decode_chunks,
+                      native.packbits_decode_chunks)
+        native.jpeg_decode_tiff_chunks = self.jpeg
+        native.ccitt_decode_chunks = self.ccitt
+        native.packbits_decode_chunks = self.packbits
+        return self
+
+    def __exit__(self, *exc):
+        from camera_linearity_tpu_torch import native
+        (native.jpeg_decode_tiff_chunks, native.ccitt_decode_chunks,
+         native.packbits_decode_chunks) = self.saved
+
+
+def jpeg_layout_samples(kind, capture, flat):
+    """The samples of a ``JPEG_LAYOUTS`` plane (see there)."""
+    if kind in ("rgb", "units"):
+        return np.ascontiguousarray(capture[..., ::-1])
+    if kind == "gray":
+        return np.ascontiguousarray(capture[..., 1])
+    if kind == "nibble":
+        return capture[..., 1] >> 4
+    yy, xx = np.mgrid[:capture.shape[0], :capture.shape[1]]
+    disk = flat[..., 0] > np.median(flat[..., 0])
+    return (((xx // 7 + yy // 11) % 3 == 0) ^ disk).astype(np.uint8)
+
+
+def tiff_jpeg_layout_phase(root, capture, flat, pool) -> dict:
+    """Phase 15 (b), the JPEG, YCbCr and fax layouts: one config-3 plane
+    in each of ``JPEG_LAYOUTS`` (written by
+    ``tests/_torch_tiff_writer.py`` in ``pool``), read under IMREAD_UNCHANGED and IMREAD_COLOR natively and
+    by the plain reader (``PlainCodecs``), bit for bit alike, None
+    included; then every committed ``tests/data/tiff *.tif`` under both
+    flags against the cv2 arrays beside it.  Returns each layout's read
+    MB/s (IMREAD_UNCHANGED, host clock, median of 3; MB of the samples
+    written; None where cv2 gives None)."""
+    from camera_linearity_tpu_torch.utils import tiff
     from tests._torch_tiff_writer import build_tiff
+    log(f"phase 15 (b), JPEG, YCbCr and fax layouts: one {H} x {W} plane "
+        "each, native against the plain reader under both flags")
+    failures, rates = [], {}
+    flags = (tiff.IMREAD_UNCHANGED, tiff.IMREAD_COLOR)
+    t0 = time.perf_counter()
+    paths, samples = {}, {}
+    jobs = []
+    for k, (name, kind, kw) in enumerate(JPEG_LAYOUTS):
+        paths[name] = root / f"layout{k}.tif"
+        samples[name] = jpeg_layout_samples(kind, capture, flat)
+        jobs.append(pool.submit(build_tiff, paths[name], "<", samples[name],
+                                **kw))
+    for job in jobs:
+        job.result()
+    log(f"  {len(jobs)} planes written in {time.perf_counter() - t0:.2f} s "
+        f"({os.cpu_count()} processes)")
+    for name, kind, kw in JPEG_LAYOUTS:
+        path = paths[name]
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got_u = tiff.imread(path, tiff.IMREAD_UNCHANGED)
+            walls.append(time.perf_counter() - t0)
+        got_c = tiff.imread(path, tiff.IMREAD_COLOR)
+        t0 = time.perf_counter()
+        with PlainCodecs(pool):
+            plain = [tiff.imread(path, f) for f in flags]
+        t_plain = time.perf_counter() - t0
+        ok = same_image(got_u, plain[0]) and same_image(got_c, plain[1])             and (got_u is None) == ("None" in name)
+        mbps = None if got_u is None else             samples[name].nbytes / 1e6 / float(np.median(walls))
+        rates[name] = mbps
+        shapes = [None if g is None else f"{g.dtype} {g.shape}"
+                  for g in (got_u, got_c)]
+        log(f"  {'ok ' if ok else 'BAD'} {name}: {shapes} == the plain "
+            f"reader's ({t_plain:.2f} s); read "
+            + ("None, as cv2" if mbps is None else f"{mbps:.1f} MB/s")
+            + f" ({path.stat().st_size / 1e6:.2f} MB on disk)")
+        if not ok:
+            failures.append(name)
+        path.unlink()
+    committed = sorted((ROOT / "tests" / "data").glob("tiff *.tif"))
+    for path in committed:
+        with np.load(path.with_suffix(".cv2.npz")) as z:
+            want = [z[k] if k in z.files else None
+                    for k in ("unchanged", "color")]
+        got = [tiff.imread(path, f) for f in flags]
+        ok = all(same_image(g, w) for g, w in zip(got, want))
+        if not ok:
+            failures.append(path.name)
+    log(f"  {'ok ' if len(committed) == 14 and not failures else 'BAD'} "
+        f"{len(committed)} committed tests/data/tiff *.tif == their "
+        "*.cv2.npz (cv2's arrays) under both flags")
+    if len(committed) != 14:
+        failures.append(f"{len(committed)} committed files, not 14")
+    raise_failures("phase 15 (b), JPEG, YCbCr and fax layouts", failures)
+    return rates
+
+
+def rewrite_captures(root, dest, written, values=None, pool=None) -> Path:
+    """Config 3's captures (``written``: path -> array, from
+    ``write_captures``) rewritten under ``dest``: the 8-bit values, darks
+    and flat as BigTIFF + PackBits + PlanarConfiguration 2 (strips of 16
+    rows), or with the ``build_tiff`` keywords ``values``; the float64
+    STD files as BigTIFF planar uncompressed, or, with ``values``, as
+    uncompressed strips; with a config.ini naming the new darks and
+    flats.  ``pool``: the processes writing the files.  Returns the
+    ini."""
+    from tests._torch_tiff_writer import build_tiff
+    jobs = []
     for path, arr in written.items():
         out = dest / path.relative_to(root)
         out.parent.mkdir(parents=True, exist_ok=True)
-        extra = dict(compression=32773) if arr.dtype == np.uint8 else {}
-        build_tiff(out, "<", arr[..., ::-1], bigtiff=True, planar=True,
-                   rps=16, **extra)
+        if values is not None:
+            kw = values if arr.dtype == np.uint8 else dict(rps=16)
+        else:
+            kw = dict(bigtiff=True, planar=True, rps=16,
+                      **(dict(compression=32773) if arr.dtype == np.uint8
+                         else {}))
+        args = (build_tiff, out, "<", arr[..., ::-1])
+        if pool is None:
+            build_tiff(*args[1:], **kw)
+        else:
+            jobs.append(pool.submit(*args, **kw))
+    for job in jobs:
+        job.result()
     for txt in root.glob("*.txt"):
         if txt.name.startswith(("pca_", "mean_")):
             shutil.copy(txt, dest / txt.name)
@@ -1849,6 +2062,7 @@ def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
         f"{native._lib_path('_tiff', native._TIFF_SRC)}")
     tmp = tempfile.TemporaryDirectory(prefix="clt_files_")
     root = Path(tmp.name)
+    pool = None
     try:
         t0 = time.perf_counter()
         written = write_captures(root, dev)
@@ -1878,6 +2092,10 @@ def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
                 f"{rates['write_mbps']:.1f} MB/s, read "
                 f"{rates['read_mbps']:.1f} MB/s (host clock, median of 3)")
         numbers["codec_layouts_read_mbps"] = tiff_layout_phase(root)
+        pool = plain_pool()  # phase 15 (b) to phase 16 (b)
+        numbers["codec_jpeg_layouts_read_mbps"] = tiff_jpeg_layout_phase(
+            root, written[images / f"{first}.tif"],
+            written[root / "flats" / "BF flat 50x.tif"], pool)
 
         # --- phase 16: the command line in-process ------------------------
         ini = str(root / "config.ini")
@@ -1942,7 +2160,7 @@ def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
         got = [tiff.imread(out_dir / f"sample BF 50x HDR{s}.tif",
                            tiff.IMREAD_UNCHANGED) for s in ("", " STD")]
 
-        def merged(device):
+        def merged(device, images=images, cfg=cfg):
             """process_HDR_image on the series and frames the command
             loads, with the tables it loads, on ``device``."""
             d = torch.device(device)
@@ -2077,6 +2295,61 @@ def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
         launches["CLI merge, BigTIFF + PackBits + planar (phase 16)"] = \
             counts2
 
+        log("phase 16 (b), third series: the same captures as "
+            "JPEG-compressed YCbCr 4:2:0 TIFFs (quality 90, 256 x 256 "
+            "tiles) for the 8-bit values, darks and flat, uncompressed "
+            "float64 STD files")
+        jdir = root / "jpeg"
+        t0 = time.perf_counter()
+        jpeg_ini = rewrite_captures(root, jdir, written, JPEG_SERIES, pool)
+        t_rewrite = time.perf_counter() - t0
+        for k in hdr_cuda.KERNELS:
+            k.launches = 0
+        obs.reset_stage_times()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli(["--config", str(jpeg_ini), "merge", "--images",
+                  str(jdir / "images"), "--icrf", str(icrf_path), "--std",
+                  "--out", str(jdir / "hdr")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        split = obs.stage_times.snapshot()
+        counts3 = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
+        numbers["merge_jpeg"] = dict(rewrite_s=t_rewrite, wall_s=wall,
+                                     split=split)
+        log(f"  rewritten in {t_rewrite:.2f} s ({os.cpu_count()} "
+            f"processes); rc {rc}, {wall:.3f} s host clock (one run; "
+            f"stages { {n: round(v, 4) for n, v in split.items()} }); "
+            f"launches {counts3} (1 series)")
+        if rc != 0 or counts3 != {"merge_nhwc_fused": 0,
+                                  "merge_nhwc_lerp": 0,
+                                  "merge_nhwc_lerp_bp": 1}:
+            raise AssertionError(f"merge of the JPEG series: rc {rc}, "
+                                 f"launches {counts3}")
+        t0 = time.perf_counter()
+        with PlainCodecs(pool):
+            plain_card = merged(dev, jdir / "images",
+                                CameraConfig.from_ini(str(jpeg_ini)))
+        log(f"  process_HDR_image on the plain reader's arrays (card): "
+            f"{time.perf_counter() - t0:.2f} s")
+        for suffix, want in zip(("", " STD"), plain_card):
+            g = tiff.imread(jdir / "hdr" / f"sample BF 50x HDR{suffix}.tif",
+                            tiff.IMREAD_UNCHANGED)
+            want = want.cpu().numpy().astype(np.float64)
+            err = None if g is None or g.shape != want.shape else \
+                float(np.max(np.abs(g - want)))
+            log(f"  {'ok ' if err == 0 else 'BAD'} HDR{suffix} of the JPEG "
+                "series against process_HDR_image on the plain reader's "
+                f"arrays: max abs error {err}")
+            if err != 0:
+                failures.append(f"HDR{suffix} of the JPEG series")
+        del plain_card
+        raise_failures("phase 16 (b), third series", failures)
+        shutil.rmtree(jdir)
+        pool.shutdown()
+        pool = None
+        launches["CLI merge, JPEG YCbCr 4:2:0 tiles (phase 16)"] = counts3
+
         for kind, paths, vdir in (("raw RGBA", video_paths, "videos"),
                                   ("MJPG", mjpg_paths, "mjpg_videos")):
             log(f"phase 16 (c): video --videos DIR ({len(paths)} {kind} "
@@ -2175,6 +2448,8 @@ principal components = pca_b.txt,pca_g.txt,pca_r.txt
             raise AssertionError("phase 16 (f): doctor")
         port_logger.removeHandler(logs)
     finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
         tmp.cleanup()
     return dict(launches=launches, numbers=numbers)
 

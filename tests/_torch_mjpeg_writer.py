@@ -122,7 +122,8 @@ SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "411": (4, 1),
 
 def encode_jpeg(bgr: np.ndarray, quality: int = QUALITY,
                 sampling: str = "420", restart: int = 0,
-                progressive: bool = False, separate: bool = False) -> bytes:
+                progressive: bool = False, separate: bool = False,
+                convert: bool = True) -> bytes:
     """One frame as a JPEG: an (H, W, 3) BGR uint8 frame in ``sampling``
     ("420", as ``cv2.VideoWriter`` writes it, "422", "444", "411" or
     "440"), or an (H, W) uint8 frame as grayscale (one component, Y the
@@ -130,7 +131,8 @@ def encode_jpeg(bgr: np.ndarray, quality: int = QUALITY,
     one-component scan).  Baseline, one interleaved scan; or with
     ``progressive`` (SOF2) spectral selection without successive
     approximation: an interleaved DC scan, then AC bands 1-5 and 6-63 of
-    each component in turn."""
+    each component in turn.  ``convert=False`` codes the three channels
+    as they are, in their order (no YCbCr conversion: RGB in a TIFF)."""
     gray = bgr.ndim == 2
     hy, vy = (1, 1) if gray else SAMPLING[sampling]
     h, w = bgr.shape[:2]
@@ -143,9 +145,12 @@ def encode_jpeg(bgr: np.ndarray, quality: int = QUALITY,
         img = np.pad(bgr.astype(np.float64),
                      ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
         b, g, r = img[..., 0], img[..., 1], img[..., 2]
-        y = 0.299 * r + 0.587 * g + 0.114 * b
-        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
-        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+        if convert:
+            y = 0.299 * r + 0.587 * g + 0.114 * b
+            cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+            cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+        else:
+            y, cb, cr = b, g, r
         planes = [np.clip(np.round(y), 0, 255)]
         for c in (cb, cr):
             c = c.reshape(ph // vy, vy, pw // hy, hy).mean(axis=(1, 3))

@@ -7,13 +7,18 @@ or planar (PlanarConfiguration 2) samples of any NumPy integer or float
 type, or unsigned samples packed to fewer bits (1-15, MSB first, each row
 padded to a byte); compression none, LZW (the port's plain encoder),
 Deflate (8 or the old 32946) or PackBits; horizontal differencing;
-FillOrder 2 (the stored bytes bit-reversed).  Any tag can be added or
+FillOrder 2 (the stored bytes bit-reversed).  Also YCbCr samples packed
+in subsampling units (a block of Y, then Cb and Cr), JPEG chunks (7) as
+libtiff writes them (the tables in JPEGTables, each chunk an abbreviated
+stream; YCbCr, RGB or gray, encoded by ``tests/_torch_mjpeg_writer.py``)
+and bilevel rows coded as CCITT Modified Huffman (2) or T.4
+one-dimensional (3, an EOL before each row).  Any tag can be added or
 replaced.  ``layout_cases`` yields, for each layout the port reads
 beyond cv2's own output, the samples, the writer's keywords and the
 arrays ``cv2.imread`` returns under IMREAD_UNCHANGED and IMREAD_COLOR,
 as plain NumPy formulas (``tests/test_torch_tiff.py`` holds them to cv2).
 Test tooling, not a feature of the package: it imports nothing of it,
-apart from the plain LZW encoder when LZW is asked for.
+apart from the plain LZW encoder and the CCITT code tables.
 """
 from __future__ import annotations
 
@@ -23,11 +28,14 @@ from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["build_tiff", "packbits_encode", "pack_bits", "layout_cases"]
+__all__ = ["build_tiff", "packbits_encode", "pack_bits", "layout_cases",
+           "ycbcr_units", "jpeg_parts", "ccitt_encode"]
 
-# field type -> struct code
-_FIELD = {1: "B", 2: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f",
-          12: "d", 16: "Q", 17: "q"}
+# field type -> struct code (a RATIONAL's values are numerator,
+# denominator pairs)
+_FIELD = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h",
+          9: "i", 11: "f", 12: "d", 16: "Q", 17: "q"}
+_SAMPLING = {(1, 1): "444", (2, 1): "422", (2, 2): "420"}
 
 
 def packbits_encode(data) -> bytes:
@@ -72,6 +80,76 @@ def pack_bits(rows: np.ndarray, bits: int) -> np.ndarray:
     return np.packbits(flat.reshape(rows.shape[0], -1), axis=1)
 
 
+def ycbcr_units(px: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """(H, W, 3) Y, Cb, Cr samples as TIFF's subsampling units: each
+    ``hs`` x ``vs`` block of Y (rows in order), then the block's Cb and
+    Cr, taken from its top-left pixel; the blocks of one block row in
+    order, as (ceil(H / vs), ceil(W / hs) * (hs * vs + 2)) bytes.  Edge
+    blocks are padded with zero Y."""
+    h, w = px.shape[:2]
+    ph, pw = -(-h // vs) * vs, -(-w // hs) * hs
+    pad = np.zeros((ph, pw, 3), px.dtype)
+    pad[:h, :w] = px
+    y = pad[..., 0].reshape(ph // vs, vs, pw // hs, hs).swapaxes(1, 2)
+    units = np.concatenate([y.reshape(ph // vs, pw // hs, hs * vs),
+                            pad[::vs, ::hs, 1:]], axis=2)
+    return units.reshape(ph // vs, -1)
+
+
+def jpeg_parts(frame: bytes) -> Tuple[bytes, bytes]:
+    """(JPEGTables, the abbreviated chunk) of one JPEG as
+    ``_torch_mjpeg_writer.encode_jpeg`` writes it: the tables stream is
+    SOI, DQT, DHT, EOI; the chunk SOI and what followed the DHT."""
+    at = 2
+    while frame[at + 1] in (0xDB, 0xC4):
+        at += 2 + struct.unpack(">H", frame[at + 2:at + 4])[0]
+    return frame[:at] + b"\xff\xd9", frame[:2] + frame[at:]
+
+
+def ccitt_encode(rows: np.ndarray, compression: int, fill: bool = False
+                 ) -> bytes:
+    """(R, W) 0/1 rows (1 black) coded one-dimensionally, as libtiff's
+    encoder does: runs from white, long runs as make-up codes (2560 while
+    2624 or more remain) and a terminating code.  Compression 2 (Modified
+    Huffman) pads each row to a byte; 3 (T.4) puts an EOL before each row
+    (after zero fill bits that end it on a byte boundary, with ``fill``)
+    and six after the last (RTC)."""
+    from camera_linearity_tpu_torch.native.tiff_plain import (
+        BLACK_CODES, EOL, WHITE_CODES)
+    bits = []
+    n = 0
+    for row in np.asarray(rows, np.uint8):
+        if compression == 3:
+            if fill:
+                pad = -(n + len(EOL)) % 8
+                bits.append("0" * pad)
+                n += pad
+            bits.append(EOL)
+            n += len(EOL)
+        edges = np.flatnonzero(np.diff(np.r_[0, row, 1 - row[-1]]))
+        runs = np.diff(np.r_[0, edges])
+        for k, run in enumerate(runs.tolist()):
+            table = BLACK_CODES if k % 2 else WHITE_CODES
+            while run >= 2624:
+                bits.append(table[2560])
+                n += len(table[2560])
+                run -= 2560
+            if run >= 64:
+                bits.append(table[run // 64 * 64])
+                n += len(table[run // 64 * 64])
+                run %= 64
+            bits.append(table[run])
+            n += len(table[run])
+        if compression == 2:
+            bits.append("0" * (-n % 8))
+            n += -n % 8
+    if compression == 3:
+        bits.append(EOL * 6)
+    s = "".join(bits)
+    s += "0" * (-len(s) % 8)
+    return np.packbits(np.frombuffer(s.encode(), np.uint8) - 48).tobytes()
+
+
 def _reverse_bits(raw: bytes) -> bytes:
     table = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                      np.uint8)
@@ -113,7 +191,9 @@ def build_tiff(path, order: str, px: np.ndarray, *, compression: int = 1,
                bits: Optional[int] = None, bigtiff: bool = False,
                fill_order: int = 1,
                extra_tags: Iterable[Tuple[int, int, Sequence]] = (),
-               fmt: Optional[int] = None) -> None:
+               fmt: Optional[int] = None,
+               ycbcr: Optional[Tuple[int, int]] = None, quality: int = 90,
+               fax_fill: bool = False) -> None:
     """Write the (H, W, S) samples ``px`` (file channel order) as a
     one-IFD TIFF in byte order ``order`` ("<" or ">"): strips of ``rps``
     rows or tiles of ``tile`` = (th, tw); chunky, or one plane a chunk
@@ -122,18 +202,45 @@ def build_tiff(path, order: str, px: np.ndarray, *, compression: int = 1,
     planar) and compressed as ``compression`` says; bit-reversed after
     that for ``fill_order`` 2; as BigTIFF (8-byte offsets) when
     ``bigtiff``.  ``extra_tags`` are (tag, field type, values) entries
-    added or replacing; ``fmt`` overrides SampleFormat."""
+    added or replacing; ``fmt`` overrides SampleFormat.
+
+    ``ycbcr`` = (hs, vs) makes three samples PhotometricInterpretation 6
+    with that YCbCrSubSampling: ``px`` holds Y, Cb, Cr, packed in units
+    (``ycbcr_units``), or, under compression 7, R, G, B, which the JPEG
+    encoder converts (4:4:4, 4:2:2 or 4:2:0).  Compression 7 without
+    ``ycbcr`` codes RGB or gray as stored, at ``quality``.  Compression 2
+    and 3 code 0/1 samples (1 black) one-dimensionally (``ccitt_encode``;
+    ``fax_fill`` sets T4Options bit 2 and byte-aligns the EOLs)."""
     px = np.asarray(px)
     if px.ndim == 2:
         px = px[..., None]
     height, width, spp = px.shape
     nbits = bits or 8 * px.dtype.itemsize
     planes = [px[..., s:s + 1] for s in range(spp)] if planar else [px]
-    chunks = []
+    chunks, tables = [], None
     for plane in planes:
         stride = plane.shape[2]
         for piece in _pieces(plane, rps, tile):
-            rows = np.ascontiguousarray(piece).reshape(piece.shape[0], -1)
+            if compression == 7:
+                if spp == 3:
+                    img = piece[..., ::-1] if ycbcr else piece
+                else:
+                    img = piece[..., 0]
+                frame = _jpeg_encode(np.ascontiguousarray(img), quality,
+                                     _SAMPLING[ycbcr or (1, 1)],
+                                     ycbcr is not None or spp != 3)
+                tables, chunk = jpeg_parts(frame)
+                chunks.append(chunk)
+                continue
+            if compression in (2, 3):
+                raw = ccitt_encode(piece[..., 0], compression, fax_fill)
+                chunks.append(_reverse_bits(raw) if fill_order == 2 else raw)
+                continue
+            if ycbcr:
+                rows = ycbcr_units(piece, *ycbcr)
+            else:
+                rows = np.ascontiguousarray(piece).reshape(piece.shape[0],
+                                                           -1)
             if predictor == 2:
                 u = rows.view(f"u{rows.dtype.itemsize}")
                 diff = u.copy()
@@ -156,8 +263,14 @@ def build_tiff(path, order: str, px: np.ndarray, *, compression: int = 1,
     big = 16 if bigtiff else 4
     tags = {256: (4, [width]), 257: (4, [height]),
             258: (3, [nbits] * spp), 259: (3, [compression]),
-            262: (3, [1 if spp < 3 else 2]), 277: (3, [spp]),
+            262: (3, [6 if ycbcr else 1 if spp < 3 else 2]), 277: (3, [spp]),
             284: (3, [2 if planar else 1]), 339: (3, [fmt or kind] * spp)}
+    if ycbcr:
+        tags[530] = (3, list(ycbcr))
+    if tables is not None:
+        tags[347] = (7, list(tables))
+    if compression == 3 and fax_fill:
+        tags[292] = (4, [4])
     if fill_order != 1:
         tags[266] = (3, [fill_order])
     if predictor != 1:
@@ -186,8 +299,9 @@ def build_tiff(path, order: str, px: np.ndarray, *, compression: int = 1,
             field = struct.pack(order + ("Q" if bigtiff else "I"),
                                 values_at + len(extra))
             extra += raw + b"\0" * (len(raw) % 2)
+        count = len(values) // 2 if typ == 5 else len(values)
         entries.append(struct.pack(order + ("HHQ" if bigtiff else "HHI"),
-                                   tag, typ, len(values)) + field)
+                                   tag, typ, count) + field)
     magic = b"II" if order == "<" else b"MM"
     header = magic + (struct.pack(order + "HHHQ", 43, 8, 0, at) if bigtiff
                       else struct.pack(order + "HI", 42, at))
@@ -196,6 +310,12 @@ def build_tiff(path, order: str, px: np.ndarray, *, compression: int = 1,
                 + b"".join(entries)
                 + struct.pack(order + ("Q" if bigtiff else "I"), 0)
                 + bytes(extra))
+
+
+def _jpeg_encode(img: np.ndarray, quality: int, sampling: str,
+                 convert: bool) -> bytes:
+    from tests._torch_mjpeg_writer import encode_jpeg
+    return encode_jpeg(img, quality, sampling, convert=convert)
 
 
 def _bgr(px: np.ndarray) -> np.ndarray:

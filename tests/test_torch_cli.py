@@ -174,6 +174,40 @@ def test_merge_matches_jax_on_new_tiff_layouts(capture_dir, tmp_path,
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
+def test_merge_matches_jax_on_jpeg_tiffs(capture_dir, tmp_path):
+    """``merge --std`` with darks and flat on captures, darks and flat
+    rewritten as JPEG-compressed YCbCr 4:2:0 TIFFs (quality 90, 16 x 16
+    tiles; the STD files stay uncompressed float64): the port equals the
+    JAX package, whose cv2 reads the same files."""
+    from tests._torch_tiff_writer import build_tiff
+    d, icrf_path, _ = capture_dir
+    src, root = d.parent, tmp_path / "jpeg"
+    for path in sorted(src.rglob("*.tif")):
+        rel = path.relative_to(src)
+        if rel.parts[0] not in ("captures", "darks", "flats"):
+            continue
+        out = root / rel
+        out.parent.mkdir(parents=True, exist_ok=True)
+        arr = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        if arr.dtype == np.float64:
+            build_tiff(out, "<", arr[..., ::-1], rps=7)
+        else:
+            build_tiff(out, "<", arr[..., ::-1], compression=7,
+                       ycbcr=(2, 2), quality=90, tile=(16, 16))
+    ini = root / "config.ini"
+    ini.write_text(f"""
+[String data]
+dark frames path = {root / "darks"}
+flat fields path = {root / "flats"}
+""")
+    common = ["--config", str(ini), "merge", "--images",
+              str(root / "captures"), "--icrf", str(icrf_path), "--std"]
+    assert jmain(common + ["--out", str(tmp_path / "jax")]) == 0
+    assert tmain(CPU + common + ["--out", str(tmp_path / "port")]) == 0
+    _same_tiffs(tmp_path / "port", tmp_path / "jax")
+    assert len(_read_dir(tmp_path / "port")) == 4
+
+
 def test_merge_stage_times_and_default_out(capture_dir):
     from camera_linearity_tpu_torch.utils import observability as obs
     d, icrf_path, ini = capture_dir

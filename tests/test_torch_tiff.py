@@ -413,9 +413,12 @@ def test_formerly_refused_tags_read(tmp_path, was, spec):
 
 
 # message, (sample kind, samples per pixel), build_tiff keywords, does cv2
-# read it (the rest cv2 itself refuses: None under both flags)
+# read it (the rest cv2 itself refuses: None under both flags).  The rows
+# for Compression=7, PhotometricInterpretation=6, BitsPerSample=1 and 4,
+# signed 12-bit, gray of 3 samples and a missing ColorMap read now and
+# moved to tests/test_torch_tiff_jpeg.py's READ_NOW.
+YCBCR = (262, 3, [6])
 BAD_TAGS = [
-    ("Compression=7", ("u1", 3), dict(extra_tags=[(259, 3, [7])]), False),
     ("Compression=6", ("u1", 3), dict(extra_tags=[(259, 3, [6])]), False),
     ("Compression=3", ("u1", 1), dict(extra_tags=[(259, 3, [3])]), False),
     ("Compression=34925", ("u1", 3), dict(extra_tags=[(259, 3, [34925])]),
@@ -424,21 +427,45 @@ BAD_TAGS = [
      False),
     ("Compression=50001", ("u1", 3), dict(extra_tags=[(259, 3, [50001])]),
      False),
-    ("PhotometricInterpretation=6", ("u1", 3), dict(extra_tags=[
-        (262, 3, [6])]), True),
     ("PhotometricInterpretation=8", ("u1", 3), dict(extra_tags=[
         (262, 3, [8])]), True),
+    ("PhotometricInterpretation=9", ("u1", 3), dict(extra_tags=[
+        (262, 3, [9])]), False),
+    ("PhotometricInterpretation=10", ("u1", 3), dict(extra_tags=[
+        (262, 3, [10])]), False),
+    ("Compression=34712", ("u1", 3), dict(extra_tags=[(259, 3, [34712])]),
+     True),
+    ("Compression=7 with 4 8-bit samples", ("u1", 4),
+     dict(extra_tags=[(259, 3, [7]), CMYK]), False),
+    ("Compression=7 with 3 8-bit samples, PhotometricInterpretation=2, "
+     "PlanarConfiguration=2", ("u1", 3),
+     dict(planar=True, extra_tags=[(259, 3, [7])]), False),
+    ("Compression=7 with 1 16-bit samples", ("u2", 1),
+     dict(extra_tags=[(259, 3, [7])]), False),
+    ("Compression=4 with 3 samples of 8 bits", ("u1", 3),
+     dict(extra_tags=[(259, 3, [4])]), False),
+    ("T4Options=2", ("b1", 1), dict(bits=1, extra_tags=[(259, 3, [3]),
+                                                        (292, 4, [2])]),
+     True),
+    ("YCbCrSubSampling=\\[3, 1\\]", ("u1", 3),
+     dict(extra_tags=[YCBCR, (530, 3, [3, 1])]), False),
+    ("Predictor=2 with YCbCrSubSampling=\\[2, 2\\]", ("u1", 3),
+     dict(compression=5, predictor=2, extra_tags=[YCBCR]), True),
+    ("RowsPerStrip=5 with YCbCrSubSampling=\\[2, 2\\]", ("u1", 3),
+     dict(rps=5, extra_tags=[YCBCR]), True),
+    ("YCbCrSubSampling=\\[4, 4\\] in tiles", ("u1", 3),
+     dict(tile=(16, 16), extra_tags=[YCBCR, (530, 3, [4, 4])]), False),
+    ("PhotometricInterpretation=6 with 3 16-bit", ("u2", 3),
+     dict(extra_tags=[YCBCR]), False),
     ("PhotometricInterpretation=4", ("u1", 1), dict(extra_tags=[
         (262, 3, [4])]), False),
-    ("BitsPerSample=1", ("b1", 1), dict(bits=1), True),
-    ("BitsPerSample=4", ("b4", 1), dict(bits=4), False),
     ("BitsPerSample=2 with PhotometricInterpretation=3", ("b2", 1),
      dict(bits=2, extra_tags=_palette(2)), False),
     ("BitsPerSample=16 with PhotometricInterpretation=3", ("u2", 1),
      dict(extra_tags=[PALETTE, (320, 3, [7] * (3 << 16))]), False),
     ("BitsPerSample=16 with SampleFormat=3", ("f2", 1), {}, False),
-    ("BitsPerSample=12 with SampleFormat=2", ("b12", 1), dict(bits=12,
-                                                             fmt=2), True),
+    ("BitsPerSample=12 with SampleFormat=2 and SamplesPerPixel=3",
+     ("b12", 3), dict(bits=12, fmt=2), True),
     ("BitsPerSample=\\[8, 8, 12\\]", ("u1", 3),
      dict(extra_tags=[(258, 3, [8, 8, 12])]), False),
     ("SampleFormat=\\[1, 1, 2\\]", ("u1", 3),
@@ -448,15 +475,16 @@ BAD_TAGS = [
     ("PhotometricInterpretation=5 with SamplesPerPixel=3", ("u1", 3),
      dict(extra_tags=[CMYK]), False),
     ("SamplesPerPixel=5", ("u1", 5), {}, False),
-    ("SamplesPerPixel=3 with PhotometricInterpretation=1", ("u1", 3),
-     dict(extra_tags=[(262, 3, [1])]), True),
+    ("SamplesPerPixel=3 with PhotometricInterpretation=1 and 32-bit",
+     ("u4", 3), dict(extra_tags=[(262, 3, [1])]), True),
     ("SamplesPerPixel=2 with PhotometricInterpretation=3", ("b4", 2),
      dict(bits=4, extra_tags=_palette(4)), False),
     ("Predictor=3 with 8-bit SampleFormat=1", ("u1", 3),
      dict(compression=8, extra_tags=[(317, 3, [3])]), False),
     ("Predictor=2 with 12-bit", ("b12", 1),
      dict(bits=12, compression=8, extra_tags=[(317, 3, [2])]), False),
-    ("ColorMap=missing", ("u1", 1), dict(extra_tags=[PALETTE]), True),
+    ("ColorMap=missing, with 1 8-bit SampleFormat=2", ("i1", 1),
+     dict(extra_tags=[PALETTE]), True),
     ("FillOrder=2 with uncompressed tiles", ("u1", 3),
      dict(fill_order=2, tile=(16, 16)), False),
     ("Orientation=9", ("u1", 3), dict(extra_tags=[(274, 3, [9])]), None),
