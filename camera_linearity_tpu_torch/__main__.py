@@ -111,7 +111,7 @@ def cmd_merge(args) -> int:
                 series.load_std_images()
         flat = None if flats is None else first.get_flat_field(flats)
         with stage("merge_s"), timed(f"merge {first.features['subject']}",
-                                     dev):
+                                     device=dev):
             hdr = series.process_HDR_image(
                 ICRF=icrf, ICRF_diff=icrf_diff, list_of_dark_fields=darks,
                 use_std=args.std, flat_field=flat,
@@ -206,7 +206,7 @@ def cmd_calibrate(args) -> int:
                 # phase (a short seeded polish) does not
                 device_kwargs.update(checkpoint_path=args.checkpoint,
                                      checkpoint_every=100)
-            with timed("calibration_hybrid", dev):
+            with timed("calibration_hybrid", device=dev):
                 icrf, dev_e, e0, e1, iters = scipy_strict.calibration_hybrid(
                     args.lower, args.upper, channel_stacks=channel_stacks,
                     pca_arrays=pca, mean_icrf_arrays=mean,
@@ -221,7 +221,7 @@ def cmd_calibrate(args) -> int:
             if args.checkpoint:
                 log.warning("--checkpoint is ignored in --strict mode "
                             "(the reference's SciPy solve has no resume)")
-            with timed("calibration_strict", dev):
+            with timed("calibration_strict", device=dev):
                 icrf, e0, e1, iters = scipy_strict.calibration_strict(
                     args.lower, args.upper, channel_stacks=channel_stacks,
                     pca_arrays=pca, mean_icrf_arrays=mean,
@@ -232,7 +232,7 @@ def cmd_calibrate(args) -> int:
         io.save_txt(out, icrf)
         log.info("wrote %s", out)
         return 0
-    with timed("calibration", dev):
+    with timed("calibration", device=dev):
         icrf, e0, e1, _ratio, base = cal.calibration(
             args.lower, args.upper, data_spacing=args.spacing,
             use_std=args.std, image_path=Path(args.images),
@@ -363,12 +363,12 @@ def cmd_doctor(args) -> int:
     if dev.type == "cuda":
         # one-time costs are paid before each timed window: the point is
         # the steady rate
-        from .utils.general import stage_to_device
+        from .utils.general import stage_to_device_async
         payload = torch.ones((16 << 20) // 4, dtype=torch.float32,
                              pin_memory=True).numpy()
-        stage_to_device(payload, dev)[1].synchronize()  # warm
+        stage_to_device_async(payload, dev)[1].synchronize()  # warm
         t0 = time.perf_counter()
-        stage_to_device(payload, dev)[1].synchronize()
+        stage_to_device_async(payload, dev)[1].synchronize()
         secs = time.perf_counter() - t0
         print(f"host->device: {payload.nbytes / 1e6 / secs:.0f} MB/s "
               "(16 MB pinned probe, steady rate)")
@@ -398,7 +398,8 @@ def _doctor_video(path: Path) -> None:
     decoders = ["native"]
     if info is not None and info.codec == "MJPG":
         decoders = []
-        payloads = list(itertools.islice(avi.mjpg_chunks(path), 120))
+        payloads = list(itertools.islice(avi.mjpg_chunks(path, info.stream),
+                                         120))
         cores = os.cpu_count() or 1
         dst = np.empty((min(cores, len(payloads)), h, w, 3), np.uint8)
         for mode in native.JPEG_MODES:

@@ -95,6 +95,9 @@ class Measurand:
                          None if self.std is None
                          else torch.zeros_like(self.std))
 
+    # reference method name (measurand.py:304)
+    zeros_like_measurand = zeros_like
+
     def to_numpy(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Host copies of (val, std)."""
         return (self.val.cpu().numpy(),

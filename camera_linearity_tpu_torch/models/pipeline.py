@@ -36,7 +36,7 @@ from ..parallel import sharded
 from ..parallel.mesh import block_of, mesh_device
 from ..utils import io
 from ..utils.device import canonical_float, resolve_device
-from ..utils.general import stage_to_device, transfer_stream
+from ..utils.general import stage_to_device_async, transfer_stream
 from ..utils.observability import get_logger, stage, timed
 from . import video as video_mod
 from .exposure_series import ExposureSeries
@@ -207,15 +207,16 @@ def _wire_flags(wire_val: Optional[str], wire_std: Optional[str]):
 def _upload_plane(a: np.ndarray, dst: Tensor, is_std: bool, wire_u16: bool,
                   wire_f16: bool):
     """Start the copy of one host plane towards ``dst``: ``(tensor,
-    event)`` of :func:`utils.general.stage_to_device`.  A plane shipped at
-    ``dst``'s type lands in ``dst`` itself; a wire plane (u16 val, carried
-    as int16 bits; f16 std) lands in a tensor of its own, for
+    event)`` of :func:`utils.general.stage_to_device_async`.  A plane
+    shipped at ``dst``'s type lands in ``dst`` itself; a wire plane (u16
+    val, carried as int16 bits; f16 std) lands in a tensor of its own, for
     :func:`_dequantize` once its event has completed."""
     if wire_u16:
-        return stage_to_device(a if is_std else a.view(np.int16), dst.device)
+        return stage_to_device_async(a if is_std else a.view(np.int16),
+                                     dst.device)
     if is_std and wire_f16:
-        return stage_to_device(a.astype(np.float16), dst.device)
-    return stage_to_device(a, dst.device, out=dst)
+        return stage_to_device_async(a.astype(np.float16), dst.device)
+    return stage_to_device_async(a, dst.device, out=dst)
 
 
 def _dequantize(t: Tensor, dst: Tensor) -> None:
@@ -292,7 +293,7 @@ def prewarm_batch_video_to_hdr(n_scenes: int, n_exposures: int,
                 _dequantize(up[0], dst)
         plane = pool[0][1][0]
         t0 = time.perf_counter()
-        _wait([stage_to_device(plane, dev)])
+        _wait([stage_to_device_async(plane, dev)])
         h2d_mbps = plane.nbytes / 1e6 / (time.perf_counter() - t0)
         log.info("prewarm: h2d steady rate %.0f MB/s", h2d_mbps)
     finally:

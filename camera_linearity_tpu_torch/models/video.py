@@ -60,7 +60,8 @@ from ..config import CameraConfig, DEFAULT_CONFIG
 from ..ops import welford as wf
 from ..utils import avi, io
 from ..utils.device import canonical_float, resolve_device
-from ..utils.general import set_thread_priority, stage_to_device
+from ..utils.general import (set_thread_priority,
+                             stage_to_device_async)
 from ..utils.observability import (decoded_frames, get_logger, stage,
                                    stage_times)
 
@@ -208,7 +209,7 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
         while True:
             yield fill_raw
     elif decoder in native.JPEG_MODES:
-        chunks = avi.mjpg_chunks(path)
+        chunks = avi.mjpg_chunks(path, avi.probe_avi(path).stream)
         if decoder == "ffmpeg":  # FFmpeg's AVI reader drops empty chunks
             chunks = (c for c in chunks if len(c))
         done = 0      # frames decoded so far
@@ -447,7 +448,7 @@ def _staged_batches(file_paths: List[Path], batch_size: int,
     batches = _frame_batches_into(file_paths, batch_size, pool,
                                   prefetch_depth=2, decoders=decoders)
     for batch in _prefetch(batches, depth=2):
-        staged, event = stage_to_device(batch, device)
+        staged, event = stage_to_device_async(batch, device)
         if event is not None:
             torch.cuda.current_stream(device).wait_event(event)
         yield staged

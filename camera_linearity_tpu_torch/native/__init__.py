@@ -85,17 +85,18 @@ def wire_quantize_u16f16(mean: np.ndarray, std: Optional[np.ndarray],
     return mq, sq
 
 
-def mmap_buffer(shape, dtype) -> np.ndarray:
-    """NumPy array backed by a dedicated, prefaulted anonymous mmap
-    (THP-advised).
+def mmap_buffer(shape, dtype, prefault: bool = True) -> np.ndarray:
+    """NumPy array backed by a dedicated anonymous mmap (THP-advised),
+    zero-filled page by page up front with ``prefault``.
 
     For multi-hundred-MB buffers that live for the whole process (decode
     pools, moment accumulators): backing them with their own mapping avoids
     the brk heap's first-touch fault rate, requests transparent hugepages
-    (MADV_HUGEPAGE) where the kernel honors madvise, and pays the
-    page-fault cost once, up front, at sequential-fill speed rather than
-    scattered through a decode loop.  glibc's allocator keeps its defaults
-    (large NumPy temporaries become plain mmaps).
+    (MADV_HUGEPAGE) where the kernel honors madvise, and (with
+    ``prefault``) pays the page-fault cost once, up front, at
+    sequential-fill speed rather than scattered through a decode loop.
+    glibc's allocator keeps its defaults (large NumPy temporaries become
+    plain mmaps).
     """
     import mmap as _mmap
     dt = np.dtype(dtype)
@@ -110,7 +111,8 @@ def mmap_buffer(shape, dtype) -> np.ndarray:
         pass
     arr = np.frombuffer(buf, dtype=dt, count=int(np.prod(shape))
                         ).reshape(shape)
-    arr.view(np.uint8).reshape(-1)[:] = 0
+    if prefault:
+        arr.view(np.uint8).reshape(-1)[:] = 0
     return arr
 
 

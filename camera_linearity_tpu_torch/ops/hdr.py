@@ -18,7 +18,8 @@ in ``compat='corrected'`` mode (first-order propagation; SURVEY.md §7.7).
 Dispatch mirrors the JAX package, with a CUDA tensor where it has the TPU:
 a CUDA stack goes to the kernels of :mod:`.hdr_cuda` wherever the JAX
 package runs Pallas, and everything else runs plain PyTorch on the
-tensor's own device.  ``use_kernel=False`` forces the plain path.
+tensor's own device.  ``use_pallas=False`` (the JAX name, in its
+position) or ``use_kernel=False`` forces the plain path.
 """
 from __future__ import annotations
 
@@ -40,16 +41,17 @@ __all__ = ["sum_of_weights", "merge_stack", "merge_stack_u8", "merge_hdr",
 def merge_batch(batch_val: Tensor, batch_std: Optional[Tensor],
                 exposures: Tensor, icrf: Tensor, icrf_diff: Tensor,
                 compat: str = "corrected",
-                use_kernel: Optional[bool] = None,
+                use_pallas: Optional[bool] = None,
                 icrf_base: Optional[Tensor] = None,
-                icrf_diff_base: Optional[Tensor] = None) -> ValStd:
+                icrf_diff_base: Optional[Tensor] = None, *,
+                use_kernel: Optional[bool] = None) -> ValStd:
     """Merge a (B, N, H, W, C) batch of scenes into (B, H, W, C): one
     kernel launch on CUDA (the batch is a leading axis of the kernel's
     grid, where the JAX package vmaps), the batched plain path elsewhere.
     Routing is :func:`merge_hdr`'s."""
     return merge_hdr(batch_val, batch_std, exposures, icrf, icrf_diff,
-                     compat=compat, use_kernel=use_kernel,
-                     icrf_base=icrf_base, icrf_diff_base=icrf_diff_base)
+                     compat, use_pallas, icrf_base, icrf_diff_base,
+                     use_kernel=use_kernel)
 
 
 def sum_of_weights(stack_val: Tensor) -> Tuple[Tensor, Tensor]:
@@ -62,7 +64,8 @@ def sum_of_weights(stack_val: Tensor) -> Tuple[Tensor, Tensor]:
 
 def merge_stack(stack_val: Tensor, stack_std: Optional[Tensor],
                 exposures: Tensor, icrf: Tensor, icrf_diff: Tensor,
-                compat: str = "corrected") -> ValStd:
+                compat: str = "corrected",
+                row_chunk: Optional[int] = None) -> ValStd:
     """Merge a preprocessed ``(N, H, W, C)`` stack into an HDR radiance map.
 
     ``stack_val`` holds [0,1] float values (dark/bad-pixel corrections are a
@@ -70,7 +73,9 @@ def merge_stack(stack_val: Tensor, stack_std: Optional[Tensor],
     ``icrf``/``icrf_diff`` are ``(bits, C)``.  Returns ``(hdr_val, hdr_std)``
     with ``hdr_std`` None when ``stack_std`` is None.  Leading batch axes
     before N are merged independently.  This is K1's plain version
-    (:func:`.hdr_cuda.merge_fused_plain`).
+    (:func:`.hdr_cuda.merge_fused_plain`).  ``row_chunk`` is taken and
+    ignored: in the JAX package it bounds the TPU's radix lookup by
+    merging slabs of rows, which the port's lookup does not need.
     """
     return hdr_cuda.merge_fused_plain(stack_val, stack_std, exposures, icrf,
                                       icrf_diff, compat)
@@ -78,10 +83,12 @@ def merge_stack(stack_val: Tensor, stack_std: Optional[Tensor],
 
 def merge_stack_u8(stack_dn: Tensor, stack_std: Optional[Tensor],
                    exposures: Tensor, icrf: Tensor, icrf_diff: Tensor,
-                   compat: str = "corrected") -> ValStd:
+                   compat: str = "corrected",
+                   row_chunk: Optional[int] = None) -> ValStd:
     """Merge directly from an integer-DN stack (the native 8-bit path):
     ``x = dn/max_dn`` reproduces the reference's 8-bit load normalization
-    (image_set.py:223), and ``dn`` is itself the LUT index."""
+    (image_set.py:223), and ``dn`` is itself the LUT index.  ``row_chunk``
+    is ignored, as in :func:`merge_stack`."""
     return hdr_cuda.merge_fused_plain(stack_dn, stack_std, exposures, icrf,
                                       icrf_diff, compat)
 
@@ -131,9 +138,10 @@ def merge_corrected(stack_val: Tensor, stack_std: Optional[Tensor],
 
 def merge_hdr(stack_val: Tensor, stack_std: Optional[Tensor],
               exposures: Tensor, icrf: Tensor, icrf_diff: Tensor,
-              compat: str = "corrected", use_kernel: Optional[bool] = None,
+              compat: str = "corrected", use_pallas: Optional[bool] = None,
               icrf_base: Optional[Tensor] = None,
-              icrf_diff_base: Optional[Tensor] = None) -> ValStd:
+              icrf_diff_base: Optional[Tensor] = None, *,
+              use_kernel: Optional[bool] = None) -> ValStd:
     """Dispatch to the merge implementation for the stack's device.
 
     A CUDA stack with 256- or 4096-entry tables runs the exact-lookup
@@ -142,9 +150,16 @@ def merge_hdr(stack_val: Tensor, stack_std: Optional[Tensor],
     the reference's >8-bit tables are np.interp expansions of 256 solved
     datapoints (ICRF_calibration_exposure.py:204-216, 398-402), so the
     interpolant is the same math.  ``icrf``/``icrf_diff`` still drive the
-    plain path (and define ``bits``).  Pass ``use_kernel`` to force either.
-    Leading batch axes before N are merged independently (``merge_batch``).
+    plain path (and define ``bits``).  Pass ``use_kernel``, or the JAX
+    package's ``use_pallas``, to force either (both, with different values,
+    raise).  Leading batch axes before N are merged independently
+    (``merge_batch``).
     """
+    if use_pallas is not None:
+        if use_kernel is not None and use_kernel != use_pallas:
+            raise ValueError(f"use_pallas={use_pallas} and use_kernel="
+                             f"{use_kernel} disagree")
+        use_kernel = use_pallas
     # other datapoints resolutions fall through to the exact paths
     if (icrf_base is not None and icrf_base.shape[0] == 256
             and icrf.shape[0] > 256 and stack_val.is_cuda

@@ -169,16 +169,19 @@ def global_scene_batch(local_val: np.ndarray, mesh: DeviceMesh,
     return torch.as_tensor(local_val[:, :, rows], device=mesh_device(mesh))
 
 
-def fetch_local_scenes(local_out: Tensor, mesh: DeviceMesh,
+def fetch_local_scenes(global_out: Tensor, mesh: DeviceMesh,
                        block: slice) -> Tensor:
-    """THIS process's merged scenes (B_loc, H, W, C) on its device, from
-    its (B_loc, H_loc, W, C) block: the row bands gather over the
-    ``pixel`` axis (the scene axis stays put)."""
+    """THIS process's merged scenes (B_loc, H, W, C) on its device.
+
+    ``global_out`` is this process's (B_loc, H_loc, W, C) block of the
+    merge output (where the JAX package passes the global sharded array,
+    each process here holds its own block as a plain tensor): the row
+    bands gather over the ``pixel`` axis (the scene axis stays put)."""
     if axis_size(mesh, "pixel") > 1:
-        local_out = torch.cat(all_gather(local_out, mesh.get_group("pixel")),
-                              dim=1)
-    if local_out.shape[0] != block.stop - block.start:
+        global_out = torch.cat(
+            all_gather(global_out, mesh.get_group("pixel")), dim=1)
+    if global_out.shape[0] != block.stop - block.start:
         raise AssertionError(
-            f"local scene block {local_out.shape[0]} != owned block "
+            f"local scene block {global_out.shape[0]} != owned block "
             f"{block.stop - block.start}")
-    return local_out
+    return global_out

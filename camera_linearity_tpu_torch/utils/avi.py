@@ -89,18 +89,23 @@ def _stream_chunks(f, data_fourccs) -> Iterator[bytes]:
         yield payload
 
 
-# the frames of stream 0, where OpenCV writes video: chunks with both the
-# compressed (``dc``) and uncompressed (``db``) suffix; ``pc`` changes the
-# palette
-_FRAME_FOURCCS = (b"00dc", b"00db")
-_PALETTE_CHANGE = b"00pc"
+def _frame_fourccs(stream: int) -> Tuple[bytes, bytes]:
+    """The frame chunks of AVI stream ``stream``: both the compressed
+    (``NNdc``) and the uncompressed (``NNdb``) suffix, as FFmpeg's AVI
+    reader takes them."""
+    prefix = b"%02d" % stream
+    return prefix + b"dc", prefix + b"db"
 
 
-def mjpg_chunks(path: Path) -> Iterator[bytes]:
-    """Yield each video frame's JPEG bytes from an MJPG AVI file (MJPG
-    writers use ``00dc`` chunks)."""
+def mjpg_chunks(path: Path, stream: int = 0) -> Iterator[bytes]:
+    """Yield each video frame's JPEG bytes from an MJPG AVI file.
+
+    ``stream`` selects the AVI stream number (OpenCV writes video as
+    stream 0; :func:`probe_avi` gives the video's as ``AviInfo.stream``).
+    Chunks of other streams (audio ``NNwb``, text, indexes, ``JUNK``) are
+    skipped."""
     with open(path, "rb", buffering=1 << 20) as f:
-        for payload in _stream_chunks(f, _FRAME_FOURCCS):
+        for payload in _stream_chunks(f, _frame_fourccs(stream)):
             yield payload
 
 
@@ -126,14 +131,14 @@ class JpegInfo(NamedTuple):
     scans: int
 
 
-def _first_jpeg_sof(path: Path) -> Optional[JpegInfo]:
-    """The headers of an AVI's first video frame when it is a JPEG, else
-    None."""
+def _first_jpeg_sof(path: Path, stream: int) -> Optional[JpegInfo]:
+    """The headers of the first frame of an AVI's stream ``stream`` when it
+    is a JPEG, else None."""
     try:
         with open(path, "rb") as f:
             if not _open_avi(f):
                 return None
-            first = next(_stream_chunks(f, _FRAME_FOURCCS), None)
+            first = next(_stream_chunks(f, _frame_fourccs(stream)), None)
     except OSError:
         return None
     if first is None or first[:2] != b"\xff\xd8":
@@ -269,10 +274,13 @@ class AviInfo(_AviHeader):
     fourcc, e.g. ``"MJPG"`` or ``"RGBA"``; ``"DIB"`` for uncompressed
     BI_RGB, ``"BITFIELDS"`` for BI_BITFIELDS), frame geometry and
     components per pixel; for MJPG also the first frame's
-    :class:`JpegInfo`.  It compares as the tuple of those five; for
-    another codec ``raw`` holds its :class:`RawLayout` and ``layout``
-    the rawvideo reader's layout (None where the reader has none)."""
+    :class:`JpegInfo`.  It compares as the tuple of those five; ``stream``
+    is the video's AVI stream number (its frames are ``NNdc``/``NNdb``
+    chunks), and for another codec ``raw`` holds its :class:`RawLayout`
+    and ``layout`` the rawvideo reader's layout (None where the reader has
+    none)."""
     raw: Optional[RawLayout] = None
+    stream: int = 0
 
     @property
     def layout(self) -> Optional[str]:
@@ -283,6 +291,12 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
     """The first video stream of an AVI file, from its ``strh``/``strf``
     headers, or None when ``path`` is not a readable AVI with a video
     stream.
+
+    Every stream counts towards the video's number (``AviInfo.stream``),
+    audio and text streams too; of several video streams the first is
+    taken, as cv2 takes it.  A video stream without a single frame chunk
+    raises a ValueError naming its number (cv2 reads no frame from such a
+    file either).
 
     For MJPG the geometry, the component count and the JPEG mode
     (:class:`JpegInfo`) come from the first frame's own headers, not the
@@ -297,14 +311,23 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
             if not _open_avi(f):
                 return None
             header = None
+            stream = -1   # the number of the latest stream header
             video = False
             for fourcc, size in _chunk_spans(f, (b"strh", b"strf")):
                 payload = f.read(size)
                 if fourcc == b"strh":
+                    stream += 1
                     video = payload[:4] == b"vids"
                 elif video and len(payload) >= 20:
                     header = payload
                     break
+            frames = _frame_fourccs(stream)
+            f.seek(0)
+            if header is not None and \
+                    next(_chunk_spans(f, frames), None) is None:
+                raise ValueError(
+                    f"{path}: AVI video stream {stream} has no frame chunk "
+                    f"({frames[0].decode()} or {frames[1].decode()})")
     except OSError:
         return None
     if header is None:
@@ -314,10 +337,12 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
     codec = {b"\0\0\0\0": "DIB", b"\3\0\0\0": "BITFIELDS"}.get(
         compression) or compression.decode("latin-1").strip()
     if codec == "MJPG":
-        sof = _first_jpeg_sof(path)
+        sof = _first_jpeg_sof(path, stream)
         if sof is None:
             return None
-        return AviInfo(codec, sof.height, sof.width, sof.components, sof)
+        info = AviInfo(codec, sof.height, sof.width, sof.components, sof)
+        info.stream = stream
+        return info
     dib = codec == "DIB"
     layout = DIB_LAYOUTS.get(bit_count) if dib else FOURCC_LAYOUTS.get(codec)
     palette = None
@@ -331,13 +356,14 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
             extra, np.uint8, n // 4 * 4, len(extra) - n)
     info = AviInfo(codec, abs(height), width, bit_count // 8)
     info.raw = RawLayout(layout, bit_count, dib and height > 0, palette)
+    info.stream = stream
     return info
 
 
 def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:
     """What of an uncompressed AVI the port's rawvideo reader does not
     read, or None when it reads every frame: 1-, 2- and 4-bit BI_RGB,
-    BI_BITFIELDS, palette-change (``00pc``) chunks, or a frame chunk
+    BI_BITFIELDS, palette-change (``NNpc``) chunks, or a frame chunk
     longer than the layout's frame that is not its padded size either
     (the chunk headers are walked, no frame is read).  Empty chunks are
     skipped, as FFmpeg's AVI reader skips them, and a shorter chunk ends
@@ -351,12 +377,13 @@ def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:
     if info.layout is None:
         return None
     sizes = chunk_sizes(info.layout, info.height, info.width)
+    change = b"%02dpc" % info.stream   # a palette change
     try:
         with open(path, "rb") as f:
             for fourcc, size in _chunk_spans(
-                    f, _FRAME_FOURCCS + (_PALETTE_CHANGE,)):
-                if fourcc == _PALETTE_CHANGE:
-                    return "palette-change (00pc) chunks"
+                    f, _frame_fourccs(info.stream) + (change,)):
+                if fourcc == change:
+                    return f"palette-change ({change.decode()}) chunks"
                 if size > sizes[0] and size not in sizes:
                     return (f"a {info.layout} frame chunk of {size} bytes, "
                             f"not the {info.height} x {info.width} frame's "
@@ -378,7 +405,8 @@ def raw_chunks(path: Path, info: AviInfo, ring: int = 1
     buffers: list = [np.empty(0, np.uint8)] * ring
     with open(path, "rb", buffering=0) as f:
         for i, (_, size) in enumerate(
-                (s for s in _chunk_spans(f, _FRAME_FOURCCS) if s[1])):
+                (s for s in _chunk_spans(f, _frame_fourccs(info.stream))
+                 if s[1])):
             if size < need:
                 return
             slot = i % ring
@@ -413,7 +441,7 @@ def raw_frames(path: Path) -> Iterator[np.ndarray]:
     flat = memoryview(buf.reshape(-1))
     bgr = buf[..., 2::-1]
     with open(path, "rb", buffering=0) as f:
-        for _, size in _chunk_spans(f, _FRAME_FOURCCS):
+        for _, size in _chunk_spans(f, _frame_fourccs(info.stream)):
             if size != buf.size:
                 raise ValueError(f"{path}: frame chunk of {size} bytes, "
                                  f"expected {h} x {w} x 4 = {buf.size}")

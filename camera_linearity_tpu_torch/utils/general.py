@@ -18,7 +18,7 @@ Tensor = torch.Tensor
 __all__ = ["is_broadcastable", "choose_evenly_spaced_points",
            "predict_output_shape",
            "map_linearity_limits", "interpolate_data", "set_thread_priority",
-           "stage_to_device", "transfer_stream"]
+           "stage_to_device", "stage_to_device_async", "transfer_stream"]
 
 
 def set_thread_priority(nice: int) -> bool:
@@ -51,8 +51,29 @@ def transfer_stream(device) -> "torch.cuda.Stream":
     return _TRANSFER_STREAMS[device]
 
 
-def stage_to_device(arr: np.ndarray, device, out: Optional[Tensor] = None
-                    ) -> Tuple[Tensor, Optional["torch.cuda.Event"]]:
+def stage_to_device(arr: np.ndarray, max_bytes: int = 128 << 20, *,
+                    device=None) -> Tensor:
+    """A copy of a host array on ``device`` (the current CUDA device by
+    default), shipped in slices of at most ``max_bytes`` along axis 0
+    (whole where it is smaller or has one row).  The JAX package's
+    chunked transfer; on the card the copies are synchronous, so ``arr``
+    may be overwritten once this returns.  The pipelines' asynchronous
+    copy is :func:`stage_to_device_async`."""
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    out = torch.empty(host.shape, dtype=host.dtype,
+                      device="cuda" if device is None else device)
+    if host.ndim == 0 or host.nbytes <= max_bytes or host.shape[0] <= 1:
+        return out.copy_(host)
+    pieces = min(-(-host.nbytes // max_bytes), host.shape[0])
+    for src, dst in zip(torch.tensor_split(host, pieces),
+                        torch.tensor_split(out, pieces)):
+        dst.copy_(src)
+    return out
+
+
+def stage_to_device_async(arr: np.ndarray, device,
+                          out: Optional[Tensor] = None
+                          ) -> Tuple[Tensor, Optional["torch.cuda.Event"]]:
     """Copy a host array to ``device``: ``(tensor, event)``.
 
     On CUDA the copy is ``non_blocking`` on the device's transfer stream

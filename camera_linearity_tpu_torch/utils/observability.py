@@ -17,7 +17,7 @@ import os
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterator, Tuple, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -28,14 +28,16 @@ __all__ = ["get_logger", "trace", "device_busy", "timed", "stage",
 _FORMAT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 
 
-def get_logger() -> logging.Logger:
-    """The package's logger (INFO, one stream handler)."""
-    logger = logging.getLogger("camera_linearity_tpu_torch")
+def get_logger(name: str = "camera_linearity_tpu_torch",
+               level: int = logging.INFO) -> logging.Logger:
+    """The logger ``name`` (by default the package's), given one stream
+    handler and ``level`` the first time it is asked for."""
+    logger = logging.getLogger(name)
     if not logger.handlers:
         handler = logging.StreamHandler()
         handler.setFormatter(logging.Formatter(_FORMAT))
         logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
+        logger.setLevel(level)
         logger.propagate = False
     return logger
 
@@ -115,9 +117,9 @@ def reset_stage_times() -> None:
     decoded_frames.reset()
 
 
-def snapshot_stage_times() -> Dict[str, float]:
-    """The stage times so far, in seconds to two decimals."""
-    return {k: round(v, 2)
+def snapshot_stage_times(round_to: int = 2) -> Dict[str, float]:
+    """The stage times so far, in seconds to ``round_to`` decimals."""
+    return {k: round(v, round_to)
             for k, v in sorted(stage_times.snapshot().items())}
 
 
@@ -135,18 +137,24 @@ def stage(name: str) -> Iterator[None]:
 
 
 @contextlib.contextmanager
-def timed(label: str, device=None) -> Iterator[None]:
-    """Wall-clock a block and log it; with a card, synchronizes ``device``
-    (the current CUDA device by default) before and after, since launches
-    return before the work is done."""
-    sync = torch.cuda.is_available() and (
+def timed(label: str, logger: Optional[logging.Logger] = None,
+          sync: bool = True, *, device=None) -> Iterator[dict]:
+    """Wall-clock a block, log it to ``logger`` (the package's by default)
+    and yield a dict that holds the block's ``"seconds"`` once it ends.
+    With ``sync`` and a card, synchronizes ``device`` (the current CUDA
+    device by default) before and after, since launches return before the
+    work is done."""
+    logger = logger or get_logger()
+    sync = sync and torch.cuda.is_available() and (
         device is None or torch.device(device).type == "cuda")
     if sync:
         torch.cuda.synchronize(device)
+    info: dict = {}
     t0 = time.perf_counter()
     try:
-        yield
+        yield info
     finally:
         if sync:
             torch.cuda.synchronize(device)
-        get_logger().info("%s: %.3f s", label, time.perf_counter() - t0)
+        info["seconds"] = time.perf_counter() - t0
+        logger.info("%s: %.3f s", label, info["seconds"])

@@ -74,6 +74,16 @@ video against the oracle at the crop.  It times the device Welford and
 K1 at B = 8 beside their bounds, K3's share of ``video_to_hdr``, and
 ``welford_algorithm`` on one MJPG video by decoder threads.
 
+Phase 14 (b), config 5 from AVIs whose video is not stream 0: phase 14's
+default-decoder MJPG videos written again with a PCM audio stream 0 and
+the video as stream 1 (odd-sized audio chunks between the frames);
+``batch_video_to_hdr`` (K1, B = 8) and ``video_to_hdr`` (K3) on them,
+held to phase 14's results on the stream-0 files bit for bit and timed
+beside them; one I420 video read through ``raw_chunks`` as stream 2,
+held to stream 0's frames; ``timed(label, logger)`` and
+``timed(label, device=dev)`` checked to synchronize the card; and
+``stage_to_device(arr, max_bytes)`` checked to copy in slices onto it.
+
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
 plane in each TIFF layout the reader gained (``tests/_torch_tiff_writer.py``:
@@ -954,6 +964,164 @@ def plain_crop_frames(crop_path, mode: str):
     return np.stack(frames)
 
 
+def rewrite_with_audio(src, dst, stream: int, codec: str) -> int:
+    """Write ``src``'s frames again as ``dst``, the video as AVI stream
+    ``stream`` behind as many 8 kHz PCM audio streams, the first of them
+    with odd-sized chunks (267 bytes a frame at 30 fps, padded to a word),
+    all interleaved with the frames.  ``codec`` is ``"MJPG"`` or
+    ``"I420"``.  Returns the frame count."""
+    from camera_linearity_tpu_torch.utils import avi
+    from tests._torch_mjpeg_writer import write_mjpg_avi
+    from tests._torch_rawvideo_writer import pcm_stream, write_raw_avi
+    if codec == "MJPG":
+        frames = list(avi.mjpg_chunks(src))
+    else:
+        frames = [c.tobytes() for c in avi.raw_chunks(src,
+                                                      avi.probe_avi(src))]
+    audio = [pcm_stream([267 if k == 0 else 266] * len(frames), seed=k)
+             for k in range(stream)]
+    if codec == "MJPG":
+        write_mjpg_avi(dst, frames, H5, W5, stream=stream, others=audio)
+    else:
+        write_raw_avi(dst, frames, H5, W5, "I420", stream=stream,
+                      others=audio)
+    return len(frames)
+
+
+def stream_phase(dev, directory, mjpg_paths, i420_paths, stream0, runs,
+                 run_batch, run_video_to_hdr) -> dict:
+    """Phase 14 (b): config 5 from AVIs whose video is not stream 0.
+    Phase 14's MJPG videos (the default decoder's, 4:2:0) are written
+    again with a PCM audio stream 0 and the video as stream 1;
+    ``batch_video_to_hdr`` (K1, B = 8) and ``video_to_hdr`` (K3) on them
+    equal phase 14's results on the stream-0 files bit for bit
+    (``stream0``).  One I420 video is read through ``raw_chunks`` as
+    stream 2, its frames held to stream 0's; ``timed(label, logger)``
+    and ``timed(label, device=dev)`` are held to synchronize the card;
+    and ``stage_to_device(arr, max_bytes)`` to copy in slices onto it.
+    Returns the phase's times."""
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.utils import avi
+    from camera_linearity_tpu_torch.utils import observability as obs
+    from camera_linearity_tpu_torch.utils.general import stage_to_device
+    t_phase = time.perf_counter()
+    log(f"phase 14 (b): config 5 from AVIs whose video is stream 1 or 2 "
+        f"(PCM audio before it); {gpu_line()}")
+    failures = []
+    t0 = time.perf_counter()
+    s1_paths = []
+    for p in mjpg_paths:
+        s1_paths.append(directory / p.name.replace("mjpg", "mjpg stream 1"))
+        if rewrite_with_audio(p, s1_paths[-1], 1, "MJPG") != FRAMES5:
+            failures.append(f"{p.name}: frame count")
+    write_s = time.perf_counter() - t0
+    infos = [avi.probe_avi(p) for p in s1_paths]
+    log(f"  rewrote {len(s1_paths)} MJPG videos with the video as stream 1 "
+        f"in {write_s:.2f} s; probed streams {[i.stream for i in infos]}")
+    if [i.stream for i in infos] != [1] * len(s1_paths):
+        failures.append(f"probed streams {[i.stream for i in infos]}")
+
+    run = run_batch(s1_paths)
+    run.pop("merge")
+    out = run.pop("out")
+    runs["batch_video_to_hdr u16/f16 (MJPG stream 1, auto)"] = run
+    same = all(torch.equal(a, b) for name, pair in out.items()
+               for a, b in zip(pair, stream0["out"][name]))
+    log(f"  {'ok ' if same else 'BAD'} batch_video_to_hdr, stream 1 vs "
+        f"phase 14's stream 0 ({stream0['label']}): "
+        f"{'bit for bit equal' if same else 'different'}, "
+        f"{len(out)} scenes")
+    if not same or list(out) != list(stream0["out"]):
+        failures.append("batch_video_to_hdr against phase 14's stream 0")
+    del out
+    before = runs[stream0["label"]]
+    log(f"  stream 1: wall {run['wall']:.3f} s, {run['mps']:.2f} MP/s; "
+        f"phase 14 stream 0: wall {before['wall']:.3f} s, "
+        f"{before['mps']:.2f} MP/s ({gpu_line()})")
+    torch.cuda.empty_cache()
+    v2h_s, _, got = run_video_to_hdr(s1_paths)
+    same = all(torch.equal(a, b) for a, b in zip(got,
+                                                 stream0["video_to_hdr"]))
+    log(f"  {'ok ' if same else 'BAD'} video_to_hdr, stream 1 vs stream 0: "
+        f"{'bit for bit equal' if same else 'different'}; {v2h_s:.3f} s")
+    if not same:
+        failures.append("video_to_hdr against phase 14's stream 0")
+    del got
+
+    # one I420 video as stream 2, read through raw_chunks
+    s2 = directory / i420_paths[0].name.replace("i420", "i420 stream 2")
+    rewrite_with_audio(i420_paths[0], s2, 2, "I420")
+    decoded = []
+    for p in (i420_paths[0], s2):
+        info = avi.probe_avi(p)
+        chunks = [c.copy() for c in avi.raw_chunks(p, info)]
+        frames = np.empty((len(chunks), H5, W5, 3), np.uint8)
+        native.raw_decode_bgr_batch(chunks, frames, info.layout,
+                                    bottom_up=info.raw.bottom_up)
+        decoded.append((info.stream, frames))
+    (st0, f0), (st2, f2) = decoded
+    same = (st0, st2) == (0, 2) and f2.shape[0] == FRAMES5 and \
+        np.array_equal(f0, f2)
+    log(f"  {'ok ' if same else 'BAD'} I420 read through raw_chunks as "
+        f"stream {st2}: {f2.shape[0]} frames, equal to stream {st0}'s")
+    if not same:
+        failures.append("I420 stream 2 against stream 0")
+    del decoded, f0, f2
+
+    # timed() synchronizes the card whether it is given a logger (JAX's
+    # second argument) or the device; a logger never reaches the device
+    sync = torch.cuda.synchronize
+    calls = []
+
+    def counting(device=None):
+        calls.append(device)
+        sync(device)
+    cycles = 200_000_000
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    sleep_s = start.elapsed_time(end) / 1e3
+    logger = obs.get_logger("chip_smoke.timed")
+    torch.cuda.synchronize = counting
+    try:
+        with obs.timed("timed(label, logger)", logger) as by_logger:
+            torch.cuda._sleep(cycles)
+        with obs.timed("timed(label, device=dev)", device=dev) as by_device:
+            torch.cuda._sleep(cycles)
+    finally:
+        torch.cuda.synchronize = sync
+    ok = calls == [None, None, dev, dev] and min(
+        by_logger["seconds"], by_device["seconds"]) >= 0.9 * sleep_s
+    log(f"  {'ok ' if ok else 'BAD'} timed: synchronize called with "
+        f"{calls}; a {sleep_s * 1e3:.1f} ms sleep on the card timed "
+        f"{by_logger['seconds'] * 1e3:.1f} ms (logger), "
+        f"{by_device['seconds'] * 1e3:.1f} ms (device)")
+    if not ok:
+        failures.append("timed")
+
+    # the JAX package's stage_to_device(arr, max_bytes): chunked along
+    # axis 0 onto the current device
+    frames = np.random.default_rng(0).integers(
+        0, 256, (FRAMES5, CROP_ROWS, W5, 3), dtype=np.uint8)
+    staged = stage_to_device(frames, max_bytes=1 << 20)
+    ok = staged.device == torch.device("cuda", torch.cuda.current_device()) \
+        and torch.equal(staged.cpu(), torch.from_numpy(frames))
+    log(f"  {'ok ' if ok else 'BAD'} stage_to_device: {frames.nbytes} bytes "
+        f"in slices of at most 1 MiB onto {staged.device}, equal")
+    if not ok:
+        failures.append("stage_to_device")
+    raise_failures("phase 14 (b)", failures)
+    wall = time.perf_counter() - t_phase
+    log(f"phase 14 (b): {wall:.1f} s")
+    return dict(wall_s=wall, write_s=write_s, mps=run["mps"],
+                batch_wall_s=run["wall"], video_to_hdr_s=v2h_s,
+                stream0_mps=before["mps"], stream0_wall_s=before["wall"],
+                timed_sleep_ms=sleep_s * 1e3)
+
+
 def video_phases(dev, res, directory) -> dict:
     """Phases 12-14: config 5, the video -> HDR pipeline, with the raw
     videos written into ``directory`` and the MJPG ones cached under
@@ -1410,8 +1578,9 @@ def video_phases(dev, res, directory) -> dict:
                   (hdr_set.measurand.val, hdr_set.measurand.std),
                   hdr_cuda.merge_lerp_bp_plain(val, std, dark, ex, ic, icd,
                                                thr, 256))
+        out = (hdr_set.measurand.val, hdr_set.measurand.std)
         del hdr_set
-        return seconds, (val, std, dark, ex, ic, icd, thr)
+        return seconds, (val, std, dark, ex, ic, icd, thr), out
 
     for name in originals:
         setattr(hdr_ops, name, recorder(name))
@@ -1433,7 +1602,7 @@ def video_phases(dev, res, directory) -> dict:
             torch.cuda.empty_cache()
 
         # video_to_hdr for one scene: one K3 launch
-        t_v2h_s, (val, std, dark, ex, ic, icd, thr) = run_video_to_hdr(
+        t_v2h_s, (val, std, dark, ex, ic, icd, thr), _ = run_video_to_hdr(
             "video_to_hdr", paths, "raw")
 
         def k3():
@@ -1486,11 +1655,14 @@ def video_phases(dev, res, directory) -> dict:
                 run = run_batch(label, mjpg_paths, plain_crops[decoded_as],
                                 wire_val, wire_std, decoder, decoded_as)
                 run.pop("merge")
-                run.pop("out")
+                out = run.pop("out")
+                if decoder == "auto":  # phase 14 (b) holds stream 1 to it
+                    stream0 = dict(label=label, out=out)
+                del out
                 runs[label] = run
                 torch.cuda.empty_cache()
-            t_v2h_mjpg, _ = run_video_to_hdr("video_to_hdr (MJPG)",
-                                             mjpg_paths, "ffmpeg")
+            t_v2h_mjpg, _, stream0["video_to_hdr"] = run_video_to_hdr(
+                "video_to_hdr (MJPG)", mjpg_paths, "ffmpeg")
             # grayscale MJPG at the default decoder: three equal channels,
             # as cv2 gives them; the oracle reads the crops through
             # jpeg_plain.py's ffmpeg mode
@@ -1511,7 +1683,7 @@ def video_phases(dev, res, directory) -> dict:
                 raise AssertionError(f"{label}: the staged channels differ")
             del bv
             torch.cuda.empty_cache()
-            t_v2h_gray, _ = run_video_to_hdr("video_to_hdr (MJPG gray)",
+            t_v2h_gray, _, _ = run_video_to_hdr("video_to_hdr (MJPG gray)",
                                              gray_paths, "ffmpeg")
             # the same scenes from I420 AVIs, through the rawvideo reader;
             # the oracle reads the crops through rawvideo_plain.py
@@ -1527,8 +1699,17 @@ def video_phases(dev, res, directory) -> dict:
             run.pop("out")
             runs[label] = run
             torch.cuda.empty_cache()
-            t_v2h_i420, _ = run_video_to_hdr("video_to_hdr (I420)",
+            t_v2h_i420, _, _ = run_video_to_hdr("video_to_hdr (I420)",
                                              i420_paths, "rawvideo")
+            streams = stream_phase(
+                dev, directory, mjpg_paths, i420_paths, stream0, runs,
+                lambda paths: run_batch(
+                    "batch_video_to_hdr u16/f16 (MJPG stream 1, auto)",
+                    paths, plain_crops["ffmpeg"], "u16", "f16", "auto",
+                    "ffmpeg"),
+                lambda paths: run_video_to_hdr(
+                    "video_to_hdr (MJPG stream 1)", paths, "ffmpeg"))
+            del stream0
         finally:
             if cl_decoder is not None:
                 os.environ["CL_DECODER"] = cl_decoder
@@ -1605,6 +1786,7 @@ def video_phases(dev, res, directory) -> dict:
                           video_to_hdr_s=dict(raw=t_v2h_s, mjpg=t_v2h_mjpg,
                                               mjpg_gray=t_v2h_gray,
                                               i420=t_v2h_i420),
+                          streams=streams,
                           welford_modes_s=welford_modes,
                           welford_ms_by_threads=t_by_threads),
                 k3=dict(ms=k3_ms, plain_ms=k3_plain_ms, bytes=k3_bytes,

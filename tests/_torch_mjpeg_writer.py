@@ -22,9 +22,11 @@ from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
+
+from tests._torch_rawvideo_writer import Stream, video_headers, write_avi
 
 __all__ = ["encode_jpeg", "write_mjpg_avi", "QUALITY", "SAMPLING"]
 
@@ -338,30 +340,17 @@ def _sos(comps, ss: int, se: int) -> bytes:
 
 
 def write_mjpg_avi(path: Path, frames: Iterable[bytes], height: int,
-                   width: int, fps: int = 30) -> None:
+                   width: int, fps: int = 30, stream: int = 0,
+                   others: Sequence[Stream] = (), index: bool = False,
+                   extra_chunks: Sequence[tuple] = ()) -> None:
     """An AVI of JPEG frames (bytes) with the ``MJPG`` fourcc, as
-    ``write_rgba_avi`` writes raw ones: one video stream, one movi LIST of
-    ``00dc`` chunks (word-aligned), no index."""
+    ``write_rgba_avi`` writes raw ones: one movi LIST of ``NNdc`` chunks
+    (word-aligned), ``NN`` the video's stream number ``stream``, beside
+    ``others`` and ``extra_chunks`` (``tests/_torch_rawvideo_writer.py``'s
+    ``write_avi``); no index unless ``index``."""
     frames = list(frames)
-    n = len(frames)
-    biggest = max((len(f) for f in frames), default=0)
-
-    def chunk(fourcc: bytes, payload: bytes) -> bytes:
-        return struct.pack("<4sI", fourcc, len(payload)) + payload + \
-            b"\0" * (len(payload) & 1)
-    avih = struct.pack("<14I", 1000000 // fps, biggest * fps, 0, 0x10, n, 0,
-                       1, biggest, width, height, 0, 0, 0, 0)
-    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids", b"MJPG", 0, 0, 0, 0, 1,
-                       fps, 0, n, biggest, 0xFFFFFFFF, 0, 0, 0, width,
-                       height)
-    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
-                       width * height * 3, 0, 0, 0, 0)
-    hdrl = chunk(b"LIST", b"hdrl" + chunk(b"avih", avih) + chunk(
-        b"LIST", b"strl" + chunk(b"strh", strh) + chunk(b"strf", strf)))
-    movi = b"movi" + b"".join(chunk(b"00dc", f) for f in frames)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<4sI4s", b"RIFF", 4 + len(hdrl) + 8 + len(movi),
-                            b"AVI "))
-        f.write(hdrl)
-        f.write(struct.pack("<4sI", b"LIST", len(movi)))
-        f.write(movi)
+    strh, strf = video_headers(height, width, b"MJPG", 24, len(frames),
+                               max((len(f) for f in frames), default=0), fps,
+                               image_size=width * height * 3)
+    write_avi(path, strh, strf, frames, b"dc", extra_chunks, fps, stream,
+              others, index)

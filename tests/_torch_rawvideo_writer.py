@@ -19,12 +19,18 @@ reader takes (``camera_linearity_tpu_torch/native/rawvideo_plain.py``):
   as no frame).
 
 ``encode_frame`` packs a frame of a layout into its chunk's bytes.
+
+``write_avi`` writes the container of both this writer and
+``tests/_torch_mjpeg_writer.py``: the video as stream ``stream``, beside
+``others`` (:class:`Stream`: PCM audio from :func:`pcm_stream`, a second
+video from :func:`video_stream`), whose chunks (``NNwb``, ``NNdc``) are
+interleaved with the frames, and optionally an ``idx1`` index.
 """
 from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Iterable, Optional, Sequence
+from typing import Iterable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -79,56 +85,153 @@ def encode_frame(codec: str, frame, bit_count: int = 0,
     raise ValueError(f"unknown codec {codec!r}")
 
 
+def _chunk(fourcc: bytes, payload: bytes) -> bytes:
+    """A RIFF chunk, padded to a word."""
+    return struct.pack("<4sI", fourcc, len(payload)) + payload + \
+        b"\0" * (len(payload) & 1)
+
+
+def video_headers(height: int, width: int, tag: bytes, bit_count: int,
+                  frames: int, biggest: int, fps: int = 30,
+                  top_down: bool = False, compression: bytes = b"",
+                  image_size: Optional[int] = None, clr_used: int = 0,
+                  palette: bytes = b"") -> tuple:
+    """A video stream's ``strh`` and ``strf`` payloads: ``tag`` is the
+    stream header's handler, ``compression`` the BITMAPINFOHEADER's (the
+    handler where empty)."""
+    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids", tag, 0, 0, 0, 0, 1,
+                       fps, 0, frames, biggest, 0xFFFFFFFF, 0, 0, 0, width,
+                       height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width,
+                       -height if top_down else height, 1, bit_count,
+                       compression or tag,
+                       biggest if image_size is None else image_size, 0, 0,
+                       clr_used, 0) + palette
+    return strh, strf
+
+
+class Stream(NamedTuple):
+    """A stream of an AVI beside its video: its ``strh`` and ``strf``
+    payloads, its chunks' fourcc suffix (``b"wb"`` audio, ``b"dc"``
+    video) and ``(index, payload)`` chunks, each put before video frame
+    ``index`` (after the last frame where ``index`` is the frame count)."""
+    strh: bytes
+    strf: bytes
+    suffix: bytes
+    chunks: List[tuple]
+
+
+def pcm_stream(sizes: Sequence[int], seed: int = 0) -> Stream:
+    """An 8-bit mono 8 kHz PCM audio stream: a chunk of ``sizes[i]``
+    random bytes before video frame ``i`` (odd sizes are padded to a word,
+    as RIFF asks)."""
+    rng = np.random.default_rng(seed)
+    rate = 8000
+    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"auds", b"\0\0\0\0", 0, 0, 0,
+                       0, 1, rate, 0, sum(sizes), max(sizes, default=0),
+                       0xFFFFFFFF, 1, 0, 0, 0, 0)
+    strf = struct.pack("<HHIIHHH", 1, 1, rate, rate, 1, 8, 0)
+    return Stream(strh, strf, b"wb", [
+        (i, rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+        for i, n in enumerate(sizes)])
+
+
+def video_stream(payloads: Sequence[bytes], height: int, width: int,
+                 codec: str, bit_count: int) -> Stream:
+    """Another video stream: one ``dc`` chunk before each frame of the
+    main video."""
+    tag = codec.encode()
+    strh, strf = video_headers(height, width, tag, bit_count, len(payloads),
+                               max(map(len, payloads), default=0))
+    return Stream(strh, strf, b"dc", list(enumerate(payloads)))
+
+
+def write_avi(path: Path, strh: bytes, strf: bytes, payloads: Sequence[bytes],
+              suffix: bytes, extra_chunks: Sequence[tuple] = (),
+              fps: int = 30, stream: int = 0, others: Sequence[Stream] = (),
+              index: bool = False) -> None:
+    """An AVI whose video (``strh``, ``strf``) is stream ``stream`` and
+    whose frames are ``payloads``, in ``NN`` + ``suffix`` chunks; the
+    ``others`` take the other stream numbers in order.  Before frame ``i``
+    come the others' chunks of index ``i``, then ``extra_chunks``
+    ((index, fourcc, bytes)) of that index, written as given.  ``index``
+    appends an ``idx1`` of every chunk in the movi list."""
+    payloads = list(payloads)
+    n = len(payloads)
+    biggest = max((len(p) for p in payloads), default=0)
+    width, height = struct.unpack("<ii", strf[4:12])
+    avih = struct.pack("<14I", 1000000 // fps, biggest * fps, 0, 0x10, n, 0,
+                       1 + len(others), biggest, width, abs(height), 0, 0,
+                       0, 0)
+    order = list(others[:stream]) + [None] + list(others[stream:])
+    strls = b""
+    before = {}
+    for k, other in enumerate(order):
+        head, form = (strh, strf) if other is None else other[:2]
+        strls += _chunk(b"LIST", b"strl" + _chunk(b"strh", head)
+                        + _chunk(b"strf", form))
+        if other is not None:
+            for i, body in other.chunks:
+                before.setdefault(i, []).append(
+                    (b"%02d" % k + other.suffix, body))
+    for i, fourcc, body in extra_chunks:
+        before.setdefault(i, []).append((fourcc, body))
+    frame_tag = b"%02d" % stream + suffix
+    chunks = []
+    for i in range(n + 1):
+        chunks += before.get(i, [])
+        if i < n:
+            chunks.append((frame_tag, payloads[i]))
+    hdrl = _chunk(b"LIST", b"hdrl" + _chunk(b"avih", avih) + strls)
+    parts, entries, offset = [b"movi"], [], 4
+    for fourcc, body in chunks:
+        entries.append(struct.pack("<4sIII", fourcc, 0x10, offset,
+                                   len(body)))
+        parts.append(_chunk(fourcc, body))
+        offset += len(parts[-1])
+    movi = b"".join(parts)
+    tail = _chunk(b"idx1", b"".join(entries)) if index else b""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sI4s", b"RIFF",
+                            4 + len(hdrl) + 8 + len(movi) + len(tail),
+                            b"AVI "))
+        f.write(hdrl)
+        f.write(struct.pack("<4sI", b"LIST", len(movi)))
+        f.write(movi)
+        f.write(tail)
+
+
 def write_raw_avi(path: Path, payloads: Iterable[bytes], height: int,
                   width: int, codec: str, bit_count: Optional[int] = None,
                   top_down: bool = False,
                   palette: Optional[np.ndarray] = None,
                   clr_used: Optional[int] = None,
                   compression: Optional[int] = None,
-                  extra_chunks: Sequence[tuple] = (), fps: int = 30) -> None:
+                  extra_chunks: Sequence[tuple] = (), fps: int = 30,
+                  stream: int = 0, others: Sequence[Stream] = (),
+                  index: bool = False) -> None:
     """An AVI of one video stream whose frames are ``payloads`` (chunk
-    bytes, e.g. from :func:`encode_frame`), with no index.
+    bytes, e.g. from :func:`encode_frame`), with no index unless
+    ``index``.
 
     ``codec`` is a fourcc, or ``"DIB"`` for BI_RGB (compression 0, or
     ``compression`` where given: 3 is BI_BITFIELDS); ``bit_count``
     defaults to the fourcc's (:data:`BIT_COUNT`).  ``palette`` ((n, 4)
     B, G, R, X bytes) follows the header, ``clr_used`` (default n) is its
-    stated length.  BI_RGB frames go into ``00db`` chunks, the others into
-    ``00dc``; ``extra_chunks`` ((index, fourcc, bytes)) are put before
-    frame ``index``."""
+    stated length.  BI_RGB frames go into ``NNdb`` chunks, the others into
+    ``NNdc``, ``NN`` the video's stream number ``stream`` (see
+    :func:`write_avi` for ``others``); ``extra_chunks`` ((index, fourcc,
+    bytes)) are put before frame ``index``."""
     payloads = list(payloads)
-    n = len(payloads)
-    biggest = max((len(p) for p in payloads), default=0)
     dib = codec == "DIB"
     bits = bit_count if bit_count is not None else BIT_COUNT[codec]
     tag = struct.pack("<I", compression or 0) if dib else codec.encode()
     pal = b"" if palette is None else \
         np.ascontiguousarray(palette, np.uint8).tobytes()
     used = (len(pal) // 4) if clr_used is None else clr_used
-
-    def chunk(fourcc: bytes, payload: bytes) -> bytes:
-        return struct.pack("<4sI", fourcc, len(payload)) + payload + \
-            b"\0" * (len(payload) & 1)
-    avih = struct.pack("<14I", 1000000 // fps, biggest * fps, 0, 0x10, n, 0,
-                       1, biggest, width, height, 0, 0, 0, 0)
-    strh = struct.pack("<4s4sIHHIIIIIIII4h", b"vids",
-                       b"\0\0\0\0" if dib else tag, 0, 0, 0, 0, 1, fps, 0,
-                       n, biggest, 0xFFFFFFFF, 0, 0, 0, width, height)
-    strf = struct.pack("<IiiHH4sIiiII", 40, width,
-                       -height if top_down else height, 1, bits, tag,
-                       biggest, 0, 0, used, 0) + pal
-    hdrl = chunk(b"LIST", b"hdrl" + chunk(b"avih", avih) + chunk(
-        b"LIST", b"strl" + chunk(b"strh", strh) + chunk(b"strf", strf)))
-    extra = {}
-    for index, fourcc, body in extra_chunks:
-        extra.setdefault(index, []).append(chunk(fourcc, body))
-    frame_tag = b"00db" if dib else b"00dc"
-    movi = b"movi" + b"".join(
-        b"".join(extra.get(i, [])) + chunk(frame_tag, p)
-        for i, p in enumerate(payloads)) + b"".join(extra.get(n, []))
-    with open(path, "wb") as f:
-        f.write(struct.pack("<4sI4s", b"RIFF", 4 + len(hdrl) + 8 + len(movi),
-                            b"AVI "))
-        f.write(hdrl)
-        f.write(struct.pack("<4sI", b"LIST", len(movi)))
-        f.write(movi)
+    strh, strf = video_headers(
+        height, width, b"\0\0\0\0" if dib else tag, bits, len(payloads),
+        max((len(p) for p in payloads), default=0), fps, top_down, tag,
+        clr_used=used, palette=pal)
+    write_avi(path, strh, strf, payloads, b"db" if dib else b"dc",
+              extra_chunks, fps, stream, others, index)
