@@ -360,6 +360,17 @@ def cmd_doctor(args) -> int:
         f"unavailable ({native.build_error('_mjpeg')}); MJPG, "
         "uncompressed AVIs other than RGBA and JPEG-compressed TIFFs "
         "cannot be read"))
+    for name, ok, stem, what in (
+            ("PNG", native.png_available, "_png", "PNG AVIs (MPNG, PNG1, "
+             "'png '): gray 1-16 bits, RGB(A) and gray+alpha at 8 bits, "
+             "gray+alpha 16, palettes, Adam7"),
+            ("HuffYUV", native.huffyuv_available, "_huffyuv", "HuffYUV "
+             "AVIs (HFYU, FFVH): RGB24, RGB32, YUY2, yuv420p; left, "
+             "gradient and median predictors")):
+        print(f"native {name} decoder: " + (
+            f"built; {what} (cv2's bytes)" if ok() else
+            f"unavailable ({native.build_error(stem)}); such AVIs cannot "
+            "be read"))
     if dev.type == "cuda":
         # one-time costs are paid before each timed window: the point is
         # the steady rate
@@ -385,7 +396,8 @@ def cmd_doctor(args) -> int:
 
 def _doctor_video(path: Path) -> None:
     """Decode rate of each reader the port has for ``path``; for an MJPG
-    AVI, the port's decoder in each mode, on one thread and on all."""
+    AVI, the port's decoder in each mode, and for a PNG or HuffYUV AVI its
+    decoder, on one thread and on all."""
     import importlib.util
     import itertools
     import time
@@ -414,6 +426,29 @@ def _doctor_video(path: Path) -> None:
                       f"{len(payloads) * h * w / 1e6 / secs:.0f} MP/s "
                       f"({w}x{h}, {len(payloads)} frames, "
                       f"{secs / len(payloads) * 1e3:.1f} ms a frame)")
+    codecs = avi.PNG_CODECS + avi.HUFFYUV_CODECS
+    if info is not None and info.codec in codecs:
+        png = info.codec in avi.PNG_CODECS
+        payloads = [bytes(c) for c in itertools.islice(
+            avi.frame_chunks(path, info), 120)]
+        cores = os.cpu_count() or 1
+        dst = np.empty((min(cores, len(payloads)), h, w, 3), np.uint8)
+        params = None if png else avi.huffyuv_params(info)
+        for threads in sorted({1, cores}):
+            t0 = time.perf_counter()
+            for at in range(0, len(payloads), len(dst)):
+                part = payloads[at:at + len(dst)]
+                if png:
+                    native.png_decode_bgr_batch(part, dst[:len(part)],
+                                                info.png, threads=threads)
+                else:
+                    native.huffyuv_decode_bgr_batch(
+                        part, dst[:len(part)], params, threads=threads)
+            secs = time.perf_counter() - t0
+            print(f"decode ({'png' if png else 'huffyuv'}, {threads} "
+                  f"thread(s)): {len(payloads) * h * w / 1e6 / secs:.0f} "
+                  f"MP/s ({w}x{h}, {len(payloads)} frames, "
+                  f"{secs / len(payloads) * 1e3:.1f} ms a frame)")
     if importlib.util.find_spec("cv2") is not None:
         decoders.append("cv2")
     for decoder in decoders:

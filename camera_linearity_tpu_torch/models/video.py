@@ -15,13 +15,23 @@ port reads the AVI containers it knows itself (``utils/avi.py``): a
 lossless ``RGBA`` AVI with NumPy (``"raw"``); the uncompressed layouts
 FFmpeg's rawvideo decoder reads (BI_RGB at 8 bits with its palette, 16,
 24 and 32 bits, either row order; ``Y800``/``GREY``/``Y8``; ``I420``/
-``IYUV``/``YV12``; ``NV12``; ``YUY2``/``UYVY``) with the port's own reader
-(``"rawvideo"``, ``native.raw_decode_bgr_batch`` in ``native/jpeg.cpp``),
+``IYUV``/``YV12``; ``Y42B``; ``NV12``; ``YUY2``/``UYVY``) with the port's
+own reader (``"rawvideo"``, ``native.raw_decode_bgr_batch`` in
+``native/jpeg.cpp``),
 which gives cv2's bytes for each (the YUV layouts through swscale's
 limited-range BT.601 conversion), while 1/2/4-bit BI_RGB, BI_BITFIELDS,
 palette changes and chunks longer than the frame (other than its padded
 size) raise before any decode, and a chunk shorter than the frame ends
-the video, as cv2's read loop ends there; an MJPG AVI with the port's
+the video, as cv2's read loop ends there; the lossless compressed AVIs
+ImageJ/Fiji and ``cv2.VideoWriter`` write with the port's own decoders,
+giving cv2's bytes: PNG (``MPNG``, ``PNG1``, ``png ``; ``"png"``,
+``native.png_decode_bgr_batch``: every colour type at 8 and 16 bits,
+gray at 1-4 bits, palettes, Adam7; a later frame that is no PNG or whose
+``IHDR`` differs from the first one's raises, naming it)
+and HuffYUV (``HFYU``, ``FFVH``; ``"huffyuv"``,
+``native.huffyuv_decode_bgr_batch``: RGB24, RGB32, YUY2 and yuv420p with
+the left, gradient and median predictors, v1 and v2 headers; per-frame
+tables and ffvhuff's v3 formats raise); an MJPG AVI with the port's
 own JPEG decoder (``native/jpeg.cpp``) in one of three modes.  ``"ffmpeg"``,
 the default, gives the bytes ``cv2.VideoCapture`` gives (FFmpeg's MJPEG
 decoder and swscale), which is what the JAX package decodes at its default
@@ -86,9 +96,11 @@ def _cv2(why: str):
         raise ValueError(
             f"{why} needs cv2, which is not installed; without it the port "
             "reads RGBA AVIs (decoder 'native', NumPy), uncompressed AVIs "
-            "(BI_RGB 8/16/24/32-bit, Y800, I420, YV12, NV12, YUY2, UYVY: "
-            "'native', its own reader) and MJPG AVIs ('native' / 'ffmpeg' / "
-            "'turbo' / 'turbo_fast', its own JPEG decoder)"
+            "(BI_RGB 8/16/24/32-bit, Y800, I420, YV12, Y42B, NV12, YUY2, "
+            "UYVY: 'native', its own reader), PNG AVIs (MPNG, PNG1, 'png ') "
+            "and HuffYUV AVIs (HFYU, FFVH: 'native', its own decoders) and "
+            "MJPG AVIs ('native' / 'ffmpeg' / 'turbo' / 'turbo_fast', its "
+            "own JPEG decoder)"
         ) from exc
     return cv2
 
@@ -179,35 +191,51 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
     """Callables that decode the next frames of ``path`` into the (k, H, W,
     C) uint8 array they are given and return how many they decoded (0:
     the stream ended).  The MJPEG decoder takes up to k frames a call, and
-    the rawvideo reader up to ``batch_size``, on all cores; the raw RGBA
-    reader (which reads each frame when the iterator advances) and cv2
-    take one."""
+    the rawvideo reader and the PNG and HuffYUV decoders up to
+    ``batch_size``, on all cores; the raw RGBA reader (which reads each
+    frame when the iterator advances) and cv2 take one."""
     if decoder == "raw":
         for frame in avi.raw_frames(path):
             yield lambda dst, frame=frame: np.copyto(dst[0], frame) or 1
-    elif decoder == "rawvideo":
+    elif decoder in ("rawvideo", "png", "huffyuv"):
         info = avi.probe_avi(path)
         # every chunk of a call is read into a buffer of its own
-        chunks = avi.raw_chunks(path, info, ring=batch_size)
+        if decoder == "rawvideo":
+            chunks = avi.raw_chunks(path, info, ring=batch_size)
+            decode = lambda payloads, dst, first: native.raw_decode_bgr_batch(
+                payloads, dst, info.layout, bottom_up=info.raw.bottom_up,
+                palette=info.raw.palette, first_frame=first)
+        elif decoder == "png":
+            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            decode = lambda payloads, dst, first: native.png_decode_bgr_batch(
+                payloads, dst, info.png, first_frame=first)
+        else:
+            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            params = avi.huffyuv_params(info)
+            layout = native.huffyuv_plain.yuv_layout(params)
+            # the YUV layouts' planes, reused from call to call
+            planes = None if layout is None else np.empty(
+                batch_size * native.frame_bytes(layout, info.height,
+                                                info.width), np.uint8)
+            decode = lambda payloads, dst, first: \
+                native.huffyuv_decode_bgr_batch(
+                    payloads, dst, params, first_frame=first, planes=planes)
         done = 0      # frames decoded so far
 
-        def fill_raw(dst: np.ndarray) -> int:
+        def fill_chunks(dst: np.ndarray) -> int:
             nonlocal done
             payloads = list(itertools.islice(chunks, min(len(dst),
                                                          batch_size)))
             if not payloads:
                 return 0
             try:
-                native.raw_decode_bgr_batch(
-                    payloads, dst[:len(payloads)], info.layout,
-                    bottom_up=info.raw.bottom_up, palette=info.raw.palette,
-                    first_frame=done)
+                decode(payloads, dst[:len(payloads)], done)
             except ValueError as exc:
                 raise ValueError(f"{path}: {exc}") from exc
             done += len(payloads)
             return len(payloads)
         while True:
-            yield fill_raw
+            yield fill_chunks
     elif decoder in native.JPEG_MODES:
         chunks = avi.mjpg_chunks(path, avi.probe_avi(path).stream)
         if decoder == "ffmpeg":  # FFmpeg's AVI reader drops empty chunks
@@ -311,67 +339,92 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
     expected geometry and channel count before any decode.  An MJPG
     decodes to three channels in the ``"ffmpeg"`` mode whatever its
     component count (cv2 gives BGR for grayscale too), to its component
-    count in the ``"turbo"`` modes; RGBA and the rawvideo layouts to
-    three.  An uncompressed AVI the rawvideo reader does not read raises
-    here, naming what (``avi.raw_unsupported``)."""
-    if info is not None and info.codec not in ("RGBA", "MJPG"):
+    count in the ``"turbo"`` modes; RGBA, the rawvideo layouts, PNG and
+    HuffYUV to three.  An uncompressed, PNG or HuffYUV AVI the port's
+    decoders do not read raises here, naming what
+    (``avi.raw_unsupported``, ``avi.png_unsupported``,
+    ``avi.huffyuv_unsupported``); so does one whose decoder did not build
+    (RuntimeError)."""
+    own = info is not None and (
+        info.codec in ("RGBA", "MJPG") + avi.PNG_CODECS + avi.HUFFYUV_CODECS
+        or info.layout is not None)
+    if info is not None and not own:
         unsupported = avi.raw_unsupported(path, info)
         if unsupported:
             raise ValueError(f"{path} is an uncompressed AVI ({info.codec}) "
                              "whose frames the port's rawvideo reader does "
                              f"not read: {unsupported}")
-    if info is not None and (info.codec in ("RGBA", "MJPG") or info.layout):
-        comps = 3 if info.codec != "MJPG" or mode == "ffmpeg" else \
-            info.components
-        geometry = (info.height, info.width)
-        if geometry != (height, width):
-            raise ValueError(f"{path} has frame geometry {geometry}, "
-                             f"expected {(height, width)}")
-        if comps != chs:
-            raise ValueError(
-                f"{path} is a {info.codec} AVI of {info.components} "
-                f"components, which decode to {comps} channels; the config "
-                f"has num_of_chs={chs}")
-        if info.codec == "RGBA":
-            return "raw"
-        if info.layout:
-            if not native.mjpeg_available():
-                raise RuntimeError(
-                    f"{path} is an uncompressed {info.layout} AVI but the "
-                    "port's reader (native/jpeg.cpp) did not build: "
-                    f"{native.build_error('_mjpeg')}")
-            return "rawvideo"
-        unsupported = avi.jpeg_unsupported(info.jpeg, mode=mode)
-        if unsupported:
-            raise ValueError(f"{path} is an MJPG AVI whose frames the port's "
-                             f"JPEG decoder does not read in its {mode!r} "
-                             f"mode: {unsupported}")
-        if not native.mjpeg_available():
-            raise RuntimeError(f"{path} is MJPG but the port's JPEG decoder "
-                               "did not build: "
-                               f"{native.build_error('_mjpeg')}")
-        return mode
-    codec = "not an AVI" if info is None else f"codec {info.codec!r}"
-    _cv2(f"{path} ({codec})")
-    return "cv2"
+    if not own:
+        codec = "not an AVI" if info is None else f"codec {info.codec!r}"
+        _cv2(f"{path} ({codec})")
+        return "cv2"
+    comps = info.components if info.codec == "MJPG" and mode != "ffmpeg" \
+        else 3
+    geometry = (info.height, info.width)
+    if geometry != (height, width):
+        raise ValueError(f"{path} has frame geometry {geometry}, "
+                         f"expected {(height, width)}")
+    if comps != chs:
+        raise ValueError(
+            f"{path} is a {info.codec} AVI of {info.components} "
+            f"components, which decode to {comps} channels; the config "
+            f"has num_of_chs={chs}")
+    if info.codec == "RGBA":
+        return "raw"
+    if info.codec in avi.PNG_CODECS:
+        decoder, why, libs = "png", avi.png_unsupported(info), ("png",)
+    elif info.codec in avi.HUFFYUV_CODECS:
+        decoder, why = "huffyuv", avi.huffyuv_unsupported(info)
+        # the YUV layouts (12 and 16 bits a pixel) convert through
+        # jpeg.cpp's rawvideo reader
+        yuv = not why and avi.huffyuv_params(info).bpp < 24
+        libs = ("huffyuv", "mjpeg") if yuv else ("huffyuv",)
+    elif info.layout:
+        decoder, why, libs = "rawvideo", avi.raw_unsupported(path, info), \
+            ("mjpeg",)
+    else:
+        decoder, libs = mode, ("mjpeg",)
+        why = avi.jpeg_unsupported(info.jpeg, mode=mode)
+        why = why and f"{why} (in its {mode!r} mode)"
+    if why:
+        raise ValueError(f"{path} is a {info.codec} AVI whose frames the "
+                         f"port's {_DECODER_NAMES.get(decoder, 'JPEG')} "
+                         f"decoder does not read: {why}")
+    for lib in libs:
+        if not getattr(native, f"{lib}_available")():
+            raise RuntimeError(
+                f"{path} is a {info.codec} AVI but native/{_SOURCES[lib]}, "
+                f"which decodes it, did not build: "
+                f"{native.build_error('_' + lib)}")
+    return decoder
+
+
+# the port's own decoders by name, and the native sources they build from
+_DECODER_NAMES = {"png": "PNG", "huffyuv": "HuffYUV", "rawvideo": "rawvideo"}
+_SOURCES = {"png": "png.cpp", "huffyuv": "huffyuv.cpp", "mjpeg": "jpeg.cpp"}
 
 
 def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
                      width: int, chs: int) -> List[str]:
-    """Each file's decoder: ``"raw"``, ``"rawvideo"``, ``"ffmpeg"``,
-    ``"turbo"``, ``"turbo_fast"`` or ``"cv2"``.
+    """Each file's decoder: ``"raw"``, ``"rawvideo"``, ``"png"``,
+    ``"huffyuv"``, ``"ffmpeg"``, ``"turbo"``, ``"turbo_fast"`` or
+    ``"cv2"``.
 
     ``"auto"`` reads env ``CL_DECODER`` (default ``"native"``).
     ``"native"``: the container decides — an RGBA AVI reads raw, the other
     uncompressed layouts through the port's rawvideo reader (cv2's bytes:
-    BI_RGB 8/16/24/32-bit, Y800/GREY/Y8, I420/IYUV/YV12, NV12, YUY2/UYVY),
+    BI_RGB 8/16/24/32-bit, Y800/GREY/Y8, I420/IYUV/YV12, Y42B, NV12,
+    YUY2/UYVY), PNG and HuffYUV AVIs through the port's PNG and HuffYUV
+    decoders (cv2's bytes),
     an MJPG AVI through the port's JPEG decoder in its ``"ffmpeg"`` mode
     (cv2's bytes, as the JAX package's default gives them), anything else
     through cv2 when it imports (else a ValueError naming the codec).
     ``"ffmpeg"``/``"turbo"``/``"turbo_fast"``: that decoder's modes on MJPG
     files; another container logs a warning and takes its own decoder.
-    ``"cv2"``: cv2 for every file.  RGBA, rawvideo and MJPG files are
-    checked against the expected geometry and ``chs`` before any decode;
+    ``"cv2"``: cv2 for every file.  RGBA, rawvideo, PNG, HuffYUV and MJPG
+    files are checked against the expected geometry and ``chs`` before any
+    decode; a PNG or HuffYUV layout the decoders do not read raises then,
+    naming it (``avi.png_unsupported``, ``avi.huffyuv_unsupported``);
     1/2/4-bit BI_RGB, BI_BITFIELDS, palette-change chunks and a frame
     chunk longer than the frame (not its padded size) raise then, naming
     what; and an MJPG's

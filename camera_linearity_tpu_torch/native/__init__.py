@@ -1,5 +1,5 @@
-"""ctypes bindings for the native host-staging library, the MJPEG decoder
-and the TIFF codec.
+"""ctypes bindings for the native host-staging library, the MJPEG decoder,
+the TIFF codec and the PNG and HuffYUV frame decoders.
 
 Port of ``camera_linearity_tpu/native``, copied: importing the JAX package
 would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
@@ -9,21 +9,24 @@ update from uint8 frames),
 cv2's bytes; the JPEG chunks of a TIFF as libtiff has libjpeg decode
 them; and the frames of uncompressed AVIs as cv2 gives them) and
 ``tiff.cpp`` (TIFF LZW, PackBits, predictors and CCITT fax decoding, the
-port's own) build
+port's own), ``png.cpp`` (PNG frames of an AVI: unfiltering, Adam7 and
+the conversion to BGR; Python's ``zlib`` inflates) and ``huffyuv.cpp``
+(HuffYUV frames of an AVI) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
 builds anew).  Every stager entry point has a pure-NumPy fallback for hosts
 without a compiler; ``available()`` reports which path is active and
-:func:`build_error` why a build failed.  The MJPEG decoder and the TIFF
-codec have no fallback: their entry points raise without the library
-(``native/jpeg_plain.py`` and ``native/tiff_plain.py`` are the plain
-versions the tests hold them to).
+:func:`build_error` why a build failed.  The decoders and the TIFF codec
+have no fallback: their entry points raise without the library
+(``native/jpeg_plain.py``, ``tiff_plain.py``, ``png_plain.py`` and
+``huffyuv_plain.py`` are the plain versions the tests hold them to).
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -37,6 +40,7 @@ from .jpeg_plain import MODES as JPEG_MODES, NO_FRAME as JPEG_NO_FRAME
 from .jpeg_plain import TIFF_FORMS as TIFF_JPEG_FORMS
 # the uncompressed video layouts, by their number in jpeg.cpp
 from .rawvideo_plain import LAYOUTS as RAW_LAYOUTS, frame_bytes
+from . import huffyuv_plain, png_plain
 
 __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
@@ -49,7 +53,9 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "lzw_decode_chunks", "packbits_decode_chunks",
            "ccitt_decode_chunks",
            "lzw_encode_chunks", "predictor_undo",
-           "predictor_apply", "build_error"]
+           "predictor_apply", "build_error", "png_available",
+           "png_decode_bgr_batch", "huffyuv_available",
+           "huffyuv_decode_bgr_batch"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
 # fixed-point mean (grid 1/65535 on the [0,1] DN scale, absolute error
@@ -120,6 +126,8 @@ _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "stager.cpp"
 _MJPEG_SRC = _DIR / "jpeg.cpp"
 _TIFF_SRC = _DIR / "tiff.cpp"
+_PNG_SRC = _DIR / "png.cpp"
+_HUFFYUV_SRC = _DIR / "huffyuv.cpp"
 _BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 
 
@@ -146,7 +154,10 @@ def _host_tag(src: Path = _SRC) -> str:
     h = hashlib.md5(usedforsecurity=False)  # cache key, not security
     h.update(platform.machine().encode())
     h.update(feats.encode())
-    h.update(src.read_bytes())
+    text = src.read_bytes()
+    h.update(text)
+    for header in re.findall(rb'#include "([^"]+)"', text):  # parallel.h
+        h.update((src.parent / header.decode()).read_bytes())
     return h.hexdigest()[:10]
 
 
@@ -157,18 +168,15 @@ def _lib_path(stem: str = "_stager", src: Path = _SRC) -> Path:
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
-_mjpeg_lib: Optional[ctypes.CDLL] = None
-_mjpeg_tried = False
-_tiff_lib: Optional[ctypes.CDLL] = None
-_tiff_tried = False
 _build_errors: Dict[str, str] = {}
 
 _NTHREADS = min(16, os.cpu_count() or 1)
 
 
 def build_error(stem: str = "_stager") -> Optional[str]:
-    """Why the last build of ``stem`` (``"_stager"``, ``"_mjpeg"`` or
-    ``"_tiff"``) failed, or None when it did not fail."""
+    """Why the last build of ``stem`` (``"_stager"``, ``"_mjpeg"``,
+    ``"_tiff"``, ``"_png"`` or ``"_huffyuv"``) failed, or None when it did
+    not fail."""
     return _build_errors.get(stem)
 
 
@@ -211,7 +219,7 @@ def _prune_stale_libs(keep: Path, min_age_s: float = 600.0) -> None:
     another source version keeps the one it just built."""
     import time
     now = time.time()
-    stem = keep.name.split("-")[0]  # _stager / _mjpeg / _tiff: own kind
+    stem = keep.name.split("-")[0]  # _stager / _mjpeg / _png ...: own kind
     for p in keep.parent.glob(f"{stem}-*.so"):
         if p == keep or ".tmp" in p.name:
             continue
@@ -282,43 +290,113 @@ def available() -> bool:
     return _load() is not None
 
 
-def _load_mjpeg() -> Optional[ctypes.CDLL]:
-    """Load (building on first use) the MJPEG decoder (``jpeg.cpp``)."""
-    global _mjpeg_lib, _mjpeg_tried
-    if _mjpeg_lib is not None or _mjpeg_tried:
-        return _mjpeg_lib
-    _mjpeg_tried = True
+def _declare_mjpeg(lib: ctypes.CDLL) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    sz, i = ctypes.c_size_t, ctypes.c_int
+    lib.clt_jpeg_decode_bgr.argtypes = [u8p, sz, u8p, i, i, i]
+    lib.clt_jpeg_decode_bgr.restype = i
+    lib.clt_jpeg_decode_bgr_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i, i,
+        i, i, ctypes.POINTER(i)]
+    lib.clt_jpeg_decode_bgr_batch.restype = None
+    lib.clt_raw_decode_bgr_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i, i,
+        i, i, u8p, i, ctypes.POINTER(i)]
+    lib.clt_raw_decode_bgr_batch.restype = None
+    lib.clt_jpeg_decode_tiff_batch.argtypes = [
+        u8p, sz, u8p, sz, u64p, u64p, sz, u8p, u64p, ctypes.POINTER(i), i, i,
+        i, i, i, ctypes.POINTER(i)]
+    lib.clt_jpeg_decode_tiff_batch.restype = None
+    lib.clt_jpeg_version.restype = i
+
+
+def _declare_tiff(lib: ctypes.CDLL) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    sz, i = ctypes.c_size_t, ctypes.c_int
+    lib.clt_lzw_decode_chunks.argtypes = [
+        u8p, sz, u64p, u64p, sz, u8p, u64p, u64p, i64p, i]
+    lib.clt_packbits_decode_chunks.argtypes = [
+        u8p, sz, u64p, u64p, sz, u8p, u64p, u64p, i64p, i]
+    lib.clt_lzw_encode_chunks.argtypes = [
+        u8p, u64p, u64p, sz, u8p, u64p, u64p, u64p, i]
+    lib.clt_predictor_undo.argtypes = [u8p, sz, sz, i, i, i, i, i]
+    lib.clt_predictor_apply.argtypes = [u8p, sz, sz, i, i, i]
+    lib.clt_ccitt_decode_chunks.argtypes = [
+        u8p, sz, u64p, u64p, sz, u8p, u64p, u64p,
+        ctypes.POINTER(ctypes.c_int32), i, i, i, i64p, i]
+    for fn in ("clt_ccitt_decode_chunks", "clt_lzw_decode_chunks",
+               "clt_packbits_decode_chunks", "clt_lzw_encode_chunks"):
+        getattr(lib, fn).restype = None
+    lib.clt_predictor_undo.restype = i
+    lib.clt_predictor_apply.restype = i
+    lib.clt_tiff_version.restype = i
+
+
+def _declare_png(lib: ctypes.CDLL) -> None:
+    sz, i, vpp = ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+    lib.clt_png_decode_bgr_batch.argtypes = [
+        vpp, ctypes.POINTER(sz), sz, ctypes.POINTER(ctypes.c_uint8), i, i, i,
+        i, i, vpp, ctypes.POINTER(i), i, ctypes.POINTER(i)]
+    lib.clt_png_decode_bgr_batch.restype = None
+    lib.clt_png_version.restype = i
+
+
+def _declare_huffyuv(lib: ctypes.CDLL) -> None:
+    sz, i = ctypes.c_size_t, ctypes.c_int
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.clt_huffyuv_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, u8p, sz,
+        i, i, i, i, i, i, u8p, ctypes.POINTER(ctypes.c_uint32), i,
+        ctypes.POINTER(i)]
+    lib.clt_huffyuv_decode_batch.restype = None
+    lib.clt_huffyuv_version.restype = i
+
+
+# stem: (source, extra g++ flags, entry-point types, what it is).  -fwrapv
+# for jpeg.cpp: the IDCTs' sums of corrupt coefficients wrap, as libjpeg's
+# 32-bit lanes do, instead of being undefined.
+_DECODERS = {
+    "_mjpeg": (_MJPEG_SRC, ("-fwrapv",), _declare_mjpeg, "MJPEG decoder"),
+    "_tiff": (_TIFF_SRC, (), _declare_tiff, "TIFF codec"),
+    "_png": (_PNG_SRC, (), _declare_png, "PNG decoder"),
+    "_huffyuv": (_HUFFYUV_SRC, (), _declare_huffyuv, "HuffYUV decoder"),
+}
+_decoder_libs: Dict[str, Optional[ctypes.CDLL]] = {}
+
+
+def _load_decoder(stem: str) -> Optional[ctypes.CDLL]:
+    """Load (building on first use) the library ``stem`` of
+    ``_DECODERS``; one try a process."""
+    if stem in _decoder_libs:
+        return _decoder_libs[stem]
+    _decoder_libs[stem] = None
+    src, flags, declare, _ = _DECODERS[stem]
     try:
-        lib_path = _lib_path("_mjpeg", _MJPEG_SRC)
-        # -fwrapv: the IDCTs' sums of corrupt coefficients wrap, as
-        # libjpeg's 32-bit lanes do, instead of being undefined
-        if not lib_path.exists() and not _build(lib_path, _MJPEG_SRC,
-                                                extra_flags=("-fwrapv",)):
+        lib_path = _lib_path(stem, src)
+        if not lib_path.exists() and not _build(lib_path, src, flags):
             return None
         lib = ctypes.CDLL(str(lib_path))
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        sz, i = ctypes.c_size_t, ctypes.c_int
-        lib.clt_jpeg_decode_bgr.argtypes = [u8p, sz, u8p, i, i, i]
-        lib.clt_jpeg_decode_bgr.restype = i
-        lib.clt_jpeg_decode_bgr_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i,
-            i, i, i, ctypes.POINTER(i)]
-        lib.clt_jpeg_decode_bgr_batch.restype = None
-        lib.clt_raw_decode_bgr_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i,
-            i, i, i, u8p, i, ctypes.POINTER(i)]
-        lib.clt_raw_decode_bgr_batch.restype = None
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        lib.clt_jpeg_decode_tiff_batch.argtypes = [
-            u8p, sz, u8p, sz, u64p, u64p, sz, u8p, u64p,
-            ctypes.POINTER(i), i, i, i, i, i, ctypes.POINTER(i)]
-        lib.clt_jpeg_decode_tiff_batch.restype = None
-        lib.clt_jpeg_version.restype = i
+        declare(lib)
     except (OSError, AttributeError) as exc:
-        _build_errors["_mjpeg"] = f"load failed: {exc}"
+        _build_errors[stem] = f"load failed: {exc}"
         return None
-    _mjpeg_lib = lib
-    return _mjpeg_lib
+    _decoder_libs[stem] = lib
+    return lib
+
+
+def _require(lib: Optional[ctypes.CDLL], stem: str) -> ctypes.CDLL:
+    if lib is None:
+        raise RuntimeError(f"native {_DECODERS[stem][3]} unavailable (a C++ "
+                           f"compiler is needed): {build_error(stem)}")
+    return lib
+
+
+def _load_mjpeg() -> Optional[ctypes.CDLL]:
+    """Load (building on first use) the MJPEG decoder (``jpeg.cpp``)."""
+    return _load_decoder("_mjpeg")
 
 
 def mjpeg_available() -> bool:
@@ -327,11 +405,7 @@ def mjpeg_available() -> bool:
 
 
 def _mjpeg() -> ctypes.CDLL:
-    lib = _load_mjpeg()
-    if lib is None:
-        raise RuntimeError("native MJPEG decoder unavailable (a C++ "
-                           f"compiler is needed): {build_error('_mjpeg')}")
-    return lib
+    return _require(_load_mjpeg(), "_mjpeg")
 
 
 def _check_frames(dst: np.ndarray, ndim: int, what: str) -> None:
@@ -339,8 +413,6 @@ def _check_frames(dst: np.ndarray, ndim: int, what: str) -> None:
             not dst.flags.c_contiguous or not dst.flags.writeable:
         raise ValueError(f"dst must be a writable C-contiguous {what} "
                          "uint8 array")
-
-
 
 
 def _jpeg_mode(mode: Optional[str], fast: bool) -> int:
@@ -531,57 +603,182 @@ def raw_decode_bgr_batch(payloads, dst: np.ndarray, layout: str,
     return k
 
 
-def _load_tiff() -> Optional[ctypes.CDLL]:
-    """Load (building on first use) the TIFF codec library."""
-    global _tiff_lib, _tiff_tried
-    if _tiff_lib is not None or _tiff_tried:
-        return _tiff_lib
-    _tiff_tried = True
-    try:
-        lib_path = _lib_path("_tiff", _TIFF_SRC)
-        if not lib_path.exists() and not _build(lib_path, _TIFF_SRC):
-            return None
-        lib = ctypes.CDLL(str(lib_path))
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        sz, i = ctypes.c_size_t, ctypes.c_int
-        lib.clt_lzw_decode_chunks.argtypes = [
-            u8p, sz, u64p, u64p, sz, u8p, u64p, u64p, i64p, i]
-        lib.clt_packbits_decode_chunks.argtypes = [
-            u8p, sz, u64p, u64p, sz, u8p, u64p, u64p, i64p, i]
-        lib.clt_lzw_encode_chunks.argtypes = [
-            u8p, u64p, u64p, sz, u8p, u64p, u64p, u64p, i]
-        lib.clt_predictor_undo.argtypes = [u8p, sz, sz, i, i, i, i, i]
-        lib.clt_predictor_apply.argtypes = [u8p, sz, sz, i, i, i]
-        lib.clt_ccitt_decode_chunks.argtypes = [
-            u8p, sz, u64p, u64p, sz, u8p, u64p, u64p,
-            ctypes.POINTER(ctypes.c_int32), i, i, i, i64p, i]
-        lib.clt_ccitt_decode_chunks.restype = None
-        lib.clt_lzw_decode_chunks.restype = None
-        lib.clt_packbits_decode_chunks.restype = None
-        lib.clt_lzw_encode_chunks.restype = None
-        lib.clt_predictor_undo.restype = ctypes.c_int
-        lib.clt_predictor_apply.restype = ctypes.c_int
-        lib.clt_tiff_version.restype = ctypes.c_int
-    except (OSError, AttributeError) as exc:
-        _build_errors["_tiff"] = f"load failed: {exc}"
-        return None
-    _tiff_lib = lib
-    return _tiff_lib
+def png_available() -> bool:
+    """True when the PNG frame decoder built (or was built) and loaded."""
+    return _load_decoder("_png") is not None
+
+
+def huffyuv_available() -> bool:
+    """True when the HuffYUV decoder built (or was built) and loaded."""
+    return _load_decoder("_huffyuv") is not None
+
+
+_pool = None
+
+
+def _thread_pool():
+    """The frame decoders' thread pool (one thread a CPU, made on first
+    use): Python's ``zlib`` releases the GIL while it inflates."""
+    global _pool
+    if _pool is None:
+        from concurrent.futures import ThreadPoolExecutor
+        _pool = ThreadPoolExecutor(_NTHREADS, "clt-frames")
+    return _pool
+
+
+def _ptr_array(arrays):
+    k = len(arrays)
+    return ((ctypes.c_void_p * k)(*[a.ctypes.data for a in arrays]),
+            (ctypes.c_size_t * k)(*[a.size for a in arrays]))
+
+
+def png_decode_bgr_batch(payloads, dst: np.ndarray,
+                         info: Optional["png_plain.PngInfo"] = None,
+                         threads: Optional[int] = None,
+                         first_frame: int = 0) -> int:
+    """Decode PNG file i (``payloads[i]``, a frame chunk of a PNG AVI) into
+    ``dst[i]`` ((k, H, W, 3) BGR uint8), giving the frame
+    ``cv2.VideoCapture`` gives for it (``native/png_plain.py`` has each
+    layout's rule).  Every frame's ``IHDR`` must be ``info`` (default: the
+    first frame's) and its geometry ``dst``'s.  Chunks are read and
+    inflated on the frame thread pool, then unfiltered and converted by
+    ``png.cpp`` on up to ``threads`` threads (default: every CPU).
+    Returns k; raises ValueError naming the first frame (from
+    ``first_frame``) that is refused or wrong (a layout it does not read,
+    no PNG, an ``IHDR`` not ``info``, a wrong CRC, a corrupt or short zlib
+    stream, a filter type past 4, a palette index past ``PLTE``), after
+    every frame was tried; a
+    RuntimeError where ``png.cpp`` did not build."""
+    import zlib
+    lib = _require(_load_decoder("_png"), "_png")
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    k = len(payloads)
+    if dst.shape[0] != k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, payloads {k}")
+    if not k:
+        return 0
+    if info is None:
+        info = png_plain.read_header(payloads[0])
+
+    def fail(i: int, why) -> ValueError:
+        return ValueError(f"png_decode_bgr_batch: frame {first_frame + i}: "
+                          f"{why}")
+    if info is None:
+        raise fail(0, "not a PNG file")
+    why = png_plain.unsupported(info)
+    if why:
+        raise fail(0, f"a PNG layout the decoder does not read: {why}")
+    if (info.height, info.width) != dst.shape[1:3]:
+        raise fail(0, f"a {info.height} x {info.width} image, not "
+                      f"{dst.shape[1]} x {dst.shape[2]}")
+
+    def prepare(i: int):
+        try:
+            frame = png_plain.read_frame(payloads[i])
+            if frame.info != info:
+                raise png_plain.PngError(
+                    f"its IHDR ({png_plain.layout_name(frame.info)}, "
+                    f"{frame.info.height} x {frame.info.width}) differs "
+                    f"from the stream's ({png_plain.layout_name(info)}, "
+                    f"{info.height} x {info.width})")
+            try:
+                raw = zlib.decompress(frame.idat)
+            except zlib.error as exc:
+                raise png_plain.PngError(
+                    f"a corrupt zlib stream ({exc})") from exc
+        except png_plain.PngError as exc:
+            return exc
+        palette = np.zeros((0, 3), np.uint8) if frame.palette is None \
+            else np.ascontiguousarray(frame.palette)
+        return np.frombuffer(raw, np.uint8), palette
+    prepared = list(_thread_pool().map(prepare, range(k)))
+    for i, got in enumerate(prepared):
+        if isinstance(got, Exception):
+            raise fail(i, got) from got
+    ptrs, sizes = _ptr_array([raw for raw, _ in prepared])
+    palettes = (ctypes.c_void_p * k)(*[p.ctypes.data for _, p in prepared])
+    entries = (ctypes.c_int * k)(*[len(p) for _, p in prepared])
+    rcs = (ctypes.c_int * k)()
+    lib.clt_png_decode_bgr_batch(
+        ptrs, sizes, k, _as_u8_ptr(dst), info.height, info.width,
+        info.bit_depth, info.color_type, info.interlace, palettes, entries,
+        threads or os.cpu_count() or 1, rcs)
+    reasons = {-1: "the zlib stream ends before the image (short scanlines)",
+               -2: "a filter type past 4",
+               -3: "a palette index past the PLTE entries",
+               -4: "a PNG layout the decoder does not read"}
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            raise fail(i, reasons.get(rc, f"return code {rc}"))
+    return k
+
+
+def huffyuv_decode_bgr_batch(payloads, dst: np.ndarray,
+                             params: "huffyuv_plain.HuffyuvParams",
+                             threads: Optional[int] = None,
+                             first_frame: int = 0,
+                             planes: Optional[np.ndarray] = None) -> int:
+    """Decode HuffYUV frame chunk i of a stream of ``params``
+    (``huffyuv_plain.params``) into ``dst[i]`` ((k, H, W, 3) BGR uint8),
+    giving the frame ``cv2.VideoCapture`` gives for it: ``huffyuv.cpp`` on
+    up to ``threads`` threads (default: every CPU), RGB straight into
+    ``dst``, YUV into planes (``planes``: a reusable uint8 buffer of at
+    least k frames' planes) that the rawvideo converter (``jpeg.cpp``)
+    turns into BGR.  Returns k; raises ValueError for a layout it does not
+    read, or naming the first frame (from ``first_frame``) whose codes run
+    past its chunk or are in no table, after every frame was tried; a
+    RuntimeError where a library did not build."""
+    lib = _require(_load_decoder("_huffyuv"), "_huffyuv")
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    k, (h, w) = len(payloads), dst.shape[1:3]
+    if dst.shape[0] != k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, payloads {k}")
+    layout = huffyuv_plain.yuv_layout(params)
+    if layout:
+        _mjpeg()   # the YUV layouts' converter
+    plane_bytes = frame_bytes(layout, h, w) if layout else 0
+    if layout and (planes is None or planes.size < k * plane_bytes):
+        planes = np.empty(k * plane_bytes, np.uint8)
+    if layout:
+        _u8_buffer(planes, "planes", writable=True)
+    flats = [np.frombuffer(p, np.uint8) for p in payloads]
+    ptrs, sizes = _ptr_array(flats)
+    lengths = np.ascontiguousarray(params.lengths, np.uint8)
+    codes = np.ascontiguousarray(params.codes, np.uint32)
+    if lengths.shape != (3, 256) or codes.shape != (3, 256):
+        raise ValueError("a HuffYUV stream needs (3, 256) code lengths and "
+                         "codes")
+    rcs = (ctypes.c_int * k)()
+    lib.clt_huffyuv_decode_batch(
+        ptrs, sizes, k, _as_u8_ptr(dst),
+        None if planes is None else _as_u8_ptr(planes), plane_bytes, h, w,
+        params.bpp, params.predictor, int(params.decorrelate),
+        int(params.interlaced), _as_u8_ptr(lengths),
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        threads or os.cpu_count() or 1, rcs)
+    reasons = {-1: "the codes run past the end of the chunk",
+               -2: "bits that are no code of the stream's tables",
+               -4: "a HuffYUV layout the decoder does not read ("
+                   + huffyuv_plain.layout_name(params) + f", {h} x {w})"}
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            raise ValueError(f"huffyuv_decode_bgr_batch: frame "
+                             f"{first_frame + i}: "
+                             + reasons.get(rc, f"return code {rc}"))
+    if layout:
+        raw_decode_bgr_batch([planes[i * plane_bytes:(i + 1) * plane_bytes]
+                              for i in range(k)], dst, layout,
+                             threads=threads, first_frame=first_frame)
+    return k
 
 
 def tiff_available() -> bool:
     """True when the native TIFF codec built (or was built) and loaded."""
-    return _load_tiff() is not None
+    return _load_decoder("_tiff") is not None
 
 
 def _tiff() -> ctypes.CDLL:
-    lib = _load_tiff()
-    if lib is None:
-        raise RuntimeError("native TIFF codec unavailable (a C++ compiler "
-                           f"is needed): {build_error('_tiff')}")
-    return lib
+    return _require(_load_decoder("_tiff"), "_tiff")
 
 
 def _u8_buffer(arr: np.ndarray, name: str, writable: bool = False):

@@ -54,14 +54,14 @@
 // Python version in native/jpeg_plain.py is what the tests hold it to.
 
 #include <algorithm>
-#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <memory>
-#include <thread>
 #include <vector>
+
+#include "parallel.h"
 
 namespace {
 
@@ -82,26 +82,6 @@ enum TiffForm { kFormYcc = 0, kFormStored = 1, kFormGray = 2 };
 
 constexpr int kEoi = 0xD9;
 constexpr int kLook = 9;          // Huffman lookahead bits
-
-// Run fn(i) for i in [0, n) on up to nthreads threads, each taking the
-// next index from a shared counter (chunks differ in cost).
-template <typename F>
-void parallel_items(std::size_t n, int nthreads, F&& fn) {
-    const int t = static_cast<int>(
-        std::min<std::size_t>(n, static_cast<std::size_t>(std::max(1, nthreads))));
-    if (t <= 1) {
-        for (std::size_t i = 0; i < n; ++i) fn(i);
-        return;
-    }
-    std::atomic<std::size_t> next{0};
-    auto work = [&] {
-        for (std::size_t i = next++; i < n; i = next++) fn(i);
-    };
-    std::vector<std::thread> threads;
-    for (int k = 1; k < t; ++k) threads.emplace_back(work);
-    work();
-    for (auto& th : threads) th.join();
-}
 
 // zigzag index -> natural (row-major) index; the 16 extra entries catch a
 // corrupt run that steps past the last coefficient, as libjpeg's do
@@ -2101,15 +2081,15 @@ thread_local std::vector<std::uint8_t> tls_spliced;
 // bottom-up where the caller says so (BI_RGB of positive height), and
 // padded to 4 bytes where the chunk holds the padded frame.  The YUV
 // layouts go through the MJPEG decoder's converter with the limited-range
-// tables: yuv420p (I420, and YV12 with its planes swapped) by the unscaled
-// SSSE3 path at an even height, every other case by the scaled path.
-enum RawLayout { kPal8, kRgb555, kBgr24, kBgr0, kGray8, kI420, kYv12, kNv12, kYuyv, kUyvy };
+// tables: yuv420p (I420; YV12 with its planes swapped) and yuv422p by the
+// unscaled SSSE3 path at an even height, every other case by the scaled path.
+enum RawLayout { kPal8, kRgb555, kBgr24, kBgr0, kGray8, kI420, kYv12, kNv12, kYuyv, kUyvy, kYuv422p };
 
 constexpr int kShortChunk = -7;   // rawvideo: a chunk shorter than the frame
 
 int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int height,
                int width, int layout, bool bottom_up, const std::uint8_t* palette) {
-    if (height < 1 || width < 1 || layout < kPal8 || layout > kUyvy) return kUnsupported;
+    if (height < 1 || width < 1 || layout < kPal8 || layout > kYuv422p) return kUnsupported;
     const std::size_t H = height, W = width, h2 = (H + 1) / 2, w2 = (W + 1) / 2;
     static const int kPixelBytes[5] = {1, 2, 3, 4, 1};
     if (layout <= kGray8) {
@@ -2145,8 +2125,9 @@ int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int h
         }
         return kOk;
     }
-    const bool packed = layout == kYuyv || layout == kUyvy;
-    if (n < (packed ? H * w2 * 4 : H * W + 2 * h2 * w2)) return kShortChunk;
+    const bool packed = layout == kYuyv || layout == kUyvy, planar = !packed && layout != kNv12;
+    const std::size_t ch = packed || layout == kYuv422p ? H : h2;
+    if (n < (packed ? H * w2 * 4 : H * W + 2 * ch * w2)) return kShortChunk;
     Decoder dec;
     dec.mode = kFfmpeg;
     dec.s = &tls_scratch;
@@ -2154,18 +2135,17 @@ int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int h
     dec.hd.height = height;
     dec.hd.ncomp = 3;
     dec.hs = 1;
-    dec.vs = packed ? 0 : 1;
+    dec.vs = ch == H ? 0 : 1;
     dec.range = &kSwsLimited;
     dec.alloc_rows();
     Component *c = dec.hd.comp;
-    const std::size_t ch = packed ? H : h2;
     c[0].stride = W;
     c[1].stride = c[2].stride = w2;
-    if (layout == kI420 || layout == kYv12) {
+    if (planar) {
         std::uint8_t* planes = const_cast<std::uint8_t*>(data);
         c[0].plane = planes;
-        c[layout == kI420 ? 1 : 2].plane = planes + H * W;
-        c[layout == kI420 ? 2 : 1].plane = planes + H * W + h2 * w2;
+        c[layout == kYv12 ? 2 : 1].plane = planes + H * W;
+        c[layout == kYv12 ? 1 : 2].plane = planes + H * W + ch * w2;
     } else {  // split into planes of the scratch buffer
         Scratch& sc = *dec.s;
         const std::size_t need = (packed ? H * W : 0) + 2 * ch * w2;
@@ -2199,7 +2179,7 @@ int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int h
         c[1].plane = u;
         c[2].plane = v;
     }
-    if ((layout == kI420 || layout == kYv12) && !(height & 1)) dec.convert_rows(dst, 0, height);
+    if (planar && !(height & 1)) dec.convert_rows(dst, 0, height);
     else dec.scale_frame(dst);
     return kOk;
 }
@@ -2241,7 +2221,7 @@ void clt_jpeg_decode_bgr_batch(const unsigned char* const* srcs,
 
 // Decode k uncompressed frames (srcs[i], sizes[i] bytes) of one layout
 // (RawLayout: 0 pal8, 1 rgb555, 2 bgr24, 3 bgr0, 4 gray8, 5 i420, 6 yv12,
-// 7 nv12, 8 yuyv422, 9 uyvy422) into dst, frame i at i*height*width*3 as
+// 7 nv12, 8 yuyv422, 9 uyvy422, 10 yuv422p) into dst, frame i at i*height*width*3 as
 // BGR, on up to nthreads threads.  bottom_up: the single-plane layouts'
 // rows are stored last first; palette: pal8's 256 B, G, R, X entries.
 // rcs[i] gets 0, -7 for a chunk shorter than the frame, or -4 for an

@@ -20,6 +20,9 @@ does):
   (``jpeg_plain._ffmpeg_bgr`` and ``_swscale_bgr`` with
   ``SWS_LIMITED``): swscale's unscaled SSSE3 path at an even height, its
   scaled path at an odd one;
+* ``Y42B`` (yuv422p, planar): as yuv420p, each chroma row serving one
+  row: the unscaled path at an even height, the scaled one at an odd
+  one (the port's HuffYUV decoder converts its YUY2 frames so too);
 * ``NV12`` (interleaved chroma), ``YUY2`` and ``UYVY`` (packed 4:2:2):
   swscale's scaled path at every size, limited range.
 
@@ -42,12 +45,13 @@ __all__ = ["LAYOUTS", "FOURCC_LAYOUTS", "DIB_LAYOUTS", "frame_bytes",
 
 # each layout's number in jpeg.cpp's clt_raw_decode_bgr_batch
 LAYOUTS = ("pal8", "rgb555", "bgr24", "bgr0", "gray8", "i420", "yv12",
-           "nv12", "yuyv422", "uyvy422")
+           "nv12", "yuyv422", "uyvy422", "yuv422p")
 
 # the fourccs rawdec maps to these layouts; BI_RGB goes by bit count
 FOURCC_LAYOUTS = {"I420": "i420", "IYUV": "i420", "YV12": "yv12",
                   "NV12": "nv12", "YUY2": "yuyv422", "UYVY": "uyvy422",
-                  "Y800": "gray8", "GREY": "gray8", "Y8": "gray8"}
+                  "Y800": "gray8", "GREY": "gray8", "Y8": "gray8",
+                  "Y42B": "yuv422p"}
 DIB_LAYOUTS = {8: "pal8", 16: "rgb555", 24: "bgr24", 32: "bgr0"}
 
 # bytes per pixel of the single-plane layouts; rawdec pads the rows of
@@ -66,6 +70,8 @@ def frame_bytes(layout: str, height: int, width: int) -> int:
         return height * width * _PIXEL_BYTES[layout]
     if layout in ("yuyv422", "uyvy422"):
         return height * _half(width) * 4
+    if layout == "yuv422p":
+        return height * width + 2 * height * _half(width)
     return height * width + 2 * _half(height) * _half(width)
 
 
@@ -129,6 +135,12 @@ def decode_bgr(payload, layout: str, height: int, width: int,
                             SWS_LIMITED)
     y = data[:height * width].reshape(height, width)
     rest = data[height * width:need]
+    if layout == "yuv422p":
+        u, v = rest.reshape(2, height, w2)
+        if height % 2:
+            return _swscale_bgr(y, u, v, 1, 0, SWS_LIMITED)
+        full = [np.repeat(c, 2, 1)[:, :width] for c in (u, v)]
+        return _ffmpeg_bgr(y, *full, subsampled=True, rng=SWS_LIMITED)
     if layout == "nv12":
         uv = rest.reshape(h2, w2, 2)
         return _swscale_bgr(y, uv[..., 0], uv[..., 1], 1, 1, SWS_LIMITED)

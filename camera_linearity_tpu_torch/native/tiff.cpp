@@ -19,12 +19,12 @@
 // versions in native/tiff_plain.py are what the tests hold it to.
 
 #include <algorithm>
-#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
-#include <thread>
 #include <vector>
+
+#include "parallel.h"
 
 namespace {
 
@@ -33,26 +33,6 @@ constexpr int kEoi = 257;
 constexpr int kFirst = 258;
 constexpr int kMaxBits = 12;
 constexpr int kTable = 1 << kMaxBits;
-
-// Run fn(i) for i in [0, n) on up to nthreads threads, each taking the
-// next index from a shared counter (chunks differ in cost).
-template <typename F>
-void parallel_items(std::size_t n, int nthreads, F&& fn) {
-    const int t = static_cast<int>(
-        std::min<std::size_t>(n, static_cast<std::size_t>(std::max(1, nthreads))));
-    if (t <= 1) {
-        for (std::size_t i = 0; i < n; ++i) fn(i);
-        return;
-    }
-    std::atomic<std::size_t> next{0};
-    auto work = [&] {
-        for (std::size_t i = next++; i < n; i = next++) fn(i);
-    };
-    std::vector<std::thread> threads;
-    for (int k = 1; k < t; ++k) threads.emplace_back(work);
-    work();
-    for (auto& th : threads) th.join();
-}
 
 // Decode one LZW chunk into dst.  Returns the bytes written, -1 for a
 // code the table cannot hold, -2 when the data decode to more than cap.

@@ -1,6 +1,6 @@
 """AVI container reader (pure Python, streaming): MJPG chunks, raw RGBA
-frames, the chunks of the other uncompressed layouts and the stream's
-geometry.
+frames, the chunks of the other uncompressed layouts and of PNG and
+HuffYUV video, and the stream's geometry.
 
 Port of ``camera_linearity_tpu/utils/avi.py``, copied (importing the JAX
 package would import JAX).  An AVI file is a RIFF tree; the walker goes
@@ -12,9 +12,14 @@ H * W * 4 bytes in R, G, B, A order, read here with NumPy.  The other
 uncompressed layouts FFmpeg's rawvideo decoder reads (BI_RGB at 8, 16, 24
 and 32 bits, gray8, I420/YV12, NV12, YUY2/UYVY: ``AviInfo.layout``) are
 read here chunk by chunk (:func:`raw_chunks`) and converted by the port's
-``rawvideo`` reader (``native.raw_decode_bgr_batch``).  So the port reads
-all of them without a video codec library, and reads exactly the frames
-``cv2.VideoCapture`` returns for them.
+``rawvideo`` reader (``native.raw_decode_bgr_batch``).  The lossless
+compressed codecs ImageJ/Fiji and ``cv2.VideoWriter`` write, PNG
+(``MPNG``, ``PNG1``, ``png ``: a PNG file a chunk) and HuffYUV (``HFYU``,
+``FFVH``: the tables in the ``strf`` bytes after the header), are read
+chunk by chunk too (:func:`frame_chunks`) and decoded by the port's
+``native.png_decode_bgr_batch`` and ``native.huffyuv_decode_bgr_batch``.
+So the port reads all of them without a video codec library, and reads
+exactly the frames ``cv2.VideoCapture`` returns for them.
 
 Handles the OpenDML/AVIX extension OpenCV's writer emits for files >1-2 GB
 (the movi data simply continues inside subsequent ``RIFF AVIX`` segments —
@@ -37,13 +42,20 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from ..native import huffyuv_plain, png_plain
 from ..native.jpeg_plain import ffmpeg_format
 from ..native.rawvideo_plain import (DIB_LAYOUTS, FOURCC_LAYOUTS,
                                      chunk_sizes, frame_bytes)
 
 __all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "raw_chunks",
-           "raw_unsupported", "AviInfo", "RawLayout", "JpegInfo",
-           "jpeg_unsupported"]
+           "frame_chunks", "raw_unsupported", "png_unsupported",
+           "huffyuv_unsupported", "huffyuv_params", "AviInfo", "RawLayout",
+           "JpegInfo", "jpeg_unsupported", "PNG_CODECS", "HUFFYUV_CODECS"]
+
+# the fourccs (stripped of trailing spaces) FFmpeg decodes as PNG and as
+# HuffYUV
+PNG_CODECS = png_plain.PNG_FOURCCS
+HUFFYUV_CODECS = huffyuv_plain.HUFFYUV_FOURCCS
 
 # containers we descend into: their payload is a fourcc + nested chunks
 _CONTAINERS = (b"RIFF", b"LIST")
@@ -271,16 +283,26 @@ class _AviHeader(NamedTuple):
 
 class AviInfo(_AviHeader):
     """An AVI video stream's codec (the BITMAPINFOHEADER's compression
-    fourcc, e.g. ``"MJPG"`` or ``"RGBA"``; ``"DIB"`` for uncompressed
-    BI_RGB, ``"BITFIELDS"`` for BI_BITFIELDS), frame geometry and
-    components per pixel; for MJPG also the first frame's
-    :class:`JpegInfo`.  It compares as the tuple of those five; ``stream``
-    is the video's AVI stream number (its frames are ``NNdc``/``NNdb``
-    chunks), and for another codec ``raw`` holds its :class:`RawLayout`
-    and ``layout`` the rawvideo reader's layout (None where the reader has
-    none)."""
+    fourcc stripped of trailing spaces, e.g. ``"MJPG"``, ``"RGBA"`` or
+    ``"png"``; ``"DIB"`` for uncompressed BI_RGB, ``"BITFIELDS"`` for
+    BI_BITFIELDS), frame geometry and components: the channels the port
+    decodes a frame to, 3 for every codec it decodes (cv2 gives BGR)
+    but MJPG, whose components are the JPEG's (what the ``"turbo"`` modes
+    decode to; the ``"ffmpeg"`` mode gives 3), and bits per pixel / 8 for
+    a codec only cv2 reads.  For MJPG also the first frame's
+    :class:`JpegInfo`.  It compares as the tuple of those five;
+    ``stream`` is the video's AVI stream number (its frames are
+    ``NNdc``/``NNdb`` chunks), ``bit_count`` the header's bits per pixel
+    and ``extra`` its ``strf`` bytes past the BITMAPINFOHEADER (HuffYUV's
+    tables, a palette); for an uncompressed codec ``raw`` holds its
+    :class:`RawLayout` and ``layout`` the rawvideo reader's layout (None
+    where the reader has none); for PNG ``png`` holds the first frame's
+    ``IHDR`` (``png_plain.PngInfo``)."""
     raw: Optional[RawLayout] = None
     stream: int = 0
+    bit_count: int = 0
+    extra: bytes = b""
+    png: Optional[png_plain.PngInfo] = None
 
     @property
     def layout(self) -> Optional[str]:
@@ -302,9 +324,9 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
     (:class:`JpegInfo`) come from the first frame's own headers, not the
     container's, so a lying container cannot route mismatched frames into
     a fixed-size decode buffer (the native decoder re-checks every frame
-    anyway); for other
-    codecs from the stream's BITMAPINFOHEADER (components = bits per pixel
-    / 8).
+    anyway); so do a PNG stream's, from the first frame's ``IHDR`` (cv2's
+    writer states 40 bits for gray ``MPNG``); for other codecs from the
+    stream's BITMAPINFOHEADER (the height's sign dropped).
     """
     try:
         with open(path, "rb") as f:
@@ -342,6 +364,20 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
             return None
         info = AviInfo(codec, sof.height, sof.width, sof.components, sof)
         info.stream = stream
+        info.bit_count = bit_count
+        return info
+    if codec in PNG_CODECS:
+        ihdr = _first_png_ihdr(path, stream)
+        info = AviInfo(codec, *((ihdr.height, ihdr.width) if ihdr else
+                                (abs(height), width)), 3)
+        info.png = ihdr
+    elif codec in HUFFYUV_CODECS:
+        info = AviInfo(codec, abs(height), width, 3)
+    else:
+        info = None
+    if info is not None:
+        info.stream, info.bit_count, info.extra = stream, bit_count, \
+            bytes(header[40:])
         return info
     dib = codec == "DIB"
     layout = DIB_LAYOUTS.get(bit_count) if dib else FOURCC_LAYOUTS.get(codec)
@@ -354,10 +390,51 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
         palette = np.zeros((256, 4), np.uint8)
         palette.reshape(-1)[:n // 4 * 4] = np.frombuffer(
             extra, np.uint8, n // 4 * 4, len(extra) - n)
-    info = AviInfo(codec, abs(height), width, bit_count // 8)
+    info = AviInfo(codec, abs(height), width, 3 if layout or
+                   codec == "RGBA" else bit_count // 8)
     info.raw = RawLayout(layout, bit_count, dib and height > 0, palette)
-    info.stream = stream
+    info.stream, info.bit_count, info.extra = stream, bit_count, \
+        bytes(header[40:])
     return info
+
+
+def _first_png_ihdr(path: Path, stream: int
+                    ) -> Optional[png_plain.PngInfo]:
+    """The ``IHDR`` of the first non-empty frame chunk of stream
+    ``stream``, or None where it is no PNG."""
+    try:
+        with open(path, "rb") as f:
+            for _, size in _chunk_spans(f, _frame_fourccs(stream)):
+                if size:
+                    return png_plain.read_header(f.read(min(size, 33)))
+    except OSError:
+        pass
+    return None
+
+
+def png_unsupported(info: AviInfo) -> Optional[str]:
+    """What of a PNG AVI the port's PNG decoder does not read, or None:
+    its first frame (no PNG, or a layout ``png_plain.unsupported``
+    names).  A later frame that is no PNG, or whose ``IHDR`` differs from
+    the first one's, raises when it is decoded, naming it."""
+    if info.png is None:
+        return "the first frame is no PNG file"
+    return png_plain.unsupported(info.png)
+
+
+def huffyuv_params(info: AviInfo) -> huffyuv_plain.HuffyuvParams:
+    """A HuffYUV stream's parameters (``huffyuv_plain.params``) from its
+    header; raises ``huffyuv_plain.HuffyuvError`` (a ValueError) for a
+    header the decoder does not read."""
+    return huffyuv_plain.params(info.codec, info.bit_count, info.extra,
+                                info.height)
+
+
+def huffyuv_unsupported(info: AviInfo) -> Optional[str]:
+    """What of a HuffYUV stream's header the port's decoder does not
+    read, or None (``huffyuv_plain.unsupported``)."""
+    return huffyuv_plain.unsupported(info.codec, info.bit_count, info.extra,
+                                     info.height, info.width)
 
 
 def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:
@@ -393,15 +470,13 @@ def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:
     return None
 
 
-def raw_chunks(path: Path, info: AviInfo, ring: int = 1
-               ) -> Iterator[np.ndarray]:
-    """Yield each non-empty frame chunk of an uncompressed AVI of
-    ``info.layout`` as a uint8 array, read into one of ``ring`` reused
-    buffers in turn: a chunk is valid until ``ring`` more are requested.
-    A chunk shorter than the layout's frame ends the stream, as cv2's
-    read loop ends at it (FFmpeg decodes no frame from it), and so does a
-    truncated final chunk."""
-    need = frame_bytes(info.layout, info.height, info.width)
+def frame_chunks(path: Path, info: AviInfo, ring: int = 1, need: int = 0
+                 ) -> Iterator[np.ndarray]:
+    """Yield each non-empty frame chunk of the video stream as a uint8
+    array, read into one of ``ring`` reused buffers in turn: a chunk is
+    valid until ``ring`` more are requested.  Empty chunks are skipped, as
+    FFmpeg's AVI reader skips them; a chunk shorter than ``need`` bytes
+    ends the stream, and so does a truncated final chunk."""
     buffers: list = [np.empty(0, np.uint8)] * ring
     with open(path, "rb", buffering=0) as f:
         for i, (_, size) in enumerate(
@@ -420,6 +495,15 @@ def raw_chunks(path: Path, info: AviInfo, ring: int = 1
                     return  # truncated final chunk
                 got += n
             yield buffers[slot][:size]
+
+
+def raw_chunks(path: Path, info: AviInfo, ring: int = 1
+               ) -> Iterator[np.ndarray]:
+    """:func:`frame_chunks` of an uncompressed AVI of ``info.layout``: a
+    chunk shorter than the layout's frame ends the stream, as cv2's read
+    loop ends at it (FFmpeg decodes no frame from it)."""
+    return frame_chunks(path, info, ring,
+                        frame_bytes(info.layout, info.height, info.width))
 
 
 def raw_frames(path: Path) -> Iterator[np.ndarray]:

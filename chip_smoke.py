@@ -51,7 +51,14 @@ video's frames on all, in every mode; hold the rawvideo reader to
 ``native/rawvideo_plain.py`` bit for bit on one 4K frame of each layout
 it reads (8-bit paletted, RGB555 and 24-bit BI_RGB bottom-up, 32-bit
 top-down, gray8, I420, YV12, NV12, YUY2, UYVY) and time it on one thread
-and over a batch of 12 on all; write the raw videos' frames again as
+and over a batch of 12 on all; hold the PNG and HuffYUV decoders
+(``native/png.cpp``, ``native/huffyuv.cpp``) to ``png_plain.py`` and
+``huffyuv_plain.py`` bit for bit on one 4K frame of each of
+``LOSSLESS_LAYOUTS`` (PNG RGB 8-bit with the five filters cycled, PNG
+gray 8-bit, PNG RGB 16-bit with the filters cycled, HFYU RGB24 gradient
+decorrelated, HFYU YUY2 left, FFVH yuv420p median; the plain versions in
+spawned processes) and time them
+alike; write the raw videos' frames again as
 I420 AVIs (``yuv_planes``, as ``cv2.VideoWriter(fourcc "I420")`` lays them
 out); run ``welford_algorithm``
 on the card against the host backend and the CPU in float64, and
@@ -83,6 +90,14 @@ beside them; one I420 video read through ``raw_chunks`` as stream 2,
 held to stream 0's frames; ``timed(label, logger)`` and
 ``timed(label, device=dev)`` checked to synchronize the card; and
 ``stage_to_device(arr, max_bytes)`` checked to copy in slices onto it.
+
+Phase 14 (c), config 5 from the lossless compressed AVIs ImageJ/Fiji and
+``cv2.VideoWriter`` write: phase 14's raw frames encoded again (each
+distinct frame once, in spawned processes) as PNG AVIs (``MPNG``) and
+HuffYUV AVIs (``HFYU`` RGB24, left, decorrelated) by the test writers;
+``batch_video_to_hdr`` (K1, B = 8) and ``video_to_hdr`` (K3) on each,
+held to phase 14's raw u16/f16 results bit for bit, their MP/s and
+``decode_s`` beside the raw run's.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
@@ -1122,6 +1137,264 @@ def stream_phase(dev, directory, mjpg_paths, i420_paths, stream0, runs,
                 timed_sleep_ms=sleep_s * 1e3)
 
 
+# phase 12's rows of the PNG and HuffYUV decoders: one 4K frame each
+# (FFmpeg decodes no RGB HuffYUV with the median predictor: the median
+# row is yuv420p's)
+LOSSLESS_LAYOUTS = ("PNG RGB8 mixed filters", "PNG gray8",
+                    "PNG RGB16 mixed filters",
+                    "HFYU RGB24 gradient decorrelated", "HFYU YUY2 left",
+                    "FFVH yuv420p median")
+
+
+def lossless_layout_chunks(bgr_host, bgr_dev) -> dict:
+    """One 4K frame of the smoke's content in each of LOSSLESS_LAYOUTS, as
+    its writer stores it: name -> (chunk, the decoder's parameters: the
+    PNG's ``IHDR`` or the HuffYUV stream's).  PNG rows cycle the five
+    filters; gray is the green channel; RGB16 takes each channel as its
+    high byte and the next channel as its low one; the YUV layouts come
+    from ``yuv_planes``."""
+    from camera_linearity_tpu_torch.native import png_plain
+    from tests import _torch_huffyuv_writer as hw
+    from tests._torch_png_writer import encode_png
+    out = {}
+    rgb = bgr_host[..., ::-1]
+    rgb16 = rgb.astype(np.uint16) << 8 | np.roll(rgb, -1, axis=-1)
+    for name, image, ctype, depth in (
+            ("PNG RGB8 mixed filters", rgb, 2, 8),
+            ("PNG gray8", bgr_host[..., 1], 0, 8),
+            ("PNG RGB16 mixed filters", rgb16, 2, 16)):
+        chunk = encode_png(image, ctype, depth, filters="mixed")
+        out[name] = (chunk, png_plain.read_header(chunk))
+    for name, codec, layout, predictor, decorrelate, picture in (
+            ("HFYU RGB24 gradient decorrelated", "HFYU", "rgb24",
+             "gradient", True, bgr_host),
+            ("HFYU YUY2 left", "HFYU", "yuy2", "left", False,
+             yuv_planes(bgr_dev, vs=0)),
+            ("FFVH yuv420p median", "FFVH", "yuv420p", "median", False,
+             yuv_planes(bgr_dev))):
+        s = hw.make_stream(layout, predictor, decorrelate, H5, None, 2,
+                           [picture])
+        out[name] = (hw.encode_frame(picture, s), hw.stream_params(s, codec))
+    return out
+
+
+def lossless_layout_rows(bgr_host, bgr_dev, videos) -> dict:
+    """Phase 12's PNG and HuffYUV rows: each of LOSSLESS_LAYOUTS on one 4K
+    frame, the native decoder held to its plain version bit for bit (the
+    plain versions first, a process each, with phase 14 (c)'s ``videos``
+    encoded beside them, never beside a timed call), then timed on one
+    thread and over a batch of FRAMES5 on every core.  Returns the rows'
+    times."""
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.native import huffyuv_plain, png_plain
+    t0 = time.perf_counter()
+    layouts = lossless_layout_chunks(bgr_host, bgr_dev)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with plain_pool() as pool:
+        futures = {
+            name: pool.submit(png_plain.decode_bgr, chunk)
+            if isinstance(spec, png_plain.PngInfo) else
+            pool.submit(huffyuv_plain.decode_bgr, chunk, spec, H5, W5)
+            for name, (chunk, spec) in layouts.items()}
+        videos.submit(pool)
+        plain = {name: f.result() for name, f in futures.items()}
+        videos.finish()
+    plain_s = time.perf_counter() - t0
+    planes = np.empty(FRAMES5 * native.frame_bytes("yuv422p", H5, W5),
+                      np.uint8)
+    failures, rows = [], {}
+    for name, (chunk, spec) in layouts.items():
+        png = isinstance(spec, png_plain.PngInfo)
+
+        def decode(chunks, dst, **kw):
+            if png:
+                return native.png_decode_bgr_batch(chunks, dst, spec, **kw)
+            return native.huffyuv_decode_bgr_batch(chunks, dst, spec,
+                                                   planes=planes, **kw)
+        one = np.empty((1, H5, W5, 3), np.uint8)
+        many = np.empty((FRAMES5, H5, W5, 3), np.uint8)
+        decode([chunk], one)
+        want = plain.pop(name)
+        same = np.array_equal(one[0], want)
+        if not same:
+            failures.append(name)
+        single = host_ms(lambda: decode([chunk], one, threads=1), runs=5,
+                         warmup=1)
+        wide = host_ms(lambda: decode([chunk] * FRAMES5, many), runs=3,
+                       warmup=1) / FRAMES5
+        rows[name] = dict(one_thread=single, all_threads=wide,
+                          frame_mb=len(chunk) / 1e6)
+        log(f"  {'ok ' if same else 'BAD'} {name}: one 4K frame "
+            f"({len(chunk) / 1e6:.3f} MB) {single:.1f} ms on one thread; "
+            f"{wide:.1f} ms a frame over a batch of {FRAMES5} on "
+            f"{os.cpu_count()} threads (host clock, median); "
+            f"{'equals' if same else 'differs from'} the plain version, "
+            f"max |.| {max_gap(one[0], want):.0f} DN")
+        del one, many, want
+    log(f"  PNG and HuffYUV: {len(layouts)} layouts encoded in "
+        f"{encode_s:.1f} s, decoded by the plain versions in {plain_s:.1f} s "
+        "(a spawned process each), phase 14 (c)'s videos "
+        + ("from the cache" if videos.encode_s is None else
+           f"encoded beside them in {videos.encode_s:.1f} s"))
+    raise_failures("phase 12, the PNG and HuffYUV decoders against their "
+                   "plain versions", failures)
+    return rows
+
+
+class LosslessVideos:
+    """Phase 14 (c)'s videos: phase 14's raw videos (``paths``) written
+    again, each distinct frame encoded once, as PNG AVIs (``MPNG``, RGB
+    8-bit, the rows' filters cycled) and as HuffYUV AVIs (``HFYU`` RGB24,
+    left predictor, G-decorrelated: what cv2's writer writes, tables from
+    the first frame's top quarter).  Cached under ``build/`` by the
+    frames' bytes and the writers' sources, as the MJPG videos are;
+    otherwise :meth:`submit` hands the encodes to a process pool (phase
+    12's, beside its plain decodes, where no call is timed) and
+    :meth:`finish` writes the AVIs.  Then ``written`` holds each codec's
+    paths, ``sizes`` the bytes of its chunks and ``encode_s`` the seconds
+    from submit to finish (None when the cache had them)."""
+
+    CODECS = ("PNG", "HFYU RGB24")
+
+    def __init__(self, paths):
+        import hashlib
+        from camera_linearity_tpu_torch.utils import avi
+        from tests import _torch_huffyuv_writer as hw
+        from tests import _torch_png_writer as pw
+        from tests import _torch_rawvideo_writer as rw
+        # RGB, as PNG stores it
+        self.frames = [np.ascontiguousarray(f[..., ::-1]) for p in paths
+                       for f in avi.raw_frames(p)]
+        key = hashlib.md5(usedforsecurity=False)
+        for writer in (pw, hw, rw):
+            key.update(Path(writer.__file__).read_bytes())
+        for f in self.frames:
+            key.update(f.data)
+        self.cache = ROOT / "build" / "chip_smoke_lossless" / \
+            key.hexdigest()[:12]
+        self.written = {codec: [
+            self.cache / f"{codec.split()[0].lower()} {p.name}"
+            for p in paths] for codec in self.CODECS}
+        self.sizes, self.encode_s, self._pending = None, None, None
+        sizes_file = self.cache / "sizes.json"
+        if sizes_file.exists() and all(
+                p.exists() for ps in self.written.values() for p in ps):
+            self.sizes = json.loads(sizes_file.read_text())
+            self.frames = None
+
+    def submit(self, pool) -> None:
+        from tests import _torch_huffyuv_writer as hw
+        from tests._torch_png_writer import encode_png
+        if self.frames is None:
+            return
+        self._t0 = time.perf_counter()
+        # the PNG frames go out first; the HuffYUV tables meanwhile
+        png = [pool.submit(encode_png, f, 2, 8) for f in self.frames]
+        self.stream = hw.make_stream("rgb24", "left", True, H5, None, 2,
+                                     [self.frames[0][:H5 // 4, :, ::-1]])
+        self._pending = {"PNG": png, "HFYU RGB24": [
+            pool.submit(hw.encode_frame, f[..., ::-1], self.stream)
+            for f in self.frames]}
+        self.frames = None
+
+    def finish(self) -> None:
+        from tests import _torch_huffyuv_writer as hw
+        from tests._torch_png_writer import write_png_avi
+        if self._pending is None:
+            return
+        self.cache.mkdir(parents=True, exist_ok=True)
+        self.sizes = {}
+        for codec, futures in self._pending.items():
+            chunks = [f.result() for f in futures]
+            for i, out in enumerate(self.written[codec]):
+                part = chunks[i * FRAMES5:(i + 1) * FRAMES5]
+                tmp = out.with_suffix(f".tmp{os.getpid()}")
+                if codec == "PNG":
+                    write_png_avi(tmp, part, H5, W5, "MPNG")
+                else:
+                    hw.write_stream_avi(tmp, part, self.stream, H5, W5,
+                                        "HFYU")
+                os.replace(tmp, out)
+            self.sizes[codec] = sum(map(len, chunks))
+        (self.cache / "sizes.json").write_text(json.dumps(self.sizes))
+        self._pending = None
+        self.encode_s = time.perf_counter() - self._t0
+
+
+def lossless_phase(videos, raw, runs, run_batch, run_video_to_hdr) -> dict:
+    """Phase 14 (c): config 5 from the lossless compressed AVIs ImageJ/Fiji
+    and ``cv2.VideoWriter`` write: phase 14's raw frames as ``videos``
+    (:class:`LosslessVideos`, written in phase 12) holds them;
+    ``batch_video_to_hdr`` (K1, B = 8) and ``video_to_hdr`` (K3) on each
+    equal phase 14's raw u16/f16 results bit for bit (``raw``), the codecs
+    being lossless.  Returns the phase's times (``encode_s`` None where
+    the cache had the videos)."""
+    from camera_linearity_tpu_torch.utils import avi
+    t_phase = time.perf_counter()
+    log(f"phase 14 (c): config 5 from PNG and HuffYUV AVIs of phase 14's "
+        f"raw frames; {gpu_line()}")
+    failures = []
+    written, sizes, encode_s = videos.written, videos.sizes, videos.encode_s
+    # the chunks alone, as the frame fillers read them (no decode)
+    t0 = time.perf_counter()
+    one = written["PNG"][0]
+    read_mb = sum(c.size for c in avi.frame_chunks(
+        one, avi.probe_avi(one), ring=FRAMES5)) / 1e6
+    read_s = time.perf_counter() - t0
+    n = FRAMES5 * len(written["PNG"])
+    log(f"  {n} distinct frames per codec "
+        + ("from the cache" if encode_s is None else
+           f"encoded in {encode_s:.1f} s in phase 12") + ": "
+        + ", ".join(f"{k} {v / n / 1e6:.2f} MB a frame"
+                    for k, v in sizes.items())
+        + f"; one PNG video's chunks read (no decode) at "
+        f"{read_mb / read_s:.0f} MB/s ({read_mb:.0f} MB, host clock)")
+    before = runs[raw["label"]]
+    out_runs, v2h = {}, {}
+    for codec, decoded_as in (("PNG", "png"), ("HFYU RGB24", "huffyuv")):
+        label = f"batch_video_to_hdr u16/f16 ({codec}, auto)"
+        run = run_batch(label, written[codec], decoded_as)
+        run.pop("merge")
+        out = run.pop("out")
+        runs[label] = out_runs[codec] = run
+        same = list(out) == list(raw["out"]) and all(
+            torch.equal(a, b) for name, pair in out.items()
+            for a, b in zip(pair, raw["out"][name]))
+        log(f"  {'ok ' if same else 'BAD'} batch_video_to_hdr from {codec} "
+            f"vs phase 14's raw ({raw['label']}): "
+            f"{'bit for bit equal' if same else 'different'}, {len(out)} "
+            f"scenes; {run['mps']:.2f} MP/s, decode_s "
+            f"{run['stages'].get('decode_s', 0):.3f} (raw: "
+            f"{before['mps']:.2f} MP/s, decode_s "
+            f"{before['stages'].get('decode_s', 0):.3f}; {gpu_line()})")
+        if not same:
+            failures.append(f"batch_video_to_hdr from {codec} against raw")
+        del out
+        torch.cuda.empty_cache()
+        v2h[codec], _, got = run_video_to_hdr(f"video_to_hdr ({codec})",
+                                              written[codec], decoded_as)
+        same = all(torch.equal(a, b) for a, b in zip(got,
+                                                     raw["video_to_hdr"]))
+        log(f"  {'ok ' if same else 'BAD'} video_to_hdr from {codec} vs "
+            f"raw: {'bit for bit equal' if same else 'different'}; "
+            f"{v2h[codec]:.3f} s")
+        if not same:
+            failures.append(f"video_to_hdr from {codec} against raw")
+        del got
+    raise_failures("phase 14 (c)", failures)
+    wall = time.perf_counter() - t_phase
+    log(f"phase 14 (c): {wall:.1f} s")
+    return dict(wall_s=wall, encode_s=encode_s, read_mbps=read_mb / read_s,
+                raw_mps=before["mps"],
+                raw_decode_s=before["stages"].get("decode_s", 0),
+                frame_mb={k: v / n / 1e6 for k, v in sizes.items()},
+                runs={k: dict(wall=r["wall"], mps=r["mps"],
+                              decode_s=r["stages"].get("decode_s", 0))
+                      for k, r in out_runs.items()},
+                video_to_hdr_s=v2h)
+
+
 def video_phases(dev, res, directory) -> dict:
     """Phases 12-14: config 5, the video -> HDR pipeline, with the raw
     videos written into ``directory`` and the MJPG ones cached under
@@ -1240,7 +1513,7 @@ def video_phases(dev, res, directory) -> dict:
         f"{i420_paths[0].stat().st_size / 1e6:.1f} MB each) and their "
         f"{CROP_ROWS}-row crops in {time.perf_counter() - t0:.1f} s")
     info = avi.probe_avi(paths[0])
-    if info[:4] != ("RGBA", H5, W5, 4):
+    if info[:4] != ("RGBA", H5, W5, 3):
         raise AssertionError(f"probe_avi: {info}")
     info = avi.probe_avi(i420_paths[0])
     if (info.codec, info.height, info.width, info.layout) != (
@@ -1354,9 +1627,13 @@ def video_phases(dev, res, directory) -> dict:
     log(f"  rawvideo: {len(layouts)} layouts checked in "
         f"{time.perf_counter() - t0:.1f} s (the plain versions "
         f"{plain_s:.1f} s of it, on {os.cpu_count()} threads)")
-    del bgr_dev, layouts
+    del layouts
     raise_failures("phase 12, the rawvideo reader against "
                    "rawvideo_plain.py", failures)
+    lossless_videos = LosslessVideos(paths)
+    decode_ms.update(lossless_layout_rows(pools[-1][0], bgr_dev,
+                                          lossless_videos))
+    del bgr_dev
     icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
             ** np.array([2.0, 2.2, 2.4]))
 
@@ -1594,6 +1871,8 @@ def video_phases(dev, res, directory) -> dict:
             runs[label] = run
             if wire_val == "u16":
                 k1_times = time_k1_batch(dev, *run.pop("merge"))
+                # phase 14 (c) holds the lossless codecs to this run
+                raw_u16 = dict(label=label, out=run.pop("out"))
             else:  # phase 20 holds the distributed path to this run
                 f32_run = dict(out=run.pop("out"), wall=run["wall"],
                                mps=run["mps"], stages=run["stages"])
@@ -1602,8 +1881,9 @@ def video_phases(dev, res, directory) -> dict:
             torch.cuda.empty_cache()
 
         # video_to_hdr for one scene: one K3 launch
-        t_v2h_s, (val, std, dark, ex, ic, icd, thr), _ = run_video_to_hdr(
-            "video_to_hdr", paths, "raw")
+        t_v2h_s, (val, std, dark, ex, ic, icd, thr), \
+            raw_u16["video_to_hdr"] = run_video_to_hdr("video_to_hdr", paths,
+                                                       "raw")
 
         def k3():
             hdr_cuda.merge_nhwc_lerp_bp(val, std, dark, ex, ic, icd, thr,
@@ -1710,6 +1990,12 @@ def video_phases(dev, res, directory) -> dict:
                 lambda paths: run_video_to_hdr(
                     "video_to_hdr (MJPG stream 1)", paths, "ffmpeg"))
             del stream0
+            lossless = lossless_phase(
+                lossless_videos, raw_u16, runs,
+                lambda label, paths, decoded_as: run_batch(
+                    label, paths, crops, "u16", "f16", "auto", decoded_as),
+                run_video_to_hdr)
+            del raw_u16
         finally:
             if cl_decoder is not None:
                 os.environ["CL_DECODER"] = cl_decoder
@@ -1786,7 +2072,7 @@ def video_phases(dev, res, directory) -> dict:
                           video_to_hdr_s=dict(raw=t_v2h_s, mjpg=t_v2h_mjpg,
                                               mjpg_gray=t_v2h_gray,
                                               i420=t_v2h_i420),
-                          streams=streams,
+                          streams=streams, lossless=lossless,
                           welford_modes_s=welford_modes,
                           welford_ms_by_threads=t_by_threads),
                 k3=dict(ms=k3_ms, plain_ms=k3_plain_ms, bytes=k3_bytes,
@@ -3768,18 +4054,26 @@ EXAMPLES = {
 
 def examples_phase(directory: Path) -> dict:
     """Phase 21: each of examples/torch_*.py once on the card, as a user
-    runs it (a process of its own; the distributed one as an NCCL world of
-    one).  Returns each one's wall seconds."""
+    runs it (a process of its own, the three side by side; the distributed
+    one as an NCCL world of one).  Returns each one's wall seconds."""
     log(f"phase 21: the port's examples on the card ({', '.join(EXAMPLES)})")
+    from concurrent.futures import ThreadPoolExecutor
     env = {k: v for k, v in os.environ.items() if not k.startswith("CL_")}
     walls, failures = {}, []
-    for name, (extra, expect) in EXAMPLES.items():
+
+    def run(name):
+        extra = EXAMPLES[name][0]
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, str(ROOT / "examples" / f"{name}.py"),
              str(directory / name), "--device", "cuda", *extra],
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-        walls[name] = time.perf_counter() - t0
+        return out, time.perf_counter() - t0
+    # side by side: each is mostly its process's start-up
+    with ThreadPoolExecutor(len(EXAMPLES)) as ex:
+        outs = dict(zip(EXAMPLES, ex.map(run, EXAMPLES)))
+    for name, (extra, expect) in EXAMPLES.items():
+        out, walls[name] = outs[name]
         ok = out.returncode == 0 and expect in out.stdout
         last = (out.stdout.strip().splitlines() or [""])[-1]
         log(f"  {'ok ' if ok else 'BAD'} {name} {' '.join(extra)}: rc "

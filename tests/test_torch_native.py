@@ -100,7 +100,7 @@ def test_raw_frames_equal_cv2(tmp_path, shape):
 
 def test_probe_avi_reads_the_stream_headers(rgba_avi):
     path, frames = rgba_avi
-    assert tavi.probe_avi(path) == ("RGBA", 24, 40, 4, None)
+    assert tavi.probe_avi(path) == ("RGBA", 24, 40, 3, None)
     # an MJPG's probe carries its first frame's JPEG headers: baseline,
     # 8-bit, 4:2:0 (Y 2x2, Cb and Cr 1x1), one scan
     assert tavi.probe_avi(MJPG) == ("MJPG", 32, 48, 3, (

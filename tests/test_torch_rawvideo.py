@@ -310,7 +310,7 @@ def test_probe_reads_the_whole_header(tmp_path):
     path = tmp_path / "p 5ms.avi"
     write_clip(path, "pal8 16 entries", 5, 7)
     info = avi.probe_avi(path)
-    assert info == ("DIB", 5, 7, 1, None)
+    assert info == ("DIB", 5, 7, 3, None)
     assert info.raw[:3] == ("pal8", 8, True)
     palette = info.raw.palette
     assert palette.shape == (256, 4) and not palette[16:].any()
