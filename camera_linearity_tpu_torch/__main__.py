@@ -366,7 +366,10 @@ def cmd_doctor(args) -> int:
              "gray+alpha 16, palettes, Adam7"),
             ("HuffYUV", native.huffyuv_available, "_huffyuv", "HuffYUV "
              "AVIs (HFYU, FFVH): RGB24, RGB32, YUY2, yuv420p; left, "
-             "gradient and median predictors")):
+             "gradient and median predictors"),
+            ("FFV1", native.ffv1_available, "_ffv1", "FFV1 AVIs: versions "
+             "0-3, Golomb-Rice and range coders, RGB(A), gray8, gray16, "
+             "yuv420p, yuv422p; a slice a thread")):
         print(f"native {name} decoder: " + (
             f"built; {what} (cv2's bytes)" if ok() else
             f"unavailable ({native.build_error(stem)}); such AVIs cannot "
@@ -396,8 +399,8 @@ def cmd_doctor(args) -> int:
 
 def _doctor_video(path: Path) -> None:
     """Decode rate of each reader the port has for ``path``; for an MJPG
-    AVI, the port's decoder in each mode, and for a PNG or HuffYUV AVI its
-    decoder, on one thread and on all."""
+    AVI, the port's decoder in each mode, and for a PNG, HuffYUV or FFV1
+    AVI its decoder, on one thread and on all."""
     import importlib.util
     import itertools
     import time
@@ -426,26 +429,33 @@ def _doctor_video(path: Path) -> None:
                       f"{len(payloads) * h * w / 1e6 / secs:.0f} MP/s "
                       f"({w}x{h}, {len(payloads)} frames, "
                       f"{secs / len(payloads) * 1e3:.1f} ms a frame)")
-    codecs = avi.PNG_CODECS + avi.HUFFYUV_CODECS
+    codecs = avi.PNG_CODECS + avi.HUFFYUV_CODECS + avi.FFV1_CODECS
     if info is not None and info.codec in codecs:
-        png = info.codec in avi.PNG_CODECS
+        kind = "png" if info.codec in avi.PNG_CODECS else \
+            "huffyuv" if info.codec in avi.HUFFYUV_CODECS else "ffv1"
         payloads = [bytes(c) for c in itertools.islice(
             avi.frame_chunks(path, info), 120)]
         cores = os.cpu_count() or 1
         dst = np.empty((min(cores, len(payloads)), h, w, 3), np.uint8)
-        params = None if png else avi.huffyuv_params(info)
+        params = avi.huffyuv_params(info) if kind == "huffyuv" else None
         for threads in sorted({1, cores}):
+            # FFV1 carries its states from frame to frame: a decoder a pass
+            ffv1 = native.Ffv1Decoder(avi.ffv1_params(info), h, w) \
+                if kind == "ffv1" else None
             t0 = time.perf_counter()
             for at in range(0, len(payloads), len(dst)):
                 part = payloads[at:at + len(dst)]
-                if png:
+                if kind == "png":
                     native.png_decode_bgr_batch(part, dst[:len(part)],
                                                 info.png, threads=threads)
+                elif kind == "ffv1":
+                    native.ffv1_decode_bgr_batch(part, dst[:len(part)], ffv1,
+                                                 threads=threads)
                 else:
                     native.huffyuv_decode_bgr_batch(
                         part, dst[:len(part)], params, threads=threads)
             secs = time.perf_counter() - t0
-            print(f"decode ({'png' if png else 'huffyuv'}, {threads} "
+            print(f"decode ({kind}, {threads} "
                   f"thread(s)): {len(payloads) * h * w / 1e6 / secs:.0f} "
                   f"MP/s ({w}x{h}, {len(payloads)} frames, "
                   f"{secs / len(payloads) * 1e3:.1f} ms a frame)")

@@ -1,5 +1,5 @@
 """ctypes bindings for the native host-staging library, the MJPEG decoder,
-the TIFF codec and the PNG and HuffYUV frame decoders.
+the TIFF codec and the PNG, HuffYUV and FFV1 frame decoders.
 
 Port of ``camera_linearity_tpu/native``, copied: importing the JAX package
 would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
@@ -10,8 +10,9 @@ cv2's bytes; the JPEG chunks of a TIFF as libtiff has libjpeg decode
 them; and the frames of uncompressed AVIs as cv2 gives them) and
 ``tiff.cpp`` (TIFF LZW, PackBits, predictors and CCITT fax decoding, the
 port's own), ``png.cpp`` (PNG frames of an AVI: unfiltering, Adam7 and
-the conversion to BGR; Python's ``zlib`` inflates) and ``huffyuv.cpp``
-(HuffYUV frames of an AVI) build
+the conversion to BGR; Python's ``zlib`` inflates), ``huffyuv.cpp``
+(HuffYUV frames of an AVI) and ``ffv1.cpp`` (FFV1 frames of an AVI, a
+slice a thread, the context states kept in a decoder object) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -19,8 +20,9 @@ builds anew).  Every stager entry point has a pure-NumPy fallback for hosts
 without a compiler; ``available()`` reports which path is active and
 :func:`build_error` why a build failed.  The decoders and the TIFF codec
 have no fallback: their entry points raise without the library
-(``native/jpeg_plain.py``, ``tiff_plain.py``, ``png_plain.py`` and
-``huffyuv_plain.py`` are the plain versions the tests hold them to).
+(``native/jpeg_plain.py``, ``tiff_plain.py``, ``png_plain.py``,
+``huffyuv_plain.py`` and ``ffv1_plain.py`` are the plain versions the
+tests hold them to).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from .jpeg_plain import MODES as JPEG_MODES, NO_FRAME as JPEG_NO_FRAME
 from .jpeg_plain import TIFF_FORMS as TIFF_JPEG_FORMS
 # the uncompressed video layouts, by their number in jpeg.cpp
 from .rawvideo_plain import LAYOUTS as RAW_LAYOUTS, frame_bytes
-from . import huffyuv_plain, png_plain
+from . import ffv1_plain, huffyuv_plain, png_plain
 
 __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
@@ -55,7 +57,8 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "lzw_encode_chunks", "predictor_undo",
            "predictor_apply", "build_error", "png_available",
            "png_decode_bgr_batch", "huffyuv_available",
-           "huffyuv_decode_bgr_batch"]
+           "huffyuv_decode_bgr_batch", "ffv1_available", "Ffv1Decoder",
+           "ffv1_decode_bgr_batch"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
 # fixed-point mean (grid 1/65535 on the [0,1] DN scale, absolute error
@@ -128,6 +131,7 @@ _MJPEG_SRC = _DIR / "jpeg.cpp"
 _TIFF_SRC = _DIR / "tiff.cpp"
 _PNG_SRC = _DIR / "png.cpp"
 _HUFFYUV_SRC = _DIR / "huffyuv.cpp"
+_FFV1_SRC = _DIR / "ffv1.cpp"
 _BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 
 
@@ -175,8 +179,8 @@ _NTHREADS = min(16, os.cpu_count() or 1)
 
 def build_error(stem: str = "_stager") -> Optional[str]:
     """Why the last build of ``stem`` (``"_stager"``, ``"_mjpeg"``,
-    ``"_tiff"``, ``"_png"`` or ``"_huffyuv"``) failed, or None when it did
-    not fail."""
+    ``"_tiff"``, ``"_png"``, ``"_huffyuv"`` or ``"_ffv1"``) failed, or None
+    when it did not fail."""
     return _build_errors.get(stem)
 
 
@@ -355,6 +359,21 @@ def _declare_huffyuv(lib: ctypes.CDLL) -> None:
     lib.clt_huffyuv_version.restype = i
 
 
+def _declare_ffv1(lib: ctypes.CDLL) -> None:
+    sz, i, vp = ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p
+    u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    lib.clt_ffv1_new.argtypes = [ip, ctypes.POINTER(ctypes.c_int16), ip, ip,
+                                 u8p, u8p, i, i]
+    lib.clt_ffv1_new.restype = vp
+    lib.clt_ffv1_free.argtypes = [vp]
+    lib.clt_ffv1_free.restype = None
+    lib.clt_ffv1_decode_batch.argtypes = [
+        vp, ctypes.POINTER(vp), ctypes.POINTER(sz), sz, u8p, u8p, sz, i, ip,
+        ip]
+    lib.clt_ffv1_decode_batch.restype = None
+    lib.clt_ffv1_version.restype = i
+
+
 # stem: (source, extra g++ flags, entry-point types, what it is).  -fwrapv
 # for jpeg.cpp: the IDCTs' sums of corrupt coefficients wrap, as libjpeg's
 # 32-bit lanes do, instead of being undefined.
@@ -363,6 +382,7 @@ _DECODERS = {
     "_tiff": (_TIFF_SRC, (), _declare_tiff, "TIFF codec"),
     "_png": (_PNG_SRC, (), _declare_png, "PNG decoder"),
     "_huffyuv": (_HUFFYUV_SRC, (), _declare_huffyuv, "HuffYUV decoder"),
+    "_ffv1": (_FFV1_SRC, (), _declare_ffv1, "FFV1 decoder"),
 }
 _decoder_libs: Dict[str, Optional[ctypes.CDLL]] = {}
 
@@ -611,6 +631,132 @@ def png_available() -> bool:
 def huffyuv_available() -> bool:
     """True when the HuffYUV decoder built (or was built) and loaded."""
     return _load_decoder("_huffyuv") is not None
+
+
+def ffv1_available() -> bool:
+    """True when the FFV1 decoder built (or was built) and loaded."""
+    return _load_decoder("_ffv1") is not None
+
+
+# ffv1.cpp's return codes: what went wrong, and whether it names a slice
+_FFV1_REASONS = {
+    -1: "its CRC fails", -2: "its size runs past the chunk",
+    -3: "the first frame is no keyframe",
+    -4: "its data end before its samples",
+    -5: "a slice header out of range",
+    -6: "a symbol of more than 32 bits, or a header out of range",
+    -7: "a keyframe header that changes the stream's layout",
+    -8: "another slice count than its keyframe's", -9: "an empty chunk",
+    -10: "an earlier frame failed to decode (the stream's states are lost)",
+    -11: "it leaves the last chroma row or column undecoded"}
+
+
+class Ffv1Decoder:
+    """The native decoder of one FFV1 stream of ``params``
+    (``ffv1_plain.Ffv1Params``) at ``height`` x ``width``: it keeps each
+    slice's context states from one :func:`ffv1_decode_bgr_batch` call to
+    the next, as FFV1 resets them only on a keyframe, so it takes the
+    stream's frames in order, from its first.  ``frames`` counts the frames
+    it decoded.  Raises ValueError for a layout ``ffv1.cpp`` does not read
+    (``ffv1_plain.unsupported``), RuntimeError where it did not build."""
+
+    def __init__(self, params: "ffv1_plain.Ffv1Params", height: int,
+                 width: int):
+        self._lib = _require(_load_decoder("_ffv1"), "_ffv1")
+        self._handle = None
+        why = ffv1_plain.unsupported(params, height, width)
+        if why:
+            raise ValueError(f"an FFV1 layout the decoder does not read: "
+                             f"{why} ({ffv1_plain.layout_name(params)})")
+        p = params
+        self.params, self.height, self.width = p, height, width
+        self.layout = ffv1_plain.yuv_layout(p)
+        self.frames = 0
+        ints = np.array([p.version, p.micro_version, p.coder, p.colorspace,
+                         p.bits, int(p.chroma_planes), p.h_shift, p.v_shift,
+                         int(p.transparency), p.num_h_slices, p.num_v_slices,
+                         p.ec, p.plane_count, len(p.quant_tables)], np.int32)
+        quant = np.ascontiguousarray(np.stack(p.quant_tables), np.int16)
+        contexts = np.array(p.context_counts, np.int32)
+        has = np.array([s is not None for s in p.initial_states], np.int32)
+        initial = np.concatenate(
+            [np.ascontiguousarray(s, np.uint8).reshape(-1)
+             for s in p.initial_states if s is not None] or
+            [np.zeros(1, np.uint8)])
+        transition = None if p.transition is None else \
+            np.ascontiguousarray(p.transition, np.uint8)
+        ip = ctypes.POINTER(ctypes.c_int)
+        self._handle = self._lib.clt_ffv1_new(
+            ints.ctypes.data_as(ip),
+            quant.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+            contexts.ctypes.data_as(ip), has.ctypes.data_as(ip),
+            _as_u8_ptr(initial),
+            None if transition is None else _as_u8_ptr(transition),
+            height, width)
+        if not self._handle:
+            raise ValueError(f"FFV1 parameters out of range for a {height} x "
+                             f"{width} stream")
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.clt_ffv1_free(self._handle)
+            self._handle = None
+
+
+def ffv1_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Ffv1Decoder,
+                          threads: Optional[int] = None,
+                          planes: Optional[np.ndarray] = None) -> int:
+    """Decode the next FFV1 frame chunks of ``decoder``'s stream into
+    ``dst`` ((k, H, W, 3) BGR uint8, k = ``len(payloads)``), giving the
+    frames ``cv2.VideoCapture`` gives for them: ``ffv1.cpp`` a slice a
+    thread on up to ``threads`` threads (default: every CPU), each thread
+    decoding its slice of every frame in turn; RGB and gray straight into
+    ``dst``, yuv420p and yuv422p into planes (``planes``: a reusable uint8
+    buffer of at least k frames' planes) that the rawvideo converter
+    (``jpeg.cpp``) turns into BGR.  Returns k; raises ValueError naming the
+    first frame (counted from the stream's first) and slice that does not
+    decode (a CRC that fails, a slice size past the chunk, a first frame
+    that is no keyframe, data that end before the samples), after which
+    the decoder refuses every call; a RuntimeError where a library did not
+    build."""
+    lib = decoder._lib
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    k, (h, w) = len(payloads), dst.shape[1:3]
+    if dst.shape[0] != k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, payloads {k}")
+    if (h, w) != (decoder.height, decoder.width):
+        raise ValueError(f"dst frames of {h} x {w}, the stream's are "
+                         f"{decoder.height} x {decoder.width}")
+    if not k:
+        return 0
+    layout = decoder.layout
+    if layout:
+        _mjpeg()   # the YUV layouts' converter
+    plane_bytes = frame_bytes(layout, h, w) if layout else 0
+    if layout and (planes is None or planes.size < k * plane_bytes):
+        planes = np.empty(k * plane_bytes, np.uint8)
+    if layout:
+        _u8_buffer(planes, "planes", writable=True)
+    flats = [np.frombuffer(p, np.uint8) for p in payloads]
+    ptrs, sizes = _ptr_array(flats)
+    rcs, slices = (ctypes.c_int * k)(), (ctypes.c_int * k)()
+    lib.clt_ffv1_decode_batch(
+        decoder._handle, ptrs, sizes, k, _as_u8_ptr(dst),
+        None if planes is None else _as_u8_ptr(planes), plane_bytes,
+        threads or os.cpu_count() or 1, rcs, slices)
+    first = decoder.frames
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            at = f"slice {slices[i]}: " if slices[i] >= 0 else \
+                "the last slice: " if rc == -2 else ""
+            raise ValueError(f"ffv1_decode_bgr_batch: frame {first + i}: "
+                             f"{at}{_FFV1_REASONS.get(rc, f'code {rc}')}")
+    decoder.frames += k
+    if layout:
+        raw_decode_bgr_batch([planes[i * plane_bytes:(i + 1) * plane_bytes]
+                              for i in range(k)], dst, layout,
+                             threads=threads, first_frame=first)
+    return k
 
 
 _pool = None

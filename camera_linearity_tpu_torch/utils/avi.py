@@ -1,6 +1,6 @@
 """AVI container reader (pure Python, streaming): MJPG chunks, raw RGBA
-frames, the chunks of the other uncompressed layouts and of PNG and
-HuffYUV video, and the stream's geometry.
+frames, the chunks of the other uncompressed layouts and of PNG, HuffYUV
+and FFV1 video, and the stream's geometry.
 
 Port of ``camera_linearity_tpu/utils/avi.py``, copied (importing the JAX
 package would import JAX).  An AVI file is a RIFF tree; the walker goes
@@ -15,9 +15,12 @@ read here chunk by chunk (:func:`raw_chunks`) and converted by the port's
 ``rawvideo`` reader (``native.raw_decode_bgr_batch``).  The lossless
 compressed codecs ImageJ/Fiji and ``cv2.VideoWriter`` write, PNG
 (``MPNG``, ``PNG1``, ``png ``: a PNG file a chunk) and HuffYUV (``HFYU``,
-``FFVH``: the tables in the ``strf`` bytes after the header), are read
-chunk by chunk too (:func:`frame_chunks`) and decoded by the port's
-``native.png_decode_bgr_batch`` and ``native.huffyuv_decode_bgr_batch``.
+``FFVH``: the tables in the ``strf`` bytes after the header), and the
+lossless codec of moving-image archives, FFV1 (``FFV1``: its header in the
+``strf`` bytes after the header for versions 2 and 3, in every keyframe
+for 0 and 1), are read chunk by chunk too (:func:`frame_chunks`) and
+decoded by the port's ``native.png_decode_bgr_batch``,
+``native.huffyuv_decode_bgr_batch`` and ``native.ffv1_decode_bgr_batch``.
 So the port reads all of them without a video codec library, and reads
 exactly the frames ``cv2.VideoCapture`` returns for them.
 
@@ -42,7 +45,7 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from ..native import huffyuv_plain, png_plain
+from ..native import ffv1_plain, huffyuv_plain, png_plain
 from ..native.jpeg_plain import ffmpeg_format
 from ..native.rawvideo_plain import (DIB_LAYOUTS, FOURCC_LAYOUTS,
                                      chunk_sizes, frame_bytes)
@@ -50,12 +53,14 @@ from ..native.rawvideo_plain import (DIB_LAYOUTS, FOURCC_LAYOUTS,
 __all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "raw_chunks",
            "frame_chunks", "raw_unsupported", "png_unsupported",
            "huffyuv_unsupported", "huffyuv_params", "AviInfo", "RawLayout",
-           "JpegInfo", "jpeg_unsupported", "PNG_CODECS", "HUFFYUV_CODECS"]
+           "JpegInfo", "jpeg_unsupported", "PNG_CODECS", "HUFFYUV_CODECS",
+           "FFV1_CODECS", "ffv1_params", "ffv1_unsupported"]
 
-# the fourccs (stripped of trailing spaces) FFmpeg decodes as PNG and as
-# HuffYUV
+# the fourccs (stripped of trailing spaces) FFmpeg decodes as PNG, as
+# HuffYUV and as FFV1
 PNG_CODECS = png_plain.PNG_FOURCCS
 HUFFYUV_CODECS = huffyuv_plain.HUFFYUV_FOURCCS
+FFV1_CODECS = ffv1_plain.FFV1_FOURCCS
 
 # containers we descend into: their payload is a fourcc + nested chunks
 _CONTAINERS = (b"RIFF", b"LIST")
@@ -297,12 +302,17 @@ class AviInfo(_AviHeader):
     tables, a palette); for an uncompressed codec ``raw`` holds its
     :class:`RawLayout` and ``layout`` the rawvideo reader's layout (None
     where the reader has none); for PNG ``png`` holds the first frame's
-    ``IHDR`` (``png_plain.PngInfo``)."""
+    ``IHDR`` (``png_plain.PngInfo``); for FFV1 ``ffv1`` the stream's
+    header (``ffv1_plain.Ffv1Params``: from the extradata, or from the
+    first frame for versions 0 and 1), or None and ``ffv1_error`` why it
+    does not read."""
     raw: Optional[RawLayout] = None
     stream: int = 0
     bit_count: int = 0
     extra: bytes = b""
     png: Optional[png_plain.PngInfo] = None
+    ffv1: Optional[ffv1_plain.Ffv1Params] = None
+    ffv1_error: Optional[str] = None
 
     @property
     def layout(self) -> Optional[str]:
@@ -373,6 +383,13 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
         info.png = ihdr
     elif codec in HUFFYUV_CODECS:
         info = AviInfo(codec, abs(height), width, 3)
+    elif codec in FFV1_CODECS:
+        info = AviInfo(codec, abs(height), width, 3)
+        try:
+            info.ffv1 = ffv1_plain.params(
+                header[40:], lambda: _first_chunk(path, stream))
+        except ffv1_plain.Ffv1Error as exc:
+            info.ffv1_error = str(exc)
     else:
         info = None
     if info is not None:
@@ -398,18 +415,26 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
     return info
 
 
+def _first_chunk(path: Path, stream: int, limit: Optional[int] = None
+                 ) -> bytes:
+    """The first non-empty frame chunk of stream ``stream``, or its first
+    ``limit`` bytes (empty where there is none)."""
+    with open(path, "rb") as f:
+        for _, size in _chunk_spans(f, _frame_fourccs(stream)):
+            if size:
+                return f.read(size if limit is None else min(size, limit))
+    return b""
+
+
 def _first_png_ihdr(path: Path, stream: int
                     ) -> Optional[png_plain.PngInfo]:
     """The ``IHDR`` of the first non-empty frame chunk of stream
     ``stream``, or None where it is no PNG."""
     try:
-        with open(path, "rb") as f:
-            for _, size in _chunk_spans(f, _frame_fourccs(stream)):
-                if size:
-                    return png_plain.read_header(f.read(min(size, 33)))
+        head = _first_chunk(path, stream, 33)
     except OSError:
-        pass
-    return None
+        return None
+    return png_plain.read_header(head)
 
 
 def png_unsupported(info: AviInfo) -> Optional[str]:
@@ -435,6 +460,28 @@ def huffyuv_unsupported(info: AviInfo) -> Optional[str]:
     read, or None (``huffyuv_plain.unsupported``)."""
     return huffyuv_plain.unsupported(info.codec, info.bit_count, info.extra,
                                      info.height, info.width)
+
+
+def ffv1_params(info: AviInfo) -> ffv1_plain.Ffv1Params:
+    """An FFV1 stream's header (``ffv1_plain.Ffv1Params``); raises
+    ``ffv1_plain.Ffv1Error`` (a ValueError) where it does not read."""
+    if info.ffv1 is None:
+        raise ffv1_plain.Ffv1Error(info.ffv1_error or "no FFV1 header")
+    return info.ffv1
+
+
+def ffv1_unsupported(info: AviInfo) -> Optional[str]:
+    """What of an FFV1 stream the port's decoder does not read, or None,
+    before any decode: its header (a CRC that fails, a first frame that is
+    no keyframe for versions 0 and 1) or a layout
+    ``ffv1_plain.unsupported`` names (version 4, RGB or YUV past 8 bits,
+    gray past 8 bits but 16, alpha beside gray or YUV, yuv444p, yuv440p,
+    yuv411p, yuv410p, Bayer, a slice grid that leaves a chroma row
+    undecoded)."""
+    if info.ffv1 is None:
+        return f"its header: {info.ffv1_error or 'none'}"
+    why = ffv1_plain.unsupported(info.ffv1, info.height, info.width)
+    return why and f"{why} ({ffv1_plain.layout_name(info.ffv1)})"
 
 
 def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:

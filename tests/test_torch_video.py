@@ -321,8 +321,9 @@ def test_decoder_resolution(video, tmp_path, monkeypatch, caplog):
 
 
 def test_other_codecs_need_cv2(tmp_path, monkeypatch):
-    path = tmp_path / "ffv1 5ms.avi"
-    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"FFV1"), 10,
+    # UtVideo (ULRG), a lossless codec the port has no decoder of yet
+    path = tmp_path / "ulrg 5ms.avi"
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"ULRG"), 10,
                              (W, H))
     frames = _frames(4, 3)
     for f in frames:
@@ -334,7 +335,7 @@ def test_other_codecs_need_cv2(tmp_path, monkeypatch):
         got["mean"], jvideo.welford_algorithm(path, use_std=True,
                                               decoder="cv2")["mean"])
     monkeypatch.setitem(sys.modules, "cv2", None)  # cv2 not installed
-    with pytest.raises(ValueError, match="codec 'FFV1'.*needs cv2"):
+    with pytest.raises(ValueError, match="codec 'UL..'.*needs cv2"):
         tvideo._resolve_decoder("native", [path], H, W, 3)
     with pytest.raises(ValueError, match="needs cv2"):
         tvideo._resolve_decoder("cv2", [path], H, W, 3)
