@@ -369,7 +369,10 @@ def cmd_doctor(args) -> int:
              "gradient and median predictors"),
             ("FFV1", native.ffv1_available, "_ffv1", "FFV1 AVIs: versions "
              "0-3, Golomb-Rice and range coders, RGB(A), gray8, gray16, "
-             "yuv420p, yuv422p; a slice a thread")):
+             "yuv420p, yuv422p, yuv444p; a slice a thread"),
+            ("UtVideo", native.utvideo_available, "_utvideo", "UtVideo "
+             "AVIs (ULRG, ULRA, ULY0, ULY2, ULY4, ULH0, ULH2, ULH4): every "
+             "predictor and slice count; a frame a thread")):
         print(f"native {name} decoder: " + (
             f"built; {what} (cv2's bytes)" if ok() else
             f"unavailable ({native.build_error(stem)}); such AVIs cannot "
@@ -399,8 +402,8 @@ def cmd_doctor(args) -> int:
 
 def _doctor_video(path: Path) -> None:
     """Decode rate of each reader the port has for ``path``; for an MJPG
-    AVI, the port's decoder in each mode, and for a PNG, HuffYUV or FFV1
-    AVI its decoder, on one thread and on all."""
+    AVI, the port's decoder in each mode, and for a PNG, HuffYUV, FFV1 or
+    UtVideo AVI its decoder, on one thread and on all."""
     import importlib.util
     import itertools
     import time
@@ -429,15 +432,18 @@ def _doctor_video(path: Path) -> None:
                       f"{len(payloads) * h * w / 1e6 / secs:.0f} MP/s "
                       f"({w}x{h}, {len(payloads)} frames, "
                       f"{secs / len(payloads) * 1e3:.1f} ms a frame)")
-    codecs = avi.PNG_CODECS + avi.HUFFYUV_CODECS + avi.FFV1_CODECS
+    codecs = avi.PNG_CODECS + avi.HUFFYUV_CODECS + avi.FFV1_CODECS + \
+        avi.UTVIDEO_CODECS
     if info is not None and info.codec in codecs:
         kind = "png" if info.codec in avi.PNG_CODECS else \
-            "huffyuv" if info.codec in avi.HUFFYUV_CODECS else "ffv1"
+            "huffyuv" if info.codec in avi.HUFFYUV_CODECS else \
+            "ffv1" if info.codec in avi.FFV1_CODECS else "utvideo"
         payloads = [bytes(c) for c in itertools.islice(
             avi.frame_chunks(path, info), 120)]
         cores = os.cpu_count() or 1
         dst = np.empty((min(cores, len(payloads)), h, w, 3), np.uint8)
-        params = avi.huffyuv_params(info) if kind == "huffyuv" else None
+        params = avi.huffyuv_params(info) if kind == "huffyuv" else \
+            avi.utvideo_params(info) if kind == "utvideo" else None
         for threads in sorted({1, cores}):
             # FFV1 carries its states from frame to frame: a decoder a pass
             ffv1 = native.Ffv1Decoder(avi.ffv1_params(info), h, w) \
@@ -451,6 +457,9 @@ def _doctor_video(path: Path) -> None:
                 elif kind == "ffv1":
                     native.ffv1_decode_bgr_batch(part, dst[:len(part)], ffv1,
                                                  threads=threads)
+                elif kind == "utvideo":
+                    native.utvideo_decode_bgr_batch(
+                        part, dst[:len(part)], params, threads=threads)
                 else:
                     native.huffyuv_decode_bgr_batch(
                         part, dst[:len(part)], params, threads=threads)

@@ -36,11 +36,18 @@ moving-image archives and ``cv2.VideoWriter(fourcc "FFV1")``, FFV1
 (``"ffv1"``, ``native.ffv1_decode_bgr_batch``, a decoder object a video
 keeping each slice's states from frame to frame: versions 0-3, both
 coders, custom state tables, context models 0 and 1, any slice grid and
-GOP, RGB with or without alpha, gray8, gray16, yuv420p and yuv422p;
-version 4, more than 8 bits for RGB or YUV, alpha beside gray or YUV,
-yuv444p/440p/411p/410p and Bayer raise before any decode, and a slice
+GOP, RGB with or without alpha, gray8, gray16, yuv420p, yuv422p and
+yuv444p; version 4, more than 8 bits for RGB or YUV, alpha beside gray or
+YUV, yuv440p/411p/410p and Bayer raise before any decode, and a slice
 whose CRC fails, whose size runs past its chunk, or a first frame that
-is no keyframe raises naming the frame and the slice); an MJPG AVI with the port's
+is no keyframe raises naming the frame and the slice); the lossless video
+of capture tools and ``cv2.VideoWriter(fourcc "ULY0")``, Ut Video
+(``ULRG``, ``ULRA``, ``ULY0``, ``ULY2``, ``ULY4``, ``ULH0``, ``ULH2``,
+``ULH4``; ``"utvideo"``, ``native.utvideo_decode_bgr_batch``: every
+predictor, slice count and the interlaced flag, BT.709 for the ``ULH``
+fourccs; the 10-bit Pro and the pack-mode fourccs raise before any
+decode, and a damaged frame raises naming the frame, plane and slice);
+an MJPG AVI with the port's
 own JPEG decoder (``native/jpeg.cpp``) in one of three modes.  ``"ffmpeg"``,
 the default, gives the bytes ``cv2.VideoCapture`` gives (FFmpeg's MJPEG
 decoder and swscale), which is what the JAX package decodes at its default
@@ -107,7 +114,8 @@ def _cv2(why: str):
             "reads RGBA AVIs (decoder 'native', NumPy), uncompressed AVIs "
             "(BI_RGB 8/16/24/32-bit, Y800, I420, YV12, Y42B, NV12, YUY2, "
             "UYVY: 'native', its own reader), PNG AVIs (MPNG, PNG1, 'png '), "
-            "HuffYUV AVIs (HFYU, FFVH) and FFV1 AVIs ('native', its own "
+            "HuffYUV AVIs (HFYU, FFVH), FFV1 AVIs and UtVideo AVIs (ULRG, "
+            "ULRA, ULY0, ULY2, ULY4, ULH0, ULH2, ULH4) ('native', its own "
             "decoders) and "
             "MJPG AVIs ('native' / 'ffmpeg' / 'turbo' / 'turbo_fast', its "
             "own JPEG decoder)"
@@ -201,15 +209,15 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
     """Callables that decode the next frames of ``path`` into the (k, H, W,
     C) uint8 array they are given and return how many they decoded (0:
     the stream ended).  The MJPEG decoder takes up to k frames a call, and
-    the rawvideo reader and the PNG, HuffYUV and FFV1 decoders up to
-    ``batch_size``, on all cores (FFV1 a slice a thread, one decoder
+    the rawvideo reader and the PNG, HuffYUV, FFV1 and UtVideo decoders up
+    to ``batch_size``, on all cores (FFV1 a slice a thread, one decoder
     object for the video, which carries the slices' states from call to
     call); the raw RGBA reader (which reads each frame when the iterator
     advances) and cv2 take one."""
     if decoder == "raw":
         for frame in avi.raw_frames(path):
             yield lambda dst, frame=frame: np.copyto(dst[0], frame) or 1
-    elif decoder in ("rawvideo", "png", "huffyuv", "ffv1"):
+    elif decoder in ("rawvideo", "png", "huffyuv", "ffv1", "utvideo"):
         info = avi.probe_avi(path)
         # every chunk of a call is read into a buffer of its own
         if decoder == "rawvideo":
@@ -232,6 +240,17 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
             decode = lambda payloads, dst, first: \
                 native.ffv1_decode_bgr_batch(payloads, dst, ffv1,
                                              planes=planes)
+        elif decoder == "utvideo":
+            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            params = avi.utvideo_params(info)
+            layout = native.utvideo_plain.yuv_layout(params)
+            # the YUV layouts' planes, reused from call to call
+            planes = None if layout is None else np.empty(
+                batch_size * native.frame_bytes(layout, info.height,
+                                                info.width), np.uint8)
+            decode = lambda payloads, dst, first: \
+                native.utvideo_decode_bgr_batch(
+                    payloads, dst, params, planes=planes, first_frame=first)
         else:
             chunks = avi.frame_chunks(path, info, ring=batch_size)
             params = avi.huffyuv_params(info)
@@ -363,14 +382,15 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
     decodes to three channels in the ``"ffmpeg"`` mode whatever its
     component count (cv2 gives BGR for grayscale too), to its component
     count in the ``"turbo"`` modes; RGBA, the rawvideo layouts, PNG,
-    HuffYUV and FFV1 to three.  An uncompressed, PNG, HuffYUV or FFV1 AVI
-    the port's decoders do not read raises here, naming what
-    (``avi.raw_unsupported``, ``avi.png_unsupported``,
-    ``avi.huffyuv_unsupported``, ``avi.ffv1_unsupported``); so does one
-    whose decoder did not build (RuntimeError)."""
+    HuffYUV, FFV1 and UtVideo to three.  An uncompressed, PNG, HuffYUV,
+    FFV1 or UtVideo AVI the port's decoders do not read raises here,
+    naming what (``avi.raw_unsupported``, ``avi.png_unsupported``,
+    ``avi.huffyuv_unsupported``, ``avi.ffv1_unsupported``,
+    ``avi.utvideo_unsupported``); so does one whose decoder did not build
+    (RuntimeError)."""
     own = info is not None and (
         info.codec in ("RGBA", "MJPG") + avi.PNG_CODECS + avi.HUFFYUV_CODECS
-        + avi.FFV1_CODECS or info.layout is not None)
+        + avi.FFV1_CODECS + avi.UTVIDEO_CODECS or info.layout is not None)
     if info is not None and not own:
         unsupported = avi.raw_unsupported(path, info)
         if unsupported:
@@ -404,9 +424,15 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
         libs = ("huffyuv", "mjpeg") if yuv else ("huffyuv",)
     elif info.codec in avi.FFV1_CODECS:
         decoder, why = "ffv1", avi.ffv1_unsupported(info)
-        # yuv420p and yuv422p convert through jpeg.cpp's rawvideo reader
+        # the YUV layouts convert through jpeg.cpp's rawvideo reader
         yuv = not why and native.ffv1_plain.yuv_layout(info.ffv1)
         libs = ("ffv1", "mjpeg") if yuv else ("ffv1",)
+    elif info.codec in avi.UTVIDEO_CODECS:
+        decoder, why = "utvideo", avi.utvideo_unsupported(info)
+        # the YUV layouts convert through jpeg.cpp's rawvideo reader
+        yuv = not why and native.utvideo_plain.yuv_layout(
+            avi.utvideo_params(info))
+        libs = ("utvideo", "mjpeg") if yuv else ("utvideo",)
     elif info.layout:
         decoder, why, libs = "rawvideo", avi.raw_unsupported(path, info), \
             ("mjpeg",)
@@ -429,33 +455,35 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
 
 # the port's own decoders by name, and the native sources they build from
 _DECODER_NAMES = {"png": "PNG", "huffyuv": "HuffYUV", "rawvideo": "rawvideo",
-                  "ffv1": "FFV1"}
+                  "ffv1": "FFV1", "utvideo": "UtVideo"}
 _SOURCES = {"png": "png.cpp", "huffyuv": "huffyuv.cpp", "mjpeg": "jpeg.cpp",
-            "ffv1": "ffv1.cpp"}
+            "ffv1": "ffv1.cpp", "utvideo": "utvideo.cpp"}
 
 
 def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
                      width: int, chs: int) -> List[str]:
     """Each file's decoder: ``"raw"``, ``"rawvideo"``, ``"png"``,
-    ``"huffyuv"``, ``"ffv1"``, ``"ffmpeg"``, ``"turbo"``,
+    ``"huffyuv"``, ``"ffv1"``, ``"utvideo"``, ``"ffmpeg"``, ``"turbo"``,
     ``"turbo_fast"`` or ``"cv2"``.
 
     ``"auto"`` reads env ``CL_DECODER`` (default ``"native"``).
     ``"native"``: the container decides — an RGBA AVI reads raw, the other
     uncompressed layouts through the port's rawvideo reader (cv2's bytes:
     BI_RGB 8/16/24/32-bit, Y800/GREY/Y8, I420/IYUV/YV12, Y42B, NV12,
-    YUY2/UYVY), PNG, HuffYUV and FFV1 AVIs through the port's PNG,
-    HuffYUV and FFV1 decoders (cv2's bytes),
+    YUY2/UYVY), PNG, HuffYUV, FFV1 and UtVideo AVIs through the port's
+    PNG, HuffYUV, FFV1 and UtVideo decoders (cv2's bytes),
     an MJPG AVI through the port's JPEG decoder in its ``"ffmpeg"`` mode
     (cv2's bytes, as the JAX package's default gives them), anything else
-    through cv2 when it imports (else a ValueError naming the codec).
+    (MPEG-4 Part 2, H.264, Lagarith, ...) through cv2 when it imports
+    (else a ValueError naming the codec).
     ``"ffmpeg"``/``"turbo"``/``"turbo_fast"``: that decoder's modes on MJPG
     files; another container logs a warning and takes its own decoder.
-    ``"cv2"``: cv2 for every file.  RGBA, rawvideo, PNG, HuffYUV, FFV1 and
-    MJPG files are checked against the expected geometry and ``chs``
-    before any decode; a PNG, HuffYUV or FFV1 layout the decoders do not
-    read raises then, naming it (``avi.png_unsupported``,
-    ``avi.huffyuv_unsupported``, ``avi.ffv1_unsupported``);
+    ``"cv2"``: cv2 for every file.  RGBA, rawvideo, PNG, HuffYUV, FFV1,
+    UtVideo and MJPG files are checked against the expected geometry and
+    ``chs`` before any decode; a PNG, HuffYUV, FFV1 or UtVideo layout the
+    decoders do not read raises then, naming it (``avi.png_unsupported``,
+    ``avi.huffyuv_unsupported``, ``avi.ffv1_unsupported``,
+    ``avi.utvideo_unsupported``);
     1/2/4-bit BI_RGB, BI_BITFIELDS, palette-change chunks and a frame
     chunk longer than the frame (not its padded size) raise then, naming
     what; and an MJPG's

@@ -1,5 +1,5 @@
 """ctypes bindings for the native host-staging library, the MJPEG decoder,
-the TIFF codec and the PNG, HuffYUV and FFV1 frame decoders.
+the TIFF codec and the PNG, HuffYUV, FFV1 and UtVideo frame decoders.
 
 Port of ``camera_linearity_tpu/native``, copied: importing the JAX package
 would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
@@ -11,8 +11,9 @@ them; and the frames of uncompressed AVIs as cv2 gives them) and
 ``tiff.cpp`` (TIFF LZW, PackBits, predictors and CCITT fax decoding, the
 port's own), ``png.cpp`` (PNG frames of an AVI: unfiltering, Adam7 and
 the conversion to BGR; Python's ``zlib`` inflates), ``huffyuv.cpp``
-(HuffYUV frames of an AVI) and ``ffv1.cpp`` (FFV1 frames of an AVI, a
-slice a thread, the context states kept in a decoder object) build
+(HuffYUV frames of an AVI), ``ffv1.cpp`` (FFV1 frames of an AVI, a
+slice a thread, the context states kept in a decoder object) and
+``utvideo.cpp`` (Ut Video frames of an AVI, a frame a thread) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -21,8 +22,8 @@ without a compiler; ``available()`` reports which path is active and
 :func:`build_error` why a build failed.  The decoders and the TIFF codec
 have no fallback: their entry points raise without the library
 (``native/jpeg_plain.py``, ``tiff_plain.py``, ``png_plain.py``,
-``huffyuv_plain.py`` and ``ffv1_plain.py`` are the plain versions the
-tests hold them to).
+``huffyuv_plain.py``, ``ffv1_plain.py`` and ``utvideo_plain.py`` are the
+plain versions the tests hold them to).
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ from .jpeg_plain import MODES as JPEG_MODES, NO_FRAME as JPEG_NO_FRAME
 from .jpeg_plain import TIFF_FORMS as TIFF_JPEG_FORMS
 # the uncompressed video layouts, by their number in jpeg.cpp
 from .rawvideo_plain import LAYOUTS as RAW_LAYOUTS, frame_bytes
-from . import ffv1_plain, huffyuv_plain, png_plain
+from .rawvideo_plain import MATRICES as RAW_MATRICES
+from . import ffv1_plain, huffyuv_plain, png_plain, utvideo_plain
 
 __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
@@ -58,7 +60,8 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "predictor_apply", "build_error", "png_available",
            "png_decode_bgr_batch", "huffyuv_available",
            "huffyuv_decode_bgr_batch", "ffv1_available", "Ffv1Decoder",
-           "ffv1_decode_bgr_batch"]
+           "ffv1_decode_bgr_batch", "utvideo_available",
+           "utvideo_decode_bgr_batch"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
 # fixed-point mean (grid 1/65535 on the [0,1] DN scale, absolute error
@@ -132,6 +135,7 @@ _TIFF_SRC = _DIR / "tiff.cpp"
 _PNG_SRC = _DIR / "png.cpp"
 _HUFFYUV_SRC = _DIR / "huffyuv.cpp"
 _FFV1_SRC = _DIR / "ffv1.cpp"
+_UTVIDEO_SRC = _DIR / "utvideo.cpp"
 _BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 
 
@@ -179,8 +183,8 @@ _NTHREADS = min(16, os.cpu_count() or 1)
 
 def build_error(stem: str = "_stager") -> Optional[str]:
     """Why the last build of ``stem`` (``"_stager"``, ``"_mjpeg"``,
-    ``"_tiff"``, ``"_png"``, ``"_huffyuv"`` or ``"_ffv1"``) failed, or None
-    when it did not fail."""
+    ``"_tiff"``, ``"_png"``, ``"_huffyuv"``, ``"_ffv1"`` or ``"_utvideo"``)
+    failed, or None when it did not fail."""
     return _build_errors.get(stem)
 
 
@@ -306,7 +310,7 @@ def _declare_mjpeg(lib: ctypes.CDLL) -> None:
     lib.clt_jpeg_decode_bgr_batch.restype = None
     lib.clt_raw_decode_bgr_batch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, i, i,
-        i, i, u8p, i, ctypes.POINTER(i)]
+        i, i, u8p, i, i, ctypes.POINTER(i)]
     lib.clt_raw_decode_bgr_batch.restype = None
     lib.clt_jpeg_decode_tiff_batch.argtypes = [
         u8p, sz, u8p, sz, u64p, u64p, sz, u8p, u64p, ctypes.POINTER(i), i, i,
@@ -374,6 +378,16 @@ def _declare_ffv1(lib: ctypes.CDLL) -> None:
     lib.clt_ffv1_version.restype = i
 
 
+def _declare_utvideo(lib: ctypes.CDLL) -> None:
+    sz, i = ctypes.c_size_t, ctypes.c_int
+    u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    lib.clt_utvideo_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, u8p, sz,
+        i, i, i, i, i, i, ip, ip]
+    lib.clt_utvideo_decode_batch.restype = None
+    lib.clt_utvideo_version.restype = i
+
+
 # stem: (source, extra g++ flags, entry-point types, what it is).  -fwrapv
 # for jpeg.cpp: the IDCTs' sums of corrupt coefficients wrap, as libjpeg's
 # 32-bit lanes do, instead of being undefined.
@@ -383,6 +397,7 @@ _DECODERS = {
     "_png": (_PNG_SRC, (), _declare_png, "PNG decoder"),
     "_huffyuv": (_HUFFYUV_SRC, (), _declare_huffyuv, "HuffYUV decoder"),
     "_ffv1": (_FFV1_SRC, (), _declare_ffv1, "FFV1 decoder"),
+    "_utvideo": (_UTVIDEO_SRC, (), _declare_utvideo, "UtVideo decoder"),
 }
 _decoder_libs: Dict[str, Optional[ctypes.CDLL]] = {}
 
@@ -579,22 +594,26 @@ def raw_decode_bgr_batch(payloads, dst: np.ndarray, layout: str,
                          bottom_up: bool = False,
                          palette: Optional[np.ndarray] = None,
                          threads: Optional[int] = None,
-                         first_frame: int = 0) -> int:
+                         first_frame: int = 0, matrix: str = "bt601") -> int:
     """Decode uncompressed frame chunk i of ``layout`` (one of
     ``RAW_LAYOUTS``) into ``dst[i]`` ((k, H, W, 3) BGR uint8, k =
     ``len(payloads)``) on up to ``threads`` threads (default: every CPU),
     giving the frame ``cv2.VideoCapture`` gives for it
     (``native/rawvideo_plain.py`` has each layout's rule).  ``bottom_up``:
     the rows of a single-plane layout are stored last first (BI_RGB of
-    positive height); ``palette``: pal8's (256, 4) B, G, R, X entries.
-    Returns k; a chunk shorter than its frame raises ValueError naming
-    it (from ``first_frame``), after every frame was tried.  Built with
-    the MJPEG decoder, in ``jpeg.cpp``; raises RuntimeError where it did
-    not build."""
+    positive height); ``palette``: pal8's (256, 4) B, G, R, X entries;
+    ``matrix``: the YUV layouts' (``"bt601"``, or ``"bt709"`` for the
+    planes of a stream tagged so).  Returns k; a chunk shorter than its
+    frame raises ValueError naming it (from ``first_frame``), after every
+    frame was tried.  Built with the MJPEG decoder, in ``jpeg.cpp``;
+    raises RuntimeError where it did not build."""
     lib = _mjpeg()
     if layout not in RAW_LAYOUTS:
         raise ValueError(f"unknown raw video layout {layout!r}; expected one "
                          f"of {RAW_LAYOUTS}")
+    if matrix not in RAW_MATRICES:
+        raise ValueError(f"unknown matrix {matrix!r}; expected one of "
+                         f"{RAW_MATRICES}")
     _check_frames(dst, 4, "(k, H, W, 3)")
     k = len(payloads)
     if dst.shape[0] != k:
@@ -611,7 +630,7 @@ def raw_decode_bgr_batch(payloads, dst: np.ndarray, layout: str,
         ptrs, sizes, k, _as_u8_ptr(dst), dst.shape[1], dst.shape[2],
         RAW_LAYOUTS.index(layout), int(bottom_up),
         None if palette is None else _as_u8_ptr(palette),
-        threads or os.cpu_count() or 1, rcs)
+        RAW_MATRICES.index(matrix), threads or os.cpu_count() or 1, rcs)
     for i, rc in enumerate(rcs):
         if rc != 0:
             need = frame_bytes(layout, *dst.shape[1:3])
@@ -636,6 +655,11 @@ def huffyuv_available() -> bool:
 def ffv1_available() -> bool:
     """True when the FFV1 decoder built (or was built) and loaded."""
     return _load_decoder("_ffv1") is not None
+
+
+def utvideo_available() -> bool:
+    """True when the UtVideo decoder built (or was built) and loaded."""
+    return _load_decoder("_utvideo") is not None
 
 
 # ffv1.cpp's return codes: what went wrong, and whether it names a slice
@@ -711,14 +735,14 @@ def ffv1_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Ffv1Decoder,
     frames ``cv2.VideoCapture`` gives for them: ``ffv1.cpp`` a slice a
     thread on up to ``threads`` threads (default: every CPU), each thread
     decoding its slice of every frame in turn; RGB and gray straight into
-    ``dst``, yuv420p and yuv422p into planes (``planes``: a reusable uint8
-    buffer of at least k frames' planes) that the rawvideo converter
-    (``jpeg.cpp``) turns into BGR.  Returns k; raises ValueError naming the
-    first frame (counted from the stream's first) and slice that does not
-    decode (a CRC that fails, a slice size past the chunk, a first frame
-    that is no keyframe, data that end before the samples), after which
-    the decoder refuses every call; a RuntimeError where a library did not
-    build."""
+    ``dst``, yuv420p, yuv422p and yuv444p into planes (``planes``: a
+    reusable uint8 buffer of at least k frames' planes) that the rawvideo
+    converter (``jpeg.cpp``) turns into BGR.  Returns k; raises ValueError
+    naming the first frame (counted from the stream's first) and slice
+    that does not decode (a CRC that fails, a slice size past the chunk, a
+    first frame that is no keyframe, data that end before the samples),
+    after which the decoder refuses every call; a RuntimeError where a
+    library did not build."""
     lib = decoder._lib
     _check_frames(dst, 4, "(k, H, W, 3)")
     k, (h, w) = len(payloads), dst.shape[1:3]
@@ -915,6 +939,74 @@ def huffyuv_decode_bgr_batch(payloads, dst: np.ndarray,
         raw_decode_bgr_batch([planes[i * plane_bytes:(i + 1) * plane_bytes]
                               for i in range(k)], dst, layout,
                              threads=threads, first_frame=first_frame)
+    return k
+
+
+_UTVIDEO_LAYOUTS = ("gbrp", "gbrap", "yuv420p", "yuv422p", "yuv444p")
+_UTVIDEO_REASONS = {
+    -1: "it runs past the chunk",
+    -2: "its end offset decreases or runs past the chunk",
+    -3: "code lengths FFmpeg's table builder refuses",
+    -4: "bits that are no code of the plane's table",
+    -5: "its codes run past the slice",
+    -6: "an empty slice in a coded plane"}
+
+
+def utvideo_decode_bgr_batch(payloads, dst: np.ndarray,
+                             params: "utvideo_plain.UtvideoParams",
+                             planes: Optional[np.ndarray] = None,
+                             threads: Optional[int] = None,
+                             first_frame: int = 0) -> int:
+    """Decode Ut Video frame chunk i of a stream of ``params``
+    (``utvideo_plain.params``) into ``dst[i]`` ((k, H, W, 3) BGR uint8),
+    giving the frame ``cv2.VideoCapture`` gives for it: ``utvideo.cpp``
+    a frame a thread on up to ``threads`` threads (default: every CPU),
+    RGB straight into ``dst``, YUV into planes (``planes``: a reusable
+    uint8 buffer of at least k frames' planes) that the rawvideo converter
+    (``jpeg.cpp``) turns into BGR with the stream's matrix.  Returns k;
+    raises ValueError for a layout it does not read, or naming the first
+    frame (from ``first_frame``), plane and slice that is damaged (planes
+    or slices past the chunk, refused code lengths, bits that are no code,
+    codes past their slice, an empty coded slice), after every frame was
+    tried; a RuntimeError where a library did not build."""
+    lib = _require(_load_decoder("_utvideo"), "_utvideo")
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    k, (h, w) = len(payloads), dst.shape[1:3]
+    if dst.shape[0] != k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, payloads {k}")
+    why = utvideo_plain.size_unsupported(params, h, w)
+    if why:
+        raise ValueError(f"utvideo_decode_bgr_batch: a Ut Video layout the "
+                         f"decoder does not read: {why}")
+    layout = utvideo_plain.yuv_layout(params)
+    if layout:
+        _mjpeg()   # the YUV layouts' converter
+    plane_bytes = frame_bytes(layout, h, w) if layout else 0
+    if layout and (planes is None or planes.size < k * plane_bytes):
+        planes = np.empty(k * plane_bytes, np.uint8)
+    if layout:
+        _u8_buffer(planes, "planes", writable=True)
+    flats = [np.frombuffer(p, np.uint8) for p in payloads]
+    ptrs, sizes = _ptr_array(flats)
+    rcs, wheres = (ctypes.c_int * k)(), (ctypes.c_int * k)()
+    lib.clt_utvideo_decode_batch(
+        ptrs, sizes, k, _as_u8_ptr(dst),
+        _as_u8_ptr(planes) if layout else None, plane_bytes, h, w,
+        _UTVIDEO_LAYOUTS.index(params.layout), params.slices,
+        int(params.interlaced), threads or os.cpu_count() or 1, rcs, wheres)
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            at, slc = wheres[i] >> 16, wheres[i] & 0xFFFF
+            where = "the frame information" if wheres[i] < 0 else \
+                f"plane {at}" if slc == 0xFFFF else f"plane {at}, slice {slc}"
+            raise ValueError(f"utvideo_decode_bgr_batch: frame "
+                             f"{first_frame + i}: {where}: "
+                             + _UTVIDEO_REASONS.get(rc, f"return code {rc}"))
+    if layout:
+        raw_decode_bgr_batch([planes[i * plane_bytes:(i + 1) * plane_bytes]
+                              for i in range(k)], dst, layout,
+                             threads=threads, first_frame=first_frame,
+                             matrix=utvideo_plain.matrix(params))
     return k
 
 

@@ -685,7 +685,8 @@ struct Decoder {
             });
             return;
         }
-        // yuv420p / yuv422p planes: Y, then U, then V (I420 / Y42B order)
+        // yuv420p / yuv422p / yuv444p planes: Y, then U, then V (I420 / Y42B
+        // order)
         const int cw = -(-width >> p.h_shift), ch = -(-height >> p.v_shift);
         std::uint8_t* planes_at[3] = {planes, planes + static_cast<std::size_t>(width) * height,
                                       planes + static_cast<std::size_t>(width) * height +
@@ -751,7 +752,8 @@ void clt_ffv1_free(void* decoder) { delete static_cast<Decoder*>(decoder); }
 
 // Decode the next k frames (srcs[i], sizes[i] bytes) of the decoder's
 // stream: RGB and gray into dst (frame i at i * height * width * 3, BGR),
-// yuv420p / yuv422p into planes (frame i at i * plane_bytes: Y, U, V).
+// yuv420p / yuv422p / yuv444p into planes (frame i at i * plane_bytes: Y,
+// U, V).
 // A slice a thread on up to nthreads threads.  rcs[i] gets 0 or a code
 // (kCrc ...) and bad_slices[i] the slice at fault (-1 for none); frames
 // after the first that fails are not decoded (their rcs stay 1), and the

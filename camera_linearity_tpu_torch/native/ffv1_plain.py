@@ -32,14 +32,15 @@ at the chroma size, no chroma for gray); RGB (colour space 1) line by
 line as G, B - G, R - G and alpha through the JPEG 2000 reversible colour
 transform, at 9 bits.  The BGR cv2 gives: RGB straight (the alpha
 dropped); gray8 in all three channels; gray16 as ``min(255, (v + 128) >>
-8)`` (swscale's gray16 to 8 bits, probed on all 65536 values); yuv420p
-and yuv422p through swscale's limited-range BT.601 conversion, as the
-port's rawvideo reader converts ``I420`` and ``Y42B``
-(``rawvideo_plain.decode_bgr``).
+8)`` (swscale's gray16 to 8 bits, probed on all 65536 values); yuv420p,
+yuv422p and yuv444p through swscale's limited-range BT.601 conversion, as
+the port's rawvideo reader converts ``I420``, ``Y42B`` and a Ut Video
+``ULY4`` frame's planes (``rawvideo_plain.decode_bgr``; cv2 gives a
+yuv444p FFV1 frame and a ``ULY4`` frame of the same planes the same BGR).
 
 Refused (:func:`unsupported`), before any decode: version 4 and past,
 RGB or YUV of more than 8 bits, gray of other than 8 or 16 bits, YUV or
-gray with alpha, yuv444p, yuv440p, yuv411p, yuv410p, a colour space
+gray with alpha, yuv440p, yuv411p, yuv410p, a colour space
 other than YCbCr and RGB (Bayer or reserved; FFmpeg reads none), ``ec``
 2 (CRCs of another start) and, given the geometry, a slice grid whose
 last slices leave a chroma row or column undecoded.  A frame
@@ -513,7 +514,7 @@ def unsupported(p: Ffv1Params, height: Optional[int] = None,
         return f"{fmt} with alpha"
     if bits > 8:
         return f"{bits}-bit {fmt}"
-    if fmt not in ("yuv420p", "yuv422p"):
+    if fmt not in ("yuv420p", "yuv422p", "yuv444p"):
         return fmt
     if height is not None and p.version >= 2 and chroma_gap(
             p, height, width, slice_rects(p, height, width, [(
@@ -525,11 +526,12 @@ def unsupported(p: Ffv1Params, height: Optional[int] = None,
 
 
 def yuv_layout(p: Ffv1Params) -> Optional[str]:
-    """The rawvideo layout a YUV stream's planes convert as (``"i420"`` or
-    ``"yuv422p"``); None for RGB and gray."""
+    """The rawvideo layout a YUV stream's planes convert as (``"i420"``,
+    ``"yuv422p"`` or ``"yuv444p"``); None for RGB and gray."""
     if p.colorspace != 0 or not p.chroma_planes:
         return None
-    return {(1, 1): "i420", (1, 0): "yuv422p"}.get((p.h_shift, p.v_shift))
+    return {(1, 1): "i420", (1, 0): "yuv422p", (0, 0): "yuv444p"}.get(
+        (p.h_shift, p.v_shift))
 
 
 def _coord(size: int, n: int, k: int) -> int:

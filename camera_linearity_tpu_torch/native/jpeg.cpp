@@ -765,6 +765,10 @@ constexpr SwsRange kSwsFull = {8192, 0, 14516, -2819, -5850, 11485,
 // 255/219 from 16
 constexpr SwsRange kSwsLimited = {9539, 128, 16525, -3209, -6660, 13075,
                                   89830, 113537, -22049, -45756, 76309, 16 << 16};
+// limited range under the BT.709 matrix (inverse coefficients 117489,
+// 138438, 13975, 34925): the planes of a stream tagged BT.709
+constexpr SwsRange kSwsLimited709 = {9539, 128, 17305, -1747, -4366, 14686,
+                                     100902, 118894, -12001, -29993, 76309, 16 << 16};
 
 // The C output's luma table (y_table from yoffs: 384 entries in at full
 // range, 326 at limited range) at index t, clipped.
@@ -1781,12 +1785,18 @@ struct Decoder {
                             clip(yy + ((v * r.vr) >> 16)) << 16;
                 }
             } else {  // the full-chroma scaler output: rounds
+                // 32-bit sums that wrap, as swscale's unsigned ones do
+                // (limited range can pass 2^31: a saturated blue gives 0)
+                auto wrap = [](std::uint32_t v) { return static_cast<std::int32_t>(v) >> 22; };
                 for (int x = 0; x < W; ++x) {
-                    const std::int32_t yy = ((py[x] << 9) - (r.oy >> 7)) * r.yc + (1 << 21),
-                                       u = (pu[x] - 128) * 512, v = (pv[x] - 128) * 512;
-                    px[x] = clip((yy + u * r.ub) >> 22) |
-                            clip((yy + u * r.ug + v * r.vg) >> 22) << 8 |
-                            clip((yy + v * r.vr) >> 22) << 16;
+                    const std::uint32_t yy = static_cast<std::uint32_t>(
+                        ((py[x] << 9) - (r.oy >> 7)) * r.yc + (1 << 21));
+                    const std::uint32_t u = static_cast<std::uint32_t>((pu[x] - 128) * 512),
+                                        v = static_cast<std::uint32_t>((pv[x] - 128) * 512);
+                    px[x] = clip(wrap(yy + u * static_cast<std::uint32_t>(r.ub))) |
+                            clip(wrap(yy + u * static_cast<std::uint32_t>(r.ug) +
+                                      v * static_cast<std::uint32_t>(r.vg))) << 8 |
+                            clip(wrap(yy + v * static_cast<std::uint32_t>(r.vr))) << 16;
                 }
             }
             store_row(dst, y, px);
@@ -2081,15 +2091,19 @@ thread_local std::vector<std::uint8_t> tls_spliced;
 // bottom-up where the caller says so (BI_RGB of positive height), and
 // padded to 4 bytes where the chunk holds the padded frame.  The YUV
 // layouts go through the MJPEG decoder's converter with the limited-range
-// tables: yuv420p (I420; YV12 with its planes swapped) and yuv422p by the
-// unscaled SSSE3 path at an even height, every other case by the scaled path.
-enum RawLayout { kPal8, kRgb555, kBgr24, kBgr0, kGray8, kI420, kYv12, kNv12, kYuyv, kUyvy, kYuv422p };
+// tables of the BT.601 matrix (or BT.709, for the planes of a stream tagged
+// so): yuv420p (I420; YV12 with its planes swapped) and yuv422p by the
+// unscaled SSSE3 path at an even height, yuv444p by the full-chroma output,
+// every other case by the scaled path.
+enum RawLayout { kPal8, kRgb555, kBgr24, kBgr0, kGray8, kI420, kYv12, kNv12, kYuyv, kUyvy, kYuv422p,
+                 kYuv444p };
 
 constexpr int kShortChunk = -7;   // rawvideo: a chunk shorter than the frame
 
 int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int height,
-               int width, int layout, bool bottom_up, const std::uint8_t* palette) {
-    if (height < 1 || width < 1 || layout < kPal8 || layout > kYuv422p) return kUnsupported;
+               int width, int layout, bool bottom_up, const std::uint8_t* palette,
+               const SwsRange* range) {
+    if (height < 1 || width < 1 || layout < kPal8 || layout > kYuv444p) return kUnsupported;
     const std::size_t H = height, W = width, h2 = (H + 1) / 2, w2 = (W + 1) / 2;
     static const int kPixelBytes[5] = {1, 2, 3, 4, 1};
     if (layout <= kGray8) {
@@ -2126,26 +2140,27 @@ int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int h
         return kOk;
     }
     const bool packed = layout == kYuyv || layout == kUyvy, planar = !packed && layout != kNv12;
-    const std::size_t ch = packed || layout == kYuv422p ? H : h2;
-    if (n < (packed ? H * w2 * 4 : H * W + 2 * ch * w2)) return kShortChunk;
+    const bool full = layout == kYuv444p;
+    const std::size_t ch = packed || layout == kYuv422p || full ? H : h2, cw = full ? W : w2;
+    if (n < (packed ? H * w2 * 4 : H * W + 2 * ch * cw)) return kShortChunk;
     Decoder dec;
     dec.mode = kFfmpeg;
     dec.s = &tls_scratch;
     dec.hd.width = width;
     dec.hd.height = height;
     dec.hd.ncomp = 3;
-    dec.hs = 1;
+    dec.hs = full ? 0 : 1;
     dec.vs = ch == H ? 0 : 1;
-    dec.range = &kSwsLimited;
+    dec.range = range;
     dec.alloc_rows();
     Component *c = dec.hd.comp;
     c[0].stride = W;
-    c[1].stride = c[2].stride = w2;
+    c[1].stride = c[2].stride = cw;
     if (planar) {
         std::uint8_t* planes = const_cast<std::uint8_t*>(data);
         c[0].plane = planes;
         c[layout == kYv12 ? 2 : 1].plane = planes + H * W;
-        c[layout == kYv12 ? 1 : 2].plane = planes + H * W + ch * w2;
+        c[layout == kYv12 ? 1 : 2].plane = planes + H * W + ch * cw;
     } else {  // split into planes of the scratch buffer
         Scratch& sc = *dec.s;
         const std::size_t need = (packed ? H * W : 0) + 2 * ch * w2;
@@ -2179,7 +2194,7 @@ int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int h
         c[1].plane = u;
         c[2].plane = v;
     }
-    if (planar && !(height & 1)) dec.convert_rows(dst, 0, height);
+    if (full || (planar && !(height & 1))) dec.convert_rows(dst, 0, height);
     else dec.scale_frame(dst);
     return kOk;
 }
@@ -2221,21 +2236,24 @@ void clt_jpeg_decode_bgr_batch(const unsigned char* const* srcs,
 
 // Decode k uncompressed frames (srcs[i], sizes[i] bytes) of one layout
 // (RawLayout: 0 pal8, 1 rgb555, 2 bgr24, 3 bgr0, 4 gray8, 5 i420, 6 yv12,
-// 7 nv12, 8 yuyv422, 9 uyvy422, 10 yuv422p) into dst, frame i at i*height*width*3 as
-// BGR, on up to nthreads threads.  bottom_up: the single-plane layouts'
-// rows are stored last first; palette: pal8's 256 B, G, R, X entries.
-// rcs[i] gets 0, -7 for a chunk shorter than the frame, or -4 for an
-// unknown layout or an empty frame.
+// 7 nv12, 8 yuyv422, 9 uyvy422, 10 yuv422p, 11 yuv444p) into dst, frame i
+// at i*height*width*3 as BGR, on up to nthreads threads.  bottom_up: the
+// single-plane layouts' rows are stored last first; palette: pal8's 256 B,
+// G, R, X entries; matrix: the YUV layouts' (0 BT.601, 1 BT.709).  rcs[i]
+// gets 0, -7 for a chunk shorter than the frame, or -4 for an unknown
+// layout or matrix or an empty frame.
 void clt_raw_decode_bgr_batch(const unsigned char* const* srcs,
                               const std::size_t* sizes, std::size_t k,
                               unsigned char* dst, int height, int width,
                               int layout, int bottom_up,
-                              const unsigned char* palette, int nthreads,
-                              int* rcs) {
+                              const unsigned char* palette, int matrix,
+                              int nthreads, int* rcs) {
     const std::size_t frame = static_cast<std::size_t>(height) * width * 3;
+    const SwsRange* range = matrix == 0 ? &kSwsLimited : matrix == 1 ? &kSwsLimited709 : nullptr;
     parallel_items(k, nthreads, [&](std::size_t i) {
-        rcs[i] = raw_decode(srcs[i], sizes[i], dst + i * frame, height, width,
-                            layout, bottom_up != 0, palette);
+        rcs[i] = range ? raw_decode(srcs[i], sizes[i], dst + i * frame, height, width,
+                                    layout, bottom_up != 0, palette, range)
+                       : kUnsupported;
     });
 }
 
@@ -2284,6 +2302,6 @@ void clt_jpeg_decode_tiff_batch(const unsigned char* tables, std::size_t tables_
     });
 }
 
-int clt_jpeg_version() { return 5; }
+int clt_jpeg_version() { return 6; }
 
 }  // extern "C"

@@ -39,7 +39,8 @@ libswscale 9) runs on x86-64:
   unscaled SSSE3 converter: chroma replicated, ``pmulhw`` with the
   full-range BT.601 coefficients (``y + ((c * 8 - 1024) * k >> 16)``, k =
   14516, -2819, -5850, 11485).  4:4:4 takes the scaler's full-chroma
-  output: ``(y << 22 + 2^21 + (c - 128 << 9) * k) >> 22``, which rounds;
+  output: ``(y << 22 + 2^21 + (c - 128 << 9) * k) >> 22``, which rounds,
+  its sums in 32 bits that wrap (only limited-range input gets there);
   with component IDs 'R', 'G', 'B' or Adobe transform 0 it is planar RGB.
   4:1:1, 4:4:0 and 4:2:0/4:2:2 of odd height take the scaled path
   (``_swscale_bgr``): the chroma resampled by ``init_filter``'s integer
@@ -910,14 +911,21 @@ def _round16(x: int) -> int:
     return max(min((x + (1 << 15)) >> 16, 32767), -32768)
 
 
-def _sws_range(limited: bool) -> SwsRange:
-    """The tables of ff_yuv2rgb_c_init_tables for the default BT.601
-    matrix (inverse coefficients 104597, 132201, 25675, 53279): full
-    range scales the chroma by 224/255, limited range the luma by 255/219
-    from an offset of 16 (C divisions, toward zero); the C output's
-    coefficients are then divided by the luma scale, as its lookup table
-    applies that."""
-    crv, cbu, cgu, cgv = 104597, 132201, -25675, -53279
+# swscale's inverse coefficients (ff_yuv2rgb_coeffs) of the BT.601
+# matrix, its default, and of BT.709
+BT601 = (104597, 132201, 25675, 53279)
+BT709 = (117489, 138438, 13975, 34925)
+
+
+def _sws_range(limited: bool, matrix: Tuple[int, ...] = BT601
+               ) -> SwsRange:
+    """The tables of ff_yuv2rgb_c_init_tables for ``matrix`` (inverse
+    coefficients v -> r, u -> b, u -> g, v -> g; the default BT.601):
+    full range scales the chroma by 224/255, limited range the luma by
+    255/219 from an offset of 16 (C divisions, toward zero); the C
+    output's coefficients are then divided by the luma scale, as its
+    lookup table applies that."""
+    crv, cbu, cgu, cgv = matrix[0], matrix[1], -matrix[2], -matrix[3]
     cy, oy = 1 << 16, 0
     if limited:
         cy, oy = cy * 255 // 219, 16 << 16
@@ -931,8 +939,10 @@ def _sws_range(limited: bool) -> SwsRange:
 
 
 # full range (yuvj, what FFmpeg's MJPEG decoder gives) and limited range
-# (yuv420p, what a raw I420/YV12 frame is)
+# (yuv420p, what a raw I420/YV12 frame is); limited range under the BT.709
+# matrix (the frames of a stream tagged so, which cv2 converts by the tag)
 SWS_FULL, SWS_LIMITED = _sws_range(False), _sws_range(True)
+SWS_LIMITED_709 = _sws_range(True, BT709)
 
 
 def _sws_table(t: np.ndarray, rng: SwsRange) -> np.ndarray:
@@ -956,11 +966,13 @@ def _ffmpeg_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
                yy + _pmulhw(u, rng.ug) + _pmulhw(v, rng.vg),
                yy + _pmulhw(v, rng.vr))
     else:
+        # 32-bit sums that wrap, as swscale's unsigned arithmetic does
+        # (limited range can pass 2^31: a saturated blue comes out 0)
         yy = ((y << 9) - (rng.oy >> 7)) * rng.yc + (1 << 21)
         u, v = (cb - 128) << 9, (cr - 128) << 9
-        bgr = ((yy + u * rng.ub) >> 22,
-               (yy + u * rng.ug + v * rng.vg) >> 22,
-               (yy + v * rng.vr) >> 22)
+        bgr = (_i32(yy + u * rng.ub) >> 22,
+               _i32(yy + u * rng.ug + v * rng.vg) >> 22,
+               _i32(yy + v * rng.vr) >> 22)
     return np.stack(bgr, -1).clip(0, 255).astype(np.uint8)
 
 

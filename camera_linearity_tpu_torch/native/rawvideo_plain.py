@@ -24,7 +24,15 @@ does):
   row: the unscaled path at an even height, the scaled one at an odd
   one (the port's HuffYUV decoder converts its YUY2 frames so too);
 * ``NV12`` (interleaved chroma), ``YUY2`` and ``UYVY`` (packed 4:2:2):
-  swscale's scaled path at every size, limited range.
+  swscale's scaled path at every size, limited range;
+* ``yuv444p`` (no fourcc of rawdec's here: the planes of a Ut Video
+  ``ULY4``/``ULH4`` frame or a yuv444p FFV1 frame): the scaler's
+  full-chroma output at every size, its 32-bit sums wrapping (a
+  saturated blue comes out 0, as cv2 gives it).
+
+The YUV layouts take the BT.601 matrix, or BT.709 (``matrix``) for the
+planes of a stream FFmpeg tags so (Ut Video's ``ULH*``), which cv2's
+swscale follows.
 
 A chunk shorter than its layout's frame raises here (FFmpeg decodes no
 frame from it, and cv2's read loop ends there: ``utils/avi.py`` ends the
@@ -38,14 +46,18 @@ from typing import Optional
 
 import numpy as np
 
-from .jpeg_plain import SWS_LIMITED, _ffmpeg_bgr, _swscale_bgr
+from .jpeg_plain import (SWS_LIMITED, SWS_LIMITED_709, _ffmpeg_bgr,
+                         _swscale_bgr)
 
-__all__ = ["LAYOUTS", "FOURCC_LAYOUTS", "DIB_LAYOUTS", "frame_bytes",
-           "chunk_sizes", "row_bytes", "decode_bgr"]
+__all__ = ["LAYOUTS", "MATRICES", "FOURCC_LAYOUTS", "DIB_LAYOUTS",
+           "frame_bytes", "chunk_sizes", "row_bytes", "decode_bgr"]
 
 # each layout's number in jpeg.cpp's clt_raw_decode_bgr_batch
 LAYOUTS = ("pal8", "rgb555", "bgr24", "bgr0", "gray8", "i420", "yv12",
-           "nv12", "yuyv422", "uyvy422", "yuv422p")
+           "nv12", "yuyv422", "uyvy422", "yuv422p", "yuv444p")
+
+# the YUV layouts' matrices, by their number in jpeg.cpp
+MATRICES = ("bt601", "bt709")
 
 # the fourccs rawdec maps to these layouts; BI_RGB goes by bit count
 FOURCC_LAYOUTS = {"I420": "i420", "IYUV": "i420", "YV12": "yv12",
@@ -72,6 +84,8 @@ def frame_bytes(layout: str, height: int, width: int) -> int:
         return height * _half(width) * 4
     if layout == "yuv422p":
         return height * width + 2 * height * _half(width)
+    if layout == "yuv444p":
+        return 3 * height * width
     return height * width + 2 * _half(height) * _half(width)
 
 
@@ -97,11 +111,14 @@ def row_bytes(layout: str, width: int, height: int, size: int) -> int:
 
 def decode_bgr(payload, layout: str, height: int, width: int,
                bottom_up: bool = False,
-               palette: Optional[np.ndarray] = None) -> np.ndarray:
+               palette: Optional[np.ndarray] = None,
+               matrix: str = "bt601") -> np.ndarray:
     """One chunk's (H, W, 3) BGR uint8 frame.  ``bottom_up``: the rows of
     a BI_RGB frame are stored last first; ``palette``: pal8's (256, 4)
-    B, G, R, X entries.  Raises ValueError for a chunk shorter than the
-    frame."""
+    B, G, R, X entries; ``matrix``: the YUV layouts' (``MATRICES``: the
+    rawvideo decoder's BT.601, or BT.709 for the planes of a stream
+    tagged so).  Raises ValueError for a chunk shorter than the frame."""
+    rng = {"bt601": SWS_LIMITED, "bt709": SWS_LIMITED_709}[matrix]
     data = np.frombuffer(payload, np.uint8)
     need = frame_bytes(layout, height, width)
     if data.size < need:
@@ -132,24 +149,27 @@ def decode_bgr(payload, layout: str, height: int, width: int,
         y = np.stack([px[..., lum[0]], px[..., lum[1]]], -1).reshape(
             height, 2 * w2)[:, :width]
         return _swscale_bgr(y, px[..., chroma[0]], px[..., chroma[1]], 1, 0,
-                            SWS_LIMITED)
+                            rng)
     y = data[:height * width].reshape(height, width)
     rest = data[height * width:need]
+    if layout == "yuv444p":
+        u, v = rest.reshape(2, height, width)
+        return _ffmpeg_bgr(y, u, v, subsampled=False, rng=rng)
     if layout == "yuv422p":
         u, v = rest.reshape(2, height, w2)
         if height % 2:
-            return _swscale_bgr(y, u, v, 1, 0, SWS_LIMITED)
+            return _swscale_bgr(y, u, v, 1, 0, rng)
         full = [np.repeat(c, 2, 1)[:, :width] for c in (u, v)]
-        return _ffmpeg_bgr(y, *full, subsampled=True, rng=SWS_LIMITED)
+        return _ffmpeg_bgr(y, *full, subsampled=True, rng=rng)
     if layout == "nv12":
         uv = rest.reshape(h2, w2, 2)
-        return _swscale_bgr(y, uv[..., 0], uv[..., 1], 1, 1, SWS_LIMITED)
+        return _swscale_bgr(y, uv[..., 0], uv[..., 1], 1, 1, rng)
     u, v = rest[:h2 * w2].reshape(h2, w2), rest[h2 * w2:].reshape(h2, w2)
     if layout == "yv12":
         u, v = v, u
     if height % 2:  # swscale's unscaled path takes even heights only
-        return _swscale_bgr(y, u, v, 1, 1, SWS_LIMITED)
+        return _swscale_bgr(y, u, v, 1, 1, rng)
     full = [np.repeat(np.repeat(c, 2, 0), 2, 1)[:height, :width]
             for c in (u, v)]
-    return _ffmpeg_bgr(y, *full, subsampled=True, rng=SWS_LIMITED)
+    return _ffmpeg_bgr(y, *full, subsampled=True, rng=rng)
 

@@ -1,6 +1,6 @@
 """AVI container reader (pure Python, streaming): MJPG chunks, raw RGBA
-frames, the chunks of the other uncompressed layouts and of PNG, HuffYUV
-and FFV1 video, and the stream's geometry.
+frames, the chunks of the other uncompressed layouts and of PNG, HuffYUV,
+FFV1 and Ut Video video, and the stream's geometry.
 
 Port of ``camera_linearity_tpu/utils/avi.py``, copied (importing the JAX
 package would import JAX).  An AVI file is a RIFF tree; the walker goes
@@ -18,9 +18,12 @@ compressed codecs ImageJ/Fiji and ``cv2.VideoWriter`` write, PNG
 ``FFVH``: the tables in the ``strf`` bytes after the header), and the
 lossless codec of moving-image archives, FFV1 (``FFV1``: its header in the
 ``strf`` bytes after the header for versions 2 and 3, in every keyframe
-for 0 and 1), are read chunk by chunk too (:func:`frame_chunks`) and
-decoded by the port's ``native.png_decode_bgr_batch``,
-``native.huffyuv_decode_bgr_batch`` and ``native.ffv1_decode_bgr_batch``.
+for 0 and 1), and the lossless codec of capture tools, Ut Video (``ULRG``,
+``ULRA``, ``ULY0``, ``ULY2``, ``ULY4``, ``ULH0``, ``ULH2``, ``ULH4``: 16
+bytes of parameters after the header), are read chunk by chunk too
+(:func:`frame_chunks`) and decoded by the port's
+``native.png_decode_bgr_batch``, ``native.huffyuv_decode_bgr_batch``,
+``native.ffv1_decode_bgr_batch`` and ``native.utvideo_decode_bgr_batch``.
 So the port reads all of them without a video codec library, and reads
 exactly the frames ``cv2.VideoCapture`` returns for them.
 
@@ -45,7 +48,7 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from ..native import ffv1_plain, huffyuv_plain, png_plain
+from ..native import ffv1_plain, huffyuv_plain, png_plain, utvideo_plain
 from ..native.jpeg_plain import ffmpeg_format
 from ..native.rawvideo_plain import (DIB_LAYOUTS, FOURCC_LAYOUTS,
                                      chunk_sizes, frame_bytes)
@@ -54,13 +57,17 @@ __all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "raw_chunks",
            "frame_chunks", "raw_unsupported", "png_unsupported",
            "huffyuv_unsupported", "huffyuv_params", "AviInfo", "RawLayout",
            "JpegInfo", "jpeg_unsupported", "PNG_CODECS", "HUFFYUV_CODECS",
-           "FFV1_CODECS", "ffv1_params", "ffv1_unsupported"]
+           "FFV1_CODECS", "ffv1_params", "ffv1_unsupported",
+           "UTVIDEO_CODECS", "utvideo_params", "utvideo_unsupported"]
 
 # the fourccs (stripped of trailing spaces) FFmpeg decodes as PNG, as
-# HuffYUV and as FFV1
+# HuffYUV, as FFV1 and as Ut Video (the Pro and pack-mode ones too, which
+# the port refuses by name)
 PNG_CODECS = png_plain.PNG_FOURCCS
 HUFFYUV_CODECS = huffyuv_plain.HUFFYUV_FOURCCS
 FFV1_CODECS = ffv1_plain.FFV1_FOURCCS
+UTVIDEO_CODECS = utvideo_plain.UTVIDEO_FOURCCS + tuple(
+    utvideo_plain.REFUSED_FOURCCS)
 
 # containers we descend into: their payload is a fourcc + nested chunks
 _CONTAINERS = (b"RIFF", b"LIST")
@@ -381,7 +388,7 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
         info = AviInfo(codec, *((ihdr.height, ihdr.width) if ihdr else
                                 (abs(height), width)), 3)
         info.png = ihdr
-    elif codec in HUFFYUV_CODECS:
+    elif codec in HUFFYUV_CODECS or codec in UTVIDEO_CODECS:
         info = AviInfo(codec, abs(height), width, 3)
     elif codec in FFV1_CODECS:
         info = AviInfo(codec, abs(height), width, 3)
@@ -475,13 +482,29 @@ def ffv1_unsupported(info: AviInfo) -> Optional[str]:
     before any decode: its header (a CRC that fails, a first frame that is
     no keyframe for versions 0 and 1) or a layout
     ``ffv1_plain.unsupported`` names (version 4, RGB or YUV past 8 bits,
-    gray past 8 bits but 16, alpha beside gray or YUV, yuv444p, yuv440p,
-    yuv411p, yuv410p, Bayer, a slice grid that leaves a chroma row
-    undecoded)."""
+    gray past 8 bits but 16, alpha beside gray or YUV, yuv440p, yuv411p,
+    yuv410p, Bayer, a slice grid that leaves a chroma row undecoded)."""
     if info.ffv1 is None:
         return f"its header: {info.ffv1_error or 'none'}"
     why = ffv1_plain.unsupported(info.ffv1, info.height, info.width)
     return why and f"{why} ({ffv1_plain.layout_name(info.ffv1)})"
+
+
+def utvideo_params(info: AviInfo) -> utvideo_plain.UtvideoParams:
+    """A Ut Video stream's parameters (``utvideo_plain.params``) from its
+    fourcc and extradata; raises ``utvideo_plain.UtvideoError`` (a
+    ValueError) for a header the decoder does not read."""
+    return utvideo_plain.params(info.codec, info.extra)
+
+
+def utvideo_unsupported(info: AviInfo) -> Optional[str]:
+    """What of a Ut Video stream the port's decoder does not read, or None,
+    before any decode (``utvideo_plain.unsupported``: the Pro and pack-mode
+    fourccs, extradata under 16 bytes, a frame-information size other than
+    4, odd subsampled sizes, an interlaced height that leaves rows
+    undecoded, the interlaced median on a plane one sample wide)."""
+    return utvideo_plain.unsupported(info.codec, info.extra, info.height,
+                                     info.width)
 
 
 def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:

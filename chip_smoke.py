@@ -50,21 +50,24 @@ MJPG for the brightest, timing one 4K frame's decode on one thread and a
 video's frames on all, in every mode; hold the rawvideo reader to
 ``native/rawvideo_plain.py`` bit for bit on one 4K frame of each layout
 it reads (8-bit paletted, RGB555 and 24-bit BI_RGB bottom-up, 32-bit
-top-down, gray8, I420, YV12, NV12, YUY2, UYVY) and time it on one thread
-and over a batch of 12 on all; hold the PNG, HuffYUV and FFV1 decoders
-(``native/png.cpp``, ``native/huffyuv.cpp``, ``native/ffv1.cpp``) to
-``png_plain.py``, ``huffyuv_plain.py`` and ``ffv1_plain.py`` bit for bit
-on a full-width 64-row strip of each of ``LOSSLESS_LAYOUTS`` (PNG RGB
-8-bit with the five filters cycled, PNG gray 8-bit, PNG RGB 16-bit with
-the filters cycled, HFYU RGB24 gradient decorrelated, HFYU YUY2 left,
-FFVH yuv420p median) and ``FFV1_LAYOUTS`` (cv2's BGR, gray8 and gray16,
-a Golomb-Rice yuv420p and a range-coded BGR of context model 1, two
-frames: a keyframe and one that carries its states; encoded by
-``tests/_torch_ffv1_enc.cpp``), the plain versions in spawned processes,
-and on 4K frames of each to what cv2 gives for the pictures written,
-and time them (PNG and HuffYUV one frame on one thread and over a batch
-of 12 on all, FFV1 one frame on one thread and on all, a slice a
-thread); write the raw videos' frames again as
+top-down, gray8, I420, YV12, NV12, YUY2, UYVY, and yuv444p, the planes of
+a Ut Video ULY4 frame) and time it on one thread and over a batch of 12
+on all; hold the PNG, HuffYUV, FFV1 and UtVideo decoders
+(``native/png.cpp``, ``native/huffyuv.cpp``, ``native/ffv1.cpp``,
+``native/utvideo.cpp``) to ``png_plain.py``, ``huffyuv_plain.py``,
+``ffv1_plain.py`` and ``utvideo_plain.py`` bit for bit on a full-width
+64-row strip of each of ``LOSSLESS_LAYOUTS`` (PNG RGB 8-bit with the five
+filters cycled, PNG gray 8-bit, PNG RGB 16-bit with the filters cycled,
+HFYU RGB24 gradient decorrelated, HFYU YUY2 left, FFVH yuv420p median),
+``FFV1_LAYOUTS`` (cv2's BGR, gray8 and gray16, a Golomb-Rice yuv420p and
+a range-coded BGR of context model 1, two frames: a keyframe and one that
+carries its states; encoded by ``tests/_torch_ffv1_enc.cpp``) and
+``UTVIDEO_LAYOUTS`` (ULY0 as cv2 writes it: left, 9 slices; ULRG median,
+ULY2 gradient and ULY4 left in FFmpeg's 18 slices), the plain versions
+in spawned processes, and on 4K frames of each to what cv2 gives for the
+pictures written, and time them (PNG, HuffYUV and UtVideo one frame on
+one thread and over a batch of 12 on all, FFV1 one frame on one thread
+and on all, a slice a thread); write the raw videos' frames again as
 I420 AVIs (``yuv_planes``, as ``cv2.VideoWriter(fourcc "I420")`` lays them
 out); run ``welford_algorithm``
 on the card against the host backend and the CPU in float64, and
@@ -97,21 +100,24 @@ held to stream 0's frames; ``timed(label, logger)`` and
 ``timed(label, device=dev)`` checked to synchronize the card; and
 ``stage_to_device(arr, max_bytes)`` checked to copy in slices onto it.
 
-Phase 14 (c), config 5 from the lossless compressed AVIs ImageJ/Fiji and
-``cv2.VideoWriter`` write: phase 14's raw frames encoded again (each
-distinct frame once, in spawned processes) as PNG AVIs (``MPNG``) and
-HuffYUV AVIs (``HFYU`` RGB24, left, decorrelated) by the test writers;
-``batch_video_to_hdr`` (K1, B = 8) and ``video_to_hdr`` (K3) on each,
-held to phase 14's raw u16/f16 results bit for bit, their MP/s and
-``decode_s`` beside the raw run's.
-
-Phase 14 (d), config 5 from FFV1 AVIs as ``cv2.VideoWriter(fourcc
-"FFV1")`` writes BGR (version 3, slice CRCs, Golomb-Rice, 12 x 7 slices,
-a GOP of 12): phase 14's 36 raw frames encoded once by the native encoder
-(in phase 12's plain-decode window, cached under ``build/``);
-``batch_video_to_hdr`` (K1, B = 8) and ``video_to_hdr`` (K3) at the
-default decoder held to phase 14's raw u16/f16 results bit for bit,
-their MP/s, ``decode_s`` and launches beside the raw run's.
+Phases 14 (c)-(e), config 5 from the lossless compressed AVIs
+ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write: phase
+14's raw frames encoded again (each distinct frame once, in phase 12's
+plain-decode window, cached under ``build/``) as PNG AVIs (``MPNG``),
+HuffYUV AVIs (``HFYU`` RGB24, left, decorrelated), FFV1 AVIs as
+``cv2.VideoWriter(fourcc "FFV1")`` writes BGR (version 3, slice CRCs,
+Golomb-Rice, 12 x 7 slices, a GOP of 12; the native encoder) and Ut Video
+``ULRG`` AVIs (left, 18 slices, as FFmpeg's ``-c:v utvideo`` writes
+them), and phase 14's I420 planes as ``ULY0``
+AVIs as ``cv2.VideoWriter(fourcc "ULY0")`` writes them (left, 9 slices).
+(c): ONE ``batch_video_to_hdr`` (K1, B = 8) at the default decoder whose
+8 scenes are two PNG, two HuffYUV, two FFV1 and two ULRG scenes (each
+file takes its own decoder), held to phase 14's raw u16/f16 results bit
+for bit, its MP/s, ``decode_s`` and launches beside the raw run's, and
+``video_to_hdr`` (K3) on the PNG and the HuffYUV videos; (d) on the FFV1
+videos; (e) on the ULRG videos, each held to the raw ``video_to_hdr`` bit
+for bit, and on the ULY0 videos, held to phase 14's I420
+``video_to_hdr`` bit for bit.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
@@ -820,12 +826,12 @@ def write_rgba_avi(path, frames_rgba, height: int, width: int) -> None:
             f.write(memoryview(frame).cast("B"))
 
 
-def yuv_planes(bgr, vs: int = 1):
+def yuv_planes(bgr, vs: int = 1, hs: int = 1):
     """Limited-range BT.601 Y, U, V planes (uint8, on the host) of a (H, W,
     3) BGR uint8 tensor of even H and W: the integer formula (66 R + 129 G
     + 25 B + 128) >> 8 + 16 and its chroma pair, the chroma averaged over
     each 2 x 2 block (``vs`` 1: 4:2:0) or each pair across (``vs`` 0:
-    4:2:2), rounding."""
+    4:2:2), rounding, or at full size (``vs`` and ``hs`` 0: 4:4:4)."""
     x = bgr.to(torch.int32)
     b, g, r = x[..., 0], x[..., 1], x[..., 2]
     y = ((66 * r + 129 * g + 25 * b + 128) >> 8) + 16
@@ -833,8 +839,8 @@ def yuv_planes(bgr, vs: int = 1):
     out = [y]
     for c in ((-38 * r - 74 * g + 112 * b + 128) >> 8) + 128, \
             ((112 * r - 94 * g - 18 * b + 128) >> 8) + 128:
-        blocks = c.view(h >> vs, 1 << vs, w // 2, 2).sum((1, 3))
-        n = 2 << vs
+        blocks = c.view(h >> vs, 1 << vs, w >> hs, 1 << hs).sum((1, 3))
+        n = 1 << (vs + hs)
         out.append((blocks + n // 2) // n)
     return [p.to(torch.uint8).cpu().numpy() for p in out]
 
@@ -893,7 +899,8 @@ def raw_layout_chunks(bgr_host, bgr_dev):
     bottom-up, palette).  BI_RGB at 8 bits (the green channel through a
     palette that is not the identity), 16 and 24 bits bottom-up as camera
     SDKs write them, 32 bits top-down; gray8 the green channel; the YUV
-    layouts from ``yuv_planes``."""
+    layouts from ``yuv_planes`` (yuv444p, the planes of a Ut Video ULY4
+    frame, which no rawvideo fourcc carries, at full chroma size)."""
     from tests._torch_rawvideo_writer import encode_frame
     b, g, r = (bgr_host[..., k].astype(np.uint16) for k in range(3))
     i = np.arange(256, dtype=np.uint16)
@@ -901,6 +908,8 @@ def raw_layout_chunks(bgr_host, bgr_dev):
         np.uint8)
     y, u, v = yuv_planes(bgr_dev)
     y2, u2, v2 = yuv_planes(bgr_dev, vs=0)
+    planes444 = np.concatenate([c.reshape(-1) for c in yuv_planes(
+        bgr_dev, vs=0, hs=0)]).tobytes()
     green = np.ascontiguousarray(bgr_host[..., 1])
     dib = lambda frame, bits, bottom_up=True: encode_frame(  # noqa: E731
         "DIB", frame, bits, top_down=not bottom_up)
@@ -917,6 +926,7 @@ def raw_layout_chunks(bgr_host, bgr_dev):
         "nv12": (encode_frame("NV12", (y, u, v)), False, None),
         "yuyv422": (encode_frame("YUY2", (y2, u2, v2)), False, None),
         "uyvy422": (encode_frame("UYVY", (y2, u2, v2)), False, None),
+        "yuv444p": (planes444, False, None),
     }
 
 
@@ -1177,12 +1187,14 @@ def stream_phase(dev, directory, mjpg_paths, i420_paths, stream0, runs,
                 timed_sleep_ms=sleep_s * 1e3)
 
 
-# phase 12's rows of the PNG, HuffYUV and FFV1 decoders: one 4K frame of
-# each layout (two for FFV1: a keyframe and a frame that carries its
-# states) held to what cv2 gives for the picture written, and the same
+# phase 12's rows of the PNG, HuffYUV, FFV1 and UtVideo decoders: one 4K
+# frame of each layout (two for FFV1: a keyframe and a frame that carries
+# its states) held to what cv2 gives for the picture written, and the same
 # layout on a full-width strip of STRIP_ROWS rows held to its plain version
 # (FFmpeg decodes no RGB HuffYUV with the median predictor: the median row
-# is yuv420p's; FFV1's first three rows are cv2's own layouts)
+# is yuv420p's; FFV1's first three rows are cv2's own layouts, UtVideo's
+# first row is what cv2's writer writes, at its 4K slice count also on the
+# strip; the other UtVideo rows take FFmpeg's slice count, 18 at 4K)
 STRIP_ROWS = 64
 LOSSLESS_LAYOUTS = ("PNG RGB8 mixed filters", "PNG gray8",
                     "PNG RGB16 mixed filters",
@@ -1193,13 +1205,19 @@ FFV1_LAYOUTS = ("FFV1 BGR (cv2: Golomb-Rice)",
                 "FFV1 gray16 (cv2: range coder, custom table)",
                 "FFV1 yuv420p Golomb-Rice, context model 1",
                 "FFV1 BGR range coder, default table, context model 1")
+# name: (fourcc, predictor)
+UTVIDEO_LAYOUTS = {"ULY0 as cv2 writes it (left, 9 slices)": ("ULY0", "left"),
+                   "ULRG median": ("ULRG", "median"),
+                   "ULY2 gradient": ("ULY2", "gradient"),
+                   "ULY4 left": ("ULY4", "left")}
 
 
 def yuv_bgr(planes, layout: str, rows: int) -> np.ndarray:
-    """What cv2 gives for the (Y, U, V) ``planes`` of ``layout`` (``"i420"``
-    or ``"yuv422p"``) at ``rows`` x W5: the port's rawvideo converter,
-    which phase 12 holds to ``rawvideo_plain.py`` (on 4K frames for
-    I420, and through the plain decoders' strips for both)."""
+    """What cv2 gives for the (Y, U, V) ``planes`` of ``layout`` (``"i420"``,
+    ``"yuv422p"`` or ``"yuv444p"``) at ``rows`` x W5: the port's rawvideo
+    converter, which phase 12 holds to ``rawvideo_plain.py`` (on 4K frames
+    for I420 and yuv444p, and through the plain decoders' strips for
+    all)."""
     from camera_linearity_tpu_torch import native
     raw = np.concatenate([np.ascontiguousarray(c).reshape(-1)
                           for c in planes])
@@ -1239,18 +1257,22 @@ def ffv1_layout(name: str, rows: int, frames_host, frames_dev):
 
 def lossless_layout_chunks(frames_host, frames_dev, rows: int,
                            want: bool = True) -> dict:
-    """The smoke's content in each of LOSSLESS_LAYOUTS and FFV1_LAYOUTS at
-    ``rows`` x W5 (the first frame, and for FFV1 the first two), as its
-    writer stores it: name -> (kind, chunks, the decoder's parameters:
-    the PNG's ``IHDR``, the HuffYUV or FFV1 stream's; with ``want`` the
-    frames cv2 gives for the pictures written).  PNG rows cycle the five
-    filters; gray is the green channel; PNG RGB16 takes each channel as its
-    high byte and the next channel as its low one, FFV1 gray16 the green
-    channel and the red; the YUV layouts come from ``yuv_planes``; HuffYUV
-    is interlaced at both sizes; FFV1 comes from the native encoder."""
+    """The smoke's content in each of LOSSLESS_LAYOUTS, FFV1_LAYOUTS and
+    UTVIDEO_LAYOUTS at ``rows`` x W5 (the first frame, and for FFV1 the
+    first two), as its writer stores it: name -> (kind, chunks, the
+    decoder's parameters: the PNG's ``IHDR``, the HuffYUV, FFV1 or UtVideo
+    stream's; with ``want`` the frames cv2 gives for the pictures
+    written).  PNG rows cycle the five filters; gray is the green channel;
+    PNG RGB16 takes each channel as its high byte and the next channel as
+    its low one, FFV1 gray16 the green channel and the red; the YUV
+    layouts come from ``yuv_planes``; HuffYUV is interlaced at both sizes;
+    FFV1 comes from the native encoder; UtVideo takes its 4K slice count
+    at both sizes."""
     from camera_linearity_tpu_torch.native import png_plain
+    from camera_linearity_tpu_torch.native import utvideo_plain
     from tests import _torch_ffv1_writer as fw
     from tests import _torch_huffyuv_writer as hw
+    from tests import _torch_utvideo_writer as uw
     from tests._torch_png_writer import encode_png
     out = {}
     bgr = frames_host[0][:rows]
@@ -1286,31 +1308,47 @@ def lossless_layout_chunks(frames_host, frames_dev, rows: int,
                                                frames_dev)
         out[name] = ("ffv1", fw.native_encode(pictures, rows, W5, config),
                      fw.stream_params(config), expect if want else None)
+    for name, (fourcc, predictor) in UTVIDEO_LAYOUTS.items():
+        layout = utvideo_plain.LAYOUTS[fourcc]
+        params = uw.stream_params(fourcc, uw.cv2_slices(layout, H5))
+        if layout == "gbrp":
+            picture, expect = bgr, bgr
+        else:
+            raw = {"yuv420p": "i420"}.get(layout, layout)
+            picture = yuv_planes(frames_dev[0][:rows], *{
+                "yuv420p": (1, 1), "yuv422p": (0, 1),
+                "yuv444p": (0, 0)}[layout])
+            expect = yuv_bgr(picture, raw, rows) if want else None
+        chunk = uw.encode_frame(uw.to_planes(picture, layout), params,
+                                uw.PREDICTORS[predictor])
+        out[name] = ("utvideo", [chunk], params,
+                     [expect] if want else None)
     return out
 
 
 def plain_decode(kind: str, chunks, spec, rows: int, width: int):
     """The plain version's frames of ``chunks`` (a spawned process)."""
     from camera_linearity_tpu_torch.native import (ffv1_plain, huffyuv_plain,
-                                                   png_plain)
+                                                   png_plain, utvideo_plain)
     if kind == "png":
         return np.stack([png_plain.decode_bgr(c) for c in chunks])
-    if kind == "huffyuv":
-        return np.stack([huffyuv_plain.decode_bgr(c, spec, rows, width)
+    if kind in ("huffyuv", "utvideo"):
+        plain = huffyuv_plain if kind == "huffyuv" else utvideo_plain
+        return np.stack([plain.decode_bgr(c, spec, rows, width)
                          for c in chunks])
     return ffv1_plain.decode_bgr(chunks, spec, rows, width)
 
 
 def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
-    """Phase 12's PNG, HuffYUV and FFV1 rows: each of LOSSLESS_LAYOUTS and
-    FFV1_LAYOUTS on a full-width STRIP_ROWS-row strip, the native decoder
-    held to its plain version bit for bit (the plain versions first, a
-    process each, with phase 14 (c)'s and (d)'s ``videos`` encoded beside
-    them, never beside a timed call), then on
-    4K frames held to what cv2 gives for the pictures written, and timed:
-    PNG and HuffYUV on one thread and over a batch of FRAMES5 on every
-    core, FFV1 one frame on one thread and on every core (a slice a
-    thread).  Returns the rows' times."""
+    """Phase 12's PNG, HuffYUV, FFV1 and UtVideo rows: each of
+    LOSSLESS_LAYOUTS, FFV1_LAYOUTS and UTVIDEO_LAYOUTS on a full-width
+    STRIP_ROWS-row strip, the native decoder held to its plain version bit
+    for bit (the plain versions first, a process each, with phase 14
+    (c)-(e)'s ``videos`` encoded beside them, never beside a timed call),
+    then on 4K frames held to what cv2 gives for the pictures written, and
+    timed: PNG, HuffYUV and UtVideo on one thread and over a batch of
+    FRAMES5 on every core, FFV1 one frame on one thread and on every core
+    (a slice a thread).  Returns the rows' times."""
     from camera_linearity_tpu_torch import native
     t0 = time.perf_counter()
     strips = lossless_layout_chunks(frames_host, frames_dev, STRIP_ROWS,
@@ -1326,7 +1364,7 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
         plain = {name: f.result() for name, f in futures.items()}
         videos.finish()
     plain_s = time.perf_counter() - t0
-    planes = np.empty(FRAMES5 * native.frame_bytes("yuv422p", H5, W5),
+    planes = np.empty(FRAMES5 * native.frame_bytes("yuv444p", H5, W5),
                       np.uint8)
 
     def decode(kind, spec, chunks, dst, **kw):
@@ -1334,6 +1372,9 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
             return native.png_decode_bgr_batch(chunks, dst, spec, **kw)
         if kind == "huffyuv":
             return native.huffyuv_decode_bgr_batch(chunks, dst, spec,
+                                                   planes=planes, **kw)
+        if kind == "utvideo":
+            return native.utvideo_decode_bgr_batch(chunks, dst, spec,
                                                    planes=planes, **kw)
         # a decoder a sequence: FFV1 carries its states from frame to frame
         return native.ffv1_decode_bgr_batch(
@@ -1376,54 +1417,73 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
             f"{W5} strip {'equals' if plain_same else 'differs from'} the "
             f"plain version, max |.| {max_gap(strip, plain[name]):.0f} DN")
         del frames, strip
-    log(f"  PNG, HuffYUV, FFV1: {len(layouts)} layouts encoded at 4K and "
-        f"as {STRIP_ROWS}-row strips in {encode_s:.1f} s, the strips "
-        f"decoded by the plain versions in {plain_s:.1f} s (a spawned "
-        "process each), phase 14 (c)'s and (d)'s videos "
+    log(f"  PNG, HuffYUV, FFV1, UtVideo: {len(layouts)} layouts encoded "
+        f"at 4K and as {STRIP_ROWS}-row strips in {encode_s:.1f} s, the "
+        f"strips decoded by the plain versions in {plain_s:.1f} s (a "
+        "spawned process each), phase 14 (c)-(e)'s videos "
         + ("from the cache" if videos.encode_s is None else
            f"encoded beside them in {videos.encode_s:.1f} s (FFV1 native, "
            "on a thread)"))
-    raise_failures("phase 12, the PNG, HuffYUV and FFV1 decoders against "
-                   "their plain versions and the pictures written", failures)
+    raise_failures("phase 12, the PNG, HuffYUV, FFV1 and UtVideo decoders "
+                   "against their plain versions and the pictures written",
+                   failures)
     return rows
 
 
 class LosslessVideos:
-    """Phase 14 (c)'s and (d)'s videos: phase 14's raw videos (``paths``)
+    """Phase 14 (c)-(e)'s videos: phase 14's raw videos (``paths``)
     written again, each distinct frame encoded once, as PNG AVIs (``MPNG``,
     RGB 8-bit, the rows' filters cycled), as HuffYUV AVIs (``HFYU`` RGB24,
     left predictor, G-decorrelated: what cv2's writer writes, tables from
-    the first frame's top quarter) and as FFV1 AVIs as
+    the first frame's top quarter), as FFV1 AVIs as
     ``cv2.VideoWriter(fourcc "FFV1")`` writes BGR (version 3, slice CRCs,
     the Golomb-Rice coder, bgra, its 12 x 7 slices at 4K, a GOP of 12:
-    each video a keyframe and 11 frames that carry its states).  Cached
-    under ``build/`` by the frames' bytes and the writers' sources, as the
-    MJPG videos are; otherwise :meth:`submit` hands the PNG and HuffYUV
-    encodes to a process pool (phase 12's, beside its plain decodes, where
-    no call is timed) and the FFV1 ones to a thread
-    (``tests/_torch_ffv1_enc.cpp`` on every core, a video at a time), and
-    :meth:`finish` writes the AVIs.  Then ``written`` holds each codec's
-    paths, ``sizes`` the bytes of its chunks and ``encode_s`` the seconds
-    from submit to finish (None when the cache had them)."""
+    each video a keyframe and 11 frames that carry its states) and as Ut
+    Video ``ULRG`` AVIs as FFmpeg's ``-c:v utvideo`` writes them (the left
+    predictor, 18 slices at 4K; phase 12 holds the median one);
+    and phase 14's I420 videos (``i420_paths``) as ``ULY0`` AVIs as
+    ``cv2.VideoWriter(fourcc "ULY0")`` writes them (the left predictor, 9
+    slices).  Cached under ``build/`` by the frames' bytes and the writers'
+    sources, as the MJPG videos are; otherwise :meth:`submit` hands the
+    PNG, HuffYUV and UtVideo encodes to a process pool (phase 12's, beside
+    its plain decodes, where no call is timed) and the FFV1 ones to a
+    thread (``tests/_torch_ffv1_enc.cpp`` on every core, a video at a
+    time), and :meth:`finish` writes the AVIs.  Then ``written`` holds each
+    codec's paths, ``sizes`` the bytes of its chunks and ``encode_s`` the
+    seconds from submit to finish (None when the cache had them)."""
 
-    CODECS = ("PNG", "HFYU RGB24", "FFV1")
+    CODECS = ("PNG", "HFYU RGB24", "FFV1", "ULRG", "ULY0")
+    # the Ut Video fourccs' predictors
+    UTVIDEO = {"ULRG": "left", "ULY0": "left"}
 
-    def __init__(self, paths):
+    def __init__(self, paths, i420_paths):
         import hashlib
         from camera_linearity_tpu_torch.utils import avi
         from tests import _torch_ffv1_writer as fw
         from tests import _torch_huffyuv_writer as hw
         from tests import _torch_png_writer as pw
         from tests import _torch_rawvideo_writer as rw
+        from tests import _torch_utvideo_writer as uw
         # RGB, as PNG stores it
         self.frames = [np.ascontiguousarray(f[..., ::-1]) for p in paths
                        for f in avi.raw_frames(p)]
+        # the I420 frames' (Y, U, V) planes
+        self.i420 = []
+        for p in i420_paths:
+            for c in avi.raw_chunks(p, avi.probe_avi(p)):
+                y = c[:H5 * W5].reshape(H5, W5)
+                u, v = c[H5 * W5:H5 * W5 * 3 // 2].reshape(
+                    2, H5 // 2, W5 // 2)
+                self.i420.append([y.copy(), u.copy(), v.copy()])
         key = hashlib.md5(usedforsecurity=False)
         for src in (pw.__file__, hw.__file__, rw.__file__, fw.__file__,
-                    fw._ENC_SRC):
+                    fw._ENC_SRC, uw.__file__):
             key.update(Path(src).read_bytes())
         for f in self.frames:
             key.update(f.data)
+        for planes in self.i420:
+            for c in planes:
+                key.update(c.data)
         self.cache = ROOT / "build" / "chip_smoke_lossless" / \
             key.hexdigest()[:12]
         self.written = {codec: [
@@ -1434,12 +1494,21 @@ class LosslessVideos:
         if sizes_file.exists() and all(
                 p.exists() for ps in self.written.values() for p in ps):
             self.sizes = json.loads(sizes_file.read_text())
-            self.frames = None
+            self.frames = self.i420 = None
+
+    def utvideo(self, fourcc: str):
+        """The Ut Video stream parameters and extradata of ``fourcc``."""
+        from camera_linearity_tpu_torch.native import utvideo_plain
+        from tests import _torch_utvideo_writer as uw
+        layout = utvideo_plain.LAYOUTS[fourcc]
+        extra = uw.extradata(layout, uw.cv2_slices(layout, H5))
+        return utvideo_plain.params(fourcc, extra), extra
 
     def submit(self, pool) -> None:
         from concurrent.futures import ThreadPoolExecutor
         from tests import _torch_ffv1_writer as fw
         from tests import _torch_huffyuv_writer as hw
+        from tests import _torch_utvideo_writer as uw
         from tests._torch_png_writer import encode_png
         if self.frames is None:
             return
@@ -1459,11 +1528,18 @@ class LosslessVideos:
             pool.submit(hw.encode_frame, f, self.stream) for f in bgr],
             "FFV1": [self._encoder.submit(ffv1_video, bgr[i:i + FRAMES5])
                      for i in range(0, len(bgr), FRAMES5)]}
-        self.frames = None
+        for fourcc, pictures in (("ULRG", bgr), ("ULY0", self.i420)):
+            params = self.utvideo(fourcc)[0]
+            predictor = uw.PREDICTORS[self.UTVIDEO[fourcc]]
+            self._pending[fourcc] = [
+                pool.submit(uw.encode_frame, uw.to_planes(f, params.layout),
+                            params, predictor) for f in pictures]
+        self.frames = self.i420 = None
 
     def finish(self) -> None:
         from tests import _torch_ffv1_writer as fw
         from tests import _torch_huffyuv_writer as hw
+        from tests import _torch_utvideo_writer as uw
         from tests._torch_png_writer import write_png_avi
         if self._pending is None:
             return
@@ -1481,6 +1557,9 @@ class LosslessVideos:
                         write_png_avi(tmp, part, H5, W5, "MPNG")
                     elif codec == "FFV1":
                         fw.write_stream_avi(tmp, part, self.ffv1, H5, W5)
+                    elif codec in self.UTVIDEO:
+                        uw.write_chunks_avi(tmp, part, codec, H5, W5,
+                                            self.utvideo(codec)[1])
                     else:
                         hw.write_stream_avi(tmp, part, self.stream, H5, W5,
                                             "HFYU")
@@ -1493,19 +1572,32 @@ class LosslessVideos:
         self.encode_s = time.perf_counter() - self._t0
 
 
-def lossless_phase(videos, raw, runs, run_batch, run_video_to_hdr) -> dict:
-    """Phases 14 (c) and (d): config 5 from the lossless compressed AVIs
-    ImageJ/Fiji and ``cv2.VideoWriter`` write, PNG and HuffYUV (c) and FFV1
-    (d): phase 14's raw frames as ``videos`` (:class:`LosslessVideos`,
-    written in phase 12) holds them; ``batch_video_to_hdr`` (K1, B = 8) and
-    ``video_to_hdr`` (K3) on each at the default decoder equal phase 14's
-    raw u16/f16 results bit for bit (``raw``), the codecs being lossless.
-    Returns the phases' times (``encode_s`` None where the cache had the
-    videos)."""
+# phase 14 (c)'s one batch_video_to_hdr call: two scenes a codec, and the
+# decoder each codec's frames go through
+MIXED = ("PNG", "HFYU RGB24", "FFV1", "ULRG")
+DECODED_AS = {"PNG": "png", "HFYU RGB24": "huffyuv", "FFV1": "ffv1",
+              "ULRG": "utvideo", "ULY0": "utvideo"}
+
+
+def lossless_phase(videos, raw, i420, runs, run_batch,
+                   run_video_to_hdr) -> dict:
+    """Phases 14 (c)-(e): config 5 from the lossless compressed AVIs
+    ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write,
+    phase 14's raw frames as ``videos`` (:class:`LosslessVideos`, written
+    in phase 12) holds them.  (c): ONE ``batch_video_to_hdr`` (K1, B = 8) at
+    the default decoder whose 8 scenes' videos are PNG, HuffYUV, FFV1 and
+    ``ULRG`` AVIs, two scenes a codec (each file takes its own decoder),
+    equal to phase 14's raw u16/f16 results bit for bit (``raw``), the
+    codecs being lossless; then ``video_to_hdr`` (K3) on the PNG and the
+    HuffYUV scene; (d) on the FFV1 one; (e) on the ``ULRG`` one, each equal
+    to raw's, and on the ``ULY0`` AVIs of phase 14's I420 planes, equal to
+    phase 14's I420 ``video_to_hdr`` (``i420``).  Returns the phases'
+    times (``encode_s`` None where the cache had the videos)."""
     from camera_linearity_tpu_torch.utils import avi
     t_phase = time.perf_counter()
-    log(f"phase 14 (c): config 5 from PNG and HuffYUV AVIs of phase 14's "
-        f"raw frames; {gpu_line()}")
+    log(f"phase 14 (c): config 5 from PNG, HuffYUV, FFV1 and UtVideo AVIs "
+        f"of phase 14's raw frames, two scenes a codec in one call; "
+        f"{gpu_line()}")
     failures = []
     written, sizes, encode_s = videos.written, videos.sizes, videos.encode_s
     # the chunks alone, as the frame fillers read them (no decode)
@@ -1523,61 +1615,78 @@ def lossless_phase(videos, raw, runs, run_batch, run_video_to_hdr) -> dict:
         + f"; one PNG video's chunks read (no decode) at "
         f"{read_mb / read_s:.0f} MB/s ({read_mb:.0f} MB, host clock)")
     before = runs[raw["label"]]
-    out_runs, v2h, walls = {}, {}, {}
-    for codec, decoded_as in (("PNG", "png"), ("HFYU RGB24", "huffyuv"),
-                              ("FFV1", "ffv1")):
-        if codec == "FFV1":
-            raise_failures("phase 14 (c)", failures)
-            walls["c"] = time.perf_counter() - t_phase
-            log(f"phase 14 (c): {walls['c']:.1f} s")
+    per = SCENES5 // len(MIXED)
+    label = (f"batch_video_to_hdr u16/f16 ({', '.join(MIXED)}: {per} scenes "
+             "each, auto)")
+    run = run_batch(label, [written[MIXED[i // per]] for i in range(SCENES5)],
+                    {DECODED_AS[c]: per * n for c in MIXED})
+    run.pop("merge")
+    out = run.pop("out")
+    runs[label] = run
+    same = list(out) == list(raw["out"]) and all(
+        torch.equal(a, b) for name, pair in out.items()
+        for a, b in zip(pair, raw["out"][name]))
+    log(f"  {'ok ' if same else 'BAD'} batch_video_to_hdr from "
+        f"{', '.join(MIXED)} vs phase 14's raw ({raw['label']}): "
+        f"{'bit for bit equal' if same else 'different'}, {len(out)} "
+        f"scenes; {run['mps']:.2f} MP/s, decode_s "
+        f"{run['stages'].get('decode_s', 0):.3f}, launches "
+        f"{run['launches']} (raw: {before['mps']:.2f} MP/s, decode_s "
+        f"{before['stages'].get('decode_s', 0):.3f}; {gpu_line()})")
+    if not same:
+        failures.append("batch_video_to_hdr from the lossless codecs "
+                        "against raw")
+    del out
+    torch.cuda.empty_cache()
+    v2h, walls = {}, {}
+    for codec in ("PNG", "HFYU RGB24", "FFV1", "ULRG", "ULY0"):
+        if codec in ("FFV1", "ULRG"):
+            sub = "c" if codec == "FFV1" else "d"
+            raise_failures(f"phase 14 ({sub})", failures)
+            walls[sub] = time.perf_counter() - t_phase
+            log(f"phase 14 ({sub}): {walls[sub]:.1f} s")
             t_phase = time.perf_counter()
             info = avi.probe_avi(written[codec][0])
+        if codec == "FFV1":
             log(f"phase 14 (d): config 5 from FFV1 AVIs of phase 14's raw "
                 f"frames, as cv2.VideoWriter writes BGR; "
                 f"{info.ffv1.num_h_slices} x {info.ffv1.num_v_slices} "
                 f"slices, a GOP of {FRAMES5}: "
                 f"{avi.ffv1_unsupported(info) or 'read'} "
                 f"({avi.ffv1_plain.layout_name(info.ffv1)}); {gpu_line()}")
-        label = f"batch_video_to_hdr u16/f16 ({codec}, auto)"
-        run = run_batch(label, written[codec], decoded_as)
-        run.pop("merge")
-        out = run.pop("out")
-        runs[label] = out_runs[codec] = run
-        same = list(out) == list(raw["out"]) and all(
-            torch.equal(a, b) for name, pair in out.items()
-            for a, b in zip(pair, raw["out"][name]))
-        log(f"  {'ok ' if same else 'BAD'} batch_video_to_hdr from {codec} "
-            f"vs phase 14's raw ({raw['label']}): "
-            f"{'bit for bit equal' if same else 'different'}, {len(out)} "
-            f"scenes; {run['mps']:.2f} MP/s, decode_s "
-            f"{run['stages'].get('decode_s', 0):.3f}, launches "
-            f"{run['launches']} (raw: {before['mps']:.2f} MP/s, decode_s "
-            f"{before['stages'].get('decode_s', 0):.3f}; {gpu_line()})")
-        if not same:
-            failures.append(f"batch_video_to_hdr from {codec} against raw")
-        del out
-        torch.cuda.empty_cache()
+        elif codec == "ULRG":
+            uly0 = avi.probe_avi(written["ULY0"][0])
+            log(f"phase 14 (e): config 5 from UtVideo AVIs: ULRG of phase "
+                f"14's raw frames ({videos.UTVIDEO['ULRG']} predictor, "
+                f"{avi.utvideo_plain.layout_name(avi.utvideo_params(info))}"
+                f"), ULY0 of its I420 planes as cv2.VideoWriter writes them "
+                f"({videos.UTVIDEO['ULY0']} predictor, "
+                f"{avi.utvideo_plain.layout_name(avi.utvideo_params(uly0))}"
+                f"): {avi.utvideo_unsupported(info) or 'read'}, "
+                f"{avi.utvideo_unsupported(uly0) or 'read'}; {gpu_line()}")
+        want, what = (i420, "phase 14's I420") if codec == "ULY0" else \
+            (raw, "raw")
         v2h[codec], _, got = run_video_to_hdr(f"video_to_hdr ({codec})",
-                                              written[codec], decoded_as)
+                                              written[codec],
+                                              DECODED_AS[codec])
         same = all(torch.equal(a, b) for a, b in zip(got,
-                                                     raw["video_to_hdr"]))
+                                                     want["video_to_hdr"]))
         log(f"  {'ok ' if same else 'BAD'} video_to_hdr from {codec} vs "
-            f"raw: {'bit for bit equal' if same else 'different'}; "
+            f"{what}: {'bit for bit equal' if same else 'different'}; "
             f"{v2h[codec]:.3f} s, one K3 launch")
         if not same:
-            failures.append(f"video_to_hdr from {codec} against raw")
+            failures.append(f"video_to_hdr from {codec} against {what}")
         del got
-    raise_failures("phase 14 (d)", failures)
-    walls["d"] = time.perf_counter() - t_phase
-    log(f"phase 14 (d): {walls['d']:.1f} s")
+    raise_failures("phase 14 (e)", failures)
+    walls["e"] = time.perf_counter() - t_phase
+    log(f"phase 14 (e): {walls['e']:.1f} s")
     return dict(walls_s=walls, encode_s=encode_s, read_mbps=read_mb / read_s,
                 raw_mps=before["mps"],
                 raw_decode_s=before["stages"].get("decode_s", 0),
                 frame_mb={k: v / n / 1e6 for k, v in sizes.items()},
-                runs={k: dict(wall=r["wall"], mps=r["mps"],
-                              decode_s=r["stages"].get("decode_s", 0),
-                              launches=r["launches"])
-                      for k, r in out_runs.items()},
+                run=dict(wall=run["wall"], mps=run["mps"],
+                         decode_s=run["stages"].get("decode_s", 0),
+                         launches=run["launches"]),
                 video_to_hdr_s=v2h)
 
 
@@ -1816,7 +1925,7 @@ def video_phases(dev, res, directory) -> dict:
     del layouts
     raise_failures("phase 12, the rawvideo reader against "
                    "rawvideo_plain.py", failures)
-    lossless_videos = LosslessVideos(paths)
+    lossless_videos = LosslessVideos(paths, i420_paths)
     decode_ms.update(lossless_layout_rows(
         pools[-1][:2], [bgr_dev, torch.as_tensor(pools[-1][1], device=dev)],
         lossless_videos))
@@ -1927,15 +2036,22 @@ def video_phases(dev, res, directory) -> dict:
                   decoder, decoded_as):
         """One batch_video_to_hdr call with the counts reset, held to the
         plain merge, the NumPy oracle at the crop and the reference
-        energy; returns what phase 14 keeps of it."""
+        energy; returns what phase 14 keeps of it.  ``scene_paths``: every
+        scene's exposure videos, or a list of SCENES5 such lists (one a
+        scene); ``decoded_as``: the decoder every frame goes through, or
+        the frames each decoder is to decode."""
         failures = []
+        if not isinstance(scene_paths[0], (list, tuple)):
+            scene_paths = [scene_paths] * SCENES5
+        if isinstance(decoded_as, str):
+            decoded_as = {decoded_as: n_frames}
         # the one-time costs (builds, prefaults, the leg's first run) are
         # paid once a wire: a second prewarm of the same wire found them
         # paid (prefault 0.000 s) and ran the leg again, 4-6 s a call
         if (wire_val, wire_std) not in prewarmed:
             t0 = time.perf_counter()
             warm = pipeline.prewarm_batch_video_to_hdr(
-                SCENES5, len(scene_paths), H5, W5, icrf, calibrate=spec,
+                SCENES5, len(scene_paths[0]), H5, W5, icrf, calibrate=spec,
                 wire_val=wire_val, wire_std=wire_std)
             prewarmed.add((wire_val, wire_std))
             log(f"  prewarm {wire_val}/{wire_std}: "
@@ -1948,7 +2064,7 @@ def video_phases(dev, res, directory) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = pipeline.batch_video_to_hdr(
-            {f"scene{i}": scene_paths for i in range(SCENES5)}, icrf,
+            {f"scene{i}": scene_paths[i] for i in range(SCENES5)}, icrf,
             wire_val=wire_val, wire_std=wire_std, calibrate=spec,
             decoder=decoder)
         torch.cuda.synchronize()
@@ -1965,7 +2081,7 @@ def video_phases(dev, res, directory) -> dict:
         if counts != {"merge_nhwc_fused": 1, "merge_nhwc_lerp": 0,
                       "merge_nhwc_lerp_bp": 0}:
             failures.append(f"launches {counts}")
-        if decoded != {decoded_as: n_frames}:
+        if decoded != decoded_as:
             failures.append(f"decoders {decoded}")
         (bv, bs, ex, ic, icd), _ = rec["merge_batch"]
         for s in (0, SCENES5 - 1):
@@ -2171,8 +2287,8 @@ def video_phases(dev, res, directory) -> dict:
             run.pop("out")
             runs[label] = run
             torch.cuda.empty_cache()
-            t_v2h_i420, _, _ = run_video_to_hdr("video_to_hdr (I420)",
-                                             i420_paths, "rawvideo")
+            t_v2h_i420, _, i420_v2h = run_video_to_hdr(
+                "video_to_hdr (I420)", i420_paths, "rawvideo")
             streams = stream_phase(
                 dev, directory, mjpg_paths, i420_paths, stream0, runs,
                 lambda paths: run_batch(
@@ -2183,11 +2299,11 @@ def video_phases(dev, res, directory) -> dict:
                     "video_to_hdr (MJPG stream 1)", paths, "ffmpeg"))
             del stream0
             lossless = lossless_phase(
-                lossless_videos, raw_u16, runs,
+                lossless_videos, raw_u16, dict(video_to_hdr=i420_v2h), runs,
                 lambda label, paths, decoded_as: run_batch(
                     label, paths, crops, "u16", "f16", "auto", decoded_as),
                 run_video_to_hdr)
-            del raw_u16
+            del raw_u16, i420_v2h
         finally:
             if cl_decoder is not None:
                 os.environ["CL_DECODER"] = cl_decoder

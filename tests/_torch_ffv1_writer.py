@@ -70,6 +70,7 @@ LAYOUTS = {
     "yuv444p": (0, True, 0, 0, False, 8), "yuv440p": (0, True, 0, 1, False, 8),
     "yuv411p": (0, True, 2, 0, False, 8), "yuv410p": (0, True, 2, 2, False, 8),
     "ya8": (0, False, 0, 0, True, 8), "yuva420p": (0, True, 1, 1, True, 8),
+    "yuva444p": (0, True, 0, 0, True, 8),
     "gray10": (0, False, 0, 0, False, 10),
     "yuv420p10": (0, True, 1, 1, False, 10),
     "rgb10": (1, True, 0, 0, False, 10),

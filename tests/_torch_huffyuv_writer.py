@@ -33,7 +33,7 @@ from tests._torch_rawvideo_writer import video_headers, write_avi
 __all__ = ["Stream", "make_stream", "encode_frame", "write_huffyuv_avi",
            "write_stream_avi", "stream_params",
            "extradata", "store_lengths", "huffman_lengths", "to_planes",
-           "frame_symbols", "pack", "BPP", "PREDICTORS"]
+           "frame_symbols", "pack", "pack_codes", "BPP", "PREDICTORS"]
 
 BPP = {"yuv420p": 12, "yuy2": 16, "rgb24": 24, "rgb32": 32}
 PREDICTORS = {"left": 0, "gradient": 1, "median": 2}
@@ -230,6 +230,16 @@ def pack(tables: np.ndarray, values: np.ndarray, s: Stream) -> bytes:
         np.uint64)[key]
     lengths = np.concatenate([s.lengths.reshape(-1), np.full(256, 8)]
                              ).astype(np.int64)[key]
+    return pack_codes(codes, lengths)
+
+
+def pack_codes(codes: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Codes (uint64, the low ``lengths`` bits of each, up to 32) most
+    significant bit first, zero-padded to a word, as 32-bit little-endian
+    words; empty for no codes."""
+    if not codes.size:
+        return b""
+    lengths = lengths.astype(np.int64)
     ends = np.cumsum(lengths)
     starts = ends - lengths
     words = -(-int(ends[-1]) // 32)

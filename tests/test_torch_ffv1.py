@@ -8,9 +8,9 @@ Clips are written by cv2's own writer (``cv2.VideoWriter(fourcc
 coders, the default and a custom state table, initial context states in
 the extradata, context models 0 and 1, one
 to many slices, with and without slice CRCs, every frame a keyframe or a
-GOP of 12, RGB with and without alpha, gray8, gray16, yuv420p and yuv422p,
-odd sizes) from ``numpy.random.default_rng(seed)``, 14 frames each, so a
-second GOP's keyframe resets the states.  Tolerances:
+GOP of 12, RGB with and without alpha, gray8, gray16, yuv420p, yuv422p and
+yuv444p, odd sizes) from ``numpy.random.default_rng(seed)``, 14 frames
+each, so a second GOP's keyframe resets the states.  Tolerances:
 
 * every frame of the plain version, of ``native.ffv1_decode_bgr_batch``
   (fed in two calls, the states carried between them) and of the port's
@@ -81,6 +81,10 @@ VARIANTS = {
                                     (9, 13)),
     "yuv422p v3 golomb ctx1": ("yuv422p", 3, 0, 1, (2, 3), 12, 0, (12, 10)),
     "yuv422p v0 golomb": ("yuv422p", 0, 0, 0, (1, 1), 12, 0, (8, 12)),
+    "yuv444p v3 golomb odd": ("yuv444p", 3, 0, 0, (2, 2), 12, 1, (9, 13)),
+    "yuv444p v3 range custom ctx1": ("yuv444p", 3, 2, 1, (3, 2), 12, 1,
+                                     (12, 16)),
+    "yuv444p v1 range": ("yuv444p", 1, 1, 0, (1, 1), 12, 0, (11, 15)),
     "gray8 v3 range initial states": ("gray8", 3, 1, 0, (2, 2), 12, 1,
                                       (9, 13)),
     "bgra v2 range custom ctx1 initial states": ("bgra", 2, 2, 1, (1, 2),
@@ -361,7 +365,7 @@ def test_video_as_stream_one_behind_audio(tmp_path, monkeypatch):
 
 # name: (writer config, what the refusal names)
 REFUSED = {
-    "yuv444p": (fw.Config("yuv444p"), "yuv444p"),
+    "yuva444p": (fw.Config("yuva444p"), "yuv444p with alpha"),
     "yuv440p": (fw.Config("yuv440p"), "yuv440p"),
     "yuv411p": (fw.Config("yuv411p"), "yuv411p"),
     "yuv410p": (fw.Config("yuv410p"), "yuv410p"),

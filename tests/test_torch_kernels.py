@@ -809,20 +809,36 @@ _PORT_MODULES = [
 ]
 
 
-def test_port_imports_no_jax():
-    """Importing the port, and decoding an MJPG AVI with its decoder and
-    the decoder's plain version, pulls in no JAX, cv2, PIL or matplotlib."""
+def test_port_imports_no_jax(tmp_path):
+    """Importing the port, and decoding an MJPG AVI and a UtVideo (ULY0)
+    AVI with its decoders and the decoders' plain versions, pulls in no
+    JAX, cv2, PIL or matplotlib."""
+    from tests._torch_utvideo_writer import write_utvideo_avi
+    clip = tmp_path / "uly0 5ms.avi"
+    rng = np.random.default_rng(0)
+    write_utvideo_avi(clip, [[rng.integers(0, 256, s, dtype=np.uint8)
+                              for s in ((8, 12), (4, 6), (4, 6))]] * 2, 8, 12,
+                      "ULY0", "median", 2)
     out = _run_python(
         "import importlib, sys\n"
         f"for m in {_PORT_MODULES!r}: importlib.import_module(m)\n"
         "import numpy as np\n"
         "from camera_linearity_tpu_torch import native\n"
         "from camera_linearity_tpu_torch.native import jpeg_plain\n"
+        "from camera_linearity_tpu_torch.native import utvideo_plain\n"
         "from camera_linearity_tpu_torch.utils import avi\n"
         "frames = list(avi.mjpg_chunks('tests/data/mjpg 5ms.avi'))\n"
         "dst = np.empty((len(frames), 32, 48, 3), np.uint8)\n"
         "native.jpeg_decode_bgr_batch(frames, dst, fast=True)\n"
         "jpeg_plain.decode(frames[0])\n"
+        f"info = avi.probe_avi({str(clip)!r})\n"
+        "params = avi.utvideo_params(info)\n"
+        "chunks = [bytes(c) for c in avi.frame_chunks(\n"
+        f"    {str(clip)!r}, info)]\n"
+        "dst = np.empty((2, 8, 12, 3), np.uint8)\n"
+        "native.utvideo_decode_bgr_batch(chunks, dst, params)\n"
+        "assert (dst[1] == utvideo_plain.decode_bgr(chunks[1], params, 8,\n"
+        "                                           12)).all()\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'cv2', 'PIL',\n"
         "                                    'camera_linearity_tpu',\n"

@@ -321,9 +321,9 @@ def test_decoder_resolution(video, tmp_path, monkeypatch, caplog):
 
 
 def test_other_codecs_need_cv2(tmp_path, monkeypatch):
-    # UtVideo (ULRG), a lossless codec the port has no decoder of yet
-    path = tmp_path / "ulrg 5ms.avi"
-    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"ULRG"), 10,
+    # MPEG-4 Part 2 (FMP4), a lossy codec the port has no decoder of
+    path = tmp_path / "fmp4 5ms.avi"
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"FMP4"), 10,
                              (W, H))
     frames = _frames(4, 3)
     for f in frames:
@@ -335,7 +335,7 @@ def test_other_codecs_need_cv2(tmp_path, monkeypatch):
         got["mean"], jvideo.welford_algorithm(path, use_std=True,
                                               decoder="cv2")["mean"])
     monkeypatch.setitem(sys.modules, "cv2", None)  # cv2 not installed
-    with pytest.raises(ValueError, match="codec 'UL..'.*needs cv2"):
+    with pytest.raises(ValueError, match="codec 'FMP4'.*needs cv2"):
         tvideo._resolve_decoder("native", [path], H, W, 3)
     with pytest.raises(ValueError, match="needs cv2"):
         tvideo._resolve_decoder("cv2", [path], H, W, 3)
