@@ -372,7 +372,10 @@ def cmd_doctor(args) -> int:
              "yuv420p, yuv422p, yuv444p; a slice a thread"),
             ("UtVideo", native.utvideo_available, "_utvideo", "UtVideo "
              "AVIs (ULRG, ULRA, ULY0, ULY2, ULY4, ULH0, ULH2, ULH4): every "
-             "predictor and slice count; a frame a thread")):
+             "predictor and slice count; a frame a thread"),
+            ("Lagarith", native.lagarith_available, "_lagarith", "Lagarith "
+             "AVIs (LAGS): RGB24, RGBA, YUY2, YV12 and solid frames, every "
+             "escape form; a plane a thread")):
         print(f"native {name} decoder: " + (
             f"built; {what} (cv2's bytes)" if ok() else
             f"unavailable ({native.build_error(stem)}); such AVIs cannot "
@@ -402,8 +405,8 @@ def cmd_doctor(args) -> int:
 
 def _doctor_video(path: Path) -> None:
     """Decode rate of each reader the port has for ``path``; for an MJPG
-    AVI, the port's decoder in each mode, and for a PNG, HuffYUV, FFV1 or
-    UtVideo AVI its decoder, on one thread and on all."""
+    AVI, the port's decoder in each mode, and for a PNG, HuffYUV, FFV1,
+    UtVideo or Lagarith AVI its decoder, on one thread and on all."""
     import importlib.util
     import itertools
     import time
@@ -433,11 +436,12 @@ def _doctor_video(path: Path) -> None:
                       f"({w}x{h}, {len(payloads)} frames, "
                       f"{secs / len(payloads) * 1e3:.1f} ms a frame)")
     codecs = avi.PNG_CODECS + avi.HUFFYUV_CODECS + avi.FFV1_CODECS + \
-        avi.UTVIDEO_CODECS
+        avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS
     if info is not None and info.codec in codecs:
         kind = "png" if info.codec in avi.PNG_CODECS else \
             "huffyuv" if info.codec in avi.HUFFYUV_CODECS else \
-            "ffv1" if info.codec in avi.FFV1_CODECS else "utvideo"
+            "ffv1" if info.codec in avi.FFV1_CODECS else \
+            "lagarith" if info.codec in avi.LAGARITH_CODECS else "utvideo"
         payloads = [bytes(c) for c in itertools.islice(
             avi.frame_chunks(path, info), 120)]
         cores = os.cpu_count() or 1
@@ -460,6 +464,9 @@ def _doctor_video(path: Path) -> None:
                 elif kind == "utvideo":
                     native.utvideo_decode_bgr_batch(
                         part, dst[:len(part)], params, threads=threads)
+                elif kind == "lagarith":
+                    native.lagarith_decode_bgr_batch(
+                        part, dst[:len(part)], threads=threads)
                 else:
                     native.huffyuv_decode_bgr_batch(
                         part, dst[:len(part)], params, threads=threads)

@@ -47,6 +47,13 @@ of capture tools and ``cv2.VideoWriter(fourcc "ULY0")``, Ut Video
 predictor, slice count and the interlaced flag, BT.709 for the ``ULH``
 fourccs; the 10-bit Pro and the pack-mode fourccs raise before any
 decode, and a damaged frame raises naming the frame, plane and slice);
+the lossless video of VirtualDub-era capture setups, Lagarith (``LAGS``;
+``"lagarith"``, ``native.lagarith_decode_bgr_batch``: RGB24, RGBA, YUY2,
+YV12 and solid frames, every escape form, mixed in one stream, null
+frames skipped as cv2 skips them; the uncompressed, old arithmetic RGB
+and reduced-resolution frame types raise, the first frame's before any
+decode and a later one's naming it, and so does a damaged frame, naming
+the frame and plane);
 an MJPG AVI with the port's
 own JPEG decoder (``native/jpeg.cpp``) in one of three modes.  ``"ffmpeg"``,
 the default, gives the bytes ``cv2.VideoCapture`` gives (FFmpeg's MJPEG
@@ -209,15 +216,17 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
     """Callables that decode the next frames of ``path`` into the (k, H, W,
     C) uint8 array they are given and return how many they decoded (0:
     the stream ended).  The MJPEG decoder takes up to k frames a call, and
-    the rawvideo reader and the PNG, HuffYUV, FFV1 and UtVideo decoders up
-    to ``batch_size``, on all cores (FFV1 a slice a thread, one decoder
+    the rawvideo reader and the PNG, HuffYUV, FFV1, UtVideo and Lagarith
+    decoders up to ``batch_size``, on all cores (FFV1 a slice a thread,
+    Lagarith a plane a thread, one decoder
     object for the video, which carries the slices' states from call to
     call); the raw RGBA reader (which reads each frame when the iterator
     advances) and cv2 take one."""
     if decoder == "raw":
         for frame in avi.raw_frames(path):
             yield lambda dst, frame=frame: np.copyto(dst[0], frame) or 1
-    elif decoder in ("rawvideo", "png", "huffyuv", "ffv1", "utvideo"):
+    elif decoder in ("rawvideo", "png", "huffyuv", "ffv1", "utvideo",
+                     "lagarith"):
         info = avi.probe_avi(path)
         # every chunk of a call is read into a buffer of its own
         if decoder == "rawvideo":
@@ -251,6 +260,14 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
             decode = lambda payloads, dst, first: \
                 native.utvideo_decode_bgr_batch(
                     payloads, dst, params, planes=planes, first_frame=first)
+        elif decoder == "lagarith":
+            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            # the YUY2 and YV12 frames' planes, reused from call to call
+            planes = np.empty(batch_size * native.frame_bytes(
+                "yuv422p", info.height, info.width), np.uint8)
+            decode = lambda payloads, dst, first: \
+                native.lagarith_decode_bgr_batch(
+                    payloads, dst, planes=planes, first_frame=first)
         else:
             chunks = avi.frame_chunks(path, info, ring=batch_size)
             params = avi.huffyuv_params(info)
@@ -382,15 +399,17 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
     decodes to three channels in the ``"ffmpeg"`` mode whatever its
     component count (cv2 gives BGR for grayscale too), to its component
     count in the ``"turbo"`` modes; RGBA, the rawvideo layouts, PNG,
-    HuffYUV, FFV1 and UtVideo to three.  An uncompressed, PNG, HuffYUV,
-    FFV1 or UtVideo AVI the port's decoders do not read raises here,
-    naming what (``avi.raw_unsupported``, ``avi.png_unsupported``,
-    ``avi.huffyuv_unsupported``, ``avi.ffv1_unsupported``,
-    ``avi.utvideo_unsupported``); so does one whose decoder did not build
+    HuffYUV, FFV1, UtVideo and Lagarith to three.  An uncompressed, PNG,
+    HuffYUV, FFV1, UtVideo or Lagarith AVI the port's decoders do not read
+    raises here, naming what (``avi.raw_unsupported``,
+    ``avi.png_unsupported``, ``avi.huffyuv_unsupported``,
+    ``avi.ffv1_unsupported``, ``avi.utvideo_unsupported``,
+    ``avi.lagarith_unsupported``); so does one whose decoder did not build
     (RuntimeError)."""
     own = info is not None and (
         info.codec in ("RGBA", "MJPG") + avi.PNG_CODECS + avi.HUFFYUV_CODECS
-        + avi.FFV1_CODECS + avi.UTVIDEO_CODECS or info.layout is not None)
+        + avi.FFV1_CODECS + avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS
+        or info.layout is not None)
     if info is not None and not own:
         unsupported = avi.raw_unsupported(path, info)
         if unsupported:
@@ -433,6 +452,11 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
         yuv = not why and native.utvideo_plain.yuv_layout(
             avi.utvideo_params(info))
         libs = ("utvideo", "mjpeg") if yuv else ("utvideo",)
+    elif info.codec in avi.LAGARITH_CODECS:
+        decoder, why = "lagarith", avi.lagarith_unsupported(path, info)
+        # any frame may be YUY2 or YV12, whose planes convert through
+        # jpeg.cpp's rawvideo reader
+        libs = ("lagarith", "mjpeg")
     elif info.layout:
         decoder, why, libs = "rawvideo", avi.raw_unsupported(path, info), \
             ("mjpeg",)
@@ -455,35 +479,38 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
 
 # the port's own decoders by name, and the native sources they build from
 _DECODER_NAMES = {"png": "PNG", "huffyuv": "HuffYUV", "rawvideo": "rawvideo",
-                  "ffv1": "FFV1", "utvideo": "UtVideo"}
+                  "ffv1": "FFV1", "utvideo": "UtVideo",
+                  "lagarith": "Lagarith"}
 _SOURCES = {"png": "png.cpp", "huffyuv": "huffyuv.cpp", "mjpeg": "jpeg.cpp",
-            "ffv1": "ffv1.cpp", "utvideo": "utvideo.cpp"}
+            "ffv1": "ffv1.cpp", "utvideo": "utvideo.cpp",
+            "lagarith": "lagarith.cpp"}
 
 
 def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
                      width: int, chs: int) -> List[str]:
     """Each file's decoder: ``"raw"``, ``"rawvideo"``, ``"png"``,
-    ``"huffyuv"``, ``"ffv1"``, ``"utvideo"``, ``"ffmpeg"``, ``"turbo"``,
-    ``"turbo_fast"`` or ``"cv2"``.
+    ``"huffyuv"``, ``"ffv1"``, ``"utvideo"``, ``"lagarith"``, ``"ffmpeg"``,
+    ``"turbo"``, ``"turbo_fast"`` or ``"cv2"``.
 
     ``"auto"`` reads env ``CL_DECODER`` (default ``"native"``).
     ``"native"``: the container decides — an RGBA AVI reads raw, the other
     uncompressed layouts through the port's rawvideo reader (cv2's bytes:
     BI_RGB 8/16/24/32-bit, Y800/GREY/Y8, I420/IYUV/YV12, Y42B, NV12,
-    YUY2/UYVY), PNG, HuffYUV, FFV1 and UtVideo AVIs through the port's
-    PNG, HuffYUV, FFV1 and UtVideo decoders (cv2's bytes),
-    an MJPG AVI through the port's JPEG decoder in its ``"ffmpeg"`` mode
-    (cv2's bytes, as the JAX package's default gives them), anything else
-    (MPEG-4 Part 2, H.264, Lagarith, ...) through cv2 when it imports
-    (else a ValueError naming the codec).
+    YUY2/UYVY), PNG, HuffYUV, FFV1, UtVideo and Lagarith AVIs through the
+    port's PNG, HuffYUV, FFV1, UtVideo and Lagarith decoders (cv2's
+    bytes), an MJPG AVI through the port's JPEG decoder in its
+    ``"ffmpeg"`` mode (cv2's bytes, as the JAX package's default gives
+    them), anything else (MPEG-4 Part 2, H.264, ...) through cv2 when it
+    imports (else a ValueError naming the codec).
     ``"ffmpeg"``/``"turbo"``/``"turbo_fast"``: that decoder's modes on MJPG
     files; another container logs a warning and takes its own decoder.
     ``"cv2"``: cv2 for every file.  RGBA, rawvideo, PNG, HuffYUV, FFV1,
-    UtVideo and MJPG files are checked against the expected geometry and
-    ``chs`` before any decode; a PNG, HuffYUV, FFV1 or UtVideo layout the
-    decoders do not read raises then, naming it (``avi.png_unsupported``,
-    ``avi.huffyuv_unsupported``, ``avi.ffv1_unsupported``,
-    ``avi.utvideo_unsupported``);
+    UtVideo, Lagarith and MJPG files are checked against the expected
+    geometry and ``chs`` before any decode; a PNG, HuffYUV, FFV1, UtVideo
+    or Lagarith layout the decoders do not read raises then, naming it
+    (``avi.png_unsupported``, ``avi.huffyuv_unsupported``,
+    ``avi.ffv1_unsupported``, ``avi.utvideo_unsupported``,
+    ``avi.lagarith_unsupported``: the first frame's type);
     1/2/4-bit BI_RGB, BI_BITFIELDS, palette-change chunks and a frame
     chunk longer than the frame (not its padded size) raise then, naming
     what; and an MJPG's

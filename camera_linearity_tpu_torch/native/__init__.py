@@ -12,8 +12,9 @@ them; and the frames of uncompressed AVIs as cv2 gives them) and
 port's own), ``png.cpp`` (PNG frames of an AVI: unfiltering, Adam7 and
 the conversion to BGR; Python's ``zlib`` inflates), ``huffyuv.cpp``
 (HuffYUV frames of an AVI), ``ffv1.cpp`` (FFV1 frames of an AVI, a
-slice a thread, the context states kept in a decoder object) and
-``utvideo.cpp`` (Ut Video frames of an AVI, a frame a thread) build
+slice a thread, the context states kept in a decoder object),
+``utvideo.cpp`` (Ut Video frames of an AVI, a frame a thread) and
+``lagarith.cpp`` (Lagarith frames of an AVI, a plane a thread) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -22,8 +23,8 @@ without a compiler; ``available()`` reports which path is active and
 :func:`build_error` why a build failed.  The decoders and the TIFF codec
 have no fallback: their entry points raise without the library
 (``native/jpeg_plain.py``, ``tiff_plain.py``, ``png_plain.py``,
-``huffyuv_plain.py``, ``ffv1_plain.py`` and ``utvideo_plain.py`` are the
-plain versions the tests hold them to).
+``huffyuv_plain.py``, ``ffv1_plain.py``, ``utvideo_plain.py`` and
+``lagarith_plain.py`` are the plain versions the tests hold them to).
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ from .jpeg_plain import TIFF_FORMS as TIFF_JPEG_FORMS
 # the uncompressed video layouts, by their number in jpeg.cpp
 from .rawvideo_plain import LAYOUTS as RAW_LAYOUTS, frame_bytes
 from .rawvideo_plain import MATRICES as RAW_MATRICES
-from . import ffv1_plain, huffyuv_plain, png_plain, utvideo_plain
+from . import (ffv1_plain, huffyuv_plain, lagarith_plain, png_plain,
+               utvideo_plain)
 
 __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
@@ -61,7 +63,8 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "png_decode_bgr_batch", "huffyuv_available",
            "huffyuv_decode_bgr_batch", "ffv1_available", "Ffv1Decoder",
            "ffv1_decode_bgr_batch", "utvideo_available",
-           "utvideo_decode_bgr_batch"]
+           "utvideo_decode_bgr_batch", "lagarith_available",
+           "lagarith_decode_bgr_batch"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
 # fixed-point mean (grid 1/65535 on the [0,1] DN scale, absolute error
@@ -136,6 +139,7 @@ _PNG_SRC = _DIR / "png.cpp"
 _HUFFYUV_SRC = _DIR / "huffyuv.cpp"
 _FFV1_SRC = _DIR / "ffv1.cpp"
 _UTVIDEO_SRC = _DIR / "utvideo.cpp"
+_LAGARITH_SRC = _DIR / "lagarith.cpp"
 _BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 
 
@@ -183,7 +187,8 @@ _NTHREADS = min(16, os.cpu_count() or 1)
 
 def build_error(stem: str = "_stager") -> Optional[str]:
     """Why the last build of ``stem`` (``"_stager"``, ``"_mjpeg"``,
-    ``"_tiff"``, ``"_png"``, ``"_huffyuv"``, ``"_ffv1"`` or ``"_utvideo"``)
+    ``"_tiff"``, ``"_png"``, ``"_huffyuv"``, ``"_ffv1"``, ``"_utvideo"`` or
+    ``"_lagarith"``)
     failed, or None when it did not fail."""
     return _build_errors.get(stem)
 
@@ -388,6 +393,16 @@ def _declare_utvideo(lib: ctypes.CDLL) -> None:
     lib.clt_utvideo_version.restype = i
 
 
+def _declare_lagarith(lib: ctypes.CDLL) -> None:
+    sz, i = ctypes.c_size_t, ctypes.c_int
+    u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    lib.clt_lagarith_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(sz), sz, u8p, u8p, sz,
+        i, i, i, ip, ip]
+    lib.clt_lagarith_decode_batch.restype = None
+    lib.clt_lagarith_version.restype = i
+
+
 # stem: (source, extra g++ flags, entry-point types, what it is).  -fwrapv
 # for jpeg.cpp: the IDCTs' sums of corrupt coefficients wrap, as libjpeg's
 # 32-bit lanes do, instead of being undefined.
@@ -398,6 +413,7 @@ _DECODERS = {
     "_huffyuv": (_HUFFYUV_SRC, (), _declare_huffyuv, "HuffYUV decoder"),
     "_ffv1": (_FFV1_SRC, (), _declare_ffv1, "FFV1 decoder"),
     "_utvideo": (_UTVIDEO_SRC, (), _declare_utvideo, "UtVideo decoder"),
+    "_lagarith": (_LAGARITH_SRC, (), _declare_lagarith, "Lagarith decoder"),
 }
 _decoder_libs: Dict[str, Optional[ctypes.CDLL]] = {}
 
@@ -655,6 +671,12 @@ def huffyuv_available() -> bool:
 def ffv1_available() -> bool:
     """True when the FFV1 decoder built (or was built) and loaded."""
     return _load_decoder("_ffv1") is not None
+
+
+def lagarith_available() -> bool:
+    """True when the native Lagarith decoder built (or was built) and
+    loaded."""
+    return _load_decoder("_lagarith") is not None
 
 
 def utvideo_available() -> bool:
@@ -1007,6 +1029,77 @@ def utvideo_decode_bgr_batch(payloads, dst: np.ndarray,
                               for i in range(k)], dst, layout,
                              threads=threads, first_frame=first_frame,
                              matrix=utvideo_plain.matrix(params))
+    return k
+
+
+_LAGARITH_REASONS = {
+    -1: "a chunk shorter than its frame header",
+    -2: "its offset is past the chunk",
+    -3: "a probability header FFmpeg refuses",
+    -4: "data that end before the plane does",
+    -5: "an escape byte FFmpeg refuses",
+    -6: "a zero run longer than its row or plane"}
+
+
+def lagarith_decode_bgr_batch(payloads, dst: np.ndarray,
+                              planes: Optional[np.ndarray] = None,
+                              threads: Optional[int] = None,
+                              first_frame: int = 0) -> int:
+    """Decode Lagarith frame chunk i into ``dst[i]`` ((k, H, W, 3) BGR
+    uint8), giving the frame ``cv2.VideoCapture`` gives for it:
+    ``lagarith.cpp`` decodes the planes of all k frames side by side, a
+    plane a thread, on up to ``threads`` threads (default: every CPU), RGB
+    and solid frames straight into ``dst``, YUY2 and YV12 frames into
+    planes (``planes``: a reusable uint8 buffer of at least k yuv422p
+    frames) that the rawvideo converter (``jpeg.cpp``) turns into BGR.
+    Every frame carries its own type, so one batch may mix them.  Returns
+    k; raises ValueError naming the first frame (from ``first_frame``) of
+    a type FFmpeg refuses, or the first damaged one and its plane, after
+    every frame was tried; a RuntimeError where a library did not
+    build."""
+    lib = _require(_load_decoder("_lagarith"), "_lagarith")
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    k, (h, w) = len(payloads), dst.shape[1:3]
+    if dst.shape[0] != k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, payloads {k}")
+    flats = [np.frombuffer(p, np.uint8) for p in payloads]
+    kinds = [lagarith_plain.frame_kind(int(f[0])) if f.size else "bgr"
+             for f in flats]
+    yuv = any(kind != "bgr" for kind in kinds)
+    plane_bytes = frame_bytes("yuv422p", h, w) if yuv else 0
+    if yuv:
+        _mjpeg()   # the YUV layouts' converter
+        if planes is None or planes.size < k * plane_bytes:
+            planes = np.empty(k * plane_bytes, np.uint8)
+        _u8_buffer(planes, "planes", writable=True)
+    ptrs, sizes = _ptr_array(flats)
+    rcs, wheres = (ctypes.c_int * k)(), (ctypes.c_int * k)()
+    lib.clt_lagarith_decode_batch(
+        ptrs, sizes, k, _as_u8_ptr(dst), _as_u8_ptr(planes) if yuv else None,
+        plane_bytes, h, w, threads or os.cpu_count() or 1, rcs, wheres)
+    for i, rc in enumerate(rcs):
+        if rc == 0:
+            continue
+        at = f"lagarith_decode_bgr_batch: frame {first_frame + i}: "
+        if rc == -7:
+            t = int(flats[i][0])
+            raise ValueError(at + (lagarith_plain.unsupported(t, h, w) or
+                                   "a frame the decoder does not read"))
+        where = f"plane {wheres[i]}: " if wheres[i] >= 0 else ""
+        raise ValueError(at + where + _LAGARITH_REASONS.get(
+            rc, f"return code {rc}"))
+    a = 0
+    while a < k:
+        b = a + 1
+        while b < k and kinds[b] == kinds[a]:
+            b += 1
+        layout = kinds[a]
+        if layout != "bgr":
+            raw_decode_bgr_batch(
+                [planes[i * plane_bytes:(i + 1) * plane_bytes]
+                 for i in range(a, b)], dst[a:b], layout, threads=threads,
+                first_frame=first_frame + a)
+        a = b
     return k
 
 

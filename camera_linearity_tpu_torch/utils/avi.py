@@ -1,6 +1,6 @@
 """AVI container reader (pure Python, streaming): MJPG chunks, raw RGBA
 frames, the chunks of the other uncompressed layouts and of PNG, HuffYUV,
-FFV1 and Ut Video video, and the stream's geometry.
+FFV1, Ut Video and Lagarith video, and the stream's geometry.
 
 Port of ``camera_linearity_tpu/utils/avi.py``, copied (importing the JAX
 package would import JAX).  An AVI file is a RIFF tree; the walker goes
@@ -20,10 +20,13 @@ lossless codec of moving-image archives, FFV1 (``FFV1``: its header in the
 ``strf`` bytes after the header for versions 2 and 3, in every keyframe
 for 0 and 1), and the lossless codec of capture tools, Ut Video (``ULRG``,
 ``ULRA``, ``ULY0``, ``ULY2``, ``ULY4``, ``ULH0``, ``ULH2``, ``ULH4``: 16
-bytes of parameters after the header), are read chunk by chunk too
+bytes of parameters after the header) and Lagarith (``LAGS``: each frame
+names its own type; an empty chunk is Lagarith's null frame, which cv2
+skips, as :func:`frame_chunks` does), are read chunk by chunk too
 (:func:`frame_chunks`) and decoded by the port's
 ``native.png_decode_bgr_batch``, ``native.huffyuv_decode_bgr_batch``,
-``native.ffv1_decode_bgr_batch`` and ``native.utvideo_decode_bgr_batch``.
+``native.ffv1_decode_bgr_batch``, ``native.utvideo_decode_bgr_batch`` and
+``native.lagarith_decode_bgr_batch``.
 So the port reads all of them without a video codec library, and reads
 exactly the frames ``cv2.VideoCapture`` returns for them.
 
@@ -48,7 +51,8 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from ..native import ffv1_plain, huffyuv_plain, png_plain, utvideo_plain
+from ..native import (ffv1_plain, huffyuv_plain, lagarith_plain,
+                      png_plain, utvideo_plain)
 from ..native.jpeg_plain import ffmpeg_format
 from ..native.rawvideo_plain import (DIB_LAYOUTS, FOURCC_LAYOUTS,
                                      chunk_sizes, frame_bytes)
@@ -58,7 +62,8 @@ __all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "raw_chunks",
            "huffyuv_unsupported", "huffyuv_params", "AviInfo", "RawLayout",
            "JpegInfo", "jpeg_unsupported", "PNG_CODECS", "HUFFYUV_CODECS",
            "FFV1_CODECS", "ffv1_params", "ffv1_unsupported",
-           "UTVIDEO_CODECS", "utvideo_params", "utvideo_unsupported"]
+           "UTVIDEO_CODECS", "utvideo_params", "utvideo_unsupported",
+           "LAGARITH_CODECS", "lagarith_unsupported"]
 
 # the fourccs (stripped of trailing spaces) FFmpeg decodes as PNG, as
 # HuffYUV, as FFV1 and as Ut Video (the Pro and pack-mode ones too, which
@@ -68,6 +73,7 @@ HUFFYUV_CODECS = huffyuv_plain.HUFFYUV_FOURCCS
 FFV1_CODECS = ffv1_plain.FFV1_FOURCCS
 UTVIDEO_CODECS = utvideo_plain.UTVIDEO_FOURCCS + tuple(
     utvideo_plain.REFUSED_FOURCCS)
+LAGARITH_CODECS = lagarith_plain.LAGARITH_FOURCCS
 
 # containers we descend into: their payload is a fourcc + nested chunks
 _CONTAINERS = (b"RIFF", b"LIST")
@@ -388,7 +394,8 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
         info = AviInfo(codec, *((ihdr.height, ihdr.width) if ihdr else
                                 (abs(height), width)), 3)
         info.png = ihdr
-    elif codec in HUFFYUV_CODECS or codec in UTVIDEO_CODECS:
+    elif codec in HUFFYUV_CODECS or codec in UTVIDEO_CODECS or \
+            codec in LAGARITH_CODECS:
         info = AviInfo(codec, abs(height), width, 3)
     elif codec in FFV1_CODECS:
         info = AviInfo(codec, abs(height), width, 3)
@@ -505,6 +512,22 @@ def utvideo_unsupported(info: AviInfo) -> Optional[str]:
     undecoded, the interlaced median on a plane one sample wide)."""
     return utvideo_plain.unsupported(info.codec, info.extra, info.height,
                                      info.width)
+
+
+def lagarith_unsupported(path: Path, info: AviInfo) -> Optional[str]:
+    """What of a Lagarith stream the port's decoder does not read, or None,
+    from its first frame's type (``lagarith_plain.unsupported``: the
+    uncompressed, old arithmetic RGB and reduced-resolution types, and the
+    types FFmpeg does not know).  The type is a frame's, not the
+    stream's: the decoder checks every later frame as it decodes it."""
+    try:
+        head = _first_chunk(path, info.stream, 1)
+    except OSError as exc:
+        return f"unreadable ({exc})"
+    if not head:
+        return None
+    return lagarith_plain.unsupported(head[0], info.height, info.width,
+                                      info.bit_count)
 
 
 def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:

@@ -52,10 +52,11 @@ video's frames on all, in every mode; hold the rawvideo reader to
 it reads (8-bit paletted, RGB555 and 24-bit BI_RGB bottom-up, 32-bit
 top-down, gray8, I420, YV12, NV12, YUY2, UYVY, and yuv444p, the planes of
 a Ut Video ULY4 frame) and time it on one thread and over a batch of 12
-on all; hold the PNG, HuffYUV, FFV1 and UtVideo decoders
+on all; hold the PNG, HuffYUV, FFV1, UtVideo and Lagarith decoders
 (``native/png.cpp``, ``native/huffyuv.cpp``, ``native/ffv1.cpp``,
-``native/utvideo.cpp``) to ``png_plain.py``, ``huffyuv_plain.py``,
-``ffv1_plain.py`` and ``utvideo_plain.py`` bit for bit on a full-width
+``native/utvideo.cpp``, ``native/lagarith.cpp``) to ``png_plain.py``,
+``huffyuv_plain.py``, ``ffv1_plain.py``, ``utvideo_plain.py`` and
+``lagarith_plain.py`` bit for bit on a full-width
 64-row strip of each of ``LOSSLESS_LAYOUTS`` (PNG RGB 8-bit with the five
 filters cycled, PNG gray 8-bit, PNG RGB 16-bit with the filters cycled,
 HFYU RGB24 gradient decorrelated, HFYU YUY2 left, FFVH yuv420p median),
@@ -63,11 +64,16 @@ HFYU RGB24 gradient decorrelated, HFYU YUY2 left, FFVH yuv420p median),
 a range-coded BGR of context model 1, two frames: a keyframe and one that
 carries its states; encoded by ``tests/_torch_ffv1_enc.cpp``) and
 ``UTVIDEO_LAYOUTS`` (ULY0 as cv2 writes it: left, 9 slices; ULRG median,
-ULY2 gradient and ULY4 left in FFmpeg's 18 slices), the plain versions
+ULY2 gradient and ULY4 left in FFmpeg's 18 slices) and
+``LAGARITH_LAYOUTS`` (RGB24 range coded with zero runs, RGBA with a
+filled alpha plane, YUY2, YV12, and a stream mixing solid and coded
+frames; encoded by ``tests/_torch_lagarith_enc.cpp``), the plain versions
 in spawned processes, and on 4K frames of each to what cv2 gives for the
-pictures written, and time them (PNG, HuffYUV and UtVideo one frame on
-one thread and over a batch of 12 on all, FFV1 one frame on one thread
-and on all, a slice a thread); write the raw videos' frames again as
+pictures written, and time them (PNG, HuffYUV, UtVideo and Lagarith one
+frame on one thread and over a batch of 12 on all, FFV1 and Lagarith one
+frame on all, a slice or a plane a thread); hold the Lagarith decoder to
+the committed ``tests/data/lagarith *.avi``'s cv2 frames
+(``.cv2.npy``); write the raw videos' frames again as
 I420 AVIs (``yuv_planes``, as ``cv2.VideoWriter(fourcc "I420")`` lays them
 out); run ``welford_algorithm``
 on the card against the host backend and the CPU in float64, and
@@ -100,7 +106,7 @@ held to stream 0's frames; ``timed(label, logger)`` and
 ``timed(label, device=dev)`` checked to synchronize the card; and
 ``stage_to_device(arr, max_bytes)`` checked to copy in slices onto it.
 
-Phases 14 (c)-(e), config 5 from the lossless compressed AVIs
+Phases 14 (c)-(f), config 5 from the lossless compressed AVIs
 ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write: phase
 14's raw frames encoded again (each distinct frame once, in phase 12's
 plain-decode window, cached under ``build/``) as PNG AVIs (``MPNG``),
@@ -108,16 +114,19 @@ HuffYUV AVIs (``HFYU`` RGB24, left, decorrelated), FFV1 AVIs as
 ``cv2.VideoWriter(fourcc "FFV1")`` writes BGR (version 3, slice CRCs,
 Golomb-Rice, 12 x 7 slices, a GOP of 12; the native encoder) and Ut Video
 ``ULRG`` AVIs (left, 18 slices, as FFmpeg's ``-c:v utvideo`` writes
-them), and phase 14's I420 planes as ``ULY0``
-AVIs as ``cv2.VideoWriter(fourcc "ULY0")`` writes them (left, 9 slices).
+them) and Lagarith RGB24 AVIs, and phase 14's I420 planes as ``ULY0``
+AVIs as ``cv2.VideoWriter(fourcc "ULY0")`` writes them (left, 9 slices)
+and as Lagarith YV12 AVIs.
 (c): ONE ``batch_video_to_hdr`` (K1, B = 8) at the default decoder whose
-8 scenes are two PNG, two HuffYUV, two FFV1 and two ULRG scenes (each
-file takes its own decoder), held to phase 14's raw u16/f16 results bit
-for bit, its MP/s, ``decode_s`` and launches beside the raw run's, and
-``video_to_hdr`` (K3) on the PNG and the HuffYUV videos; (d) on the FFV1
-videos; (e) on the ULRG videos, each held to the raw ``video_to_hdr`` bit
-for bit, and on the ULY0 videos, held to phase 14's I420
-``video_to_hdr`` bit for bit.
+8 scenes are one PNG, one HuffYUV, two FFV1, two ULRG and two Lagarith
+RGB24 scenes (each file takes its own decoder), held to phase 14's raw
+u16/f16 results bit for bit, its MP/s, ``decode_s`` and launches beside
+the raw run's, and ``video_to_hdr`` (K3) on the PNG and the HuffYUV
+videos; (d) on the FFV1 videos; (e) on the ULRG videos, each held to the
+raw ``video_to_hdr`` bit for bit, and on the ULY0 videos, held to phase
+14's I420 ``video_to_hdr`` bit for bit; (f) on the Lagarith RGB24
+videos, held to the raw one, and on the Lagarith YV12 videos, held to
+the I420 one, bit for bit.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
@@ -1210,6 +1219,18 @@ UTVIDEO_LAYOUTS = {"ULY0 as cv2 writes it (left, 9 slices)": ("ULY0", "left"),
                    "ULRG median": ("ULRG", "median"),
                    "ULY2 gradient": ("ULY2", "gradient"),
                    "ULY4 left": ("ULY4", "left")}
+# name: the frames' kinds (tests/_torch_lagarith_writer.FRAME_TYPES, or
+# "solid": a solid colour frame) and escape (None: the writer's choice, 1
+# where zero runs pay).  The RGB24 frame has a flat band of a quarter of
+# its rows, so that its planes code zero runs; RGBA's alpha is 255, a
+# filled plane; the mixed stream's solid frames come between coded ones
+LAGARITH_LAYOUTS = {
+    "LAGS RGB24 (range coded, median, zero runs)": (("rgb24",), 1),
+    "LAGS RGBA (alpha a filled plane)": (("rgba",), None),
+    "LAGS YUY2": (("yuy2",), None),
+    "LAGS YV12": (("yv12",), None),
+    "LAGS mixed solid and coded": (("rgb24", "solid", "yv12", "solid"),
+                                   None)}
 
 
 def yuv_bgr(planes, layout: str, rows: int) -> np.ndarray:
@@ -1267,7 +1288,8 @@ def lossless_layout_chunks(frames_host, frames_dev, rows: int,
     its low one, FFV1 gray16 the green channel and the red; the YUV
     layouts come from ``yuv_planes``; HuffYUV is interlaced at both sizes;
     FFV1 comes from the native encoder; UtVideo takes its 4K slice count
-    at both sizes."""
+    at both sizes; Lagarith comes from the native encoder
+    (``lagarith_layout_chunks``)."""
     from camera_linearity_tpu_torch.native import png_plain
     from camera_linearity_tpu_torch.native import utvideo_plain
     from tests import _torch_ffv1_writer as fw
@@ -1323,15 +1345,80 @@ def lossless_layout_chunks(frames_host, frames_dev, rows: int,
                                 uw.PREDICTORS[predictor])
         out[name] = ("utvideo", [chunk], params,
                      [expect] if want else None)
+    out.update(lagarith_layout_chunks(frames_host, frames_dev, rows, want))
     return out
+
+
+def lagarith_layout_chunks(frames_host, frames_dev, rows: int,
+                           want: bool = True) -> dict:
+    """LAGARITH_LAYOUTS at ``rows`` x W5, as ``lossless_layout_chunks``
+    gives the others: each frame from the first frame's first ``rows``
+    rows, coded by ``tests/_torch_lagarith_enc.cpp`` (the Python writer's
+    bytes); the YUV planes from ``yuv_planes``."""
+    from tests import _torch_lagarith_writer as lw
+    bgr = frames_host[0][:rows]
+    out = {}
+    for name, (kinds, esc) in LAGARITH_LAYOUTS.items():
+        chunks, expect = [], []
+        for i, kind in enumerate(kinds):
+            if kind == "solid":
+                value = (17 * i, 255 - 31 * i, 99)
+                chunks.append(lw.solid_frame(*value))
+                expect.append(np.broadcast_to(np.array(
+                    value, np.uint8), bgr.shape))
+                continue
+            if kind in ("rgb24", "rgba"):
+                picture = bgr.copy()
+                if esc:
+                    picture[:rows // 4] = (40, 160, 220)
+                if kind == "rgba":
+                    picture = np.concatenate([picture, np.full(
+                        picture.shape[:2] + (1,), 255, np.uint8)], -1)
+                expect.append(picture[..., :3])
+            else:
+                vs = 1 if kind == "yv12" else 0
+                picture = yuv_planes(frames_dev[0][:rows], vs=vs)
+                if want:
+                    expect.append(yuv_bgr(picture, "i420" if vs else
+                                          "yuv422p", rows))
+            chunks += lw.native_encode(kind, [picture], esc=esc)
+        out[name] = ("lagarith", chunks, None, expect if want else None)
+    return out
+
+
+def lagarith_clips() -> list:
+    """Phase 12's check of the committed ``tests/data/lagarith *.avi``:
+    each decoded natively against its ``.cv2.npy`` (cv2's frames, taken
+    where cv2 is): a line each, and the names that differ."""
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.utils import avi
+    failures = []
+    for clip in sorted((ROOT / "tests" / "data").glob("lagarith *.avi")):
+        cv = np.load(clip.with_suffix(".cv2.npy"))
+        info = avi.probe_avi(clip)
+        chunks = [bytes(c) for c in avi.frame_chunks(clip, info)]
+        got = np.empty((len(chunks), info.height, info.width, 3), np.uint8)
+        native.lagarith_decode_bgr_batch(chunks, got)
+        same = got.shape == cv.shape and np.array_equal(got, cv)
+        log(f"  {'ok ' if same else 'BAD'} Lagarith decode of "
+            f"'{clip.name}' ({len(cv)} x {cv.shape[1]} x {cv.shape[2]}): "
+            f"{'equals' if same else 'differs from'} the committed "
+            f"cv2.VideoCapture frames")
+        if not same:
+            failures.append(clip.name)
+    return failures
 
 
 def plain_decode(kind: str, chunks, spec, rows: int, width: int):
     """The plain version's frames of ``chunks`` (a spawned process)."""
     from camera_linearity_tpu_torch.native import (ffv1_plain, huffyuv_plain,
-                                                   png_plain, utvideo_plain)
+                                                   lagarith_plain, png_plain,
+                                                   utvideo_plain)
     if kind == "png":
         return np.stack([png_plain.decode_bgr(c) for c in chunks])
+    if kind == "lagarith":
+        return np.stack([lagarith_plain.decode_bgr(c, rows, width)
+                         for c in chunks])
     if kind in ("huffyuv", "utvideo"):
         plain = huffyuv_plain if kind == "huffyuv" else utvideo_plain
         return np.stack([plain.decode_bgr(c, spec, rows, width)
@@ -1340,27 +1427,30 @@ def plain_decode(kind: str, chunks, spec, rows: int, width: int):
 
 
 def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
-    """Phase 12's PNG, HuffYUV, FFV1 and UtVideo rows: each of
-    LOSSLESS_LAYOUTS, FFV1_LAYOUTS and UTVIDEO_LAYOUTS on a full-width
-    STRIP_ROWS-row strip, the native decoder held to its plain version bit
-    for bit (the plain versions first, a process each, with phase 14
-    (c)-(e)'s ``videos`` encoded beside them, never beside a timed call),
-    then on 4K frames held to what cv2 gives for the pictures written, and
-    timed: PNG, HuffYUV and UtVideo on one thread and over a batch of
-    FRAMES5 on every core, FFV1 one frame on one thread and on every core
-    (a slice a thread).  Returns the rows' times."""
+    """Phase 12's PNG, HuffYUV, FFV1, UtVideo and Lagarith rows: each of
+    LOSSLESS_LAYOUTS, FFV1_LAYOUTS, UTVIDEO_LAYOUTS and LAGARITH_LAYOUTS on
+    a full-width STRIP_ROWS-row strip, the native decoder held to its
+    plain version bit for bit (the plain versions first, a process each,
+    with phase 14 (c)-(f)'s ``videos`` and the 4K frames encoded beside
+    them, never beside a timed call), then on 4K frames held to what cv2
+    gives for the pictures written, and timed: PNG, HuffYUV, UtVideo and
+    Lagarith on one thread and over a batch of FRAMES5 on every core,
+    FFV1 and Lagarith one frame on every core (a slice, or a plane, a
+    thread); and the committed Lagarith clips against cv2's frames.
+    Returns the rows' times."""
     from camera_linearity_tpu_torch import native
-    t0 = time.perf_counter()
     strips = lossless_layout_chunks(frames_host, frames_dev, STRIP_ROWS,
                                     want=False)
-    layouts = lossless_layout_chunks(frames_host, frames_dev, H5)
-    encode_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with plain_pool() as pool:
         futures = {name: pool.submit(plain_decode, kind, chunks, spec,
                                      STRIP_ROWS, W5)
                    for name, (kind, chunks, spec, _) in strips.items()}
         videos.submit(pool)
+        # the 4K frames are encoded here while the pool works
+        t1 = time.perf_counter()
+        layouts = lossless_layout_chunks(frames_host, frames_dev, H5)
+        encode_s = time.perf_counter() - t1
         plain = {name: f.result() for name, f in futures.items()}
         videos.finish()
     plain_s = time.perf_counter() - t0
@@ -1376,11 +1466,14 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
         if kind == "utvideo":
             return native.utvideo_decode_bgr_batch(chunks, dst, spec,
                                                    planes=planes, **kw)
+        if kind == "lagarith":
+            return native.lagarith_decode_bgr_batch(chunks, dst,
+                                                    planes=planes, **kw)
         # a decoder a sequence: FFV1 carries its states from frame to frame
         return native.ffv1_decode_bgr_batch(
             chunks, dst, native.Ffv1Decoder(spec, *dst.shape[1:3]),
             planes=planes, **kw)
-    failures, rows = [], {}
+    failures, rows = lagarith_clips(), {}
     for name, (kind, chunks, spec, want) in layouts.items():
         s_kind, s_chunks, s_spec, _ = strips[name]
         strip = np.empty((len(s_chunks), STRIP_ROWS, W5, 3), np.uint8)
@@ -1391,42 +1484,54 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
         same = all(np.array_equal(f, w) for f, w in zip(frames, want))
         if not (same and plain_same):
             failures.append(name)
-        # the decodes above warmed every call below
+        # the decodes above warmed every call below; the serial decoders
+        # (FFV1, Lagarith) are timed once a row
         one = frames[:1]
+        serial = kind in ("ffv1", "lagarith")
         single = host_ms(lambda: decode(kind, spec, chunks[:1], one,
                                         threads=1),
-                         runs=1 if kind == "ffv1" else 3, warmup=0)
-        if kind == "ffv1":
-            wide = host_ms(lambda: decode(kind, spec, chunks[:1], one),
-                           runs=3, warmup=0)
-            how = f"one frame on {os.cpu_count()} threads (a slice a thread)"
-        else:
+                         runs=1 if serial else 3, warmup=0)
+        one_wide = None
+        if serial:
+            one_wide = host_ms(lambda: decode(kind, spec, chunks[:1], one),
+                               runs=1 if kind == "lagarith" else 3,
+                               warmup=0)
+        wide = one_wide
+        how = [f"{single:.1f} ms on one thread"]
+        if serial:
+            how.append(f"{one_wide:.1f} ms one frame on {os.cpu_count()} "
+                       f"threads (a {'slice' if kind == 'ffv1' else 'plane'}"
+                       " a thread)")
+        if kind != "ffv1":
             many = np.empty((FRAMES5, H5, W5, 3), np.uint8)
-            wide = host_ms(lambda: decode(kind, spec, chunks * FRAMES5,
-                                          many), runs=2, warmup=1) / FRAMES5
-            how = (f"a frame over a batch of {FRAMES5} on "
-                   f"{os.cpu_count()} threads")
+            wide = host_ms(lambda: decode(
+                kind, spec, (chunks * FRAMES5)[:FRAMES5], many),
+                runs=1 if serial else 2, warmup=0 if serial else 1) / FRAMES5
+            how.append(f"{wide:.1f} ms a frame over a batch of {FRAMES5} on "
+                       f"{os.cpu_count()} threads")
             del many
         rows[name] = dict(one_thread=single, all_threads=wide,
                           frame_mb=len(chunks[0]) / 1e6)
+        if serial and kind != "ffv1":
+            rows[name]["one_frame_all_threads"] = one_wide
         log(f"  {'ok ' if same and plain_same else 'BAD'} {name}: one 4K "
-            f"frame ({len(chunks[0]) / 1e6:.3f} MB) {single:.1f} ms on one "
-            f"thread; {wide:.1f} ms {how} (host clock, median); "
+            f"frame ({len(chunks[0]) / 1e6:.3f} MB) {'; '.join(how)} (host "
+            f"clock, median); "
             f"{len(chunks)} 4K frame(s) {'equal' if same else 'differ from'}"
             f" the pictures written as cv2 gives them; the {STRIP_ROWS} x "
             f"{W5} strip {'equals' if plain_same else 'differs from'} the "
             f"plain version, max |.| {max_gap(strip, plain[name]):.0f} DN")
         del frames, strip
-    log(f"  PNG, HuffYUV, FFV1, UtVideo: {len(layouts)} layouts encoded "
-        f"at 4K and as {STRIP_ROWS}-row strips in {encode_s:.1f} s, the "
-        f"strips decoded by the plain versions in {plain_s:.1f} s (a "
-        "spawned process each), phase 14 (c)-(e)'s videos "
+    log(f"  PNG, HuffYUV, FFV1, UtVideo, Lagarith: the strips decoded by "
+        f"the plain versions in {plain_s:.1f} s (a spawned process each), "
+        f"{len(layouts)} layouts encoded at 4K beside them in "
+        f"{encode_s:.1f} s, phase 14 (c)-(f)'s videos "
         + ("from the cache" if videos.encode_s is None else
-           f"encoded beside them in {videos.encode_s:.1f} s (FFV1 native, "
-           "on a thread)"))
-    raise_failures("phase 12, the PNG, HuffYUV, FFV1 and UtVideo decoders "
-                   "against their plain versions and the pictures written",
-                   failures)
+           f"encoded beside them in {videos.encode_s:.1f} s (FFV1 and "
+           "Lagarith native, on threads)"))
+    raise_failures("phase 12, the PNG, HuffYUV, FFV1, UtVideo and Lagarith "
+                   "decoders against their plain versions, the pictures "
+                   "written and the committed clips", failures)
     return rows
 
 
@@ -1443,16 +1548,23 @@ class LosslessVideos:
     predictor, 18 slices at 4K; phase 12 holds the median one);
     and phase 14's I420 videos (``i420_paths``) as ``ULY0`` AVIs as
     ``cv2.VideoWriter(fourcc "ULY0")`` writes them (the left predictor, 9
-    slices).  Cached under ``build/`` by the frames' bytes and the writers'
-    sources, as the MJPG videos are; otherwise :meth:`submit` hands the
-    PNG, HuffYUV and UtVideo encodes to a process pool (phase 12's, beside
-    its plain decodes, where no call is timed) and the FFV1 ones to a
-    thread (``tests/_torch_ffv1_enc.cpp`` on every core, a video at a
-    time), and :meth:`finish` writes the AVIs.  Then ``written`` holds each
-    codec's paths, ``sizes`` the bytes of its chunks and ``encode_s`` the
-    seconds from submit to finish (None when the cache had them)."""
+    slices); and as Lagarith AVIs: the raw frames as RGB24 frames, the
+    I420 planes as YV12 frames (``tests/_torch_lagarith_enc.cpp``, the
+    writer's escape choice).  Cached under ``build/`` by the frames' bytes
+    and the writers' sources, as the MJPG videos are; otherwise
+    :meth:`submit` hands the PNG, HuffYUV and UtVideo encodes to a process
+    pool (phase 12's, beside its plain decodes, where no call is timed),
+    the FFV1 ones to a thread (``tests/_torch_ffv1_enc.cpp`` on every
+    core, a video at a time) and the Lagarith ones to another (the native
+    encoder, a frame a thread), and :meth:`finish` writes the AVIs.  Then
+    ``written`` holds each codec's paths, ``sizes`` the bytes of its
+    chunks and ``encode_s`` the seconds from submit to finish (None when
+    the cache had them)."""
 
-    CODECS = ("PNG", "HFYU RGB24", "FFV1", "ULRG", "ULY0")
+    CODECS = ("PNG", "HFYU RGB24", "FFV1", "ULRG", "ULY0", "LAGS RGB24",
+              "LAGS YV12")
+    # the Lagarith videos' frame kinds
+    LAGARITH = {"LAGS RGB24": "rgb24", "LAGS YV12": "yv12"}
     # the Ut Video fourccs' predictors
     UTVIDEO = {"ULRG": "left", "ULY0": "left"}
 
@@ -1461,6 +1573,7 @@ class LosslessVideos:
         from camera_linearity_tpu_torch.utils import avi
         from tests import _torch_ffv1_writer as fw
         from tests import _torch_huffyuv_writer as hw
+        from tests import _torch_lagarith_writer as lw
         from tests import _torch_png_writer as pw
         from tests import _torch_rawvideo_writer as rw
         from tests import _torch_utvideo_writer as uw
@@ -1477,7 +1590,7 @@ class LosslessVideos:
                 self.i420.append([y.copy(), u.copy(), v.copy()])
         key = hashlib.md5(usedforsecurity=False)
         for src in (pw.__file__, hw.__file__, rw.__file__, fw.__file__,
-                    fw._ENC_SRC, uw.__file__):
+                    fw._ENC_SRC, uw.__file__, lw.__file__, lw._ENC_SRC):
             key.update(Path(src).read_bytes())
         for f in self.frames:
             key.update(f.data)
@@ -1487,7 +1600,7 @@ class LosslessVideos:
         self.cache = ROOT / "build" / "chip_smoke_lossless" / \
             key.hexdigest()[:12]
         self.written = {codec: [
-            self.cache / f"{codec.split()[0].lower()} {p.name}"
+            self.cache / f"{codec.lower()} {p.name}"
             for p in paths] for codec in self.CODECS}
         self.sizes, self.encode_s, self._pending = None, None, None
         sizes_file = self.cache / "sizes.json"
@@ -1508,6 +1621,7 @@ class LosslessVideos:
         from concurrent.futures import ThreadPoolExecutor
         from tests import _torch_ffv1_writer as fw
         from tests import _torch_huffyuv_writer as hw
+        from tests import _torch_lagarith_writer as lw
         from tests import _torch_utvideo_writer as uw
         from tests._torch_png_writer import encode_png
         if self.frames is None:
@@ -1518,7 +1632,7 @@ class LosslessVideos:
         self.stream = hw.make_stream("rgb24", "left", True, H5, None, 2,
                                      [self.frames[0][:H5 // 4, :, ::-1]])
         self.ffv1 = fw.cv2_config("bgr", H5, W5)
-        self._encoder = ThreadPoolExecutor(1, "ffv1-encode")
+        self._encoder = ThreadPoolExecutor(2, "native-encode")
         bgr = [f[..., ::-1] for f in self.frames]
 
         def ffv1_video(frames):
@@ -1534,11 +1648,18 @@ class LosslessVideos:
             self._pending[fourcc] = [
                 pool.submit(uw.encode_frame, uw.to_planes(f, params.layout),
                             params, predictor) for f in pictures]
+        # one thread codes both Lagarith sets, each a frame a thread
+        i420 = self.i420
+        lags = self._encoder.submit(lambda: [lw.native_encode(
+            kind, bgr if kind == "rgb24" else i420)
+            for kind in self.LAGARITH.values()])
+        self._pending["LAGS RGB24"] = [lags]
         self.frames = self.i420 = None
 
     def finish(self) -> None:
         from tests import _torch_ffv1_writer as fw
         from tests import _torch_huffyuv_writer as hw
+        from tests import _torch_lagarith_writer as lw
         from tests import _torch_utvideo_writer as uw
         from tests._torch_png_writer import write_png_avi
         if self._pending is None:
@@ -1546,8 +1667,12 @@ class LosslessVideos:
         self.cache.mkdir(parents=True, exist_ok=True)
         self.sizes = {}
         try:
+            lags = self._pending.pop("LAGS RGB24")[0].result()
+            self._pending.update({codec: lags[i] for i, codec in enumerate(
+                self.LAGARITH)})
             for codec, futures in self._pending.items():
-                chunks = [f.result() for f in futures]
+                chunks = futures if codec in self.LAGARITH else \
+                    [f.result() for f in futures]
                 if codec == "FFV1":   # a list of chunks a video
                     chunks = [c for video in chunks for c in video]
                 for i, out in enumerate(self.written[codec]):
@@ -1560,6 +1685,8 @@ class LosslessVideos:
                     elif codec in self.UTVIDEO:
                         uw.write_chunks_avi(tmp, part, codec, H5, W5,
                                             self.utvideo(codec)[1])
+                    elif codec in self.LAGARITH:
+                        lw.write_lagarith_avi(tmp, part, H5, W5)
                     else:
                         hw.write_stream_avi(tmp, part, self.stream, H5, W5,
                                             "HFYU")
@@ -1572,31 +1699,37 @@ class LosslessVideos:
         self.encode_s = time.perf_counter() - self._t0
 
 
-# phase 14 (c)'s one batch_video_to_hdr call: two scenes a codec, and the
+# phase 14 (c)'s one batch_video_to_hdr call: (codec, its scenes), and the
 # decoder each codec's frames go through
-MIXED = ("PNG", "HFYU RGB24", "FFV1", "ULRG")
+MIXED = (("PNG", 1), ("HFYU RGB24", 1), ("FFV1", 2), ("ULRG", 2),
+         ("LAGS RGB24", 2))
 DECODED_AS = {"PNG": "png", "HFYU RGB24": "huffyuv", "FFV1": "ffv1",
-              "ULRG": "utvideo", "ULY0": "utvideo"}
+              "ULRG": "utvideo", "ULY0": "utvideo", "LAGS RGB24": "lagarith",
+              "LAGS YV12": "lagarith"}
 
 
 def lossless_phase(videos, raw, i420, runs, run_batch,
                    run_video_to_hdr) -> dict:
-    """Phases 14 (c)-(e): config 5 from the lossless compressed AVIs
+    """Phases 14 (c)-(f): config 5 from the lossless compressed AVIs
     ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write,
     phase 14's raw frames as ``videos`` (:class:`LosslessVideos`, written
     in phase 12) holds them.  (c): ONE ``batch_video_to_hdr`` (K1, B = 8) at
-    the default decoder whose 8 scenes' videos are PNG, HuffYUV, FFV1 and
-    ``ULRG`` AVIs, two scenes a codec (each file takes its own decoder),
+    the default decoder whose 8 scenes' videos are PNG, HuffYUV, FFV1,
+    ``ULRG`` and Lagarith RGB24 AVIs (``MIXED``: one PNG and one HuffYUV
+    scene, two of each other codec; each file takes its own decoder),
     equal to phase 14's raw u16/f16 results bit for bit (``raw``), the
     codecs being lossless; then ``video_to_hdr`` (K3) on the PNG and the
     HuffYUV scene; (d) on the FFV1 one; (e) on the ``ULRG`` one, each equal
     to raw's, and on the ``ULY0`` AVIs of phase 14's I420 planes, equal to
-    phase 14's I420 ``video_to_hdr`` (``i420``).  Returns the phases'
-    times (``encode_s`` None where the cache had the videos)."""
+    phase 14's I420 ``video_to_hdr`` (``i420``); (f) on the Lagarith RGB24
+    scene, equal to raw's, and on the Lagarith YV12 AVIs of the I420
+    planes, equal to I420's.  Returns the phases' times (``encode_s``
+    None where the cache had the videos)."""
     from camera_linearity_tpu_torch.utils import avi
     t_phase = time.perf_counter()
-    log(f"phase 14 (c): config 5 from PNG, HuffYUV, FFV1 and UtVideo AVIs "
-        f"of phase 14's raw frames, two scenes a codec in one call; "
+    log(f"phase 14 (c): config 5 from PNG, HuffYUV, FFV1, UtVideo and "
+        f"Lagarith AVIs of phase 14's raw frames in one call ("
+        + ", ".join(f"{c}: {k}" for c, k in MIXED) + f" scenes); "
         f"{gpu_line()}")
     failures = []
     written, sizes, encode_s = videos.written, videos.sizes, videos.encode_s
@@ -1615,11 +1748,11 @@ def lossless_phase(videos, raw, i420, runs, run_batch,
         + f"; one PNG video's chunks read (no decode) at "
         f"{read_mb / read_s:.0f} MB/s ({read_mb:.0f} MB, host clock)")
     before = runs[raw["label"]]
-    per = SCENES5 // len(MIXED)
-    label = (f"batch_video_to_hdr u16/f16 ({', '.join(MIXED)}: {per} scenes "
-             "each, auto)")
-    run = run_batch(label, [written[MIXED[i // per]] for i in range(SCENES5)],
-                    {DECODED_AS[c]: per * n for c in MIXED})
+    label = ("batch_video_to_hdr u16/f16 ("
+             + ", ".join(f"{c} x {k}" for c, k in MIXED) + " scenes, auto)")
+    scenes = [written[c] for c, k in MIXED for _ in range(k)]
+    assert len(scenes) == SCENES5
+    run = run_batch(label, scenes, {DECODED_AS[c]: k * n for c, k in MIXED})
     run.pop("merge")
     out = run.pop("out")
     runs[label] = run
@@ -1627,7 +1760,8 @@ def lossless_phase(videos, raw, i420, runs, run_batch,
         torch.equal(a, b) for name, pair in out.items()
         for a, b in zip(pair, raw["out"][name]))
     log(f"  {'ok ' if same else 'BAD'} batch_video_to_hdr from "
-        f"{', '.join(MIXED)} vs phase 14's raw ({raw['label']}): "
+        f"{', '.join(c for c, _ in MIXED)} vs phase 14's raw "
+        f"({raw['label']}): "
         f"{'bit for bit equal' if same else 'different'}, {len(out)} "
         f"scenes; {run['mps']:.2f} MP/s, decode_s "
         f"{run['stages'].get('decode_s', 0):.3f}, launches "
@@ -1639,9 +1773,10 @@ def lossless_phase(videos, raw, i420, runs, run_batch,
     del out
     torch.cuda.empty_cache()
     v2h, walls = {}, {}
-    for codec in ("PNG", "HFYU RGB24", "FFV1", "ULRG", "ULY0"):
-        if codec in ("FFV1", "ULRG"):
-            sub = "c" if codec == "FFV1" else "d"
+    for codec in ("PNG", "HFYU RGB24", "FFV1", "ULRG", "ULY0", "LAGS RGB24",
+                  "LAGS YV12"):
+        if codec in ("FFV1", "ULRG", "LAGS RGB24"):
+            sub = {"FFV1": "c", "ULRG": "d", "LAGS RGB24": "e"}[codec]
             raise_failures(f"phase 14 ({sub})", failures)
             walls[sub] = time.perf_counter() - t_phase
             log(f"phase 14 ({sub}): {walls[sub]:.1f} s")
@@ -1664,8 +1799,16 @@ def lossless_phase(videos, raw, i420, runs, run_batch,
                 f"{avi.utvideo_plain.layout_name(avi.utvideo_params(uly0))}"
                 f"): {avi.utvideo_unsupported(info) or 'read'}, "
                 f"{avi.utvideo_unsupported(uly0) or 'read'}; {gpu_line()}")
-        want, what = (i420, "phase 14's I420") if codec == "ULY0" else \
-            (raw, "raw")
+        elif codec == "LAGS RGB24":
+            yv12 = written["LAGS YV12"][0]
+            log(f"phase 14 (f): config 5 from Lagarith AVIs: RGB24 frames "
+                f"of phase 14's raw frames, YV12 frames of its I420 planes "
+                f"(tests/_torch_lagarith_enc.cpp): "
+                + ", ".join(avi.lagarith_unsupported(p, avi.probe_avi(p))
+                            or "read" for p in (written[codec][0], yv12))
+                + f"; {gpu_line()}")
+        want, what = (i420, "phase 14's I420") if codec in (
+            "ULY0", "LAGS YV12") else (raw, "raw")
         v2h[codec], _, got = run_video_to_hdr(f"video_to_hdr ({codec})",
                                               written[codec],
                                               DECODED_AS[codec])
@@ -1677,9 +1820,9 @@ def lossless_phase(videos, raw, i420, runs, run_batch,
         if not same:
             failures.append(f"video_to_hdr from {codec} against {what}")
         del got
-    raise_failures("phase 14 (e)", failures)
-    walls["e"] = time.perf_counter() - t_phase
-    log(f"phase 14 (e): {walls['e']:.1f} s")
+    raise_failures("phase 14 (f)", failures)
+    walls["f"] = time.perf_counter() - t_phase
+    log(f"phase 14 (f): {walls['f']:.1f} s")
     return dict(walls_s=walls, encode_s=encode_s, read_mbps=read_mb / read_s,
                 raw_mps=before["mps"],
                 raw_decode_s=before["stages"].get("decode_s", 0),
@@ -1743,8 +1886,9 @@ def video_phases(dev, res, directory) -> dict:
             f"{'equals' if same else 'differs from'} the committed libjpeg "
             f"(islow, fancy) frames, max |.| {max_gap(got, want):.0f} DN; "
             f"max |. - cv2| {max_gap(got, cv):.0f} DN")
-    # the ffmpeg mode against every committed cv2.VideoCapture decode
-    for clip in sorted(data.glob("*.cv2.npy")):
+    # the ffmpeg mode against every committed cv2.VideoCapture decode of
+    # an MJPG clip (phase 12's Lagarith rows take the Lagarith clips)
+    for clip in sorted(data.glob("mjpg*.cv2.npy")):
         name = clip.name[:-len(".cv2.npy")]
         cv = np.load(clip)
         got = np.empty_like(cv)
