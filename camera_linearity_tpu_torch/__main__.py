@@ -375,7 +375,12 @@ def cmd_doctor(args) -> int:
              "predictor and slice count; a frame a thread"),
             ("Lagarith", native.lagarith_available, "_lagarith", "Lagarith "
              "AVIs (LAGS): RGB24, RGBA, YUY2, YV12 and solid frames, every "
-             "escape form; a plane a thread")):
+             "escape form; a plane a thread"),
+            ("MPEG-4 Part 2", native.mpeg4_available, "_mpeg4", "MPEG-4 "
+             "Part 2 AVIs (" + ", ".join(native.mpeg4_plain.MPEG4_FOURCCS)
+             + "): Simple "
+             "Profile I-, P- and N-VOPs, 1MV/4MV, dquant, AC prediction, "
+             "video packets; a macroblock row a thread")):
         print(f"native {name} decoder: " + (
             f"built; {what} (cv2's bytes)" if ok() else
             f"unavailable ({native.build_error(stem)}); such AVIs cannot "
@@ -406,7 +411,8 @@ def cmd_doctor(args) -> int:
 def _doctor_video(path: Path) -> None:
     """Decode rate of each reader the port has for ``path``; for an MJPG
     AVI, the port's decoder in each mode, and for a PNG, HuffYUV, FFV1,
-    UtVideo or Lagarith AVI its decoder, on one thread and on all."""
+    UtVideo, Lagarith or MPEG-4 Part 2 AVI its decoder, on one thread and
+    on all."""
     import importlib.util
     import itertools
     import time
@@ -436,12 +442,13 @@ def _doctor_video(path: Path) -> None:
                       f"({w}x{h}, {len(payloads)} frames, "
                       f"{secs / len(payloads) * 1e3:.1f} ms a frame)")
     codecs = avi.PNG_CODECS + avi.HUFFYUV_CODECS + avi.FFV1_CODECS + \
-        avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS
+        avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS + avi.MPEG4_CODECS
     if info is not None and info.codec in codecs:
         kind = "png" if info.codec in avi.PNG_CODECS else \
             "huffyuv" if info.codec in avi.HUFFYUV_CODECS else \
             "ffv1" if info.codec in avi.FFV1_CODECS else \
-            "lagarith" if info.codec in avi.LAGARITH_CODECS else "utvideo"
+            "lagarith" if info.codec in avi.LAGARITH_CODECS else \
+            "mpeg4" if info.codec in avi.MPEG4_CODECS else "utvideo"
         payloads = [bytes(c) for c in itertools.islice(
             avi.frame_chunks(path, info), 120)]
         cores = os.cpu_count() or 1
@@ -452,6 +459,9 @@ def _doctor_video(path: Path) -> None:
             # FFV1 carries its states from frame to frame: a decoder a pass
             ffv1 = native.Ffv1Decoder(avi.ffv1_params(info), h, w) \
                 if kind == "ffv1" else None
+            # MPEG-4 chains its P-VOPs from the last I-VOP: a decoder too
+            mpeg4 = native.Mpeg4Decoder(*avi.mpeg4_params(info), h, w) \
+                if kind == "mpeg4" else None
             t0 = time.perf_counter()
             for at in range(0, len(payloads), len(dst)):
                 part = payloads[at:at + len(dst)]
@@ -467,6 +477,9 @@ def _doctor_video(path: Path) -> None:
                 elif kind == "lagarith":
                     native.lagarith_decode_bgr_batch(
                         part, dst[:len(part)], threads=threads)
+                elif kind == "mpeg4":
+                    native.mpeg4_decode_bgr_batch(
+                        part, dst[:len(part)], mpeg4, threads=threads)
                 else:
                     native.huffyuv_decode_bgr_batch(
                         part, dst[:len(part)], params, threads=threads)

@@ -119,13 +119,18 @@ def _cv2(why: str):
         raise ValueError(
             f"{why} needs cv2, which is not installed; without it the port "
             "reads RGBA AVIs (decoder 'native', NumPy), uncompressed AVIs "
-            "(BI_RGB 8/16/24/32-bit, Y800, I420, YV12, Y42B, NV12, YUY2, "
-            "UYVY: 'native', its own reader), PNG AVIs (MPNG, PNG1, 'png '), "
-            "HuffYUV AVIs (HFYU, FFVH), FFV1 AVIs and UtVideo AVIs (ULRG, "
-            "ULRA, ULY0, ULY2, ULY4, ULH0, ULH2, ULH4) ('native', its own "
-            "decoders) and "
-            "MJPG AVIs ('native' / 'ffmpeg' / 'turbo' / 'turbo_fast', its "
-            "own JPEG decoder)"
+            "(BI_RGB 8/16/24/32-bit, "
+            + ", ".join(f.strip() for f in avi.FOURCC_LAYOUTS)
+            + ": 'native', its own reader), PNG AVIs ("
+            + ", ".join(repr(f.ljust(4)) if len(f) < 4 else f
+                        for f in avi.PNG_CODECS)
+            + "), HuffYUV AVIs (" + ", ".join(avi.HUFFYUV_CODECS)
+            + "), FFV1 AVIs (" + ", ".join(avi.FFV1_CODECS)
+            + "), UtVideo AVIs (" + ", ".join(avi.UTVIDEO_READ)
+            + "), Lagarith AVIs (" + ", ".join(avi.LAGARITH_CODECS)
+            + ") and MPEG-4 Part 2 AVIs (" + ", ".join(avi.MPEG4_CODECS)
+            + ") ('native', its own decoders) and MJPG AVIs ('native' / "
+            "'ffmpeg' / 'turbo' / 'turbo_fast', its own JPEG decoder)"
         ) from exc
     return cv2
 
@@ -216,15 +221,46 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
     """Callables that decode the next frames of ``path`` into the (k, H, W,
     C) uint8 array they are given and return how many they decoded (0:
     the stream ended).  The MJPEG decoder takes up to k frames a call, and
-    the rawvideo reader and the PNG, HuffYUV, FFV1, UtVideo and Lagarith
-    decoders up to ``batch_size``, on all cores (FFV1 a slice a thread,
-    Lagarith a plane a thread, one decoder
-    object for the video, which carries the slices' states from call to
-    call); the raw RGBA reader (which reads each frame when the iterator
-    advances) and cv2 take one."""
+    the rawvideo reader and the PNG, HuffYUV, FFV1, UtVideo, Lagarith and
+    MPEG-4 Part 2 decoders up to ``batch_size``, on all cores (FFV1 a
+    slice a thread, Lagarith a plane a thread, MPEG-4 a macroblock row a
+    thread; FFV1 and MPEG-4 with one decoder object for the video, which
+    carries the slices' states, or the predictors and the reference
+    picture, from call to call); the raw RGBA reader (which reads each
+    frame when the iterator advances) and cv2 take one."""
     if decoder == "raw":
         for frame in avi.raw_frames(path):
             yield lambda dst, frame=frame: np.copyto(dst[0], frame) or 1
+    elif decoder == "mpeg4":
+        info = avi.probe_avi(path)
+        chunks = avi.frame_chunks(path, info, ring=batch_size)
+        mpeg4 = native.Mpeg4Decoder(*avi.mpeg4_params(info), info.height,
+                                    info.width)
+        # the yuv420p planes, reused from call to call
+        planes = np.empty(batch_size * native.frame_bytes(
+            "i420_left", info.height, info.width), np.uint8)
+        ended = False
+
+        def fill_mpeg4(dst: np.ndarray) -> int:
+            # an N-VOP gives no frame: read on until one does or the
+            # stream ends, where an N-VOP last gives the last frame again
+            nonlocal ended
+            while not ended:
+                payloads = list(itertools.islice(chunks, min(len(dst),
+                                                             batch_size)))
+                if not payloads:
+                    ended = True
+                    return native.mpeg4_flush(mpeg4, dst)
+                try:
+                    got = native.mpeg4_decode_bgr_batch(
+                        payloads, dst[:len(payloads)], mpeg4, planes=planes)
+                except ValueError as exc:
+                    raise ValueError(f"{path}: {exc}") from exc
+                if got:
+                    return got
+            return 0
+        while True:
+            yield fill_mpeg4
     elif decoder in ("rawvideo", "png", "huffyuv", "ffv1", "utvideo",
                      "lagarith"):
         info = avi.probe_avi(path)
@@ -409,7 +445,7 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
     own = info is not None and (
         info.codec in ("RGBA", "MJPG") + avi.PNG_CODECS + avi.HUFFYUV_CODECS
         + avi.FFV1_CODECS + avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS
-        or info.layout is not None)
+        + avi.MPEG4_CODECS or info.layout is not None)
     if info is not None and not own:
         unsupported = avi.raw_unsupported(path, info)
         if unsupported:
@@ -457,6 +493,10 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
         # any frame may be YUY2 or YV12, whose planes convert through
         # jpeg.cpp's rawvideo reader
         libs = ("lagarith", "mjpeg")
+    elif info.codec in avi.MPEG4_CODECS:
+        decoder, why = "mpeg4", avi.mpeg4_unsupported(path, info)
+        # its yuv420p planes convert through jpeg.cpp's rawvideo reader
+        libs = ("mpeg4", "mjpeg")
     elif info.layout:
         decoder, why, libs = "rawvideo", avi.raw_unsupported(path, info), \
             ("mjpeg",)
@@ -480,37 +520,38 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
 # the port's own decoders by name, and the native sources they build from
 _DECODER_NAMES = {"png": "PNG", "huffyuv": "HuffYUV", "rawvideo": "rawvideo",
                   "ffv1": "FFV1", "utvideo": "UtVideo",
-                  "lagarith": "Lagarith"}
+                  "lagarith": "Lagarith", "mpeg4": "MPEG-4 Part 2"}
 _SOURCES = {"png": "png.cpp", "huffyuv": "huffyuv.cpp", "mjpeg": "jpeg.cpp",
             "ffv1": "ffv1.cpp", "utvideo": "utvideo.cpp",
-            "lagarith": "lagarith.cpp"}
+            "lagarith": "lagarith.cpp", "mpeg4": "mpeg4.cpp"}
 
 
 def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
                      width: int, chs: int) -> List[str]:
     """Each file's decoder: ``"raw"``, ``"rawvideo"``, ``"png"``,
-    ``"huffyuv"``, ``"ffv1"``, ``"utvideo"``, ``"lagarith"``, ``"ffmpeg"``,
-    ``"turbo"``, ``"turbo_fast"`` or ``"cv2"``.
+    ``"huffyuv"``, ``"ffv1"``, ``"utvideo"``, ``"lagarith"``, ``"mpeg4"``,
+    ``"ffmpeg"``, ``"turbo"``, ``"turbo_fast"`` or ``"cv2"``.
 
     ``"auto"`` reads env ``CL_DECODER`` (default ``"native"``).
     ``"native"``: the container decides — an RGBA AVI reads raw, the other
     uncompressed layouts through the port's rawvideo reader (cv2's bytes:
     BI_RGB 8/16/24/32-bit, Y800/GREY/Y8, I420/IYUV/YV12, Y42B, NV12,
-    YUY2/UYVY), PNG, HuffYUV, FFV1, UtVideo and Lagarith AVIs through the
-    port's PNG, HuffYUV, FFV1, UtVideo and Lagarith decoders (cv2's
-    bytes), an MJPG AVI through the port's JPEG decoder in its
-    ``"ffmpeg"`` mode (cv2's bytes, as the JAX package's default gives
-    them), anything else (MPEG-4 Part 2, H.264, ...) through cv2 when it
-    imports (else a ValueError naming the codec).
+    YUY2/UYVY), PNG, HuffYUV, FFV1, UtVideo, Lagarith and MPEG-4 Part 2
+    AVIs through the port's PNG, HuffYUV, FFV1, UtVideo, Lagarith and
+    MPEG-4 decoders (cv2's bytes), an MJPG AVI through the port's JPEG
+    decoder in its ``"ffmpeg"`` mode (cv2's bytes, as the JAX package's
+    default gives them), anything else (MS-MPEG4, H.264, ...) through cv2
+    when it imports (else a ValueError naming the codec).
     ``"ffmpeg"``/``"turbo"``/``"turbo_fast"``: that decoder's modes on MJPG
     files; another container logs a warning and takes its own decoder.
     ``"cv2"``: cv2 for every file.  RGBA, rawvideo, PNG, HuffYUV, FFV1,
-    UtVideo, Lagarith and MJPG files are checked against the expected
-    geometry and ``chs`` before any decode; a PNG, HuffYUV, FFV1, UtVideo
-    or Lagarith layout the decoders do not read raises then, naming it
-    (``avi.png_unsupported``, ``avi.huffyuv_unsupported``,
+    UtVideo, Lagarith, MPEG-4 and MJPG files are checked against the
+    expected geometry and ``chs`` before any decode; a PNG, HuffYUV, FFV1,
+    UtVideo, Lagarith or MPEG-4 stream the decoders do not read raises
+    then, naming it (``avi.png_unsupported``, ``avi.huffyuv_unsupported``,
     ``avi.ffv1_unsupported``, ``avi.utvideo_unsupported``,
-    ``avi.lagarith_unsupported``: the first frame's type);
+    ``avi.lagarith_unsupported``: the first frame's type,
+    ``avi.mpeg4_unsupported``: the VOL and the first VOP);
     1/2/4-bit BI_RGB, BI_BITFIELDS, palette-change chunks and a frame
     chunk longer than the frame (not its padded size) raise then, naming
     what; and an MJPG's

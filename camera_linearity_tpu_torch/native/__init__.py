@@ -1,5 +1,6 @@
 """ctypes bindings for the native host-staging library, the MJPEG decoder,
-the TIFF codec and the PNG, HuffYUV, FFV1 and UtVideo frame decoders.
+the TIFF codec and the PNG, HuffYUV, FFV1, UtVideo, Lagarith and MPEG-4
+Part 2 frame decoders.
 
 Port of ``camera_linearity_tpu/native``, copied: importing the JAX package
 would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
@@ -13,8 +14,11 @@ port's own), ``png.cpp`` (PNG frames of an AVI: unfiltering, Adam7 and
 the conversion to BGR; Python's ``zlib`` inflates), ``huffyuv.cpp``
 (HuffYUV frames of an AVI), ``ffv1.cpp`` (FFV1 frames of an AVI, a
 slice a thread, the context states kept in a decoder object),
-``utvideo.cpp`` (Ut Video frames of an AVI, a frame a thread) and
-``lagarith.cpp`` (Lagarith frames of an AVI, a plane a thread) build
+``utvideo.cpp`` (Ut Video frames of an AVI, a frame a thread),
+``lagarith.cpp`` (Lagarith frames of an AVI, a plane a thread) and
+``mpeg4.cpp`` (MPEG-4 Part 2 frames of an AVI: a frame parsed while the
+one before it is rebuilt a macroblock row a thread, the prediction state
+and the reference picture kept in a decoder object) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -23,8 +27,9 @@ without a compiler; ``available()`` reports which path is active and
 :func:`build_error` why a build failed.  The decoders and the TIFF codec
 have no fallback: their entry points raise without the library
 (``native/jpeg_plain.py``, ``tiff_plain.py``, ``png_plain.py``,
-``huffyuv_plain.py``, ``ffv1_plain.py``, ``utvideo_plain.py`` and
-``lagarith_plain.py`` are the plain versions the tests hold them to).
+``huffyuv_plain.py``, ``ffv1_plain.py``, ``utvideo_plain.py``,
+``lagarith_plain.py`` and ``mpeg4_plain.py`` are the plain versions the
+tests hold them to).
 """
 from __future__ import annotations
 
@@ -45,8 +50,8 @@ from .jpeg_plain import TIFF_FORMS as TIFF_JPEG_FORMS
 # the uncompressed video layouts, by their number in jpeg.cpp
 from .rawvideo_plain import LAYOUTS as RAW_LAYOUTS, frame_bytes
 from .rawvideo_plain import MATRICES as RAW_MATRICES
-from . import (ffv1_plain, huffyuv_plain, lagarith_plain, png_plain,
-               utvideo_plain)
+from . import (ffv1_plain, huffyuv_plain, lagarith_plain, mpeg4_plain,
+               png_plain, utvideo_plain)
 
 __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
@@ -64,7 +69,8 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "huffyuv_decode_bgr_batch", "ffv1_available", "Ffv1Decoder",
            "ffv1_decode_bgr_batch", "utvideo_available",
            "utvideo_decode_bgr_batch", "lagarith_available",
-           "lagarith_decode_bgr_batch"]
+           "lagarith_decode_bgr_batch", "mpeg4_available", "Mpeg4Decoder",
+           "mpeg4_decode_bgr_batch", "mpeg4_flush"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
 # fixed-point mean (grid 1/65535 on the [0,1] DN scale, absolute error
@@ -140,6 +146,7 @@ _HUFFYUV_SRC = _DIR / "huffyuv.cpp"
 _FFV1_SRC = _DIR / "ffv1.cpp"
 _UTVIDEO_SRC = _DIR / "utvideo.cpp"
 _LAGARITH_SRC = _DIR / "lagarith.cpp"
+_MPEG4_SRC = _DIR / "mpeg4.cpp"
 _BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 
 
@@ -187,8 +194,8 @@ _NTHREADS = min(16, os.cpu_count() or 1)
 
 def build_error(stem: str = "_stager") -> Optional[str]:
     """Why the last build of ``stem`` (``"_stager"``, ``"_mjpeg"``,
-    ``"_tiff"``, ``"_png"``, ``"_huffyuv"``, ``"_ffv1"``, ``"_utvideo"`` or
-    ``"_lagarith"``)
+    ``"_tiff"``, ``"_png"``, ``"_huffyuv"``, ``"_ffv1"``, ``"_utvideo"``,
+    ``"_lagarith"`` or ``"_mpeg4"``)
     failed, or None when it did not fail."""
     return _build_errors.get(stem)
 
@@ -403,6 +410,20 @@ def _declare_lagarith(lib: ctypes.CDLL) -> None:
     lib.clt_lagarith_version.restype = i
 
 
+def _declare_mpeg4(lib: ctypes.CDLL) -> None:
+    i, sz, ip = ctypes.c_int, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int)
+    szp = ctypes.POINTER(sz)
+    lib.clt_mpeg4_new.argtypes = [i, i, i, i]
+    lib.clt_mpeg4_new.restype = ctypes.c_void_p
+    lib.clt_mpeg4_free.argtypes = [ctypes.c_void_p]
+    lib.clt_mpeg4_free.restype = None
+    lib.clt_mpeg4_decode_batch.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), szp, szp, ip, sz,
+        ctypes.POINTER(ctypes.c_uint8), sz, i, ip, ip]
+    lib.clt_mpeg4_decode_batch.restype = None
+    lib.clt_mpeg4_version.restype = i
+
+
 # stem: (source, extra g++ flags, entry-point types, what it is).  -fwrapv
 # for jpeg.cpp: the IDCTs' sums of corrupt coefficients wrap, as libjpeg's
 # 32-bit lanes do, instead of being undefined.
@@ -414,6 +435,8 @@ _DECODERS = {
     "_ffv1": (_FFV1_SRC, (), _declare_ffv1, "FFV1 decoder"),
     "_utvideo": (_UTVIDEO_SRC, (), _declare_utvideo, "UtVideo decoder"),
     "_lagarith": (_LAGARITH_SRC, (), _declare_lagarith, "Lagarith decoder"),
+    "_mpeg4": (_MPEG4_SRC, ("-fwrapv",), _declare_mpeg4,
+               "MPEG-4 Part 2 decoder"),
 }
 _decoder_libs: Dict[str, Optional[ctypes.CDLL]] = {}
 
@@ -677,6 +700,12 @@ def lagarith_available() -> bool:
     """True when the native Lagarith decoder built (or was built) and
     loaded."""
     return _load_decoder("_lagarith") is not None
+
+
+def mpeg4_available() -> bool:
+    """True when the native MPEG-4 Part 2 decoder built (or was built) and
+    loaded."""
+    return _load_decoder("_mpeg4") is not None
 
 
 def utvideo_available() -> bool:
@@ -1101,6 +1130,140 @@ def lagarith_decode_bgr_batch(payloads, dst: np.ndarray,
                 first_frame=first_frame + a)
         a = b
     return k
+
+
+# mpeg4.cpp's return codes
+_MPEG4_REASONS = {
+    -1: "bits FFmpeg fails to decode (it conceals the frame)",
+    -2: "the data end inside it",
+    -3: "a video packet header FFmpeg refuses (or a packet that does not "
+        "start at the next macroblock)",
+    -4: "an earlier frame failed to decode (the reference is lost)"}
+
+
+class Mpeg4Decoder:
+    """The native decoder of one MPEG-4 Part 2 stream (``tag``: the AVI
+    fourcc as FFmpeg takes it, ``extradata``: the ``strf`` bytes after the
+    BITMAPINFOHEADER) of ``height`` x ``width`` frames.  Python reads each
+    chunk's headers (``mpeg4_plain.Stream``: the VOL, user data, the VOP
+    header and the refusals); ``mpeg4.cpp`` keeps the prediction state and
+    the reference picture from one :func:`mpeg4_decode_bgr_batch` call to
+    the next, so the decoder takes the stream's chunks in order, from its
+    first.  ``frames`` counts the frames it output.  Raises RuntimeError
+    where the library did not build."""
+
+    def __init__(self, tag: str, extradata: bytes, height: int, width: int):
+        self._lib = _require(_load_decoder("_mpeg4"), "_mpeg4")
+        _mjpeg()   # the planes' converter
+        self._handle = None
+        self.stream = mpeg4_plain.Stream(tag, extradata, height, width)
+        self.height, self.width = height, width
+        self.frames = 0
+        self.last: Optional[np.ndarray] = None   # the last frame's planes
+        self.failed: Optional[str] = None        # why a call failed
+
+    def _open(self) -> None:
+        v = self.stream.vol
+        self._handle = self._lib.clt_mpeg4_new(v.height, v.width,
+                                               int(v.resync_marker),
+                                               v.time_increment_bits)
+        if not self._handle:
+            raise ValueError(f"an MPEG-4 stream of {v.width} x {v.height} "
+                             "the decoder does not take")
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.clt_mpeg4_free(self._handle)
+            self._handle = None
+
+
+def mpeg4_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Mpeg4Decoder,
+                           planes: Optional[np.ndarray] = None,
+                           threads: Optional[int] = None) -> int:
+    """Decode the next MPEG-4 Part 2 chunks of ``decoder``'s stream into
+    ``dst`` ((k, H, W, 3) BGR uint8, k >= ``len(payloads)``), giving the
+    frames ``cv2.VideoCapture`` gives for them: ``mpeg4.cpp`` on up to
+    ``threads`` threads (default: every CPU) into yuv420p planes
+    (``planes``: a reusable uint8 buffer of at least k ``i420_left``
+    frames), which the rawvideo converter (``jpeg.cpp``) turns into BGR.
+    Returns the number of frames written: an N-VOP or a DivX drop chunk
+    gives none (FFmpeg outputs none for them; empty chunks the caller
+    drops, as the AVI demuxer does).  Raises ValueError naming the frame
+    (the chunk's index in the stream) that the decoder refuses (a feature
+    ``mpeg4_plain.unsupported`` names) or that does not decode, and the
+    macroblock where it fails; after a failure the decoder refuses every
+    call.  RuntimeError where a library did not build."""
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    st = decoder.stream
+    k, (h, w) = len(payloads), dst.shape[1:3]
+    if dst.shape[0] < k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, payloads {k}")
+    if (h, w) != (decoder.height, decoder.width):
+        raise ValueError(f"dst frames of {h} x {w}, the stream's are "
+                         f"{decoder.height} x {decoder.width}")
+    if decoder.failed:
+        raise ValueError(f"mpeg4_decode_bgr_batch: {decoder.failed}")
+    jobs = []
+    for p in payloads:
+        index = st.chunks
+        try:
+            fh = st.next(bytes(p))
+        except mpeg4_plain.Mpeg4Error as exc:
+            decoder.failed = str(exc)
+            raise ValueError(f"mpeg4_decode_bgr_batch: {exc}") from None
+        if fh.kind in "IP":
+            v = fh.vop
+            jobs.append((p, fh.bit, index, (
+                int(fh.kind == "I"), v.quant, v.fcode, v.rounding,
+                v.dc_threshold, int(fh.edge), int(fh.dc_clip))))
+    n = len(jobs)
+    if not n:
+        return 0
+    if decoder._handle is None:
+        decoder._open()
+    plane_bytes = frame_bytes("i420_left", h, w)
+    if planes is None or planes.size < n * plane_bytes:
+        planes = np.empty(n * plane_bytes, np.uint8)
+    _u8_buffer(planes, "planes", writable=True)
+    flats = [np.frombuffer(j[0], np.uint8) for j in jobs]
+    ptrs, sizes = _ptr_array(flats)
+    bits = (ctypes.c_size_t * n)(*[j[1] for j in jobs])
+    params = np.array([j[3] for j in jobs], np.int32)
+    rcs, wheres = (ctypes.c_int * n)(), (ctypes.c_int * n)()
+    decoder._lib.clt_mpeg4_decode_batch(
+        decoder._handle, ptrs, sizes, bits,
+        params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), n,
+        _as_u8_ptr(planes), plane_bytes, threads or os.cpu_count() or 1,
+        rcs, wheres)
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            mbw = (w + 15) // 16
+            where = f"macroblock ({wheres[i] % mbw}, {wheres[i] // mbw}): " \
+                if wheres[i] >= 0 else ""
+            decoder.failed = f"frame {jobs[i][2]}: {where}" + \
+                _MPEG4_REASONS.get(rc, f"return code {rc}")
+            raise ValueError(f"mpeg4_decode_bgr_batch: {decoder.failed}")
+    raw_decode_bgr_batch([planes[i * plane_bytes:(i + 1) * plane_bytes]
+                          for i in range(n)], dst[:n], "i420_left",
+                         threads=threads, first_frame=decoder.frames,
+                         matrix=mpeg4_plain.matrix_name(st.vol))
+    decoder.last = planes[(n - 1) * plane_bytes:n * plane_bytes].copy()
+    decoder.frames += n
+    return n
+
+
+def mpeg4_flush(decoder: Mpeg4Decoder, dst: np.ndarray) -> int:
+    """At the stream's end: where its last chunk was an N-VOP, FFmpeg
+    outputs the last frame once more; it goes to ``dst[0]`` and 1 is
+    returned, else 0."""
+    if not decoder.stream.skipped_last or decoder.last is None:
+        return 0
+    decoder.stream.skipped_last = False
+    raw_decode_bgr_batch([decoder.last], dst[:1], "i420_left",
+                         first_frame=decoder.frames,
+                         matrix=mpeg4_plain.matrix_name(decoder.stream.vol))
+    decoder.frames += 1
+    return 1
 
 
 def tiff_available() -> bool:

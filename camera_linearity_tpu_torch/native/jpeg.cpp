@@ -778,24 +778,27 @@ inline std::int32_t sws_table(const SwsRange& r, std::int32_t t) {
     return static_cast<std::int32_t>(v < 0 ? 0 : v > 255 ? 255 : v);
 }
 
-// swscale's initFilter for SWS_BICUBIC (B = 0, C = 0.6) with the default
-// chroma position (every sample at its centre, 128/256 of its pixel, in
-// source and output alike): dst_w rows of `size` coefficients summing to
-// `one`, and each row's first source index; returns size.  A unit step is
-// the one-tap identity; otherwise each tap is the Keys cubic at its
+// swscale's initFilter for SWS_BICUBIC (B = 0, C = 0.6), a sample of the
+// source and of the output at src_pos and dst_pos 256ths of its pixel (the
+// default chroma position: 128, its centre; a chroma sample sited left, as
+// FFmpeg's MPEG-4 decoder tags its frames, 64): dst_w rows of `size`
+// coefficients summing to `one`, and each row's first source index;
+// returns size.  A unit step at the same position is the one-tap
+// identity; otherwise each tap is the Keys cubic at its
 // distance in 1/2^17 pixels, the sides cut where their weight is below
 // 0.002 of the filter's scale, the rows padded to `align` taps, folded
 // inside [0, src_w) and rounded with the error carried along the row.
 // jpeg_plain.init_filter is the same in Python.
 int init_filter(int inc, int src_w, int dst_w, int align, int one,
-                std::vector<std::int16_t>& coef, std::vector<std::int32_t>& first) {
+                std::vector<std::int16_t>& coef, std::vector<std::int32_t>& first,
+                int src_pos = 128, int dst_pos = 128) {
     int lg = 0;
     for (int r = src_w / dst_w; r > 1; r >>= 1) ++lg;
     const std::int64_t fone = std::int64_t{1} << (54 - std::min(lg, 8));
     int size;
     std::vector<std::int64_t> filt;
     std::vector<std::int64_t> pos(dst_w);
-    if (std::abs(inc - 0x10000) < 10) {
+    if (std::abs(inc - 0x10000) < 10 && src_pos == dst_pos) {
         size = 1;
         filt.assign(dst_w, fone);
         for (int i = 0; i < dst_w; ++i) pos[i] = i;
@@ -804,7 +807,8 @@ int init_filter(int inc, int src_w, int dst_w, int align, int one,
         size = std::max(std::min(size, src_w - 2), 1);
         const std::int64_t b = 0, c = static_cast<std::int64_t>(0.6 * (1 << 24));
         const std::int64_t k24 = std::int64_t{1} << 24, k30 = std::int64_t{1} << 30;
-        std::int64_t x = ((128 * std::int64_t{inc}) >> 7) - ((128 * std::int64_t{0x10000}) >> 7);
+        std::int64_t x = ((dst_pos * std::int64_t{inc}) >> 7) -
+                         ((src_pos * std::int64_t{0x10000}) >> 7);
         filt.assign(static_cast<std::size_t>(dst_w) * size, 0);
         for (int i = 0; i < dst_w; ++i) {
             std::int64_t xx = (x - (size - 2) * (std::int64_t{1} << 16)) / (1 << 17);
@@ -1326,6 +1330,7 @@ struct Decoder {
 
     // ---- mode 2 (ffmpeg) ----
     int hs = 0, vs = 0;          // the yuvj format's chroma shifts
+    int chroma_h_pos = 128;      // the chroma samples' place in 256ths of a pixel
     bool gray = false;           // one component: FFmpeg's gray8
     const SwsRange* range = &kSwsFull;  // the input's range, swscale's tables
     bool scaled = false;         // swscale's scaled path converts the frame
@@ -1819,7 +1824,7 @@ struct Decoder {
         const int dw = full ? W : (W + 1) >> 1;
         const int xinc = static_cast<int>(((static_cast<std::int64_t>(cw) << 16) + (dw >> 1)) / dw);
         const int yinc = static_cast<int>(((static_cast<std::int64_t>(ch) << 16) + (H >> 1)) / H);
-        const int hsize = init_filter(xinc, cw, dw, 4, 1 << 14, s->hcoef, s->hpos);
+        const int hsize = init_filter(xinc, cw, dw, 4, 1 << 14, s->hcoef, s->hpos, chroma_h_pos);
         const int vsize = init_filter(yinc, ch, H, 2, 1 << 12, s->vcoef, s->vpos);
         const Phases ph = find_phases(s->hcoef, s->hpos, hsize, dw, cw);
         const Component &c0 = hd.comp[0], &c1 = hd.comp[1], &c2 = hd.comp[2];
@@ -2094,16 +2099,18 @@ thread_local std::vector<std::uint8_t> tls_spliced;
 // tables of the BT.601 matrix (or BT.709, for the planes of a stream tagged
 // so): yuv420p (I420; YV12 with its planes swapped) and yuv422p by the
 // unscaled SSSE3 path at an even height, yuv444p by the full-chroma output,
-// every other case by the scaled path.
+// every other case by the scaled path.  i420_left is yuv420p whose chroma
+// FFmpeg's MPEG-4 decoder sites left (its scaled path filters from there);
+// yv24 is yuv444p with the V plane first.
 enum RawLayout { kPal8, kRgb555, kBgr24, kBgr0, kGray8, kI420, kYv12, kNv12, kYuyv, kUyvy, kYuv422p,
-                 kYuv444p };
+                 kYuv444p, kI420Left, kYv24 };
 
 constexpr int kShortChunk = -7;   // rawvideo: a chunk shorter than the frame
 
 int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int height,
                int width, int layout, bool bottom_up, const std::uint8_t* palette,
                const SwsRange* range) {
-    if (height < 1 || width < 1 || layout < kPal8 || layout > kYuv444p) return kUnsupported;
+    if (height < 1 || width < 1 || layout < kPal8 || layout > kYv24) return kUnsupported;
     const std::size_t H = height, W = width, h2 = (H + 1) / 2, w2 = (W + 1) / 2;
     static const int kPixelBytes[5] = {1, 2, 3, 4, 1};
     if (layout <= kGray8) {
@@ -2140,7 +2147,7 @@ int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int h
         return kOk;
     }
     const bool packed = layout == kYuyv || layout == kUyvy, planar = !packed && layout != kNv12;
-    const bool full = layout == kYuv444p;
+    const bool full = layout == kYuv444p || layout == kYv24;
     const std::size_t ch = packed || layout == kYuv422p || full ? H : h2, cw = full ? W : w2;
     if (n < (packed ? H * w2 * 4 : H * W + 2 * ch * cw)) return kShortChunk;
     Decoder dec;
@@ -2152,6 +2159,7 @@ int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int h
     dec.hs = full ? 0 : 1;
     dec.vs = ch == H ? 0 : 1;
     dec.range = range;
+    if (layout == kI420Left) dec.chroma_h_pos = 64;
     dec.alloc_rows();
     Component *c = dec.hd.comp;
     c[0].stride = W;
@@ -2159,8 +2167,9 @@ int raw_decode(const std::uint8_t* data, std::size_t n, std::uint8_t* dst, int h
     if (planar) {
         std::uint8_t* planes = const_cast<std::uint8_t*>(data);
         c[0].plane = planes;
-        c[layout == kYv12 ? 2 : 1].plane = planes + H * W;
-        c[layout == kYv12 ? 1 : 2].plane = planes + H * W + ch * cw;
+        const bool swap = layout == kYv12 || layout == kYv24;
+        c[swap ? 2 : 1].plane = planes + H * W;
+        c[swap ? 1 : 2].plane = planes + H * W + ch * cw;
     } else {  // split into planes of the scratch buffer
         Scratch& sc = *dec.s;
         const std::size_t need = (packed ? H * W : 0) + 2 * ch * w2;
@@ -2236,7 +2245,8 @@ void clt_jpeg_decode_bgr_batch(const unsigned char* const* srcs,
 
 // Decode k uncompressed frames (srcs[i], sizes[i] bytes) of one layout
 // (RawLayout: 0 pal8, 1 rgb555, 2 bgr24, 3 bgr0, 4 gray8, 5 i420, 6 yv12,
-// 7 nv12, 8 yuyv422, 9 uyvy422, 10 yuv422p, 11 yuv444p) into dst, frame i
+// 7 nv12, 8 yuyv422, 9 uyvy422, 10 yuv422p, 11 yuv444p, 12 i420_left,
+// 13 yv24) into dst, frame i
 // at i*height*width*3 as BGR, on up to nthreads threads.  bottom_up: the
 // single-plane layouts' rows are stored last first; palette: pal8's 256 B,
 // G, R, X entries; matrix: the YUV layouts' (0 BT.601, 1 BT.709).  rcs[i]

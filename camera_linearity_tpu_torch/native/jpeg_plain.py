@@ -1091,7 +1091,8 @@ def _w16(a):
 
 
 def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
-                 vs: int, rng: SwsRange = SWS_FULL) -> np.ndarray:
+                 vs: int, rng: SwsRange = SWS_FULL,
+                 h_pos: int = 128) -> np.ndarray:
     """BGR24 from yuvj planes with chroma shifted (hs, vs) through
     swscale's scaled path with cv2's SWS_BICUBIC: the chroma resampled to
     the output's chroma size by ``init_filter``'s filters (across to
@@ -1101,7 +1102,10 @@ def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
     the MMXEXT output (16-bit ``pmulhw`` sums from the rounder 4, one or
     two chroma rows by their own rule where the vertical filter has one
     tap or two summing to 4096) on every row but the last two, which take
-    the C output (lookup tables); ``rng`` is the input's range."""
+    the C output (lookup tables); ``rng`` is the input's range, ``h_pos``
+    the chroma samples' place across their pixel in 256ths (128: the
+    centre, swscale's default; 64: sited left, as FFmpeg's MPEG-4 decoder
+    tags its frames)."""
     height, width = y.shape
     full = width & 1
     cw, ch = -(-width >> hs), -(-height >> vs)
@@ -1109,8 +1113,9 @@ def _swscale_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
     xinc = ((cw << 16) + (dw >> 1)) // dw
     yinc = ((ch << 16) + (height >> 1)) // height
     # swscale's default chroma position puts every sample at its centre:
-    # 128/256 of its own pixel in the source and the output alike
-    hc, hp = init_filter(xinc, cw, dw, 4, 1 << 14, 128, 128)
+    # 128/256 of its own pixel in the source and the output alike (a
+    # source sited left: 64)
+    hc, hp = init_filter(xinc, cw, dw, 4, 1 << 14, h_pos, 128)
     vc, vp = init_filter(yinc, ch, height, 2, 1 << 12, 128, 128)
     yb = y.astype(np.int64) << 7
     ub, vb = _hscale(cb, hc, hp), _hscale(cr, hc, hp)

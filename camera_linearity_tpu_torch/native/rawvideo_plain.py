@@ -25,10 +25,17 @@ does):
   one (the port's HuffYUV decoder converts its YUY2 frames so too);
 * ``NV12`` (interleaved chroma), ``YUY2`` and ``UYVY`` (packed 4:2:2):
   swscale's scaled path at every size, limited range;
-* ``yuv444p`` (no fourcc of rawdec's here: the planes of a Ut Video
-  ``ULY4``/``ULH4`` frame or a yuv444p FFV1 frame): the scaler's
-  full-chroma output at every size, its 32-bit sums wrapping (a
-  saturated blue comes out 0, as cv2 gives it).
+* ``yuv444p`` (``I444``; the planes of a Ut Video ``ULY4``/``ULH4`` frame
+  or a yuv444p FFV1 frame) and ``yv24`` (``YV24``: the V plane first, as
+  rawdec swaps it): the scaler's full-chroma output at every size, its
+  32-bit sums wrapping (a saturated blue comes out 0, as cv2 gives it);
+  of rawdec's other yuv444p fourccs cv2 reads neither ``444P`` nor
+  ``Y444``;
+* ``i420_left`` (no fourcc: the planes of an MPEG-4 Part 2 frame, whose
+  chroma FFmpeg's decoder sites left, AVCHROMA_LOC_LEFT): as ``i420``,
+  but the scaled path (an odd height) filters the chroma from a sample
+  64/256 of a pixel in, not 128/256, as cv2's swscale takes the siting
+  from the frame.
 
 The YUV layouts take the BT.601 matrix, or BT.709 (``matrix``) for the
 planes of a stream FFmpeg tags so (Ut Video's ``ULH*``), which cv2's
@@ -54,7 +61,8 @@ __all__ = ["LAYOUTS", "MATRICES", "FOURCC_LAYOUTS", "DIB_LAYOUTS",
 
 # each layout's number in jpeg.cpp's clt_raw_decode_bgr_batch
 LAYOUTS = ("pal8", "rgb555", "bgr24", "bgr0", "gray8", "i420", "yv12",
-           "nv12", "yuyv422", "uyvy422", "yuv422p", "yuv444p")
+           "nv12", "yuyv422", "uyvy422", "yuv422p", "yuv444p", "i420_left",
+           "yv24")
 
 # the YUV layouts' matrices, by their number in jpeg.cpp
 MATRICES = ("bt601", "bt709")
@@ -63,7 +71,7 @@ MATRICES = ("bt601", "bt709")
 FOURCC_LAYOUTS = {"I420": "i420", "IYUV": "i420", "YV12": "yv12",
                   "NV12": "nv12", "YUY2": "yuyv422", "UYVY": "uyvy422",
                   "Y800": "gray8", "GREY": "gray8", "Y8": "gray8",
-                  "Y42B": "yuv422p"}
+                  "Y42B": "yuv422p", "I444": "yuv444p", "YV24": "yv24"}
 DIB_LAYOUTS = {8: "pal8", 16: "rgb555", 24: "bgr24", 32: "bgr0"}
 
 # bytes per pixel of the single-plane layouts; rawdec pads the rows of
@@ -84,7 +92,7 @@ def frame_bytes(layout: str, height: int, width: int) -> int:
         return height * _half(width) * 4
     if layout == "yuv422p":
         return height * width + 2 * height * _half(width)
-    if layout == "yuv444p":
+    if layout in ("yuv444p", "yv24"):
         return 3 * height * width
     return height * width + 2 * _half(height) * _half(width)
 
@@ -152,8 +160,10 @@ def decode_bgr(payload, layout: str, height: int, width: int,
                             rng)
     y = data[:height * width].reshape(height, width)
     rest = data[height * width:need]
-    if layout == "yuv444p":
+    if layout in ("yuv444p", "yv24"):
         u, v = rest.reshape(2, height, width)
+        if layout == "yv24":
+            u, v = v, u
         return _ffmpeg_bgr(y, u, v, subsampled=False, rng=rng)
     if layout == "yuv422p":
         u, v = rest.reshape(2, height, w2)
@@ -168,7 +178,8 @@ def decode_bgr(payload, layout: str, height: int, width: int,
     if layout == "yv12":
         u, v = v, u
     if height % 2:  # swscale's unscaled path takes even heights only
-        return _swscale_bgr(y, u, v, 1, 1, rng)
+        return _swscale_bgr(y, u, v, 1, 1, rng,
+                            h_pos=64 if layout == "i420_left" else 128)
     full = [np.repeat(np.repeat(c, 2, 0), 2, 1)[:height, :width]
             for c in (u, v)]
     return _ffmpeg_bgr(y, *full, subsampled=True, rng=rng)

@@ -52,7 +52,7 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 
 from ..native import (ffv1_plain, huffyuv_plain, lagarith_plain,
-                      png_plain, utvideo_plain)
+                      mpeg4_plain, png_plain, utvideo_plain)
 from ..native.jpeg_plain import ffmpeg_format
 from ..native.rawvideo_plain import (DIB_LAYOUTS, FOURCC_LAYOUTS,
                                      chunk_sizes, frame_bytes)
@@ -63,7 +63,9 @@ __all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "raw_chunks",
            "JpegInfo", "jpeg_unsupported", "PNG_CODECS", "HUFFYUV_CODECS",
            "FFV1_CODECS", "ffv1_params", "ffv1_unsupported",
            "UTVIDEO_CODECS", "utvideo_params", "utvideo_unsupported",
-           "LAGARITH_CODECS", "lagarith_unsupported"]
+           "LAGARITH_CODECS", "lagarith_unsupported", "MPEG4_CODECS",
+           "mpeg4_params", "mpeg4_unsupported", "UTVIDEO_READ",
+           "FOURCC_LAYOUTS"]
 
 # the fourccs (stripped of trailing spaces) FFmpeg decodes as PNG, as
 # HuffYUV, as FFV1 and as Ut Video (the Pro and pack-mode ones too, which
@@ -73,7 +75,10 @@ HUFFYUV_CODECS = huffyuv_plain.HUFFYUV_FOURCCS
 FFV1_CODECS = ffv1_plain.FFV1_FOURCCS
 UTVIDEO_CODECS = utvideo_plain.UTVIDEO_FOURCCS + tuple(
     utvideo_plain.REFUSED_FOURCCS)
+UTVIDEO_READ = utvideo_plain.UTVIDEO_FOURCCS   # the ones it decodes
 LAGARITH_CODECS = lagarith_plain.LAGARITH_FOURCCS
+# the MPEG-4 Part 2 fourccs FFmpeg maps to its mpeg4 decoder that cv2 reads
+MPEG4_CODECS = mpeg4_plain.MPEG4_FOURCCS
 
 # containers we descend into: their payload is a fourcc + nested chunks
 _CONTAINERS = (b"RIFF", b"LIST")
@@ -318,7 +323,8 @@ class AviInfo(_AviHeader):
     ``IHDR`` (``png_plain.PngInfo``); for FFV1 ``ffv1`` the stream's
     header (``ffv1_plain.Ffv1Params``: from the extradata, or from the
     first frame for versions 0 and 1), or None and ``ffv1_error`` why it
-    does not read."""
+    does not read; ``handler`` is the stream header's fourcc (FFmpeg's AVI
+    demuxer takes an MPEG-4 stream handled by ``XVID`` as Xvid)."""
     raw: Optional[RawLayout] = None
     stream: int = 0
     bit_count: int = 0
@@ -326,6 +332,7 @@ class AviInfo(_AviHeader):
     png: Optional[png_plain.PngInfo] = None
     ffv1: Optional[ffv1_plain.Ffv1Params] = None
     ffv1_error: Optional[str] = None
+    handler: str = ""
 
     @property
     def layout(self) -> Optional[str]:
@@ -358,11 +365,13 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
             header = None
             stream = -1   # the number of the latest stream header
             video = False
+            handler = b""
             for fourcc, size in _chunk_spans(f, (b"strh", b"strf")):
                 payload = f.read(size)
                 if fourcc == b"strh":
                     stream += 1
                     video = payload[:4] == b"vids"
+                    handler = payload[4:8]
                 elif video and len(payload) >= 20:
                     header = payload
                     break
@@ -395,7 +404,7 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
                                 (abs(height), width)), 3)
         info.png = ihdr
     elif codec in HUFFYUV_CODECS or codec in UTVIDEO_CODECS or \
-            codec in LAGARITH_CODECS:
+            codec in LAGARITH_CODECS or codec in MPEG4_CODECS:
         info = AviInfo(codec, abs(height), width, 3)
     elif codec in FFV1_CODECS:
         info = AviInfo(codec, abs(height), width, 3)
@@ -409,6 +418,7 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
     if info is not None:
         info.stream, info.bit_count, info.extra = stream, bit_count, \
             bytes(header[40:])
+        info.handler = handler.decode("latin-1").strip()
         return info
     dib = codec == "DIB"
     layout = DIB_LAYOUTS.get(bit_count) if dib else FOURCC_LAYOUTS.get(codec)
@@ -528,6 +538,42 @@ def lagarith_unsupported(path: Path, info: AviInfo) -> Optional[str]:
         return None
     return lagarith_plain.unsupported(head[0], info.height, info.width,
                                       info.bit_count)
+
+
+def mpeg4_params(info: AviInfo) -> Tuple[str, bytes]:
+    """An MPEG-4 Part 2 stream's (tag, extradata): the fourcc FFmpeg's bug
+    detection reads (the header's, or ``XVID`` where the stream header's
+    handler is ``XVID``, as FFmpeg's AVI demuxer takes it) and the
+    ``strf`` bytes after the BITMAPINFOHEADER (a VOL some writers put
+    there)."""
+    tag = "XVID" if info.handler == "XVID" else info.codec
+    return tag, info.extra
+
+
+def mpeg4_unsupported(path: Path, info: AviInfo) -> Optional[str]:
+    """What of an MPEG-4 Part 2 stream the port's decoder does not read, or
+    None, before any decode: from the extradata and the first chunk's
+    headers (``mpeg4_plain.unsupported``: B-VOPs and packed bitstreams,
+    S-VOPs and sprites, quarter-pel, interlaced VOLs, MPEG quantisation
+    matrices, data partitioning and reversible VLCs, the short video
+    header, shapes other than rectangular, ``not_8_bit``, newpred,
+    reduced resolution, scalability, complexity estimation, a full-range
+    signal or a matrix other than BT.601 and BT.709, the Xvid IDCT that
+    FFmpeg's bug detection picks for Xvid streams; a first VOP that is no
+    I-VOP, a VOL of another size than the container's).  A later chunk
+    that is refused raises when it is decoded, naming its frame."""
+    try:
+        head = _first_chunk(path, info.stream)
+    except OSError as exc:
+        return f"unreadable ({exc})"
+    if not head:
+        return None
+    try:
+        mpeg4_plain.Stream(*mpeg4_params(info), info.height,
+                           info.width).next(head)
+    except mpeg4_plain.Mpeg4Error as exc:
+        return str(exc).removeprefix("frame 0: ")
+    return None
 
 
 def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:

@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Phases 1-7, the HDR merge: builds the merge kernels K1-K3 from
-``camera_linearity_tpu_torch/csrc`` (one ``nvcc`` per source, all at once)
-and prints their registers and spills, holds each against its plain PyTorch
+``camera_linearity_tpu_torch/csrc`` (one ``nvcc`` per source, all at once;
+the experiments' sources build on beside phases 3-6, which wait only for
+the merge sources, and phase 7's timing waits for them) and prints their
+registers and spills, holds each against its plain PyTorch
 version on the card at the shapes of BASELINE config 2 (6 exposures of 1200
 x 1920 x 3, f32 value and std) and config 3 (the same geometry with dark
 frames, a flat field and 12-bit tables), and on a 37 x 53 crop that K2 and
@@ -22,7 +24,7 @@ device-to-device ``copy_`` of the same bytes with CUDA events, and times
 Phases 8-11, the linearity analysis and the calibration (plain PyTorch; no
 kernel of its own): ``process_linearity`` and
 ``collect_exposure_pair_stats`` at config-2 size against the CPU; every
-energy form on a 65,536-pixel crop against the CPU in float64; the
+energy form on a 32,768-pixel crop against the CPU in float64; the
 config-4 ICRF solve (3 channels, 2,000 pixels, 6 exposures, popsize 15),
 cold and warm, scored by the NumPy oracle of the reference; and the
 calibration at full config-2 resolution, unweighted (the histogram form)
@@ -69,11 +71,21 @@ ULY2 gradient and ULY4 left in FFmpeg's 18 slices) and
 filled alpha plane, YUY2, YV12, and a stream mixing solid and coded
 frames; encoded by ``tests/_torch_lagarith_enc.cpp``), the plain versions
 in spawned processes, and on 4K frames of each to what cv2 gives for the
-pictures written, and time them (PNG, HuffYUV, UtVideo and Lagarith one
-frame on one thread and over a batch of 12 on all, FFV1 and Lagarith one
-frame on all, a slice or a plane a thread); hold the Lagarith decoder to
-the committed ``tests/data/lagarith *.avi``'s cv2 frames
-(``.cv2.npy``); write the raw videos' frames again as
+pictures written, and time them, once each (PNG, HuffYUV, UtVideo and
+Lagarith one frame on one thread and over a batch of 12 on all, FFV1 and
+Lagarith one frame on all, a slice or a plane a thread); hold the
+Lagarith decoder to the committed ``tests/data/lagarith *.avi``'s cv2
+frames (``.cv2.npy``); hold the MPEG-4 Part 2 decoder
+(``native/mpeg4.cpp``) to ``mpeg4_plain.py`` and to the writer's
+reconstruction on a 64 x 3840 strip of phase 14's I420 planes
+(``mpeg4_strip``: an I-VOP and P-VOPs of skipped, 1MV, 4MV and intra
+macroblocks, vectors past every edge, dquant, AC prediction, both rounding
+types; the writer and the plain decode in a spawned process), to the
+committed ``tests/data/mpeg4 *.avi``'s cv2 frames, and on 4K to the
+reconstruction of 14 (g)'s brightest video, and time it once each: the I-VOP
+on one thread, on all (a macroblock row a thread) and as a frame of a
+batch of 12 (a GOP a thread), the 11 P-VOPs on one thread, on all and
+as frames of 12 decoders at once; write the raw videos' frames again as
 I420 AVIs (``yuv_planes``, as ``cv2.VideoWriter(fourcc "I420")`` lays them
 out); run ``welford_algorithm``
 on the card against the host backend and the CPU in float64, and
@@ -109,7 +121,8 @@ held to stream 0's frames; ``timed(label, logger)`` and
 Phases 14 (c)-(f), config 5 from the lossless compressed AVIs
 ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write: phase
 14's raw frames encoded again (each distinct frame once, in phase 12's
-plain-decode window, cached under ``build/``) as PNG AVIs (``MPNG``),
+plain-decode window, cached under ``build/``; so are 14 (g)'s) as PNG
+AVIs (``MPNG``),
 HuffYUV AVIs (``HFYU`` RGB24, left, decorrelated), FFV1 AVIs as
 ``cv2.VideoWriter(fourcc "FFV1")`` writes BGR (version 3, slice CRCs,
 Golomb-Rice, 12 x 7 slices, a GOP of 12; the native encoder) and Ut Video
@@ -126,7 +139,11 @@ videos; (d) on the FFV1 videos; (e) on the ULRG videos, each held to the
 raw ``video_to_hdr`` bit for bit, and on the ULY0 videos, held to phase
 14's I420 ``video_to_hdr`` bit for bit; (f) on the Lagarith RGB24
 videos, held to the raw one, and on the Lagarith YV12 videos, held to
-the I420 one, bit for bit.
+the I420 one, bit for bit; (g) on MPEG-4 Part 2 ``FMP4`` AVIs of phase
+14's I420 planes (``tests/_torch_mpeg4_enc.cpp``: an I-VOP and 11 P-VOPs a
+video, as ``cv2.VideoWriter`` writes them), held bit for bit to
+``video_to_hdr`` on I420 AVIs of the writer's reconstruction, with its
+wall, K3's launch and MP/s.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
@@ -174,10 +191,12 @@ against the plain version and timed with it, in turns, at config 2 (8 and
 the same bytes.
 
 Phase 20, the multi-process layer (``parallel/``), in phase 12's
-directory: (a) an NCCL world of one in this process runs
+directory, on the first PHASE20_FRAMES frames of config 5's I420 videos
+(the single-process ``batch_video_to_hdr``, phase 14's path, on them
+first: the reference): (a) an NCCL world of one in this process runs
 ``batch_video_to_hdr_distributed`` on config 5's 8 scenes with the
-calibration leg (held to phase 14's f32/f32 run, and timed beside phase
-14's call made again in the same world), ``merge_batch_sharded``
+calibration leg (held to the reference, and timed beside its call made
+again in the same world), ``merge_batch_sharded``
 of config 3's stack with base curves (K2, held to its plain version), the
 sharded statistics on config 2's planes (held to ``ops/stats.py``) and the population-sharded
 config-4 solve (held to phase 10's); (b) two processes share the one card
@@ -254,6 +273,8 @@ MJPG_POOL, MJPG_QUALITY, MJPG_CROP_ROWS = 4, 25, CROP_ROWS + 16
 ROOT = Path(__file__).resolve().parent
 # phase 20 (b): a worker process that has not finished by then fails it
 PHASE20_WORKER_TIMEOUT_S = 300
+# phase 20's videos: the first frames of config 5's I420 ones
+PHASE20_FRAMES = 4
 SOURCES = {
     "merge_nhwc_fused": "camera_linearity_tpu_torch/csrc/hdr_merge.cu",
     "merge_nhwc_lerp": "camera_linearity_tpu_torch/csrc/hdr_merge_lerp.cu",
@@ -590,7 +611,7 @@ def linearity_phases(dev, t_np, vals_np, stds_np) -> dict:
     raise_failures("phase 8", failures)
 
     # --- phase 9: every energy form, card f32 against CPU f64 --------------
-    p_crop, s_cand, n_pairs = 65536, 75, N * (N - 1) // 2
+    p_crop, s_cand, n_pairs = 32768, 75, N * (N - 1) // 2
     log(f"phase 9: energies on a {p_crop}-pixel crop, {C} channels, {N} "
         f"exposures, S = {s_cand} candidates; card f32 against CPU f64")
     dn_full = np.round(vals_np * 255).astype(np.int32).reshape(
@@ -857,8 +878,9 @@ def yuv_planes(bgr, vs: int = 1, hs: int = 1):
 def make_videos(directory, dev):
     """BASELINE config 5's exposure videos, as benchmarks/bench_video.py
     makes them (a uniform base x exposure x 230 plus N(0, 6) noise, clipped
-    to uint8), generated on the card from seed 42 and written as raw RGBA
-    AVIs: ``scene <ms>ms.avi`` at full size and ``crop <ms>ms.avi`` of
+    to uint8), generated on the card from seed 42 (MJPG_POOL distinct
+    frames a video, cycled to FRAMES5, as the MJPG videos cycle them) and
+    written as raw RGBA AVIs: ``scene <ms>ms.avi`` at full size and ``crop <ms>ms.avi`` of
     their first CROP_ROWS rows; and the same frames as I420 AVIs in the
     layout ``cv2.VideoWriter(fourcc "I420")`` writes (``yuv_planes``;
     ``i420 scene <ms>ms.avi`` and ``i420 crop <ms>ms.avi``).  Returns the
@@ -874,7 +896,11 @@ def make_videos(directory, dev):
     for ms in EXPOSURES5_MS:
         level = (base * (ms / max(EXPOSURES5_MS)) * 230).clamp(0, 255)
         full, crop, i420, i420_crop = [], [], [], []
-        for _ in range(FRAMES5):
+        for i in range(FRAMES5):
+            if i >= MJPG_POOL:   # the pool cycled
+                for frames in (full, crop, i420, i420_crop):
+                    frames.append(frames[i % MJPG_POOL])
+                continue
             bgr = (level + 6 * torch.randn((H5, W5, 3), generator=gen,
                                            device=dev)).clamp(0, 255).to(
                 torch.uint8)
@@ -1426,7 +1452,8 @@ def plain_decode(kind: str, chunks, spec, rows: int, width: int):
     return ffv1_plain.decode_bgr(chunks, spec, rows, width)
 
 
-def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
+def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
+                         strip_pictures, pool) -> dict:
     """Phase 12's PNG, HuffYUV, FFV1, UtVideo and Lagarith rows: each of
     LOSSLESS_LAYOUTS, FFV1_LAYOUTS, UTVIDEO_LAYOUTS and LAGARITH_LAYOUTS on
     a full-width STRIP_ROWS-row strip, the native decoder held to its
@@ -1436,23 +1463,29 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
     gives for the pictures written, and timed: PNG, HuffYUV, UtVideo and
     Lagarith on one thread and over a batch of FRAMES5 on every core,
     FFV1 and Lagarith one frame on every core (a slice, or a plane, a
-    thread); and the committed Lagarith clips against cv2's frames.
-    Returns the rows' times."""
+    thread); and the committed Lagarith clips against cv2's frames.  The
+    MPEG-4 strip (:func:`mpeg4_strip` of ``strip_pictures``) is coded and
+    decoded by the plain version in the pool too, and 14 (g)'s
+    ``mpeg4_videos`` coded on a thread beside it; :func:`mpeg4_rows` then
+    takes its rows.  Returns the rows' times."""
     from camera_linearity_tpu_torch import native
     strips = lossless_layout_chunks(frames_host, frames_dev, STRIP_ROWS,
                                     want=False)
     t0 = time.perf_counter()
-    with plain_pool() as pool:
-        futures = {name: pool.submit(plain_decode, kind, chunks, spec,
-                                     STRIP_ROWS, W5)
-                   for name, (kind, chunks, spec, _) in strips.items()}
-        videos.submit(pool)
-        # the 4K frames are encoded here while the pool works
-        t1 = time.perf_counter()
-        layouts = lossless_layout_chunks(frames_host, frames_dev, H5)
-        encode_s = time.perf_counter() - t1
-        plain = {name: f.result() for name, f in futures.items()}
-        videos.finish()
+    futures = {name: pool.submit(plain_decode, kind, chunks, spec,
+                                 STRIP_ROWS, W5)
+               for name, (kind, chunks, spec, _) in strips.items()}
+    mpeg4_future = pool.submit(mpeg4_strip, strip_pictures)
+    videos.submit(pool)
+    mpeg4_videos.submit()
+    # the 4K frames are encoded here while the pool works
+    t1 = time.perf_counter()
+    layouts = lossless_layout_chunks(frames_host, frames_dev, H5)
+    encode_s = time.perf_counter() - t1
+    plain = {name: f.result() for name, f in futures.items()}
+    videos.finish()
+    mpeg4_strip_out = mpeg4_future.result()
+    mpeg4_videos.finish()
     plain_s = time.perf_counter() - t0
     planes = np.empty(FRAMES5 * native.frame_bytes("yuv444p", H5, W5),
                       np.uint8)
@@ -1484,18 +1517,15 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
         same = all(np.array_equal(f, w) for f, w in zip(frames, want))
         if not (same and plain_same):
             failures.append(name)
-        # the decodes above warmed every call below; the serial decoders
-        # (FFV1, Lagarith) are timed once a row
+        # the decodes above warmed every call below: each is timed once
         one = frames[:1]
         serial = kind in ("ffv1", "lagarith")
         single = host_ms(lambda: decode(kind, spec, chunks[:1], one,
-                                        threads=1),
-                         runs=1 if serial else 3, warmup=0)
+                                        threads=1), runs=1, warmup=0)
         one_wide = None
         if serial:
             one_wide = host_ms(lambda: decode(kind, spec, chunks[:1], one),
-                               runs=1 if kind == "lagarith" else 3,
-                               warmup=0)
+                               runs=1, warmup=0)
         wide = one_wide
         how = [f"{single:.1f} ms on one thread"]
         if serial:
@@ -1506,7 +1536,7 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
             many = np.empty((FRAMES5, H5, W5, 3), np.uint8)
             wide = host_ms(lambda: decode(
                 kind, spec, (chunks * FRAMES5)[:FRAMES5], many),
-                runs=1 if serial else 2, warmup=0 if serial else 1) / FRAMES5
+                runs=1, warmup=0 if serial else 1) / FRAMES5
             how.append(f"{wide:.1f} ms a frame over a batch of {FRAMES5} on "
                        f"{os.cpu_count()} threads")
             del many
@@ -1516,7 +1546,7 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
             rows[name]["one_frame_all_threads"] = one_wide
         log(f"  {'ok ' if same and plain_same else 'BAD'} {name}: one 4K "
             f"frame ({len(chunks[0]) / 1e6:.3f} MB) {'; '.join(how)} (host "
-            f"clock, median); "
+            f"clock, one run); "
             f"{len(chunks)} 4K frame(s) {'equal' if same else 'differ from'}"
             f" the pictures written as cv2 gives them; the {STRIP_ROWS} x "
             f"{W5} strip {'equals' if plain_same else 'differs from'} the "
@@ -1529,9 +1559,15 @@ def lossless_layout_rows(frames_host, frames_dev, videos) -> dict:
         + ("from the cache" if videos.encode_s is None else
            f"encoded beside them in {videos.encode_s:.1f} s (FFV1 and "
            "Lagarith native, on threads)"))
+    log("  MPEG-4 strip coded and decoded by the plain version in the pool; "
+        "14 (g)'s videos " + ("from the cache" if mpeg4_videos.encode_s is
+                              None else f"coded beside them in "
+                              f"{mpeg4_videos.encode_s:.1f} s (native, on a "
+                              "thread)"))
     raise_failures("phase 12, the PNG, HuffYUV, FFV1, UtVideo and Lagarith "
                    "decoders against their plain versions, the pictures "
                    "written and the committed clips", failures)
+    rows.update(mpeg4_rows(mpeg4_strip_out, mpeg4_videos))
     return rows
 
 
@@ -1627,31 +1663,38 @@ class LosslessVideos:
         if self.frames is None:
             return
         self._t0 = time.perf_counter()
+        # each video cycles MJPG_POOL distinct frames: the intra codecs
+        # code those once (FFV1 carries its states from frame to frame, so
+        # it codes every frame)
+        distinct = [f for i, f in enumerate(self.frames)
+                    if i % FRAMES5 < MJPG_POOL]
         # the PNG frames go out first; the HuffYUV tables meanwhile
-        png = [pool.submit(encode_png, f, 2, 8) for f in self.frames]
+        png = [pool.submit(encode_png, f, 2, 8) for f in distinct]
         self.stream = hw.make_stream("rgb24", "left", True, H5, None, 2,
                                      [self.frames[0][:H5 // 4, :, ::-1]])
         self.ffv1 = fw.cv2_config("bgr", H5, W5)
         self._encoder = ThreadPoolExecutor(2, "native-encode")
         bgr = [f[..., ::-1] for f in self.frames]
+        bgr_d = [f[..., ::-1] for f in distinct]
+        i420_d = [f for i, f in enumerate(self.i420)
+                  if i % FRAMES5 < MJPG_POOL]
 
         def ffv1_video(frames):
             return fw.native_encode([np.ascontiguousarray(f) for f in frames],
                                     H5, W5, self.ffv1)
         self._pending = {"PNG": png, "HFYU RGB24": [
-            pool.submit(hw.encode_frame, f, self.stream) for f in bgr],
+            pool.submit(hw.encode_frame, f, self.stream) for f in bgr_d],
             "FFV1": [self._encoder.submit(ffv1_video, bgr[i:i + FRAMES5])
                      for i in range(0, len(bgr), FRAMES5)]}
-        for fourcc, pictures in (("ULRG", bgr), ("ULY0", self.i420)):
+        for fourcc, pictures in (("ULRG", bgr_d), ("ULY0", i420_d)):
             params = self.utvideo(fourcc)[0]
             predictor = uw.PREDICTORS[self.UTVIDEO[fourcc]]
             self._pending[fourcc] = [
                 pool.submit(uw.encode_frame, uw.to_planes(f, params.layout),
                             params, predictor) for f in pictures]
         # one thread codes both Lagarith sets, each a frame a thread
-        i420 = self.i420
         lags = self._encoder.submit(lambda: [lw.native_encode(
-            kind, bgr if kind == "rgb24" else i420)
+            kind, bgr_d if kind == "rgb24" else i420_d)
             for kind in self.LAGARITH.values()])
         self._pending["LAGS RGB24"] = [lags]
         self.frames = self.i420 = None
@@ -1675,6 +1718,11 @@ class LosslessVideos:
                     [f.result() for f in futures]
                 if codec == "FFV1":   # a list of chunks a video
                     chunks = [c for video in chunks for c in video]
+                else:   # each distinct frame's chunk, cycled
+                    chunks = [chunks[i // FRAMES5 * MJPG_POOL
+                                     + i % FRAMES5 % MJPG_POOL]
+                              for i in range(FRAMES5 * len(
+                                  self.written[codec]))]
                 for i, out in enumerate(self.written[codec]):
                     part = chunks[i * FRAMES5:(i + 1) * FRAMES5]
                     tmp = out.with_suffix(f".tmp{os.getpid()}")
@@ -1699,6 +1747,269 @@ class LosslessVideos:
         self.encode_s = time.perf_counter() - self._t0
 
 
+# phase 12's MPEG-4 Part 2 rows and phase 14 (g): the quantiser of the 4K
+# videos (tests/_torch_mpeg4_enc.cpp: an I-VOP, then 11 P-VOPs of zero
+# vectors) and the strip's frames
+MPEG4_QUANT = 6
+MPEG4_STRIP_FRAMES = 5
+
+
+def mpeg4_strip(pictures, seed: int = SEED):
+    """Phase 12's MPEG-4 strip, in a spawned process: ``pictures`` ((Y, U,
+    V) planes of STRIP_ROWS x W5) coded by ``tests/_torch_mpeg4_writer.py``
+    as an I-VOP (AC prediction, dquant) and P-VOPs of skipped, 1MV, 4MV
+    and intra macroblocks, vectors at fcode 3 past every edge of the strip,
+    dquant, both rounding types; decoded by ``mpeg4_plain.py``.  Returns
+    (chunks, the plain frames, the writer's reconstruction as BGR)."""
+    from camera_linearity_tpu_torch.native import mpeg4_plain, rawvideo_plain
+    from tests import _torch_mpeg4_writer as mw
+    rows, width = pictures[0][0].shape
+    mbh, mbw = rows // 16, width // 16
+    rng = np.random.default_rng(seed)
+    plans = [mw.Plan("I", quant=MPEG4_QUANT,
+                     ac_pred=rng.random((mbh, mbw)) < 0.5,
+                     dquant=rng.integers(-2, 3, (mbh, mbw)))]
+    for t in range(len(pictures) - 1):
+        r = rng.random((mbh, mbw))
+        plans.append(mw.Plan(
+            "P", quant=MPEG4_QUANT + 2, rounding=t % 2, fcode=3,
+            modes=np.select([r < 0.15, r < 0.3, r < 0.6],
+                            [mw.SKIP, mw.INTRA, mw.INTER4], mw.INTER),
+            mvs=rng.integers(-64, 64, (mbh, mbw, 4, 2)),
+            dquant=rng.integers(-2, 3, (mbh, mbw)),
+            ac_pred=rng.random((mbh, mbw)) < 0.5))
+    chunks, recons, _ = mw.encode_video(pictures, plans)
+    plain = mpeg4_plain.decode_bgr(chunks, "FMP4", b"", rows, width)
+    recon = [rawvideo_plain.decode_bgr(mpeg4_plain.i420_bytes(r, rows, width),
+                                       "i420_left", rows, width)
+             for r in recons]
+    return chunks, np.stack(plain), np.stack(recon)
+
+
+class Mpeg4Videos:
+    """Phase 14 (g)'s videos: phase 14's I420 planes (``i420_paths``) as
+    MPEG-4 Part 2 ``FMP4`` AVIs, coded by ``tests/_torch_mpeg4_enc.cpp``
+    (the Python writer's bytes: each video an I-VOP and 11 P-VOPs of zero
+    vectors at MPEG4_QUANT, with ``Lavc`` user data as cv2's writer
+    writes), and as I420 AVIs of the writer's own reconstruction, which
+    14 (g) holds the port's decode to.  Cached under ``build/`` by the
+    planes and the writer's sources, as the lossless videos are; otherwise
+    :meth:`submit` codes them on a thread (the encoder is native; a video
+    chains its P-VOPs, so one after another) and :meth:`finish` waits.
+    ``fmp4`` and ``recon`` hold the paths, ``encode_s`` the seconds from
+    submit to finish (None when the cache had them)."""
+
+    def __init__(self, i420_paths):
+        import hashlib
+        from camera_linearity_tpu_torch.utils import avi
+        from tests import _torch_mpeg4_writer as mw
+        from tests import _torch_rawvideo_writer as rw
+        self.planes = []      # a video's (Y, U, V) planes, frame by frame
+        for p in i420_paths:
+            video = []
+            for c in avi.raw_chunks(p, avi.probe_avi(p)):
+                y = c[:H5 * W5].reshape(H5, W5)
+                u, v = c[H5 * W5:H5 * W5 * 3 // 2].reshape(
+                    2, H5 // 2, W5 // 2)
+                video.append((y.copy(), u.copy(), v.copy()))
+            self.planes.append(video)
+        key = hashlib.md5(usedforsecurity=False)
+        for src in (mw.__file__, mw._ENC_SRC, rw.__file__):
+            key.update(Path(src).read_bytes())
+        key.update(str(MPEG4_QUANT).encode())
+        for video in self.planes:
+            for frame in video:
+                for c in frame:
+                    key.update(c.data)
+        self.cache = ROOT / "build" / "chip_smoke_mpeg4" / \
+            key.hexdigest()[:12]
+        self.fmp4 = [self.cache / f"fmp4 {p.name}" for p in i420_paths]
+        self.recon = [self.cache / f"recon {p.name}" for p in i420_paths]
+        self.encode_s, self._future = None, None
+        if all(p.exists() for p in self.fmp4 + self.recon):
+            self.planes = None
+
+    def _code(self) -> None:
+        from tests import _torch_mpeg4_writer as mw
+        from tests._torch_rawvideo_writer import encode_frame, write_raw_avi
+        self.cache.mkdir(parents=True, exist_ok=True)
+        for video, fmp4, recon in zip(self.planes, self.fmp4, self.recon):
+            wr = mw.Writer(H5, W5)
+            chunks, frames = [], []
+            for t, planes in enumerate(video):
+                chunk, rec = wr.encode_native(planes, mw.smoke_plan(
+                    "I" if t == 0 else "P", MPEG4_QUANT, t % 2))
+                chunks.append(chunk)
+                frames.append(encode_frame("I420", (
+                    rec[0][:H5, :W5], rec[1][:H5 // 2, :W5 // 2],
+                    rec[2][:H5 // 2, :W5 // 2])))
+            for out, write in ((fmp4, lambda tmp: mw.write_mpeg4_avi(
+                    tmp, chunks, H5, W5)), (recon, lambda tmp: write_raw_avi(
+                        tmp, frames, H5, W5, "I420"))):
+                tmp = out.with_suffix(f".tmp{os.getpid()}")
+                write(tmp)
+                os.replace(tmp, out)
+
+    def submit(self) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+        if self.planes is None:
+            return
+        self._t0 = time.perf_counter()
+        coder = ThreadPoolExecutor(1, "mpeg4-encode")
+        self._future = coder.submit(self._code)
+        coder.shutdown(wait=False)
+
+    def finish(self) -> None:
+        if self._future is None:
+            return
+        self._future.result()
+        self._future = None
+        self.planes = None
+        self.encode_s = time.perf_counter() - self._t0
+
+
+def mpeg4_clips() -> list:
+    """Phase 12's check of the committed ``tests/data/mpeg4 *.avi``: each
+    decoded natively against its ``.cv2.npy`` (cv2's frames, taken where
+    cv2 is): a line each, and the names that differ."""
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.utils import avi
+    failures = []
+    for clip in sorted((ROOT / "tests" / "data").glob("mpeg4 *.avi")):
+        cv = np.load(clip.with_suffix(".cv2.npy"))
+        info = avi.probe_avi(clip)
+        chunks = [bytes(c) for c in avi.frame_chunks(clip, info)]
+        dec = native.Mpeg4Decoder(*avi.mpeg4_params(info), info.height,
+                                  info.width)
+        got = np.empty((len(chunks) + 1, info.height, info.width, 3),
+                       np.uint8)
+        n = native.mpeg4_decode_bgr_batch(chunks, got, dec)
+        n += native.mpeg4_flush(dec, got[n:])
+        same = got[:n].shape == cv.shape and np.array_equal(got[:n], cv)
+        log(f"  {'ok ' if same else 'BAD'} MPEG-4 decode of '{clip.name}' "
+            f"({info.codec}, {len(cv)} x {cv.shape[1]} x {cv.shape[2]}): "
+            f"{'equals' if same else 'differs from'} the committed "
+            f"cv2.VideoCapture frames")
+        if not same:
+            failures.append(clip.name)
+    return failures
+
+
+def mpeg4_rows(strip, videos) -> dict:
+    """Phase 12's MPEG-4 Part 2 rows, after its plain-decode window:
+    ``strip`` (:func:`mpeg4_strip`'s result from the pool) decoded
+    natively and held to the plain frames and the writer's
+    reconstruction; the committed clips against cv2's frames; then the
+    brightest 4K video of ``videos`` (:class:`Mpeg4Videos`, coded in the
+    window) decoded and held to its reconstruction, and timed (host clock,
+    a run each after a warm one): its I-VOP on one thread, on every core
+    (a macroblock row a thread) and as a frame of a batch of 12 I-VOPs in
+    one call (the GOPs side by side, a GOP a thread); its 11 P-VOPs on
+    one thread and on every core (a frame parsed while the one before it
+    is rebuilt), and as frames of 12 decoders of the video run at once (a
+    thread each).  Returns the rows' times."""
+    from concurrent.futures import ThreadPoolExecutor
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.utils import avi
+    failures = mpeg4_clips()
+    chunks, plain, recon = strip
+    rows, width = plain.shape[1:3]
+    dec = native.Mpeg4Decoder("FMP4", b"", rows, width)
+    got = np.empty((len(chunks), rows, width, 3), np.uint8)
+    native.mpeg4_decode_bgr_batch(chunks, got, dec)
+    strip_same = np.array_equal(got, plain) and np.array_equal(got, recon)
+    log(f"  {'ok ' if strip_same else 'BAD'} MPEG-4 strip of {rows} x "
+        f"{width}, {len(chunks)} frames (I-VOP, then P-VOPs of skipped, "
+        f"1MV, 4MV and intra macroblocks, vectors past the edges, dquant, "
+        f"AC prediction, both rounding types; "
+        f"{sum(map(len, chunks)) / 1e3:.0f} kB): native "
+        f"{'equals' if strip_same else 'differs from'} mpeg4_plain.py and "
+        f"the writer's reconstruction, max |.| {max_gap(got, plain):.0f} DN")
+    if not strip_same:
+        failures.append("the MPEG-4 strip")
+    info = avi.probe_avi(videos.fmp4[-1])
+    tag, extra = avi.mpeg4_params(info)
+    why = avi.mpeg4_unsupported(videos.fmp4[-1], info)
+    firsts = [bytes(next(iter(avi.frame_chunks(p, avi.probe_avi(p)))))
+              for p in videos.fmp4]
+    video = [bytes(c) for c in avi.frame_chunks(videos.fmp4[-1], info)]
+    frames = np.empty((len(video), H5, W5, 3), np.uint8)
+    native.mpeg4_decode_bgr_batch(video, frames,
+                                  native.Mpeg4Decoder(tag, extra, H5, W5))
+    recon_chunks = [bytes(c) for c in avi.raw_chunks(
+        videos.recon[-1], avi.probe_avi(videos.recon[-1]))]
+    want = np.empty_like(frames)
+    native.raw_decode_bgr_batch(recon_chunks, want, "i420")
+    same = np.array_equal(frames, want)
+    del want
+    log(f"  {'ok ' if same else 'BAD'} MPEG-4 4K video ({info.codec}, "
+        f"{why or 'read'}; I-VOP {len(video[0]) / 1e6:.3f} MB, P-VOPs "
+        f"{np.mean([len(c) for c in video[1:]]) / 1e6:.3f} MB): its "
+        f"{len(video)} frames {'equal' if same else 'differ from'} the "
+        f"writer's reconstruction")
+    if not same or why:
+        failures.append("the MPEG-4 4K video")
+    raise_failures("phase 12, the MPEG-4 decoder against its plain version, "
+                   "the writer's reconstruction and the committed clips",
+                   failures)
+    cores = os.cpu_count() or 1
+
+    def fresh():
+        return native.Mpeg4Decoder(tag, extra, H5, W5)
+    one = frames[:1]
+    times = {}
+    # a decoder a timed call, made before it (the decode above warmed
+    # every path)
+    d1, d2, d3 = fresh(), fresh(), fresh()
+    times["I one thread"] = host_ms(lambda: native.mpeg4_decode_bgr_batch(
+        video[:1], one, d1, threads=1), runs=1, warmup=0)
+    times["I all threads"] = host_ms(lambda: native.mpeg4_decode_bgr_batch(
+        video[:1], one, d2), runs=1, warmup=0)
+    batch = np.zeros((12, H5, W5, 3), np.uint8)
+    gops = (firsts * 12)[:12]
+    times["I a frame of 12"] = host_ms(
+        lambda: native.mpeg4_decode_bgr_batch(gops, batch, d3), runs=1,
+        warmup=0) / 12
+
+    def p_time(threads):
+        d = fresh()
+        native.mpeg4_decode_bgr_batch(video[:1], one, d)
+        t0 = time.perf_counter()
+        native.mpeg4_decode_bgr_batch(video[1:], frames[1:], d,
+                                      threads=threads)
+        return (time.perf_counter() - t0) * 1e3 / (len(video) - 1)
+    times["P one thread"] = p_time(1)
+    times["P all threads"] = p_time(None)
+    # 12 decoders of the video at once, each on its own thread and frame
+    decoders = [fresh() for _ in range(12)]
+    outs = [np.zeros((1, H5, W5, 3), np.uint8) for _ in range(12)]
+    for d, out in zip(decoders, outs):
+        native.mpeg4_decode_bgr_batch(video[:1], out, d)
+
+    def one_video(i):
+        for chunk in video[1:]:
+            native.mpeg4_decode_bgr_batch([chunk], outs[i], decoders[i],
+                                          threads=1)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(12) as ex:
+        list(ex.map(one_video, range(12)))
+    times["P a frame of 12 videos"] = (time.perf_counter() - t0) * 1e3 / \
+        (12 * (len(video) - 1))
+    del decoders, outs, batch, frames
+    log(f"  MPEG-4 4K ({info.codec}, quantiser {MPEG4_QUANT}, host clock, "
+        f"one run after a warm one; {cores} threads): I-VOP "
+        f"{times['I one thread']:.1f} ms on one thread, "
+        f"{times['I all threads']:.1f} ms one frame on {cores} threads (a "
+        f"macroblock row a thread), {times['I a frame of 12']:.1f} ms a "
+        f"frame of a batch of 12 (a GOP a thread); P-VOP "
+        f"{times['P one thread']:.1f} ms on one thread, "
+        f"{times['P all threads']:.1f} ms a frame on {cores} threads "
+        f"({len(video) - 1} in a call), "
+        f"{times['P a frame of 12 videos']:.1f} ms a frame when 12 "
+        f"decoders of the video run at once (a thread each)")
+    return {f"mpeg4 {k}": v for k, v in times.items()}
+
+
 # phase 14 (c)'s one batch_video_to_hdr call: (codec, its scenes), and the
 # decoder each codec's frames go through
 MIXED = (("PNG", 1), ("HFYU RGB24", 1), ("FFV1", 2), ("ULRG", 2),
@@ -1708,7 +2019,7 @@ DECODED_AS = {"PNG": "png", "HFYU RGB24": "huffyuv", "FFV1": "ffv1",
               "LAGS YV12": "lagarith"}
 
 
-def lossless_phase(videos, raw, i420, runs, run_batch,
+def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
                    run_video_to_hdr) -> dict:
     """Phases 14 (c)-(f): config 5 from the lossless compressed AVIs
     ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write,
@@ -1723,8 +2034,11 @@ def lossless_phase(videos, raw, i420, runs, run_batch,
     to raw's, and on the ``ULY0`` AVIs of phase 14's I420 planes, equal to
     phase 14's I420 ``video_to_hdr`` (``i420``); (f) on the Lagarith RGB24
     scene, equal to raw's, and on the Lagarith YV12 AVIs of the I420
-    planes, equal to I420's.  Returns the phases' times (``encode_s``
-    None where the cache had the videos)."""
+    planes, equal to I420's; (g) on the MPEG-4 Part 2 (``FMP4``) AVIs of
+    the I420 planes (``mpeg4_videos``, :class:`Mpeg4Videos`), equal to
+    ``video_to_hdr`` on I420 AVIs of the writer's reconstruction, its wall,
+    K3's launches and MP/s.  Returns the phases' times (``encode_s`` None
+    where the cache had the videos)."""
     from camera_linearity_tpu_torch.utils import avi
     t_phase = time.perf_counter()
     log(f"phase 14 (c): config 5 from PNG, HuffYUV, FFV1, UtVideo and "
@@ -1823,7 +2137,37 @@ def lossless_phase(videos, raw, i420, runs, run_batch,
     raise_failures("phase 14 (f)", failures)
     walls["f"] = time.perf_counter() - t_phase
     log(f"phase 14 (f): {walls['f']:.1f} s")
+    t_phase = time.perf_counter()
+    info = avi.probe_avi(mpeg4_videos.fmp4[0])
+    log(f"phase 14 (g): config 5 from MPEG-4 Part 2 ({info.codec}) AVIs of "
+        f"phase 14's I420 planes (tests/_torch_mpeg4_enc.cpp: an I-VOP and "
+        f"{FRAMES5 - 1} P-VOPs a video, quantiser {MPEG4_QUANT}): "
+        f"{avi.mpeg4_unsupported(mpeg4_videos.fmp4[0], info) or 'read'}; "
+        f"held to I420 AVIs of the writer's reconstruction; {gpu_line()}")
+    v2h["FMP4"], _, got = run_video_to_hdr("video_to_hdr (FMP4)",
+                                           mpeg4_videos.fmp4, "mpeg4")
+    v2h["I420 of the FMP4 reconstruction"], _, want = run_video_to_hdr(
+        "video_to_hdr (I420 of the FMP4 reconstruction)",
+        mpeg4_videos.recon, "rawvideo")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    mps = FRAMES5 * len(mpeg4_videos.fmp4) * H5 * W5 / 1e6 / v2h["FMP4"]
+    mpeg4 = dict(wall_s=v2h["FMP4"], mps=mps, k3_launches=1,
+                 frame_mb=sum(c.size for p in mpeg4_videos.fmp4
+                              for c in avi.frame_chunks(p, avi.probe_avi(p)))
+                 / 1e6 / (FRAMES5 * len(mpeg4_videos.fmp4)))
+    log(f"  {'ok ' if same else 'BAD'} video_to_hdr from FMP4 vs I420 of the "
+        f"writer's reconstruction: {'bit for bit equal' if same else 'different'}"
+        f"; {v2h['FMP4']:.3f} s, {mps:.2f} MP/s ({FRAMES5} x "
+        f"{len(mpeg4_videos.fmp4)} frames of {H5} x {W5}, "
+        f"{mpeg4['frame_mb']:.3f} MB a frame), one K3 launch")
+    if not same:
+        failures.append("video_to_hdr from FMP4 against the reconstruction")
+    del got, want
+    raise_failures("phase 14 (g)", failures)
+    walls["g"] = time.perf_counter() - t_phase
+    log(f"phase 14 (g): {walls['g']:.1f} s")
     return dict(walls_s=walls, encode_s=encode_s, read_mbps=read_mb / read_s,
+                mpeg4=mpeg4, mpeg4_encode_s=mpeg4_videos.encode_s,
                 raw_mps=before["mps"],
                 raw_decode_s=before["stages"].get("decode_s", 0),
                 frame_mb={k: v / n / 1e6 for k, v in sizes.items()},
@@ -1904,8 +2248,9 @@ def video_phases(dev, res, directory) -> dict:
                                  "from its committed cv2 frames")
     rng = np.random.default_rng(SEED)
     failures, cases = [], 0
-    t0 = time.perf_counter()
+    t_jpeg = time.perf_counter()
     lib = native._load_mjpeg()
+    todo = []
     for h, w in ((37, 53), (38, 53), (64, 3840)):
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         # (sampling, progressive, frame): every sampling of the writer,
@@ -1919,31 +2264,15 @@ def video_phases(dev, res, directory) -> dict:
                 frame = writer.encode_jpeg(
                     src, 75, "420" if sampling == "gray" else sampling,
                     restart, progressive=progressive)
-                buf = np.frombuffer(frame, np.uint8)
                 for m, mode in enumerate(native.JPEG_MODES):
-                    got = np.zeros((h, w, 3), np.uint8)
-                    rc = lib.clt_jpeg_decode_bgr(
-                        native._as_u8_ptr(buf), buf.size,
-                        native._as_u8_ptr(got), h, w, m)
-                    prc, want = jpeg_plain.decode_bgr(frame, h, w, mode)
-                    cases += 1
-                    # the turbo modes read only 4:4:4, 4:2:2 and 4:2:0 in
-                    # one scan: both refuse the rest
-                    refused = mode != "ffmpeg" and (
-                        progressive or sampling in ("gray", "411", "440"))
-                    if rc != prc or (rc != 0) != refused or \
-                            rc == 0 and not np.array_equal(got, want):
-                        failures.append(
-                            f"{h} x {w} {sampling}"
-                            f"{' progressive' if progressive else ''} DRI "
-                            f"{restart} {mode}: rc {rc}, plain {prc}")
-    log(f"  {'ok ' if not failures else 'BAD'} jpeg.cpp == jpeg_plain.py bit "
-        f"for bit on {cases} decodes (noise at 37 x 53, 38 x 53 and 64 x "
-        f"3840; 4:4:4, 4:2:2, 4:2:0, 4:1:1, 4:4:0, grayscale, and "
-        f"progressive 4:2:0, 4:4:4 and grayscale; no DRI and DRI 7; the "
-        f"three modes, the turbo ones refusing the new modes) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    raise_failures("phase 12, jpeg.cpp against jpeg_plain.py", failures)
+                    todo.append((h, w, sampling, progressive, restart, frame,
+                                 m, mode))
+    # the plain decodes (pure Python) a process a task, beside the videos'
+    # encodes below (none of it timed); phase 12's plain strips, and
+    # phases 15 (b) to 16 (b), take the same processes later
+    pool = plain_pool()
+    plains = [pool.submit(jpeg_plain.decode_bgr, frame, h, w, mode)
+              for h, w, _, _, _, frame, _, mode in todo]
     t0 = time.perf_counter()
     paths, crop_paths, crops, pools, (i420_paths, i420_crop_paths) = \
         make_videos(directory, dev)
@@ -1969,6 +2298,44 @@ def video_phases(dev, res, directory) -> dict:
     info = avi.probe_avi(mjpg_paths[0])
     if info[:4] != ("MJPG", H5, W5, 3) or avi.jpeg_unsupported(info.jpeg):
         raise AssertionError(f"probe_avi: {info}")
+    # the default decoder's other frame modes: grayscale MJPG (the frames'
+    # green channel) for every exposure, for phase 14; 4:1:1, 4:4:0 and
+    # progressive 4:2:0 for the brightest (timed below, beside the 4:2:0)
+    variants = {"gray": make_mjpg_videos(pools, "gray")}
+    for variant in ("411", "440", "progressive"):
+        variants[variant] = make_mjpg_videos(pools[-1:], variant)
+    enc = [v[2] for v in variants.values() if v[2] is not None]
+    log(f"  MJPG in the other modes (quality {MJPG_QUALITY}, no DRI): "
+        f"grayscale x {len(variants['gray'][0])} exposures, 4:1:1, 4:4:0 "
+        f"and progressive 4:2:0 (spectral selection) x 1, "
+        + (f"encoded in {sum(enc):.1f} s" if enc else "from the cache"))
+    for (h, w, sampling, progressive, restart, frame, m, mode), plain \
+            in zip(todo, plains):
+        buf = np.frombuffer(frame, np.uint8)
+        got = np.zeros((h, w, 3), np.uint8)
+        rc = lib.clt_jpeg_decode_bgr(
+            native._as_u8_ptr(buf), buf.size,
+            native._as_u8_ptr(got), h, w, m)
+        prc, want = plain.result()
+        cases += 1
+        # the turbo modes read only 4:4:4, 4:2:2 and 4:2:0 in one scan:
+        # both refuse the rest
+        refused = mode != "ffmpeg" and (
+            progressive or sampling in ("gray", "411", "440"))
+        if rc != prc or (rc != 0) != refused or \
+                rc == 0 and not np.array_equal(got, want):
+            failures.append(
+                f"{h} x {w} {sampling}"
+                f"{' progressive' if progressive else ''} DRI "
+                f"{restart} {mode}: rc {rc}, plain {prc}")
+    log(f"  {'ok ' if not failures else 'BAD'} jpeg.cpp == jpeg_plain.py bit "
+        f"for bit on {cases} decodes (noise at 37 x 53, 38 x 53 and 64 x "
+        f"3840; 4:4:4, 4:2:2, 4:2:0, 4:1:1, 4:4:0, grayscale, and "
+        f"progressive 4:2:0, 4:4:4 and grayscale; no DRI and DRI 7; the "
+        f"three modes, the turbo ones refusing the new modes; the plain "
+        f"decodes in spawned processes beside the videos' encodes, "
+        f"{time.perf_counter() - t_jpeg:.1f} s from their start)")
+    raise_failures("phase 12, jpeg.cpp against jpeg_plain.py", failures)
     # one 4K frame of the brightest exposure: one thread, then a batch of
     # the video's frames on every core
     frame = next(avi.mjpg_chunks(mjpg_paths[-1]))
@@ -1979,28 +2346,16 @@ def video_phases(dev, res, directory) -> dict:
         many = np.empty((len(batch), H5, W5, 3), np.uint8)
         native.jpeg_decode_bgr_batch([frame], one, mode=mode)  # warm
         single = host_ms(lambda: native.jpeg_decode_bgr_batch(
-            [frame], one, mode=mode, threads=1), runs=5, warmup=1)
+            [frame], one, mode=mode, threads=1), runs=1, warmup=0)
         wide = host_ms(lambda: native.jpeg_decode_bgr_batch(
-            batch, many, mode=mode), runs=3, warmup=1) / len(batch)
+            batch, many, mode=mode), runs=1, warmup=1) / len(batch)
         decode_ms[mode] = dict(one_thread=single, all_threads=wide)
         log(f"  {mode}: one 4K frame ({len(frame) / 1e6:.3f} MB) "
             f"{single:.1f} ms on one thread; {wide:.1f} ms a frame over a "
             f"batch of {len(batch)} on {os.cpu_count()} threads (host "
-            "clock, median)")
+            "clock, one run after a warm one)")
         del one, many
     log(f"  frame bytes of the pool: {[s / 1e6 for s in sizes]} MB")
-    # the default decoder's other frame modes: grayscale MJPG (the frames'
-    # green channel) for every exposure, for phase 14; 4:1:1, 4:4:0 and
-    # progressive 4:2:0 for the brightest.  One 4K frame of each on one
-    # thread and its video's frames on every core, beside the 4:2:0 above
-    variants = {"gray": make_mjpg_videos(pools, "gray")}
-    for variant in ("411", "440", "progressive"):
-        variants[variant] = make_mjpg_videos(pools[-1:], variant)
-    enc = [v[2] for v in variants.values() if v[2] is not None]
-    log(f"  MJPG in the other modes (quality {MJPG_QUALITY}, no DRI): "
-        f"grayscale x {len(variants['gray'][0])} exposures, 4:1:1, 4:4:0 "
-        f"and progressive 4:2:0 (spectral selection) x 1, "
-        + (f"encoded in {sum(enc):.1f} s" if enc else "from the cache"))
     for variant, (vpaths, _, _) in variants.items():
         info = avi.probe_avi(vpaths[-1])
         comps = 1 if variant == "gray" else 3
@@ -2013,15 +2368,16 @@ def video_phases(dev, res, directory) -> dict:
         many = np.empty((len(vbatch), H5, W5, 3), np.uint8)
         native.jpeg_decode_bgr_batch(vbatch[:1], one, mode="ffmpeg")  # warm
         single = host_ms(lambda: native.jpeg_decode_bgr_batch(
-            vbatch[:1], one, mode="ffmpeg", threads=1), runs=5, warmup=1)
+            vbatch[:1], one, mode="ffmpeg", threads=1), runs=1, warmup=0)
         wide = host_ms(lambda: native.jpeg_decode_bgr_batch(
-            vbatch, many, mode="ffmpeg"), runs=3, warmup=1) / len(vbatch)
+            vbatch, many, mode="ffmpeg"), runs=1, warmup=1) / len(vbatch)
         decode_ms[f"ffmpeg {variant}"] = dict(
             one_thread=single, all_threads=wide, frame_mb=len(vbatch[0]) / 1e6)
         log(f"  ffmpeg {variant}: one 4K frame ({len(vbatch[0]) / 1e6:.3f} "
             f"MB) {single:.1f} ms on one thread; {wide:.1f} ms a frame over "
             f"a batch of {len(vbatch)} on {os.cpu_count()} threads (host "
-            f"clock, median; {info.jpeg.scans} scans a frame)")
+            f"clock, one run after a warm one; {info.jpeg.scans} scans a "
+            f"frame)")
         del one, many
     # the rawvideo reader (in jpeg.cpp) on one 4K frame of each layout it
     # reads, held to rawvideo_plain.py bit for bit; one thread, then a
@@ -2049,9 +2405,9 @@ def video_phases(dev, res, directory) -> dict:
         same = np.array_equal(one[0], want)
         if not same:
             failures.append(layout)
-        single = host_ms(lambda: decode([chunk], one, threads=1), runs=5,
-                         warmup=1)
-        wide = host_ms(lambda: decode([chunk] * FRAMES5, many), runs=3,
+        single = host_ms(lambda: decode([chunk], one, threads=1), runs=1,
+                         warmup=0)
+        wide = host_ms(lambda: decode([chunk] * FRAMES5, many), runs=1,
                        warmup=1) / FRAMES5
         decode_ms[f"rawvideo {layout}"] = dict(
             one_thread=single, all_threads=wide, frame_mb=len(chunk) / 1e6)
@@ -2059,8 +2415,9 @@ def video_phases(dev, res, directory) -> dict:
             f"{' bottom-up' if bottom_up else ''}: one 4K frame "
             f"({len(chunk) / 1e6:.3f} MB) {single:.1f} ms on one thread; "
             f"{wide:.1f} ms a frame over a batch of {FRAMES5} on "
-            f"{os.cpu_count()} threads (host clock, median); "
-            f"{'equals' if same else 'differs from'} rawvideo_plain.py, "
+            f"{os.cpu_count()} threads (host clock, one run after a warm "
+            f"one); {'equals' if same else 'differs from'} "
+            f"rawvideo_plain.py, "
             f"max |.| {max_gap(one[0], want):.0f} DN")
         del one, many, want
     log(f"  rawvideo: {len(layouts)} layouts checked in "
@@ -2070,9 +2427,21 @@ def video_phases(dev, res, directory) -> dict:
     raise_failures("phase 12, the rawvideo reader against "
                    "rawvideo_plain.py", failures)
     lossless_videos = LosslessVideos(paths, i420_paths)
+    mpeg4_videos = Mpeg4Videos(i420_paths)
+    # the MPEG-4 strip's pictures: the first rows of phase 14's I420 planes
+    strip_pictures = []
+    for c in [bytes(c) for c in avi.raw_chunks(
+            i420_paths[-1], avi.probe_avi(i420_paths[-1]))][
+            :MPEG4_STRIP_FRAMES]:
+        c = np.frombuffer(c, np.uint8)
+        y = c[:H5 * W5].reshape(H5, W5)
+        u, v = c[H5 * W5:H5 * W5 * 3 // 2].reshape(2, H5 // 2, W5 // 2)
+        strip_pictures.append(tuple(np.ascontiguousarray(p[:rows]) for p, rows
+                                    in ((y, STRIP_ROWS), (u, STRIP_ROWS // 2),
+                                        (v, STRIP_ROWS // 2))))
     decode_ms.update(lossless_layout_rows(
         pools[-1][:2], [bgr_dev, torch.as_tensor(pools[-1][1], device=dev)],
-        lossless_videos))
+        lossless_videos, mpeg4_videos, strip_pictures, pool))
     del bgr_dev
     icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
             ** np.array([2.0, 2.2, 2.4]))
@@ -2325,9 +2694,6 @@ def video_phases(dev, res, directory) -> dict:
                 k1_times = time_k1_batch(dev, *run.pop("merge"))
                 # phase 14 (c) holds the lossless codecs to this run
                 raw_u16 = dict(label=label, out=run.pop("out"))
-            else:  # phase 20 holds the distributed path to this run
-                f32_run = dict(out=run.pop("out"), wall=run["wall"],
-                               mps=run["mps"], stages=run["stages"])
             run.pop("merge", None)
             run.pop("out", None)
             torch.cuda.empty_cache()
@@ -2443,7 +2809,8 @@ def video_phases(dev, res, directory) -> dict:
                     "video_to_hdr (MJPG stream 1)", paths, "ffmpeg"))
             del stream0
             lossless = lossless_phase(
-                lossless_videos, raw_u16, dict(video_to_hdr=i420_v2h), runs,
+                lossless_videos, mpeg4_videos, raw_u16,
+                dict(video_to_hdr=i420_v2h), runs,
                 lambda label, paths, decoded_as: run_batch(
                     label, paths, crops, "u16", "f16", "auto", decoded_as),
                 run_video_to_hdr)
@@ -2514,8 +2881,9 @@ def video_phases(dev, res, directory) -> dict:
     log(f"  welford_algorithm (host backend, turbo_fast) on one MJPG video "
         f"of {FRAMES5} frames, by decoder threads: "
         + ", ".join(f"{t}: {ms:.0f} ms" for t, ms in t_by_threads.items()))
-    return dict(paths=paths, mjpg_paths=mjpg_paths, launches=launches,
-                welford_ms=welford, icrf=icrf, spec=spec, f32_run=f32_run,
+    return dict(paths=paths, mjpg_paths=mjpg_paths, i420_paths=i420_paths,
+                pool=pool, launches=launches,
+                welford_ms=welford, icrf=icrf, spec=spec,
                 welford_bound_ms=wf_bound, k1=k1_times,
                 mjpg=dict(decode_ms=decode_ms, frame_bytes=sizes,
                           runs={k: dict(wall=r["wall"], mps=r["mps"],
@@ -2948,7 +3316,7 @@ def params_of_curve(curve, mean_icrf, pca):
     return p, float(np.max(np.abs(fit - curve)))
 
 
-def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
+def file_phases(dev, res, video_paths, mjpg_paths, pool) -> dict:
     """Phases 15-16: the port's TIFF codec and its command line, from
     files, on the default device.  Returns the command line's kernel
     launches and the numbers measured."""
@@ -2982,7 +3350,6 @@ def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
         f"{native._lib_path('_tiff', native._TIFF_SRC)}")
     tmp = tempfile.TemporaryDirectory(prefix="clt_files_")
     root = Path(tmp.name)
-    pool = None
     try:
         t0 = time.perf_counter()
         written = write_captures(root, dev)
@@ -3012,7 +3379,7 @@ def file_phases(dev, res, video_paths, mjpg_paths) -> dict:
                 f"{rates['write_mbps']:.1f} MB/s, read "
                 f"{rates['read_mbps']:.1f} MB/s (host clock, median of 3)")
         numbers["codec_layouts_read_mbps"] = tiff_layout_phase(root)
-        pool = plain_pool()  # phase 15 (b) to phase 16 (b)
+        # phase 12's spawned processes, phases 15 (b) to 16 (b)
         numbers["codec_jpeg_layouts_read_mbps"] = tiff_jpeg_layout_phase(
             root, written[images / f"{first}.tif"],
             written[root / "flats" / "BF flat 50x.tif"], pool)
@@ -4148,10 +4515,14 @@ def distributed_phase(dev, res, directory, config5, vals_np, stds_np, t_np,
                       tables, config4) -> dict:
     """Phase 20: the multi-process layer (``parallel/``) on the card.
 
-    (a) An NCCL world of one, in this process: ``batch_video_to_hdr_
-    distributed`` on config 5's 8 scenes with the calibration leg, held to
-    phase 14's f32/f32 run, then phase 14's call timed again in the same
-    world; ``merge_batch_sharded`` of config 3's stack
+    Its videos are the first PHASE20_FRAMES frames of config 5's I420
+    ones (``phase20 <name>``, read by the rawvideo reader), and its
+    reference phase 14's path, the single-process ``batch_video_to_hdr``
+    (f32/f32), run on them before the world starts.  (a) An NCCL world of one, in this process:
+    ``batch_video_to_hdr_distributed`` on config 5's 8 scenes with the
+    calibration leg, held to that reference, then the reference's call
+    timed again in the same world; ``merge_batch_sharded`` of config 3's
+    stack
     with base curves (K2), held to its plain version; the sharded
     statistics on config 2's planes, held to ``ops/stats.py``; the
     population-sharded config-4 solve, held to phase 10's.  (b) Two
@@ -4172,18 +4543,38 @@ def distributed_phase(dev, res, directory, config5, vals_np, stds_np, t_np,
     from camera_linearity_tpu_torch.utils.state import (
         channel_stacks_from_numpy, pca_from_numpy)
 
+    from camera_linearity_tpu_torch.utils import avi
     t_phase = time.perf_counter()
-    paths, spec, icrf = config5["paths"], config5["spec"], config5["icrf"]
-    f32 = config5["f32_run"]
+    log("phase 20 (a): an NCCL world of one: batch_video_to_hdr_distributed "
+        f"on {SCENES5} scenes with the calibration leg ({PHASE20_FRAMES} "
+        "frames a video), merge_batch_sharded with base curves, the sharded "
+        "statistics, the population-sharded config-4 solve")
+    spec, icrf = config5["spec"], config5["icrf"]
+    # the first PHASE20_FRAMES frames of each I420 video
+    from tests._torch_rawvideo_writer import write_raw_avi
+    paths = []
+    for src in config5["i420_paths"]:
+        paths.append(directory / f"phase20 {src.name}")
+        write_raw_avi(paths[-1], [bytes(c) for _, c in zip(
+            range(PHASE20_FRAMES), avi.raw_chunks(src, avi.probe_avi(src)))],
+            H5, W5, "I420")
     scene_map = {f"scene{i}": paths for i in range(SCENES5)}
-    n_frames = FRAMES5 * len(paths) * SCENES5
+    n_frames = PHASE20_FRAMES * len(paths) * SCENES5
     failures = []
+    # the reference: phase 14's single-process path on these videos
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = pipeline.batch_video_to_hdr(scene_map, icrf, calibrate=spec)
+    torch.cuda.synchronize()
+    f32 = dict(wall=time.perf_counter() - t0, out={
+        k: (v.measurand.val, v.measurand.std) for k, v in ref.items()})
+    f32["mps"] = n_frames * H5 * W5 / 1e6 / f32["wall"]
+    del ref
+    log(f"  the reference: batch_video_to_hdr (f32/f32) outside the world "
+        f"on the first {PHASE20_FRAMES} frames of config 5's I420 videos, "
+        f"{f32['wall']:.3f} s")
 
     # --- (a) an NCCL world of one -----------------------------------------
-    log("phase 20 (a): an NCCL world of one: batch_video_to_hdr_distributed "
-        f"on {SCENES5} scenes with the calibration leg, merge_batch_sharded "
-        "with base curves, the sharded statistics, the population-sharded "
-        "config-4 solve")
     pdist.initialize(f"localhost:{free_port()}", 1, 0, timeout_s=120)
     try:
         mesh = pdist.scene_mesh()
@@ -4217,7 +4608,7 @@ def distributed_phase(dev, res, directory, config5, vals_np, stds_np, t_np,
             if not (torch.allclose(got.measurand.val, want_v, **VAL_TOL) and
                     torch.allclose(got.measurand.std, want_s, **STD_TOL)):
                 failures.append(f"{name}: batch_video_to_hdr in the world "
-                                "against phase 14")
+                                "against the single-process call outside")
         del plain_out
         # config 3's stack as a batch of one with 256-point base curves
         icrf12, diff12, base, diff_base = tables
@@ -4238,11 +4629,10 @@ def distributed_phase(dev, res, directory, config5, vals_np, stds_np, t_np,
                                             diff_base, 4096))
         del bv, bs, got
         mps = n_frames * H5 * W5 / 1e6 / wall
-        log(f"  wall {wall:.3f} s, {mps:.2f} MP/s; phase 14 f32/f32: "
-            f"{f32['wall']:.3f} s, {f32['mps']:.2f} MP/s (host clock, one "
-            "call each)")
+        log(f"  wall {wall:.3f} s, {mps:.2f} MP/s; the single-process "
+            f"call outside the world: {f32['wall']:.3f} s, "
+            f"{f32['mps']:.2f} MP/s (host clock, one call each)")
         log(f"  stages: {stages}")
-        log(f"  phase 14 stages: {f32['stages']}")
         log(f"  batch_video_to_hdr (phase 14's path) in the same world, "
             f"after it: wall {wall_plain:.3f} s, "
             f"{n_frames * H5 * W5 / 1e6 / wall_plain:.2f} MP/s (host "
@@ -4269,10 +4659,11 @@ def distributed_phase(dev, res, directory, config5, vals_np, stds_np, t_np,
                     continue
                 gaps[i] = max(gaps[i], (g - w).abs().max().item())
                 if not torch.allclose(g, w, **tol):
-                    failures.append(f"{name} against phase 14")
+                    failures.append(f"{name} against the single-process "
+                                    "call")
         log(f"  {'ok ' if not failures else 'BAD'} {SCENES5} scenes against "
-            f"phase 14's f32/f32 run: largest gap {gaps[0]:.3e} (value), "
-            f"{gaps[1]:.3e} (std)")
+            f"the single-process call (phase 14's path, f32/f32): largest "
+            f"gap {gaps[0]:.3e} (value), {gaps[1]:.3e} (std)")
         a_out = {k: (v.measurand.val, v.measurand.std) for k, v in
                  out.items()}
         del out
@@ -4459,7 +4850,7 @@ def phase20_worker(rank: int, port: str, directory: str) -> int:
         wall = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in hdr_cuda.KERNELS}
         stages = obs.snapshot_stage_times()
-        frames = FRAMES5 * len(paths) * len(out)
+        frames = PHASE20_FRAMES * len(paths) * len(out)
         log(f"batch_video_to_hdr: {list(out)} in {wall:.3f} s, launches "
             f"{launches}")
 
@@ -4559,11 +4950,19 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     # --- phase 2: build ---------------------------------------------------
+    # every source's nvcc starts now; phases 3-6 wait only for the merge
+    # sources, the experiments' build goes on beside them (phase 7 waits)
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    lib_paths = csrc.build()
+    experiments = [n for n in csrc.SOURCES if n not in csrc.MERGE_SOURCES]
+    builder = ThreadPoolExecutor(1, "nvcc")
+    exp_build = builder.submit(csrc.build, experiments)
+    builder.shutdown(wait=False)
+    lib_paths = csrc.build(csrc.MERGE_SOURCES)
     for name in lib_paths:
         csrc.library(name)
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    log(f"build: {time.perf_counter() - t0:.1f} s (the merge sources; "
+        f"{', '.join(experiments)} build on beside phases 3-6)")
     for name, path in lib_paths.items():
         seconds = csrc.BUILD_SECONDS.get(name)
         log(f"  {name}: {path}, " + ("built already" if seconds is None
@@ -4708,6 +5107,11 @@ def main() -> int:
     del cpu_series, cpu_set, out_k1, out_k2
 
     # --- phase 7: kernel and plain times ----------------------------------
+    # no nvcc beside the timed launches: the experiments' build ends first
+    t0 = time.perf_counter()
+    exp_paths = exp_build.result()
+    log(f"  the experiments' build, begun in phase 2: waited "
+        f"{time.perf_counter() - t0:.1f} s for it before the times")
     log("times (median of CUDA-event samples, plain and kernel in turns; "
         "MP/s = H*W per second; GB/s = bytes the merge must move; bound = "
         "those bytes at 3.35 TB/s or its f32 operations at 67 TFLOP/s, the "
@@ -4791,6 +5195,16 @@ def main() -> int:
                       by_kernel=True)
     del gpu_series, gpu_darks, gpu_flat, dark
     torch.cuda.empty_cache()
+    for name, path in exp_paths.items():
+        seconds = csrc.BUILD_SECONDS.get(name)
+        log(f"  {name}: {path}, " + ("built already" if seconds is None
+                                     else f"nvcc {seconds:.1f} s"))
+        log(f"  registers and spills, {name}.cu (ptxas):")
+        for entry, info in ptxas_entries(
+                (path.parent / "ptxas.log").read_text()).items():
+            log(f"    {info.get('registers')} registers, "
+                f"{info.get('spill_bytes')} bytes of spills: {entry}")
+    lib_paths.update(exp_paths)
     ablation = ablation_phase(dev, val, std, exposures,
                               times["merge_nhwc_fused"])
     lut = lut_phase(dev, val, std, exposures, (icrf8, diff8, icrf12, diff12),
@@ -4803,11 +5217,11 @@ def main() -> int:
     calibration = linearity_phases(dev, t_np, vals_np, stds_np)
     with tempfile.TemporaryDirectory(prefix="clt_config5_") as tmp:
         config5 = video_phases(dev, res, Path(tmp))
-        files = file_phases(dev, res, config5["paths"], config5["mjpg_paths"])
+        files = file_phases(dev, res, config5["paths"], config5["mjpg_paths"],
+                            config5.pop("pool"))
         distributed = distributed_phase(
             dev, res, Path(tmp), config5, vals_np, stds_np, t_np,
             (icrf12, diff12, base, diff_base), calibration["config4"])
-        del config5["f32_run"]
         example_walls = examples_phase(Path(tmp))
 
     # every main path's launches: phase 6's, config 5's, the command

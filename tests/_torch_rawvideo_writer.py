@@ -35,7 +35,7 @@ from typing import Iterable, List, NamedTuple, Optional, Sequence
 import numpy as np
 
 # each fourcc's bits per pixel as cv2's writer (or the format) states it
-BIT_COUNT = {"I420": 12, "IYUV": 12, "YV12": 12, "NV12": 12, "YUY2": 16,
+BIT_COUNT = {"I444": 24, "YV24": 24, "I420": 12, "IYUV": 12, "YV12": 12, "NV12": 12, "YUY2": 16,
              "UYVY": 16, "Y800": 8, "GREY": 8, "Y8  ": 8}
 
 
@@ -56,6 +56,7 @@ def encode_frame(codec: str, frame, bit_count: int = 0,
     B, G, R; 32, (H, W, 4) B, G, R, X.  Rows are padded to 4 bytes and
     stored bottom-up unless ``top_down``.  ``I420``/``IYUV``/``YV12`` and
     ``NV12`` take a tuple (Y (H, W), U, V (ceil(H/2), ceil(W/2)));
+    ``I444`` and ``YV24`` (V plane first) one of three (H, W) planes;
     ``YUY2``/``UYVY`` (Y (H, W), U, V (H, ceil(W/2))), an odd W padded
     with a zero sample; the gray fourccs an (H, W) array.
     """
@@ -70,6 +71,10 @@ def encode_frame(codec: str, frame, bit_count: int = 0,
     if codec in ("I420", "IYUV"):
         return y.tobytes() + u.tobytes() + v.tobytes()
     if codec == "YV12":
+        return y.tobytes() + v.tobytes() + u.tobytes()
+    if codec == "I444":
+        return y.tobytes() + u.tobytes() + v.tobytes()
+    if codec == "YV24":
         return y.tobytes() + v.tobytes() + u.tobytes()
     if codec == "NV12":
         return y.tobytes() + np.stack([u, v], -1).tobytes()

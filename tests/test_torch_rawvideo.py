@@ -7,7 +7,9 @@ Clips are written by ``tests/_torch_rawvideo_writer.py`` from
 16-entry palettes), 16 bits (RGB555), 24 and 32 bits, bottom-up and
 top-down with rows padded to 4 bytes; ``Y800``/``GREY``/``Y8  ``,
 ``I420``/``IYUV``/``YV12``, ``NV12``, ``YUY2``/``UYVY`` as cv2's writer
-lays them out.  Tolerances:
+lays them out, and ``I444``/``YV24`` (yuv444p, ``YV24`` with its V plane
+first) as rawdec reads them (cv2 reads neither ``444P`` nor ``Y444``).
+Tolerances:
 
 * every frame of the plain version, of ``native.raw_decode_bgr_batch``
   and of the port's ``video_frame_generator`` (cv2 blocked) equals cv2's
@@ -67,6 +69,8 @@ KINDS = {
     "NV12": ("NV12", 12, False),
     "YUY2": ("YUY2", 16, False),
     "UYVY": ("UYVY", 16, False),
+    "I444": ("I444", 24, False),
+    "YV24": ("YV24", 24, False),
 }
 SIZES = [(6, 8), (7, 13), (10, 5)]
 # cv2 5.0 aborts on bottom-up 24-bit BI_RGB (see below)
@@ -83,6 +87,8 @@ def _content(kind: str, rng, h: int, w: int, lo: int = 0, hi: int = 256):
         return u8(h, w) if bits == 8 else u8(h, w, bits // 8)
     if codec.strip() in ("Y800", "GREY", "Y8"):
         return u8(h, w)
+    if codec in ("I444", "YV24"):
+        return u8(h, w), u8(h, w), u8(h, w)
     ch = h if codec in ("YUY2", "UYVY") else (h + 1) // 2
     return u8(h, w), u8(ch, (w + 1) // 2), u8(ch, (w + 1) // 2)
 

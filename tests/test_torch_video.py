@@ -320,10 +320,12 @@ def test_decoder_resolution(video, tmp_path, monkeypatch, caplog):
         resolve("native", [mjpg, path], 32, 48, 3)
 
 
-def test_other_codecs_need_cv2(tmp_path, monkeypatch):
-    # MPEG-4 Part 2 (FMP4), a lossy codec the port has no decoder of
-    path = tmp_path / "fmp4 5ms.avi"
-    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"FMP4"), 10,
+@pytest.mark.parametrize("fourcc", ["DIV3", "MP42"])
+def test_other_codecs_need_cv2(tmp_path, monkeypatch, fourcc):
+    # MS-MPEG4 (v3 under DIV3, v2 under MP42), a lossy codec the port has
+    # no decoder of
+    path = tmp_path / f"{fourcc.lower()} 5ms.avi"
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 10,
                              (W, H))
     frames = _frames(4, 3)
     for f in frames:
@@ -335,7 +337,7 @@ def test_other_codecs_need_cv2(tmp_path, monkeypatch):
         got["mean"], jvideo.welford_algorithm(path, use_std=True,
                                               decoder="cv2")["mean"])
     monkeypatch.setitem(sys.modules, "cv2", None)  # cv2 not installed
-    with pytest.raises(ValueError, match="codec 'FMP4'.*needs cv2"):
+    with pytest.raises(ValueError, match=f"codec '{fourcc}'.*needs cv2"):
         tvideo._resolve_decoder("native", [path], H, W, 3)
     with pytest.raises(ValueError, match="needs cv2"):
         tvideo._resolve_decoder("cv2", [path], H, W, 3)
@@ -532,3 +534,22 @@ def test_process_std_data_equals_jax(tmp_path):
     np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_allclose(np.loadtxt(tmp_path / "t.txt"),
                                np.loadtxt(tmp_path / "j.txt"), **TOL)
+
+
+def test_the_cv2_message_names_every_codec_the_port_reads(monkeypatch):
+    """Without cv2, the error lists what the port reads without it: every
+    fourcc the resolver routes to one of the port's own readers."""
+    from camera_linearity_tpu_torch.utils import avi
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ValueError, match="needs cv2") as exc:
+        tvideo._cv2("a test")
+    message = str(exc.value)
+    families = {"raw": ("RGBA",), "rawvideo": tuple(avi.FOURCC_LAYOUTS),
+                "png": avi.PNG_CODECS, "huffyuv": avi.HUFFYUV_CODECS,
+                "ffv1": avi.FFV1_CODECS, "utvideo": avi.UTVIDEO_READ,
+                "lagarith": avi.LAGARITH_CODECS, "mpeg4": avi.MPEG4_CODECS,
+                "mjpeg": ("MJPG",)}
+    assert set(families) - {"raw", "mjpeg"} == set(tvideo._DECODER_NAMES)
+    for family, fourccs in families.items():
+        for fourcc in fourccs:
+            assert fourcc.strip() in message, (family, fourcc)
