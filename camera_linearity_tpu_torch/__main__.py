@@ -380,7 +380,9 @@ def cmd_doctor(args) -> int:
              "Part 2 AVIs (" + ", ".join(native.mpeg4_plain.MPEG4_FOURCCS)
              + "): Simple "
              "Profile I-, P- and N-VOPs, 1MV/4MV, dquant, AC prediction, "
-             "video packets; a macroblock row a thread")):
+             "video packets; Xvid and DivX 5 Advanced Simple streams: "
+             "B-VOPs, packed bitstreams, MPEG quantisation, the Xvid IDCT "
+             "(not quarter-pel or GMC); a macroblock row a thread")):
         print(f"native {name} decoder: " + (
             f"built; {what} (cv2's bytes)" if ok() else
             f"unavailable ({native.build_error(stem)}); such AVIs cannot "

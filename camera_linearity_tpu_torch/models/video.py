@@ -129,7 +129,10 @@ def _cv2(why: str):
             + "), UtVideo AVIs (" + ", ".join(avi.UTVIDEO_READ)
             + "), Lagarith AVIs (" + ", ".join(avi.LAGARITH_CODECS)
             + ") and MPEG-4 Part 2 AVIs (" + ", ".join(avi.MPEG4_CODECS)
-            + ") ('native', its own decoders) and MJPG AVIs ('native' / "
+            + ": the Simple Profile and Xvid and DivX 5 Advanced Simple "
+            "streams, B-VOPs, packed bitstreams and MPEG quantisation "
+            "among them; not quarter-pel or GMC) ('native', its own "
+            "decoders) and MJPG AVIs ('native' / "
             "'ffmpeg' / 'turbo' / 'turbo_fast', its own JPEG decoder)"
         ) from exc
     return cv2
@@ -537,7 +540,9 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
     uncompressed layouts through the port's rawvideo reader (cv2's bytes:
     BI_RGB 8/16/24/32-bit, Y800/GREY/Y8, I420/IYUV/YV12, Y42B, NV12,
     YUY2/UYVY), PNG, HuffYUV, FFV1, UtVideo, Lagarith and MPEG-4 Part 2
-    AVIs through the port's PNG, HuffYUV, FFV1, UtVideo, Lagarith and
+    AVIs (the Simple Profile, and the Advanced Simple streams Xvid and
+    DivX 5 write: B-VOPs, packed bitstreams, MPEG quantisation, the Xvid
+    IDCT) through the port's PNG, HuffYUV, FFV1, UtVideo, Lagarith and
     MPEG-4 decoders (cv2's bytes), an MJPG AVI through the port's JPEG
     decoder in its ``"ffmpeg"`` mode (cv2's bytes, as the JAX package's
     default gives them), anything else (MS-MPEG4, H.264, ...) through cv2
@@ -551,7 +556,8 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
     then, naming it (``avi.png_unsupported``, ``avi.huffyuv_unsupported``,
     ``avi.ffv1_unsupported``, ``avi.utvideo_unsupported``,
     ``avi.lagarith_unsupported``: the first frame's type,
-    ``avi.mpeg4_unsupported``: the VOL and the first VOP);
+    ``avi.mpeg4_unsupported``: the VOL and the first VOP, which refuse
+    quarter-pel, GMC/S-VOPs, interlaced VOLs and the rest by name);
     1/2/4-bit BI_RGB, BI_BITFIELDS, palette-change chunks and a frame
     chunk longer than the frame (not its padded size) raise then, naming
     what; and an MJPG's

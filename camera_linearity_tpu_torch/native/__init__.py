@@ -418,8 +418,8 @@ def _declare_mpeg4(lib: ctypes.CDLL) -> None:
     lib.clt_mpeg4_free.argtypes = [ctypes.c_void_p]
     lib.clt_mpeg4_free.restype = None
     lib.clt_mpeg4_decode_batch.argtypes = [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), szp, szp, ip, sz,
-        ctypes.POINTER(ctypes.c_uint8), sz, i, ip, ip]
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), szp, szp, ip, ip,
+        sz, ctypes.POINTER(ctypes.c_uint8), sz, i, ip, ip]
     lib.clt_mpeg4_decode_batch.restype = None
     lib.clt_mpeg4_version.restype = i
 
@@ -1138,7 +1138,7 @@ _MPEG4_REASONS = {
     -2: "the data end inside it",
     -3: "a video packet header FFmpeg refuses (or a packet that does not "
         "start at the next macroblock)",
-    -4: "an earlier frame failed to decode (the reference is lost)"}
+    -4: "an earlier frame failed to decode (the references are lost)"}
 
 
 class Mpeg4Decoder:
@@ -1146,8 +1146,9 @@ class Mpeg4Decoder:
     fourcc as FFmpeg takes it, ``extradata``: the ``strf`` bytes after the
     BITMAPINFOHEADER) of ``height`` x ``width`` frames.  Python reads each
     chunk's headers (``mpeg4_plain.Stream``: the VOL, user data, the VOP
-    header and the refusals); ``mpeg4.cpp`` keeps the prediction state and
-    the reference picture from one :func:`mpeg4_decode_bgr_batch` call to
+    header and times, a packed bitstream's pending VOP and the refusals);
+    ``mpeg4.cpp`` keeps the prediction state, the two references and the
+    latest one's vectors from one :func:`mpeg4_decode_bgr_batch` call to
     the next, so the decoder takes the stream's chunks in order, from its
     first.  ``frames`` counts the frames it output.  Raises RuntimeError
     where the library did not build."""
@@ -1159,7 +1160,9 @@ class Mpeg4Decoder:
         self.stream = mpeg4_plain.Stream(tag, extradata, height, width)
         self.height, self.width = height, width
         self.frames = 0
-        self.last: Optional[np.ndarray] = None   # the last frame's planes
+        # the latest I- or P-VOP's planes (a stream with B-frames outputs
+        # it when the next one comes, or at the end)
+        self.held: Optional[np.ndarray] = None
         self.failed: Optional[str] = None        # why a call failed
 
     def _open(self) -> None:
@@ -1177,19 +1180,24 @@ class Mpeg4Decoder:
             self._handle = None
 
 
+_NO_MATRIX = (0,) * 64
+
+
 def mpeg4_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Mpeg4Decoder,
                            planes: Optional[np.ndarray] = None,
                            threads: Optional[int] = None) -> int:
     """Decode the next MPEG-4 Part 2 chunks of ``decoder``'s stream into
     ``dst`` ((k, H, W, 3) BGR uint8, k >= ``len(payloads)``), giving the
-    frames ``cv2.VideoCapture`` gives for them: ``mpeg4.cpp`` on up to
-    ``threads`` threads (default: every CPU) into yuv420p planes
+    frames ``cv2.VideoCapture`` gives for them, in its order: ``mpeg4.cpp``
+    on up to ``threads`` threads (default: every CPU) into yuv420p planes
     (``planes``: a reusable uint8 buffer of at least k ``i420_left``
     frames), which the rawvideo converter (``jpeg.cpp``) turns into BGR.
-    Returns the number of frames written: an N-VOP or a DivX drop chunk
-    gives none (FFmpeg outputs none for them; empty chunks the caller
-    drops, as the AVI demuxer does).  Raises ValueError naming the frame
-    (the chunk's index in the stream) that the decoder refuses (a feature
+    Returns the number of frames written: an N-VOP, a skipped B-VOP or a
+    drop chunk gives none, and so does a stream with B-frames' first I-VOP
+    (it comes out with the next I- or P-VOP, each one after the one before
+    it, the last at :func:`mpeg4_flush`; empty chunks the caller drops, as
+    the AVI demuxer does).  Raises ValueError naming the frame (the chunk's
+    index in the stream) that the decoder refuses (a feature
     ``mpeg4_plain.unsupported`` names) or that does not decode, and the
     macroblock where it fails; after a failure the decoder refuses every
     call.  RuntimeError where a library did not build."""
@@ -1211,11 +1219,14 @@ def mpeg4_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Mpeg4Decoder,
         except mpeg4_plain.Mpeg4Error as exc:
             decoder.failed = str(exc)
             raise ValueError(f"mpeg4_decode_bgr_batch: {exc}") from None
-        if fh.kind in "IP":
+        if fh.kind in "IPB":
             v = fh.vop
-            jobs.append((p, fh.bit, index, (
-                int(fh.kind == "I"), v.quant, v.fcode, v.rounding,
-                v.dc_threshold, int(fh.edge), int(fh.dc_clip))))
+            jobs.append((fh, index, (
+                "IPB".index(fh.kind), v.quant, v.fcode, v.bcode, v.rounding,
+                v.dc_threshold, int(fh.edge), int(fh.dc_clip), int(fh.xvid),
+                fh.pb, fh.pp, int(fh.intra_matrix is not None)),
+                (fh.intra_matrix or _NO_MATRIX) +
+                (fh.inter_matrix or _NO_MATRIX)))
     n = len(jobs)
     if not n:
         return 0
@@ -1225,14 +1236,16 @@ def mpeg4_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Mpeg4Decoder,
     if planes is None or planes.size < n * plane_bytes:
         planes = np.empty(n * plane_bytes, np.uint8)
     _u8_buffer(planes, "planes", writable=True)
-    flats = [np.frombuffer(j[0], np.uint8) for j in jobs]
+    flats = [np.frombuffer(j[0].data, np.uint8) for j in jobs]
     ptrs, sizes = _ptr_array(flats)
-    bits = (ctypes.c_size_t * n)(*[j[1] for j in jobs])
-    params = np.array([j[3] for j in jobs], np.int32)
+    bits = (ctypes.c_size_t * n)(*[j[0].bit for j in jobs])
+    params = np.array([j[2] for j in jobs], np.int32)
+    matrices = np.array([j[3] for j in jobs], np.int32)
     rcs, wheres = (ctypes.c_int * n)(), (ctypes.c_int * n)()
     decoder._lib.clt_mpeg4_decode_batch(
         decoder._handle, ptrs, sizes, bits,
-        params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), n,
+        params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        matrices.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), n,
         _as_u8_ptr(planes), plane_bytes, threads or os.cpu_count() or 1,
         rcs, wheres)
     for i, rc in enumerate(rcs):
@@ -1240,26 +1253,38 @@ def mpeg4_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Mpeg4Decoder,
             mbw = (w + 15) // 16
             where = f"macroblock ({wheres[i] % mbw}, {wheres[i] // mbw}): " \
                 if wheres[i] >= 0 else ""
-            decoder.failed = f"frame {jobs[i][2]}: {where}" + \
+            decoder.failed = f"frame {jobs[i][1]}: {where}" + \
                 _MPEG4_REASONS.get(rc, f"return code {rc}")
             raise ValueError(f"mpeg4_decode_bgr_batch: {decoder.failed}")
-    raw_decode_bgr_batch([planes[i * plane_bytes:(i + 1) * plane_bytes]
-                          for i in range(n)], dst[:n], "i420_left",
-                         threads=threads, first_frame=decoder.frames,
-                         matrix=mpeg4_plain.matrix_name(st.vol))
-    decoder.last = planes[(n - 1) * plane_bytes:n * plane_bytes].copy()
-    decoder.frames += n
-    return n
+    # FFmpeg's order: a B-VOP at once, an I- or P-VOP at once (low delay)
+    # or the one before it now ("last")
+    outs, held = [], decoder.held
+    for i, (fh, _, _, _) in enumerate(jobs):
+        slot = planes[i * plane_bytes:(i + 1) * plane_bytes]
+        if fh.output == "self":
+            outs.append(slot)
+        elif fh.output == "last":
+            outs.append(held)
+        if fh.kind != "B":
+            held = slot
+    if outs:
+        raw_decode_bgr_batch(outs, dst[:len(outs)], "i420_left",
+                             threads=threads, first_frame=decoder.frames,
+                             matrix=mpeg4_plain.matrix_name(st.vol))
+    if held is not decoder.held:
+        decoder.held = held.copy()
+    decoder.frames += len(outs)
+    return len(outs)
 
 
 def mpeg4_flush(decoder: Mpeg4Decoder, dst: np.ndarray) -> int:
-    """At the stream's end: where its last chunk was an N-VOP, FFmpeg
-    outputs the last frame once more; it goes to ``dst[0]`` and 1 is
-    returned, else 0."""
-    if not decoder.stream.skipped_last or decoder.last is None:
+    """At the stream's end: where FFmpeg outputs its last I- or P-VOP then
+    (a stream with B-frames' delay held it back; a stream that ended with
+    an N-VOP repeats it), it goes to ``dst[0]`` and 1 is returned, else
+    0."""
+    if not decoder.stream.flush() or decoder.held is None:
         return 0
-    decoder.stream.skipped_last = False
-    raw_decode_bgr_batch([decoder.last], dst[:1], "i420_left",
+    raw_decode_bgr_batch([decoder.held], dst[:1], "i420_left",
                          first_frame=decoder.frames,
                          matrix=mpeg4_plain.matrix_name(decoder.stream.vol))
     decoder.frames += 1

@@ -1,22 +1,27 @@
-// Native MPEG-4 Part 2 (Simple Profile) decoder for camera_linearity_tpu_torch:
-// the I- and P-VOPs of an MPEG-4 Part 2 AVI (FMP4, XVID, DIVX, DX50, ...)
-// as FFmpeg's mpeg4 decoder (mpeg4videodec.c, h263dec.c,
-// mpegvideo_motion.c) decodes them, into yuv420p planes that jpeg.cpp's
-// rawvideo converter turns into BGR as cv2 gets them.
+// Native MPEG-4 Part 2 (Simple and Advanced Simple Profile) decoder for
+// camera_linearity_tpu_torch: the I-, P- and B-VOPs of an MPEG-4 Part 2 AVI
+// (FMP4, XVID, DIVX, DX50, ...) as FFmpeg's mpeg4 decoder (mpeg4videodec.c,
+// h263dec.c, mpegvideo_motion.c) decodes them, into yuv420p planes that
+// jpeg.cpp's rawvideo converter turns into BGR as cv2 gets them.
 //
 // Python reads each chunk's headers (native/mpeg4_plain.Stream: the VOL,
-// user data, the VOP header, the refusals) and hands this library the
-// macroblock data: its first bit and the VOP's type, quantiser, fcode,
-// rounding type, intra DC threshold and FFmpeg's bug flags.  A decoder
-// object per stream keeps what FFmpeg keeps from frame to frame: the DC and
-// AC predictors with their borders, the macroblocks last coded intra and
-// the reference picture (macroblock-aligned).  A frame is parsed serially
-// (the predictors chain through it) into macroblock records; its
-// reconstruction (motion compensation, dequantisation, the simple IDCT)
-// then runs a macroblock row a thread, each row reading only the
-// reference, while the next frame is parsed beside it.  A run of frames
-// that starts at an I-VOP depends on nothing before it, so a batch that
-// holds several such runs decodes them side by side, one run a thread.
+// user data, the VOP header and times, a packed bitstream's pending VOP,
+// the refusals) and hands this library the macroblock data: its first bit
+// and the VOP's type, quantiser, fcodes, rounding type, intra DC threshold,
+// FFmpeg's bug flags and IDCT, direct mode's times and quant_type 1's
+// matrices.  A decoder object per stream keeps what FFmpeg keeps from frame
+// to frame: the DC and AC predictors with their borders, the macroblocks
+// last coded intra, the two references (macroblock-aligned: the latest I-
+// or P-VOP and the one before it) and the latest one's vectors and skipped
+// macroblocks, which a B-VOP's direct mode and skips read.  A frame is
+// parsed serially (the predictors chain through it) into macroblock
+// records; its reconstruction (motion compensation, dequantisation, the
+// simple or Xvid IDCT) then runs a macroblock row a thread, each row
+// reading only the references, while the next frame is parsed beside it.
+// A run of frames that starts at an I-VOP with no B-VOP after it depends on
+// nothing before it, so a batch that holds several such runs decodes them
+// side by side, one run a thread.  Each frame's decoded picture goes out in
+// coded order; Python outputs them in FFmpeg's order.
 // native/mpeg4_plain.py is the plain version the tests hold this to, and
 // has each rule's origin.
 //
@@ -235,20 +240,26 @@ inline int i16(int v) { return static_cast<std::int16_t>(static_cast<std::uint16
 inline int mid3(int a, int b, int c) { return std::max(std::min(a, b), std::min(std::max(a, b), c)); }
 inline std::uint32_t u32(int v) { return static_cast<std::uint32_t>(v); }
 
-enum Kind : std::uint8_t { kSkip, kInter, kInter4, kIntra };
+// kSkip: a P-VOP's skipped macroblock, or a B-VOP's that the latest
+// reference skipped (the forward reference, no vector); kB: a B-VOP's
+// coded one (forward, backward or both vectors: one each, or four for
+// direct mode over a 4MV macroblock)
+enum Kind : std::uint8_t { kSkip, kInter, kInter4, kIntra, kB };
 
 // A parsed macroblock: its kind, vectors, coded blocks and quantiser; its
 // six blocks (natural order) beside it, the intra ones in the quantised
-// domain, the inter ones dequantised.
+// domain, the inter ones dequantised (H.263) or not (quant_type 1).
 struct Mb {
     Kind kind;
     std::uint8_t cbp, q;
-    std::int16_t mv[4][2];
+    bool four, fwd, bwd;
+    std::int16_t mv[4][2], bmv[4][2];
 };
 
 // One VOP's parameters, as Python read them from its header.
 struct Vop {
-    int intra, quant, fcode, rounding, dc_thr, edge, dc_clip;
+    int type, quant, fcode, bcode, rounding, dc_thr, edge, dc_clip, xvid, pb, pp, mpeg;
+    std::int32_t intra_m[64], inter_m[64];   // quant_type 1's, natural order
 };
 
 // The reconstruction of a frame: records in, planes out.
@@ -316,6 +327,96 @@ void idct_sums(const std::int16_t* in, std::int32_t* out) {
 
 inline std::uint8_t clip255(int v) { return static_cast<std::uint8_t>(std::min(std::max(v, 0), 255)); }
 
+// The Xvid IDCT as ff_xvid_idct_{put,add}_sse2 compute it, before the
+// final clip (mpeg4_plain.xvid_idct_sums): rows in 32-bit sums with their
+// rounders, shifted by 11 and saturated (rows 0-2 always, 3-7 only where
+// nonzero); columns in 16-bit saturating lanes with pmulhw products.
+constexpr int kXvidTab[4][7] = {{22725, 21407, 19266, 16384, 12873, 8867, 4520},
+                                {31521, 29692, 26722, 22725, 17855, 12299, 6270},
+                                {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+                                {26722, 25172, 22654, 19266, 15137, 10426, 5315}};
+constexpr int kXvidRowTab[8] = {0, 1, 2, 3, 0, 3, 2, 1};
+constexpr std::uint32_t kXvidRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+
+inline int mulhi(int a, int c) { return (a * c) >> 16; }
+
+void xvid_idct_sums(const std::int16_t* in, std::int32_t* out) {
+    int x[8][8];   // [row][column]
+    for (int r = 0; r < 8; ++r) {
+        const std::int16_t* v = in + 8 * r;
+        bool any = false;
+        for (int i = 0; i < 8; ++i) any |= v[i] != 0;
+        if (r >= 3 && !any) {
+            for (int i = 0; i < 8; ++i) x[r][i] = 0;
+            continue;
+        }
+        const int* t = kXvidTab[kXvidRowTab[r]];
+        const std::uint32_t c1 = t[0], c2 = t[1], c3 = t[2], c4 = t[3], c5 = t[4], c6 = t[5], c7 = t[6];
+        const std::uint32_t v0 = u32(v[0]), v1 = u32(v[1]), v2 = u32(v[2]), v3 = u32(v[3]), v4 = u32(v[4]),
+                            v5 = u32(v[5]), v6 = u32(v[6]), v7 = u32(v[7]);
+        const std::uint32_t k = c4 * v0 + kXvidRnd[r];
+        const std::uint32_t a0 = k + c2 * v2 + c4 * v4 + c6 * v6, a1 = k + c6 * v2 - c4 * v4 - c2 * v6,
+                            a2 = k - c6 * v2 - c4 * v4 + c2 * v6, a3 = k - c2 * v2 + c4 * v4 - c6 * v6;
+        const std::uint32_t b0 = c1 * v1 + c3 * v3 + c5 * v5 + c7 * v7, b1 = c3 * v1 - c7 * v3 - c1 * v5 - c5 * v7,
+                            b2 = c5 * v1 - c1 * v3 + c7 * v5 + c3 * v7, b3 = c7 * v1 - c5 * v3 + c3 * v5 - c1 * v7;
+        const std::uint32_t o[8] = {a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0};
+        for (int i = 0; i < 8; ++i) x[r][i] = sat16(static_cast<std::int32_t>(o[i]) >> 11);
+    }
+    constexpr int kTan1 = 13036, kTan2 = 27146, kTan3 = 43790 - 65536, kSqrt2 = 23170;
+    for (int c = 0; c < 8; ++c) {
+        const int X0 = x[0][c], X1 = x[1][c], X2 = x[2][c], X3 = x[3][c], X4 = x[4][c], X5 = x[5][c],
+                  X6 = x[6][c], X7 = x[7][c];
+        const int tm35 = sat16(sat16(mulhi(X3, kTan3) + X3) - X5);
+        const int tp35 = sat16(sat16(mulhi(X5, kTan3) + X5) + X3);
+        const int tp17 = sat16(mulhi(X7, kTan1) + X1), tm17 = sat16(mulhi(X1, kTan1) - X7);
+        const int t1 = sat16(tp17 - tp35), b3 = sat16(tm17 - tm35), b0 = sat16(tp35 + tp17),
+                  t2 = sat16(tm35 + tm17);
+        int b2 = mulhi(sat16(t1 - t2), kSqrt2), b1 = mulhi(sat16(t2 + t1), kSqrt2);
+        b1 = sat16(b1 + b1);
+        b2 = sat16(b2 + b2);
+        const int tp26 = sat16(mulhi(X6, kTan2) + X2), tm26 = sat16(mulhi(X2, kTan2) - X6);
+        const int tm04 = sat16(X0 - X4), tp04 = sat16(X4 + X0);
+        const int a3 = sat16(tp04 - tp26), a0 = sat16(tp26 + tp04), a2 = sat16(tm04 - tm26),
+                  a1 = sat16(tm26 + tm04);
+        const int o[8] = {sat16(b0 + a0), sat16(b1 + a1), sat16(b2 + a2), sat16(b3 + a3),
+                          sat16(a3 - b3), sat16(a2 - b2), sat16(a1 - b1), sat16(a0 - b0)};
+        for (int r = 0; r < 8; ++r) out[8 * r + c] = o[r] >> 6;
+    }
+}
+
+inline int abs16(int v) { return (v < 0 ? -v : v) & 0xFFFF; }
+
+// dct_unquantize_mpeg2_intra / _inter as FFmpeg's x86 routines compute
+// them (mpeg4_plain.dequant_mpeg_intra / _inter): the quantiser doubled,
+// 16-bit lanes; the inter one with mismatch control.
+void dequant_mpeg_intra(const std::int16_t* b, int q, int dc_scale, const std::int32_t* m, std::int16_t* out) {
+    out[0] = static_cast<std::int16_t>(b[0] * dc_scale);
+    for (int i = 1; i < 64; ++i) {
+        if (!b[i]) {
+            out[i] = 0;
+            continue;
+        }
+        const int qw = (2 * q * m[i]) & 0xFFFF;
+        const int p = i16(abs16(b[i]) * qw) >> 4;
+        out[i] = static_cast<std::int16_t>(b[i] < 0 ? -p : p);
+    }
+}
+
+void dequant_mpeg_inter(const std::int16_t* b, int q, const std::int32_t* m, std::int16_t* out) {
+    int sum = -1;
+    for (int i = 0; i < 64; ++i) {
+        if (!b[i]) {
+            out[i] = 0;
+            continue;
+        }
+        const int qw = (2 * q * m[i]) & 0xFFFF;
+        const int p = ((((2 * abs16(b[i])) & 0xFFFF) * qw + qw) & 0xFFFF) >> 5;
+        out[i] = static_cast<std::int16_t>(b[i] < 0 ? -p : p);
+        sum += out[i];
+    }
+    out[63] = static_cast<std::int16_t>(out[63] ^ (sum & 1));
+}
+
 // One stream's decoder.
 struct Decoder {
     int W, H, mbw, mbh, wrap, cwrap, tib;
@@ -327,11 +428,16 @@ struct Decoder {
     // the frame being parsed
     std::vector<std::int16_t> mv;      // (2 mbh) x (2 mbw + 2) x 2
     std::vector<std::int32_t> qtab;
-    int qscale = 1, rx = 0, ry = 0;
+    int qscale = 1, rx = 0, ry = 0, last_mv[2][2] = {};
     bool first_line = true, dc_clip = false;
-    // macroblock-aligned planes: the reference and the frame built
-    std::vector<std::uint8_t> ref[3], cur[3];
-    bool have_ref = false;
+    // the latest reference's vectors (four a macroblock), skipped and 4MV
+    // macroblocks
+    std::vector<std::int16_t> colo_mv;
+    std::vector<std::uint8_t> colo_skip, colo_four;
+    // macroblock-aligned planes: three for I- and P-VOPs (the latest
+    // reference, the one before it, the one being built), one for B-VOPs
+    std::vector<std::uint8_t> pic[4][3];
+    int ref = -1, fwd = -1;   // pic indices of the latest reference and the one before
 
     Decoder(int height, int width, int resync_marker, int time_bits)
         : W(width), H(height), mbw((width + 15) / 16), mbh((height + 15) / 16),
@@ -341,11 +447,22 @@ struct Decoder {
         dc[2] = dc[1];
         for (int c = 0; c < 3; ++c) ac[c].assign(dc[c].size() * 16, 0);
         mbintra.assign(static_cast<std::size_t>(mbh) * cwrap, 1);
-        for (int c = 0; c < 3; ++c) {
-            const std::size_t s = c ? 8 : 16;
-            ref[c].assign(s * mbh * s * mbw, 0);
-            cur[c] = ref[c];
-        }
+        const std::size_t mbnum = static_cast<std::size_t>(mbw) * mbh;
+        colo_mv.assign(mbnum * 8, 0);
+        colo_skip.assign(mbnum, 0);
+        colo_four.assign(mbnum, 0);
+        for (auto& p : pic)
+            for (int c = 0; c < 3; ++c) {
+                const std::size_t s = c ? 8 : 16;
+                p[c].assign(s * mbh * s * mbw, 0);
+            }
+    }
+
+    // the pic an I- or P-VOP is built in: neither reference
+    int spare() const {
+        for (int i = 0; i < 3; ++i)
+            if (i != ref && i != fwd) return i;
+        return 0;
     }
 
     std::int16_t* mvat(int row, int col) {
@@ -382,6 +499,7 @@ struct Decoder {
         const std::ptrdiff_t c = cwrap + 1 + (y - 1) * cwrap + x - 1;
         for (int k = 1; k < 3; ++k)
             std::fill(ac[k].begin() + 16 * c, ac[k].begin() + 16 * (c + cwrap + 1), 0);
+        std::memset(last_mv, 0, sizeof last_mv);
     }
 
     void store_mv(int x, int y, int mx, int my) {
@@ -610,12 +728,14 @@ struct Decoder {
         int cbpc;
         bool intra, dquant;
         std::memset(blocks, 0, 6 * 64 * sizeof(std::int16_t));
-        if (!vop.intra) {
+        mb = Mb{};
+        if (vop.type) {
             for (;;) {
                 if (r.get(1)) {   // not coded
                     store_mv(x, y, 0, 0);
                     after(x, y, false);
-                    mb = Mb{kSkip, 0, static_cast<std::uint8_t>(qscale), {}};
+                    mb.kind = kSkip;
+                    mb.q = static_cast<std::uint8_t>(qscale);
                     return;
                 }
                 cbpc = r.vlc(T.inter_mcbpc);
@@ -638,7 +758,9 @@ struct Decoder {
                 intra_block(r, blocks + 64 * n, x, y, n, cbp & 32, dc_vlc, ac_pred);
             store_mv(x, y, 0, 0);
             after(x, y, true);
-            mb = Mb{kIntra, 63, static_cast<std::uint8_t>(qscale), {}};
+            mb.kind = kIntra;
+            mb.cbp = 63;
+            mb.q = static_cast<std::uint8_t>(qscale);
             return;
         }
         int cbp = (cbpc & 3) | (r.vlc(T.cbpy) ^ 15) << 2;
@@ -664,17 +786,91 @@ struct Decoder {
         }
         const int q = qscale;
         for (int n = 0; n < 6; ++n, cbp += cbp)
-            if (cbp & 32) tcoef(r, blocks + 64 * n, kZigzag, false, 2 * q, (q - 1) | 1, -1);
+            if (cbp & 32) inter_block(r, blocks + 64 * n, vop);
         mb.q = static_cast<std::uint8_t>(q);
+        after(x, y, false);
+    }
+
+    // an inter block's levels: dequantised (H.263) or raw (quant_type 1)
+    void inter_block(Bits& r, std::int16_t* block, const Vop& vop) {
+        const int q = qscale;
+        if (vop.mpeg) tcoef(r, block, kZigzag, false, 1, 0, -1);
+        else tcoef(r, block, kZigzag, false, 2 * q, (q - 1) | 1, -1);
+    }
+
+    // ff_mpeg4_set_direct_mv: block i's forward and backward vectors (C's
+    // division, truncating, as FFmpeg's)
+    void direct(const Vop& vop, int k, int i, int mx, int my, Mb& mb) {
+        const std::int16_t* p = colo_mv.data() + 8 * static_cast<std::size_t>(k) + 2 * i;
+        const int d[2] = {mx, my};
+        for (int c = 0; c < 2; ++c) {
+            const int f = p[c] * vop.pb / vop.pp + d[c];
+            mb.mv[i][c] = static_cast<std::int16_t>(f);
+            mb.bmv[i][c] = static_cast<std::int16_t>(d[c] ? f - p[c] : p[c] * (vop.pb - vop.pp) / vop.pp);
+        }
+    }
+
+    // mpeg4_decode_mb for a B-VOP (mpeg4_plain.Decoder._mb_b)
+    void decode_mb_b(Bits& r, const Vop& vop, int x, int y, Mb& mb, std::int16_t* blocks) {
+        std::memset(blocks, 0, 6 * 64 * sizeof(std::int16_t));
+        if (x == 0) std::memset(last_mv, 0, sizeof last_mv);
+        const int k = y * mbw + x;
+        mb = Mb{};
+        mb.q = static_cast<std::uint8_t>(qscale);
+        if (colo_skip[k]) {
+            mb.kind = kSkip;
+            after(x, y, false);
+            return;
+        }
+        mb.kind = kB;
+        int cbp = 0, type = 0;   // 0 direct, 1 both, 2 backward, 3 forward
+        bool delta = false;
+        if (!r.get(1)) {
+            const int modb2 = r.get(1);
+            const std::uint32_t code = r.peek(4);
+            if (!code) throw Fail{kBad};
+            type = 3 - (31 - __builtin_clz(code));
+            r.get(type + 1);
+            delta = type == 0;
+            if (!modb2) cbp = r.get(6);
+            if (type && cbp && r.get(1)) set_q(qscale + 4 * static_cast<int>(r.get(1)) - 2);
+        }
+        if (type == 1 || type == 3) {
+            const int mx = motion(r, last_mv[0][0], vop.fcode), my = motion(r, last_mv[0][1], vop.fcode);
+            last_mv[0][0] = mb.mv[0][0] = static_cast<std::int16_t>(mx);
+            last_mv[0][1] = mb.mv[0][1] = static_cast<std::int16_t>(my);
+            mb.fwd = true;
+        }
+        if (type == 1 || type == 2) {
+            const int mx = motion(r, last_mv[1][0], vop.bcode), my = motion(r, last_mv[1][1], vop.bcode);
+            last_mv[1][0] = mb.bmv[0][0] = static_cast<std::int16_t>(mx);
+            last_mv[1][1] = mb.bmv[0][1] = static_cast<std::int16_t>(my);
+            mb.bwd = true;
+        }
+        if (type == 0) {
+            const int mx = delta ? motion(r, 0, 1) : 0, my = delta ? motion(r, 0, 1) : 0;
+            mb.four = colo_four[k] != 0;
+            for (int i = 0; i < (mb.four ? 4 : 1); ++i) direct(vop, k, i, mx, my, mb);
+            mb.fwd = mb.bwd = true;
+        }
+        mb.cbp = static_cast<std::uint8_t>(cbp);
+        for (int n = 0; n < 6; ++n, cbp += cbp)
+            if (cbp & 32) inter_block(r, blocks + 64 * n, vop);
+        mb.q = static_cast<std::uint8_t>(qscale);
         after(x, y, false);
     }
 
     // mpeg4_is_resync at a macroblock's end: the number of the macroblock
     // a video packet starts with, or 0
+    // ff_mpeg4_get_video_packet_prefix_length
+    static int prefix_length(const Vop& vop) {
+        return vop.type == 0 ? 16 : vop.type == 1 ? vop.fcode + 15 : std::max({vop.fcode, vop.bcode, 2}) + 15;
+    }
+
     int resync_next(Bits& r, const Vop& vop) {
-        const int ptype = vop.intra ? 1 : 2;
+        const int ptype = vop.type == 0 ? 1 : 2;
         std::uint32_t v = r.peek(16);
-        while (v <= 0xFF && v >> (8 - ptype) == 1) {
+        while (vop.type != 2 && v <= 0xFF && v >> (8 - ptype) == 1) {
             r.pos += 8 + ptype;
             v = r.peek(16);
         }
@@ -690,15 +886,14 @@ struct Decoder {
         const int mbnum = mbw * mbh, nbits = 32 - __builtin_clz(static_cast<unsigned>((mbnum - 1) | 1));
         const int mb = static_cast<int>(r.get(mbnum > 1 ? nbits : 0));
         r.pos = save;
-        const int need = vop.intra ? 16 : vop.fcode + 15;
-        return n >= need && mb > 0 && mb < mbnum ? mb : 0;
+        return n >= prefix_length(vop) && mb > 0 && mb < mbnum ? mb : 0;
     }
 
     // the video packet header: its first macroblock
     int packet_header(Bits& r, const Vop& vop) {
         int n = 0;
         while (n < 32 && !r.get(1)) ++n;
-        if (n != (vop.intra ? 16 : vop.fcode + 15)) throw Fail{kPacket};
+        if (n != prefix_length(vop)) throw Fail{kPacket};
         const int mbnum = mbw * mbh, nbits = 32 - __builtin_clz(static_cast<unsigned>((mbnum - 1) | 1));
         const int mb = static_cast<int>(r.get(mbnum > 1 ? nbits : 0));
         if (mb <= 0 || mb >= mbnum) throw Fail{kPacket};
@@ -712,7 +907,8 @@ struct Decoder {
             r.get(1);
             r.get(2);
             r.get(3);
-            if (!vop.intra) r.get(3);
+            if (vop.type) r.get(3);
+            if (vop.type == 2) r.get(3);
         }
         return mb;
     }
@@ -729,6 +925,8 @@ struct Decoder {
         dc_clip = vop.dc_clip;
         mv.assign(static_cast<std::size_t>(2 * mbh) * (2 * mbw + 2) * 2, 0);
         qtab.assign(static_cast<std::size_t>(mbh) * cwrap, 0);
+        std::memset(last_mv, 0, sizeof last_mv);
+        const bool b = vop.type == 2;
         int k = 0;
         try {
             for (;;) {
@@ -739,10 +937,13 @@ struct Decoder {
                     const int x = k % mbw, y = k / mbw;
                     where = k;
                     if (x == rx && y == ry + 1) first_line = false;
-                    decode_mb(r, vop, x, y, f.mbs[k], f.blocks.data() + 384 * static_cast<std::size_t>(k));
+                    std::int16_t* blocks = f.blocks.data() + 384 * static_cast<std::size_t>(k);
+                    if (b) decode_mb_b(r, vop, x, y, f.mbs[k], blocks);
+                    else decode_mb(r, vop, x, y, f.mbs[k], blocks);
                     if (r.pos > r.bits()) throw Fail{kEnd};
                     if (resync && k + 1 < mbnum) {
-                        const int next = resync_next(r, vop);
+                        int next = resync_next(r, vop);
+                        if (b && next > k + 1 && colo_skip[k + 1]) next = 0;   // on through a skip
                         if (next) {
                             if (next != k + 1) throw Fail{kPacket};
                             ++k;
@@ -750,7 +951,10 @@ struct Decoder {
                         }
                     }
                 }
-                if (k >= mbnum) return kOk;
+                if (k >= mbnum) {
+                    if (!b) keep_vectors(f);
+                    return kOk;
+                }
                 where = k;
                 r.get(1);
                 r.pos = (r.pos + 7) & ~std::size_t{7};
@@ -817,18 +1021,36 @@ struct Decoder {
             }
     }
 
-    // The six 8 x 8 predictions of an inter or skipped macroblock into its
-    // place in cur.
-    void predict(const Mb& m, int x, int y, const Vop& vop) {
+    // An I- or P-VOP's vectors as FFmpeg's motion_val holds them at its end
+    // (zero for intra macroblocks, and for a block 3 whose right neighbour
+    // zeroed it in pred_mv), skipped and 4MV macroblocks, which the B-VOPs
+    // after it read.
+    void keep_vectors(const Frame& f) {
+        for (std::size_t k = 0; k < f.mbs.size(); ++k) {
+            const int x = static_cast<int>(k % mbw), y = static_cast<int>(k / mbw);
+            std::int16_t* o = colo_mv.data() + 8 * k;
+            for (int i = 0; i < 4; ++i) {
+                const std::int16_t* m = mvat(2 * y + (i >> 1), 2 * x + (i & 1));
+                o[2 * i] = m[0];
+                o[2 * i + 1] = m[1];
+            }
+            colo_skip[k] = f.mbs[k].kind == kSkip;
+            colo_four[k] = f.mbs[k].kind == kInter4;
+        }
+    }
+
+    // The six 8 x 8 predictions of macroblock (x, y) from reference planes
+    // rp into out (luma rows ols apart, chroma ocs): four vectors (4MV) or
+    // one.
+    void predict(const std::vector<std::uint8_t>* rp, bool four, const std::int16_t (*mvs)[2], int x,
+                 int y, const Vop& vop, int rnd, std::uint8_t* const* out, int ols, int ocs) const {
         const int he = vop.edge ? W : 16 * mbw, ve = vop.edge ? H : 16 * mbh;
-        const int ls = 16 * mbw, cs = 8 * mbw, rnd = vop.rounding;
-        std::uint8_t* dy = cur[0].data() + static_cast<std::size_t>(16 * y) * ls + 16 * x;
-        std::uint8_t* du = cur[1].data() + static_cast<std::size_t>(8 * y) * cs + 8 * x;
-        std::uint8_t* dv = cur[2].data() + static_cast<std::size_t>(8 * y) * cs + 8 * x;
-        if (m.kind == kInter4) {
+        const int ls = 16 * mbw, cs = 8 * mbw;
+        std::uint8_t *dy = out[0], *du = out[1], *dv = out[2];
+        if (four) {
             int sx = 0, sy = 0;
             for (int i = 0; i < 4; ++i) {
-                const int mx = m.mv[i][0], my = m.mv[i][1];
+                const int mx = mvs[i][0], my = mvs[i][1];
                 int src_x = x * 16 + (i & 1) * 8 + (mx >> 1), src_y = y * 16 + (i >> 1) * 8 + (my >> 1);
                 int dxy = 0;
                 src_x = std::min(std::max(src_x, -16), W);
@@ -837,8 +1059,8 @@ struct Decoder {
                 if (src_y != H) dxy |= (my & 1) << 1;
                 const bool emu = u32(src_x) >= u32(std::max(he - (mx & 1) - 7, 0)) ||
                                  u32(src_y) >= u32(std::max(ve - (my & 1) - 7, 0));
-                hpel(ref[0].data(), ls, src_x, src_y, 8, 8, dxy, rnd, emu, he, ve,
-                     dy + (i >> 1) * 8 * ls + (i & 1) * 8, ls);
+                hpel(rp[0].data(), ls, src_x, src_y, 8, 8, dxy, rnd, emu, he, ve,
+                     dy + (i >> 1) * 8 * ols + (i & 1) * 8, ols);
                 sx += mx;
                 sy += my;
             }
@@ -851,66 +1073,110 @@ struct Decoder {
             if (src_y == H >> 1) dxy &= ~2;
             const bool emu = u32(src_x) >= u32(std::max((he >> 1) - (dxy & 1) - 7, 0)) ||
                              u32(src_y) >= u32(std::max((ve >> 1) - (dxy >> 1) - 7, 0));
-            hpel(ref[1].data(), cs, src_x, src_y, 8, 8, dxy, rnd, emu, he >> 1, ve >> 1, du, cs);
-            hpel(ref[2].data(), cs, src_x, src_y, 8, 8, dxy, rnd, emu, he >> 1, ve >> 1, dv, cs);
+            hpel(rp[1].data(), cs, src_x, src_y, 8, 8, dxy, rnd, emu, he >> 1, ve >> 1, du, ocs);
+            hpel(rp[2].data(), cs, src_x, src_y, 8, 8, dxy, rnd, emu, he >> 1, ve >> 1, dv, ocs);
             return;
         }
-        const int mx = m.kind == kSkip ? 0 : m.mv[0][0], my = m.kind == kSkip ? 0 : m.mv[0][1];
+        const int mx = mvs[0][0], my = mvs[0][1];
         const int dxy = ((my & 1) << 1) | (mx & 1);
         const int src_x = x * 16 + (mx >> 1), src_y = y * 16 + (my >> 1);
         const int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
         const bool emu = u32(src_x) >= u32(std::max(he - (mx & 1) - 15, 0)) ||
                          u32(src_y) >= u32(std::max(ve - (my & 1) - 15, 0));
-        hpel(ref[0].data(), ls, src_x, src_y, 16, 16, dxy, rnd, emu, he, ve, dy, ls);
-        hpel(ref[1].data(), cs, src_x >> 1, src_y >> 1, 8, 8, uvdxy, rnd, emu, he >> 1, ve >> 1, du, cs);
-        hpel(ref[2].data(), cs, src_x >> 1, src_y >> 1, 8, 8, uvdxy, rnd, emu, he >> 1, ve >> 1, dv, cs);
+        hpel(rp[0].data(), ls, src_x, src_y, 16, 16, dxy, rnd, emu, he, ve, dy, ols);
+        hpel(rp[1].data(), cs, src_x >> 1, src_y >> 1, 8, 8, uvdxy, rnd, emu, he >> 1, ve >> 1, du, ocs);
+        hpel(rp[2].data(), cs, src_x >> 1, src_y >> 1, 8, 8, uvdxy, rnd, emu, he >> 1, ve >> 1, dv, ocs);
     }
 
-    std::uint8_t* block_at(int x, int y, int n, int& stride) {
-        if (n < 4) {
-            stride = 16 * mbw;
-            return cur[0].data() + static_cast<std::size_t>(16 * y + 8 * (n >> 1)) * stride + 16 * x + 8 * (n & 1);
-        }
-        stride = 8 * mbw;
-        return cur[n - 3].data() + static_cast<std::size_t>(8 * y) * stride + 8 * x;
-    }
-
-    // One macroblock row of frame f into cur.
-    void reconstruct_row(const Frame& f, int y) {
+    // One macroblock row of frame f into pic[target]: intra macroblocks
+    // put, the others predicted from the references (a B-VOP's backward
+    // prediction averaged into its forward one, rounding up) plus their
+    // residual.
+    void reconstruct_row(const Frame& f, int y, int target) {
+        const Vop& vop = f.vop;
+        std::vector<std::uint8_t>* cur = pic[target];
+        const int ls = 16 * mbw, cs = 8 * mbw;
         std::int16_t deq[64];
         std::int32_t sums[64];
+        auto idct = vop.xvid ? xvid_idct_sums : idct_sums;
+        static const std::int16_t zero[4][2] = {};
         for (int x = 0; x < mbw; ++x) {
             const std::size_t k = static_cast<std::size_t>(y) * mbw + x;
             const Mb& m = f.mbs[k];
             const std::int16_t* blocks = f.blocks.data() + 384 * k;
+            std::uint8_t* dst[3] = {cur[0].data() + static_cast<std::size_t>(16 * y) * ls + 16 * x,
+                                    cur[1].data() + static_cast<std::size_t>(8 * y) * cs + 8 * x,
+                                    cur[2].data() + static_cast<std::size_t>(8 * y) * cs + 8 * x};
+            auto block_at = [&](int n, int& stride) -> std::uint8_t* {
+                stride = n < 4 ? ls : cs;
+                return n < 4 ? dst[0] + (8 * (n >> 1)) * ls + 8 * (n & 1) : dst[n - 3];
+            };
             int stride;
             if (m.kind == kIntra) {
                 const int q = m.q, qmul = 2 * q, qadd = (q - 1) | 1;
                 for (int n = 0; n < 6; ++n) {
                     const std::int16_t* b = blocks + 64 * n;
-                    deq[0] = static_cast<std::int16_t>(b[0] * (n < 4 ? kYDcScale[q] : kCDcScale[q]));
-                    for (int i = 1; i < 64; ++i)
-                        deq[i] = b[i] ? static_cast<std::int16_t>(b[i] > 0 ? b[i] * qmul + qadd : b[i] * qmul - qadd) : 0;
-                    idct_sums(deq, sums);
-                    std::uint8_t* d = block_at(x, y, n, stride);
+                    const int scale = n < 4 ? kYDcScale[q] : kCDcScale[q];
+                    if (vop.mpeg) {
+                        dequant_mpeg_intra(b, q, scale, vop.intra_m, deq);
+                    } else {
+                        deq[0] = static_cast<std::int16_t>(b[0] * scale);
+                        for (int i = 1; i < 64; ++i)
+                            deq[i] = b[i] ? static_cast<std::int16_t>(b[i] > 0 ? b[i] * qmul + qadd : b[i] * qmul - qadd) : 0;
+                    }
+                    idct(deq, sums);
+                    std::uint8_t* d = block_at(n, stride);
                     for (int r = 0; r < 8; ++r)
                         for (int c = 0; c < 8; ++c) d[r * stride + c] = clip255(sums[8 * r + c]);
                 }
                 continue;
             }
-            predict(m, x, y, f.vop);
+            if (vop.type != 2) {
+                predict(pic[ref], m.kind == kInter4, m.kind == kSkip ? zero : m.mv, x, y, vop, vop.rounding, dst,
+                        ls, cs);
+            } else if (m.kind == kSkip) {
+                predict(pic[fwd], false, zero, x, y, vop, 0, dst, ls, cs);
+            } else {
+                if (m.fwd) predict(pic[fwd], m.four, m.mv, x, y, vop, 0, dst, ls, cs);
+                if (m.bwd) {
+                    if (!m.fwd) {
+                        predict(pic[ref], m.four, m.bmv, x, y, vop, 0, dst, ls, cs);
+                    } else {   // avg_pixels: into the forward prediction
+                        std::uint8_t tmp[384];
+                        std::uint8_t* t[3] = {tmp, tmp + 256, tmp + 320};
+                        predict(pic[ref], m.four, m.bmv, x, y, vop, 0, t, 16, 8);
+                        for (int j = 0; j < 16; ++j)
+                            for (int i = 0; i < 16; ++i) {
+                                std::uint8_t& o = dst[0][j * ls + i];
+                                o = static_cast<std::uint8_t>((o + tmp[16 * j + i] + 1) >> 1);
+                            }
+                        for (int c = 1; c < 3; ++c)
+                            for (int j = 0; j < 8; ++j)
+                                for (int i = 0; i < 8; ++i) {
+                                    std::uint8_t& o = dst[c][j * cs + i];
+                                    o = static_cast<std::uint8_t>((o + t[c][8 * j + i] + 1) >> 1);
+                                }
+                    }
+                }
+            }
             for (int n = 0; n < 6; ++n) {
                 if (!(m.cbp & (32 >> n))) continue;
-                idct_sums(blocks + 64 * n, sums);
-                std::uint8_t* d = block_at(x, y, n, stride);
+                const std::int16_t* b = blocks + 64 * n;
+                if (vop.mpeg) {
+                    dequant_mpeg_inter(b, m.q, vop.inter_m, deq);
+                    b = deq;
+                }
+                idct(b, sums);
+                std::uint8_t* d = block_at(n, stride);
                 for (int r = 0; r < 8; ++r)
                     for (int c = 0; c < 8; ++c) d[r * stride + c] = clip255(d[r * stride + c] + sums[8 * r + c]);
             }
         }
     }
 
-    // The visible picture of cur as an i420 frame.
-    void output(std::uint8_t* dst) const {
+    // The visible picture of pic[target] as an i420 frame.
+    void output(int target, std::uint8_t* dst) const {
+        const std::vector<std::uint8_t>* cur = pic[target];
         const int w2 = (W + 1) / 2, h2 = (H + 1) / 2;
         for (int y = 0; y < H; ++y)
             std::memcpy(dst + static_cast<std::size_t>(y) * W, cur[0].data() + static_cast<std::size_t>(y) * 16 * mbw, W);
@@ -931,39 +1197,52 @@ struct Job {
 
 // Decode jobs [a, b) of one run in order on `threads` threads: each frame
 // parsed while the one before it is reconstructed, a macroblock row an
-// item.
+// item.  An I- or P-VOP is built in the pic neither reference holds and
+// becomes the latest reference; a B-VOP in its own pic.
 void decode_run(Decoder& d, const Job* jobs, std::size_t a, std::size_t b, int threads,
                 std::uint8_t* planes, std::size_t plane_bytes, int* rcs, int* wheres) {
     Frame frames[2];
     int where = -1;
     std::size_t i = a;
     if (i >= b) return;
-    int rc = jobs[i].vop.intra || d.have_ref ? d.parse(jobs[i].data, jobs[i].size, jobs[i].bit, jobs[i].vop, frames[0], where) : kNoRef;
+    auto refs_ok = [&](const Vop& v) { return v.type == 0 || (v.type == 1 ? d.ref >= 0 : d.fwd >= 0); };
+    int rc = refs_ok(jobs[i].vop) ? d.parse(jobs[i].data, jobs[i].size, jobs[i].bit, jobs[i].vop, frames[0], where)
+                                  : kNoRef;
     for (; i < b; ++i) {
         if (rc != kOk) {   // the stream's state is lost: every later frame fails too
             for (std::size_t j = i; j < b; ++j) {
                 rcs[j] = j == i ? rc : kNoRef;
                 wheres[j] = j == i ? where : -1;
             }
-            d.have_ref = false;
+            d.ref = d.fwd = -1;
             return;
         }
         Frame& f = frames[(i - a) & 1];
         Frame& next = frames[(i - a + 1) & 1];
         int next_rc = kOk, next_where = -1;
         const bool more = i + 1 < b;
-        // the previous frame (cur) becomes the reference
-        std::swap(d.ref, d.cur);
-        d.have_ref = true;
+        const bool anchor = f.vop.type != 2;
+        const int target = anchor ? d.spare() : 3;
+        // the references as of the next frame (its parse only checks them)
+        const int after_ref = anchor ? target : d.ref, after_fwd = anchor ? d.ref : d.fwd;
+        const bool next_ok = more && (jobs[i + 1].vop.type == 0 ||
+                                      (jobs[i + 1].vop.type == 1 ? after_ref >= 0 : after_fwd >= 0));
         parallel_items(static_cast<std::size_t>(d.mbh) + (more ? 1 : 0), threads, [&](std::size_t k) {
             if (more && k == 0) {
-                next_rc = d.parse(jobs[i + 1].data, jobs[i + 1].size, jobs[i + 1].bit,
-                                  jobs[i + 1].vop, next, next_where);
+                if (next_ok)
+                    next_rc = d.parse(jobs[i + 1].data, jobs[i + 1].size, jobs[i + 1].bit, jobs[i + 1].vop, next,
+                                      next_where);
+                else
+                    next_rc = kNoRef;
                 return;
             }
-            d.reconstruct_row(f, static_cast<int>(k - (more ? 1 : 0)));
+            d.reconstruct_row(f, static_cast<int>(k - (more ? 1 : 0)), target);
         });
-        d.output(planes + i * plane_bytes);
+        d.output(target, planes + i * plane_bytes);
+        if (anchor) {
+            d.fwd = d.ref;
+            d.ref = target;
+        }
         rcs[i] = kOk;
         wheres[i] = -1;
         rc = next_rc;
@@ -984,31 +1263,40 @@ void* clt_mpeg4_new(int height, int width, int resync_marker, int time_bits) {
 
 void clt_mpeg4_free(void* h) { delete static_cast<Decoder*>(h); }
 
-// Decode k coded VOPs of the decoder's stream, in order: frame i's
+// Decode k coded VOPs of the decoder's stream, in coded order: frame i's
 // macroblock data start at bit bits[i] of srcs[i] (sizes[i] bytes); its
-// VOP is params[7 i .. 7 i + 7) = intra, quant, fcode, rounding, intra DC
-// threshold, FF_BUG_EDGE, FF_BUG_DC_CLIP.  Frame i's visible picture goes
-// to planes + i * plane_bytes as an i420 frame.  A run of frames from an
-// I-VOP depends on nothing before it: runs decode side by side where a
-// batch holds several (each on its own decoder state, the first on this
-// one's), a run's frames one after another, a macroblock row a thread.
-// rcs[i] gets 0 or a negative code (-1 bits FFmpeg fails to decode, -2
-// data that end inside a macroblock, -3 a video packet header FFmpeg
-// refuses, -4 a P-VOP without a reference: after a failure every later
-// frame of the run), wheres[i] the macroblock it failed at or -1.
+// VOP is params[12 i .. 12 i + 12) = type (0 I, 1 P, 2 B), quant, fcode,
+// bcode, rounding, intra DC threshold, FF_BUG_EDGE, FF_BUG_DC_CLIP, the
+// Xvid IDCT, direct mode's pb and pp times, quant_type 1; its matrices
+// (quant_type 1: intra, then inter, natural order) matrices[128 i ..).
+// Frame i's decoded picture goes to planes + i * plane_bytes as an i420
+// frame.  A run of frames from an I-VOP with no B-VOP after it depends on
+// nothing before it: runs decode side by side where a batch holds several
+// (each on its own decoder state, the first on this one's), a run's frames
+// one after another, a macroblock row a thread.  rcs[i] gets 0 or a
+// negative code (-1 bits FFmpeg fails to decode, -2 data that end inside a
+// macroblock, -3 a video packet header FFmpeg refuses, -4 a frame without
+// its references: after a failure every later frame of the run),
+// wheres[i] the macroblock it failed at or -1.
 void clt_mpeg4_decode_batch(void* h, const unsigned char* const* srcs, const std::size_t* sizes,
-                            const std::size_t* bits, const int* params, std::size_t k,
-                            unsigned char* planes, std::size_t plane_bytes, int nthreads,
-                            int* rcs, int* wheres) {
+                            const std::size_t* bits, const int* params, const int* matrices, std::size_t k,
+                            unsigned char* planes, std::size_t plane_bytes, int nthreads, int* rcs,
+                            int* wheres) {
     Decoder& d = *static_cast<Decoder*>(h);
     std::vector<Job> jobs(k);
     for (std::size_t i = 0; i < k; ++i) {
-        const int* p = params + 7 * i;
-        jobs[i] = Job{srcs[i], sizes[i], bits[i], Vop{p[0], p[1], p[2], p[3], p[4], p[5], p[6]}};
+        const int* p = params + 12 * i;
+        Job& j = jobs[i];
+        j.data = srcs[i];
+        j.size = sizes[i];
+        j.bit = bits[i];
+        j.vop = Vop{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], {}, {}};
+        std::memcpy(j.vop.intra_m, matrices + 128 * i, sizeof j.vop.intra_m);
+        std::memcpy(j.vop.inter_m, matrices + 128 * i + 64, sizeof j.vop.inter_m);
     }
     std::vector<std::size_t> starts{0};
     for (std::size_t i = 1; i < k; ++i)
-        if (jobs[i].vop.intra) starts.push_back(i);
+        if (jobs[i].vop.type == 0 && (i + 1 == k || jobs[i + 1].vop.type != 2)) starts.push_back(i);
     starts.push_back(k);
     const std::size_t runs = starts.size() - 1;
     if (runs <= 1 || nthreads <= 1) {
@@ -1027,6 +1315,6 @@ void clt_mpeg4_decode_batch(void* h, const unsigned char* const* srcs, const std
     std::swap(d, *own[runs - 1]);
 }
 
-int clt_mpeg4_version() { return 1; }
+int clt_mpeg4_version() { return 2; }
 
 }  // extern "C"

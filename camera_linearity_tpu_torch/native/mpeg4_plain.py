@@ -8,7 +8,8 @@ decoder (mpeg4videodec.c, h263dec.c, mpegvideo_motion.c) and swscale to
 BGR24.  Written from ISO/IEC 14496-2 and those sources; the tables are the
 standard's (``libavcodec``'s copies were compared byte for byte).  The
 Simple Profile is read, as ``cv2.VideoWriter`` writes it and as a camera or
-FFmpeg may write it:
+FFmpeg may write it, and so are the Advanced Simple tools Xvid and DivX 5
+use by default:
 
 * headers: the VOS, VO (its video signal type: the BT.709 matrix is taken,
   as swscale takes it from the frame) and VOL headers from the first
@@ -47,7 +48,34 @@ FFmpeg may write it:
   compute it (``jpeg_plain``'s, which the MJPEG decoder holds), put for
   intra blocks and added to the prediction, clipped, for inter ones;
 * N-VOPs (``vop_coded`` 0): FFmpeg outputs no frame for them, nor for a
-  chunk without a VOP (a header alone); an empty chunk the demuxer drops.
+  chunk without a VOP (a header alone); an empty chunk the demuxer drops;
+* the Xvid IDCT where FFmpeg's bug detection finds an Xvid build (``XviD``
+  user data, or build 0 from an ``XVID``/``XVIX`` fourcc without ``Lavc``,
+  ``DivX`` or ``FFmpeg`` user data), in the form cv2's x86-64 build runs
+  (``ff_xvid_idct_sse2``, for intra and inter blocks; it stays on once
+  switched), with the workarounds the build sets (FF_BUG_EDGE up to build
+  12, FF_BUG_DC_CLIP up to 32);
+* B-VOPs: ``modb``, ``mb_type`` (direct, interpolated, backward,
+  forward), ``dbquant``, ``vop_fcode_backward``, forward and backward
+  vectors predicted from the last of their direction (zeroed at each
+  macroblock row and video packet); direct mode scales the latest
+  reference's vectors as ``motion_val`` holds them (one or four) by the
+  VOP times (``modulo_time_base`` and GOV time codes counted as FFmpeg
+  counts them), plus the delta; a macroblock the latest reference skipped
+  is skipped (the forward reference, no vector); the two predictions
+  averaged rounding up.  A B-VOP is never a reference; FFmpeg skips one
+  without two references before it or whose time does not lie between
+  theirs.  FFmpeg's order: with ``low_delay`` 0 (the VOL's, or its rules
+  for a VOL without VOL control) an I- or P-VOP is output when the next one
+  is decoded, the last at the end; else at once;
+* packed bitstreams (``DivX...p`` user data, DivX 5 and Xvid's packed
+  mode): a chunk's I- or B-VOP after the one decoded waits for the next
+  chunk, which FFmpeg then does not read (a placeholder: an N-VOP, or a
+  few bytes);
+* ``quant_type`` 1: the default or the VOL's matrices (a matrix cut short
+  by a 0 repeats its last value), FFmpeg's x86 MPEG-2 dequantisers with
+  the quantiser doubled in 16-bit lanes, mismatch control for inter
+  blocks only.
 
 The yuv420p frame (the visible part of the macroblock-aligned planes)
 converts to BGR24 as the rawvideo reader's ``i420`` (``rawvideo_plain``):
@@ -55,16 +83,13 @@ swscale's unscaled path at an even height, its scaled path at an odd one.
 
 Refused by name (:func:`unsupported`, before any decode where the VOL or
 the first VOP shows it; a later VOP that is refused raises naming its
-frame): B-VOPs and packed bitstreams, S-VOPs and sprites, quarter-pel,
-interlaced VOLs, ``quant_type`` 1 (MPEG matrices), data partitioning and
-reversible VLCs, the short video header, shapes other than rectangular,
-``not_8_bit``, newpred, reduced resolution, scalability, complexity
-estimation, a full-range video signal and matrices other than BT.601 and
-BT.709, and any stream for which FFmpeg's bug detection picks the Xvid
-IDCT: one with ``XviD`` user data, or tagged ``XVID``/``XVIX`` with no
-``Lavc``, ``DivX`` or ``FFmpeg`` user data.  A frame FFmpeg would
-decode with an error, which it conceals, raises :class:`Mpeg4Error`
-naming the frame and the macroblock.
+frame): S-VOPs (GMC) and sprites, quarter-pel, interlaced VOLs, data
+partitioning and reversible VLCs, the short video header, shapes other
+than rectangular, ``not_8_bit``, newpred, reduced resolution,
+scalability, complexity estimation, a full-range video signal and
+matrices other than BT.601 and BT.709.  A frame FFmpeg would decode with
+an error, which it conceals, raises :class:`Mpeg4Error` naming the frame
+and the macroblock.
 """
 from __future__ import annotations
 
@@ -79,7 +104,9 @@ from .rawvideo_plain import decode_bgr as _raw_bgr
 __all__ = ["MPEG4_FOURCCS", "Mpeg4Error", "Vol", "Bugs", "parse_vol",
            "stream_headers", "vop_header", "xvid_build", "unsupported",
            "matrix_name", "FrameHeader", "Stream", "Decoder", "idct_sums",
-           "i420_bytes", "decode_planes", "decode_bgr"]
+           "xvid_idct_sums", "dequant_mpeg_intra", "dequant_mpeg_inter",
+           "DEFAULT_INTRA", "DEFAULT_INTER", "i420_bytes", "decode_planes",
+           "decode_bgr"]
 
 # the fourccs FFmpeg maps to its mpeg4 decoder that cv2 reads here
 # (cv2.VideoWriter writes MP4V under FMP4); stripped of trailing spaces
@@ -313,6 +340,11 @@ class Vol(NamedTuple):
     scalability: bool
     full_range: bool = False
     matrix: int = 2     # ISO/IEC 23001-8 matrix_coefficients; 2: none given
+    low_delay: Optional[bool] = None   # the VOL control's, None: none given
+    resolution: int = 30               # vop_time_increment_resolution
+    # quant_type 1's matrices in natural order (None: quant_type 0)
+    intra_matrix: Optional[Tuple[int, ...]] = None
+    inter_matrix: Optional[Tuple[int, ...]] = None
 
 
 class Bugs(NamedTuple):
@@ -354,6 +386,38 @@ def _marker(r: _Bits) -> None:
     r.get(1)   # FFmpeg's check_marker only logs a missing one
 
 
+# ff_mpeg4_default_intra_matrix / _non_intra_matrix, natural order
+DEFAULT_INTRA = (8, 17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27,
+                 28, 20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28,
+                 30, 32, 22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28, 30,
+                 32, 35, 38, 25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32,
+                 35, 38, 41, 45)
+DEFAULT_INTER = (16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23,
+                 24, 18, 19, 20, 21, 22, 23, 24, 25, 19, 20, 21, 22, 23, 24,
+                 26, 27, 20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26,
+                 27, 28, 30, 22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27,
+                 28, 30, 31, 33)
+
+
+def _load_matrix(r: _Bits) -> Tuple[int, ...]:
+    """A quantisation matrix of the VOL: up to 64 values in zigzag order;
+    a 0 ends it early and the last value before it fills the rest (all of
+    it 0 where the first value is)."""
+    m, last, i = [0] * 64, 0, 0
+    while i < 64:
+        if r.left() < 8:
+            raise Mpeg4Error("a VOL whose quantisation matrix the data cut "
+                             "short")
+        v = r.get(8)
+        if not v:
+            break
+        last = m[ZIGZAG[i]] = v
+        i += 1
+    for k in range(i, 64):
+        m[ZIGZAG[k]] = last
+    return tuple(m)
+
+
 def parse_vol(r: _Bits, vo: Tuple[bool, int]) -> Vol:
     """decode_vol_header, at the bit after the start code; ``vo`` is the
     VO header's (full range, matrix)."""
@@ -367,9 +431,10 @@ def parse_vol(r: _Bits, vo: Tuple[bool, int]) -> Vol:
     if r.get(4) == 15:                         # extended PAR
         r.get(16)
     vol_control = bool(r.get(1))
+    low_delay = None
     if vol_control:
         r.get(2)                               # chroma_format
-        r.get(1)                               # low_delay
+        low_delay = bool(r.get(1))
         if r.get(1):                           # vbv_parameters
             r.get(15), _marker(r), r.get(15), _marker(r), r.get(15)
             _marker(r), r.get(3), r.get(11), _marker(r), r.get(15)
@@ -388,6 +453,7 @@ def parse_vol(r: _Bits, vo: Tuple[bool, int]) -> Vol:
     width = height = 0
     interlaced, sprite, not8, quant_type, qpel = False, 0, False, 0, False
     cplx, resync, dp, rvlc, newpred, rr, scal = (False,) * 7
+    mats = (None, None)
     if shape != 2:
         if shape == 0:
             _marker(r)
@@ -398,33 +464,32 @@ def parse_vol(r: _Bits, vo: Tuple[bool, int]) -> Vol:
         interlaced = bool(r.get(1))
         r.get(1)                               # obmc_disable
         sprite = r.get(1 if verid == 1 else 2)
-        if sprite:
-            return Vol(width, height, vo_type, verid, vol_control, shape,
-                       tib, interlaced, sprite, False, 0, False, False, False,
-                       False, False, False, False, False, *vo)
-        not8 = bool(r.get(1))
-        if not8:
-            r.get(8)
-        quant_type = r.get(1)
-        if quant_type:
-            return Vol(width, height, vo_type, verid, vol_control, shape,
-                       tib, interlaced, sprite, not8, quant_type, False,
-                       False, False, False, False, False, False, False, *vo)
-        qpel = bool(r.get(1)) if verid != 1 else False
-        cplx = not r.get(1)
-        if not cplx:
-            resync = not r.get(1)
-            dp = bool(r.get(1))
-            rvlc = bool(r.get(1)) if dp else False
-            if verid != 1:
-                newpred = bool(r.get(1))
-                if newpred:
-                    r.get(3)
-                rr = bool(r.get(1))
-            scal = bool(r.get(1))
+        if not sprite:
+            not8 = bool(r.get(1))
+            if not8:
+                r.get(8)
+            quant_type = r.get(1)
+            if quant_type:
+                intra = _load_matrix(r) if r.get(1) else DEFAULT_INTRA
+                inter = _load_matrix(r) if r.get(1) else DEFAULT_INTER
+                mats = (intra, inter)
+            qpel = bool(r.get(1)) if verid != 1 else False
+            cplx = not r.get(1)
+            if not cplx:
+                resync = not r.get(1)
+                dp = bool(r.get(1))
+                rvlc = bool(r.get(1)) if dp else False
+                if verid != 1:
+                    newpred = bool(r.get(1))
+                    if newpred:
+                        r.get(3)
+                    rr = bool(r.get(1))
+                scal = bool(r.get(1))
     return Vol(width, height, vo_type, verid, vol_control, shape, tib,
                interlaced, sprite, not8, quant_type, qpel, cplx, resync, dp,
-               rvlc, newpred, rr, scal, *vo)
+               rvlc, newpred, rr, scal, *vo, low_delay=low_delay,
+               resolution=resolution, intra_matrix=mats[0],
+               inter_matrix=mats[1])
 
 
 def _visual_object(r: _Bits) -> Tuple[bool, int]:
@@ -449,19 +514,29 @@ class VopHeader(NamedTuple):
     dc_threshold: int
     quant: int
     fcode: int
+    bcode: int = 1
+    seconds: int = 0     # modulo_time_base: the seconds it adds
+    increment: int = 0   # vop_time_increment
+    error: Optional[str] = None   # a field FFmpeg refuses (read after the
+    #                               times, which may skip the VOP first)
 
 
 class Headers(NamedTuple):
     """What one chunk's headers hold: the VOL (or None), the VO's signal
     type, the user data's builds, whether a short video header starts the
-    chunk, and the VOP header (None where the chunk holds no VOP) with the
-    bit reader at its macroblock data."""
+    chunk, the VOP header (None where the chunk holds no VOP) with the bit
+    reader at its macroblock data, and the time code (in seconds) of the
+    last GOV header before the VOP (None: none)."""
     vol: Optional[Vol]
     vo: Optional[Tuple[bool, int]]
     bugs: Bugs
     short_header: bool
     vop: Optional[VopHeader]
     bits: Optional[_Bits]
+    gov: Optional[int] = None
+
+
+GOV = 0x1B3
 
 
 def stream_headers(data: bytes, vol: Optional[Vol] = None,
@@ -472,7 +547,7 @@ def stream_headers(data: bytes, vol: Optional[Vol] = None,
     r = _Bits(data)
     if r.peek(22) == 0x20:   # a short video header (H.263 picture start)
         return Headers(vol, vo, bugs, True, None, None)
-    code, new_vol, new_vo = 0xFF, None, None
+    code, new_vol, new_vo, gov = 0xFF, None, None, None
     while r.pos < r.end:
         code = ((code << 8) | r.get(8)) & 0xFFFFFFFF
         if code & 0xFFFFFF00 != 0x100:
@@ -489,40 +564,50 @@ def stream_headers(data: bytes, vol: Optional[Vol] = None,
             bugs = _user_data(r.data[start:start + n], bugs)
         elif code == VO:
             new_vo = _visual_object(r)
+        elif code == GOV and r.peek(23):       # mpeg4_decode_gop_header
+            hours, minutes = r.get(5), r.get(6)
+            _marker(r)
+            gov = r.get(6) + 60 * (minutes + 60 * hours)
         elif code == VOP:
             v = new_vol or vol
             if v is None:
                 raise Mpeg4Error("a VOP before any VOL header")
-            return Headers(new_vol, new_vo, bugs, False, vop_header(r, v), r)
+            return Headers(new_vol, new_vo, bugs, False, vop_header(r, v), r,
+                           gov)
         r.align()
         code = 0xFF
-    return Headers(new_vol, new_vo, bugs, False, None, None)
+    return Headers(new_vol, new_vo, bugs, False, None, None, gov)
 
 
 def vop_header(r: _Bits, vol: Vol) -> VopHeader:
     """decode_vop_header for a rectangular, progressive VOL; the reader is
     left at the macroblock data (at the end for an N-VOP)."""
     kind = VOP_TYPES[r.get(2)]
+    seconds = 0
     while r.get(1):                            # modulo_time_base
-        pass
+        seconds += 1
     _marker(r)
     if not r.peek(vol.time_increment_bits + 1) & 1:
         raise Mpeg4Error("a VOP whose time increment does not fit the VOL "
                          "(FFmpeg guesses its width)")
-    r.get(vol.time_increment_bits)
+    increment = r.get(vol.time_increment_bits)
     _marker(r)
     if not r.get(1):
-        return VopHeader(kind, False, 0, 0, 0, 1)
+        return VopHeader(kind, False, 0, 0, 0, 1, 1, seconds, increment)
     rounding = r.get(1) if kind in "PS" else 0
     dc_thr = DC_THRESHOLD[r.get(3)]
-    if kind in "BS":
-        return VopHeader(kind, True, rounding, dc_thr, 0, 1)
+    if kind == "S":
+        return VopHeader(kind, True, rounding, dc_thr, 0, 1, 1, seconds,
+                         increment)
     quant = r.get(5)
-    fcode = r.get(3) if kind == "P" else 1
-    if quant == 0 or fcode == 0:
-        raise Mpeg4Error("a VOP header FFmpeg refuses (vop_quant or "
-                         "vop_fcode_forward 0)")
-    return VopHeader(kind, True, rounding, dc_thr, quant, fcode)
+    fcode = r.get(3) if kind in "PB" else 1
+    bcode = r.get(3) if kind == "B" else 1
+    error = None
+    if quant == 0 or fcode == 0 or bcode == 0:
+        error = ("a VOP header FFmpeg refuses (vop_quant, vop_fcode_forward "
+                 "or vop_fcode_backward 0)")
+    return VopHeader(kind, True, rounding, dc_thr, quant, fcode, bcode,
+                     seconds, increment, error)
 
 
 def xvid_build(tag: str, vol: Vol, bugs: Bugs) -> Bugs:
@@ -561,8 +646,9 @@ def dc_clip_bug(bugs: Bugs) -> bool:
 def unsupported(vol: Optional[Vol], bugs: Bugs = Bugs(),
                 vop: Optional[VopHeader] = None, tag: str = "FMP4",
                 short_header: bool = False) -> Optional[str]:
-    """What of a stream the decoder does not read, or None: its VOL, the
-    bug detection's choice and (``vop``) a VOP's type."""
+    """What of a stream the decoder does not read, or None: its VOL and
+    (``vop``) a VOP's type; ``bugs`` and ``tag`` are not asked about (every
+    build FFmpeg's bug detection finds is read)."""
     if short_header:
         return "the short video header (H.263 baseline)"
     if vol is None:
@@ -574,8 +660,6 @@ def unsupported(vol: Optional[Vol], bugs: Bugs = Bugs(),
             + f" (sprite_enable {vol.sprite})"
     if vol.not_8_bit:
         return "not_8_bit"
-    if vol.quant_type:
-        return "quant_type 1 (MPEG quantisation matrices)"
     if vol.interlaced:
         return "an interlaced VOL"
     if vol.quarter_sample:
@@ -597,16 +681,8 @@ def unsupported(vol: Optional[Vol], bugs: Bugs = Bugs(),
         return f"matrix_coefficients {vol.matrix} (BT.601 and BT.709 only)"
     if vol.width < 1 or vol.height < 1:
         return f"a VOL of {vol.width} x {vol.height}"
-    bugs = xvid_build(tag, vol, bugs)
-    if bugs.xvid_build >= 0:
-        return (f"an Xvid stream (build {bugs.xvid_build}"
-                + (", from its fourcc" if tag in ("XVID", "XVIX") and
-                   bugs.xvid_build == 0 else "")
-                + "), which FFmpeg decodes with the Xvid IDCT")
-    if bugs.divx_packed:
-        return "a packed bitstream (DivX user data ending 'p')"
-    if vop is not None and vop.type in "BS":
-        return {"B": "B-VOPs", "S": "S-VOPs (GMC)"}[vop.type]
+    if vop is not None and vop.type == "S":
+        return "S-VOPs (GMC)"
     return None
 
 
@@ -630,6 +706,105 @@ def idct_sums(blocks: np.ndarray) -> np.ndarray:
     return np.swapaxes(out, 1, 2)
 
 
+# xvid_idct_sse2's row tables (rows 0 and 4, 1 and 7, 2 and 6, 3 and 5)
+# and rounders, and the column pass's constants as 16-bit lanes
+_XVID_TAB = ((22725, 21407, 19266, 16384, 12873, 8867, 4520),
+             (31521, 29692, 26722, 22725, 17855, 12299, 6270),
+             (29692, 27969, 25172, 21407, 16819, 11585, 5906),
+             (26722, 25172, 22654, 19266, 15137, 10426, 5315))
+_XVID_ROW_TAB = (0, 1, 2, 3, 0, 3, 2, 1)
+_XVID_RND = (65536, 3597, 2260, 1203, 0, 120, 512, 512)
+_TAN1, _TAN2, _TAN3, _SQRT2 = 13036, 27146, 43790 - 65536, 23170
+
+
+def xvid_idct_sums(blocks: np.ndarray) -> np.ndarray:
+    """FFmpeg's Xvid IDCT as ff_xvid_idct_{put,add}_sse2 compute it, before
+    the final clip: (n, 64) int16 coefficients in natural order -> (n, 8,
+    8) ints.  Rows: 32-bit sums with each row's rounder, shifted by 11 and
+    saturated to 16 bits; rows 0-2 are always transformed (an empty one
+    gives its rounder's share), rows 3-7 only where nonzero.  Columns:
+    16-bit saturating adds and ``pmulhw`` products, shifted by 6 (probed
+    against cv2's libavcodec on random blocks; the C version differs on
+    empty rows 1-2 and where a sum leaves 16 bits)."""
+    b = blocks.astype(np.int64).reshape(-1, 8, 8)
+    x = np.zeros_like(b)
+    for r in range(8):
+        c1, c2, c3, c4, c5, c6, c7 = _XVID_TAB[_XVID_ROW_TAB[r]]
+        v = b[:, r]
+        k = c4 * v[:, 0] + _XVID_RND[r]
+        a0 = k + c2 * v[:, 2] + c4 * v[:, 4] + c6 * v[:, 6]
+        a1 = k + c6 * v[:, 2] - c4 * v[:, 4] - c2 * v[:, 6]
+        a2 = k - c6 * v[:, 2] - c4 * v[:, 4] + c2 * v[:, 6]
+        a3 = k - c2 * v[:, 2] + c4 * v[:, 4] - c6 * v[:, 6]
+        b0 = c1 * v[:, 1] + c3 * v[:, 3] + c5 * v[:, 5] + c7 * v[:, 7]
+        b1 = c3 * v[:, 1] - c7 * v[:, 3] - c1 * v[:, 5] - c5 * v[:, 7]
+        b2 = c5 * v[:, 1] - c1 * v[:, 3] + c7 * v[:, 5] + c3 * v[:, 7]
+        b3 = c7 * v[:, 1] - c5 * v[:, 3] + c3 * v[:, 5] - c1 * v[:, 7]
+        o = _sat16(_i32(np.stack([a0 + b0, a1 + b1, a2 + b2, a3 + b3,
+                                  a3 - b3, a2 - b2, a1 - b1, a0 - b0], 1))
+                   >> 11)
+        if r >= 3:
+            o = np.where((v != 0).any(1)[:, None], o, 0)
+        x[:, r] = o
+    X = [x[:, k] for k in range(8)]
+    S = _sat16
+    tm35 = S(S(((X[3] * _TAN3) >> 16) + X[3]) - X[5])
+    tp35 = S(S(((X[5] * _TAN3) >> 16) + X[5]) + X[3])
+    tp17 = S(((X[7] * _TAN1) >> 16) + X[1])
+    tm17 = S(((X[1] * _TAN1) >> 16) - X[7])
+    t1, b3, b0, t2 = S(tp17 - tp35), S(tm17 - tm35), S(tp35 + tp17), \
+        S(tm35 + tm17)
+    b2 = (S(t1 - t2) * _SQRT2) >> 16
+    b1 = (S(t2 + t1) * _SQRT2) >> 16
+    b1, b2 = S(b1 + b1), S(b2 + b2)
+    tp26 = S(((X[6] * _TAN2) >> 16) + X[2])
+    tm26 = S(((X[2] * _TAN2) >> 16) - X[6])
+    tm04, tp04 = S(X[0] - X[4]), S(X[4] + X[0])
+    a3, a0, a2, a1 = S(tp04 - tp26), S(tp26 + tp04), S(tm04 - tm26), \
+        S(tm26 + tm04)
+    out = [S(b0 + a0), S(b1 + a1), S(b2 + a2), S(b3 + a3), S(a3 - b3),
+           S(a2 - b2), S(a1 - b1), S(a0 - b0)]
+    return np.stack([v >> 6 for v in out], 1)
+
+
+def _abs16(v: np.ndarray) -> np.ndarray:
+    """|v| of int16 lanes as ``pxor`` + ``psubw`` leave it (|-32768| is
+    0x8000), as 0..65535."""
+    return np.where(v < 0, -v, v) & 0xFFFF
+
+
+def dequant_mpeg_intra(blocks: np.ndarray, q: int, matrix) -> np.ndarray:
+    """dct_unquantize_mpeg2_intra as FFmpeg's x86 routine computes it (it
+    runs where the decoder is not bit-exact, as cv2's is not): each AC
+    level times ``2 q matrix`` (MPEG-2's routine takes the MPEG-4
+    quantiser doubled), in 16-bit lanes, shifted right by 4 as a signed
+    word, its sign put back; no mismatch control (probed against cv2's
+    libavcodec).  The DC times its scaler, as for H.263 quantisation.
+    (6, 64) levels of a macroblock's blocks, natural order."""
+    b = _i16(blocks.astype(np.int64))
+    qw = (2 * q * np.asarray(matrix, np.int64)) & 0xFFFF
+    p = _i16(_abs16(b) * qw) >> 4
+    p = _i16(np.where(b < 0, -p, p))
+    out = np.where(b != 0, p, 0)
+    scale = np.array([Y_DC_SCALE[q]] * 4 + [C_DC_SCALE[q]] * 2)
+    out[:, 0] = _i16(b[:, 0] * scale[:len(b)])
+    return out
+
+
+def dequant_mpeg_inter(block: np.ndarray, q: int, matrix) -> np.ndarray:
+    """dct_unquantize_mpeg2_inter as FFmpeg's x86 routine computes it:
+    ``((2 |level| + 1) 2 q matrix) >> 5`` in 16-bit lanes (a logical
+    shift), its sign put back, then mismatch control: coefficient 63's
+    lowest bit flipped where the sum of the others and of it is even."""
+    b = _i16(np.asarray(block, np.int64))
+    qw = (2 * q * np.asarray(matrix, np.int64)) & 0xFFFF
+    p = ((((2 * _abs16(b)) & 0xFFFF) * qw + qw) & 0xFFFF) >> 5
+    p = _i16(np.where(b < 0, -p, p))
+    out = np.where(b != 0, p, 0)
+    out[..., 63] ^= (out.sum(-1) - 1) & 1
+    return out
+
+
 def _mid(a: int, b: int, c: int) -> int:
     return max(min(a, b), min(max(a, b), c))
 
@@ -638,31 +813,56 @@ class _Mb(NamedTuple):
     x: int
     y: int
     kind: str           # "skip", "inter", "inter4", "intra"
-    mvs: tuple          # ((mx, my),) or four of them
+    mvs: tuple          # ((mx, my),) or four of them (B: the forward ones)
     cbp: int
     qscale: int
     blocks: Optional[np.ndarray]   # (6, 64) int16, natural order
+    bmvs: tuple = ()    # a B-VOP's backward vectors
+    four: bool = False  # a B-VOP's direct macroblock of four vectors
 
 
 class FrameHeader(NamedTuple):
-    """What a chunk is to FFmpeg: ``kind`` "I" or "P" (a coded VOP, its
-    header ``vop``, its macroblock data from bit ``bit``), "N" (an N-VOP:
-    no frame) or "drop" (a DivX stream's one-byte chunk: no frame);
+    """What a chunk is to FFmpeg: ``kind`` "I", "P" or "B" (a coded VOP,
+    its header ``vop``, its macroblock data in ``data`` from bit ``bit``),
+    "N" (an N-VOP: no frame), "skip" (a B-VOP FFmpeg skips: no reference
+    before it, or times that do not fit between its references) or "drop"
+    (a DivX or Xvid stream's one-byte chunk: no frame).  ``data`` is the
+    chunk, or the VOP a packed bitstream's chunk before it held.
     ``edge`` whether the frame replicates the visible picture's border
-    (FF_BUG_EDGE as of this frame), ``dc_clip`` FF_BUG_DC_CLIP."""
+    (FF_BUG_EDGE as of this frame), ``dc_clip`` FF_BUG_DC_CLIP, ``xvid``
+    whether FFmpeg has switched to the Xvid IDCT; ``output`` what FFmpeg
+    outputs once the frame is decoded: "self", "last" (the reference
+    before this I- or P-VOP, a decoder with B-frames' one-frame delay) or
+    None; ``pb``/``pp`` a B-VOP's distances in time to its forward
+    reference and between its references (direct mode's scale);
+    ``intra_matrix``/``inter_matrix`` quant_type 1's matrices (natural
+    order) or None."""
     kind: str
     vop: Optional[VopHeader] = None
     bit: int = 0
     edge: bool = False
     dc_clip: bool = False
+    xvid: bool = False
+    data: bytes = b""
+    output: Optional[str] = None
+    pb: int = 0
+    pp: int = 0
+    intra_matrix: Optional[Tuple[int, ...]] = None
+    inter_matrix: Optional[Tuple[int, ...]] = None
+
+
+MAX_NVOP_SIZE = 19   # a chunk up to this size takes a pending packed VOP
 
 
 class Stream:
     """The headers of one MPEG-4 Part 2 stream, chunk by chunk, as
     FFmpeg's context keeps them: the VOL, the VO's signal type and the
-    user data's builds carry from chunk to chunk.  ``tag`` is the AVI
-    fourcc (FFmpeg's bug detection reads it), ``extradata`` the ``strf``
-    bytes after the BITMAPINFOHEADER."""
+    user data's builds carry from chunk to chunk, and so do the VOP times
+    (B-VOPs' direct mode scales by them), the low-delay flag (whether
+    I- and P-VOPs are output at once or when the next one comes), the
+    references decoded so far and a packed bitstream's pending VOP.
+    ``tag`` is the AVI fourcc (FFmpeg's bug detection reads it),
+    ``extradata`` the ``strf`` bytes after the BITMAPINFOHEADER."""
 
     def __init__(self, tag: str = "FMP4", extradata: bytes = b"",
                  height: Optional[int] = None, width: Optional[int] = None):
@@ -671,10 +871,16 @@ class Stream:
         self.vo = (False, 2)
         self.bugs = Bugs()
         self.edge_bug = False      # FFmpeg's h_edge_pos as of this frame
+        self.xvid = False          # the Xvid IDCT (once on, it stays)
         self.size = (height, width)
         self.chunks = 0            # chunks taken
-        self.coded = 0             # coded VOPs among them
+        self.anchors = 0           # I- and P-VOPs decoded among them
         self.skipped_last = False  # the last chunk was an N-VOP
+        self.low_delay = True      # ff_h263_decode_init's
+        self.pictures = 0          # FFmpeg's picture_number
+        self.time_base = self.last_time_base = 0
+        self.last_non_b_time = self.pp_time = 0
+        self.pending: Optional[bytes] = None   # a packed chunk's next VOP
         if extradata:
             self._take(stream_headers(extradata, None, self.bugs, self.vo))
 
@@ -695,7 +901,31 @@ class Stream:
                                  f"stream of {self.size[1]} x "
                                  f"{self.size[0]}")
             self.vol = v
+            if v.low_delay is not None:
+                self.low_delay = v.low_delay
+            elif not self.pictures:
+                self.low_delay = v.vo_type in (1, 17)   # (Advanced) Simple
+        if hd.gov is not None:
+            self.time_base = hd.gov
         self.bugs = hd.bugs
+
+    def _data(self, chunk: bytes) -> Tuple[bytes, bool]:
+        """The bytes FFmpeg decodes for a chunk: a packed bitstream's
+        pending VOP where one is (and the chunk is a placeholder, or the
+        stream packed), else the chunk; and whether it was the pending
+        one."""
+        if self.pending is None:
+            return chunk, False
+        pending, self.pending = self.pending, None
+        keep = len(pending)
+        if self.bugs.divx_packed:
+            # a chunk that starts a new sequence (VOS) discards it
+            at = chunk.find(b"\0\0\1")
+            if 0 <= at < len(chunk) - 3 and chunk[at + 3] == 0xB0:
+                keep = 0
+        if keep and (self.bugs.divx_packed or len(chunk) <= MAX_NVOP_SIZE):
+            return pending, True
+        return chunk, False
 
     def next(self, chunk: bytes) -> FrameHeader:
         """The next (non-empty) chunk's header; raises Mpeg4Error naming
@@ -703,8 +933,9 @@ class Stream:
         index = self.chunks
         self.chunks += 1
         self.skipped_last = False
+        data, buffered = self._data(chunk)
         try:
-            hd = stream_headers(chunk, self.vol, self.bugs, self.vo)
+            hd = stream_headers(data, self.vol, self.bugs, self.vo)
             self._take(hd)
         except Mpeg4Error as exc:
             raise Mpeg4Error(f"frame {index}: {exc}") from None
@@ -714,37 +945,91 @@ class Stream:
             raise Mpeg4Error(f"frame {index}: {why}")
         bugs = xvid_build(self.tag, self.vol, self.bugs)
         if hd.vop is None:
-            if len(chunk) == 1 and bugs.divx_version >= 0:
+            if len(data) == 1 and (bugs.divx_version >= 0 or
+                                   bugs.xvid_build >= 0):
                 return FrameHeader("drop")
             raise Mpeg4Error(f"frame {index}: a chunk without a VOP (FFmpeg "
                              "fails it, and cv2's read ends there)")
-        edge = self.edge_bug
-        # the bug flags FFmpeg sets after this header serve later frames
-        self.edge_bug = edge or edge_bug(bugs)
-        vop = hd.vop
+        vop, v = hd.vop, self.vol
+        if vop.type == "B" and self.low_delay and not v.vol_control:
+            self.low_delay = False     # "low_delay flag set incorrectly"
+        # the VOP's time: I-, P- (and N-) VOPs move the time base, a B-VOP
+        # lies between its references or FFmpeg skips it
+        pb = 0
+        if vop.type != "B":
+            self.last_time_base = self.time_base
+            self.time_base += vop.seconds
+            t = self.time_base * v.resolution + vop.increment
+            self.pp_time = (t - self.last_non_b_time) & 0xFFFF
+            self.last_non_b_time = t
+        else:
+            t = (self.last_time_base + vop.seconds) * v.resolution + \
+                vop.increment
+            pb = (self.pp_time - (self.last_non_b_time - t)) & 0xFFFF
+            if not 0 < pb < self.pp_time:
+                return FrameHeader("skip", vop)
         if not vop.coded:
             self.skipped_last = True
             return FrameHeader("N", vop)
-        if vop.type == "P" and not self.coded:
-            raise Mpeg4Error(f"frame {index}: a P-VOP before the first "
-                             "I-VOP")
-        v = self.vol
+        if vop.error:
+            raise Mpeg4Error(f"frame {index}: {vop.error}")
+        if v.vo_type == 0 and not v.vol_control and \
+                self.bugs.divx_version == -1 and not self.pictures:
+            self.low_delay = True      # DivX 4, old Xvid, OpenDivX
+        self.pictures += 1
         mbs = ((v.width + 15) // 16) * ((v.height + 15) // 16)
-        if hd.bits.left() < mbs // 2:
+        if vop.type != "B" and hd.bits.left() < mbs // 2:
             raise Mpeg4Error(f"frame {index}: a VOP of fewer bits than half "
                              "its macroblocks (FFmpeg drops it)")
-        self.coded += 1
-        return FrameHeader(vop.type, vop, hd.bits.pos, edge, dc_clip_bug(bugs))
+        # ff_mpeg4_workaround_bugs: the IDCT and DC clip serve this frame,
+        # the border (h_edge_pos, set in the header) the next ones
+        edge = self.edge_bug
+        self.edge_bug = edge or edge_bug(bugs)
+        self.xvid = self.xvid or bugs.xvid_build >= 0
+        if vop.type == "P" and not self.anchors:
+            raise Mpeg4Error(f"frame {index}: a P-VOP before the first "
+                             "I-VOP")
+        if vop.type == "B" and self.anchors < 2:
+            return FrameHeader("skip", vop)
+        output = "self" if vop.type == "B" or self.low_delay else \
+            "last" if self.anchors else None
+        self.anchors += vop.type != "B"
+        if self.bugs.divx_packed:
+            # ff_mpeg4_frame_end: a chunk that holds an I- or B-VOP after
+            # the one decoded keeps it for the next chunk, from where the
+            # decoded VOP's data end (its macroblock data hold no start
+            # code, so from the first start code after where they start:
+            # what FFmpeg parses next is the same)
+            at = 0 if buffered else hd.bits.pos >> 3
+            if len(chunk) - at > 7:
+                i = chunk.find(b"\0\0\1\xb6", at)
+                if 0 <= i < len(chunk) - 4 and not chunk[i + 4] & 0x40:
+                    self.pending = chunk[chunk.find(b"\0\0\1", at):]
+        return FrameHeader(vop.type, vop, hd.bits.pos, edge,
+                           dc_clip_bug(bugs), self.xvid, data, output, pb,
+                           self.pp_time, v.intra_matrix, v.inter_matrix)
+
+    def flush(self) -> bool:
+        """At the stream's end: whether FFmpeg outputs its last I- or
+        P-VOP once more (a decoder with B-frames' delay holds it back; a
+        stream that ended with an N-VOP repeats it)."""
+        out = (not self.low_delay or self.skipped_last) and self.anchors > 0
+        self.skipped_last = False
+        if out:
+            self.anchors = 0   # FFmpeg lets the picture go: once only
+        return out
 
 
 class Decoder(Stream):
     """One MPEG-4 Part 2 stream's plain decoder: beside the headers
     (:class:`Stream`), FFmpeg's prediction state (DC and AC predictors
-    with their borders, the macroblocks last coded intra) and the
-    reference picture carry from frame to frame, so it takes the stream's
-    chunks in order, from its first."""
+    with their borders, the macroblocks last coded intra), the two
+    references (macroblock-aligned planes: the last I- or P-VOP and the
+    one before it) and the last one's vectors and skipped macroblocks
+    (B-VOPs' direct mode and skips read them) carry from frame to frame,
+    so it takes the stream's chunks in order, from its first."""
 
-    ref = None                     # the last decoded planes (MB-aligned)
+    fwd = ref = None               # the references: older, latest
 
     def _setup(self) -> None:
         if getattr(self, "mb_w", None) is not None:
@@ -760,28 +1045,40 @@ class Decoder(Stream):
                    np.full((mh + 1) * self.cwrap + 1, 1024, np.int64)]
         self.ac = [np.zeros((len(d), 16), np.int64) for d in self.dc]
         self.mbintra = np.ones(mh * self.cwrap, bool)
+        # the latest reference's vectors (a macroblock's four) and
+        # skipped and 4MV macroblocks
+        self.colo_mv = np.zeros((mh * mw, 4, 2), np.int64)
+        self.colo_skip = np.zeros(mh * mw, bool)
+        self.colo_four = np.zeros(mh * mw, bool)
+        self.last_mv = np.zeros((2, 2), np.int64)
 
     def decode(self, chunk: bytes) -> Optional[List[np.ndarray]]:
-        """The next chunk's frame as macroblock-aligned (Y, U, V) planes,
-        or None where FFmpeg outputs no frame for it (an N-VOP, a DivX
-        drop chunk)."""
+        """The frame FFmpeg outputs for the next chunk, as
+        macroblock-aligned (Y, U, V) planes, or None where it outputs none
+        (an N-VOP, a skipped B-VOP, a drop chunk, the first I-VOP of a
+        stream with B-frames' delay)."""
         at = f"frame {self.chunks}: "
         fh = self.next(chunk)
-        if fh.kind not in "IP":
+        if fh.kind not in "IPB":
             return None
         self._setup()
         self.dc_clip = fh.dc_clip
-        r = _Bits(chunk)
+        self.frame = fh
+        r = _Bits(fh.data)
         r.pos = fh.bit
         mbs = self._parse(r, fh.vop, at)
-        planes = self._reconstruct(mbs, fh.vop, fh.edge)
-        self.ref = planes
-        return planes
+        if fh.kind == "B":
+            return self._reconstruct(mbs, fh, self.fwd, self.ref)
+        planes = self._reconstruct(mbs, fh, self.ref, None)
+        out = planes if fh.output == "self" else \
+            self.ref if fh.output == "last" else None
+        self.fwd, self.ref = self.ref, planes
+        return out
 
     def flush(self) -> Optional[List[np.ndarray]]:
-        """At the stream's end: the last frame again where the last chunk
-        was an N-VOP (FFmpeg outputs it once more then), else None."""
-        return self.ref if self.skipped_last else None
+        """At the stream's end: the last I- or P-VOP where FFmpeg outputs
+        it then (:meth:`Stream.flush`), else None."""
+        return self.ref if Stream.flush(self) else None
 
     # -- macroblock layer ------------------------------------------------------
     def _parse(self, r: _Bits, vop: VopHeader, at: str) -> List[_Mb]:
@@ -789,8 +1086,10 @@ class Decoder(Stream):
         self.qscale = vop.quant
         self.mv = np.zeros((2 * mh, 2 * mw + 2, 2), np.int64)
         self.qtab = np.zeros(mh * self.cwrap, np.int64)
+        self.last_mv[:] = 0
         mbs: List[_Mb] = []
         mb_num = mw * mh
+        b = vop.type == "B"
         x = y = 0
         while True:
             # decode_slice: a video packet from (x, y)
@@ -801,7 +1100,8 @@ class Decoder(Stream):
                     if (x, y) == (self.resync[0], self.resync[1] + 1):
                         self.first_line = False
                     try:
-                        mb = self._mb(r, vop, x, y)
+                        mb = self._mb_b(r, vop, x, y) if b else \
+                            self._mb(r, vop, x, y)
                     except _Bad as exc:
                         raise Mpeg4Error(
                             f"{at}macroblock ({x}, {y}): {exc}") from None
@@ -812,6 +1112,8 @@ class Decoder(Stream):
                     n = y * mw + x
                     nxt = self._resync_next(r, vop) if \
                         self.vol.resync_marker and n + 1 < mb_num else 0
+                    if b and nxt > n + 1 and self.colo_skip[n + 1]:
+                        nxt = 0        # a B-VOP reads on through a skip
                     x += 1
                     if nxt:
                         if nxt != n + 1:
@@ -826,6 +1128,8 @@ class Decoder(Stream):
                     continue
                 break
             if len(mbs) == mb_num:
+                if vop.type != "B":
+                    self._keep_vectors(mbs)
                 return mbs
             # ff_h263_resync + the video packet header
             r.get(1)
@@ -837,13 +1141,32 @@ class Decoder(Stream):
                                  f"{len(mbs)}")
             self._clean_buffers(x, y)
 
+    def _keep_vectors(self, mbs: List[_Mb]) -> None:
+        """An I- or P-VOP's vectors as FFmpeg's ``motion_val`` holds them
+        at its end (zero for intra macroblocks, and for a block 3 whose
+        right neighbour zeroed it: ``ff_h263_pred_motion`` at a packet's
+        first row), skipped and 4MV macroblocks, which the B-VOPs after it
+        read."""
+        mv = self.mv[:, 1:-1].reshape(self.mb_h, 2, self.mb_w, 2, 2)
+        self.colo_mv[:] = mv.transpose(0, 2, 1, 3, 4).reshape(-1, 4, 2)
+        for k, m in enumerate(mbs):
+            self.colo_skip[k] = m.kind == "skip"
+            self.colo_four[k] = m.kind == "inter4"
+
+    @staticmethod
+    def _prefix(vop: VopHeader) -> int:
+        """ff_mpeg4_get_video_packet_prefix_length: a resync marker's
+        zeros."""
+        return 16 if vop.type == "I" else vop.fcode + 15 \
+            if vop.type != "B" else max(vop.fcode, vop.bcode, 2) + 15
+
     def _resync_next(self, r: _Bits, vop: VopHeader) -> int:
         """mpeg4_is_resync at a macroblock's end: the number of the
         macroblock a video packet starts with, or 0 (the reader skips
-        macroblock stuffing, as FFmpeg's does)."""
+        macroblock stuffing, as FFmpeg's does; B-VOPs have none)."""
         ptype = 1 if vop.type == "I" else 2
         v = r.peek(16)
-        while v <= 0xFF and v >> (8 - ptype) == 1:
+        while vop.type != "B" and v <= 0xFF and v >> (8 - ptype) == 1:
             r.pos += 8 + ptype
             v = r.peek(16)
         count = r.pos
@@ -862,8 +1185,8 @@ class Decoder(Stream):
         bits = (self.mb_w * self.mb_h - 1).bit_length()
         mb = r.get(bits)
         r.pos = save
-        need = 16 if vop.type == "I" else vop.fcode + 15
-        return mb if n >= need and 0 < mb < self.mb_w * self.mb_h else 0
+        return mb if n >= self._prefix(vop) and \
+            0 < mb < self.mb_w * self.mb_h else 0
 
     def _packet_header(self, r: _Bits, vop: VopHeader, at: str):
         """ff_mpeg4_decode_video_packet_header: the packet's first
@@ -872,7 +1195,7 @@ class Decoder(Stream):
         n = 0
         while n < 32 and not r.get(1):
             n += 1
-        need = 16 if vop.type == "I" else vop.fcode + 15
+        need = self._prefix(vop)
         if n != need:
             raise Mpeg4Error(f"{at}a resync marker of {n} zeros, not "
                              f"{need}")
@@ -893,18 +1216,21 @@ class Decoder(Stream):
             r.get(3)
             if vop.type != "I":
                 r.get(3)
+            if vop.type == "B":
+                r.get(3)
         return mb % self.mb_w, mb // self.mb_w
 
     def _clean_buffers(self, x: int, y: int) -> None:
         """ff_mpeg4_clean_buffers at a packet's first macroblock: the AC
         predictors above and to the left (a linear run, as FFmpeg's
-        memset) are zeroed."""
+        memset) are zeroed, and so are a B-VOP's vector predictors."""
         w, cw = self.wrap, self.cwrap
         l_xy = w + 1 + (2 * y - 1) * w + 2 * x - 1
         self.ac[0][l_xy:l_xy + 2 * w + 1] = 0
         c_xy = cw + 1 + (y - 1) * cw + x - 1
         for c in (1, 2):
             self.ac[c][c_xy:c_xy + cw + 1] = 0
+        self.last_mv[:] = 0
 
     def _set_q(self, q: int) -> None:
         self.qscale = min(max(q, 1), 31)
@@ -974,6 +1300,78 @@ class Decoder(Stream):
             cbp += cbp
         self._after(x, y, False)
         return _Mb(x, y, kind, tuple(mvs), coded & 63, self.qscale, blocks)
+
+    def _mb_b(self, r: _Bits, vop: VopHeader, x: int, y: int) -> _Mb:
+        """mpeg4_decode_mb for a B-VOP: a macroblock the latest reference
+        skipped is skipped (the forward reference, no vector); else
+        ``modb`` (1: direct, no delta, no blocks), ``mb_type`` (direct,
+        interpolated, backward, forward), ``cbpb``, ``dbquant`` (not for
+        direct) and the vectors: forward and backward ones predicted from
+        the last of their direction (zeroed at each row's start and each
+        packet's), direct mode's delta at fcode 1."""
+        if x == 0:
+            self.last_mv[:] = 0
+        k = y * self.mb_w + x
+        if self.colo_skip[k]:
+            self._after(x, y, False)
+            return _Mb(x, y, "skip", ((0, 0),), 0, self.qscale, None)
+        cbp, delta = 0, False
+        if r.get(1):                           # modb: direct, no more
+            kind = "direct"
+        else:
+            modb2 = r.get(1)
+            code = r.peek(4)
+            if not code:
+                raise _Bad("illegal MB_type")
+            n = 4 - code.bit_length()          # 1, 01, 001, 0001
+            r.get(n + 1)
+            kind = ("direct", "bi", "bwd", "fwd")[n]
+            delta = kind == "direct"
+            if not modb2:
+                cbp = r.get(6)
+            if kind != "direct" and cbp and r.get(1):
+                self._set_q(self.qscale + 4 * r.get(1) - 2)
+        fwd = bwd = ()
+        if kind in ("fwd", "bi"):
+            mx = self._motion(r, int(self.last_mv[0, 0]), vop.fcode)
+            my = self._motion(r, int(self.last_mv[0, 1]), vop.fcode)
+            self.last_mv[0] = (mx, my)
+            fwd = ((mx, my),)
+        if kind in ("bwd", "bi"):
+            mx = self._motion(r, int(self.last_mv[1, 0]), vop.bcode)
+            my = self._motion(r, int(self.last_mv[1, 1]), vop.bcode)
+            self.last_mv[1] = (mx, my)
+            bwd = ((mx, my),)
+        four = False
+        if kind == "direct":
+            mx = self._motion(r, 0, 1) if delta else 0
+            my = self._motion(r, 0, 1) if delta else 0
+            four = bool(self.colo_four[k])
+            fwd, bwd = self._direct(k, mx, my, four)
+        blocks = np.zeros((6, 64), np.int64)
+        for n in range(6):
+            if cbp & (32 >> n):
+                self._inter_block(r, blocks[n])
+        self._after(x, y, False)
+        return _Mb(x, y, kind, fwd, cbp, self.qscale, blocks, bwd, four)
+
+    def _direct(self, k: int, mx: int, my: int, four: bool):
+        """ff_mpeg4_set_direct_mv: the latest reference's vector (each of
+        a 4MV macroblock's four) scaled by pb / pp, plus the delta, and the
+        backward vector (the forward one less the reference's, or the
+        reference's scaled by (pb - pp) / pp where the delta is 0); C's
+        division, which truncates."""
+        pb, pp = self.frame.pb, self.frame.pp
+        fwd, bwd = [], []
+        for i in range(4 if four else 1):
+            f, b = [], []
+            for p, d in zip(self.colo_mv[k, i], (mx, my)):
+                p = int(p)
+                f.append(_tdiv(p * pb, pp) + d)
+                b.append(f[-1] - p if d else _tdiv(p * (pb - pp), pp))
+            fwd.append(tuple(f))
+            bwd.append(tuple(b))
+        return tuple(fwd), tuple(bwd)
 
     def _after(self, x: int, y: int, intra: bool) -> None:
         """ff_mpv_reconstruct_mb's bookkeeping: the macroblock's quantiser,
@@ -1165,8 +1563,14 @@ class Decoder(Stream):
         self._pred_ac(block, x, y, n, direction, ac_pred)
 
     def _inter_block(self, r: _Bits, block: np.ndarray) -> None:
+        """An inter block's levels: dequantised as they are read (H.263
+        quantisation), or raw (quant_type 1: ``_reconstruct`` dequantises
+        them)."""
         q = self.qscale
-        self._tcoef(r, block, ZIGZAG, RL_INTER, 2 * q, (q - 1) | 1, -1)
+        if self.frame.inter_matrix is not None:
+            self._tcoef(r, block, ZIGZAG, RL_INTER, 1, 0, -1)
+        else:
+            self._tcoef(r, block, ZIGZAG, RL_INTER, 2 * q, (q - 1) | 1, -1)
 
     @staticmethod
     def _tcoef(r: _Bits, block: np.ndarray, scan, rl: RunLevel, qmul: int,
@@ -1219,28 +1623,45 @@ class Decoder(Stream):
                 return i
 
     # -- reconstruction --------------------------------------------------------
-    def _reconstruct(self, mbs: List[_Mb], vop: VopHeader, edge: bool
+    def _reconstruct(self, mbs: List[_Mb], fh: FrameHeader, fwd, bwd
                      ) -> List[np.ndarray]:
+        """The frame's planes: intra macroblocks dequantised and put; the
+        others predicted from ``fwd`` (and, for a B-VOP, ``bwd``: put, then
+        averaged with the backward prediction) plus their coded blocks'
+        residual, dequantised (quant_type 1) and added."""
         mw, mh = self.mb_w, self.mb_h
         planes = [np.zeros((16 * mh, 16 * mw), np.uint8),
                   np.zeros((8 * mh, 8 * mw), np.uint8),
                   np.zeros((8 * mh, 8 * mw), np.uint8)]
-        v = self.vol
-        he, ve = (v.width, v.height) if edge else (16 * mw, 16 * mh)
+        v, vop = self.vol, fh.vop
+        he, ve = (v.width, v.height) if fh.edge else (16 * mw, 16 * mh)
+        idct = xvid_idct_sums if fh.xvid else idct_sums
         intra = [m for m in mbs if m.kind == "intra"]
         if intra:
-            sums = idct_sums(np.stack([_dequant_intra(m.blocks, m.qscale)
-                                       for m in intra]).reshape(-1, 64))
+            deq = [dequant_mpeg_intra(m.blocks, m.qscale, fh.intra_matrix)
+                   if fh.intra_matrix is not None else
+                   _dequant_intra(m.blocks, m.qscale) for m in intra]
+            sums = idct(np.stack(deq).reshape(-1, 64))
             px = np.clip(sums, 0, 255).astype(np.uint8).reshape(-1, 6, 8, 8)
             for m, blk in zip(intra, px):
                 _put(planes, m.x, m.y, blk)
         inter = [m for m in mbs if m.kind != "intra"]
         coded = [m for m in inter if m.cbp]
-        res = idct_sums(np.stack([_i16(m.blocks) for m in coded]).reshape(
-            -1, 64)).reshape(-1, 6, 8, 8) if coded else []
+        if coded and fh.inter_matrix is not None:
+            res = np.stack([dequant_mpeg_inter(m.blocks, m.qscale,
+                                               fh.inter_matrix)
+                            for m in coded])
+        else:
+            res = np.stack([_i16(m.blocks) for m in coded]) if coded else []
+        res = idct(res.reshape(-1, 64)).reshape(-1, 6, 8, 8) if coded \
+            else []
         res = dict(zip((id(m) for m in coded), res))
         for m in inter:
-            pred = self._predict(m, vop.rounding, he, ve)
+            if vop.type == "B":
+                pred = self._predict_b(m, fwd, bwd, he, ve)
+            else:
+                pred = self._predict(fwd, m.x, m.y, m.kind, m.mvs,
+                                     vop.rounding, he, ve)
             if m.cbp:
                 sums = res[id(m)]
                 for n in range(6):
@@ -1250,17 +1671,32 @@ class Decoder(Stream):
             _put(planes, m.x, m.y, pred)
         return planes
 
-    def _predict(self, m: _Mb, rnd: int, he: int, ve: int) -> np.ndarray:
-        """The six 8 x 8 predictions of an inter or skipped macroblock
-        (ff_mpv_motion: mpeg_motion for 1MV, hpel_motion and
-        chroma_4mv_motion for 4MV)."""
-        ref = self.ref
+    def _predict_b(self, m: _Mb, fwd, bwd, he: int, ve: int) -> np.ndarray:
+        """A B-VOP macroblock's prediction: with rounding (B-VOPs have no
+        rounding type), the forward one put, the backward one put or
+        averaged with it, rounding up (``avg_pixels``)."""
+        kind = "inter4" if m.four else "inter"
+        if m.kind == "skip":
+            return self._predict(fwd, m.x, m.y, "skip", ((0, 0),), 0, he, ve)
+        out = None
+        if m.mvs:
+            out = self._predict(fwd, m.x, m.y, kind, m.mvs, 0, he, ve)
+        if m.bmvs:
+            back = self._predict(bwd, m.x, m.y, kind, m.bmvs, 0, he, ve)
+            out = back if out is None else \
+                ((out.astype(np.int64) + back + 1) >> 1).astype(np.uint8)
+        return out
+
+    def _predict(self, ref, x: int, y: int, kind: str, mvs, rnd: int,
+                 he: int, ve: int) -> np.ndarray:
+        """The six 8 x 8 predictions from ``ref`` of macroblock (x, y),
+        inter or skipped (ff_mpv_motion: mpeg_motion for 1MV, hpel_motion
+        and chroma_4mv_motion for 4MV)."""
         out = np.zeros((6, 8, 8), np.uint8)
-        x, y = m.x, m.y
         v = self.vol
-        if m.kind == "inter4":
+        if kind == "inter4":
             sx = sy = 0
-            for i, (mx, my) in enumerate(m.mvs):
+            for i, (mx, my) in enumerate(mvs):
                 src_x = x * 16 + (i & 1) * 8 + (mx >> 1)
                 src_y = y * 16 + (i >> 1) * 8 + (my >> 1)
                 dxy = 0
@@ -1291,7 +1727,7 @@ class Decoder(Stream):
                 out[3 + c] = _hpel(ref[c], src_x, src_y, 8, 8, dxy, rnd, emu,
                                    he >> 1, ve >> 1)
             return out
-        mx, my = m.mvs[0]
+        mx, my = mvs[0]
         dxy = ((my & 1) << 1) | (mx & 1)
         src_x = x * 16 + (mx >> 1)
         src_y = y * 16 + (my >> 1)
@@ -1305,6 +1741,12 @@ class Decoder(Stream):
             out[3 + c] = _hpel(ref[c], src_x >> 1, src_y >> 1, 8, 8, uvdxy,
                                rnd, emu, he >> 1, ve >> 1)
         return out
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division (truncating toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a < 0) == (b < 0) else -q
 
 
 def _i16s(v: int) -> int:
@@ -1395,8 +1837,9 @@ def decode_planes(chunks, tag: str = "FMP4", extradata: bytes = b"",
         planes = dec.decode(bytes(chunk))
         if planes is not None:
             out.append(i420_bytes(planes, dec.vol.height, dec.vol.width))
-    if dec.flush() is not None:
-        out.append(out[-1])
+    last = dec.flush()
+    if last is not None:
+        out.append(i420_bytes(last, dec.vol.height, dec.vol.width))
     return out, dec.vol
 
 

@@ -553,15 +553,16 @@ def mpeg4_params(info: AviInfo) -> Tuple[str, bytes]:
 def mpeg4_unsupported(path: Path, info: AviInfo) -> Optional[str]:
     """What of an MPEG-4 Part 2 stream the port's decoder does not read, or
     None, before any decode: from the extradata and the first chunk's
-    headers (``mpeg4_plain.unsupported``: B-VOPs and packed bitstreams,
-    S-VOPs and sprites, quarter-pel, interlaced VOLs, MPEG quantisation
-    matrices, data partitioning and reversible VLCs, the short video
-    header, shapes other than rectangular, ``not_8_bit``, newpred,
-    reduced resolution, scalability, complexity estimation, a full-range
-    signal or a matrix other than BT.601 and BT.709, the Xvid IDCT that
-    FFmpeg's bug detection picks for Xvid streams; a first VOP that is no
-    I-VOP, a VOL of another size than the container's).  A later chunk
-    that is refused raises when it is decoded, naming its frame."""
+    headers (``mpeg4_plain.unsupported``: S-VOPs (GMC) and sprites,
+    quarter-pel, interlaced VOLs, data partitioning and reversible VLCs,
+    the short video header, shapes other than rectangular, ``not_8_bit``,
+    newpred, reduced resolution, scalability, complexity estimation, a
+    full-range signal or a matrix other than BT.601 and BT.709; a first
+    VOP that is a P-VOP, a VOL of another size than the container's).
+    B-VOPs, packed bitstreams (DivX 5, Xvid's packed mode), MPEG
+    quantisation (``quant_type`` 1) and the Xvid IDCT FFmpeg's bug
+    detection picks for Xvid streams are read.  A later chunk that is
+    refused raises when it is decoded, naming its frame."""
     try:
         head = _first_chunk(path, info.stream)
     except OSError as exc:

@@ -85,7 +85,10 @@ committed ``tests/data/mpeg4 *.avi``'s cv2 frames, and on 4K to the
 reconstruction of 14 (g)'s brightest video, and time it once each: the I-VOP
 on one thread, on all (a macroblock row a thread) and as a frame of a
 batch of 12 (a GOP a thread), the 11 P-VOPs on one thread, on all and
-as frames of 12 decoders at once; write the raw videos' frames again as
+as frames of 12 decoders at once; the same for the Advanced Simple tools
+(``mpeg4_asp_strip``: B-VOPs of every kind, packed and unpacked, the Xvid
+IDCT, ``quant_type`` 1 with custom matrices; 14 (h)'s brightest ``XVID``
+video, its Xvid-IDCT I-VOP and a B-VOP timed); write the raw videos' frames again as
 I420 AVIs (``yuv_planes``, as ``cv2.VideoWriter(fourcc "I420")`` lays them
 out); run ``welford_algorithm``
 on the card against the host backend and the CPU in float64, and
@@ -143,7 +146,9 @@ the I420 one, bit for bit; (g) on MPEG-4 Part 2 ``FMP4`` AVIs of phase
 14's I420 planes (``tests/_torch_mpeg4_enc.cpp``: an I-VOP and 11 P-VOPs a
 video, as ``cv2.VideoWriter`` writes them), held bit for bit to
 ``video_to_hdr`` on I420 AVIs of the writer's reconstruction, with its
-wall, K3's launch and MP/s.
+wall, K3's launch and MP/s; (h) likewise on Advanced Simple ``XVID`` AVIs
+of the same planes, as Xvid's packed mode writes them (two packed B-VOPs
+between references, ``quant_type`` 1, the Xvid IDCT).
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
@@ -1476,6 +1481,7 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
                                  STRIP_ROWS, W5)
                for name, (kind, chunks, spec, _) in strips.items()}
     mpeg4_future = pool.submit(mpeg4_strip, strip_pictures)
+    asp_future = pool.submit(mpeg4_asp_strip, strip_pictures)
     videos.submit(pool)
     mpeg4_videos.submit()
     # the 4K frames are encoded here while the pool works
@@ -1485,6 +1491,7 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
     plain = {name: f.result() for name, f in futures.items()}
     videos.finish()
     mpeg4_strip_out = mpeg4_future.result()
+    asp_strip_out = asp_future.result()
     mpeg4_videos.finish()
     plain_s = time.perf_counter() - t0
     planes = np.empty(FRAMES5 * native.frame_bytes("yuv444p", H5, W5),
@@ -1559,15 +1566,15 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
         + ("from the cache" if videos.encode_s is None else
            f"encoded beside them in {videos.encode_s:.1f} s (FFV1 and "
            "Lagarith native, on threads)"))
-    log("  MPEG-4 strip coded and decoded by the plain version in the pool; "
-        "14 (g)'s videos " + ("from the cache" if mpeg4_videos.encode_s is
+    log("  MPEG-4 strips (Simple, Advanced Simple) coded and decoded by the "
+        "plain version in the pool; 14 (g)'s and (h)'s videos " + ("from the cache" if mpeg4_videos.encode_s is
                               None else f"coded beside them in "
                               f"{mpeg4_videos.encode_s:.1f} s (native, on a "
                               "thread)"))
     raise_failures("phase 12, the PNG, HuffYUV, FFV1, UtVideo and Lagarith "
                    "decoders against their plain versions, the pictures "
                    "written and the committed clips", failures)
-    rows.update(mpeg4_rows(mpeg4_strip_out, mpeg4_videos))
+    rows.update(mpeg4_rows(mpeg4_strip_out, asp_strip_out, mpeg4_videos))
     return rows
 
 
@@ -1752,6 +1759,10 @@ class LosslessVideos:
 # vectors) and the strip's frames
 MPEG4_QUANT = 6
 MPEG4_STRIP_FRAMES = 5
+# the ASP videos' and strip's quant_type 1 matrices: a custom intra one and
+# an inter one cut short by a 0 (its last value fills the rest)
+MPEG4_ASP_MATRICES = (tuple(8 + 3 * i % 40 for i in range(64)),
+                      (16, 17, 18, 20, 22, 26, 30, 36))
 
 
 def mpeg4_strip(pictures, seed: int = SEED):
@@ -1786,18 +1797,75 @@ def mpeg4_strip(pictures, seed: int = SEED):
     return chunks, np.stack(plain), np.stack(recon)
 
 
+def mpeg4_asp_strip(pictures, seed: int = SEED):
+    """Phase 12's Advanced Simple strip, in a spawned process: ``pictures``
+    ((Y, U, V) planes of STRIP_ROWS x W5, display order) coded by
+    ``tests/_torch_mpeg4_writer.py`` in ``asp_order`` (an I-VOP, P-VOPs
+    of skipped, 1MV, 4MV and intra macroblocks, B-VOPs of direct (with
+    deltas), interpolated, backward and forward macroblocks and dbquant,
+    two between references) with Xvid user data (the Xvid IDCT),
+    ``quant_type`` 1 with MPEG4_ASP_MATRICES, and packed as Xvid packs;
+    the unpacked chunks decoded by ``mpeg4_plain.py``.  Returns (the
+    unpacked chunks, the packed ones, the plain frames, the writer's
+    reconstruction as BGR in display order)."""
+    from camera_linearity_tpu_torch.native import mpeg4_plain, rawvideo_plain
+    from tests import _torch_mpeg4_writer as mw
+    rows, width = pictures[0][0].shape
+    mbh, mbw = rows // 16, width // 16
+    rng = np.random.default_rng(seed)
+    plans = []
+    for kind, t in mw.asp_order(len(pictures)):
+        if kind == "I":
+            plans.append(mw.Plan("I", quant=MPEG4_QUANT, time=t,
+                                 ac_pred=rng.random((mbh, mbw)) < 0.5,
+                                 dquant=rng.integers(-2, 3, (mbh, mbw))))
+        elif kind == "P":
+            r = rng.random((mbh, mbw))
+            plans.append(mw.Plan(
+                "P", quant=MPEG4_QUANT + 2, rounding=t % 2, fcode=3, time=t,
+                modes=np.select([r < 0.15, r < 0.3, r < 0.6],
+                                [mw.SKIP, mw.INTRA, mw.INTER4], mw.INTER),
+                mvs=rng.integers(-64, 64, (mbh, mbw, 4, 2)),
+                dquant=rng.integers(-2, 3, (mbh, mbw)),
+                ac_pred=rng.random((mbh, mbw)) < 0.5))
+        else:
+            plans.append(mw.Plan(
+                "B", quant=MPEG4_QUANT + 4, fcode=3, bcode=2, time=t,
+                modes=rng.choice([mw.DIRECT, mw.DIRECT_NONE, mw.BI, mw.BWD,
+                                  mw.FWD], (mbh, mbw)),
+                mvs=rng.integers(-64, 64, (mbh, mbw, 4, 2)),
+                bmvs=rng.integers(-32, 32, (mbh, mbw, 2)),
+                deltas=rng.integers(-8, 9, (mbh, mbw, 2)),
+                dquant=rng.choice([-2, 0, 2], (mbh, mbw))))
+    chunks, recons, wr = mw.encode_video(
+        [pictures[p.time] for p in plans], plans,
+        user_data=mw.ASP_USER_DATA, matrices=MPEG4_ASP_MATRICES,
+        vol_fields=dict(low_delay=0, quant_type=1))
+    packed = mw.pack(chunks, plans, mw.nvop_chunk(wr.tib))
+    plain = mpeg4_plain.decode_bgr(chunks, "XVID", b"", rows, width)
+    recon = [rawvideo_plain.decode_bgr(mpeg4_plain.i420_bytes(r, rows, width),
+                                       "i420_left", rows, width)
+             for r in mw.display_order(plans, recons, False)]
+    return chunks, packed, np.stack(plain), np.stack(recon)
+
+
 class Mpeg4Videos:
-    """Phase 14 (g)'s videos: phase 14's I420 planes (``i420_paths``) as
-    MPEG-4 Part 2 ``FMP4`` AVIs, coded by ``tests/_torch_mpeg4_enc.cpp``
-    (the Python writer's bytes: each video an I-VOP and 11 P-VOPs of zero
-    vectors at MPEG4_QUANT, with ``Lavc`` user data as cv2's writer
-    writes), and as I420 AVIs of the writer's own reconstruction, which
-    14 (g) holds the port's decode to.  Cached under ``build/`` by the
-    planes and the writer's sources, as the lossless videos are; otherwise
-    :meth:`submit` codes them on a thread (the encoder is native; a video
-    chains its P-VOPs, so one after another) and :meth:`finish` waits.
-    ``fmp4`` and ``recon`` hold the paths, ``encode_s`` the seconds from
-    submit to finish (None when the cache had them)."""
+    """Phase 14 (g)'s and (h)'s videos: phase 14's I420 planes
+    (``i420_paths``) as MPEG-4 Part 2 AVIs, coded by
+    ``tests/_torch_mpeg4_enc.cpp`` (the Python writer's bytes): (g)
+    ``FMP4``, each video an I-VOP and 11 P-VOPs of zero vectors at
+    MPEG4_QUANT, with ``Lavc`` user data as cv2's writer writes; (h)
+    ``XVID`` as Xvid writes Advanced Simple video (``mw.encode_asp``:
+    Xvid and DivX packed user data, two packed B-VOPs of direct
+    macroblocks between references, ``quant_type`` 1 with
+    MPEG4_ASP_MATRICES); and as I420 AVIs of the writer's own
+    reconstruction in display order, which 14 (g) and (h) hold the port's
+    decode to.  Cached under ``build/`` by the planes and the writer's
+    sources, as the lossless videos are; otherwise :meth:`submit` codes
+    them on a thread (the encoder is native; a video chains its VOPs, so
+    one after another) and :meth:`finish` waits.  ``fmp4``, ``recon``,
+    ``asp`` and ``asp_recon`` hold the paths, ``encode_s`` the seconds
+    from submit to finish (None when the cache had them)."""
 
     def __init__(self, i420_paths):
         import hashlib
@@ -1816,7 +1884,7 @@ class Mpeg4Videos:
         key = hashlib.md5(usedforsecurity=False)
         for src in (mw.__file__, mw._ENC_SRC, rw.__file__):
             key.update(Path(src).read_bytes())
-        key.update(str(MPEG4_QUANT).encode())
+        key.update(str((MPEG4_QUANT, MPEG4_ASP_MATRICES)).encode())
         for video in self.planes:
             for frame in video:
                 for c in frame:
@@ -1825,15 +1893,21 @@ class Mpeg4Videos:
             key.hexdigest()[:12]
         self.fmp4 = [self.cache / f"fmp4 {p.name}" for p in i420_paths]
         self.recon = [self.cache / f"recon {p.name}" for p in i420_paths]
+        self.asp = [self.cache / f"xvid {p.name}" for p in i420_paths]
+        self.asp_recon = [self.cache / f"xvid recon {p.name}"
+                          for p in i420_paths]
         self.encode_s, self._future = None, None
-        if all(p.exists() for p in self.fmp4 + self.recon):
+        if all(p.exists() for p in self.fmp4 + self.recon + self.asp +
+               self.asp_recon):
             self.planes = None
 
     def _code(self) -> None:
         from tests import _torch_mpeg4_writer as mw
         from tests._torch_rawvideo_writer import encode_frame, write_raw_avi
         self.cache.mkdir(parents=True, exist_ok=True)
-        for video, fmp4, recon in zip(self.planes, self.fmp4, self.recon):
+        for video, fmp4, recon, xvid, xvid_recon in zip(
+                self.planes, self.fmp4, self.recon, self.asp,
+                self.asp_recon):
             wr = mw.Writer(H5, W5)
             chunks, frames = [], []
             for t, planes in enumerate(video):
@@ -1843,9 +1917,20 @@ class Mpeg4Videos:
                 frames.append(encode_frame("I420", (
                     rec[0][:H5, :W5], rec[1][:H5 // 2, :W5 // 2],
                     rec[2][:H5 // 2, :W5 // 2])))
-            for out, write in ((fmp4, lambda tmp: mw.write_mpeg4_avi(
-                    tmp, chunks, H5, W5)), (recon, lambda tmp: write_raw_avi(
-                        tmp, frames, H5, W5, "I420"))):
+            asp, asp_rec = mw.encode_asp(video, MPEG4_QUANT,
+                                         MPEG4_ASP_MATRICES)
+            asp_frames = [encode_frame("I420", (
+                rec[0][:H5, :W5], rec[1][:H5 // 2, :W5 // 2],
+                rec[2][:H5 // 2, :W5 // 2])) for rec in asp_rec]
+            for out, write in (
+                    (fmp4, lambda tmp: mw.write_mpeg4_avi(
+                        tmp, chunks, H5, W5)),
+                    (recon, lambda tmp: write_raw_avi(
+                        tmp, frames, H5, W5, "I420")),
+                    (xvid, lambda tmp: mw.write_mpeg4_avi(
+                        tmp, asp, H5, W5, tag="XVID")),
+                    (xvid_recon, lambda tmp: write_raw_avi(
+                        tmp, asp_frames, H5, W5, "I420"))):
                 tmp = out.with_suffix(f".tmp{os.getpid()}")
                 write(tmp)
                 os.replace(tmp, out)
@@ -1895,7 +1980,7 @@ def mpeg4_clips() -> list:
     return failures
 
 
-def mpeg4_rows(strip, videos) -> dict:
+def mpeg4_rows(strip, asp_strip, videos) -> dict:
     """Phase 12's MPEG-4 Part 2 rows, after its plain-decode window:
     ``strip`` (:func:`mpeg4_strip`'s result from the pool) decoded
     natively and held to the plain frames and the writer's
@@ -1907,7 +1992,13 @@ def mpeg4_rows(strip, videos) -> dict:
     one call (the GOPs side by side, a GOP a thread); its 11 P-VOPs on
     one thread and on every core (a frame parsed while the one before it
     is rebuilt), and as frames of 12 decoders of the video run at once (a
-    thread each).  Returns the rows' times."""
+    thread each).  The Advanced Simple rows alike: ``asp_strip``
+    (:func:`mpeg4_asp_strip`), unpacked and packed, held to the plain
+    frames and the reconstruction; the brightest 4K ``XVID`` video held
+    to its reconstruction; its Xvid-IDCT I-VOP (MPEG quantisation) on one
+    thread, on every core and as a frame of a batch of 12 I-VOPs, and a
+    B-VOP (from a packed chunk) on one thread, on every core and as a
+    frame of 12 decoders at once.  Returns the rows' times."""
     from concurrent.futures import ThreadPoolExecutor
     from camera_linearity_tpu_torch import native
     from camera_linearity_tpu_torch.utils import avi
@@ -1927,6 +2018,27 @@ def mpeg4_rows(strip, videos) -> dict:
         f"the writer's reconstruction, max |.| {max_gap(got, plain):.0f} DN")
     if not strip_same:
         failures.append("the MPEG-4 strip")
+    unpacked, packed, asp_plain, asp_recon = asp_strip
+    outs = []
+    for chunks_ in (unpacked, packed):
+        dec = native.Mpeg4Decoder("XVID", b"", rows, width)
+        got = np.empty((len(chunks_) + 1, rows, width, 3), np.uint8)
+        n = native.mpeg4_decode_bgr_batch(chunks_, got, dec)
+        n += native.mpeg4_flush(dec, got[n:])
+        outs.append(got[:n])
+    asp_same = all(o.shape == asp_plain.shape and np.array_equal(o, asp_plain)
+                   for o in outs) and np.array_equal(asp_plain, asp_recon)
+    gap = max((max_gap(o, asp_plain) for o in outs
+               if o.shape == asp_plain.shape), default=-1)
+    log(f"  {'ok ' if asp_same else 'BAD'} MPEG-4 Advanced Simple strip of "
+        f"{rows} x {width}, {len(asp_plain)} frames (B-VOPs of every kind "
+        f"two between references, packed and unpacked; Xvid IDCT; "
+        f"quant_type 1, custom matrices; {sum(map(len, packed)) / 1e3:.0f} "
+        f"kB): native {'equals' if asp_same else 'differs from'} "
+        f"mpeg4_plain.py and the writer's reconstruction, max |.| {gap:.0f} "
+        f"DN")
+    if not asp_same:
+        failures.append("the MPEG-4 Advanced Simple strip")
     info = avi.probe_avi(videos.fmp4[-1])
     tag, extra = avi.mpeg4_params(info)
     why = avi.mpeg4_unsupported(videos.fmp4[-1], info)
@@ -1949,6 +2061,31 @@ def mpeg4_rows(strip, videos) -> dict:
         f"writer's reconstruction")
     if not same or why:
         failures.append("the MPEG-4 4K video")
+    asp_info = avi.probe_avi(videos.asp[-1])
+    asp_tag, asp_extra = avi.mpeg4_params(asp_info)
+    asp_why = avi.mpeg4_unsupported(videos.asp[-1], asp_info)
+    asp_video = [bytes(c) for c in avi.frame_chunks(videos.asp[-1], asp_info)]
+    asp_firsts = [bytes(next(iter(avi.frame_chunks(p, avi.probe_avi(p)))))
+                  for p in videos.asp]
+    asp_frames = np.empty((len(asp_video) + 1, H5, W5, 3), np.uint8)
+    dec = native.Mpeg4Decoder(asp_tag, asp_extra, H5, W5)
+    n = native.mpeg4_decode_bgr_batch(asp_video, asp_frames, dec)
+    n += native.mpeg4_flush(dec, asp_frames[n:])
+    recon_chunks = [bytes(c) for c in avi.raw_chunks(
+        videos.asp_recon[-1], avi.probe_avi(videos.asp_recon[-1]))]
+    want = np.empty((len(recon_chunks), H5, W5, 3), np.uint8)
+    native.raw_decode_bgr_batch(recon_chunks, want, "i420")
+    asp_same = n == len(want) and np.array_equal(asp_frames[:n], want)
+    del want
+    log(f"  {'ok ' if asp_same else 'BAD'} MPEG-4 Advanced Simple 4K video "
+        f"({asp_info.codec}, {asp_why or 'read'}; I-VOP "
+        f"{len(asp_video[0]) / 1e6:.3f} MB, packed P- and B-VOP chunks "
+        f"{np.mean([len(c) for c in asp_video[1:] if len(c) > 100]) / 1e6:.3f}"
+        f" MB): its {n} frames from {len(asp_video)} chunks "
+        f"{'equal' if asp_same else 'differ from'} the writer's "
+        f"reconstruction")
+    if not asp_same or asp_why:
+        failures.append("the MPEG-4 Advanced Simple 4K video")
     raise_failures("phase 12, the MPEG-4 decoder against its plain version, "
                    "the writer's reconstruction and the committed clips",
                    failures)
@@ -2007,6 +2144,57 @@ def mpeg4_rows(strip, videos) -> dict:
         f"({len(video) - 1} in a call), "
         f"{times['P a frame of 12 videos']:.1f} ms a frame when 12 "
         f"decoders of the video run at once (a thread each)")
+    # the Advanced Simple video: its Xvid-IDCT I-VOP, and a B-VOP (the one
+    # the second chunk holds after its P-VOP, decoded with the third)
+    def asp_fresh():
+        return native.Mpeg4Decoder(asp_tag, asp_extra, H5, W5)
+    one = asp_frames[:1]
+    d1, d2, d3 = asp_fresh(), asp_fresh(), asp_fresh()
+    times["ASP I one thread"] = host_ms(
+        lambda: native.mpeg4_decode_bgr_batch(asp_video[:1], one, d1,
+                                              threads=1), runs=1, warmup=0)
+    times["ASP I all threads"] = host_ms(
+        lambda: native.mpeg4_decode_bgr_batch(asp_video[:1], one, d2),
+        runs=1, warmup=0)
+    batch = np.zeros((12, H5, W5, 3), np.uint8)
+    gops = (asp_firsts * 12)[:12]
+    times["ASP I a frame of 12"] = host_ms(
+        lambda: native.mpeg4_decode_bgr_batch(gops, batch, d3), runs=1,
+        warmup=0) / 12
+    del batch
+
+    def primed():
+        d = asp_fresh()
+        native.mpeg4_decode_bgr_batch(asp_video[:2], asp_frames[:2], d)
+        return d
+
+    def b_time(threads):
+        d = primed()
+        t0 = time.perf_counter()
+        native.mpeg4_decode_bgr_batch(asp_video[2:3], one, d,
+                                      threads=threads)
+        return (time.perf_counter() - t0) * 1e3
+    times["ASP B one thread"] = b_time(1)
+    times["ASP B all threads"] = b_time(None)
+    decoders = [primed() for _ in range(12)]
+    outs = [np.zeros((1, H5, W5, 3), np.uint8) for _ in range(12)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(12) as ex:
+        list(ex.map(lambda i: native.mpeg4_decode_bgr_batch(
+            asp_video[2:3], outs[i], decoders[i], threads=1), range(12)))
+    times["ASP B a frame of 12 decoders"] = (time.perf_counter() - t0) * \
+        1e3 / 12
+    del decoders, outs, asp_frames
+    log(f"  MPEG-4 Advanced Simple 4K ({asp_info.codec}, quantiser "
+        f"{MPEG4_QUANT}, quant_type 1, Xvid IDCT; host clock, one run after "
+        f"a warm one; {cores} threads): I-VOP "
+        f"{times['ASP I one thread']:.1f} ms on one thread, "
+        f"{times['ASP I all threads']:.1f} ms one frame on {cores} threads, "
+        f"{times['ASP I a frame of 12']:.1f} ms a frame of a batch of 12; "
+        f"B-VOP {times['ASP B one thread']:.1f} ms on one thread, "
+        f"{times['ASP B all threads']:.1f} ms on {cores} threads, "
+        f"{times['ASP B a frame of 12 decoders']:.1f} ms a frame when 12 "
+        f"decoders run at once (a thread each)")
     return {f"mpeg4 {k}": v for k, v in times.items()}
 
 
@@ -2166,8 +2354,44 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
     raise_failures("phase 14 (g)", failures)
     walls["g"] = time.perf_counter() - t_phase
     log(f"phase 14 (g): {walls['g']:.1f} s")
+    t_phase = time.perf_counter()
+    info = avi.probe_avi(mpeg4_videos.asp[0])
+    log(f"phase 14 (h): config 5 from MPEG-4 Part 2 Advanced Simple "
+        f"({info.codec}) AVIs of phase 14's I420 planes "
+        f"(tests/_torch_mpeg4_enc.cpp as Xvid's packed mode writes: XviD "
+        f"and DivX 'p' user data, the Xvid IDCT, two packed B-VOPs between "
+        f"references, quant_type 1; {FRAMES5} displayed frames a video, "
+        f"quantiser {MPEG4_QUANT}): "
+        f"{avi.mpeg4_unsupported(mpeg4_videos.asp[0], info) or 'read'}; "
+        f"held to I420 AVIs of the writer's reconstruction; {gpu_line()}")
+    v2h["XVID ASP"], _, got = run_video_to_hdr("video_to_hdr (XVID ASP)",
+                                               mpeg4_videos.asp, "mpeg4")
+    v2h["I420 of the XVID ASP reconstruction"], _, want = run_video_to_hdr(
+        "video_to_hdr (I420 of the XVID ASP reconstruction)",
+        mpeg4_videos.asp_recon, "rawvideo")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    mps = FRAMES5 * len(mpeg4_videos.asp) * H5 * W5 / 1e6 / v2h["XVID ASP"]
+    mpeg4_asp = dict(wall_s=v2h["XVID ASP"], mps=mps, k3_launches=1,
+                     frame_mb=sum(c.size for p in mpeg4_videos.asp
+                                  for c in avi.frame_chunks(
+                                      p, avi.probe_avi(p)))
+                     / 1e6 / (FRAMES5 * len(mpeg4_videos.asp)))
+    log(f"  {'ok ' if same else 'BAD'} video_to_hdr from XVID ASP vs I420 "
+        f"of the writer's reconstruction: "
+        f"{'bit for bit equal' if same else 'different'}; "
+        f"{v2h['XVID ASP']:.3f} s, {mps:.2f} MP/s ({FRAMES5} x "
+        f"{len(mpeg4_videos.asp)} frames of {H5} x {W5}, "
+        f"{mpeg4_asp['frame_mb']:.3f} MB a frame), one K3 launch")
+    if not same:
+        failures.append("video_to_hdr from XVID ASP against the "
+                        "reconstruction")
+    del got, want
+    raise_failures("phase 14 (h)", failures)
+    walls["h"] = time.perf_counter() - t_phase
+    log(f"phase 14 (h): {walls['h']:.1f} s")
     return dict(walls_s=walls, encode_s=encode_s, read_mbps=read_mb / read_s,
-                mpeg4=mpeg4, mpeg4_encode_s=mpeg4_videos.encode_s,
+                mpeg4=mpeg4, mpeg4_asp=mpeg4_asp,
+                mpeg4_encode_s=mpeg4_videos.encode_s,
                 raw_mps=before["mps"],
                 raw_decode_s=before["stages"].get("decode_s", 0),
                 frame_mb={k: v / n / 1e6 for k, v in sizes.items()},

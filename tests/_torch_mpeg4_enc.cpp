@@ -1,12 +1,16 @@
 // The MPEG-4 Part 2 encoder of tests/_torch_mpeg4_writer.py for the plans
 // of its smoke_plan (intra I-VOPs with the DC through its own VLC, no AC
-// prediction; P-VOPs whose macroblocks are all 1MV of zero vectors; one
-// quantiser, no video packets): the same levels (the integer forward DCT
+// prediction; P-VOPs whose macroblocks are all 1MV of zero vectors; B-VOPs
+// whose macroblocks are all direct with a zero delta over such a P-VOP or
+// an I-VOP; one quantiser, no video packets; H.263 or MPEG quantisation,
+// the simple or the Xvid IDCT): the same levels (the integer forward DCT
 // and quantisers of the writer), the same macroblock-layer bits after the
 // VOP header the writer hands over, and the same reconstruction (FFmpeg's
-// simple IDCT, put for intra blocks and added to the reference for inter
-// ones), a frame a call.  chip_smoke.py encodes its 4K videos with it;
-// tests/test_torch_mpeg4.py holds it to the Python writer byte for byte.
+// IDCT, put for intra blocks and added to the prediction for inter ones: the
+// reference, or a B-VOP's average of both), a frame a call.  chip_smoke.py
+// encodes its 4K videos with it; tests/test_torch_mpeg4.py and
+// tests/test_torch_mpeg4_asp.py hold it to the Python writer byte for
+// byte.
 //
 // Built with g++ into build/native/ by the writer's native_entropy().
 
@@ -270,23 +274,116 @@ void idct_sums(const std::int16_t* in, std::int32_t* out) {
 
 inline std::uint8_t clip255(int v) { return static_cast<std::uint8_t>(std::min(std::max(v, 0), 255)); }
 
+// the Xvid IDCT as native/mpeg4.cpp's xvid_idct_sums
+constexpr int kXvidTab[4][7] = {{22725, 21407, 19266, 16384, 12873, 8867, 4520},
+                                {31521, 29692, 26722, 22725, 17855, 12299, 6270},
+                                {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+                                {26722, 25172, 22654, 19266, 15137, 10426, 5315}};
+constexpr int kXvidRowTab[8] = {0, 1, 2, 3, 0, 3, 2, 1};
+constexpr std::uint32_t kXvidRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+inline int mulhi(int a, int c) { return (a * c) >> 16; }
+inline std::uint32_t u32(int v) { return static_cast<std::uint32_t>(v); }
+
+void xvid_idct_sums(const std::int16_t* in, std::int32_t* out) {
+    int x[8][8];
+    for (int r = 0; r < 8; ++r) {
+        const std::int16_t* v = in + 8 * r;
+        bool any = false;
+        for (int i = 0; i < 8; ++i) any |= v[i] != 0;
+        if (r >= 3 && !any) {
+            for (int i = 0; i < 8; ++i) x[r][i] = 0;
+            continue;
+        }
+        const int* t = kXvidTab[kXvidRowTab[r]];
+        const std::uint32_t c1 = t[0], c2 = t[1], c3 = t[2], c4 = t[3], c5 = t[4], c6 = t[5], c7 = t[6];
+        const std::uint32_t v0 = u32(v[0]), v1 = u32(v[1]), v2 = u32(v[2]), v3 = u32(v[3]), v4 = u32(v[4]),
+                            v5 = u32(v[5]), v6 = u32(v[6]), v7 = u32(v[7]);
+        const std::uint32_t k = c4 * v0 + kXvidRnd[r];
+        const std::uint32_t a0 = k + c2 * v2 + c4 * v4 + c6 * v6, a1 = k + c6 * v2 - c4 * v4 - c2 * v6,
+                            a2 = k - c6 * v2 - c4 * v4 + c2 * v6, a3 = k - c2 * v2 + c4 * v4 - c6 * v6;
+        const std::uint32_t b0 = c1 * v1 + c3 * v3 + c5 * v5 + c7 * v7, b1 = c3 * v1 - c7 * v3 - c1 * v5 - c5 * v7,
+                            b2 = c5 * v1 - c1 * v3 + c7 * v5 + c3 * v7, b3 = c7 * v1 - c5 * v3 + c3 * v5 - c1 * v7;
+        const std::uint32_t o[8] = {a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0};
+        for (int i = 0; i < 8; ++i) x[r][i] = sat16(static_cast<std::int32_t>(o[i]) >> 11);
+    }
+    constexpr int kTan1 = 13036, kTan2 = 27146, kTan3 = 43790 - 65536, kSqrt2 = 23170;
+    for (int c = 0; c < 8; ++c) {
+        const int X0 = x[0][c], X1 = x[1][c], X2 = x[2][c], X3 = x[3][c], X4 = x[4][c], X5 = x[5][c],
+                  X6 = x[6][c], X7 = x[7][c];
+        const int tm35 = sat16(sat16(mulhi(X3, kTan3) + X3) - X5);
+        const int tp35 = sat16(sat16(mulhi(X5, kTan3) + X5) + X3);
+        const int tp17 = sat16(mulhi(X7, kTan1) + X1), tm17 = sat16(mulhi(X1, kTan1) - X7);
+        const int t1 = sat16(tp17 - tp35), b3 = sat16(tm17 - tm35), b0 = sat16(tp35 + tp17),
+                  t2 = sat16(tm35 + tm17);
+        int b2 = mulhi(sat16(t1 - t2), kSqrt2), b1 = mulhi(sat16(t2 + t1), kSqrt2);
+        b1 = sat16(b1 + b1);
+        b2 = sat16(b2 + b2);
+        const int tp26 = sat16(mulhi(X6, kTan2) + X2), tm26 = sat16(mulhi(X2, kTan2) - X6);
+        const int tm04 = sat16(X0 - X4), tp04 = sat16(X4 + X0);
+        const int a3 = sat16(tp04 - tp26), a0 = sat16(tp26 + tp04), a2 = sat16(tm04 - tm26),
+                  a1 = sat16(tm26 + tm04);
+        const int o[8] = {sat16(b0 + a0), sat16(b1 + a1), sat16(b2 + a2), sat16(b3 + a3),
+                          sat16(a3 - b3), sat16(a2 - b2), sat16(a1 - b1), sat16(a0 - b0)};
+        for (int r = 0; r < 8; ++r) out[8 * r + c] = o[r] >> 6;
+    }
+}
+
+inline int abs16(int v) { return (v < 0 ? -v : v) & 0xFFFF; }
+
+// native/mpeg4.cpp's dequant_mpeg_intra / _inter on 64-bit levels
+void dequant_mpeg_intra(const std::int64_t* b, int q, int dc_scale, const int* m, std::int16_t* out) {
+    out[0] = static_cast<std::int16_t>(b[0] * dc_scale);
+    for (int i = 1; i < 64; ++i) {
+        const int v = static_cast<std::int16_t>(b[i]);
+        if (!v) {
+            out[i] = 0;
+            continue;
+        }
+        const int qw = (2 * q * m[i]) & 0xFFFF;
+        const int p = i16(abs16(v) * qw) >> 4;
+        out[i] = static_cast<std::int16_t>(v < 0 ? -p : p);
+    }
+}
+
+void dequant_mpeg_inter(const std::int64_t* b, int q, const int* m, std::int16_t* out) {
+    int sum = -1;
+    for (int i = 0; i < 64; ++i) {
+        const int v = static_cast<std::int16_t>(b[i]);
+        if (!v) {
+            out[i] = 0;
+            continue;
+        }
+        const int qw = (2 * q * m[i]) & 0xFFFF;
+        const int p = ((((2 * abs16(v)) & 0xFFFF) * qw + qw) & 0xFFFF) >> 5;
+        out[i] = static_cast<std::int16_t>(v < 0 ? -p : p);
+        sum += out[i];
+    }
+    out[63] = static_cast<std::int16_t>(out[63] ^ (sum & 1));
+}
+
 }  // namespace
 
 extern "C" {
 
 // Encode one smoke-plan VOP of the visible planes y (h x w), u and v
 // ((h + 1) / 2 x (w + 1) / 2): kind 0 an intra I-VOP, 1 a P-VOP of zero
-// vectors against ref (the macroblock-aligned Y, U and V planes, one after
-// another); quant its quantiser.  The macroblock layer follows the first
-// prefix_bits bits of prefix (the headers and the VOP header, which the
-// Python writer makes), then stuffing; the chunk goes to out (cap bytes)
-// and the reconstruction, macroblock-aligned like ref, to recon.  Returns
-// the chunk's size, or -1 where cap is too small.
+// vectors against ref, 2 a B-VOP of direct macroblocks with a zero delta
+// between fwd and ref (its latest reference a P-VOP of zero vectors or an
+// I-VOP: each macroblock predicted by the two references' average at its
+// place); ref and fwd are the macroblock-aligned Y, U and V planes, one
+// after another; quant the quantiser; mpeg 1 for quant_type 1 with the
+// intra then inter matrices (natural order) in mats; xvid 1 for the Xvid
+// IDCT.  The macroblock layer follows the first prefix_bits bits of prefix
+// (the headers and the VOP header, which the Python writer makes), then
+// stuffing; the chunk goes to out (cap bytes) and the reconstruction,
+// macroblock-aligned like ref, to recon.  Returns the chunk's size, or -1
+// where cap is too small.
 long long clt_mpeg4_enc_layer(int kind, const std::uint8_t* y, const std::uint8_t* u,
                               const std::uint8_t* v, int h, int w, int quant,
                               const std::uint8_t* prefix, long long prefix_bits,
-                              const std::uint8_t* ref, std::uint8_t* recon,
-                              std::uint8_t* out, std::size_t cap) {
+                              const std::uint8_t* ref, const std::uint8_t* fwd, std::uint8_t* recon,
+                              int mpeg, const int* mats, int xvid, std::uint8_t* out,
+                              std::size_t cap) {
     const Tables& T = tables();
     const int mbw = (w + 15) / 16, mbh = (h + 15) / 16, h2 = (h + 1) / 2, w2 = (w + 1) / 2;
     const int ls = 16 * mbw, cs = 8 * mbw;
@@ -298,6 +395,9 @@ long long clt_mpeg4_enc_layer(int kind, const std::uint8_t* y, const std::uint8_
         const int ph = c ? h2 : h, pw = c ? w2 : w;
         return p[static_cast<std::size_t>(std::min(row, ph - 1)) * pw + std::min(col, pw - 1)];
     };
+    auto idct = xvid ? xvid_idct_sums : idct_sums;
+    const int* im = mats;
+    const int* pm = mats + 64;
     Writer wr;
     for (long long i = 0; i < prefix_bits; i += 8) {
         const int n = static_cast<int>(std::min<long long>(8, prefix_bits - i));
@@ -311,7 +411,7 @@ long long clt_mpeg4_enc_layer(int kind, const std::uint8_t* y, const std::uint8_
     std::vector<int> dcl(static_cast<std::size_t>(2 * mbh + 1) * wrap + 1, 1024),
         dcc[2] = {std::vector<int>(static_cast<std::size_t>(mbh + 1) * cwrap + 1, 1024),
                   std::vector<int>(static_cast<std::size_t>(mbh + 1) * cwrap + 1, 1024)};
-    int f[64];
+    int f[64], pred[64];
     std::int64_t coef[64], lv[6][64];
     std::int16_t deq[64];
     std::int32_t sums[64];
@@ -323,55 +423,83 @@ long long clt_mpeg4_enc_layer(int kind, const std::uint8_t* y, const std::uint8_
                 const int c = n < 4 ? 0 : n - 3;
                 const int r0 = n < 4 ? 16 * my + 8 * (n >> 1) : 8 * my;
                 const int c0 = n < 4 ? 16 * mx + 8 * (n & 1) : 8 * mx;
-                const std::uint8_t* rp = kind ? ref + (c == 0 ? 0 : c == 1 ? lsize : lsize + csize) : nullptr;
+                const std::size_t off = c == 0 ? 0 : c == 1 ? lsize : lsize + csize;
                 const int stride = c ? cs : ls;
                 for (int r = 0; r < 8; ++r)
-                    for (int k = 0; k < 8; ++k)
-                        f[r * 8 + k] = src(c, r0 + r, c0 + k) -
-                                       (kind ? rp[static_cast<std::size_t>(r0 + r) * stride + c0 + k] : 0);
+                    for (int k = 0; k < 8; ++k) {
+                        const std::size_t at = off + static_cast<std::size_t>(r0 + r) * stride + c0 + k;
+                        pred[r * 8 + k] = kind == 0 ? 0 : kind == 1 ? ref[at] : (fwd[at] + ref[at] + 1) >> 1;
+                        f[r * 8 + k] = src(c, r0 + r, c0 + k) - pred[r * 8 + k];
+                    }
                 fdct(f, coef);
+                bool any = false;
                 if (!kind) {
                     const std::int64_t d0 = (n < 4 ? kYDcScale[q] : kCDcScale[q]) * one;
                     lv[n][0] = floordiv(coef[0] + d0 / 2, d0);
-                    const std::int64_t d = 2 * q * one;
                     for (int i = 1; i < 64; ++i) {
-                        const std::int64_t m = std::min<std::int64_t>((std::llabs(coef[i]) + d / 2) / d, top);
-                        lv[n][i] = coef[i] < 0 ? -m : m;
-                    }
-                    bool any = false;
-                    for (int i = 1; i < 64; ++i) any |= lv[n][i] != 0;
-                    if (any) cbp |= 32 >> n;
-                } else {
-                    const std::int64_t d = 2 * q * one;
-                    bool any = false;
-                    for (int i = 0; i < 64; ++i) {
-                        const std::int64_t m = std::min<std::int64_t>(std::max<std::int64_t>(std::llabs(coef[i]) - d / 4, 0) / d, top);
+                        std::int64_t m;
+                        if (mpeg) {
+                            const std::int64_t qw = 2 * q * im[i];
+                            const std::int64_t d = std::max<std::int64_t>(qw, 1) * one;
+                            const std::int64_t lim = std::min<std::int64_t>(
+                                std::min<std::int64_t>(2047 * 16 / std::max<std::int64_t>(qw, 1),
+                                                       32767 / std::max<std::int64_t>(qw, 1)), 2047);
+                            m = qw > 0 ? std::min<std::int64_t>((16 * std::llabs(coef[i]) + d / 2) / d, lim) : 0;
+                        } else {
+                            const std::int64_t d = 2 * q * one;
+                            m = std::min<std::int64_t>((std::llabs(coef[i]) + d / 2) / d, top);
+                        }
                         lv[n][i] = coef[i] < 0 ? -m : m;
                         any |= m != 0;
                     }
-                    if (any) cbp |= 32 >> n;
+                } else {
+                    for (int i = 0; i < 64; ++i) {
+                        std::int64_t m;
+                        if (mpeg) {
+                            const std::int64_t qw = 2 * q * pm[i];
+                            const std::int64_t d = std::max<std::int64_t>(qw, 1) * one;
+                            const std::int64_t qq = std::max<std::int64_t>(qw, 1);
+                            const std::int64_t lim = std::min<std::int64_t>(
+                                std::min<std::int64_t>((2047 * 32 / qq - 1) / 2, (65535 / qq - 1) / 2), 2047);
+                            m = qw > 0 ? std::min<std::int64_t>(std::max<std::int64_t>(64 * std::llabs(coef[i]) - d, 0) / (4 * d), lim) : 0;
+                        } else {
+                            const std::int64_t d = 2 * q * one;
+                            m = std::min<std::int64_t>(std::max<std::int64_t>(std::llabs(coef[i]) - d / 4, 0) / d, top);
+                        }
+                        lv[n][i] = coef[i] < 0 ? -m : m;
+                        any |= m != 0;
+                    }
                 }
+                if (any) cbp |= 32 >> n;
                 // the reconstruction
-                std::uint8_t* dst = recon + (c == 0 ? 0 : c == 1 ? lsize : lsize + csize);
+                std::uint8_t* dst = recon + off;
                 if (!kind) {
-                    deq[0] = static_cast<std::int16_t>(lv[n][0] * (n < 4 ? kYDcScale[q] : kCDcScale[q]));
-                    for (int i = 1; i < 64; ++i)
-                        deq[i] = lv[n][i] ? static_cast<std::int16_t>(lv[n][i] > 0 ? lv[n][i] * qmul + qadd : lv[n][i] * qmul - qadd) : 0;
-                    idct_sums(deq, sums);
+                    if (mpeg) {
+                        dequant_mpeg_intra(lv[n], q, n < 4 ? kYDcScale[q] : kCDcScale[q], im, deq);
+                    } else {
+                        deq[0] = static_cast<std::int16_t>(lv[n][0] * (n < 4 ? kYDcScale[q] : kCDcScale[q]));
+                        for (int i = 1; i < 64; ++i)
+                            deq[i] = lv[n][i] ? static_cast<std::int16_t>(lv[n][i] > 0 ? lv[n][i] * qmul + qadd : lv[n][i] * qmul - qadd) : 0;
+                    }
+                    idct(deq, sums);
                     for (int r = 0; r < 8; ++r)
                         for (int k = 0; k < 8; ++k)
                             dst[static_cast<std::size_t>(r0 + r) * stride + c0 + k] = clip255(sums[r * 8 + k]);
                 } else {
                     const bool coded = cbp & (32 >> n);
                     if (coded) {
-                        for (int i = 0; i < 64; ++i)
-                            deq[i] = lv[n][i] ? static_cast<std::int16_t>(lv[n][i] > 0 ? lv[n][i] * qmul + qadd : lv[n][i] * qmul - qadd) : 0;
-                        idct_sums(deq, sums);
+                        if (mpeg) {
+                            dequant_mpeg_inter(lv[n], q, pm, deq);
+                        } else {
+                            for (int i = 0; i < 64; ++i)
+                                deq[i] = lv[n][i] ? static_cast<std::int16_t>(lv[n][i] > 0 ? lv[n][i] * qmul + qadd : lv[n][i] * qmul - qadd) : 0;
+                        }
+                        idct(deq, sums);
                     }
                     for (int r = 0; r < 8; ++r)
                         for (int k = 0; k < 8; ++k) {
                             const std::size_t at = static_cast<std::size_t>(r0 + r) * stride + c0 + k;
-                            dst[at] = coded ? clip255(rp[at] + sums[r * 8 + k]) : rp[at];
+                            dst[at] = coded ? clip255(pred[r * 8 + k] + sums[r * 8 + k]) : pred[r * 8 + k];
                         }
                 }
             }
@@ -400,9 +528,9 @@ long long clt_mpeg4_enc_layer(int kind, const std::uint8_t* y, const std::uint8_
                         if (n != 1 && mx == 0) b = a = 1024;
                     }
                     if (mx == 0 && my == 1 && (n == 0 || n == 4 || n == 5)) b = 1024;
-                    const int pred = ((std::abs(a - b) < std::abs(b - cc) ? cc : a) + (scale >> 1)) / scale;
+                    const int pr = ((std::abs(a - b) < std::abs(b - cc) ? cc : a) + (scale >> 1)) / scale;
                     const int level = static_cast<int>(lv[n][0]);
-                    const int diff = level - pred;
+                    const int diff = level - pr;
                     int stored = level * scale;
                     if (stored & ~2047) stored = stored < 0 ? 0 : 2047;
                     d[idx] = stored;
@@ -416,12 +544,21 @@ long long clt_mpeg4_enc_layer(int kind, const std::uint8_t* y, const std::uint8_
                     }
                     if (cbp & (32 >> n)) events(wr, T.intra, lv[n], 1);
                 }
-            } else {
+            } else if (kind == 1) {
                 wr.put(0, 1);   // coded
                 wr.put(kInterMcbpc[cbp & 3][0], kInterMcbpc[cbp & 3][1]);
                 const int cy = (cbp >> 2) ^ 15;
                 wr.put(kCbpy[cy][0], kCbpy[cy][1]);
                 wr.put(1, 1);   // the zero vector: both differences 0
+                wr.put(1, 1);
+                for (int n = 0; n < 6; ++n)
+                    if (cbp & (32 >> n)) events(wr, T.inter, lv[n], 0);
+            } else {
+                wr.put(0, 1);          // modb
+                wr.put(cbp == 0, 1);   // modb2: no cbpb
+                wr.put(1, 1);          // mb_type: direct
+                if (cbp) wr.put(static_cast<std::uint32_t>(cbp), 6);
+                wr.put(1, 1);          // the zero delta
                 wr.put(1, 1);
                 for (int n = 0; n < 6; ++n)
                     if (cbp & (32 >> n)) events(wr, T.inter, lv[n], 0);

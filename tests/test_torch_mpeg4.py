@@ -453,23 +453,30 @@ def test_random_streams_equal_cv2(tmp_path, seed, monkeypatch):
     _check(path, monkeypatch, recon=recon)
 
 
-def test_the_handler_names_xvid(tmp_path):
+def test_the_handler_names_xvid(tmp_path, monkeypatch):
     """FFmpeg's AVI demuxer takes a stream handled by ``XVID`` as Xvid
-    whatever its header's fourcc (it then picks the Xvid IDCT where no
-    user data names another encoder): refused."""
+    whatever its header's fourcc (it then picks the Xvid IDCT, and the
+    visible border, where no user data names another encoder): the port
+    takes the same tag and gives cv2's frames, which the writer's
+    reconstruction with the Xvid IDCT equals."""
     h, w = 32, 48
-    chunks, _, _ = mw.encode_video(yuv_pictures(h, w, 2),
-                                   [mw.Plan("I"), mw.Plan("P")],
-                                   user_data=None)
-    for handler, tag, refused in (("XVID", "FMP4", True),
-                                  ("DIVX", "FMP4", False),
-                                  ("FMP4", "XVID", True)):
+    pics = yuv_pictures(h, w, 3)
+    plans = [mw.Plan("I"), mw.Plan("P"), mw.Plan("P")]
+    for handler, tag, xvid in (("XVID", "FMP4", True),
+                               ("DIVX", "FMP4", False),
+                               ("FMP4", "XVID", True)):
+        chunks, recons, _ = mw.encode_video(
+            pics, plans, user_data=None, xvid=xvid,
+            edge="visible" if xvid else "mb")
         path = tmp_path / f"{handler} {tag} 5ms.avi"
         mw.write_mpeg4_avi(path, chunks, h, w, tag=tag, handler=handler)
         info = avi.probe_avi(path)
         assert info.handler == handler
-        why = avi.mpeg4_unsupported(path, info)
-        assert (why is not None and "Xvid IDCT" in why) == refused, why
+        assert avi.mpeg4_params(info)[0] == ("XVID" if xvid else tag)
+        assert avi.mpeg4_unsupported(path, info) is None
+        recon = np.stack([rawvideo_plain.decode_bgr(
+            mp.i420_bytes(r, h, w), "i420_left", h, w) for r in recons])
+        _check(path, monkeypatch, recon=recon)
 
 
 # --- refusals ------------------------------------------------------------------
@@ -505,24 +512,48 @@ REFUSED = {
                    "video_object_layer_shape 3"),
     "full_range": (dict(signal=(True, 1)), "FMP4", "full-range"),
     "matrix": (dict(signal=(False, 4)), "FMP4", "matrix_coefficients 4"),
-    "xvid_user_data": (dict(user_data=b"XviD0050"), "FMP4", "Xvid IDCT"),
-    "xvid_fourcc": (dict(user_data=None), "XVID", "Xvid IDCT"),
-    "xvix_fourcc": (dict(user_data=None), "XVIX", "Xvid IDCT"),
-    "packed": (dict(user_data=b"DivX503b1393p"), "DX50", "packed"),
+    "qpel_xvid_packed": (dict(verid=2, vol_fields=dict(quarter_sample=1),
+                              user_data=(b"XviD0050", b"DivX503b1393p")),
+                         "XVID", "quarter-pel"),
+    "gmc_xvid": (dict(verid=2, vol_fields=dict(sprite=2),
+                      user_data=b"XviD0050"), "XVID", "GMC"),
+}
+
+# features PR 22 reads (the Xvid IDCT, packed bitstreams, B-VOPs, MPEG
+# quantisation), once refused: (Writer kwargs, the chunks' tag); the
+# stream reads and equals cv2
+READ = {
+    "quant_type": (dict(vol_fields=dict(quant_type=1)), "FMP4"),
+    "xvid_user_data": (dict(user_data=b"XviD0050"), "FMP4"),
+    "xvid_fourcc": (dict(user_data=None), "XVID"),
+    "xvix_fourcc": (dict(user_data=None), "XVIX"),
+    "packed": (dict(user_data=b"DivX503b1393p"), "DX50"),
 }
 
 
-@pytest.mark.parametrize("feature", list(REFUSED) + ["b_vop", "s_vop",
-                                                     "short_header",
-                                                     "first_p"])
+@pytest.mark.parametrize("feature", list(REFUSED) + list(READ) + [
+    "b_vop", "s_vop", "s_vop_packed", "short_header", "first_p"])
 def test_refused_streams_raise_before_decode(tmp_path, feature,
                                              monkeypatch):
     """Each refused feature raises a ValueError naming it before any
     frame is decoded: ``avi.mpeg4_unsupported``, the resolver and the
-    decoders say it."""
+    decoders say it.  The features read since (``READ``, and B-VOPs: a
+    stream of an I-, a P- and a B-VOP) read, equal to cv2."""
     h, w = 32, 48
     pics = yuv_pictures(h, w, 3)
     plans = [mw.Plan("I"), mw.Plan("P"), mw.Plan("P")]
+    if feature in READ or feature == "b_vop":
+        wkw, tag = READ.get(feature, (dict(vol_fields=dict(low_delay=0)),
+                                      "FMP4"))
+        if feature == "b_vop":
+            plans = [mw.Plan("I", time=0), mw.Plan("P", time=2),
+                     mw.Plan("B", time=1, fcode=2, bcode=2)]
+        chunks, _, _ = mw.encode_video(pics, plans, **wkw)
+        path = tmp_path / f"{feature} 5ms.avi"
+        mw.write_mpeg4_avi(path, chunks, h, w, tag=tag)
+        assert avi.mpeg4_unsupported(path, avi.probe_avi(path)) is None
+        _check(path, monkeypatch)
+        return
     if feature in REFUSED:
         wkw, tag, words = REFUSED[feature]
         chunks, _, _ = mw.encode_video(pics, plans, **wkw)
@@ -531,11 +562,14 @@ def test_refused_streams_raise_before_decode(tmp_path, feature,
         chunks, _, wr = mw.encode_video(pics, plans)
         first = bytearray(chunks[0])
         at = first.find(b"\x00\x00\x01\xb6") + 4
-        if feature in ("b_vop", "s_vop"):
-            # the first VOP's coding type: 2 (B) or 3 (S)
-            first[at] = (first[at] & 0x3F) | ((2 if feature == "b_vop"
-                                                else 3) << 6)
-            words = {"b_vop": "B-VOPs", "s_vop": "S-VOPs"}[feature]
+        if feature in ("s_vop", "s_vop_packed"):
+            # the first VOP's coding type: 3 (S)
+            first[at] = (first[at] & 0x3F) | (3 << 6)
+            words = "S-VOPs"
+            if feature == "s_vop_packed":
+                tag = "DX50"
+                first = bytearray(b"\x00\x00\x01\xb2DivX503b1393p") + \
+                    first
         elif feature == "short_header":
             first = bytearray(b"\x00\x00\x80\x02\x08") + bytes(40)
             words = "short video header"
@@ -560,20 +594,29 @@ def test_refused_streams_raise_before_decode(tmp_path, feature,
 
 @pytest.mark.parametrize("later", ["b_vop", "s_vop", "xvid_user_data",
                                    "vol_size", "no_vop"])
-def test_a_later_refused_vop_raises_naming_its_frame(tmp_path, later):
+def test_a_later_refused_vop_raises_naming_its_frame(tmp_path, later,
+                                                     monkeypatch):
     """A refused feature that shows only in a later chunk raises when it
-    is decoded, naming its frame; the frames before it decode."""
+    is decoded, naming its frame; the frames before it decode.  (A later
+    B-VOP is read: ``b_vop``'s has a backward fcode of 0, which FFmpeg
+    refuses.  Later Xvid user data is read: FFmpeg switches to the Xvid
+    IDCT from that frame on, and so does the port, equal to cv2.)"""
     h, w = 32, 48
-    chunks, recons, wr = mw.encode_video(
-        yuv_pictures(h, w, 4), [mw.Plan("I"), mw.Plan("P"), mw.Plan("P"),
-                                mw.Plan("P")])
+    plans = [mw.Plan("I"), mw.Plan("P"), mw.Plan("P"), mw.Plan("P")]
+    if later == "b_vop":
+        plans = [mw.Plan("I", time=0), mw.Plan("P", time=2),
+                 mw.Plan("B", time=1, bcode=0,
+                         modes=np.full((2, 3), mw.DIRECT_NONE)),
+                 mw.Plan("P", time=3)]
+    chunks, recons, wr = mw.encode_video(yuv_pictures(h, w, 4), plans)
     bad = bytearray(chunks[2])
-    if later in ("b_vop", "s_vop"):
-        bad[4] = (bad[4] & 0x3F) | ((2 if later == "b_vop" else 3) << 6)
-        words = {"b_vop": "B-VOPs", "s_vop": "S-VOPs"}[later]
+    if later == "b_vop":
+        words = "vop_fcode_backward 0"
+    elif later == "s_vop":
+        bad[4] = (bad[4] & 0x3F) | (3 << 6)
+        words = "S-VOPs"
     elif later == "xvid_user_data":
         bad = bytearray(b"\x00\x00\x01\xb2XviD0050") + bad
-        words = "Xvid IDCT"
     elif later == "vol_size":
         other = mw.Writer(h + 16, w)
         bad = bytearray(other.headers()) + bad
@@ -586,6 +629,9 @@ def test_a_later_refused_vop_raises_naming_its_frame(tmp_path, later):
     mw.write_mpeg4_avi(path, chunks, h, w)
     info = avi.probe_avi(path)
     assert avi.mpeg4_unsupported(path, info) is None
+    if later == "xvid_user_data":
+        _check(path, monkeypatch)
+        return
     for decode in (_plain, _native):
         got = _outcome(lambda: decode(path))
         assert "frame 2: " in got and words in got, got

@@ -48,6 +48,7 @@ from camera_linearity_tpu_torch.native import rawvideo_plain  # noqa: E402
 from camera_linearity_tpu_torch.native import utvideo_plain as up  # noqa
 from camera_linearity_tpu_torch.utils import avi  # noqa: E402
 from camera_linearity_tpu_torch.utils import observability as obs  # noqa
+from tests import _torch_libavcodec as lav  # noqa: E402
 from tests import _torch_utvideo_writer as uw  # noqa: E402
 from tests._torch_rawvideo_writer import pcm_stream  # noqa: E402
 from tests.test_torch_native import cv2_frames  # noqa: E402
@@ -190,6 +191,40 @@ def test_interlaced_frames_equal_the_pictures(tmp_path, fourcc, predictor,
                          interlaced=True)
     assert avi.utvideo_params(avi.probe_avi(path)).interlaced
     _check(path, monkeypatch, want=_want(fourcc, pics, h, w))
+
+
+@pytest.mark.skipif(not lav.available(),
+                    reason="cv2's libavcodec is not found")
+@pytest.mark.parametrize("fourcc", FOURCCS)
+def test_interlaced_frames_equal_libavcodecs_planes(tmp_path, fourcc):
+    """Interlaced frames, which cv2 does not convert, held to the planes
+    cv2's own libavcodec decodes them to (``tests/_torch_libavcodec.py``):
+    the plain version's planes (RGB restored from its G, B - G and R - G
+    planes) and the pictures written equal them, every predictor."""
+    h, w, slices = 16, 10, 3
+    for predictor in PREDICTORS:
+        pics = pictures(fourcc, h, w, seed=len(fourcc + predictor))
+        path = tmp_path / f"interlaced {predictor} 5ms.avi"
+        uw.write_utvideo_avi(path, pics, h, w, fourcc, predictor, slices,
+                             interlaced=True)
+        chunks, info = _chunks(path)
+        params = avi.utvideo_params(info)
+        got = lav.decode_planes(path)
+        assert len(got) == len(pics)
+        for chunk, pic, (fmt, planes) in zip(chunks, pics, got):
+            mine = up.decode_planes(chunk, params, h, w)[0]
+            if params.layout in ("gbrp", "gbrap"):
+                assert fmt == params.layout
+                g = mine[0].astype(np.int64)
+                mine = [g, (mine[1] + g - 0x80) & 255,
+                        (mine[2] + g - 0x80) & 255] + mine[3:]
+                # the picture is (B, G, R, A): planes G, B, R, A
+                pic = [pic[..., 1], pic[..., 0], pic[..., 2]] + \
+                    ([pic[..., 3]] if fourcc == "ULRA" else [])
+            assert len(planes) == len(mine) == len(pic)
+            for k, (a, b, c) in enumerate(zip(planes, mine, pic)):
+                np.testing.assert_array_equal(a, b, err_msg=f"plane {k}")
+                np.testing.assert_array_equal(a, c, err_msg=f"plane {k}")
 
 
 @pytest.mark.parametrize("fourcc", ["ULRG", "ULY0", "ULY4"])

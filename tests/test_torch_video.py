@@ -553,3 +553,8 @@ def test_the_cv2_message_names_every_codec_the_port_reads(monkeypatch):
     for family, fourccs in families.items():
         for fourcc in fourccs:
             assert fourcc.strip() in message, (family, fourcc)
+    # which MPEG-4 Part 2 streams: the Advanced Simple tools read, and the
+    # ones still refused
+    for words in ("Advanced Simple", "B-VOPs", "packed bitstreams",
+                  "MPEG quantisation", "not quarter-pel or GMC"):
+        assert words in message, words
