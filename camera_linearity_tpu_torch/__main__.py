@@ -387,6 +387,9 @@ def cmd_doctor(args) -> int:
             f"built; {what} (cv2's bytes)" if ok() else
             f"unavailable ({native.build_error(stem)}); such AVIs cannot "
             "be read"))
+    print("video containers: AVI, QuickTime MOV and MP4 (ISO BMFF), "
+          "Matroska and WebM, each by the port's own demuxer (the codecs "
+          "above in any of them)")
     if dev.type == "cuda":
         # one-time costs are paid before each timed window: the point is
         # the steady rate
@@ -411,23 +414,29 @@ def cmd_doctor(args) -> int:
 
 
 def _doctor_video(path: Path) -> None:
-    """Decode rate of each reader the port has for ``path``; for an MJPG
-    AVI, the port's decoder in each mode, and for a PNG, HuffYUV, FFV1,
-    UtVideo, Lagarith or MPEG-4 Part 2 AVI its decoder, on one thread and
-    on all."""
+    """Decode rate of each reader the port has for ``path`` (an AVI, MOV,
+    MP4 or Matroska file, whose container it names); for MJPEG, the port's
+    decoder in each mode, and for PNG, HuffYUV, FFV1, UtVideo, Lagarith or
+    MPEG-4 Part 2 its decoder, on one thread and on all."""
     import importlib.util
     import itertools
     import time
 
     from . import native
     from .models import video as video_mod
-    from .utils import avi
+    from .utils import avi, containers
     h, w = video_mod.probe_geometry(path)
-    info = avi.probe_avi(path)
+    info = containers.probe_video(path)
+    if info is not None:
+        print(f"container: {info.container_name}, codec "
+              f"{info.codec_name!r}, {info.width}x{info.height} stored"
+              + (f", shown turned {info.rotation} degrees"
+                 if info.rotation else ""))
+        h, w = info.height, info.width   # the decoders' geometry
     decoders = ["native"]
     if info is not None and info.codec == "MJPG":
         decoders = []
-        payloads = list(itertools.islice(avi.mjpg_chunks(path, info.stream),
+        payloads = list(itertools.islice(containers.mjpg_chunks(path, info),
                                          120))
         cores = os.cpu_count() or 1
         dst = np.empty((min(cores, len(payloads)), h, w, 3), np.uint8)
@@ -452,7 +461,7 @@ def _doctor_video(path: Path) -> None:
             "lagarith" if info.codec in avi.LAGARITH_CODECS else \
             "mpeg4" if info.codec in avi.MPEG4_CODECS else "utvideo"
         payloads = [bytes(c) for c in itertools.islice(
-            avi.frame_chunks(path, info), 120)]
+            containers.frame_chunks(path, info), 120)]
         cores = os.cpu_count() or 1
         dst = np.empty((min(cores, len(payloads)), h, w, 3), np.uint8)
         params = avi.huffyuv_params(info) if kind == "huffyuv" else \

@@ -91,7 +91,7 @@ import torch
 from .. import native
 from ..config import CameraConfig, DEFAULT_CONFIG
 from ..ops import welford as wf
-from ..utils import avi, io
+from ..utils import avi, containers, io
 from ..utils.device import canonical_float, resolve_device
 from ..utils.general import (set_thread_priority,
                              stage_to_device_async)
@@ -118,21 +118,22 @@ def _cv2(why: str):
     except ImportError as exc:
         raise ValueError(
             f"{why} needs cv2, which is not installed; without it the port "
-            "reads RGBA AVIs (decoder 'native', NumPy), uncompressed AVIs "
+            "reads AVI, QuickTime MOV, MP4 and Matroska (MKV, WebM) files "
+            "of these codecs: RGBA (decoder 'native', NumPy), uncompressed "
             "(BI_RGB 8/16/24/32-bit, "
             + ", ".join(f.strip() for f in avi.FOURCC_LAYOUTS)
-            + ": 'native', its own reader), PNG AVIs ("
+            + ": 'native', its own reader), PNG ("
             + ", ".join(repr(f.ljust(4)) if len(f) < 4 else f
                         for f in avi.PNG_CODECS)
-            + "), HuffYUV AVIs (" + ", ".join(avi.HUFFYUV_CODECS)
-            + "), FFV1 AVIs (" + ", ".join(avi.FFV1_CODECS)
-            + "), UtVideo AVIs (" + ", ".join(avi.UTVIDEO_READ)
-            + "), Lagarith AVIs (" + ", ".join(avi.LAGARITH_CODECS)
-            + ") and MPEG-4 Part 2 AVIs (" + ", ".join(avi.MPEG4_CODECS)
-            + ": the Simple Profile and Xvid and DivX 5 Advanced Simple "
-            "streams, B-VOPs, packed bitstreams and MPEG quantisation "
-            "among them; not quarter-pel or GMC) ('native', its own "
-            "decoders) and MJPG AVIs ('native' / "
+            + "), HuffYUV (" + ", ".join(avi.HUFFYUV_CODECS)
+            + "), FFV1 (" + ", ".join(avi.FFV1_CODECS)
+            + "), UtVideo (" + ", ".join(avi.UTVIDEO_READ)
+            + "), Lagarith (" + ", ".join(avi.LAGARITH_CODECS)
+            + ") and MPEG-4 Part 2 (" + ", ".join(avi.MPEG4_CODECS)
+            + "; V_MPEG4/ISO/*: the Simple Profile and Xvid and DivX 5 "
+            "Advanced Simple streams, B-VOPs, packed bitstreams and MPEG "
+            "quantisation among them; not quarter-pel or GMC) ('native', "
+            "its own decoders) and MJPG (jpeg, V_MJPEG; 'native' / "
             "'ffmpeg' / 'turbo' / 'turbo_fast', its own JPEG decoder)"
         ) from exc
     return cv2
@@ -219,26 +220,132 @@ def _return_host_buffers(key, buffers) -> None:
     _HOST_BUFFERS.give_back(key, buffers)
 
 
+# the batch buffers an edit list's hidden frames and a turned video's
+# frames are decoded into before they are dropped or turned (a cache of
+# their own: in _HOST_BUFFERS they would push the decode pools out)
+_SCRATCH_BUFFERS = _BufferCache()
+
+
 def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
                    ) -> Iterator[Callable[[np.ndarray], int]]:
     """Callables that decode the next frames of ``path`` into the (k, H, W,
     C) uint8 array they are given and return how many they decoded (0:
-    the stream ended).  The MJPEG decoder takes up to k frames a call, and
+    the stream ended): :func:`_decoded_fillers`' frames as cv2 shows them.
+    Where the container's edit list hides frames the decoder gives
+    (``SampleTable.skip`` first, those after ``shown``), they are decoded
+    and dropped; where its
+    display matrix turns the picture (``AviInfo.rotation``), each frame is
+    decoded into a buffer of the stored geometry and turned into the
+    caller's (H and W swapped for a quarter turn), a band of rows a thread
+    on every core."""
+    info = None if decoder == "cv2" else containers.probe_video(path)
+    fillers = _decoded_fillers(path, decoder, batch_size, info)
+    table = None if info is None else info.samples
+    skip = 0 if table is None else table.skip
+    left = None if table is None else table.shown   # frames still shown
+    turn = 0 if info is None else info.rotation
+    if not skip and left is None and not turn:
+        yield from fillers
+        return
+    # the hidden frames and the unturned ones are decoded into a batch
+    # buffer of the stored geometry, kept warm from video to video
+    key, scratch = None, None
+
+    def batch(chs: int) -> np.ndarray:
+        # checked out on first need: an edit list that only ends early
+        # decodes straight into the caller's array
+        nonlocal key, scratch
+        if scratch is None:
+            key = (max(batch_size, 1), info.height, info.width, chs)
+            scratch = _SCRATCH_BUFFERS.checkout(
+                key, lambda: host_buffer(key, np.uint8))
+        return scratch
+
+    def shown(dst: np.ndarray, fill) -> int:
+        nonlocal skip, left
+        while skip:
+            hidden = batch(dst.shape[-1])
+            got = fill(hidden[:min(skip, len(hidden))])
+            if not got:
+                return 0
+            skip -= got
+        k = len(dst) if left is None else min(len(dst), left)
+        if not k:
+            return 0
+        if not turn:
+            got = fill(dst[:k])
+        else:
+            stored = batch(dst.shape[-1])
+            got = fill(stored[:min(k, len(stored))])
+            turn_frames(stored[:got], dst[:got], turn)
+        if left is not None:
+            left -= got
+        return got
+    try:
+        for fill in fillers:
+            yield lambda dst, fill=fill: shown(dst, fill)
+    finally:
+        if scratch is not None:
+            _SCRATCH_BUFFERS.give_back(key, scratch)
+
+
+def turn_frames(src: np.ndarray, dst: np.ndarray, turn: int) -> None:
+    """Copy (k, H, W, C) frames turned ``turn`` degrees clockwise (90, 180
+    or 270, as cv2 turns a video by its display matrix) into ``dst``, a
+    band of output rows a task on the native thread pool."""
+    if not len(src):
+        return
+    # a pixel's channels move as one element (a C-byte void): numpy then
+    # copies pixels, not bytes, and runs about twice as fast
+    pixel = np.dtype((np.void, src.shape[-1]))
+    src, dst = src.view(pixel)[..., 0], dst.view(pixel)[..., 0]
+    turned = np.rot90(src, -(turn // 90), axes=(1, 2))
+    rows = dst.shape[1]
+    bands = min(rows, max(1, os.cpu_count() or 1) * 2)
+    if src[0].size < (1 << 18) or bands == 1:
+        np.copyto(dst, turned)
+        return
+    edges = np.linspace(0, rows, bands + 1).astype(int)
+    list(native._thread_pool().map(
+        lambda i: np.copyto(dst[:, edges[i]:edges[i + 1]],
+                            turned[:, edges[i]:edges[i + 1]]),
+        range(bands)))
+
+
+def _decoded_fillers(path: Path, decoder: str, batch_size: int,
+                     info: Optional[avi.AviInfo]
+                     ) -> Iterator[Callable[[np.ndarray], int]]:
+    """Callables that decode the next frames of ``path`` (``info``: its
+    ``containers.probe_video``, None for cv2) into the (k, H, W, C) uint8
+    array they are given, at the stored geometry, and return how many
+    they decoded (0: the stream ended).  The MJPEG decoder and the raw
+    RGBA reader take up to k frames a call, and
     the rawvideo reader and the PNG, HuffYUV, FFV1, UtVideo, Lagarith and
     MPEG-4 Part 2 decoders up to ``batch_size``, on all cores (FFV1 a
     slice a thread, Lagarith a plane a thread, MPEG-4 a macroblock row a
     thread; FFV1 and MPEG-4 with one decoder object for the video, which
     carries the slices' states, or the predictors and the reference
-    picture, from call to call); the raw RGBA reader (which reads each
-    frame when the iterator advances) and cv2 take one."""
+    picture, from call to call); cv2 takes one.  Every decoder but cv2
+    yields one callable again and again, which may be called any number
+    of times; cv2 yields one for each frame it grabbed, to be called
+    once (it is never given an edit list or a turn to apply)."""
     if decoder == "raw":
-        for frame in avi.raw_frames(path):
-            yield lambda dst, frame=frame: np.copyto(dst[0], frame) or 1
+        frames = containers.rgba_frames(path, info)
+
+        def fill_raw(dst: np.ndarray) -> int:
+            for got in range(len(dst)):
+                frame = next(frames, None)
+                if frame is None:
+                    return got
+                np.copyto(dst[got], frame)
+            return len(dst)
+        while True:
+            yield fill_raw
     elif decoder == "mpeg4":
-        info = avi.probe_avi(path)
-        chunks = avi.frame_chunks(path, info, ring=batch_size)
+        chunks = containers.frame_chunks(path, info, ring=batch_size)
         mpeg4 = native.Mpeg4Decoder(*avi.mpeg4_params(info), info.height,
                                     info.width)
+        mpeg4.matrix = _container_matrix(info)
         # the yuv420p planes, reused from call to call
         planes = np.empty(batch_size * native.frame_bytes(
             "i420_left", info.height, info.width), np.uint8)
@@ -266,21 +373,22 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
             yield fill_mpeg4
     elif decoder in ("rawvideo", "png", "huffyuv", "ffv1", "utvideo",
                      "lagarith"):
-        info = avi.probe_avi(path)
         # every chunk of a call is read into a buffer of its own
         if decoder == "rawvideo":
-            chunks = avi.raw_chunks(path, info, ring=batch_size)
+            chunks = containers.raw_chunks(path, info, ring=batch_size)
+            matrix = _container_matrix(info) or "bt601"
             decode = lambda payloads, dst, first: native.raw_decode_bgr_batch(
                 payloads, dst, info.layout, bottom_up=info.raw.bottom_up,
-                palette=info.raw.palette, first_frame=first)
+                palette=info.raw.palette, first_frame=first, matrix=matrix)
         elif decoder == "png":
-            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            chunks = containers.frame_chunks(path, info, ring=batch_size)
             decode = lambda payloads, dst, first: native.png_decode_bgr_batch(
                 payloads, dst, info.png, first_frame=first)
         elif decoder == "ffv1":
-            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            chunks = containers.frame_chunks(path, info, ring=batch_size)
             ffv1 = native.Ffv1Decoder(avi.ffv1_params(info), info.height,
                                       info.width)
+            ffv1.matrix = _container_matrix(info) or "bt601"
             # the YUV layouts' planes, reused from call to call
             planes = None if ffv1.layout is None else np.empty(
                 batch_size * native.frame_bytes(ffv1.layout, info.height,
@@ -289,7 +397,7 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
                 native.ffv1_decode_bgr_batch(payloads, dst, ffv1,
                                              planes=planes)
         elif decoder == "utvideo":
-            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            chunks = containers.frame_chunks(path, info, ring=batch_size)
             params = avi.utvideo_params(info)
             layout = native.utvideo_plain.yuv_layout(params)
             # the YUV layouts' planes, reused from call to call
@@ -300,7 +408,7 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
                 native.utvideo_decode_bgr_batch(
                     payloads, dst, params, planes=planes, first_frame=first)
         elif decoder == "lagarith":
-            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            chunks = containers.frame_chunks(path, info, ring=batch_size)
             # the YUY2 and YV12 frames' planes, reused from call to call
             planes = np.empty(batch_size * native.frame_bytes(
                 "yuv422p", info.height, info.width), np.uint8)
@@ -308,7 +416,7 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
                 native.lagarith_decode_bgr_batch(
                     payloads, dst, planes=planes, first_frame=first)
         else:
-            chunks = avi.frame_chunks(path, info, ring=batch_size)
+            chunks = containers.frame_chunks(path, info, ring=batch_size)
             params = avi.huffyuv_params(info)
             layout = native.huffyuv_plain.yuv_layout(params)
             # the YUV layouts' planes, reused from call to call
@@ -335,7 +443,7 @@ def _frame_fillers(path: Path, decoder: str, batch_size: int = 1
         while True:
             yield fill_chunks
     elif decoder in native.JPEG_MODES:
-        chunks = avi.mjpg_chunks(path, avi.probe_avi(path).stream)
+        chunks = containers.mjpg_chunks(path, info)
         if decoder == "ffmpeg":  # FFmpeg's AVI reader drops empty chunks
             chunks = (c for c in chunks if len(c))
         done = 0      # frames decoded so far
@@ -434,45 +542,51 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
                        height: int, width: int, chs: int,
                        mode: str) -> str:
     """The decoder a file's container asks for, checked against the
-    expected geometry and channel count before any decode.  An MJPG
+    expected geometry (the shown one: turned by the display matrix) and
+    channel count before any decode.  An MJPG
     decodes to three channels in the ``"ffmpeg"`` mode whatever its
     component count (cv2 gives BGR for grayscale too), to its component
     count in the ``"turbo"`` modes; RGBA, the rawvideo layouts, PNG,
     HuffYUV, FFV1, UtVideo and Lagarith to three.  An uncompressed, PNG,
-    HuffYUV, FFV1, UtVideo or Lagarith AVI the port's decoders do not read
-    raises here, naming what (``avi.raw_unsupported``,
+    HuffYUV, FFV1, UtVideo or Lagarith stream the port's decoders do not
+    read raises here, naming what (``containers.raw_unsupported``,
     ``avi.png_unsupported``, ``avi.huffyuv_unsupported``,
     ``avi.ffv1_unsupported``, ``avi.utvideo_unsupported``,
-    ``avi.lagarith_unsupported``); so does one whose decoder did not build
-    (RuntimeError)."""
+    ``avi.lagarith_unsupported``), and so do colour tags of the container
+    that the conversion does not follow (:func:`_colour_unsupported`); so
+    does one whose decoder did not build (RuntimeError)."""
     own = info is not None and (
         info.codec in ("RGBA", "MJPG") + avi.PNG_CODECS + avi.HUFFYUV_CODECS
         + avi.FFV1_CODECS + avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS
         + avi.MPEG4_CODECS or info.layout is not None)
+    kind = "AVI" if info is None else info.container_name
     if info is not None and not own:
-        unsupported = avi.raw_unsupported(path, info)
+        unsupported = containers.raw_unsupported(path, info)
         if unsupported:
-            raise ValueError(f"{path} is an uncompressed AVI ({info.codec}) "
-                             "whose frames the port's rawvideo reader does "
-                             f"not read: {unsupported}")
+            raise ValueError(f"{path} is an uncompressed {kind} "
+                             f"({info.codec_name}) whose frames the port's "
+                             f"rawvideo reader does not read: {unsupported}")
     if not own:
-        codec = "not an AVI" if info is None else f"codec {info.codec!r}"
+        codec = "not an AVI, MOV, MP4 or Matroska file" if info is None \
+            else f"codec {info.codec!r}" if info.container == "avi" \
+            else f"{kind} codec {info.codec_name!r}"
         _cv2(f"{path} ({codec})")
         return "cv2"
     comps = info.components if info.codec == "MJPG" and mode != "ffmpeg" \
         else 3
-    geometry = (info.height, info.width)
+    geometry = _shown_geometry(info)
     if geometry != (height, width):
         raise ValueError(f"{path} has frame geometry {geometry}, "
                          f"expected {(height, width)}")
     if comps != chs:
         raise ValueError(
-            f"{path} is a {info.codec} AVI of {info.components} "
+            f"{path} is a {info.codec_name} {kind} of {info.components} "
             f"components, which decode to {comps} channels; the config "
             f"has num_of_chs={chs}")
+    yuv = False
     if info.codec == "RGBA":
-        return "raw"
-    if info.codec in avi.PNG_CODECS:
+        decoder, why, libs = "raw", None, ()
+    elif info.codec in avi.PNG_CODECS:
         decoder, why, libs = "png", avi.png_unsupported(info), ("png",)
     elif info.codec in avi.HUFFYUV_CODECS:
         decoder, why = "huffyuv", avi.huffyuv_unsupported(info)
@@ -495,29 +609,77 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
         decoder, why = "lagarith", avi.lagarith_unsupported(path, info)
         # any frame may be YUY2 or YV12, whose planes convert through
         # jpeg.cpp's rawvideo reader
-        libs = ("lagarith", "mjpeg")
+        yuv, libs = True, ("lagarith", "mjpeg")
     elif info.codec in avi.MPEG4_CODECS:
         decoder, why = "mpeg4", avi.mpeg4_unsupported(path, info)
         # its yuv420p planes convert through jpeg.cpp's rawvideo reader
-        libs = ("mpeg4", "mjpeg")
+        yuv, libs = True, ("mpeg4", "mjpeg")
     elif info.layout:
-        decoder, why, libs = "rawvideo", avi.raw_unsupported(path, info), \
-            ("mjpeg",)
+        decoder, libs = "rawvideo", ("mjpeg",)
+        why = containers.raw_unsupported(path, info)
+        yuv = info.layout not in ("pal8", "rgb555", "bgr24", "bgr0")
     else:
         decoder, libs = mode, ("mjpeg",)
-        why = avi.jpeg_unsupported(info.jpeg, mode=mode)
+        why = "no start-of-frame segment in its first frame" \
+            if info.jpeg is None else avi.jpeg_unsupported(info.jpeg,
+                                                           mode=mode)
         why = why and f"{why} (in its {mode!r} mode)"
+    why = why or _colour_unsupported(info, decoder, bool(yuv))
     if why:
-        raise ValueError(f"{path} is a {info.codec} AVI whose frames the "
-                         f"port's {_DECODER_NAMES.get(decoder, 'JPEG')} "
-                         f"decoder does not read: {why}")
+        raise ValueError(f"{path} is a {info.codec_name} {kind} whose "
+                         f"frames the port's "
+                         f"{_DECODER_NAMES.get(decoder, 'JPEG')} decoder "
+                         f"does not read: {why}")
     for lib in libs:
         if not getattr(native, f"{lib}_available")():
             raise RuntimeError(
-                f"{path} is a {info.codec} AVI but native/{_SOURCES[lib]}, "
-                f"which decodes it, did not build: "
+                f"{path} is a {info.codec_name} {kind} but "
+                f"native/{_SOURCES[lib]}, which decodes it, did not build: "
                 f"{native.build_error('_' + lib)}")
     return decoder
+
+
+def _shown_geometry(info: avi.AviInfo) -> Tuple[int, int]:
+    """(H, W) of a stream's frames as cv2 shows them: swapped where the
+    display matrix turns them a quarter."""
+    if info.rotation in (90, 270):
+        return info.width, info.height
+    return info.height, info.width
+
+
+def _container_matrix(info: avi.AviInfo) -> Optional[str]:
+    """The rawvideo converter's matrix the container's colour tags name
+    (``"bt709"`` for matrix_coefficients 1, ``"bt601"`` for 5 and 6), None
+    where they name none."""
+    matrix = None if info.colour is None else info.colour[0]
+    return {1: "bt709", 5: "bt601", 6: "bt601"}.get(matrix)
+
+
+def _colour_unsupported(info: avi.AviInfo, decoder: str, yuv: bool
+                        ) -> Optional[str]:
+    """What of the container's colour tags (MP4 ``colr``, Matroska
+    ``Colour``; FFmpeg hands them to the decoder, and cv2's conversion
+    follows the frame's) the port does not convert by, or None: on YUV
+    frames a matrix other than BT.601, BT.709 or none, or a full-range
+    signal; BT.709 on the YUV frames of a decoder the tag does not reach
+    (HuffYUV, UtVideo, Lagarith), or on MJPEG (whose frames FFmpeg gives
+    as full-range BT.601).  RGB frames take no matrix, so their tags are
+    not asked about."""
+    jpeg = decoder in native.JPEG_MODES
+    if info.colour is None or not (yuv or jpeg):
+        return None
+    matrix, full = info.colour
+    tags = (f"the {info.container_name}'s colour tags (matrix_coefficients "
+            f"{matrix}{', full range' if full else ''})")
+    if matrix not in (1, 2, 5, 6):
+        return f"{tags}: the port converts by BT.601 and BT.709 only"
+    if jpeg:
+        return f"{tags}: BT.709 on MJPEG" if matrix == 1 else None
+    if full:
+        return f"{tags}: a full-range YUV signal"
+    if matrix == 1 and decoder not in ("rawvideo", "mpeg4", "ffv1"):
+        return f"{tags}: BT.709 on {_DECODER_NAMES[decoder]} YUV frames"
+    return None
 
 
 # the port's own decoders by name, and the native sources they build from
@@ -577,11 +739,12 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
         return ["cv2"] * len(file_paths)
     out = []
     for p in file_paths:
-        info = avi.probe_avi(p)
+        info = containers.probe_video(p)
         if decoder != "native" and (info is None or info.codec != "MJPG"):
             get_logger().warning(
-                "decoder=%s requested but %s is not an MJPG AVI; using its "
-                "container's decoder", decoder, p)
+                "decoder=%s requested but %s is not an MJPG AVI (nor MJPEG "
+                "in MOV, MP4 or Matroska); using its container's decoder",
+                decoder, p)
         mode = "ffmpeg" if decoder == "native" else decoder
         out.append(_container_decoder(p, info, height, width, chs, mode))
     return out
@@ -646,12 +809,15 @@ def _staged_batches(file_paths: List[Path], batch_size: int,
 
 
 def probe_geometry(video_path: Path) -> Tuple[int, int]:
-    """(height, width) of a video file's frames: from the AVI headers for
-    the containers the port reads itself, else from cv2."""
-    info = avi.probe_avi(video_path)
+    """(height, width) of a video file's frames as cv2 gives them: from the
+    headers of the containers the port reads itself (AVI, MOV/MP4,
+    Matroska; turned by the display matrix, as cv2 turns the frames), else
+    from cv2."""
+    info = containers.probe_video(video_path)
     if info is not None:
-        return info.height, info.width
-    cv = _cv2(f"probing {video_path} (not an AVI the port reads)")
+        return _shown_geometry(info)
+    cv = _cv2(f"probing {video_path} (not an AVI, MOV, MP4 or Matroska "
+              "file the port reads)")
     video = cv.VideoCapture(str(video_path))
     if not video.isOpened():
         video.release()
@@ -965,7 +1131,18 @@ def process_video(video_path: Path, ICRF=None, use_std: bool = True,
         if arr is not None:
             with stage("write_s"):
                 _save_frame(video_path.parent.joinpath(
-                    video_path.name.replace(".avi", f".{key}.tif")), arr)
+                    _output_name(video_path, key)), arr)
+
+
+def _output_name(video_path: Path, key: str) -> str:
+    """``process_video``'s file name for a statistic: the JAX package's
+    (``.avi`` replaced by ``.<key>.tif``) for an AVI, ``<stem>.<key>.tif``
+    for any other name, which the JAX package's replace left unchanged, so
+    that it wrote the TIFFs over the video itself."""
+    name = video_path.name
+    if name.endswith(".avi"):
+        return name.replace(".avi", f".{key}.tif")
+    return f"{video_path.stem}.{key}.tif"
 
 
 def process_directory(dir_path: Path, ICRF=None, separately: bool = True,

@@ -746,6 +746,8 @@ class Ffv1Decoder:
         p = params
         self.params, self.height, self.width = p, height, width
         self.layout = ffv1_plain.yuv_layout(p)
+        # the YUV layouts' matrix: FFV1 names none, the container may
+        self.matrix = "bt601"
         self.frames = 0
         ints = np.array([p.version, p.micro_version, p.coder, p.colorspace,
                          p.bits, int(p.chroma_planes), p.h_shift, p.v_shift,
@@ -830,7 +832,8 @@ def ffv1_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Ffv1Decoder,
     if layout:
         raw_decode_bgr_batch([planes[i * plane_bytes:(i + 1) * plane_bytes]
                               for i in range(k)], dst, layout,
-                             threads=threads, first_frame=first)
+                             threads=threads, first_frame=first,
+                             matrix=decoder.matrix)
     return k
 
 
@@ -1142,9 +1145,13 @@ _MPEG4_REASONS = {
 
 
 class Mpeg4Decoder:
-    """The native decoder of one MPEG-4 Part 2 stream (``tag``: the AVI
-    fourcc as FFmpeg takes it, ``extradata``: the ``strf`` bytes after the
-    BITMAPINFOHEADER) of ``height`` x ``width`` frames.  Python reads each
+    """The native decoder of one MPEG-4 Part 2 stream (``tag``: the codec
+    tag FFmpeg's demuxer sets, which its bug detection reads: an AVI's
+    fourcc, an MP4 sample entry's, none for Matroska's ``V_MPEG4/*``;
+    ``extradata``: the ``strf`` bytes after the BITMAPINFOHEADER, the
+    ``esds`` DecoderSpecificInfo, the CodecPrivate) of ``height`` x
+    ``width`` frames; ``matrix``, where the container's colour tags name
+    one, converts the frames of a VOL that names none.  Python reads each
     chunk's headers (``mpeg4_plain.Stream``: the VOL, user data, the VOP
     header and times, a packed bitstream's pending VOP and the refusals);
     ``mpeg4.cpp`` keeps the prediction state, the two references and the
@@ -1159,6 +1166,7 @@ class Mpeg4Decoder:
         self._handle = None
         self.stream = mpeg4_plain.Stream(tag, extradata, height, width)
         self.height, self.width = height, width
+        self.matrix: Optional[str] = None
         self.frames = 0
         # the latest I- or P-VOP's planes (a stream with B-frames outputs
         # it when the next one comes, or at the end)
@@ -1270,7 +1278,8 @@ def mpeg4_decode_bgr_batch(payloads, dst: np.ndarray, decoder: Mpeg4Decoder,
     if outs:
         raw_decode_bgr_batch(outs, dst[:len(outs)], "i420_left",
                              threads=threads, first_frame=decoder.frames,
-                             matrix=mpeg4_plain.matrix_name(st.vol))
+                             matrix=mpeg4_plain.matrix_name(st.vol,
+                                                            decoder.matrix))
     if held is not decoder.held:
         decoder.held = held.copy()
     decoder.frames += len(outs)
@@ -1286,7 +1295,8 @@ def mpeg4_flush(decoder: Mpeg4Decoder, dst: np.ndarray) -> int:
         return 0
     raw_decode_bgr_batch([decoder.held], dst[:1], "i420_left",
                          first_frame=decoder.frames,
-                         matrix=mpeg4_plain.matrix_name(decoder.stream.vol))
+                         matrix=mpeg4_plain.matrix_name(decoder.stream.vol,
+                                                        decoder.matrix))
     decoder.frames += 1
     return 1
 

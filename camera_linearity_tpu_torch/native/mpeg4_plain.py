@@ -686,8 +686,12 @@ def unsupported(vol: Optional[Vol], bugs: Bugs = Bugs(),
     return None
 
 
-def matrix_name(vol: Vol) -> str:
-    """The rawvideo converter's matrix for the stream's frames."""
+def matrix_name(vol: Vol, container: Optional[str] = None) -> str:
+    """The rawvideo converter's matrix for the stream's frames: the VOL's,
+    or where it names none (2) the container's (``container``, from its
+    colour tags; FFmpeg's decoder keeps the demuxer's then)."""
+    if vol.matrix == 2 and container:
+        return container
     return "bt709" if vol.matrix == 1 else "bt601"
 
 
@@ -861,8 +865,11 @@ class Stream:
     (B-VOPs' direct mode scales by them), the low-delay flag (whether
     I- and P-VOPs are output at once or when the next one comes), the
     references decoded so far and a packed bitstream's pending VOP.
-    ``tag`` is the AVI fourcc (FFmpeg's bug detection reads it),
-    ``extradata`` the ``strf`` bytes after the BITMAPINFOHEADER."""
+    ``tag`` is the codec tag FFmpeg's demuxer sets (an AVI's fourcc, an
+    MP4 sample entry's, none for Matroska's ``V_MPEG4/*``: its bug
+    detection reads it), ``extradata`` the stream's (the ``strf`` bytes
+    after the BITMAPINFOHEADER, an ``esds`` DecoderSpecificInfo, a
+    Matroska CodecPrivate)."""
 
     def __init__(self, tag: str = "FMP4", extradata: bytes = b"",
                  height: Optional[int] = None, width: Optional[int] = None):

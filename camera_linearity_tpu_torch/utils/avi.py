@@ -47,7 +47,7 @@ from __future__ import annotations
 import re
 import struct
 from pathlib import Path
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -305,26 +305,42 @@ class _AviHeader(NamedTuple):
 
 
 class AviInfo(_AviHeader):
-    """An AVI video stream's codec (the BITMAPINFOHEADER's compression
+    """A video stream's codec (the BITMAPINFOHEADER's compression
     fourcc stripped of trailing spaces, e.g. ``"MJPG"``, ``"RGBA"`` or
     ``"png"``; ``"DIB"`` for uncompressed BI_RGB, ``"BITFIELDS"`` for
-    BI_BITFIELDS), frame geometry and components: the channels the port
-    decodes a frame to, 3 for every codec it decodes (cv2 gives BGR)
-    but MJPG, whose components are the JPEG's (what the ``"turbo"`` modes
-    decode to; the ``"ffmpeg"`` mode gives 3), and bits per pixel / 8 for
-    a codec only cv2 reads.  For MJPG also the first frame's
+    BI_BITFIELDS; for the other containers the fourcc their codec maps to,
+    ``utils/containers.py``), frame geometry and components: the channels
+    the port decodes a frame to, 3 for every codec it decodes (cv2 gives
+    BGR) but MJPG, whose components are the JPEG's (what the ``"turbo"``
+    modes decode to; the ``"ffmpeg"`` mode gives 3), and bits per pixel / 8
+    for a codec only cv2 reads.  For MJPG also the first frame's
     :class:`JpegInfo`.  It compares as the tuple of those five;
     ``stream`` is the video's AVI stream number (its frames are
     ``NNdc``/``NNdb`` chunks), ``bit_count`` the header's bits per pixel
     and ``extra`` its ``strf`` bytes past the BITMAPINFOHEADER (HuffYUV's
-    tables, a palette); for an uncompressed codec ``raw`` holds its
-    :class:`RawLayout` and ``layout`` the rawvideo reader's layout (None
-    where the reader has none); for PNG ``png`` holds the first frame's
-    ``IHDR`` (``png_plain.PngInfo``); for FFV1 ``ffv1`` the stream's
-    header (``ffv1_plain.Ffv1Params``: from the extradata, or from the
-    first frame for versions 0 and 1), or None and ``ffv1_error`` why it
-    does not read; ``handler`` is the stream header's fourcc (FFmpeg's AVI
-    demuxer takes an MPEG-4 stream handled by ``XVID`` as Xvid)."""
+    tables, a palette; the extradata in the other containers); for an
+    uncompressed codec ``raw`` holds its :class:`RawLayout` and ``layout``
+    the rawvideo reader's layout (None where the reader has none); for PNG
+    ``png`` holds the first frame's ``IHDR`` (``png_plain.PngInfo``); for
+    FFV1 ``ffv1`` the stream's header (``ffv1_plain.Ffv1Params``: from the
+    extradata, or from the first frame for versions 0 and 1), or None and
+    ``ffv1_error`` why it does not read; ``handler`` is the stream header's
+    fourcc (FFmpeg's AVI demuxer takes an MPEG-4 stream handled by ``XVID``
+    as Xvid).
+
+    ``container`` is ``"avi"``, ``"mov"``, ``"mp4"``, ``"mkv"`` or
+    ``"webm"``; ``codec_id`` the container's own name of the codec where
+    it is not an AVI (a sample entry's fourcc, a Matroska CodecID);
+    ``tag`` the codec tag FFmpeg's demuxer sets, which its MPEG-4 bug
+    detection reads (None: the AVI's rule, :func:`mpeg4_params`);
+    ``rotation`` the clockwise turn cv2 gives the frames (0, 90, 180, 270:
+    the container's display matrix); ``samples`` the frames' byte ranges
+    in the file where they are not AVI chunks (``utils/containers.py``);
+    ``colour`` the container's colour tags, (matrix_coefficients, full
+    range), None where it has none; ``first(limit=None)`` reads the
+    stream's first non-empty frame, or its first ``limit`` bytes (empty
+    where there is none), from whatever container (:func:`codec_info`'s
+    ``first``)."""
     raw: Optional[RawLayout] = None
     stream: int = 0
     bit_count: int = 0
@@ -333,10 +349,31 @@ class AviInfo(_AviHeader):
     ffv1: Optional[ffv1_plain.Ffv1Params] = None
     ffv1_error: Optional[str] = None
     handler: str = ""
+    container: str = "avi"
+    codec_id: str = ""
+    tag: Optional[str] = None
+    rotation: int = 0
+    samples: object = None
+    colour: Optional[Tuple[int, bool]] = None
+    first: Optional[Callable[..., bytes]] = None
 
     @property
     def layout(self) -> Optional[str]:
         return None if self.raw is None else self.raw.layout
+
+    @property
+    def container_name(self) -> str:
+        return CONTAINER_NAMES[self.container]
+
+    @property
+    def codec_name(self) -> str:
+        """The codec as the container names it (for messages)."""
+        return self.codec_id or self.codec
+
+
+# the containers' names in messages
+CONTAINER_NAMES = {"avi": "AVI", "mov": "QuickTime MOV", "mp4": "MP4",
+                   "mkv": "Matroska", "webm": "WebM"}
 
 
 def probe_avi(path: Path) -> Optional[AviInfo]:
@@ -348,15 +385,8 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
     audio and text streams too; of several video streams the first is
     taken, as cv2 takes it.  A video stream without a single frame chunk
     raises a ValueError naming its number (cv2 reads no frame from such a
-    file either).
-
-    For MJPG the geometry, the component count and the JPEG mode
-    (:class:`JpegInfo`) come from the first frame's own headers, not the
-    container's, so a lying container cannot route mismatched frames into
-    a fixed-size decode buffer (the native decoder re-checks every frame
-    anyway); so do a PNG stream's, from the first frame's ``IHDR`` (cv2's
-    writer states 40 bits for gray ``MPNG``); for other codecs from the
-    stream's BITMAPINFOHEADER (the height's sign dropped).
+    file either).  The BITMAPINFOHEADER routes the stream to a decoder
+    (:func:`bih_info`).
     """
     try:
         with open(path, "rb") as f:
@@ -386,56 +416,85 @@ def probe_avi(path: Path) -> Optional[AviInfo]:
         return None
     if header is None:
         return None
+    info = bih_info(header, lambda limit=None: _first_chunk(path, stream,
+                                                            limit),
+                    lambda: _first_jpeg_sof(path, stream))
+    if info is not None:
+        info.stream = stream
+        info.handler = handler.decode("latin-1").strip()
+    return info
+
+
+def bih_info(header: bytes, first: Callable[..., bytes],
+             sof: Optional[Callable[[], Optional[JpegInfo]]] = None
+             ) -> Optional[AviInfo]:
+    """A video stream's :class:`AviInfo` from its BITMAPINFOHEADER
+    (``header``: the header and the bytes after it), routed as
+    :func:`codec_info` routes it; the DIB codecs (BI_RGB by bit count,
+    BI_BITFIELDS) and the rawvideo fourccs get their :class:`RawLayout`
+    (BI_RGB rows bottom-up where the height is positive, 8-bit BI_RGB's
+    palette from the extra bytes)."""
     _, width, height, _, bit_count, compression = struct.unpack(
         "<IiiHH4s", header[:20])
     codec = {b"\0\0\0\0": "DIB", b"\3\0\0\0": "BITFIELDS"}.get(
         compression) or compression.decode("latin-1").strip()
-    if codec == "MJPG":
-        sof = _first_jpeg_sof(path, stream)
-        if sof is None:
-            return None
-        info = AviInfo(codec, sof.height, sof.width, sof.components, sof)
-        info.stream = stream
-        info.bit_count = bit_count
+    extra = bytes(header[40:])
+    info = codec_info(codec, abs(height), width, bit_count, extra, first,
+                      sof)
+    if info is None or info.raw is None or codec not in ("DIB",
+                                                          "BITFIELDS"):
         return info
-    if codec in PNG_CODECS:
-        ihdr = _first_png_ihdr(path, stream)
-        info = AviInfo(codec, *((ihdr.height, ihdr.width) if ihdr else
-                                (abs(height), width)), 3)
-        info.png = ihdr
-    elif codec in HUFFYUV_CODECS or codec in UTVIDEO_CODECS or \
-            codec in LAGARITH_CODECS or codec in MPEG4_CODECS:
-        info = AviInfo(codec, abs(height), width, 3)
-    elif codec in FFV1_CODECS:
-        info = AviInfo(codec, abs(height), width, 3)
-        try:
-            info.ffv1 = ffv1_plain.params(
-                header[40:], lambda: _first_chunk(path, stream))
-        except ffv1_plain.Ffv1Error as exc:
-            info.ffv1_error = str(exc)
-    else:
-        info = None
-    if info is not None:
-        info.stream, info.bit_count, info.extra = stream, bit_count, \
-            bytes(header[40:])
-        info.handler = handler.decode("latin-1").strip()
-        return info
-    dib = codec == "DIB"
-    layout = DIB_LAYOUTS.get(bit_count) if dib else FOURCC_LAYOUTS.get(codec)
     palette = None
-    if layout == "pal8":
+    if info.layout == "pal8":
         # avidec.c: the last (1 << bits) * 4 bytes after the header, or all
         # of them where fewer
-        extra = header[40:]
         n = min(1024, len(extra))
         palette = np.zeros((256, 4), np.uint8)
         palette.reshape(-1)[:n // 4 * 4] = np.frombuffer(
             extra, np.uint8, n // 4 * 4, len(extra) - n)
-    info = AviInfo(codec, abs(height), width, 3 if layout or
-                   codec == "RGBA" else bit_count // 8)
-    info.raw = RawLayout(layout, bit_count, dib and height > 0, palette)
-    info.stream, info.bit_count, info.extra = stream, bit_count, \
-        bytes(header[40:])
+    info.raw = info.raw._replace(bottom_up=codec == "DIB" and height > 0,
+                                 palette=palette)
+    return info
+
+
+def codec_info(codec: str, height: int, width: int, bit_count: int,
+               extra: bytes, first: Callable[..., bytes],
+               sof: Optional[Callable[[], Optional[JpegInfo]]] = None
+               ) -> Optional[AviInfo]:
+    """A stream's :class:`AviInfo` from its codec fourcc, geometry, bits
+    per pixel and extradata, whatever the container: ``first(limit=None)``
+    gives the first non-empty frame's first ``limit`` bytes, which MJPG
+    (the geometry, components and JPEG mode come from its headers, unless
+    ``sof`` gives them), PNG (its ``IHDR``: cv2's writer states 40 bits for
+    gray ``MPNG``) and FFV1 versions 0 and 1 (their header) read; the
+    other codecs take the container's geometry.  None for an MJPG stream
+    whose first frame has no JPEG headers."""
+    if codec == "MJPG":
+        jpeg = sof() if sof else _jpeg_sof(first())
+        if jpeg is None:
+            return None
+        info = AviInfo(codec, jpeg.height, jpeg.width, jpeg.components, jpeg)
+    elif codec in PNG_CODECS:
+        ihdr = png_plain.read_header(first(33))
+        info = AviInfo(codec, *((ihdr.height, ihdr.width) if ihdr else
+                                (height, width)), 3)
+        info.png = ihdr
+    elif codec in HUFFYUV_CODECS or codec in UTVIDEO_CODECS or \
+            codec in LAGARITH_CODECS or codec in MPEG4_CODECS:
+        info = AviInfo(codec, height, width, 3)
+    elif codec in FFV1_CODECS:
+        info = AviInfo(codec, height, width, 3)
+        try:
+            info.ffv1 = ffv1_plain.params(extra, first)
+        except ffv1_plain.Ffv1Error as exc:
+            info.ffv1_error = str(exc)
+    else:
+        layout = DIB_LAYOUTS.get(bit_count) if codec == "DIB" else \
+            FOURCC_LAYOUTS.get(codec)
+        info = AviInfo(codec, height, width, 3 if layout or
+                       codec == "RGBA" else bit_count // 8)
+        info.raw = RawLayout(layout, bit_count, False, None)
+    info.bit_count, info.extra, info.first = bit_count, extra, first
     return info
 
 
@@ -448,17 +507,6 @@ def _first_chunk(path: Path, stream: int, limit: Optional[int] = None
             if size:
                 return f.read(size if limit is None else min(size, limit))
     return b""
-
-
-def _first_png_ihdr(path: Path, stream: int
-                    ) -> Optional[png_plain.PngInfo]:
-    """The ``IHDR`` of the first non-empty frame chunk of stream
-    ``stream``, or None where it is no PNG."""
-    try:
-        head = _first_chunk(path, stream, 33)
-    except OSError:
-        return None
-    return png_plain.read_header(head)
 
 
 def png_unsupported(info: AviInfo) -> Optional[str]:
@@ -531,7 +579,7 @@ def lagarith_unsupported(path: Path, info: AviInfo) -> Optional[str]:
     types FFmpeg does not know).  The type is a frame's, not the
     stream's: the decoder checks every later frame as it decodes it."""
     try:
-        head = _first_chunk(path, info.stream, 1)
+        head = info.first(1)
     except OSError as exc:
         return f"unreadable ({exc})"
     if not head:
@@ -541,11 +589,17 @@ def lagarith_unsupported(path: Path, info: AviInfo) -> Optional[str]:
 
 
 def mpeg4_params(info: AviInfo) -> Tuple[str, bytes]:
-    """An MPEG-4 Part 2 stream's (tag, extradata): the fourcc FFmpeg's bug
-    detection reads (the header's, or ``XVID`` where the stream header's
-    handler is ``XVID``, as FFmpeg's AVI demuxer takes it) and the
-    ``strf`` bytes after the BITMAPINFOHEADER (a VOL some writers put
-    there)."""
+    """An MPEG-4 Part 2 stream's (tag, extradata): the codec tag FFmpeg's
+    bug detection reads (in an AVI the header's fourcc, or ``XVID`` where
+    the stream header's handler is ``XVID``, as FFmpeg's AVI demuxer takes
+    it; in the other containers the tag their demuxer sets,
+    ``AviInfo.tag``: a sample entry's fourcc, the BITMAPINFOHEADER's under
+    Matroska's ``V_MS/VFW/FOURCC``, none for Matroska's ``V_MPEG4/*``) and
+    the extradata (the ``strf`` bytes after the BITMAPINFOHEADER, a VOL
+    some writers put there; the ``esds`` DecoderSpecificInfo, Matroska's
+    CodecPrivate)."""
+    if info.tag is not None:
+        return info.tag, info.extra
     tag = "XVID" if info.handler == "XVID" else info.codec
     return tag, info.extra
 
@@ -564,7 +618,7 @@ def mpeg4_unsupported(path: Path, info: AviInfo) -> Optional[str]:
     detection picks for Xvid streams are read.  A later chunk that is
     refused raises when it is decoded, naming its frame."""
     try:
-        head = _first_chunk(path, info.stream)
+        head = info.first()
     except OSError as exc:
         return f"unreadable ({exc})"
     if not head:

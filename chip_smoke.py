@@ -88,7 +88,14 @@ batch of 12 (a GOP a thread), the 11 P-VOPs on one thread, on all and
 as frames of 12 decoders at once; the same for the Advanced Simple tools
 (``mpeg4_asp_strip``: B-VOPs of every kind, packed and unpacked, the Xvid
 IDCT, ``quant_type`` 1 with custom matrices; 14 (h)'s brightest ``XVID``
-video, its Xvid-IDCT I-VOP and a B-VOP timed); write the raw videos' frames again as
+video, its Xvid-IDCT I-VOP and a B-VOP timed); mux 14 (i)'s MP4, MOV and
+Matroska files from those AVIs' bitstreams (``ContainerVideos``, in the
+window where no call is timed), hold the committed ``tests/data/container
+*`` clips (MP4, MOV and Matroska files cv2 wrote, one under a 90-degree
+matrix, one of B-VOPs with ``ctts``) to their cv2 frames through
+``video_frame_generator``, and time the demuxers (``demux_rows``: the
+brightest MP4 and Matroska video probed and read, beside the AVI of the
+same bitstream); write the raw videos' frames again as
 I420 AVIs (``yuv_planes``, as ``cv2.VideoWriter(fourcc "I420")`` lays them
 out); run ``welford_algorithm``
 on the card against the host backend and the CPU in float64, and
@@ -148,7 +155,13 @@ video, as ``cv2.VideoWriter`` writes them), held bit for bit to
 ``video_to_hdr`` on I420 AVIs of the writer's reconstruction, with its
 wall, K3's launch and MP/s; (h) likewise on Advanced Simple ``XVID`` AVIs
 of the same planes, as Xvid's packed mode writes them (two packed B-VOPs
-between references, ``quant_type`` 1, the Xvid IDCT).
+between references, ``quant_type`` 1, the Xvid IDCT); (i) on the same
+bitstreams in other containers (``tests/_torch_mp4_writer.py``,
+``tests/_torch_mkv_writer.py``): (g)'s ``FMP4`` and (h)'s ``XVID`` in MP4,
+phase 14's MJPG scene in QuickTime MOV (``jpeg``), (d)'s FFV1 scene in
+Matroska, each held bit for bit to the AVI run of the same bitstream,
+and ``welford_algorithm`` on the ``FMP4`` MP4 under a 90-degree ``tkhd``
+matrix, held exactly to ``np.rot90`` of the AVI's statistics.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
@@ -1458,7 +1471,8 @@ def plain_decode(kind: str, chunks, spec, rows: int, width: int):
 
 
 def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
-                         strip_pictures, pool) -> dict:
+                         strip_pictures, pool, container_videos=None,
+                         mjpg_paths=()) -> dict:
     """Phase 12's PNG, HuffYUV, FFV1, UtVideo and Lagarith rows: each of
     LOSSLESS_LAYOUTS, FFV1_LAYOUTS, UTVIDEO_LAYOUTS and LAGARITH_LAYOUTS on
     a full-width STRIP_ROWS-row strip, the native decoder held to its
@@ -1472,7 +1486,11 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
     MPEG-4 strip (:func:`mpeg4_strip` of ``strip_pictures``) is coded and
     decoded by the plain version in the pool too, and 14 (g)'s
     ``mpeg4_videos`` coded on a thread beside it; :func:`mpeg4_rows` then
-    takes its rows.  Returns the rows' times."""
+    takes its rows.  Then 14 (i)'s ``container_videos``
+    (:class:`ContainerVideos`) are muxed from those videos and
+    ``mjpg_paths``, before any timed call; the committed container clips
+    are held to cv2's frames, and the demux rows (:func:`demux_rows`)
+    taken last.  Returns the rows' times."""
     from camera_linearity_tpu_torch import native
     strips = lossless_layout_chunks(frames_host, frames_dev, STRIP_ROWS,
                                     want=False)
@@ -1494,6 +1512,9 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
     asp_strip_out = asp_future.result()
     mpeg4_videos.finish()
     plain_s = time.perf_counter() - t0
+    remux_s = None
+    if container_videos is not None:
+        remux_s = container_videos.write(mpeg4_videos, videos, mjpg_paths)
     planes = np.empty(FRAMES5 * native.frame_bytes("yuv444p", H5, W5),
                       np.uint8)
 
@@ -1514,6 +1535,11 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
             chunks, dst, native.Ffv1Decoder(spec, *dst.shape[1:3]),
             planes=planes, **kw)
     failures, rows = lagarith_clips(), {}
+    if container_videos is not None:
+        log(f"  phase 14 (i)'s MP4, MOV and Matroska files muxed from the "
+            f"AVIs' bitstreams in {remux_s:.1f} s (tests/_torch_mp4_writer."
+            f"py, tests/_torch_mkv_writer.py)")
+        failures += container_clips()
     for name, (kind, chunks, spec, want) in layouts.items():
         s_kind, s_chunks, s_spec, _ = strips[name]
         strip = np.empty((len(s_chunks), STRIP_ROWS, W5, 3), np.uint8)
@@ -1575,6 +1601,8 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
                    "decoders against their plain versions, the pictures "
                    "written and the committed clips", failures)
     rows.update(mpeg4_rows(mpeg4_strip_out, asp_strip_out, mpeg4_videos))
+    if container_videos is not None:
+        rows.update(demux_rows(container_videos))
     return rows
 
 
@@ -1953,6 +1981,124 @@ class Mpeg4Videos:
         self.encode_s = time.perf_counter() - self._t0
 
 
+class ContainerVideos:
+    """Phase 14 (i)'s files: bitstreams of phase 14's AVIs remuxed by the
+    test muxers (``tests/_torch_mp4_writer.py``, ``tests/_torch_mkv_
+    writer.py``) into ``directory``: 14 (g)'s ``FMP4`` and 14 (h)'s
+    ``XVID`` videos into MP4 (``mp4v``), a copy of the brightest ``FMP4``
+    one under a 90-degree ``tkhd`` matrix, phase 14's default-decoder MJPG
+    scene into QuickTime MOV (``jpeg``) and 14 (d)'s FFV1 scene into
+    Matroska (``V_FFV1``, the stream's extradata as its CodecPrivate).
+    :meth:`write` muxes them, in phase 12's window (no call is timed
+    beside it), and returns its seconds."""
+
+    def __init__(self, directory):
+        self.directory = directory
+        self.fmp4, self.xvid, self.mjpeg, self.ffv1 = [], [], [], []
+        self.turned, self.sources = None, {}
+
+    def write(self, mpeg4_videos, lossless_videos, mjpg_paths) -> float:
+        from camera_linearity_tpu_torch.utils import avi
+        from tests import _torch_ffv1_writer as fw
+        from tests import _torch_mkv_writer as kw
+        from tests import _torch_mp4_writer as mw
+        t0 = time.perf_counter()
+
+        def chunks(path):
+            return [bytes(c) for c in avi.frame_chunks(path,
+                                                       avi.probe_avi(path))]
+        for src in mpeg4_videos.fmp4:
+            out = self.directory / f"{src.stem}.mp4"
+            mw.write_mp4(out, [mw.video_track(chunks(src), H5, W5, b"mp4v",
+                                              [mw.esds(b"")])])
+            self.fmp4.append(out)
+        self.turned = self.directory / f"turned {mpeg4_videos.fmp4[-1].stem}.mp4"
+        mw.write_mp4(self.turned, [mw.video_track(
+            chunks(mpeg4_videos.fmp4[-1]), H5, W5, b"mp4v", [mw.esds(b"")],
+            matrix=mw.rotation_matrix(90))])
+        for src in mpeg4_videos.asp:
+            out = self.directory / f"{src.stem}.mp4"
+            mw.write_mp4(out, [mw.video_track(chunks(src), H5, W5, b"mp4v",
+                                              [mw.esds(b"")])])
+            self.xvid.append(out)
+        for src in mjpg_paths:
+            out = self.directory / f"mjpeg {src.stem}.mov"
+            mw.write_mp4(out, [mw.video_track(chunks(src), H5, W5, b"jpeg",
+                                              qt=True)], qt=True)
+            self.mjpeg.append(out)
+        extra = fw.extradata(fw.cv2_config("bgr", H5, W5))
+        for src in lossless_videos.written["FFV1"]:
+            out = self.directory / f"{src.stem}.mkv"
+            kw.write_mkv(out, [kw.video_track(chunks(src), H5, W5, "V_FFV1",
+                                              extra)])
+            self.ffv1.append(out)
+        self.sources = dict(fmp4=mpeg4_videos.fmp4[-1],
+                            ffv1=lossless_videos.written["FFV1"][-1])
+        return time.perf_counter() - t0
+
+
+def demux_rows(container_videos) -> dict:
+    """Phase 12's demux rows: the brightest MP4 (``FMP4``) and Matroska
+    (FFV1) video of phase 14 (i) probed and every frame read (no decode),
+    beside the same bitstream's AVI walked by ``avi.frame_chunks``; host
+    clock, one run after a warm one; ms a 4K frame and MB/s."""
+    from camera_linearity_tpu_torch.utils import containers
+    rows = {}
+    for name, path, src in (
+            ("MP4 (FMP4)", container_videos.fmp4[-1],
+             container_videos.sources["fmp4"]),
+            ("Matroska (FFV1)", container_videos.ffv1[-1],
+             container_videos.sources["ffv1"])):
+        timed = {}
+        for kind, p in (("container", path), ("AVI", src)):
+            for _ in range(2):     # a warm run, then the timed one
+                t0 = time.perf_counter()
+                info = containers.probe_video(p)
+                size = sum(c.size for c in containers.frame_chunks(
+                    p, info, ring=FRAMES5))
+                secs = time.perf_counter() - t0
+            timed[kind] = (secs, size)
+        secs, size = timed["container"]
+        avi_s = timed["AVI"][0]
+        rows[f"demux {name}"] = dict(
+            ms_per_frame=secs / FRAMES5 * 1e3, mb_per_s=size / 1e6 / secs,
+            frame_mb=size / FRAMES5 / 1e6,
+            avi_ms_per_frame=avi_s / FRAMES5 * 1e3)
+        log(f"  demux {name}: {secs / FRAMES5 * 1e3:.3f} ms a 4K frame "
+            f"({size / FRAMES5 / 1e6:.3f} MB), {size / 1e6 / secs:.0f} MB/s"
+            f"; the AVI of the same bitstream {avi_s / FRAMES5 * 1e3:.3f} ms"
+            f" a frame (the probe and every frame read, no decode; host "
+            f"clock, one run after a warm one)")
+    return rows
+
+
+def container_clips() -> list:
+    """Phase 12's check of the committed ``tests/data/container *`` clips
+    (MP4, MOV and Matroska files cv2 wrote, and the test muxer's, one
+    under a 90-degree matrix, one of B-VOPs with ``ctts``): each through
+    ``video_frame_generator`` (the card's machine has no cv2) against its
+    ``.cv2.npy``; a line each, and the names that differ."""
+    from camera_linearity_tpu_torch.models import video
+    from camera_linearity_tpu_torch.utils import containers
+    failures = []
+    for clip in sorted((ROOT / "tests" / "data").glob("container *")):
+        if clip.suffix not in (".mp4", ".mov", ".mkv"):
+            continue
+        cv = np.load(clip.with_suffix(".cv2.npy"))
+        info = containers.probe_video(clip)
+        got = np.stack([f for f in video.video_frame_generator(clip)
+                        if f is not None])
+        same = got.shape == cv.shape and np.array_equal(got, cv)
+        log(f"  {'ok ' if same else 'BAD'} '{clip.name}' ({info.container_name}"
+            f", {info.codec_name}{f', turned {info.rotation}' if info.rotation else ''}"
+            f", {len(cv)} x {cv.shape[1]} x {cv.shape[2]}): "
+            f"{'equals' if same else 'differs from'} the committed "
+            f"cv2.VideoCapture frames")
+        if not same:
+            failures.append(clip.name)
+    return failures
+
+
 def mpeg4_clips() -> list:
     """Phase 12's check of the committed ``tests/data/mpeg4 *.avi``: each
     decoded natively against its ``.cv2.npy`` (cv2's frames, taken where
@@ -2207,8 +2353,82 @@ DECODED_AS = {"PNG": "png", "HFYU RGB24": "huffyuv", "FFV1": "ffv1",
               "LAGS YV12": "lagarith"}
 
 
+def container_phase(container_videos, mpeg4_videos, avi_v2h, v2h,
+                    run_video_to_hdr) -> dict:
+    """Phase 14 (i): config 5 from MP4, QuickTime MOV and Matroska files
+    (:class:`ContainerVideos`): ``video_to_hdr`` (K3) on 14 (g)'s ``FMP4``
+    and 14 (h)'s ``XVID`` bitstreams in MP4, phase 14's MJPG scene in MOV
+    and 14 (d)'s FFV1 scene in Matroska, each held bit for bit to the AVI
+    run of the same bitstream (``avi_v2h``); and ``welford_algorithm``
+    (host backend) on the ``FMP4`` MP4 under a 90-degree matrix, its mean
+    and std held exactly to ``np.rot90`` of the same run on the AVI (the
+    statistic is per pixel).  Times go into ``v2h``; returns 14 (i)'s."""
+    from camera_linearity_tpu_torch.models import video
+    from camera_linearity_tpu_torch.utils import containers
+    failures, out = [], {}
+    infos = {name: containers.probe_video(paths[0]) for name, paths in (
+        ("FMP4", container_videos.fmp4), ("XVID", container_videos.xvid),
+        ("MJPG", container_videos.mjpeg), ("FFV1", container_videos.ffv1))}
+    log("phase 14 (i): config 5 from MP4, QuickTime MOV and Matroska files "
+        "of phase 14's bitstreams (tests/_torch_mp4_writer.py, tests/"
+        "_torch_mkv_writer.py): " + ", ".join(
+            f"{name} in {i.container_name} ({i.codec_name})"
+            for name, i in infos.items()) + f"; {gpu_line()}")
+    for name, paths, decoded_as in (
+            ("FMP4", container_videos.fmp4, "mpeg4"),
+            ("XVID", container_videos.xvid, "mpeg4"),
+            ("MJPG", container_videos.mjpeg, "ffmpeg"),
+            ("FFV1", container_videos.ffv1, "ffv1")):
+        kind = infos[name].container_name
+        label = f"video_to_hdr ({name} in {kind})"
+        v2h[f"{name} {kind}"], _, got = run_video_to_hdr(label, paths,
+                                                         decoded_as)
+        same = all(torch.equal(a, b) for a, b in zip(got, avi_v2h[name]))
+        mps = FRAMES5 * len(paths) * H5 * W5 / 1e6 / v2h[f"{name} {kind}"]
+        out[f"{name} {kind}"] = dict(wall_s=v2h[f"{name} {kind}"], mps=mps,
+                                     k3_launches=1)
+        log(f"  {'ok ' if same else 'BAD'} {label} vs the AVI of the same "
+            f"bitstream: {'bit for bit equal' if same else 'different'}; "
+            f"{v2h[f'{name} {kind}']:.3f} s, {mps:.2f} MP/s, one K3 launch")
+        if not same:
+            failures.append(f"{label} against the AVI")
+        del got
+    # the default batch (32): each geometry's first call faults its decode
+    # pool in (and the turned one its scratch batch), its second finds
+    # them warm
+    walls = {"turned": [], "AVI": []}
+    stats = {}
+    for _ in range(2):
+        for name, path in (("turned", container_videos.turned),
+                           ("AVI", mpeg4_videos.fmp4[-1])):
+            t0 = time.perf_counter()
+            stats[name] = video.welford_algorithm(path, use_std=True)
+            walls[name].append(time.perf_counter() - t0)
+    turned, flat = stats["turned"], stats["AVI"]
+    info = containers.probe_video(container_videos.turned)
+    same = all(np.array_equal(turned[k], np.rot90(flat[k], -1))
+               for k in ("mean", "std"))
+    out["welford turned MP4"] = dict(
+        wall_s=walls["turned"][1], avi_wall_s=walls["AVI"][1],
+        first_wall_s=walls["turned"][0], avi_first_wall_s=walls["AVI"][0],
+        batch_size=32, shape=list(turned["mean"].shape))
+    log(f"  {'ok ' if same else 'BAD'} welford_algorithm (host backend, "
+        f"its default batch of 32) on the FMP4 MP4 under a "
+        f"{info.rotation}-degree tkhd matrix: mean and std "
+        f"{tuple(turned['mean'].shape)} "
+        f"{'equal' if same else 'differ from'} np.rot90 of the AVI's "
+        f"{tuple(flat['mean'].shape)}; host clock, first / second call: "
+        f"{walls['turned'][0]:.3f} / {walls['turned'][1]:.3f} s, the "
+        f"AVI's {walls['AVI'][0]:.3f} / {walls['AVI'][1]:.3f} s")
+    if not same:
+        failures.append("welford_algorithm on the turned MP4 against the "
+                        "AVI's turned")
+    raise_failures("phase 14 (i)", failures)
+    return out
+
+
 def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
-                   run_video_to_hdr) -> dict:
+                   run_video_to_hdr, container_videos, mjpg_v2h) -> dict:
     """Phases 14 (c)-(f): config 5 from the lossless compressed AVIs
     ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write,
     phase 14's raw frames as ``videos`` (:class:`LosslessVideos`, written
@@ -2225,7 +2445,10 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
     planes, equal to I420's; (g) on the MPEG-4 Part 2 (``FMP4``) AVIs of
     the I420 planes (``mpeg4_videos``, :class:`Mpeg4Videos`), equal to
     ``video_to_hdr`` on I420 AVIs of the writer's reconstruction, its wall,
-    K3's launches and MP/s.  Returns the phases' times (``encode_s`` None
+    K3's launches and MP/s; (h) likewise on ``XVID``; (i) on the MP4, MOV
+    and Matroska files of ``container_videos`` (:func:`container_phase`),
+    held to the AVI runs of the same bitstreams (``mjpg_v2h``: phase 14's
+    MJPG ``video_to_hdr``).  Returns the phases' times (``encode_s`` None
     where the cache had the videos)."""
     from camera_linearity_tpu_torch.utils import avi
     t_phase = time.perf_counter()
@@ -2321,6 +2544,8 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
             f"{v2h[codec]:.3f} s, one K3 launch")
         if not same:
             failures.append(f"video_to_hdr from {codec} against {what}")
+        if codec == "FFV1":    # 14 (i) holds its Matroska remux to it
+            avi_v2h = {"FFV1": got}
         del got
     raise_failures("phase 14 (f)", failures)
     walls["f"] = time.perf_counter() - t_phase
@@ -2350,6 +2575,7 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
         f"{mpeg4['frame_mb']:.3f} MB a frame), one K3 launch")
     if not same:
         failures.append("video_to_hdr from FMP4 against the reconstruction")
+    avi_v2h["FMP4"] = got
     del got, want
     raise_failures("phase 14 (g)", failures)
     walls["g"] = time.perf_counter() - t_phase
@@ -2385,12 +2611,20 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
     if not same:
         failures.append("video_to_hdr from XVID ASP against the "
                         "reconstruction")
+    avi_v2h["XVID"] = got
     del got, want
     raise_failures("phase 14 (h)", failures)
     walls["h"] = time.perf_counter() - t_phase
     log(f"phase 14 (h): {walls['h']:.1f} s")
+    avi_v2h["MJPG"] = mjpg_v2h
+    t_phase = time.perf_counter()
+    containers_out = container_phase(container_videos, mpeg4_videos,
+                                     avi_v2h, v2h, run_video_to_hdr)
+    del avi_v2h
+    walls["i"] = time.perf_counter() - t_phase
+    log(f"phase 14 (i): {walls['i']:.1f} s")
     return dict(walls_s=walls, encode_s=encode_s, read_mbps=read_mb / read_s,
-                mpeg4=mpeg4, mpeg4_asp=mpeg4_asp,
+                mpeg4=mpeg4, mpeg4_asp=mpeg4_asp, containers=containers_out,
                 mpeg4_encode_s=mpeg4_videos.encode_s,
                 raw_mps=before["mps"],
                 raw_decode_s=before["stages"].get("decode_s", 0),
@@ -2652,6 +2886,7 @@ def video_phases(dev, res, directory) -> dict:
                    "rawvideo_plain.py", failures)
     lossless_videos = LosslessVideos(paths, i420_paths)
     mpeg4_videos = Mpeg4Videos(i420_paths)
+    container_videos = ContainerVideos(directory)
     # the MPEG-4 strip's pictures: the first rows of phase 14's I420 planes
     strip_pictures = []
     for c in [bytes(c) for c in avi.raw_chunks(
@@ -2665,7 +2900,8 @@ def video_phases(dev, res, directory) -> dict:
                                         (v, STRIP_ROWS // 2))))
     decode_ms.update(lossless_layout_rows(
         pools[-1][:2], [bgr_dev, torch.as_tensor(pools[-1][1], device=dev)],
-        lossless_videos, mpeg4_videos, strip_pictures, pool))
+        lossless_videos, mpeg4_videos, strip_pictures, pool,
+        container_videos, mjpg_paths))
     del bgr_dev
     icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
             ** np.array([2.0, 2.2, 2.4]))
@@ -3031,14 +3267,15 @@ def video_phases(dev, res, directory) -> dict:
                     "ffmpeg"),
                 lambda paths: run_video_to_hdr(
                     "video_to_hdr (MJPG stream 1)", paths, "ffmpeg"))
+            mjpg_v2h = stream0["video_to_hdr"]
             del stream0
             lossless = lossless_phase(
                 lossless_videos, mpeg4_videos, raw_u16,
                 dict(video_to_hdr=i420_v2h), runs,
                 lambda label, paths, decoded_as: run_batch(
                     label, paths, crops, "u16", "f16", "auto", decoded_as),
-                run_video_to_hdr)
-            del raw_u16, i420_v2h
+                run_video_to_hdr, container_videos, mjpg_v2h)
+            del raw_u16, i420_v2h, mjpg_v2h
         finally:
             if cl_decoder is not None:
                 os.environ["CL_DECODER"] = cl_decoder

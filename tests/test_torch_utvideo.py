@@ -196,11 +196,17 @@ def test_interlaced_frames_equal_the_pictures(tmp_path, fourcc, predictor,
 @pytest.mark.skipif(not lav.available(),
                     reason="cv2's libavcodec is not found")
 @pytest.mark.parametrize("fourcc", FOURCCS)
-def test_interlaced_frames_equal_libavcodecs_planes(tmp_path, fourcc):
+def test_interlaced_frames_equal_libavcodecs_planes(tmp_path, fourcc,
+                                                    monkeypatch):
     """Interlaced frames, which cv2 does not convert, held to the planes
     cv2's own libavcodec decodes them to (``tests/_torch_libavcodec.py``):
     the plain version's planes (RGB restored from its G, B - G and R - G
-    planes) and the pictures written equal them, every predictor."""
+    planes) and the pictures written equal them, every predictor; and the
+    frames the port's entry point gives (``video_frame_generator``, cv2
+    blocked: ``native/utvideo.cpp`` and the rawvideo converter) equal
+    libavcodec's planes converted as the port converts a progressive
+    frame's (BT.601, BT.709 for ``ULH*``; RGB from its G, B and R
+    planes)."""
     h, w, slices = 16, 10, 3
     for predictor in PREDICTORS:
         pics = pictures(fourcc, h, w, seed=len(fourcc + predictor))
@@ -211,6 +217,19 @@ def test_interlaced_frames_equal_libavcodecs_planes(tmp_path, fourcc):
         params = avi.utvideo_params(info)
         got = lav.decode_planes(path)
         assert len(got) == len(pics)
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "cv2", None)
+            port = _port_frames(path)
+        assert len(port) == len(got)
+        for k, (fmt, planes) in enumerate(got):
+            if fmt in ("gbrp", "gbrap"):
+                want = np.stack([planes[1], planes[0], planes[2]], -1)
+            else:
+                want = rawvideo_plain.decode_bgr(
+                    b"".join(p.tobytes() for p in planes),
+                    up.yuv_layout(params), h, w, matrix=up.matrix(params))
+            np.testing.assert_array_equal(port[k], want,
+                                          err_msg=f"{predictor} frame {k}")
         for chunk, pic, (fmt, planes) in zip(chunks, pics, got):
             mine = up.decode_planes(chunk, params, h, w)[0]
             if params.layout in ("gbrp", "gbrap"):
