@@ -382,7 +382,13 @@ def cmd_doctor(args) -> int:
              "Profile I-, P- and N-VOPs, 1MV/4MV, dquant, AC prediction, "
              "video packets; Xvid and DivX 5 Advanced Simple streams: "
              "B-VOPs, packed bitstreams, MPEG quantisation, the Xvid IDCT "
-             "(not quarter-pel or GMC); a macroblock row a thread")):
+             "(not quarter-pel or GMC); a macroblock row a thread"),
+            ("H.264", native.h264_available, "_h264", "H.264 AVIs ("
+             + ", ".join(native.h264_plain.H264_FOURCCS) + "), MP4/MOV "
+             "avc1/avc3 and Matroska V_MPEG4/ISO/AVC: the Constrained "
+             "Baseline tools (CAVLC, I and P slices, every MMCO, several "
+             "slices; not CABAC, B slices or interlaced coding); a GOP a "
+             "thread, a picture's slices side by side")):
         print(f"native {name} decoder: " + (
             f"built; {what} (cv2's bytes)" if ok() else
             f"unavailable ({native.build_error(stem)}); such AVIs cannot "
@@ -453,13 +459,15 @@ def _doctor_video(path: Path) -> None:
                       f"({w}x{h}, {len(payloads)} frames, "
                       f"{secs / len(payloads) * 1e3:.1f} ms a frame)")
     codecs = avi.PNG_CODECS + avi.HUFFYUV_CODECS + avi.FFV1_CODECS + \
-        avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS + avi.MPEG4_CODECS
+        avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS + avi.MPEG4_CODECS + \
+        avi.H264_CODECS
     if info is not None and info.codec in codecs:
         kind = "png" if info.codec in avi.PNG_CODECS else \
             "huffyuv" if info.codec in avi.HUFFYUV_CODECS else \
             "ffv1" if info.codec in avi.FFV1_CODECS else \
             "lagarith" if info.codec in avi.LAGARITH_CODECS else \
-            "mpeg4" if info.codec in avi.MPEG4_CODECS else "utvideo"
+            "mpeg4" if info.codec in avi.MPEG4_CODECS else \
+            "h264" if info.codec in avi.H264_CODECS else "utvideo"
         payloads = [bytes(c) for c in itertools.islice(
             containers.frame_chunks(path, info), 120)]
         cores = os.cpu_count() or 1
@@ -473,6 +481,9 @@ def _doctor_video(path: Path) -> None:
             # MPEG-4 chains its P-VOPs from the last I-VOP: a decoder too
             mpeg4 = native.Mpeg4Decoder(*avi.mpeg4_params(info), h, w) \
                 if kind == "mpeg4" else None
+            # and H.264 its P pictures from the IDR
+            h264 = native.H264Decoder(avi.h264_params(info)) \
+                if kind == "h264" else None
             t0 = time.perf_counter()
             for at in range(0, len(payloads), len(dst)):
                 part = payloads[at:at + len(dst)]
@@ -491,6 +502,9 @@ def _doctor_video(path: Path) -> None:
                 elif kind == "mpeg4":
                     native.mpeg4_decode_bgr_batch(
                         part, dst[:len(part)], mpeg4, threads=threads)
+                elif kind == "h264":
+                    native.h264_decode_bgr_batch(
+                        part, dst[:len(part)], h264, threads=threads)
                 else:
                     native.huffyuv_decode_bgr_batch(
                         part, dst[:len(part)], params, threads=threads)

@@ -129,10 +129,13 @@ def _cv2(why: str):
             + "), FFV1 (" + ", ".join(avi.FFV1_CODECS)
             + "), UtVideo (" + ", ".join(avi.UTVIDEO_READ)
             + "), Lagarith (" + ", ".join(avi.LAGARITH_CODECS)
-            + ") and MPEG-4 Part 2 (" + ", ".join(avi.MPEG4_CODECS)
+            + "), MPEG-4 Part 2 (" + ", ".join(avi.MPEG4_CODECS)
             + "; V_MPEG4/ISO/*: the Simple Profile and Xvid and DivX 5 "
             "Advanced Simple streams, B-VOPs, packed bitstreams and MPEG "
-            "quantisation among them; not quarter-pel or GMC) ('native', "
+            "quantisation among them; not quarter-pel or GMC) and H.264 ("
+            + ", ".join(avi.H264_CODECS)
+            + "; V_MPEG4/ISO/AVC: the Constrained Baseline tools, CAVLC, I "
+            "and P slices; not CABAC or B slices) ('native', "
             "its own decoders) and MJPG (jpeg, V_MJPEG; 'native' / "
             "'ffmpeg' / 'turbo' / 'turbo_fast', its own JPEG decoder)"
         ) from exc
@@ -371,6 +374,31 @@ def _decoded_fillers(path: Path, decoder: str, batch_size: int,
             return 0
         while True:
             yield fill_mpeg4
+    elif decoder == "h264":
+        chunks = containers.frame_chunks(path, info, ring=batch_size)
+        h264 = native.H264Decoder(avi.h264_params(info))
+        h264.matrix = _container_matrix(info)
+        # the yuv420p planes, reused from call to call
+        planes = np.empty(batch_size * native.frame_bytes(
+            "i420_left", info.height, info.width), np.uint8)
+
+        def fill_h264(dst: np.ndarray) -> int:
+            # a sample of parameter sets gives no frame: read on until one
+            # does or the stream ends
+            while True:
+                payloads = list(itertools.islice(chunks, min(len(dst),
+                                                             batch_size)))
+                if not payloads:
+                    return 0
+                try:
+                    got = native.h264_decode_bgr_batch(
+                        payloads, dst[:len(payloads)], h264, planes=planes)
+                except ValueError as exc:
+                    raise ValueError(f"{path}: {exc}") from exc
+                if got:
+                    return got
+        while True:
+            yield fill_h264
     elif decoder in ("rawvideo", "png", "huffyuv", "ffv1", "utvideo",
                      "lagarith"):
         # every chunk of a call is read into a buffer of its own
@@ -558,7 +586,7 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
     own = info is not None and (
         info.codec in ("RGBA", "MJPG") + avi.PNG_CODECS + avi.HUFFYUV_CODECS
         + avi.FFV1_CODECS + avi.UTVIDEO_CODECS + avi.LAGARITH_CODECS
-        + avi.MPEG4_CODECS or info.layout is not None)
+        + avi.MPEG4_CODECS + avi.H264_CODECS or info.layout is not None)
     kind = "AVI" if info is None else info.container_name
     if info is not None and not own:
         unsupported = containers.raw_unsupported(path, info)
@@ -614,6 +642,10 @@ def _container_decoder(path: Path, info: Optional[avi.AviInfo],
         decoder, why = "mpeg4", avi.mpeg4_unsupported(path, info)
         # its yuv420p planes convert through jpeg.cpp's rawvideo reader
         yuv, libs = True, ("mpeg4", "mjpeg")
+    elif info.codec in avi.H264_CODECS:
+        decoder, why = "h264", avi.h264_unsupported(path, info)
+        # its yuv420p planes convert through jpeg.cpp's rawvideo reader
+        yuv, libs = True, ("h264", "mjpeg")
     elif info.layout:
         decoder, libs = "rawvideo", ("mjpeg",)
         why = containers.raw_unsupported(path, info)
@@ -677,7 +709,7 @@ def _colour_unsupported(info: avi.AviInfo, decoder: str, yuv: bool
         return f"{tags}: BT.709 on MJPEG" if matrix == 1 else None
     if full:
         return f"{tags}: a full-range YUV signal"
-    if matrix == 1 and decoder not in ("rawvideo", "mpeg4", "ffv1"):
+    if matrix == 1 and decoder not in ("rawvideo", "mpeg4", "ffv1", "h264"):
         return f"{tags}: BT.709 on {_DECODER_NAMES[decoder]} YUV frames"
     return None
 
@@ -685,17 +717,19 @@ def _colour_unsupported(info: avi.AviInfo, decoder: str, yuv: bool
 # the port's own decoders by name, and the native sources they build from
 _DECODER_NAMES = {"png": "PNG", "huffyuv": "HuffYUV", "rawvideo": "rawvideo",
                   "ffv1": "FFV1", "utvideo": "UtVideo",
-                  "lagarith": "Lagarith", "mpeg4": "MPEG-4 Part 2"}
+                  "lagarith": "Lagarith", "mpeg4": "MPEG-4 Part 2",
+                  "h264": "H.264"}
 _SOURCES = {"png": "png.cpp", "huffyuv": "huffyuv.cpp", "mjpeg": "jpeg.cpp",
             "ffv1": "ffv1.cpp", "utvideo": "utvideo.cpp",
-            "lagarith": "lagarith.cpp", "mpeg4": "mpeg4.cpp"}
+            "lagarith": "lagarith.cpp", "mpeg4": "mpeg4.cpp",
+            "h264": "h264.cpp"}
 
 
 def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
                      width: int, chs: int) -> List[str]:
     """Each file's decoder: ``"raw"``, ``"rawvideo"``, ``"png"``,
     ``"huffyuv"``, ``"ffv1"``, ``"utvideo"``, ``"lagarith"``, ``"mpeg4"``,
-    ``"ffmpeg"``, ``"turbo"``, ``"turbo_fast"`` or ``"cv2"``.
+    ``"h264"``, ``"ffmpeg"``, ``"turbo"``, ``"turbo_fast"`` or ``"cv2"``.
 
     ``"auto"`` reads env ``CL_DECODER`` (default ``"native"``).
     ``"native"``: the container decides — an RGBA AVI reads raw, the other
@@ -704,22 +738,27 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
     YUY2/UYVY), PNG, HuffYUV, FFV1, UtVideo, Lagarith and MPEG-4 Part 2
     AVIs (the Simple Profile, and the Advanced Simple streams Xvid and
     DivX 5 write: B-VOPs, packed bitstreams, MPEG quantisation, the Xvid
-    IDCT) through the port's PNG, HuffYUV, FFV1, UtVideo, Lagarith and
-    MPEG-4 decoders (cv2's bytes), an MJPG AVI through the port's JPEG
-    decoder in its ``"ffmpeg"`` mode (cv2's bytes, as the JAX package's
-    default gives them), anything else (MS-MPEG4, H.264, ...) through cv2
-    when it imports (else a ValueError naming the codec).
+    IDCT) and H.264 files (AVI, MP4/MOV ``avc1``/``avc3``, Matroska
+    ``V_MPEG4/ISO/AVC``: the Constrained Baseline tools) through the
+    port's PNG, HuffYUV, FFV1, UtVideo, Lagarith, MPEG-4 and H.264
+    decoders (cv2's bytes), an MJPG AVI through the port's JPEG decoder in
+    its ``"ffmpeg"`` mode (cv2's bytes, as the JAX package's default gives
+    them), anything else (MS-MPEG4, HEVC, ...) through cv2 when it imports
+    (else a ValueError naming the codec).
     ``"ffmpeg"``/``"turbo"``/``"turbo_fast"``: that decoder's modes on MJPG
     files; another container logs a warning and takes its own decoder.
     ``"cv2"``: cv2 for every file.  RGBA, rawvideo, PNG, HuffYUV, FFV1,
-    UtVideo, Lagarith, MPEG-4 and MJPG files are checked against the
+    UtVideo, Lagarith, MPEG-4, H.264 and MJPG files are checked against the
     expected geometry and ``chs`` before any decode; a PNG, HuffYUV, FFV1,
-    UtVideo, Lagarith or MPEG-4 stream the decoders do not read raises
-    then, naming it (``avi.png_unsupported``, ``avi.huffyuv_unsupported``,
+    UtVideo, Lagarith, MPEG-4 or H.264 stream the decoders do not read
+    raises then, naming it (``avi.png_unsupported``, ``avi.huffyuv_unsupported``,
     ``avi.ffv1_unsupported``, ``avi.utvideo_unsupported``,
     ``avi.lagarith_unsupported``: the first frame's type,
     ``avi.mpeg4_unsupported``: the VOL and the first VOP, which refuse
-    quarter-pel, GMC/S-VOPs, interlaced VOLs and the rest by name);
+    quarter-pel, GMC/S-VOPs, interlaced VOLs and the rest by name;
+    ``avi.h264_unsupported``: the parameter sets and the first slice
+    header, which refuse CABAC, B slices, interlaced coding and the rest
+    by name);
     1/2/4-bit BI_RGB, BI_BITFIELDS, palette-change chunks and a frame
     chunk longer than the frame (not its padded size) raise then, naming
     what; and an MJPG's

@@ -1,6 +1,6 @@
 """ctypes bindings for the native host-staging library, the MJPEG decoder,
-the TIFF codec and the PNG, HuffYUV, FFV1, UtVideo, Lagarith and MPEG-4
-Part 2 frame decoders.
+the TIFF codec and the PNG, HuffYUV, FFV1, UtVideo, Lagarith, MPEG-4
+Part 2 and H.264 frame decoders.
 
 Port of ``camera_linearity_tpu/native``, copied: importing the JAX package
 would import JAX.  ``stager.cpp`` (exact integer moments of uint8 frames
@@ -18,7 +18,9 @@ slice a thread, the context states kept in a decoder object),
 ``lagarith.cpp`` (Lagarith frames of an AVI, a plane a thread) and
 ``mpeg4.cpp`` (MPEG-4 Part 2 frames of an AVI: a frame parsed while the
 one before it is rebuilt a macroblock row a thread, the prediction state
-and the reference picture kept in a decoder object) build
+and the reference picture kept in a decoder object) and ``h264.cpp``
+(H.264 slice data: a slice a thread, GOPs side by side, the frame slots
+kept in a decoder object; ``h264_plain.Stream`` reads the headers) build
 with ``g++`` on first use, never at import, into
 ``build/native/<stem>-<hash>.so`` beside the package (the hash covers the
 source and the host's CPU features, so a changed source or another CPU
@@ -28,8 +30,8 @@ without a compiler; ``available()`` reports which path is active and
 have no fallback: their entry points raise without the library
 (``native/jpeg_plain.py``, ``tiff_plain.py``, ``png_plain.py``,
 ``huffyuv_plain.py``, ``ffv1_plain.py``, ``utvideo_plain.py``,
-``lagarith_plain.py`` and ``mpeg4_plain.py`` are the plain versions the
-tests hold them to).
+``lagarith_plain.py``, ``mpeg4_plain.py`` and ``h264_plain.py`` are the
+plain versions the tests hold them to).
 """
 from __future__ import annotations
 
@@ -50,8 +52,8 @@ from .jpeg_plain import TIFF_FORMS as TIFF_JPEG_FORMS
 # the uncompressed video layouts, by their number in jpeg.cpp
 from .rawvideo_plain import LAYOUTS as RAW_LAYOUTS, frame_bytes
 from .rawvideo_plain import MATRICES as RAW_MATRICES
-from . import (ffv1_plain, huffyuv_plain, lagarith_plain, mpeg4_plain,
-               png_plain, utvideo_plain)
+from . import (ffv1_plain, h264_plain, huffyuv_plain, lagarith_plain,
+               mpeg4_plain, png_plain, utvideo_plain)
 
 __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "welford_update_batch_u8", "accum_moments_u8", "HostMoments",
@@ -70,7 +72,8 @@ __all__ = ["available", "u8_to_f32", "u8_hwc_to_cfirst_f32",
            "ffv1_decode_bgr_batch", "utvideo_available",
            "utvideo_decode_bgr_batch", "lagarith_available",
            "lagarith_decode_bgr_batch", "mpeg4_available", "Mpeg4Decoder",
-           "mpeg4_decode_bgr_batch", "mpeg4_flush"]
+           "mpeg4_decode_bgr_batch", "mpeg4_flush", "h264_available",
+           "H264Decoder", "h264_decode_bgr_batch"]
 
 # The host->device wire encoding for (mean, std_of_mean) frame pairs: u16
 # fixed-point mean (grid 1/65535 on the [0,1] DN scale, absolute error
@@ -147,6 +150,7 @@ _FFV1_SRC = _DIR / "ffv1.cpp"
 _UTVIDEO_SRC = _DIR / "utvideo.cpp"
 _LAGARITH_SRC = _DIR / "lagarith.cpp"
 _MPEG4_SRC = _DIR / "mpeg4.cpp"
+_H264_SRC = _DIR / "h264.cpp"
 _BUILD_ROOT = _DIR.parent.parent / "build" / "native"
 
 
@@ -424,6 +428,24 @@ def _declare_mpeg4(lib: ctypes.CDLL) -> None:
     lib.clt_mpeg4_version.restype = i
 
 
+def _declare_h264(lib: ctypes.CDLL) -> None:
+    i, sz, vp = ctypes.c_int, ctypes.c_size_t, ctypes.c_void_p
+    ip, szp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_size_t)
+    lib.clt_h264_new.argtypes = [i, i, i]
+    lib.clt_h264_new.restype = vp
+    lib.clt_h264_free.argtypes = [vp]
+    lib.clt_h264_free.restype = None
+    lib.clt_h264_grow.argtypes = [vp, i]
+    lib.clt_h264_grow.restype = None
+    lib.clt_h264_decode_batch.argtypes = [
+        vp, ip, sz, ctypes.POINTER(ctypes.c_void_p), szp, szp, szp, ip, i,
+        ip, ip]
+    lib.clt_h264_decode_batch.restype = None
+    lib.clt_h264_output.argtypes = [vp, i, i, i, i, i, ctypes.c_void_p]
+    lib.clt_h264_output.restype = None
+    lib.clt_h264_version.restype = i
+
+
 # stem: (source, extra g++ flags, entry-point types, what it is).  -fwrapv
 # for jpeg.cpp: the IDCTs' sums of corrupt coefficients wrap, as libjpeg's
 # 32-bit lanes do, instead of being undefined.
@@ -437,6 +459,7 @@ _DECODERS = {
     "_lagarith": (_LAGARITH_SRC, (), _declare_lagarith, "Lagarith decoder"),
     "_mpeg4": (_MPEG4_SRC, ("-fwrapv",), _declare_mpeg4,
                "MPEG-4 Part 2 decoder"),
+    "_h264": (_H264_SRC, ("-fwrapv",), _declare_h264, "H.264 decoder"),
 }
 _decoder_libs: Dict[str, Optional[ctypes.CDLL]] = {}
 
@@ -706,6 +729,12 @@ def mpeg4_available() -> bool:
     """True when the native MPEG-4 Part 2 decoder built (or was built) and
     loaded."""
     return _load_decoder("_mpeg4") is not None
+
+
+def h264_available() -> bool:
+    """True when the H.264 decoder (``h264.cpp``) built (or was
+    built)."""
+    return _load_decoder("_h264") is not None
 
 
 def utvideo_available() -> bool:
@@ -1775,3 +1804,129 @@ class HostWelford:
             return self.mean.copy(), None
         std = np.sqrt(self.m2 / (self.count - 1)) / np.sqrt(self.count)
         return self.mean.copy(), std
+
+
+class H264Decoder:
+    """The native decoder of one H.264 stream (``extradata``: an avcC,
+    whose NAL length size then splits the samples, or Annex B parameter
+    sets, or nothing for Annex B samples).  Python reads the NAL units,
+    parameter sets and slice headers and keeps the decoded picture buffer
+    (``h264_plain.Stream``: the POCs, the reference marking and lists, the
+    refusals); ``h264.cpp`` keeps the frame slots, the pictures in them,
+    from one :func:`h264_decode_bgr_batch` call to the next, so the
+    decoder takes the stream's samples in order, from its first.
+    ``matrix``, where the container's colour tags name one, converts the
+    frames of an SPS that names none.  ``frames`` counts the frames it
+    output.  Raises RuntimeError where the library did not build."""
+
+    def __init__(self, extradata: bytes = b""):
+        self._lib = _require(_load_decoder("_h264"), "_h264")
+        _mjpeg()   # the planes' converter
+        self._handle = None
+        self._slots = 0
+        self.stream = h264_plain.Stream(extradata)
+        self.matrix: Optional[str] = None
+        self.frames = 0
+        self.failed: Optional[str] = None        # why a call failed
+
+    def _reserve(self, mbw: int, mbh: int, slots: int) -> None:
+        if self._handle is None:
+            # the slots the stream has handed out (more come as it needs
+            # them: a 4K slot holds 12.4 MB of planes)
+            self._slots = slots
+            self._handle = self._lib.clt_h264_new(mbw, mbh, self._slots)
+            if not self._handle:
+                raise ValueError(f"an H.264 stream of {mbw * 16} x "
+                                 f"{mbh * 16} the decoder does not take")
+        elif slots > self._slots:
+            self._lib.clt_h264_grow(self._handle, slots)
+            self._slots = slots
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.clt_h264_free(self._handle)
+            self._handle = None
+
+
+def h264_decode_bgr_batch(payloads, dst: np.ndarray, decoder: H264Decoder,
+                          planes: Optional[np.ndarray] = None,
+                          threads: Optional[int] = None) -> int:
+    """Decode the next samples of ``decoder``'s H.264 stream into ``dst``
+    ((k, H, W, 3) BGR uint8, k >= ``len(payloads)``), giving the frames
+    ``cv2.VideoCapture`` gives for them, in its order (each picture as it
+    is decoded): ``h264.cpp`` on up to ``threads`` threads (default: every
+    CPU; a GOP a thread where the batch holds several IDR pictures, the
+    slices of a picture side by side, the deblocking after them) into
+    yuv420p planes (``planes``: a reusable uint8 buffer of at least k
+    frames), which the rawvideo converter (``jpeg.cpp``) turns into BGR.
+    Returns the number of frames written (a sample of parameter sets only
+    gives none).  Raises ValueError naming the frame (the sample's index in
+    the stream) that the decoder refuses (a tool ``h264_plain.unsupported``
+    names) or that does not decode, with the slice and the macroblock
+    where it fails; after a failure the decoder refuses every call.
+    RuntimeError where a library did not build."""
+    _check_frames(dst, 4, "(k, H, W, 3)")
+    st = decoder.stream
+    k, (h, w) = len(payloads), dst.shape[1:3]
+    if dst.shape[0] < k:
+        raise ValueError(f"dst holds {dst.shape[0]} frames, payloads {k}")
+    if decoder.failed:
+        raise ValueError(f"h264_decode_bgr_batch: {decoder.failed}")
+    jobs = []
+    try:
+        for p in payloads:
+            job = st.next(bytes(p))
+            if job is not None:
+                if h264_plain.geometry(job.sps) != (h, w):
+                    raise h264_plain.H264Error(
+                        f"frame {job.index}: a picture of "
+                        f"{h264_plain.geometry(job.sps)}, dst frames of "
+                        f"{(h, w)}")
+                jobs.append(job)
+    except h264_plain.H264Error as exc:
+        decoder.failed = str(exc)
+        raise ValueError(f"h264_decode_bgr_batch: {exc}") from None
+    n = len(jobs)
+    if not n:
+        st.end_batch()
+        return 0
+    sps = jobs[0].sps
+    decoder._reserve(sps.mbw, sps.mbh, 1 + max(
+        [j.pic.slot for j in jobs] + [p.slot for p in st.dpb]))
+    pic = np.array([(j.pic.slot, j.chain, len(j.slices)) for j in jobs],
+                   np.int32)
+    slices = [(j, s) for j in jobs for s in j.slices]
+    flats = [np.frombuffer(s.rbsp, np.uint8) for _, s in slices]
+    ptrs = (ctypes.c_void_p * len(flats))(*[f.ctypes.data for f in flats])
+    sizes = (ctypes.c_size_t * len(flats))(*[f.size for f in flats])
+    ends = (ctypes.c_size_t * len(flats))(*[s.end_bit for _, s in slices])
+    bits = (ctypes.c_size_t * len(flats))(
+        *[s.header.data_bit for _, s in slices])
+    params = np.array([j.native_params(s) for j, s in slices], np.int32)
+    rcs, wheres = (ctypes.c_int * n)(), (ctypes.c_int * n)()
+    ip = ctypes.POINTER(ctypes.c_int)
+    decoder._lib.clt_h264_decode_batch(
+        decoder._handle, pic.ctypes.data_as(ip), n, ptrs, sizes, ends, bits,
+        params.ctypes.data_as(ip), threads or os.cpu_count() or 1, rcs,
+        wheres)
+    st.end_batch()
+    for i, rc in enumerate(rcs):
+        if rc != 0:
+            decoder.failed = h264_plain.failure(jobs[i], rc, wheres[i])
+            raise ValueError(f"h264_decode_bgr_batch: {decoder.failed}")
+    plane_bytes = frame_bytes("i420_left", h, w)
+    if planes is None or planes.size < n * plane_bytes:
+        planes = np.empty(n * plane_bytes, np.uint8)
+    _u8_buffer(planes, "planes", writable=True)
+    top, left = h264_plain.crop_origin(sps)
+    base = planes.ctypes.data
+    for i, j in enumerate(jobs):
+        decoder._lib.clt_h264_output(decoder._handle, j.pic.slot, top, left,
+                                     h, w, base + i * plane_bytes)
+        st.release(j.pic.slot)
+    raw_decode_bgr_batch(
+        [planes[i * plane_bytes:(i + 1) * plane_bytes] for i in range(n)],
+        dst[:n], "i420_left", threads=threads, first_frame=decoder.frames,
+        matrix=h264_plain.matrix_name(sps, decoder.matrix))
+    decoder.frames += n
+    return n

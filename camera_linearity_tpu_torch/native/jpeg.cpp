@@ -2249,7 +2249,8 @@ void clt_jpeg_decode_bgr_batch(const unsigned char* const* srcs,
 // 13 yv24) into dst, frame i
 // at i*height*width*3 as BGR, on up to nthreads threads.  bottom_up: the
 // single-plane layouts' rows are stored last first; palette: pal8's 256 B,
-// G, R, X entries; matrix: the YUV layouts' (0 BT.601, 1 BT.709).  rcs[i]
+// G, R, X entries; matrix: the YUV layouts' (0 BT.601, 1 BT.709, 2 BT.601
+// at full range, as the MJPEG decoder's yuvj formats convert).  rcs[i]
 // gets 0, -7 for a chunk shorter than the frame, or -4 for an unknown
 // layout or matrix or an empty frame.
 void clt_raw_decode_bgr_batch(const unsigned char* const* srcs,
@@ -2259,7 +2260,10 @@ void clt_raw_decode_bgr_batch(const unsigned char* const* srcs,
                               const unsigned char* palette, int matrix,
                               int nthreads, int* rcs) {
     const std::size_t frame = static_cast<std::size_t>(height) * width * 3;
-    const SwsRange* range = matrix == 0 ? &kSwsLimited : matrix == 1 ? &kSwsLimited709 : nullptr;
+    const SwsRange* range = matrix == 0   ? &kSwsLimited
+                            : matrix == 1 ? &kSwsLimited709
+                            : matrix == 2 ? &kSwsFull
+                                          : nullptr;
     parallel_items(k, nthreads, [&](std::size_t i) {
         rcs[i] = range ? raw_decode(srcs[i], sizes[i], dst + i * frame, height, width,
                                     layout, bottom_up != 0, palette, range)

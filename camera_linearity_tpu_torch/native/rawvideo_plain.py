@@ -53,7 +53,7 @@ from typing import Optional
 
 import numpy as np
 
-from .jpeg_plain import (SWS_LIMITED, SWS_LIMITED_709, _ffmpeg_bgr,
+from .jpeg_plain import (SWS_FULL, SWS_LIMITED, SWS_LIMITED_709, _ffmpeg_bgr,
                          _swscale_bgr)
 
 __all__ = ["LAYOUTS", "MATRICES", "FOURCC_LAYOUTS", "DIB_LAYOUTS",
@@ -65,7 +65,7 @@ LAYOUTS = ("pal8", "rgb555", "bgr24", "bgr0", "gray8", "i420", "yv12",
            "yv24")
 
 # the YUV layouts' matrices, by their number in jpeg.cpp
-MATRICES = ("bt601", "bt709")
+MATRICES = ("bt601", "bt709", "bt601_full")
 
 # the fourccs rawdec maps to these layouts; BI_RGB goes by bit count
 FOURCC_LAYOUTS = {"I420": "i420", "IYUV": "i420", "YV12": "yv12",
@@ -126,7 +126,8 @@ def decode_bgr(payload, layout: str, height: int, width: int,
     B, G, R, X entries; ``matrix``: the YUV layouts' (``MATRICES``: the
     rawvideo decoder's BT.601, or BT.709 for the planes of a stream
     tagged so).  Raises ValueError for a chunk shorter than the frame."""
-    rng = {"bt601": SWS_LIMITED, "bt709": SWS_LIMITED_709}[matrix]
+    rng = {"bt601": SWS_LIMITED, "bt709": SWS_LIMITED_709,
+           "bt601_full": SWS_FULL}[matrix]
     data = np.frombuffer(payload, np.uint8)
     need = frame_bytes(layout, height, width)
     if data.size < need:

@@ -51,8 +51,8 @@ from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from ..native import (ffv1_plain, huffyuv_plain, lagarith_plain,
-                      mpeg4_plain, png_plain, utvideo_plain)
+from ..native import (ffv1_plain, h264_plain, huffyuv_plain,
+                      lagarith_plain, mpeg4_plain, png_plain, utvideo_plain)
 from ..native.jpeg_plain import ffmpeg_format
 from ..native.rawvideo_plain import (DIB_LAYOUTS, FOURCC_LAYOUTS,
                                      chunk_sizes, frame_bytes)
@@ -65,7 +65,8 @@ __all__ = ["mjpg_chunks", "probe_avi", "raw_frames", "raw_chunks",
            "UTVIDEO_CODECS", "utvideo_params", "utvideo_unsupported",
            "LAGARITH_CODECS", "lagarith_unsupported", "MPEG4_CODECS",
            "mpeg4_params", "mpeg4_unsupported", "UTVIDEO_READ",
-           "FOURCC_LAYOUTS"]
+           "FOURCC_LAYOUTS", "H264_CODECS", "h264_params",
+           "h264_unsupported"]
 
 # the fourccs (stripped of trailing spaces) FFmpeg decodes as PNG, as
 # HuffYUV, as FFV1 and as Ut Video (the Pro and pack-mode ones too, which
@@ -79,6 +80,10 @@ UTVIDEO_READ = utvideo_plain.UTVIDEO_FOURCCS   # the ones it decodes
 LAGARITH_CODECS = lagarith_plain.LAGARITH_FOURCCS
 # the MPEG-4 Part 2 fourccs FFmpeg maps to its mpeg4 decoder that cv2 reads
 MPEG4_CODECS = mpeg4_plain.MPEG4_FOURCCS
+# the H.264 fourccs FFmpeg maps to its h264 decoder that cv2 reads (an
+# AVI's; "avc1" and "avc3" are the MP4 sample entries too, "H264" the
+# codec Matroska's V_MPEG4/ISO/AVC routes to)
+H264_CODECS = h264_plain.H264_FOURCCS
 
 # containers we descend into: their payload is a fourcc + nested chunks
 _CONTAINERS = (b"RIFF", b"LIST")
@@ -479,6 +484,12 @@ def codec_info(codec: str, height: int, width: int, bit_count: int,
         info = AviInfo(codec, *((ihdr.height, ihdr.width) if ihdr else
                                 (height, width)), 3)
         info.png = ihdr
+    elif codec in H264_CODECS:
+        # the geometry the SPS gives (cv2's frames: the cropped size)
+        sps, _ = h264_plain.probe(extra, first())
+        if sps is not None:
+            height, width = h264_plain.geometry(sps)
+        info = AviInfo(codec, height, width, 3)
     elif codec in HUFFYUV_CODECS or codec in UTVIDEO_CODECS or \
             codec in LAGARITH_CODECS or codec in MPEG4_CODECS:
         info = AviInfo(codec, height, width, 3)
@@ -629,6 +640,34 @@ def mpeg4_unsupported(path: Path, info: AviInfo) -> Optional[str]:
     except mpeg4_plain.Mpeg4Error as exc:
         return str(exc).removeprefix("frame 0: ")
     return None
+
+
+def h264_params(info: AviInfo) -> bytes:
+    """An H.264 stream's extradata: an AVI's ``strf`` bytes after the
+    BITMAPINFOHEADER (Annex B parameter sets, or none: the chunks carry
+    them), an MP4 sample entry's ``avcC``, Matroska's CodecPrivate (an
+    avcC under ``V_MPEG4/ISO/AVC``).  An avcC's NAL length size splits the
+    samples; without one they are Annex B."""
+    return info.extra
+
+
+def h264_unsupported(path: Path, info: AviInfo) -> Optional[str]:
+    """What of an H.264 stream the port's decoder does not read, or None,
+    before any decode: from the extradata and the first sample's
+    parameter sets and slice header (``h264_plain.unsupported``: CABAC,
+    B, SP and SI slices, interlaced coding, the 8x8 transform, scaling
+    matrices, weighted prediction, bit depths over 8, chroma formats other
+    than 4:2:0, lossless macroblocks, slice groups, redundant pictures, a
+    left crop that is no multiple of 64, a matrix other than BT.601 and
+    BT.709, full-range BT.709; a first picture that is no IDR).  A later
+    sample that is refused raises when it is decoded, naming its frame."""
+    try:
+        head = info.first()
+    except OSError as exc:
+        return f"unreadable ({exc})"
+    if not head:
+        return None
+    return h264_plain.probe(h264_params(info), head)[1]
 
 
 def raw_unsupported(path: Path, info: AviInfo) -> Optional[str]:

@@ -8,7 +8,11 @@ codec routed as an AVI's BITMAPINFOHEADER routes it (``avi.codec_info``),
 so every decoder of the port reads its frames whatever the container.
 :func:`frame_chunks` then yields the frames' bytes: an AVI's chunks, or
 the samples an MP4 or Matroska demuxer found (a :class:`SampleTable` of
-byte ranges, with Matroska's header stripping and zlib undone).
+byte ranges, with Matroska's header stripping and zlib undone).  An
+H.264 frame's bytes go to its decoder as they are: Annex B NAL units
+(an AVI's chunk, ``V_MS/VFW/FOURCC``) or length-prefixed ones (under an
+``avcC``, whose length size ``h264_plain.Stream`` takes), several NAL
+units a frame in either form.
 
 What FFmpeg's demuxers do that changes the frames ``cv2.VideoCapture``
 gives is done here too: the first video track is the one cv2 picks; an

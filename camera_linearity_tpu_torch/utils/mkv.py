@@ -13,6 +13,8 @@ taken, as cv2 takes FFmpeg's first video stream; its CodecID routes it:
 - ``V_MJPEG``: the JPEG decoder (in its ``ffmpeg`` mode by default);
 - ``V_MPEG4/ISO/SP``, ``/ASP``, ``/AP``: the MPEG-4 Part 2 decoder, the
   CodecPrivate its extradata, with no codec tag;
+- ``V_MPEG4/ISO/AVC``: the H.264 decoder, the CodecPrivate its avcC (a
+  ``V_MS/VFW/FOURCC`` track of an H.264 fourcc carries Annex B frames);
 - ``V_FFV1``: the FFV1 decoder, the CodecPrivate its extradata;
 - ``V_UNCOMPRESSED``: the rawvideo reader's layout (or ``RGBA``'s) of the
   ``ColourSpace`` fourcc.
@@ -29,8 +31,9 @@ or fixed-size lacing; the other tracks' blocks are skipped.
 Refused by name, before any decode (ValueError): encryption, bzlib and
 lzo compression, several encodings, other projections, a ``V_UNCOMPRESSED``
 track without a ColourSpace the port reads, BI_RGB under
-``V_MS/VFW/FOURCC``, a block or a lace past its element or the end of the
-file, and empty frames.
+``V_MS/VFW/FOURCC``, a ``V_MPEG4/ISO/AVC`` CodecPrivate that is no avcC,
+a block or a lace past its element or the end of the file, and empty
+frames.
 """
 from __future__ import annotations
 
@@ -60,9 +63,11 @@ SIMPLE_BLOCK, BLOCK_GROUP, BLOCK = 0xA3, 0xA0, 0xA1
 _TOP = {0x114D9B74, 0x1549A966, TRACKS, CLUSTER, 0x1C53BB6B, 0x1254C367,
         0x1043A770, 0x1941A469, SEGMENT, EBML}
 _MPEG4_IDS = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
+_AVC_ID = "V_MPEG4/ISO/AVC"
 # the CodecIDs the port reads, by the codec avi.codec_info routes
 MKV_CODECS: Dict[str, str] = {"V_MJPEG": "MJPG", "V_FFV1": "FFV1",
-                              **{c: "FMP4" for c in _MPEG4_IDS}}
+                              **{c: "FMP4" for c in _MPEG4_IDS},
+                              _AVC_ID: "H264"}
 UNKNOWN = -1
 
 
@@ -429,6 +434,9 @@ def _info(path: Path, t: _Track, frames, container: str, size: int,
         info = avi.codec_info(space, h, w, 0, b"", first)
         codec_id = f"V_UNCOMPRESSED {space}"
     elif t.codec in MKV_CODECS:
+        if t.codec == _AVC_ID and private[:1] != b"\x01":
+            raise MkvError(f"{what}: a CodecPrivate of {len(private)} bytes "
+                           "that is no avcC (AVCDecoderConfigurationRecord)")
         info = avi.codec_info(MKV_CODECS[t.codec], h, w, 0, private, first)
         if info is None:     # an MJPEG track whose first frame is no JPEG
             info = avi.AviInfo("MJPG", h, w, 3)

@@ -9,8 +9,9 @@ the first whose handler is ``vide``, as cv2 takes FFmpeg's first video
 stream.  Its sample entry (one only) gives the codec, routed as an AVI's
 fourcc is (``avi.codec_info``): ``mp4v`` by its ``esds`` object type (0x20
 MPEG-4 Part 2, whose DecoderSpecificInfo is the extradata; 0x6C JPEG; 0x6D
-PNG), ``jpeg`` and ``MJPG`` MJPEG, ``png `` PNG, ``FFV1``, ``HFYU``/``FFVH``
-and the Ut Video fourccs with their ``glbl`` extradata, ``RGBA`` and the
+PNG), ``avc1`` and ``avc3`` H.264 with their ``avcC`` as the extradata,
+``jpeg`` and ``MJPG`` MJPEG, ``png `` PNG, ``FFV1``, ``HFYU``/``FFVH`` and
+the Ut Video fourccs with their ``glbl`` extradata, ``RGBA`` and the
 rawvideo fourccs; its depth is the bits per pixel; ``colr`` (``nclx``,
 ``nclc``) gives the colour tags.  ``stsz``/``stz2``, ``stco``/``co64`` and
 ``stsc`` (any runs) place the samples; ``stts``, ``ctts`` and ``stss`` time
@@ -25,7 +26,8 @@ The ``tkhd`` matrix, times the ``mvhd`` one, is the display matrix
 
 Refused by name, before any decode (ValueError): fragmented files
 (``moof``/``mvex``), a compressed ``moov`` (``cmov``), external data
-references, encrypted sample entries (``encv``, ``sinf``), several sample
+references, an ``avc1``/``avc3`` without its ``avcC``, encrypted sample
+entries (``encv``, ``sinf``), several sample
 descriptions, QuickTime's two-field ``mjpa``/``mjpb``, a ``raw `` track
 (FFmpeg's RGB layouts the port has no reader of; at depths FFmpeg has no
 pixel format for, cv2 opens no such file), several edits after the empty
@@ -57,6 +59,7 @@ MOV_CODECS: Dict[str, str] = {
     "jpeg": "MJPG", "MJPG": "MJPG", "png ": "png", "MPNG": "MPNG",
     "FFV1": "FFV1", "HFYU": "HFYU", "FFVH": "FFVH", "RGBA": "RGBA",
     "LAGS": "LAGS",
+    "avc1": "avc1", "avc3": "avc3",
     **{f: f for f in avi.MPEG4_CODECS}, **{f: f for f in avi.UTVIDEO_CODECS},
     **{f.ljust(4): f for f in avi.FOURCC_LAYOUTS},
 }
@@ -433,6 +436,12 @@ def probe_mp4(path: Path) -> Optional[avi.AviInfo]:
             else:
                 codec = _OBJECT_TYPES[oti] or "mp4v"
             extra = dsi
+        elif fourcc in (b"avc1", b"avc3"):
+            if b"avcC" not in kids:
+                raise Mp4Error(f"{what} is H.264 ({code}) without its avcC "
+                               "(the decoder configuration: the NAL length "
+                               "size and the parameter sets)")
+            extra = kids[b"avcC"]
         elif b"esds" in kids:
             extra = _esds(kids[b"esds"][4:])[1]
         elif b"glbl" in kids:

@@ -88,7 +88,22 @@ batch of 12 (a GOP a thread), the 11 P-VOPs on one thread, on all and
 as frames of 12 decoders at once; the same for the Advanced Simple tools
 (``mpeg4_asp_strip``: B-VOPs of every kind, packed and unpacked, the Xvid
 IDCT, ``quant_type`` 1 with custom matrices; 14 (h)'s brightest ``XVID``
-video, its Xvid-IDCT I-VOP and a B-VOP timed); mux 14 (i)'s MP4, MOV and
+video, its Xvid-IDCT I-VOP and a B-VOP timed); hold the H.264 decoder
+(``native/h264.cpp``) to ``h264_plain.py`` and to the writer's
+reconstruction on the same strip (``h264_strip``: the first pictures of
+``tests/_torch_h264_writer.kitchen_sink``, several slices, reference
+list modification, MMCOs, every macroblock kind; coded and decoded
+plain in a spawned process), to the committed ``tests/data/h264 *``
+clips' cv2 frames, on 4K to ``h264_plain.py`` (``H264Plain4K``: an IDR
+and a P picture of 8 slices coded and decoded plain in a process of its
+own, started with the smoke, and the one-slice stream of the same
+pictures) and to the reconstruction of 14 (j)'s
+brightest video, and time it once each: that video's IDR picture on one
+thread, on all (a slice a thread) and as a frame of a batch of 12 (a GOP
+a thread), its P pictures on one thread, on all and as frames of 12
+decoders at once, a one-slice stream's IDR and P pictures on all (a
+serial chain), and the ``avc1`` MP4's demux beside its
+AVI; mux 14 (i)'s MP4, MOV and
 Matroska files from those AVIs' bitstreams (``ContainerVideos``, in the
 window where no call is timed), hold the committed ``tests/data/container
 *`` clips (MP4, MOV and Matroska files cv2 wrote, one under a 90-degree
@@ -161,7 +176,15 @@ bitstreams in other containers (``tests/_torch_mp4_writer.py``,
 phase 14's MJPG scene in QuickTime MOV (``jpeg``), (d)'s FFV1 scene in
 Matroska, each held bit for bit to the AVI run of the same bitstream,
 and ``welford_algorithm`` on the ``FMP4`` MP4 under a 90-degree ``tkhd``
-matrix, held exactly to ``np.rot90`` of the AVI's statistics.
+matrix, held exactly to ``np.rot90`` of the AVI's statistics; (j) on
+H.264 videos of phase 14's I420 planes (``tests/_torch_h264_enc.cpp``:
+an IDR and 11 P pictures a video as ``x264 --profile baseline --tune
+zerolatency`` codes at its defaults: QPs H264_QP, H264_SLICES slices a
+picture; a reference list modification and an MMCO in the first; coded
+in phase
+12's window, cached under ``build/``) in ``avc1`` MP4s, held bit for bit
+to ``video_to_hdr`` on I420 AVIs of the writer's reconstruction, and the
+same bitstreams in Annex B AVIs and in Matroska, held to the MP4 run.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
@@ -344,6 +367,13 @@ def close_phase(name: str = "") -> dict:
     PHASE_WALLS[_PHASE[0]] = PHASE_WALLS.get(_PHASE[0], 0.0) + now - _PHASE[1]
     _PHASE[:] = [name, now]
     return PHASE_WALLS
+
+
+def phase_mark(what: str) -> None:
+    """A line with the seconds since the running phase began, after
+    ``what``: where a long phase's time goes."""
+    log(f"  {what}: {time.perf_counter() - _PHASE[1]:.1f} s into phase "
+        f"{_PHASE[0]}")
 
 
 def gpu_line() -> str:
@@ -1019,9 +1049,18 @@ MJPG_VARIANTS = {"420": ("420", False), "gray": ("420", False),
                  "progressive": ("420", True)}
 
 
-def make_mjpg_videos(pools, variant: str = "420"):
+def encode_mjpg_frame(frame, sampling: str, progressive: bool) -> bytes:
+    """One frame of :func:`make_mjpg_videos`, in a process of the plain
+    pool (the writer holds the GIL)."""
+    from tests import _torch_mjpeg_writer as writer
+    return writer.encode_jpeg(frame, MJPG_QUALITY, sampling,
+                              progressive=progressive)
+
+
+def make_mjpg_videos(pools, procs, variant: str = "420"):
     """Config 5's exposure videos as MJPG AVIs, written by the NumPy writer
-    of ``tests/_torch_mjpeg_writer.py`` as ``cv2.VideoWriter`` writes them
+    of ``tests/_torch_mjpeg_writer.py`` (a frame a task of ``procs``, the
+    plain pool) as ``cv2.VideoWriter`` writes them
     (4:2:0, one quantization table, no DRI), or in another frame mode of
     MJPG_VARIANTS: each exposure's MJPG_POOL distinct frames (``pools``,
     BGR) cycled to FRAMES5, as ``benchmarks/bench_video.py:59-66`` cycles
@@ -1030,7 +1069,6 @@ def make_mjpg_videos(pools, variant: str = "420"):
     Returns (paths, crop paths, seconds spent encoding, or None when the
     cache had them)."""
     import hashlib
-    from concurrent.futures import ThreadPoolExecutor
     from tests import _torch_mjpeg_writer as writer
 
     sampling, progressive = MJPG_VARIANTS[variant]
@@ -1052,10 +1090,9 @@ def make_mjpg_videos(pools, variant: str = "420"):
     cache.mkdir(parents=True, exist_ok=True)
     jobs = [f for pool in pools for f in pool] + \
         [f[:MJPG_CROP_ROWS] for pool in pools for f in pool]
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as ex:
-        coded = list(ex.map(lambda f: writer.encode_jpeg(
-            np.ascontiguousarray(f[..., 1]) if gray else f, MJPG_QUALITY,
-            sampling, progressive=progressive), jobs))
+    futures = [procs.submit(encode_mjpg_frame, np.ascontiguousarray(
+        f[..., 1] if gray else f), sampling, progressive) for f in jobs]
+    coded = [f.result() for f in futures]
     full, crop = coded[:len(coded) // 2], coded[len(coded) // 2:]
     for e in range(len(pools)):
         for out, frames, rows in ((paths[e], full, H5),
@@ -1472,7 +1509,8 @@ def plain_decode(kind: str, chunks, spec, rows: int, width: int):
 
 def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
                          strip_pictures, pool, container_videos=None,
-                         mjpg_paths=()) -> dict:
+                         mjpg_paths=(), h264_videos=None,
+                         h264_plain4k=None) -> dict:
     """Phase 12's PNG, HuffYUV, FFV1, UtVideo and Lagarith rows: each of
     LOSSLESS_LAYOUTS, FFV1_LAYOUTS, UTVIDEO_LAYOUTS and LAGARITH_LAYOUTS on
     a full-width STRIP_ROWS-row strip, the native decoder held to its
@@ -1486,7 +1524,10 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
     MPEG-4 strip (:func:`mpeg4_strip` of ``strip_pictures``) is coded and
     decoded by the plain version in the pool too, and 14 (g)'s
     ``mpeg4_videos`` coded on a thread beside it; :func:`mpeg4_rows` then
-    takes its rows.  Then 14 (i)'s ``container_videos``
+    takes its rows.  So do the H.264 strip (:func:`h264_strip`) and 14
+    (j)'s ``h264_videos`` (threads beside it), and :func:`h264_rows` (with
+    ``h264_plain4k``, :class:`H264Plain4K`).  Then 14 (i)'s
+    ``container_videos``
     (:class:`ContainerVideos`) are muxed from those videos and
     ``mjpg_paths``, before any timed call; the committed container clips
     are held to cv2's frames, and the demux rows (:func:`demux_rows`)
@@ -1500,8 +1541,12 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
                for name, (kind, chunks, spec, _) in strips.items()}
     mpeg4_future = pool.submit(mpeg4_strip, strip_pictures)
     asp_future = pool.submit(mpeg4_asp_strip, strip_pictures)
+    h264_future = pool.submit(h264_strip, strip_pictures) \
+        if h264_videos is not None else None
     videos.submit(pool)
     mpeg4_videos.submit()
+    if h264_videos is not None:
+        h264_videos.submit()
     # the 4K frames are encoded here while the pool works
     t1 = time.perf_counter()
     layouts = lossless_layout_chunks(frames_host, frames_dev, H5)
@@ -1511,7 +1556,12 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
     mpeg4_strip_out = mpeg4_future.result()
     asp_strip_out = asp_future.result()
     mpeg4_videos.finish()
+    h264_strip_out = None
+    if h264_videos is not None:
+        h264_strip_out = h264_future.result()
+        h264_videos.finish()
     plain_s = time.perf_counter() - t0
+    phase_mark("the plain strips and the videos' encodes (the window)")
     remux_s = None
     if container_videos is not None:
         remux_s = container_videos.write(mpeg4_videos, videos, mjpg_paths)
@@ -1600,7 +1650,17 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
     raise_failures("phase 12, the PNG, HuffYUV, FFV1, UtVideo and Lagarith "
                    "decoders against their plain versions, the pictures "
                    "written and the committed clips", failures)
+    phase_mark("the PNG, HuffYUV, FFV1, UtVideo and Lagarith rows")
     rows.update(mpeg4_rows(mpeg4_strip_out, asp_strip_out, mpeg4_videos))
+    phase_mark("the MPEG-4 rows")
+    if h264_videos is not None:
+        log("  H.264 strip coded and decoded by the plain version in the "
+            "pool; 14 (j)'s videos " + (
+                "from the cache" if h264_videos.encode_s is None else
+                f"coded beside them in {h264_videos.encode_s:.1f} s (native, "
+                "a thread a video)"))
+        rows.update(h264_rows(h264_strip_out, h264_videos, h264_plain4k))
+        phase_mark("the H.264 rows")
     if container_videos is not None:
         rows.update(demux_rows(container_videos))
     return rows
@@ -1981,6 +2041,518 @@ class Mpeg4Videos:
         self.encode_s = time.perf_counter() - self._t0
 
 
+# phase 12's H.264 rows and phase 14 (j): the 4K videos
+# (tests/_torch_h264_enc.cpp: an IDR and 11 P pictures a video) as x264
+# codes Constrained Baseline for real-time use, ``x264 --profile baseline
+# --tune zerolatency``, at its defaults (x264's documented defaults; x264
+# is not run: cv2 here has no H.264 encoder).  Its default rate factor,
+# 23, held as a constant QP (``--qp 23``: P slices at 23, I slices at 20
+# by the default ``--ipratio 1.40``, 6 log2 1.4 = 2.9 lower; no
+# per-macroblock QP: ``--qp`` turns adaptive quantisation off); a slice a
+# thread (zerolatency's sliced threads), a thread a core of the card's
+# 8-core host.  Without ``--tune`` x264 codes one slice a picture: phase
+# 12 times such a stream too (H264Plain4K), a serial chain.  Phase 12
+# times the brightest video
+H264_QP = (20, 23)
+H264_SLICES = 8
+H264_TIMED = 2
+# the P pictures each of phase 12's 12 decoders at once decodes
+H264_P_AT_ONCE = 4
+
+
+def h264_strip(pictures, seed: int = SEED):
+    """Phase 12's H.264 strip, in a spawned process: ``pictures`` ((Y, U,
+    V) planes of STRIP_ROWS x W5) coded by ``tests/_torch_h264_writer.py``
+    as the first pictures of its ``kitchen_sink`` (an IDR of two slices,
+    P pictures of one to three slices and one to three references, a
+    non-reference one, a reference list modification, MMCOs 4 and 3 (a
+    long-term reference), every macroblock kind, partition and intra
+    mode, vectors far outside the strip, mb_qp_delta); decoded by
+    ``h264_plain.py``.  Returns (the samples as Annex B, the plain frames,
+    the writer's reconstruction as BGR)."""
+    from camera_linearity_tpu_torch.native import h264_plain, rawvideo_plain
+    from tests import _torch_h264_writer as hw
+    rows, width = pictures[0][0].shape
+    plans = hw.kitchen_sink(seed % 1000)[:len(pictures)]
+    samples, _, recons, _ = hw.encode(pictures, hw.Config(rows, width),
+                                      plans)
+    data = [hw.annexb(s) for s in samples]
+    plain = h264_plain.decode_bgr(data)
+    recon = [rawvideo_plain.decode_bgr(h264_plain.i420_bytes(r), "i420_left",
+                                       rows, width) for r in recons]
+    return data, np.stack(plain), np.stack(recon)
+
+
+class H264Videos:
+    """Phase 14 (j)'s videos: phase 14's I420 planes (``i420_paths``)
+    coded as H.264 by ``tests/_torch_h264_enc.cpp`` (on threads below the
+    window's other work: niceness 10): each video an IDR
+    and 11 P pictures (QPs H264_QP, H264_SLICES slices a picture; the
+    writer's default choices, :meth:`plans`), the
+    first video with a reference list modification (picture 3) and an
+    MMCO (picture 6); written as ``avc1`` MP4s, as Annex B AVIs
+    (``H264``) and as Matroska (``V_MPEG4/ISO/AVC``) of the same
+    bitstream, and the writer's reconstruction as I420 AVIs, which 14 (j)
+    holds the port's decode to.  Cached under ``build/`` by the I420
+    files and the writer's and decoder's sources, as 14 (g)'s are;
+    otherwise :meth:`submit` codes them on threads (a video each, its
+    planes read there: the encoder is native and its calls release the
+    GIL) and :meth:`finish` waits.
+    ``mp4``, ``avi``, ``mkv`` and ``recon`` hold the paths, ``encode_s``
+    the seconds from submit to finish (None when the cache had them)."""
+
+    def __init__(self, i420_paths):
+        import hashlib
+        from tests import _torch_h264_writer as hw
+        from tests import _torch_rawvideo_writer as rw
+        self.i420 = list(i420_paths)
+        key = hashlib.md5(usedforsecurity=False)
+        for src in (hw.__file__, hw._ENC_SRC, rw.__file__,
+                    ROOT / "camera_linearity_tpu_torch" / "native" /
+                    "h264.cpp", *self.i420):
+            key.update(Path(src).read_bytes())
+        key.update(repr([self.plans(k) for k in range(len(self.i420))]
+                        ).encode())
+        self.cache = ROOT / "build" / "chip_smoke_h264" / key.hexdigest()[:12]
+        stems = [p.stem.replace("i420 ", "") for p in i420_paths]
+        self.mp4 = [self.cache / f"h264 {s}.mp4" for s in stems]
+        self.avi = [self.cache / f"h264 {s}.avi" for s in stems]
+        self.mkv = [self.cache / f"h264 {s}.mkv" for s in stems]
+        self.recon = [self.cache / f"h264 recon {s}.avi" for s in stems]
+        self.encode_s, self._futures = None, None
+        self.cached = all(p.exists() for p in self.mp4 + self.avi + self.mkv +
+                          self.recon)
+
+    @staticmethod
+    def plans(k: int, n: int = H264_SLICES):
+        """Video ``k``'s pictures, of ``n`` slices of whole macroblock
+        rows (as x264 splits a picture): the writer's default choices
+        (``tests/_torch_h264_writer.Options``: P_Skip, intra macroblocks,
+        every partition, quarter-sample vectors) without I_PCM, vectors
+        far outside the picture or QP changes, and without a search: the
+        scene does not move."""
+        from tests import _torch_h264_writer as hw
+        o = hw.Options(seed=k, p_pcm=0, p_far=0, search=0, p_dqp=0)
+        slices = tuple(dict.fromkeys(i * (H5 // 16) // n * (W5 // 16)
+                                     for i in range(n)))
+        plans = [hw.PicPlan("IDR", 3, H264_QP[0], slices=slices, opts=o)]
+        for t in range(1, FRAMES5):
+            plans.append(hw.PicPlan(
+                "P", 2, H264_QP[1], slices=slices, opts=o,
+                num_ref=2 if k == 0 and t == 3 else None,
+                modifications=((0, 1),) if k == 0 and t == 3 else (),
+                mmcos=((1, 0),) if k == 0 and t == 6 else None))
+        return plans
+
+    def _code(self, k: int) -> None:
+        from tests import _torch_h264_writer as hw
+        from camera_linearity_tpu_torch import native
+        from camera_linearity_tpu_torch.native import h264_plain
+        from camera_linearity_tpu_torch.utils import avi
+        from camera_linearity_tpu_torch.utils.general import \
+            set_thread_priority
+        from tests._torch_rawvideo_writer import write_raw_avi
+        # below the window's other work: this thread takes what it leaves
+        set_thread_priority(10)
+        if k == 0:     # the decoder too, which phase 12 calls after it
+            native.h264_available()
+        planes = []     # the video's (Y, U, V) planes, frame by frame
+        for c in avi.raw_chunks(self.i420[k], avi.probe_avi(self.i420[k])):
+            y = c[:H5 * W5].reshape(H5, W5)
+            u, v = c[H5 * W5:H5 * W5 * 3 // 2].reshape(2, H5 // 2, W5 // 2)
+            planes.append((y.copy(), u.copy(), v.copy()))
+        samples, params, recons, _ = hw.encode(planes, hw.Config(H5, W5),
+                                               self.plans(k))
+        for out, write in (
+                (self.mp4[k], lambda tmp: hw.write_h264_mp4(
+                    tmp, samples, params, H5, W5)),
+                (self.avi[k], lambda tmp: hw.write_h264_avi(
+                    tmp, samples, H5, W5)),
+                (self.mkv[k], lambda tmp: hw.write_h264_mkv(
+                    tmp, samples, params, H5, W5)),
+                (self.recon[k], lambda tmp: write_raw_avi(
+                    tmp, [h264_plain.i420_bytes(r) for r in recons], H5, W5,
+                    "I420"))):
+            tmp = out.with_name(f"tmp{os.getpid()} {out.name}")
+            write(tmp)
+            os.replace(tmp, out)
+
+    def submit(self) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+        if self.cached:
+            return
+        self.cache.mkdir(parents=True, exist_ok=True)
+        self._t0 = time.perf_counter()
+        coder = ThreadPoolExecutor(len(self.i420), "h264-encode")
+        self._futures = [coder.submit(self._code, k)
+                         for k in range(len(self.i420))]
+        coder.shutdown(wait=False)
+
+    def finish(self) -> None:
+        if self._futures is None:
+            return
+        for f in self._futures:
+            f.result()
+        self._futures = None
+        self.cached = True
+        self.encode_s = time.perf_counter() - self._t0
+
+
+def h264_clips() -> list:
+    """Phase 12's check of the committed ``tests/data/h264 *`` clips (the
+    coverage stream: every CAVLC table entry and QP; the kitchen sink,
+    cropped, in an AVI; several slices with constrained intra in
+    Matroska; a full-range ``avc3``): each through
+    ``video_frame_generator`` against its ``.cv2.npy``; a line each, and
+    the names that differ."""
+    from camera_linearity_tpu_torch.models import video
+    from camera_linearity_tpu_torch.utils import containers
+    failures = []
+    for clip in sorted((ROOT / "tests" / "data").glob("h264 *")):
+        if clip.suffix == ".npy":
+            continue
+        cv = np.load(clip.with_suffix(".cv2.npy"))
+        info = containers.probe_video(clip)
+        got = np.stack([f for f in video.video_frame_generator(clip)
+                        if f is not None])
+        same = got.shape == cv.shape and np.array_equal(got, cv)
+        log(f"  {'ok ' if same else 'BAD'} H.264 '{clip.name}' "
+            f"({info.container_name}, {info.codec_name}, {len(cv)} x "
+            f"{cv.shape[1]} x {cv.shape[2]}): "
+            f"{'equals' if same else 'differs from'} the committed "
+            f"cv2.VideoCapture frames")
+        if not same:
+            failures.append(clip.name)
+    return failures
+
+
+def h264_plain_4k(out: str, seed: int = SEED) -> None:
+    """:class:`H264Plain4K`'s work, in a spawned process of its own (it
+    takes a core the phases before phase 12 leave idle, and finishes in
+    phase 12's first minutes): build ``h264.cpp`` and the test encoder,
+    which phase 12 then loads;
+    make 1 + H264_P_AT_ONCE 4K pictures as config 5's brightest video is
+    made (a uniform base x 230 plus N(0, 6) noise, from ``seed``; the
+    writer's BT.601 ``i420_planes``); code them as 14 (j)'s brightest
+    video is coded (:meth:`H264Videos.plans`), and decode its IDR and
+    first P picture with ``h264_plain.py``; code them again with one
+    slice a picture (x264 without ``--tune``).  Writes both streams'
+    samples (Annex B), the plain frames, both reconstructions (BGR, as
+    cv2 gives them) and the seconds of each step to ``out`` (``.npz``)."""
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.native import h264_plain, rawvideo_plain
+    from tests import _torch_h264_writer as hw
+    t0 = time.perf_counter()
+    native.h264_available()
+    hw.native_encoder()
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    base = rng.random((H5, W5, 3)) * 230
+    pictures = [hw.i420_planes(np.clip(
+        base + 6 * rng.standard_normal((H5, W5, 3)), 0, 255).astype(np.uint8))
+        for _ in range(1 + H264_P_AT_ONCE)]
+    del base
+    streams = {}
+    for name, n, count in (("sliced", H264_SLICES, 2),
+                           ("chain", 1, len(pictures))):
+        samples, _, recons, _ = hw.encode(
+            pictures[:count], hw.Config(H5, W5),
+            H264Videos.plans(H264_TIMED, n)[:count])
+        streams[name] = ([hw.annexb(s) for s in samples], np.stack([
+            rawvideo_plain.decode_bgr(h264_plain.i420_bytes(r), "i420_left",
+                                      H5, W5) for r in recons]))
+    t2 = time.perf_counter()
+    plain = np.stack(h264_plain.decode_bgr(streams["sliced"][0]))
+    arrays = {"plain": plain,
+              "seconds": np.array([t1 - t0, t2 - t1,
+                                   time.perf_counter() - t2])}
+    for name, (data, recon) in streams.items():
+        arrays[f"{name}_data"] = np.frombuffer(b"".join(data), np.uint8)
+        arrays[f"{name}_sizes"] = np.array([len(d) for d in data])
+        arrays[f"{name}_recon"] = recon
+    np.savez(out, **arrays)
+
+
+class H264Plain4K:
+    """Phase 12's check of ``h264.cpp`` on 4K pictures against a decoder
+    independent of its macroblock layer, and its one-slice stream:
+    :func:`h264_plain_4k` in a spawned process of its own (a daemon: it
+    ends with the smoke), started with the smoke, since the plain decode
+    of two 4K pictures takes minutes of a core.  :meth:`result` waits for
+    it and returns a dict: ``sliced`` and ``chain`` (the samples, the
+    writer's reconstruction), ``plain`` (the sliced IDR and P picture as
+    ``h264_plain.py`` decodes them), ``seconds`` (the process's building,
+    coding and plain decoding) and ``waited``."""
+
+    def __init__(self):
+        import multiprocessing
+        cache = ROOT / "build" / "chip_smoke_h264"
+        cache.mkdir(parents=True, exist_ok=True)
+        self.out = cache / f"plain 4k {os.getpid()}.npz"
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=h264_plain_4k, args=(str(self.out),), daemon=True)
+        self.proc.start()
+
+    def result(self) -> dict:
+        t0 = time.perf_counter()
+        self.proc.join()
+        got = {"waited": time.perf_counter() - t0}
+        if self.proc.exitcode != 0:
+            raise AssertionError("phase 12, the 4K H.264 pictures' plain "
+                                 f"decode: exit code {self.proc.exitcode}")
+        with np.load(self.out) as z:
+            for name in ("sliced", "chain"):
+                blob = z[f"{name}_data"].tobytes()
+                sizes = z[f"{name}_sizes"]
+                got[name] = ([blob[e - n:e] for e, n in
+                              zip(np.cumsum(sizes), sizes)],
+                             z[f"{name}_recon"])
+            got["plain"] = z["plain"]
+            got["seconds"] = z["seconds"].tolist()
+        self.out.unlink()
+        return got
+
+
+def h264_rows(strip, videos, plain4k) -> dict:
+    """Phase 12's H.264 rows, after its plain-decode window: ``strip``
+    (:func:`h264_strip`'s result from the pool) decoded natively and held
+    to the plain frames and the writer's reconstruction; the committed
+    clips against cv2's frames; ``plain4k``'s (:class:`H264Plain4K`)
+    sliced 4K IDR and P picture held to ``h264_plain.py``'s frames and
+    the writer's reconstruction, its one-slice stream to the writer's
+    reconstruction; then 14 (j)'s brightest video of ``videos``
+    (:class:`H264Videos`, coded in the window; H264_SLICES slices a
+    picture) read from its MP4 and held to its reconstruction, and timed
+    (host clock): its IDR picture on one thread, on every core (a slice a
+    thread) and as a frame of a batch of 12 IDR pictures in one call (a
+    GOP a thread), each one run after a warm one of the same call; its
+    first H264_P_AT_ONCE P pictures after the IDR in one decoder (one
+    run) on one thread, on every core and as frames of 12 decoders of the
+    video at once (a thread each); the one-slice stream's IDR and P
+    pictures on every core (a serial chain);
+    and the demux of the video's MP4 beside its AVI.  Returns the rows'
+    times."""
+    from concurrent.futures import ThreadPoolExecutor
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.utils import avi, containers
+    failures = h264_clips()
+    data, plain, recon = strip
+    rows, width = plain.shape[1:3]
+    got = np.empty((len(data), rows, width, 3), np.uint8)
+    native.h264_decode_bgr_batch(data, got, native.H264Decoder())
+    strip_same = np.array_equal(got, plain) and np.array_equal(got, recon)
+    log(f"  {'ok ' if strip_same else 'BAD'} H.264 strip of {rows} x "
+        f"{width}, {len(data)} pictures (an IDR of two slices, P pictures "
+        f"of up to three slices and three references, a non-reference one, "
+        f"a reference list modification, MMCOs 4 and 3, every macroblock "
+        f"kind, partition and mode, vectors past the edges; "
+        f"{sum(map(len, data)) / 1e3:.0f} kB): native "
+        f"{'equals' if strip_same else 'differs from'} h264_plain.py and the "
+        f"writer's reconstruction, max |.| {max_gap(got, plain):.0f} DN")
+    if not strip_same:
+        failures.append("the H.264 strip")
+    four_k = plain4k.result()
+    (data, recon), plain = four_k["sliced"], four_k["plain"]
+    secs = four_k["seconds"]
+    got = np.empty_like(plain)
+    native.h264_decode_bgr_batch(data, got, native.H264Decoder())
+    same = np.array_equal(got, plain) and np.array_equal(got, recon)
+    log(f"  {'ok ' if same else 'BAD'} H.264 4K IDR and P picture of "
+        f"{H264_SLICES} slices (QPs {H264_QP}, 14 (j)'s brightest video's "
+        f"choices, on config 5's brightest content made again from seed "
+        f"{SEED}; {len(data[0]) / 1e6:.3f} MB, {len(data[1]) / 1e6:.3f} MB): "
+        f"native {'equals' if same else 'differs from'} h264_plain.py and "
+        f"the writer's reconstruction, max |.| {max_gap(got, plain):.0f} DN "
+        f"(in a process of its own from the smoke's start: {secs[0]:.1f} s "
+        f"building h264.cpp and the encoder, {secs[1]:.1f} s coding, "
+        f"{secs[2]:.1f} s the plain decode; {four_k['waited']:.1f} s "
+        f"waited for it here)")
+    if not same:
+        failures.append("the H.264 4K pictures against h264_plain.py")
+    chain, recon = four_k["chain"]
+    got = np.empty_like(recon)
+    native.h264_decode_bgr_batch(chain, got, native.H264Decoder())
+    same = np.array_equal(got, recon)
+    log(f"  {'ok ' if same else 'BAD'} H.264 4K one-slice stream of the "
+        f"same pictures ({len(chain)} pictures): native "
+        f"{'equals' if same else 'differs from'} the writer's "
+        f"reconstruction")
+    if not same:
+        failures.append("the H.264 4K one-slice stream")
+    del got, plain, recon, four_k
+
+    def samples(path):
+        info = containers.probe_video(path)
+        return info, [bytes(c) for c in containers.frame_chunks(path, info)]
+    info, video = samples(videos.mp4[H264_TIMED])
+    why = avi.h264_unsupported(videos.mp4[H264_TIMED], info)
+    frames = np.empty((len(video), H5, W5, 3), np.uint8)
+    native.h264_decode_bgr_batch(video, frames,
+                                 native.H264Decoder(avi.h264_params(info)))
+    recon_chunks = [bytes(c) for c in avi.raw_chunks(
+        videos.recon[H264_TIMED], avi.probe_avi(videos.recon[H264_TIMED]))]
+    want = np.empty_like(frames)
+    native.raw_decode_bgr_batch(recon_chunks, want, "i420")
+    same = np.array_equal(frames, want)
+    del want
+    log(f"  {'ok ' if same else 'BAD'} H.264 4K video ({info.codec_name} "
+        f"MP4, {why or 'read'}; {H264_SLICES} slices a picture, "
+        f"IDR {len(video[0]) / 1e6:.3f} MB, P pictures "
+        f"{np.mean([len(c) for c in video[1:]]) / 1e6:.3f} MB): its "
+        f"{len(video)} frames {'equal' if same else 'differ from'} the "
+        f"writer's reconstruction")
+    if not same or why:
+        failures.append("the H.264 4K video")
+    raise_failures("phase 12, the H.264 decoder against its plain version, "
+                   "the writer's reconstruction and the committed clips",
+                   failures)
+    cores = os.cpu_count() or 1
+    one = frames[:1]
+    extra = avi.h264_params(info)
+
+    def decoder(avc):    # the MP4's avcC, or the Annex B one-slice stream
+        return native.H264Decoder(extra if avc else b"")
+
+    def idr_ms(clip, avc, threads):   # a run after a warm one
+        d = decoder(avc)
+        return host_ms(lambda: native.h264_decode_bgr_batch(
+            clip[:1], one, d, threads=threads), runs=1, warmup=1)
+
+    def p_ms(clip, avc, threads):     # the first H264_P_AT_ONCE
+        d = decoder(avc)
+        native.h264_decode_bgr_batch(clip[:1], one, d)
+        t0 = time.perf_counter()
+        native.h264_decode_bgr_batch(clip[1:1 + H264_P_AT_ONCE],
+                                     frames[1:], d, threads=threads)
+        return (time.perf_counter() - t0) * 1e3 / H264_P_AT_ONCE
+    times = {"IDR one thread": idr_ms(video, True, 1),
+             "IDR all threads": idr_ms(video, True, None),
+             "P one thread": p_ms(video, True, 1),
+             "P all threads": p_ms(video, True, None),
+             "one slice IDR all threads": idr_ms(chain, False, None),
+             "one slice P all threads": p_ms(chain, False, None)}
+    batch = np.zeros((12, H5, W5, 3), np.uint8)
+    d = decoder(True)
+    times["IDR a frame of 12"] = host_ms(
+        lambda: native.h264_decode_bgr_batch(video[:1] * 12, batch, d),
+        runs=1, warmup=1) / 12
+    del batch
+    # 12 decoders of the video at once, each on its own thread, over its
+    # first H264_P_AT_ONCE P pictures
+    decoders = [decoder(True) for _ in range(12)]
+    outs = [np.zeros((1, H5, W5, 3), np.uint8) for _ in range(12)]
+    with ThreadPoolExecutor(12) as ex:     # each decodes the IDR first
+        list(ex.map(lambda i: native.h264_decode_bgr_batch(
+            video[:1], outs[i], decoders[i], threads=1), range(12)))
+
+    def one_video(i):
+        for chunk in video[1:1 + H264_P_AT_ONCE]:
+            native.h264_decode_bgr_batch([chunk], outs[i], decoders[i],
+                                         threads=1)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(12) as ex:
+        list(ex.map(one_video, range(12)))
+    times["P a frame of 12 videos"] = (time.perf_counter() - t0) * 1e3 / \
+        (12 * H264_P_AT_ONCE)
+    del decoders, outs, frames
+    log(f"  H.264 4K ({info.codec_name}, QPs {H264_QP}; host clock; "
+        f"{cores} threads): the brightest video ({H264_SLICES} slices): IDR "
+        f"{times['IDR one thread']:.1f} ms on one thread, "
+        f"{times['IDR all threads']:.1f} ms on {cores} threads (a slice a "
+        f"thread), {times['IDR a frame of 12']:.1f} ms a frame of a batch "
+        f"of 12 (a GOP a thread), each one run after a warm one; P "
+        f"pictures {times['P one thread']:.1f} ms on one thread, "
+        f"{times['P all threads']:.1f} ms on {cores} threads, "
+        f"{times['P a frame of 12 videos']:.1f} ms a frame when 12 decoders "
+        f"of the video run at once (a thread each), the first "
+        f"{H264_P_AT_ONCE} after the IDR, one run; the one-slice stream "
+        f"(IDR {len(chain[0]) / 1e6:.3f} MB, P pictures "
+        f"{np.mean([len(c) for c in chain[1:]]) / 1e6:.3f} MB): IDR "
+        f"{times['one slice IDR all threads']:.1f} ms, P "
+        f"{times['one slice P all threads']:.1f} ms on {cores} threads (a "
+        f"serial chain: only the deblocking and the conversion spread)")
+    # the demux: the MP4 probed and every frame read, beside its AVI
+    timed = {}
+    for kind, p in (("MP4", videos.mp4[H264_TIMED]),
+                    ("AVI", videos.avi[H264_TIMED])):
+        for _ in range(2):     # a warm run, then the timed one
+            t0 = time.perf_counter()
+            i = containers.probe_video(p)
+            size = sum(c.size for c in containers.frame_chunks(
+                p, i, ring=FRAMES5))
+            secs = time.perf_counter() - t0
+        timed[kind] = (secs, size)
+    secs, size = timed["MP4"]
+    times["demux MP4 ms a frame"] = secs / FRAMES5 * 1e3
+    times["demux AVI ms a frame"] = timed["AVI"][0] / FRAMES5 * 1e3
+    log(f"  demux H.264 avc1 MP4: {secs / FRAMES5 * 1e3:.3f} ms a 4K frame "
+        f"({size / FRAMES5 / 1e6:.3f} MB), {size / 1e6 / secs:.0f} MB/s; "
+        f"the Annex B AVI of the same bitstream "
+        f"{timed['AVI'][0] / FRAMES5 * 1e3:.3f} ms a frame (the probe and "
+        f"every frame read, no decode; host clock, one run after a warm "
+        f"one)")
+    return {f"h264 {k}": v for k, v in times.items()}
+
+
+def h264_phase(h264_videos, v2h, run_video_to_hdr) -> dict:
+    """Phase 14 (j): config 5 from H.264 (:class:`H264Videos`):
+    ``video_to_hdr`` (K3) on the ``avc1`` MP4s, held bit for bit to
+    ``video_to_hdr`` on I420 AVIs of the writer's reconstruction, and on
+    the same bitstream in Annex B AVIs and in Matroska, each held to the
+    MP4 run.  Times go into ``v2h``; returns 14 (j)'s."""
+    from camera_linearity_tpu_torch.utils import avi, containers
+    failures, out = [], {}
+    info = containers.probe_video(h264_videos.mp4[0])
+    log(f"phase 14 (j): config 5 from H.264 of phase 14's I420 planes "
+        f"(tests/_torch_h264_enc.cpp: an IDR and {FRAMES5 - 1} P pictures a "
+        f"video as x264 --profile baseline --tune zerolatency codes at its "
+        f"defaults: QPs {H264_QP}, {H264_SLICES} slices a picture; a "
+        f"reference list modification and an MMCO in the first video): "
+        f"{avi.h264_unsupported(h264_videos.mp4[0], info) or 'read'}; the "
+        f"avc1 MP4s held to I420 AVIs of the writer's reconstruction, the "
+        f"Annex B AVIs and the Matroska files to the MP4s; {gpu_line()}")
+    v2h["H.264 MP4"], _, got = run_video_to_hdr(
+        "video_to_hdr (H.264 avc1 MP4)", h264_videos.mp4, "h264")
+    v2h["I420 of the H.264 reconstruction"], _, want = run_video_to_hdr(
+        "video_to_hdr (I420 of the H.264 reconstruction)",
+        h264_videos.recon, "rawvideo")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    del want
+    frame_mb = sum(c.size for p in h264_videos.mp4 for c in
+                   containers.frame_chunks(p, containers.probe_video(p))) \
+        / 1e6 / (FRAMES5 * len(h264_videos.mp4))
+    mps = FRAMES5 * len(h264_videos.mp4) * H5 * W5 / 1e6 / v2h["H.264 MP4"]
+    out["MP4"] = dict(wall_s=v2h["H.264 MP4"], mps=mps, k3_launches=1,
+                      frame_mb=frame_mb)
+    log(f"  {'ok ' if same else 'BAD'} video_to_hdr from the avc1 MP4s vs "
+        f"I420 of the writer's reconstruction: "
+        f"{'bit for bit equal' if same else 'different'}; "
+        f"{v2h['H.264 MP4']:.3f} s, {mps:.2f} MP/s ({FRAMES5} x "
+        f"{len(h264_videos.mp4)} frames of {H5} x {W5}, {frame_mb:.3f} MB a "
+        f"frame), one K3 launch")
+    if not same:
+        failures.append("video_to_hdr from the H.264 MP4s against the "
+                        "reconstruction")
+    for kind, paths in (("AVI", h264_videos.avi), ("Matroska",
+                                                   h264_videos.mkv)):
+        label = f"video_to_hdr (H.264 in {kind})"
+        v2h[f"H.264 {kind}"], _, other = run_video_to_hdr(label, paths,
+                                                          "h264")
+        same = all(torch.equal(a, b) for a, b in zip(other, got))
+        mps = FRAMES5 * len(paths) * H5 * W5 / 1e6 / v2h[f"H.264 {kind}"]
+        out[kind] = dict(wall_s=v2h[f"H.264 {kind}"], mps=mps,
+                         k3_launches=1)
+        log(f"  {'ok ' if same else 'BAD'} {label} vs the MP4 run of the "
+            f"same bitstream: {'bit for bit equal' if same else 'different'}"
+            f"; {v2h[f'H.264 {kind}']:.3f} s, {mps:.2f} MP/s, one K3 launch")
+        if not same:
+            failures.append(f"{label} against the MP4")
+        del other
+    del got
+    raise_failures("phase 14 (j)", failures)
+    return out
+
+
 class ContainerVideos:
     """Phase 14 (i)'s files: bitstreams of phase 14's AVIs remuxed by the
     test muxers (``tests/_torch_mp4_writer.py``, ``tests/_torch_mkv_
@@ -2266,8 +2838,9 @@ def mpeg4_rows(strip, asp_strip, videos) -> dict:
     # 12 decoders of the video at once, each on its own thread and frame
     decoders = [fresh() for _ in range(12)]
     outs = [np.zeros((1, H5, W5, 3), np.uint8) for _ in range(12)]
-    for d, out in zip(decoders, outs):
-        native.mpeg4_decode_bgr_batch(video[:1], out, d)
+    with ThreadPoolExecutor(12) as ex:     # each decodes the I-VOP first
+        list(ex.map(lambda i: native.mpeg4_decode_bgr_batch(
+            video[:1], outs[i], decoders[i], threads=1), range(12)))
 
     def one_video(i):
         for chunk in video[1:]:
@@ -2428,7 +3001,8 @@ def container_phase(container_videos, mpeg4_videos, avi_v2h, v2h,
 
 
 def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
-                   run_video_to_hdr, container_videos, mjpg_v2h) -> dict:
+                   run_video_to_hdr, container_videos, mjpg_v2h,
+                   h264_videos=None) -> dict:
     """Phases 14 (c)-(f): config 5 from the lossless compressed AVIs
     ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write,
     phase 14's raw frames as ``videos`` (:class:`LosslessVideos`, written
@@ -2448,7 +3022,8 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
     K3's launches and MP/s; (h) likewise on ``XVID``; (i) on the MP4, MOV
     and Matroska files of ``container_videos`` (:func:`container_phase`),
     held to the AVI runs of the same bitstreams (``mjpg_v2h``: phase 14's
-    MJPG ``video_to_hdr``).  Returns the phases' times (``encode_s`` None
+    MJPG ``video_to_hdr``); (j) on the H.264 videos of ``h264_videos``
+    (:func:`h264_phase`).  Returns the phases' times (``encode_s`` None
     where the cache had the videos)."""
     from camera_linearity_tpu_torch.utils import avi
     t_phase = time.perf_counter()
@@ -2623,9 +3198,17 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
     del avi_v2h
     walls["i"] = time.perf_counter() - t_phase
     log(f"phase 14 (i): {walls['i']:.1f} s")
+    h264_out = None
+    if h264_videos is not None:
+        t_phase = time.perf_counter()
+        h264_out = h264_phase(h264_videos, v2h, run_video_to_hdr)
+        walls["j"] = time.perf_counter() - t_phase
+        log(f"phase 14 (j): {walls['j']:.1f} s")
     return dict(walls_s=walls, encode_s=encode_s, read_mbps=read_mb / read_s,
                 mpeg4=mpeg4, mpeg4_asp=mpeg4_asp, containers=containers_out,
-                mpeg4_encode_s=mpeg4_videos.encode_s,
+                mpeg4_encode_s=mpeg4_videos.encode_s, h264=h264_out,
+                h264_encode_s=None if h264_videos is None else
+                h264_videos.encode_s,
                 raw_mps=before["mps"],
                 raw_decode_s=before["stages"].get("decode_s", 0),
                 frame_mb={k: v / n / 1e6 for k, v in sizes.items()},
@@ -2635,11 +3218,14 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
                 video_to_hdr_s=v2h)
 
 
-def video_phases(dev, res, directory) -> dict:
+def video_phases(dev, res, directory, h264_plain4k) -> dict:
     """Phases 12-14: config 5, the video -> HDR pipeline, with the raw
     videos written into ``directory`` and the MJPG ones cached under
-    ``build/``.  Returns each kernel's launches on these paths, its
-    config-5 times and both sets of 4K videos' paths."""
+    ``build/``; ``h264_plain4k`` (:class:`H264Plain4K`) the plain decode of
+    4K H.264 pictures begun with the smoke.  Returns each kernel's
+    launches on these paths, its config-5 times and both sets of 4K
+    videos' paths."""
+    from concurrent.futures import ThreadPoolExecutor
     from camera_linearity_tpu_torch import native
     from camera_linearity_tpu_torch.models import calibration as cal
     from camera_linearity_tpu_torch.models import pipeline, video
@@ -2745,7 +3331,14 @@ def video_phases(dev, res, directory) -> dict:
     if (info.codec, info.height, info.width, info.layout) != (
             "I420", H5, W5, "i420"):
         raise AssertionError(f"probe_avi (I420): {info}")
-    mjpg_paths, mjpg_crop_paths, enc_s = make_mjpg_videos(pools)
+    # every MJPG video's frames go to the pool at once (a thread each
+    # submits its own and writes its AVIs)
+    mjpg_jobs = ThreadPoolExecutor(len(MJPG_VARIANTS), "mjpg")
+    mjpg_futures = {variant: mjpg_jobs.submit(
+        make_mjpg_videos, pools if variant in ("420", "gray") else
+        pools[-1:], pool, variant) for variant in MJPG_VARIANTS}
+    mjpg_jobs.shutdown(wait=False)
+    mjpg_paths, mjpg_crop_paths, enc_s = mjpg_futures.pop("420").result()
     sizes = [len(p) for p in avi.mjpg_chunks(mjpg_paths[-1])][:MJPG_POOL]
     log(f"  MJPG: {len(mjpg_paths)} videos of {FRAMES5} frames cycling a "
         f"pool of {MJPG_POOL} distinct frames each (quality "
@@ -2759,14 +3352,13 @@ def video_phases(dev, res, directory) -> dict:
     # the default decoder's other frame modes: grayscale MJPG (the frames'
     # green channel) for every exposure, for phase 14; 4:1:1, 4:4:0 and
     # progressive 4:2:0 for the brightest (timed below, beside the 4:2:0)
-    variants = {"gray": make_mjpg_videos(pools, "gray")}
-    for variant in ("411", "440", "progressive"):
-        variants[variant] = make_mjpg_videos(pools[-1:], variant)
+    variants = {variant: f.result() for variant, f in mjpg_futures.items()}
     enc = [v[2] for v in variants.values() if v[2] is not None]
     log(f"  MJPG in the other modes (quality {MJPG_QUALITY}, no DRI): "
         f"grayscale x {len(variants['gray'][0])} exposures, 4:1:1, 4:4:0 "
         f"and progressive 4:2:0 (spectral selection) x 1, "
-        + (f"encoded in {sum(enc):.1f} s" if enc else "from the cache"))
+        + (f"encoded in {max(enc):.1f} s, beside the 4:2:0 videos" if enc
+           else "from the cache"))
     for (h, w, sampling, progressive, restart, frame, m, mode), plain \
             in zip(todo, plains):
         buf = np.frombuffer(frame, np.uint8)
@@ -2794,6 +3386,7 @@ def video_phases(dev, res, directory) -> dict:
         f"decodes in spawned processes beside the videos' encodes, "
         f"{time.perf_counter() - t_jpeg:.1f} s from their start)")
     raise_failures("phase 12, jpeg.cpp against jpeg_plain.py", failures)
+    phase_mark("the MJPEG checks and the MJPG videos")
     # one 4K frame of the brightest exposure: one thread, then a batch of
     # the video's frames on every core
     frame = next(avi.mjpg_chunks(mjpg_paths[-1]))
@@ -2842,7 +3435,6 @@ def video_phases(dev, res, directory) -> dict:
     # batch of FRAMES5 on every core, beside the MJPEG times above.  The
     # plain versions run first, on a thread a layout (NumPy releases the
     # GIL), and never beside a timed call
-    from concurrent.futures import ThreadPoolExecutor
     from camera_linearity_tpu_torch.native import rawvideo_plain
     bgr_dev = torch.as_tensor(pools[-1][0], device=dev)
     failures, t0 = [], time.perf_counter()
@@ -2884,8 +3476,10 @@ def video_phases(dev, res, directory) -> dict:
     del layouts
     raise_failures("phase 12, the rawvideo reader against "
                    "rawvideo_plain.py", failures)
+    phase_mark("the MJPEG and rawvideo rows")
     lossless_videos = LosslessVideos(paths, i420_paths)
     mpeg4_videos = Mpeg4Videos(i420_paths)
+    h264_videos = H264Videos(i420_paths)
     container_videos = ContainerVideos(directory)
     # the MPEG-4 strip's pictures: the first rows of phase 14's I420 planes
     strip_pictures = []
@@ -2901,7 +3495,7 @@ def video_phases(dev, res, directory) -> dict:
     decode_ms.update(lossless_layout_rows(
         pools[-1][:2], [bgr_dev, torch.as_tensor(pools[-1][1], device=dev)],
         lossless_videos, mpeg4_videos, strip_pictures, pool,
-        container_videos, mjpg_paths))
+        container_videos, mjpg_paths, h264_videos, h264_plain4k))
     del bgr_dev
     icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
             ** np.array([2.0, 2.2, 2.4]))
@@ -3274,7 +3868,7 @@ def video_phases(dev, res, directory) -> dict:
                 dict(video_to_hdr=i420_v2h), runs,
                 lambda label, paths, decoded_as: run_batch(
                     label, paths, crops, "u16", "f16", "auto", decoded_as),
-                run_video_to_hdr, container_videos, mjpg_v2h)
+                run_video_to_hdr, container_videos, mjpg_v2h, h264_videos)
             del raw_u16, i420_v2h, mjpg_v2h
         finally:
             if cl_decoder is not None:
@@ -5409,6 +6003,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
+    # phase 12's plain decode of 4K H.264 pictures takes minutes of a core:
+    # it starts now, in a process of its own, and phase 12 reads it
+    h264_plain4k = H264Plain4K()
 
     # --- phase 2: build ---------------------------------------------------
     # every source's nvcc starts now; phases 3-6 wait only for the merge
@@ -5677,7 +6274,7 @@ def main() -> int:
 
     calibration = linearity_phases(dev, t_np, vals_np, stds_np)
     with tempfile.TemporaryDirectory(prefix="clt_config5_") as tmp:
-        config5 = video_phases(dev, res, Path(tmp))
+        config5 = video_phases(dev, res, Path(tmp), h264_plain4k)
         files = file_phases(dev, res, config5["paths"], config5["mjpg_paths"],
                             config5.pop("pool"))
         distributed = distributed_phase(

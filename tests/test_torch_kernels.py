@@ -790,6 +790,7 @@ _PORT_MODULES = [
     "camera_linearity_tpu_torch.utils.observability",
     "camera_linearity_tpu_torch.native",
     "camera_linearity_tpu_torch.native.jpeg_plain",
+    "camera_linearity_tpu_torch.native.h264_plain",
     "camera_linearity_tpu_torch.ops.welford",
     "camera_linearity_tpu_torch.models.video",
     "camera_linearity_tpu_torch.models.pipeline",

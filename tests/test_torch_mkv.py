@@ -250,6 +250,9 @@ def _write_refusal(path, name, mpeg4):
     elif name == "avc":
         kw.write_mkv(path, [kw.video_track([b"\0\0\0\1" + bytes(20)] * 2, H,
                                            W, "V_MPEG4/ISO/AVC")])
+    elif name == "hevc":
+        kw.write_mkv(path, [kw.video_track([b"\0\0\0\1" + bytes(20)] * 2, H,
+                                           W, "V_MPEGH/ISO/HEVC")])
     elif name == "full range":
         kw.write_mkv(path, [kw.video_track(chunks, H, W, "V_MPEG4/ISO/ASP",
                                            extra, colour={0x55B1: 5,
@@ -273,7 +276,8 @@ REFUSALS = {
     "tracks after a cluster": "Tracks come after its first Cluster",
     "block past the end": "past the end of the file",
     "empty frame": "sample 1 is empty",
-    "avc": r"Matroska codec 'V_MPEG4/ISO/AVC'.*needs cv2",
+    "avc": r"V_MPEG4/ISO/AVC\): a CodecPrivate of 0 bytes that is no avcC",
+    "hevc": r"Matroska codec 'V_MPEGH/ISO/HEVC'.*needs cv2",
     "full range": "full-range YUV",
     "BI_RGB": "DIB frames under V_MS/VFW/FOURCC",
 }

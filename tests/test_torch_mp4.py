@@ -316,8 +316,10 @@ def _refusals(tmp_path, mpeg4):
             p.read_bytes()[:-len(samples[2]) // 2]))
     case("empty sample", "sample 1 is empty", lambda p: mov(
         p, [samples[0], b"", samples[2]]))
-    case("avc1", r"MP4 codec 'avc1'.*needs cv2", lambda p: mw.write_mp4(
+    case("avc1", r"H\.264 \(avc1\) without its avcC", lambda p: mw.write_mp4(
         p, [mw.video_track([b"\0\0\0\1" + bytes(40)] * 2, H, W, b"avc1")]))
+    case("hvc1", r"MP4 codec 'hvc1'.*needs cv2", lambda p: mw.write_mp4(
+        p, [mw.video_track([b"\0\0\0\1" + bytes(40)] * 2, H, W, b"hvc1")]))
     case("mp4v of MPEG-2", r"MP4 codec 'mp4v \(object type 0x61\)'.*needs "
          "cv2", lambda p: mw.write_mp4(p, [mw.video_track(
              chunks, H, W, b"mp4v", [mw.esds(extra, oti=0x61)])]))
@@ -336,7 +338,7 @@ def _refusals(tmp_path, mpeg4):
 
 REFUSALS = ["fragmented (moof)", "fragmented (mvex)", "compressed moov",
             "external data", "encrypted", "mjpa", "two edits", "rate 2",
-            "45 degrees", "past the end", "empty sample", "avc1",
+            "45 degrees", "past the end", "empty sample", "avc1", "hvc1",
             "mp4v of MPEG-2", "raw rgb24", "full-range I420", "BT.2020"]
 
 

@@ -548,7 +548,7 @@ def test_the_cv2_message_names_every_codec_the_port_reads(monkeypatch):
                 "png": avi.PNG_CODECS, "huffyuv": avi.HUFFYUV_CODECS,
                 "ffv1": avi.FFV1_CODECS, "utvideo": avi.UTVIDEO_READ,
                 "lagarith": avi.LAGARITH_CODECS, "mpeg4": avi.MPEG4_CODECS,
-                "mjpeg": ("MJPG",)}
+                "h264": avi.H264_CODECS, "mjpeg": ("MJPG",)}
     assert set(families) - {"raw", "mjpeg"} == set(tvideo._DECODER_NAMES)
     for family, fourccs in families.items():
         for fourcc in fourccs:
@@ -557,4 +557,8 @@ def test_the_cv2_message_names_every_codec_the_port_reads(monkeypatch):
     # ones still refused
     for words in ("Advanced Simple", "B-VOPs", "packed bitstreams",
                   "MPEG quantisation", "not quarter-pel or GMC"):
+        assert words in message, words
+    # which H.264 streams: the Constrained Baseline tools, and what not
+    for words in ("V_MPEG4/ISO/AVC", "Constrained Baseline", "CAVLC",
+                  "not CABAC or B slices"):
         assert words in message, words
