@@ -385,9 +385,11 @@ def cmd_doctor(args) -> int:
              "(not quarter-pel or GMC); a macroblock row a thread"),
             ("H.264", native.h264_available, "_h264", "H.264 AVIs ("
              + ", ".join(native.h264_plain.H264_FOURCCS) + "), MP4/MOV "
-             "avc1/avc3 and Matroska V_MPEG4/ISO/AVC: the Constrained "
-             "Baseline tools (CAVLC, I and P slices, every MMCO, several "
-             "slices; not CABAC, B slices or interlaced coding); a GOP a "
+             "avc1/avc3 and Matroska V_MPEG4/ISO/AVC: I and P slices of the "
+             "Constrained Baseline, Main and High profiles (CAVLC and "
+             "CABAC, the 8x8 transform, scaling matrices, weighted "
+             "prediction, every MMCO, several slices; not B slices or "
+             "interlaced coding); a GOP a "
              "thread, a picture's slices side by side")):
         print(f"native {name} decoder: " + (
             f"built; {what} (cv2's bytes)" if ok() else

@@ -134,8 +134,10 @@ def _cv2(why: str):
             "Advanced Simple streams, B-VOPs, packed bitstreams and MPEG "
             "quantisation among them; not quarter-pel or GMC) and H.264 ("
             + ", ".join(avi.H264_CODECS)
-            + "; V_MPEG4/ISO/AVC: the Constrained Baseline tools, CAVLC, I "
-            "and P slices; not CABAC or B slices) ('native', "
+            + "; V_MPEG4/ISO/AVC: I and P slices of the Constrained "
+            "Baseline, Main and High profiles, CAVLC and CABAC, the 8x8 "
+            "transform, scaling matrices and weighted prediction; not B "
+            "slices or interlaced coding) ('native', "
             "its own decoders) and MJPG (jpeg, V_MJPEG; 'native' / "
             "'ffmpeg' / 'turbo' / 'turbo_fast', its own JPEG decoder)"
         ) from exc
@@ -739,7 +741,8 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
     AVIs (the Simple Profile, and the Advanced Simple streams Xvid and
     DivX 5 write: B-VOPs, packed bitstreams, MPEG quantisation, the Xvid
     IDCT) and H.264 files (AVI, MP4/MOV ``avc1``/``avc3``, Matroska
-    ``V_MPEG4/ISO/AVC``: the Constrained Baseline tools) through the
+    ``V_MPEG4/ISO/AVC``: I and P slices of the Constrained Baseline,
+    Main and High profiles) through the
     port's PNG, HuffYUV, FFV1, UtVideo, Lagarith, MPEG-4 and H.264
     decoders (cv2's bytes), an MJPG AVI through the port's JPEG decoder in
     its ``"ffmpeg"`` mode (cv2's bytes, as the JAX package's default gives
@@ -757,8 +760,8 @@ def _resolve_decoder(decoder: str, file_paths: List[Path], height: int,
     ``avi.mpeg4_unsupported``: the VOL and the first VOP, which refuse
     quarter-pel, GMC/S-VOPs, interlaced VOLs and the rest by name;
     ``avi.h264_unsupported``: the parameter sets and the first slice
-    header, which refuse CABAC, B slices, interlaced coding and the rest
-    by name);
+    header, which refuse B slices, interlaced coding and the rest by
+    name);
     1/2/4-bit BI_RGB, BI_BITFIELDS, palette-change chunks and a frame
     chunk longer than the frame (not its padded size) raise then, naming
     what; and an MJPG's

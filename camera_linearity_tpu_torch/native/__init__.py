@@ -444,6 +444,7 @@ def _declare_h264(lib: ctypes.CDLL) -> None:
     lib.clt_h264_output.argtypes = [vp, i, i, i, i, i, ctypes.c_void_p]
     lib.clt_h264_output.restype = None
     lib.clt_h264_version.restype = i
+    lib.clt_h264_params.restype = i
 
 
 # stem: (source, extra g++ flags, entry-point types, what it is).  -fwrapv
@@ -1903,6 +1904,10 @@ def h264_decode_bgr_batch(payloads, dst: np.ndarray, decoder: H264Decoder,
     bits = (ctypes.c_size_t * len(flats))(
         *[s.header.data_bit for _, s in slices])
     params = np.array([j.native_params(s) for j, s in slices], np.int32)
+    if params.shape[1] != decoder._lib.clt_h264_params():
+        raise RuntimeError(f"h264_plain gives {params.shape[1]} slice "
+                           "parameters, h264.cpp reads "
+                           f"{decoder._lib.clt_h264_params()}")
     rcs, wheres = (ctypes.c_int * n)(), (ctypes.c_int * n)()
     ip = ctypes.POINTER(ctypes.c_int)
     decoder._lib.clt_h264_decode_batch(

@@ -1,6 +1,7 @@
 """Plain version of the port's H.264 decoder (``h264.cpp``), and the
 stream layer both share: the frames ``cv2.VideoCapture`` gives for an
-H.264 stream of the Constrained Baseline tools, pure Python and NumPy.
+H.264 stream of I and P slices of the Constrained Baseline, Main and High
+profiles, pure Python and NumPy.
 
 cv2 reads such a stream through FFmpeg 8's h264 decoder and swscale.  The
 decoding process of H.264 is exact by the standard (an integer transform,
@@ -17,7 +18,9 @@ What it reads:
   prevention; AUD, SEI, filler, end-of-sequence and end-of-stream NAL
   units and the SVC/MVC types 14, 15 and 20 are skipped; sequence and
   picture parameter sets by id, in the extradata or in band.
-* SPS: 8-bit 4:2:0, ``pic_order_cnt_type`` 0, 1 and 2, up to 16
+* SPS: 8-bit 4:2:0, scaling lists (kept in zigzag order, with the
+  default lists of ``UseDefaultScalingMatrixFlag`` and fall-back rule A),
+  ``pic_order_cnt_type`` 0, 1 and 2, up to 16
   reference frames, ``frame_mbs_only_flag`` 1, frame cropping (a left
   crop in multiples of 64 luma samples: FFmpeg keeps a smaller one only
   to the multiple of 64 below it, so that the frame's data pointers stay
@@ -25,8 +28,11 @@ What it reads:
   VUI (its ``video_full_range_flag`` and colour description choose the
   conversion; HRD parameters and ``bitstream_restriction`` are read
   past).
-* PPS: CAVLC, one slice group, no weighted prediction, any
-  ``chroma_qp_index_offset`` (and a ``second_chroma_qp_index_offset``),
+* PPS: CAVLC or CABAC, one slice group, explicit weighted prediction
+  (``weighted_bipred_idc`` is read; a B slice is refused), the 8x8
+  transform, scaling lists (they replace the SPS's; fall-back rule B where
+  the SPS has lists), any ``chroma_qp_index_offset`` and
+  ``second_chroma_qp_index_offset`` (Cr's, in the deblocking too),
   ``deblocking_filter_control_present_flag``,
   ``constrained_intra_pred_flag``, ``redundant_pic_cnt_present_flag``
   (the count must be 0).  As FFmpeg, a PPS of a Baseline, Main or
@@ -34,23 +40,28 @@ What it reads:
   ``redundant_pic_cnt_present_flag``.
 * Slices: I and P, any number in a picture (in increasing order of their
   first macroblock), ``num_ref_idx_active_override``, reference list
-  modification, ``dec_ref_pic_marking`` (the sliding window and every
-  memory management operation, long-term references and MMCO 5 among
-  them), ``slice_qp_delta``, ``disable_deblocking_filter_idc`` 0-2 and
-  the filter offsets.
-* Macroblocks (:class:`Decoder`): I_PCM, Intra4x4, Intra16x16, the inter
-  partitions and P_Skip, CAVLC residuals, quarter-sample luma and
-  eighth-sample chroma interpolation with clamped reference coordinates,
-  the 4x4 inverse transform and the deblocking filter.
+  modification (a picture twice in a list too), ``pred_weight_table``,
+  ``dec_ref_pic_marking`` (the sliding window and every memory management
+  operation, long-term references and MMCO 5 among them),
+  ``cabac_init_idc``, ``slice_qp_delta``, ``disable_deblocking_filter_idc``
+  0-2 and the filter offsets.
+* Macroblocks (:class:`Decoder`): I_PCM (inside a CABAC slice too),
+  Intra4x4, Intra8x8 (its reference samples filtered), Intra16x16, the
+  inter partitions and P_Skip, CAVLC and CABAC residuals (the arithmetic
+  decoding engine, every binarization and context an I or P slice
+  reaches), quarter-sample luma and eighth-sample chroma interpolation
+  with clamped reference coordinates, explicit weights, the 4x4 and 8x8
+  inverse transforms with the scaling matrices' LevelScale, and the
+  deblocking filter (no 4-sample luma edges inside an 8x8 transform).
 * Output: each picture as soon as it is decoded, the order FFmpeg gives
   for streams whose POCs increase in decode order between IDR pictures
   (and MMCO 5); one picture a sample (an AVI chunk, an MP4 sample, a
   Matroska frame).
 
 What it refuses (:func:`unsupported` and :class:`H264Error`, naming the
-tool): CABAC, B, SP and SI slices, interlaced coding (PAFF/MBAFF), the
-8x8 transform, scaling matrices, weighted prediction, bit depths over 8,
-chroma formats other than 4:2:0, ``qpprime_y_zero_transform_bypass``,
+tool): B, SP and SI slices (and ``weighted_bipred_idc`` with them),
+interlaced coding (PAFF/MBAFF), bit depths over 8, chroma formats other
+than 4:2:0 (monochrome among them), ``qpprime_y_zero_transform_bypass``,
 slice groups, redundant pictures, a left crop that is no multiple of 64,
 gaps in ``frame_num``, POCs that do not increase, a stream that does not
 start with an IDR picture, a sample of two pictures, and damaged or
@@ -70,7 +81,9 @@ __all__ = ["H264_FOURCCS", "probe", "H264Error", "Sps", "Pps", "SliceHeader",
            "geometry", "matrix_name", "crop_origin", "failure",
            "decode_planes", "decode_bgr", "i420_bytes", "TOKEN_LEN",
            "TOKEN_CODE", "DC_TOKEN_LEN", "DC_TOKEN_CODE", "ZEROS_LEN",
-           "ZEROS_CODE", "DC_ZEROS_LEN", "DC_ZEROS_CODE", "RUN_LEN", "RUN_CODE"]
+           "ZEROS_CODE", "DC_ZEROS_LEN", "DC_ZEROS_CODE", "RUN_LEN", "RUN_CODE",
+           "CABAC_INIT", "Cabac", "ZIGZAG8", "DEFAULT_4X4", "DEFAULT_8X8",
+           "scaling_matrices", "level_scales", "pred8x8", "add_block8"]
 
 
 class H264Error(ValueError):
@@ -165,6 +178,242 @@ RUN_CODE = ((1, 0), (1, 1, 0), (3, 2, 1, 0), (3, 2, 1, 1, 0),
 # luma4x4BlkIdx -> the block's (x, y) in 4x4 units
 BLK_X = (0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3)
 BLK_Y = (0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3)
+
+# the context variables' (m, n) of ctxIdx 0-459, flat: [0] I slices,
+# [1 + cabac_init_idc] P slices
+CABAC_INIT = (
+    (20, -15, 2, 54, 3, 74, 20, -15, 2, 54, 3, 74, -28, 127, -23, 104,
+     -6, 53, -1, 54, 7, 51, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+     0, 0, 0, 0, 0, 0, 0, 0, 0, 41, 0, 63, 0, 63, 0, 63,
+     -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 0, 11, 1, 55,
+     0, 69, -17, 127, -13, 102, 0, 82, -7, 74, -21, 107, -27, 127, -31, 127,
+     -24, 127, -18, 95, -27, 127, -21, 114, -30, 127, -17, 123, -12, 115, -16, 122,
+     -11, 115, -12, 63, -2, 68, -15, 84, -13, 104, -3, 70, -8, 93, -10, 90,
+     -30, 127, -1, 74, -6, 97, -7, 91, -20, 127, -4, 56, -5, 82, -7, 76,
+     -22, 125, -7, 93, -11, 87, -3, 77, -5, 71, -4, 63, -4, 68, -12, 84,
+     -7, 62, -7, 65, 8, 61, 5, 56, -2, 66, 1, 64, 0, 61, -2, 78,
+     1, 50, 7, 52, 10, 35, 0, 44, 11, 38, 1, 45, 0, 46, 5, 44,
+     31, 17, 1, 51, 7, 50, 28, 19, 16, 33, 14, 62, -13, 108, -15, 100,
+     -13, 101, -13, 91, -12, 94, -10, 88, -16, 84, -10, 86, -7, 83, -13, 87,
+     -19, 94, 1, 70, 0, 72, -5, 74, 18, 59, -8, 102, -15, 100, 0, 95,
+     -4, 75, 2, 72, -11, 75, -3, 71, 15, 46, -13, 69, 0, 62, 0, 65,
+     21, 37, -15, 72, 9, 57, 16, 54, 0, 62, 12, 72, 24, 0, 15, 9,
+     8, 25, 13, 18, 15, 9, 13, 19, 10, 37, 12, 18, 6, 29, 20, 33,
+     15, 30, 4, 45, 1, 58, 0, 62, 7, 61, 12, 38, 11, 45, 15, 39,
+     11, 42, 13, 44, 16, 45, 12, 41, 10, 49, 30, 34, 18, 42, 10, 55,
+     17, 51, 17, 46, 0, 89, 26, -19, 22, -17, 26, -17, 30, -25, 28, -20,
+     33, -23, 37, -27, 33, -23, 40, -28, 38, -17, 33, -11, 40, -15, 41, -6,
+     38, 1, 41, 17, 30, -6, 27, 3, 26, 22, 37, -16, 35, -4, 38, -8,
+     38, -3, 37, 3, 38, 5, 42, 0, 35, 16, 39, 22, 14, 48, 27, 37,
+     21, 60, 12, 68, 2, 97, -3, 71, -6, 42, -5, 50, -3, 54, -2, 62,
+     0, 58, 1, 63, -2, 72, -1, 74, -9, 91, -5, 67, -5, 27, -3, 39,
+     -2, 44, 0, 46, -16, 64, -8, 68, -10, 78, -6, 77, -10, 86, -12, 92,
+     -15, 55, -10, 60, -6, 62, -4, 65, -12, 73, -8, 76, -7, 80, -9, 88,
+     -17, 110, -11, 97, -20, 84, -11, 79, -6, 73, -4, 74, -13, 86, -13, 96,
+     -11, 97, -19, 117, -8, 78, -5, 33, -4, 48, -2, 53, -3, 62, -13, 71,
+     -10, 79, -12, 86, -13, 90, -14, 97, 0, 0, -6, 93, -6, 84, -8, 79,
+     0, 66, -1, 71, 0, 62, -2, 60, -2, 59, -5, 75, -3, 62, -4, 58,
+     -9, 66, -1, 79, 0, 71, 3, 68, 10, 44, -7, 62, 15, 36, 14, 40,
+     16, 27, 12, 29, 1, 44, 20, 36, 18, 32, 5, 42, 1, 48, 10, 62,
+     17, 46, 9, 64, -12, 104, -11, 97, -16, 96, -7, 88, -8, 85, -7, 85,
+     -9, 85, -13, 88, 4, 66, -3, 77, -3, 76, -6, 76, 10, 58, -1, 76,
+     -1, 83, -7, 99, -14, 95, 2, 95, 0, 76, -5, 74, 0, 70, -11, 75,
+     1, 68, 0, 65, -14, 73, 3, 62, 4, 62, -1, 68, -13, 75, 11, 55,
+     5, 64, 12, 70, 15, 6, 6, 19, 7, 16, 12, 14, 18, 13, 13, 11,
+     13, 15, 15, 16, 12, 23, 13, 23, 15, 20, 14, 26, 14, 44, 17, 40,
+     17, 47, 24, 17, 21, 21, 25, 22, 31, 27, 22, 29, 19, 35, 14, 50,
+     10, 57, 7, 63, -2, 77, -4, 82, -3, 94, 9, 69, -12, 109, 36, -35,
+     36, -34, 32, -26, 37, -30, 44, -32, 34, -18, 34, -15, 40, -15, 33, -7,
+     35, -5, 33, 0, 38, 2, 33, 13, 23, 35, 13, 58, 29, -3, 26, 0,
+     22, 30, 31, -7, 35, -15, 34, -3, 34, 3, 36, -1, 34, 5, 32, 11,
+     35, 5, 34, 12, 39, 11, 30, 29, 34, 26, 29, 39, 19, 66, 31, 21,
+     31, 31, 25, 50, -17, 120, -20, 112, -18, 114, -11, 85, -15, 92, -14, 89,
+     -26, 71, -15, 81, -14, 80, 0, 68, -14, 70, -24, 56, -23, 68, -24, 50,
+     -11, 74, 23, -13, 26, -13, 40, -15, 49, -14, 44, 3, 45, 6, 44, 34,
+     33, 54, 19, 82, -3, 75, -1, 23, 1, 34, 1, 43, 0, 54, -2, 55,
+     0, 61, 1, 64, 0, 68, -9, 92, -14, 106, -13, 97, -15, 90, -12, 90,
+     -18, 88, -10, 73, -9, 79, -14, 86, -10, 73, -10, 70, -10, 69, -5, 66,
+     -9, 64, -5, 58, 2, 59, 21, -10, 24, -11, 28, -8, 28, -1, 29, 3,
+     29, 9, 35, 20, 29, 36, 14, 67),
+    (20, -15, 2, 54, 3, 74, 20, -15, 2, 54, 3, 74, -28, 127, -23, 104,
+     -6, 53, -1, 54, 7, 51, 23, 33, 23, 2, 21, 0, 1, 9, 0, 49,
+     -37, 118, 5, 57, -13, 78, -11, 65, 1, 62, 12, 49, -4, 73, 17, 50,
+     18, 64, 9, 43, 29, 0, 26, 67, 16, 90, 9, 104, -46, 127, -20, 104,
+     1, 67, -13, 78, -11, 65, 1, 62, -6, 86, -17, 95, -6, 61, 9, 45,
+     -3, 69, -6, 81, -11, 96, 6, 55, 7, 67, -5, 86, 2, 88, 0, 58,
+     -3, 76, -10, 94, 5, 54, 4, 69, -3, 81, 0, 88, -7, 67, -5, 74,
+     -4, 74, -5, 80, -7, 72, 1, 58, 0, 41, 0, 63, 0, 63, 0, 63,
+     -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 0, 45, -4, 78,
+     -3, 96, -27, 126, -28, 98, -25, 101, -23, 67, -28, 82, -20, 94, -16, 83,
+     -22, 110, -21, 91, -18, 102, -13, 93, -29, 127, -7, 92, -5, 89, -7, 96,
+     -13, 108, -3, 46, -1, 65, -1, 57, -9, 93, -3, 74, -9, 92, -8, 87,
+     -23, 126, 5, 54, 6, 60, 6, 59, 6, 69, -1, 48, 0, 68, -4, 69,
+     -8, 88, -2, 85, -6, 78, -1, 75, -7, 77, 2, 54, 5, 50, -3, 68,
+     1, 50, 6, 42, -4, 81, 1, 63, -4, 70, 0, 67, 2, 57, -2, 76,
+     11, 35, 4, 64, 1, 61, 11, 35, 18, 25, 12, 24, 13, 29, 13, 36,
+     -10, 93, -7, 73, -2, 73, 13, 46, 9, 49, -7, 100, 9, 53, 2, 53,
+     5, 53, -2, 61, 0, 56, 0, 56, -13, 63, -5, 60, -1, 62, 4, 57,
+     -6, 69, 4, 57, 14, 39, 4, 51, 13, 68, 3, 64, 1, 61, 9, 63,
+     7, 50, 16, 39, 5, 44, 4, 52, 11, 48, -5, 60, -1, 59, 0, 59,
+     22, 33, 5, 44, 14, 43, -1, 78, 0, 60, 9, 69, 11, 28, 2, 40,
+     3, 44, 0, 49, 0, 46, 2, 44, 2, 51, 0, 47, 4, 39, 2, 62,
+     6, 46, 0, 54, 3, 54, 2, 58, 4, 63, 6, 51, 6, 57, 7, 53,
+     6, 52, 6, 55, 11, 45, 14, 36, 8, 53, -1, 82, 7, 55, -3, 78,
+     15, 46, 22, 31, -1, 84, 25, 7, 30, -7, 28, 3, 28, 4, 32, 0,
+     34, -1, 30, 6, 30, 6, 32, 9, 31, 19, 26, 27, 26, 30, 37, 20,
+     28, 34, 17, 70, 1, 67, 5, 59, 9, 67, 16, 30, 18, 32, 18, 35,
+     22, 29, 24, 31, 23, 38, 18, 43, 20, 41, 11, 63, 9, 59, 9, 64,
+     -1, 94, -2, 89, -9, 108, -6, 76, -2, 44, 0, 45, 0, 52, -3, 64,
+     -2, 59, -4, 70, -4, 75, -8, 82, -17, 102, -9, 77, 3, 24, 0, 42,
+     0, 48, 0, 55, -6, 59, -7, 71, -12, 83, -11, 87, -30, 119, 1, 58,
+     -3, 29, -1, 36, 1, 38, 2, 43, -6, 55, 0, 58, 0, 64, -3, 74,
+     -10, 90, 0, 70, -4, 29, 5, 31, 7, 42, 1, 59, -2, 58, -3, 72,
+     -3, 81, -11, 97, 0, 58, 8, 5, 10, 14, 14, 18, 13, 27, 2, 40,
+     0, 58, -3, 70, -6, 79, -8, 85, 0, 0, -13, 106, -16, 106, -10, 87,
+     -21, 114, -18, 110, -14, 98, -22, 110, -21, 106, -18, 103, -21, 107, -23, 108,
+     -26, 112, -10, 96, -12, 95, -5, 91, -9, 93, -22, 94, -5, 86, 9, 67,
+     -4, 80, -10, 85, -1, 70, 7, 60, 9, 58, 5, 61, 12, 50, 15, 50,
+     18, 49, 17, 54, 10, 41, 7, 46, -1, 51, 7, 49, 8, 52, 9, 41,
+     6, 47, 2, 55, 13, 41, 10, 44, 6, 50, 5, 53, 13, 49, 4, 63,
+     6, 64, -2, 69, -2, 59, 6, 70, 10, 44, 9, 31, 12, 43, 3, 53,
+     14, 34, 10, 38, -3, 52, 13, 40, 17, 32, 7, 44, 7, 38, 13, 50,
+     10, 57, 26, 43, 14, 11, 11, 14, 9, 11, 18, 11, 21, 9, 23, -2,
+     32, -15, 32, -15, 34, -21, 39, -23, 42, -33, 41, -31, 46, -28, 38, -12,
+     21, 29, 45, -24, 53, -45, 48, -26, 65, -43, 43, -19, 39, -10, 30, 9,
+     18, 26, 20, 27, 0, 57, -14, 82, -5, 75, -19, 97, -35, 125, 27, 0,
+     28, 0, 31, -4, 27, 6, 34, 8, 30, 10, 24, 22, 33, 19, 22, 32,
+     26, 31, 21, 41, 26, 44, 23, 47, 16, 65, 14, 71, 8, 60, 6, 63,
+     17, 65, 21, 24, 23, 20, 26, 23, 27, 32, 28, 23, 28, 24, 23, 40,
+     24, 32, 28, 29, 23, 42, 19, 57, 22, 53, 22, 61, 11, 86, 12, 40,
+     11, 51, 14, 59, -4, 79, -7, 71, -5, 69, -9, 70, -8, 66, -10, 68,
+     -19, 73, -12, 69, -16, 70, -15, 67, -20, 62, -19, 70, -16, 66, -22, 65,
+     -20, 63, 9, -2, 26, -9, 33, -9, 39, -7, 41, -2, 45, 3, 49, 9,
+     45, 27, 36, 59, -6, 66, -7, 35, -7, 42, -8, 45, -5, 48, -12, 56,
+     -6, 60, -5, 62, -8, 66, -8, 76, -5, 85, -6, 81, -10, 77, -7, 81,
+     -17, 80, -18, 73, -4, 74, -10, 83, -9, 71, -9, 67, -1, 61, -8, 66,
+     -14, 66, 0, 59, 2, 59, 21, -13, 33, -14, 39, -7, 46, -2, 51, 2,
+     60, 6, 61, 17, 55, 34, 42, 62),
+    (20, -15, 2, 54, 3, 74, 20, -15, 2, 54, 3, 74, -28, 127, -23, 104,
+     -6, 53, -1, 54, 7, 51, 22, 25, 34, 0, 16, 0, -2, 9, 4, 41,
+     -29, 118, 2, 65, -6, 71, -13, 79, 5, 52, 9, 50, -3, 70, 10, 54,
+     26, 34, 19, 22, 40, 0, 57, 2, 41, 36, 26, 69, -45, 127, -15, 101,
+     -4, 76, -6, 71, -13, 79, 5, 52, 6, 69, -13, 90, 0, 52, 8, 43,
+     -2, 69, -5, 82, -10, 96, 2, 59, 2, 75, -3, 87, -3, 100, 1, 56,
+     -3, 74, -6, 85, 0, 59, -3, 81, -7, 86, -5, 95, -1, 66, -1, 77,
+     1, 70, -2, 86, -5, 72, 0, 61, 0, 41, 0, 63, 0, 63, 0, 63,
+     -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 13, 15, 7, 51,
+     2, 80, -39, 127, -18, 91, -17, 96, -26, 81, -35, 98, -24, 102, -23, 97,
+     -27, 119, -24, 99, -21, 110, -18, 102, -36, 127, 0, 80, -5, 89, -7, 94,
+     -4, 92, 0, 39, 0, 65, -15, 84, -35, 127, -2, 73, -12, 104, -9, 91,
+     -31, 127, 3, 55, 7, 56, 7, 55, 8, 61, -3, 53, 0, 68, -7, 74,
+     -9, 88, -13, 103, -13, 91, -9, 89, -14, 92, -8, 76, -12, 87, -23, 110,
+     -24, 105, -10, 78, -20, 112, -17, 99, -78, 127, -70, 127, -50, 127, -46, 127,
+     -4, 66, -5, 78, -4, 71, -8, 72, 2, 59, -1, 55, -7, 70, -6, 75,
+     -8, 89, -34, 119, -3, 75, 32, 20, 30, 22, -44, 127, 0, 54, -5, 61,
+     0, 58, -1, 60, -3, 61, -8, 67, -25, 84, -14, 74, -5, 65, 5, 52,
+     2, 57, 0, 61, -9, 69, -11, 70, 18, 55, -4, 71, 0, 58, 7, 61,
+     9, 41, 18, 25, 9, 32, 5, 43, 9, 47, 0, 44, 0, 51, 2, 46,
+     19, 38, -4, 66, 15, 38, 12, 42, 9, 34, 0, 89, 4, 45, 10, 28,
+     10, 31, 33, -11, 52, -43, 18, 15, 28, 0, 35, -22, 38, -25, 34, 0,
+     39, -18, 32, -12, 102, -94, 0, 0, 56, -15, 33, -4, 29, 10, 37, -5,
+     51, -29, 39, -9, 52, -34, 69, -58, 67, -63, 44, -5, 32, 7, 55, -29,
+     32, 1, 0, 0, 27, 36, 33, -25, 34, -30, 36, -28, 38, -28, 38, -27,
+     34, -18, 35, -16, 34, -14, 32, -8, 37, -6, 35, 0, 30, 10, 28, 18,
+     26, 25, 29, 41, 0, 75, 2, 72, 8, 77, 14, 35, 18, 31, 17, 35,
+     21, 30, 17, 45, 20, 42, 18, 45, 27, 26, 16, 54, 7, 66, 16, 56,
+     11, 73, 10, 67, -10, 116, -23, 112, -15, 71, -7, 61, 0, 53, -5, 66,
+     -11, 77, -9, 80, -9, 84, -10, 87, -34, 127, -21, 101, -3, 39, -5, 53,
+     -7, 61, -11, 75, -15, 77, -17, 91, -25, 107, -25, 111, -28, 122, -11, 76,
+     -10, 44, -10, 52, -10, 57, -9, 58, -16, 72, -7, 69, -4, 69, -5, 74,
+     -9, 86, 2, 66, -9, 34, 1, 32, 11, 31, 5, 52, -2, 55, -2, 67,
+     0, 73, -8, 89, 3, 52, 7, 4, 10, 8, 17, 8, 16, 19, 3, 37,
+     -1, 61, -5, 73, -1, 70, -4, 78, 0, 0, -21, 126, -23, 124, -20, 110,
+     -26, 126, -25, 124, -17, 105, -27, 121, -27, 117, -17, 102, -26, 117, -27, 116,
+     -33, 122, -10, 95, -14, 100, -8, 95, -17, 111, -28, 114, -6, 89, -2, 80,
+     -4, 82, -9, 85, -8, 81, -1, 72, 5, 64, 1, 67, 9, 56, 0, 69,
+     1, 69, 7, 69, -7, 69, -6, 67, -16, 77, -2, 64, 2, 61, -6, 67,
+     -3, 64, 2, 57, -3, 65, -3, 66, 0, 62, 9, 51, -1, 66, -2, 71,
+     -2, 75, -1, 70, -9, 72, 14, 60, 16, 37, 0, 47, 18, 35, 11, 37,
+     12, 41, 10, 41, 2, 48, 12, 41, 13, 41, 0, 59, 3, 50, 19, 40,
+     3, 66, 18, 50, 19, -6, 18, -6, 14, 0, 26, -12, 31, -16, 33, -25,
+     33, -22, 37, -28, 39, -30, 42, -30, 47, -42, 45, -36, 49, -34, 41, -17,
+     32, 9, 69, -71, 63, -63, 66, -64, 77, -74, 54, -39, 52, -35, 41, -10,
+     36, 0, 40, -1, 30, 14, 28, 26, 23, 37, 12, 55, 11, 65, 37, -33,
+     39, -36, 40, -37, 38, -30, 46, -33, 42, -30, 40, -24, 49, -29, 38, -12,
+     40, -10, 38, -3, 46, -5, 31, 20, 29, 30, 25, 44, 12, 48, 11, 49,
+     26, 45, 22, 22, 23, 22, 27, 21, 33, 20, 26, 28, 30, 24, 27, 34,
+     18, 42, 25, 39, 18, 50, 12, 70, 21, 54, 14, 71, 11, 83, 25, 32,
+     21, 49, 21, 54, -5, 85, -6, 81, -10, 77, -7, 81, -17, 80, -18, 73,
+     -4, 74, -10, 83, -9, 71, -9, 67, -1, 61, -8, 66, -14, 66, 0, 59,
+     2, 59, 17, -10, 32, -13, 42, -9, 49, -5, 53, 0, 64, 3, 68, 10,
+     66, 27, 47, 57, -5, 71, 0, 24, -1, 36, -2, 42, -2, 52, -9, 57,
+     -6, 63, -4, 65, -4, 67, -7, 82, -3, 81, -3, 76, -7, 72, -6, 78,
+     -12, 72, -14, 68, -3, 70, -6, 76, -5, 66, -5, 62, 0, 57, -4, 61,
+     -9, 60, 1, 54, 2, 58, 17, -10, 32, -13, 42, -9, 49, -5, 53, 0,
+     64, 3, 68, 10, 66, 27, 47, 57),
+    (20, -15, 2, 54, 3, 74, 20, -15, 2, 54, 3, 74, -28, 127, -23, 104,
+     -6, 53, -1, 54, 7, 51, 29, 16, 25, 0, 14, 0, -10, 51, -3, 62,
+     -27, 99, 26, 16, -4, 85, -24, 102, 5, 57, 6, 57, -17, 73, 14, 57,
+     20, 40, 20, 10, 29, 0, 54, 0, 37, 42, 12, 97, -32, 127, -22, 117,
+     -2, 74, -4, 85, -24, 102, 5, 57, -6, 93, -14, 88, -6, 44, 4, 55,
+     -11, 89, -15, 103, -21, 116, 19, 57, 20, 58, 4, 84, 6, 96, 1, 63,
+     -5, 85, -13, 106, 5, 63, 6, 75, -3, 90, -1, 101, 3, 55, -4, 79,
+     -2, 75, -12, 97, -7, 50, 1, 60, 0, 41, 0, 63, 0, 63, 0, 63,
+     -9, 83, 4, 86, 0, 97, -7, 72, 13, 41, 3, 62, 7, 34, -9, 88,
+     -20, 127, -36, 127, -17, 91, -14, 95, -25, 84, -25, 86, -12, 89, -17, 91,
+     -31, 127, -14, 76, -18, 103, -13, 90, -37, 127, 11, 80, 5, 76, 2, 84,
+     5, 78, -6, 55, 4, 61, -14, 83, -37, 127, -5, 79, -11, 104, -11, 91,
+     -30, 127, 0, 65, -2, 79, 0, 72, -4, 92, -6, 56, 3, 68, -8, 71,
+     -13, 98, -4, 86, -12, 88, -5, 82, -3, 72, -4, 67, -8, 72, -16, 89,
+     -9, 69, -1, 59, 5, 66, 4, 57, -4, 71, -2, 71, 2, 58, -1, 74,
+     -4, 44, -1, 69, 0, 62, -7, 51, -4, 47, -6, 42, -3, 41, -6, 53,
+     8, 76, -9, 78, -11, 83, 9, 52, 0, 67, -5, 90, 1, 67, -15, 72,
+     -5, 75, -8, 80, -21, 83, -21, 64, -13, 31, -25, 64, -29, 94, 9, 75,
+     17, 63, -8, 74, -5, 35, -2, 27, 13, 91, 3, 65, -7, 69, 8, 77,
+     -10, 66, 3, 62, -3, 68, -20, 81, 0, 30, 1, 7, -3, 23, -21, 74,
+     16, 66, -23, 124, 17, 37, 44, -18, 50, -34, -22, 127, 4, 39, 0, 42,
+     7, 34, 11, 29, 8, 31, 6, 37, 7, 42, 3, 40, 8, 33, 13, 43,
+     13, 36, 4, 47, 3, 55, 2, 58, 6, 60, 8, 44, 11, 44, 14, 42,
+     7, 48, 4, 56, 4, 52, 13, 37, 9, 49, 19, 58, 10, 48, 12, 45,
+     0, 69, 20, 33, 8, 63, 35, -18, 33, -25, 28, -3, 24, 10, 27, 0,
+     34, -14, 52, -44, 39, -24, 19, 17, 31, 25, 36, 29, 24, 33, 34, 15,
+     30, 20, 22, 73, 20, 34, 19, 31, 27, 44, 19, 16, 15, 36, 15, 36,
+     21, 28, 25, 21, 30, 20, 31, 12, 27, 16, 24, 42, 0, 93, 14, 56,
+     15, 57, 26, 38, -24, 127, -24, 115, -22, 82, -9, 62, 0, 53, 0, 59,
+     -14, 85, -13, 89, -13, 94, -11, 92, -29, 127, -21, 100, -14, 57, -12, 67,
+     -11, 71, -10, 77, -21, 85, -16, 88, -23, 104, -15, 98, -37, 127, -10, 82,
+     -8, 48, -8, 61, -8, 66, -7, 70, -14, 75, -10, 79, -9, 83, -12, 92,
+     -18, 108, -4, 79, -22, 69, -16, 75, -2, 58, 1, 58, -13, 78, -9, 83,
+     -4, 81, -13, 99, -13, 81, -6, 38, -13, 62, -6, 58, -2, 59, -16, 73,
+     -10, 76, -13, 86, -9, 83, -10, 87, 0, 0, -22, 127, -25, 127, -25, 120,
+     -27, 127, -19, 114, -23, 117, -25, 118, -26, 117, -24, 113, -28, 118, -31, 120,
+     -37, 124, -10, 94, -15, 102, -10, 99, -13, 106, -50, 127, -5, 92, 17, 57,
+     -5, 86, -13, 94, -12, 91, -2, 77, 0, 71, -1, 73, 4, 64, -7, 81,
+     5, 64, 15, 57, 1, 67, 0, 68, -10, 67, 1, 68, 0, 77, 2, 64,
+     0, 68, -5, 78, 7, 55, 5, 59, 2, 65, 14, 54, 15, 44, 5, 60,
+     2, 70, -2, 76, -18, 86, 12, 70, 5, 64, -12, 70, 11, 55, 5, 56,
+     0, 69, 2, 65, -6, 74, 5, 54, 7, 54, -6, 76, -11, 82, -2, 77,
+     -2, 77, 25, 42, 17, -13, 16, -9, 17, -12, 27, -21, 37, -30, 41, -40,
+     42, -41, 48, -47, 39, -32, 46, -40, 52, -51, 46, -41, 52, -39, 43, -19,
+     32, 11, 61, -55, 56, -46, 62, -50, 81, -67, 45, -20, 35, -2, 28, 15,
+     34, 1, 39, 1, 30, 17, 20, 38, 18, 45, 15, 54, 0, 79, 36, -16,
+     37, -14, 37, -17, 32, 1, 34, 15, 29, 15, 24, 25, 34, 22, 31, 16,
+     35, 18, 31, 28, 33, 41, 36, 28, 27, 47, 21, 62, 18, 31, 19, 26,
+     36, 24, 24, 23, 27, 16, 24, 30, 31, 29, 22, 41, 22, 42, 16, 60,
+     15, 52, 14, 60, 3, 78, -16, 123, 21, 53, 22, 56, 25, 61, 21, 33,
+     19, 50, 17, 61, -3, 78, -8, 74, -9, 72, -10, 72, -18, 75, -12, 71,
+     -11, 63, -5, 70, -17, 75, -14, 72, -16, 67, -8, 53, -14, 59, -9, 52,
+     -11, 68, 9, -2, 30, -10, 31, -4, 33, -1, 33, 7, 31, 12, 37, 23,
+     31, 38, 20, 64, -9, 71, -7, 37, -8, 44, -11, 49, -10, 56, -12, 59,
+     -8, 63, -9, 67, -6, 68, -10, 79, -3, 78, -8, 74, -9, 72, -10, 72,
+     -18, 75, -12, 71, -11, 63, -5, 70, -17, 75, -14, 72, -16, 67, -8, 53,
+     -14, 59, -9, 52, -11, 68, 9, -2, 30, -10, 31, -4, 33, -1, 33, 7,
+     31, 12, 37, 23, 31, 38, 20, 64))
 
 # the AVI fourccs FFmpeg 8's AVI demuxer maps to its h264 decoder (its
 # BITMAPINFOHEADER tags, and the QuickTime ones it falls back to) that cv2
@@ -345,6 +594,10 @@ class Sps:
     colour: Optional[Tuple[int, int, int]] = None
     chroma_loc: int = 0
     reorder: Optional[int] = None                    # max_num_reorder_frames
+    # the scaling lists as coded (zigzag order; None: not present) and
+    # the matrices they give (raster: six 4x4, two 8x8; flat without)
+    lists: Tuple[Optional[Tuple[int, ...]], ...] = ()
+    matrices: Tuple[Tuple[int, ...], ...] = ()
 
 
 @dataclass
@@ -364,16 +617,86 @@ class Pps:
     redundant: bool = False
     transform_8x8: bool = False
     scaling: bool = False
+    lists: Tuple[Optional[Tuple[int, ...]], ...] = ()
+    matrices: Tuple[Tuple[int, ...], ...] = ()   # as Sps.matrices
 
 
-def _scaling_lists(r: Bits, n: int) -> None:
+# Table 7-3 and 7-4: the default scaling lists (zigzag order)
+DEFAULT_4X4 = ((6, 13, 13, 20, 20, 20, 28, 28, 28, 28, 32, 32, 32, 37, 37,
+                42),
+               (10, 14, 14, 20, 20, 20, 24, 24, 24, 24, 27, 27, 27, 30, 30,
+                34))
+DEFAULT_8X8 = (
+    (6, 10, 10, 13, 11, 13, 16, 16, 16, 16, 18, 18, 18, 18, 18, 23, 23, 23,
+     23, 23, 23, 25, 25, 25, 25, 25, 25, 25, 27, 27, 27, 27, 27, 27, 27, 27,
+     29, 29, 29, 29, 29, 29, 29, 31, 31, 31, 31, 31, 31, 33, 33, 33, 33, 33,
+     36, 36, 36, 36, 38, 38, 38, 40, 40, 42),
+    (9, 13, 13, 15, 13, 15, 17, 17, 17, 17, 19, 19, 19, 19, 19, 21, 21, 21,
+     21, 21, 21, 22, 22, 22, 22, 22, 22, 22, 24, 24, 24, 24, 24, 24, 24, 24,
+     25, 25, 25, 25, 25, 25, 25, 27, 27, 27, 27, 27, 27, 28, 28, 28, 28, 28,
+     30, 30, 30, 30, 32, 32, 32, 33, 33, 35))
+# scan position -> raster position in an 8x8 block (frame zigzag)
+ZIGZAG8 = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19,
+           26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49,
+           56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52,
+           45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+FLAT = (16,) * 16, (16,) * 64
+
+
+def _scaling_lists(r: Bits, n: int) -> Tuple[Optional[Tuple[int, ...]], ...]:
+    """scaling_list() of n lists: each None where not present, else its
+    values in zigzag order (the default list where the first delta gives
+    useDefaultScalingMatrixFlag)."""
+    out: List[Optional[Tuple[int, ...]]] = []
     for i in range(n):
-        if r.bit():
-            last, nxt = 8, 8
-            for _ in range(16 if i < 6 else 64):
-                if nxt:
-                    nxt = (last + r.se() + 256) % 256
-                last = nxt or last
+        if not r.bit():
+            out.append(None)
+            continue
+        size = 16 if i < 6 else 64
+        last, nxt, vals = 8, 8, []
+        for j in range(size):
+            if nxt:
+                delta = r.se()
+                if not -128 <= delta <= 127:
+                    raise H264Error(f"a delta_scale of {delta}")
+                nxt = (last + delta + 256) % 256
+                if j == 0 and nxt == 0:
+                    vals = list((DEFAULT_4X4 if size == 16 else
+                                 DEFAULT_8X8)[0 if i in (0, 1, 2, 6) else 1])
+                    break
+            vals.append(nxt or last)
+            last = vals[-1]
+        out.append(tuple(vals))
+    return tuple(out)
+
+
+def scaling_matrices(lists, fallback=None) -> Tuple[Tuple[int, ...], ...]:
+    """The weightScale matrices (raster: lists 0-5 4x4, 6-7 8x8) of coded
+    scaling lists (zigzag, None: not present) by fall-back rule A, or by
+    rule B where ``fallback`` (the SPS's matrices, raster) is given."""
+    lists = tuple(lists) + (None,) * (8 - len(lists))
+    out: List[Tuple[int, ...]] = []
+    for i, lst in enumerate(lists[:8]):
+        size = 16 if i < 6 else 64
+        zz = ZIGZAG if size == 16 else ZIGZAG8
+        if lst is not None:
+            raster = [0] * size
+            for k, v in enumerate(lst):
+                raster[zz[k]] = v
+            out.append(tuple(raster))
+        elif i in (0, 3, 6, 7):
+            if fallback is not None:
+                out.append(fallback[i])
+            else:
+                d = (DEFAULT_4X4 if size == 16 else DEFAULT_8X8)[
+                    0 if i in (0, 6) else 1]
+                raster = [0] * size
+                for k, v in enumerate(d):
+                    raster[zz[k]] = v
+                out.append(tuple(raster))
+        else:
+            out.append(out[i - 1])
+    return tuple(out)
 
 
 def _hrd(r: Bits) -> None:
@@ -404,7 +727,7 @@ def parse_sps(rbsp: bytes) -> Sps:
         s.bypass = bool(r.bit())
         s.scaling = bool(r.bit())
         if s.scaling:
-            _scaling_lists(r, 8 if s.chroma_format != 3 else 12)
+            s.lists = _scaling_lists(r, 8 if s.chroma_format != 3 else 12)
     s.log2_max_frame_num = r.ue() + 4
     s.poc_type = r.ue()
     if s.poc_type == 0:
@@ -433,6 +756,8 @@ def parse_sps(rbsp: bytes) -> Sps:
         s.crop = (left * ux, right * ux, top * uy, bottom * uy)
     if r.bit():
         _vui(r, s)
+    s.matrices = scaling_matrices(s.lists) if s.scaling else \
+        (FLAT[0],) * 6 + (FLAT[1],) * 2
     return s
 
 
@@ -502,22 +827,25 @@ def parse_pps(rbsp: bytes, spss: Dict[int, Sps]) -> Pps:
         p.transform_8x8 = bool(r.bit())
         p.scaling = bool(r.bit())
         if p.scaling:
-            _scaling_lists(r, 6 + (2 if sps.chroma_format != 3 else 6) *
-                           p.transform_8x8)
+            p.lists = _scaling_lists(r, 6 + (2 if sps.chroma_format != 3
+                                             else 6) * p.transform_8x8)
         p.cqp = (c, r.se())
+    # the PPS's lists replace the SPS's (fall-back rule B where the SPS
+    # has matrices); without lists it takes the SPS's matrices
+    p.matrices = scaling_matrices(p.lists, sps.matrices if sps.scaling
+                                  else None) if p.scaling else sps.matrices
     return p
 
 
 def sps_unsupported(s: Sps) -> Optional[str]:
     if s.chroma_format != 1:
-        return f"chroma_format_idc {s.chroma_format} (4:2:0 only)"
+        return f"chroma_format_idc {s.chroma_format} (" + \
+            ("monochrome; " if s.chroma_format == 0 else "") + "4:2:0 only)"
     if s.bit_depth != 8 or s.bit_depth_chroma != 8:
         return (f"a bit depth of {s.bit_depth} (luma) and "
                 f"{s.bit_depth_chroma} (chroma) (8 bits only)")
     if s.bypass:
         return "qpprime_y_zero_transform_bypass (lossless macroblocks)"
-    if s.scaling:
-        return "scaling matrices (seq_scaling_matrix_present_flag)"
     if not s.frame_mbs_only:
         return "interlaced coding (frame_mbs_only_flag 0: PAFF or MBAFF)"
     if s.num_ref_frames > 16:
@@ -535,16 +863,8 @@ def sps_unsupported(s: Sps) -> Optional[str]:
 
 
 def pps_unsupported(p: Pps) -> Optional[str]:
-    if p.cabac:
-        return "CABAC (entropy_coding_mode_flag 1)"
     if p.slice_groups > 1:
         return f"slice groups (FMO: {p.slice_groups} groups)"
-    if p.weighted:
-        return "weighted prediction (weighted_pred_flag 1)"
-    if p.transform_8x8:
-        return "the 8x8 transform (transform_8x8_mode_flag 1)"
-    if p.scaling:
-        return "scaling matrices (pic_scaling_matrix_present_flag)"
     return None
 
 
@@ -562,7 +882,10 @@ def unsupported(sps: Optional[Sps] = None, pps: Optional[Pps] = None,
             return why
     if header is not None:
         if header.type in (1, 3, 4):
-            return ("P", "B", "I", "SP", "SI")[header.type] + " slices"
+            why = ("P", "B", "I", "SP", "SI")[header.type] + " slices"
+            if header.type == 1 and pps is not None and pps.weighted_bipred:
+                why += f" (weighted_bipred_idc {pps.weighted_bipred})"
+            return why
         if header.redundant:
             return f"redundant pictures (redundant_pic_cnt {header.redundant})"
     return None
@@ -617,6 +940,11 @@ class SliceHeader:
     disable: int = 0
     off_a: int = 0
     off_b: int = 0
+    cabac_init_idc: int = 0
+    # pred_weight_table: (luma_log2_weight_denom, chroma_log2_weight_denom,
+    # [(luma weight, offset, Cb weight, offset, Cr weight, offset)] a
+    # reference index); None without explicit weights
+    weights: Optional[Tuple[int, int, List[Tuple[int, ...]]]] = None
     data_bit: int = 0        # slice_data's first bit in the RBSP
 
     @property
@@ -680,6 +1008,8 @@ def parse_slice_header(rbsp: bytes, nal_type: int, ref_idc: int,
                 if len(h.modifications) > h.num_ref + 1:
                     raise H264Error("more reference list modifications "
                                     "than entries")
+        if pps.weighted:
+            h.weights = _pred_weight_table(r, h.num_ref)
     if ref_idc:
         if h.idr:
             h.no_output_prior = bool(r.bit())
@@ -706,6 +1036,10 @@ def parse_slice_header(rbsp: bytes, nal_type: int, ref_idc: int,
                 if len(h.mmcos) > 66:
                     raise H264Error("more than 66 memory management "
                                     "operations")
+    if pps.cabac and h.type != 2:
+        h.cabac_init_idc = r.ue()
+        if h.cabac_init_idc > 2:
+            raise H264Error(f"cabac_init_idc {h.cabac_init_idc}")
     h.qp = pps.init_qp + r.se()
     if not 0 <= h.qp <= 51:
         raise H264Error(f"a slice QP of {h.qp}")
@@ -720,6 +1054,28 @@ def parse_slice_header(rbsp: bytes, nal_type: int, ref_idc: int,
                 raise H264Error("deblocking filter offsets out of range")
     h.data_bit = r.pos
     return h, sps, pps
+
+
+def _pred_weight_table(r: Bits, num_ref: int):
+    """pred_weight_table of a P slice (4:2:0): the denominators and each
+    reference index's weights and offsets (the defaults where its flags
+    are 0)."""
+    lwd, cwd = r.ue(), r.ue()
+    if lwd > 7 or cwd > 7:
+        raise H264Error(f"log2 weight denominators of {lwd} and {cwd}")
+    table = []
+    for _ in range(num_ref):
+        w = [1 << lwd, 0, 1 << cwd, 0, 1 << cwd, 0]
+        coded: List[int] = []
+        if r.bit():
+            w[0:2] = coded[0:0] = r.se(), r.se()
+        if r.bit():
+            w[2:6] = r.se(), r.se(), r.se(), r.se()
+            coded += w[2:6]
+        if not all(-128 <= v <= 127 for v in coded):
+            raise H264Error(f"a weight or offset out of range: {w}")
+        table.append(tuple(w))
+    return lwd, cwd, table
 
 
 # ---------------------------------------------------------------- pictures
@@ -764,9 +1120,17 @@ class Job:
         for i, p in enumerate(s.refs[:32]):
             if p is not None:
                 refs[i], ids[i] = p.slot, p.id
+        pps = s.pps
+        lwd, cwd, table = h.weights if h.weights else (0, 0, [])
+        wt = [1 << lwd, 0, 1 << cwd, 0, 1 << cwd, 0] * 32
+        for i, w in enumerate(table[:32]):
+            wt[i * 6:i * 6 + 6] = w
         return [h.first_mb, 0 if h.type == 0 else 2, h.qp, h.disable,
-                h.off_a, h.off_b, s.pps.cqp[0], s.pps.cqp[1], int(s.pps.cip),
-                h.num_ref if h.type == 0 else 0] + refs + ids
+                h.off_a, h.off_b, pps.cqp[0], pps.cqp[1], int(pps.cip),
+                h.num_ref if h.type == 0 else 0] + refs + ids + [
+                    int(pps.cabac), h.cabac_init_idc, int(pps.transform_8x8),
+                    int(h.weights is not None), lwd, cwd] + \
+            [v for m in pps.matrices for v in m] + wt
 
 
 class Stream:
@@ -1267,14 +1631,50 @@ def _clip1(v: int) -> int:
     return 0 if v < 0 else 255 if v > 255 else v
 
 
+# normAdjust8x8 (8.5.9): [qP % 6][class of the position]
+NORM8 = ((20, 18, 32, 19, 25, 24), (22, 19, 35, 21, 28, 26),
+         (26, 23, 42, 24, 33, 31), (28, 25, 45, 26, 35, 33),
+         (32, 28, 51, 30, 40, 38), (36, 32, 58, 34, 46, 43))
+
+
+def _norm8_class(i: int) -> int:
+    y, x = i >> 3, i & 7
+    if x % 4 == 0 and y % 4 == 0:
+        return 0
+    if x % 2 == 1 and y % 2 == 1:
+        return 1
+    if x % 4 == 2 and y % 4 == 2:
+        return 2
+    if (x % 4 == 0 and y % 2 == 1) or (x % 2 == 1 and y % 4 == 0):
+        return 3
+    if (x % 4 == 0 and y % 4 == 2) or (x % 4 == 2 and y % 4 == 0):
+        return 4
+    return 5
+
+
+def level_scales(matrices) -> Tuple[List, List]:
+    """LevelScale4x4 [list][qP % 6][raster] of lists 0-5 and
+    LevelScale8x8 of lists 6-7 (as [0] and [1]) of weightScale matrices."""
+    ls4 = [[[matrices[k][i] * NORM[m][NORM_CLASS[i]] for i in range(16)]
+            for m in range(6)] for k in range(6)]
+    ls8 = [[[matrices[6 + k][i] * NORM8[m][_norm8_class(i)]
+             for i in range(64)] for m in range(6)] for k in range(2)]
+    return ls4, ls8
+
+
+def dequant4(c: int, ls: int, qp: int) -> int:
+    """A 4x4 block's level at LevelScale ls (8.5.12.1, not the DCs)."""
+    q6 = qp // 6
+    return (c * ls) << (q6 - 4) if q6 >= 4 else \
+        (c * ls + (1 << (3 - q6))) >> (4 - q6)
+
+
 def add_block(plane: np.ndarray, y0: int, x0: int, lv: Sequence[int],
-              qp: int, dc: Optional[int] = None) -> None:
-    """Dequantise and inverse-transform a 4x4 block of levels (raster; its
-    DC given already scaled where ``dc`` is not None) and add it to the
-    plane at (y0, x0)."""
-    q6, q = divmod(qp, 6)
-    d = [((lv[i] * NORM[q][NORM_CLASS[i]]) << q6) if lv[i] else 0
-         for i in range(16)]
+              ls: Sequence[int], qp: int, dc: Optional[int] = None) -> None:
+    """Dequantise (LevelScale4x4 ``ls`` at qp % 6) and inverse-transform a
+    4x4 block of levels (raster; its DC given already scaled where ``dc``
+    is not None) and add it to the plane at (y0, x0)."""
+    d = [dequant4(lv[i], ls[i], qp) if lv[i] else 0 for i in range(16)]
     if dc is not None:
         d[0] = dc
     if not any(d):
@@ -1293,8 +1693,39 @@ def add_block(plane: np.ndarray, y0: int, x0: int, lv: Sequence[int],
                                            ((v + 32) >> 6))
 
 
-def luma_dc(c: Sequence[int], qp: int) -> List[int]:
-    """Intra16x16 DC levels (raster of blocks) -> each block's DC."""
+def _idct8(d: List[int]) -> List[int]:
+    """The 8-point inverse transform of 8.5.13.2."""
+    d0, d1, d2, d3, d4, d5, d6, d7 = d
+    e0, e1 = d0 + d4, -d3 + d5 - d7 - (d7 >> 1)
+    e2, e3 = d0 - d4, d1 + d7 - d3 - (d3 >> 1)
+    e4, e5 = (d2 >> 1) - d6, -d1 + d7 + d5 + (d5 >> 1)
+    e6, e7 = d2 + (d6 >> 1), d3 + d5 + d1 + (d1 >> 1)
+    f0, f1, f2, f3 = e0 + e6, e1 + (e7 >> 2), e2 + e4, e3 + (e5 >> 2)
+    f4, f5, f6, f7 = e2 - e4, (e3 >> 2) - e5, e0 - e6, e7 - (e1 >> 2)
+    return [f0 + f7, f2 + f5, f4 + f3, f6 + f1, f6 - f1, f4 - f3, f2 - f5,
+            f0 - f7]
+
+
+def add_block8(plane: np.ndarray, y0: int, x0: int, lv: Sequence[int],
+               ls: Sequence[int], qp: int) -> None:
+    """Dequantise (LevelScale8x8 ``ls`` at qp % 6) and inverse-transform an
+    8x8 block of levels (raster) and add it to the plane at (y0, x0)."""
+    q6 = qp // 6
+    d = [0 if not c else (c * s) << (q6 - 6) if q6 >= 6 else
+         (c * s + (1 << (5 - q6))) >> (6 - q6) for c, s in zip(lv, ls)]
+    if not any(d):
+        return
+    rows = [_idct8(d[r * 8:r * 8 + 8]) for r in range(8)]
+    cols = [_idct8([rows[r][c] for r in range(8)]) for c in range(8)]
+    for y in range(8):
+        for x in range(8):
+            plane[y0 + y, x0 + x] = _clip1(int(plane[y0 + y, x0 + x]) +
+                                           ((cols[x][y] + 32) >> 6))
+
+
+def luma_dc(c: Sequence[int], qp: int, ls: int) -> List[int]:
+    """Intra16x16 DC levels (raster of blocks) -> each block's DC; ls:
+    LevelScale4x4(qp % 6, 0, 0)."""
     f = [0] * 16
     for r in range(4):
         x0, x1, x2, x3 = c[r * 4:r * 4 + 4]
@@ -1305,17 +1736,17 @@ def luma_dc(c: Sequence[int], qp: int) -> List[int]:
         x0, x1, x2, x3 = f[k], f[4 + k], f[8 + k], f[12 + k]
         g[k], g[4 + k] = x0 + x1 + x2 + x3, x0 + x1 - x2 - x3
         g[8 + k], g[12 + k] = x0 - x1 - x2 + x3, x0 - x1 + x2 - x3
-    scale, q6 = 16 * NORM[qp % 6][0], qp // 6
+    q6 = qp // 6
     if qp >= 36:
-        return [(v * scale) << (q6 - 6) for v in g]
-    return [(v * scale + (1 << (5 - q6))) >> (6 - q6) for v in g]
+        return [(v * ls) << (q6 - 6) for v in g]
+    return [(v * ls + (1 << (5 - q6))) >> (6 - q6) for v in g]
 
 
-def chroma_dc(c: Sequence[int], qpc: int) -> List[int]:
+def chroma_dc(c: Sequence[int], qpc: int, ls: int) -> List[int]:
     f = (c[0] + c[1] + c[2] + c[3], c[0] - c[1] + c[2] - c[3],
          c[0] + c[1] - c[2] - c[3], c[0] - c[1] - c[2] + c[3])
-    scale, q6 = 16 * NORM[qpc % 6][0], qpc // 6
-    return [((v * scale) << q6) >> 5 for v in f]
+    q6 = qpc // 6
+    return [((v * ls) << q6) >> 5 for v in f]
 
 
 # ---------------------------------------------------------------- intra
@@ -1386,6 +1817,106 @@ def pred4x4(top: List[int], left: List[int], mode: int, has_top: bool,
                 else:
                     v = L(3)
             out[y][x] = v
+    return out
+
+
+def pred8x8(plane: np.ndarray, py: int, px: int, top: bool, left: bool,
+            corner: bool, tr: bool, mode: int) -> np.ndarray:
+    """An Intra_8x8 prediction (8.3.2.2) of the block at (py, px): the
+    reference samples gathered, filtered (8.3.2.2.1), then ``mode``."""
+    p, lf, c = [0] * 16, [0] * 8, 0
+    if top:
+        row = plane[py - 1]
+        p[:8] = [int(row[px + x]) for x in range(8)]
+        p[8:] = [int(row[px + x]) if tr else p[7] for x in range(8, 16)]
+    if left:
+        lf = [int(plane[py + y, px - 1]) for y in range(8)]
+    if corner:
+        c = int(plane[py - 1, px - 1])
+    fp, fl, fc = [0] * 16, [0] * 8, c
+    if top:
+        fp[0] = (c + 2 * p[0] + p[1] + 2) >> 2 if corner else \
+            (3 * p[0] + p[1] + 2) >> 2
+        for x in range(1, 15):
+            fp[x] = (p[x - 1] + 2 * p[x] + p[x + 1] + 2) >> 2
+        fp[15] = (p[14] + 3 * p[15] + 2) >> 2
+    if corner:
+        if top and left:
+            fc = (p[0] + 2 * c + lf[0] + 2) >> 2
+        elif top:
+            fc = (3 * c + p[0] + 2) >> 2
+        elif left:
+            fc = (3 * c + lf[0] + 2) >> 2
+    if left:
+        fl[0] = (c + 2 * lf[0] + lf[1] + 2) >> 2 if corner else \
+            (3 * lf[0] + lf[1] + 2) >> 2
+        for y in range(1, 7):
+            fl[y] = (lf[y - 1] + 2 * lf[y] + lf[y + 1] + 2) >> 2
+        fl[7] = (lf[6] + 3 * lf[7] + 2) >> 2
+    T = lambda x: fc if x < 0 else fp[x]
+    L = lambda y: fc if y < 0 else fl[y]
+    out = np.zeros((8, 8), np.int64)
+    if mode == 2:
+        st, sl = sum(fp[:8]), sum(fl)
+        dc = (st + sl + 8) >> 4 if top and left else (sl + 4) >> 3 if left \
+            else (st + 4) >> 3 if top else 128
+    for y in range(8):
+        for x in range(8):
+            if mode == 0:
+                v = fp[x]
+            elif mode == 1:
+                v = fl[y]
+            elif mode == 2:
+                v = dc
+            elif mode == 3:
+                v = (fp[14] + 3 * fp[15] + 2) >> 2 if x == 7 and y == 7 else \
+                    (fp[x + y] + 2 * fp[x + y + 1] + fp[x + y + 2] + 2) >> 2
+            elif mode == 4:
+                if x > y:
+                    v = (T(x - y - 2) + 2 * T(x - y - 1) + T(x - y) + 2) >> 2
+                elif x < y:
+                    v = (L(y - x - 2) + 2 * L(y - x - 1) + L(y - x) + 2) >> 2
+                else:
+                    v = (T(0) + 2 * fc + L(0) + 2) >> 2
+            elif mode == 5:
+                z = 2 * x - y
+                if z >= 0 and not z & 1:
+                    v = (T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 1) >> 1
+                elif z > 0:
+                    v = (T(x - (y >> 1) - 2) + 2 * T(x - (y >> 1) - 1) +
+                         T(x - (y >> 1)) + 2) >> 2
+                elif z == -1:
+                    v = (L(0) + 2 * fc + T(0) + 2) >> 2
+                else:
+                    v = (L(y - 2 * x - 1) + 2 * L(y - 2 * x - 2) +
+                         L(y - 2 * x - 3) + 2) >> 2
+            elif mode == 6:
+                z = 2 * y - x
+                if z >= 0 and not z & 1:
+                    v = (L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 1) >> 1
+                elif z > 0:
+                    v = (L(y - (x >> 1) - 2) + 2 * L(y - (x >> 1) - 1) +
+                         L(y - (x >> 1)) + 2) >> 2
+                elif z == -1:
+                    v = (L(0) + 2 * fc + T(0) + 2) >> 2
+                else:
+                    v = (T(x - 2 * y - 1) + 2 * T(x - 2 * y - 2) +
+                         T(x - 2 * y - 3) + 2) >> 2
+            elif mode == 7:
+                k = x + (y >> 1)
+                v = (fp[k] + fp[k + 1] + 1) >> 1 if not y & 1 else \
+                    (fp[k] + 2 * fp[k + 1] + fp[k + 2] + 2) >> 2
+            else:
+                z, k = x + 2 * y, y + (x >> 1)
+                if z < 13 and not z & 1:
+                    v = (fl[k] + fl[k + 1] + 1) >> 1
+                elif z < 13:
+                    v = (fl[k] + 2 * fl[k + 1] + fl[k + 2] + 2) >> 2
+                elif z == 13:
+                    v = (fl[6] + 3 * fl[7] + 2) >> 2
+                else:
+                    v = fl[7]
+            out[y, x] = v
     return out
 
 
@@ -1465,12 +1996,127 @@ def mc_chroma(ref: np.ndarray, x: int, y: int, w: int, h: int, mvx: int,
 
 # ---------------------------------------------------------------- macroblocks
 
-NONE, INTER, SKIP, I4, I16, PCM = 0, 1, 2, 3, 4, 5
+NONE, INTER, SKIP, I4, I16, PCM, I8 = 0, 1, 2, 3, 4, 5, 6
+_NXN = (I4, I8)
+
+# rangeTabLPS [pStateIdx][qCodIRangeIdx] and transIdxLPS (9.3.3.2)
+RANGE_LPS = (
+    (128, 176, 208, 240), (128, 167, 197, 227), (128, 158, 187, 216),
+    (123, 150, 178, 205), (116, 142, 169, 195), (111, 135, 160, 185),
+    (105, 128, 152, 175), (100, 122, 144, 166), (95, 116, 137, 158),
+    (90, 110, 130, 150), (85, 104, 123, 142), (81, 99, 117, 135),
+    (77, 94, 111, 128), (73, 89, 105, 122), (69, 85, 100, 116),
+    (66, 80, 95, 110), (62, 76, 90, 104), (59, 72, 86, 99), (56, 69, 81, 94),
+    (53, 65, 77, 89), (51, 62, 73, 85), (48, 59, 69, 80), (46, 56, 66, 76),
+    (43, 53, 63, 72), (41, 50, 59, 69), (39, 48, 56, 65), (37, 45, 54, 62),
+    (35, 43, 51, 59), (33, 41, 48, 56), (32, 39, 46, 53), (30, 37, 43, 50),
+    (29, 35, 41, 48), (27, 33, 39, 45), (26, 31, 37, 43), (24, 30, 35, 41),
+    (23, 28, 33, 39), (22, 27, 32, 37), (21, 26, 30, 35), (20, 24, 29, 33),
+    (19, 23, 27, 31), (18, 22, 26, 30), (17, 21, 25, 28), (16, 20, 23, 27),
+    (15, 19, 22, 25), (14, 18, 21, 24), (14, 17, 20, 23), (13, 16, 19, 22),
+    (12, 15, 18, 21), (12, 14, 17, 20), (11, 14, 16, 19), (11, 13, 15, 18),
+    (10, 12, 15, 17), (10, 12, 14, 16), (9, 11, 13, 15), (9, 11, 12, 14),
+    (8, 10, 12, 14), (8, 9, 11, 13), (7, 9, 11, 12), (7, 9, 10, 12),
+    (7, 8, 10, 11), (6, 8, 9, 11), (6, 7, 9, 10), (6, 7, 8, 9), (2, 2, 2, 2))
+TRANS_LPS = (0, 0, 1, 2, 2, 4, 4, 5, 6, 7, 8, 9, 9, 11, 11, 12, 13, 13, 15,
+             15, 16, 16, 18, 18, 19, 19, 21, 21, 22, 22, 23, 24, 24, 25, 26,
+             26, 27, 27, 28, 29, 29, 30, 30, 30, 31, 32, 32, 33, 33, 33, 34,
+             34, 35, 35, 35, 36, 36, 36, 37, 37, 37, 38, 38, 63)
+# ctxIdxOffset of coded_block_flag, significant_coeff_flag,
+# last_significant_coeff_flag and coeff_abs_level_minus1 by ctxBlockCat
+# (0 Intra16x16 DC, 1 Intra16x16 AC, 2 luma 4x4, 3 chroma DC, 4 chroma AC,
+# 5 luma 8x8, which has no coded_block_flag in 4:2:0)
+CBF_BASE = (85, 89, 93, 97, 101)
+SIG_BASE = (105, 120, 134, 149, 152, 402)
+LAST_BASE = (166, 181, 195, 210, 213, 417)
+ABS_BASE = (227, 237, 247, 257, 266, 426)
+# ctxIdxInc of significant_coeff_flag and last_significant_coeff_flag of
+# an 8x8 block (frame coded) by scan position (Table 9-43)
+SIG8 = (0, 1, 2, 3, 4, 5, 5, 4, 4, 3, 3, 4, 4, 4, 5, 5, 4, 4, 4, 4, 3, 3, 6,
+        7, 7, 7, 8, 9, 10, 9, 8, 7, 7, 6, 11, 12, 13, 11, 6, 7, 8, 9, 14, 10,
+        9, 8, 6, 11, 12, 13, 11, 6, 9, 14, 10, 9, 11, 12, 13, 11, 14, 10, 12)
+LAST8 = (0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 2,
+         2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3, 4, 4, 4, 4,
+         4, 4, 4, 4, 5, 5, 5, 5, 6, 6, 6, 6, 7, 7, 7, 7, 8, 8, 8)
+
+
+class Cabac:
+    """The arithmetic decoding engine (9.3.1.2, 9.3.3.2) on a slice's bits
+    and its context variables, initialised from SliceQPY."""
+
+    def __init__(self, r: Bits, islice: bool, idc: int, qp: int):
+        t = CABAC_INIT[0 if islice else 1 + idc]
+        q = min(max(qp, 0), 51)
+        self.st = []
+        for i in range(460):
+            pre = min(max(((t[2 * i] * q) >> 4) + t[2 * i + 1], 1), 126)
+            self.st.append((63 - pre) << 1 if pre <= 63 else
+                           ((pre - 64) << 1) | 1)
+        self.r, self.lim = r, r.end + 1
+        self.init_engine()
+
+    def init_engine(self) -> None:
+        self.range = 510
+        self.offset = self.r.u(9)
+        if self.offset >= 510:
+            raise _Bad(-1)
+
+    def _read(self) -> int:
+        if self.r.pos >= self.lim:
+            raise _Bad(-2)
+        return self.r.bit()
+
+    def decision(self, ctx: int) -> int:
+        s = self.st[ctx]
+        state, mps = s >> 1, s & 1
+        lps = RANGE_LPS[state][(self.range >> 6) & 3]
+        self.range -= lps
+        if self.offset >= self.range:
+            b = 1 - mps
+            self.offset -= self.range
+            self.range = lps
+            self.st[ctx] = (TRANS_LPS[state] << 1) | \
+                (1 - mps if state == 0 else mps)
+        else:
+            b = mps
+            self.st[ctx] = (min(state + 1, 62) << 1) | mps
+        while self.range < 256:
+            self.range <<= 1
+            self.offset = (self.offset << 1) | self._read()
+        return b
+
+    def bypass(self) -> int:
+        self.offset = (self.offset << 1) | self._read()
+        if self.offset >= self.range:
+            self.offset -= self.range
+            return 1
+        return 0
+
+    def terminate(self) -> int:
+        self.range -= 2
+        if self.offset >= self.range:
+            return 1
+        while self.range < 256:
+            self.range <<= 1
+            self.offset = (self.offset << 1) | self._read()
+        return 0
+
+    def eg(self, base: int, k: int) -> int:
+        """base plus a k-th order Exp-Golomb suffix (UEGk)."""
+        while self.bypass():
+            base += 1 << k
+            k += 1
+            if k > 24:
+                raise _Bad(-1)
+        while k:
+            k -= 1
+            base += self.bypass() << k
+        return base
 
 
 class _Slot:
     """A frame slot: the planes (macroblock-aligned) and what each
-    macroblock left for prediction and deblocking."""
+    macroblock left for prediction, CABAC's contexts and deblocking."""
 
     def __init__(self, mbw: int, mbh: int):
         self.mbw, self.mbh = mbw, mbh
@@ -1486,6 +2132,11 @@ class _Slot:
         self.mv = [[(0, 0)] * 16 for _ in range(n)]
         self.ref = [[-1] * 16 for _ in range(n)]
         self.rpic = [[-1] * 16 for _ in range(n)]
+        self.t8 = [0] * n          # transform_size_8x8_flag
+        self.cbp = [0] * n         # luma | chroma << 4 (I_PCM: 15 | 2 << 4)
+        self.cbfdc = [0] * n       # coded_block_flag of luma, Cb, Cr DC
+        self.cmode = [0] * n       # intra_chroma_pred_mode (0: not intra)
+        self.mvd = [[(0, 0)] * 16 for _ in range(n)]   # min(|mvd|, 255)
 
 
 class _Ctx:
@@ -1518,14 +2169,26 @@ def _partitions(ptype: int, subs: Sequence[int]):
     return out
 
 
+_PARAM_NAMES = ("first_mb", "type", "qp", "disable", "off_a", "off_b", "cqp0",
+                "cqp1", "cip", "nref")
+
+
+def _weight(block: np.ndarray, logwd: int, w: int, o: int) -> np.ndarray:
+    """Explicit weighted sample prediction (8.4.2.3.2) of a block."""
+    b = block.astype(np.int64)
+    v = ((b * w + (1 << (logwd - 1))) >> logwd) + o if logwd >= 1 else \
+        b * w + o
+    return np.clip(v, 0, 255).astype(np.uint8)
+
+
 class Decoder:
     """The plain decoder of an H.264 stream: :class:`Stream` for the
-    headers and the DPB, the macroblock layer and the deblocking filter
-    in Python and NumPy (slow: keep its pictures small).  :meth:`decode`
-    takes the stream's samples in order and returns the yuv420p planes
-    of the picture a sample holds (cropped as cv2 gives them), or None;
-    raises :class:`H264Error` naming the frame, the slice and the
-    macroblock where the stream is refused or does not decode."""
+    headers and the DPB, the macroblock layer (CAVLC and CABAC) and the
+    deblocking filter in Python and NumPy (slow: keep its pictures small).
+    :meth:`decode` takes the stream's samples in order and returns the
+    yuv420p planes of the picture a sample holds (cropped as cv2 gives
+    them), or None; raises :class:`H264Error` naming the frame, the slice
+    and the macroblock where the stream is refused or does not decode."""
 
     def __init__(self, extradata: bytes = b""):
         self.stream = Stream(extradata)
@@ -1542,12 +2205,15 @@ class Decoder:
         slot.__init__(sps.mbw, sps.mbh)
         params = []
         for i, s in enumerate(job.slices):
-            p = dict(zip(("first_mb", "type", "qp", "disable", "off_a",
-                          "off_b", "cqp0", "cqp1", "cip", "nref"),
-                         job.native_params(s)[:10]))
+            flat = job.native_params(s)
+            p = dict(zip(_PARAM_NAMES, flat[:10]))
             p["refs"] = [None if r is None else self.slots[r.slot]
                          for r in s.refs]
             p["ids"] = [-1 if r is None else r.id for r in s.refs]
+            p["cabac"], p["init_idc"], p["t8mode"] = flat[74:77]
+            lwd, cwd, table = s.header.weights or (0, 0, [])
+            p["weights"] = (lwd, cwd, table) if s.header.weights else None
+            p["ls4"], p["ls8"] = level_scales(s.pps.matrices)
             params.append(p)
             try:
                 self._slice(_Ctx(slot, i, p), s)
@@ -1586,6 +2252,28 @@ class Decoder:
             c.slice[a] = s.index
             self._at = a
             return a, a % c.mbw, a // c.mbw
+        if p["cabac"]:
+            r.pos = (r.pos + 7) & ~7        # cabac_alignment_one_bit
+            cb = Cabac(r, p["type"] == 2, p["init_idc"], qp)
+            self._last_dqp = 0
+            while True:
+                m = begin(mb)
+                mb += 1
+                skip = False
+                if p["type"] == 0:
+                    A, B = self._nb_mb(s, m, -1, 0), self._nb_mb(s, m, 0, -1)
+                    skip = cb.decision(11 + (A >= 0 and c.kind[A] != SKIP) +
+                                       (B >= 0 and c.kind[B] != SKIP))
+                if skip:
+                    c.nnz[m[0]] = [0] * 24
+                    self._reconstruct(s, m, {"kind": SKIP, "qp": qp,
+                                             "cbp": 0})
+                    self._last_dqp = 0
+                else:
+                    d, qp = self._parse_cabac(cb, r, s, m, qp)
+                    self._reconstruct(s, m, d)
+                if cb.terminate():
+                    return
         more = True
         while more:
             if p["type"] == 0:
@@ -1596,7 +2284,8 @@ class Decoder:
                     m = begin(mb)
                     mb += 1
                     c.nnz[m[0]] = [0] * 24
-                    self._reconstruct(s, m, {"kind": SKIP, "qp": qp})
+                    self._reconstruct(s, m, {"kind": SKIP, "qp": qp,
+                                             "cbp": 0})
                 if run:
                     more = r.more()
             if more:
@@ -1614,6 +2303,19 @@ class Decoder:
         c = s.cur
         return 0 <= mx < c.mbw and 0 <= my < c.mbh and \
             c.slice[my * c.mbw + mx] == s.index
+
+    def _nb_mb(self, s: _Ctx, m, dx: int, dy: int) -> int:
+        """The MB (dx, dy) MBs from the current one in its slice, or -1."""
+        mx, my = m[1] + dx, m[2] + dy
+        return my * s.cur.mbw + mx if self._avail(s, mx, my) else -1
+
+    def _nb_block(self, s: _Ctx, m, bx: int, by: int) -> Tuple[int, int]:
+        """(MB, raster 4x4 block) of 4x4 position (bx, by) of the current
+        MB (-1 reaching left or up); MB -1 where it is not available."""
+        dx, dy = (-1, bx + 4) if bx < 0 else (0, bx), \
+            (-1, by + 4) if by < 0 else (0, by)
+        a = self._nb_mb(s, m, dx[0], dy[0]) if dx[0] or dy[0] else m[0]
+        return a, dy[1] * 4 + dx[1]
 
     def _neighbour(self, s: _Ctx, m, xn: int, yn: int, done: int):
         """(available, refIdx, mv) of the partition covering (xn, yn)."""
@@ -1704,7 +2406,7 @@ class Decoder:
     def _parse(self, r: Bits, s: _Ctx, m, qp: int):
         c, p = s.cur, s.p
         t = r.ue()
-        d = {"kind": NONE, "cbp": 0}
+        d = {"kind": NONE, "cbp": 0, "t8": 0}
         if p["type"] == 0:
             if t < 5:
                 d["kind"], d["ptype"] = INTER, t
@@ -1715,23 +2417,27 @@ class Decoder:
                 raise _Bad(-1)
             if t == 25:
                 r.pos = (r.pos + 7) & ~7
+                if r.pos + 3072 > r.end:
+                    raise _Bad(-2)
                 d["kind"] = PCM
                 d["pcm"] = [r.u(8) for _ in range(384)]
                 d["qp"] = qp
                 return d, qp
             if t == 0:
                 d["kind"] = I4
+                if p["t8mode"] and r.bit():
+                    d["kind"], d["t8"] = I8, 1
             else:
                 d["kind"] = I16
                 d["i16"] = (t - 1) % 4
                 d["cbp"] = (((t - 1) // 4) % 3) << 4 | (15 if t >= 13 else 0)
         nref = p["nref"]
-        if d["kind"] == I4:
+        if d["kind"] in _NXN:
             modes = []
-            for _ in range(16):
+            for _ in range(4 if d["kind"] == I8 else 16):
                 modes.append(-1 if r.bit() else r.u(3))
             d["rem"] = modes
-        if d["kind"] in (I4, I16):
+        if d["kind"] in (I4, I8, I16):
             d["cmode"] = r.ue()
             if d["cmode"] > 3:
                 raise _Bad(-1)
@@ -1755,8 +2461,10 @@ class Decoder:
             code = r.ue()
             if code > 47:
                 raise _Bad(-1)
-            d["cbp"] = CBP_INTRA[code] if d["kind"] == I4 else \
+            d["cbp"] = CBP_INTRA[code] if d["kind"] in _NXN else \
                 CBP_INTER[code]
+        if self._t8_coded(p, d):
+            d["t8"] = r.bit()
         if d["cbp"] or d["kind"] == I16:
             delta = r.se()
             if not -26 <= delta <= 25:
@@ -1767,21 +2475,38 @@ class Decoder:
         c.nnz[a] = [0] * 24
         if d["cbp"] or d["kind"] == I16:
             self._residual(r, s, m, d)
-        if d["kind"] == I4:
-            c.kind[a] = I4
-            d["i4"] = [0] * 16
-            for blk in range(16):
-                pred = self._i4_pred(s, m, blk)
-                rem = d["rem"][blk]
-                mode = pred if rem < 0 else rem if rem < pred else rem + 1
-                d["i4"][blk] = mode
-                c.i4[a][BLK_Y[blk] * 4 + BLK_X[blk]] = mode
+        self._nxn_modes(s, m, d)
         return d, qp
+
+    @staticmethod
+    def _t8_coded(p: Dict, d: Dict) -> bool:
+        """Does an inter MB's syntax hold transform_size_8x8_flag?"""
+        return d["kind"] == INTER and bool(d["cbp"] & 15) and \
+            bool(p["t8mode"]) and (d["ptype"] < 3 or not any(d["sub"]))
+
+    def _nxn_modes(self, s: _Ctx, m, d: Dict) -> None:
+        """The Intra NxN modes from their syntax, each stored as it comes."""
+        if d["kind"] not in _NXN:
+            return
+        c, a = s.cur, m[0]
+        c.kind[a] = d["kind"]
+        n8 = d["kind"] == I8
+        d["modes"] = []
+        for blk in range(4 if n8 else 16):
+            bx = (blk & 1) * 2 if n8 else BLK_X[blk]
+            by = (blk >> 1) * 2 if n8 else BLK_Y[blk]
+            pred = self._i4_pred(s, m, bx, by)
+            rem = d["rem"][blk]
+            mode = pred if rem < 0 else rem if rem < pred else rem + 1
+            d["modes"].append(mode)
+            for k in range(4 if n8 else 1):
+                c.i4[a][(by + (k >> 1)) * 4 + bx + (k & 1)] = mode
 
     def _residual(self, r: Bits, s: _Ctx, m, d: Dict) -> None:
         nnz = s.cur.nnz[m[0]]
         i16 = d["kind"] == I16
         d["luma"] = [[0] * 16 for _ in range(16)]
+        d["luma8"] = [[0] * 64 for _ in range(4)]
         d["ldc"] = [0] * 16
         if i16:
             scan = [0] * 16
@@ -1796,8 +2521,13 @@ class Decoder:
             nc = self._nc(s, m, 0, bx, by)
             tc = read_block(r, nc, 1, 15, scan) if i16 else \
                 read_block(r, nc, 0, 16, scan)
-            for k in range(1 if i16 else 0, 16):
-                d["luma"][blk][ZIGZAG[k]] = scan[k]
+            if d["t8"]:        # four 4x4 reads interleaved into the 8x8
+                for k in range(16):
+                    d["luma8"][blk >> 2][ZIGZAG8[4 * k + (blk & 3)]] = \
+                        scan[k]
+            else:
+                for k in range(1 if i16 else 0, 16):
+                    d["luma"][blk][ZIGZAG[k]] = scan[k]
             nnz[by * 4 + bx] = tc
         cc = d["cbp"] >> 4
         d["cdc"] = [[0] * 4, [0] * 4]
@@ -1816,7 +2546,9 @@ class Decoder:
                     d["cac"][k][blk][ZIGZAG[j]] = scan[j]
                 nnz[16 + k * 4 + blk] = tc
 
-    def _i4_pred(self, s: _Ctx, m, blk: int) -> int:
+    def _i4_pred(self, s: _Ctx, m, bx: int, by: int) -> int:
+        """The predicted Intra4x4/8x8 mode of the block whose top-left 4x4
+        block is (bx, by)."""
         c = s.cur
         dc = False
 
@@ -1835,12 +2567,292 @@ class Decoder:
                 if k < I4 and s.p["cip"]:
                     dc = True
                     return 2
-                if k != I4:
+                if k not in _NXN:
                     return 2
             return c.i4[my * c.mbw + mx][y * 4 + x]
-        bx, by = BLK_X[blk], BLK_Y[blk]
         a, b = mode_of(bx - 1, by), mode_of(bx, by - 1)
         return 2 if dc else min(a, b)
+
+    # ------------------------------------------------------------ CABAC
+    def _parse_cabac(self, cb: Cabac, r: Bits, s: _Ctx, m, qp: int):
+        c, p = s.cur, s.p
+        A, B = self._nb_mb(s, m, -1, 0), self._nb_mb(s, m, 0, -1)
+        d = {"kind": NONE, "cbp": 0, "t8": 0}
+        islice = p["type"] == 2
+        mb_type = -1
+        if not islice and not cb.decision(14):
+            d["kind"] = INTER
+            if not cb.decision(15):
+                d["ptype"] = 3 if cb.decision(16) else 0
+            else:
+                d["ptype"] = 1 if cb.decision(17) else 2
+        else:
+            if islice:
+                term = lambda n: n >= 0 and c.kind[n] not in _NXN
+                ctx = (3 + term(A) + term(B), 6, 7, 8, 9, 10)
+            else:
+                ctx = (17, 18, 19, 19, 20, 20)
+            if not cb.decision(ctx[0]):
+                mb_type = 0
+            elif cb.terminate():
+                mb_type = 25
+            else:
+                mb_type = 1 + 12 * cb.decision(ctx[1])
+                if cb.decision(ctx[2]):
+                    mb_type += 4 + 4 * cb.decision(ctx[3])
+                mb_type += 2 * cb.decision(ctx[4])
+                mb_type += cb.decision(ctx[5])
+        if mb_type == 25:
+            r.pos = (r.pos + 7) & ~7
+            if r.pos + 3072 > r.end:
+                raise _Bad(-2)
+            d["kind"] = PCM
+            d["pcm"] = [r.u(8) for _ in range(384)]
+            cb.init_engine()
+            d["qp"] = qp
+            self._last_dqp = 0
+            return d, qp
+        t8 = lambda: (A >= 0 and c.t8[A]) + (B >= 0 and c.t8[B])
+        if mb_type == 0:
+            d["kind"] = I4
+            if p["t8mode"] and cb.decision(399 + t8()):
+                d["kind"], d["t8"] = I8, 1
+        elif mb_type > 0:
+            d["kind"] = I16
+            d["i16"] = (mb_type - 1) % 4
+            d["cbp"] = (((mb_type - 1) // 4) % 3) << 4 | \
+                (15 if mb_type >= 13 else 0)
+        nref = p["nref"]
+        if d["kind"] in _NXN:
+            rem = []
+            for _ in range(4 if d["kind"] == I8 else 16):
+                if cb.decision(68):
+                    rem.append(-1)
+                else:
+                    rem.append(cb.decision(69) | cb.decision(69) << 1 |
+                               cb.decision(69) << 2)
+            d["rem"] = rem
+        if d["kind"] in (I4, I8, I16):
+            v = 0
+            if cb.decision(64 + (A >= 0 and c.cmode[A] != 0) +
+                           (B >= 0 and c.cmode[B] != 0)):
+                v = 1
+                while v < 3 and cb.decision(67):
+                    v += 1
+            d["cmode"] = v
+        else:
+            sub = [0] * 4
+            if d["ptype"] == 3:
+                for i in range(4):
+                    if cb.decision(21):
+                        sub[i] = 0
+                    elif not cb.decision(22):
+                        sub[i] = 1
+                    else:
+                        sub[i] = 2 if cb.decision(23) else 3
+            d["sub"] = sub
+            ref = c.ref[m[0]]
+            nown = 1 if d["ptype"] == 0 else 2 if d["ptype"] < 3 else 4
+            d["ref"] = []
+            for i in range(nown):
+                x0 = i * 2 if d["ptype"] == 2 else (i & 1) * 2 \
+                    if d["ptype"] == 3 else 0
+                y0 = i * 2 if d["ptype"] == 1 else (i >> 1) * 2 \
+                    if d["ptype"] == 3 else 0
+                rf = 0
+                if nref > 1:
+                    na, ba = self._nb_block(s, m, x0 - 1, y0)
+                    nb, bb = self._nb_block(s, m, x0, y0 - 1)
+                    ta = na >= 0 and c.ref[na][ba] > 0
+                    tb = nb >= 0 and c.ref[nb][bb] > 0
+                    if cb.decision(54 + ta + 2 * tb):
+                        rf, ctx = 1, 58
+                        while cb.decision(ctx):
+                            ctx = 59
+                            rf += 1
+                            if rf >= nref:
+                                raise _Bad(-1)
+                d["ref"].append(rf)
+                w = 4 if d["ptype"] in (0, 1) else 2
+                h = 4 if d["ptype"] in (0, 2) else 2
+                for y in range(y0, y0 + h):
+                    for x in range(x0, x0 + w):
+                        ref[y * 4 + x] = rf
+            mvd = c.mvd[m[0]]
+            d["mvd"] = []
+            for x, y, w, h, _, _ in _partitions(d["ptype"], sub):
+                bx, by = x // 4, y // 4
+                na, ba = self._nb_block(s, m, bx - 1, by)
+                nb, bb = self._nb_block(s, m, bx, by - 1)
+                v = []
+                for comp in range(2):
+                    total = (mvd[ba][comp] if na == m[0] else
+                             c.mvd[na][ba][comp] if na >= 0 else 0) + \
+                        (mvd[bb][comp] if nb == m[0] else
+                         c.mvd[nb][bb][comp] if nb >= 0 else 0)
+                    v.append(self._mvd(cb, 47 if comp else 40, total))
+                d["mvd"].append(tuple(v))
+                a2 = (min(abs(v[0]), 255), min(abs(v[1]), 255))
+                for yy in range(by, by + h // 4):
+                    for xx in range(bx, bx + w // 4):
+                        mvd[yy * 4 + xx] = a2
+        if d["kind"] != I16:
+            luma_term = lambda n, bit: n >= 0 and not c.cbp[n] >> bit & 1
+            cbp = 0
+            for b8 in range(4):
+                ta = (not cbp >> (b8 - 1) & 1) if b8 & 1 else \
+                    luma_term(A, b8 + 1)
+                tb = (not cbp >> (b8 - 2) & 1) if b8 & 2 else \
+                    luma_term(B, b8 + 2)
+                cbp |= cb.decision(73 + ta + 2 * tb) << b8
+            ca = c.cbp[A] >> 4 if A >= 0 else 0
+            cbb = c.cbp[B] >> 4 if B >= 0 else 0
+            if cb.decision(77 + (ca != 0) + 2 * (cbb != 0)):
+                cbp |= (1 + cb.decision(81 + (ca == 2) + 2 * (cbb == 2))) \
+                    << 4
+            d["cbp"] = cbp
+        if self._t8_coded(p, d):
+            d["t8"] = cb.decision(399 + t8())
+        c.nnz[m[0]] = [0] * 24
+        if d["cbp"] or d["kind"] == I16:
+            v, ctx = 0, 60 + (self._last_dqp != 0)
+            while cb.decision(ctx):
+                ctx = 62 if ctx < 62 else 63
+                v += 1
+                if v > 52:
+                    raise _Bad(-1)
+            delta = (v + 1) // 2 if v & 1 else -(v // 2)
+            if not -26 <= delta <= 25:
+                raise _Bad(-1)
+            qp = (qp + delta + 52) % 52
+            self._last_dqp = delta
+            d["qp"] = qp
+            self._residual_cabac(cb, s, m, d)
+        else:
+            self._last_dqp = 0
+            d["qp"] = qp
+        self._nxn_modes(s, m, d)
+        return d, qp
+
+    @staticmethod
+    def _mvd(cb: Cabac, base: int, total: int) -> int:
+        if not cb.decision(base + (0 if total < 3 else 1 if total <= 32
+                                   else 2)):
+            return 0
+        v, ctx = 1, base + 3
+        while v < 9 and cb.decision(ctx):
+            if v < 4:
+                ctx += 1
+            v += 1
+        if v >= 9:
+            v = cb.eg(v, 3)
+        return -v if cb.bypass() else v
+
+    @staticmethod
+    def _block(cb: Cabac, cat: int, maxc: int) -> List[int]:
+        """residual_block_cabac's levels of a coefficient list (its
+        coded_block_flag read already)."""
+        sig, last, absb = SIG_BASE[cat], LAST_BASE[cat], ABS_BASE[cat]
+        pos, ended = [], False
+        for i in range(maxc - 1):
+            inc = SIG8[i] if cat == 5 else min(i, 2) if cat == 3 else i
+            if cb.decision(sig + inc):
+                pos.append(i)
+                linc = LAST8[i] if cat == 5 else min(i, 2) if cat == 3 \
+                    else i
+                if cb.decision(last + linc):
+                    ended = True
+                    break
+        if not ended:
+            pos.append(maxc - 1)
+        out = [0] * maxc
+        gt1 = eq1 = 0
+        for i in reversed(pos):
+            v = 0
+            if cb.decision(absb + (0 if gt1 else min(4, 1 + eq1))):
+                ctx = absb + 5 + min(4 - (cat == 3), gt1)
+                v = 1
+                while v < 14 and cb.decision(ctx):
+                    v += 1
+                if v == 14:
+                    v = cb.eg(14, 0)
+            if v:
+                gt1 += 1
+            else:
+                eq1 += 1
+            out[i] = -(v + 1) if cb.bypass() else v + 1
+        return out
+
+    def _residual_cabac(self, cb: Cabac, s: _Ctx, m, d: Dict) -> None:
+        c = s.cur
+        nnz = c.nnz[m[0]]
+        intra = d["kind"] in (I4, I8, I16)
+        A, B = self._nb_mb(s, m, -1, 0), self._nb_mb(s, m, 0, -1)
+        d["luma"] = [[0] * 16 for _ in range(16)]
+        d["luma8"] = [[0] * 64 for _ in range(4)]
+        d["ldc"] = [0] * 16
+        d["cdc"] = [[0] * 4, [0] * 4]
+        d["cac"] = [[[0] * 16 for _ in range(4)] for _ in range(2)]
+        dc_term = lambda n, bit: int(intra) if n < 0 else c.cbfdc[n] >> bit & 1
+
+        def term(n: int, v: int) -> int:
+            return int(intra) if n < 0 else int(v != 0)
+        if d["kind"] == I16:
+            if cb.decision(CBF_BASE[0] + dc_term(A, 0) + 2 * dc_term(B, 0)):
+                lst = self._block(cb, 0, 16)
+                for k in range(16):
+                    d["ldc"][ZIGZAG[k]] = lst[k]
+        for b8 in range(4):
+            if not d["cbp"] >> b8 & 1:
+                continue
+            if d["t8"]:
+                lst = self._block(cb, 5, 64)
+                for k in range(64):
+                    d["luma8"][b8][ZIGZAG8[k]] = lst[k]
+                n = sum(v != 0 for v in lst)
+                bx, by = (b8 & 1) * 2, (b8 >> 1) * 2
+                for k in range(4):
+                    nnz[(by + (k >> 1)) * 4 + bx + (k & 1)] = n
+                continue
+            for blk in range(b8 * 4, b8 * 4 + 4):
+                bx, by = BLK_X[blk], BLK_Y[blk]
+                na, ba = self._nb_block(s, m, bx - 1, by)
+                nb, bb = self._nb_block(s, m, bx, by - 1)
+                ta = term(na, c.nnz[na][ba] if na >= 0 else 0)
+                tb = term(nb, c.nnz[nb][bb] if nb >= 0 else 0)
+                i16 = d["kind"] == I16
+                cat = 1 if i16 else 2
+                if not cb.decision(CBF_BASE[cat] + ta + 2 * tb):
+                    continue
+                lst = self._block(cb, cat, 16 - i16)
+                for k in range(16 - i16):
+                    d["luma"][blk][ZIGZAG[k + i16]] = lst[k]
+                nnz[by * 4 + bx] = sum(v != 0 for v in lst)
+        cc = d["cbp"] >> 4
+        if cc:
+            for k in range(2):
+                if cb.decision(CBF_BASE[3] + dc_term(A, 1 + k) +
+                               2 * dc_term(B, 1 + k)):
+                    d["cdc"][k] = self._block(cb, 3, 4)
+        if cc == 2:
+            for k in range(2):
+                for blk in range(4):
+                    bx, by = blk & 1, blk >> 1
+
+                    def cterm(x: int, y: int) -> int:
+                        dx, dy = (-1, x + 2) if x < 0 else (0, x), \
+                            (-1, y + 2) if y < 0 else (0, y)
+                        n = self._nb_mb(s, m, dx[0], dy[0]) \
+                            if dx[0] or dy[0] else m[0]
+                        return term(n, c.nnz[n][16 + k * 4 + dy[1] * 2 +
+                                                 dx[1]] if n >= 0 else 0)
+                    if not cb.decision(CBF_BASE[4] + cterm(bx - 1, by) +
+                                       2 * cterm(bx, by - 1)):
+                        continue
+                    lst = self._block(cb, 4, 15)
+                    for j in range(15):
+                        d["cac"][k][blk][ZIGZAG[j + 1]] = lst[j]
+                    nnz[16 + k * 4 + blk] = sum(v != 0 for v in lst)
 
     # ------------------------------------------------------------ rebuild
     def _intra_avail(self, s: _Ctx, mx: int, my: int) -> bool:
@@ -1862,11 +2874,37 @@ class Decoder:
         lft = [int(plane[py + y, px - 1]) if left else 0 for y in range(n)]
         return t, lft
 
+    @staticmethod
+    def _store(c: _Slot, a: int, d: Dict) -> None:
+        """What the next MBs' CABAC contexts read of MB a."""
+        kind = d["kind"]
+        c.t8[a] = d.get("t8", 0)
+        c.cbp[a] = 15 | 2 << 4 if kind == PCM else 0 if kind == SKIP \
+            else d["cbp"]
+        c.cmode[a] = d["cmode"] if kind in (I4, I8, I16) else 0
+        dc = 0
+        if kind == I16 and any(d.get("ldc", ())):
+            dc |= 1
+        for k in range(2):
+            if any(d.get("cdc", ((), ()))[k]):
+                dc |= 2 << k
+        c.cbfdc[a] = 7 if kind == PCM else 0 if kind == SKIP else dc
+        mvd = [(0, 0)] * 16
+        if kind == INTER:
+            for (x, y, w, h, _, _), v in zip(
+                    _partitions(d["ptype"], d["sub"]), d["mvd"]):
+                for yy in range(y // 4, (y + h) // 4):
+                    for xx in range(x // 4, (x + w) // 4):
+                        mvd[yy * 4 + xx] = (min(abs(v[0]), 255),
+                                            min(abs(v[1]), 255))
+        c.mvd[a] = mvd
+
     def _reconstruct(self, s: _Ctx, m, d: Dict) -> None:
         c, p = s.cur, s.p
         a, mx, my = m
         kind = d["kind"]
         c.kind[a] = kind
+        self._store(c, a, d)
         c.i4[a] = [-1] * 16
         Y0, X0 = my * 16, mx * 16
         if kind == PCM:
@@ -1881,7 +2919,7 @@ class Decoder:
             c.qp[a] = 0
             return
         c.qp[a] = d["qp"]
-        intra = kind in (I4, I16)
+        intra = kind in (I4, I8, I16)
         if intra:
             c.ref[a], c.mv[a], c.rpic[a] = [-1] * 16, [(0, 0)] * 16, \
                 [-1] * 16
@@ -1890,6 +2928,8 @@ class Decoder:
         tC, tD = self._intra_avail(s, mx + 1, my - 1), \
             self._intra_avail(s, mx - 1, my - 1)
         qp = d["qp"]
+        q = qp % 6
+        ls4, ls8 = p["ls4"], p["ls8"]
         qpc = [CHROMA_QP[min(max(qp + p["cqp%d" % k], 0), 51)]
                for k in range(2)]
         if kind == I4:
@@ -1910,13 +2950,29 @@ class Decoder:
                     tr = idx < blk
                 t, lft = self._edge(c.y, Y0 + by * 4, X0 + bx * 4, 4, top,
                                     left, corner, tr, 4)
-                pr = pred4x4(t, lft, d["i4"][blk], top, left)
+                pr = pred4x4(t, lft, d["modes"][blk], top, left)
                 c.y[Y0 + by * 4:Y0 + by * 4 + 4, X0 + bx * 4:X0 + bx * 4 + 4] \
                     = np.array(pr, np.uint8)
-                c.i4[a][by * 4 + bx] = d["i4"][blk]
+                c.i4[a][by * 4 + bx] = d["modes"][blk]
                 if d["cbp"]:
                     add_block(c.y, Y0 + by * 4, X0 + bx * 4, d["luma"][blk],
-                              qp)
+                              ls4[0][q], qp)
+        elif kind == I8:
+            for b8 in range(4):
+                bx, by = (b8 & 1) * 8, (b8 >> 1) * 8
+                top, left = True if by else tB, True if bx else tA
+                corner = True if bx and by else tD if not bx and not by \
+                    else tB if bx else tA
+                tr = (tB, tC, True, False)[b8]
+                c.y[Y0 + by:Y0 + by + 8, X0 + bx:X0 + bx + 8] = pred8x8(
+                    c.y, Y0 + by, X0 + bx, top, left, corner, tr,
+                    d["modes"][b8]).astype(np.uint8)
+                for k in range(4):
+                    c.i4[a][(by // 4 + (k >> 1)) * 4 + bx // 4 + (k & 1)] = \
+                        d["modes"][b8]
+                if d["cbp"] >> b8 & 1:
+                    add_block8(c.y, Y0 + by, X0 + bx, d["luma8"][b8],
+                               ls8[0][q], qp)
         elif kind == I16:
             t, lft = self._edge(c.y, Y0, X0, 16, tB, tA, tD, False, 0)
             mode = d["i16"]
@@ -1932,11 +2988,11 @@ class Decoder:
             else:
                 pr = pred_plane(t, lft, 16)
             c.y[Y0:Y0 + 16, X0:X0 + 16] = pr.astype(np.uint8)
-            dcs = luma_dc(d["ldc"], qp)
+            dcs = luma_dc(d["ldc"], qp, ls4[0][q][0])
             for blk in range(16):
                 bx, by = BLK_X[blk], BLK_Y[blk]
-                add_block(c.y, Y0 + by * 4, X0 + bx * 4, d["luma"][blk], qp,
-                          dcs[by * 4 + bx])
+                add_block(c.y, Y0 + by * 4, X0 + bx * 4, d["luma"][blk],
+                          ls4[0][q], qp, dcs[by * 4 + bx])
         else:
             ref, mv = [0] * 16, [(0, 0)] * 16
             if kind == SKIP:
@@ -1961,23 +3017,37 @@ class Decoder:
                 if ref[k] >= p["nref"] or p["refs"][ref[k]] is None:
                     raise _Bad(-5)
             c.rpic[a] = [p["ids"][ref[k]] for k in range(16)]
+            wts = p["weights"]
             for x, y, w, h, _, _ in parts:
                 k = (y // 4) * 4 + x // 4
                 rs = p["refs"][ref[k]]
                 vx, vy = mv[k]
-                c.y[Y0 + y:Y0 + y + h, X0 + x:X0 + x + w] = mc_luma(
-                    rs.y, X0 + x, Y0 + y, w, h, vx, vy)
+                ly = mc_luma(rs.y, X0 + x, Y0 + y, w, h, vx, vy)
                 cy, cx = my * 8 + y // 2, mx * 8 + x // 2
-                c.u[cy:cy + h // 2, cx:cx + w // 2] = mc_chroma(
-                    rs.u, cx, cy, w // 2, h // 2, vx, vy)
-                c.v[cy:cy + h // 2, cx:cx + w // 2] = mc_chroma(
-                    rs.v, cx, cy, w // 2, h // 2, vx, vy)
+                lu = mc_chroma(rs.u, cx, cy, w // 2, h // 2, vx, vy)
+                lv = mc_chroma(rs.v, cx, cy, w // 2, h // 2, vx, vy)
+                if wts is not None:
+                    lwd, cwd, table = wts
+                    wt = table[ref[k]] if ref[k] < len(table) else \
+                        (1 << lwd, 0, 1 << cwd, 0, 1 << cwd, 0)
+                    ly = _weight(ly, lwd, wt[0], wt[1])
+                    lu = _weight(lu, cwd, wt[2], wt[3])
+                    lv = _weight(lv, cwd, wt[4], wt[5])
+                c.y[Y0 + y:Y0 + y + h, X0 + x:X0 + x + w] = ly
+                c.u[cy:cy + h // 2, cx:cx + w // 2] = lu
+                c.v[cy:cy + h // 2, cx:cx + w // 2] = lv
             if kind == SKIP:
                 return
-            if d["cbp"] & 15:
+            if d["t8"]:
+                for b8 in range(4):
+                    if d["cbp"] >> b8 & 1:
+                        add_block8(c.y, Y0 + (b8 >> 1) * 8,
+                                   X0 + (b8 & 1) * 8, d["luma8"][b8],
+                                   ls8[1][q], qp)
+            elif d["cbp"] & 15:
                 for blk in range(16):
                     add_block(c.y, Y0 + BLK_Y[blk] * 4, X0 + BLK_X[blk] * 4,
-                              d["luma"][blk], qp)
+                              d["luma"][blk], ls4[3][q], qp)
         if intra:
             for k, plane in enumerate((c.u, c.v)):
                 t, lft = self._edge(plane, my * 8, mx * 8, 8, tB, tA, tD,
@@ -2011,19 +3081,28 @@ class Decoder:
                     pr.astype(np.uint8)
         if d["cbp"] >> 4:
             for k, plane in enumerate((c.u, c.v)):
-                dcs = chroma_dc(d["cdc"][k], qpc[k])
+                ls = ls4[(1 if intra else 4) + k][qpc[k] % 6]
+                dcs = chroma_dc(d["cdc"][k], qpc[k], ls[0])
                 for blk in range(4):
                     add_block(plane, my * 8 + (blk >> 1) * 4,
                               mx * 8 + (blk & 1) * 4, d["cac"][k][blk],
-                              qpc[k], dcs[blk])
+                              ls, qpc[k], dcs[blk])
 
     # ------------------------------------------------------------ deblocking
     @staticmethod
-    def _bs(c: _Slot, pa: int, pb: int, qa: int, qb: int,
+    def _coded(c: _Slot, a: int, b: int) -> bool:
+        """Does the transform block of 4x4 block b (raster) of MB a hold a
+        level (its 8x8 block where the MB takes the 8x8 transform)?"""
+        if not c.t8[a]:
+            return c.nnz[a][b] != 0
+        b0 = b & 10
+        return any(c.nnz[a][k] for k in (b0, b0 + 1, b0 + 4, b0 + 5))
+
+    def _bs(self, c: _Slot, pa: int, pb: int, qa: int, qb: int,
             mb_edge: bool) -> int:
         if c.kind[pa] >= I4 or c.kind[qa] >= I4:
             return 4 if mb_edge else 3
-        if c.nnz[pa][pb] or c.nnz[qa][qb]:
+        if self._coded(c, pa, pb) or self._coded(c, qa, qb):
             return 2
         if c.rpic[pa][pb] != c.rpic[qa][qb]:
             return 1
@@ -2048,6 +3127,8 @@ class Decoder:
             for e in range(4):
                 if e == 0 and not (left if vert else top):
                     continue
+                if e & 1 and c.t8[a]:
+                    continue        # no 4x4 edges inside an 8x8 transform
                 pa = a if e else (a - 1 if vert else a - c.mbw)
                 bs = []
                 for k in range(4):

@@ -654,10 +654,11 @@ def h264_params(info: AviInfo) -> bytes:
 def h264_unsupported(path: Path, info: AviInfo) -> Optional[str]:
     """What of an H.264 stream the port's decoder does not read, or None,
     before any decode: from the extradata and the first sample's
-    parameter sets and slice header (``h264_plain.unsupported``: CABAC,
-    B, SP and SI slices, interlaced coding, the 8x8 transform, scaling
-    matrices, weighted prediction, bit depths over 8, chroma formats other
-    than 4:2:0, lossless macroblocks, slice groups, redundant pictures, a
+    parameter sets and slice header (``h264_plain.unsupported``: B, SP
+    and SI slices (and weighted_bipred_idc with them), interlaced coding
+    (PAFF and MBAFF), bit depths over 8, chroma formats other than 4:2:0
+    (monochrome among them), lossless macroblocks, slice groups,
+    redundant pictures, a
     left crop that is no multiple of 64, a matrix other than BT.601 and
     BT.709, full-range BT.709; a first picture that is no IDR).  A later
     sample that is refused raises when it is decoded, naming its frame."""

@@ -95,15 +95,21 @@ reconstruction on the same strip (``h264_strip``: the first pictures of
 list modification, MMCOs, every macroblock kind; coded and decoded
 plain in a spawned process), to the committed ``tests/data/h264 *``
 clips' cv2 frames, on 4K to ``h264_plain.py`` (``H264Plain4K``: an IDR
-and a P picture of 8 slices coded and decoded plain in a process of its
-own, started with the smoke, and the one-slice stream of the same
+and a P picture of 8 slices coded and decoded plain in two processes of
+their own, started with the smoke, the P picture from the writer's
+reconstruction of the IDR, and the one-slice stream of the same
 pictures) and to the reconstruction of 14 (j)'s
 brightest video, and time it once each: that video's IDR picture on one
 thread, on all (a slice a thread) and as a frame of a batch of 12 (a GOP
 a thread), its P pictures on one thread, on all and as frames of 12
 decoders at once, a one-slice stream's IDR and P pictures on all (a
 serial chain), and the ``avc1`` MP4's demux beside its
-AVI; mux 14 (i)'s MP4, MOV and
+AVI; the same for the Main and High profiles' tools (``H264HighWork``, from
+the smoke's start: a 64 x 3840 strip of ``high_sink``'s CABAC, Intra 8x8,
+8x8 transform, weights and duplicated reference held to ``h264_plain.py``
+and the reconstruction, 14 (k)'s brightest High video held to its
+reconstruction and timed as above, its one-slice stream, its MP4's
+demux); log when each job of the plain-decode window ended; mux 14 (i)'s MP4, MOV and
 Matroska files from those AVIs' bitstreams (``ContainerVideos``, in the
 window where no call is timed), hold the committed ``tests/data/container
 *`` clips (MP4, MOV and Matroska files cv2 wrote, one under a 90-degree
@@ -184,7 +190,14 @@ picture; a reference list modification and an MMCO in the first; coded
 in phase
 12's window, cached under ``build/``) in ``avc1`` MP4s, held bit for bit
 to ``video_to_hdr`` on I420 AVIs of the writer's reconstruction, and the
-same bitstreams in Annex B AVIs and in Matroska, held to the MP4 run.
+same bitstreams in Annex B AVIs and in Matroska, held to the MP4 run; (k)
+on H.264 High videos (``H264HighWork``: config 5's three exposures made
+again on the host from SEED, coded from the smoke's start in a process
+of its own at niceness 10, as ``x264 --profile high --tune zerolatency``
+codes at its defaults: CABAC, 8x8dct with Intra 8x8 and 4x4, weightp 2,
+``--cqm flat``, QPs H264_QP, H264_SLICES slices a picture; a duplicated,
+weighted reference in the first) in ``avc1`` MP4s, held bit for bit to
+``video_to_hdr`` on I420 AVIs of the writer's reconstruction.
 
 Phases 15-16, config 3's captures as files and the command line: build
 the native TIFF codec, write and read the captures, read one config-3
@@ -266,6 +279,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -923,57 +937,164 @@ def yuv_planes(bgr, vs: int = 1, hs: int = 1):
     return [p.to(torch.uint8).cpu().numpy() for p in out]
 
 
-def make_videos(directory, dev):
-    """BASELINE config 5's exposure videos, as benchmarks/bench_video.py
-    makes them (a uniform base x exposure x 230 plus N(0, 6) noise, clipped
-    to uint8), generated on the card from seed 42 (MJPG_POOL distinct
-    frames a video, cycled to FRAMES5, as the MJPG videos cycle them) and
-    written as raw RGBA AVIs: ``scene <ms>ms.avi`` at full size and ``crop <ms>ms.avi`` of
-    their first CROP_ROWS rows; and the same frames as I420 AVIs in the
-    layout ``cv2.VideoWriter(fourcc "I420")`` writes (``yuv_planes``;
-    ``i420 scene <ms>ms.avi`` and ``i420 crop <ms>ms.avi``).  Returns the
-    RGBA path lists, each exposure's (frames, CROP_ROWS, W, 3) BGR crop
-    for the NumPy oracle, its first MJPG_POOL frames (BGR) for the MJPG
-    videos and the I420 path lists."""
-    from tests._torch_rawvideo_writer import encode_frame, write_raw_avi
+def config5_content(dev):
+    """The distinct frames of BASELINE config 5's exposure videos, as
+    ``benchmarks/bench_video.py`` makes them (a uniform base x exposure x
+    230 plus N(0, 6) noise, clipped to uint8), generated on the card from
+    seed 42: for each exposure, MJPG_POOL RGBA frames (host arrays) and
+    the same frames as I420 chunks at full size and as CROP_ROWS-row
+    crops (``yuv_planes``)."""
+    from tests._torch_rawvideo_writer import encode_frame
     gen = torch.Generator(device=dev).manual_seed(42)
     base = torch.rand((H5, W5, 3), generator=gen, device=dev)
     rgba = torch.full((H5, W5, 4), 255, dtype=torch.uint8, device=dev)
-    paths, crop_paths, crops, pools = [], [], [], []
-    i420_paths, i420_crop_paths = [], []
+    content = []
     for ms in EXPOSURES5_MS:
         level = (base * (ms / max(EXPOSURES5_MS)) * 230).clamp(0, 255)
-        full, crop, i420, i420_crop = [], [], [], []
-        for i in range(FRAMES5):
-            if i >= MJPG_POOL:   # the pool cycled
-                for frames in (full, crop, i420, i420_crop):
-                    frames.append(frames[i % MJPG_POOL])
-                continue
+        hosts, i420, i420_crop = [], [], []
+        for _ in range(MJPG_POOL):
             bgr = (level + 6 * torch.randn((H5, W5, 3), generator=gen,
                                            device=dev)).clamp(0, 255).to(
                 torch.uint8)
             rgba[..., :3] = bgr.flip(-1)
-            host = rgba.to("cpu", copy=True).numpy()
-            full.append(host)
-            crop.append(host[:CROP_ROWS].copy())
+            hosts.append(rgba.to("cpu", copy=True).numpy())
             y, u, v = yuv_planes(bgr)
             i420.append(encode_frame("I420", (y, u, v)))
             i420_crop.append(encode_frame("I420", (
                 y[:CROP_ROWS], u[:CROP_ROWS // 2], v[:CROP_ROWS // 2])))
+        content.append((hosts, i420, i420_crop))
+    return content
+
+
+def make_videos(directory, content):
+    """Config 5's exposure videos from ``content`` (:func:`config5_content`:
+    MJPG_POOL distinct frames a video, cycled to FRAMES5, as the MJPG
+    videos cycle them), written as raw RGBA AVIs: ``scene <ms>ms.avi`` at
+    full size and ``crop <ms>ms.avi`` of their first CROP_ROWS rows; and
+    the same frames as I420 AVIs in the layout ``cv2.VideoWriter(fourcc
+    "I420")`` writes (``i420 scene <ms>ms.avi`` and ``i420 crop
+    <ms>ms.avi``).  Returns the RGBA path lists, each exposure's (frames,
+    CROP_ROWS, W, 3) BGR crop for the NumPy oracle, its first MJPG_POOL
+    frames (BGR) for the MJPG videos and the I420 path lists."""
+    from tests._torch_rawvideo_writer import write_raw_avi
+    paths, crop_paths, crops, pools = [], [], [], []
+    i420_paths, i420_crop_paths = [], []
+    for ms, (hosts, i420_d, i420_crop_d) in zip(EXPOSURES5_MS, content):
+        cycle = lambda frames: [frames[i % MJPG_POOL]  # noqa: E731
+                                for i in range(FRAMES5)]
+        full = cycle(hosts)
+        crop = cycle([h[:CROP_ROWS].copy() for h in hosts])
         for name, frames, rows, out in (("scene", full, H5, paths),
                                         ("crop", crop, CROP_ROWS,
                                          crop_paths)):
             out.append(directory / f"{name} {ms}ms.avi")
             write_rgba_avi(out[-1], frames, rows, W5)
         for name, frames, rows, out in (
-                ("i420 scene", i420, H5, i420_paths),
-                ("i420 crop", i420_crop, CROP_ROWS, i420_crop_paths)):
+                ("i420 scene", cycle(i420_d), H5, i420_paths),
+                ("i420 crop", cycle(i420_crop_d), CROP_ROWS,
+                 i420_crop_paths)):
             out.append(directory / f"{name} {ms}ms.avi")
             write_raw_avi(out[-1], frames, rows, W5, "I420")
         crops.append(np.stack(crop)[..., 2::-1])
-        pools.append(np.stack([f[..., 2::-1] for f in full[:MJPG_POOL]]))
-        del full, i420
+        pools.append(np.stack([f[..., 2::-1] for f in hosts]))
     return paths, crop_paths, crops, pools, (i420_paths, i420_crop_paths)
+
+
+def config5_prework(out: str) -> None:
+    """:class:`Config5Prework`'s work, in a spawned process of its own at
+    niceness 10 (it takes the cores the phases before phase 12 leave
+    idle): read config 5's content (:func:`config5_content`, written by
+    the smoke at its start), write its videos into ``out`` as phase 12
+    does (:func:`make_videos`) and code what phase 12 would code from
+    them, into the same ``build/`` caches (each keyed by the frames, the
+    writers' sources and the settings): the MJPG videos of every
+    MJPG_VARIANTS mode, 14 (c)-(f)'s lossless videos, 14 (g)/(h)'s MPEG-4
+    videos and 14 (j)'s H.264 videos, with a plain pool of its own.  Phase
+    12 then finds them there.  Writes ``done.json`` (each step's seconds)
+    last, and removes the videos."""
+    import json
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from camera_linearity_tpu_torch.utils.general import set_thread_priority
+    set_thread_priority(10)
+    out = Path(out)
+    t0 = time.perf_counter()
+    with np.load(out / "content.npz") as z:
+        content = [([z[f"rgba{e}_{i}"] for i in range(MJPG_POOL)],
+                    [z[f"i420{e}_{i}"].tobytes() for i in range(MJPG_POOL)],
+                    [z[f"crop{e}_{i}"].tobytes() for i in range(MJPG_POOL)])
+                   for e in range(len(EXPOSURES5_MS))]
+    directory = out / "videos"
+    directory.mkdir(parents=True, exist_ok=True)
+    paths, _, _, pools, (i420_paths, _) = make_videos(directory, content)
+    del content
+    t1 = time.perf_counter()
+    pool = plain_pool()
+    lossless = LosslessVideos(paths, i420_paths)
+    mpeg4 = Mpeg4Videos(i420_paths)
+    h264 = H264Videos(i420_paths)
+    with ThreadPoolExecutor(len(MJPG_VARIANTS)) as mjpg:
+        futures = [mjpg.submit(make_mjpg_videos, pools if variant in (
+            "420", "gray") else pools[-1:], pool, variant)
+            for variant in MJPG_VARIANTS]
+        lossless.submit(pool)
+        mpeg4.submit()
+        h264.submit()
+        for f in futures:
+            f.result()
+        t2 = time.perf_counter()
+        lossless.finish()
+        mpeg4.finish()
+        h264.finish()
+    pool.shutdown()
+    shutil.rmtree(directory, ignore_errors=True)
+    (out / "content.npz").unlink(missing_ok=True)
+    done = {"videos_s": t1 - t0, "mjpg_s": t2 - t1,
+            "codecs_s": time.perf_counter() - t1,
+            "lossless_s": lossless.encode_s, "mpeg4_s": mpeg4.encode_s,
+            "h264_s": h264.encode_s}
+    tmp = out / f"done.tmp{os.getpid()}"
+    tmp.write_text(json.dumps(done))
+    os.replace(tmp, out / "done.json")
+
+
+class Config5Prework:
+    """Config 5's videos coded from the smoke's start
+    (:func:`config5_prework`, in a spawned process of its own), so that
+    phase 12's MJPEG part and plain-decode window find them in their
+    caches.  ``content`` is :func:`config5_content`'s, which phase 12
+    writes its videos from too.  :meth:`result` waits for the process and
+    returns its seconds and the wait."""
+
+    def __init__(self, content):
+        import multiprocessing
+        self.dir = ROOT / "build" / "chip_smoke_prework" / str(os.getpid())
+        self.dir.mkdir(parents=True, exist_ok=True)
+        arrays = {}
+        for e, (hosts, i420, crop) in enumerate(content):
+            for i in range(MJPG_POOL):
+                arrays[f"rgba{e}_{i}"] = hosts[i]
+                arrays[f"i420{e}_{i}"] = np.frombuffer(i420[i], np.uint8)
+                arrays[f"crop{e}_{i}"] = np.frombuffer(crop[i], np.uint8)
+        np.savez(self.dir / "content.npz", **arrays)
+        # not a daemon: it has a process pool of its own
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=config5_prework, args=(str(self.dir),))
+        self.proc.start()
+
+    def result(self) -> dict:
+        import json
+        import shutil
+        t0 = time.perf_counter()
+        self.proc.join()
+        waited = time.perf_counter() - t0
+        if self.proc.exitcode != 0:
+            raise AssertionError("config 5's videos coded from the smoke's "
+                                 f"start: exit code {self.proc.exitcode}")
+        got = json.loads((self.dir / "done.json").read_text())
+        shutil.rmtree(self.dir, ignore_errors=True)
+        got["waited_s"] = waited
+        return got
 
 
 def raw_layout_chunks(bgr_host, bgr_dev):
@@ -1370,14 +1491,17 @@ def lossless_layout_chunks(frames_host, frames_dev, rows: int,
     layouts come from ``yuv_planes``; HuffYUV is interlaced at both sizes;
     FFV1 comes from the native encoder; UtVideo takes its 4K slice count
     at both sizes; Lagarith comes from the native encoder
-    (``lagarith_layout_chunks``)."""
+    (``lagarith_layout_chunks``).  The layouts encode side by side, a
+    thread each."""
+    from concurrent.futures import ThreadPoolExecutor
+    from camera_linearity_tpu_torch import native
     from camera_linearity_tpu_torch.native import png_plain
     from camera_linearity_tpu_torch.native import utvideo_plain
     from tests import _torch_ffv1_writer as fw
     from tests import _torch_huffyuv_writer as hw
     from tests import _torch_utvideo_writer as uw
     from tests._torch_png_writer import encode_png
-    out = {}
+    tasks = {}      # name -> its encode, run side by side below
     bgr = frames_host[0][:rows]
     rgb = bgr[..., ::-1]
     rgb16 = rgb.astype(np.uint16) << 8 | np.roll(rgb, -1, axis=-1)
@@ -1387,46 +1511,64 @@ def lossless_layout_chunks(frames_host, frames_dev, rows: int,
              lambda: np.repeat(bgr[..., 1:2], 3, -1)),
             ("PNG RGB16 mixed filters", rgb16, 2, 16,
              lambda: png_plain.rgb16_to_bgr(rgb16))):
-        chunk = encode_png(image, ctype, depth, filters="mixed")
-        out[name] = ("png", [chunk], png_plain.read_header(chunk),
-                     [expect()] if want else None)
+        def png(image=image, ctype=ctype, depth=depth, expect=expect):
+            chunk = encode_png(image, ctype, depth, filters="mixed")
+            return ("png", [chunk], png_plain.read_header(chunk),
+                    [expect()] if want else None)
+        tasks[name] = png
     for name, codec, layout, predictor, decorrelate, vs in (
             ("HFYU RGB24 gradient decorrelated", "HFYU", "rgb24",
              "gradient", True, None),
             ("HFYU YUY2 left", "HFYU", "yuy2", "left", False, 0),
             ("FFVH yuv420p median", "FFVH", "yuv420p", "median", False, 1)):
-        picture = bgr if vs is None else yuv_planes(frames_dev[0][:rows],
-                                                    vs=vs)
-        s = hw.make_stream(layout, predictor, decorrelate, rows, True, 2,
-                           [picture])
-        expect = None
-        if want:
-            expect = bgr if vs is None else \
-                yuv_bgr(picture, "i420" if vs else "yuv422p", rows)
-        out[name] = ("huffyuv", [hw.encode_frame(picture, s)],
-                     hw.stream_params(s, codec),
-                     None if expect is None else [expect])
+        def huffyuv(codec=codec, layout=layout, predictor=predictor,
+                    decorrelate=decorrelate, vs=vs):
+            picture = bgr if vs is None else yuv_planes(
+                frames_dev[0][:rows], vs=vs)
+            s = hw.make_stream(layout, predictor, decorrelate, rows, True, 2,
+                               [picture])
+            expect = None
+            if want:
+                expect = bgr if vs is None else \
+                    yuv_bgr(picture, "i420" if vs else "yuv422p", rows)
+            return ("huffyuv", [hw.encode_frame(picture, s)],
+                    hw.stream_params(s, codec),
+                    None if expect is None else [expect])
+        tasks[name] = huffyuv
     for name in FFV1_LAYOUTS:
-        config, pictures, expect = ffv1_layout(name, rows, frames_host,
-                                               frames_dev)
-        out[name] = ("ffv1", fw.native_encode(pictures, rows, W5, config),
-                     fw.stream_params(config), expect if want else None)
+        def ffv1(name=name):
+            config, pictures, expect = ffv1_layout(name, rows, frames_host,
+                                                   frames_dev)
+            return ("ffv1", fw.native_encode(pictures, rows, W5, config),
+                    fw.stream_params(config), expect if want else None)
+        tasks[name] = ffv1
     for name, (fourcc, predictor) in UTVIDEO_LAYOUTS.items():
-        layout = utvideo_plain.LAYOUTS[fourcc]
-        params = uw.stream_params(fourcc, uw.cv2_slices(layout, H5))
-        if layout == "gbrp":
-            picture, expect = bgr, bgr
-        else:
-            raw = {"yuv420p": "i420"}.get(layout, layout)
-            picture = yuv_planes(frames_dev[0][:rows], *{
-                "yuv420p": (1, 1), "yuv422p": (0, 1),
-                "yuv444p": (0, 0)}[layout])
-            expect = yuv_bgr(picture, raw, rows) if want else None
-        chunk = uw.encode_frame(uw.to_planes(picture, layout), params,
-                                uw.PREDICTORS[predictor])
-        out[name] = ("utvideo", [chunk], params,
-                     [expect] if want else None)
-    out.update(lagarith_layout_chunks(frames_host, frames_dev, rows, want))
+        def utvideo(fourcc=fourcc, predictor=predictor):
+            layout = utvideo_plain.LAYOUTS[fourcc]
+            params = uw.stream_params(fourcc, uw.cv2_slices(layout, H5))
+            if layout == "gbrp":
+                picture, expect = bgr, bgr
+            else:
+                raw = {"yuv420p": "i420"}.get(layout, layout)
+                picture = yuv_planes(frames_dev[0][:rows], *{
+                    "yuv420p": (1, 1), "yuv422p": (0, 1),
+                    "yuv444p": (0, 0)}[layout])
+                expect = yuv_bgr(picture, raw, rows) if want else None
+            chunk = uw.encode_frame(uw.to_planes(picture, layout), params,
+                                    uw.PREDICTORS[predictor])
+            return ("utvideo", [chunk], params, [expect] if want else None)
+        tasks[name] = utvideo
+    tasks["Lagarith"] = lambda: lagarith_layout_chunks(frames_host,
+                                                       frames_dev, rows, want)
+    # the encodes are independent: a thread each (the writers' NumPy and
+    # the native encoders release the GIL); the planes' converter loads
+    # first, once
+    native._mjpeg()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        futures = {name: ex.submit(task) for name, task in tasks.items()}
+        out = {name: f.result() for name, f in futures.items()
+               if name != "Lagarith"}
+        out.update(futures["Lagarith"].result())
     return out
 
 
@@ -1510,7 +1652,7 @@ def plain_decode(kind: str, chunks, spec, rows: int, width: int):
 def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
                          strip_pictures, pool, container_videos=None,
                          mjpg_paths=(), h264_videos=None,
-                         h264_plain4k=None) -> dict:
+                         h264_plain4k=None, h264_high=None) -> dict:
     """Phase 12's PNG, HuffYUV, FFV1, UtVideo and Lagarith rows: each of
     LOSSLESS_LAYOUTS, FFV1_LAYOUTS, UTVIDEO_LAYOUTS and LAGARITH_LAYOUTS on
     a full-width STRIP_ROWS-row strip, the native decoder held to its
@@ -1526,7 +1668,8 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
     ``mpeg4_videos`` coded on a thread beside it; :func:`mpeg4_rows` then
     takes its rows.  So do the H.264 strip (:func:`h264_strip`) and 14
     (j)'s ``h264_videos`` (threads beside it), and :func:`h264_rows` (with
-    ``h264_plain4k``, :class:`H264Plain4K`).  Then 14 (i)'s
+    ``h264_plain4k``, :class:`H264Plain4K`), and :func:`h264_high_rows`
+    (``h264_high``, :class:`H264HighWork`).  Then 14 (i)'s
     ``container_videos``
     (:class:`ContainerVideos`) are muxed from those videos and
     ``mjpg_paths``, before any timed call; the committed container clips
@@ -1547,10 +1690,37 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
     mpeg4_videos.submit()
     if h264_videos is not None:
         h264_videos.submit()
+    # when each of the window's jobs ended, seconds from its start (the
+    # callbacks run on the jobs' threads)
+    ends, ends_lock = {}, threading.Lock()
+
+    def watch(name, futs):
+        def done(_, n=name):
+            with ends_lock:
+                ends[n] = max(ends.get(n, 0.0), time.perf_counter() - t0)
+        for f in futs or ():
+            f.add_done_callback(done)
+    for name, f in futures.items():
+        watch(f"the plain {name} strip", [f])
+    watch("the plain MPEG-4 strip", [mpeg4_future])
+    watch("the plain MPEG-4 ASP strip", [asp_future])
+    if h264_future is not None:
+        watch("the H.264 strip (coded, plain)", [h264_future])
+    for codec, futs in (getattr(videos, "_pending", None) or {}).items():
+        watch(f"14 (c)-(f)'s {codec} videos", futs)
+    for (k, asp), f in zip(getattr(mpeg4_videos, "jobs", ()),
+                           mpeg4_videos._future or ()):
+        watch(f"14 ({'h' if asp else 'g'})'s video {k}", [f])
+    if h264_videos is not None:
+        for k, f in enumerate(h264_videos._futures or ()):
+            watch(f"14 (j)'s video {k}", [f])
     # the 4K frames are encoded here while the pool works
     t1 = time.perf_counter()
     layouts = lossless_layout_chunks(frames_host, frames_dev, H5)
     encode_s = time.perf_counter() - t1
+    with ends_lock:
+        ends["the 4K layouts' frames (a thread each)"] = \
+            time.perf_counter() - t0
     plain = {name: f.result() for name, f in futures.items()}
     videos.finish()
     mpeg4_strip_out = mpeg4_future.result()
@@ -1561,6 +1731,11 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
         h264_strip_out = h264_future.result()
         h264_videos.finish()
     plain_s = time.perf_counter() - t0
+    with ends_lock:
+        last = sorted(ends.items(), key=lambda kv: -kv[1])
+    log(f"  the window ({plain_s:.1f} s): its jobs' last ends, s from its "
+        f"start: " + "; ".join(f"{n} {e:.1f}" for n, e in last[:6])
+        + f" ({len(ends)} jobs; the last: {last[0][0]})")
     phase_mark("the plain strips and the videos' encodes (the window)")
     remux_s = None
     if container_videos is not None:
@@ -1661,6 +1836,9 @@ def lossless_layout_rows(frames_host, frames_dev, videos, mpeg4_videos,
                 "a thread a video)"))
         rows.update(h264_rows(h264_strip_out, h264_videos, h264_plain4k))
         phase_mark("the H.264 rows")
+    if h264_high is not None:
+        rows.update(h264_high_rows(h264_high))
+        phase_mark("the H.264 High rows")
     if container_videos is not None:
         rows.update(demux_rows(container_videos))
     return rows
@@ -1950,8 +2128,9 @@ class Mpeg4Videos:
     reconstruction in display order, which 14 (g) and (h) hold the port's
     decode to.  Cached under ``build/`` by the planes and the writer's
     sources, as the lossless videos are; otherwise :meth:`submit` codes
-    them on a thread (the encoder is native; a video chains its VOPs, so
-    one after another) and :meth:`finish` waits.  ``fmp4``, ``recon``,
+    them on threads (the encoder is native and releases the GIL; a video
+    chains its VOPs, so a thread a video and kind) and :meth:`finish`
+    waits.  ``fmp4``, ``recon``,
     ``asp`` and ``asp_recon`` hold the paths, ``encode_s`` the seconds
     from submit to finish (None when the cache had them)."""
 
@@ -1989,53 +2168,58 @@ class Mpeg4Videos:
                self.asp_recon):
             self.planes = None
 
-    def _code(self) -> None:
+    def _code(self, k: int, asp: bool) -> float:
+        """Video ``k`` as ``FMP4`` (``asp``: as ``XVID``) and its
+        reconstruction; returns when it ended, seconds from submit."""
         from tests import _torch_mpeg4_writer as mw
         from tests._torch_rawvideo_writer import encode_frame, write_raw_avi
-        self.cache.mkdir(parents=True, exist_ok=True)
-        for video, fmp4, recon, xvid, xvid_recon in zip(
-                self.planes, self.fmp4, self.recon, self.asp,
-                self.asp_recon):
+        with self._lock:     # one build of the encoder
+            mw.native_entropy()
+        video = self.planes[k]
+        if asp:
+            chunks, recs = mw.encode_asp(video, MPEG4_QUANT,
+                                         MPEG4_ASP_MATRICES)
+        else:
             wr = mw.Writer(H5, W5)
-            chunks, frames = [], []
+            chunks, recs = [], []
             for t, planes in enumerate(video):
                 chunk, rec = wr.encode_native(planes, mw.smoke_plan(
                     "I" if t == 0 else "P", MPEG4_QUANT, t % 2))
                 chunks.append(chunk)
-                frames.append(encode_frame("I420", (
-                    rec[0][:H5, :W5], rec[1][:H5 // 2, :W5 // 2],
-                    rec[2][:H5 // 2, :W5 // 2])))
-            asp, asp_rec = mw.encode_asp(video, MPEG4_QUANT,
-                                         MPEG4_ASP_MATRICES)
-            asp_frames = [encode_frame("I420", (
-                rec[0][:H5, :W5], rec[1][:H5 // 2, :W5 // 2],
-                rec[2][:H5 // 2, :W5 // 2])) for rec in asp_rec]
-            for out, write in (
-                    (fmp4, lambda tmp: mw.write_mpeg4_avi(
-                        tmp, chunks, H5, W5)),
-                    (recon, lambda tmp: write_raw_avi(
-                        tmp, frames, H5, W5, "I420")),
-                    (xvid, lambda tmp: mw.write_mpeg4_avi(
-                        tmp, asp, H5, W5, tag="XVID")),
-                    (xvid_recon, lambda tmp: write_raw_avi(
-                        tmp, asp_frames, H5, W5, "I420"))):
-                tmp = out.with_suffix(f".tmp{os.getpid()}")
-                write(tmp)
-                os.replace(tmp, out)
+                recs.append(rec)
+        frames = [encode_frame("I420", (
+            rec[0][:H5, :W5], rec[1][:H5 // 2, :W5 // 2],
+            rec[2][:H5 // 2, :W5 // 2])) for rec in recs]
+        coded, recon = (self.asp[k], self.asp_recon[k]) if asp else \
+            (self.fmp4[k], self.recon[k])
+        for out, write in (
+                (coded, lambda tmp: mw.write_mpeg4_avi(
+                    tmp, chunks, H5, W5, tag="XVID" if asp else "FMP4")),
+                (recon, lambda tmp: write_raw_avi(
+                    tmp, frames, H5, W5, "I420"))):
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            write(tmp)
+            os.replace(tmp, out)
+        return time.perf_counter() - self._t0
 
     def submit(self) -> None:
+        import threading
         from concurrent.futures import ThreadPoolExecutor
         if self.planes is None:
             return
+        self.cache.mkdir(parents=True, exist_ok=True)
         self._t0 = time.perf_counter()
-        coder = ThreadPoolExecutor(1, "mpeg4-encode")
-        self._future = coder.submit(self._code)
+        self._lock = threading.Lock()
+        self.jobs = jobs = [(k, asp) for k in range(len(self.planes))
+                            for asp in (False, True)]
+        coder = ThreadPoolExecutor(len(jobs), "mpeg4-encode")
+        self._future = [coder.submit(self._code, *job) for job in jobs]
         coder.shutdown(wait=False)
 
     def finish(self) -> None:
         if self._future is None:
             return
-        self._future.result()
+        self.ends = [f.result() for f in self._future]
         self._future = None
         self.planes = None
         self.encode_s = time.perf_counter() - self._t0
@@ -2085,8 +2269,8 @@ def h264_strip(pictures, seed: int = SEED):
 
 class H264Videos:
     """Phase 14 (j)'s videos: phase 14's I420 planes (``i420_paths``)
-    coded as H.264 by ``tests/_torch_h264_enc.cpp`` (on threads below the
-    window's other work: niceness 10): each video an IDR
+    coded as H.264 by ``tests/_torch_h264_enc.cpp`` (a thread a video,
+    beside the window's other work): each video an IDR
     and 11 P pictures (QPs H264_QP, H264_SLICES slices a picture; the
     writer's default choices, :meth:`plans`), the
     first video with a reference list modification (picture 3) and an
@@ -2149,11 +2333,7 @@ class H264Videos:
         from camera_linearity_tpu_torch import native
         from camera_linearity_tpu_torch.native import h264_plain
         from camera_linearity_tpu_torch.utils import avi
-        from camera_linearity_tpu_torch.utils.general import \
-            set_thread_priority
         from tests._torch_rawvideo_writer import write_raw_avi
-        # below the window's other work: this thread takes what it leaves
-        set_thread_priority(10)
         if k == 0:     # the decoder too, which phase 12 calls after it
             native.h264_available()
         planes = []     # the video's (Y, U, V) planes, frame by frame
@@ -2226,19 +2406,21 @@ def h264_clips() -> list:
     return failures
 
 
-def h264_plain_4k(out: str, seed: int = SEED) -> None:
-    """:class:`H264Plain4K`'s work, in a spawned process of its own (it
-    takes a core the phases before phase 12 leave idle, and finishes in
-    phase 12's first minutes): build ``h264.cpp`` and the test encoder,
-    which phase 12 then loads;
-    make 1 + H264_P_AT_ONCE 4K pictures as config 5's brightest video is
-    made (a uniform base x 230 plus N(0, 6) noise, from ``seed``; the
-    writer's BT.601 ``i420_planes``); code them as 14 (j)'s brightest
-    video is coded (:meth:`H264Videos.plans`), and decode its IDR and
-    first P picture with ``h264_plain.py``; code them again with one
-    slice a picture (x264 without ``--tune``).  Writes both streams'
-    samples (Annex B), the plain frames, both reconstructions (BGR, as
-    cv2 gives them) and the seconds of each step to ``out`` (``.npz``)."""
+def h264_plain_4k(out: str, part: str, seed: int = SEED) -> None:
+    """Half of :class:`H264Plain4K`'s work, in a spawned process of its own
+    (each takes a core the phases before phase 12 leave idle, and the two
+    finish in half the time one took): build ``h264.cpp`` and the test
+    encoder, which phase 12 then loads; make 1 + H264_P_AT_ONCE 4K
+    pictures as config 5's brightest video is made (a uniform base x 230
+    plus N(0, 6) noise, from ``seed``; the writer's BT.601
+    ``i420_planes``); code the first two as 14 (j)'s brightest video is
+    coded (:meth:`H264Videos.plans`).  ``part`` "idr": decode the IDR
+    with ``h264_plain.py``, and code all the pictures again with one slice
+    a picture (x264 without ``--tune``); "p": decode the P picture with
+    ``h264_plain.py`` from the writer's reconstruction of the IDR (which
+    part "idr" holds to the plain decode of the IDR).  Writes the samples
+    (Annex B), the plain frame, the reconstructions (BGR, as cv2 gives
+    them) and the seconds of each step to ``out`` (``.npz``)."""
     from camera_linearity_tpu_torch import native
     from camera_linearity_tpu_torch.native import h264_plain, rawvideo_plain
     from tests import _torch_h264_writer as hw
@@ -2255,18 +2437,32 @@ def h264_plain_4k(out: str, seed: int = SEED) -> None:
     streams = {}
     for name, n, count in (("sliced", H264_SLICES, 2),
                            ("chain", 1, len(pictures))):
+        if name == "chain" and part != "idr":
+            continue
         samples, _, recons, _ = hw.encode(
             pictures[:count], hw.Config(H5, W5),
             H264Videos.plans(H264_TIMED, n)[:count])
         streams[name] = ([hw.annexb(s) for s in samples], np.stack([
             rawvideo_plain.decode_bgr(h264_plain.i420_bytes(r), "i420_left",
-                                      H5, W5) for r in recons]))
+                                      H5, W5) for r in recons]), recons)
     t2 = time.perf_counter()
-    plain = np.stack(h264_plain.decode_bgr(streams["sliced"][0]))
-    arrays = {"plain": plain,
-              "seconds": np.array([t1 - t0, t2 - t1,
-                                   time.perf_counter() - t2])}
-    for name, (data, recon) in streams.items():
+    data = streams["sliced"][0]
+    dec = h264_plain.Decoder()
+    if part == "idr":
+        plain = dec.decode(data[0])
+    else:
+        # the IDR's headers and picture buffer, its planes the writer's
+        job = dec.stream.next(data[0])
+        slot = h264_plain._Slot(job.sps.mbw, job.sps.mbh)
+        slot.y[:], slot.u[:], slot.v[:] = streams["sliced"][2][0]
+        dec.slots[job.pic.slot] = slot
+        dec.stream.release(job.pic.slot)
+        dec.stream.end_batch()
+        plain = dec.decode(data[1])
+    arrays = {"plain": rawvideo_plain.decode_bgr(
+        h264_plain.i420_bytes(plain), "i420_left", H5, W5),
+        "seconds": np.array([t1 - t0, t2 - t1, time.perf_counter() - t2])}
+    for name, (data, recon, _) in streams.items():
         arrays[f"{name}_data"] = np.frombuffer(b"".join(data), np.uint8)
         arrays[f"{name}_sizes"] = np.array([len(d) for d in data])
         arrays[f"{name}_recon"] = recon
@@ -2276,41 +2472,238 @@ def h264_plain_4k(out: str, seed: int = SEED) -> None:
 class H264Plain4K:
     """Phase 12's check of ``h264.cpp`` on 4K pictures against a decoder
     independent of its macroblock layer, and its one-slice stream:
-    :func:`h264_plain_4k` in a spawned process of its own (a daemon: it
-    ends with the smoke), started with the smoke, since the plain decode
-    of two 4K pictures takes minutes of a core.  :meth:`result` waits for
-    it and returns a dict: ``sliced`` and ``chain`` (the samples, the
-    writer's reconstruction), ``plain`` (the sliced IDR and P picture as
-    ``h264_plain.py`` decodes them), ``seconds`` (the process's building,
+    :func:`h264_plain_4k` in two spawned processes (daemons: they end
+    with the smoke), started with the smoke, since the plain decode of a
+    4K picture takes a minute or more of a core: one decodes the IDR, the
+    other the P picture.  :meth:`result` waits for both and returns a
+    dict: ``sliced`` and ``chain`` (the samples, the writer's
+    reconstruction), ``plain`` (the sliced IDR and P picture as
+    ``h264_plain.py`` decodes them), ``seconds`` (each process's building,
     coding and plain decoding) and ``waited``."""
 
     def __init__(self):
         import multiprocessing
         cache = ROOT / "build" / "chip_smoke_h264"
         cache.mkdir(parents=True, exist_ok=True)
-        self.out = cache / f"plain 4k {os.getpid()}.npz"
-        self.proc = multiprocessing.get_context("spawn").Process(
-            target=h264_plain_4k, args=(str(self.out),), daemon=True)
-        self.proc.start()
+        self.outs = {part: cache / f"plain 4k {part} {os.getpid()}.npz"
+                     for part in ("idr", "p")}
+        ctx = multiprocessing.get_context("spawn")
+        self.procs = {part: ctx.Process(target=h264_plain_4k,
+                                        args=(str(out), part), daemon=True)
+                      for part, out in self.outs.items()}
+        for proc in self.procs.values():
+            proc.start()
 
     def result(self) -> dict:
+        t0 = time.perf_counter()
+        for proc in self.procs.values():
+            proc.join()
+        got = {"waited": time.perf_counter() - t0, "seconds": {}}
+        for part, proc in self.procs.items():
+            if proc.exitcode != 0:
+                raise AssertionError("phase 12, the 4K H.264 pictures' plain "
+                                     f"decode ({part}): exit code "
+                                     f"{proc.exitcode}")
+        plain = []
+        for part, out in self.outs.items():
+            with np.load(out) as z:
+                for name in ("sliced", "chain"):
+                    if f"{name}_data" not in z or name in got:
+                        continue
+                    blob = z[f"{name}_data"].tobytes()
+                    sizes = z[f"{name}_sizes"]
+                    got[name] = ([blob[e - n:e] for e, n in
+                                  zip(np.cumsum(sizes), sizes)],
+                                 z[f"{name}_recon"])
+                plain.append(z["plain"])
+                got["seconds"][part] = z["seconds"].tolist()
+            out.unlink()
+        got["plain"] = np.stack(plain)
+        return got
+
+
+# phase 12's High rows and phase 14 (k): what ``x264 --profile high --tune
+# zerolatency`` writes at its documented defaults (preset medium): CABAC,
+# the 8x8 transform (``--8x8dct``) with Intra 8x8 and 4x4 (``--partitions``
+# i8x8,i4x4 among them), ``--weightp 2`` (a pred_weight_table in every P
+# slice), no B frames, ``--cqm flat`` (no matrices), the rate factor 23
+# held as constant QPs (P 23, I 20, as H264_QP) and a slice a thread, 8 on
+# the card's 8-core host (x264 is not run).  One-slice streams of the same
+# content stand for phones' hardware encoders, which write one slice a
+# picture.
+H264_HIGH_LEVEL = 51
+
+
+def h264_high_plans(k: int, n: int = H264_SLICES):
+    """Video ``k``'s pictures at the High traffic: H264Videos.plans's
+    choices (no I_PCM, far vectors, QP changes or search) with Intra 8x8
+    and 8x8-transform inter macroblocks, a pred_weight_table in every P
+    slice (its flags 0: the scene does not fade), and in the first video
+    picture 3's list holding the previous picture twice, the copy weighted
+    (``--weightp 2``'s duplicate)."""
+    from tests import _torch_h264_writer as hw
+    o = hw.Options(seed=k, p_pcm=0, p_far=0, search=0, p_dqp=0)
+    slices = tuple(dict.fromkeys(i * (H5 // 16) // n * (W5 // 16)
+                                 for i in range(n)))
+    plans = [hw.PicPlan("IDR", 3, H264_QP[0], slices=slices, opts=o)]
+    for t in range(1, FRAMES5):
+        dup = k == 0 and t == 3
+        plans.append(hw.PicPlan(
+            "P", 2, H264_QP[1], slices=slices, opts=o,
+            num_ref=2 if dup else None,
+            modifications=((0, 0), (0, 15)) if dup else (),
+            weights=(5, 5, ((None, None), ((31, 1), None)) if dup else ())))
+    return plans
+
+
+def h264_high_work(out: str, seed: int = SEED) -> None:
+    """:class:`H264HighWork`'s work, in a spawned process of its own at
+    niceness 10 (it takes the cores the phases before phase 12 leave
+    idle): build ``h264.cpp`` and the test encoder; make config 5's three
+    exposure videos again on the host, as ``make_videos`` makes them (a
+    uniform base x exposure x 230 plus N(0, 6) noise, MJPG_POOL distinct
+    frames cycled to FRAMES5, from ``seed``; the writer's BT.601
+    ``i420_planes``); code each at the High traffic
+    (:func:`h264_high_plans`, a thread a video) into ``out`` as an ``avc1``
+    MP4 and the writer's reconstruction as an I420 AVI; code the brightest
+    one's first 1 + H264_P_AT_ONCE pictures as a one-slice stream; code
+    the first STRIP_ROWS rows of its first MPEG4_STRIP_FRAMES pictures as
+    ``tests/_torch_h264_writer.high_sink`` codes them (CABAC, both
+    transforms, every intra mode, weights, a duplicated reference, several
+    slices and references, MMCOs) and decode that strip with
+    ``h264_plain.py``.  Writes ``high.npz`` (the one-slice stream and the
+    strip's samples, frames and reconstruction, each step's seconds) last."""
+    from concurrent.futures import ThreadPoolExecutor
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.native import h264_plain, rawvideo_plain
+    from camera_linearity_tpu_torch.utils.general import set_thread_priority
+    from tests import _torch_h264_writer as hw
+    from tests._torch_rawvideo_writer import write_raw_avi
+    set_thread_priority(10)
+    out = Path(out)
+    t0 = time.perf_counter()
+    native.h264_available()
+    hw.native_encoder()
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    base = rng.random((H5, W5, 3))
+    videos = []
+    for ms in EXPOSURES5_MS:
+        level = base * (ms / max(EXPOSURES5_MS)) * 230
+        pool = [hw.i420_planes(np.clip(level + 6 * rng.standard_normal(
+            (H5, W5, 3)), 0, 255).astype(np.uint8)) for _ in range(MJPG_POOL)]
+        videos.append([pool[i % MJPG_POOL] for i in range(FRAMES5)])
+    del base
+    t2 = time.perf_counter()
+    config = hw.high_config(H5, W5, level=H264_HIGH_LEVEL)
+
+    def code(k):
+        set_thread_priority(10)
+        ms = EXPOSURES5_MS[k]
+        samples, params, recons, _ = hw.encode(videos[k], config,
+                                               h264_high_plans(k))
+        hw.write_h264_mp4(out / f"high scene {ms}ms.mp4", samples, params,
+                          H5, W5)
+        write_raw_avi(out / f"high recon {ms}ms.avi",
+                      [h264_plain.i420_bytes(r) for r in recons], H5, W5,
+                      "I420")
+
+    def chain():
+        set_thread_priority(10)
+        count = 1 + H264_P_AT_ONCE
+        samples, _, recons, _ = hw.encode(
+            videos[H264_TIMED][:count], config,
+            h264_high_plans(H264_TIMED, 1)[:count])
+        return [hw.annexb(s) for s in samples], np.stack([
+            rawvideo_plain.decode_bgr(h264_plain.i420_bytes(r), "i420_left",
+                                      H5, W5) for r in recons])
+
+    def strip():
+        set_thread_priority(10)
+        pictures = [tuple(np.ascontiguousarray(p[:r]) for p, r in (
+            (y, STRIP_ROWS), (u, STRIP_ROWS // 2), (v, STRIP_ROWS // 2)))
+            for y, u, v in videos[H264_TIMED][:MPEG4_STRIP_FRAMES]]
+        plans = hw.high_sink(seed % 1000)[:len(pictures)]
+        samples, _, recons, _ = hw.encode(
+            pictures, hw.high_config(STRIP_ROWS, W5), plans)
+        data = [hw.annexb(s) for s in samples]
+        ts = time.perf_counter()
+        plain = np.stack(h264_plain.decode_bgr(data))
+        recon = np.stack([rawvideo_plain.decode_bgr(
+            h264_plain.i420_bytes(r), "i420_left", STRIP_ROWS, W5)
+            for r in recons])
+        return data, plain, recon, time.perf_counter() - ts
+
+    with ThreadPoolExecutor(len(videos) + 2) as ex:
+        coded = [ex.submit(code, k) for k in range(len(videos))]
+        chain_f, strip_f = ex.submit(chain), ex.submit(strip)
+        for f in coded:
+            f.result()
+        chain_data, chain_recon = chain_f.result()
+        strip_data, strip_plain, strip_recon, plain_s = strip_f.result()
+    arrays = {"chain_recon": chain_recon, "strip_plain": strip_plain,
+              "strip_recon": strip_recon,
+              "seconds": np.array([t1 - t0, t2 - t1,
+                                   time.perf_counter() - t2, plain_s])}
+    for name, data in (("chain", chain_data), ("strip", strip_data)):
+        arrays[f"{name}_data"] = np.frombuffer(b"".join(data), np.uint8)
+        arrays[f"{name}_sizes"] = np.array([len(d) for d in data])
+    tmp = out / f"high.tmp{os.getpid()}.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, out / "high.npz")
+
+
+class H264HighWork:
+    """Phase 12's High rows' and phase 14 (k)'s inputs:
+    :func:`h264_high_work` in a spawned process of its own (a daemon),
+    started with the smoke.  ``mp4`` and ``recon`` hold the three
+    exposure videos' paths; :meth:`result` waits for the process and
+    returns a dict: ``chain`` (the one-slice stream's samples and the
+    writer's reconstruction), ``strip`` (the strip's samples, its plain
+    frames and the writer's reconstruction), ``seconds`` (the process's
+    building, content, coding and the strip's plain decode) and
+    ``waited``."""
+
+    def __init__(self):
+        import multiprocessing
+        self.dir = ROOT / "build" / "chip_smoke_h264_high" / str(os.getpid())
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mp4 = [self.dir / f"high scene {ms}ms.mp4"
+                    for ms in EXPOSURES5_MS]
+        self.recon = [self.dir / f"high recon {ms}ms.avi"
+                      for ms in EXPOSURES5_MS]
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=h264_high_work, args=(str(self.dir),), daemon=True)
+        self.proc.start()
+        self._got = None
+
+    def result(self) -> dict:
+        if self._got is not None:
+            return self._got
         t0 = time.perf_counter()
         self.proc.join()
         got = {"waited": time.perf_counter() - t0}
         if self.proc.exitcode != 0:
-            raise AssertionError("phase 12, the 4K H.264 pictures' plain "
-                                 f"decode: exit code {self.proc.exitcode}")
-        with np.load(self.out) as z:
-            for name in ("sliced", "chain"):
+            raise AssertionError("phase 12, the High 4K H.264 videos' "
+                                 f"coding: exit code {self.proc.exitcode}")
+        with np.load(self.dir / "high.npz") as z:
+            split = {}
+            for name in ("chain", "strip"):
                 blob = z[f"{name}_data"].tobytes()
                 sizes = z[f"{name}_sizes"]
-                got[name] = ([blob[e - n:e] for e, n in
-                              zip(np.cumsum(sizes), sizes)],
-                             z[f"{name}_recon"])
-            got["plain"] = z["plain"]
+                split[name] = [blob[e - n:e] for e, n in
+                               zip(np.cumsum(sizes), sizes)]
+            got["chain"] = (split["chain"], z["chain_recon"])
+            got["strip"] = (split["strip"], z["strip_plain"],
+                            z["strip_recon"])
             got["seconds"] = z["seconds"].tolist()
-        self.out.unlink()
+        self._got = got
         return got
+
+    def close(self) -> None:
+        """Remove the videos (the directory is the smoke's own)."""
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def h264_rows(strip, videos, plain4k) -> dict:
@@ -2354,6 +2747,10 @@ def h264_rows(strip, videos, plain4k) -> dict:
     four_k = plain4k.result()
     (data, recon), plain = four_k["sliced"], four_k["plain"]
     secs = four_k["seconds"]
+    took = "; ".join(
+        f"the {part.upper()} picture's: {v[0]:.1f} s building h264.cpp and "
+        f"the encoder, {v[1]:.1f} s coding, {v[2]:.1f} s the plain decode"
+        for part, v in secs.items())
     got = np.empty_like(plain)
     native.h264_decode_bgr_batch(data, got, native.H264Decoder())
     same = np.array_equal(got, plain) and np.array_equal(got, recon)
@@ -2363,10 +2760,9 @@ def h264_rows(strip, videos, plain4k) -> dict:
         f"{SEED}; {len(data[0]) / 1e6:.3f} MB, {len(data[1]) / 1e6:.3f} MB): "
         f"native {'equals' if same else 'differs from'} h264_plain.py and "
         f"the writer's reconstruction, max |.| {max_gap(got, plain):.0f} DN "
-        f"(in a process of its own from the smoke's start: {secs[0]:.1f} s "
-        f"building h264.cpp and the encoder, {secs[1]:.1f} s coding, "
-        f"{secs[2]:.1f} s the plain decode; {four_k['waited']:.1f} s "
-        f"waited for it here)")
+        f"(two processes from the smoke's start, the P picture decoded "
+        f"from the writer's reconstruction of the IDR; {took}; "
+        f"{four_k['waited']:.1f} s waited for them here)")
     if not same:
         failures.append("the H.264 4K pictures against h264_plain.py")
     chain, recon = four_k["chain"]
@@ -2406,9 +2802,30 @@ def h264_rows(strip, videos, plain4k) -> dict:
     raise_failures("phase 12, the H.264 decoder against its plain version, "
                    "the writer's reconstruction and the committed clips",
                    failures)
+    times = h264_times(video, chain, avi.h264_params(info), frames,
+                       info.codec_name, f"{H264_SLICES} slices")
+    del frames
+    # the demux: the MP4 probed and every frame read, beside its AVI
+    times.update(demux_h264(videos.mp4[H264_TIMED], videos.avi[H264_TIMED]))
+    return {f"h264 {k}": v for k, v in times.items()}
+
+
+def h264_times(video, chain, extra, frames, codec, slices,
+               what="Constrained Baseline") -> dict:
+    """The H.264 decoder's 4K rows (host clock) on ``video`` (a 4K MP4's
+    samples; ``extra`` its avcC) and ``chain`` (a one-slice stream's
+    Annex B samples): the IDR picture on one thread, on every core (a slice
+    a thread) and as a frame of a batch of 12 IDR pictures in one call (a
+    GOP a thread), each one run after a warm one; the first
+    H264_P_AT_ONCE P pictures after the IDR in one decoder (one run) on
+    one thread, on every core and as frames of 12 decoders of the video at
+    once (a thread each); the one-slice stream's IDR and P pictures on
+    every core (a serial chain).  ``frames`` is a buffer of at least
+    1 + H264_P_AT_ONCE 4K frames.  Logs them and returns them by name."""
+    from concurrent.futures import ThreadPoolExecutor
+    from camera_linearity_tpu_torch import native
     cores = os.cpu_count() or 1
     one = frames[:1]
-    extra = avi.h264_params(info)
 
     def decoder(avc):    # the MP4's avcC, or the Annex B one-slice stream
         return native.H264Decoder(extra if avc else b"")
@@ -2454,9 +2871,9 @@ def h264_rows(strip, videos, plain4k) -> dict:
         list(ex.map(one_video, range(12)))
     times["P a frame of 12 videos"] = (time.perf_counter() - t0) * 1e3 / \
         (12 * H264_P_AT_ONCE)
-    del decoders, outs, frames
-    log(f"  H.264 4K ({info.codec_name}, QPs {H264_QP}; host clock; "
-        f"{cores} threads): the brightest video ({H264_SLICES} slices): IDR "
+    del decoders, outs
+    log(f"  H.264 4K ({what}; {codec}, QPs {H264_QP}; host clock; "
+        f"{cores} threads): the brightest video ({slices}): IDR "
         f"{times['IDR one thread']:.1f} ms on one thread, "
         f"{times['IDR all threads']:.1f} ms on {cores} threads (a slice a "
         f"thread), {times['IDR a frame of 12']:.1f} ms a frame of a batch "
@@ -2471,27 +2888,38 @@ def h264_rows(strip, videos, plain4k) -> dict:
         f"{times['one slice IDR all threads']:.1f} ms, P "
         f"{times['one slice P all threads']:.1f} ms on {cores} threads (a "
         f"serial chain: only the deblocking and the conversion spread)")
-    # the demux: the MP4 probed and every frame read, beside its AVI
+    return times
+
+
+def demux_h264(mp4, avi_path=None) -> dict:
+    """The demux of a 4K H.264 MP4 (probed and every frame read, no
+    decode), beside the Annex B AVI of the same bitstream where given;
+    host clock, one run after a warm one.  Logs it and returns ms a
+    frame."""
+    from camera_linearity_tpu_torch.utils import containers
     timed = {}
-    for kind, p in (("MP4", videos.mp4[H264_TIMED]),
-                    ("AVI", videos.avi[H264_TIMED])):
+    for kind, p in (("MP4", mp4), ("AVI", avi_path)):
+        if p is None:
+            continue
         for _ in range(2):     # a warm run, then the timed one
             t0 = time.perf_counter()
             i = containers.probe_video(p)
             size = sum(c.size for c in containers.frame_chunks(
                 p, i, ring=FRAMES5))
             secs = time.perf_counter() - t0
-        timed[kind] = (secs, size)
-    secs, size = timed["MP4"]
-    times["demux MP4 ms a frame"] = secs / FRAMES5 * 1e3
-    times["demux AVI ms a frame"] = timed["AVI"][0] / FRAMES5 * 1e3
-    log(f"  demux H.264 avc1 MP4: {secs / FRAMES5 * 1e3:.3f} ms a 4K frame "
-        f"({size / FRAMES5 / 1e6:.3f} MB), {size / 1e6 / secs:.0f} MB/s; "
-        f"the Annex B AVI of the same bitstream "
-        f"{timed['AVI'][0] / FRAMES5 * 1e3:.3f} ms a frame (the probe and "
-        f"every frame read, no decode; host clock, one run after a warm "
-        f"one)")
-    return {f"h264 {k}": v for k, v in times.items()}
+        timed[kind] = (secs, size, i.codec_name)
+    secs, size, codec = timed["MP4"]
+    times = {"demux MP4 ms a frame": secs / FRAMES5 * 1e3}
+    line = (f"  demux H.264 {codec} MP4 ({Path(mp4).name}): "
+            f"{secs / FRAMES5 * 1e3:.3f} ms a 4K frame "
+            f"({size / FRAMES5 / 1e6:.3f} MB), {size / 1e6 / secs:.0f} MB/s")
+    if "AVI" in timed:
+        times["demux AVI ms a frame"] = timed["AVI"][0] / FRAMES5 * 1e3
+        line += (f"; the Annex B AVI of the same bitstream "
+                 f"{timed['AVI'][0] / FRAMES5 * 1e3:.3f} ms a frame")
+    log(line + " (the probe and every frame read, no decode; host clock, "
+        "one run after a warm one)")
+    return times
 
 
 def h264_phase(h264_videos, v2h, run_video_to_hdr) -> dict:
@@ -2551,6 +2979,123 @@ def h264_phase(h264_videos, v2h, run_video_to_hdr) -> dict:
     del got
     raise_failures("phase 14 (j)", failures)
     return out
+
+
+def h264_high_rows(high) -> dict:
+    """Phase 12's High rows, after the Constrained Baseline ones: ``high``'s
+    (:class:`H264HighWork`, coded from the smoke's start) strip decoded
+    natively and held to ``h264_plain.py``'s frames and the writer's
+    reconstruction; the brightest of its three 4K videos at the High
+    traffic read from its MP4 and held to its reconstruction, its one-slice
+    stream likewise; then :func:`h264_times` on them, and the MP4's demux.
+    (The committed ``tests/data/h264 high *`` clips are among
+    :func:`h264_clips`'.)  Returns the rows' times."""
+    from camera_linearity_tpu_torch import native
+    from camera_linearity_tpu_torch.utils import avi, containers
+    got = high.result()
+    secs = got["seconds"]
+    failures = []
+    data, plain, recon = got["strip"]
+    rows, width = plain.shape[1:3]
+    out = np.empty((len(data), rows, width, 3), np.uint8)
+    native.h264_decode_bgr_batch(data, out, native.H264Decoder())
+    same = np.array_equal(out, plain) and np.array_equal(out, recon)
+    log(f"  {'ok ' if same else 'BAD'} H.264 High strip of {rows} x {width}, "
+        f"{len(data)} pictures (tests/_torch_h264_writer.high_sink: CABAC at "
+        f"each cabac_init_idc, Intra 8x8 and 4x4, the 8x8 transform on P "
+        f"macroblocks, explicit weights, several slices and references, "
+        f"MMCOs; {sum(map(len, data)) / 1e3:.0f} kB): native "
+        f"{'equals' if same else 'differs from'} h264_plain.py and the "
+        f"writer's reconstruction, max |.| {max_gap(out, plain):.0f} DN "
+        f"(the plain decode {secs[3]:.1f} s in the High process)")
+    if not same:
+        failures.append("the H.264 High strip")
+    del out, plain, recon
+    info = containers.probe_video(high.mp4[H264_TIMED])
+    video = [bytes(c) for c in containers.frame_chunks(high.mp4[H264_TIMED],
+                                                        info)]
+    why = avi.h264_unsupported(high.mp4[H264_TIMED], info)
+    frames = np.empty((len(video), H5, W5, 3), np.uint8)
+    native.h264_decode_bgr_batch(video, frames,
+                                 native.H264Decoder(avi.h264_params(info)))
+    want = np.empty_like(frames)
+    native.raw_decode_bgr_batch([bytes(c) for c in avi.raw_chunks(
+        high.recon[H264_TIMED], avi.probe_avi(high.recon[H264_TIMED]))],
+        want, "i420")
+    same = np.array_equal(frames, want)
+    del want
+    log(f"  {'ok ' if same else 'BAD'} H.264 High 4K video "
+        f"({info.codec_name} MP4, {why or 'read'}; CABAC, 8x8dct, weightp "
+        f"2, {H264_SLICES} slices a picture, QPs {H264_QP}; IDR "
+        f"{len(video[0]) / 1e6:.3f} MB, P pictures "
+        f"{np.mean([len(c) for c in video[1:]]) / 1e6:.3f} MB): its "
+        f"{len(video)} frames {'equal' if same else 'differ from'} the "
+        f"writer's reconstruction (coded in a process of its own from the "
+        f"smoke's start: {secs[0]:.1f} s building, {secs[1]:.1f} s making "
+        f"the content, {secs[2]:.1f} s coding; {got['waited']:.1f} s waited "
+        f"for it here)")
+    if not same or why:
+        failures.append("the H.264 High 4K video")
+    chain, recon = got["chain"]
+    out = np.empty_like(recon)
+    native.h264_decode_bgr_batch(chain, out, native.H264Decoder())
+    same = np.array_equal(out, recon)
+    log(f"  {'ok ' if same else 'BAD'} H.264 High 4K one-slice stream of the "
+        f"same pictures ({len(chain)} pictures): native "
+        f"{'equals' if same else 'differs from'} the writer's "
+        f"reconstruction")
+    if not same:
+        failures.append("the H.264 High 4K one-slice stream")
+    del out, recon
+    raise_failures("phase 12, the H.264 decoder on High streams against its "
+                   "plain version and the writer's reconstruction", failures)
+    times = h264_times(video, chain, avi.h264_params(info), frames,
+                       info.codec_name, f"{H264_SLICES} slices",
+                       what="High: CABAC, 8x8dct, weightp 2")
+    del frames
+    times.update(demux_h264(high.mp4[H264_TIMED]))
+    return {f"h264 high {k}": v for k, v in times.items()}
+
+
+def h264_high_phase(high, v2h, run_video_to_hdr) -> dict:
+    """Phase 14 (k): config 5 from H.264 High (:class:`H264HighWork`):
+    ``video_to_hdr`` (K3) on the three ``avc1`` MP4s at the High traffic,
+    held bit for bit to ``video_to_hdr`` on I420 AVIs of the writer's
+    reconstruction.  Times go into ``v2h``; returns 14 (k)'s."""
+    from camera_linearity_tpu_torch.utils import avi, containers
+    failures = []
+    info = containers.probe_video(high.mp4[0])
+    log(f"phase 14 (k): config 5 from H.264 High MP4s (config 5's content "
+        f"made again on the host from seed {SEED}; tests/_torch_h264_enc.cpp:"
+        f" an IDR and {FRAMES5 - 1} P pictures a video as x264 --profile "
+        f"high --tune zerolatency codes at its defaults: CABAC, 8x8dct, "
+        f"Intra 8x8 and 4x4, weightp 2, QPs {H264_QP}, {H264_SLICES} slices "
+        f"a picture; a duplicated, weighted reference in the first video): "
+        f"{avi.h264_unsupported(high.mp4[0], info) or 'read'}; held to I420 "
+        f"AVIs of the writer's reconstruction; {gpu_line()}")
+    v2h["H.264 High MP4"], _, got = run_video_to_hdr(
+        "video_to_hdr (H.264 High avc1 MP4)", high.mp4, "h264")
+    v2h["I420 of the H.264 High reconstruction"], _, want = run_video_to_hdr(
+        "video_to_hdr (I420 of the H.264 High reconstruction)", high.recon,
+        "rawvideo")
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    del got, want
+    frame_mb = sum(c.size for p in high.mp4 for c in
+                   containers.frame_chunks(p, containers.probe_video(p))) \
+        / 1e6 / (FRAMES5 * len(high.mp4))
+    mps = FRAMES5 * len(high.mp4) * H5 * W5 / 1e6 / v2h["H.264 High MP4"]
+    log(f"  {'ok ' if same else 'BAD'} video_to_hdr from the High avc1 MP4s "
+        f"vs I420 of the writer's reconstruction: "
+        f"{'bit for bit equal' if same else 'different'}; "
+        f"{v2h['H.264 High MP4']:.3f} s, {mps:.2f} MP/s ({FRAMES5} x "
+        f"{len(high.mp4)} frames of {H5} x {W5}, {frame_mb:.3f} MB a "
+        f"frame), one K3 launch")
+    if not same:
+        failures.append("video_to_hdr from the H.264 High MP4s against the "
+                        "reconstruction")
+    raise_failures("phase 14 (k)", failures)
+    return {"MP4": dict(wall_s=v2h["H.264 High MP4"], mps=mps, k3_launches=1,
+                        frame_mb=frame_mb)}
 
 
 class ContainerVideos:
@@ -3002,7 +3547,7 @@ def container_phase(container_videos, mpeg4_videos, avi_v2h, v2h,
 
 def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
                    run_video_to_hdr, container_videos, mjpg_v2h,
-                   h264_videos=None) -> dict:
+                   h264_videos=None, h264_high=None) -> dict:
     """Phases 14 (c)-(f): config 5 from the lossless compressed AVIs
     ImageJ/Fiji, ``cv2.VideoWriter``, archives and capture tools write,
     phase 14's raw frames as ``videos`` (:class:`LosslessVideos`, written
@@ -3204,9 +3749,16 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
         h264_out = h264_phase(h264_videos, v2h, run_video_to_hdr)
         walls["j"] = time.perf_counter() - t_phase
         log(f"phase 14 (j): {walls['j']:.1f} s")
+    h264_high_out = None
+    if h264_high is not None:
+        t_phase = time.perf_counter()
+        h264_high_out = h264_high_phase(h264_high, v2h, run_video_to_hdr)
+        walls["k"] = time.perf_counter() - t_phase
+        log(f"phase 14 (k): {walls['k']:.1f} s")
     return dict(walls_s=walls, encode_s=encode_s, read_mbps=read_mb / read_s,
                 mpeg4=mpeg4, mpeg4_asp=mpeg4_asp, containers=containers_out,
                 mpeg4_encode_s=mpeg4_videos.encode_s, h264=h264_out,
+                h264_high=h264_high_out,
                 h264_encode_s=None if h264_videos is None else
                 h264_videos.encode_s,
                 raw_mps=before["mps"],
@@ -3218,11 +3770,15 @@ def lossless_phase(videos, mpeg4_videos, raw, i420, runs, run_batch,
                 video_to_hdr_s=v2h)
 
 
-def video_phases(dev, res, directory, h264_plain4k) -> dict:
+def video_phases(dev, res, directory, h264_plain4k, h264_high, content,
+                 prework) -> dict:
     """Phases 12-14: config 5, the video -> HDR pipeline, with the raw
     videos written into ``directory`` and the MJPG ones cached under
     ``build/``; ``h264_plain4k`` (:class:`H264Plain4K`) the plain decode of
-    4K H.264 pictures begun with the smoke.  Returns each kernel's
+    4K H.264 pictures and ``h264_high`` (:class:`H264HighWork`) the High
+    videos, both begun with the smoke; ``content`` config 5's frames
+    (:func:`config5_content`) and ``prework`` (:class:`Config5Prework`)
+    their videos' coding, begun with the smoke too.  Returns each kernel's
     launches on these paths, its config-5 times and both sets of 4K
     videos' paths."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3317,9 +3873,18 @@ def video_phases(dev, res, directory, h264_plain4k) -> dict:
     pool = plain_pool()
     plains = [pool.submit(jpeg_plain.decode_bgr, frame, h, w, mode)
               for h, w, _, _, _, frame, _, mode in todo]
+    pre = prework.result()
+    log(f"  config 5's videos coded from the smoke's start in a process of "
+        f"its own (Config5Prework): {pre['videos_s']:.1f} s writing them, "
+        f"the MJPG modes {pre['mjpg_s']:.1f} s, every codec "
+        f"{pre['codecs_s']:.1f} s (lossless {pre['lossless_s'] or 0:.1f}, "
+        f"MPEG-4 {pre['mpeg4_s'] or 0:.1f}, H.264 {pre['h264_s'] or 0:.1f});"
+        f" {pre['waited_s']:.1f} s waited for it here; below, each finds "
+        "its cache")
     t0 = time.perf_counter()
     paths, crop_paths, crops, pools, (i420_paths, i420_crop_paths) = \
-        make_videos(directory, dev)
+        make_videos(directory, content)
+    del content
     log(f"  wrote {len(paths)} videos of {FRAMES5} x {H5} x {W5} x 3 "
         f"(RGBA, {paths[0].stat().st_size / 1e6:.1f} MB each; I420, "
         f"{i420_paths[0].stat().st_size / 1e6:.1f} MB each) and their "
@@ -3495,7 +4060,7 @@ def video_phases(dev, res, directory, h264_plain4k) -> dict:
     decode_ms.update(lossless_layout_rows(
         pools[-1][:2], [bgr_dev, torch.as_tensor(pools[-1][1], device=dev)],
         lossless_videos, mpeg4_videos, strip_pictures, pool,
-        container_videos, mjpg_paths, h264_videos, h264_plain4k))
+        container_videos, mjpg_paths, h264_videos, h264_plain4k, h264_high))
     del bgr_dev
     icrf = (np.linspace(0, 1, 256)[:, None].repeat(3, 1)
             ** np.array([2.0, 2.2, 2.4]))
@@ -3868,7 +4433,8 @@ def video_phases(dev, res, directory, h264_plain4k) -> dict:
                 dict(video_to_hdr=i420_v2h), runs,
                 lambda label, paths, decoded_as: run_batch(
                     label, paths, crops, "u16", "f16", "auto", decoded_as),
-                run_video_to_hdr, container_videos, mjpg_v2h, h264_videos)
+                run_video_to_hdr, container_videos, mjpg_v2h, h264_videos,
+                h264_high)
             del raw_u16, i420_v2h, mjpg_v2h
         finally:
             if cl_decoder is not None:
@@ -6003,9 +6569,16 @@ def main() -> int:
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
-    # phase 12's plain decode of 4K H.264 pictures takes minutes of a core:
-    # it starts now, in a process of its own, and phase 12 reads it
+    # phase 12's plain decode of 4K H.264 pictures takes minutes of a core,
+    # and its High videos' coding too: they start now, in processes of
+    # their own, and phase 12 reads them
     h264_plain4k = H264Plain4K()
+    h264_high = H264HighWork()
+    # config 5's frames, made on the card now (phase 12 writes its videos
+    # from them), and their videos' coding from now on, in a process of
+    # its own: phase 12 finds them in their caches
+    content = config5_content(dev)
+    prework = Config5Prework(content)
 
     # --- phase 2: build ---------------------------------------------------
     # every source's nvcc starts now; phases 3-6 wait only for the merge
@@ -6274,7 +6847,10 @@ def main() -> int:
 
     calibration = linearity_phases(dev, t_np, vals_np, stds_np)
     with tempfile.TemporaryDirectory(prefix="clt_config5_") as tmp:
-        config5 = video_phases(dev, res, Path(tmp), h264_plain4k)
+        config5 = video_phases(dev, res, Path(tmp), h264_plain4k, h264_high,
+                               content, prework)
+        del content
+        h264_high.close()
         files = file_phases(dev, res, config5["paths"], config5["mjpg_paths"],
                             config5.pop("pool"))
         distributed = distributed_phase(

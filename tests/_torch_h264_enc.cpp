@@ -1,28 +1,36 @@
 // The H.264 test encoder of tests/_torch_h264_writer.py: the slice data
-// (macroblock layer, CAVLC) of I and P slices, after the slice header the
-// writer hands over, with seeded choices over every Constrained Baseline
-// tool: I_PCM, Intra4x4 (every mode the neighbours allow) and Intra16x16
-// with the four chroma modes, P_Skip, P_L0 16x16 / 16x8 / 8x16, P_8x8 and
-// P_8x8ref0 with every sub-partition, any reference index, vectors from a
-// small search plus quarter-sample offsets and vectors far outside the
-// picture, mb_qp_delta (with its wrap) and residuals coded from the
-// content: the integer forward transform and a dead-zone quantiser.  In
-// its coverage mode it sets some blocks' levels to a (TotalCoeff,
-// TrailingOnes) pair that has not yet been written for the block's nC, so
-// that a short stream holds every coeff_token, total_zeros and run_before
-// code, and the level_prefix escapes.
+// (macroblock layer) of I and P slices, CAVLC or CABAC, after the slice
+// header the writer hands over, with seeded choices over every tool of
+// the Constrained Baseline, Main and High profiles' I and P slices:
+// I_PCM, Intra4x4 and Intra8x8 (every mode the neighbours allow) and
+// Intra16x16 with the four chroma modes, P_Skip, P_L0 16x16 / 16x8 /
+// 8x16, P_8x8 (and, in CAVLC, P_8x8ref0) with every sub-partition, any
+// reference index, vectors from a small search plus quarter-sample offsets
+// and vectors far outside the picture, the 4x4 and 8x8 transforms,
+// mb_qp_delta (with its wrap) and residuals coded from the content: the
+// integer forward 4x4 transform or the 8x8 one (the inverse's matrix
+// inverted) and a dead-zone quantiser that follows the slice's scaling
+// matrices.  The slice's explicit weights weight its predictions.  In its
+// coverage mode it sets some blocks' levels: in CAVLC to a (TotalCoeff,
+// TrailingOnes) pair not yet written for the block's nC, so that a short
+// stream holds every coeff_token, total_zeros and run_before code and the
+// level_prefix escapes; in CABAC to patterns that reach every context of
+// the significance map and the levels.  Its CABAC engine (9.3.4) counts
+// the contexts it codes with.
 //
 // It builds its own reconstruction of each macroblock (rebuild()), its
 // choices made in between, from the prediction, transform and deblocking
 // functions of the port's decoder (native/h264.cpp, included here), so
 // the reference pictures it predicts from are what those functions give.
-// The two share the code tables too; only a decoder of its own (cv2's
-// FFmpeg, or h264_plain.py's macroblock layer) can find a wrong one,
-// which is what the tests hold the streams to.
+// The two share the code tables and the context tables too; only a
+// decoder of its own (cv2's FFmpeg, or h264_plain.py's macroblock layer)
+// can find a wrong one, which is what the tests hold the streams to.
 //
 // Built with g++ into build/native/ by the writer's native_encoder().
 
 #include "../camera_linearity_tpu_torch/native/h264.cpp"
+
+#include <cmath>
 
 namespace {
 
@@ -77,7 +85,14 @@ enum : int {
     kCntQp = kCntChroma + 4,             // [52] MB QPs of coded residuals
     kCntRef = kCntQp + 52,               // [32] reference indices
     kCntFar = kCntRef + 32,              // [1] vectors far outside
-    kCntSize = kCntFar + 1,
+    kCntCtx = kCntFar + 1,               // [460] CABAC decisions by ctxIdx
+    kCntI8 = kCntCtx + kCabacContexts,   // [9] Intra8x8 modes
+    kCntT8 = kCntI8 + 9,                 // [2] inter MBs of the 8x8 transform (CAVLC, CABAC)
+    kCntDqp = kCntT8 + 2,                // [52] mb_qp_delta + 26
+    kCntMvd = kCntDqp + 52,              // [1] |mvd| past the UEG3 prefix (CABAC)
+    kCntAbs = kCntMvd + 1,               // [1] coeff_abs_level_minus1 past 13 (CABAC)
+    kCntPcmMid = kCntAbs + 1,            // [1] I_PCM inside a CABAC slice
+    kCntSize = kCntPcmMid + 1,
 };
 
 // ---------------------------------------------------------------- choices
@@ -98,9 +113,9 @@ struct Rng {
 // the options (the writer's Options, in this order)
 struct Opts {
     int seed, p_skip, p_intra, p_pcm, p_i16, part_mask, p_dqp, qp_min, qp_max, search, p_far,
-        p_random_mode, coverage, p_subpel, zero_mv, sub_mask;
+        p_random_mode, coverage, p_subpel, zero_mv, sub_mask, p_i8, p_t8, qp_step;
 };
-constexpr int kOpts = 16;
+constexpr int kOpts = 19;
 
 constexpr int kMf[6][3] = {{13107, 5243, 8066}, {11916, 4660, 7490}, {10082, 4194, 6554},
                            {9362, 3647, 5825},  {8192, 3355, 5243},  {7282, 2893, 4559}};
@@ -126,17 +141,161 @@ void forward4(const int* x, int* w) {
     }
 }
 
+// the inverse of the 8-point inverse transform's matrix (its shifts taken
+// as divisions): 64 r = M D M^T gives the coefficients D of a residual r
+struct Inverse8 {
+    double m[8][8];
+    Inverse8() {
+        double a[8][16] = {};
+        for (int k = 0; k < 8; ++k) {   // column k of M: the transform of unit vector k
+            double x[8] = {};
+            x[k] = 1;
+            const double d0 = x[0], d1 = x[1], d2 = x[2], d3 = x[3], d4 = x[4], d5 = x[5], d6 = x[6], d7 = x[7];
+            const double e0 = d0 + d4, e1 = -d3 + d5 - d7 - d7 / 2, e2 = d0 - d4, e3 = d1 + d7 - d3 - d3 / 2;
+            const double e4 = d2 / 2 - d6, e5 = -d1 + d7 + d5 + d5 / 2, e6 = d2 + d6 / 2, e7 = d3 + d5 + d1 + d1 / 2;
+            const double f0 = e0 + e6, f1 = e1 + e7 / 4, f2 = e2 + e4, f3 = e3 + e5 / 4;
+            const double f4 = e2 - e4, f5 = e3 / 4 - e5, f6 = e0 - e6, f7 = e7 - e1 / 4;
+            const double g[8] = {f0 + f7, f2 + f5, f4 + f3, f6 + f1, f6 - f1, f4 - f3, f2 - f5, f0 - f7};
+            for (int r = 0; r < 8; ++r) a[r][k] = g[r];
+        }
+        for (int r = 0; r < 8; ++r) a[r][8 + r] = 1;
+        for (int c = 0; c < 8; ++c) {   // Gauss-Jordan
+            int piv = c;
+            for (int r = c + 1; r < 8; ++r)
+                if (std::abs(a[r][c]) > std::abs(a[piv][c])) piv = r;
+            for (int k = 0; k < 16; ++k) std::swap(a[c][k], a[piv][k]);
+            const double v = a[c][c];
+            for (int k = 0; k < 16; ++k) a[c][k] /= v;
+            for (int r = 0; r < 8; ++r)
+                if (r != c) {
+                    const double f = a[r][c];
+                    for (int k = 0; k < 16; ++k) a[r][k] -= f * a[c][k];
+                }
+        }
+        for (int r = 0; r < 8; ++r)
+            for (int c = 0; c < 8; ++c) m[r][c] = a[r][8 + c];
+    }
+};
+
+const Inverse8& inverse8() {
+    static const Inverse8 t;
+    return t;
+}
+
 inline int quant(int w, int mf, int qbits, int f) {
-    const int a = (std::abs(w) * mf + f) >> qbits;
+    const int a = static_cast<int>((static_cast<long long>(std::abs(w)) * mf + f) >> qbits);
     return w < 0 ? -a : a;
 }
 
-// the largest sum of dequantised magnitudes a block may hold: the inverse
-// transform's 16-bit intermediates (FFmpeg keeps them in int16) stay in
-// range below it
+// the largest sum of dequantised magnitudes a 4x4 block may hold: the
+// inverse transform's 16-bit intermediates (FFmpeg keeps them in int16)
+// stay in range below it
 constexpr int kMaxAbsSum = 14000;
 // the largest dequantised DC of an Intra16x16 or chroma block
 constexpr int kMaxDc = 12000;
+// the largest intermediate of the 8x8 inverse transform a block may reach
+constexpr int kMax8 = 16000;
+
+// ---------------------------------------------------------------- CABAC out
+
+// the arithmetic encoding engine (9.3.4.2); counts the contexts it codes with
+struct CabacEnc {
+    Writer* w = nullptr;
+    unsigned low = 0, range = 510;
+    int outstanding = 0;
+    bool first = true;
+    u8 st[kCabacContexts] = {};
+    int* cnt = nullptr;
+
+    void init_contexts(bool islice, int idc, int qp) {
+        const std::int8_t(*t)[2] = kCabacInit[islice ? 0 : 1 + idc];
+        const int q = clip3(0, 51, qp);
+        for (int i = 0; i < kCabacContexts; ++i) {
+            const int pre = clip3(1, 126, ((t[i][0] * q) >> 4) + t[i][1]);
+            st[i] = pre <= 63 ? static_cast<u8>((63 - pre) << 1) : static_cast<u8>(((pre - 64) << 1) | 1);
+        }
+    }
+    void init_engine() {
+        low = 0;
+        range = 510;
+        outstanding = 0;
+        first = true;
+    }
+    void put_bit(int b) {
+        if (first) first = false;
+        else w->put(b, 1);
+        for (; outstanding > 0; --outstanding) w->put(1 - b, 1);
+    }
+    void renorm() {
+        while (range < 256) {
+            if (low < 256) {
+                put_bit(0);
+            } else if (low >= 512) {
+                low -= 512;
+                put_bit(1);
+            } else {
+                low -= 256;
+                ++outstanding;
+            }
+            range <<= 1;
+            low <<= 1;
+        }
+    }
+    void decision(int ctx, int bin) {
+        ++cnt[kCntCtx + ctx];
+        u8& s = st[ctx];
+        const int state = s >> 1, mps = s & 1;
+        const unsigned lps = kRangeLps[state][(range >> 6) & 3];
+        range -= lps;
+        if (bin != mps) {
+            low += range;
+            range = lps;
+            s = static_cast<u8>((kTransLps[state] << 1) | (state == 0 ? !mps : mps));
+        } else {
+            s = static_cast<u8>((std::min(state + 1, 62) << 1) | mps);
+        }
+        renorm();
+    }
+    void bypass(int bin) {
+        low <<= 1;
+        if (bin) low += range;
+        if (low >= 1024) {
+            put_bit(1);
+            low -= 1024;
+        } else if (low < 512) {
+            put_bit(0);
+        } else {
+            low -= 512;
+            ++outstanding;
+        }
+    }
+    void terminate(int bin) {
+        range -= 2;
+        if (bin) {
+            low += range;
+            range = 2;   // the flush
+            renorm();
+            put_bit((low >> 9) & 1);
+            w->put(((low >> 7) & 3) | 1, 2);
+        } else {
+            renorm();
+        }
+    }
+    // the k-th order Exp-Golomb suffix (UEGk) of v
+    void eg(int v, int k) {
+        for (;;) {
+            if (v >= (1 << k)) {
+                bypass(1);
+                v -= 1 << k;
+                ++k;
+            } else {
+                bypass(0);
+                while (k--) bypass((v >> k) & 1);
+                return;
+            }
+        }
+    }
+};
 
 struct Encoder {
     Decoder& dec;
@@ -148,6 +307,7 @@ struct Encoder {
     MbPos m{};
     int want[16][2] = {};      // the chosen vector of each partition
     bool intra_slice = true;
+    CabacEnc cb;
 
     Encoder(Decoder& d, const Opts& op, int* counts)
         : dec(d), o(op), rng(static_cast<std::uint64_t>(op.seed)), cnt(counts) {}
@@ -187,9 +347,37 @@ struct Encoder {
         ++cnt[kCntI4 + best];
     }
 
-    // levels of the 4x4 residual src - pred at (px, py) of a plane
+    // an Intra8x8 block's mode (and its prediction into the slot)
+    void intra8(MbData& d, int b8, bool top, bool left, bool corner, bool tr) {
+        const int W = s.cur->W;
+        const int px = m.x * 16 + (b8 & 1) * 8, py = m.y * 16 + (b8 >> 1) * 8;
+        const bool all = top && left && corner;
+        int modes[9], n = 0;
+        for (int k = 0; k < 9; ++k) {
+            const bool ok = k == 2 || ((k == 0 || k == 3 || k == 7) && top) ||
+                            ((k == 1 || k == 8) && left) || ((k >= 4 && k <= 6) && all);
+            if (ok) modes[n++] = k;
+        }
+        int best = modes[0];
+        if (rng.per_mille(o.p_random_mode)) {
+            best = modes[rng.below(n)];
+        } else {
+            int cost = 1 << 30;
+            u8 tmp[64];
+            for (int k = 0; k < n; ++k) {
+                pred8x8(s.cur->y.data(), W, px, py, top, left, corner, tr, modes[k], tmp, 8);
+                const int c = sad_block(tmp, 8, sy + std::size_t(py) * W + px, W, 8, 8);
+                if (c < cost) { cost = c; best = modes[k]; }
+            }
+        }
+        d.i4mode[b8] = best;
+        ++cnt[kCntI8 + best];
+    }
+
+    // levels of the 4x4 residual src - pred at (px, py) of a plane; ls: the
+    // block's LevelScale4x4 (the quantiser follows its weights)
     void block_levels(const u8* plane, const u8* src, int stride, int px, int py, int qp,
-                      bool intra, bool skip_dc, std::int16_t* lv, int* dc_coef) {
+                      bool intra, bool skip_dc, const int* w16, std::int16_t* lv, int* dc_coef) {
         int x[16], w[16];
         for (int j = 0; j < 4; ++j)
             for (int i = 0; i < 4; ++i) {
@@ -204,22 +392,87 @@ struct Encoder {
                 if (dc_coef) *dc_coef = w[0];
                 continue;
             }
-            lv[k] = static_cast<std::int16_t>(clip3(-2047, 2047, quant(w[k], kMf[qp % 6][kNormClass[k]], qbits, f)));
+            const int mf = kMf[qp % 6][kNormClass[k]] * 16 / std::max(1, w16[k]);
+            lv[k] = static_cast<std::int16_t>(clip3(-2047, 2047, quant(w[k], mf, qbits, f)));
         }
+    }
+
+    // the levels of the 8x8 residual at (px, py) of the luma plane
+    void block_levels8(int px, int py, int qp, bool intra, const int* ls, std::int16_t* lv) {
+        const Slot& c = *s.cur;
+        const int W = c.W;
+        double r[64], t[64];
+        for (int j = 0; j < 8; ++j)
+            for (int i = 0; i < 8; ++i) {
+                const std::size_t at = std::size_t(py + j) * W + px + i;
+                r[j * 8 + i] = 64.0 * (sy[at] - c.y[at]);
+            }
+        const Inverse8& iv = inverse8();
+        for (int y = 0; y < 8; ++y)   // t = Minv r
+            for (int x = 0; x < 8; ++x) {
+                double v = 0;
+                for (int k = 0; k < 8; ++k) v += iv.m[y][k] * r[k * 8 + x];
+                t[y * 8 + x] = v;
+            }
+        const double f = intra ? 1.0 / 3 : 1.0 / 6;
+        for (int y = 0; y < 8; ++y)   // D = t Minv^T
+            for (int x = 0; x < 8; ++x) {
+                double v = 0;
+                for (int k = 0; k < 8; ++k) v += t[y * 8 + k] * iv.m[x][k];
+                const double step = ls[y * 8 + x] * std::ldexp(1.0, qp / 6 - 6);
+                const double a = std::floor(std::abs(v) / step + f);
+                const int l = clip3(-2047, 2047, static_cast<int>(v < 0 ? -a : a));
+                lv[y * 8 + x] = static_cast<std::int16_t>(l);
+            }
     }
 
     // keep the dequantised block (dc: its DC's magnitude, where given
     // apart) within the inverse transform's range
-    void bound(std::int16_t* lv, int qp, int first, int dc) {
+    void bound(std::int16_t* lv, const int* ls, int qp, int first, int dc) {
         for (;;) {
             long sum = std::abs(dc);
             bool any = false;
             for (int k = first; k < 16; ++k) {
-                sum += static_cast<long>(std::abs(lv[k])) * kNorm[qp % 6][kNormClass[k]] << (qp / 6);
+                sum += std::abs(static_cast<long>(dequant4(lv[k], ls[k], qp)));
                 any |= lv[k] != 0;
             }
             if (sum <= kMaxAbsSum || !any) return;
             for (int k = first; k < 16; ++k) lv[k] = static_cast<std::int16_t>(lv[k] / 2);
+        }
+    }
+
+    // the same for an 8x8 block: every intermediate of its inverse
+    // transform stays within kMax8
+    void bound8(std::int16_t* lv, const int* ls, int qp) {
+        const int q6 = qp / 6;
+        for (;;) {
+            long long d[64];
+            bool any = false;
+            for (int i = 0; i < 64; ++i) {
+                const long long c = lv[i];
+                d[i] = !c ? 0 : q6 >= 6 ? (c * ls[i]) << (q6 - 6) : (c * ls[i] + (1 << (5 - q6))) >> (6 - q6);
+                any |= c != 0;
+            }
+            long long most = 0;
+            auto pass = [&](long long* x, int st) {
+                const long long d0 = x[0], d1 = x[st], d2 = x[2 * st], d3 = x[3 * st];
+                const long long d4 = x[4 * st], d5 = x[5 * st], d6 = x[6 * st], d7 = x[7 * st];
+                const long long e[8] = {d0 + d4, -d3 + d5 - d7 - (d7 >> 1), d0 - d4, d1 + d7 - d3 - (d3 >> 1),
+                                        (d2 >> 1) - d6, -d1 + d7 + d5 + (d5 >> 1), d2 + (d6 >> 1), d3 + d5 + d1 + (d1 >> 1)};
+                const long long f[8] = {e[0] + e[6], e[1] + (e[7] >> 2), e[2] + e[4], e[3] + (e[5] >> 2),
+                                        e[2] - e[4], (e[3] >> 2) - e[5], e[0] - e[6], e[7] - (e[1] >> 2)};
+                const long long g[8] = {f[0] + f[7], f[2] + f[5], f[4] + f[3], f[6] + f[1],
+                                        f[6] - f[1], f[4] - f[3], f[2] - f[5], f[0] - f[7]};
+                for (int k = 0; k < 8; ++k) {
+                    most = std::max({most, std::abs(e[k]), std::abs(f[k]), std::abs(g[k]),
+                                     std::abs(x[k * st])});
+                    x[k * st] = g[k];
+                }
+            };
+            for (int r = 0; r < 8; ++r) pass(d + r * 8, 1);
+            for (int c = 0; c < 8; ++c) pass(d + c, 8);
+            if (most + 32 <= kMax8 || !any) return;
+            for (int i = 0; i < 64; ++i) lv[i] = static_cast<std::int16_t>(lv[i] / 2);
         }
     }
 
@@ -228,6 +481,10 @@ struct Encoder {
     // its class (cls: 0-3 nC class, 4 chroma DC)
     void cover(std::int16_t* lv_raster, int start, int n, int cls, bool dc_block, const u8* scan,
                int qp = 51) {
+        if (s.sp.cabac) {
+            cover_cabac(lv_raster, start, n, scan, dc_block && n == 16 && qp < 6);
+            return;
+        }
         // scan position k of the block is lv_raster[scan ? scan[start + k] : k];
         // an Intra16x16 DC at a QP under 6 takes a level_prefix escape
         const bool escape = dc_block && n == 16 && qp < 6 && o.coverage;
@@ -284,7 +541,59 @@ struct Encoder {
         for (int k = 0; k < n; ++k) lv_raster[scan ? scan[start + k] : k] = out[k];
     }
 
+    // CABAC coverage: a block of coefficients at chosen positions (the last
+    // one among them now and then), mostly ones, some larger, a few past
+    // the prefix of coeff_abs_level_minus1
+    void cover_cabac(std::int16_t* lv_raster, int start, int n, const u8* scan, bool big) {
+        if (!big && !rng.per_mille(o.coverage)) return;
+        std::int16_t out[64] = {};
+        int k = rng.below(4) == 0 ? n : 1 + rng.below(std::min(n, 1 + rng.below(n)));
+        int pos[64];
+        for (int i = 0; i < n; ++i) pos[i] = i;
+        for (int i = n - 1; i > 0; --i) std::swap(pos[i], pos[rng.below(i + 1)]);
+        if (rng.below(3) == 0 && k < n)   // the last position among them
+            for (int i = 0; i < n; ++i)
+                if (pos[i] == n - 1) std::swap(pos[i], pos[0]);
+        const bool ones = rng.below(5) == 0;   // every level 1
+        for (int i = 0; i < k; ++i) {
+            const int r = ones ? 0 : rng.below(100);
+            int mag = r < 45 ? 1 : r < 75 ? 2 + rng.below(3) : r < 93 ? 5 + rng.below(26) : 31 + rng.below(300);
+            if (big && i == 0) mag = 2000;
+            out[pos[i]] = static_cast<std::int16_t>(rng.below(2) ? -mag : mag);
+        }
+        for (int i = 0; i < n; ++i) lv_raster[scan ? scan[start + i] : i] = out[i];
+    }
+
     int nc_class_here(int comp, int bx, int by) { return nc_class(nc_of(s, m, comp, bx, by)); }
+
+    // the nnz of an 8x8 block's four 4x4 blocks: in CAVLC each interleaved
+    // list's count, in CABAC the block's count in all four
+    void set_nnz8(int b8, const std::int16_t* lv8) {
+        u8* nnz = &s.cur->nnz[std::size_t(m.addr) * 24];
+        int all = 0, part[4] = {};
+        for (int k = 0; k < 64; ++k)
+            if (lv8[kZigzag8[k]]) {
+                ++all;
+                ++part[k & 3];
+            }
+        for (int i = 0; i < 4; ++i) {
+            const int blk = b8 * 4 + i;   // luma4x4BlkIdx of the interleaved list i
+            nnz[kBlkY[blk] * 4 + kBlkX[blk]] = static_cast<u8>(s.sp.cabac ? all : part[i]);
+        }
+    }
+
+    // the levels of an 8x8 block whose prediction is in the picture
+    void residual8(MbData& d, int b8, bool intra) {
+        const int* ls = s.sc.ls8[intra ? 0 : 1][d.qp % 6];
+        const int px = m.x * 16 + (b8 & 1) * 8, py = m.y * 16 + (b8 >> 1) * 8;
+        block_levels8(px, py, d.qp, intra, ls, d.luma8[b8]);
+        if (s.sp.cabac) cover_cabac(d.luma8[b8], 0, 64, kZigzag8, false);
+        bound8(d.luma8[b8], ls, d.qp);
+        set_nnz8(b8, d.luma8[b8]);
+        bool any = false;
+        for (int k = 0; k < 64; ++k) any |= d.luma8[b8][k] != 0;
+        if (any) d.cbp |= 1 << b8;
+    }
 
     // the levels of a part whose prediction is in the picture. what: 0
     // an Intra4x4 block (blk), 1 the luma of an Intra16x16 or inter MB,
@@ -292,21 +601,23 @@ struct Encoder {
     void residual(MbData& d, int what, int blk) {
         Slot& c = *s.cur;
         const int W = c.W, CW = W / 2;
-        const bool intra = d.kind == kI4 || d.kind == kI16;
+        const bool intra = is_intra(d.kind);
+        const int q = d.qp % 6;
         u8* nnz = &c.nnz[std::size_t(m.addr) * 24];
         if (what == 0) {
             const int px = m.x * 16 + kBlkX[blk] * 4, py = m.y * 16 + kBlkY[blk] * 4;
-            block_levels(c.y.data(), sy, W, px, py, d.qp, true, false, d.luma[blk], nullptr);
+            block_levels(c.y.data(), sy, W, px, py, d.qp, true, false, s.sp.w4[0], d.luma[blk], nullptr);
             if (blk == 0) std::memset(nnz, 0, 16);
             cover(d.luma[blk], 0, 16, nc_class_here(0, kBlkX[blk], kBlkY[blk]), false, kZigzag);
-            bound(d.luma[blk], d.qp, 0, 0);
+            bound(d.luma[blk], s.sc.ls4[0][q], d.qp, 0, 0);
             nnz[kBlkY[blk] * 4 + kBlkX[blk]] = static_cast<u8>(total(d.luma[blk], 0));
         } else if (what == 1) {
             int dcw[16];
             std::memset(nnz, 0, 16);
+            const int list = intra ? 0 : 3;
             for (int b = 0; b < 16; ++b) {
                 const int px = m.x * 16 + kBlkX[b] * 4, py = m.y * 16 + kBlkY[b] * 4;
-                block_levels(c.y.data(), sy, W, px, py, d.qp, intra, d.kind == kI16, d.luma[b],
+                block_levels(c.y.data(), sy, W, px, py, d.qp, intra, d.kind == kI16, s.sp.w4[list], d.luma[b],
                              &dcw[kBlkY[b] * 4 + kBlkX[b]]);
             }
             if (d.kind == kI16) {
@@ -327,15 +638,15 @@ struct Encoder {
                     g[12 + k] = (x0 - x1 + x2 - x3) >> 1;
                 }
                 const int qbits = 15 + d.qp / 6, fr = (1 << qbits) / 3;
+                const int mf = kMf[q][0] * 16 / std::max(1, s.sp.w4[0][0]);
                 for (int k = 0; k < 16; ++k)
-                    d.ldc[k] = static_cast<std::int16_t>(
-                        clip3(-2047, 2047, quant(g[k], kMf[d.qp % 6][0], qbits + 1, 2 * fr)));
+                    d.ldc[k] = static_cast<std::int16_t>(clip3(-2047, 2047, quant(g[k], mf, qbits + 1, 2 * fr)));
                 cover(d.ldc, 0, 16, nc_class_here(0, 0, 0), true, kZigzag, d.qp);
                 bound_dc16(d);
             }
             bool ac = false;
             int dcs[16] = {};
-            if (d.kind == kI16) luma_dc(d.ldc, d.qp, dcs);
+            if (d.kind == kI16) luma_dc(d.ldc, d.qp, s.sc.ls4[0][q][0], dcs);
             for (int b = 0; b < 16; ++b) {
                 const int bx = kBlkX[b], by = kBlkY[b];
                 if (d.kind == kI16) {
@@ -343,7 +654,7 @@ struct Encoder {
                 } else {
                     cover(d.luma[b], 0, 16, nc_class_here(0, bx, by), false, kZigzag);
                 }
-                bound(d.luma[b], d.qp, d.kind == kI16 ? 1 : 0, dcs[by * 4 + bx]);
+                bound(d.luma[b], s.sc.ls4[list][q], d.qp, d.kind == kI16 ? 1 : 0, dcs[by * 4 + bx]);
                 const int t = total(d.luma[b], d.kind == kI16 ? 1 : 0);
                 nnz[by * 4 + bx] = static_cast<u8>(t);
                 ac |= t != 0;
@@ -373,27 +684,30 @@ struct Encoder {
             bool any_dc = false, any_ac = false;
             int dcs[2][4] = {};
             for (int k = 0; k < 2; ++k) {
+                const int list = (intra ? 1 : 4) + k;
+                const int* ls = s.sc.ls4[list][qpc[k] % 6];
                 const u8* pl = k ? c.v.data() : c.u.data();
                 const u8* src = k ? sv : su;
                 int dcw[4];
                 for (int b = 0; b < 4; ++b)
                     block_levels(pl, src, CW, m.x * 8 + (b & 1) * 4, m.y * 8 + (b >> 1) * 4, qpc[k],
-                                 intra, true, d.cac[k][b], &dcw[b]);
+                                 intra, true, s.sp.w4[list], d.cac[k][b], &dcw[b]);
                 const int f[4] = {dcw[0] + dcw[1] + dcw[2] + dcw[3], dcw[0] - dcw[1] + dcw[2] - dcw[3],
                                   dcw[0] + dcw[1] - dcw[2] - dcw[3], dcw[0] - dcw[1] - dcw[2] + dcw[3]};
                 const int qbits = 15 + qpc[k] / 6, fr = (1 << qbits) / (intra ? 3 : 6);
+                const int mf = kMf[qpc[k] % 6][0] * 16 / std::max(1, s.sp.w4[list][0]);
                 for (int b = 0; b < 4; ++b)
-                    d.cdc[k][b] = static_cast<std::int16_t>(
-                        clip3(-2047, 2047, quant(f[b], kMf[qpc[k] % 6][0], qbits + 1, 2 * fr)));
+                    d.cdc[k][b] = static_cast<std::int16_t>(clip3(-2047, 2047, quant(f[b], mf, qbits + 1, 2 * fr)));
                 cover(d.cdc[k], 0, 4, 4, true, nullptr);
-                bound_dc4(d.cdc[k], qpc[k]);
-                chroma_dc(d.cdc[k], qpc[k], dcs[k]);
+                bound_dc4(d.cdc[k], qpc[k], ls[0]);
+                chroma_dc(d.cdc[k], qpc[k], ls[0], dcs[k]);
                 for (int b = 0; b < 4; ++b) any_dc |= d.cdc[k][b] != 0;
             }
             for (int k = 0; k < 2; ++k)
                 for (int b = 0; b < 4; ++b) {
+                    const int* ls = s.sc.ls4[(intra ? 1 : 4) + k][qpc[k] % 6];
                     cover(d.cac[k][b], 1, 15, nc_class_here(k + 1, b & 1, b >> 1), false, kZigzag);
-                    bound(d.cac[k][b], qpc[k], 1, dcs[k][b]);
+                    bound(d.cac[k][b], ls, qpc[k], 1, dcs[k][b]);
                     const int t = total(d.cac[k][b], 1);
                     nnz[16 + k * 4 + b] = static_cast<u8>(t);
                     any_ac |= t != 0;
@@ -413,17 +727,17 @@ struct Encoder {
     void bound_dc16(MbData& d) {
         for (;;) {
             int dc[16];
-            luma_dc(d.ldc, d.qp, dc);
+            luma_dc(d.ldc, d.qp, s.sc.ls4[0][d.qp % 6][0], dc);
             int most = 0;
             for (int k = 0; k < 16; ++k) most = std::max(most, std::abs(dc[k]));
             if (most <= kMaxDc) return;
             for (int k = 0; k < 16; ++k) d.ldc[k] = static_cast<std::int16_t>(d.ldc[k] / 2);
         }
     }
-    void bound_dc4(std::int16_t* c, int qpc) {
+    void bound_dc4(std::int16_t* c, int qpc, int ls) {
         for (;;) {
             int dc[4];
-            chroma_dc(c, qpc, dc);
+            chroma_dc(c, qpc, ls, dc);
             int most = 0;
             for (int k = 0; k < 4; ++k) most = std::max(most, std::abs(dc[k]));
             if (most <= kMaxDc) return;
@@ -487,7 +801,7 @@ struct Encoder {
         // the MB's QP
         d.qp = qp_pred;
         if (o.p_dqp >= 1000)   // a sweep: each MB the next QP of the range
-            d.qp = o.qp_min + (m.addr + o.seed) % (o.qp_max - o.qp_min + 1);
+            d.qp = o.qp_min + (m.addr + o.seed) * o.qp_step % (o.qp_max - o.qp_min + 1);
         else if (rng.per_mille(o.p_dqp))
             d.qp = o.qp_min + rng.below(o.qp_max - o.qp_min + 1);
         const bool pcm = rng.per_mille(o.p_pcm);
@@ -513,7 +827,8 @@ struct Encoder {
         if (intra) {
             const bool tA = intra_avail(s, m.x - 1, m.y), tB = intra_avail(s, m.x, m.y - 1);
             const bool tD = intra_avail(s, m.x - 1, m.y - 1);
-            d.kind = rng.per_mille(o.p_i16) ? kI16 : kI4;
+            d.kind = rng.per_mille(o.p_i16) ? kI16 : (s.sp.t8mode && rng.per_mille(o.p_i8)) ? kI8 : kI4;
+            d.t8 = d.kind == kI8;
             Slot& c = *s.cur;
             const int W = c.W, CW = W / 2;
             if (d.kind == kI16) {
@@ -571,7 +886,7 @@ struct Encoder {
             if (s.refs[r]) valid[nv++] = r;
         int types[5], nt = 0;
         for (int t = 0; t < 5; ++t)
-            if (o.part_mask >> t & 1 && !(t == 4 && (nref < 2 || !s.refs[0]))) types[nt++] = t;
+            if (o.part_mask >> t & 1 && !(t == 4 && (nref < 2 || !s.refs[0] || s.sp.cabac))) types[nt++] = t;
         d.ptype = nt ? types[rng.below(nt)] : 0;
         ++cnt[kCntPtype + d.ptype];
         int subs[4], ns = 0;
@@ -583,6 +898,7 @@ struct Encoder {
             d.ref[i] = d.ptype == 4 ? 0 : valid[rng.below(nv)];
             if (d.ptype >= 3 || i < (d.ptype ? 2 : 1)) ++cnt[kCntRef + d.ref[i]];
         }
+        d.t8 = s.sp.t8mode && t8_allowed(d) && rng.per_mille(o.p_t8);
         choose_vectors(d);
     }
 
@@ -617,12 +933,13 @@ struct Encoder {
             return;
         }
         c.qp[a] = static_cast<std::int8_t>(d.qp);
-        const bool intra = d.kind == kI4 || d.kind == kI16;
+        const bool intra = is_intra(d.kind);
         if (intra) {
             std::fill(ref, ref + 16, -1);
             std::fill(mv, mv + 32, 0);
             std::fill(rpic, rpic + 16, -1);
         }
+        const int q = d.qp % 6;
         const bool tA = intra_avail(s, m.x - 1, m.y), tB = intra_avail(s, m.x, m.y - 1);
         const bool tC = intra_avail(s, m.x + 1, m.y - 1), tD = intra_avail(s, m.x - 1, m.y - 1);
         if (d.kind == kI4) {
@@ -639,7 +956,22 @@ struct Encoder {
                 pred4x4(dst, W, e, d.i4mode[blk]);
                 i4[by * 4 + bx] = static_cast<std::int8_t>(d.i4mode[blk]);
                 residual(d, 0, blk);
-                add_block(dst, W, d.luma[blk], d.qp, false, 0);
+                add_block(dst, W, d.luma[blk], s.sc.ls4[0][q], d.qp, false, 0);
+            }
+        } else if (d.kind == kI8) {
+            std::memset(&c.nnz[a * 24], 0, 16);
+            for (int b8 = 0; b8 < 4; ++b8) {
+                const int bx = (b8 & 1) * 8, by = (b8 >> 1) * 8;
+                const bool top = by ? true : tB, left = bx ? true : tA;
+                const bool corner = (bx && by) ? true : (!bx && !by) ? tD : bx ? tB : tA;
+                const bool tr = b8 == 0 ? tB : b8 == 1 ? tC : b8 == 2;
+                intra8(d, b8, top, left, corner, tr);
+                u8* dst = Y + by * W + bx;
+                pred8x8(c.y.data(), W, m.x * 16 + bx, m.y * 16 + by, top, left, corner, tr, d.i4mode[b8], dst, W);
+                for (int k = 0; k < 4; ++k)
+                    i4[((by >> 2) + (k >> 1)) * 4 + (bx >> 2) + (k & 1)] = static_cast<std::int8_t>(d.i4mode[b8]);
+                residual8(d, b8, true);
+                add_block8(dst, W, d.luma8[b8], s.sc.ls8[0][q], d.qp);
             }
         } else if (d.kind == kI16) {
             Edge e;
@@ -648,10 +980,10 @@ struct Encoder {
             else pred16(Y, W, e, d.i16mode, 16);
             residual(d, 1, 0);
             int dc[16];
-            luma_dc(d.ldc, d.qp, dc);
+            luma_dc(d.ldc, d.qp, s.sc.ls4[0][q][0], dc);
             for (int blk = 0; blk < 16; ++blk) {
                 const int bx = kBlkX[blk], by = kBlkY[blk];
-                add_block(Y + by * 4 * W + bx * 4, W, d.luma[blk], d.qp, true, dc[by * 4 + bx]);
+                add_block(Y + by * 4 * W + bx * 4, W, d.luma[blk], s.sc.ls4[0][q], d.qp, true, dc[by * 4 + bx]);
             }
         } else {
             // the vectors: P_Skip's predicted one, else each partition's
@@ -661,39 +993,56 @@ struct Encoder {
             if (d.kind == kSkip) parts[0] = Part{0, 0, 16, 16, 0, 0};
             unsigned done = 0;
             for (int p = 0; p < n; ++p) {
-                const Part& q = parts[p];
-                const int r = d.kind == kSkip ? 0 : d.ref[q.owner];
+                const Part& q2 = parts[p];
+                const int r = d.kind == kSkip ? 0 : d.ref[q2.owner];
                 int px, py, vx, vy;
                 if (d.kind == kSkip) {
                     skip_mv(s, m, vx, vy);
                 } else {
-                    predict_mv(s, m, q.x, q.y, q.w, q.h, q.shape, r, done, px, py);
+                    predict_mv(s, m, q2.x, q2.y, q2.w, q2.h, q2.shape, r, done, px, py);
                     vx = want[p][0];
                     vy = want[p][1];
                     d.mvd[p][0] = vx - px;
                     d.mvd[p][1] = vy - py;
                 }
-                for (int y = q.y / 4; y < (q.y + q.h) / 4; ++y)
-                    for (int x = q.x / 4; x < (q.x + q.w) / 4; ++x) {
+                for (int y = q2.y / 4; y < (q2.y + q2.h) / 4; ++y)
+                    for (int x = q2.x / 4; x < (q2.x + q2.w) / 4; ++x) {
                         ref[y * 4 + x] = static_cast<std::int8_t>(r);
                         mv[2 * (y * 4 + x)] = static_cast<std::int16_t>(vx);
                         mv[2 * (y * 4 + x) + 1] = static_cast<std::int16_t>(vy);
                         done |= 1u << (y * 4 + x);
                     }
                 const Slot& rf = *s.refs[r];
-                mc_luma(rf, m.x * 16 + q.x, m.y * 16 + q.y, q.w, q.h, vx, vy, Y + q.y * W + q.x, W);
-                const int cx = m.x * 8 + q.x / 2, cy = m.y * 8 + q.y / 2;
-                u8* du = U + (q.y / 2) * CW + q.x / 2;
-                u8* dv = V + (q.y / 2) * CW + q.x / 2;
-                mc_chroma(rf.u, CW, c.H / 2, cx, cy, q.w / 2, q.h / 2, vx, vy, du, CW);
-                mc_chroma(rf.v, CW, c.H / 2, cx, cy, q.w / 2, q.h / 2, vx, vy, dv, CW);
+                u8* dy = Y + q2.y * W + q2.x;
+                mc_luma(rf, m.x * 16 + q2.x, m.y * 16 + q2.y, q2.w, q2.h, vx, vy, dy, W);
+                const int cx = m.x * 8 + q2.x / 2, cy = m.y * 8 + q2.y / 2;
+                u8* du = U + (q2.y / 2) * CW + q2.x / 2;
+                u8* dv = V + (q2.y / 2) * CW + q2.x / 2;
+                mc_chroma(rf.u, CW, c.H / 2, cx, cy, q2.w / 2, q2.h / 2, vx, vy, du, CW);
+                mc_chroma(rf.v, CW, c.H / 2, cx, cy, q2.w / 2, q2.h / 2, vx, vy, dv, CW);
+                if (s.sp.weighted) {
+                    const int* w = s.sp.wt[r];
+                    weight_block(dy, W, q2.w, q2.h, s.sp.lwd, w[0], w[1]);
+                    weight_block(du, CW, q2.w / 2, q2.h / 2, s.sp.cwd, w[2], w[3]);
+                    weight_block(dv, CW, q2.w / 2, q2.h / 2, s.sp.cwd, w[4], w[5]);
+                }
             }
             for (int k = 0; k < 16; ++k) rpic[k] = s.sp.ids[ref[k]];
             if (d.kind == kSkip) return;
-            residual(d, 1, 0);
-            for (int blk = 0; blk < 16; ++blk) {
-                const int bx = kBlkX[blk], by = kBlkY[blk];
-                add_block(Y + by * 4 * W + bx * 4, W, d.luma[blk], d.qp, false, 0);
+            if (d.t8) {
+                std::memset(&c.nnz[a * 24], 0, 16);
+                for (int b8 = 0; b8 < 4; ++b8) residual8(d, b8, false);
+                if (!(d.cbp & 15)) d.t8 = 0;   // no luma levels: the flag is not coded
+                for (int b8 = 0; b8 < 4; ++b8)
+                    if (d.cbp >> b8 & 1)
+                        add_block8(Y + (b8 >> 1) * 8 * W + (b8 & 1) * 8, W, d.luma8[b8], s.sc.ls8[1][q], d.qp);
+                ++cnt[kCntT8 + s.sp.cabac];
+            } else {
+                residual(d, 1, 0);
+                for (int blk = 0; blk < 16; ++blk) {
+                    const int bx = kBlkX[blk], by = kBlkY[blk];
+                    add_block(Y + by * 4 * W + bx * 4, W, d.luma[blk], s.sc.ls4[3][q], d.qp, false, 0);
+                }
             }
         }
         if (intra) {
@@ -709,12 +1058,12 @@ struct Encoder {
         residual(d, 2, 0);
         const int qpc[2] = {chroma_qp(s.sp, d.qp, 0), chroma_qp(s.sp, d.qp, 1)};
         for (int k = 0; k < 2; ++k) {
+            const int* ls = s.sc.ls4[(intra ? 1 : 4) + k][qpc[k] % 6];
             int dc[4];
-            chroma_dc(d.cdc[k], qpc[k], dc);
+            chroma_dc(d.cdc[k], qpc[k], ls[0], dc);
             u8* dst = k ? V : U;
             for (int blk = 0; blk < 4; ++blk)
-                add_block(dst + (blk >> 1) * 4 * CW + (blk & 1) * 4, CW, d.cac[k][blk], qpc[k],
-                          true, dc[blk]);
+                add_block(dst + (blk >> 1) * 4 * CW + (blk & 1) * 4, CW, d.cac[k][blk], ls, qpc[k], true, dc[blk]);
         }
     }
 
@@ -724,8 +1073,14 @@ struct Encoder {
     // : k], k < maxc
     void write_block(Writer& w, const std::int16_t* raster, int start, int maxc, int nc,
                      const u8* scan) {
-        int lv[16], n = 0;
+        int lv[16];
         for (int k = 0; k < maxc; ++k) lv[k] = raster[scan ? scan[start + k] : k];
+        write_list(w, lv, maxc, nc);
+    }
+
+    // residual_block_cavlc of a coefficient list (maxc entries)
+    void write_list(Writer& w, const int* lv, int maxc, int nc) {
+        int n = 0;
         int idx[16];   // scan positions of the nonzero levels, high first
         for (int k = maxc - 1; k >= 0; --k)
             if (lv[k]) idx[n++] = k;
@@ -807,17 +1162,21 @@ struct Encoder {
             return;
         }
         const int nref = s.sp.nref;
-        if (d.kind == kI4) {
-            for (int blk = 0; blk < 16; ++blk) {
-                const int pred = i4_predicted(s, m, blk);
-                if (d.i4mode[blk] == pred) w.put(1, 1);
+        if (is_nxn(d.kind)) {
+            if (s.sp.t8mode) w.put(d.kind == kI8, 1);
+            for (int blk = 0; blk < (d.kind == kI8 ? 4 : 16); ++blk) {
+                const int bx = d.kind == kI8 ? (blk & 1) * 2 : kBlkX[blk];
+                const int by = d.kind == kI8 ? (blk >> 1) * 2 : kBlkY[blk];
+                const int pred = i4_predicted(s, m, bx, by);
+                const int mode = d.i4mode[blk];
+                if (mode == pred) w.put(1, 1);
                 else {
                     w.put(0, 1);
-                    w.put(d.i4mode[blk] < pred ? d.i4mode[blk] : d.i4mode[blk] - 1, 3);
+                    w.put(mode < pred ? mode : mode - 1, 3);
                 }
             }
         }
-        if (d.kind == kI4 || d.kind == kI16) {
+        if (is_intra(d.kind)) {
             w.ue(d.cmode);
         } else {
             Part parts[16];
@@ -843,22 +1202,31 @@ struct Encoder {
             }
         }
         if (d.kind != kI16) {
-            const u8* table = d.kind == kI4 ? kCbpIntra : kCbpInter;
+            const u8* table = is_nxn(d.kind) ? kCbpIntra : kCbpInter;
             int code = 0;
             while (table[code] != d.cbp) ++code;
             w.ue(code);
         }
+        if (d.kind == kInter && (d.cbp & 15) && s.sp.t8mode && t8_allowed(d)) w.put(d.t8, 1);
         if (d.cbp || d.kind == kI16) {
             const int delta = ((d.qp - qp_pred + 26 + 52) % 52) - 26;
             w.se(delta);
             ++cnt[kCntQp + d.qp];
+            ++cnt[kCntDqp + delta + 26];
             // the residual, as parse_residual reads it
             if (d.kind == kI16) write_block(w, d.ldc, 0, 16, nc_of(s, m, 0, 0, 0), kZigzag);
             for (int blk = 0; blk < 16; ++blk) {
                 if (!(d.cbp >> (blk >> 2) & 1)) continue;
                 const int nc = nc_of(s, m, 0, kBlkX[blk], kBlkY[blk]);
-                if (d.kind == kI16) write_block(w, d.luma[blk], 1, 15, nc, kZigzag);
-                else write_block(w, d.luma[blk], 0, 16, nc, kZigzag);
+                if (d.t8) {
+                    int lv[16];
+                    for (int k = 0; k < 16; ++k) lv[k] = d.luma8[blk >> 2][kZigzag8[4 * k + (blk & 3)]];
+                    write_list(w, lv, 16, nc);
+                } else if (d.kind == kI16) {
+                    write_block(w, d.luma[blk], 1, 15, nc, kZigzag);
+                } else {
+                    write_block(w, d.luma[blk], 0, 16, nc, kZigzag);
+                }
             }
             const int cc = d.cbp >> 4;
             if (cc & 3)
@@ -870,12 +1238,255 @@ struct Encoder {
         }
     }
 
+    // ------------------------------------------------------------ CABAC syntax
+
+    // residual_block_cabac of a coefficient list (maxc entries); cbf_ctx
+    // < 0: no coded_block_flag (an 8x8 block)
+    void cabac_list(const int* lv, int maxc, int cat, int cbf_ctx) {
+        int last = -1;
+        for (int k = 0; k < maxc; ++k)
+            if (lv[k]) last = k;
+        if (cbf_ctx >= 0) cb.decision(cbf_ctx, last >= 0);
+        if (last < 0) return;
+        const int sig = kSigBase[cat], lastb = kLastBase[cat], absb = kAbsBase[cat];
+        for (int i = 0; i < maxc - 1; ++i) {
+            const int inc = cat == 5 ? kSig8[i] : cat == 3 ? std::min(i, 2) : i;
+            cb.decision(sig + inc, lv[i] != 0);
+            if (lv[i]) {
+                const int linc = cat == 5 ? kLast8[i] : cat == 3 ? std::min(i, 2) : i;
+                cb.decision(lastb + linc, i == last);
+                if (i == last) break;
+            }
+        }
+        int gt1 = 0, eq1 = 0;
+        for (int j = last; j >= 0; --j) {
+            if (!lv[j]) continue;
+            const int v = std::abs(lv[j]) - 1;
+            cb.decision(absb + (gt1 ? 0 : std::min(4, 1 + eq1)), v > 0);
+            if (v > 0) {
+                const int ctx = absb + 5 + std::min(4 - (cat == 3), gt1);
+                int k = 1;
+                for (; k < 14; ++k) {
+                    cb.decision(ctx, k < v);
+                    if (k >= v) break;
+                }
+                if (v >= 14) {
+                    cb.eg(v - 14, 0);
+                    ++cnt[kCntAbs];
+                }
+                ++gt1;
+            } else {
+                ++eq1;
+            }
+            cb.bypass(lv[j] < 0);
+        }
+    }
+
+    void cabac_mvd(int base, int sum, int v) {
+        const int a = std::abs(v);
+        cb.decision(base + (sum < 3 ? 0 : sum <= 32 ? 1 : 2), a > 0);
+        if (!a) return;
+        int k = 1, ctx = base + 3;
+        while (k < 9) {
+            cb.decision(ctx, k < a);
+            if (k >= a) break;
+            if (k < 4) ++ctx;
+            ++k;
+        }
+        if (a >= 9) {
+            cb.eg(a - 9, 3);
+            ++cnt[kCntMvd];
+        }
+        cb.bypass(v < 0);
+    }
+
+    void write_mb_cabac(Writer& w, const MbData& d, int qp_pred, int& last_dqp) {
+        Slot& c = *s.cur;
+        const int A = nb_mb(s, m, -1, 0), B = nb_mb(s, m, 0, -1);
+        const bool intra = is_intra(d.kind);
+        // mb_type
+        if (d.kind == kInter) {
+            cb.decision(14, 0);
+            if (d.ptype == 0 || d.ptype == 3) {
+                cb.decision(15, 0);
+                cb.decision(16, d.ptype == 3);
+            } else {
+                cb.decision(15, 1);
+                cb.decision(17, d.ptype == 1);
+            }
+        } else {
+            int c0, cl, cc1, cc2, cm1, cm2;
+            if (intra_slice) {
+                auto term = [&](int n) { return n >= 0 && !is_nxn(c.kind[n]); };
+                c0 = 3 + term(A) + term(B);
+                cl = 6; cc1 = 7; cc2 = 8; cm1 = 9; cm2 = 10;
+            } else {
+                cb.decision(14, 1);
+                c0 = 17; cl = 18; cc1 = 19; cc2 = 19; cm1 = 20; cm2 = 20;
+            }
+            cb.decision(c0, !is_nxn(d.kind));
+            if (!is_nxn(d.kind)) {
+                cb.terminate(d.kind == kPcm);
+                if (d.kind == kPcm) {
+                    w.align_zero();
+                    for (int i = 0; i < 384; ++i) w.put(d.pcm[i], 8);
+                    cb.init_engine();
+                    ++cnt[kCntPcmMid];
+                    last_dqp = 0;
+                    return;
+                }
+                cb.decision(cl, (d.cbp & 15) != 0);
+                cb.decision(cc1, (d.cbp >> 4) != 0);
+                if (d.cbp >> 4) cb.decision(cc2, (d.cbp >> 4) == 2);
+                cb.decision(cm1, d.i16mode >> 1);
+                cb.decision(cm2, d.i16mode & 1);
+            }
+        }
+        const int nref = s.sp.nref;
+        if (is_nxn(d.kind)) {
+            if (s.sp.t8mode) cb.decision(399 + (A >= 0 && c.t8[A]) + (B >= 0 && c.t8[B]), d.kind == kI8);
+            for (int blk = 0; blk < (d.kind == kI8 ? 4 : 16); ++blk) {
+                const int bx = d.kind == kI8 ? (blk & 1) * 2 : kBlkX[blk];
+                const int by = d.kind == kI8 ? (blk >> 1) * 2 : kBlkY[blk];
+                const int pred = i4_predicted(s, m, bx, by);
+                const int mode = d.i4mode[blk];
+                cb.decision(68, mode == pred);
+                if (mode != pred) {
+                    const int r = mode < pred ? mode : mode - 1;
+                    for (int k = 0; k < 3; ++k) cb.decision(69, (r >> k) & 1);
+                }
+            }
+        }
+        if (intra) {
+            const int t = (A >= 0 && c.cmode[A]) + (B >= 0 && c.cmode[B]);
+            cb.decision(64 + t, d.cmode > 0);
+            for (int k = 1; k < 3 && d.cmode >= k; ++k) cb.decision(67, d.cmode > k);
+        } else {
+            if (d.ptype == 3)
+                for (int i = 0; i < 4; ++i) {
+                    cb.decision(21, d.sub[i] == 0);
+                    if (d.sub[i] == 0) continue;
+                    cb.decision(22, d.sub[i] != 1);
+                    if (d.sub[i] != 1) cb.decision(23, d.sub[i] == 2);
+                }
+            const int nown = d.ptype == 0 ? 1 : d.ptype < 3 ? 2 : 4;
+            if (nref > 1)
+                for (int i = 0; i < nown; ++i) {
+                    const int x0 = d.ptype == 2 ? i * 2 : d.ptype == 3 ? (i & 1) * 2 : 0;
+                    const int y0 = d.ptype == 1 ? i * 2 : d.ptype == 3 ? (i >> 1) * 2 : 0;
+                    int na, ba, nbm, bb;
+                    const bool aa = nb_block(s, m, x0 - 1, y0, na, ba), ab = nb_block(s, m, x0, y0 - 1, nbm, bb);
+                    const int ta = aa && c.ref[std::size_t(na) * 16 + ba] > 0;
+                    const int tb = ab && c.ref[std::size_t(nbm) * 16 + bb] > 0;
+                    const int r = d.ref[i];
+                    cb.decision(54 + ta + 2 * tb, r > 0);
+                    for (int k = 1; r > 0; ++k) {
+                        cb.decision(k == 1 ? 58 : 59, k < r);
+                        if (k >= r) break;
+                    }
+                }
+            Part parts[16];
+            const int n = partitions(d, parts);
+            for (int p = 0; p < n; ++p) {
+                const int bx = parts[p].x / 4, by = parts[p].y / 4;
+                int na, ba, nbm, bb;
+                const bool aa = nb_block(s, m, bx - 1, by, na, ba), ab = nb_block(s, m, bx, by - 1, nbm, bb);
+                for (int comp = 0; comp < 2; ++comp) {
+                    const int sum = (aa ? c.mvd[std::size_t(na) * 32 + ba * 2 + comp] : 0) +
+                                    (ab ? c.mvd[std::size_t(nbm) * 32 + bb * 2 + comp] : 0);
+                    cabac_mvd(comp ? 47 : 40, sum, d.mvd[p][comp]);
+                }
+            }
+        }
+        if (d.kind != kI16) {
+            auto luma_term = [&](int n, int bit) { return n >= 0 && !(c.cbp[n] >> bit & 1); };
+            for (int b8 = 0; b8 < 4; ++b8) {
+                const int ta = (b8 & 1) ? !(d.cbp >> (b8 - 1) & 1) : luma_term(A, b8 + 1);
+                const int tb = (b8 & 2) ? !(d.cbp >> (b8 - 2) & 1) : luma_term(B, b8 + 2);
+                cb.decision(73 + ta + 2 * tb, d.cbp >> b8 & 1);
+            }
+            const int ca = A >= 0 ? c.cbp[A] >> 4 : 0, cbb = B >= 0 ? c.cbp[B] >> 4 : 0;
+            cb.decision(77 + (ca != 0) + 2 * (cbb != 0), (d.cbp >> 4) != 0);
+            if (d.cbp >> 4) cb.decision(81 + (ca == 2) + 2 * (cbb == 2), (d.cbp >> 4) == 2);
+        }
+        if (d.kind == kInter && (d.cbp & 15) && s.sp.t8mode && t8_allowed(d))
+            cb.decision(399 + (A >= 0 && c.t8[A]) + (B >= 0 && c.t8[B]), d.t8);
+        if (!(d.cbp || d.kind == kI16)) {
+            last_dqp = 0;
+            return;
+        }
+        const int delta = ((d.qp - qp_pred + 26 + 52) % 52) - 26;
+        ++cnt[kCntQp + d.qp];
+        ++cnt[kCntDqp + delta + 26];
+        const int k = delta > 0 ? 2 * delta - 1 : -2 * delta;
+        int ctx = 60 + (last_dqp != 0);
+        for (int i = 0; i < k; ++i) {
+            cb.decision(ctx, 1);
+            ctx = ctx < 62 ? 62 : 63;
+        }
+        cb.decision(ctx, 0);
+        last_dqp = delta;
+        // the residual, as cabac_residual reads it
+        auto dc_term = [&](int n, int bit) { return n < 0 ? int(intra) : (c.cbfdc[n] >> bit & 1); };
+        int lv[64];
+        if (d.kind == kI16) {
+            for (int k2 = 0; k2 < 16; ++k2) lv[k2] = d.ldc[kZigzag[k2]];
+            cabac_list(lv, 16, 0, kCbfBase[0] + dc_term(A, 0) + 2 * dc_term(B, 0));
+        }
+        for (int b8 = 0; b8 < 4; ++b8) {
+            if (!(d.cbp >> b8 & 1)) continue;
+            if (d.t8) {
+                for (int k2 = 0; k2 < 64; ++k2) lv[k2] = d.luma8[b8][kZigzag8[k2]];
+                cabac_list(lv, 64, 5, -1);
+                continue;
+            }
+            for (int blk = b8 * 4; blk < b8 * 4 + 4; ++blk) {
+                const int bx = kBlkX[blk], by = kBlkY[blk];
+                int na, ba, nbm, bb;
+                const bool aa = nb_block(s, m, bx - 1, by, na, ba), ab = nb_block(s, m, bx, by - 1, nbm, bb);
+                const int ta = cbf_term(aa, intra, aa ? c.nnz[std::size_t(na) * 24 + ba] : 0);
+                const int tb = cbf_term(ab, intra, ab ? c.nnz[std::size_t(nbm) * 24 + bb] : 0);
+                const int cat = d.kind == kI16 ? 1 : 2;
+                const int i16 = d.kind == kI16;
+                for (int k2 = 0; k2 < 16 - i16; ++k2) lv[k2] = d.luma[blk][kZigzag[k2 + i16]];
+                cabac_list(lv, 16 - i16, cat, kCbfBase[cat] + ta + 2 * tb);
+            }
+        }
+        const int cc = d.cbp >> 4;
+        if (cc)
+            for (int k2 = 0; k2 < 2; ++k2) {
+                for (int j = 0; j < 4; ++j) lv[j] = d.cdc[k2][j];
+                cabac_list(lv, 4, 3, kCbfBase[3] + dc_term(A, 1 + k2) + 2 * dc_term(B, 1 + k2));
+            }
+        if (cc == 2)
+            for (int k2 = 0; k2 < 2; ++k2)
+                for (int blk = 0; blk < 4; ++blk) {
+                    const int bx = blk & 1, by = blk >> 1;
+                    auto term = [&](int x, int y) {
+                        int dx = 0, dy = 0;
+                        if (x < 0) { dx = -1; x += 2; }
+                        if (y < 0) { dy = -1; y += 2; }
+                        const int n = dx || dy ? nb_mb(s, m, dx, dy) : m.addr;
+                        return cbf_term(n >= 0, intra, n >= 0 ? c.nnz[std::size_t(n) * 24 + 16 + k2 * 4 + y * 2 + x] : 0);
+                    };
+                    for (int j = 0; j < 15; ++j) lv[j] = d.cac[k2][blk][kZigzag[j + 1]];
+                    cabac_list(lv, 15, 4, kCbfBase[4] + term(bx - 1, by) + 2 * term(bx, by - 1));
+                }
+    }
+
     // code MBs [first, last) of the slice into w
     void slice(Writer& w, int last) {
         Slot& c = *s.cur;
         int qp = s.sp.qp;
-        int run = 0;
+        int run = 0, last_dqp = 0;
         MbData d;
+        if (s.sp.cabac) {
+            while (w.n) w.put(1, 1);   // cabac_alignment_one_bit
+            cb.w = &w;
+            cb.cnt = cnt;
+            cb.init_contexts(intra_slice, s.sp.init_idc, qp);
+            cb.init_engine();
+        }
         for (int a = s.sp.first_mb; a < last; ++a) {
             m = MbPos{a, a % c.mbw, a / c.mbw};
             c.slice[a] = static_cast<std::int16_t>(s.index);
@@ -884,7 +1495,14 @@ struct Encoder {
             if (d.kind == kSkip) {
                 std::memset(&c.nnz[std::size_t(a) * 24], 0, 24);
                 rebuild(d);
+                store_mb(c, a, d);
                 c.qp[a] = static_cast<std::int8_t>(qp);
+                if (s.sp.cabac) {
+                    const int A = nb_mb(s, m, -1, 0), B = nb_mb(s, m, 0, -1);
+                    cb.decision(11 + (A >= 0 && c.kind[A] != kSkip) + (B >= 0 && c.kind[B] != kSkip), 1);
+                    last_dqp = 0;
+                    cb.terminate(a == last - 1);
+                }
                 ++run;
                 continue;
             }
@@ -894,12 +1512,26 @@ struct Encoder {
                 if (!d.cbp && d.kind != kI16) d.qp = qp;   // no mb_qp_delta: the QP stays
                 c.qp[a] = static_cast<std::int8_t>(d.qp);
             }
-            if (!intra_slice) {
-                w.ue(run);
-                run = 0;
+            store_mb(c, a, d);
+            if (s.sp.cabac) {
+                if (!intra_slice) {
+                    const int A = nb_mb(s, m, -1, 0), B = nb_mb(s, m, 0, -1);
+                    cb.decision(11 + (A >= 0 && c.kind[A] != kSkip) + (B >= 0 && c.kind[B] != kSkip), 0);
+                }
+                write_mb_cabac(w, d, qp, last_dqp);
+                cb.terminate(a == last - 1);
+            } else {
+                if (!intra_slice) {
+                    w.ue(run);
+                    run = 0;
+                }
+                write_mb(w, d, qp);
             }
-            write_mb(w, d, qp);
             if (d.kind != kPcm) qp = d.qp;
+        }
+        if (s.sp.cabac) {
+            w.align_zero();   // the flush wrote the stop bit
+            return;
         }
         if (!intra_slice && run) w.ue(run);
         w.trailing();
@@ -933,23 +1565,11 @@ long long clt_h264enc_slice(void* h, int slot, int index, const unsigned char* y
     if (index == 0) c.reset();
     e.s.cur = &c;
     e.s.index = index;
-    const int* p = params;
     SliceParams& sp = e.s.sp;
-    sp.first_mb = p[0];
-    sp.type = p[1];
-    sp.qp = p[2];
-    sp.disable = p[3];
-    sp.off_a = p[4];
-    sp.off_b = p[5];
-    sp.cqp[0] = p[6];
-    sp.cqp[1] = p[7];
-    sp.cip = p[8];
-    sp.nref = p[9];
-    for (int r = 0; r < 32; ++r) {
-        sp.refs[r] = p[10 + r];
-        sp.ids[r] = p[42 + r];
+    read_params(params, sp);
+    e.s.sc.set(sp);
+    for (int r = 0; r < 32; ++r)
         e.s.refs[r] = (r < sp.nref && sp.refs[r] >= 0) ? dec.slots[sp.refs[r]].get() : nullptr;
-    }
     e.intra_slice = sp.type == 2;
     e.sy = y;
     e.su = u;
@@ -971,17 +1591,7 @@ long long clt_h264enc_slice(void* h, int slot, int index, const unsigned char* y
 void clt_h264enc_deblock(void* h, int slot, const int* params, int ns) {
     Decoder& dec = *static_cast<Decoder*>(h);
     std::vector<SliceParams> sps(ns);
-    for (int i = 0; i < ns; ++i) {
-        const int* p = params + kParams * i;
-        sps[i].first_mb = p[0];
-        sps[i].type = p[1];
-        sps[i].qp = p[2];
-        sps[i].disable = p[3];
-        sps[i].off_a = p[4];
-        sps[i].off_b = p[5];
-        sps[i].cqp[0] = p[6];
-        sps[i].cqp[1] = p[7];
-    }
+    for (int i = 0; i < ns; ++i) read_params(params + kParams * i, sps[i]);
     deblock(*dec.slots[slot], sps.data());
 }
 

@@ -1,5 +1,5 @@
-"""H.264 test streams of the Constrained Baseline tools, and the AVI, MP4
-and Matroska files that carry them.
+"""H.264 test streams of the Constrained Baseline, Main and High tools of
+I and P slices, and the AVI, MP4 and Matroska files that carry them.
 
 cv2's FFmpeg here has the h264 decoder but no H.264 encoder, so the tests
 make their streams here: this module writes the parameter sets and the
@@ -8,10 +8,14 @@ picture buffer through the port's own stream layer (``h264_plain.Stream``,
 which gives each slice its reference list and each picture its frame
 slot), and has ``tests/_torch_h264_enc.cpp`` code the slice data with
 seeded choices over every tool (:class:`Options`) and reconstruct the
-pictures.  :func:`encode` returns the samples (one picture each, as NAL
+pictures: CAVLC, or CABAC through that file's arithmetic encoder (its own
+engine, the decoder's context tables), Intra 4x4 / 8x8 / 16x16, the 4x4
+and the forward 8x8 transform, scaling matrices (:class:`Config`'s
+``sps_lists`` and ``pps_lists``) and explicit weights
+(:class:`PicPlan`'s ``weights``).  :func:`encode` returns the samples (one picture each, as NAL
 units), the reconstruction (what a decoder gives, cropped as FFmpeg crops
 it) and the counts of what was written (CAVLC codes, macroblock kinds,
-QPs: :func:`coverage`).
+QPs, the CABAC contexts coded with: :func:`coverage`).
 
 The writer and the port's decoder share the stream layer and the code
 tables, so the tests hold every stream to ``cv2.VideoCapture`` (and to
@@ -31,7 +35,8 @@ import numpy as np
 
 from camera_linearity_tpu_torch.native import h264_plain as hp
 
-__all__ = ["Options", "Config", "PicPlan", "encode", "annexb",
+__all__ = ["Options", "Config", "PicPlan", "encode", "annexb", "high_config",
+           "high_sink", "high_coverage_plans", "weight_plans",
            "length_prefixed", "avcc", "write_h264_avi", "write_h264_mp4",
            "write_h264_mkv", "coverage", "scene", "native_encoder",
            "i420_planes", "kitchen_sink"]
@@ -62,6 +67,9 @@ class Options(NamedTuple):
     p_subpel: int = 500
     zero_mv: int = 0
     sub_mask: int = 15
+    p_i8: int = 400      # Intra NxN macroblocks of the 8x8 transform
+    p_t8: int = 500      # inter macroblocks of the 8x8 transform (where allowed)
+    qp_step: int = 1     # the QP sweep's step (p_dqp 1000)
 
 
 class Config(NamedTuple):
@@ -95,11 +103,20 @@ class Config(NamedTuple):
     pps_id: int = 0
     # what the SPS and PPS write besides (for streams the decoder
     # refuses, and the High profile's fields): ("chroma_format", 2),
-    # ("bit_depth", 10), ("bypass", 1), ("scaling", 1),
-    # ("frame_mbs_only", 0); ("cabac", 1), ("slice_groups", 2),
-    # ("weighted", 1), ("transform_8x8", 1), ("pic_scaling", 1),
-    # ("second_cqp", v) (the PPS's High-profile extension)
+    # ("bit_depth", 10), ("bypass", 1), ("frame_mbs_only", 0),
+    # ("mbaff", 1); ("slice_groups", 2), ("second_cqp", v) (the PPS's
+    # High-profile extension)
     tweaks: Tuple[Tuple[str, int], ...] = ()
+    cabac: bool = False
+    transform_8x8: bool = False
+    weighted: bool = False
+    weighted_bipred: int = 0
+    # scaling lists (None: no matrix flag; else eight entries for the SPS,
+    # six or eight for the PPS, each None (not present), "default"
+    # (useDefaultScalingMatrixFlag) or its values in zigzag order, which
+    # may stop short: the rest repeat the last)
+    sps_lists: Optional[Tuple] = None
+    pps_lists: Optional[Tuple] = None
 
 
 class PicPlan(NamedTuple):
@@ -127,6 +144,13 @@ class PicPlan(NamedTuple):
     beta: int = 0
     opts: Options = Options()
     redundant: int = 0
+    cabac_init_idc: int = 0
+    # pred_weight_table where the PPS has weighted_pred_flag: (luma denom,
+    # chroma denom, entries): an entry a reference index, (luma, chroma)
+    # with luma (weight, offset) or None and chroma (Cb weight, offset,
+    # Cr weight, offset) or None (their flags 0); indices past the entries
+    # take no weights
+    weights: Optional[Tuple] = None
 
 
 class _Bits:
@@ -174,12 +198,14 @@ def _sps(c: Config) -> bytes:
     b.ue(c.sps_id)
     if c.profile in (100, 110, 122, 244, 44, 83, 86, 118, 128):
         b.ue(t.get("chroma_format", 1))
+        if t.get("chroma_format", 1) == 3:
+            b.u(0, 1)
         b.ue(t.get("bit_depth", 8) - 8)
         b.ue(t.get("bit_depth", 8) - 8)
         b.u(t.get("bypass", 0), 1)
-        b.u(t.get("scaling", 0), 1)
-        if t.get("scaling", 0):
-            b.u(0, 8)      # no list present: the flat defaults
+        b.u(int(c.sps_lists is not None), 1)
+        if c.sps_lists is not None:
+            _write_lists(b, c.sps_lists)
     b.ue(c.log2_max_frame_num - 4)
     b.ue(c.poc_type)
     if c.poc_type == 0:
@@ -197,7 +223,7 @@ def _sps(c: Config) -> bytes:
     b.ue(mbh - 1)
     b.u(t.get("frame_mbs_only", 1), 1)
     if not t.get("frame_mbs_only", 1):
-        b.u(0, 1)          # mb_adaptive_frame_field_flag
+        b.u(t.get("mbaff", 0), 1)     # mb_adaptive_frame_field_flag
     b.u(1, 1)              # direct_8x8_inference_flag
     if any(c.crop):
         b.u(1, 1)
@@ -245,7 +271,7 @@ def _pps(c: Config) -> bytes:
     b = _Bits()
     b.ue(c.pps_id)
     b.ue(c.sps_id)
-    b.u(t.get("cabac", 0), 1)
+    b.u(int(c.cabac), 1)
     b.u(int(c.bottom_poc), 1)
     b.ue(t.get("slice_groups", 1) - 1)
     if t.get("slice_groups", 1) > 1:
@@ -254,21 +280,39 @@ def _pps(c: Config) -> bytes:
             b.ue(0)
     b.ue(c.num_ref_idx - 1)
     b.ue(0)
-    b.u(t.get("weighted", 0), 1)
-    b.u(0, 2)
+    b.u(int(c.weighted), 1)
+    b.u(c.weighted_bipred, 2)
     b.se(c.init_qp - 26)
     b.se(0)
     b.se(c.cqp)
     b.u(int(c.deblock_control), 1)
     b.u(int(c.cip), 1)
     b.u(int(c.redundant_present), 1)
-    if "transform_8x8" in t or "pic_scaling" in t or "second_cqp" in t:
-        b.u(t.get("transform_8x8", 0), 1)
-        b.u(t.get("pic_scaling", 0), 1)
-        if t.get("pic_scaling", 0):
-            b.u(0, 6 + 2 * t.get("transform_8x8", 0))
+    if c.transform_8x8 or c.pps_lists is not None or "second_cqp" in t:
+        b.u(int(c.transform_8x8), 1)
+        b.u(int(c.pps_lists is not None), 1)
+        if c.pps_lists is not None:
+            _write_lists(b, c.pps_lists)
         b.se(t.get("second_cqp", c.cqp))
     return nal(hp.NAL_PPS, 3, b.rbsp())
+
+
+def _write_lists(b: _Bits, lists) -> None:
+    """scaling_list() entries (see Config.sps_lists)."""
+    for i, lst in enumerate(lists):
+        b.u(int(lst is not None), 1)
+        if lst is None:
+            continue
+        size = 16 if i < 6 else 64
+        if lst == "default":
+            b.se(-8)           # nextScale 0 at j 0
+            continue
+        last = 8
+        for v in lst:
+            b.se((v - last + 128) % 256 - 128)
+            last = v
+        if len(lst) < size:
+            b.se((0 - last + 128) % 256 - 128)   # nextScale 0: the rest repeat
 
 
 def _mbs(c: Config) -> Tuple[int, int]:
@@ -339,6 +383,8 @@ def _slice_header(c: Config, p: PicPlan, first_mb: int, frame_num: int,
         if p.num_ref is not None:
             b.u(1, 1)
             b.ue(p.num_ref - 1)
+            if p.kind == "B":
+                b.ue(0)
         else:
             b.u(0, 1)
         if p.modifications:
@@ -349,6 +395,11 @@ def _slice_header(c: Config, p: PicPlan, first_mb: int, frame_num: int,
             b.ue(3)
         else:
             b.u(0, 1)
+        if p.kind == "B":
+            b.u(0, 1)          # ref_pic_list_modification_flag_l1
+        if (c.weighted and p.kind == "P") or (c.weighted_bipred == 1 and
+                                              p.kind == "B"):
+            _write_weights(b, p, c)
     if p.ref_idc:
         if p.kind == "IDR":
             b.u(0, 1)
@@ -361,6 +412,8 @@ def _slice_header(c: Config, p: PicPlan, first_mb: int, frame_num: int,
             b.ue(0)
         else:
             b.u(0, 1)
+    if c.cabac and p.kind not in ("IDR", "I", "SI"):
+        b.ue(p.cabac_init_idc)
     b.se(p.qp - c.init_qp)
     if c.deblock_control:
         b.ue(p.disable)
@@ -368,6 +421,25 @@ def _slice_header(c: Config, p: PicPlan, first_mb: int, frame_num: int,
             b.se(p.alpha)
             b.se(p.beta)
     return b.raw()
+
+
+def _write_weights(b: _Bits, p: PicPlan, c: Config) -> None:
+    lwd, cwd, entries = p.weights or (0, 0, ())
+    n = p.num_ref if p.num_ref is not None else c.num_ref_idx
+    b.ue(lwd)
+    b.ue(cwd)
+    lists = 2 if p.kind == "B" else 1
+    for _ in range(lists):
+        for i in range(n):
+            luma, chroma = entries[i] if i < len(entries) else (None, None)
+            b.u(int(luma is not None), 1)
+            if luma is not None:
+                b.se(luma[0])
+                b.se(luma[1])
+            b.u(int(chroma is not None), 1)
+            if chroma is not None:
+                for v in chroma:
+                    b.se(v)
 
 
 def i420_planes(bgr: np.ndarray) -> Tuple[np.ndarray, ...]:
@@ -579,7 +651,9 @@ def write_h264_mkv(path: Path, samples: Sequence[Sequence[bytes]],
 _COUNTS = (("token", 4 * 68), ("dc_token", 20), ("zeros", 15 * 16),
            ("dc_zeros", 12), ("run", 7 * 15), ("prefix", 32), ("kind", 8),
            ("ptype", 5), ("sub", 4), ("i4", 9), ("i16", 4), ("chroma", 4),
-           ("qp", 52), ("ref", 32), ("far", 1))
+           ("qp", 52), ("ref", 32), ("far", 1), ("ctx", 460), ("i8", 9),
+           ("t8", 2), ("dqp", 52), ("mvd_escape", 1), ("abs_escape", 1),
+           ("pcm_cabac", 1))
 
 
 def coverage(counts: np.ndarray) -> dict:
@@ -683,3 +757,75 @@ def slice_nal(config: Config, plan: PicPlan, frame_num: int = 1,
 def parameter_sets(config: Config) -> Tuple[bytes, bytes]:
     """The SPS and PPS NAL units of ``config``."""
     return _sps(config), _pps(config)
+
+
+def high_config(height: int, width: int, **kw) -> Config:
+    """A High-profile stream's parameter sets: CABAC, the 8x8 transform and
+    explicit weights unless ``kw`` says otherwise (level 4.0)."""
+    base = dict(profile=100, constraints=0, level=40, cabac=True,
+                transform_8x8=True, weighted=True)
+    base.update(kw)
+    return Config(height, width, **base)
+
+
+def weight_plans(n: int, seed: int = 0, num_ref: int = 3):
+    """``n`` pred_weight_tables of P pictures: the denominators through 0-7
+    (luma up, chroma down), weights below zero and past 1 << denom,
+    offsets of either sign, flags off for some indices."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        lwd, cwd = k % 8, 7 - k % 8
+        ents = []
+        for i in range(num_ref):
+            pick = (k + i) % 4
+            luma = None if pick == 3 else (
+                int(rng.integers(-128, 128)) if pick == 0 else
+                min((1 << lwd) + int(rng.integers(-3, 4)), 127),
+                int(rng.integers(-40, 41)))
+            chroma = None if pick == 2 else (
+                int(rng.integers(-128, 128)), int(rng.integers(-30, 31)),
+                min(max((1 << cwd) - 2, -128), 127),
+                int(rng.integers(-30, 31)))
+            ents.append((luma, chroma))
+        out.append((lwd, cwd, tuple(ents)))
+    return out
+
+
+def high_sink(seed: int = 0, coverage: int = 0, qp: Tuple[int, int] = (
+        16, 40), **opts) -> List[PicPlan]:
+    """:func:`kitchen_sink` with a High stream's slice fields: each P
+    picture's cabac_init_idc (0-2 in turn) and weights
+    (:func:`weight_plans`), and a last picture whose reference list holds
+    the previous picture twice (x264's ``--weightp 2`` duplicate), each
+    copy weighted its own way."""
+    o = Options(seed=seed, coverage=coverage, qp_min=qp[0], qp_max=qp[1],
+                **opts)
+    plans = kitchen_sink(seed, coverage, qp, **opts)
+    weights = iter(weight_plans(len(plans), seed, 3))
+    out = []
+    for k, p in enumerate(plans):
+        if p.kind == "P":
+            lwd, cwd, ents = next(weights)
+            p = p._replace(cabac_init_idc=k % 3,
+                           weights=(lwd, cwd, ents[:p.num_ref or 1]))
+        out.append(p)
+    out.append(PicPlan("P", 2, 27, (), num_ref=3, opts=o,
+                       modifications=((0, 0), (0, 15)), cabac_init_idc=1,
+                       weights=(5, 3, (((40, 3), None),
+                                       ((20, -9), (10, 2, 6, -3)),
+                                       ((33, 1), None)))))
+    return out
+
+
+# the seed whose High coverage stream (64 x 48, its scene of that seed)
+# codes with every context of a frame-coded 4:2:0 I or P slice
+HIGH_COVERAGE_SEED = 10
+
+
+def high_coverage_plans(seed: int = HIGH_COVERAGE_SEED) -> List[PicPlan]:
+    """:func:`high_sink` in the encoder's coverage mode: every MB at the
+    next QP of 0-51, intra, Intra16x16 and I_PCM macroblocks more often,
+    coefficients at every position, levels past the prefix."""
+    return high_sink(seed, coverage=400, qp=(0, 51), p_dqp=1000,
+                     p_i16=400, p_intra=150, p_pcm=30, p_far=60)

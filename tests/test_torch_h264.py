@@ -19,13 +19,16 @@ FFmpeg's own.  Tolerances:
   cv2;
 * every refused tool raises a ValueError naming it, before any decode
   where the parameter sets or the first slice header show it, naming the
-  frame (and the slice and the macroblock) where a later sample does;
+  frame (and the slice and the macroblock) where a later sample does; the
+  tools read since the Main and High profiles' (CABAC, weighted
+  prediction, the 8x8 transform, scaling matrices) read, equal to cv2;
 * the committed ``tests/data/h264 *`` clips decode to their ``.cv2.npy``
   (``python -m tests.test_torch_h264`` rewrites them), which
   ``chip_smoke.py`` holds the port to on the card's machine.
 
 The containers, the pipeline and the JAX package's cv2 path are in
-``tests/test_torch_h264_containers.py``.
+``tests/test_torch_h264_containers.py``, the Main and High profiles' tools
+in ``tests/test_torch_h264_high.py``.
 """
 from __future__ import annotations
 
@@ -282,24 +285,29 @@ def _refusal(name: str):
     sps_of = lambda **kw: hw.parameter_sets(cfg._replace(**kw))[0]
     pps_of = lambda **kw: hw.parameter_sets(cfg._replace(**kw))[1]
     high = dict(profile=100, constraints=0)
-    if name == "CABAC":
-        return _with_params(samples, pps=pps_of(tweaks=(("cabac", 1),))), \
-            "CABAC", None
     if name == "slice groups":
         return _with_params(samples, pps=pps_of(
             tweaks=(("slice_groups", 2),))), "slice groups", None
-    if name == "weighted prediction":
-        return _with_params(samples, pps=pps_of(
-            tweaks=(("weighted", 1),))), "weighted prediction", None
-    if name == "8x8 transform":
-        return _with_params(samples, sps_of(**high), pps_of(
-            **high, tweaks=(("transform_8x8", 1),))), "8x8 transform", None
-    if name == "PPS scaling matrices":
-        return _with_params(samples, sps_of(**high), pps_of(
-            **high, tweaks=(("pic_scaling", 1),))), "scaling matrices", None
-    if name == "SPS scaling matrices":
+    if name == "CABAC B slice":
+        cfg, samples, _ = _base(dict(cabac=True, profile=77, constraints=0))
+        bad = hw.slice_nal(cfg, hw.PicPlan("B", 2, 28))
+        return [samples[0], [bad]], "B slices", 1
+    if name == "CABAC MBAFF":
+        return _with_params(samples, sps_of(tweaks=(
+            ("frame_mbs_only", 0), ("mbaff", 1))), pps_of(cabac=True)), \
+            "MBAFF", None
+    if name == "weighted_bipred_idc B slice":
+        cfg, samples, _ = _base(dict(weighted_bipred=1, profile=77,
+                                     constraints=0))
+        bad = hw.slice_nal(cfg, hw.PicPlan("B", 2, 28))
+        return [samples[0], [bad]], "weighted_bipred_idc 1", 1
+    if name == "High 4:2:2":
+        return _with_params(samples, sps_of(profile=122, constraints=0,
+                                            tweaks=(("chroma_format", 2),))), \
+            "chroma_format_idc 2", None
+    if name == "monochrome":
         return _with_params(samples, sps_of(**high, tweaks=(
-            ("scaling", 1),))), "scaling matrices", None
+            ("chroma_format", 0),))), "monochrome", None
     if name == "10-bit":
         return _with_params(samples, sps_of(**high, tweaks=(
             ("bit_depth", 10),))), "bit depth of 10", None
@@ -362,7 +370,36 @@ REFUSALS = ["CABAC", "slice groups", "weighted prediction", "8x8 transform",
             "full-range BT.709", "B slice", "SP slice", "SI slice",
             "B slice first", "redundant picture", "data partitioning",
             "gap in frame_num", "POC that decreases", "no IDR first",
-            "two pictures a sample", "truncated slice", "missing slice"]
+            "two pictures a sample", "truncated slice", "missing slice",
+            "CABAC B slice", "CABAC MBAFF", "weighted_bipred_idc B slice",
+            "High 4:2:2", "monochrome"]
+
+# tools the decoder reads since the Main and High profiles, once refused:
+# the Config a stream of them takes and the plans' weights
+_HIGH = dict(profile=100, constraints=0)
+READ = {
+    "CABAC": dict(profile=77, constraints=0, cabac=True),
+    "weighted prediction": dict(profile=77, constraints=0, weighted=True),
+    "8x8 transform": dict(_HIGH, transform_8x8=True),
+    "PPS scaling matrices": dict(_HIGH, transform_8x8=True, pps_lists=(
+        (9, 14, 30), None, "default", None, None, (40,) * 16, None,
+        tuple(range(8, 72)))),
+    "SPS scaling matrices": dict(_HIGH, sps_lists=(
+        (24,) * 16, "default", None, (7, 30, 9), None, None, "default",
+        (50, 12)))}
+
+
+def _read(name: str):
+    """The samples of a stream of a tool in READ."""
+    h, w = 48, 64
+    o = hw.Options(seed=3)
+    wts = hw.weight_plans(3, 3, 1)
+    plans = [hw.PicPlan("IDR", 3, 28, opts=o)] + [
+        hw.PicPlan("P", 2, 28, slices=(0, 6) if k == 0 else (), opts=o,
+                   weights=wts[k], cabac_init_idc=k) for k in range(3)]
+    samples, _, _, _ = hw.encode(hw.scene(4, h, w), hw.Config(
+        h, w, **READ[name]), plans)
+    return samples
 
 
 def _no_decode(*args, **kw):
@@ -374,7 +411,23 @@ def test_refusal_names_the_tool(tmp_path, name, monkeypatch):
     """Each refused tool raises a ValueError naming it: before any decode
     where the parameter sets or the first slice header show it (the
     frame decoders blocked), else naming the frame; the plain decoder
-    names it too."""
+    names it too.  The tools read since (``READ``) read, native, plain
+    and through the frame generator (cv2 blocked) equal to cv2."""
+    if name in READ:
+        samples = _read(name)
+        path = tmp_path / "read.avi"
+        hw.write_h264_avi(path, samples, 48, 64)
+        assert avi.h264_unsupported(path, avi.probe_avi(path)) is None
+        ref = cv2_frames(path)
+        data = [hw.annexb(s) for s in samples]
+        assert len(ref) == len(data)
+        np.testing.assert_array_equal(native_frames(data, 48, 64), ref)
+        np.testing.assert_array_equal(np.stack(hp.decode_bgr(data)), ref)
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        np.testing.assert_array_equal(np.stack(
+            [f.copy() for f in tvideo.video_frame_generator(path)
+             if f is not None]), ref)
+        return
     samples, match, frame = _refusal(name)
     path = tmp_path / "refused.avi"
     hw.write_h264_avi(path, samples, 48, 64)

@@ -558,7 +558,8 @@ def test_the_cv2_message_names_every_codec_the_port_reads(monkeypatch):
     for words in ("Advanced Simple", "B-VOPs", "packed bitstreams",
                   "MPEG quantisation", "not quarter-pel or GMC"):
         assert words in message, words
-    # which H.264 streams: the Constrained Baseline tools, and what not
-    for words in ("V_MPEG4/ISO/AVC", "Constrained Baseline", "CAVLC",
-                  "not CABAC or B slices"):
+    # which H.264 streams: I and P slices of the Constrained Baseline,
+    # Main and High profiles, and what not
+    for words in ("V_MPEG4/ISO/AVC", "Constrained Baseline", "Main and High",
+                  "CABAC", "not B slices"):
         assert words in message, words
